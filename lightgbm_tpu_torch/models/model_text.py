@@ -1,0 +1,172 @@
+"""Model text serialization (LightGBM-compatible format, version v4).
+
+Reference: src/boosting/gbdt_model_text.cpp (SaveModelToString :311,
+LoadModelFromString :473) and Tree::ToString (tree.cpp:340).  For a
+model loaded from text, :func:`save_model_to_string` writes the same
+bytes as ``lightgbm_tpu.models.model_text`` does for the same loaded
+model, so one model file moves between the two packages unchanged.
+Writing a trained booster comes with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+from .tree import Tree
+
+MODEL_VERSION = "v4"
+
+
+def save_model_to_string(
+    booster,
+    start_iteration: int = 0,
+    num_iteration: int = -1,
+    feature_importance_type: int = 0,
+) -> str:
+    """``booster``: a loaded-model adapter with ``models``,
+    ``num_class``, ``num_tree_per_iteration``, ``objective``,
+    ``average_output``, ``feature_names``, ``feature_infos`` and
+    ``max_feature_idx`` (``basic._LoadedAdapter``)."""
+    feature_names = booster.feature_names
+    k = booster.num_tree_per_iteration
+
+    # the reference writes SubModelName() == "tree" as the first line
+    lines = ["tree"]
+    lines.append(f"version={MODEL_VERSION}")
+    lines.append(f"num_class={booster.num_class}")
+    lines.append(f"num_tree_per_iteration={k}")
+    lines.append("label_index=0")
+    lines.append(f"max_feature_idx={booster.max_feature_idx}")
+    if booster.objective is not None:
+        lines.append(f"objective={booster.objective}")
+    if booster.average_output:
+        lines.append("average_output")
+    lines.append("feature_names=" + " ".join(feature_names))
+    lines.append("feature_infos=" + " ".join(booster.feature_infos))
+
+    total_iter = len(booster.models) // max(k, 1)
+    start_iteration = max(0, min(start_iteration, total_iter))
+    num_used = len(booster.models)
+    if num_iteration > 0:
+        num_used = min((start_iteration + num_iteration) * k, num_used)
+    start_model = start_iteration * k
+
+    tree_strs = [booster.models[i].to_string(i - start_model)
+                 for i in range(start_model, num_used)]
+    lines.append("tree_sizes=" + " ".join(str(len(s)) for s in tree_strs))
+    lines.append("")
+    body = "\n".join(lines) + "\n" + "".join(tree_strs)
+    body += "end of trees\n"
+
+    # feature importances (split counts by default, gain if type 1)
+    imps = feature_importance(booster, num_iteration, feature_importance_type)
+    pairs = [(imps[i], feature_names[i]) for i in range(len(feature_names))
+             if imps[i] > 0]
+    pairs.sort(key=lambda p: -p[0])
+    body += "\nfeature_importances:\n"
+    for v, name in pairs:
+        body += f"{name}={int(v) if feature_importance_type == 0 else v}\n"
+    body += "\nparameters:\n" + _loaded_param_string(booster) + "\n"
+    body += "end of parameters\n"
+    return body
+
+
+def _loaded_param_string(booster) -> str:
+    """The ``parameters:`` body of a loaded model: the JAX package
+    writes the non-default fields of a fresh ``Config`` in which only
+    ``num_class`` is set, so that is all a loaded model keeps."""
+    if booster.num_class != 1:
+        return f"[num_class: {booster.num_class}]"
+    return ""
+
+
+def feature_importance(booster, num_iteration: int = -1,
+                       importance_type: int = 0) -> np.ndarray:
+    nf = booster.max_feature_idx + 1
+    k = booster.num_tree_per_iteration
+    models = booster.models
+    if num_iteration > 0:
+        models = models[:num_iteration * k]
+    out = np.zeros(nf)
+    for t in models:
+        if importance_type == 0:
+            out += t.feature_split_counts(nf)
+        else:
+            out += t.feature_split_gains(nf)
+    return out
+
+
+# ---------------------------------------------------------------------------
+class LoadedModel:
+    """A predictor-only booster parsed from model text
+    (reference GBDT::LoadModelFromString, gbdt_model_text.cpp:473)."""
+
+    def __init__(self):
+        self.models: List[Tree] = []
+        self.num_class = 1
+        self.num_tree_per_iteration = 1
+        self.max_feature_idx = 0
+        self.objective_str = ""
+        self.average_output = False
+        self.feature_names: List[str] = []
+        self.feature_infos: List[str] = []
+        self.params: Dict[str, str] = {}
+        self.boosting_type = "gbdt"
+
+
+def load_model_from_string(text: str) -> LoadedModel:
+    m = LoadedModel()
+    lines = text.split("\n")
+    i = 0
+    # header
+    if lines and lines[0].strip() in ("tree", "gbdt", "dart", "rf", "goss"):
+        m.boosting_type = lines[0].strip()
+        if m.boosting_type == "tree":
+            m.boosting_type = "gbdt"
+        i = 1
+    header: Dict[str, str] = {}
+    while i < len(lines):
+        line = lines[i].strip()
+        i += 1
+        if line.startswith("Tree="):
+            i -= 1
+            break
+        if line == "average_output":
+            m.average_output = True
+        elif "=" in line:
+            key, v = line.split("=", 1)
+            header[key] = v
+    m.num_class = int(header.get("num_class", 1))
+    m.num_tree_per_iteration = int(header.get("num_tree_per_iteration", 1))
+    m.max_feature_idx = int(header.get("max_feature_idx", 0))
+    m.objective_str = header.get("objective", "")
+    m.feature_names = header.get("feature_names", "").split()
+    m.feature_infos = header.get("feature_infos", "").split()
+
+    # trees
+    cur: List[str] = []
+    for line in lines[i:]:
+        s = line.strip()
+        if s == "end of trees":
+            if cur:
+                m.models.append(Tree.from_string("\n".join(cur)))
+            cur = []
+            break
+        if s.startswith("Tree=") and cur:
+            m.models.append(Tree.from_string("\n".join(cur)))
+            cur = [s]
+        elif s:
+            cur.append(s)
+    # parameters section
+    in_params = False
+    for line in lines[i:]:
+        s = line.strip()
+        if s == "parameters:":
+            in_params = True
+        elif s == "end of parameters":
+            in_params = False
+        elif in_params and s.startswith("[") and ": " in s:
+            key, v = s[1:-1].split(": ", 1)
+            m.params[key] = v
+    return m

@@ -1,0 +1,262 @@
+"""Host-side tree model: array-of-nodes, LightGBM text format, and the
+f64 host walk.
+
+Reference: include/LightGBM/tree.h:25 + src/io/tree.cpp.  Nodes carry
+original feature indices, real-valued thresholds, the ``decision_type``
+bit field (bit0 categorical, bit1 default_left, bits2-3 missing_type)
+and categorical bitsets over raw category values (tree.h:19-20,
+271-279; CategoricalDecision tree.h:375).  Serialisation matches
+Tree::ToString (tree.cpp:345-406) byte for byte with
+``lightgbm_tpu.models.tree``.  The host walk (:meth:`Tree.predict_leaf`)
+is the f64 reference every compiled serving path is held against.
+Building a tree from device arrays comes with the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..io.binning import MissingType
+from ..utils.log import LightGBMError
+
+_K_CATEGORICAL_MASK = 1
+_K_DEFAULT_LEFT_MASK = 2
+_K_ZERO_THRESHOLD = 1e-35
+
+
+@dataclasses.dataclass
+class Tree:
+    num_leaves: int = 1
+    # internal nodes [num_leaves - 1]
+    split_feature: np.ndarray = None     # original feature indices
+    threshold: np.ndarray = None         # float64 real threshold / cat slot idx
+    threshold_bin: np.ndarray = None     # int32 bin threshold (training space)
+    decision_type: np.ndarray = None     # uint8
+    split_gain: np.ndarray = None
+    left_child: np.ndarray = None        # int32, ~leaf encoding
+    right_child: np.ndarray = None
+    internal_value: np.ndarray = None
+    internal_weight: np.ndarray = None
+    internal_count: np.ndarray = None
+    # leaves [num_leaves]
+    leaf_value: np.ndarray = None
+    leaf_weight: np.ndarray = None
+    leaf_count: np.ndarray = None
+    # categorical split storage (tree.h cat_boundaries_/cat_threshold_)
+    num_cat: int = 0
+    cat_boundaries: np.ndarray = None    # int32 [num_cat + 1]
+    cat_threshold: np.ndarray = None     # uint32 bitset words over raw values
+    shrinkage: float = 1.0
+    is_linear: bool = False              # always False: see from_string
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def single_leaf(cls, value: float) -> "Tree":
+        t = cls(num_leaves=1)
+        t.split_feature = np.zeros(0, np.int32)
+        t.threshold = np.zeros(0, np.float64)
+        t.threshold_bin = np.zeros(0, np.int32)
+        t.decision_type = np.zeros(0, np.uint8)
+        t.split_gain = np.zeros(0, np.float64)
+        t.left_child = np.zeros(0, np.int32)
+        t.right_child = np.zeros(0, np.int32)
+        t.internal_value = np.zeros(0, np.float64)
+        t.internal_weight = np.zeros(0, np.float64)
+        t.internal_count = np.zeros(0, np.int64)
+        t.leaf_value = np.array([value], np.float64)
+        t.leaf_weight = np.zeros(1, np.float64)
+        t.leaf_count = np.zeros(1, np.int64)
+        t.num_cat = 0
+        t.cat_boundaries = np.array([0], np.int32)
+        t.cat_threshold = np.zeros(0, np.uint32)
+        return t
+
+    # ------------------------------------------------------------------
+    def _decide(self, node: int, fval: np.ndarray) -> np.ndarray:
+        """Vectorized Decision (tree.h:393) for one node over many rows.
+        Returns next node (or ~leaf) per row."""
+        d = int(self.decision_type[node])
+        left, right = self.left_child[node], self.right_child[node]
+        if d & _K_CATEGORICAL_MASK:
+            cat_idx = int(self.threshold[node])
+            lo = self.cat_boundaries[cat_idx]
+            hi = self.cat_boundaries[cat_idx + 1]
+            words = self.cat_threshold[lo:hi]
+            iv = np.where(np.isfinite(fval), fval, -1).astype(np.int64)
+            ok = (iv >= 0) & (iv < (hi - lo) * 32)
+            idx = np.clip(iv, 0, max((hi - lo) * 32 - 1, 0))
+            bit = (words[idx // 32] >> (idx % 32).astype(np.uint32)) & 1
+            return np.where(ok & (bit > 0), left, right)
+        missing_type = (d >> 2) & 3
+        default_left = bool(d & _K_DEFAULT_LEFT_MASK)
+        isnan = np.isnan(fval)
+        v = np.where(isnan & (missing_type != MissingType.NAN), 0.0, fval)
+        if missing_type == MissingType.ZERO:
+            is_default = np.abs(v) <= _K_ZERO_THRESHOLD
+        elif missing_type == MissingType.NAN:
+            is_default = isnan
+        else:
+            is_default = np.zeros(v.shape, bool)
+        go_left = np.where(is_default, default_left, v <= self.threshold[node])
+        return np.where(go_left, left, right)
+
+    def predict_leaf(self, X: np.ndarray) -> np.ndarray:
+        """Row -> leaf index: every row advances one level per pass with
+        per-row node parameters gathered up front."""
+        n = X.shape[0]
+        if self.num_leaves == 1:
+            return np.zeros(n, np.int32)
+        d = self.decision_type.astype(np.int64)
+        is_cat_node = (d & _K_CATEGORICAL_MASK) > 0
+        missing_type = (d >> 2) & 3
+        default_left = (d & _K_DEFAULT_LEFT_MASK) > 0
+        thr = self.threshold
+        lc, rc = self.left_child, self.right_child
+        sf = self.split_feature
+
+        node = np.zeros(n, np.int32)  # >= 0 internal, < 0 ~leaf
+        for _ in range(self.num_leaves):  # max depth bound
+            active = node >= 0
+            if not active.any():
+                break
+            rows = np.flatnonzero(active)
+            nd = node[rows]
+            fv = X[rows, sf[nd]]
+            t = thr[nd]
+            isnan = np.isnan(fv)
+            mt = missing_type[nd]
+            v = np.where(isnan & (mt != MissingType.NAN), 0.0, fv)
+            is_default = np.where(
+                mt == MissingType.ZERO, np.abs(v) <= _K_ZERO_THRESHOLD,
+                np.where(mt == MissingType.NAN, isnan, False))
+            go_left = np.where(is_default, default_left[nd], v <= t)
+            if is_cat_node.any():
+                cn = is_cat_node[nd]
+                if cn.any():
+                    cat_idx = t[cn].astype(np.int64)
+                    lo = self.cat_boundaries[cat_idx]
+                    hi = self.cat_boundaries[cat_idx + 1]
+                    iv = np.where(np.isfinite(fv[cn]), fv[cn], -1).astype(
+                        np.int64)
+                    ok = (iv >= 0) & (iv < (hi - lo) * 32)
+                    widx = lo + np.clip(iv, 0, None) // 32
+                    widx = np.minimum(widx, np.maximum(hi - 1, lo))
+                    bit = (self.cat_threshold[widx]
+                           >> (np.clip(iv, 0, None) % 32).astype(
+                               np.uint32)) & 1
+                    go_left[cn] = ok & (bit > 0)
+            node[rows] = np.where(go_left, lc[nd], rc[nd])
+        return (~node).astype(np.int32)
+
+    def predict(self, X: np.ndarray) -> np.ndarray:
+        return self.leaf_value[self.predict_leaf(X)]
+
+    # ------------------------------------------------------------------
+    # text serialization (reference tree.cpp:340-406)
+    def to_string(self, index: int) -> str:
+        def j(a, fmt="{}"):
+            return " ".join(fmt.format(x) for x in a)
+        ni = self.num_leaves - 1
+        lines = [f"Tree={index}",
+                 f"num_leaves={self.num_leaves}",
+                 f"num_cat={self.num_cat}"]
+        if ni > 0:
+            lines.append("split_feature=" + j(self.split_feature))
+            lines.append("split_gain=" + j(self.split_gain, "{:g}"))
+            lines.append("threshold=" + j(self.threshold, "{:.17g}"))
+            lines.append("decision_type=" + j(self.decision_type))
+            lines.append("left_child=" + j(self.left_child))
+            lines.append("right_child=" + j(self.right_child))
+            lines.append("leaf_value=" + j(self.leaf_value, "{:.17g}"))
+            lines.append("leaf_weight=" + j(self.leaf_weight, "{:.17g}"))
+            lines.append("leaf_count=" + j(self.leaf_count))
+            lines.append("internal_value=" + j(self.internal_value, "{:.17g}"))
+            lines.append("internal_weight=" + j(self.internal_weight, "{:g}"))
+            lines.append("internal_count=" + j(self.internal_count))
+            if self.num_cat > 0:
+                lines.append("cat_boundaries=" + j(self.cat_boundaries))
+                lines.append("cat_threshold=" + j(self.cat_threshold))
+        else:
+            lines.append("leaf_value=" + j(self.leaf_value, "{:.17g}"))
+        lines.append(f"is_linear={int(self.is_linear)}")
+        lines.append(f"shrinkage={self.shrinkage:g}")
+        lines.append("")
+        return "\n".join(lines) + "\n"
+
+    @classmethod
+    def from_string(cls, text: str) -> "Tree":
+        kv = {}
+        for line in text.splitlines():
+            line = line.strip()
+            if "=" in line:
+                k, v = line.split("=", 1)
+                kv[k] = v
+        if int(kv.get("is_linear", 0)):
+            raise LightGBMError(
+                "linear-tree models are not ported to lightgbm_tpu_torch "
+                "yet (see ROADMAP.md, the port's module queue)")
+        t = cls(num_leaves=int(kv["num_leaves"]))
+
+        def arr(key, dtype, default=None):
+            if key not in kv or kv[key] == "":
+                return default
+            return np.array(kv[key].split(), dtype=dtype)
+
+        t.num_cat = int(kv.get("num_cat", 0))
+        t.leaf_value = arr("leaf_value", np.float64)
+        ni = t.num_leaves - 1
+        if ni > 0:
+            t.split_feature = arr("split_feature", np.int32)
+            t.split_gain = arr("split_gain", np.float64,
+                               np.zeros(ni, np.float64))
+            t.threshold = arr("threshold", np.float64)
+            t.decision_type = arr("decision_type", np.uint8,
+                                  np.zeros(ni, np.uint8))
+            t.left_child = arr("left_child", np.int32)
+            t.right_child = arr("right_child", np.int32)
+            t.leaf_weight = arr("leaf_weight", np.float64,
+                                np.zeros(t.num_leaves, np.float64))
+            t.leaf_count = arr("leaf_count", np.int64,
+                               np.zeros(t.num_leaves, np.int64))
+            t.internal_value = arr("internal_value", np.float64,
+                                   np.zeros(ni, np.float64))
+            t.internal_weight = arr("internal_weight", np.float64,
+                                    np.zeros(ni, np.float64))
+            t.internal_count = arr("internal_count", np.int64,
+                                   np.zeros(ni, np.int64))
+            t.threshold_bin = np.zeros(ni, np.int32)
+        else:
+            t.split_feature = np.zeros(0, np.int32)
+            t.threshold = np.zeros(0, np.float64)
+            t.threshold_bin = np.zeros(0, np.int32)
+            t.decision_type = np.zeros(0, np.uint8)
+            t.split_gain = np.zeros(0, np.float64)
+            t.left_child = np.zeros(0, np.int32)
+            t.right_child = np.zeros(0, np.int32)
+            t.internal_value = np.zeros(0, np.float64)
+            t.internal_weight = np.zeros(0, np.float64)
+            t.internal_count = np.zeros(0, np.int64)
+            t.leaf_weight = np.zeros(1, np.float64)
+            t.leaf_count = np.zeros(1, np.int64)
+        if t.num_cat > 0:
+            t.cat_boundaries = arr("cat_boundaries", np.int32)
+            t.cat_threshold = arr("cat_threshold", np.uint32)
+        else:
+            t.cat_boundaries = np.array([0], np.int32)
+            t.cat_threshold = np.zeros(0, np.uint32)
+        t.shrinkage = float(kv.get("shrinkage", 1.0))
+        return t
+
+    # ------------------------------------------------------------------
+    def feature_split_counts(self, num_features: int) -> np.ndarray:
+        out = np.zeros(num_features, np.float64)
+        for f in self.split_feature:
+            out[f] += 1
+        return out
+
+    def feature_split_gains(self, num_features: int) -> np.ndarray:
+        out = np.zeros(num_features, np.float64)
+        for f, g in zip(self.split_feature, self.split_gain):
+            out[f] += g
+        return out

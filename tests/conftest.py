@@ -46,3 +46,6 @@ def pytest_configure(config):
     # the parity matrices runs in its owning ci_tier1.sh leg
     config.addinivalue_line(
         "markers", "slow: excluded from tier-1; run by its CI leg")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU (lightgbm_tpu_torch kernels); "
+                   "skips without one")
