@@ -83,7 +83,8 @@ def random_model_text(*, n_trees: int, num_leaves: int, n_features: int,
     features get a random default direction per node, zero-as-missing
     features the direction of 0.0; categorical features split on random
     raw-value bitsets."""
-    from lightgbm_tpu_torch.models.model_text import save_model_to_string
+    from lightgbm_tpu_torch.models.model_text import (loaded_param_string,
+                                                      save_model_to_string)
     from lightgbm_tpu_torch.models.tree import Tree
 
     rng = np.random.default_rng(seed)
@@ -159,7 +160,8 @@ def random_model_text(*, n_trees: int, num_leaves: int, n_features: int,
         feature_names=[f"Column_{i}" for i in range(n_features)],
         feature_infos=["none" if mt[i] < 0 else "[-4:4]"
                        for i in range(n_features)],
-        max_feature_idx=n_features - 1)
+        max_feature_idx=n_features - 1,
+        param_string=loaded_param_string(num_class))
     return save_model_to_string(model)
 
 
@@ -320,33 +322,19 @@ def _dispatch_breakdown(eng, x: np.ndarray, reps: int = 20) -> dict:
     return out
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this "
-              "script needs one CUDA GPU", file=sys.stderr)
-        return 2
+def serve_phases(gpu: str, build_s: float) -> dict:
+    """Slice 1: serve_traverse against its plain version, then the
+    serving main path (bulk predict and the queue), counted.  Returns
+    the kernel's record for the ``{"kernels": [...]}`` line."""
     import dataclasses
 
+    import torch
+
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.ops import _build
     from lightgbm_tpu_torch.ops.predict import quantize_rows_kernel
     from lightgbm_tpu_torch.ops.serve_kernel import (forest_kernel_args,
                                                      serve_traverse,
                                                      serve_traverse_ref)
-
-    # 1. card and build
-    gpu = _gpu_line()
-    print(f"gpu: {gpu}", flush=True)
-    kind = torch.cuda.get_device_name(0)
-    t0 = time.perf_counter()
-    _build.build()
-    build_s = time.perf_counter() - t0
-    print(f"kernels built in {build_s:.2f} s", flush=True)
-    for name, log in _build.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
 
     # 2. kernel vs plain on the card: small edge forests
     cat = (2, 5)
@@ -487,6 +475,424 @@ def main() -> int:
     np.asarray(np.asarray(x_main, np.float64), np.float32)
     print(f"breakdown booster f64 -> f32 input copies of {MAIN_ROWS} rows: "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host)", flush=True)
+    return kernels[0]
+
+
+# ---------------------------------------------------------------------
+# Slice 2: training on the card
+TRAIN_ROWS = 1_000_000
+HOLDOUT_ROWS = 100_000
+TRAIN_LEAVES = 255
+TRAIN_ITERS = 10
+PARITY_ROWS = 50_000
+PARITY_TREES = 3
+TRAIN_PARAMS = {"objective": "binary", "num_leaves": TRAIN_LEAVES,
+                "max_bin": 255, "learning_rate": 0.1, "metric": "auc",
+                "verbosity": -1}
+LEAF_RTOL = 1e-5
+EPS32 = float(np.finfo(np.float32).eps)
+# bytes per row of the row matrix: F u8 bins + 3 f32 values + i32 row id
+ROW_EXTRA_BYTES = 16
+
+
+def random_row_matrix(n_rows: int, n_features: int, seed: int,
+                      n_bins: int = 255, nan_bin: int = -1):
+    """A seeded row matrix ``(bins u8 [n, F], vals f32 [n, 3], rid i32
+    [n])``: uniform bins below ``n_bins`` (with ``nan_bin`` >= 0, 5% of
+    feature 0's rows sit in that bin), gradient-like values and a
+    shuffled row-id column."""
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, n_bins, size=(n_rows, n_features), dtype=np.uint8)
+    if nan_bin >= 0:
+        bins[rng.random(n_rows) < 0.05, 0] = nan_bin
+    w = (rng.random(n_rows) < 0.9).astype(np.float32)
+    vals = np.stack([rng.normal(size=n_rows).astype(np.float32) * w,
+                     rng.uniform(0.01, 0.25, n_rows).astype(np.float32) * w,
+                     w], axis=1)
+    rid = rng.permutation(n_rows).astype(np.int32)
+    return bins, np.ascontiguousarray(vals), rid
+
+
+def rows_on(arrays, device):
+    """A copy of numpy row arrays as the port's ``Rows`` on ``device``."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import Rows
+    return Rows(*(torch.tensor(a, device=device) for a in arrays))
+
+
+def hist_tolerance(rows, rng) -> float:
+    """4 * n * eps_f32 * max|v| over the n rows of the range: f32 sums
+    of the same values taken in another order."""
+    from lightgbm_tpu_torch.ops.hist_kernel2 import _window
+    lo, hi = _window(rng, rows.bins.shape[0])
+    if hi <= lo:
+        return 0.0
+    vmax = float(rows.vals[lo:hi, :2].abs().max())
+    return 4.0 * (hi - lo) * EPS32 * vmax
+
+
+def hist_parity(rows, rng, padded_bins: int, label: str) -> dict:
+    """Kernel vs plain version on the same rows and range, and two
+    kernel launches bitwise equal."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.hist_kernel2 import (
+        build_histogram_comb, build_histogram_comb_ref)
+    dev = rows.bins.device
+    rng_t = torch.tensor(rng, dtype=torch.int32, device=dev)
+    max_rows = max(int(rng[2]), 1)
+    k1 = build_histogram_comb(rows, rng_t, padded_bins=padded_bins,
+                              max_rows=max_rows)
+    k2 = build_histogram_comb(rows, rng_t, padded_bins=padded_bins,
+                              max_rows=max_rows)
+    ref = build_histogram_comb_ref(rows, rng_t, padded_bins=padded_bins,
+                                   max_rows=max_rows)
+    torch.cuda.synchronize()
+    err = float((k1 - ref).abs().max())
+    tol = hist_tolerance(rows, rng)
+    rec = {"case": label, "range": list(rng), "max_abs_err": err,
+           "tol": tol, "bitwise_repeat": bool(torch.equal(k1, k2)),
+           "finite": bool(torch.isfinite(k1).all())}
+    rec["ok"] = rec["bitwise_repeat"] and rec["finite"] and err <= tol
+    print("parity hist_comb " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"hist_comb disagrees with its plain version: "
+                           f"{rec}")
+    return rec
+
+
+def partition_parity(rows, sel, label: str) -> dict:
+    """Scan and copyback against their plain versions on copies of the
+    same rows: the scanned segment byte-identical with equal nleft,
+    then the whole row matrix byte-identical after the copyback."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import Rows
+    from lightgbm_tpu_torch.ops.partition_kernel import (
+        copyback, copyback_ref, partition_scan, partition_scan_ref)
+    dev = rows.bins.device
+    rk = Rows(*(a.clone() for a in rows))
+    rp = Rows(*(a.clone() for a in rows))
+    sk = Rows(*(torch.zeros_like(a) for a in rows))
+    sp = Rows(*(torch.zeros_like(a) for a in rows))
+    nk = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    npl = torch.full((1,), -2, dtype=torch.int32, device=dev)
+    s0, cnt = int(sel[0]), int(sel[1])
+    partition_scan(rk, sk, sel, nk)
+    partition_scan_ref(rp, sp, sel, npl)
+    torch.cuda.synchronize()
+    scan_ok = all(torch.equal(a[s0:s0 + cnt], b[s0:s0 + cnt])
+                  for a, b in zip(sk, sp)) and int(nk) == int(npl)
+    copyback(rk, sk, s0, cnt)
+    copyback_ref(rp, sp, s0, cnt)
+    torch.cuda.synchronize()
+    rows_ok = all(torch.equal(a, b) for a, b in zip(rk, rp))
+    rec = {"case": label, "s0": s0, "cnt": cnt, "nleft": int(nk),
+           "scan_identical": bool(scan_ok), "rows_identical": rows_ok,
+           "ok": bool(scan_ok and rows_ok)}
+    print("parity partition " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"partition kernels disagree with their plain "
+                           f"versions: {rec}")
+    return rec
+
+
+def compare_trees(models_a, models_b, rtol: float = LEAF_RTOL) -> dict:
+    """Structure equal (num_leaves, split features, threshold bins,
+    decision types, leaf counts) and leaf values within ``rtol``
+    relative to the tree's largest leaf magnitude, tree by tree (a leaf
+    near zero is a difference of nearly equal gradient sums, so its own
+    magnitude is no scale for f32 noise)."""
+    if len(models_a) != len(models_b):
+        return {"ok": False, "reason": f"{len(models_a)} vs "
+                                         f"{len(models_b)} trees"}
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(models_a, models_b)):
+        same = (a.num_leaves == b.num_leaves
+                and np.array_equal(a.split_feature, b.split_feature)
+                and np.array_equal(a.threshold_bin, b.threshold_bin)
+                and np.array_equal(a.decision_type, b.decision_type)
+                and np.array_equal(a.leaf_count, b.leaf_count))
+        if not same:
+            return {"ok": False, "reason": f"tree {i} structure differs"}
+        rel = (np.abs(a.leaf_value - b.leaf_value)
+               / max(float(np.abs(b.leaf_value).max()), 1e-30))
+        worst = max(worst, float(rel.max()))
+    return {"ok": worst <= rtol, "max_rel_leaf_err": worst,
+            "trees": len(models_a)}
+
+
+def train_parity(gpu: str) -> dict:
+    """50,000 rows x 28 (NaN and zero missing values), 255 leaves, 3
+    trees, trained on the card and with device="cpu"."""
+    import lightgbm_tpu_torch as lgt
+    x = make_rows(PARITY_ROWS, N_FEATURES, 3)
+    _, y = make_higgs_like(PARITY_ROWS, N_FEATURES, 3)
+    traces = []
+
+    def _train(device):
+        bst = lgt.Booster(TRAIN_PARAMS, lgt.Dataset(x, label=y),
+                          device=device)
+        traces.append([])
+        bst._inner.grow.trace = traces[-1]
+        for _ in range(PARITY_TREES):
+            bst.update()
+        return bst
+    t0 = time.perf_counter()
+    bst_c = _train("cuda")
+    t1 = time.perf_counter()
+    bst_p = _train("cpu")
+    t2 = time.perf_counter()
+    rec = compare_trees(bst_c._models, bst_p._models)
+    diff = [i for i, (a, b) in enumerate(zip(*traces)) if a != b]
+    if diff:
+        i = diff[0]
+        rec["first_split_diff"] = {"split": i, "cuda": traces[0][i],
+                                   "cpu": traces[1][i]}
+    rec.update(case=f"{PARITY_ROWS}x{N_FEATURES}, {TRAIN_LEAVES} leaves, "
+               f"{PARITY_TREES} trees", cuda_s=t1 - t0, cpu_s=t2 - t1,
+               leaves=[t.num_leaves for t in bst_c._models])
+    print("parity training " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"training on the card differs from the CPU "
+                           f"run: {rec}")
+    return rec
+
+
+def profile_iteration(bst, gpu: str) -> dict:
+    """One more boosting iteration of ``bst`` under ``torch.profiler``:
+    kernel launches and the device's busy share of the host wall time
+    (the profiler's own overhead lengthens the wall time, so the busy
+    share is a lower bound).  Returns {"measured": False, ...} when the
+    profiler reports no device kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return {"measured": False, "gpu": gpu}
+    by_name = {}
+    for e in kernels:
+        c, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    ours = ("hist_comb", "partition_")
+    ours_ms = sum(us for k, (_, us) in by_name.items()
+                  if any(o in k for o in ours)) / 1e3
+    splits = max(bst._models[-1].num_leaves - 1, 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"measured": True, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms, "kernels": len(kernels),
+            "splits": splits, "kernels_per_split": len(kernels) / splits,
+            "our_kernels_ms": ours_ms,
+            "other_kernels_ms_per_split": (busy_ms - ours_ms) / splits,
+            "top": [[k[:60], c, us / 1e3] for k, (c, us) in top],
+            "gpu": gpu}
+
+
+def _kernel_record(name, source, replaces, launches, err, ms, plain_ms,
+                   n_bytes, n_ops, gpu, **extra) -> dict:
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    ops_ms = n_ops / PEAK_OPS_S * 1e3
+    rec = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": int(launches),
+           "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": None, "parity": "ok", "gpu": gpu,
+           "bound_bytes": int(n_bytes), "bound_ops": int(n_ops)}
+    rec.update(extra)
+    return rec
+
+
+def train_phases(gpu: str) -> list:
+    """Slice 2: the three training kernels against their plain versions
+    at the main path's shapes, training parity card vs CPU, then the
+    training main path (1M x 28, 255 leaves, 10 iterations) counted,
+    timed by stage, and its booster served through serve_traverse.
+    Returns the three kernels' records."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.device_data import Rows, init_rows
+    from lightgbm_tpu_torch.ops.grow import StageTimer
+    from lightgbm_tpu_torch.ops.hist_kernel2 import (
+        build_histogram_comb, build_histogram_comb_ref)
+    from lightgbm_tpu_torch.ops.partition_kernel import (
+        copyback, copyback_ref, partition_scan, partition_scan_ref)
+    from lightgbm_tpu_torch.ops.serve_kernel import serve_traverse
+
+    dev = torch.device("cuda")
+    x_all, y_all = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS, N_FEATURES,
+                                   seed=0)
+    x, y = x_all[:TRAIN_ROWS], y_all[:TRAIN_ROWS]
+    xv, yv = x_all[TRAIN_ROWS:], y_all[TRAIN_ROWS:]
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(x, label=y, params={"max_bin": 255}).construct()
+    valid = lgt.Dataset(xv, label=yv, reference=ds).construct()
+    print(f"binned {TRAIN_ROWS} + {HOLDOUT_ROWS} rows x {N_FEATURES} in "
+          f"{time.perf_counter() - t0:.2f} s (host)", flush=True)
+
+    # 1. kernels vs plain at the main path's shapes: the real bins of
+    # the training matrix with seeded gradient-like values
+    bins = torch.as_tensor(ds._binned.bin_matrix, device=dev)
+    n, f = bins.shape
+    b_pad = 256
+    rows = init_rows(bins)
+    _, vals, _ = random_row_matrix(n, 1, 7)
+    rows.vals.copy_(torch.as_tensor(vals, device=dev))
+    hist_recs = [hist_parity(rows, (0, 0, n), b_pad, "root"),
+                 hist_parity(rows, (333_331, 5, 250_000), b_pad,
+                             "child_unaligned")]
+    # a numerical split with a NaN bin routed left: feature 0's bins
+    # with 5% of rows moved to bin 255, the NaN bin
+    pbins, pvals, prid = random_row_matrix(n, f, 11, nan_bin=255)
+    prows = rows_on((np.ascontiguousarray(
+        np.concatenate([pbins[:, :1], ds._binned.bin_matrix[:, 1:]], 1)),
+        pvals, prid), dev)
+    part_recs = [partition_parity(prows, (0, n, 0, 120, 1, 0, 255),
+                                  "1M_nan_default_left"),
+                 partition_parity(prows, (100_001, 3000, 0, 60, 1, 0, 255),
+                                  "3000_at_odd_offset")]
+
+    # kernel times at the main path's shapes (root range, whole-matrix
+    # segment), L2 warm as in training's back-to-back splits
+    root = torch.tensor([0, 0, n], dtype=torch.int32, device=dev)
+    hist_ms = _time_ms(lambda: build_histogram_comb(
+        rows, root, padded_bins=b_pad, max_rows=n), 20)
+    hist_plain_ms = _time_ms(lambda: build_histogram_comb_ref(
+        rows, root, padded_bins=b_pad, max_rows=n), 3)
+    scratch = Rows(*(torch.empty_like(a) for a in prows))
+    nl = torch.zeros(1, dtype=torch.int32, device=dev)
+    sel = (0, n, 0, 120, 1, 0, 255)
+    scan_ms = _time_ms(lambda: partition_scan(prows, scratch, sel, nl), 20)
+    scan_plain_ms = _time_ms(lambda: partition_scan_ref(prows, scratch, sel,
+                                                        nl), 3)
+    cb_ms = _time_ms(lambda: copyback(prows, scratch, 0, n), 20)
+    cb_plain_ms = _time_ms(lambda: copyback_ref(prows, scratch, 0, n), 3)
+    row_bytes = f + ROW_EXTRA_BYTES
+    print(f"kernel times at {n} rows: hist_comb {hist_ms:.4f} ms (plain "
+          f"{hist_plain_ms:.4f}), partition_scan {scan_ms:.4f} ms (plain "
+          f"{scan_plain_ms:.4f}), copyback {cb_ms:.4f} ms (plain "
+          f"{cb_plain_ms:.4f}) [{gpu}]", flush=True)
+    del prows, scratch, rows
+
+    # 2. training parity, card vs CPU
+    parity = train_parity(gpu)
+
+    # 3. the training main path, counted and timed by stage
+    its = []
+
+    def _tick(env):
+        torch.cuda.synchronize()
+        its.append(time.perf_counter())
+    _tick.order = 40
+    timer = StageTimer(enabled=True)
+    torch.cuda.synchronize()
+    for fn in (build_histogram_comb, partition_scan, copyback,
+               serve_traverse):
+        fn.launches = 0
+    t_start = time.perf_counter()
+    bst = lgt.train(TRAIN_PARAMS, ds, num_boost_round=TRAIN_ITERS,
+                    valid_sets=[valid], callbacks=[_tick], device="cuda",
+                    timer=timer)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t_start
+    raw = bst.predict(x, raw_score=True)
+    launches = {fn.__name__: fn.launches
+                for fn in (build_histogram_comb, partition_scan, copyback,
+                           serve_traverse)}
+    models = bst._models
+    splits = sum(t.num_leaves - 1 for t in models)
+    expect = {"build_histogram_comb": len(models) + splits,
+              "partition_scan": splits, "copyback": splits}
+    for name, want in expect.items():
+        if launches[name] <= 0 or launches[name] != want:
+            raise RuntimeError(f"the training main path launched {name} "
+                               f"{launches[name]} times, expected {want}")
+    if launches["serve_traverse"] <= 0:
+        raise RuntimeError("predict on the trained booster did not launch "
+                           "serve_traverse")
+    auc = bst.best_score["valid_0"]["auc"]
+    train_score = bst._inner.train_score.cpu().numpy().astype(np.float64)
+    if raw.shape != (TRAIN_ROWS,) or not np.all(np.isfinite(raw)):
+        raise RuntimeError("predict on the trained booster gave non-finite "
+                           "or misshapen scores")
+    tol = score_tolerance(train_score, len(models))
+    err = np.abs(raw - train_score)
+    if not np.all(err <= tol):
+        raise RuntimeError(f"served scores differ from the training scores "
+                           f"beyond 64 ulps per tree (max {err.max()})")
+    if not (0.5 < auc <= 1.0):
+        raise RuntimeError(f"holdout AUC {auc} is not better than chance")
+    per_it = np.diff([t_start] + its)
+    stages = {k: v / len(models) for k, v in timer.totals_ms().items()}
+    grower = bst._inner.grow
+    main = {"rows": TRAIN_ROWS, "features": N_FEATURES,
+            "leaves": TRAIN_LEAVES, "iterations": len(models),
+            "train_s": train_s, "s_per_iter_first": float(per_it[0]),
+            "s_per_iter_rest_mean": float(per_it[1:].mean()),
+            "stage_ms_per_tree": stages, "holdout_auc": auc,
+            "splits": splits, "host_reads": grower.host_reads,
+            "launches": launches, "predict_max_abs_err": float(err.max()),
+            "gpu": gpu}
+    print("training main path " + json.dumps(main), flush=True)
+    # an eleventh tree under the profiler, after every check of the ten
+    print("profiled iteration " + json.dumps(profile_iteration(bst, gpu)),
+          flush=True)
+
+    hist_bytes = n * (f + 8) + f * b_pad * 2 * 4
+    recs = [
+        _kernel_record(
+            "hist_comb", "lightgbm_tpu_torch/csrc/hist_comb.cu",
+            "lightgbm_tpu/ops/pallas/hist_kernel2.py:225",
+            launches["build_histogram_comb"],
+            max(r["max_abs_err"] for r in hist_recs), hist_ms,
+            hist_plain_ms, hist_bytes, 2 * n * f, gpu,
+            bitwise_repeat=all(r["bitwise_repeat"] for r in hist_recs)),
+        _kernel_record(
+            "partition_scan", "lightgbm_tpu_torch/csrc/partition.cu",
+            "lightgbm_tpu/ops/pallas/partition_kernel2.py:377",
+            launches["partition_scan"], 0.0, scan_ms, scan_plain_ms,
+            2 * n * row_bytes + 4, 0, gpu),
+        _kernel_record(
+            "copyback", "lightgbm_tpu_torch/csrc/partition.cu",
+            "lightgbm_tpu/ops/pallas/partition_kernel2.py:325",
+            launches["copyback"], 0.0, cb_ms, cb_plain_ms,
+            2 * n * row_bytes, 0, gpu),
+    ]
+    recs[0]["train_parity"] = parity["ok"]
+    return recs
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this "
+              "script needs one CUDA GPU", file=sys.stderr)
+        return 2
+    from lightgbm_tpu_torch.ops import _build
+
+    gpu = _gpu_line()
+    print(f"gpu: {gpu}", flush=True)
+    kind = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    _build.build()
+    build_s = time.perf_counter() - t0
+    print(f"kernels built in {build_s:.2f} s", flush=True)
+    for name, log in _build.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+    kernels = [serve_phases(gpu, build_s)] + train_phases(gpu)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,17 +1,25 @@
 """lightgbm_tpu_torch: the PyTorch / CUDA port of lightgbm_tpu.
 
-This slice serves LightGBM model files on one NVIDIA GPU: a ``Booster``
-loaded from model text scores rows through a hand-written CUDA forest
-traversal kernel (``csrc/serve_traverse.cu``, built with ``nvcc`` at
-first use).  Entry points run on ``cuda`` unless the caller passes
+The port trains binary and l2 GBDT models on one NVIDIA GPU and serves
+LightGBM model files there.  Training (``train``, ``Dataset``,
+``Booster``) grows trees on a physically partitioned row matrix with
+hand-written CUDA kernels for the histogram (``csrc/hist_comb.cu``) and
+the partition scan and copyback (``csrc/partition.cu``); serving scores
+rows through a CUDA forest traversal kernel
+(``csrc/serve_traverse.cu``).  The kernels are built with ``nvcc`` at
+first use.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, which runs the kernels' plain PyTorch versions.  The
 package imports neither JAX nor ``lightgbm_tpu``.
 """
-from .basic import Booster
+from .basic import Booster, Dataset
+from .callback import early_stopping, log_evaluation, record_evaluation
+from .engine import train
 from .serve import ServingEngine, ServingModel, ServingQueue
 from .utils.log import LightGBMError, register_log_callback, set_verbosity
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-__all__ = ["Booster", "ServingModel", "ServingEngine", "ServingQueue",
-           "LightGBMError", "register_log_callback", "set_verbosity"]
+__all__ = ["Booster", "Dataset", "train", "early_stopping",
+           "log_evaluation", "record_evaluation", "ServingModel",
+           "ServingEngine", "ServingQueue", "LightGBMError",
+           "register_log_callback", "set_verbosity"]

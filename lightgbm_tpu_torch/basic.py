@@ -1,20 +1,30 @@
-"""Booster for serving a LightGBM model file (reference basic.py:2705).
+"""User-facing Dataset and Booster (reference basic.py:1194, :2705).
 
-Counterpart of the loaded-model half of ``lightgbm_tpu/basic.py``:
-``Booster(model_file=..., model_str=..., device=...)`` parses the model
-text, ``predict`` scores raw rows through the compiled serving engine
-(the CUDA traversal kernel, or its plain version with
-``device="cpu"``), ``pred_leaf`` walks the trees on the host, and
-``model_to_string`` / ``save_model`` write the model text back.
-Training, SHAP contributions and linear trees come with later slices.
+Counterpart of ``lightgbm_tpu/basic.py``.  ``Dataset`` bins a dense
+matrix lazily (``reference=`` for validation sets, which must share the
+training bin mappers).  ``Booster(params, train_set, device=...)``
+trains on one device (``update``, ``eval_train``, ``eval_valid``);
+``Booster(model_file=..., model_str=...)`` loads a model.  ``predict``
+scores raw rows through the compiled serving engine for both (the CUDA
+traversal kernel, or its plain version with ``device="cpu"``),
+``pred_leaf`` walks the trees on the host, and ``model_to_string`` /
+``save_model`` write the model text.  SHAP contributions and linear
+trees come with later slices.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
-from .models.model_text import load_model_from_string, save_model_to_string
+from .config import Config
+from .io.dataset_core import BinnedDataset
+from .metric import create_metrics
+from .models.gbdt import GBDT
+from .models.model_text import (load_model_from_string, loaded_param_string,
+                                save_model_to_string)
+from .objective import create_objective
+from .utils import log
 from .utils.device import resolve_device
 from .utils.log import LightGBMError
 
@@ -29,55 +39,196 @@ def _to_numpy_2d(data) -> np.ndarray:
     return arr
 
 
+class Dataset:
+    """Training data wrapper (reference basic.py:1194): dense numpy
+    input, binned on :meth:`construct` (or when a Booster first uses
+    it)."""
+
+    def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
+                 weight=None, init_score=None,
+                 feature_name: Union[str, List[str]] = "auto",
+                 categorical_feature: Union[str, List] = "auto",
+                 params: Optional[Dict[str, Any]] = None,
+                 free_raw_data: bool = True):
+        self.data = data
+        self.label = label
+        self.reference = reference
+        self.weight = weight
+        self.init_score = init_score
+        self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
+        self.params = dict(params) if params else {}
+        self.free_raw_data = free_raw_data
+        self._binned: Optional[BinnedDataset] = None
+
+    def _update_params(self, params: Optional[Dict[str, Any]]) -> "Dataset":
+        for k, v in (params or {}).items():
+            self.params.setdefault(k, v)
+        return self
+
+    @classmethod
+    def from_binned(cls, binned: BinnedDataset) -> "Dataset":
+        """A constructed Dataset around an already binned one."""
+        d = cls(None)
+        d._binned = binned
+        return d
+
+    def construct(self) -> "Dataset":
+        if self._binned is not None:
+            return self
+        if self.data is None:
+            raise LightGBMError("Dataset has no data to construct from")
+        cfg = Config.from_params(self.params)
+        feature_names = ([str(s) for s in self.feature_name]
+                         if isinstance(self.feature_name, (list, tuple))
+                         else None)
+        cat_idx = None
+        if isinstance(self.categorical_feature, (list, tuple)):
+            cat_idx = []
+            for c in self.categorical_feature:
+                if isinstance(c, (int, np.integer)):
+                    cat_idx.append(int(c))
+                elif feature_names and c in feature_names:
+                    cat_idx.append(feature_names.index(c))
+                else:
+                    log.warning("Unknown categorical feature %s", c)
+        elif cfg.categorical_feature:
+            cat_idx = [int(x) for x in str(cfg.categorical_feature).split(",")
+                       if x.strip().lstrip("-").isdigit()]
+        ref = (self.reference.construct()._binned
+               if self.reference is not None else None)
+        self._binned = BinnedDataset.construct(
+            self.data, cfg, label=self.label, weight=self.weight,
+            init_score=self.init_score, feature_names=feature_names,
+            categorical_indices=cat_idx, reference=ref)
+        if self.free_raw_data:
+            self.data = None
+        return self
+
+    def num_data(self) -> int:
+        return self.construct()._binned.num_data
+
+    def num_feature(self) -> int:
+        return self.construct()._binned.num_total_features
+
+
 class Booster:
-    """Prediction handle over a model loaded from LightGBM model text."""
+    """Training and prediction handle (reference basic.py:2705)."""
 
     def __init__(
         self,
         params: Optional[Dict[str, Any]] = None,
-        train_set=None,
+        train_set: Optional[Dataset] = None,
         model_file: Optional[str] = None,
         model_str: Optional[str] = None,
         device="cuda",
+        timer=None,
     ):
-        if train_set is not None:
-            raise LightGBMError(
-                "training is not ported to lightgbm_tpu_torch yet (see "
-                "ROADMAP.md); load a model with model_file= or model_str=")
+        """``timer`` (an ``ops.grow.StageTimer``) records per-stage
+        device time of training when enabled."""
         self.device = resolve_device(device)
         self.params = dict(params) if params else {}
         self.best_iteration = -1
+        self.best_score: Dict = {}
+        self._loaded = None
+        self._inner: Optional[GBDT] = None
+        self._name_valid_sets: List[str] = []
+        self._serve_engines: Dict = {}
+        self.train_set = train_set
+        if train_set is not None:
+            if not isinstance(train_set, Dataset):
+                raise TypeError("Training data should be Dataset instance")
+            train_set._update_params(self.params).construct()
+            cfg = Config.from_params(self.params)
+            objective = create_objective(cfg)
+            metrics = (create_metrics(cfg)
+                       if cfg.is_provide_training_metric else [])
+            binned = train_set._binned
+            if objective is not None:
+                objective.init(binned.metadata, binned.num_data, self.device)
+            self._inner = GBDT(cfg, binned, objective, metrics,
+                               device=self.device, timer=timer)
+            self.config = cfg
+            return
         if model_file is not None:
             with open(model_file) as f:
                 model_str = f.read()
         if model_str is None:
-            raise TypeError("Need a model file or model string to create "
-                            "a Booster instance")
+            raise TypeError("Need at least one training dataset or model "
+                            "file or model string to create Booster "
+                            "instance")
         self._loaded = load_model_from_string(model_str)
-        self._serve_engines: Dict = {}
 
     # ------------------------------------------------------------------
     @property
     def _models(self):
+        if self._inner is not None:
+            return self._inner.models
         return self._loaded.models
 
     @property
     def _k(self) -> int:
+        if self._inner is not None:
+            return self._inner.num_tree_per_iteration
         return self._loaded.num_tree_per_iteration
 
     @property
     def _average_output(self) -> bool:
+        if self._inner is not None:
+            return self._inner.average_output
         return self._loaded.average_output
 
     @property
     def _objective_str(self) -> str:
+        if self._inner is not None:
+            return str(self._inner.objective or "")
         return self._loaded.objective_str
 
     def num_trees(self) -> int:
-        return len(self._loaded.models)
+        return len(self._models)
 
     def num_feature(self) -> int:
+        if self._inner is not None:
+            return self._inner.train_set.num_total_features
         return self._loaded.max_feature_idx + 1
+
+    def current_iteration(self) -> int:
+        if self._inner is not None:
+            return self._inner.current_iteration()
+        return len(self._loaded.models) // max(self._k, 1)
+
+    # -- training --------------------------------------------------------
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        if self._inner is None:
+            raise LightGBMError("Cannot add validation data to a loaded "
+                                "model")
+        if data.reference is None and data._binned is None:
+            # validation sets must bin with the training bin mappers
+            data.reference = self.train_set
+        data._update_params(self.params).construct()
+        self._inner.add_valid(data._binned, name, create_metrics(self.config))
+        self._name_valid_sets.append(name)
+        return self
+
+    def update(self) -> bool:
+        """One boosting iteration; True when training should stop
+        (reference Booster.update)."""
+        if self._inner is None:
+            raise LightGBMError("Cannot update a loaded model")
+        self._serve_engines.clear()
+        return self._inner.train_one_iter()
+
+    def eval_train(self) -> List:
+        return self._eval("training")
+
+    def eval_valid(self) -> List:
+        out = []
+        for name in self._name_valid_sets:
+            out.extend(self._eval(name))
+        return out
+
+    def _eval(self, dataset_name: str) -> List:
+        return [r for r in self._inner.eval() if r[0] == dataset_name]
 
     # ------------------------------------------------------------------
     def predict(
@@ -177,8 +328,10 @@ class Booster:
             num_iteration = self.best_iteration if self.best_iteration > 0 \
                 else -1
         imp = 0 if importance_type == "split" else 1
-        return save_model_to_string(_LoadedAdapter(self._loaded),
-                                    start_iteration, num_iteration, imp)
+        target = (self._inner if self._inner is not None
+                  else _LoadedAdapter(self._loaded))
+        return save_model_to_string(target, start_iteration, num_iteration,
+                                    imp)
 
 
 class _LoadedAdapter:
@@ -194,6 +347,7 @@ class _LoadedAdapter:
         self.feature_names = loaded.feature_names
         self.feature_infos = loaded.feature_infos
         self.max_feature_idx = loaded.max_feature_idx
+        self.param_string = loaded_param_string(loaded.num_class)
 
 
 def _convert_output_np(raw: np.ndarray, objective_str: str) -> np.ndarray:

@@ -1,18 +1,27 @@
-"""Carry a stacked forest across from the JAX package.
+"""Carry state across from the JAX package, as numpy arrays.
 
 A booster trained by ``lightgbm_tpu`` serves through its training bin
 mappers; :func:`serving_forest_from_numpy` takes that build's
 ``ServingForest`` fields as numpy arrays, unchanged, and makes the
 port's :class:`~lightgbm_tpu_torch.serve.ServingModel` from them, so
-the port serves the very arrays the JAX engine serves.  The other way
-across is the model text: ``booster.model_to_string()`` in the JAX
-package, ``lightgbm_tpu_torch.Booster(model_str=...)`` here.  This
-module takes numpy arrays only and imports nothing of the JAX package.
+the port serves the very arrays the JAX engine serves.
+:func:`dataset_from_numpy` takes a JAX ``BinnedDataset``'s bin mappers,
+binned matrix and labels and makes the port's ``Dataset``, so both
+packages can grow trees from identical bins.  The other way across is
+the model text: ``booster.model_to_string()`` in the JAX package,
+``lightgbm_tpu_torch.Booster(model_str=...)`` here.  This module takes
+numpy arrays and plain values only and imports nothing of the JAX
+package.
 """
 from __future__ import annotations
 
+from typing import Dict, List, Optional, Sequence
+
 import numpy as np
 
+from .basic import Dataset
+from .io.binning import BinMapper
+from .io.dataset_core import BinnedDataset
 from .serve.model import (ServingModel, forest_from_numpy,
                           leaf_dtype_name, serving_digest)
 from .utils.device import resolve_device
@@ -47,3 +56,30 @@ def serving_forest_from_numpy(arrays: dict, *, n_steps: int,
                         n_orig_features=n_orig_features,
                         start_iteration=0, end_iteration=t_cnt // k,
                         n_trees=t_cnt, digest=digest)
+
+
+def dataset_from_numpy(mappers: Sequence[Dict], bin_matrix: np.ndarray,
+                       label, *, used_feature_map: Sequence[int],
+                       num_total_features: int,
+                       feature_names: Optional[List[str]] = None,
+                       weight=None) -> Dataset:
+    """The port's constructed ``Dataset`` from a binned dataset's
+    numpy state.  ``mappers`` are dicts of the ``BinMapper.to_dict``
+    fields (``bin_type``, ``missing_type``, ``num_bins``,
+    ``upper_bounds``, ``cat_values``, ``cat_bins``, ``default_bin``) of
+    each used feature; ``bin_matrix`` is the ``[n, used_features]``
+    binned matrix; ``used_feature_map`` maps used to original feature
+    ids."""
+    binned = BinnedDataset()
+    binned.mappers = [BinMapper.from_dict(m) for m in mappers]
+    binned.bin_matrix = np.ascontiguousarray(bin_matrix)
+    binned.used_feature_map = np.asarray(used_feature_map, np.int32)
+    binned.num_total_features = int(num_total_features)
+    binned.feature_names = (list(feature_names) if feature_names is not None
+                            else [f"Column_{i}"
+                                  for i in range(num_total_features)])
+    md = binned.metadata
+    md.set_label(label)
+    md.set_weight(weight)
+    md.check(binned.num_data)
+    return Dataset.from_binned(binned)

@@ -1,0 +1,302 @@
+"""GBDT boosting on one device.
+
+Counterpart of the serial, physical, non-streaming path of
+``lightgbm_tpu/models/gbdt.py`` (reference gbdt.cpp: TrainOneIter :437,
+BoostFromAverage :412, UpdateScore :580-607): per iteration the
+objective's gradients are computed on the device from the training
+scores, one tree grows on the row matrix (``ops.grow.SerialGrower``),
+and the training and validation scores take the tree's shrunk leaf
+outputs on the device.  The finished tree comes to the host as a
+``Tree`` (one read per tree); the boost-from-average init score is
+folded into the first tree, so saved models are self-contained.
+
+Unlike the JAX package, trees are finalized synchronously, so an
+iteration whose tree cannot split stops training at once (the
+reference's synchronous behaviour).  Parameters this slice does not
+port raise ``LightGBMError`` (:func:`check_supported`).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..io.binning import BinType
+from ..io.dataset_core import BinnedDataset
+from ..metric import Metric
+from ..models.model_text import feature_infos
+from ..objective.base import ObjectiveFunction
+from ..ops.device_data import DeviceDataset, to_device
+from ..ops.grow import SerialGrower, StageTimer, TreeArrays, \
+    predict_leaf_bins
+from ..ops.split import SplitHyperParams
+from ..utils import log
+from ..utils.log import LightGBMError
+from .tree import Tree
+
+
+def _unported(what: str) -> None:
+    raise LightGBMError(
+        f"{what} is not ported to lightgbm_tpu_torch yet (see ROADMAP.md, "
+        "A8/A9); the JAX package lightgbm_tpu trains it")
+
+
+def check_supported(cfg: Config, ds: Optional[BinnedDataset]) -> None:
+    """Raise for every parameter this slice does not port."""
+    if cfg.boosting.strip().lower() not in ("gbdt", "gbrt"):
+        _unported(f"boosting={cfg.boosting} (GOSS, DART and RF)")
+    if cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0
+                                 or cfg.pos_bagging_fraction < 1.0
+                                 or cfg.neg_bagging_fraction < 1.0):
+        _unported("bagging")
+    if cfg.num_class > 1:
+        _unported("multiclass")
+    if cfg.tree_learner != "serial" or cfg.num_machines > 1:
+        _unported(f"tree_learner={cfg.tree_learner} (the mesh learners)")
+    if cfg.pre_partition:
+        _unported("pre_partition (paged / distributed data)")
+    if cfg.gpu_use_dp:
+        _unported("gpu_use_dp")
+    if any(int(m) != 0 for m in cfg.monotone_constraints):
+        _unported("monotone_constraints")
+    if cfg.interaction_constraints:
+        _unported("interaction_constraints")
+    if (cfg.cegb_penalty_split > 0 or cfg.cegb_penalty_feature_lazy
+            or cfg.cegb_penalty_feature_coupled):
+        _unported("CEGB")
+    if cfg.forcedsplits_filename:
+        _unported("forced splits")
+    if cfg.feature_fraction_bynode < 1.0:
+        _unported("feature_fraction_bynode")
+    if cfg.extra_trees:
+        _unported("extra_trees")
+    if cfg.linear_tree:
+        _unported("linear_tree")
+    if ds is not None and any(
+            m.bin_type == BinType.CATEGORICAL
+            and m.num_bins > cfg.max_cat_to_onehot for m in ds.mappers):
+        _unported("categorical subset splits (a categorical feature has "
+                  "more bins than max_cat_to_onehot)")
+
+
+class _ValidSet:
+    def __init__(self, name: str, data: BinnedDataset, bins: torch.Tensor,
+                 metrics: Sequence[Metric]):
+        self.name = name
+        self.data = data
+        self.bins = bins
+        self.metrics = list(metrics)
+        self.score: Optional[torch.Tensor] = None   # [n] f32
+
+
+class GBDT:
+    """The ``gbdt`` booster (reference boosting.cpp:35 factory name)."""
+
+    NAME = "gbdt"
+
+    def __init__(self, config: Config, train_set: BinnedDataset,
+                 objective: Optional[ObjectiveFunction],
+                 metrics: Sequence[Metric] = (), *,
+                 device: torch.device, timer: Optional[StageTimer] = None):
+        check_supported(config, train_set)
+        self.config = config
+        self.train_set = train_set
+        self.objective = objective
+        self.device = device
+        self.models: List[Tree] = []
+        self.iter_ = 0
+        self.shrinkage_rate = config.learning_rate
+        self.average_output = False
+        self.num_tree_per_iteration = 1
+        self.valid_sets: List[_ValidSet] = []
+        self._train_metrics = list(metrics)
+        self._rng_feature = np.random.Generator(
+            np.random.PCG64(config.feature_fraction_seed & 0xFFFFFFFF))
+        self._fmask_const = None
+        self.timer = timer or StageTimer()
+        cfg = config
+        self.hp = SplitHyperParams(
+            lambda_l1=cfg.lambda_l1, lambda_l2=cfg.lambda_l2,
+            min_data_in_leaf=cfg.min_data_in_leaf,
+            min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
+            min_gain_to_split=cfg.min_gain_to_split,
+            max_delta_step=cfg.max_delta_step, path_smooth=cfg.path_smooth,
+            use_smoothing=cfg.path_smooth > 0.0)
+        self.dd: DeviceDataset = to_device(train_set, device)
+        self.grow = SerialGrower(self.hp, num_leaves=cfg.num_leaves,
+                                 max_depth=cfg.max_depth, dd=self.dd,
+                                 timer=self.timer)
+        n = train_set.num_data
+        score = torch.zeros(n, dtype=torch.float32, device=device)
+        md = train_set.metadata
+        self._has_init_score = md.init_score is not None
+        if self._has_init_score:
+            score += torch.as_tensor(md.init_score.reshape(-1)[:n],
+                                     dtype=torch.float32, device=device)
+        self.train_score = score
+        self._inbag = torch.ones(n, dtype=torch.float32, device=device)
+        for m in self._train_metrics:
+            m.init(md, n)
+        log.info("Training on %s: %d rows x %d features, %d bins per "
+                 "feature, physical row partition", device, n,
+                 self.dd.num_features, self.dd.padded_bins)
+
+    # ------------------------------------------------------------------
+    @property
+    def feature_names(self) -> List[str]:
+        return self.train_set.feature_names
+
+    @property
+    def feature_infos(self) -> List[str]:
+        return feature_infos(self.train_set)
+
+    @property
+    def max_feature_idx(self) -> int:
+        return self.train_set.num_total_features - 1
+
+    @property
+    def num_class(self) -> int:
+        return self.config.num_class
+
+    @property
+    def param_string(self) -> str:
+        return self.config.to_param_string()
+
+    # ------------------------------------------------------------------
+    def add_valid(self, data: BinnedDataset, name: str,
+                  metrics: Sequence[Metric]) -> None:
+        bins = torch.as_tensor(np.ascontiguousarray(data.bin_matrix),
+                               device=self.device)
+        vs = _ValidSet(name, data, bins, metrics)
+        score = torch.zeros(data.num_data, dtype=torch.float32,
+                            device=self.device)
+        if data.metadata.init_score is not None:
+            score += torch.as_tensor(data.metadata.init_score.reshape(-1),
+                                     dtype=torch.float32, device=self.device)
+        vs.score = score
+        inner = {int(o): i for i, o in
+                 enumerate(self.train_set.used_feature_map)}
+        for t in self.models:
+            vs.score += self._tree_score(t, bins, inner)
+        for m in vs.metrics:
+            m.init(data.metadata, data.num_data)
+        self.valid_sets.append(vs)
+
+    def _tree_score(self, t: Tree, bins: torch.Tensor,
+                    inner: dict) -> torch.Tensor:
+        """A finished (shrunk, biased) tree's f32 outputs on ``bins``;
+        ``inner`` maps original to inner feature ids."""
+        lv = torch.as_tensor(t.leaf_value, dtype=torch.float32,
+                             device=self.device)
+        return lv[predict_leaf_bins(_bin_tree(t, inner), bins,
+                                    self.dd.num_bins, self.dd.has_nan)]
+
+    def _feature_mask(self) -> torch.Tensor:
+        f = self.dd.num_features
+        if self.config.feature_fraction >= 1.0:
+            if self._fmask_const is None:
+                self._fmask_const = torch.ones(f, dtype=torch.float32,
+                                               device=self.device)
+            return self._fmask_const
+        mask = np.zeros(f, np.float32)
+        k = max(1, int(np.ceil(f * self.config.feature_fraction)))
+        mask[self._rng_feature.choice(f, size=k, replace=False)] = 1.0
+        return torch.as_tensor(mask, device=self.device)
+
+    # ------------------------------------------------------------------
+    def train_one_iter(self) -> bool:
+        """One boosting iteration; True when training cannot continue
+        (no splittable leaf), like GBDT::TrainOneIter."""
+        if self.objective is None:
+            log.fatal("No objective function provided")
+        dev = self.device
+        init_score = 0.0
+        if (not self.models and not self._has_init_score
+                and self.config.boost_from_average):
+            init_score = float(self.objective.boost_from_score()[0])
+            if abs(init_score) > 1e-35:
+                self.train_score = self.train_score + init_score
+                for vs in self.valid_sets:
+                    vs.score = vs.score + init_score
+                log.info("Start training from score %s",
+                         np.array2string(np.array([init_score]),
+                                         precision=6))
+        with self.timer.stage("gradients", dev):
+            grad, hess = self.objective.get_gradients(self.train_score)
+        tree = self._train_one_tree(grad, hess, init_score)
+        self.iter_ += 1
+        if tree is None:
+            log.warning("Stopped training because there are no more "
+                        "leaves that meet the split requirements")
+            return True
+        return False
+
+    def _train_one_tree(self, grad, hess, init_score: float
+                        ) -> Optional[Tree]:
+        ta, leaf_id, leaf_value = self.grow(grad, hess, self._inbag,
+                                            self._feature_mask())
+        nl = int(ta.num_leaves)
+        if nl <= 1:
+            self.models.append(Tree.single_leaf(init_score))
+            return None
+        rate = self.shrinkage_rate
+        with self.timer.stage("score_update", self.device):
+            rate_t = torch.tensor(rate, dtype=torch.float32,
+                                  device=self.device)
+            self.train_score = self.train_score + rate_t * leaf_value[
+                leaf_id]
+            for vs in self.valid_sets:
+                leaf_v = predict_leaf_bins(ta, vs.bins, self.dd.num_bins,
+                                           self.dd.has_nan)
+                vs.score = vs.score + rate_t * leaf_value[leaf_v]
+        tree = Tree.from_device(ta, self.train_set)
+        tree.apply_shrinkage(rate)
+        if abs(init_score) > 1e-35:
+            tree.add_bias(init_score)
+        self.models.append(tree)
+        return tree
+
+    # ------------------------------------------------------------------
+    def eval(self) -> List[Tuple[str, str, float, bool]]:
+        """[(dataset_name, metric_name, value, higher_better)] like
+        GBDT::OutputMetric."""
+        out = []
+
+        def run(metrics, score, ds_name):
+            if not metrics:
+                return
+            raw = score.detach()
+            conv = (self.objective.convert_output(raw)
+                    if self.objective is not None else raw)
+            prob = conv.double().cpu().numpy()
+            raw_np = raw.double().cpu().numpy()
+            for m in metrics:
+                for name, v, hb in m.eval(prob, raw_np):
+                    out.append((ds_name, name, v, hb))
+
+        run(self._train_metrics, self.train_score, "training")
+        for vs in self.valid_sets:
+            run(vs.metrics, vs.score, vs.name)
+        return out
+
+    def current_iteration(self) -> int:
+        return self.iter_
+
+
+def _bin_tree(t: Tree, inner: dict) -> TreeArrays:
+    """Bin-space arrays of a finished tree (for scoring a validation set
+    that joins after trees exist)."""
+    ni = t.num_leaves - 1
+    z = np.zeros(ni, np.float32)
+    return TreeArrays(
+        split_feature=np.array([inner[int(f)] for f in t.split_feature],
+                               np.int32),
+        threshold_bin=t.threshold_bin, split_gain=z,
+        default_left=(t.decision_type & 2) > 0,
+        is_categorical=(t.decision_type & 1) > 0,
+        left_child=t.left_child, right_child=t.right_child,
+        internal_value=z, internal_weight=z, internal_count=z,
+        leaf_value=np.asarray(t.leaf_value, np.float32),
+        leaf_weight=z, leaf_count=z, num_leaves=t.num_leaves)

@@ -4,8 +4,9 @@ Reference: src/boosting/gbdt_model_text.cpp (SaveModelToString :311,
 LoadModelFromString :473) and Tree::ToString (tree.cpp:340).  For a
 model loaded from text, :func:`save_model_to_string` writes the same
 bytes as ``lightgbm_tpu.models.model_text`` does for the same loaded
-model, so one model file moves between the two packages unchanged.
-Writing a trained booster comes with the training slice.
+model, so one model file moves between the two packages unchanged; for a
+trained booster it writes what the JAX package writes for the same
+trees, bin mappers and parameters (:func:`feature_infos`).
 """
 from __future__ import annotations
 
@@ -24,10 +25,11 @@ def save_model_to_string(
     num_iteration: int = -1,
     feature_importance_type: int = 0,
 ) -> str:
-    """``booster``: a loaded-model adapter with ``models``,
-    ``num_class``, ``num_tree_per_iteration``, ``objective``,
-    ``average_output``, ``feature_names``, ``feature_infos`` and
-    ``max_feature_idx`` (``basic._LoadedAdapter``)."""
+    """``booster``: an object with ``models``, ``num_class``,
+    ``num_tree_per_iteration``, ``objective``, ``average_output``,
+    ``feature_names``, ``feature_infos``, ``max_feature_idx`` and
+    ``param_string`` (``basic._LoadedAdapter`` for a loaded model, the
+    trained ``GBDT`` for a trained one)."""
     feature_names = booster.feature_names
     k = booster.num_tree_per_iteration
 
@@ -67,18 +69,40 @@ def save_model_to_string(
     body += "\nfeature_importances:\n"
     for v, name in pairs:
         body += f"{name}={int(v) if feature_importance_type == 0 else v}\n"
-    body += "\nparameters:\n" + _loaded_param_string(booster) + "\n"
+    body += "\nparameters:\n" + booster.param_string + "\n"
     body += "end of parameters\n"
     return body
 
 
-def _loaded_param_string(booster) -> str:
+def loaded_param_string(num_class: int) -> str:
     """The ``parameters:`` body of a loaded model: the JAX package
     writes the non-default fields of a fresh ``Config`` in which only
     ``num_class`` is set, so that is all a loaded model keeps."""
-    if booster.num_class != 1:
-        return f"[num_class: {booster.num_class}]"
+    if num_class != 1:
+        return f"[num_class: {num_class}]"
     return ""
+
+
+def feature_infos(dataset) -> List[str]:
+    """``feature_infos=`` entries of a trained model: ``[lo:hi]`` of the
+    bin upper bounds of a numerical feature, the sorted category values
+    of a categorical one, ``none`` for a feature dropped at binning."""
+    infos = []
+    used = {int(f): i for i, f in enumerate(dataset.used_feature_map)}
+    for j in range(dataset.num_total_features):
+        if j not in used:
+            infos.append("none")
+            continue
+        m = dataset.mappers[used[j]]
+        if m.bin_type == 1:  # categorical
+            infos.append(":".join(str(int(v)) for v in
+                                  sorted(m.cat_values.tolist())) or "none")
+        else:
+            ub = m.upper_bounds
+            lo = float(ub[0]) if len(ub) else 0.0
+            hi = float(ub[-2]) if len(ub) > 1 else lo
+            infos.append(f"[{lo:g}:{hi:g}]")
+    return infos
 
 
 def feature_importance(booster, num_iteration: int = -1,

@@ -9,11 +9,12 @@ and categorical bitsets over raw category values (tree.h:19-20,
 Tree::ToString (tree.cpp:345-406) byte for byte with
 ``lightgbm_tpu.models.tree``.  The host walk (:meth:`Tree.predict_leaf`)
 is the f64 reference every compiled serving path is held against.
-Building a tree from device arrays comes with the training slice.
+:meth:`Tree.from_device` finalizes a tree the grower built.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import List
 
 import numpy as np
 
@@ -71,6 +72,82 @@ class Tree:
         t.cat_boundaries = np.array([0], np.int32)
         t.cat_threshold = np.zeros(0, np.uint32)
         return t
+
+    @classmethod
+    def from_device(cls, ta, dataset) -> "Tree":
+        """Finalize grown ``TreeArrays`` into model space (the JAX
+        package's ``Tree.from_device``): inner -> original feature ids,
+        bin thresholds -> real thresholds by the dataset's bin mappers,
+        and the ``decision_type`` bits.  One-hot categorical splits get a
+        bitset over the raw category values that go left."""
+        nl = int(ta.num_leaves)
+        ni = max(nl - 1, 0)
+        t = cls(num_leaves=nl)
+        sf_inner = np.asarray(ta.split_feature)[:ni]
+        tb = np.asarray(ta.threshold_bin)[:ni]
+        dl = np.asarray(ta.default_left)[:ni]
+        cat = np.asarray(ta.is_categorical)[:ni]
+        t.split_feature = dataset.used_feature_map[sf_inner].astype(np.int32)
+        t.threshold_bin = tb.astype(np.int32)
+        t.split_gain = np.asarray(ta.split_gain)[:ni].astype(np.float64)
+        t.left_child = np.asarray(ta.left_child)[:ni].astype(np.int32)
+        t.right_child = np.asarray(ta.right_child)[:ni].astype(np.int32)
+        t.internal_value = np.asarray(ta.internal_value)[:ni].astype(
+            np.float64)
+        t.internal_weight = np.asarray(ta.internal_weight)[:ni].astype(
+            np.float64)
+        t.internal_count = np.asarray(ta.internal_count)[:ni].astype(np.int64)
+        t.leaf_value = np.asarray(ta.leaf_value)[:nl].astype(np.float64)
+        t.leaf_weight = np.asarray(ta.leaf_weight)[:nl].astype(np.float64)
+        t.leaf_count = np.asarray(ta.leaf_count)[:nl].astype(np.int64)
+        thresh = np.zeros(ni, np.float64)
+        dtype_arr = np.zeros(ni, np.uint8)
+        cat_bounds = [0]
+        cat_words: List[np.ndarray] = []
+        for i in range(ni):
+            mapper = dataset.mappers[sf_inner[i]]
+            d = 0
+            if cat[i]:
+                d |= _K_CATEGORICAL_MASK
+                vals = mapper.cat_values[np.isin(mapper.cat_bins, [tb[i]])]
+                maxv = int(vals.max()) if len(vals) else 0
+                words = np.zeros(maxv // 32 + 1, np.uint32)
+                for v in vals:
+                    words[v // 32] |= np.uint32(1 << (int(v) % 32))
+                thresh[i] = len(cat_words)   # slot into cat_boundaries
+                cat_words.append(words)
+                cat_bounds.append(cat_bounds[-1] + len(words))
+                d |= MissingType.NAN << 2    # NaN goes right
+            else:
+                d |= int(mapper.missing_type) << 2
+                if mapper.missing_type == MissingType.NAN:
+                    if dl[i]:
+                        d |= _K_DEFAULT_LEFT_MASK
+                elif mapper.missing_type == MissingType.ZERO:
+                    # zero goes by its bin position vs the threshold
+                    if mapper.default_bin <= tb[i]:
+                        d |= _K_DEFAULT_LEFT_MASK
+                thresh[i] = mapper.bin_to_threshold(int(tb[i]))
+            dtype_arr[i] = d
+        t.threshold = thresh
+        t.decision_type = dtype_arr
+        t.num_cat = len(cat_words)
+        t.cat_boundaries = np.asarray(cat_bounds, np.int32)
+        t.cat_threshold = (np.concatenate(cat_words) if cat_words
+                           else np.zeros(0, np.uint32))
+        return t
+
+    def apply_shrinkage(self, rate: float) -> None:
+        """Tree::Shrinkage (tree.h:207)."""
+        self.leaf_value *= rate
+        self.internal_value *= rate
+        self.shrinkage *= rate
+
+    def add_bias(self, val: float) -> None:
+        """Tree::AddBias (boost_from_average folded into the first
+        tree)."""
+        self.leaf_value = self.leaf_value + val
+        self.internal_value = self.internal_value + val
 
     # ------------------------------------------------------------------
     def _decide(self, node: int, fval: np.ndarray) -> np.ndarray:

@@ -1,0 +1,89 @@
+"""Device-resident dataset and the physically partitioned row matrix.
+
+Counterpart of ``lightgbm_tpu/ops/device_data.py`` (``DeviceDataset``,
+``to_device``) and of the row-matrix init ``phys_init_comb``
+(``lightgbm_tpu/ops/grow.py``).  The TPU packs each row into a 128-lane
+f32 line with the row id stored as three f32 bytes; the port keeps the
+same per-row content in three arrays (:class:`Rows`): the ``F`` u8 bins,
+the f32 values ``(g*w, h*w, w)`` and an i32 row id.  The kernels move
+whole rows, so each leaf's rows stay contiguous and every histogram
+reads one contiguous range.  Features are not padded to matmul groups
+(there is no MXU tile to fill); bins are padded to the JAX package's
+per-feature width so histograms have the same ``[F, B, 2]`` shape.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..io.binning import BinType
+from ..io.dataset_core import BinnedDataset
+from ..utils.log import LightGBMError
+
+
+def bins_per_feature_padded(max_num_bins: int) -> int:
+    """Per-feature bin count padded to a multiple of 16 (the JAX
+    package's ``histogram.bins_per_feature_padded``)."""
+    b = max(int(max_num_bins), 16)
+    return int(np.ceil(b / 16) * 16)
+
+
+class Rows(NamedTuple):
+    """The row matrix: row r is (bins[r], vals[r], rid[r])."""
+    bins: torch.Tensor   # u8 [n, F]
+    vals: torch.Tensor   # f32 [n, 3]: g*w, h*w, w
+    rid: torch.Tensor    # i32 [n]: original row id
+
+
+def init_rows(bins: torch.Tensor) -> Rows:
+    """A fresh row matrix in original row order (``phys_init_comb``):
+    the bins copied, values zero (refreshed per tree), row ids 0..n-1."""
+    n = bins.shape[0]
+    return Rows(bins.clone(),
+                torch.zeros((n, 3), dtype=torch.float32, device=bins.device),
+                torch.arange(n, dtype=torch.int32, device=bins.device))
+
+
+def empty_rows_like(rows: Rows) -> Rows:
+    """Partition scratch of the same shapes (contents undefined)."""
+    return Rows(*(torch.empty_like(a) for a in rows))
+
+
+@dataclasses.dataclass
+class DeviceDataset:
+    bins: torch.Tensor       # [n, F] u8 on the device
+    num_bins: torch.Tensor   # [F] i32
+    has_nan: torch.Tensor    # [F] bool
+    is_cat: torch.Tensor     # [F] bool
+    padded_bins: int         # B: histogram bins per feature
+    num_features: int
+    num_data: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.bins.device
+
+
+def to_device(ds: BinnedDataset, device: torch.device) -> DeviceDataset:
+    mat = ds.bin_matrix
+    if mat.dtype != np.uint8:
+        raise LightGBMError(
+            "lightgbm_tpu_torch trains on uint8 bins only (max_bin <= "
+            "256, as the JAX package's physical path); wider bins come "
+            "with ROADMAP.md A9")
+    nbins = ds.num_bins_per_feature
+    f = mat.shape[1]
+    has_nan = np.array([m.has_nan_bin for m in ds.mappers], bool)
+    is_cat = np.array([m.bin_type == BinType.CATEGORICAL
+                       for m in ds.mappers], bool)
+    return DeviceDataset(
+        bins=torch.as_tensor(np.ascontiguousarray(mat), device=device),
+        num_bins=torch.as_tensor(nbins, dtype=torch.int32, device=device),
+        has_nan=torch.as_tensor(has_nan, device=device),
+        is_cat=torch.as_tensor(is_cat, device=device),
+        padded_bins=bins_per_feature_padded(int(nbins.max()) if f else 16),
+        num_features=f,
+        num_data=mat.shape[0])

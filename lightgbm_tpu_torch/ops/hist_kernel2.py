@@ -1,0 +1,133 @@
+"""Comb-direct histogram: the wrapper of ``csrc/hist_comb.cu``, its
+launch count and its plain PyTorch version.
+
+Counterpart of ``build_histogram_comb`` / ``build_histogram_comb_dyn``
+in ``lightgbm_tpu/ops/pallas/hist_kernel2.py``: the (sum g*w, sum h*w)
+histogram ``[F, B, 2]`` f32 of row-matrix rows
+``[start + off, start + off + count)``.  ``rng`` is an i32 ``[3]``
+tensor ``(start, off, count)`` on the rows' device, so a range the
+device computed (the smaller child of a split) needs no host read; the
+caller passes ``max_rows``, an upper bound on ``count`` that sizes the
+grid.  Rows outside the range, or outside the matrix, contribute
+nothing.  Accumulation is f32 throughout, in a fixed order: the
+kernel's output is bitwise identical across launches on the same input,
+and the plain version adds in the same order.
+
+:func:`build_histogram_comb` takes the plain version only for tensors
+on the CPU; for CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..utils.log import LightGBMError
+from . import _build
+from .device_data import Rows
+from .histogram import build_histogram
+
+# shared memory a block may use on the H100 (232,448 bytes)
+MAX_SMEM = 232448
+# rows per first-pass block aimed at, and the most blocks one launch uses
+ROWS_PER_BLOCK = 4096
+MAX_BLOCKS = 2 * 132
+
+
+def hist_blocks(max_rows: int) -> int:
+    """First-pass grid size for a range of at most ``max_rows`` rows."""
+    return max(1, min(MAX_BLOCKS, -(-int(max_rows) // ROWS_PER_BLOCK)))
+
+
+def _window(rng, n: int):
+    start, off, count = (int(v) for v in rng)
+    lo = max(start + off, 0)
+    hi = min(start + off + max(count, 0), n)
+    return lo, max(hi, lo)
+
+
+def block_ranges(lo: int, hi: int, nblocks: int):
+    """The rows each first-pass block of the kernel sums (its
+    ``block_range``): equal slices rounded up to 32 rows."""
+    per = -(-(hi - lo) // nblocks)
+    per = -(-per // 32) * 32
+    return [(min(lo + per * b, hi), min(lo + per * (b + 1), hi))
+            for b in range(nblocks)]
+
+
+def build_histogram_comb_ref(rows: Rows, rng: torch.Tensor, *,
+                             padded_bins: int, max_rows: int) -> torch.Tensor:
+    """Plain version, in the kernel's order of f32 additions: each
+    block's slice of the range is summed row by row into its own
+    histogram (``index_add_``, sequential on the CPU), and the block
+    histograms are added in block order.  On the CPU it therefore gives
+    the kernel's bits."""
+    lo, hi = _window(rng.tolist(), rows.bins.shape[0])
+    f = rows.bins.shape[1]
+    out = torch.zeros((f, padded_bins, 2), dtype=torch.float32,
+                      device=rows.bins.device)
+    for b_lo, b_hi in block_ranges(lo, hi, hist_blocks(max_rows)):
+        if b_hi > b_lo:
+            out = out + build_histogram(rows.bins[b_lo:b_hi],
+                                        rows.vals[b_lo:b_hi, :2],
+                                        padded_bins=padded_bins)
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    lib = _build.load("hist_comb")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hist_comb.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.hist_comb.restype = i
+    lib.hist_comb_smem_bytes.argtypes = [i, i]
+    lib.hist_comb_smem_bytes.restype = i
+    return lib
+
+
+def build_histogram_comb(rows: Rows, rng: torch.Tensor, *, padded_bins: int,
+                         max_rows: int) -> torch.Tensor:
+    """Histogram ``[F, padded_bins, 2]`` f32 of the rows ``rng`` selects
+    (``count`` at most ``max_rows``).  CPU tensors take
+    :func:`build_histogram_comb_ref`; CUDA tensors launch the kernel on
+    the current stream."""
+    dev = rows.bins.device
+    if dev.type == "cpu":
+        return build_histogram_comb_ref(rows, rng, padded_bins=padded_bins,
+                                        max_rows=max_rows)
+    if dev.type != "cuda":
+        raise LightGBMError(f"histogram runs on cuda or cpu, not {dev}")
+    n, f = rows.bins.shape
+    if (rows.bins.dtype != torch.uint8 or rows.vals.dtype != torch.float32
+            or tuple(rows.vals.shape) != (n, 3)
+            or not rows.bins.is_contiguous()
+            or not rows.vals.is_contiguous()):
+        raise LightGBMError("histogram wants contiguous u8 bins [n, F] and "
+                            "f32 vals [n, 3]")
+    if (rng.device != dev or rng.dtype != torch.int32 or rng.numel() != 3
+            or not rng.is_contiguous()):
+        raise LightGBMError("rng must be a contiguous i32 [3] tensor "
+                            "(start, off, count) on the rows' device")
+    lib = _lib()
+    if lib.hist_comb_smem_bytes(f, padded_bins) > MAX_SMEM:
+        raise LightGBMError(f"histogram of {f} features x {padded_bins} "
+                            "bins does not fit one block's shared memory")
+    nblocks = hist_blocks(max_rows)
+    partials = torch.empty((nblocks, f, padded_bins, 2), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((f, padded_bins, 2), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.hist_comb(rows.bins.data_ptr(), rows.vals.data_ptr(),
+                           rng.data_ptr(), partials.data_ptr(),
+                           out.data_ptr(), n, f, int(padded_bins), nblocks,
+                           stream)
+    if rc != 0:
+        raise LightGBMError(f"hist_comb kernel launch failed with CUDA "
+                            f"error {rc}")
+    build_histogram_comb.launches += 1
+    return out
+
+
+build_histogram_comb.launches = 0

@@ -1,0 +1,195 @@
+"""Partition of one leaf segment of the row matrix: the wrappers of
+``csrc/partition.cu`` (scan and copyback), their launch counts and their
+plain PyTorch versions.
+
+Counterpart of ``lightgbm_tpu/ops/pallas/partition_kernel2.py``
+(``make_partition_ss`` with ``partition_kernel3.make_partition_perm``'s
+packing, and ``copyback_call``).  The split descriptor keeps the layout
+of ``partition_kernel.py`` (``SEL_S0 .. SEL_NANB``) and the predicate
+is ``_go_left``'s.  After :func:`partition` the segment holds its left
+rows in their original order, then its right rows in reversed original
+order, exactly as the compiled TPU kernel leaves it; rows outside the
+segment are untouched.
+
+Each wrapper takes its plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+
+from ..utils.log import LightGBMError
+from . import _build
+from .device_data import Rows
+
+# split descriptor layout (lightgbm_tpu/ops/pallas/partition_kernel.py)
+SEL_S0, SEL_CNT, SEL_FEAT, SEL_SBIN, SEL_DL, SEL_CAT, SEL_NANB = range(7)
+# rows per block of the scan kernels (csrc/partition.cu kTile)
+SCAN_TILE = 1024
+
+
+def go_left(col: torch.Tensor, sel: Sequence[int]) -> torch.Tensor:
+    """The go-left predicate of ``partition_kernel._go_left`` on the
+    split column's integer bins."""
+    if sel[SEL_CAT]:
+        return col == sel[SEL_SBIN]
+    nanb = sel[SEL_NANB]
+    at_nan = (col == nanb) if nanb >= 0 else torch.zeros_like(col,
+                                                             dtype=torch.bool)
+    return torch.where(at_nan, bool(sel[SEL_DL]), col <= sel[SEL_SBIN])
+
+
+def partition_scan_ref(rows: Rows, scratch: Rows, sel: Sequence[int],
+                       nleft: torch.Tensor) -> torch.Tensor:
+    """Plain version of the scan: writes the partitioned segment into
+    ``scratch`` (left rows in order, then right rows reversed) and its
+    left count into ``nleft`` (i32 [1])."""
+    s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
+    if cnt <= 0:
+        nleft.zero_()
+        return nleft
+    col = rows.bins[s0:s0 + cnt, int(sel[SEL_FEAT])].to(torch.int32)
+    gl = go_left(col, sel)
+    order = torch.cat([torch.nonzero(gl).flatten(),
+                       torch.nonzero(~gl).flatten().flip(0)]) + s0
+    for src, dst in zip(rows, scratch):
+        dst[s0:s0 + cnt] = src[order]
+    nleft.fill_(int(gl.sum()))
+    return nleft
+
+
+def copyback_ref(rows: Rows, scratch: Rows, s0: int, cnt: int) -> None:
+    """Plain version of the copyback: rows[s0:s0+cnt] = scratch's, for
+    every column."""
+    for dst, src in zip(rows, scratch):
+        dst[s0:s0 + cnt] = src[s0:s0 + cnt]
+
+
+def partition_ref(rows: Rows, scratch: Rows, sel: Sequence[int],
+                  nleft: torch.Tensor) -> torch.Tensor:
+    """Plain version of the whole partition (scan, then copyback)."""
+    partition_scan_ref(rows, scratch, sel, nleft)
+    copyback_ref(rows, scratch, int(sel[SEL_S0]), int(sel[SEL_CNT]))
+    return nleft
+
+
+def _check(rows: Rows, scratch: Rows, nleft=None) -> None:
+    n, f = rows.bins.shape
+    dev = rows.bins.device
+    for r in (rows, scratch):
+        if (r.bins.dtype != torch.uint8 or r.vals.dtype != torch.float32
+                or r.rid.dtype != torch.int32):
+            raise LightGBMError("row matrix wants u8 bins, f32 vals, i32 "
+                                "rid")
+        if (tuple(r.bins.shape) != (n, f) or tuple(r.vals.shape) != (n, 3)
+                or tuple(r.rid.shape) != (n,)):
+            raise LightGBMError(f"row matrix arrays must be [{n}, {f}], "
+                                f"[{n}, 3] and [{n}]")
+        for a in r:
+            if a.device != dev or not a.is_contiguous():
+                raise LightGBMError("row matrix arrays must be contiguous "
+                                    "and on one device")
+    if nleft is not None and (nleft.device != dev
+                              or nleft.dtype != torch.int32
+                              or nleft.numel() != 1):
+        raise LightGBMError("nleft must be an i32 scalar on the rows' "
+                            "device")
+
+
+def _check_segment(rows: Rows, s0: int, cnt: int) -> None:
+    if s0 < 0 or cnt < 0 or s0 + cnt > rows.bins.shape[0]:
+        raise LightGBMError(f"segment [{s0}, {s0 + cnt}) is outside the "
+                            f"{rows.bins.shape[0]}-row matrix")
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    lib = _build.load("partition")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.partition_scan.argtypes = [p] * 8 + [i] * 8 + [p]
+    lib.partition_scan.restype = i
+    lib.partition_copyback.argtypes = [p] * 6 + [i] * 3 + [p]
+    lib.partition_copyback.restype = i
+    return lib
+
+
+def partition_scan(rows: Rows, scratch: Rows, sel: Sequence[int],
+                   nleft: torch.Tensor) -> torch.Tensor:
+    """Scan the segment ``sel`` describes into ``scratch`` and write its
+    left count into ``nleft``.  CPU tensors take
+    :func:`partition_scan_ref`; CUDA tensors launch the kernel on the
+    current stream.  ``cnt == 0`` (a dead split) writes ``nleft = 0``
+    and launches nothing."""
+    dev = rows.bins.device
+    if dev.type == "cpu":
+        return partition_scan_ref(rows, scratch, sel, nleft)
+    if dev.type != "cuda":
+        raise LightGBMError(f"partition runs on cuda or cpu, not {dev}")
+    _check(rows, scratch, nleft)
+    s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
+    _check_segment(rows, s0, cnt)
+    if cnt == 0:
+        nleft.zero_()
+        return nleft
+    f = rows.bins.shape[1]
+    if not 0 <= int(sel[SEL_FEAT]) < f:
+        raise LightGBMError(f"split feature {sel[SEL_FEAT]} outside [0, {f})")
+    tiles = -(-cnt // SCAN_TILE)
+    tile_left = torch.empty(tiles, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().partition_scan(
+            rows.bins.data_ptr(), rows.vals.data_ptr(), rows.rid.data_ptr(),
+            scratch.bins.data_ptr(), scratch.vals.data_ptr(),
+            scratch.rid.data_ptr(), tile_left.data_ptr(), nleft.data_ptr(),
+            f, s0, cnt, int(sel[SEL_FEAT]), int(sel[SEL_SBIN]),
+            int(sel[SEL_DL]), int(sel[SEL_CAT]), int(sel[SEL_NANB]), stream)
+    if rc != 0:
+        raise LightGBMError(f"partition_scan kernel launch failed with "
+                            f"CUDA error {rc}")
+    partition_scan.launches += 1
+    return nleft
+
+
+def copyback(rows: Rows, scratch: Rows, s0: int, cnt: int) -> None:
+    """Move rows [s0, s0 + cnt) of every column from ``scratch`` back
+    into ``rows``.  CPU tensors take :func:`copyback_ref`; CUDA tensors
+    launch the kernel."""
+    dev = rows.bins.device
+    if dev.type == "cpu":
+        return copyback_ref(rows, scratch, s0, cnt)
+    if dev.type != "cuda":
+        raise LightGBMError(f"copyback runs on cuda or cpu, not {dev}")
+    _check(rows, scratch)
+    _check_segment(rows, s0, cnt)
+    if cnt == 0:
+        return None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().partition_copyback(
+            rows.bins.data_ptr(), rows.vals.data_ptr(), rows.rid.data_ptr(),
+            scratch.bins.data_ptr(), scratch.vals.data_ptr(),
+            scratch.rid.data_ptr(), rows.bins.shape[1], int(s0), int(cnt),
+            stream)
+    if rc != 0:
+        raise LightGBMError(f"copyback kernel launch failed with CUDA "
+                            f"error {rc}")
+    copyback.launches += 1
+    return None
+
+
+def partition(rows: Rows, scratch: Rows, sel: Sequence[int],
+              nleft: torch.Tensor) -> torch.Tensor:
+    """The split's partition: scan into scratch, then copy back (the
+    two kernels the TPU path runs per split)."""
+    partition_scan(rows, scratch, sel, nleft)
+    copyback(rows, scratch, int(sel[SEL_S0]), int(sel[SEL_CNT]))
+    return nleft
+
+
+partition_scan.launches = 0
+copyback.launches = 0

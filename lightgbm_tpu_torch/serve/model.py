@@ -1,5 +1,6 @@
-"""ServingModel: one-time build of a loaded booster into stacked forest
-arrays and quantizer tables on one device.
+"""ServingModel: one-time build of a booster (loaded from model text or
+trained by the port) into stacked forest arrays and quantizer tables on
+one device.
 
 The build is host-side numpy, the same arithmetic as the ``derive``
 branch of ``lightgbm_tpu/serve/model.py``: every numerical split
@@ -148,15 +149,9 @@ class ServingModel:
                      end_iteration: Optional[int] = None,
                      device="cuda") -> "ServingModel":
         """Stack the ``[start, end)`` iteration slice of a booster
-        loaded from model text, re-deriving an exact quantizer from the
-        trees' own thresholds."""
+        (loaded from model text or trained by the port), re-deriving an
+        exact quantizer from the trees' own thresholds."""
         dev = resolve_device(device)
-        loaded = getattr(booster, "_loaded", None)
-        if loaded is None:
-            raise LightGBMError(
-                "ServingModel.from_booster takes a booster loaded from "
-                "model text; a booster trained by lightgbm_tpu crosses "
-                "over through lightgbm_tpu_torch.convert")
         models = booster._models
         k = booster._k
         total_iter = len(models) // max(k, 1)
@@ -171,7 +166,7 @@ class ServingModel:
         ni_pad = _pad_to(ni_max)
         nl_pad = _pad_to(nl_max)
 
-        f_cnt = max(int(loaded.max_feature_idx) + 1, 1)
+        f_cnt = max(int(booster.num_feature()), 1)
         used_cols = np.arange(f_cnt, dtype=np.int32)
 
         sf = np.zeros((t_cnt, ni_pad), np.int32)

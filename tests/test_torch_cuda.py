@@ -1,19 +1,25 @@
-"""The port's CUDA kernels on the card (``cuda`` marker).
+"""The port's CUDA kernels, and training, on the card (``cuda`` marker).
 
 These tests need an NVIDIA GPU with ``nvcc``: the CUDA kernels have no
 CPU mode, so they skip elsewhere.  They import neither JAX nor the JAX
 package, so they run on a GPU host without JAX:
 ``python -m pytest tests/test_torch_cuda.py -m cuda``.  Each kernel is
-held against its plain PyTorch version on the same inputs: leaf indices
-exactly, scores within ``64 * T * eps_f32 * max(|s|, 1)`` (f32 sums in
-another order).
+held against its plain PyTorch version on the same inputs: the
+traversal's leaf indices exactly and its scores within
+``64 * T * eps_f32 * max(|s|, 1)`` (f32 sums in another order); the
+histogram within ``4 * n * eps_f32 * max|v|`` and bitwise equal across
+two launches; the partition scan and copyback byte for byte.  Trees
+grown on the card equal the CPU run's (structure, and leaf values
+within 1e-5 of the tree's largest leaf).
 """
 import numpy as np
 import pytest
 import torch
 
 import lightgbm_tpu_torch as lgt
-from chip_smoke import make_rows, random_model_text, score_tolerance
+from chip_smoke import (compare_trees, hist_parity, make_higgs_like,
+                        make_rows, partition_parity, random_model_text,
+                        random_row_matrix, rows_on, score_tolerance)
 from lightgbm_tpu_torch.ops import predict as tpred
 from lightgbm_tpu_torch.ops import serve_kernel as tkern
 
@@ -79,3 +85,46 @@ def test_booster_on_card_matches_host_walk(cuda):
                          for kk in range(3)], axis=1)
     assert np.all(np.abs(raw - host_raw)
                   <= score_tolerance(host_raw, len(bst._models)))
+
+
+# -- slice 2: the training kernels and training on the card -----------
+@pytest.mark.parametrize("rng", [(0, 0, 20_000), (4099, 3, 7001),
+                                 (-50, 10, 300), (19_990, 0, 1000)])
+def test_hist_comb_matches_plain(cuda, rng):
+    """Kernel vs plain within 4 * n * eps_f32 * max|v|, two launches
+    bitwise equal; ranges cut at the matrix edges contribute nothing
+    outside it."""
+    from lightgbm_tpu_torch.ops.hist_kernel2 import build_histogram_comb
+    rows = rows_on(random_row_matrix(20_000, 7, 5), cuda)
+    before = build_histogram_comb.launches
+    hist_parity(rows, rng, 256, "test")
+    assert build_histogram_comb.launches == before + 2
+
+
+@pytest.mark.parametrize("sel", [
+    (0, 20_000, 0, 100, 1, 0, 200),      # NaN bin routed left
+    (333, 5001, 0, 90, 0, 0, 200),       # NaN bin routed right
+    (17, 4000, 3, 7, 0, 1, -1),          # one-hot categorical
+    (1, 1, 2, 50, 0, 0, -1),             # one row
+    (100, 0, 1, 10, 0, 0, -1),           # dead split
+])
+def test_partition_matches_plain(cuda, sel):
+    """Scan and copyback vs their plain versions: identical bytes and
+    nleft, rows outside the segment untouched."""
+    rows = rows_on(random_row_matrix(20_000, 6, 9, n_bins=201,
+                                     nan_bin=200), cuda)
+    partition_parity(rows, sel, "test")
+
+
+def test_training_on_card_matches_cpu(cuda):
+    """Trees grown on the card equal the CPU run's in structure, leaf
+    values within 1e-5 relative."""
+    x, y = make_higgs_like(4000, 8, seed=2)
+    x[np.random.default_rng(2).random(x.shape) < 0.1] = np.nan
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+    a = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                  device="cuda")
+    b = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                  device="cpu")
+    res = compare_trees(a._models, b._models)
+    assert res["ok"], res
