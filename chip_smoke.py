@@ -6,25 +6,44 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 
 1. the card's name and power limit; the CUDA kernels are built from
    ``lightgbm_tpu_torch/csrc`` (one ``nvcc`` per source, all at once);
-2. every kernel against its plain PyTorch version on the card: small
-   seeded forests with categorical splits, NaN rows, f32 and bf16 leaf
-   tables and padded buckets (``n_real < n``), then the main path's own
-   forest at its 65,536-row bucket;
-3. the serving main path at full width: a seeded binary forest of 100
-   trees x 255 leaves over 28 f32 features, written as LightGBM model
-   text by the port's writer, loaded with ``Booster(model_str=...)``,
-   scoring 1,000,000 rows with ``Booster.predict`` and 512 batches of 64
-   rows through ``ServingQueue``; the launch counts are zeroed just
-   before and read just after, and 4,096 rows are held against the f64
-   host walk;
-4. one JSON line per run of ``{"kernels": [...]}`` with each kernel's
-   launches, parity and times, then the device line last.
+2. serving (slice 1): ``serve_traverse`` against its plain PyTorch
+   version on small seeded forests with categorical splits, NaN rows,
+   f32 and bf16 leaf tables and padded buckets, then the serving main
+   path at full width: a seeded binary forest of 100 trees x 255 leaves
+   over 28 features, loaded from model text, scoring 1,000,000 rows
+   with ``Booster.predict`` and 512 batches of 64 rows through
+   ``ServingQueue``, counted, and 4,096 rows held against the f64 host
+   walk;
+3. the training kernels (slices 2 and 3) against their plain versions
+   at the main path's shapes (1,000,000 x 28 real bins, B = 256):
+   ``hist_comb``, ``partition_scan`` and ``copyback``; ``stream_init`` and
+   ``stream_refresh`` bitwise, the refresh's root histogram bitwise
+   ``hist_comb``'s; ``fused_split`` on the 1M-row segment and on a
+   3,000-row segment at an odd offset, its rows and nleft bitwise and
+   both histograms bitwise ``hist_comb``'s of each child range;
+   ``apply_find`` on a real split's histograms, bitwise; then each
+   kernel's time beside its plain version's;
+4. training parity, card against ``device="cpu"``, 50,000 x 28, 255
+   leaves: 3 trees on the default route, 1 on slice 2's route;
+5. the training main path on the default route (score-resident
+   gradients, fused split, one-kernel split tail): 1,000,000 x 28, 255
+   leaves, 10 iterations, the launch counts zeroed just before and read
+   just after, per-tree stage times, holdout AUC, host reads, and the
+   trained booster served through ``serve_traverse``; then slice 2's
+   route (``LGBM_TPU_STREAM=0 LGBM_TPU_FUSED=0 LGBM_TPU_APPLY_IMPL=xla``)
+   for 3 iterations, counted the same way, its trees held against the
+   default route's first 3; one profiled iteration of each;
+6. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+   parity and times, then the device line last.
 
-The forest is generated, not trained: the card's machine has no JAX.
+The forests and rows are generated from seeds: the card's machine has
+no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -492,15 +511,17 @@ TRAIN_PARAMS = {"objective": "binary", "num_leaves": TRAIN_LEAVES,
 LEAF_RTOL = 1e-5
 EPS32 = float(np.finfo(np.float32).eps)
 # bytes per row of the row matrix: F u8 bins + 3 f32 values + i32 row id
-ROW_EXTRA_BYTES = 16
+# + f32 score + 2 f32 objective constants
+ROW_EXTRA_BYTES = 28
 
 
 def random_row_matrix(n_rows: int, n_features: int, seed: int,
                       n_bins: int = 255, nan_bin: int = -1):
     """A seeded row matrix ``(bins u8 [n, F], vals f32 [n, 3], rid i32
-    [n])``: uniform bins below ``n_bins`` (with ``nan_bin`` >= 0, 5% of
-    feature 0's rows sit in that bin), gradient-like values and a
-    shuffled row-id column."""
+    [n], score f32 [n], consts f32 [n, 2])``: uniform bins below
+    ``n_bins`` (with ``nan_bin`` >= 0, 5% of feature 0's rows sit in
+    that bin), gradient-like values, a shuffled row-id column, raw
+    scores and binary-style constants (sign +-1, label weight)."""
     rng = np.random.default_rng(seed)
     bins = rng.integers(0, n_bins, size=(n_rows, n_features), dtype=np.uint8)
     if nan_bin >= 0:
@@ -510,7 +531,11 @@ def random_row_matrix(n_rows: int, n_features: int, seed: int,
                      rng.uniform(0.01, 0.25, n_rows).astype(np.float32) * w,
                      w], axis=1)
     rid = rng.permutation(n_rows).astype(np.int32)
-    return bins, np.ascontiguousarray(vals), rid
+    score = rng.normal(size=n_rows).astype(np.float32)
+    consts = np.stack([np.where(rng.random(n_rows) < 0.5, 1.0, -1.0),
+                       rng.uniform(0.5, 2.0, n_rows)], axis=1)
+    return (bins, np.ascontiguousarray(vals), rid, score,
+            np.ascontiguousarray(consts, dtype=np.float32))
 
 
 def rows_on(arrays, device):
@@ -598,6 +623,203 @@ def partition_parity(rows, sel, label: str) -> dict:
     return rec
 
 
+def _rows_equal(a, b, lo: int = 0, hi=None) -> bool:
+    return all(torch_equal(x[lo:hi], y[lo:hi]) for x, y in zip(a, b))
+
+
+def torch_equal(a, b) -> bool:
+    """Bitwise equality of two tensors (NaNs with equal bits are equal)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a = a.contiguous().view(view[a.element_size()])
+        b = b.contiguous().view(view[b.element_size()])
+    return bool(torch.equal(a, b))
+
+
+def stream_aux(n: int, kind: str, seed: int, device):
+    """Seeded stream-route inputs: scores, validity (90 % valid) and the
+    objective's constants (binary: sign, label weight; l2: target,
+    weight)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa
+    score = t(rng.normal(size=n) * 2.0)
+    valid = t(rng.random(n) < 0.9)
+    if kind == "binary":
+        c = np.stack([np.where(rng.random(n) < 0.4, 1.0, -1.0),
+                      rng.uniform(0.5, 2.0, n)], axis=1)
+    else:
+        c = np.stack([rng.normal(size=n), rng.uniform(0.5, 2.0, n)], axis=1)
+    return score, valid, t(c).contiguous()
+
+
+def stream_parity(bins, kind: str, padded_bins: int, label: str,
+                  sigmoid: float = 1.0, seed: int = 5) -> dict:
+    """stream_init and stream_refresh against their plain versions on the
+    same inputs, bitwise (rows after init, rows after the refresh), and
+    the refresh's root histogram bitwise equal to hist_comb over [0, n)
+    of the refreshed rows."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.hist_kernel2 import build_histogram_comb
+    from lightgbm_tpu_torch.ops.stream_grad import (stream_init,
+                                                    stream_init_ref,
+                                                    stream_refresh,
+                                                    stream_refresh_ref)
+    dev = bins.device
+    n = bins.shape[0]
+    score, valid, consts = stream_aux(n, kind, seed, dev)
+    kw = dict(kind=kind, sigmoid=sigmoid)
+    rk = stream_init(bins, score, valid, consts, **kw)
+    rp = stream_init_ref(bins, score, valid, consts, **kw)
+    torch.cuda.synchronize()
+    init_ok = _rows_equal(rk, rp)
+    lv = torch.tensor(np.random.default_rng(seed + 1).normal(size=n) * 0.1,
+                      dtype=torch.float32, device=dev)
+    hk = stream_refresh(rk, lv, padded_bins=padded_bins, **kw)
+    hp = stream_refresh_ref(rp, lv, padded_bins=padded_bins, **kw)
+    root = torch.tensor([0, 0, n], dtype=torch.int32, device=dev)
+    hc = build_histogram_comb(rk, root, padded_bins=padded_bins, max_rows=n)
+    torch.cuda.synchronize()
+    rec = {"case": label, "n": n, "kind": kind, "init_identical": init_ok,
+           "refresh_identical": _rows_equal(rk, rp),
+           "root_hist_bitwise_hist_comb": torch_equal(hk, hc),
+           "root_hist_vs_plain_max_abs_err": float((hk - hp).abs().max()),
+           "tol": hist_tolerance(rk, (0, 0, n))}
+    rec["ok"] = (init_ok and rec["refresh_identical"]
+                 and rec["root_hist_bitwise_hist_comb"]
+                 and rec["root_hist_vs_plain_max_abs_err"] <= rec["tol"])
+    print("parity stream_grad " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"stream kernels disagree with their plain "
+                           f"versions: {rec}")
+    return rec
+
+
+def fused_parity(rows, sel, padded_bins: int, label: str) -> dict:
+    """fused_split against its plain version on copies of the same rows:
+    the scratch segment byte-identical with equal nleft, each side's
+    histogram bitwise equal to hist_comb of that child's range (grid of
+    max_rows = cnt // 2 + 1) and within 4 * n * eps_f32 * max|v| of the
+    plain version, then the rows byte-identical after the copyback."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import Rows
+    from lightgbm_tpu_torch.ops.fused_split import (child_ranges,
+                                                    fused_split,
+                                                    fused_split_ref)
+    from lightgbm_tpu_torch.ops.hist_kernel2 import build_histogram_comb
+    from lightgbm_tpu_torch.ops.partition_kernel import copyback, copyback_ref
+    dev = rows.bins.device
+    rk = Rows(*(a.clone() for a in rows))
+    rp = Rows(*(a.clone() for a in rows))
+    sk = Rows(*(torch.zeros_like(a) for a in rows))
+    sp = Rows(*(torch.zeros_like(a) for a in rows))
+    nk = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    npl = torch.full((1,), -2, dtype=torch.int32, device=dev)
+    s0, cnt = int(sel[0]), int(sel[1])
+    launches = fused_split.launches
+    hk = fused_split(rk, sk, sel, nk, padded_bins=padded_bins)
+    hp = fused_split_ref(rp, sp, sel, npl, padded_bins=padded_bins)
+    torch.cuda.synchronize()
+    scan_ok = _rows_equal(sk, sp, s0, s0 + cnt) and int(nk) == int(npl)
+    hist_bitwise, err, tol = True, 0.0, 0.0
+    for side, rng in enumerate(child_ranges(s0, cnt, int(nk))):
+        hc = build_histogram_comb(
+            sk, torch.tensor(rng, dtype=torch.int32, device=dev),
+            padded_bins=padded_bins, max_rows=cnt // 2 + 1)
+        hist_bitwise &= torch_equal(hk[side], hc)
+        err = max(err, float((hk[side] - hp[side]).abs().max()))
+        tol = max(tol, hist_tolerance(sk, rng))
+    copyback(rk, sk, s0, cnt)
+    copyback_ref(rp, sp, s0, cnt)
+    torch.cuda.synchronize()
+    rec = {"case": label, "s0": s0, "cnt": cnt, "nleft": int(nk),
+           "scan_identical": scan_ok, "rows_identical": _rows_equal(rk, rp),
+           "hist_bitwise_hist_comb": hist_bitwise, "max_abs_err": err,
+           "tol": tol, "launched": fused_split.launches - launches}
+    rec["ok"] = (scan_ok and rec["rows_identical"] and hist_bitwise
+                 and err <= tol
+                 and rec["launched"] == (1 if cnt > 0 else 0))
+    print("parity fused_split " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"fused_split disagrees with its plain version: "
+                           f"{rec}")
+    return rec
+
+
+def split_state(grower, rows):
+    """A real split's inputs to the tail: the root's tree state built by
+    ``grower`` from ``rows``, the root's best split applied by the fused
+    split (rows partitioned in place) and its histogram pair, nleft and
+    the SplitAt."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.apply_find import BB, BDL, BF, SplitAt
+    from lightgbm_tpu_torch.ops.device_data import empty_rows_like
+    from lightgbm_tpu_torch.ops.fused_split import fused_split
+    from lightgbm_tpu_torch.ops.hist_kernel2 import build_histogram_comb
+    from lightgbm_tpu_torch.ops.partition_kernel import copyback
+    dd = grower.dd
+    n, dev, b = dd.num_data, dd.device, dd.padded_bins
+    root = torch.tensor([0, 0, n], dtype=torch.int32, device=dev)
+    fmask = torch.ones(dd.num_features, dtype=torch.float32, device=dev)
+    st = grower.init_tree_state(
+        rows, build_histogram_comb(rows, root, padded_bins=b, max_rows=n),
+        fmask)
+    feat, sbin, dl = (int(v) for v in st.best[0, [BF, BB, BDL]].tolist())
+    nanb = (int(dd.num_bins[feat]) - 1 if bool(dd.has_nan[feat]) else -1)
+    cat = int(bool(dd.is_cat[feat]))
+    sel = (0, n, feat, sbin, dl, cat, nanb)
+    nleft = torch.zeros(1, dtype=torch.int32, device=dev)
+    scratch = empty_rows_like(rows)
+    pair = fused_split(rows, scratch, sel, nleft, padded_bins=b)
+    copyback(rows, scratch, 0, n)
+    return st, pair, nleft, fmask, SplitAt(0, 1, 0, 0, n)
+
+
+def apply_find_parity(grower, rows, label: str) -> dict:
+    """apply_find_pool and apply_find against their plain versions on a
+    real split's histograms and state, bitwise (every state tensor and
+    both pool rows), and the done guard leaving every tensor untouched."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.apply_find import (TreeState, apply_find,
+                                                   apply_find_pool,
+                                                   apply_find_pool_ref,
+                                                   apply_find_ref)
+    st, pair, nleft, fmask, at = split_state(grower, rows)
+    args = (grower.finder, fmask, grower.hp, grower.max_depth)
+    copy = lambda s: TreeState(*(a.clone() for a in s))  # noqa: E731
+    sk, sp = copy(st), copy(st)
+    apply_find_pool(pair[0], pair[1], nleft, sk, *args, at)
+    apply_find_pool_ref(pair[0], pair[1], nleft, sp, *args, at)
+    torch.cuda.synchronize()
+    pool_ok = all(torch_equal(a, b) for a, b in zip(sk, sp))
+    h2 = torch.stack([sp.pool[at.leaf], sp.pool[at.right]]).contiguous()
+    pk, pp = copy(st), copy(st)
+    apply_find(h2, nleft, pk, *args, at)
+    apply_find_ref(h2, nleft, pp, *args, at)
+    dk = copy(st)
+    apply_find_pool(pair[0], pair[1], nleft, dk, *args, at._replace(done=1))
+    torch.cuda.synchronize()
+    rec = {"case": label, "nleft": int(nleft), "pool_entry_identical": pool_ok,
+           "plain_entry_identical": all(torch_equal(a, b)
+                                        for a, b in zip(pk, pp)),
+           "done_untouched": all(torch_equal(a, b) for a, b in zip(dk, st)),
+           "best_rows": sk.best[[at.leaf, at.right]].tolist()}
+    rec["ok"] = (pool_ok and rec["plain_entry_identical"]
+                 and rec["done_untouched"])
+    print("parity apply_find " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"apply_find disagrees with its plain version: "
+                           f"{rec}")
+    return rec
+
+
 def compare_trees(models_a, models_b, rtol: float = LEAF_RTOL) -> dict:
     """Structure equal (num_leaves, split features, threshold bins,
     decision types, leaf counts) and leaf values within ``rtol``
@@ -623,9 +845,39 @@ def compare_trees(models_a, models_b, rtol: float = LEAF_RTOL) -> dict:
             "trees": len(models_a)}
 
 
-def train_parity(gpu: str) -> dict:
-    """50,000 rows x 28 (NaN and zero missing values), 255 leaves, 3
-    trees, trained on the card and with device="cpu"."""
+SLICE2_ROUTE = {"LGBM_TPU_STREAM": "0", "LGBM_TPU_FUSED": "0",
+                "LGBM_TPU_APPLY_IMPL": "xla"}
+SLICE2_ITERS = 3
+SLICE2_PARITY_TREES = 1
+# kernels of the default route (PERF.md rows 14, 16, 10, 12-13)
+OUR_KERNEL_NAMES = ("hist_comb", "partition_", "count_tiles", "left_prefix",
+                    "fused_scatter", "reduce_partials", "stream_",
+                    "apply_find")
+
+
+@contextlib.contextmanager
+def route_env(env: dict):
+    """The JAX package's route knobs set as ``env`` says (and the others
+    unset) inside the block, restored after it."""
+    keys = tuple(SLICE2_ROUTE)
+    saved = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def train_parity(gpu: str, env: dict, trees: int, label: str) -> dict:
+    """50,000 rows x 28 (NaN and zero missing values), 255 leaves,
+    ``trees`` trees on the route ``env`` selects, trained on the card and
+    with device="cpu"; whether the leaf values are bitwise equal too."""
     import lightgbm_tpu_torch as lgt
     x = make_rows(PARITY_ROWS, N_FEATURES, 3)
     _, y = make_higgs_like(PARITY_ROWS, N_FEATURES, 3)
@@ -636,28 +888,38 @@ def train_parity(gpu: str) -> dict:
                           device=device)
         traces.append([])
         bst._inner.grow.trace = traces[-1]
-        for _ in range(PARITY_TREES):
+        for _ in range(trees):
             bst.update()
         return bst
-    t0 = time.perf_counter()
-    bst_c = _train("cuda")
-    t1 = time.perf_counter()
-    bst_p = _train("cpu")
-    t2 = time.perf_counter()
+    with route_env(env):
+        t0 = time.perf_counter()
+        bst_c = _train("cuda")
+        t1 = time.perf_counter()
+        bst_p = _train("cpu")
+        t2 = time.perf_counter()
     rec = compare_trees(bst_c._models, bst_p._models)
     diff = [i for i, (a, b) in enumerate(zip(*traces)) if a != b]
     if diff:
         i = diff[0]
         rec["first_split_diff"] = {"split": i, "cuda": traces[0][i],
                                    "cpu": traces[1][i]}
-    rec.update(case=f"{PARITY_ROWS}x{N_FEATURES}, {TRAIN_LEAVES} leaves, "
-               f"{PARITY_TREES} trees", cuda_s=t1 - t0, cpu_s=t2 - t1,
+    rec.update(case=f"{label}: {PARITY_ROWS}x{N_FEATURES}, {TRAIN_LEAVES} "
+               f"leaves, {trees} trees", cuda_s=t1 - t0, cpu_s=t2 - t1,
+               route=bst_c._inner.grow.route.describe(),
+               leaves_bitwise=leaves_bitwise(bst_c._models, bst_p._models),
                leaves=[t.num_leaves for t in bst_c._models])
     print("parity training " + json.dumps(rec), flush=True)
     if not rec["ok"]:
         raise RuntimeError(f"training on the card differs from the CPU "
                            f"run: {rec}")
     return rec
+
+
+def leaves_bitwise(models_a, models_b) -> bool:
+    return len(models_a) == len(models_b) and all(
+        np.asarray(a.leaf_value, np.float64).tobytes()
+        == np.asarray(b.leaf_value, np.float64).tobytes()
+        for a, b in zip(models_a, models_b))
 
 
 def profile_iteration(bst, gpu: str) -> dict:
@@ -684,12 +946,12 @@ def profile_iteration(bst, gpu: str) -> dict:
         c, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
-    ours = ("hist_comb", "partition_")
     ours_ms = sum(us for k, (_, us) in by_name.items()
-                  if any(o in k for o in ours)) / 1e3
+                  if any(o in k for o in OUR_KERNEL_NAMES)) / 1e3
     splits = max(bst._models[-1].num_leaves - 1, 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    return {"measured": True, "wall_ms": wall_ms, "busy_ms": busy_ms,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"measured": True, "route": bst._inner.grow.route.describe(),
+            "wall_ms": wall_ms, "busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms, "kernels": len(kernels),
             "splits": splits, "kernels_per_split": len(kernels) / splits,
             "our_kernels_ms": ours_ms,
@@ -713,110 +975,221 @@ def _kernel_record(name, source, replaces, launches, err, ms, plain_ms,
     return rec
 
 
-def train_phases(gpu: str) -> list:
-    """Slice 2: the three training kernels against their plain versions
-    at the main path's shapes, training parity card vs CPU, then the
-    training main path (1M x 28, 255 leaves, 10 iterations) counted,
-    timed by stage, and its booster served through serve_traverse.
-    Returns the three kernels' records."""
+def training_kernels(gpu: str, ds) -> list:
+    """Slices 2 and 3: every training kernel against its plain version
+    at the main path's shapes (the training matrix's real bins, seeded
+    values), then each one's time on the card beside its plain
+    version's.  Returns the records, launches still 0."""
     import torch
 
-    import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.ops.device_data import Rows, init_rows
-    from lightgbm_tpu_torch.ops.grow import StageTimer
+    from lightgbm_tpu_torch.ops.apply_find import (apply_find_pool,
+                                                   apply_find_pool_ref)
+    from lightgbm_tpu_torch.ops.device_data import (Rows, init_rows,
+                                                    to_device)
+    from lightgbm_tpu_torch.ops.fused_split import (fused_split,
+                                                    fused_split_ref)
+    from lightgbm_tpu_torch.ops.grow import SerialGrower, StreamSpec
     from lightgbm_tpu_torch.ops.hist_kernel2 import (
         build_histogram_comb, build_histogram_comb_ref)
     from lightgbm_tpu_torch.ops.partition_kernel import (
         copyback, copyback_ref, partition_scan, partition_scan_ref)
-    from lightgbm_tpu_torch.ops.serve_kernel import serve_traverse
+    from lightgbm_tpu_torch.ops.routing import RouteInputs, decide
+    from lightgbm_tpu_torch.ops.split import SplitHyperParams
+    from lightgbm_tpu_torch.ops.stream_grad import (stream_init,
+                                                    stream_init_ref,
+                                                    stream_refresh,
+                                                    stream_refresh_ref)
 
     dev = torch.device("cuda")
-    x_all, y_all = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS, N_FEATURES,
-                                   seed=0)
-    x, y = x_all[:TRAIN_ROWS], y_all[:TRAIN_ROWS]
-    xv, yv = x_all[TRAIN_ROWS:], y_all[TRAIN_ROWS:]
-    t0 = time.perf_counter()
-    ds = lgt.Dataset(x, label=y, params={"max_bin": 255}).construct()
-    valid = lgt.Dataset(xv, label=yv, reference=ds).construct()
-    print(f"binned {TRAIN_ROWS} + {HOLDOUT_ROWS} rows x {N_FEATURES} in "
-          f"{time.perf_counter() - t0:.2f} s (host)", flush=True)
-
-    # 1. kernels vs plain at the main path's shapes: the real bins of
-    # the training matrix with seeded gradient-like values
     bins = torch.as_tensor(ds._binned.bin_matrix, device=dev)
     n, f = bins.shape
     b_pad = 256
     rows = init_rows(bins)
-    _, vals, _ = random_row_matrix(n, 1, 7)
+    vals = random_row_matrix(n, 1, 7)[1]
     rows.vals.copy_(torch.as_tensor(vals, device=dev))
     hist_recs = [hist_parity(rows, (0, 0, n), b_pad, "root"),
                  hist_parity(rows, (333_331, 5, 250_000), b_pad,
                              "child_unaligned")]
     # a numerical split with a NaN bin routed left: feature 0's bins
     # with 5% of rows moved to bin 255, the NaN bin
-    pbins, pvals, prid = random_row_matrix(n, f, 11, nan_bin=255)
+    parts = random_row_matrix(n, f, 11, nan_bin=255)
     prows = rows_on((np.ascontiguousarray(
-        np.concatenate([pbins[:, :1], ds._binned.bin_matrix[:, 1:]], 1)),
-        pvals, prid), dev)
-    part_recs = [partition_parity(prows, (0, n, 0, 120, 1, 0, 255),
-                                  "1M_nan_default_left"),
-                 partition_parity(prows, (100_001, 3000, 0, 60, 1, 0, 255),
-                                  "3000_at_odd_offset")]
+        np.concatenate([parts[0][:, :1], ds._binned.bin_matrix[:, 1:]], 1)),
+        *parts[1:]), dev)
+    sel = (0, n, 0, 120, 1, 0, 255)
+    small_sel = (100_001, 3000, 0, 60, 1, 0, 255)
+    part_recs = [partition_parity(prows, sel, "1M_nan_default_left"),
+                 partition_parity(prows, small_sel, "3000_at_odd_offset")]
+    stream_recs = [stream_parity(bins, "binary", b_pad, "1M_binary"),
+                   stream_parity(bins, "l2", b_pad, "1M_l2")]
+    fused_recs = [fused_parity(prows, sel, b_pad, "1M_nan_default_left"),
+                  fused_parity(prows, small_sel, b_pad,
+                               "3000_at_odd_offset")]
+    dd = to_device(ds._binned, dev)
+    grower = SerialGrower(SplitHyperParams(), num_leaves=TRAIN_LEAVES,
+                          max_depth=-1, dd=dd, route=decide(RouteInputs()),
+                          stream=StreamSpec("binary", 1.0))
+    af_rows = init_rows(dd.bins)
+    af_rows.vals.copy_(torch.as_tensor(vals, device=dev))
+    af_recs = [apply_find_parity(grower, af_rows, "1M_root_split")]
 
-    # kernel times at the main path's shapes (root range, whole-matrix
-    # segment), L2 warm as in training's back-to-back splits
+    # times at the main path's shapes (root range, whole-matrix segment,
+    # the root split's tail), L2 warm as in training's back-to-back splits
     root = torch.tensor([0, 0, n], dtype=torch.int32, device=dev)
-    hist_ms = _time_ms(lambda: build_histogram_comb(
-        rows, root, padded_bins=b_pad, max_rows=n), 20)
-    hist_plain_ms = _time_ms(lambda: build_histogram_comb_ref(
-        rows, root, padded_bins=b_pad, max_rows=n), 3)
     scratch = Rows(*(torch.empty_like(a) for a in prows))
     nl = torch.zeros(1, dtype=torch.int32, device=dev)
-    sel = (0, n, 0, 120, 1, 0, 255)
-    scan_ms = _time_ms(lambda: partition_scan(prows, scratch, sel, nl), 20)
-    scan_plain_ms = _time_ms(lambda: partition_scan_ref(prows, scratch, sel,
-                                                        nl), 3)
-    cb_ms = _time_ms(lambda: copyback(prows, scratch, 0, n), 20)
-    cb_plain_ms = _time_ms(lambda: copyback_ref(prows, scratch, 0, n), 3)
+    score, valid, consts = stream_aux(n, "binary", 5, dev)
+    s_kw = dict(kind="binary", sigmoid=1.0)
+    srows = stream_init(bins, score, valid, consts, **s_kw)
+    lv = torch.zeros(n, dtype=torch.float32, device=dev)
+    st, pair, nleft, fmask, at = split_state(grower, af_rows)
+    af_args = (nleft, st, grower.finder, fmask, grower.hp, -1, at)
+    t = {}
+    t["hist_comb"] = (
+        _time_ms(lambda: build_histogram_comb(
+            rows, root, padded_bins=b_pad, max_rows=n), 20),
+        _time_ms(lambda: build_histogram_comb_ref(
+            rows, root, padded_bins=b_pad, max_rows=n), 3))
+    t["partition_scan"] = (
+        _time_ms(lambda: partition_scan(prows, scratch, sel, nl), 20),
+        _time_ms(lambda: partition_scan_ref(prows, scratch, sel, nl), 3))
+    t["copyback"] = (
+        _time_ms(lambda: copyback(prows, scratch, 0, n), 20),
+        _time_ms(lambda: copyback_ref(prows, scratch, 0, n), 3))
+    t["stream_init"] = (
+        _time_ms(lambda: stream_init(bins, score, valid, consts, **s_kw), 20),
+        _time_ms(lambda: stream_init_ref(bins, score, valid, consts, **s_kw),
+                 3))
+    t["stream_refresh"] = (
+        _time_ms(lambda: stream_refresh(srows, lv, padded_bins=b_pad,
+                                        **s_kw), 20),
+        _time_ms(lambda: stream_refresh_ref(srows, lv, padded_bins=b_pad,
+                                            **s_kw), 3))
+    t["fused_split"] = (
+        _time_ms(lambda: fused_split(prows, scratch, sel, nl,
+                                     padded_bins=b_pad), 20),
+        _time_ms(lambda: fused_split_ref(prows, scratch, sel, nl,
+                                         padded_bins=b_pad), 3))
+    t["apply_find"] = (
+        _time_ms(lambda: apply_find_pool(pair[0], pair[1], *af_args), 50),
+        _time_ms(lambda: apply_find_pool_ref(pair[0], pair[1], *af_args),
+                 5))
+    print("kernel times [ms, plain ms] at the main path's shapes "
+          + json.dumps(t) + f" [{gpu}]", flush=True)
+    del prows, scratch, rows, srows, af_rows
+
     row_bytes = f + ROW_EXTRA_BYTES
-    print(f"kernel times at {n} rows: hist_comb {hist_ms:.4f} ms (plain "
-          f"{hist_plain_ms:.4f}), partition_scan {scan_ms:.4f} ms (plain "
-          f"{scan_plain_ms:.4f}), copyback {cb_ms:.4f} ms (plain "
-          f"{cb_plain_ms:.4f}) [{gpu}]", flush=True)
-    del prows, scratch, rows
+    hist_out = f * b_pad * 2 * 4
+    hist_bytes = n * (f + 8) + hist_out
+    cells = 2 * 2 * f * b_pad
+    recs = [
+        _kernel_record(
+            "hist_comb", "lightgbm_tpu_torch/csrc/hist_comb.cu",
+            "lightgbm_tpu/ops/pallas/hist_kernel2.py:225", 0,
+            max(r["max_abs_err"] for r in hist_recs), *t["hist_comb"],
+            hist_bytes, 2 * n * f, gpu,
+            bitwise_repeat=all(r["bitwise_repeat"] for r in hist_recs)),
+        _kernel_record(
+            "partition_scan", "lightgbm_tpu_torch/csrc/partition.cu",
+            "lightgbm_tpu/ops/pallas/partition_kernel2.py:377", 0, 0.0,
+            *t["partition_scan"], 2 * n * row_bytes + 4, 0, gpu),
+        _kernel_record(
+            "copyback", "lightgbm_tpu_torch/csrc/partition.cu",
+            "lightgbm_tpu/ops/pallas/partition_kernel2.py:325", 0, 0.0,
+            *t["copyback"], 2 * n * row_bytes, 0, gpu),
+        # reads bins, score, validity, two constants; writes every column;
+        # ~16 f32 operations a row (the f64 exp counted as one)
+        _kernel_record(
+            "stream_init", "lightgbm_tpu_torch/csrc/stream_grad.cu",
+            "lightgbm_tpu/ops/pallas/stream_grad.py:784", 0, 0.0,
+            *t["stream_init"], n * (f + 16) + n * row_bytes, 16 * n, gpu,
+            parity_cases=[r["case"] for r in stream_recs]),
+        # reads bins, score, w, two constants, lv; writes score, g*w, h*w
+        # and the histogram; ~17 operations a row plus 2 * F histogram adds
+        _kernel_record(
+            "stream_refresh", "lightgbm_tpu_torch/csrc/stream_grad.cu",
+            "lightgbm_tpu/ops/pallas/stream_grad.py:515", 0,
+            max(r["root_hist_vs_plain_max_abs_err"] for r in stream_recs),
+            *t["stream_refresh"], n * (f + 20) + 12 * n + hist_out,
+            n * (17 + 2 * f), gpu, root_hist_bitwise_hist_comb=all(
+                r["root_hist_bitwise_hist_comb"] for r in stream_recs)),
+        # reads and writes every row of the segment once, writes both
+        # histograms; 2 * F histogram adds a row
+        _kernel_record(
+            "fused_split", "lightgbm_tpu_torch/csrc/fused_split.cu",
+            "lightgbm_tpu/ops/pallas/fused_split.py:346", 0,
+            max(r["max_abs_err"] for r in fused_recs), *t["fused_split"],
+            2 * n * row_bytes + 2 * hist_out, 2 * n * f, gpu,
+            hist_bitwise_hist_comb=all(r["hist_bitwise_hist_comb"]
+                                       for r in fused_recs)),
+        # reads the parent's pool row and the smaller child's histogram,
+        # writes two pool rows; ~40 operations per candidate of the
+        # 2 children x 2 directions x F x B
+        _kernel_record(
+            "apply_find", "lightgbm_tpu_torch/csrc/apply_find.cu",
+            "lightgbm_tpu/ops/pallas/apply_find.py:571", 0, 0.0,
+            *t["apply_find"], 4 * hist_out, 40 * cells, gpu,
+            also_replaces="lightgbm_tpu/ops/pallas/apply_find.py:529 "
+                          "(plain-pool entry apply_find, same body)"),
+    ]
+    return recs
 
-    # 2. training parity, card vs CPU
-    parity = train_parity(gpu)
 
-    # 3. the training main path, counted and timed by stage
+def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
+                    label: str):
+    """The training main path on the route ``env`` selects, counted and
+    timed by stage, its booster served through serve_traverse.  Returns
+    (booster, record)."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.apply_find import apply_find_pool
+    from lightgbm_tpu_torch.ops.fused_split import fused_split
+    from lightgbm_tpu_torch.ops.grow import StageTimer
+    from lightgbm_tpu_torch.ops.hist_kernel2 import build_histogram_comb
+    from lightgbm_tpu_torch.ops.partition_kernel import (copyback,
+                                                         partition_scan)
+    from lightgbm_tpu_torch.ops.serve_kernel import serve_traverse
+    from lightgbm_tpu_torch.ops.stream_grad import (stream_init,
+                                                    stream_refresh)
+    counted = (stream_init, stream_refresh, build_histogram_comb,
+               partition_scan, fused_split, copyback, apply_find_pool,
+               serve_traverse)
     its = []
 
-    def _tick(env):
+    def _tick(env_):
         torch.cuda.synchronize()
         its.append(time.perf_counter())
     _tick.order = 40
     timer = StageTimer(enabled=True)
-    torch.cuda.synchronize()
-    for fn in (build_histogram_comb, partition_scan, copyback,
-               serve_traverse):
-        fn.launches = 0
-    t_start = time.perf_counter()
-    bst = lgt.train(TRAIN_PARAMS, ds, num_boost_round=TRAIN_ITERS,
-                    valid_sets=[valid], callbacks=[_tick], device="cuda",
-                    timer=timer)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t_start
-    raw = bst.predict(x, raw_score=True)
-    launches = {fn.__name__: fn.launches
-                for fn in (build_histogram_comb, partition_scan, copyback,
-                           serve_traverse)}
+    with route_env(env):
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+        t_start = time.perf_counter()
+        bst = lgt.train(TRAIN_PARAMS, ds, num_boost_round=iters,
+                        valid_sets=[valid], callbacks=[_tick],
+                        device="cuda", timer=timer)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t_start
+        raw = bst.predict(x, raw_score=True)
+        launches = {fn.__name__: fn.launches for fn in counted}
     models = bst._models
     splits = sum(t.num_leaves - 1 for t in models)
-    expect = {"build_histogram_comb": len(models) + splits,
-              "partition_scan": splits, "copyback": splits}
+    route = bst._inner.grow.route
+    if route.stream:
+        expect = {"stream_init": 1, "stream_refresh": len(models),
+                  "build_histogram_comb": 1, "fused_split": splits,
+                  "copyback": splits, "apply_find_pool": splits,
+                  "partition_scan": 0}
+    else:
+        expect = {"stream_init": 0, "stream_refresh": 0,
+                  "build_histogram_comb": len(models) + splits,
+                  "partition_scan": splits, "copyback": splits,
+                  "fused_split": 0, "apply_find_pool": 0}
     for name, want in expect.items():
-        if launches[name] <= 0 or launches[name] != want:
-            raise RuntimeError(f"the training main path launched {name} "
+        if launches[name] != want:
+            raise RuntimeError(f"the {label} launched {name} "
                                f"{launches[name]} times, expected {want}")
     if launches["serve_traverse"] <= 0:
         raise RuntimeError("predict on the trained booster did not launch "
@@ -833,43 +1206,85 @@ def train_phases(gpu: str) -> list:
                            f"beyond 64 ulps per tree (max {err.max()})")
     if not (0.5 < auc <= 1.0):
         raise RuntimeError(f"holdout AUC {auc} is not better than chance")
+    if route.stream:
+        rows = bst._inner.grow.rows
+        if not torch.equal(rows.score, bst._inner.train_score[
+                rows.rid.long()]):
+            raise RuntimeError("the scores the rows carry differ from the "
+                               "booster's training scores")
     per_it = np.diff([t_start] + its)
     stages = {k: v / len(models) for k, v in timer.totals_ms().items()}
-    grower = bst._inner.grow
-    main = {"rows": TRAIN_ROWS, "features": N_FEATURES,
-            "leaves": TRAIN_LEAVES, "iterations": len(models),
-            "train_s": train_s, "s_per_iter_first": float(per_it[0]),
-            "s_per_iter_rest_mean": float(per_it[1:].mean()),
-            "stage_ms_per_tree": stages, "holdout_auc": auc,
-            "splits": splits, "host_reads": grower.host_reads,
-            "launches": launches, "predict_max_abs_err": float(err.max()),
-            "gpu": gpu}
-    print("training main path " + json.dumps(main), flush=True)
-    # an eleventh tree under the profiler, after every check of the ten
-    print("profiled iteration " + json.dumps(profile_iteration(bst, gpu)),
-          flush=True)
+    rec = {"case": label, "route": route.describe(), "rows": TRAIN_ROWS,
+           "features": N_FEATURES, "leaves": TRAIN_LEAVES,
+           "iterations": len(models), "train_s": train_s,
+           "s_per_iter_first": float(per_it[0]),
+           "s_per_iter_rest_mean": float(per_it[1:].mean()),
+           "s_per_iter": [float(v) for v in per_it],
+           "stage_ms_per_tree": stages, "holdout_auc": auc,
+           "splits": splits, "host_reads": bst._inner.grow.host_reads,
+           "launches": launches, "predict_max_abs_err": float(err.max()),
+           "gpu": gpu}
+    print(f"training {label} " + json.dumps(rec), flush=True)
+    return bst, rec
 
-    hist_bytes = n * (f + 8) + f * b_pad * 2 * 4
-    recs = [
-        _kernel_record(
-            "hist_comb", "lightgbm_tpu_torch/csrc/hist_comb.cu",
-            "lightgbm_tpu/ops/pallas/hist_kernel2.py:225",
-            launches["build_histogram_comb"],
-            max(r["max_abs_err"] for r in hist_recs), hist_ms,
-            hist_plain_ms, hist_bytes, 2 * n * f, gpu,
-            bitwise_repeat=all(r["bitwise_repeat"] for r in hist_recs)),
-        _kernel_record(
-            "partition_scan", "lightgbm_tpu_torch/csrc/partition.cu",
-            "lightgbm_tpu/ops/pallas/partition_kernel2.py:377",
-            launches["partition_scan"], 0.0, scan_ms, scan_plain_ms,
-            2 * n * row_bytes + 4, 0, gpu),
-        _kernel_record(
-            "copyback", "lightgbm_tpu_torch/csrc/partition.cu",
-            "lightgbm_tpu/ops/pallas/partition_kernel2.py:325",
-            launches["copyback"], 0.0, cb_ms, cb_plain_ms,
-            2 * n * row_bytes, 0, gpu),
-    ]
-    recs[0]["train_parity"] = parity["ok"]
+
+def train_phases(gpu: str) -> list:
+    """Slices 2 and 3: the training kernels against their plain versions
+    at the main path's shapes, training parity card vs CPU on both
+    routes, the training main path on the default route (1M x 28, 255
+    leaves, 10 iterations) counted, timed by stage and served, slice 2's
+    route beside it (3 iterations, its trees held against the default
+    route's first 3), and one profiled iteration of each.  Returns the
+    seven training kernels' records."""
+    import lightgbm_tpu_torch as lgt
+
+    x_all, y_all = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS, N_FEATURES,
+                                   seed=0)
+    x, y = x_all[:TRAIN_ROWS], y_all[:TRAIN_ROWS]
+    xv, yv = x_all[TRAIN_ROWS:], y_all[TRAIN_ROWS:]
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(x, label=y, params={"max_bin": 255}).construct()
+    valid = lgt.Dataset(xv, label=yv, reference=ds).construct()
+    print(f"binned {TRAIN_ROWS} + {HOLDOUT_ROWS} rows x {N_FEATURES} in "
+          f"{time.perf_counter() - t0:.2f} s (host)", flush=True)
+
+    recs = training_kernels(gpu, ds)
+    parity = train_parity(gpu, {}, PARITY_TREES, "default route")
+    parity2 = train_parity(gpu, SLICE2_ROUTE, SLICE2_PARITY_TREES,
+                           "slice 2 route")
+
+    bst, main = train_main_path(gpu, ds, valid, x, {}, TRAIN_ITERS,
+                                "main path, default route")
+    bst2, main2 = train_main_path(gpu, ds, valid, x, SLICE2_ROUTE,
+                                  SLICE2_ITERS, "slice 2 route")
+    routes = compare_trees(bst._models[:SLICE2_ITERS], bst2._models)
+    routes.update(case=f"default route vs slice 2 route, first "
+                  f"{SLICE2_ITERS} trees at {TRAIN_ROWS} rows",
+                  leaves_bitwise=leaves_bitwise(bst._models[:SLICE2_ITERS],
+                                                bst2._models))
+    print("parity routes " + json.dumps(routes), flush=True)
+    if not routes["ok"]:
+        raise RuntimeError(f"the default route's trees differ from slice "
+                           f"2's route's: {routes}")
+    # one more tree of each under the profiler, after every check
+    with route_env({}):
+        print("profiled iteration, default route "
+              + json.dumps(profile_iteration(bst, gpu)), flush=True)
+    with route_env(SLICE2_ROUTE):
+        print("profiled iteration, slice 2 route "
+              + json.dumps(profile_iteration(bst2, gpu)), flush=True)
+
+    names = {"hist_comb": "build_histogram_comb",
+             "apply_find": "apply_find_pool"}
+    for r in recs:
+        r["launches"] = main["launches"][names.get(r["name"], r["name"])]
+        if r["launches"] <= 0:
+            r["launches"] = main2["launches"][names.get(r["name"],
+                                                        r["name"])]
+            r["launched_on"] = "slice 2 route"
+        if r["launches"] <= 0:
+            raise RuntimeError(f"{r['name']} was launched on no main path")
+    recs[0]["train_parity"] = parity["ok"] and parity2["ok"]
     return recs
 
 

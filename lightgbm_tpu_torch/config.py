@@ -7,8 +7,9 @@ dict parses identically in both packages and a trained model's
 ``parameters:`` section is written the same way.  The TPU-only fields
 (``device_type`` defaulting to ``"tpu"``, ``tpu_*``) are kept for that
 reason; the port selects its device with the ``device=`` argument of
-its entry points instead.  :func:`env_knob` and the serve knobs keep the
-names and defaults of ``lightgbm_tpu.config.ENV_KNOBS``.
+its entry points instead.  :func:`env_knob`, the serve knobs and the
+training-route knobs (``ops/routing.py``) keep the names and defaults
+of ``lightgbm_tpu.config.ENV_KNOBS``.
 """
 from __future__ import annotations
 
@@ -32,6 +33,13 @@ ENV_KNOBS: Dict[str, tuple] = {
     "LGBM_TPU_SERVE_QUEUE": ("2", "dispatch queue depth for bulk and "
                                   "small-batch serving (submit batch "
                                   "t+1 while t is in flight)"),
+    "LGBM_TPU_STREAM": ("auto", "0 disables score-resident gradient "
+                                "streaming (ops/routing.py)"),
+    "LGBM_TPU_FUSED": ("1", "0 disables the fused partition+histogram "
+                            "split kernel (partition scan + smaller-child "
+                            "histogram instead)"),
+    "LGBM_TPU_APPLY_IMPL": ("kernel", "xla keeps the PyTorch split tail "
+                                      "instead of the apply_find kernel"),
 }
 
 

@@ -58,6 +58,42 @@ def serving_forest_from_numpy(arrays: dict, *, n_steps: int,
                         n_trees=t_cnt, digest=digest)
 
 
+# the stream comb's columns after the f bin columns
+# (lightgbm_tpu/ops/pallas/stream_grad.py COL_G .. COL_CONSTS)
+COMB_COL_G, COMB_COL_RID, COMB_COL_SC, COMB_COL_CONSTS = 0, 3, 6, 9
+
+
+def rows_from_stream_comb(comb: np.ndarray, *, f: int, n: int, kind: str):
+    """The port's row arrays ``(bins u8 [n, f], vals f32 [n, 3], rid i32
+    [n], score f32 [n], consts f32 [n, 2])`` from the first ``n`` rows
+    of a JAX stream comb ``[n_alloc, C]`` f32: bins from columns
+    ``[0, f)``, the row id from its three bytes, the score and every
+    bf16x3-split constant as ``hi + mid + lo`` in f32 (binary: sign,
+    label weight; l2: target, weight)."""
+    c = np.asarray(comb, np.float32)[:n]
+
+    def col(k):
+        return c[:, f + k]
+
+    def bf16x3(k):
+        return (col(k) + col(k + 1)) + col(k + 2)
+
+    rid = (col(COMB_COL_RID).astype(np.int64) * 65536
+           + col(COMB_COL_RID + 1).astype(np.int64) * 256
+           + col(COMB_COL_RID + 2).astype(np.int64)).astype(np.int32)
+    k0 = COMB_COL_CONSTS
+    if kind == "binary":
+        consts = np.stack([col(k0), bf16x3(k0 + 1)], axis=1)
+    elif kind == "l2":
+        consts = np.stack([bf16x3(k0), bf16x3(k0 + 3)], axis=1)
+    else:
+        raise ValueError(f"no stream layout for objective kind {kind!r}")
+    return (np.ascontiguousarray(c[:, :f].astype(np.uint8)),
+            np.ascontiguousarray(c[:, f + COMB_COL_G:f + COMB_COL_G + 3]),
+            rid, np.ascontiguousarray(bf16x3(COMB_COL_SC)),
+            np.ascontiguousarray(consts, np.float32))
+
+
 def dataset_from_numpy(mappers: Sequence[Dict], bin_matrix: np.ndarray,
                        label, *, used_feature_map: Sequence[int],
                        num_total_features: int,

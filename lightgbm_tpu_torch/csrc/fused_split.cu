@@ -1,0 +1,267 @@
+// Fused split: the partition of one leaf segment and BOTH children's
+// (sum g*w, sum h*w) histograms from one read of its rows.
+//
+// Replaces lightgbm_tpu/ops/pallas/fused_split.py make_fused_split
+// (_fused_scan_kernel :181 with _hist_accumulate2 :84, pallas_call at
+// :346): the rows of the segment [s0, s0 + cnt) are written to scratch in
+// partition_scan's layout -- left rows in their original order, then
+// right rows in REVERSED original order (csrc/partition.cu) -- nleft goes
+// to a device scalar, and out[0] / out[1] receive the left / right
+// child's histogram [F, B, 2].  The copyback (partition.cu) follows as a
+// separate launch, as copyback_call follows the TPU scan.
+//
+// Each side's histogram is bitwise build_histogram_comb of that child's
+// final range with max_rows = cnt / 2 + 1 (the grid slice 2's grower
+// gives the smaller child): the grid is 2 sides x hist_blocks(cnt/2 + 1)
+// blocks, each block owning the hist_comb slice of its side's
+// DESTINATION range.  A left slice is a contiguous run of left rows in
+// source order, walked forward; a right slice is a contiguous run of
+// right rows walked BACKWARD (the right side is reversed).  The block
+// finds where its run starts from the per-tile left counts (a binary
+// search over their prefix), then walks one 1,024-row count tile per
+// step: a tile holding none of its rows is skipped from the counts
+// alone (so a sparse side costs its blocks the tiles that hold its
+// rows, not the whole span), the others are marked (block scan), their
+// selected rows staged in destination order in shared memory, written
+// every column to scratch at their destination and added to the block's
+// shared histogram in hist_comb's order (hist_block.cuh).  Each slice is
+// walked by ceil(F / 8) blocks (blockIdx.z), each histogramming 8 of the
+// features, one per warp (every cell is still the sequential sum of its
+// rows in row order); the first of them moves the rows.  A last pass
+// adds each side's partials in block order.  Every source row is moved
+// once; the split column is read by the count pass and by the blocks
+// whose runs cover its tile.
+//
+// Kernels per launch: the tile counts (partition_common.cuh), one block
+// for their exclusive prefix and nleft, the scatter + histogram blocks,
+// the partial reduction.  Positions depend on the data only, so every
+// launch writes the same bytes.
+//
+// Bound on this card: bytes.  The rows are read and written once
+// (cnt * (F + 28) bytes each way) plus the split column and the
+// 2 x F x B x 8-byte outputs; the partials add 4 * grid * F * B * 8 bytes,
+// as in hist_comb.  Shared memory per block: F*B*8 + 1024*(F + 12) bytes
+// (98,304 at F=28, B=256), opted in above 48 KB.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hist_block.cuh"
+#include "partition_common.cuh"
+
+namespace {
+
+using part::kTile;
+using part::RowPtrs;
+using part::Split;
+constexpr int kThreads = part::kThreads;
+static_assert(kThreads == histblock::kThreads, "one block size");
+// features one block histograms: one per warp
+constexpr int kFeatPerBlock = kThreads / 32;
+
+// exclusive prefix of the tile counts: lprefix[t] = left rows before
+// tile t, lprefix[tiles] = nleft.  One block.
+__global__ void __launch_bounds__(kThreads)
+left_prefix(const int* __restrict__ tile_left, int tiles,
+            int* __restrict__ lprefix, int* __restrict__ nleft) {
+  int carry = 0;
+  for (int base = 0; base < tiles; base += kThreads) {
+    const int i = base + threadIdx.x;
+    int total;
+    const int ex = part::block_exclusive_scan(
+        i < tiles ? tile_left[i] : 0, &total);
+    if (i < tiles) lprefix[i] = carry + ex;
+    carry += total;
+  }
+  if (threadIdx.x == 0) {
+    lprefix[tiles] = carry;
+    *nleft = carry;
+  }
+}
+
+// this side's rows in tile t (the count pass's tiles)
+__device__ __forceinline__ long long side_rows(const int* lprefix, int t,
+                                               int side, long long cnt) {
+  const long long left = lprefix[t + 1] - lprefix[t];
+  if (side == 0) return left;
+  const long long hi = min((long long)(t + 1) * kTile, cnt);
+  return hi - (long long)t * kTile - left;
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_scatter_hist(RowPtrs rows, RowPtrs scr, int F, int B, Split sp,
+                   const int* __restrict__ lprefix, int tiles,
+                   float* __restrict__ partials) {
+  extern __shared__ float smem[];
+  const int cells = F * B * 2;
+  float* hist = smem;                                  // [F, B, 2]
+  float* sv = hist + cells;                            // [kTile, 2]
+  int* src_idx = reinterpret_cast<int*>(sv + 2 * kTile);       // [kTile]
+  uint8_t* sb = reinterpret_cast<uint8_t*>(src_idx + kTile);   // [kTile, F]
+  histblock::zero(hist, cells);
+
+  const int side = blockIdx.y;             // 0 left, 1 right
+  // the features this block histograms (blockIdx.z); block z == 0 also
+  // writes the rows to scratch
+  const int f_lo = blockIdx.z * kFeatPerBlock;
+  const int f_hi = min(F, f_lo + kFeatPerBlock);
+  const bool mover = blockIdx.z == 0;
+  const long long nl = lprefix[tiles];
+  const long long side_cnt = side == 0 ? nl : sp.cnt - nl;
+  // this block's slice [k_lo, k_hi) of the side's destination ranks
+  long long k_lo, k_hi;
+  histblock::slice(0, side_cnt, gridDim.x, blockIdx.x, &k_lo, &k_hi);
+  const long long base = side == 0 ? sp.s0 : sp.s0 + nl;
+
+  if (k_lo < k_hi) {
+    // The tile holding the slice's first row.  Left: largest t with
+    // lprefix[t] <= k_lo.  Right: destination rank j is right row
+    // side_cnt - 1 - j in source order; largest t whose right rows before
+    // it number <= that.
+    const long long target = side == 0 ? k_lo : side_cnt - 1 - k_lo;
+    int t_lo = 0, t_hi = tiles - 1;
+    while (t_lo < t_hi) {
+      const int mid = (t_lo + t_hi + 1) / 2;
+      const long long p_mid = min((long long)mid * kTile, (long long)sp.cnt);
+      const long long key = side == 0 ? lprefix[mid] : p_mid - lprefix[mid];
+      if (key <= target) t_lo = mid; else t_hi = mid - 1;
+    }
+    // the destination rank of the first side row the walk meets: the
+    // left walk goes forward from the tile's first row, the right walk
+    // backward from its last
+    int t = t_lo;
+    long long run;
+    if (side == 0) {
+      run = lprefix[t];
+    } else {
+      const long long p_end = min((long long)(t + 1) * kTile,
+                                  (long long)sp.cnt);
+      run = side_cnt - (p_end - lprefix[t + 1]);
+    }
+    const int dir = side == 0 ? 1 : -1;
+    // one count tile per step; a tile with no row of the slice is
+    // skipped from the counts alone
+    for (; run < k_hi && t >= 0 && t < tiles; t += dir) {
+      const long long in_tile = side_rows(lprefix, t, side, sp.cnt);
+      if (in_tile == 0 || run + in_tile <= k_lo) {
+        run += in_tile;
+        continue;
+      }
+      // this thread's kPer rows of the tile, in the walk's order
+      const long long t0 = (long long)t * kTile;
+      const int t_rows = (int)min((long long)kTile, sp.cnt - t0);
+      unsigned bits = 0;
+      for (int k = 0; k < part::kPer; ++k) {
+        const int i = threadIdx.x * part::kPer + k;
+        if (i < t_rows) {
+          const long long p = side == 0 ? t0 + i : t0 + t_rows - 1 - i;
+          const bool gl = part::go_left(
+              rows.bins[(sp.s0 + p) * F + sp.feat], sp);
+          if (gl == (side == 0)) bits |= 1u << k;
+        }
+      }
+      int tot;
+      const int off = part::block_exclusive_scan(__popc(bits), &tot);
+      const long long first = run > k_lo ? run : k_lo;   // slot 0's rank
+      const long long last = run + tot < k_hi ? run + tot : k_hi;
+      const int m = last > first ? (int)(last - first) : 0;
+      long long r = run + off;
+      for (int k = 0; k < part::kPer; ++k) {
+        if (!(bits & (1u << k))) continue;
+        if (r >= k_lo && r < k_hi) {
+          const int i = threadIdx.x * part::kPer + k;
+          const long long p = side == 0 ? t0 + i : t0 + t_rows - 1 - i;
+          src_idx[r - first] = (int)(sp.s0 + p);
+        }
+        ++r;
+      }
+      __syncthreads();
+      // staged rows: bins and (g*w, h*w) to shared memory, every column
+      // to scratch at the destination
+      const long long dst0 = base + first;
+      if ((F & 3) == 0) {
+        const int W = F / 4;
+        for (int i = threadIdx.x; i < m * W; i += kThreads) {
+          const int slot = i / W, w = i - slot * W;
+          const uint32_t v = reinterpret_cast<const uint32_t*>(
+              rows.bins + (size_t)src_idx[slot] * F)[w];
+          reinterpret_cast<uint32_t*>(sb + slot * F)[w] = v;
+          if (mover)
+            reinterpret_cast<uint32_t*>(
+                scr.bins + (size_t)(dst0 + slot) * F)[w] = v;
+        }
+      } else {
+        for (int i = threadIdx.x; i < m * F; i += kThreads) {
+          const int slot = i / F, f = i - slot * F;
+          const uint8_t v = rows.bins[(size_t)src_idx[slot] * F + f];
+          sb[slot * F + f] = v;
+          if (mover) scr.bins[(size_t)(dst0 + slot) * F + f] = v;
+        }
+      }
+      for (int slot = threadIdx.x; slot < m; slot += kThreads) {
+        const long long src = src_idx[slot];
+        if (mover) part::copy_values(rows, scr, src, dst0 + slot);
+        sv[2 * slot] = rows.vals[src * 3];
+        sv[2 * slot + 1] = rows.vals[src * 3 + 1];
+      }
+      __syncthreads();
+      histblock::accumulate(hist, sb, sv, m, F, B, f_lo, f_hi);
+      run += tot;
+    }
+  }
+  __syncthreads();
+  float* out = partials + ((size_t)side * gridDim.x + blockIdx.x) * cells;
+  for (int i = f_lo * B * 2 + threadIdx.x; i < f_hi * B * 2; i += kThreads)
+    out[i] = hist[i];
+}
+
+}  // namespace
+
+extern "C" {
+
+int fused_split_smem_bytes(int F, int B) {
+  return F * B * 2 * 4 + kTile * (2 * 4 + 4 + F);
+}
+
+// Partition [s0, s0 + cnt) of the rows into scratch and write both
+// children's histograms to out [2, F, B, 2].  Scratch buffers: tile_left
+// i32 [ceil(cnt / 1024)], lprefix i32 [ceil(cnt / 1024) + 1], partials
+// f32 [2, nblocks, F, B, 2]; nleft an i32 device scalar.  cnt must be
+// > 0.  Returns the CUDA error code (0 on success).
+int fused_split(uint8_t* bins, float* vals, int* rid, float* score,
+                float* consts, uint8_t* sbins, float* svals, int* srid,
+                float* sscore, float* sconsts, int* tile_left, int* lprefix,
+                int* nleft, float* partials, float* out, int F, int B,
+                int s0, int cnt, int feat, int sbin, int dl, int cat,
+                int nanb, int nblocks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Split sp{s0, cnt, feat, sbin, dl, cat, nanb};
+  const RowPtrs rows{bins, vals, rid, score, consts};
+  const RowPtrs scr{sbins, svals, srid, sscore, sconsts};
+  const int tiles = (cnt + kTile - 1) / kTile;
+  part::count_tiles<<<tiles, kThreads, 0, s>>>(bins, F, sp, tile_left);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  left_prefix<<<1, kThreads, 0, s>>>(tile_left, tiles, lprefix, nleft);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int smem = fused_split_smem_bytes(F, B);
+  static int smem_set = 0;
+  if (smem > smem_set) {
+    e = cudaFuncSetAttribute(fused_scatter_hist,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  const int fgroups = (F + kFeatPerBlock - 1) / kFeatPerBlock;
+  fused_scatter_hist<<<dim3(nblocks, 2, fgroups), kThreads, smem, s>>>(
+      rows, scr, F, B, sp, lprefix, tiles, partials);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int cells = F * B * 2;
+  histblock::reduce_partials<<<histblock::reduce_grid(cells, 2), 256, 0,
+                               s>>>(partials, nblocks, cells, 2, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

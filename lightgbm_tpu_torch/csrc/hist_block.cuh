@@ -1,0 +1,114 @@
+// The deterministic block histogram shared by hist_comb.cu, stream_grad.cu
+// and fused_split.cu.
+//
+// A launch sums the (g*w, h*w) values of a row range into an [F, B, 2]
+// f32 histogram without float atomics.  The range is cut into one slice
+// per block (slice(): equal slices rounded up to 32 rows).  A block
+// stages up to kChunk rows of bins and values in shared memory and
+// accumulate() adds them to its shared histogram: each warp OWNS a fixed
+// set of features, so every (feature, bin) cell has one writer; inside a
+// 32-row tile the lanes holding the same bin form a group
+// (__match_any_sync) whose lowest lane adds the group's values one by one
+// in lane order.  Every cell of a block's histogram is therefore the
+// sequential f32 sum of its rows in row order, whatever the chunking.
+// Each block writes its partial histogram out and reduce_partials() adds
+// the partials of every cell in block order, starting from 0.  Three
+// kernels that stage the same rows of the same slices in the same order
+// give the same bits; the plain version
+// (hist_kernel2.build_histogram_comb_ref) adds in this order too.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace histblock {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 256;     // rows staged in shared memory per step
+
+// This block's slice [*b_lo, *b_hi) of rows [lo, hi) cut into nblocks
+// slices (hist_kernel2.block_ranges is the same cut).
+__device__ __forceinline__ void slice(long long lo, long long hi,
+                                      int nblocks, int blk,
+                                      long long* b_lo, long long* b_hi) {
+  long long per = (hi - lo + nblocks - 1) / nblocks;
+  per = (per + 31) / 32 * 32;
+  long long a = lo + per * blk;
+  long long b = a + per;
+  if (a > hi) a = hi;
+  if (b > hi) b = hi;
+  *b_lo = a;
+  *b_hi = b;
+}
+
+// Shared-memory bytes of one block: histogram, staged values and bins.
+__host__ __device__ inline int smem_bytes(int F, int B) {
+  return F * B * 2 * 4 + kChunk * 2 * 4 + kChunk * F;
+}
+
+__device__ __forceinline__ void zero(float* hist, int cells) {
+  for (int i = threadIdx.x; i < cells; i += kThreads) hist[i] = 0.f;
+}
+
+// Add `rows` staged rows (bins sb [rows, F] u8, values sv [rows, 2] f32,
+// in row order) into the cells of features [f_lo, f_hi) of hist
+// [F, B, 2].  blockDim.x must be kThreads; the caller synchronises
+// before (staging done) and after (staging reused).  Blocks that share
+// a slice may split its features between them: each cell still sums
+// its rows in row order.
+__device__ __forceinline__ void accumulate(float* hist, const uint8_t* sb,
+                                           const float* sv, int rows, int F,
+                                           int B, int f_lo = 0,
+                                           int f_hi = 1 << 30) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (f_hi > F) f_hi = F;
+  for (int f = f_lo + warp; f < f_hi; f += kWarps) {
+    float* hf = hist + f * B * 2;
+    for (int t = 0; t < rows; t += 32) {
+      const int r = t + lane;
+      const int bin = r < rows ? (int)sb[r * F + f] : 0;
+      const bool live = r < rows && bin < B;
+      // dead lanes get keys no live lane can hold, so each is alone
+      const unsigned peers = __match_any_sync(0xffffffffu,
+                                              live ? bin : 0x10000 + lane);
+      if (live && (__ffs(peers) - 1) == lane) {
+        // the cell takes the group's values one by one in lane (= row)
+        // order
+        float g = hf[2 * bin], h = hf[2 * bin + 1];
+        unsigned m = peers;
+        while (m) {
+          const int j = __ffs(m) - 1;
+          m &= m - 1;
+          g += sv[2 * (t + j)];
+          h += sv[2 * (t + j) + 1];
+        }
+        hf[2 * bin] = g;
+        hf[2 * bin + 1] = h;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// out[s, i] = sum over b of partials[s, b, i], in block order from 0, for
+// `sets` independent sets of nblocks partials of `cells` cells each.
+__global__ void reduce_partials(const float* __restrict__ partials,
+                                int nblocks, int cells, int sets,
+                                float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)cells * sets) return;
+  const int s = (int)(i / cells);
+  const int c = (int)(i % cells);
+  const float* p = partials + (size_t)s * nblocks * cells + c;
+  float acc = 0.f;
+  for (int b = 0; b < nblocks; ++b) acc += p[(size_t)b * cells];
+  out[i] = acc;
+}
+
+inline int reduce_grid(int cells, int sets) {
+  return (int)(((long long)cells * sets + 255) / 256);
+}
+
+}  // namespace histblock

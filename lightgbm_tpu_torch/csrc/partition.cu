@@ -18,7 +18,9 @@
 // outside it.
 //
 // Rows: bins u8 [n, F], vals f32 [n, 3] (g*w, h*w, w), rid i32 [n]
-// (original row ids).  Scratch has the same three arrays.
+// (original row ids), score f32 [n] and consts f32 [n, 2] (the stream
+// route's per-row score and objective constants, which move with their
+// row on every route).  Scratch has the same five arrays.
 //
 // Design: a deterministic block prefix sum.  Each block owns a tile of
 // kTile consecutive rows, each thread kPer consecutive rows of it.
@@ -29,108 +31,24 @@
 // the data only, so every launch writes the same bytes.
 //
 // Bound on this card: bytes.  The scan reads the split column of every
-// row once and moves each row (F + 16 bytes) once into scratch; the
-// copyback moves cnt * (F + 16) bytes back.
+// row once and moves each row (F + 28 bytes) once into scratch; the
+// copyback moves cnt * (F + 28) bytes back.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "partition_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPer = 4;
-constexpr int kTile = kThreads * kPer;
-
-struct Split {
-  int s0, cnt, feat, sbin, dl, cat, nanb;
-};
-
-__device__ __forceinline__ bool go_left(int col, const Split& sp) {
-  if (sp.cat) return col == sp.sbin;
-  const bool at_nan = sp.nanb >= 0 && col == sp.nanb;
-  return at_nan ? sp.dl != 0 : col <= sp.sbin;
-}
-
-// the thread's kPer rows: left bits and how many of them are rows
-__device__ __forceinline__ int thread_bits(const uint8_t* bins, int F,
-                                           const Split& sp, int tile,
-                                           unsigned* bits) {
-  const int first = tile * kTile + threadIdx.x * kPer;
-  int live = 0;
-  unsigned b = 0;
-  for (int k = 0; k < kPer; ++k) {
-    const int p = first + k;
-    if (p < sp.cnt) {
-      ++live;
-      const int col = bins[(size_t)(sp.s0 + p) * F + sp.feat];
-      if (go_left(col, sp)) b |= 1u << k;
-    }
-  }
-  *bits = b;
-  return live;
-}
-
-// exclusive block scan of v (int); returns the prefix, *total the sum
-__device__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sums[kThreads / 32];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kThreads / 32 ? warp_sums[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < kThreads / 32) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  const int before = warp > 0 ? warp_sums[warp - 1] : 0;
-  *total = warp_sums[kThreads / 32 - 1];
-  __syncthreads();
-  return before + x - v;
-}
+using part::kPer;
+using part::kThreads;
+using part::kTile;
+using part::RowPtrs;
+using part::Split;
 
 __global__ void __launch_bounds__(kThreads)
-partition_count(const uint8_t* __restrict__ bins, int F, Split sp,
-                int* __restrict__ tile_left) {
-  unsigned bits;
-  thread_bits(bins, F, sp, blockIdx.x, &bits);
-  int total;
-  block_exclusive_scan(__popc(bits), &total);
-  if (threadIdx.x == 0) tile_left[blockIdx.x] = total;
-}
-
-__device__ __forceinline__ void copy_row(
-    const uint8_t* __restrict__ bins, const float* __restrict__ vals,
-    const int* __restrict__ rid, uint8_t* __restrict__ dbins,
-    float* __restrict__ dvals, int* __restrict__ drid, int F, int src,
-    int dst) {
-  if ((F & 3) == 0) {
-    const uint32_t* s = reinterpret_cast<const uint32_t*>(
-        bins + (size_t)src * F);
-    uint32_t* d = reinterpret_cast<uint32_t*>(dbins + (size_t)dst * F);
-    for (int w = 0; w < F / 4; ++w) d[w] = s[w];
-  } else {
-    for (int f = 0; f < F; ++f)
-      dbins[(size_t)dst * F + f] = bins[(size_t)src * F + f];
-  }
-  dvals[(size_t)dst * 3] = vals[(size_t)src * 3];
-  dvals[(size_t)dst * 3 + 1] = vals[(size_t)src * 3 + 1];
-  dvals[(size_t)dst * 3 + 2] = vals[(size_t)src * 3 + 2];
-  drid[dst] = rid[src];
-}
-
-__global__ void __launch_bounds__(kThreads)
-partition_scatter(const uint8_t* __restrict__ bins,
-                  const float* __restrict__ vals,
-                  const int* __restrict__ rid, uint8_t* __restrict__ sbins,
-                  float* __restrict__ svals, int* __restrict__ srid, int F,
-                  Split sp, const int* __restrict__ tile_left,
+partition_scatter(RowPtrs rows, RowPtrs scr, int F, Split sp,
+                  const int* __restrict__ tile_left,
                   int* __restrict__ nleft) {
   __shared__ int red[kThreads];
   // left rows of the tiles before this one
@@ -147,10 +65,10 @@ partition_scatter(const uint8_t* __restrict__ bins,
   const int right_before = blockIdx.x * kTile - left_before;
 
   unsigned bits;
-  const int live = thread_bits(bins, F, sp, blockIdx.x, &bits);
+  const int live = part::thread_bits(rows.bins, F, sp, blockIdx.x, &bits);
   const int nl = __popc(bits);
   int tile_total;
-  const int l_off = block_exclusive_scan(nl, &tile_total);
+  const int l_off = part::block_exclusive_scan(nl, &tile_total);
   // rows of this tile before this thread's first row
   int first_in_tile = threadIdx.x * kPer;
   const int tile_rows = min(kTile, sp.cnt - (int)blockIdx.x * kTile);
@@ -166,33 +84,36 @@ partition_scatter(const uint8_t* __restrict__ bins,
     } else {
       dst = sp.s0 + sp.cnt - 1 - r_rank++;
     }
-    copy_row(bins, vals, rid, sbins, svals, srid, F, src, dst);
+    part::copy_row(rows, scr, F, src, dst);
   }
   if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0)
     *nleft = left_before + tile_total;
 }
 
-__global__ void partition_copyback_kernel(
-    uint8_t* __restrict__ bins, float* __restrict__ vals,
-    int* __restrict__ rid, const uint8_t* __restrict__ sbins,
-    const float* __restrict__ svals, const int* __restrict__ srid, int F,
-    int s0, int cnt) {
+__global__ void partition_copyback_kernel(RowPtrs rows, RowPtrs scr, int F,
+                                          int s0, int cnt) {
   const size_t stride = (size_t)gridDim.x * blockDim.x;
   const size_t t0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if ((F & 3) == 0) {
     // row offsets are multiples of 4 bytes: move 32-bit words
     const size_t w0 = (size_t)s0 * (F / 4), nw = (size_t)cnt * (F / 4);
-    const uint32_t* s = reinterpret_cast<const uint32_t*>(sbins) + w0;
-    uint32_t* d = reinterpret_cast<uint32_t*>(bins) + w0;
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(scr.bins) + w0;
+    uint32_t* d = reinterpret_cast<uint32_t*>(rows.bins) + w0;
     for (size_t i = t0; i < nw; i += stride) d[i] = s[i];
   } else {
     const size_t b0 = (size_t)s0 * F, nb = (size_t)cnt * F;
-    for (size_t i = t0; i < nb; i += stride) bins[b0 + i] = sbins[b0 + i];
+    for (size_t i = t0; i < nb; i += stride)
+      rows.bins[b0 + i] = scr.bins[b0 + i];
   }
   const size_t v0 = (size_t)s0 * 3, nv = (size_t)cnt * 3;
-  for (size_t i = t0; i < nv; i += stride) vals[v0 + i] = svals[v0 + i];
-  for (size_t i = t0; i < (size_t)cnt; i += stride)
-    rid[s0 + i] = srid[s0 + i];
+  for (size_t i = t0; i < nv; i += stride) rows.vals[v0 + i] = scr.vals[v0 + i];
+  const size_t c0 = (size_t)s0 * 2, nc = (size_t)cnt * 2;
+  for (size_t i = t0; i < nc; i += stride)
+    rows.consts[c0 + i] = scr.consts[c0 + i];
+  for (size_t i = t0; i < (size_t)cnt; i += stride) {
+    rows.rid[s0 + i] = scr.rid[s0 + i];
+    rows.score[s0 + i] = scr.score[s0 + i];
+  }
 }
 
 }  // namespace
@@ -202,33 +123,37 @@ extern "C" {
 // Partition scan of [s0, s0 + cnt) into scratch; tile_left is int32
 // scratch of at least ceil(cnt / 1024) entries, nleft an int32 device
 // scalar.  cnt must be > 0.  Returns the CUDA error code (0 on success).
-int partition_scan(const uint8_t* bins, const float* vals, const int* rid,
-                   uint8_t* sbins, float* svals, int* srid, int* tile_left,
-                   int* nleft, int F, int s0, int cnt, int feat, int sbin,
-                   int dl, int cat, int nanb, void* stream) {
+int partition_scan(uint8_t* bins, float* vals, int* rid, float* score,
+                   float* consts, uint8_t* sbins, float* svals, int* srid,
+                   float* sscore, float* sconsts, int* tile_left, int* nleft,
+                   int F, int s0, int cnt, int feat, int sbin, int dl,
+                   int cat, int nanb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Split sp{s0, cnt, feat, sbin, dl, cat, nanb};
+  const RowPtrs rows{bins, vals, rid, score, consts};
+  const RowPtrs scr{sbins, svals, srid, sscore, sconsts};
   const int tiles = (cnt + kTile - 1) / kTile;
-  partition_count<<<tiles, kThreads, 0, s>>>(bins, F, sp, tile_left);
+  part::count_tiles<<<tiles, kThreads, 0, s>>>(bins, F, sp, tile_left);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  partition_scatter<<<tiles, kThreads, 0, s>>>(
-      bins, vals, rid, sbins, svals, srid, F, sp, tile_left, nleft);
+  partition_scatter<<<tiles, kThreads, 0, s>>>(rows, scr, F, sp, tile_left,
+                                               nleft);
   return (int)cudaGetLastError();
 }
 
 // Copy rows [s0, s0 + cnt) of every column from scratch back.
-int partition_copyback(uint8_t* bins, float* vals, int* rid,
-                       const uint8_t* sbins, const float* svals,
-                       const int* srid, int F, int s0, int cnt,
-                       void* stream) {
+int partition_copyback(uint8_t* bins, float* vals, int* rid, float* score,
+                       float* consts, uint8_t* sbins, float* svals,
+                       int* srid, float* sscore, float* sconsts, int F,
+                       int s0, int cnt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RowPtrs rows{bins, vals, rid, score, consts};
+  const RowPtrs scr{sbins, svals, srid, sscore, sconsts};
   long long work = (long long)cnt * (F > 3 ? F : 3);
   int blocks = (int)((work / 4 + 255) / 256);
   if (blocks < 1) blocks = 1;
   if (blocks > 132 * 8) blocks = 132 * 8;
-  partition_copyback_kernel<<<blocks, 256, 0, s>>>(bins, vals, rid, sbins,
-                                                   svals, srid, F, s0, cnt);
+  partition_copyback_kernel<<<blocks, 256, 0, s>>>(rows, scr, F, s0, cnt);
   return (int)cudaGetLastError();
 }
 

@@ -1,12 +1,18 @@
 """GBDT boosting on one device.
 
-Counterpart of the serial, physical, non-streaming path of
-``lightgbm_tpu/models/gbdt.py`` (reference gbdt.cpp: TrainOneIter :437,
-BoostFromAverage :412, UpdateScore :580-607): per iteration the
+Counterpart of the serial, physical path of ``lightgbm_tpu/models/gbdt.py``
+(reference gbdt.cpp: TrainOneIter :437, BoostFromAverage :412,
+UpdateScore :580-607).  The route is decided up front
+(``ops/routing.py``).  On the default, score-resident stream route the
+gradients live in the row matrix and are refreshed there at each tree's
+end, so an iteration computes no objective gradients; the grower reads
+the scores (boost-from-average included) once when it builds its rows
+and the shrinkage rate on every call.  On slice 2's route the
 objective's gradients are computed on the device from the training
-scores, one tree grows on the row matrix (``ops.grow.SerialGrower``),
-and the training and validation scores take the tree's shrunk leaf
-outputs on the device.  The finished tree comes to the host as a
+scores each iteration.  Either way one tree grows on the row matrix
+(``ops.grow.SerialGrower``), and the training and validation scores
+take the tree's shrunk leaf outputs on the device, for ``eval`` and
+``predict``.  The finished tree comes to the host as a
 ``Tree`` (one read per tree); the boost-from-average init score is
 folded into the first tree, so saved models are self-contained.
 
@@ -29,8 +35,11 @@ from ..metric import Metric
 from ..models.model_text import feature_infos
 from ..objective.base import ObjectiveFunction
 from ..ops.device_data import DeviceDataset, to_device
-from ..ops.grow import SerialGrower, StageTimer, TreeArrays, \
-    predict_leaf_bins
+from ..ops.apply_find import apply_find_supported
+from ..ops.fused_split import fused_supported
+from ..ops.grow import (SerialGrower, StageTimer, StreamSpec, TreeArrays,
+                        predict_leaf_bins)
+from ..ops.routing import decide, inputs_from_env
 from ..ops.split import SplitHyperParams
 from ..utils import log
 from ..utils.log import LightGBMError
@@ -125,9 +134,25 @@ class GBDT:
             max_delta_step=cfg.max_delta_step, path_smooth=cfg.path_smooth,
             use_smoothing=cfg.path_smooth > 0.0)
         self.dd: DeviceDataset = to_device(train_set, device)
+        dd = self.dd
+        kind = getattr(objective, "STREAM_KIND", None)
+        self.route = decide(inputs_from_env(
+            objective_kind=kind or "none",
+            boosting=cfg.boosting.strip().lower().replace("gbrt", "gbdt"),
+            multi_tree=cfg.num_class > 1,
+            bagging=cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0,
+            linear_tree=bool(cfg.linear_tree),
+            learner=cfg.tree_learner,
+            fused_ok=fused_supported(dd.num_features, dd.padded_bins),
+            tail_ok=apply_find_supported(dd.num_features, dd.padded_bins)))
+        stream = (StreamSpec(kind, float(getattr(objective, "sigmoid", 1.0)))
+                  if self.route.stream else None)
         self.grow = SerialGrower(self.hp, num_leaves=cfg.num_leaves,
-                                 max_depth=cfg.max_depth, dd=self.dd,
+                                 max_depth=cfg.max_depth, dd=dd,
+                                 route=self.route, stream=stream,
                                  timer=self.timer)
+        if self.route.stream:
+            self.grow.set_stream_aux(self._stream_aux)
         n = train_set.num_data
         score = torch.zeros(n, dtype=torch.float32, device=device)
         md = train_set.metadata
@@ -140,8 +165,16 @@ class GBDT:
         for m in self._train_metrics:
             m.init(md, n)
         log.info("Training on %s: %d rows x %d features, %d bins per "
-                 "feature, physical row partition", device, n,
-                 self.dd.num_features, self.dd.padded_bins)
+                 "feature, physical row partition; route %s", device, n,
+                 self.dd.num_features, self.dd.padded_bins,
+                 self.route.describe())
+
+    def _stream_aux(self):
+        """The stream route's per-row inputs: the current scores (boost
+        from average included), the validity mask and the objective's
+        constants.  Read when the grower builds its row matrix."""
+        return (self.train_score, self._inbag,
+                self.objective.stream_consts())
 
     # ------------------------------------------------------------------
     @property
@@ -223,8 +256,13 @@ class GBDT:
                 log.info("Start training from score %s",
                          np.array2string(np.array([init_score]),
                                          precision=6))
-        with self.timer.stage("gradients", dev):
-            grad, hess = self.objective.get_gradients(self.train_score)
+        if self.route.stream:
+            # the gradients live in the row matrix and were refreshed
+            # there at the previous tree's end
+            grad = hess = None
+        else:
+            with self.timer.stage("gradients", dev):
+                grad, hess = self.objective.get_gradients(self.train_score)
         tree = self._train_one_tree(grad, hess, init_score)
         self.iter_ += 1
         if tree is None:
@@ -235,8 +273,11 @@ class GBDT:
 
     def _train_one_tree(self, grad, hess, init_score: float
                         ) -> Optional[Tree]:
+        # the shrinkage rate is read per call: the stream route adds the
+        # tree's outputs to the rows' scores with it
         ta, leaf_id, leaf_value = self.grow(grad, hess, self._inbag,
-                                            self._feature_mask())
+                                            self._feature_mask(),
+                                            rate=self.shrinkage_rate)
         nl = int(ta.num_leaves)
         if nl <= 1:
             self.models.append(Tree.single_leaf(init_score))

@@ -21,6 +21,9 @@ class ObjectiveFunction:
     """Base class: subclasses set NAME and implement get_gradients."""
 
     NAME = "none"
+    # gradient formula of the stream route's kernels, None when it has
+    # none (ops/routing.py objective_not_streamable)
+    STREAM_KIND = None
 
     def __init__(self, config: Config):
         self.config = config
@@ -50,6 +53,10 @@ class ObjectiveFunction:
         """score [n] f32 -> (grad, hess), both [n] f32."""
         raise NotImplementedError
 
+    def stream_consts(self) -> torch.Tensor:
+        """[n, 2] f32 per-row constants of the stream route."""
+        raise NotImplementedError
+
     def boost_from_score(self) -> np.ndarray:
         """Initial raw score (reference BoostFromScore)."""
         return np.zeros(1, dtype=np.float64)
@@ -59,12 +66,6 @@ class ObjectiveFunction:
 
     def num_models(self) -> int:
         return 1
-
-    def _apply_weight(self, grad, hess):
-        if self.weight is not None:
-            grad = grad * self.weight
-            hess = hess * self.weight
-        return grad, hess
 
     def __str__(self) -> str:   # the model file's objective string
         return self.NAME

@@ -4,7 +4,10 @@
 The gradient expression keeps the JAX package's operation order, one
 f32 rounding per operation; ``exp`` is taken in f64 and rounded, so the
 CPU and the card agree and the JAX package's f32 ``exp`` differs by at
-most a last-place unit.
+most a last-place unit.  :func:`binary_gradients` is the one home of
+that arithmetic: the objective and the stream route's plain versions
+(``ops/stream_grad.py``) both call it, and ``csrc/stream_grad.cu``
+repeats it operation by operation.
 """
 from __future__ import annotations
 
@@ -15,8 +18,25 @@ from ..utils import log
 from .base import ObjectiveFunction
 
 
+def binary_gradients(score, sign, label_weight, sigmoid: float):
+    """(grad, hess) of binary logloss: ``z = (sign * sigmoid) * score``,
+    ``abs_r = (1 / (1 + exp(z))) * sigmoid`` (PyTorch's ``s / t`` is
+    ``t.reciprocal() * s``), ``grad = (-sign * abs_r) * lw``,
+    ``hess = (abs_r * (sigmoid - abs_r)) * lw``."""
+    s = sigmoid
+    z = sign * s * score
+    # exp in f64, rounded once to f32: the CPU's and the card's f32
+    # exp differ in the last place, their f64 exps almost never do
+    # after rounding, so both devices train the same trees
+    abs_r = s / (1.0 + torch.exp(z.double()).to(torch.float32))
+    grad = -sign * abs_r * label_weight
+    hess = abs_r * (s - abs_r) * label_weight
+    return grad, hess
+
+
 class BinaryLogloss(ObjectiveFunction):
     NAME = "binary"
+    STREAM_KIND = "binary"
 
     def __init__(self, config):
         super().__init__(config)
@@ -52,15 +72,13 @@ class BinaryLogloss(ObjectiveFunction):
         self._label_weight = lw if self.weight is None else lw * self.weight
 
     def get_gradients(self, score):
-        s = self.sigmoid
-        z = self._sign * s * score
-        # exp in f64, rounded once to f32: the CPU's and the card's f32
-        # exp differ in the last place, their f64 exps almost never do
-        # after rounding, so both devices train the same trees
-        abs_r = s / (1.0 + torch.exp(z.double()).to(torch.float32))
-        grad = -self._sign * abs_r * self._label_weight
-        hess = abs_r * (s - abs_r) * self._label_weight
-        return grad, hess
+        return binary_gradients(score, self._sign, self._label_weight,
+                                self.sigmoid)
+
+    def stream_consts(self):
+        """Per-row constants of the stream route: [n, 2] (sign, label
+        weight), the port's ``stream_grad.binary_consts``."""
+        return torch.stack([self._sign, self._label_weight], dim=1)
 
     def boost_from_score(self):
         if not self.config.boost_from_average:

@@ -9,8 +9,20 @@ import torch
 from .base import ObjectiveFunction
 
 
+def l2_gradients(score, target, weight=None):
+    """(grad, hess) of l2: ``score - target`` and 1, each times the
+    weight when there is one."""
+    grad = score - target
+    hess = torch.ones_like(score)
+    if weight is not None:
+        grad = grad * weight
+        hess = hess * weight
+    return grad, hess
+
+
 class RegressionL2(ObjectiveFunction):
     NAME = "regression"
+    STREAM_KIND = "l2"
 
     def __init__(self, config):
         super().__init__(config)
@@ -30,9 +42,14 @@ class RegressionL2(ObjectiveFunction):
         return self._trans_label if self.sqrt else self.label
 
     def get_gradients(self, score):
-        grad = score - self._target
-        hess = torch.ones_like(score)
-        return self._apply_weight(grad, hess)
+        return l2_gradients(score, self._target, self.weight)
+
+    def stream_consts(self):
+        """Per-row constants of the stream route: [n, 2] (target,
+        weight), the weight 1 where there is none (``l2_consts``)."""
+        w = (torch.ones_like(self._target) if self.weight is None
+             else self.weight)
+        return torch.stack([self._target, w], dim=1)
 
     def boost_from_score(self):
         if not self.config.boost_from_average:

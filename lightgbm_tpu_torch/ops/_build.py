@@ -3,11 +3,16 @@ them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exports a plain C interface and compiles alone
 into ``build/lib<name>-<hash>.so`` inside the package directory (listed
-in ``.gitignore``), keyed by the source's content hash, so an edited
-source rebuilds and an unchanged one loads the library already there.
-The build is ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
--Xcompiler -fPIC``: no PyTorch headers, so a source builds in seconds.
-:func:`build` starts one ``nvcc`` per missing source, all at once.
+in ``.gitignore``), keyed by the content hash of the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source rebuilds and
+an unchanged one loads the library already there.  The build is ``nvcc
+-gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``:
+no PyTorch headers, so a source builds in seconds.  No source gets
+``--use_fast_math`` or ``-ftz=true``.  The sources whose arithmetic must
+equal PyTorch's operation by operation (the gradient formulas, the split
+gains) also get ``-fmad=false`` (:data:`SOURCE_FLAGS`), so ``nvcc``
+contracts no ``a * b + c`` into an ``fma``.  :func:`build` starts one
+``nvcc`` per missing source, all at once.
 """
 from __future__ import annotations
 
@@ -23,9 +28,15 @@ from ..utils.log import LightGBMError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("serve_traverse", "hist_comb", "partition")
+SOURCES = ("serve_traverse", "hist_comb", "partition", "stream_grad",
+           "fused_split", "apply_find")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# per-source flags added to NVCC_FLAGS
+SOURCE_FLAGS: Dict[str, tuple] = {
+    "stream_grad": ("-fmad=false",),
+    "apply_find": ("-fmad=false",),
+}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas register / shared-memory report of each build done here
@@ -45,11 +56,16 @@ def _nvcc() -> str:
                         "use")
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
@@ -63,7 +79,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [_nvcc(), *flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)

@@ -1,0 +1,271 @@
+"""The split tail in one kernel: the wrappers of ``csrc/apply_find.cu``,
+their launch counts and their plain PyTorch versions.
+
+Counterpart of ``lightgbm_tpu/ops/pallas/apply_find.py``
+(``make_apply_find_pool`` and ``make_apply_find``).  After a split's
+partition, the tail derives both children's histograms (the smaller
+child's given, the sibling by the subtraction trick from the parent's
+pool row), writes them to the pool, searches both children's best
+splits and writes the per-leaf state rows: ``best`` and ``lstate`` of
+the left child (which keeps the parent's slot ``leaf``) and of the new
+``right`` leaf, the ``node`` row, and the ``seg`` rows.  Nothing is
+written when ``done`` is set.
+
+The plain versions are slice 2's tail: ``ops/split.py``
+``find_best_split`` plus the state writes and the subtraction trick, in
+the order the grower ran them; the kernel repeats that arithmetic
+operation by operation (f64 bin prefix sums rounded once, no fused
+multiply-adds), so on the CPU both routes grow the same trees and on
+the card the kernel equals its plain version bit for bit.
+
+Each wrapper takes its plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from ..utils.log import LightGBMError
+from . import _build
+from .hist_kernel2 import MAX_SMEM
+from .histogram import subtract_histogram
+from .split import (SplitHyperParams, calculate_leaf_output, find_best_split,
+                    pack_split_info)
+
+# best-row columns (the JAX grower's _GrowState.best layout)
+BG, BF, BB, BDL, BCAT, BLG, BLH, BLC, BLO, BRO = range(10)
+# per-leaf state columns (_GrowState.lstate)
+SG, SH, SC, SDEP, SPAR, SMN, SMX, SOUT = range(8)
+
+
+class FinderConsts(NamedTuple):
+    """The dataset's bin metadata for the split search: ``masks`` [4, F,
+    B] f32 (``build_finder_consts``) for the kernel, the [F] vectors for
+    the plain version."""
+    masks: torch.Tensor
+    num_bins: torch.Tensor   # i32 [F], the NaN bin included
+    has_nan: torch.Tensor    # bool [F]
+    is_cat: torch.Tensor     # bool [F]
+
+
+class TreeState(NamedTuple):
+    """The grower's per-tree device state, updated in place."""
+    pool: torch.Tensor     # f32 [L, F, B, 2] histograms of the leaves
+    best: torch.Tensor     # f32 [L, 10] best split of each leaf
+    lstate: torch.Tensor   # f32 [L, 8] sums, depth, parent, bounds, output
+    nodes: torch.Tensor    # f32 [L - 1, 4] gain, output, weight, count
+    seg: torch.Tensor      # i32 [L, 2] segment (start, count) of each leaf
+
+
+class SplitAt(NamedTuple):
+    """Where a split writes: its leaf, the new right leaf, the node, the
+    parent segment and the drop guard."""
+    leaf: int
+    right: int
+    node: int
+    s0: int
+    cnt: int
+    done: int = 0
+
+
+def build_finder_consts(num_bins: torch.Tensor, has_nan: torch.Tensor,
+                        is_cat: torch.Tensor, padded_bins: int
+                        ) -> FinderConsts:
+    """``apply_find.build_finder_consts`` without the monotone row:
+    0 valid0 (numerical forward merged with one-hot categorical), 1
+    valid1 (numerical, missing left), 2 the NaN bin's one-hot (zero
+    without a NaN bin), 3 is_cat broadcast over bins."""
+    bins_r = torch.arange(padded_bins, dtype=torch.int32,
+                          device=num_bins.device)[None, :]
+    max_t = num_bins[:, None] - 2 - has_nan[:, None].to(torch.int32)
+    num_valid = (bins_r <= max_t) & ~is_cat[:, None]
+    cat_valid = (bins_r < num_bins[:, None]) & is_cat[:, None]
+    nan_oh = ((bins_r == torch.clamp(num_bins - 1, min=0)[:, None])
+              & has_nan[:, None])
+    masks = torch.stack([num_valid | cat_valid, num_valid & has_nan[:, None],
+                         nan_oh, is_cat[:, None].expand_as(num_valid)])
+    return FinderConsts(masks.to(torch.float32).contiguous(), num_bins,
+                        has_nan, is_cat)
+
+
+def allow_split(depth: torch.Tensor, max_depth: int) -> torch.Tensor:
+    if max_depth <= 0:
+        return torch.ones(depth.shape, dtype=torch.bool, device=depth.device)
+    return depth < max_depth
+
+
+def apply_find_ref(h2: torch.Tensor, nleft: torch.Tensor, st: TreeState,
+                   fc: FinderConsts, feature_mask: torch.Tensor,
+                   hp: SplitHyperParams, max_depth: int, at: SplitAt) -> None:
+    """Plain version of the plain-pool entry: ``h2`` [2, F, B, 2] holds
+    the left and right child's histograms."""
+    if at.done:
+        return
+    leaf, right = at.leaf, at.right
+    nl = nleft[0]
+    st.seg[leaf, 1] = nl
+    st.seg[right, 0] = at.s0 + nl
+    st.seg[right, 1] = at.cnt - nl
+    lrow = st.lstate[leaf]
+    brow = st.best[leaf]
+    pg, ph, pc = lrow[SG], lrow[SH], lrow[SC]
+    lg, lh, lc = brow[BLG], brow[BLH], brow[BLC]
+    lo, ro = brow[BLO], brow[BRO]
+    rg, rh, rc = pg - lg, ph - lh, pc - lc
+    st.nodes[at.node] = torch.stack(
+        [brow[BG], calculate_leaf_output(pg, ph, hp), ph, pc])
+    d_child = lrow[SDEP] + 1.0
+    fnode = d_child.new_tensor(float(at.node))
+    mn, mx = lrow[SMN], lrow[SMX]
+    st.lstate[[leaf, right]] = torch.stack([
+        torch.stack([lg, lh, lc, d_child, fnode, mn, mx, lo]),
+        torch.stack([rg, rh, rc, d_child, fnode, mn, mx, ro])])
+    si = find_best_split(
+        h2, torch.stack([lg, rg]), torch.stack([lh, rh]),
+        torch.stack([lc, rc]), fc.num_bins, fc.has_nan, fc.is_cat,
+        feature_mask, allow_split(torch.stack([d_child, d_child]), max_depth),
+        hp, parent_output=torch.stack([lo, ro]))
+    st.best[[leaf, right]] = pack_split_info(si)
+
+
+def apply_find_pool_ref(h_a: torch.Tensor, h_b: torch.Tensor,
+                        nleft: torch.Tensor, st: TreeState, fc: FinderConsts,
+                        feature_mask: torch.Tensor, hp: SplitHyperParams,
+                        max_depth: int, at: SplitAt) -> None:
+    """Plain version of the pool entry: the smaller child's histogram
+    is ``h_a`` when ``nleft * 2 <= cnt`` (the left child is the smaller)
+    and ``h_b`` otherwise; the sibling is parent minus child."""
+    if at.done:
+        return
+    small_left = nleft * 2 <= at.cnt
+    h_small = torch.where(small_left, h_a, h_b)
+    h_parent = st.pool[at.leaf]
+    h_left = torch.where(small_left, h_small,
+                         subtract_histogram(h_parent, h_small))
+    h_right = subtract_histogram(h_parent, h_left)
+    st.pool[at.leaf] = h_left
+    st.pool[at.right] = h_right
+    apply_find_ref(torch.stack([h_left, h_right]), nleft, st, fc,
+                   feature_mask, hp, max_depth, at)
+
+
+def apply_find_supported(num_features: int, padded_bins: int) -> bool:
+    """Whether both children's histograms fit one block's shared memory
+    (the counterpart of the reference's ``tail_supported``: a route
+    decision, taken up front)."""
+    return num_features * padded_bins * 16 + num_features * 16 <= MAX_SMEM
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    lib = _build.load("apply_find")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [i] * 9 + [f] * 7 + [i, p]
+    lib.apply_find_pool.argtypes = [p] * 10 + tail
+    lib.apply_find_pool.restype = i
+    lib.apply_find.argtypes = [p] * 9 + tail
+    lib.apply_find.restype = i
+    return lib
+
+
+def _check(h_a, h_b, nleft, st: TreeState, fc: FinderConsts,
+           feature_mask) -> None:
+    L, f, b, _ = st.pool.shape
+    dev = st.pool.device
+    want = ((st.pool, torch.float32, (L, f, b, 2)),
+            (h_a, torch.float32, (f, b, 2)), (h_b, torch.float32, (f, b, 2)),
+            (nleft, torch.int32, (1,)),
+            (st.best, torch.float32, (L, 10)),
+            (st.lstate, torch.float32, (L, 8)),
+            (st.nodes, torch.float32, (max(L - 1, 1), 4)),
+            (st.seg, torch.int32, (L, 2)),
+            (fc.masks, torch.float32, (4, f, b)),
+            (feature_mask, torch.float32, (f,)))
+    for t, dt, shape in want:
+        if (t.dtype != dt or tuple(t.shape) != shape or t.device != dev
+                or not t.is_contiguous()):
+            raise LightGBMError(f"apply_find wants contiguous {dt} "
+                                f"{list(shape)} tensors on {dev}")
+    if not apply_find_supported(f, b):
+        raise LightGBMError(f"apply_find of {f} features x {b} bins does "
+                            "not fit one block's shared memory")
+
+
+def _scalars(at: SplitAt, max_depth: int, hp: SplitHyperParams, f: int,
+             b: int) -> list:
+    return [f, b, at.leaf, at.right, at.node, at.s0, at.cnt, int(at.done),
+            int(max_depth), hp.lambda_l1, hp.lambda_l2,
+            float(hp.min_data_in_leaf), hp.min_sum_hessian_in_leaf,
+            hp.min_gain_to_split, hp.max_delta_step, hp.path_smooth,
+            int(hp.use_smoothing)]
+
+
+def _state_ptrs(st: TreeState) -> list:
+    return [st.best.data_ptr(), st.lstate.data_ptr(), st.nodes.data_ptr(),
+            st.seg.data_ptr()]
+
+
+def apply_find_pool(h_a: torch.Tensor, h_b: torch.Tensor,
+                    nleft: torch.Tensor, st: TreeState, fc: FinderConsts,
+                    feature_mask: torch.Tensor, hp: SplitHyperParams,
+                    max_depth: int, at: SplitAt) -> None:
+    """The split tail with the histogram pool (the main path's entry).
+    CPU tensors take :func:`apply_find_pool_ref`; CUDA tensors launch
+    the kernel."""
+    dev = st.pool.device
+    if dev.type == "cpu":
+        return apply_find_pool_ref(h_a, h_b, nleft, st, fc, feature_mask, hp,
+                                   max_depth, at)
+    if dev.type != "cuda":
+        raise LightGBMError(f"apply_find runs on cuda or cpu, not {dev}")
+    _check(h_a, h_b, nleft, st, fc, feature_mask)
+    _, f, b, _ = st.pool.shape
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().apply_find_pool(
+            st.pool.data_ptr(), h_a.data_ptr(), h_b.data_ptr(),
+            nleft.data_ptr(), *_state_ptrs(st), fc.masks.data_ptr(),
+            feature_mask.data_ptr(), *_scalars(at, max_depth, hp, f, b),
+            stream)
+    if rc != 0:
+        raise LightGBMError(f"apply_find_pool kernel launch failed with "
+                            f"CUDA error {rc}")
+    apply_find_pool.launches += 1
+    return None
+
+
+def apply_find(h2: torch.Tensor, nleft: torch.Tensor, st: TreeState,
+               fc: FinderConsts, feature_mask: torch.Tensor,
+               hp: SplitHyperParams, max_depth: int, at: SplitAt) -> None:
+    """The split tail with both children's histograms given (``h2``
+    [2, F, B, 2]); the pool is not touched.  CPU tensors take
+    :func:`apply_find_ref`; CUDA tensors launch the kernel."""
+    dev = st.pool.device
+    if dev.type == "cpu":
+        return apply_find_ref(h2, nleft, st, fc, feature_mask, hp, max_depth,
+                              at)
+    if dev.type != "cuda":
+        raise LightGBMError(f"apply_find runs on cuda or cpu, not {dev}")
+    if not h2.is_contiguous() or h2.dim() != 4 or h2.shape[0] != 2:
+        raise LightGBMError("h2 must be a contiguous [2, F, B, 2] tensor")
+    _check(h2[0], h2[1], nleft, st, fc, feature_mask)
+    _, f, b, _ = st.pool.shape
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().apply_find(
+            h2[0].data_ptr(), h2[1].data_ptr(), nleft.data_ptr(),
+            *_state_ptrs(st), fc.masks.data_ptr(), feature_mask.data_ptr(),
+            *_scalars(at, max_depth, hp, f, b), stream)
+    if rc != 0:
+        raise LightGBMError(f"apply_find kernel launch failed with CUDA "
+                            f"error {rc}")
+    apply_find.launches += 1
+    return None
+
+
+apply_find_pool.launches = 0
+apply_find.launches = 0

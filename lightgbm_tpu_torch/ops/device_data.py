@@ -3,13 +3,18 @@
 Counterpart of ``lightgbm_tpu/ops/device_data.py`` (``DeviceDataset``,
 ``to_device``) and of the row-matrix init ``phys_init_comb``
 (``lightgbm_tpu/ops/grow.py``).  The TPU packs each row into a 128-lane
-f32 line with the row id stored as three f32 bytes; the port keeps the
-same per-row content in three arrays (:class:`Rows`): the ``F`` u8 bins,
-the f32 values ``(g*w, h*w, w)`` and an i32 row id.  The kernels move
-whole rows, so each leaf's rows stay contiguous and every histogram
-reads one contiguous range.  Features are not padded to matmul groups
-(there is no MXU tile to fill); bins are padded to the JAX package's
-per-feature width so histograms have the same ``[F, B, 2]`` shape.
+f32 line with the row id stored as three f32 bytes and, on the stream
+route, the score and the objective's constants as bf16x3 terms
+(``stream_grad.py:13-27``); the port keeps the same per-row content in
+five arrays (:class:`Rows`): the ``F`` u8 bins, the f32 values
+``(g*w, h*w, w)``, an i32 row id, the f32 score and the two f32
+objective constants (binary: sign, label weight; l2: target, weight).
+The kernels move whole rows, so each leaf's rows stay contiguous and
+every histogram reads one contiguous range.  Slice 2's route leaves
+the score and constants at zero and moves them all the same.  Features
+are not padded to matmul groups (there is no MXU tile to fill); bins are
+padded to the JAX package's per-feature width so histograms have the
+same ``[F, B, 2]`` shape.
 """
 from __future__ import annotations
 
@@ -32,19 +37,26 @@ def bins_per_feature_padded(max_num_bins: int) -> int:
 
 
 class Rows(NamedTuple):
-    """The row matrix: row r is (bins[r], vals[r], rid[r])."""
-    bins: torch.Tensor   # u8 [n, F]
-    vals: torch.Tensor   # f32 [n, 3]: g*w, h*w, w
-    rid: torch.Tensor    # i32 [n]: original row id
+    """The row matrix: row r is (bins[r], vals[r], rid[r], score[r],
+    consts[r])."""
+    bins: torch.Tensor    # u8 [n, F]
+    vals: torch.Tensor    # f32 [n, 3]: g*w, h*w, w
+    rid: torch.Tensor     # i32 [n]: original row id
+    score: torch.Tensor   # f32 [n]: raw score (stream route)
+    consts: torch.Tensor  # f32 [n, 2]: objective constants (stream route)
 
 
 def init_rows(bins: torch.Tensor) -> Rows:
     """A fresh row matrix in original row order (``phys_init_comb``):
-    the bins copied, values zero (refreshed per tree), row ids 0..n-1."""
+    the bins copied, values, score and constants zero (slice 2's route
+    refreshes the values per tree), row ids 0..n-1."""
     n = bins.shape[0]
+    dev = bins.device
     return Rows(bins.clone(),
-                torch.zeros((n, 3), dtype=torch.float32, device=bins.device),
-                torch.arange(n, dtype=torch.int32, device=bins.device))
+                torch.zeros((n, 3), dtype=torch.float32, device=dev),
+                torch.arange(n, dtype=torch.int32, device=dev),
+                torch.zeros(n, dtype=torch.float32, device=dev),
+                torch.zeros((n, 2), dtype=torch.float32, device=dev))
 
 
 def empty_rows_like(rows: Rows) -> Rows:

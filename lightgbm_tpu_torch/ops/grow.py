@@ -1,17 +1,30 @@
 """Leaf-wise tree growth on the physically partitioned row matrix.
 
-Counterpart of the serial, physical, unfused branch of
-``lightgbm_tpu/ops/grow.py`` (``make_grow_fn`` with ``physical_bins``
-set, ``LGBM_TPU_FUSED=0``, no gradient streaming, the XLA split tail,
-and the ``_PhysicalGrow`` wrapper that carries the row matrix across
-trees).  Per tree: the row values are refreshed from this tree's
-gradients by row id, the root histogram is built, and then, split by
-split, in the reference's order:
+Counterpart of the serial, physical branch of ``lightgbm_tpu/ops/grow.py``
+(``make_grow_fn`` with ``physical_bins`` set, and the ``_PhysicalGrow``
+wrapper that carries the row matrix across trees), on the route
+``ops/routing.py`` decides.  The default route is the reference's:
 
-  best leaf (argmax of the selection key) -> partition of its segment
-  (scan + copyback kernels) -> the smaller child by ``nl * 2 <= par``
-  -> its histogram (comb-direct kernel) -> sibling = parent - child ->
-  ``find_best_split`` on both children.
+- score-resident gradients: the rows carry their scores and objective
+  constants; the first tree's rows come from ``stream_init``, and each
+  tree ends with ``stream_refresh``, which adds the tree's shrunk leaf
+  outputs to the scores by position, recomputes g/h in place and builds
+  the next tree's root histogram (carried; tree 0's root comes from
+  ``hist_comb``);
+- per split, in the reference's order: the best leaf (argmax of the
+  selection key) and one host read of its descriptor, then
+  ``fused_split`` (partition + both children's histograms), the
+  ``copyback``, and ``apply_find_pool`` (smaller child by
+  ``nl * 2 <= cnt``, sibling = parent - child, both children's best
+  splits, the state rows).
+
+Slice 2's route (``LGBM_TPU_STREAM=0 LGBM_TPU_FUSED=0
+LGBM_TPU_APPLY_IMPL=xla``) rewrites the rows' values from the
+objective's gradients by row id and builds the root histogram per tree,
+and per split runs the partition scan + copyback, the smaller child's
+histogram and the PyTorch tail; each knob switches its part alone.  The
+routes grow the same trees: each kernel's plain version composes slice
+2's plain arithmetic in slice 2's order.
 
 The loop runs on the host; the state (histogram pool, per-leaf best
 splits and sums, segments) stays on the device, and each split reads
@@ -25,17 +38,22 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .apply_find import (BCAT, BG, SC, SH, SMN, SMX, SOUT, SPAR, SplitAt,
+                         TreeState, allow_split, apply_find_pool,
+                         apply_find_pool_ref, build_finder_consts)
 from .device_data import DeviceDataset, Rows, empty_rows_like, init_rows
+from .fused_split import fused_split
 from .hist_kernel2 import build_histogram_comb
-from .histogram import subtract_histogram
-from .partition_kernel import partition
+from .partition_kernel import copyback, partition
+from .routing import RouteDecision
 from .split import (SplitHyperParams, calculate_leaf_output,
                     find_best_split, pack_split_info, selection_key)
+from .stream_grad import stream_init, stream_refresh
 
 
 class TreeArrays(NamedTuple):
@@ -57,12 +75,6 @@ class TreeArrays(NamedTuple):
     leaf_weight: np.ndarray      # f32
     leaf_count: np.ndarray       # f32
     num_leaves: int
-
-
-# best-row columns (the JAX grower's _GrowState.best layout)
-_BG, _BF, _BB, _BDL, _BCAT, _BLG, _BLH, _BLC, _BLO, _BRO = range(10)
-# per-leaf state columns (_GrowState.lstate)
-_SG, _SH, _SC, _SDEP, _SPAR, _SMN, _SMX, _SOUT = range(8)
 
 
 class StageTimer:
@@ -104,21 +116,40 @@ class StageTimer:
         return out
 
 
+class StreamSpec(NamedTuple):
+    """The objective's stream-route gradient formula."""
+    kind: str        # binary | l2
+    sigmoid: float
+
+
 class SerialGrower:
     """Grows one tree per call from the row matrix it carries across
     calls (``_PhysicalGrow``): the rows stay in the previous tree's
-    permutation, and only their value columns are rewritten per tree."""
+    permutation.  On the stream route they carry their scores, and the
+    root histogram is carried too."""
 
     def __init__(self, hp: SplitHyperParams, *, num_leaves: int,
-                 max_depth: int, dd: DeviceDataset,
+                 max_depth: int, dd: DeviceDataset, route: RouteDecision,
+                 stream: Optional[StreamSpec] = None,
                  timer: Optional[StageTimer] = None):
         self.hp = hp
         self.L = int(num_leaves)
         self.max_depth = int(max_depth)
         self.dd = dd
+        self.route = route
+        if route.stream and stream is None:
+            raise ValueError("the stream route needs the objective's "
+                             "StreamSpec")
+        self.stream = stream
         self.timer = timer or StageTimer()
         self.rows: Optional[Rows] = None
         self.scratch: Optional[Rows] = None
+        # stream route: () -> (score, validity, consts) of every row,
+        # read when the row matrix is (re)built; the carried root
+        self._stream_aux: Optional[Callable] = None
+        self._root_hist: Optional[torch.Tensor] = None
+        self.finder = build_finder_consts(dd.num_bins, dd.has_nan,
+                                          dd.is_cat, dd.padded_bins)
         self._num_bins = dd.num_bins.cpu().numpy()
         self._has_nan = dd.has_nan.cpu().numpy()
         # host reads of the split descriptor over the run
@@ -127,59 +158,108 @@ class SerialGrower:
         # (leaf, gain, feature, bin, default_left, is_cat, s0, cnt)
         self.trace: Optional[list] = None
 
-    def _allow(self, depth: torch.Tensor) -> torch.Tensor:
-        if self.max_depth <= 0:
-            return torch.ones(depth.shape, dtype=torch.bool,
-                              device=depth.device)
-        return depth < self.max_depth
+    def set_stream_aux(self, fn: Callable) -> None:
+        """Stream route: ``fn() -> (score [n], validity [n], consts [n,
+        2])`` on the device, read once when the row matrix is built."""
+        self._stream_aux = fn
 
-    def __call__(self, grad: torch.Tensor, hess: torch.Tensor,
-                 inbag: torch.Tensor, feature_mask: torch.Tensor):
-        """Grow one tree.  Returns ``(TreeArrays, leaf_id, leaf_value)``:
-        host arrays of the tree, the [n] leaf of every row in original
-        order and the [L] leaf outputs, both on the device."""
+    def reset_stream(self) -> None:
+        """Drop the carried rows and root histogram; the next call
+        rebuilds them from fresh scores (after anything that changes the
+        booster's scores behind the rows' back)."""
+        self.rows = self.scratch = self._root_hist = None
+
+    def _init_rows(self) -> None:
+        dd = self.dd
+        if self.route.stream:
+            if self._stream_aux is None:
+                raise RuntimeError("the stream route needs set_stream_aux "
+                                   "before training")
+            score, valid, consts = self._stream_aux()
+            self.rows = stream_init(dd.bins, score.contiguous(),
+                                    valid.contiguous(), consts.contiguous(),
+                                    kind=self.stream.kind,
+                                    sigmoid=self.stream.sigmoid)
+        else:
+            self.rows = init_rows(dd.bins)
+        self.scratch = empty_rows_like(self.rows)
+
+    def _root_histogram(self, rows: Rows) -> torch.Tensor:
+        n = self.dd.num_data
+        rng = torch.tensor([0, 0, n], dtype=torch.int32,
+                           device=self.dd.device)
+        return build_histogram_comb(rows, rng, padded_bins=self.dd.padded_bins,
+                                    max_rows=n)
+
+    def init_tree_state(self, rows: Rows, root_hist: torch.Tensor,
+                        feature_mask: torch.Tensor) -> TreeState:
+        """The device state of a tree that is one leaf: the root's sums
+        (in f64, rounded once: the CPU's and the card's reduction orders
+        then give the same f32), its histogram in the pool and its best
+        split."""
         dd, hp, L = self.dd, self.hp, self.L
+        dev, f32 = dd.device, torch.float32
+        sg0, sh0, c0 = rows.vals.double().sum(dim=0).to(f32).unbind()
+        root_out = calculate_leaf_output(sg0, sh0, hp)
+        depth0 = torch.zeros(1, dtype=f32, device=dev)
+        si0 = find_best_split(
+            root_hist[None], sg0[None], sh0[None], c0[None], dd.num_bins,
+            dd.has_nan, dd.is_cat, feature_mask,
+            allow_split(depth0, self.max_depth), hp,
+            parent_output=root_out[None])
+        pool = torch.zeros((L, dd.num_features, dd.padded_bins, 2),
+                           dtype=f32, device=dev)
+        pool[0] = root_hist
+        best = torch.full((L, 10), float("-inf"), dtype=f32, device=dev)
+        best[:, BG + 1:] = 0.0
+        best[0] = pack_split_info(si0)[0]
+        lstate = torch.zeros((L, 8), dtype=f32, device=dev)
+        lstate[0] = torch.stack([
+            sg0, sh0, c0, sg0.new_tensor(0.0), sg0.new_tensor(-1.0),
+            sg0.new_tensor(float("-inf")), sg0.new_tensor(float("inf")),
+            root_out])
+        lstate[1:, SPAR] = -1.0
+        lstate[1:, SMN] = float("-inf")
+        lstate[1:, SMX] = float("inf")
+        nodes = torch.zeros((max(L - 1, 1), 4), dtype=f32, device=dev)
+        seg = torch.zeros((L, 2), dtype=torch.int32, device=dev)
+        seg[0, 1] = dd.num_data
+        return TreeState(pool, best, lstate, nodes, seg)
+
+    def __call__(self, grad: Optional[torch.Tensor],
+                 hess: Optional[torch.Tensor],
+                 inbag: Optional[torch.Tensor], feature_mask: torch.Tensor,
+                 rate: float = 0.0):
+        """Grow one tree.  ``grad``, ``hess`` and ``inbag`` are the
+        objective's [n] values on slice 2's route (unused, may be None,
+        on the stream route, where ``rate`` is the shrinkage the tree's
+        outputs enter the scores with).  Returns ``(TreeArrays,
+        leaf_id, leaf_value)``: host arrays of the tree, the [n] leaf of
+        every row in original order and the [L] leaf outputs, both on
+        the device."""
+        dd, hp, L, route = self.dd, self.hp, self.L, self.route
         dev, n, B = dd.device, dd.num_data, dd.padded_bins
         stage = self.timer.stage
         f32 = torch.float32
         if self.rows is None:
-            self.rows = init_rows(dd.bins)
-            self.scratch = empty_rows_like(self.rows)
+            with stage("stream_init" if route.stream else "gradients", dev):
+                self._init_rows()
         rows = self.rows
-        with stage("gradients", dev):
-            gv = torch.stack([grad * inbag, hess * inbag, inbag], dim=1)
-            rows.vals.copy_(gv[rows.rid.long()])
-        with stage("histogram", dev):
-            root_rng = torch.tensor([0, 0, n], dtype=torch.int32, device=dev)
-            root_hist = build_histogram_comb(rows, root_rng, padded_bins=B,
-                                             max_rows=n)
+        if route.stream:
+            if self._root_hist is None:
+                with stage("histogram", dev):
+                    self._root_hist = self._root_histogram(rows)
+            root_hist = self._root_hist
+        else:
+            with stage("gradients", dev):
+                gv = torch.stack([grad * inbag, hess * inbag, inbag], dim=1)
+                rows.vals.copy_(gv[rows.rid.long()])
+            with stage("histogram", dev):
+                root_hist = self._root_histogram(rows)
         with stage("split_tail", dev):
-            # root sums in f64, rounded once: the CPU's and the card's
-            # reduction orders then give the same f32
-            sg0, sh0, c0 = rows.vals.double().sum(dim=0).to(f32).unbind()
-            root_out = calculate_leaf_output(sg0, sh0, hp)
-            depth0 = torch.zeros(1, dtype=f32, device=dev)
-            si0 = find_best_split(
-                root_hist[None], sg0[None], sh0[None], c0[None],
-                dd.num_bins, dd.has_nan, dd.is_cat, feature_mask,
-                self._allow(depth0), hp, parent_output=root_out[None])
-            pool = torch.zeros((L, dd.num_features, B, 2), dtype=f32,
-                               device=dev)
-            pool[0] = root_hist
-            best = torch.full((L, 10), float("-inf"), dtype=f32, device=dev)
-            best[:, _BF:] = 0.0
-            best[0] = pack_split_info(si0)[0]
-            lstate = torch.zeros((L, 8), dtype=f32, device=dev)
-            lstate[0] = torch.stack([
-                sg0, sh0, c0, sg0.new_tensor(0.0), sg0.new_tensor(-1.0),
-                sg0.new_tensor(float("-inf")), sg0.new_tensor(float("inf")),
-                root_out])
-            lstate[1:, _SPAR] = -1.0
-            lstate[1:, _SMN] = float("-inf")
-            lstate[1:, _SMX] = float("inf")
-            nodes = torch.zeros((max(L - 1, 1), 4), dtype=f32, device=dev)
-            seg = torch.zeros((L, 2), dtype=torch.int32, device=dev)
-            seg[0, 1] = n
+            st = self.init_tree_state(rows, root_hist, feature_mask)
+        tail = apply_find_pool if route.tail == "kernel" else \
+            apply_find_pool_ref
         ni = L - 1
         split_feature = np.zeros(ni, np.int32)
         threshold_bin = np.zeros(ni, np.int32)
@@ -192,11 +272,10 @@ class SerialGrower:
         num_leaves = 1
         for i in range(ni):
             with stage("split_tail", dev):
-                leaf_t = torch.argmax(selection_key(best[:, _BG]))
-                brow = best[leaf_t]
+                leaf_t = torch.argmax(selection_key(st.best[:, BG]))
                 desc = torch.cat([leaf_t[None].double(),
-                                  brow[:_BCAT + 1].double(),
-                                  seg[leaf_t].double()]).tolist()
+                                  st.best[leaf_t, :BCAT + 1].double(),
+                                  st.seg[leaf_t].double()]).tolist()
             self.host_reads += 1
             if self.trace is not None:
                 self.trace.append(desc)
@@ -209,48 +288,27 @@ class SerialGrower:
             node, right = i, num_leaves
             nanb = (int(self._num_bins[feat]) - 1 if self._has_nan[feat]
                     else -1)
-            with stage("partition", dev):
-                partition(rows, self.scratch,
-                          (s0, cnt, feat, sbin, dl, cat, nanb), nleft)
-            with stage("histogram", dev):
-                small_left = nleft * 2 <= cnt
-                child_start = torch.where(small_left, s0, s0 + nleft)
-                child_cnt = torch.where(small_left, nleft, cnt - nleft)
-                rng = torch.cat([child_start, torch.zeros_like(nleft),
-                                 child_cnt])
-                h_small = build_histogram_comb(rows, rng, padded_bins=B,
-                                               max_rows=cnt // 2 + 1)
+            sel = (s0, cnt, feat, sbin, dl, cat, nanb)
+            if route.fused:
+                with stage("fused_split", dev):
+                    h_pair = fused_split(rows, self.scratch, sel, nleft,
+                                         padded_bins=B)
+                    copyback(rows, self.scratch, s0, cnt)
+                h_a, h_b = h_pair[0], h_pair[1]
+            else:
+                with stage("partition", dev):
+                    partition(rows, self.scratch, sel, nleft)
+                with stage("histogram", dev):
+                    small_left = nleft * 2 <= cnt
+                    child_start = torch.where(small_left, s0, s0 + nleft)
+                    child_cnt = torch.where(small_left, nleft, cnt - nleft)
+                    rng = torch.cat([child_start, torch.zeros_like(nleft),
+                                     child_cnt])
+                    h_a = h_b = build_histogram_comb(
+                        rows, rng, padded_bins=B, max_rows=cnt // 2 + 1)
             with stage("split_tail", dev):
-                h_parent = pool[leaf]
-                h_left = torch.where(small_left, h_small,
-                                     subtract_histogram(h_parent, h_small))
-                h_right = subtract_histogram(h_parent, h_left)
-                pool[leaf] = h_left
-                pool[right] = h_right
-                seg[leaf, 1] = nleft[0]
-                seg[right, 0] = s0 + nleft[0]
-                seg[right, 1] = cnt - nleft[0]
-                lrow = lstate[leaf]
-                brow = best[leaf]
-                pg, ph, pc = lrow[_SG], lrow[_SH], lrow[_SC]
-                lg, lh, lc = brow[_BLG], brow[_BLH], brow[_BLC]
-                lo, ro = brow[_BLO], brow[_BRO]
-                rg, rh, rc = pg - lg, ph - lh, pc - lc
-                nodes[node] = torch.stack(
-                    [brow[_BG], calculate_leaf_output(pg, ph, hp), ph, pc])
-                d_child = lrow[_SDEP] + 1.0
-                fnode = d_child.new_tensor(float(node))
-                mn, mx = lrow[_SMN], lrow[_SMX]
-                lstate[[leaf, right]] = torch.stack([
-                    torch.stack([lg, lh, lc, d_child, fnode, mn, mx, lo]),
-                    torch.stack([rg, rh, rc, d_child, fnode, mn, mx, ro])])
-                si = find_best_split(
-                    torch.stack([h_left, h_right]), torch.stack([lg, rg]),
-                    torch.stack([lh, rh]), torch.stack([lc, rc]),
-                    dd.num_bins, dd.has_nan, dd.is_cat, feature_mask,
-                    self._allow(torch.stack([d_child, d_child])), hp,
-                    parent_output=torch.stack([lo, ro]))
-                best[[leaf, right]] = pack_split_info(si)
+                tail(h_a, h_b, nleft, st, self.finder, feature_mask, hp,
+                     self.max_depth, SplitAt(leaf, right, node, s0, cnt))
             # tree structure (reference Tree::Split, tree.h:541)
             p, side = leaf_parent[leaf]
             if p >= 0:
@@ -264,17 +322,28 @@ class SerialGrower:
         with stage("split_tail", dev):
             # every row's leaf from the final segments (positions tile
             # [0, n)), undoing the permutation by the stored row ids
-            order = torch.argsort(seg[:, 0], stable=True)
+            order = torch.argsort(st.seg[:, 0], stable=True)
             leaf_of_pos = torch.repeat_interleave(
-                order, seg[order, 1].long(), output_size=n)
+                order, st.seg[order, 1].long(), output_size=n)
             leaf_id = torch.empty(n, dtype=torch.int64, device=dev)
             leaf_id[rows.rid.long()] = leaf_of_pos
             live = torch.arange(L, device=dev) < num_leaves
-            leaf_value = torch.where(live, lstate[:, _SOUT],
+            leaf_value = torch.where(live, st.lstate[:, SOUT],
                                      torch.zeros((), dtype=f32, device=dev))
-            host = torch.cat([nodes.reshape(-1), lstate[:, _SH],
-                              lstate[:, _SC], leaf_value]).cpu().numpy()
-        nf = nodes.numel()
+            host = torch.cat([st.nodes.reshape(-1), st.lstate[:, SH],
+                              st.lstate[:, SC], leaf_value]).cpu().numpy()
+        if route.stream and num_leaves > 1:
+            # the next tree's rows: every position's score gains this
+            # tree's shrunk output of the leaf owning it (the booster's
+            # score update, rate * leaf_value, in the same f32 ops), g/h
+            # follow, and the pass builds the next root histogram
+            with stage("stream_refresh", dev):
+                rate_t = torch.tensor(rate, dtype=f32, device=dev)
+                lv = (rate_t * leaf_value)[leaf_of_pos]
+                self._root_hist = stream_refresh(
+                    rows, lv, kind=self.stream.kind,
+                    sigmoid=self.stream.sigmoid, padded_bins=B)
+        nf = st.nodes.numel()
         nodes_h = host[:nf].reshape(-1, 4)[:ni]
         ta = TreeArrays(
             split_feature=split_feature, threshold_bin=threshold_bin,

@@ -77,19 +77,22 @@ def partition_ref(rows: Rows, scratch: Rows, sel: Sequence[int],
     return nleft
 
 
-def _check(rows: Rows, scratch: Rows, nleft=None) -> None:
+def check_rows(rows: Rows, scratch: Rows, nleft=None) -> None:
+    """Raise unless ``rows`` and ``scratch`` are row matrices of one
+    shape (u8 bins [n, F], f32 vals [n, 3], i32 rid [n], f32 score [n],
+    f32 consts [n, 2]), contiguous on one device, and ``nleft`` (when
+    given) an i32 scalar there."""
     n, f = rows.bins.shape
     dev = rows.bins.device
+    want = ((torch.uint8, (n, f)), (torch.float32, (n, 3)),
+            (torch.int32, (n,)), (torch.float32, (n,)),
+            (torch.float32, (n, 2)))
     for r in (rows, scratch):
-        if (r.bins.dtype != torch.uint8 or r.vals.dtype != torch.float32
-                or r.rid.dtype != torch.int32):
-            raise LightGBMError("row matrix wants u8 bins, f32 vals, i32 "
-                                "rid")
-        if (tuple(r.bins.shape) != (n, f) or tuple(r.vals.shape) != (n, 3)
-                or tuple(r.rid.shape) != (n,)):
-            raise LightGBMError(f"row matrix arrays must be [{n}, {f}], "
-                                f"[{n}, 3] and [{n}]")
-        for a in r:
+        for a, (dt, shape) in zip(r, want):
+            if a.dtype != dt or tuple(a.shape) != shape:
+                raise LightGBMError(
+                    f"row matrix arrays must be u8 [{n}, {f}], f32 [{n}, 3], "
+                    f"i32 [{n}], f32 [{n}] and f32 [{n}, 2]")
             if a.device != dev or not a.is_contiguous():
                 raise LightGBMError("row matrix arrays must be contiguous "
                                     "and on one device")
@@ -100,7 +103,19 @@ def _check(rows: Rows, scratch: Rows, nleft=None) -> None:
                             "device")
 
 
-def _check_segment(rows: Rows, s0: int, cnt: int) -> None:
+def row_pointers(rows: Rows) -> list:
+    """The five arrays' device addresses, in the kernels' order."""
+    return [a.data_ptr() for a in rows]
+
+
+def split_args(sel: Sequence[int]) -> list:
+    """(feat, sbin, default_left, is_cat, nan_bin) of a descriptor: the
+    kernels' trailing split arguments."""
+    return [int(sel[k]) for k in (SEL_FEAT, SEL_SBIN, SEL_DL, SEL_CAT,
+                                  SEL_NANB)]
+
+
+def check_segment(rows: Rows, s0: int, cnt: int) -> None:
     if s0 < 0 or cnt < 0 or s0 + cnt > rows.bins.shape[0]:
         raise LightGBMError(f"segment [{s0}, {s0 + cnt}) is outside the "
                             f"{rows.bins.shape[0]}-row matrix")
@@ -110,9 +125,9 @@ def _check_segment(rows: Rows, s0: int, cnt: int) -> None:
 def _lib():
     lib = _build.load("partition")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.partition_scan.argtypes = [p] * 8 + [i] * 8 + [p]
+    lib.partition_scan.argtypes = [p] * 12 + [i] * 8 + [p]
     lib.partition_scan.restype = i
-    lib.partition_copyback.argtypes = [p] * 6 + [i] * 3 + [p]
+    lib.partition_copyback.argtypes = [p] * 10 + [i] * 3 + [p]
     lib.partition_copyback.restype = i
     return lib
 
@@ -129,9 +144,9 @@ def partition_scan(rows: Rows, scratch: Rows, sel: Sequence[int],
         return partition_scan_ref(rows, scratch, sel, nleft)
     if dev.type != "cuda":
         raise LightGBMError(f"partition runs on cuda or cpu, not {dev}")
-    _check(rows, scratch, nleft)
+    check_rows(rows, scratch, nleft)
     s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
-    _check_segment(rows, s0, cnt)
+    check_segment(rows, s0, cnt)
     if cnt == 0:
         nleft.zero_()
         return nleft
@@ -143,11 +158,9 @@ def partition_scan(rows: Rows, scratch: Rows, sel: Sequence[int],
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = _lib().partition_scan(
-            rows.bins.data_ptr(), rows.vals.data_ptr(), rows.rid.data_ptr(),
-            scratch.bins.data_ptr(), scratch.vals.data_ptr(),
-            scratch.rid.data_ptr(), tile_left.data_ptr(), nleft.data_ptr(),
-            f, s0, cnt, int(sel[SEL_FEAT]), int(sel[SEL_SBIN]),
-            int(sel[SEL_DL]), int(sel[SEL_CAT]), int(sel[SEL_NANB]), stream)
+            *row_pointers(rows), *row_pointers(scratch),
+            tile_left.data_ptr(), nleft.data_ptr(), f, s0, cnt,
+            *split_args(sel), stream)
     if rc != 0:
         raise LightGBMError(f"partition_scan kernel launch failed with "
                             f"CUDA error {rc}")
@@ -164,17 +177,15 @@ def copyback(rows: Rows, scratch: Rows, s0: int, cnt: int) -> None:
         return copyback_ref(rows, scratch, s0, cnt)
     if dev.type != "cuda":
         raise LightGBMError(f"copyback runs on cuda or cpu, not {dev}")
-    _check(rows, scratch)
-    _check_segment(rows, s0, cnt)
+    check_rows(rows, scratch)
+    check_segment(rows, s0, cnt)
     if cnt == 0:
         return None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = _lib().partition_copyback(
-            rows.bins.data_ptr(), rows.vals.data_ptr(), rows.rid.data_ptr(),
-            scratch.bins.data_ptr(), scratch.vals.data_ptr(),
-            scratch.rid.data_ptr(), rows.bins.shape[1], int(s0), int(cnt),
-            stream)
+            *row_pointers(rows), *row_pointers(scratch), rows.bins.shape[1],
+            int(s0), int(cnt), stream)
     if rc != 0:
         raise LightGBMError(f"copyback kernel launch failed with CUDA "
                             f"error {rc}")

@@ -1,0 +1,177 @@
+"""Score-resident gradients: the wrappers of ``csrc/stream_grad.cu``
+(stream init and refresh), their launch counts and their plain PyTorch
+versions.
+
+Counterpart of ``lightgbm_tpu/ops/pallas/stream_grad.py`` (``make_init``
+and ``make_refresh`` with ``root_hist=True``, pack=1).  On the stream
+route the row matrix carries each row's raw score and its objective's
+two constants (:class:`~.device_data.Rows`), so the per-tree gradient
+refresh is one in-place pass over the rows by position, with no gather
+by row id: ``s = score + lv`` (``lv`` the per-position score delta,
+shrinkage times the output of the leaf owning the position), then
+``g*w, h*w`` from ``s`` and the constants.  The same pass accumulates
+the next tree's root histogram, laid out exactly as ``hist_comb`` over
+``[0, n)`` with ``max_rows = n``, so it equals the histogram the unfused
+route builds at the next tree's start, bit for bit.
+
+The gradient arithmetic is the objectives' own (``binary_gradients``,
+``l2_gradients``): the CPU route and slice 2's route compute the same
+f32 values.  The TPU kernels' bf16 rounding of g/h is not applied (the
+JAX package's interpret reference skips it too).
+
+Each wrapper takes its plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..objective.binary import binary_gradients
+from ..objective.regression import l2_gradients
+from ..utils.log import LightGBMError
+from . import _build
+from .device_data import Rows
+from .hist_kernel2 import MAX_SMEM, build_histogram_comb_ref, hist_blocks
+from .partition_kernel import check_rows
+
+# the kernels' objective codes
+KINDS = {"binary": 0, "l2": 1}
+
+
+def stream_gradients(kind: str, sigmoid: float, score: torch.Tensor,
+                     consts: torch.Tensor, w: torch.Tensor):
+    """(g*w, h*w) of every row from its score, constants [n, 2] and
+    validity ``w``."""
+    if kind == "binary":
+        g, h = binary_gradients(score, consts[:, 0], consts[:, 1], sigmoid)
+    elif kind == "l2":
+        g, h = l2_gradients(score, consts[:, 0], consts[:, 1])
+    else:
+        raise LightGBMError(f"the stream route has no gradients for {kind}")
+    return g * w, h * w
+
+
+def stream_init_ref(bins: torch.Tensor, score: torch.Tensor,
+                    valid: torch.Tensor, consts: torch.Tensor, *, kind: str,
+                    sigmoid: float) -> Rows:
+    """Plain version of the init: the row matrix in original row order
+    from the bins [n, F], scores [n] (boost-from-average included),
+    validity [n] and objective constants [n, 2]."""
+    n = bins.shape[0]
+    g, h = stream_gradients(kind, sigmoid, score, consts, valid)
+    return Rows(bins.clone(), torch.stack([g, h, valid], dim=1),
+                torch.arange(n, dtype=torch.int32, device=bins.device),
+                score.clone(), consts.clone())
+
+
+def stream_refresh_ref(rows: Rows, lv: torch.Tensor, *, kind: str,
+                       sigmoid: float, padded_bins: int) -> torch.Tensor:
+    """Plain version of the refresh: every position's score gains
+    ``lv``, g*w and h*w are recomputed in place, and the next tree's
+    root histogram [F, B, 2] is returned (``hist_comb`` over [0, n))."""
+    s = rows.score + lv
+    g, h = stream_gradients(kind, sigmoid, s, rows.consts, rows.vals[:, 2])
+    rows.score.copy_(s)
+    rows.vals[:, 0] = g
+    rows.vals[:, 1] = h
+    n = rows.bins.shape[0]
+    rng = torch.tensor([0, 0, n], dtype=torch.int32, device=rows.bins.device)
+    return build_histogram_comb_ref(rows, rng, padded_bins=padded_bins,
+                                    max_rows=n)
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    lib = _build.load("stream_grad")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.stream_init.argtypes = [p] * 4 + [i] * 3 + [f] + [p] * 6
+    lib.stream_init.restype = i
+    lib.stream_refresh.argtypes = [p] * 5 + [i] * 4 + [f] + [p] * 2 + [i, p]
+    lib.stream_refresh.restype = i
+    lib.stream_refresh_smem_bytes.argtypes = [i, i]
+    lib.stream_refresh_smem_bytes.restype = i
+    return lib
+
+
+def _check_vec(t: torch.Tensor, shape, dev, name: str) -> None:
+    if (t.dtype != torch.float32 or tuple(t.shape) != tuple(shape)
+            or t.device != dev or not t.is_contiguous()):
+        raise LightGBMError(f"{name} must be a contiguous f32 "
+                            f"{list(shape)} tensor on {dev}")
+
+
+def stream_init(bins: torch.Tensor, score: torch.Tensor, valid: torch.Tensor,
+                consts: torch.Tensor, *, kind: str, sigmoid: float) -> Rows:
+    """The stream route's row matrix.  CPU tensors take
+    :func:`stream_init_ref`; CUDA tensors launch the kernel."""
+    dev = bins.device
+    if dev.type == "cpu":
+        return stream_init_ref(bins, score, valid, consts, kind=kind,
+                               sigmoid=sigmoid)
+    if dev.type != "cuda":
+        raise LightGBMError(f"stream_init runs on cuda or cpu, not {dev}")
+    n, f = bins.shape
+    if bins.dtype != torch.uint8 or not bins.is_contiguous():
+        raise LightGBMError("bins must be contiguous u8 [n, F]")
+    _check_vec(score, (n,), dev, "score")
+    _check_vec(valid, (n,), dev, "valid")
+    _check_vec(consts, (n, 2), dev, "consts")
+    rows = Rows(torch.empty_like(bins),
+                torch.empty((n, 3), dtype=torch.float32, device=dev),
+                torch.empty(n, dtype=torch.int32, device=dev),
+                torch.empty(n, dtype=torch.float32, device=dev),
+                torch.empty((n, 2), dtype=torch.float32, device=dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().stream_init(
+            bins.data_ptr(), score.data_ptr(), valid.data_ptr(),
+            consts.data_ptr(), n, f, KINDS[kind], float(sigmoid),
+            *(a.data_ptr() for a in rows), stream)
+    if rc != 0:
+        raise LightGBMError(f"stream_init kernel launch failed with CUDA "
+                            f"error {rc}")
+    stream_init.launches += 1
+    return rows
+
+
+def stream_refresh(rows: Rows, lv: torch.Tensor, *, kind: str,
+                   sigmoid: float, padded_bins: int) -> torch.Tensor:
+    """Refresh the rows in place with the per-position score delta
+    ``lv`` [n] and return the next tree's root histogram.  CPU tensors
+    take :func:`stream_refresh_ref`; CUDA tensors launch the kernel."""
+    dev = rows.bins.device
+    if dev.type == "cpu":
+        return stream_refresh_ref(rows, lv, kind=kind, sigmoid=sigmoid,
+                                  padded_bins=padded_bins)
+    if dev.type != "cuda":
+        raise LightGBMError(f"stream_refresh runs on cuda or cpu, not {dev}")
+    check_rows(rows, rows)
+    n, f = rows.bins.shape
+    _check_vec(lv, (n,), dev, "lv")
+    lib = _lib()
+    if lib.stream_refresh_smem_bytes(f, padded_bins) > MAX_SMEM:
+        raise LightGBMError(f"histogram of {f} features x {padded_bins} "
+                            "bins does not fit one block's shared memory")
+    nblocks = hist_blocks(n)
+    partials = torch.empty((nblocks, f, padded_bins, 2), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((f, padded_bins, 2), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.stream_refresh(
+            rows.bins.data_ptr(), rows.vals.data_ptr(),
+            rows.score.data_ptr(), rows.consts.data_ptr(), lv.data_ptr(), n,
+            f, int(padded_bins), KINDS[kind], float(sigmoid),
+            partials.data_ptr(), out.data_ptr(), nblocks, stream)
+    if rc != 0:
+        raise LightGBMError(f"stream_refresh kernel launch failed with CUDA "
+                            f"error {rc}")
+    stream_refresh.launches += 1
+    return out
+
+
+stream_init.launches = 0
+stream_refresh.launches = 0

@@ -8,18 +8,24 @@ held against its plain PyTorch version on the same inputs: the
 traversal's leaf indices exactly and its scores within
 ``64 * T * eps_f32 * max(|s|, 1)`` (f32 sums in another order); the
 histogram within ``4 * n * eps_f32 * max|v|`` and bitwise equal across
-two launches; the partition scan and copyback byte for byte.  Trees
-grown on the card equal the CPU run's (structure, and leaf values
-within 1e-5 of the tree's largest leaf).
+two launches; the partition scan and copyback byte for byte.  The
+stream init and refresh, the fused split and the split tail (slice 3)
+bitwise: rows, nleft and state rows equal their plain versions', the
+refresh's root histogram and the fused split's two histograms equal
+hist_comb's of the same ranges.  Trees grown on the card equal the CPU
+run's (structure, and leaf values within 1e-5 of the tree's largest
+leaf), and the default route's equal slice 2's route's bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 import lightgbm_tpu_torch as lgt
-from chip_smoke import (compare_trees, hist_parity, make_higgs_like,
-                        make_rows, partition_parity, random_model_text,
-                        random_row_matrix, rows_on, score_tolerance)
+from chip_smoke import (apply_find_parity, compare_trees, fused_parity,
+                        hist_parity, make_higgs_like, make_rows,
+                        partition_parity, random_model_text,
+                        random_row_matrix, rows_on, score_tolerance,
+                        stream_parity)
 from lightgbm_tpu_torch.ops import predict as tpred
 from lightgbm_tpu_torch.ops import serve_kernel as tkern
 
@@ -128,3 +134,104 @@ def test_training_on_card_matches_cpu(cuda):
                   device="cpu")
     res = compare_trees(a._models, b._models)
     assert res["ok"], res
+
+
+# -- slice 3: the default route's kernels ------------------------------
+SLICE2_ROUTE = {"LGBM_TPU_STREAM": "0", "LGBM_TPU_FUSED": "0",
+                "LGBM_TPU_APPLY_IMPL": "xla"}
+
+
+@pytest.mark.parametrize("kind,sigmoid", [("binary", 1.0), ("binary", 0.7),
+                                          ("l2", 1.0)])
+def test_stream_kernels_match_plain(cuda, kind, sigmoid):
+    from lightgbm_tpu_torch.ops.stream_grad import (stream_init,
+                                                    stream_refresh)
+    rows = rows_on(random_row_matrix(20_011, 7, 13), cuda)
+    before = (stream_init.launches, stream_refresh.launches)
+    stream_parity(rows.bins, kind, 256, "test", sigmoid=sigmoid)
+    assert (stream_init.launches, stream_refresh.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("sel", [
+    (0, 20_000, 0, 100, 1, 0, 200),      # NaN bin routed left
+    (333, 5001, 0, 90, 0, 0, 200),       # NaN bin routed right
+    (17, 4000, 3, 7, 0, 1, -1),          # one-hot categorical
+    (5, 19_990, 2, 199, 0, 0, -1),       # nearly all rows left
+    (7, 3000, 4, 0, 0, 0, -1),           # nearly all rows right
+    (1, 1, 2, 50, 0, 0, -1),             # one row
+    (100, 0, 1, 10, 0, 0, -1),           # dead split: no launch
+])
+def test_fused_split_matches_plain(cuda, sel):
+    rows = rows_on(random_row_matrix(20_000, 6, 9, n_bins=201,
+                                     nan_bin=200), cuda)
+    fused_parity(rows, sel, 256, "test")
+
+
+def _grower(device, **hp_kw):
+    from lightgbm_tpu_torch.ops.device_data import init_rows, to_device
+    from lightgbm_tpu_torch.ops.grow import SerialGrower, StreamSpec
+    from lightgbm_tpu_torch.ops.routing import RouteInputs, decide
+    from lightgbm_tpu_torch.ops.split import SplitHyperParams
+    x, y = make_higgs_like(20_000, 8, seed=4)
+    x[np.random.default_rng(4).random(x.shape) < 0.1] = np.nan
+    ds = lgt.Dataset(x, label=y).construct()
+    dd = to_device(ds._binned, device)
+    grower = SerialGrower(SplitHyperParams(**hp_kw), num_leaves=31,
+                          max_depth=-1, dd=dd, route=decide(RouteInputs()),
+                          stream=StreamSpec("binary", 1.0))
+    rows = init_rows(dd.bins)
+    rows.vals.copy_(torch.as_tensor(random_row_matrix(20_000, 1, 6)[1],
+                                    device=device))
+    return grower, rows
+
+
+@pytest.mark.parametrize("hp_kw", [
+    {},
+    {"lambda_l1": 0.5, "lambda_l2": 1.0, "max_delta_step": 0.3},
+    {"path_smooth": 2.0, "use_smoothing": True, "min_data_in_leaf": 5},
+])
+def test_apply_find_matches_plain(cuda, hp_kw):
+    from lightgbm_tpu_torch.ops.apply_find import apply_find, apply_find_pool
+    grower, rows = _grower(cuda, **hp_kw)
+    before = (apply_find_pool.launches, apply_find.launches)
+    apply_find_parity(grower, rows, "test")
+    assert (apply_find_pool.launches, apply_find.launches) == (
+        before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.parametrize("objective", ["binary", "regression"])
+def test_default_route_on_card_matches_cpu_and_slice2(cuda, objective,
+                                                      monkeypatch):
+    """The default route on the card grows the CPU run's trees and, on
+    the card, slice 2's route's trees, leaf values bit for bit."""
+    from lightgbm_tpu_torch.ops.apply_find import apply_find_pool
+    from lightgbm_tpu_torch.ops.fused_split import fused_split
+    from lightgbm_tpu_torch.ops.stream_grad import stream_refresh
+    x, y = make_higgs_like(6000, 8, seed=5)
+    x[np.random.default_rng(5).random(x.shape) < 0.1] = np.nan
+    if objective == "regression":
+        y = np.nan_to_num(x[:, 1]) + y
+    p = {"objective": objective, "num_leaves": 31, "verbosity": -1}
+    counts = (fused_split.launches, apply_find_pool.launches,
+              stream_refresh.launches)
+    card = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                     device="cuda")
+    assert card._inner.grow.route.describe().startswith(
+        "path=stream fused=1 tail=kernel")
+    splits = sum(t.num_leaves - 1 for t in card._models)
+    assert (fused_split.launches - counts[0],
+            apply_find_pool.launches - counts[1],
+            stream_refresh.launches - counts[2]) == (splits, splits, 3)
+    cpu = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                    device="cpu")
+    for k, v in SLICE2_ROUTE.items():
+        monkeypatch.setenv(k, v)
+    slice2 = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                       device="cuda")
+    assert slice2._inner.grow.route.tail == "xla"
+    for other in (cpu, slice2):
+        res = compare_trees(card._models, other._models)
+        assert res["ok"], res
+    for a, b in zip(card._models, slice2._models):
+        assert a.leaf_value.tobytes() == b.leaf_value.tobytes()

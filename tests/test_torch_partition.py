@@ -8,8 +8,9 @@ its row order is the compiled TPU kernel's: left rows in order, right
 rows reversed.  The port's plain version (``partition_ref``) must leave
 the same bytes in the segment, the same ``nleft``, and every row outside
 the segment untouched.  Rows are made from a seed with numpy and handed
-to both: bins and values in the 128-lane comb on the JAX side, the
-three row arrays on the port's.  Tolerance: none, the bytes are equal.
+to both: bins, values, row-id bytes, score and constants in the
+128-lane comb on the JAX side, the five row arrays on the port's.
+Tolerance: none, the bytes are equal.
 """
 import numpy as np
 import pytest
@@ -38,14 +39,18 @@ CASES = {
 }
 
 
-def _comb(bins, vals, rid):
-    """The JAX package's comb rows: bins, (g*w, h*w, w), row-id bytes."""
+def _comb(bins, vals, rid, score, consts):
+    """The JAX package's comb rows: bins, (g*w, h*w, w), row-id bytes,
+    then the score and the two constants in f32 (the stream layout's
+    columns, unsplit)."""
     comb = np.zeros((bins.shape[0], C), np.float32)
     comb[:, :F] = bins
     comb[:, F:F + 3] = vals
     comb[:, F + 3] = rid // 65536
     comb[:, F + 4] = (rid // 256) % 256
     comb[:, F + 5] = rid % 256
+    comb[:, F + 6] = score
+    comb[:, F + 7:F + 9] = consts
     return comb
 
 
@@ -63,10 +68,9 @@ def jax_partition():
 @pytest.mark.parametrize("case", list(CASES))
 def test_partition_ref_matches_jax_kernel(case, rows_np, jax_partition):
     s0, cnt = CASES[case][:2]
-    bins, vals, rid = rows_np
     sel = np.zeros(8, np.int32)
     sel[:7] = CASES[case]
-    comb = jnp.asarray(_comb(bins, vals, rid))
+    comb = jnp.asarray(_comb(*rows_np))
     out_j, _, nl_j = jax_partition(jnp.asarray(sel), comb,
                                    jnp.zeros_like(comb))
     out_j = np.asarray(out_j)
@@ -82,6 +86,9 @@ def test_partition_ref_matches_jax_kernel(case, rows_np, jax_partition):
     rid_j = (out_j[seg, F + 3] * 65536 + out_j[seg, F + 4] * 256
              + out_j[seg, F + 5]).astype(np.int32)
     np.testing.assert_array_equal(rows.rid.numpy()[seg], rid_j)
+    np.testing.assert_array_equal(rows.score.numpy()[seg], out_j[seg, F + 6])
+    np.testing.assert_array_equal(rows.consts.numpy()[seg],
+                                  out_j[seg, F + 7:F + 9])
     # rows outside the segment are untouched
     for a, b in zip(rows, rows_np):
         np.testing.assert_array_equal(a.numpy()[:s0], b[:s0])

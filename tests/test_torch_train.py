@@ -4,9 +4,13 @@ the JAX package, on the CPU.
 The JAX package trains on its physical, unfused route with the XLA
 split tail (``LGBM_TPU_PHYS=interpret LGBM_TPU_STREAM=0
 LGBM_TPU_FUSED=0``; knobs saved and restored and its modules purged
-around each run, as tests/test_fused.py does); the port trains with
-``device="cpu"``, where its kernels' plain versions run.  Inputs are
-made with numpy from a seed and handed to both.
+around each run, as tests/test_fused.py does) and, for the whole of
+slice 3, on its default route (stream, fused split and the Pallas split
+tail, ``LGBM_TPU_PHYS=interpret LGBM_TPU_APPLY_IMPL=pallas_interpret``);
+the port trains with ``device="cpu"`` on its default route, where its
+kernels' plain versions run, and on slice 2's route, whose trees it
+must equal leaf byte for leaf byte.  Inputs are made with numpy from a
+seed and handed to both.
 
 Tolerances: bin boundaries, binned matrices and tree structure (leaf
 counts, split features, threshold bins, decision types, default
@@ -47,6 +51,14 @@ REPO = Path(__file__).resolve().parent.parent
 EPS32 = float(np.finfo(np.float32).eps)
 ROUTE = {"LGBM_TPU_PHYS": "interpret", "LGBM_TPU_STREAM": "0",
          "LGBM_TPU_FUSED": "0"}
+# the JAX package's default route off the TPU (stream and fused at their
+# defaults, the Pallas split tail through its interpreter)
+DEFAULT_ROUTE = {"LGBM_TPU_PHYS": "interpret",
+                 "LGBM_TPU_APPLY_IMPL": "pallas_interpret"}
+SLICE2_ROUTE = {"LGBM_TPU_STREAM": "0", "LGBM_TPU_FUSED": "0",
+                "LGBM_TPU_APPLY_IMPL": "xla"}
+ROUTE_KNOBS = ("LGBM_TPU_PHYS", "LGBM_TPU_STREAM", "LGBM_TPU_FUSED",
+               "LGBM_TPU_APPLY_IMPL")
 # model-text fields holding floats computed from f32 sums
 FLOAT_KEYS = ("tree_sizes", "split_gain", "leaf_value", "leaf_weight",
               "internal_value", "internal_weight")
@@ -60,11 +72,15 @@ def _purge():
 
 
 def _jax_train(params, x, y, rounds, xv=None, yv=None, ds_params=None,
-               cat=None):
-    """JAX training on the route under test: (booster, binned dataset,
-    validation raw scores)."""
-    saved = save_env_knobs(tuple(ROUTE))
-    os.environ.update(ROUTE)
+               cat=None, route=None):
+    """JAX training on the route under test (slice 2's unless ``route``
+    names the knobs of another): (booster, binned dataset, validation
+    raw scores)."""
+    route = ROUTE if route is None else route
+    saved = save_env_knobs(ROUTE_KNOBS)
+    for k in ROUTE_KNOBS:
+        os.environ.pop(k, None)
+    os.environ.update(route)
     try:
         _purge()
         import lightgbm_tpu as lgb
@@ -74,7 +90,8 @@ def _jax_train(params, x, y, rounds, xv=None, yv=None, ds_params=None,
                  if xv is not None else None)
         bst = lgb.train(params, ds, num_boost_round=rounds,
                         valid_sets=valid)
-        assert bst._inner._routing.path == "physical"
+        if route is ROUTE:
+            assert bst._inner._routing.path == "physical"
         raw_v = (np.asarray(bst.predict(xv, raw_score=True))
                  if xv is not None else None)
         return bst, ds._binned, raw_v
@@ -297,12 +314,18 @@ def test_training_imports_no_jax():
         "import lightgbm_tpu_torch.ops.grow, lightgbm_tpu_torch.ops.split\n"
         "import lightgbm_tpu_torch.ops.hist_kernel2\n"
         "import lightgbm_tpu_torch.ops.partition_kernel\n"
+        "import lightgbm_tpu_torch.ops.stream_grad\n"
+        "import lightgbm_tpu_torch.ops.fused_split\n"
+        "import lightgbm_tpu_torch.ops.apply_find\n"
+        "import lightgbm_tpu_torch.ops.routing\n"
         "rng = np.random.default_rng(0)\n"
         "x = rng.normal(size=(500, 4)); y = (x[:, 0] > 0) * 1.0\n"
         "b = lgt.train({'objective': 'binary', 'num_leaves': 7,\n"
         "               'verbosity': -1}, lgt.Dataset(x, label=y),\n"
         "              num_boost_round=2, device='cpu')\n"
         "b.predict(x)\n"
+        "assert b._inner.grow.route.describe() == "
+        "'path=stream fused=1 tail=kernel'\n"
         "bad = [m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'lightgbm_tpu' "
         "or m.startswith('lightgbm_tpu.')]\n"
@@ -321,3 +344,84 @@ def test_train_defaults_to_cuda():
     with pytest.raises(LightGBMError, match="device='cpu'"):
         lgt.train({"objective": "binary", "verbosity": -1},
                   lgt.Dataset(x, label=y), num_boost_round=1)
+
+
+def _port_train(params, x, y, rounds, env):
+    saved = save_env_knobs(ROUTE_KNOBS)
+    for k in ROUTE_KNOBS:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        return lgt.train(params, lgt.Dataset(x, label=y),
+                         num_boost_round=rounds, device="cpu")
+    finally:
+        restore_env_knobs(saved)
+
+
+ROUTE_CONFIGS = {
+    "binary": ({"objective": "binary", "num_leaves": 15,
+                "verbosity": -1}, "binary"),
+    "l2_lambda": ({"objective": "regression", "num_leaves": 31,
+                           "lambda_l2": 1.0, "min_data_in_leaf": 10,
+                           "verbosity": -1}, "regression"),
+}
+PARTIAL_ROUTES = {
+    "slice2": SLICE2_ROUTE,
+    "stream_only_off": {"LGBM_TPU_STREAM": "0"},
+    "fused_only_off": {"LGBM_TPU_FUSED": "0"},
+    "tail_only_xla": {"LGBM_TPU_APPLY_IMPL": "xla"},
+}
+
+
+@pytest.mark.parametrize("route", list(PARTIAL_ROUTES))
+@pytest.mark.parametrize("config", list(ROUTE_CONFIGS))
+def test_default_route_grows_slice2_trees(config, route):
+    """The default route and each route with some of its parts switched
+    off grow trees of equal structure and equal leaf-value bytes, and
+    equal predictions and training scores."""
+    params, objective = ROUTE_CONFIGS[config]
+    x, y = _data(3000, 6, 21, objective)
+    a = _port_train(params, x, y, 4, {})
+    b = _port_train(params, x, y, 4, PARTIAL_ROUTES[route])
+    assert a._inner.grow.route.describe() == \
+        "path=stream fused=1 tail=kernel"
+    assert b._inner.grow.route.reasons
+    assert len(a._models) == len(b._models) == 4
+    for ta, tb in zip(a._models, b._models):
+        assert ta.num_leaves == tb.num_leaves > 1
+        ni = ta.num_leaves - 1
+        for k in ("split_feature", "threshold_bin", "decision_type",
+                  "left_child", "right_child"):
+            assert np.array_equal(getattr(ta, k)[:ni], getattr(tb, k)[:ni])
+        assert ta.leaf_value.tobytes() == tb.leaf_value.tobytes()
+        assert ta.leaf_count.tobytes() == tb.leaf_count.tobytes()
+    np.testing.assert_array_equal(a.predict(x), b.predict(x))
+    assert torch.equal(a._inner.train_score, b._inner.train_score)
+
+
+@pytest.mark.parametrize("config", list(ROUTE_CONFIGS))
+def test_stream_scores_equal_training_scores(config):
+    """The score each row carries on the stream route is the booster's
+    training score of its row id, bit for bit."""
+    params, objective = ROUTE_CONFIGS[config]
+    x, y = _data(2000, 5, 22, objective)
+    bst = _port_train(params, x, y, 3, {})
+    rows = bst._inner.grow.rows
+    ts = bst._inner.train_score
+    assert torch.equal(rows.score, ts[rows.rid.long()])
+
+
+@pytest.mark.parametrize("config", list(ROUTE_CONFIGS))
+def test_default_route_matches_jax_default_route(config):
+    """The whole of slice 3: the port's default route on the CPU against
+    the JAX package's default route (stream, fused split, Pallas split
+    tail in interpret mode): equal structure, leaf values within 1e-4
+    of the tree's largest leaf."""
+    params, objective = ROUTE_CONFIGS[config]
+    x, y = _data(3000, 6, 23, objective)
+    bj, _, _ = _jax_train(params, x, y, 4, route=DEFAULT_ROUTE)
+    inner = bj._inner
+    assert inner._stream_grad and inner.grow.fused is True
+    bt = _port_train(params, x, y, 4, {})
+    res = compare_trees(bt._models, bj._models, rtol=LEAF_RTOL)
+    assert res["ok"], res
