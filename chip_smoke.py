@@ -22,9 +22,15 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    3,000-row segment at an odd offset, its rows and nleft bitwise and
    both histograms bitwise ``hist_comb``'s of each child range;
    ``apply_find`` on a real split's histograms, bitwise; then each
-   kernel's time beside its plain version's;
+   kernel's time beside its plain version's; ``hist_rows`` (slice 4)
+   bitwise against its plain version run on CPU copies, on the 1M x 28
+   u16 bins of ``max_bin=1023`` (B = 1024, the root, and a 3,000-row
+   child through a permutation index), u8 bins through an index and a
+   B = 1040 case, each timed beside its plain version, one
+   ``index_add_`` and its bound;
 4. training parity, card against ``device="cpu"``, 50,000 x 28, 255
-   leaves: 3 trees on the default route, 1 on slice 2's route;
+   leaves: 3 trees on the default route, 1 on slice 2's route, 3 on the
+   row-order route at ``max_bin=1023`` (bitwise);
 5. the training main path on the default route (score-resident
    gradients, fused split, one-kernel split tail): 1,000,000 x 28, 255
    leaves, 10 iterations, the launch counts zeroed just before and read
@@ -32,7 +38,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    trained booster served through ``serve_traverse``; then slice 2's
    route (``LGBM_TPU_STREAM=0 LGBM_TPU_FUSED=0 LGBM_TPU_APPLY_IMPL=xla``)
    for 3 iterations, counted the same way, its trees held against the
-   default route's first 3; one profiled iteration of each;
+   default route's first 3; the row-order route (slice 4) at
+   ``max_bin=1023`` for 10 iterations and under ``LGBM_TPU_PHYS=0`` at
+   ``max_bin=255`` for 3, counted the same way (``hist_rows`` once per
+   tree and per split), the latter's trees printed beside the default
+   route's; one profiled iteration of each route, its kernels counted
+   per split and per stage;
 6. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times, then the device line last.
 
@@ -849,17 +860,19 @@ SLICE2_ROUTE = {"LGBM_TPU_STREAM": "0", "LGBM_TPU_FUSED": "0",
                 "LGBM_TPU_APPLY_IMPL": "xla"}
 SLICE2_ITERS = 3
 SLICE2_PARITY_TREES = 1
-# kernels of the default route (PERF.md rows 14, 16, 10, 12-13)
+ROUTE_KNOBS = ("LGBM_TPU_STREAM", "LGBM_TPU_FUSED", "LGBM_TPU_APPLY_IMPL",
+               "LGBM_TPU_PHYS", "LGBM_TPU_HIST_IMPL")
+# the port's kernels (PERF.md rows 1-4, 6-7, 10, 12-14, 16)
 OUR_KERNEL_NAMES = ("hist_comb", "partition_", "count_tiles", "left_prefix",
                     "fused_scatter", "reduce_partials", "stream_",
-                    "apply_find")
+                    "apply_find", "hist_rows")
 
 
 @contextlib.contextmanager
 def route_env(env: dict):
     """The JAX package's route knobs set as ``env`` says (and the others
     unset) inside the block, restored after it."""
-    keys = tuple(SLICE2_ROUTE)
+    keys = ROUTE_KNOBS
     saved = {k: os.environ.get(k) for k in keys}
     for k in keys:
         os.environ.pop(k, None)
@@ -874,18 +887,19 @@ def route_env(env: dict):
                 os.environ[k] = v
 
 
-def train_parity(gpu: str, env: dict, trees: int, label: str) -> dict:
+def train_parity(gpu: str, env: dict, trees: int, label: str,
+                 params: dict = TRAIN_PARAMS, bitwise: bool = False) -> dict:
     """50,000 rows x 28 (NaN and zero missing values), 255 leaves,
     ``trees`` trees on the route ``env`` selects, trained on the card and
-    with device="cpu"; whether the leaf values are bitwise equal too."""
+    with device="cpu"; whether the leaf values are bitwise equal too
+    (a gate when ``bitwise``)."""
     import lightgbm_tpu_torch as lgt
     x = make_rows(PARITY_ROWS, N_FEATURES, 3)
     _, y = make_higgs_like(PARITY_ROWS, N_FEATURES, 3)
     traces = []
 
     def _train(device):
-        bst = lgt.Booster(TRAIN_PARAMS, lgt.Dataset(x, label=y),
-                          device=device)
+        bst = lgt.Booster(params, lgt.Dataset(x, label=y), device=device)
         traces.append([])
         bst._inner.grow.trace = traces[-1]
         for _ in range(trees):
@@ -908,6 +922,8 @@ def train_parity(gpu: str, env: dict, trees: int, label: str) -> dict:
                route=bst_c._inner.grow.route.describe(),
                leaves_bitwise=leaves_bitwise(bst_c._models, bst_p._models),
                leaves=[t.num_leaves for t in bst_c._models])
+    if bitwise:
+        rec["ok"] = rec["ok"] and rec["leaves_bitwise"]
     print("parity training " + json.dumps(rec), flush=True)
     if not rec["ok"]:
         raise RuntimeError(f"training on the card differs from the CPU "
@@ -924,9 +940,14 @@ def leaves_bitwise(models_a, models_b) -> bool:
 
 def profile_iteration(bst, gpu: str) -> dict:
     """One more boosting iteration of ``bst`` under ``torch.profiler``:
-    kernel launches and the device's busy share of the host wall time
-    (the profiler's own overhead lengthens the wall time, so the busy
-    share is a lower bound).  Returns {"measured": False, ...} when the
+    kernel launches, in all and per split by the grower's stage (the
+    PyTorch ops' kernels linked to each ``stage:<name>`` range of an
+    enabled ``StageTimer``; the port's own kernels, launched through
+    ctypes, are linked to no range and count as outside the stages), and
+    the device's busy share of the host wall time (the profiler's own
+    overhead lengthens the wall time, so the busy share is a lower
+    bound).  The ranges' own device-side annotations are not kernels
+    and are left out.  Returns {"measured": False, ...} when the
     profiler reports no device kernels."""
     import torch
     from torch.autograd import DeviceType
@@ -938,9 +959,20 @@ def profile_iteration(bst, gpu: str) -> dict:
         bst.update()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    stage = "stage:"
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(stage)]
     if not kernels:
         return {"measured": False, "gpu": gpu}
+
+    def launched(e):
+        return (sum(not k.name.startswith(stage) for k in e.kernels)
+                + sum(launched(c) for c in e.cpu_children))
+    by_stage = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith(stage):
+            name = e.name[len(stage):]
+            by_stage[name] = by_stage.get(name, 0) + launched(e)
     by_name = {}
     for e in kernels:
         c, us = by_name.get(e.name, (0, 0.0))
@@ -954,6 +986,10 @@ def profile_iteration(bst, gpu: str) -> dict:
             "wall_ms": wall_ms, "busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms, "kernels": len(kernels),
             "splits": splits, "kernels_per_split": len(kernels) / splits,
+            "stage_kernels_per_split": {k: v / splits
+                                        for k, v in by_stage.items()},
+            "kernels_outside_stages_per_split":
+                (len(kernels) - sum(by_stage.values())) / splits,
             "our_kernels_ms": ours_ms,
             "other_kernels_ms_per_split": (busy_ms - ours_ms) / splits,
             "top": [[k[:60], c, us / 1e3] for k, (c, us) in top],
@@ -973,6 +1009,35 @@ def _kernel_record(name, source, replaces, launches, err, ms, plain_ms,
            "bound_bytes": int(n_bytes), "bound_ops": int(n_ops)}
     rec.update(extra)
     return rec
+
+
+def flat_hist_inputs(bins, vals, padded_bins: int, rows=None):
+    """The library yardstick's inputs, built outside any timed call: the
+    flat (feature, bin) cell index [m * F] i64 of the rows (every row,
+    or the i64 ``rows``) and their values repeated per feature
+    [m * F, 2], so one ``index_add_`` computes the [F, B, 2] histogram."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import bins_i32
+    b = bins_i32(bins, rows)
+    m, f = b.shape
+    flat = (b.long() + torch.arange(f, device=b.device)
+            * padded_bins).reshape(-1)
+    v = vals[:, :2] if rows is None else vals[:, :2].index_select(0, rows)
+    upd = v[:, None, :].expand(m, f, 2).reshape(-1, 2).contiguous()
+    return flat, upd
+
+
+def library_hist_ms(bins, vals, padded_bins: int, rows=None,
+                    reps: int = 5) -> float:
+    """Time of one ``Tensor.index_add_`` over a precomputed flat cell
+    index: the PyTorch call that computes the same [F, B, 2] histogram
+    (the index build is excluded)."""
+    import torch
+    flat, upd = flat_hist_inputs(bins, vals, padded_bins, rows)
+    out = torch.zeros((bins.shape[1] * padded_bins, 2), dtype=torch.float32,
+                      device=bins.device)
+    return _time_ms(lambda: out.index_add_(0, flat, upd), reps)
 
 
 def training_kernels(gpu: str, ds) -> list:
@@ -1050,6 +1115,7 @@ def training_kernels(gpu: str, ds) -> list:
             rows, root, padded_bins=b_pad, max_rows=n), 20),
         _time_ms(lambda: build_histogram_comb_ref(
             rows, root, padded_bins=b_pad, max_rows=n), 3))
+    hist_comb_library_ms = library_hist_ms(rows.bins, rows.vals, b_pad)
     t["partition_scan"] = (
         _time_ms(lambda: partition_scan(prows, scratch, sel, nl), 20),
         _time_ms(lambda: partition_scan_ref(prows, scratch, sel, nl), 3))
@@ -1088,7 +1154,10 @@ def training_kernels(gpu: str, ds) -> list:
             "lightgbm_tpu/ops/pallas/hist_kernel2.py:225", 0,
             max(r["max_abs_err"] for r in hist_recs), *t["hist_comb"],
             hist_bytes, 2 * n * f, gpu,
-            bitwise_repeat=all(r["bitwise_repeat"] for r in hist_recs)),
+            bitwise_repeat=all(r["bitwise_repeat"] for r in hist_recs),
+            library_ms=hist_comb_library_ms,
+            library_call="index_add_ over a precomputed flat (feature, "
+                         "bin) index, index build excluded"),
         _kernel_record(
             "partition_scan", "lightgbm_tpu_torch/csrc/partition.cu",
             "lightgbm_tpu/ops/pallas/partition_kernel2.py:377", 0, 0.0,
@@ -1135,8 +1204,167 @@ def training_kernels(gpu: str, ds) -> list:
     return recs
 
 
+# ---------------------------------------------------------------------
+# Slice 4: the row-order route (u16 bins, hist_rows)
+WIDE_PARAMS = dict(TRAIN_PARAMS, max_bin=1023)
+ROW_ORDER_ITERS = 10
+ROW_ORDER_PARITY_TREES = 3
+PHYS_OFF = {"LGBM_TPU_PHYS": "0"}
+PHYS_OFF_ITERS = 3
+CHILD_ROWS = 3000
+
+
+def hist_rows_case(bins, vals, rng: tuple, index, padded_bins: int,
+                   max_rows: int, label: str, gpu: str = "",
+                   timed: bool = True) -> dict:
+    """hist_rows against its plain version on the same inputs: bitwise
+    against the plain version run on CPU copies of them (sequential
+    ``index_add_``, the kernel's order of additions), within
+    4 * n * eps_f32 * max|v| of the plain version on the card (CUDA's
+    ``index_add_`` adds in another order), two launches bitwise.  With
+    ``timed``, the times of the kernel, the plain version on the card and
+    one ``index_add_`` over a precomputed flat index, and the bound."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.hist_kernel2 import (
+        _window, build_histogram_rows, build_histogram_rows_ref)
+    dev = bins.device
+    rng_t = torch.tensor(rng, dtype=torch.int32, device=dev)
+    kw = dict(index=index, padded_bins=padded_bins, max_rows=max_rows)
+    launches = build_histogram_rows.launches
+    k1 = build_histogram_rows(bins, vals, rng_t, **kw)
+    k2 = build_histogram_rows(bins, vals, rng_t, **kw)
+    ref = build_histogram_rows_ref(bins, vals, rng_t, **kw)
+    cpu_kw = dict(kw, index=None if index is None else index.cpu())
+    ref_cpu = build_histogram_rows_ref(bins.cpu(), vals.cpu(), rng_t.cpu(),
+                                       **cpu_kw)
+    torch.cuda.synchronize()
+    n_pos = bins.shape[0] if index is None else index.shape[0]
+    lo, hi = _window((rng[0], 0, rng[1]), n_pos)
+    pos = torch.arange(lo, hi, device=dev)
+    rows = pos if index is None else index[lo:hi].long()
+    vmax = float(vals[rows].abs().max()) if hi > lo else 0.0
+    rec = {"case": label, "range": list(rng), "indexed": index is not None,
+           "bins": str(bins.dtype).replace("torch.", ""),
+           "shape": list(bins.shape), "padded_bins": padded_bins,
+           "bitwise_cpu_plain": torch_equal(k1.cpu(), ref_cpu),
+           "bitwise_repeat": torch_equal(k1, k2),
+           "max_abs_err": float((k1 - ref).abs().max()),
+           "tol": 4.0 * (hi - lo) * EPS32 * vmax,
+           "launched": build_histogram_rows.launches - launches}
+    rec["ok"] = (rec["bitwise_cpu_plain"] and rec["bitwise_repeat"]
+                 and rec["max_abs_err"] <= rec["tol"]
+                 and rec["launched"] == 2)
+    if timed:
+        m, f = hi - lo, bins.shape[1]
+        rec["ms"] = _time_ms(lambda: build_histogram_rows(
+            bins, vals, rng_t, **kw), 20)
+        rec["plain_ms"] = _time_ms(lambda: build_histogram_rows_ref(
+            bins, vals, rng_t, **kw), 3)
+        rec["library_ms"] = library_hist_ms(
+            bins, vals, padded_bins, None if index is None else rows)
+        # each selected row's bins and values read once, its index entry
+        # once, the histogram written once; 2 adds per (row, feature)
+        rec["bound_bytes"] = (m * (f * bins.element_size() + 8)
+                              + (4 * m if index is not None else 0)
+                              + f * padded_bins * 8)
+        rec["bound_ops"] = 2 * m * f
+        rec["bound_ms"] = max(rec["bound_bytes"] / PEAK_BYTES_S,
+                              rec["bound_ops"] / PEAK_OPS_S) * 1e3
+        rec["gpu"] = gpu
+    print("parity hist_rows " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"hist_rows disagrees with its plain version: "
+                           f"{rec}")
+    return rec
+
+
+def hist_rows_kernels(gpu: str, ds, ds_wide) -> dict:
+    """Slice 4: hist_rows against its plain version at the row-order
+    main path's shapes (the 1M x 28 u16 bins of max_bin=1023, B = 1024:
+    the root without an index, a 3,000-position child at an odd offset
+    through a seeded permutation), u8 bins of max_bin=255 (B = 256)
+    through an index, and u16 bins at B = 1040; each case timed.
+    Returns the kernel's record, launches still 0."""
+    import torch
+    dev = torch.device("cuda")
+    wide = torch.as_tensor(ds_wide._binned.bin_matrix, device=dev)
+    narrow = torch.as_tensor(ds._binned.bin_matrix, device=dev)
+    n, f = wide.shape
+    b_wide = 1024
+    rng_np = np.random.default_rng(17)
+    vals = torch.tensor(rng_np.normal(size=(n, 2)).astype(np.float32),
+                        device=dev)
+    perm = torch.tensor(rng_np.permutation(n).astype(np.int32), device=dev)
+    b1040 = torch.tensor(rng_np.integers(0, 1040, size=(250_000, f))
+                         .astype(np.uint16), device=dev)
+    cases = [
+        hist_rows_case(wide, vals, (0, n), None, b_wide, n,
+                       "1M_u16_B1024_root", gpu),
+        hist_rows_case(wide, vals, (100_001, CHILD_ROWS), perm, b_wide,
+                       CHILD_ROWS, "3000_u16_B1024_indexed_odd_offset", gpu),
+        hist_rows_case(narrow, vals, (333_331, 250_000), perm, 256,
+                       250_000, "250000_u8_B256_indexed", gpu),
+        hist_rows_case(b1040, vals[:250_000], (0, 250_000), None, 1040,
+                       250_000, "250000_u16_B1040", gpu),
+    ]
+    root, child = cases[0], cases[1]
+    rec = _kernel_record(
+        "hist_rows", "lightgbm_tpu_torch/csrc/hist_rows.cu",
+        "lightgbm_tpu/ops/pallas/hist_kernel2.py:339", 0,
+        max(c["max_abs_err"] for c in cases), root["ms"], root["plain_ms"],
+        root["bound_bytes"], root["bound_ops"], gpu,
+        library_ms=root["library_ms"],
+        library_call="index_add_ over a precomputed flat (feature, bin) "
+                     "index, index build excluded",
+        also_replaces="lightgbm_tpu/ops/pallas/hist_kernel.py:122 "
+                      "(build_histogram_pallas, the same function)",
+        bitwise_cpu_plain=all(c["bitwise_cpu_plain"] for c in cases),
+        child_ms=child["ms"], child_plain_ms=child["plain_ms"],
+        child_bound_ms=child["bound_ms"],
+        child_library_ms=child["library_ms"],
+        cases=[{k: c[k] for k in ("case", "ms", "plain_ms", "library_ms",
+                                  "bound_ms", "max_abs_err")}
+               for c in cases])
+    print("kernel hist_rows " + json.dumps(rec), flush=True)
+    return rec
+
+
+def row_order_phases(gpu: str, ds, valid, ds_wide, valid_wide, x,
+                     bst_default) -> tuple:
+    """Slice 4's training: card against device="cpu" at 50,000 rows
+    (max_bin=1023, bitwise), the row-order main path (1M x 28,
+    max_bin=1023, 10 iterations) counted and served, and LGBM_TPU_PHYS=0
+    at max_bin=255 (3 iterations, the one-kernel tail), its trees
+    printed beside the default route's first 3.  Returns (main-path
+    booster, record, PHYS=0 booster, PHYS=0 record, parity record)."""
+    parity = train_parity(gpu, {}, ROW_ORDER_PARITY_TREES,
+                          "row-order route, max_bin=1023",
+                          params=WIDE_PARAMS, bitwise=True)
+    bst, main = train_main_path(gpu, ds_wide, valid_wide, x, {},
+                                ROW_ORDER_ITERS,
+                                "main path, row-order route, max_bin=1023",
+                                params=WIDE_PARAMS)
+    if not main["route"].startswith("path=row_order"):
+        raise RuntimeError(f"max_bin=1023 took the route {main['route']}")
+    bst_off, off = train_main_path(gpu, ds, valid, x, PHYS_OFF,
+                                   PHYS_OFF_ITERS,
+                                   "LGBM_TPU_PHYS=0, max_bin=255")
+    if not off["route"].startswith("path=row_order fused=0 tail=kernel"):
+        raise RuntimeError(f"LGBM_TPU_PHYS=0 took the route {off['route']}")
+    same = compare_trees(bst_default._models[:PHYS_OFF_ITERS],
+                         bst_off._models)
+    same.update(case=f"default route vs LGBM_TPU_PHYS=0, first "
+                f"{PHYS_OFF_ITERS} trees at {TRAIN_ROWS} rows (reported, "
+                "not a gate: the sums are taken in another row order)",
+                leaves_bitwise=leaves_bitwise(
+                    bst_default._models[:PHYS_OFF_ITERS], bst_off._models))
+    print("routes default vs row_order " + json.dumps(same), flush=True)
+    return bst, main, bst_off, off, parity
+
+
 def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
-                    label: str):
+                    label: str, params: dict = TRAIN_PARAMS):
     """The training main path on the route ``env`` selects, counted and
     timed by stage, its booster served through serve_traverse.  Returns
     (booster, record)."""
@@ -1146,7 +1374,8 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
     from lightgbm_tpu_torch.ops.apply_find import apply_find_pool
     from lightgbm_tpu_torch.ops.fused_split import fused_split
     from lightgbm_tpu_torch.ops.grow import StageTimer
-    from lightgbm_tpu_torch.ops.hist_kernel2 import build_histogram_comb
+    from lightgbm_tpu_torch.ops.hist_kernel2 import (build_histogram_comb,
+                                                     build_histogram_rows)
     from lightgbm_tpu_torch.ops.partition_kernel import (copyback,
                                                          partition_scan)
     from lightgbm_tpu_torch.ops.serve_kernel import serve_traverse
@@ -1154,7 +1383,7 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
                                                     stream_refresh)
     counted = (stream_init, stream_refresh, build_histogram_comb,
                partition_scan, fused_split, copyback, apply_find_pool,
-               serve_traverse)
+               build_histogram_rows, serve_traverse)
     its = []
 
     def _tick(env_):
@@ -1167,7 +1396,7 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
         for fn in counted:
             fn.launches = 0
         t_start = time.perf_counter()
-        bst = lgt.train(TRAIN_PARAMS, ds, num_boost_round=iters,
+        bst = lgt.train(params, ds, num_boost_round=iters,
                         valid_sets=[valid], callbacks=[_tick],
                         device="cuda", timer=timer)
         torch.cuda.synchronize()
@@ -1177,16 +1406,23 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
     models = bst._models
     splits = sum(t.num_leaves - 1 for t in models)
     route = bst._inner.grow.route
-    if route.stream:
+    if route.path == "row_order":
+        expect = {"stream_init": 0, "stream_refresh": 0,
+                  "build_histogram_comb": 0, "partition_scan": 0,
+                  "copyback": 0, "fused_split": 0,
+                  "apply_find_pool": splits if route.tail == "kernel" else 0,
+                  "build_histogram_rows": len(models) + splits}
+    elif route.stream:
         expect = {"stream_init": 1, "stream_refresh": len(models),
                   "build_histogram_comb": 1, "fused_split": splits,
                   "copyback": splits, "apply_find_pool": splits,
-                  "partition_scan": 0}
+                  "partition_scan": 0, "build_histogram_rows": 0}
     else:
         expect = {"stream_init": 0, "stream_refresh": 0,
                   "build_histogram_comb": len(models) + splits,
                   "partition_scan": splits, "copyback": splits,
-                  "fused_split": 0, "apply_find_pool": 0}
+                  "fused_split": 0, "apply_find_pool": 0,
+                  "build_histogram_rows": 0}
     for name, want in expect.items():
         if launches[name] != want:
             raise RuntimeError(f"the {label} launched {name} "
@@ -1216,6 +1452,8 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
     stages = {k: v / len(models) for k, v in timer.totals_ms().items()}
     rec = {"case": label, "route": route.describe(), "rows": TRAIN_ROWS,
            "features": N_FEATURES, "leaves": TRAIN_LEAVES,
+           "max_bin": params["max_bin"],
+           "padded_bins": bst._inner.dd.padded_bins,
            "iterations": len(models), "train_s": train_s,
            "s_per_iter_first": float(per_it[0]),
            "s_per_iter_rest_mean": float(per_it[1:].mean()),
@@ -1229,13 +1467,15 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
 
 
 def train_phases(gpu: str) -> list:
-    """Slices 2 and 3: the training kernels against their plain versions
-    at the main path's shapes, training parity card vs CPU on both
+    """Slices 2 to 4: the training kernels against their plain versions
+    at the main paths' shapes, training parity card vs CPU on three
     routes, the training main path on the default route (1M x 28, 255
     leaves, 10 iterations) counted, timed by stage and served, slice 2's
     route beside it (3 iterations, its trees held against the default
-    route's first 3), and one profiled iteration of each.  Returns the
-    seven training kernels' records."""
+    route's first 3), the row-order route at max_bin=1023 (10
+    iterations) and under LGBM_TPU_PHYS=0 (3), and one profiled
+    iteration of each of the four routes.
+    Returns the eight training kernels' records."""
     import lightgbm_tpu_torch as lgt
 
     x_all, y_all = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS, N_FEATURES,
@@ -1245,10 +1485,16 @@ def train_phases(gpu: str) -> list:
     t0 = time.perf_counter()
     ds = lgt.Dataset(x, label=y, params={"max_bin": 255}).construct()
     valid = lgt.Dataset(xv, label=yv, reference=ds).construct()
+    t1 = time.perf_counter()
+    ds_wide = lgt.Dataset(x, label=y, params={"max_bin": 1023}).construct()
+    valid_wide = lgt.Dataset(xv, label=yv, reference=ds_wide).construct()
     print(f"binned {TRAIN_ROWS} + {HOLDOUT_ROWS} rows x {N_FEATURES} in "
-          f"{time.perf_counter() - t0:.2f} s (host)", flush=True)
+          f"{t1 - t0:.2f} s at max_bin=255 and "
+          f"{time.perf_counter() - t1:.2f} s at max_bin=1023 (host)",
+          flush=True)
 
     recs = training_kernels(gpu, ds)
+    recs.append(hist_rows_kernels(gpu, ds, ds_wide))
     parity = train_parity(gpu, {}, PARITY_TREES, "default route")
     parity2 = train_parity(gpu, SLICE2_ROUTE, SLICE2_PARITY_TREES,
                            "slice 2 route")
@@ -1266,6 +1512,8 @@ def train_phases(gpu: str) -> list:
     if not routes["ok"]:
         raise RuntimeError(f"the default route's trees differ from slice "
                            f"2's route's: {routes}")
+    bst3, main3, bst4, off, parity3 = row_order_phases(
+        gpu, ds, valid, ds_wide, valid_wide, x, bst)
     # one more tree of each under the profiler, after every check
     with route_env({}):
         print("profiled iteration, default route "
@@ -1273,18 +1521,30 @@ def train_phases(gpu: str) -> list:
     with route_env(SLICE2_ROUTE):
         print("profiled iteration, slice 2 route "
               + json.dumps(profile_iteration(bst2, gpu)), flush=True)
+    with route_env({}):
+        print("profiled iteration, row-order route, max_bin=1023 "
+              + json.dumps(profile_iteration(bst3, gpu)), flush=True)
+    with route_env(PHYS_OFF):
+        print("profiled iteration, LGBM_TPU_PHYS=0, max_bin=255 "
+              + json.dumps(profile_iteration(bst4, gpu)), flush=True)
 
     names = {"hist_comb": "build_histogram_comb",
-             "apply_find": "apply_find_pool"}
+             "apply_find": "apply_find_pool",
+             "hist_rows": "build_histogram_rows"}
     for r in recs:
-        r["launches"] = main["launches"][names.get(r["name"], r["name"])]
-        if r["launches"] <= 0:
-            r["launches"] = main2["launches"][names.get(r["name"],
-                                                        r["name"])]
-            r["launched_on"] = "slice 2 route"
+        key = names.get(r["name"], r["name"])
+        for run, where in ((main, None), (main2, "slice 2 route"),
+                           (main3, "row-order route")):
+            if run["launches"][key] > 0:
+                r["launches"] = run["launches"][key]
+                if where:
+                    r["launched_on"] = where
+                break
         if r["launches"] <= 0:
             raise RuntimeError(f"{r['name']} was launched on no main path")
+    recs[-1]["phys_off_launches"] = off["launches"]["build_histogram_rows"]
     recs[0]["train_parity"] = parity["ok"] and parity2["ok"]
+    recs[-1]["train_parity_bitwise"] = parity3["ok"]
     return recs
 
 

@@ -40,6 +40,11 @@ ENV_KNOBS: Dict[str, tuple] = {
                             "histogram instead)"),
     "LGBM_TPU_APPLY_IMPL": ("kernel", "xla keeps the PyTorch split tail "
                                       "instead of the apply_find kernel"),
+    "LGBM_TPU_PHYS": ("auto", "0 disables the physical row partition "
+                              "(training takes the row_order path)"),
+    "LGBM_TPU_HIST_IMPL": ("auto", "row_order histogram: auto / pallas2 "
+                                   "/ pallas select the hist_rows "
+                                   "kernel; matmul / scatter raise"),
 }
 
 

@@ -1,5 +1,5 @@
-// The deterministic block histogram shared by hist_comb.cu, stream_grad.cu
-// and fused_split.cu.
+// The deterministic block histogram shared by hist_comb.cu, stream_grad.cu,
+// fused_split.cu and hist_rows.cu.
 //
 // A launch sums the (g*w, h*w) values of a row range into an [F, B, 2]
 // f32 histogram without float atomics.  The range is cut into one slice
@@ -16,6 +16,9 @@
 // kernels that stage the same rows of the same slices in the same order
 // give the same bits; the plain version
 // (hist_kernel2.build_histogram_comb_ref) adds in this order too.
+// smem_bytes and accumulate take the staged bins' type: uint8_t (the
+// default, every kernel of the physical path) or uint16_t (hist_rows.cu
+// at max_bin > 255).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,21 +46,23 @@ __device__ __forceinline__ void slice(long long lo, long long hi,
 }
 
 // Shared-memory bytes of one block: histogram, staged values and bins.
+template <typename BinT = uint8_t>
 __host__ __device__ inline int smem_bytes(int F, int B) {
-  return F * B * 2 * 4 + kChunk * 2 * 4 + kChunk * F;
+  return F * B * 2 * 4 + kChunk * 2 * 4 + kChunk * F * (int)sizeof(BinT);
 }
 
 __device__ __forceinline__ void zero(float* hist, int cells) {
   for (int i = threadIdx.x; i < cells; i += kThreads) hist[i] = 0.f;
 }
 
-// Add `rows` staged rows (bins sb [rows, F] u8, values sv [rows, 2] f32,
+// Add `rows` staged rows (bins sb [rows, F], values sv [rows, 2] f32,
 // in row order) into the cells of features [f_lo, f_hi) of hist
 // [F, B, 2].  blockDim.x must be kThreads; the caller synchronises
 // before (staging done) and after (staging reused).  Blocks that share
 // a slice may split its features between them: each cell still sums
 // its rows in row order.
-__device__ __forceinline__ void accumulate(float* hist, const uint8_t* sb,
+template <typename BinT>
+__device__ __forceinline__ void accumulate(float* hist, const BinT* sb,
                                            const float* sv, int rows, int F,
                                            int B, int f_lo = 0,
                                            int f_hi = 1 << 30) {

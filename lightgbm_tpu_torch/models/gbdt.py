@@ -1,6 +1,6 @@
 """GBDT boosting on one device.
 
-Counterpart of the serial, physical path of ``lightgbm_tpu/models/gbdt.py``
+Counterpart of the serial path of ``lightgbm_tpu/models/gbdt.py``
 (reference gbdt.cpp: TrainOneIter :437, BoostFromAverage :412,
 UpdateScore :580-607).  The route is decided up front
 (``ops/routing.py``).  On the default, score-resident stream route the
@@ -9,8 +9,10 @@ end, so an iteration computes no objective gradients; the grower reads
 the scores (boost-from-average included) once when it builds its rows
 and the shrinkage rate on every call.  On slice 2's route the
 objective's gradients are computed on the device from the training
-scores each iteration.  Either way one tree grows on the row matrix
-(``ops.grow.SerialGrower``), and the training and validation scores
+scores each iteration, and so on the ``row_order`` path (u16 bins at
+``max_bin > 255``, or ``LGBM_TPU_PHYS=0``).  One tree grows on the row
+matrix (``ops.grow.SerialGrower``) or on a row-order index
+(``ops.grow.RowOrderGrower``), and the training and validation scores
 take the tree's shrunk leaf outputs on the device, for ``eval`` and
 ``predict``.  The finished tree comes to the host as a
 ``Tree`` (one read per tree); the boost-from-average init score is
@@ -37,8 +39,9 @@ from ..objective.base import ObjectiveFunction
 from ..ops.device_data import DeviceDataset, to_device
 from ..ops.apply_find import apply_find_supported
 from ..ops.fused_split import fused_supported
-from ..ops.grow import (SerialGrower, StageTimer, StreamSpec, TreeArrays,
-                        predict_leaf_bins)
+from ..ops.grow import (RowOrderGrower, SerialGrower, StageTimer,
+                        StreamSpec, TreeArrays, predict_leaf_bins)
+from ..ops.histogram import histogram_impl
 from ..ops.routing import decide, inputs_from_env
 from ..ops.split import SplitHyperParams
 from ..utils import log
@@ -143,16 +146,24 @@ class GBDT:
             bagging=cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0,
             linear_tree=bool(cfg.linear_tree),
             learner=cfg.tree_learner,
+            bins_u8=dd.bins.dtype == torch.uint8,
             fused_ok=fused_supported(dd.num_features, dd.padded_bins),
             tail_ok=apply_find_supported(dd.num_features, dd.padded_bins)))
-        stream = (StreamSpec(kind, float(getattr(objective, "sigmoid", 1.0)))
-                  if self.route.stream else None)
-        self.grow = SerialGrower(self.hp, num_leaves=cfg.num_leaves,
-                                 max_depth=cfg.max_depth, dd=dd,
-                                 route=self.route, stream=stream,
-                                 timer=self.timer)
-        if self.route.stream:
-            self.grow.set_stream_aux(self._stream_aux)
+        if not self.route.physical:
+            histogram_impl()     # raises for a knob value with no kernel
+            self.grow = RowOrderGrower(self.hp, num_leaves=cfg.num_leaves,
+                                       max_depth=cfg.max_depth, dd=dd,
+                                       route=self.route, timer=self.timer)
+        else:
+            stream = (StreamSpec(kind,
+                                 float(getattr(objective, "sigmoid", 1.0)))
+                      if self.route.stream else None)
+            self.grow = SerialGrower(self.hp, num_leaves=cfg.num_leaves,
+                                     max_depth=cfg.max_depth, dd=dd,
+                                     route=self.route, stream=stream,
+                                     timer=self.timer)
+            if self.route.stream:
+                self.grow.set_stream_aux(self._stream_aux)
         n = train_set.num_data
         score = torch.zeros(n, dtype=torch.float32, device=device)
         md = train_set.metadata
@@ -165,8 +176,8 @@ class GBDT:
         for m in self._train_metrics:
             m.init(md, n)
         log.info("Training on %s: %d rows x %d features, %d bins per "
-                 "feature, physical row partition; route %s", device, n,
-                 self.dd.num_features, self.dd.padded_bins,
+                 "feature (%s); route %s", device, n, self.dd.num_features,
+                 self.dd.padded_bins, str(dd.bins.dtype).replace("torch.", ""),
                  self.route.describe())
 
     def _stream_aux(self):

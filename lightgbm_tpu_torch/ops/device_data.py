@@ -15,6 +15,12 @@ the score and constants at zero and moves them all the same.  Features
 are not padded to matmul groups (there is no MXU tile to fill); bins are
 padded to the JAX package's per-feature width so histograms have the
 same ``[F, B, 2]`` shape.
+
+The device bins are u8, or u16 where a feature has more than 256 bins
+(``max_bin > 255``; the row-order path, ``ops/routing.py``).  PyTorch
+implements few operations on ``torch.uint16`` (copies and casts), so
+:func:`bins_i32` is the one place stored bins become numbers for
+PyTorch ops; the kernels read the u16 bins themselves.
 """
 from __future__ import annotations
 
@@ -34,6 +40,21 @@ def bins_per_feature_padded(max_num_bins: int) -> int:
     package's ``histogram.bins_per_feature_padded``)."""
     b = max(int(max_num_bins), 16)
     return int(np.ceil(b / 16) * 16)
+
+
+def bins_i32(bins: torch.Tensor, rows=None, col=None) -> torch.Tensor:
+    """The int32 bins of ``rows`` (an i32 or i64 index tensor, every row
+    when None) in column ``col`` (every column when None).  u16 bins are read
+    through an int16 view of the same bits, so no op runs on a uint16
+    tensor."""
+    wide = bins.dtype == torch.uint16
+    src = bins.view(torch.int16) if wide else bins
+    if col is not None:
+        src = src[:, col]
+    if rows is not None:
+        src = src.index_select(0, rows)
+    out = src.to(torch.int32)
+    return out & 0xFFFF if wide else out
 
 
 class Rows(NamedTuple):
@@ -66,7 +87,7 @@ def empty_rows_like(rows: Rows) -> Rows:
 
 @dataclasses.dataclass
 class DeviceDataset:
-    bins: torch.Tensor       # [n, F] u8 on the device
+    bins: torch.Tensor       # [n, F] u8 or u16 on the device
     num_bins: torch.Tensor   # [F] i32
     has_nan: torch.Tensor    # [F] bool
     is_cat: torch.Tensor     # [F] bool
@@ -81,11 +102,10 @@ class DeviceDataset:
 
 def to_device(ds: BinnedDataset, device: torch.device) -> DeviceDataset:
     mat = ds.bin_matrix
-    if mat.dtype != np.uint8:
+    if mat.dtype not in (np.uint8, np.uint16):
         raise LightGBMError(
-            "lightgbm_tpu_torch trains on uint8 bins only (max_bin <= "
-            "256, as the JAX package's physical path); wider bins come "
-            "with ROADMAP.md A9")
+            f"the bin matrix must be uint8 or uint16 (at most 65,536 bins "
+            f"per feature), not {mat.dtype}")
     nbins = ds.num_bins_per_feature
     f = mat.shape[1]
     has_nan = np.array([m.has_nan_bin for m in ds.mappers], bool)

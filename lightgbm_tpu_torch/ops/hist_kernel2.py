@@ -1,8 +1,11 @@
-"""Comb-direct histogram: the wrapper of ``csrc/hist_comb.cu``, its
-launch count and its plain PyTorch version.
+"""The histogram kernels' wrappers, launch counts and plain versions:
+the comb-direct histogram (``csrc/hist_comb.cu``) of the physical path
+and the row-indexed histogram (``csrc/hist_rows.cu``) of the row-order
+path.
 
-Counterpart of ``build_histogram_comb`` / ``build_histogram_comb_dyn``
-in ``lightgbm_tpu/ops/pallas/hist_kernel2.py``: the (sum g*w, sum h*w)
+**Comb-direct.** Counterpart of ``build_histogram_comb`` /
+``build_histogram_comb_dyn`` in
+``lightgbm_tpu/ops/pallas/hist_kernel2.py``: the (sum g*w, sum h*w)
 histogram ``[F, B, 2]`` f32 of row-matrix rows
 ``[start + off, start + off + count)``.  ``rng`` is an i32 ``[3]``
 tensor ``(start, off, count)`` on the rows' device, so a range the
@@ -13,8 +16,19 @@ nothing.  Accumulation is f32 throughout, in a fixed order: the
 kernel's output is bitwise identical across launches on the same input,
 and the plain version adds in the same order.
 
-:func:`build_histogram_comb` takes the plain version only for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises.
+**Row-indexed.** Counterpart of ``build_histogram_pallas2`` in the same
+file and of ``build_histogram_pallas`` in
+``lightgbm_tpu/ops/pallas/hist_kernel.py`` (one function, one kernel):
+the histogram ``[F, B, 2]`` f32 of separate bins ``[n, F]`` (u8, or u16
+at ``max_bin > 255``) and values ``[n, 2]``, over the positions
+``[start, start + count)`` of an optional row index (without one the
+positions are the rows).  The TPU kernels round the values to bf16
+inside their one-hot matmul (v2) as an MXU operand choice; the port adds
+the exact f32 values, in the comb-direct histogram's fixed order, so
+trees grown on the card and on the CPU stay bit-identical.
+
+Each wrapper takes its plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -25,7 +39,7 @@ import torch
 
 from ..utils.log import LightGBMError
 from . import _build
-from .device_data import Rows
+from .device_data import Rows, bins_i32
 from .histogram import build_histogram
 
 # shared memory a block may use on the H100 (232,448 bytes)
@@ -131,3 +145,128 @@ def build_histogram_comb(rows: Rows, rng: torch.Tensor, *, padded_bins: int,
 
 
 build_histogram_comb.launches = 0
+
+
+# -- row-indexed histogram (csrc/hist_rows.cu) ------------------------------
+# features one block histograms: one per warp
+ROWS_FEATURES = 8
+
+
+def rows_blocks(max_rows: int, padded_bins: int) -> int:
+    """Position slices of a row-indexed launch over at most ``max_rows``
+    positions: ``hist_blocks`` at B <= 256; wider bins take B / 256 times
+    the rows per slice and at most 256 / B of the slices, so the partials
+    (slices x F x B x 8 bytes) stay near a fifth of the rows' bytes at
+    the 1M-row root."""
+    scale = max(1, int(padded_bins) // 256)
+    per = ROWS_PER_BLOCK * scale
+    return max(1, min(MAX_BLOCKS // scale, -(-int(max_rows) // per)))
+
+
+def build_histogram_rows_ref(bins: torch.Tensor, vals: torch.Tensor,
+                             rng: torch.Tensor, *, index=None,
+                             padded_bins: int,
+                             max_rows: int) -> torch.Tensor:
+    """Plain version, in the kernel's order of f32 additions: each
+    slice's rows (gathered through ``index``) summed into their own
+    histogram by one ``index_add_`` (sequential on the CPU), the slice
+    histograms added in slice order.  On the CPU it gives the kernel's
+    bits."""
+    n_pos = bins.shape[0] if index is None else index.shape[0]
+    start, count = (int(v) for v in rng.tolist())
+    lo, hi = _window((start, 0, count), n_pos)
+    f = bins.shape[1]
+    out = torch.zeros((f, padded_bins, 2), dtype=torch.float32,
+                      device=bins.device)
+    for b_lo, b_hi in block_ranges(lo, hi,
+                                   rows_blocks(max_rows, padded_bins)):
+        if b_hi <= b_lo:
+            continue
+        if index is None:
+            b, v = bins_i32(bins[b_lo:b_hi]), vals[b_lo:b_hi]
+        else:
+            rows = index[b_lo:b_hi].long()
+            b, v = bins_i32(bins, rows), vals.index_select(0, rows)
+        out = out + build_histogram(b, v, padded_bins=padded_bins)
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def _rows_lib():
+    lib = _build.load("hist_rows")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hist_rows.argtypes = [p, i] + [p] * 5 + [i] * 5 + [p]
+    lib.hist_rows.restype = i
+    lib.hist_rows_smem_bytes.argtypes = [i, i, i]
+    lib.hist_rows_smem_bytes.restype = i
+    return lib
+
+
+def rows_feature_chunk(lib, padded_bins: int, bin_bytes: int) -> int:
+    """Features per block: ROWS_FEATURES, halved until one block's
+    shared memory fits."""
+    fc = ROWS_FEATURES
+    while fc >= 1:
+        if lib.hist_rows_smem_bytes(fc, int(padded_bins), bin_bytes) \
+                <= MAX_SMEM:
+            return fc
+        fc //= 2
+    raise LightGBMError(f"a histogram of {padded_bins} bins per feature "
+                        "does not fit one block's shared memory")
+
+
+def build_histogram_rows(bins: torch.Tensor, vals: torch.Tensor,
+                         rng: torch.Tensor, *, index=None, padded_bins: int,
+                         max_rows: int) -> torch.Tensor:
+    """Histogram ``[F, padded_bins, 2]`` f32 of the positions ``rng``
+    selects (``count`` at most ``max_rows``) of ``index`` (i32, entries
+    in ``[0, n)``), or of the rows themselves without one.  CPU tensors
+    take :func:`build_histogram_rows_ref`; CUDA tensors launch the
+    kernel on the current stream."""
+    dev = bins.device
+    if dev.type == "cpu":
+        return build_histogram_rows_ref(bins, vals, rng, index=index,
+                                        padded_bins=padded_bins,
+                                        max_rows=max_rows)
+    if dev.type != "cuda":
+        raise LightGBMError(f"histogram runs on cuda or cpu, not {dev}")
+    n, f = bins.shape
+    if (bins.dtype not in (torch.uint8, torch.uint16)
+            or vals.dtype != torch.float32 or tuple(vals.shape) != (n, 2)
+            or vals.device != dev or not bins.is_contiguous()
+            or not vals.is_contiguous()):
+        raise LightGBMError("hist_rows wants contiguous u8 or u16 bins "
+                            "[n, F] and f32 vals [n, 2] on one device")
+    if index is not None and (index.device != dev
+                              or index.dtype != torch.int32
+                              or index.dim() != 1
+                              or not index.is_contiguous()):
+        raise LightGBMError("the row index must be a contiguous i32 "
+                            "vector on the bins' device")
+    if (rng.device != dev or rng.dtype != torch.int32 or rng.numel() != 2
+            or not rng.is_contiguous()):
+        raise LightGBMError("rng must be a contiguous i32 [2] tensor "
+                            "(start, count) on the bins' device")
+    lib = _rows_lib()
+    bin_bytes = bins.element_size()
+    fc = rows_feature_chunk(lib, padded_bins, bin_bytes)
+    nslices = rows_blocks(max_rows, padded_bins)
+    partials = torch.empty((nslices, f, padded_bins, 2),
+                           dtype=torch.float32, device=dev)
+    out = torch.empty((f, padded_bins, 2), dtype=torch.float32, device=dev)
+    n_pos = n if index is None else index.shape[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.hist_rows(bins.data_ptr(), bin_bytes, vals.data_ptr(),
+                           None if index is None else index.data_ptr(),
+                           rng.data_ptr(), partials.data_ptr(),
+                           out.data_ptr(), n_pos, f, int(padded_bins), fc,
+                           nslices, stream)
+    if rc != 0:
+        raise LightGBMError(f"hist_rows kernel launch failed with CUDA "
+                            f"error {rc}")
+    build_histogram_rows.launches += 1
+    return out
+
+
+build_histogram_rows.launches = 0

@@ -1,13 +1,18 @@
 """The training route of the serial learner, decided up front.
 
 Counterpart of the serial-learner part of ``lightgbm_tpu/ops/routing.py``
-(the stream rules at ``:211-236`` and the ``fused`` decision of
-``decide``, ``:383-413``) and of the split-tail choice in
+(the physical rules ``non_u8_bins`` and ``phys_env_off`` at
+``:182-202``, the stream rules at ``:211-236`` and the ``fused``
+decision of ``decide``, ``:383-413``) and of the split-tail choice in
 ``lightgbm_tpu/ops/grow.py`` (``use_kernel_tail``, ``:879-888`` and
-``:1224-1262``).  The port trains on the physical path only (every
-configuration that would leave it raises ``LightGBMError`` in
-``models/gbdt.check_supported``), so a route is three choices:
+``:1224-1262``).  A route is four choices:
 
+- ``physical``: the physically partitioned row matrix, or the
+  ``row_order`` path (an index vector partitioned per split, histograms
+  read through it, ``ops/grow.RowOrderGrower``) when the bins are wider
+  than u8 or ``LGBM_TPU_PHYS=0``.  The JAX package's other row-order
+  triggers (``gpu_use_dp``, lazy CEGB, the feature and voting learners)
+  raise ``LightGBMError`` in ``models/gbdt.check_supported``;
 - ``stream``: score-resident gradients (``ops/stream_grad.py``) or the
   objective's gradients gathered into the rows per tree (slice 2);
 - ``fused``: the fused partition + dual histogram (``ops/fused_split.py``)
@@ -15,11 +20,13 @@ configuration that would leave it raises ``LightGBMError`` in
 - ``tail``: ``kernel`` (``ops/apply_find.py``) or ``xla``, the PyTorch
   split tail of slice 2 (the name is the JAX package's).
 
-The knobs are the JAX package's: ``LGBM_TPU_STREAM=0``,
-``LGBM_TPU_FUSED=0`` and ``LGBM_TPU_APPLY_IMPL=xla`` together select
-slice 2's route.  The shape gates are the port's own kernels' shared
-memory (the TPU's VMEM gates do not apply); a build or launch failure
-is never a reason to change route, it raises.
+On ``row_order``, ``stream`` and ``fused`` are off: both move rows of
+the physical matrix, and their reason is the path itself.  The knobs are
+the JAX package's: ``LGBM_TPU_STREAM=0``, ``LGBM_TPU_FUSED=0`` and
+``LGBM_TPU_APPLY_IMPL=xla`` together select slice 2's route.  The shape
+gates are the port's own kernels' shared memory (the TPU's VMEM gates do
+not apply); a build or launch failure is never a reason to change route,
+it raises.
 """
 from __future__ import annotations
 
@@ -38,6 +45,8 @@ class RouteInputs:
     bagging: bool = False
     linear_tree: bool = False
     learner: str = "serial"
+    bins_u8: bool = True             # every feature's bins fit uint8
+    phys_env: str = "auto"
     stream_env: str = "auto"
     fused_env: str = "1"
     apply_impl_env: str = "kernel"
@@ -48,13 +57,20 @@ class RouteInputs:
 @dataclass(frozen=True)
 class Rule:
     name: str
-    blocks: str                      # stream | fused | tail
+    blocks: str                      # physical | stream | fused | tail
     knob: str
     reason: str
     pred: Callable[[RouteInputs], bool] = field(repr=False, default=None)
 
 
 RULES: Tuple[Rule, ...] = (
+    Rule("non_u8_bins", "physical", "max_bin",
+         "bins are wider than uint8 (max_bin > 256); the partition "
+         "kernel's bf16 extract matmuls would round bin ids",
+         lambda i: not i.bins_u8),
+    Rule("phys_env_off", "physical", "LGBM_TPU_PHYS",
+         "physical partition mode disabled by LGBM_TPU_PHYS=0",
+         lambda i: i.phys_env == "0"),
     Rule("stream_env_off", "stream", "LGBM_TPU_STREAM",
          "score-resident streaming disabled by LGBM_TPU_STREAM=0",
          lambda i: i.stream_env == "0"),
@@ -104,9 +120,12 @@ class RouteDecision:
     fused: bool
     tail: str                        # kernel | xla
     reasons: Tuple[str, ...] = ()    # the rules that blocked a faster part
+    physical: bool = True
 
     @property
     def path(self) -> str:
+        if not self.physical:
+            return "row_order"
         return "stream" if self.stream else "physical"
 
     def describe(self) -> str:
@@ -116,19 +135,26 @@ class RouteDecision:
 
 
 def inputs_from_env(environ=None, **kw) -> RouteInputs:
-    """RouteInputs with the three knobs read through ``env_knob``."""
+    """RouteInputs with the four knobs read through ``env_knob``."""
     return RouteInputs(
+        phys_env=env_knob("LGBM_TPU_PHYS", environ),
         stream_env=env_knob("LGBM_TPU_STREAM", environ),
         fused_env=env_knob("LGBM_TPU_FUSED", environ),
         apply_impl_env=env_knob("LGBM_TPU_APPLY_IMPL", environ), **kw)
 
 
 def decide(i: RouteInputs) -> RouteDecision:
-    """Evaluate the rule table; pure."""
+    """Evaluate the rule table; pure.  Off the physical path the stream
+    and fused rules are not read."""
     blocked = {k: [r.name for r in RULES if r.blocks == k and r.pred(i)]
-               for k in ("stream", "fused", "tail")}
+               for k in ("physical", "stream", "fused", "tail")}
+    physical = not blocked["physical"]
+    if not physical:
+        blocked["stream"] = blocked["fused"] = []
     return RouteDecision(
-        stream=not blocked["stream"], fused=not blocked["fused"],
+        stream=physical and not blocked["stream"],
+        fused=physical and not blocked["fused"],
         tail="xla" if blocked["tail"] else "kernel",
-        reasons=tuple(blocked["stream"] + blocked["fused"]
-                      + blocked["tail"]))
+        reasons=tuple(blocked["physical"] + blocked["stream"]
+                      + blocked["fused"] + blocked["tail"]),
+        physical=physical)

@@ -12,9 +12,11 @@ two launches; the partition scan and copyback byte for byte.  The
 stream init and refresh, the fused split and the split tail (slice 3)
 bitwise: rows, nleft and state rows equal their plain versions', the
 refresh's root histogram and the fused split's two histograms equal
-hist_comb's of the same ranges.  Trees grown on the card equal the CPU
-run's (structure, and leaf values within 1e-5 of the tree's largest
-leaf), and the default route's equal slice 2's route's bit for bit.
+hist_comb's of the same ranges.  The row-indexed histogram (slice 4)
+bitwise its plain version run on CPU copies of the inputs.  Trees grown
+on the card equal the CPU run's (structure, and leaf values within 1e-5
+of the tree's largest leaf; bit for bit on the default and row-order
+routes), and the default route's equal slice 2's route's bit for bit.
 """
 import numpy as np
 import pytest
@@ -22,10 +24,10 @@ import torch
 
 import lightgbm_tpu_torch as lgt
 from chip_smoke import (apply_find_parity, compare_trees, fused_parity,
-                        hist_parity, make_higgs_like, make_rows,
-                        partition_parity, random_model_text,
-                        random_row_matrix, rows_on, score_tolerance,
-                        stream_parity)
+                        hist_parity, hist_rows_case, leaves_bitwise,
+                        make_higgs_like, make_rows, partition_parity,
+                        random_model_text, random_row_matrix, rows_on,
+                        score_tolerance, stream_parity)
 from lightgbm_tpu_torch.ops import predict as tpred
 from lightgbm_tpu_torch.ops import serve_kernel as tkern
 
@@ -235,3 +237,58 @@ def test_default_route_on_card_matches_cpu_and_slice2(cuda, objective,
         assert res["ok"], res
     for a, b in zip(card._models, slice2._models):
         assert a.leaf_value.tobytes() == b.leaf_value.tobytes()
+
+
+# -- slice 4: the row-indexed histogram and the row-order route ---------
+@pytest.mark.parametrize("b,f,indexed,rng", [
+    (256, 7, True, (1001, 9000)),        # u8 through an index
+    (1024, 28, False, (0, 20_000)),      # u16, the whole matrix
+    (1024, 28, True, (3, 3000)),         # u16 child at an odd offset
+    (1040, 5, True, (19_000, 5000)),     # B = 1040, cut at the end
+    (1024, 13, True, (0, 1)),            # F not a multiple of 8, one row
+    (1024, 9, True, (50, 0)),            # an empty range
+])
+def test_hist_rows_matches_plain(cuda, b, f, indexed, rng):
+    """hist_rows bitwise against its plain version on CPU copies, two
+    launches bitwise, within 4 * n * eps * max|v| of the plain version on
+    the card."""
+    g = np.random.default_rng(b + f)
+    dt = np.uint8 if b <= 256 else np.uint16
+    bins = torch.tensor(g.integers(0, b, size=(20_000, f)).astype(dt),
+                        device=cuda)
+    vals = torch.tensor(g.normal(size=(20_000, 2)).astype(np.float32),
+                        device=cuda)
+    index = (torch.tensor(g.permutation(20_000).astype(np.int32),
+                          device=cuda) if indexed else None)
+    hist_rows_case(bins, vals, rng, index, b, max(rng[1], 1), "test",
+                   timed=False)
+
+
+@pytest.mark.parametrize("max_bin,env", [(1023, {}),
+                                         (255, {"LGBM_TPU_PHYS": "0"})])
+def test_row_order_on_card_matches_cpu(cuda, max_bin, env, monkeypatch):
+    """The row-order route on the card grows the CPU run's trees bit for
+    bit, launching hist_rows once per tree and once per split, and
+    apply_find_pool once per split where the tail is the kernel."""
+    from lightgbm_tpu_torch.ops.apply_find import apply_find_pool
+    from lightgbm_tpu_torch.ops.hist_kernel2 import build_histogram_rows
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    x, y = make_higgs_like(6000, 8, seed=6)
+    x[np.random.default_rng(6).random(x.shape) < 0.1] = np.nan
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": max_bin,
+         "min_data_in_bin": 1, "verbosity": -1}
+    counts = (build_histogram_rows.launches, apply_find_pool.launches)
+    card = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                     device="cuda")
+    route = card._inner.grow.route
+    assert route.path == "row_order"
+    splits = sum(t.num_leaves - 1 for t in card._models)
+    assert (build_histogram_rows.launches - counts[0],
+            apply_find_pool.launches - counts[1]) == (
+        3 + splits, splits if route.tail == "kernel" else 0)
+    cpu = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                    device="cpu")
+    res = compare_trees(card._models, cpu._models)
+    assert res["ok"], res
+    assert leaves_bitwise(card._models, cpu._models)

@@ -174,12 +174,18 @@ def test_each_rule_blocks_its_part(rule):
           "fused_env_off": {"fused_env": "0"},
           "fused_smem": {"fused_ok": False},
           "tail_env_xla": {"apply_impl_env": "xla"},
-          "tail_smem": {"tail_ok": False}}[rule]
+          "tail_smem": {"tail_ok": False},
+          "non_u8_bins": {"bins_u8": False},
+          "phys_env_off": {"phys_env": "0"}}[rule]
     d = decide(RouteInputs(**kw))
     assert d.reasons == (rule,)
     blocks = {r.name: r.blocks for r in RULES}[rule]
-    assert (not d.stream, not d.fused, d.tail == "xla") == (
-        blocks == "stream", blocks == "fused", blocks == "tail")
+    # off the physical path stream and fused are off too
+    off = blocks == "physical"
+    assert (not d.stream, not d.fused, d.tail == "xla",
+            d.path == "row_order") == (
+        blocks == "stream" or off, blocks == "fused" or off,
+        blocks == "tail", off)
 
 
 def test_reset_stream_rebuilds_rows_on_both_routes():
