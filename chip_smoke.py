@@ -14,36 +14,46 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    with ``Booster.predict`` and 512 batches of 64 rows through
    ``ServingQueue``, counted, and 4,096 rows held against the f64 host
    walk;
-3. the training kernels (slices 2 and 3) against their plain versions
-   at the main path's shapes (1,000,000 x 28 real bins, B = 256):
-   ``hist_comb``, ``partition_scan`` and ``copyback``; ``stream_init`` and
-   ``stream_refresh`` bitwise, the refresh's root histogram bitwise
-   ``hist_comb``'s; ``fused_split`` on the 1M-row segment and on a
-   3,000-row segment at an odd offset, its rows and nleft bitwise and
-   both histograms bitwise ``hist_comb``'s of each child range;
-   ``apply_find`` on a real split's histograms, bitwise; then each
-   kernel's time beside its plain version's; ``hist_rows`` (slice 4)
-   bitwise against its plain version run on CPU copies, on the 1M x 28
-   u16 bins of ``max_bin=1023`` (B = 1024, the root, and a 3,000-row
-   child through a permutation index), u8 bins through an index and a
-   B = 1040 case, each timed beside its plain version, one
-   ``index_add_`` and its bound;
+3. the training kernels (slices 2, 3 and 5) against their plain
+   versions at the main path's shapes (1,000,000 x 28 real bins, B =
+   256): ``hist_comb``, ``partition_scan`` and ``copyback``;
+   ``stream_init`` and ``stream_refresh`` bitwise, the refresh's root
+   histogram bitwise ``hist_comb``'s; ``fused_split`` on the 1M-row
+   segment and on a 3,000-row segment at an odd offset, its rows and
+   nleft bitwise and both histograms bitwise ``hist_comb``'s of each
+   child range; ``apply_find`` on a real split's histograms, bitwise;
+   ``partition_3ph`` bitwise on the 1M-row segment, the 3,000-row one,
+   a 400,000-row mid-matrix segment with an 8-word bitset descriptor
+   and a dead split (also against its plain version on CPU copies);
+   ``stream_refresh_plain`` bitwise at 1M rows; then each kernel's time
+   beside its plain version's; ``hist_rows`` (slice 4) bitwise against
+   its plain version run on CPU copies, on the 1M x 28 u16 bins of
+   ``max_bin=1023`` (B = 1024, the root, and a 3,000-row child through a
+   permutation index), u8 bins through an index and a B = 1040 case,
+   each timed beside its plain version, one ``index_add_`` and its
+   bound;
 4. training parity, card against ``device="cpu"``, 50,000 x 28, 255
    leaves: 3 trees on the default route, 1 on slice 2's route, 3 on the
-   row-order route at ``max_bin=1023`` (bitwise);
+   row-order route at ``max_bin=1023``, 3 on the 3ph route (bitwise);
 5. the training main path on the default route (score-resident
    gradients, fused split, one-kernel split tail): 1,000,000 x 28, 255
    leaves, 10 iterations, the launch counts zeroed just before and read
-   just after, per-tree stage times, holdout AUC, host reads, and the
-   trained booster served through ``serve_traverse``; then slice 2's
-   route (``LGBM_TPU_STREAM=0 LGBM_TPU_FUSED=0 LGBM_TPU_APPLY_IMPL=xla``)
-   for 3 iterations, counted the same way, its trees held against the
-   default route's first 3; the row-order route (slice 4) at
-   ``max_bin=1023`` for 10 iterations and under ``LGBM_TPU_PHYS=0`` at
-   ``max_bin=255`` for 3, counted the same way (``hist_rows`` once per
-   tree and per split), the latter's trees printed beside the default
-   route's; one profiled iteration of each route, its kernels counted
-   per split and per stage;
+   just after (``expected_launches``), per-tree stage times, holdout
+   AUC, host reads, and the trained booster served through
+   ``serve_traverse``; then slice 2's route (``LGBM_TPU_STREAM=0
+   LGBM_TPU_FUSED=0 LGBM_TPU_APPLY_IMPL=xla``) for 3 iterations, counted
+   the same way, its trees held against the default route's first 3;
+   the row-order route (slice 4) at ``max_bin=1023`` for 10 iterations
+   and under ``LGBM_TPU_PHYS=0`` at ``max_bin=255`` for 3, counted the
+   same way (``hist_rows`` once per tree and per split), the latter's
+   trees printed beside the default route's; the 3ph route (slice 5,
+   ``LGBM_TPU_PART=3ph``) for 3 iterations (``partition_3ph`` once per
+   split, ``hist_comb`` per tree and per split, the plain refresh per
+   tree), its trees printed beside the default route's, and
+   ``LGBM_TPU_POOL_TAIL=0`` for 2 (``apply_find`` once per split), its
+   trees held against the default route's bit for bit; one profiled
+   iteration of each route but the last, its kernels counted per split
+   and per stage;
 6. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times, then the device line last.
 
@@ -634,6 +644,47 @@ def partition_parity(rows, sel, label: str) -> dict:
     return rec
 
 
+def partition_3ph_parity(rows, sel, label: str) -> dict:
+    """partition_3ph against its plain version on copies of the same
+    rows, on the card and on CPU copies: the whole row matrix
+    byte-identical (so rows outside the segment untouched), equal nleft,
+    one counted launch (none for a dead split)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import Rows
+    from lightgbm_tpu_torch.ops.partition_kernel import (partition_3ph,
+                                                         partition_3ph_ref)
+    dev = rows.bins.device
+    rk = Rows(*(a.clone() for a in rows))
+    rp = Rows(*(a.clone() for a in rows))
+    rc = Rows(*(a.cpu().clone() for a in rows))
+    scratch = lambda r: Rows(*(torch.zeros_like(a) for a in r))  # noqa
+    nk = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    npl = torch.full((1,), -2, dtype=torch.int32, device=dev)
+    nc = torch.full((1,), -3, dtype=torch.int32)
+    launches = partition_3ph.launches
+    partition_3ph(rk, scratch(rk), sel, nk)
+    partition_3ph_ref(rp, scratch(rp), sel, npl)
+    partition_3ph_ref(rc, scratch(rc), sel, nc)
+    torch.cuda.synchronize()
+    s0, cnt = int(sel[0]), int(sel[1])
+    rec = {"case": label, "s0": s0, "cnt": cnt, "words": len(sel) - 8
+           if len(sel) > 8 else 0, "nleft": int(nk),
+           "nleft_equal": int(nk) == int(npl) == int(nc),
+           "rows_identical": _rows_equal(rk, rp),
+           "cpu_plain_identical": _rows_equal(Rows(*(a.cpu() for a in rk)),
+                                              rc),
+           "launched": partition_3ph.launches - launches}
+    rec["ok"] = (rec["nleft_equal"] and rec["rows_identical"]
+                 and rec["cpu_plain_identical"]
+                 and rec["launched"] == (1 if cnt > 0 else 0))
+    print("parity partition_3ph " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"partition_3ph disagrees with its plain version: "
+                           f"{rec}")
+    return rec
+
+
 def _rows_equal(a, b, lo: int = 0, hi=None) -> bool:
     return all(torch_equal(x[lo:hi], y[lo:hi]) for x, y in zip(a, b))
 
@@ -707,6 +758,51 @@ def stream_parity(bins, kind: str, padded_bins: int, label: str,
     if not rec["ok"]:
         raise RuntimeError(f"stream kernels disagree with their plain "
                            f"versions: {rec}")
+    return rec
+
+
+def refresh_plain_parity(bins, kind: str, padded_bins: int, label: str,
+                         sigmoid: float = 1.0, seed: int = 5) -> dict:
+    """stream_refresh_plain against its plain version on the same rows
+    (the plain init's), bitwise, one counted launch; and the rows the
+    fused route's refresh leaves, bitwise the same.  Its plain version
+    on CPU copies is reported beside it (the f64 ``exp`` of the card and
+    of the CPU may round differently in a rare last place)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import Rows
+    from lightgbm_tpu_torch.ops.stream_grad import (stream_init_ref,
+                                                    stream_refresh,
+                                                    stream_refresh_plain,
+                                                    stream_refresh_plain_ref)
+    dev = bins.device
+    n = bins.shape[0]
+    score, valid, consts = stream_aux(n, kind, seed, dev)
+    kw = dict(kind=kind, sigmoid=sigmoid)
+    rk = stream_init_ref(bins, score, valid, consts, **kw)
+    rp = Rows(*(a.clone() for a in rk))
+    rf = Rows(*(a.clone() for a in rk))
+    rc = Rows(*(a.cpu().clone() for a in rk))
+    lv = torch.tensor(np.random.default_rng(seed + 1).normal(size=n) * 0.1,
+                      dtype=torch.float32, device=dev)
+    launches = stream_refresh_plain.launches
+    stream_refresh_plain(rk, lv, **kw)
+    stream_refresh_plain_ref(rp, lv, **kw)
+    stream_refresh(rf, lv, padded_bins=padded_bins, **kw)
+    stream_refresh_plain_ref(rc, lv.cpu(), **kw)
+    torch.cuda.synchronize()
+    rec = {"case": label, "n": n, "kind": kind,
+           "rows_identical": _rows_equal(rk, rp),
+           "fused_refresh_rows_identical": _rows_equal(rk, rf),
+           "cpu_plain_identical": _rows_equal(Rows(*(a.cpu() for a in rk)),
+                                              rc),
+           "launched": stream_refresh_plain.launches - launches}
+    rec["ok"] = (rec["rows_identical"] and rec["fused_refresh_rows_identical"]
+                 and rec["launched"] == 1)
+    print("parity stream_refresh_plain " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"stream_refresh_plain disagrees with its plain "
+                           f"version: {rec}")
     return rec
 
 
@@ -861,11 +957,12 @@ SLICE2_ROUTE = {"LGBM_TPU_STREAM": "0", "LGBM_TPU_FUSED": "0",
 SLICE2_ITERS = 3
 SLICE2_PARITY_TREES = 1
 ROUTE_KNOBS = ("LGBM_TPU_STREAM", "LGBM_TPU_FUSED", "LGBM_TPU_APPLY_IMPL",
-               "LGBM_TPU_PHYS", "LGBM_TPU_HIST_IMPL")
-# the port's kernels (PERF.md rows 1-4, 6-7, 10, 12-14, 16)
-OUR_KERNEL_NAMES = ("hist_comb", "partition_", "count_tiles", "left_prefix",
-                    "fused_scatter", "reduce_partials", "stream_",
-                    "apply_find", "hist_rows")
+               "LGBM_TPU_PHYS", "LGBM_TPU_HIST_IMPL", "LGBM_TPU_PART",
+               "LGBM_TPU_POOL_TAIL", "LGBM_TPU_COMB_PACK")
+# the port's kernels (PERF.md rows 1-7, 10, 12-14, 16)
+OUR_KERNEL_NAMES = ("hist_comb", "partition_", "partition3ph", "copy_span",
+                    "count_tiles", "left_prefix", "fused_scatter",
+                    "reduce_partials", "stream_", "apply_find", "hist_rows")
 
 
 @contextlib.contextmanager
@@ -1047,8 +1144,10 @@ def training_kernels(gpu: str, ds) -> list:
     version's.  Returns the records, launches still 0."""
     import torch
 
-    from lightgbm_tpu_torch.ops.apply_find import (apply_find_pool,
-                                                   apply_find_pool_ref)
+    from lightgbm_tpu_torch.ops.apply_find import (apply_find,
+                                                   apply_find_pool,
+                                                   apply_find_pool_ref,
+                                                   apply_find_ref)
     from lightgbm_tpu_torch.ops.device_data import (Rows, init_rows,
                                                     to_device)
     from lightgbm_tpu_torch.ops.fused_split import (fused_split,
@@ -1057,12 +1156,15 @@ def training_kernels(gpu: str, ds) -> list:
     from lightgbm_tpu_torch.ops.hist_kernel2 import (
         build_histogram_comb, build_histogram_comb_ref)
     from lightgbm_tpu_torch.ops.partition_kernel import (
-        copyback, copyback_ref, partition_scan, partition_scan_ref)
+        copyback, copyback_ref, partition_3ph, partition_3ph_ref,
+        partition_scan, partition_scan_ref)
     from lightgbm_tpu_torch.ops.routing import RouteInputs, decide
     from lightgbm_tpu_torch.ops.split import SplitHyperParams
     from lightgbm_tpu_torch.ops.stream_grad import (stream_init,
                                                     stream_init_ref,
                                                     stream_refresh,
+                                                    stream_refresh_plain,
+                                                    stream_refresh_plain_ref,
                                                     stream_refresh_ref)
 
     dev = torch.device("cuda")
@@ -1090,6 +1192,20 @@ def training_kernels(gpu: str, ds) -> list:
     fused_recs = [fused_parity(prows, sel, b_pad, "1M_nan_default_left"),
                   fused_parity(prows, small_sel, b_pad,
                                "3000_at_odd_offset")]
+    # slice 5: the 3-phase partition (a bitset descriptor of 8 words on
+    # feature 1's real bins, word 3 with bit 31 set) and the plain refresh
+    words = [int(w) for w in np.random.default_rng(19).integers(
+        -2 ** 31, 2 ** 31, 8)]
+    words[3] |= -2 ** 31
+    p3_recs = [partition_3ph_parity(prows, sel, "1M_nan_default_left"),
+               partition_3ph_parity(prows, small_sel, "3000_at_odd_offset"),
+               partition_3ph_parity(prows, (250_007, 400_000, 1, 0, 0, 1, -1,
+                                            0, *words),
+                                    "400000_bitset_8_words_mid_matrix"),
+               partition_3ph_parity(prows, (500_000, 0, 2, 10, 0, 0, -1),
+                                    "dead_split")]
+    rp_recs = [refresh_plain_parity(bins, "binary", b_pad, "1M_binary"),
+               refresh_plain_parity(bins, "l2", b_pad, "1M_l2")]
     dd = to_device(ds._binned, dev)
     grower = SerialGrower(SplitHyperParams(), num_leaves=TRAIN_LEAVES,
                           max_depth=-1, dd=dd, route=decide(RouteInputs()),
@@ -1140,6 +1256,16 @@ def training_kernels(gpu: str, ds) -> list:
         _time_ms(lambda: apply_find_pool(pair[0], pair[1], *af_args), 50),
         _time_ms(lambda: apply_find_pool_ref(pair[0], pair[1], *af_args),
                  5))
+    h2 = torch.stack([st.pool[at.leaf], st.pool[at.right]]).contiguous()
+    t["apply_find_plain_entry"] = (
+        _time_ms(lambda: apply_find(h2, *af_args), 50),
+        _time_ms(lambda: apply_find_ref(h2, *af_args), 5))
+    t["partition_3ph"] = (
+        _time_ms(lambda: partition_3ph(prows, scratch, sel, nl), 20),
+        _time_ms(lambda: partition_3ph_ref(prows, scratch, sel, nl), 3))
+    t["stream_refresh_plain"] = (
+        _time_ms(lambda: stream_refresh_plain(srows, lv, **s_kw), 20),
+        _time_ms(lambda: stream_refresh_plain_ref(srows, lv, **s_kw), 3))
     print("kernel times [ms, plain ms] at the main path's shapes "
           + json.dumps(t) + f" [{gpu}]", flush=True)
     del prows, scratch, rows, srows, af_rows
@@ -1199,7 +1325,33 @@ def training_kernels(gpu: str, ds) -> list:
             "lightgbm_tpu/ops/pallas/apply_find.py:571", 0, 0.0,
             *t["apply_find"], 4 * hist_out, 40 * cells, gpu,
             also_replaces="lightgbm_tpu/ops/pallas/apply_find.py:529 "
-                          "(plain-pool entry apply_find, same body)"),
+                          "(plain-pool entry apply_find, same body)",
+            plain_entry_ms=t["apply_find_plain_entry"][0],
+            plain_entry_plain_ms=t["apply_find_plain_entry"][1],
+            # reads both children's histograms; no pool row moves
+            plain_entry_bound_ms=max(2 * hist_out / PEAK_BYTES_S,
+                                     40 * cells / PEAK_OPS_S) * 1e3),
+        # an in-place stable partition reads each row of the segment once
+        # (its split column included) and writes it once, plus nleft; the
+        # trip through scratch and back is this design's cost, not the
+        # function's
+        _kernel_record(
+            "partition_3ph", "lightgbm_tpu_torch/csrc/partition_3ph.cu",
+            "lightgbm_tpu/ops/pallas/partition_kernel.py:329", 0, 0.0,
+            *t["partition_3ph"], 2 * n * row_bytes + 4, 0, gpu,
+            parity_cases=[r["case"] for r in p3_recs],
+            cpu_plain_identical=all(r["cpu_plain_identical"]
+                                    for r in p3_recs)),
+        # reads score, w, two constants and lv; writes score, g*w, h*w;
+        # ~17 operations a row (the f64 exp counted as one)
+        _kernel_record(
+            "stream_refresh_plain", "lightgbm_tpu_torch/csrc/stream_grad.cu",
+            "lightgbm_tpu/ops/pallas/stream_grad.py:557", 0, 0.0,
+            *t["stream_refresh_plain"], 20 * n + 12 * n, 17 * n, gpu,
+            fused_refresh_rows_identical=all(
+                r["fused_refresh_rows_identical"] for r in rp_recs),
+            cpu_plain_identical=all(r["cpu_plain_identical"]
+                                    for r in rp_recs)),
     ]
     return recs
 
@@ -1363,6 +1515,91 @@ def row_order_phases(gpu: str, ds, valid, ds_wide, valid_wide, x,
     return bst, main, bst_off, off, parity
 
 
+def expected_launches(route, trees: int, splits: int) -> dict:
+    """Each training kernel's launches on ``route`` for ``trees`` trees
+    of ``splits`` splits in all, every tree split at least once: the
+    row-order path histograms every root and smaller child through the
+    index; the physical path's stream init runs once, the fused route
+    carries each next root histogram out of its refresh (tree 0's from
+    hist_comb), the unfused routes build every root with hist_comb and
+    refresh without one; per split the fused split + copyback, the scan
+    + copyback or the 3-phase partition, and the tail's kernel entry."""
+    kernel_tail = route.tail == "kernel"
+    expect = dict.fromkeys(
+        ("stream_init", "stream_refresh", "stream_refresh_plain",
+         "build_histogram_comb", "partition_scan", "partition_3ph",
+         "fused_split", "copyback", "build_histogram_rows"), 0)
+    expect["apply_find_pool"] = splits if kernel_tail and route.pool_tail \
+        else 0
+    expect["apply_find"] = splits if kernel_tail and not route.pool_tail \
+        else 0
+    if route.path == "row_order":
+        expect["build_histogram_rows"] = trees + splits
+        return expect
+    stream, fused = route.stream, route.fused
+    three = route.scheme == "3ph"
+    expect.update(
+        stream_init=1 if stream else 0,
+        stream_refresh=trees if stream and fused else 0,
+        stream_refresh_plain=trees if stream and not fused else 0,
+        build_histogram_comb=1 if stream and fused else trees + splits,
+        fused_split=splits if fused else 0,
+        partition_scan=splits if not fused and not three else 0,
+        copyback=splits if not three else 0,
+        partition_3ph=splits if three else 0)
+    return expect
+
+
+# ---------------------------------------------------------------------
+# Slice 5: the 3-phase partition route and the pool-less tail
+PART_3PH = {"LGBM_TPU_PART": "3ph"}
+PART_3PH_ITERS = 3
+POOL_TAIL_OFF = {"LGBM_TPU_POOL_TAIL": "0"}
+POOL_TAIL_ITERS = 2
+
+
+def part_3ph_phases(gpu: str, ds, valid, x, bst_default) -> tuple:
+    """Slice 5's training: the 3ph route card against device="cpu" at
+    50,000 rows (bitwise), its main path (1M x 28, 255 leaves, 3
+    iterations) counted and served, its trees printed beside the default
+    route's first 3 (not a gate: the right children add their rows in
+    another order), and LGBM_TPU_POOL_TAIL=0 (2 iterations), counted,
+    whose trees must equal the default route's bit for bit.  Returns
+    (3ph booster, 3ph record, pool-tail record, parity record)."""
+    parity = train_parity(gpu, PART_3PH, PARITY_TREES, "3ph route",
+                          bitwise=True)
+    bst, main = train_main_path(gpu, ds, valid, x, PART_3PH, PART_3PH_ITERS,
+                                "main path, 3ph route")
+    if main["route"] != ("path=stream scheme=3ph fused=0 tail=kernel "
+                         "(part_3ph)"):
+        raise RuntimeError(f"LGBM_TPU_PART=3ph took the route "
+                           f"{main['route']}")
+    same = compare_trees(bst_default._models[:PART_3PH_ITERS], bst._models)
+    same.update(case=f"default route vs 3ph route, first {PART_3PH_ITERS} "
+                f"trees at {TRAIN_ROWS} rows (reported, not a gate: the "
+                "right children's rows are added in another order)",
+                leaves_bitwise=leaves_bitwise(
+                    bst_default._models[:PART_3PH_ITERS], bst._models))
+    print("routes default vs 3ph " + json.dumps(same), flush=True)
+    bst_pool, pool = train_main_path(gpu, ds, valid, x, POOL_TAIL_OFF,
+                                     POOL_TAIL_ITERS, "LGBM_TPU_POOL_TAIL=0")
+    if "pool_tail=0" not in pool["route"]:
+        raise RuntimeError(f"LGBM_TPU_POOL_TAIL=0 took the route "
+                           f"{pool['route']}")
+    routes = compare_trees(bst_default._models[:POOL_TAIL_ITERS],
+                           bst_pool._models)
+    routes.update(case=f"default route vs LGBM_TPU_POOL_TAIL=0, first "
+                  f"{POOL_TAIL_ITERS} trees at {TRAIN_ROWS} rows",
+                  leaves_bitwise=leaves_bitwise(
+                      bst_default._models[:POOL_TAIL_ITERS],
+                      bst_pool._models))
+    print("parity routes pool tail " + json.dumps(routes), flush=True)
+    if not (routes["ok"] and routes["leaves_bitwise"]):
+        raise RuntimeError(f"LGBM_TPU_POOL_TAIL=0 grew other trees than the "
+                           f"default route: {routes}")
+    return bst, main, pool, parity
+
+
 def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
                     label: str, params: dict = TRAIN_PARAMS):
     """The training main path on the route ``env`` selects, counted and
@@ -1371,18 +1608,21 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
     import torch
 
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.ops.apply_find import apply_find_pool
+    from lightgbm_tpu_torch.ops.apply_find import apply_find, apply_find_pool
     from lightgbm_tpu_torch.ops.fused_split import fused_split
     from lightgbm_tpu_torch.ops.grow import StageTimer
     from lightgbm_tpu_torch.ops.hist_kernel2 import (build_histogram_comb,
                                                      build_histogram_rows)
     from lightgbm_tpu_torch.ops.partition_kernel import (copyback,
+                                                         partition_3ph,
                                                          partition_scan)
     from lightgbm_tpu_torch.ops.serve_kernel import serve_traverse
     from lightgbm_tpu_torch.ops.stream_grad import (stream_init,
-                                                    stream_refresh)
-    counted = (stream_init, stream_refresh, build_histogram_comb,
-               partition_scan, fused_split, copyback, apply_find_pool,
+                                                    stream_refresh,
+                                                    stream_refresh_plain)
+    counted = (stream_init, stream_refresh, stream_refresh_plain,
+               build_histogram_comb, partition_scan, partition_3ph,
+               fused_split, copyback, apply_find_pool, apply_find,
                build_histogram_rows, serve_traverse)
     its = []
 
@@ -1406,23 +1646,7 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
     models = bst._models
     splits = sum(t.num_leaves - 1 for t in models)
     route = bst._inner.grow.route
-    if route.path == "row_order":
-        expect = {"stream_init": 0, "stream_refresh": 0,
-                  "build_histogram_comb": 0, "partition_scan": 0,
-                  "copyback": 0, "fused_split": 0,
-                  "apply_find_pool": splits if route.tail == "kernel" else 0,
-                  "build_histogram_rows": len(models) + splits}
-    elif route.stream:
-        expect = {"stream_init": 1, "stream_refresh": len(models),
-                  "build_histogram_comb": 1, "fused_split": splits,
-                  "copyback": splits, "apply_find_pool": splits,
-                  "partition_scan": 0, "build_histogram_rows": 0}
-    else:
-        expect = {"stream_init": 0, "stream_refresh": 0,
-                  "build_histogram_comb": len(models) + splits,
-                  "partition_scan": splits, "copyback": splits,
-                  "fused_split": 0, "apply_find_pool": 0,
-                  "build_histogram_rows": 0}
+    expect = expected_launches(route, len(models), splits)
     for name, want in expect.items():
         if launches[name] != want:
             raise RuntimeError(f"the {label} launched {name} "
@@ -1467,15 +1691,15 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
 
 
 def train_phases(gpu: str) -> list:
-    """Slices 2 to 4: the training kernels against their plain versions
-    at the main paths' shapes, training parity card vs CPU on three
+    """Slices 2 to 5: the training kernels against their plain versions
+    at the main paths' shapes, training parity card vs CPU on four
     routes, the training main path on the default route (1M x 28, 255
     leaves, 10 iterations) counted, timed by stage and served, slice 2's
     route beside it (3 iterations, its trees held against the default
     route's first 3), the row-order route at max_bin=1023 (10
-    iterations) and under LGBM_TPU_PHYS=0 (3), and one profiled
-    iteration of each of the four routes.
-    Returns the eight training kernels' records."""
+    iterations) and under LGBM_TPU_PHYS=0 (3), the 3ph route (3) and
+    LGBM_TPU_POOL_TAIL=0 (2), and one profiled iteration of each of the
+    first five routes.  Returns the ten training kernels' records."""
     import lightgbm_tpu_torch as lgt
 
     x_all, y_all = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS, N_FEATURES,
@@ -1514,6 +1738,7 @@ def train_phases(gpu: str) -> list:
                            f"2's route's: {routes}")
     bst3, main3, bst4, off, parity3 = row_order_phases(
         gpu, ds, valid, ds_wide, valid_wide, x, bst)
+    bst5, main5, pool5, parity5 = part_3ph_phases(gpu, ds, valid, x, bst)
     # one more tree of each under the profiler, after every check
     with route_env({}):
         print("profiled iteration, default route "
@@ -1527,6 +1752,9 @@ def train_phases(gpu: str) -> list:
     with route_env(PHYS_OFF):
         print("profiled iteration, LGBM_TPU_PHYS=0, max_bin=255 "
               + json.dumps(profile_iteration(bst4, gpu)), flush=True)
+    with route_env(PART_3PH):
+        print("profiled iteration, 3ph route "
+              + json.dumps(profile_iteration(bst5, gpu)), flush=True)
 
     names = {"hist_comb": "build_histogram_comb",
              "apply_find": "apply_find_pool",
@@ -1534,7 +1762,7 @@ def train_phases(gpu: str) -> list:
     for r in recs:
         key = names.get(r["name"], r["name"])
         for run, where in ((main, None), (main2, "slice 2 route"),
-                           (main3, "row-order route")):
+                           (main3, "row-order route"), (main5, "3ph route")):
             if run["launches"][key] > 0:
                 r["launches"] = run["launches"][key]
                 if where:
@@ -1545,6 +1773,11 @@ def train_phases(gpu: str) -> list:
     recs[-1]["phys_off_launches"] = off["launches"]["build_histogram_rows"]
     recs[0]["train_parity"] = parity["ok"] and parity2["ok"]
     recs[-1]["train_parity_bitwise"] = parity3["ok"]
+    by_name = {r["name"]: r for r in recs}
+    by_name["apply_find"]["plain_entry_launches"] = \
+        pool5["launches"]["apply_find"]
+    by_name["apply_find"]["plain_entry_launched_on"] = "LGBM_TPU_POOL_TAIL=0"
+    by_name["partition_3ph"]["train_parity_bitwise"] = parity5["ok"]
     return recs
 
 

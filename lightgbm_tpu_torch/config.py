@@ -45,6 +45,16 @@ ENV_KNOBS: Dict[str, tuple] = {
     "LGBM_TPU_HIST_IMPL": ("auto", "row_order histogram: auto / pallas2 "
                                    "/ pallas select the hist_rows "
                                    "kernel; matmul / scatter raise"),
+    "LGBM_TPU_PART": ("ss", "3ph restores the 3-phase partition kernel "
+                            "(implies the unfused split path); any value "
+                            "but ss or 3ph raises (the JAX package reads "
+                            "every other value as ss)"),
+    "LGBM_TPU_POOL_TAIL": ("1", "0 disables the pool-resident "
+                                "apply+find kernel (the pool ops run in "
+                                "PyTorch, then the plain-pool kernel)"),
+    "LGBM_TPU_COMB_PACK": ("1", "2 packs two logical comb rows per "
+                                "128-lane line; pack=2 is not ported and "
+                                "raises (ROADMAP B9)"),
 }
 
 

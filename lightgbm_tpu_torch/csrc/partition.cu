@@ -90,32 +90,6 @@ partition_scatter(RowPtrs rows, RowPtrs scr, int F, Split sp,
     *nleft = left_before + tile_total;
 }
 
-__global__ void partition_copyback_kernel(RowPtrs rows, RowPtrs scr, int F,
-                                          int s0, int cnt) {
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  const size_t t0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if ((F & 3) == 0) {
-    // row offsets are multiples of 4 bytes: move 32-bit words
-    const size_t w0 = (size_t)s0 * (F / 4), nw = (size_t)cnt * (F / 4);
-    const uint32_t* s = reinterpret_cast<const uint32_t*>(scr.bins) + w0;
-    uint32_t* d = reinterpret_cast<uint32_t*>(rows.bins) + w0;
-    for (size_t i = t0; i < nw; i += stride) d[i] = s[i];
-  } else {
-    const size_t b0 = (size_t)s0 * F, nb = (size_t)cnt * F;
-    for (size_t i = t0; i < nb; i += stride)
-      rows.bins[b0 + i] = scr.bins[b0 + i];
-  }
-  const size_t v0 = (size_t)s0 * 3, nv = (size_t)cnt * 3;
-  for (size_t i = t0; i < nv; i += stride) rows.vals[v0 + i] = scr.vals[v0 + i];
-  const size_t c0 = (size_t)s0 * 2, nc = (size_t)cnt * 2;
-  for (size_t i = t0; i < nc; i += stride)
-    rows.consts[c0 + i] = scr.consts[c0 + i];
-  for (size_t i = t0; i < (size_t)cnt; i += stride) {
-    rows.rid[s0 + i] = scr.rid[s0 + i];
-    rows.score[s0 + i] = scr.score[s0 + i];
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -149,11 +123,8 @@ int partition_copyback(uint8_t* bins, float* vals, int* rid, float* score,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const RowPtrs rows{bins, vals, rid, score, consts};
   const RowPtrs scr{sbins, svals, srid, sscore, sconsts};
-  long long work = (long long)cnt * (F > 3 ? F : 3);
-  int blocks = (int)((work / 4 + 255) / 256);
-  if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  partition_copyback_kernel<<<blocks, 256, 0, s>>>(rows, scr, F, s0, cnt);
+  part::copy_span<<<part::copy_span_blocks(cnt, F), 256, 0, s>>>(
+      rows, scr, F, s0, cnt);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
-// The split predicate, the per-tile left counts and the row copy shared by
-// partition.cu (scan + copyback) and fused_split.cu.
+// The split predicate, the per-tile left counts, the row copy and the span
+// copyback shared by partition.cu (scan + copyback), partition_3ph.cu and
+// fused_split.cu.
 //
 // Rows: bins u8 [n, F], vals f32 [n, 3] (g*w, h*w, w), rid i32 [n]
 // (original row ids), score f32 [n], consts f32 [n, 2] (the objective's
@@ -35,11 +36,12 @@ struct RowPtrs {
   float* consts;
 };
 
-// the thread's kPer rows of tile `tile`: left bits, and how many of them
-// are rows of the segment
-__device__ __forceinline__ int thread_bits(const uint8_t* bins, int F,
-                                           const Split& sp, int tile,
-                                           unsigned* bits) {
+// the thread's kPer rows of tile `tile`: left bits by the predicate
+// `go(col)`, and how many of them are rows of the segment
+template <class GoLeft>
+__device__ __forceinline__ int thread_bits_by(const uint8_t* bins, int F,
+                                              const Split& sp, int tile,
+                                              unsigned* bits, GoLeft go) {
   const int first = tile * kTile + threadIdx.x * kPer;
   int live = 0;
   unsigned b = 0;
@@ -48,11 +50,19 @@ __device__ __forceinline__ int thread_bits(const uint8_t* bins, int F,
     if (p < sp.cnt) {
       ++live;
       const int col = bins[(size_t)(sp.s0 + p) * F + sp.feat];
-      if (go_left(col, sp)) b |= 1u << k;
+      if (go(col)) b |= 1u << k;
     }
   }
   *bits = b;
   return live;
+}
+
+// thread_bits_by with go_left
+__device__ __forceinline__ int thread_bits(const uint8_t* bins, int F,
+                                           const Split& sp, int tile,
+                                           unsigned* bits) {
+  return thread_bits_by(bins, F, sp, tile, bits,
+                        [&](int col) { return go_left(col, sp); });
 }
 
 // exclusive block scan of v (int) over kThreads threads; returns the
@@ -118,6 +128,43 @@ __device__ __forceinline__ void copy_row(const RowPtrs& s, const RowPtrs& d,
     for (int f = 0; f < F; ++f) d.bins[dst * F + f] = s.bins[src * F + f];
   }
   copy_values(s, d, src, dst);
+}
+
+// rows [s0, s0 + cnt) of every column from scr into rows, grid-stride;
+// no row outside the span is touched
+__global__ void copy_span(RowPtrs rows, RowPtrs scr, int F, int s0,
+                          int cnt) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t t0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if ((F & 3) == 0) {
+    // row offsets are multiples of 4 bytes: move 32-bit words
+    const size_t w0 = (size_t)s0 * (F / 4), nw = (size_t)cnt * (F / 4);
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(scr.bins) + w0;
+    uint32_t* d = reinterpret_cast<uint32_t*>(rows.bins) + w0;
+    for (size_t i = t0; i < nw; i += stride) d[i] = s[i];
+  } else {
+    const size_t b0 = (size_t)s0 * F, nb = (size_t)cnt * F;
+    for (size_t i = t0; i < nb; i += stride)
+      rows.bins[b0 + i] = scr.bins[b0 + i];
+  }
+  const size_t v0 = (size_t)s0 * 3, nv = (size_t)cnt * 3;
+  for (size_t i = t0; i < nv; i += stride) rows.vals[v0 + i] = scr.vals[v0 + i];
+  const size_t c0 = (size_t)s0 * 2, nc = (size_t)cnt * 2;
+  for (size_t i = t0; i < nc; i += stride)
+    rows.consts[c0 + i] = scr.consts[c0 + i];
+  for (size_t i = t0; i < (size_t)cnt; i += stride) {
+    rows.rid[s0 + i] = scr.rid[s0 + i];
+    rows.score[s0 + i] = scr.score[s0 + i];
+  }
+}
+
+// copy_span's grid for a span of cnt rows of F bins
+inline int copy_span_blocks(int cnt, int F) {
+  const long long work = (long long)cnt * (F > 3 ? F : 3);
+  long long blocks = (work / 4 + 255) / 256;
+  if (blocks < 1) blocks = 1;
+  if (blocks > 132 * 8) blocks = 132 * 8;
+  return (int)blocks;
 }
 
 }  // namespace part

@@ -1,5 +1,5 @@
 // Score-resident gradients: the row matrix's stream init and the per-tree
-// refresh with the next tree's root histogram.
+// refresh, with or without the next tree's root histogram.
 //
 // stream_init replaces lightgbm_tpu/ops/pallas/stream_grad.py make_init
 // (_init_kernel, pallas_call at :784, pack=1): it builds the row matrix
@@ -16,6 +16,12 @@
 // add in hist_comb's order (hist_block.cuh), so the histogram is bitwise
 // hist_comb's over the refreshed rows.
 //
+// stream_refresh_plain replaces make_refresh's plain variant
+// (_refresh_kernel, pallas_call at :557), which the JAX package runs when
+// the stream route is on and the fused split is off (grow.py:782; the 3ph
+// route and LGBM_TPU_FUSED=0): the same per-position update, no
+// histogram (the next tree's root comes from hist_comb over [0, n)).
+//
 // Rows: bins u8 [n, F], vals f32 [n, 3] (g*w, h*w, w), rid i32 [n],
 // score f32 [n], consts f32 [n, 2]: binary (sign, label_weight), l2
 // (target, weight).  The TPU's bf16x3 split of score and constants is a
@@ -31,7 +37,9 @@
 // validity, two constants) and writes n * (F + 28); the refresh reads
 // n * (F + 20) bytes (bins, score, w, constants, lv) and writes n * 12
 // (score, g*w, h*w) plus the histogram; the partials add
-// 2 * grid * F * B * 8 bytes, as in hist_comb.
+// 2 * grid * F * B * 8 bytes, as in hist_comb.  The plain refresh reads
+// n * 20 bytes (score, w, constants, lv) and writes n * 12; it does not
+// read the bins.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -138,6 +146,24 @@ stream_refresh_partial(const uint8_t* __restrict__ bins,
   for (int i = threadIdx.x; i < cells; i += kThreads) out[i] = hist[i];
 }
 
+__global__ void stream_refresh_plain_kernel(float* __restrict__ vals,
+                                            float* __restrict__ score,
+                                            const float* __restrict__ consts,
+                                            const float* __restrict__ lv,
+                                            int n, int kind, float sig) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       p < (size_t)n; p += stride) {
+    const float s = score[p] + lv[p];
+    float g, h;
+    gradients(kind, sig, s, consts[2 * p], consts[2 * p + 1], vals[3 * p + 2],
+              &g, &h);
+    score[p] = s;
+    vals[3 * p] = g;
+    vals[3 * p + 1] = h;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -188,6 +214,20 @@ int stream_refresh(const uint8_t* bins, float* vals, float* score,
   const int cells = F * B * 2;
   histblock::reduce_partials<<<histblock::reduce_grid(cells, 1), 256, 0,
                                s>>>(partials, nblocks, cells, 1, out);
+  return (int)cudaGetLastError();
+}
+
+// Refresh rows [0, n) in place with the per-position score delta lv [n]:
+// score, g*w and h*w; no histogram.
+int stream_refresh_plain(float* vals, float* score, const float* consts,
+                         const float* lv, int n, int kind, float sig,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int blocks = (int)(((long long)n + 255) / 256);
+  if (blocks < 1) blocks = 1;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  stream_refresh_plain_kernel<<<blocks, 256, 0, s>>>(vals, score, consts, lv,
+                                                     n, kind, sig);
   return (int)cudaGetLastError();
 }
 

@@ -30,7 +30,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, env_knob
 from ..io.binning import BinType
 from ..io.dataset_core import BinnedDataset
 from ..metric import Metric
@@ -42,7 +42,8 @@ from ..ops.fused_split import fused_supported
 from ..ops.grow import (RowOrderGrower, SerialGrower, StageTimer,
                         StreamSpec, TreeArrays, predict_leaf_bins)
 from ..ops.histogram import histogram_impl
-from ..ops.routing import decide, inputs_from_env
+from ..ops.routing import (decide, inputs_from_env, require_ported,
+                           resolve_layout)
 from ..ops.split import SplitHyperParams
 from ..utils import log
 from ..utils.log import LightGBMError
@@ -55,8 +56,30 @@ def _unported(what: str) -> None:
         "A8/A9); the JAX package lightgbm_tpu trains it")
 
 
+def check_pack_conflicts(cfg: Config) -> None:
+    """The JAX package's refusals of ``LGBM_TPU_COMB_PACK=2``
+    (``config.py:757-776``), with its messages (a value other than 1 or
+    2 raises in ``routing.inputs_from_env``)."""
+    if env_knob("LGBM_TPU_COMB_PACK") != "2":
+        return
+    if cfg.max_bin > 256:
+        log.fatal("LGBM_TPU_COMB_PACK=2 requires max_bin <= 256: the "
+                  "physical comb layout stores uint8 bins, and max_bin > "
+                  "256 keeps the row_order path where the pack knob has no "
+                  "effect")
+    if cfg.gpu_use_dp:
+        log.fatal("LGBM_TPU_COMB_PACK=2 is incompatible with gpu_use_dp "
+                  "(double-precision histograms disable the physical comb "
+                  "path entirely)")
+    if env_knob("LGBM_TPU_PART") == "3ph":
+        log.fatal("LGBM_TPU_COMB_PACK=2 requires the single-scan partition "
+                  "kernel; unset LGBM_TPU_PART=3ph")
+
+
 def check_supported(cfg: Config, ds: Optional[BinnedDataset]) -> None:
-    """Raise for every parameter this slice does not port."""
+    """Raise for the pack conflicts and for every parameter this slice
+    does not port."""
+    check_pack_conflicts(cfg)
     if cfg.boosting.strip().lower() not in ("gbdt", "gbrt"):
         _unported(f"boosting={cfg.boosting} (GOSS, DART and RF)")
     if cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0
@@ -139,7 +162,7 @@ class GBDT:
         self.dd: DeviceDataset = to_device(train_set, device)
         dd = self.dd
         kind = getattr(objective, "STREAM_KIND", None)
-        self.route = decide(inputs_from_env(
+        self.route = decide(resolve_layout(inputs_from_env(
             objective_kind=kind or "none",
             boosting=cfg.boosting.strip().lower().replace("gbrt", "gbdt"),
             multi_tree=cfg.num_class > 1,
@@ -148,7 +171,9 @@ class GBDT:
             learner=cfg.tree_learner,
             bins_u8=dd.bins.dtype == torch.uint8,
             fused_ok=fused_supported(dd.num_features, dd.padded_bins),
-            tail_ok=apply_find_supported(dd.num_features, dd.padded_bins)))
+            tail_ok=apply_find_supported(dd.num_features, dd.padded_bins)),
+            num_features=dd.num_features, padded_bins=dd.padded_bins))
+        require_ported(self.route)
         if not self.route.physical:
             histogram_impl()     # raises for a knob value with no kernel
             self.grow = RowOrderGrower(self.hp, num_leaves=cfg.num_leaves,
@@ -175,10 +200,13 @@ class GBDT:
         self._inbag = torch.ones(n, dtype=torch.float32, device=device)
         for m in self._train_metrics:
             m.init(md, n)
+        pack_note = (f"; LGBM_TPU_COMB_PACK=2 trains pack=1 "
+                     f"({', '.join(self.route.pack_reasons)})"
+                     if self.route.pack_reasons else "")
         log.info("Training on %s: %d rows x %d features, %d bins per "
-                 "feature (%s); route %s", device, n, self.dd.num_features,
+                 "feature (%s); route %s%s", device, n, self.dd.num_features,
                  self.dd.padded_bins, str(dd.bins.dtype).replace("torch.", ""),
-                 self.route.describe())
+                 self.route.describe(), pack_note)
 
     def _stream_aux(self):
         """The stream route's per-row inputs: the current scores (boost

@@ -9,7 +9,11 @@ pool row), writes them to the pool, searches both children's best
 splits and writes the per-leaf state rows: ``best`` and ``lstate`` of
 the left child (which keeps the parent's slot ``leaf``) and of the new
 ``right`` leaf, the ``node`` row, and the ``seg`` rows.  Nothing is
-written when ``done`` is set.
+written when ``done`` is set.  Under ``LGBM_TPU_POOL_TAIL=0`` the pool
+ops (sibling = parent - child, the pool writes) run in PyTorch and the
+tail is the plain-pool kernel (:func:`apply_find_torch_pool`), as the
+JAX package runs ``make_apply_find`` with ``tail_pool=False``
+(``grow.py:1253-1262``).
 
 The plain versions are slice 2's tail: ``ops/split.py``
 ``find_best_split`` plus the state writes and the subtraction trick, in
@@ -132,15 +136,13 @@ def apply_find_ref(h2: torch.Tensor, nleft: torch.Tensor, st: TreeState,
     st.best[[leaf, right]] = pack_split_info(si)
 
 
-def apply_find_pool_ref(h_a: torch.Tensor, h_b: torch.Tensor,
-                        nleft: torch.Tensor, st: TreeState, fc: FinderConsts,
-                        feature_mask: torch.Tensor, hp: SplitHyperParams,
-                        max_depth: int, at: SplitAt) -> None:
-    """Plain version of the pool entry: the smaller child's histogram
-    is ``h_a`` when ``nleft * 2 <= cnt`` (the left child is the smaller)
-    and ``h_b`` otherwise; the sibling is parent minus child."""
-    if at.done:
-        return
+def pool_children(h_a: torch.Tensor, h_b: torch.Tensor, nleft: torch.Tensor,
+                  st: TreeState, at: SplitAt) -> torch.Tensor:
+    """The pool ops of a split: the smaller child's histogram is ``h_a``
+    when ``nleft * 2 <= cnt`` (the left child is the smaller) and ``h_b``
+    otherwise, the sibling is parent minus child; both go to the pool
+    (the left child in the parent's slot) and are returned as [2, F, B,
+    2] (left, right)."""
     small_left = nleft * 2 <= at.cnt
     h_small = torch.where(small_left, h_a, h_b)
     h_parent = st.pool[at.leaf]
@@ -149,8 +151,33 @@ def apply_find_pool_ref(h_a: torch.Tensor, h_b: torch.Tensor,
     h_right = subtract_histogram(h_parent, h_left)
     st.pool[at.leaf] = h_left
     st.pool[at.right] = h_right
-    apply_find_ref(torch.stack([h_left, h_right]), nleft, st, fc,
+    return torch.stack([h_left, h_right])
+
+
+def apply_find_pool_ref(h_a: torch.Tensor, h_b: torch.Tensor,
+                        nleft: torch.Tensor, st: TreeState, fc: FinderConsts,
+                        feature_mask: torch.Tensor, hp: SplitHyperParams,
+                        max_depth: int, at: SplitAt) -> None:
+    """Plain version of the pool entry: :func:`pool_children`, then
+    :func:`apply_find_ref`."""
+    if at.done:
+        return
+    apply_find_ref(pool_children(h_a, h_b, nleft, st, at), nleft, st, fc,
                    feature_mask, hp, max_depth, at)
+
+
+def apply_find_torch_pool(h_a: torch.Tensor, h_b: torch.Tensor,
+                          nleft: torch.Tensor, st: TreeState,
+                          fc: FinderConsts, feature_mask: torch.Tensor,
+                          hp: SplitHyperParams, max_depth: int,
+                          at: SplitAt) -> None:
+    """The split tail under ``LGBM_TPU_POOL_TAIL=0``: the pool ops in
+    PyTorch (:func:`pool_children`), then the plain-pool entry
+    :func:`apply_find` (the kernel on CUDA tensors)."""
+    if at.done:
+        return
+    apply_find(pool_children(h_a, h_b, nleft, st, at), nleft, st, fc,
+               feature_mask, hp, max_depth, at)
 
 
 def apply_find_supported(num_features: int, padded_bins: int) -> bool:

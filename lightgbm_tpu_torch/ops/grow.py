@@ -25,7 +25,19 @@ objective's gradients by row id and builds the root histogram per tree,
 and per split runs the partition scan + copyback, the smaller child's
 histogram and the PyTorch tail; each knob switches its part alone.  The
 routes grow the same trees: each kernel's plain version composes slice
-2's plain arithmetic in slice 2's order.
+2's plain arithmetic in slice 2's order.  On the stream route without
+the fused split (``LGBM_TPU_FUSED=0``, and the 3-phase route) each tree
+ends with ``stream_refresh_plain`` and the next tree's root histogram
+comes from ``hist_comb`` over ``[0, n)`` at its start (``grow.py:782``),
+bitwise the histogram ``stream_refresh`` would have carried.
+
+The 3-phase route (``LGBM_TPU_PART=3ph``, scheme ``3ph``) partitions
+each split with ``partition_3ph`` instead of the scan + copyback: the
+right rows keep their ascending order, so its trees equal the other
+routes' only up to f32 noise (the histograms add the right child's rows
+in another order).  Under ``LGBM_TPU_POOL_TAIL=0`` the kernel tail is
+``apply_find_torch_pool`` (the pool ops in PyTorch, then the plain-pool
+kernel), the same arithmetic as ``apply_find_pool``.
 
 The loop runs on the host; the state (histogram pool, per-leaf best
 splits and sums, segments) stays on the device, and each split reads
@@ -53,16 +65,17 @@ import torch
 
 from .apply_find import (BCAT, BG, SC, SH, SMN, SMX, SOUT, SPAR, SplitAt,
                          TreeState, allow_split, apply_find_pool,
-                         apply_find_pool_ref, build_finder_consts)
+                         apply_find_pool_ref, apply_find_torch_pool,
+                         build_finder_consts)
 from .device_data import (DeviceDataset, Rows, bins_i32, empty_rows_like,
                           init_rows)
 from .fused_split import fused_split
 from .hist_kernel2 import build_histogram_comb, build_histogram_rows
-from .partition_kernel import copyback, partition
+from .partition_kernel import copyback, partition, partition_3ph
 from .routing import RouteDecision
 from .split import (SplitHyperParams, calculate_leaf_output,
                     find_best_split, pack_split_info, selection_key)
-from .stream_grad import stream_init, stream_refresh
+from .stream_grad import stream_init, stream_refresh, stream_refresh_plain
 
 
 class TreeArrays(NamedTuple):
@@ -233,8 +246,9 @@ class _Grower:
         """The host loop over splits, until the tree has L leaves or no
         leaf has a positive gain."""
         dev, stage = self.dd.device, self.timer.stage
-        tail = apply_find_pool if self.route.tail == "kernel" else \
-            apply_find_pool_ref
+        route = self.route
+        tail = ((apply_find_pool if route.pool_tail else apply_find_torch_pool)
+                if route.tail == "kernel" else apply_find_pool_ref)
         tb = _TreeBuilder(self.L)
         nleft = torch.zeros(1, dtype=torch.int32, device=dev)
         for i in range(self.L - 1):
@@ -301,8 +315,8 @@ class _Grower:
 class SerialGrower(_Grower):
     """Grows one tree per call from the row matrix it carries across
     calls (``_PhysicalGrow``): the rows stay in the previous tree's
-    permutation.  On the stream route they carry their scores, and the
-    root histogram is carried too."""
+    permutation.  On the stream route they carry their scores, and with
+    the fused split the root histogram is carried too."""
 
     def __init__(self, hp: SplitHyperParams, *, num_leaves: int,
                  max_depth: int, dd: DeviceDataset, route: RouteDecision,
@@ -374,7 +388,8 @@ class SerialGrower(_Grower):
                 copyback(rows, self.scratch, s0, cnt)
             return h_pair[0], h_pair[1]
         with stage("partition", dev):
-            partition(rows, self.scratch, sel, nleft)
+            part = partition_3ph if self.route.scheme == "3ph" else partition
+            part(rows, self.scratch, sel, nleft)
         with stage("histogram", dev):
             small_left = nleft * 2 <= cnt
             child_start = torch.where(small_left, s0, s0 + nleft)
@@ -403,11 +418,14 @@ class SerialGrower(_Grower):
             with stage("stream_init" if route.stream else "gradients", dev):
                 self._init_rows()
         rows = self.rows
-        if route.stream:
+        if route.stream and route.fused:
             if self._root_hist is None:
                 with stage("histogram", dev):
                     self._root_hist = self._root_histogram(rows)
             root_hist = self._root_hist
+        elif route.stream:
+            with stage("histogram", dev):
+                root_hist = self._root_histogram(rows)
         else:
             with stage("gradients", dev):
                 gv = torch.stack([grad * inbag, hess * inbag, inbag], dim=1)
@@ -422,13 +440,17 @@ class SerialGrower(_Grower):
             # the next tree's rows: every position's score gains this
             # tree's shrunk output of the leaf owning it (the booster's
             # score update, rate * leaf_value, in the same f32 ops), g/h
-            # follow, and the pass builds the next root histogram
+            # follow, and with the fused split the pass builds the next
+            # root histogram
             with stage("stream_refresh", dev):
                 rate_t = torch.tensor(rate, dtype=torch.float32, device=dev)
                 lv = (rate_t * leaf_value)[leaf_of_pos]
-                self._root_hist = stream_refresh(
-                    rows, lv, kind=self.stream.kind,
-                    sigmoid=self.stream.sigmoid, padded_bins=B)
+                kw = dict(kind=self.stream.kind, sigmoid=self.stream.sigmoid)
+                if route.fused:
+                    self._root_hist = stream_refresh(rows, lv, padded_bins=B,
+                                                     **kw)
+                else:
+                    stream_refresh_plain(rows, lv, **kw)
         return ta, leaf_id, leaf_value
 
 

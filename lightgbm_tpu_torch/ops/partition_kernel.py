@@ -1,15 +1,21 @@
 """Partition of one leaf segment of the row matrix: the wrappers of
-``csrc/partition.cu`` (scan and copyback), their launch counts and their
-plain PyTorch versions.
+``csrc/partition.cu`` (scan and copyback) and ``csrc/partition_3ph.cu``
+(the 3-phase partition), their launch counts and their plain PyTorch
+versions.
 
 Counterpart of ``lightgbm_tpu/ops/pallas/partition_kernel2.py``
 (``make_partition_ss`` with ``partition_kernel3.make_partition_perm``'s
-packing, and ``copyback_call``).  The split descriptor keeps the layout
-of ``partition_kernel.py`` (``SEL_S0 .. SEL_NANB``) and the predicate
-is ``_go_left``'s.  After :func:`partition` the segment holds its left
+packing, and ``copyback_call``) and of
+``lightgbm_tpu/ops/pallas/partition_kernel.py`` (``make_partition``,
+behind ``LGBM_TPU_PART=3ph``).  The split descriptor keeps the layout
+of ``partition_kernel.py`` (``SEL_S0 .. SEL_NANB``, and optionally
+membership words from ``SEL_MEMBER`` on) and the predicate is
+``_go_left``'s.  After :func:`partition` the segment holds its left
 rows in their original order, then its right rows in reversed original
-order, exactly as the compiled TPU kernel leaves it; rows outside the
-segment are untouched.
+order, exactly as the compiled single-scan TPU kernel leaves it; after
+:func:`partition_3ph` the right rows come in ascending original order,
+as the 3-phase kernel writes them.  Rows outside the segment are
+untouched.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
@@ -26,17 +32,36 @@ from ..utils.log import LightGBMError
 from . import _build
 from .device_data import Rows
 
-# split descriptor layout (lightgbm_tpu/ops/pallas/partition_kernel.py)
+# split descriptor layout (lightgbm_tpu/ops/pallas/partition_kernel.py):
+# seven slots (an eighth is spare), then optionally membership words
 SEL_S0, SEL_CNT, SEL_FEAT, SEL_SBIN, SEL_DL, SEL_CAT, SEL_NANB = range(7)
+SEL_MEMBER = 8
+# membership words a descriptor may carry (layout.CAT_BITSET_WORDS)
+MAX_MEMBER_WORDS = 8
 # rows per block of the scan kernels (csrc/partition.cu kTile)
 SCAN_TILE = 1024
 
 
+def member_words(sel: Sequence[int]) -> list:
+    """The descriptor's membership words as u32 values (empty without
+    them); i32 words with bit 31 set are read as their u32 bits."""
+    return [int(w) & 0xFFFFFFFF for w in sel[SEL_MEMBER:]]
+
+
 def go_left(col: torch.Tensor, sel: Sequence[int]) -> torch.Tensor:
     """The go-left predicate of ``partition_kernel._go_left`` on the
-    split column's integer bins."""
+    split column's integer bins.  A descriptor longer than
+    ``SEL_MEMBER`` carries membership words: a categorical row then
+    goes left when bit ``bin % 32`` of word ``bin // 32`` is set (a bin
+    past the last word goes right); numerical splits ignore them."""
+    words = member_words(sel)
     if sel[SEL_CAT]:
-        return col == sel[SEL_SBIN]
+        if not words:
+            return col == sel[SEL_SBIN]
+        w = torch.tensor(words + [0], dtype=torch.int64, device=col.device)
+        c = col.to(torch.int64)
+        word = w[torch.clamp(c >> 5, max=len(words))]
+        return ((word >> (c & 31)) & 1) > 0
     nanb = sel[SEL_NANB]
     at_nan = (col == nanb) if nanb >= 0 else torch.zeros_like(col,
                                                              dtype=torch.bool)
@@ -58,6 +83,26 @@ def partition_scan_ref(rows: Rows, scratch: Rows, sel: Sequence[int],
                        torch.nonzero(~gl).flatten().flip(0)]) + s0
     for src, dst in zip(rows, scratch):
         dst[s0:s0 + cnt] = src[order]
+    nleft.fill_(int(gl.sum()))
+    return nleft
+
+
+def partition_3ph_ref(rows: Rows, scratch: Rows, sel: Sequence[int],
+                      nleft: torch.Tensor) -> torch.Tensor:
+    """Plain version of the 3-phase partition: the segment goes through
+    ``scratch`` (left rows in order, then right rows in order) back into
+    ``rows``; its left count goes to ``nleft`` (i32 [1])."""
+    s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
+    if cnt <= 0:
+        nleft.zero_()
+        return nleft
+    col = rows.bins[s0:s0 + cnt, int(sel[SEL_FEAT])].to(torch.int32)
+    gl = go_left(col, sel)
+    order = torch.cat([torch.nonzero(gl).flatten(),
+                       torch.nonzero(~gl).flatten()]) + s0
+    for src, dst in zip(rows, scratch):
+        dst[s0:s0 + cnt] = src[order]
+    copyback_ref(rows, scratch, s0, cnt)
     nleft.fill_(int(gl.sum()))
     return nleft
 
@@ -132,6 +177,15 @@ def _lib():
     return lib
 
 
+@functools.lru_cache(maxsize=1)
+def _lib_3ph():
+    lib = _build.load("partition_3ph")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.partition_3ph.argtypes = [p] * 12 + [i] * 9 + [p, p]
+    lib.partition_3ph.restype = i
+    return lib
+
+
 def partition_scan(rows: Rows, scratch: Rows, sel: Sequence[int],
                    nleft: torch.Tensor) -> torch.Tensor:
     """Scan the segment ``sel`` describes into ``scratch`` and write its
@@ -193,6 +247,49 @@ def copyback(rows: Rows, scratch: Rows, s0: int, cnt: int) -> None:
     return None
 
 
+def partition_3ph(rows: Rows, scratch: Rows, sel: Sequence[int],
+                  nleft: torch.Tensor) -> torch.Tensor:
+    """The 3-phase partition of the segment ``sel`` describes, in place
+    (through ``scratch``), its left count into ``nleft``.  CPU tensors
+    take :func:`partition_3ph_ref`; CUDA tensors launch the kernel's
+    three passes on the current stream (one launch in the count).
+    ``cnt == 0`` (a dead split) writes ``nleft = 0`` and launches
+    nothing."""
+    dev = rows.bins.device
+    if dev.type == "cpu":
+        return partition_3ph_ref(rows, scratch, sel, nleft)
+    if dev.type != "cuda":
+        raise LightGBMError(f"partition_3ph runs on cuda or cpu, not {dev}")
+    check_rows(rows, scratch, nleft)
+    s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
+    check_segment(rows, s0, cnt)
+    words = member_words(sel)
+    if len(words) > MAX_MEMBER_WORDS:
+        raise LightGBMError(f"a split descriptor carries at most "
+                            f"{MAX_MEMBER_WORDS} membership words, not "
+                            f"{len(words)}")
+    if cnt == 0:
+        nleft.zero_()
+        return nleft
+    f = rows.bins.shape[1]
+    if not 0 <= int(sel[SEL_FEAT]) < f:
+        raise LightGBMError(f"split feature {sel[SEL_FEAT]} outside [0, {f})")
+    tiles = -(-cnt // SCAN_TILE)
+    tile_left = torch.empty(tiles, dtype=torch.int32, device=dev)
+    words_c = (ctypes.c_uint32 * max(len(words), 1))(*words)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib_3ph().partition_3ph(
+            *row_pointers(rows), *row_pointers(scratch),
+            tile_left.data_ptr(), nleft.data_ptr(), f, s0, cnt,
+            *split_args(sel), len(words), words_c, stream)
+    if rc != 0:
+        raise LightGBMError(f"partition_3ph kernel launch failed with CUDA "
+                            f"error {rc}")
+    partition_3ph.launches += 1
+    return nleft
+
+
 def partition(rows: Rows, scratch: Rows, sel: Sequence[int],
               nleft: torch.Tensor) -> torch.Tensor:
     """The split's partition: scan into scratch, then copy back (the
@@ -204,3 +301,4 @@ def partition(rows: Rows, scratch: Rows, sel: Sequence[int],
 
 partition_scan.launches = 0
 copyback.launches = 0
+partition_3ph.launches = 0

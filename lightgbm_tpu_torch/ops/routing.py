@@ -5,7 +5,7 @@ Counterpart of the serial-learner part of ``lightgbm_tpu/ops/routing.py``
 ``:182-202``, the stream rules at ``:211-236`` and the ``fused``
 decision of ``decide``, ``:383-413``) and of the split-tail choice in
 ``lightgbm_tpu/ops/grow.py`` (``use_kernel_tail``, ``:879-888`` and
-``:1224-1262``).  A route is four choices:
+``:1224-1262``).  A route is these choices:
 
 - ``physical``: the physically partitioned row matrix, or the
   ``row_order`` path (an index vector partitioned per split, histograms
@@ -16,9 +16,22 @@ decision of ``decide``, ``:383-413``) and of the split-tail choice in
 - ``stream``: score-resident gradients (``ops/stream_grad.py``) or the
   objective's gradients gathered into the rows per tree (slice 2);
 - ``fused``: the fused partition + dual histogram (``ops/fused_split.py``)
-  or the partition scan and the smaller child's histogram;
+  or the partition and the smaller child's histogram;
+- ``scheme``: the partition of the unfused split, ``permute`` (the
+  single-scan kernel and its copyback) or ``3ph`` (``LGBM_TPU_PART=3ph``,
+  the 3-phase kernel ``partition_3ph``, which keeps the unfused pipeline:
+  rule ``part_3ph``, ``grow.py:747-750``); ``none`` off the physical
+  path;
 - ``tail``: ``kernel`` (``ops/apply_find.py``) or ``xla``, the PyTorch
-  split tail of slice 2 (the name is the JAX package's).
+  split tail of slice 2 (the name is the JAX package's); with
+  ``pool_tail`` off (``LGBM_TPU_POOL_TAIL=0``, ``grow.py:1253-1262``)
+  the kernel tail is the plain-pool entry ``apply_find`` after the pool
+  ops in PyTorch;
+- ``pack``: rows per 128-lane line of the JAX package's comb
+  (``LGBM_TPU_COMB_PACK``, its pack rules at ``:237-245`` and
+  ``:398-406``).  The port has no pack=2 kernels (ROADMAP B9): a
+  decision for pack=2 raises in :func:`require_ported`, where the JAX
+  package would train them.
 
 On ``row_order``, ``stream`` and ``fused`` are off: both move rows of
 the physical matrix, and their reason is the path itself.  The knobs are
@@ -30,10 +43,19 @@ it raises.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Tuple
 
 from ..config import env_knob
+from ..utils.log import LightGBMError
+
+# the JAX package's comb layout: logical columns of a pack=2 half line
+# (layout.PACK_W), and the columns beside the bins (routing.py:315,
+# stream_grad.stream_columns: COL_CONSTS + N_CONSTS[kind])
+PACK_W = 64
+NON_STREAM_EXTRA_COLS = 6
+STREAM_EXTRA_COLS = {"binary": 13, "l2": 15}
+PACK_REQUIRES_PHYSICAL = "pack_requires_physical"
 
 
 @dataclass(frozen=True)
@@ -52,6 +74,10 @@ class RouteInputs:
     apply_impl_env: str = "kernel"
     fused_ok: bool = True            # fused_split.fused_supported
     tail_ok: bool = True             # apply_find.apply_find_supported
+    part_env: str = "ss"             # LGBM_TPU_PART: ss | 3ph
+    pool_tail_env: str = "1"
+    pack_env: str = "1"              # LGBM_TPU_COMB_PACK: 1 | 2
+    wide_layout: bool = False        # JAX comb columns > PACK_W
 
 
 @dataclass(frozen=True)
@@ -100,6 +126,9 @@ RULES: Tuple[Rule, ...] = (
          "the fused partition+histogram split disabled by "
          "LGBM_TPU_FUSED=0",
          lambda i: i.fused_env == "0"),
+    Rule("part_3ph", "fused", "LGBM_TPU_PART",
+         "the 3-phase partition kernel keeps the unfused pipeline",
+         lambda i: i.part_env == "3ph"),
     Rule("fused_smem", "fused", "max_bin",
          "one block's shared histogram and row staging exceed the card's "
          "227 KB of shared memory (fused_split.fused_supported)",
@@ -113,6 +142,19 @@ RULES: Tuple[Rule, ...] = (
          lambda i: not i.tail_ok),
 )
 
+# the pack rules, read only for a pack=2 request on the physical path;
+# their names go to RouteDecision.pack_reasons, as in the JAX package
+PACK_RULES: Tuple[Rule, ...] = (
+    Rule("pack_layout_too_wide", "pack", "LGBM_TPU_COMB_PACK",
+         "padded features + value/rid/stream columns exceed the "
+         "64-lane half-line budget (layout.PACK_W)",
+         lambda i: i.wide_layout),
+    Rule("pack_part_3ph", "pack", "LGBM_TPU_PART",
+         "the 3-phase partition kernel has no pack=2 variant "
+         "(config.check_conflicts refuses the combo at runtime)",
+         lambda i: i.part_env == "3ph"),
+)
+
 
 @dataclass(frozen=True)
 class RouteDecision:
@@ -121,6 +163,10 @@ class RouteDecision:
     tail: str                        # kernel | xla
     reasons: Tuple[str, ...] = ()    # the rules that blocked a faster part
     physical: bool = True
+    scheme: str = "permute"          # permute | 3ph | none (row_order)
+    pool_tail: bool = True           # the kernel tail's pool entry
+    pack: int = 1
+    pack_reasons: Tuple[str, ...] = ()   # why a pack=2 request got pack=1
 
     @property
     def path(self) -> str:
@@ -129,32 +175,87 @@ class RouteDecision:
         return "stream" if self.stream else "physical"
 
     def describe(self) -> str:
+        """``path=.. fused=.. tail=.. (reasons)``; the scheme is named
+        when it is ``3ph`` and the pool tail when it is off."""
         why = f" ({', '.join(self.reasons)})" if self.reasons else ""
-        return (f"path={self.path} fused={int(self.fused)} "
-                f"tail={self.tail}{why}")
+        scheme = " scheme=3ph" if self.scheme == "3ph" else ""
+        pool = (" pool_tail=0" if self.tail == "kernel" and not self.pool_tail
+                else "")
+        return (f"path={self.path}{scheme} fused={int(self.fused)} "
+                f"tail={self.tail}{pool}{why}")
 
 
 def inputs_from_env(environ=None, **kw) -> RouteInputs:
-    """RouteInputs with the four knobs read through ``env_knob``."""
+    """RouteInputs with the route knobs read through ``env_knob``.
+    ``LGBM_TPU_PART`` other than ``ss`` / ``3ph`` and
+    ``LGBM_TPU_COMB_PACK`` other than ``1`` / ``2`` raise."""
+    part = env_knob("LGBM_TPU_PART", environ)
+    if part not in ("ss", "3ph"):
+        raise LightGBMError(f"LGBM_TPU_PART must be ss or 3ph (got {part!r})")
+    pack = env_knob("LGBM_TPU_COMB_PACK", environ)
+    if pack not in ("1", "2"):
+        raise LightGBMError(f"LGBM_TPU_COMB_PACK must be 1 or 2 (got "
+                            f"{pack!r})")
     return RouteInputs(
         phys_env=env_knob("LGBM_TPU_PHYS", environ),
         stream_env=env_knob("LGBM_TPU_STREAM", environ),
         fused_env=env_knob("LGBM_TPU_FUSED", environ),
-        apply_impl_env=env_knob("LGBM_TPU_APPLY_IMPL", environ), **kw)
+        apply_impl_env=env_knob("LGBM_TPU_APPLY_IMPL", environ),
+        part_env=part, pack_env=pack,
+        pool_tail_env=env_knob("LGBM_TPU_POOL_TAIL", environ), **kw)
+
+
+def jax_feature_pad(num_features: int, padded_bins: int) -> int:
+    """The JAX package's padded feature count of a dataset
+    (``device_data.to_device``: whole histogram matmul groups of
+    ``histogram.feature_group_size``)."""
+    g = max(min(128 // max(padded_bins // 16, 1), 16), 1)
+    return -(-max(num_features, 1) // g) * g
+
+
+def resolve_layout(i: RouteInputs, *, num_features: int,
+                   padded_bins: int) -> RouteInputs:
+    """``i`` with ``wide_layout`` from the JAX comb's columns
+    (``routing.resolve_layout``): the padded features plus the stream
+    or the plain layout's extra columns, by a provisional decision
+    (pack never feeds back into the stream decision)."""
+    extra = (STREAM_EXTRA_COLS[i.objective_kind] if decide(i).stream
+             else NON_STREAM_EXTRA_COLS)
+    cols = jax_feature_pad(num_features, padded_bins) + extra
+    return replace(i, wide_layout=cols > PACK_W)
 
 
 def decide(i: RouteInputs) -> RouteDecision:
     """Evaluate the rule table; pure.  Off the physical path the stream
-    and fused rules are not read."""
+    and fused rules are not read, and the scheme is ``none``."""
     blocked = {k: [r.name for r in RULES if r.blocks == k and r.pred(i)]
                for k in ("physical", "stream", "fused", "tail")}
     physical = not blocked["physical"]
     if not physical:
         blocked["stream"] = blocked["fused"] = []
+    pack, pack_reasons = 1, ()
+    if i.pack_env == "2":
+        pack_reasons = ((PACK_REQUIRES_PHYSICAL,) if not physical else
+                        tuple(r.name for r in PACK_RULES if r.pred(i)))
+        pack = 1 if pack_reasons else 2
+    tail = "xla" if blocked["tail"] else "kernel"
     return RouteDecision(
         stream=physical and not blocked["stream"],
         fused=physical and not blocked["fused"],
-        tail="xla" if blocked["tail"] else "kernel",
+        tail=tail,
         reasons=tuple(blocked["physical"] + blocked["stream"]
                       + blocked["fused"] + blocked["tail"]),
-        physical=physical)
+        physical=physical,
+        scheme=(("3ph" if i.part_env == "3ph" else "permute") if physical
+                else "none"),
+        pool_tail=tail == "kernel" and i.pool_tail_env != "0",
+        pack=pack, pack_reasons=pack_reasons)
+
+
+def require_ported(d: RouteDecision) -> None:
+    """Raise for a decision the port has no kernels for: pack=2."""
+    if d.pack == 2:
+        raise LightGBMError(
+            "LGBM_TPU_COMB_PACK=2 selects the pack=2 kernels (two rows per "
+            "128-lane comb line), which are not ported to lightgbm_tpu_torch "
+            "yet (see ROADMAP.md, B9); unset it to train with pack=1")

@@ -1,18 +1,20 @@
 """Score-resident gradients: the wrappers of ``csrc/stream_grad.cu``
-(stream init and refresh), their launch counts and their plain PyTorch
-versions.
+(stream init, the refresh with the next root histogram and the plain
+refresh), their launch counts and their plain PyTorch versions.
 
 Counterpart of ``lightgbm_tpu/ops/pallas/stream_grad.py`` (``make_init``
-and ``make_refresh`` with ``root_hist=True``, pack=1).  On the stream
-route the row matrix carries each row's raw score and its objective's
-two constants (:class:`~.device_data.Rows`), so the per-tree gradient
-refresh is one in-place pass over the rows by position, with no gather
-by row id: ``s = score + lv`` (``lv`` the per-position score delta,
-shrinkage times the output of the leaf owning the position), then
-``g*w, h*w`` from ``s`` and the constants.  The same pass accumulates
-the next tree's root histogram, laid out exactly as ``hist_comb`` over
+and ``make_refresh`` with ``root_hist=True`` and ``root_hist=False``,
+pack=1).  On the stream route the row matrix carries each row's raw
+score and its objective's two constants (:class:`~.device_data.Rows`),
+so the per-tree gradient refresh is one in-place pass over the rows by
+position, with no gather by row id: ``s = score + lv`` (``lv`` the
+per-position score delta, shrinkage times the output of the leaf owning
+the position), then ``g*w, h*w`` from ``s`` and the constants
+(:func:`stream_refresh_plain`, the unfused routes').  On the fused route
+the same pass accumulates the next tree's root histogram
+(:func:`stream_refresh`), laid out exactly as ``hist_comb`` over
 ``[0, n)`` with ``max_rows = n``, so it equals the histogram the unfused
-route builds at the next tree's start, bit for bit.
+routes build at the next tree's start, bit for bit.
 
 The gradient arithmetic is the objectives' own (``binary_gradients``,
 ``l2_gradients``): the CPU route and slice 2's route compute the same
@@ -67,16 +69,24 @@ def stream_init_ref(bins: torch.Tensor, score: torch.Tensor,
                 score.clone(), consts.clone())
 
 
-def stream_refresh_ref(rows: Rows, lv: torch.Tensor, *, kind: str,
-                       sigmoid: float, padded_bins: int) -> torch.Tensor:
-    """Plain version of the refresh: every position's score gains
-    ``lv``, g*w and h*w are recomputed in place, and the next tree's
-    root histogram [F, B, 2] is returned (``hist_comb`` over [0, n))."""
+def stream_refresh_plain_ref(rows: Rows, lv: torch.Tensor, *, kind: str,
+                             sigmoid: float) -> None:
+    """Plain version of the plain refresh (``_xla_refresh``'s contract):
+    every position's score gains ``lv`` and g*w, h*w are recomputed in
+    place from it."""
     s = rows.score + lv
     g, h = stream_gradients(kind, sigmoid, s, rows.consts, rows.vals[:, 2])
     rows.score.copy_(s)
     rows.vals[:, 0] = g
     rows.vals[:, 1] = h
+
+
+def stream_refresh_ref(rows: Rows, lv: torch.Tensor, *, kind: str,
+                       sigmoid: float, padded_bins: int) -> torch.Tensor:
+    """Plain version of the refresh: the plain refresh, then the next
+    tree's root histogram [F, B, 2] is returned (``hist_comb`` over
+    [0, n))."""
+    stream_refresh_plain_ref(rows, lv, kind=kind, sigmoid=sigmoid)
     n = rows.bins.shape[0]
     rng = torch.tensor([0, 0, n], dtype=torch.int32, device=rows.bins.device)
     return build_histogram_comb_ref(rows, rng, padded_bins=padded_bins,
@@ -93,6 +103,8 @@ def _lib():
     lib.stream_refresh.restype = i
     lib.stream_refresh_smem_bytes.argtypes = [i, i]
     lib.stream_refresh_smem_bytes.restype = i
+    lib.stream_refresh_plain.argtypes = [p] * 4 + [i] * 2 + [f, p]
+    lib.stream_refresh_plain.restype = i
     return lib
 
 
@@ -173,5 +185,33 @@ def stream_refresh(rows: Rows, lv: torch.Tensor, *, kind: str,
     return out
 
 
+def stream_refresh_plain(rows: Rows, lv: torch.Tensor, *, kind: str,
+                         sigmoid: float) -> None:
+    """Refresh the rows in place with the per-position score delta
+    ``lv`` [n], with no histogram.  CPU tensors take
+    :func:`stream_refresh_plain_ref`; CUDA tensors launch the kernel."""
+    dev = rows.bins.device
+    if dev.type == "cpu":
+        return stream_refresh_plain_ref(rows, lv, kind=kind, sigmoid=sigmoid)
+    if dev.type != "cuda":
+        raise LightGBMError(f"stream_refresh_plain runs on cuda or cpu, not "
+                            f"{dev}")
+    check_rows(rows, rows)
+    n = rows.bins.shape[0]
+    _check_vec(lv, (n,), dev, "lv")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().stream_refresh_plain(
+            rows.vals.data_ptr(), rows.score.data_ptr(),
+            rows.consts.data_ptr(), lv.data_ptr(), n, KINDS[kind],
+            float(sigmoid), stream)
+    if rc != 0:
+        raise LightGBMError(f"stream_refresh_plain kernel launch failed with "
+                            f"CUDA error {rc}")
+    stream_refresh_plain.launches += 1
+    return None
+
+
 stream_init.launches = 0
 stream_refresh.launches = 0
+stream_refresh_plain.launches = 0

@@ -13,21 +13,25 @@ stream init and refresh, the fused split and the split tail (slice 3)
 bitwise: rows, nleft and state rows equal their plain versions', the
 refresh's root histogram and the fused split's two histograms equal
 hist_comb's of the same ranges.  The row-indexed histogram (slice 4)
-bitwise its plain version run on CPU copies of the inputs.  Trees grown
-on the card equal the CPU run's (structure, and leaf values within 1e-5
-of the tree's largest leaf; bit for bit on the default and row-order
-routes), and the default route's equal slice 2's route's bit for bit.
+bitwise its plain version run on CPU copies of the inputs.  The 3-phase
+partition and the plain refresh (slice 5) bitwise their plain versions.
+Trees grown on the card equal the CPU run's (structure, and leaf values
+within 1e-5 of the tree's largest leaf; bit for bit on the default,
+row-order and 3ph routes), and the default route's equal slice 2's
+route's and the ``LGBM_TPU_POOL_TAIL=0`` route's bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 import lightgbm_tpu_torch as lgt
-from chip_smoke import (apply_find_parity, compare_trees, fused_parity,
-                        hist_parity, hist_rows_case, leaves_bitwise,
-                        make_higgs_like, make_rows, partition_parity,
-                        random_model_text, random_row_matrix, rows_on,
-                        score_tolerance, stream_parity)
+from chip_smoke import (apply_find_parity, compare_trees,
+                        expected_launches, fused_parity, hist_parity,
+                        hist_rows_case, leaves_bitwise, make_higgs_like,
+                        make_rows, partition_3ph_parity, partition_parity,
+                        random_model_text, random_row_matrix,
+                        refresh_plain_parity, rows_on, score_tolerance,
+                        stream_parity)
 from lightgbm_tpu_torch.ops import predict as tpred
 from lightgbm_tpu_torch.ops import serve_kernel as tkern
 
@@ -292,3 +296,80 @@ def test_row_order_on_card_matches_cpu(cuda, max_bin, env, monkeypatch):
     res = compare_trees(card._models, cpu._models)
     assert res["ok"], res
     assert leaves_bitwise(card._models, cpu._models)
+
+
+# -- slice 5: the 3-phase partition, the plain refresh, the pool tail ---
+WORDS = [0x0F0F0F0F, 0x12345678, -0x7FFF0000, 0, 0x7FFFFFFF, 0x55555555,
+         0x00010001, -0x80000000]
+
+
+@pytest.mark.parametrize("sel", [
+    (0, 20_000, 0, 100, 1, 0, 200),      # NaN bin routed left
+    (333, 5001, 0, 90, 0, 0, 200),       # NaN bin routed right
+    (17, 4000, 3, 7, 0, 1, -1),          # one-hot categorical
+    (2047, 3001, 5, 0, 0, 1, -1, 0, *WORDS),   # bitset, bit 31 words
+    (5, 19_990, 2, 199, 0, 0, -1),       # nearly all rows left
+    (1, 1, 2, 50, 0, 0, -1),             # one row
+    (100, 0, 1, 10, 0, 0, -1),           # dead split: no launch
+])
+def test_partition_3ph_matches_plain(cuda, sel):
+    """partition_3ph vs its plain version on the card and on CPU copies:
+    identical bytes of the whole matrix and nleft, one launch."""
+    r = random_row_matrix(20_000, 6, 9, n_bins=201, nan_bin=200)
+    r[0][:, 5] = np.random.default_rng(10).integers(0, 256, 20_000)
+    partition_3ph_parity(rows_on(r, cuda), sel, "test")
+
+
+@pytest.mark.parametrize("kind,sigmoid", [("binary", 1.0), ("binary", 0.7),
+                                          ("l2", 1.0)])
+def test_stream_refresh_plain_matches_plain(cuda, kind, sigmoid):
+    rows = rows_on(random_row_matrix(20_011, 7, 14), cuda)
+    rec = refresh_plain_parity(rows.bins, kind, 256, "test", sigmoid=sigmoid)
+    assert rec["cpu_plain_identical"]
+
+
+@pytest.mark.parametrize("env", [{"LGBM_TPU_PART": "3ph"},
+                                 {"LGBM_TPU_POOL_TAIL": "0"},
+                                 {"LGBM_TPU_FUSED": "0"}])
+def test_slice5_routes_on_card_match_cpu(cuda, env, monkeypatch):
+    """The 3ph route, LGBM_TPU_POOL_TAIL=0 and the stream route without
+    the fused split on the card grow the CPU run's trees bit for bit,
+    launching each kernel as many times as the route says; the latter
+    two grow the default route's trees bit for bit."""
+    from chip_smoke import ROUTE_KNOBS
+    from lightgbm_tpu_torch.ops import (apply_find, fused_split,
+                                        hist_kernel2, partition_kernel,
+                                        stream_grad)
+    for k in ROUTE_KNOBS:
+        monkeypatch.delenv(k, raising=False)
+    x, y = make_higgs_like(6000, 8, seed=7)
+    x[np.random.default_rng(7).random(x.shape) < 0.1] = np.nan
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+    default = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                        device="cuda")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    fns = {"stream_init": stream_grad.stream_init,
+           "stream_refresh": stream_grad.stream_refresh,
+           "stream_refresh_plain": stream_grad.stream_refresh_plain,
+           "build_histogram_comb": hist_kernel2.build_histogram_comb,
+           "partition_scan": partition_kernel.partition_scan,
+           "partition_3ph": partition_kernel.partition_3ph,
+           "fused_split": fused_split.fused_split,
+           "copyback": partition_kernel.copyback,
+           "apply_find_pool": apply_find.apply_find_pool,
+           "apply_find": apply_find.apply_find,
+           "build_histogram_rows": hist_kernel2.build_histogram_rows}
+    before = {k: f.launches for k, f in fns.items()}
+    card = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                     device="cuda")
+    got = {k: f.launches - before[k] for k, f in fns.items()}
+    splits = sum(t.num_leaves - 1 for t in card._models)
+    assert got == expected_launches(card._inner.grow.route, 3, splits)
+    cpu = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                    device="cpu")
+    res = compare_trees(card._models, cpu._models)
+    assert res["ok"], res
+    assert leaves_bitwise(card._models, cpu._models)
+    if "LGBM_TPU_PART" not in env:
+        assert leaves_bitwise(card._models, default._models)

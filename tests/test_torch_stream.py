@@ -172,6 +172,7 @@ def test_each_rule_blocks_its_part(rule):
           "linear_tree": {"linear_tree": True},
           "mesh_stream_unwired": {"learner": "data"},
           "fused_env_off": {"fused_env": "0"},
+          "part_3ph": {"part_env": "3ph"},
           "fused_smem": {"fused_ok": False},
           "tail_env_xla": {"apply_impl_env": "xla"},
           "tail_smem": {"tail_ok": False},

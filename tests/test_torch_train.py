@@ -326,6 +326,13 @@ def test_training_imports_no_jax():
         "b.predict(x)\n"
         "assert b._inner.grow.route.describe() == "
         "'path=stream fused=1 tail=kernel'\n"
+        "import os; os.environ['LGBM_TPU_PART'] = '3ph'\n"
+        "os.environ['LGBM_TPU_POOL_TAIL'] = '0'\n"
+        "b = lgt.train({'objective': 'binary', 'num_leaves': 7,\n"
+        "               'verbosity': -1}, lgt.Dataset(x, label=y),\n"
+        "              num_boost_round=2, device='cpu')\n"
+        "assert b._inner.grow.route.describe() == ('path=stream scheme=3ph "
+        "fused=0 tail=kernel pool_tail=0 (part_3ph)')\n"
         "bad = [m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'lightgbm_tpu' "
         "or m.startswith('lightgbm_tpu.')]\n"
