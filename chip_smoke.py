@@ -54,7 +54,18 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    trees held against the default route's bit for bit; one profiled
    iteration of each route but the last, its kernels counted per split
    and per stage;
-6. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+6. pack=2 (slice 6, ``LGBM_TPU_COMB_PACK=2``, one record per row): the
+   five record kernels (``stream_init_p2``, ``hist_comb_p2``,
+   ``fused_split_p2``, ``copyback_p2``, ``stream_refresh_p2``) bitwise
+   against their plain versions and against their pack=1 kernels on the
+   same logical rows, at 1,000,000 x 28 (S = 64: the root, the 1M-row
+   segment, a segment at an odd offset of odd length, a dead split) and
+   at 250,000 x 40 (S = 80), each timed beside its pack=1 kernel; the
+   pack=2 route card against device="cpu" (50,000 rows, 3 trees,
+   bitwise); its main path (1M x 28, 255 leaves, 10 iterations) counted,
+   its trees held against the default route's bit for bit, and one
+   profiled iteration;
+7. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times, then the device line last.
 
 The forests and rows are generated from seeds: the card's machine has
@@ -959,10 +970,11 @@ SLICE2_PARITY_TREES = 1
 ROUTE_KNOBS = ("LGBM_TPU_STREAM", "LGBM_TPU_FUSED", "LGBM_TPU_APPLY_IMPL",
                "LGBM_TPU_PHYS", "LGBM_TPU_HIST_IMPL", "LGBM_TPU_PART",
                "LGBM_TPU_POOL_TAIL", "LGBM_TPU_COMB_PACK")
-# the port's kernels (PERF.md rows 1-7, 10, 12-14, 16)
+# the port's kernels (PERF.md rows 1-7, 9-16)
 OUR_KERNEL_NAMES = ("hist_comb", "partition_", "partition3ph", "copy_span",
                     "count_tiles", "left_prefix", "fused_scatter",
-                    "reduce_partials", "stream_", "apply_find", "hist_rows")
+                    "reduce_partials", "stream_", "apply_find", "hist_rows",
+                    "copy_records")
 
 
 @contextlib.contextmanager
@@ -1523,12 +1535,16 @@ def expected_launches(route, trees: int, splits: int) -> dict:
     carries each next root histogram out of its refresh (tree 0's from
     hist_comb), the unfused routes build every root with hist_comb and
     refresh without one; per split the fused split + copyback, the scan
-    + copyback or the 3-phase partition, and the tail's kernel entry."""
+    + copyback or the 3-phase partition, and the tail's kernel entry.
+    At pack=2 the record kernels take the pack=1 kernels' places on the
+    fused route."""
     kernel_tail = route.tail == "kernel"
     expect = dict.fromkeys(
         ("stream_init", "stream_refresh", "stream_refresh_plain",
          "build_histogram_comb", "partition_scan", "partition_3ph",
-         "fused_split", "copyback", "build_histogram_rows"), 0)
+         "fused_split", "copyback", "build_histogram_rows",
+         "stream_init_p2", "stream_refresh_p2", "build_histogram_comb_p2",
+         "fused_split_p2", "copyback_p2"), 0)
     expect["apply_find_pool"] = splits if kernel_tail and route.pool_tail \
         else 0
     expect["apply_find"] = splits if kernel_tail and not route.pool_tail \
@@ -1538,6 +1554,14 @@ def expected_launches(route, trees: int, splits: int) -> dict:
         return expect
     stream, fused = route.stream, route.fused
     three = route.scheme == "3ph"
+    if route.pack == 2:
+        # the fused route's record kernels in the same places
+        expect.update(
+            stream_init_p2=1 if stream else 0,
+            stream_refresh_p2=trees if stream else 0,
+            build_histogram_comb_p2=1 if stream else trees,
+            fused_split_p2=splits, copyback_p2=splits)
+        return expect
     expect.update(
         stream_init=1 if stream else 0,
         stream_refresh=trees if stream and fused else 0,
@@ -1600,6 +1624,406 @@ def part_3ph_phases(gpu: str, ds, valid, x, bst_default) -> tuple:
     return bst, main, pool, parity
 
 
+# ---------------------------------------------------------------------
+# Slice 6: pack=2, one record per row on the default route
+PACK2 = {"LGBM_TPU_COMB_PACK": "2"}
+PACK2_WIDE_ROWS = 250_000
+PACK2_WIDE_FEATURES = 40
+
+
+def pack2_stream_case(bins, kind: str, padded_bins: int, label: str,
+                      seed: int = 5) -> dict:
+    """stream_init_p2 and stream_refresh_p2 against their plain versions
+    (the records byte for byte) and against stream_init / stream_refresh
+    on the same inputs (the records' fields bitwise the pack=1 rows, the
+    refresh's root histograms bitwise), the refresh's histogram bitwise
+    hist_comb_p2's over the refreshed records and within
+    4 * n * eps_f32 * max|v| of its plain version's; one counted launch
+    each."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import PackedRows
+    from lightgbm_tpu_torch.ops.hist_kernel2 import build_histogram_comb_p2
+    from lightgbm_tpu_torch.ops.stream_grad import (stream_init,
+                                                    stream_init_p2,
+                                                    stream_init_p2_ref,
+                                                    stream_refresh,
+                                                    stream_refresh_p2,
+                                                    stream_refresh_p2_ref)
+    dev = bins.device
+    n = bins.shape[0]
+    score, valid, consts = stream_aux(n, kind, seed, dev)
+    kw = dict(kind=kind, sigmoid=1.0)
+    launches = (stream_init_p2.launches, stream_refresh_p2.launches)
+    k2 = stream_init_p2(bins, score, valid, consts, **kw)
+    r2 = stream_init_p2_ref(bins, score, valid, consts, **kw)
+    k1 = stream_init(bins, score, valid, consts, **kw)
+    torch.cuda.synchronize()
+    rec = {"case": label, "n": n, "kind": kind, "stride": k2.layout.stride,
+           "init_identical": torch_equal(k2.buf, r2.buf),
+           "init_fields_pack1_identical": _rows_equal(k2.fields(), k1)}
+    r2 = PackedRows(k2.buf.clone(), k2.layout)
+    lv = torch.tensor(np.random.default_rng(seed + 1).normal(size=n) * 0.1,
+                      dtype=torch.float32, device=dev)
+    hk2 = stream_refresh_p2(k2, lv, padded_bins=padded_bins, **kw)
+    hr2 = stream_refresh_p2_ref(r2, lv, padded_bins=padded_bins, **kw)
+    hk1 = stream_refresh(k1, lv, padded_bins=padded_bins, **kw)
+    root = torch.tensor([0, 0, n], dtype=torch.int32, device=dev)
+    hc2 = build_histogram_comb_p2(k2, root, padded_bins=padded_bins,
+                                  max_rows=n)
+    torch.cuda.synchronize()
+    rec.update(
+        refresh_identical=torch_equal(k2.buf, r2.buf),
+        refresh_fields_pack1_identical=_rows_equal(k2.fields(), k1),
+        root_hist_bitwise_pack1=torch_equal(hk2, hk1),
+        root_hist_bitwise_hist_comb_p2=torch_equal(hk2, hc2),
+        max_abs_err=float((hk2 - hr2).abs().max()),
+        tol=hist_tolerance(k2.fields(), (0, 0, n)),
+        launched=[stream_init_p2.launches - launches[0],
+                  stream_refresh_p2.launches - launches[1]])
+    rec["ok"] = (rec["init_identical"] and rec["init_fields_pack1_identical"]
+                 and rec["refresh_identical"]
+                 and rec["refresh_fields_pack1_identical"]
+                 and rec["root_hist_bitwise_pack1"]
+                 and rec["root_hist_bitwise_hist_comb_p2"]
+                 and rec["max_abs_err"] <= rec["tol"]
+                 and rec["launched"] == [1, 1])
+    print("parity pack2 stream " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"the pack=2 stream kernels disagree: {rec}")
+    return rec
+
+
+def pack2_hist_case(rows, packed, rng, padded_bins: int, label: str) -> dict:
+    """hist_comb_p2 on the records against hist_comb on the same rows
+    (bitwise), against its plain version (within 4 * n * eps_f32 *
+    max|v|), two launches bitwise."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.hist_kernel2 import (
+        build_histogram_comb, build_histogram_comb_p2,
+        build_histogram_comb_p2_ref)
+    rng_t = torch.tensor(rng, dtype=torch.int32, device=rows.bins.device)
+    kw = dict(padded_bins=padded_bins, max_rows=max(int(rng[2]), 1))
+    launches = build_histogram_comb_p2.launches
+    k1 = build_histogram_comb_p2(packed, rng_t, **kw)
+    k2 = build_histogram_comb_p2(packed, rng_t, **kw)
+    p1 = build_histogram_comb(rows, rng_t, **kw)
+    ref = build_histogram_comb_p2_ref(packed, rng_t, **kw)
+    torch.cuda.synchronize()
+    rec = {"case": label, "range": list(rng), "stride": packed.layout.stride,
+           "bitwise_pack1": torch_equal(k1, p1),
+           "bitwise_repeat": torch_equal(k1, k2),
+           "max_abs_err": float((k1 - ref).abs().max()),
+           "tol": hist_tolerance(rows, rng),
+           "launched": build_histogram_comb_p2.launches - launches}
+    rec["ok"] = (rec["bitwise_pack1"] and rec["bitwise_repeat"]
+                 and rec["max_abs_err"] <= rec["tol"]
+                 and rec["launched"] == 2)
+    print("parity pack2 hist_comb " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"hist_comb_p2 disagrees: {rec}")
+    return rec
+
+
+def pack2_split_case(rows, packed, sel, padded_bins: int, label: str) -> dict:
+    """fused_split_p2 + copyback_p2 on copies of the records against
+    their plain versions (scratch segment and, after the copyback, the
+    whole record buffer byte for byte; histograms within 4 * n *
+    eps_f32 * max|v|) and against fused_split + copyback on the same
+    rows (fields, nleft and both histograms bitwise); one counted launch
+    each (none for a dead split)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import PackedRows, Rows
+    from lightgbm_tpu_torch.ops.fused_split import (child_ranges,
+                                                    fused_split,
+                                                    fused_split_p2,
+                                                    fused_split_p2_ref)
+    from lightgbm_tpu_torch.ops.partition_kernel import (copyback,
+                                                         copyback_p2,
+                                                         copyback_p2_ref)
+    dev = rows.bins.device
+    pk = PackedRows(packed.buf.clone(), packed.layout)
+    pp = PackedRows(packed.buf.clone(), packed.layout)
+    sk = PackedRows(torch.zeros_like(packed.buf), packed.layout)
+    sp = PackedRows(torch.zeros_like(packed.buf), packed.layout)
+    r1 = Rows(*(a.clone() for a in rows))
+    s1 = Rows(*(torch.zeros_like(a) for a in rows))
+    nk, npl, n1 = (torch.full((1,), v, dtype=torch.int32, device=dev)
+                   for v in (-1, -2, -3))
+    s0, cnt = int(sel[0]), int(sel[1])
+    launches = (fused_split_p2.launches, copyback_p2.launches)
+    hk = fused_split_p2(pk, sk, sel, nk, padded_bins=padded_bins)
+    hp = fused_split_p2_ref(pp, sp, sel, npl, padded_bins=padded_bins)
+    h1 = fused_split(r1, s1, sel, n1, padded_bins=padded_bins)
+    torch.cuda.synchronize()
+    seg = slice(s0, s0 + cnt)
+    rec = {"case": label, "s0": s0, "cnt": cnt, "nleft": int(nk),
+           "stride": packed.layout.stride,
+           "nleft_equal": int(nk) == int(npl) == int(n1),
+           "scan_identical": torch_equal(sk.buf[seg], sp.buf[seg]),
+           "scan_fields_pack1_identical": _rows_equal(
+               [a[seg] for a in sk.fields()], [a[seg] for a in s1]),
+           "hist_bitwise_pack1": torch_equal(hk, h1),
+           "max_abs_err": float((hk - hp).abs().max()) if cnt else 0.0,
+           "tol": max([hist_tolerance(sk.fields(), r) for r in
+                       child_ranges(s0, cnt, int(nk))] + [0.0])}
+    copyback_p2(pk, sk, s0, cnt)
+    copyback_p2_ref(pp, sp, s0, cnt)
+    copyback(r1, s1, s0, cnt)
+    torch.cuda.synchronize()
+    rec.update(rows_identical=torch_equal(pk.buf, pp.buf),
+               rows_fields_pack1_identical=_rows_equal(pk.fields(), r1),
+               outside_untouched=(torch_equal(pk.buf[:s0], packed.buf[:s0])
+                                  and torch_equal(pk.buf[s0 + cnt:],
+                                                  packed.buf[s0 + cnt:])),
+               launched=[fused_split_p2.launches - launches[0],
+                         copyback_p2.launches - launches[1]])
+    live = 1 if cnt > 0 else 0
+    rec["ok"] = (rec["nleft_equal"] and rec["scan_identical"]
+                 and rec["scan_fields_pack1_identical"]
+                 and rec["hist_bitwise_pack1"]
+                 and rec["max_abs_err"] <= rec["tol"]
+                 and rec["rows_identical"]
+                 and rec["rows_fields_pack1_identical"]
+                 and rec["outside_untouched"]
+                 and rec["launched"] == [live, live])
+    print("parity pack2 fused_split+copyback " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"fused_split_p2 / copyback_p2 disagree: {rec}")
+    return rec
+
+
+def pack2_cases(bins, prows, padded_bins: int, label: str) -> dict:
+    """Every pack=2 case at one width: the stream kernels on ``bins``
+    (binary and l2), the histogram and the split on the records of the
+    seeded row matrix ``prows`` (the root / the whole matrix, a range and
+    a segment at an odd offset of odd length, a dead split)."""
+    from lightgbm_tpu_torch.ops.device_data import pack_rows
+    n = prows.bins.shape[0]
+    packed = pack_rows(prows)
+    odd = (n // 10 | 1, n // 300 | 1, 0, 60, 1, 0, 254)
+    return {
+        "stream": [pack2_stream_case(bins, k, padded_bins, f"{label}_{k}")
+                   for k in ("binary", "l2")],
+        "hist": [pack2_hist_case(prows, packed, r, padded_bins, f"{label}_{c}")
+                 for c, r in (("root", (0, 0, n)),
+                              ("odd", (n // 3 | 1, 4, n // 4 | 1)))],
+        "split": [pack2_split_case(prows, packed, sel, padded_bins,
+                                   f"{label}_{c}")
+                  for c, sel in (("whole", (0, n, 0, 120, 1, 0, 254)),
+                                 ("odd_offset_odd_count", odd),
+                                 ("dead_split", (n // 2, 0, 2, 10, 0, 0,
+                                                 -1)))]}
+
+
+def pack2_kernels(gpu: str, ds) -> list:
+    """Slice 6: the five record kernels against their plain versions and
+    their pack=1 kernels at the main path's shapes (the training
+    matrix's real bins, 1M x 28, S = 64) and at 250,000 x 40 (S = 80),
+    then each one's time beside its pack=1 kernel's (taken in turns:
+    pack=1, pack=2, pack=2, pack=1) and its plain version's.  Returns the
+    five records, launches still 0."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import (PackedRows,
+                                                    RecordLayout, Rows,
+                                                    pack_rows)
+    from lightgbm_tpu_torch.ops.fused_split import (fused_split,
+                                                    fused_split_p2,
+                                                    fused_split_p2_ref)
+    from lightgbm_tpu_torch.ops.hist_kernel2 import (
+        build_histogram_comb, build_histogram_comb_p2,
+        build_histogram_comb_p2_ref)
+    from lightgbm_tpu_torch.ops.partition_kernel import (copyback,
+                                                         copyback_p2,
+                                                         copyback_p2_ref)
+    from lightgbm_tpu_torch.ops.stream_grad import (stream_init,
+                                                    stream_init_p2,
+                                                    stream_init_p2_ref,
+                                                    stream_refresh,
+                                                    stream_refresh_p2,
+                                                    stream_refresh_p2_ref)
+    dev = torch.device("cuda")
+    bins = torch.as_tensor(ds._binned.bin_matrix, device=dev)
+    n, f = bins.shape
+    b_pad = 256
+    parts = random_row_matrix(n, f, 11, nan_bin=254)
+    prows = rows_on((np.ascontiguousarray(
+        np.concatenate([parts[0][:, :1], ds._binned.bin_matrix[:, 1:]], 1)),
+        *parts[1:]), dev)
+    main = pack2_cases(bins, prows, b_pad, "1M_F28")
+    wide = random_row_matrix(PACK2_WIDE_ROWS, PACK2_WIDE_FEATURES, 13,
+                             nan_bin=254)
+    wide_rows = rows_on(wide, dev)
+    wide_cases = pack2_cases(wide_rows.bins, wide_rows, b_pad, "250000_F40")
+    del wide_rows
+
+    # times at the main path's shapes, L2 warm as in training
+    packed = pack_rows(prows)
+    scratch1 = Rows(*(torch.empty_like(a) for a in prows))
+    scratch2 = PackedRows(torch.empty_like(packed.buf), packed.layout)
+    sel = (0, n, 0, 120, 1, 0, 254)
+    nl = torch.zeros(1, dtype=torch.int32, device=dev)
+    root = torch.tensor([0, 0, n], dtype=torch.int32, device=dev)
+    score, valid, consts = stream_aux(n, "binary", 5, dev)
+    s_kw = dict(kind="binary", sigmoid=1.0)
+    srows1 = stream_init(bins, score, valid, consts, **s_kw)
+    srows2 = stream_init_p2(bins, score, valid, consts, **s_kw)
+    lv = torch.zeros(n, dtype=torch.float32, device=dev)
+    h_kw = dict(padded_bins=b_pad, max_rows=n)
+    pairs = {
+        "stream_init": (
+            lambda: stream_init(bins, score, valid, consts, **s_kw),
+            lambda: stream_init_p2(bins, score, valid, consts, **s_kw),
+            lambda: stream_init_p2_ref(bins, score, valid, consts, **s_kw)),
+        "hist_comb": (
+            lambda: build_histogram_comb(prows, root, **h_kw),
+            lambda: build_histogram_comb_p2(packed, root, **h_kw),
+            lambda: build_histogram_comb_p2_ref(packed, root, **h_kw)),
+        "fused_split": (
+            lambda: fused_split(prows, scratch1, sel, nl, padded_bins=b_pad),
+            lambda: fused_split_p2(packed, scratch2, sel, nl,
+                                   padded_bins=b_pad),
+            lambda: fused_split_p2_ref(packed, scratch2, sel, nl,
+                                       padded_bins=b_pad)),
+        "copyback": (
+            lambda: copyback(prows, scratch1, 0, n),
+            lambda: copyback_p2(packed, scratch2, 0, n),
+            lambda: copyback_p2_ref(packed, scratch2, 0, n)),
+        "stream_refresh": (
+            lambda: stream_refresh(srows1, lv, padded_bins=b_pad, **s_kw),
+            lambda: stream_refresh_p2(srows2, lv, padded_bins=b_pad, **s_kw),
+            lambda: stream_refresh_p2_ref(srows2, lv, padded_bins=b_pad,
+                                          **s_kw)),
+    }
+    t = {}
+    for name, (p1, p2, plain) in pairs.items():
+        a1, a2 = _time_ms(p1, 20), _time_ms(p2, 20)
+        b2, b1 = _time_ms(p2, 20), _time_ms(p1, 20)
+        t[name] = {"pack1_ms": (a1 + b1) / 2, "ms": (a2 + b2) / 2,
+                   "plain_ms": _time_ms(plain, 3)}
+    library_ms = library_hist_ms(prows.bins, prows.vals, b_pad)
+    print("pack2 kernel times [ms] at the main path's shapes "
+          + json.dumps(t) + f" [{gpu}]", flush=True)
+    del packed, scratch1, scratch2, srows1, srows2, prows
+
+    stride = RecordLayout(f).stride
+    row1 = f + ROW_EXTRA_BYTES
+    hist_out = f * b_pad * 2 * 4
+    def worst(kind: str) -> float:
+        return max(r["max_abs_err"] for r in main[kind] + wide_cases[kind])
+    # (name, source, replaces, pack=1 name, bytes at pack=2, bytes at
+    # pack=1, operations, max |err| vs plain)
+    specs = [
+        # reads bins, score, validity, two constants; writes every record
+        ("stream_init_p2", "lightgbm_tpu_torch/csrc/stream_grad.cu",
+         "lightgbm_tpu/ops/pallas/stream_grad.py:754", "stream_init",
+         n * (f + 16) + n * stride, n * (f + 16) + n * row1, 16 * n, 0.0),
+        # reads each row's bins and (g*w, h*w), writes the histogram
+        ("hist_comb_p2", "lightgbm_tpu_torch/csrc/hist_comb.cu",
+         "lightgbm_tpu/ops/pallas/hist_kernel2.py:225", "hist_comb",
+         n * (f + 8) + hist_out, n * (f + 8) + hist_out, 2 * n * f,
+         worst("hist")),
+        # reads and writes every record of the segment once, both
+        # histograms
+        ("fused_split_p2", "lightgbm_tpu_torch/csrc/fused_split.cu",
+         "lightgbm_tpu/ops/pallas/fused_split.py:417", "fused_split",
+         2 * n * stride + 2 * hist_out, 2 * n * row1 + 2 * hist_out,
+         2 * n * f, worst("split")),
+        ("copyback_p2", "lightgbm_tpu_torch/csrc/partition.cu",
+         "lightgbm_tpu/ops/pallas/partition_kernel3.py:562", "copyback",
+         2 * n * stride, 2 * n * row1, 0, 0.0),
+        # reads bins, score, w, two constants, lv; writes score, g*w, h*w
+        # and the histogram
+        ("stream_refresh_p2", "lightgbm_tpu_torch/csrc/stream_grad.cu",
+         "lightgbm_tpu/ops/pallas/stream_grad.py:610", "stream_refresh",
+         n * (f + 20) + 12 * n + hist_out, n * (f + 20) + 12 * n + hist_out,
+         n * (17 + 2 * f), worst("stream")),
+    ]
+    recs = []
+    for name, src, replaces, p1, nb, nb1, ops, err in specs:
+        tm = t[p1]
+        extra = dict(pack1_kernel=p1, pack1_ms=tm["pack1_ms"],
+                     pack1_bound_ms=max(nb1 / PEAK_BYTES_S,
+                                        ops / PEAK_OPS_S) * 1e3,
+                     record_stride=stride, parity_vs_pack1="bitwise")
+        if name == "hist_comb_p2":
+            extra.update(library_ms=library_ms,
+                         library_call="index_add_ over a precomputed flat "
+                                      "(feature, bin) index, index build "
+                                      "excluded")
+        recs.append(_kernel_record(name, src, replaces, 0, err, tm["ms"],
+                                   tm["plain_ms"], nb, ops, gpu, **extra))
+    recs[0]["wide_case_stride"] = wide_cases["split"][0]["stride"]
+    return recs
+
+
+def row_kernel_times(n: int = TRAIN_ROWS, f: int = N_FEATURES,
+                     reps: int = 20) -> dict:
+    """CUDA-event times of the pack=1 kernels whose sources the record
+    kernels share (hist_comb at the root, fused_split and copyback on the
+    whole matrix, stream_init, stream_refresh) on seeded rows, printed as
+    one JSON line: run from two checkouts on one card to compare them
+    (the wrappers it calls have the same signatures since slice 3)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import Rows
+    from lightgbm_tpu_torch.ops.fused_split import fused_split
+    from lightgbm_tpu_torch.ops.hist_kernel2 import build_histogram_comb
+    from lightgbm_tpu_torch.ops.partition_kernel import copyback
+    from lightgbm_tpu_torch.ops.stream_grad import (stream_init,
+                                                    stream_refresh)
+    dev = torch.device("cuda")
+    rows = rows_on(random_row_matrix(n, f, 11, nan_bin=254), dev)
+    scratch = Rows(*(torch.empty_like(a) for a in rows))
+    root = torch.tensor([0, 0, n], dtype=torch.int32, device=dev)
+    sel = (0, n, 0, 120, 1, 0, 254)
+    nl = torch.zeros(1, dtype=torch.int32, device=dev)
+    score, valid, consts = stream_aux(n, "binary", 5, dev)
+    kw = dict(kind="binary", sigmoid=1.0)
+    srows = stream_init(rows.bins, score, valid, consts, **kw)
+    lv = torch.zeros(n, dtype=torch.float32, device=dev)
+    out = {
+        "hist_comb": _time_ms(lambda: build_histogram_comb(
+            rows, root, padded_bins=256, max_rows=n), reps),
+        "fused_split": _time_ms(lambda: fused_split(
+            rows, scratch, sel, nl, padded_bins=256), reps),
+        "copyback": _time_ms(lambda: copyback(rows, scratch, 0, n), reps),
+        "stream_init": _time_ms(lambda: stream_init(
+            rows.bins, score, valid, consts, **kw), reps),
+        "stream_refresh": _time_ms(lambda: stream_refresh(
+            srows, lv, padded_bins=256, **kw), reps),
+        "gpu": _gpu_line()}
+    print("row kernel times [ms] " + json.dumps(out), flush=True)
+    return out
+
+
+def pack2_phases(gpu: str, ds, valid, x, bst_default) -> tuple:
+    """Slice 6's training: the pack=2 route card against device="cpu" at
+    50,000 rows (bitwise), its main path (1M x 28, 255 leaves, 10
+    iterations) counted and served, its trees held against the default
+    route's bit for bit.  Returns (booster, record, parity record)."""
+    parity = train_parity(gpu, PACK2, PARITY_TREES, "pack=2 route",
+                          bitwise=True)
+    bst, main = train_main_path(gpu, ds, valid, x, PACK2, TRAIN_ITERS,
+                                "main path, pack=2 route")
+    if main["route"] != "path=stream fused=1 tail=kernel pack=2":
+        raise RuntimeError(f"LGBM_TPU_COMB_PACK=2 took the route "
+                           f"{main['route']}")
+    same = compare_trees(bst_default._models, bst._models)
+    same.update(case=f"default route vs pack=2 route, {TRAIN_ITERS} trees "
+                f"at {TRAIN_ROWS} rows",
+                leaves_bitwise=leaves_bitwise(bst_default._models,
+                                              bst._models))
+    print("parity routes pack=2 " + json.dumps(same), flush=True)
+    if not (same["ok"] and same["leaves_bitwise"]):
+        raise RuntimeError(f"the pack=2 route grew other trees than the "
+                           f"default route: {same}")
+    return bst, main, parity
+
+
 def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
                     label: str, params: dict = TRAIN_PARAMS):
     """The training main path on the route ``env`` selects, counted and
@@ -1609,21 +2033,28 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
 
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops.apply_find import apply_find, apply_find_pool
-    from lightgbm_tpu_torch.ops.fused_split import fused_split
+    from lightgbm_tpu_torch.ops.fused_split import (fused_split,
+                                                    fused_split_p2)
     from lightgbm_tpu_torch.ops.grow import StageTimer
     from lightgbm_tpu_torch.ops.hist_kernel2 import (build_histogram_comb,
+                                                     build_histogram_comb_p2,
                                                      build_histogram_rows)
     from lightgbm_tpu_torch.ops.partition_kernel import (copyback,
+                                                         copyback_p2,
                                                          partition_3ph,
                                                          partition_scan)
     from lightgbm_tpu_torch.ops.serve_kernel import serve_traverse
     from lightgbm_tpu_torch.ops.stream_grad import (stream_init,
+                                                    stream_init_p2,
                                                     stream_refresh,
+                                                    stream_refresh_p2,
                                                     stream_refresh_plain)
     counted = (stream_init, stream_refresh, stream_refresh_plain,
                build_histogram_comb, partition_scan, partition_3ph,
                fused_split, copyback, apply_find_pool, apply_find,
-               build_histogram_rows, serve_traverse)
+               build_histogram_rows, stream_init_p2, stream_refresh_p2,
+               build_histogram_comb_p2, fused_split_p2, copyback_p2,
+               serve_traverse)
     its = []
 
     def _tick(env_):
@@ -1667,7 +2098,7 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
     if not (0.5 < auc <= 1.0):
         raise RuntimeError(f"holdout AUC {auc} is not better than chance")
     if route.stream:
-        rows = bst._inner.grow.rows
+        rows = bst._inner.grow.rows.fields()
         if not torch.equal(rows.score, bst._inner.train_score[
                 rows.rid.long()]):
             raise RuntimeError("the scores the rows carry differ from the "
@@ -1691,15 +2122,17 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
 
 
 def train_phases(gpu: str) -> list:
-    """Slices 2 to 5: the training kernels against their plain versions
-    at the main paths' shapes, training parity card vs CPU on four
+    """Slices 2 to 6: the training kernels against their plain versions
+    at the main paths' shapes, training parity card vs CPU on five
     routes, the training main path on the default route (1M x 28, 255
     leaves, 10 iterations) counted, timed by stage and served, slice 2's
     route beside it (3 iterations, its trees held against the default
     route's first 3), the row-order route at max_bin=1023 (10
-    iterations) and under LGBM_TPU_PHYS=0 (3), the 3ph route (3) and
-    LGBM_TPU_POOL_TAIL=0 (2), and one profiled iteration of each of the
-    first five routes.  Returns the ten training kernels' records."""
+    iterations) and under LGBM_TPU_PHYS=0 (3), the 3ph route (3),
+    LGBM_TPU_POOL_TAIL=0 (2) and the pack=2 route (10, its trees held
+    against the default route's), and one profiled iteration of each
+    route but LGBM_TPU_POOL_TAIL=0.  Returns the fifteen training
+    kernels' records."""
     import lightgbm_tpu_torch as lgt
 
     x_all, y_all = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS, N_FEATURES,
@@ -1719,6 +2152,7 @@ def train_phases(gpu: str) -> list:
 
     recs = training_kernels(gpu, ds)
     recs.append(hist_rows_kernels(gpu, ds, ds_wide))
+    recs += pack2_kernels(gpu, ds)
     parity = train_parity(gpu, {}, PARITY_TREES, "default route")
     parity2 = train_parity(gpu, SLICE2_ROUTE, SLICE2_PARITY_TREES,
                            "slice 2 route")
@@ -1739,6 +2173,7 @@ def train_phases(gpu: str) -> list:
     bst3, main3, bst4, off, parity3 = row_order_phases(
         gpu, ds, valid, ds_wide, valid_wide, x, bst)
     bst5, main5, pool5, parity5 = part_3ph_phases(gpu, ds, valid, x, bst)
+    bst6, main6, parity6 = pack2_phases(gpu, ds, valid, x, bst)
     # one more tree of each under the profiler, after every check
     with route_env({}):
         print("profiled iteration, default route "
@@ -1755,14 +2190,19 @@ def train_phases(gpu: str) -> list:
     with route_env(PART_3PH):
         print("profiled iteration, 3ph route "
               + json.dumps(profile_iteration(bst5, gpu)), flush=True)
+    with route_env(PACK2):
+        print("profiled iteration, pack=2 route "
+              + json.dumps(profile_iteration(bst6, gpu)), flush=True)
 
     names = {"hist_comb": "build_histogram_comb",
              "apply_find": "apply_find_pool",
-             "hist_rows": "build_histogram_rows"}
+             "hist_rows": "build_histogram_rows",
+             "hist_comb_p2": "build_histogram_comb_p2"}
     for r in recs:
         key = names.get(r["name"], r["name"])
         for run, where in ((main, None), (main2, "slice 2 route"),
-                           (main3, "row-order route"), (main5, "3ph route")):
+                           (main3, "row-order route"), (main5, "3ph route"),
+                           (main6, "pack=2 route")):
             if run["launches"][key] > 0:
                 r["launches"] = run["launches"][key]
                 if where:
@@ -1778,6 +2218,7 @@ def train_phases(gpu: str) -> list:
         pool5["launches"]["apply_find"]
     by_name["apply_find"]["plain_entry_launched_on"] = "LGBM_TPU_POOL_TAIL=0"
     by_name["partition_3ph"]["train_parity_bitwise"] = parity5["ok"]
+    by_name["fused_split_p2"]["train_parity_bitwise"] = parity6["ok"]
     return recs
 
 

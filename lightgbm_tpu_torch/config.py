@@ -52,9 +52,12 @@ ENV_KNOBS: Dict[str, tuple] = {
     "LGBM_TPU_POOL_TAIL": ("1", "0 disables the pool-resident "
                                 "apply+find kernel (the pool ops run in "
                                 "PyTorch, then the plain-pool kernel)"),
-    "LGBM_TPU_COMB_PACK": ("1", "2 packs two logical comb rows per "
-                                "128-lane line; pack=2 is not ported and "
-                                "raises (ROADMAP B9)"),
+    "LGBM_TPU_COMB_PACK": ("1", "2 keeps each row as one record of its "
+                                "bins and fields (64 bytes at 28 features) "
+                                "and runs the pack=2 kernels of the fused "
+                                "route where the JAX package engages pack=2; "
+                                "without the fused split it raises (ROADMAP "
+                                "B9)"),
 }
 
 

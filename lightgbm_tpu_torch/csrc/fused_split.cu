@@ -32,15 +32,28 @@
 // once; the split column is read by the count pass and by the blocks
 // whose runs cover its tile.
 //
+// fused_split_p2 replaces the pack=2 variant (_make_fused_p2,
+// _fused_scan_kernel_p2 :126, pallas_call at :417): the same partition,
+// nleft and histograms over one record per row (partition_common.cuh
+// RecPtr).  The kernels are the same templates over the row-access
+// policy; only the staging of a tile's selected rows differs: each
+// record moves from source to scratch as its S / 16 16-byte words through
+// registers (consecutive threads on consecutive words), and the words
+// holding bins and (g*w, h*w) are staged to the same shared rows
+// (hist_block.cuh stage_record_word).  Shared memory is therefore the
+// pack=1 kernel's, F*B*8 + 1024*(F + 12) bytes.  A record is whole
+// 16-byte words at any row index, so an odd s0 or cnt needs none of the
+// TPU kernel's head-parity carry (partition_kernel3.py:283-330).
+//
 // Kernels per launch: the tile counts (partition_common.cuh), one block
 // for their exclusive prefix and nleft, the scatter + histogram blocks,
 // the partial reduction.  Positions depend on the data only, so every
 // launch writes the same bytes.
 //
 // Bound on this card: bytes.  The rows are read and written once
-// (cnt * (F + 28) bytes each way) plus the split column and the
-// 2 x F x B x 8-byte outputs; the partials add 4 * grid * F * B * 8 bytes,
-// as in hist_comb.  Shared memory per block: F*B*8 + 1024*(F + 12) bytes
+// (cnt * (F + 28) bytes each way, cnt * S at pack=2) plus the split
+// column and the 2 x F x B x 8-byte outputs; the partials add
+// 4 * grid * F * B * 8 bytes, as in hist_comb.  Shared memory per block: F*B*8 + 1024*(F + 12) bytes
 // (98,304 at F=28, B=256), opted in above 48 KB.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,8 +100,69 @@ __device__ __forceinline__ long long side_rows(const int* lprefix, int t,
   return hi - (long long)t * kTile - left;
 }
 
+// A tile's m selected rows, source row src_idx[slot], to shared memory
+// (bins sb [m, F], (g*w, h*w) sv [m, 2]) and, from the mover, every
+// column to scratch row dst0 + slot.  pack=1: bins as 32-bit words (or
+// bytes), the values one field at a time.
+__device__ __forceinline__ void stage_slots(const RowPtrs& rows,
+                                            const RowPtrs& scr, bool mover,
+                                            const int* src_idx,
+                                            long long dst0, int m, int F,
+                                            uint8_t* sb, float* sv) {
+  if ((F & 3) == 0) {
+    const int W = F / 4;
+    for (int i = threadIdx.x; i < m * W; i += kThreads) {
+      const int slot = i / W, w = i - slot * W;
+      const uint32_t v = reinterpret_cast<const uint32_t*>(
+          rows.bins + (size_t)src_idx[slot] * F)[w];
+      reinterpret_cast<uint32_t*>(sb + slot * F)[w] = v;
+      if (mover)
+        reinterpret_cast<uint32_t*>(
+            scr.bins + (size_t)(dst0 + slot) * F)[w] = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < m * F; i += kThreads) {
+      const int slot = i / F, f = i - slot * F;
+      const uint8_t v = rows.bins[(size_t)src_idx[slot] * F + f];
+      sb[slot * F + f] = v;
+      if (mover) scr.bins[(size_t)(dst0 + slot) * F + f] = v;
+    }
+  }
+  for (int slot = threadIdx.x; slot < m; slot += kThreads) {
+    const long long src = src_idx[slot];
+    if (mover) part::copy_values(rows, scr, src, dst0 + slot);
+    sv[2 * slot] = rows.vals[src * 3];
+    sv[2 * slot + 1] = rows.vals[src * 3 + 1];
+  }
+}
+
+// pack=2: each record's 16-byte words (all S / 16 from the mover, the
+// ones holding bins and (g*w, h*w) from the other blocks), through the
+// read-only data path: the launch writes scratch, never the rows
+__device__ __forceinline__ void stage_slots(const part::RecPtr& rows,
+                                            const part::RecPtr& scr,
+                                            bool mover, const int* src_idx,
+                                            long long dst0, int m, int F,
+                                            uint8_t* sb, float* sv) {
+  const int W = rows.S / 16;
+  const int Wh = histblock::record_hist_words(rows.Fb);
+  const int Wn = mover ? W : Wh;
+  for (int i = threadIdx.x; i < m * Wn; i += kThreads) {
+    const int slot = i / Wn, w = i - slot * Wn;
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+        rows.base + (size_t)src_idx[slot] * rows.S) + w);
+    if (mover)
+      reinterpret_cast<uint4*>(scr.base +
+                               (size_t)(dst0 + slot) * rows.S)[w] = v;
+    if (w < Wh)
+      histblock::stage_record_word(v, w, F, rows.Fb, sb + slot * F,
+                                   sv + 2 * slot);
+  }
+}
+
+template <class Rows>
 __global__ void __launch_bounds__(kThreads)
-fused_scatter_hist(RowPtrs rows, RowPtrs scr, int F, int B, Split sp,
+fused_scatter_hist(Rows rows, Rows scr, int F, int B, Split sp,
                    const int* __restrict__ lprefix, int tiles,
                    float* __restrict__ partials) {
   extern __shared__ float smem[];
@@ -155,7 +229,7 @@ fused_scatter_hist(RowPtrs rows, RowPtrs scr, int F, int B, Split sp,
         if (i < t_rows) {
           const long long p = side == 0 ? t0 + i : t0 + t_rows - 1 - i;
           const bool gl = part::go_left(
-              rows.bins[(sp.s0 + p) * F + sp.feat], sp);
+              part::bin_at(rows, F, sp.s0 + p, sp.feat), sp);
           if (gl == (side == 0)) bits |= 1u << k;
         }
       }
@@ -177,32 +251,7 @@ fused_scatter_hist(RowPtrs rows, RowPtrs scr, int F, int B, Split sp,
       __syncthreads();
       // staged rows: bins and (g*w, h*w) to shared memory, every column
       // to scratch at the destination
-      const long long dst0 = base + first;
-      if ((F & 3) == 0) {
-        const int W = F / 4;
-        for (int i = threadIdx.x; i < m * W; i += kThreads) {
-          const int slot = i / W, w = i - slot * W;
-          const uint32_t v = reinterpret_cast<const uint32_t*>(
-              rows.bins + (size_t)src_idx[slot] * F)[w];
-          reinterpret_cast<uint32_t*>(sb + slot * F)[w] = v;
-          if (mover)
-            reinterpret_cast<uint32_t*>(
-                scr.bins + (size_t)(dst0 + slot) * F)[w] = v;
-        }
-      } else {
-        for (int i = threadIdx.x; i < m * F; i += kThreads) {
-          const int slot = i / F, f = i - slot * F;
-          const uint8_t v = rows.bins[(size_t)src_idx[slot] * F + f];
-          sb[slot * F + f] = v;
-          if (mover) scr.bins[(size_t)(dst0 + slot) * F + f] = v;
-        }
-      }
-      for (int slot = threadIdx.x; slot < m; slot += kThreads) {
-        const long long src = src_idx[slot];
-        if (mover) part::copy_values(rows, scr, src, dst0 + slot);
-        sv[2 * slot] = rows.vals[src * 3];
-        sv[2 * slot + 1] = rows.vals[src * 3 + 1];
-      }
+      stage_slots(rows, scr, mover, src_idx, base + first, m, F, sb, sv);
       __syncthreads();
       histblock::accumulate(hist, sb, sv, m, F, B, f_lo, f_hi);
       run += tot;
@@ -214,13 +263,51 @@ fused_scatter_hist(RowPtrs rows, RowPtrs scr, int F, int B, Split sp,
     out[i] = hist[i];
 }
 
+// shared-memory bytes of a scatter block, either pack: the histogram, then
+// per tile slot (g*w, h*w), the source index and the bins
+int smem_bytes(int F, int B) {
+  return F * B * 2 * 4 + kTile * (2 * 4 + 4 + F);
+}
+
+// The four launches of one fused split; 0 or the CUDA error code.
+template <class Rows>
+int launch(Rows rows, Rows scr, int* tile_left, int* lprefix, int* nleft,
+           float* partials, float* out, int F, int B, const Split& sp,
+           int nblocks, cudaStream_t s) {
+  const int tiles = (sp.cnt + kTile - 1) / kTile;
+  part::count_tiles<<<tiles, kThreads, 0, s>>>(
+      part::bins_of(rows), part::bin_stride(rows, F), sp, tile_left);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  left_prefix<<<1, kThreads, 0, s>>>(tile_left, tiles, lprefix, nleft);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int smem = smem_bytes(F, B);
+  static int smem_set = 0;   // one per instantiation
+  if (smem > smem_set) {
+    e = cudaFuncSetAttribute(fused_scatter_hist<Rows>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  const int fgroups = (F + kFeatPerBlock - 1) / kFeatPerBlock;
+  fused_scatter_hist<Rows><<<dim3(nblocks, 2, fgroups), kThreads, smem, s>>>(
+      rows, scr, F, B, sp, lprefix, tiles, partials);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int cells = F * B * 2;
+  histblock::reduce_partials<<<histblock::reduce_grid(cells, 2), 256, 0,
+                               s>>>(partials, nblocks, cells, 2, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int fused_split_smem_bytes(int F, int B) {
-  return F * B * 2 * 4 + kTile * (2 * 4 + 4 + F);
-}
+// Shared-memory bytes of a scatter block, either pack.
+int fused_split_smem_bytes(int F, int B) { return smem_bytes(F, B); }
 
 // Partition [s0, s0 + cnt) of the rows into scratch and write both
 // children's histograms to out [2, F, B, 2].  Scratch buffers: tile_left
@@ -233,35 +320,24 @@ int fused_split(uint8_t* bins, float* vals, int* rid, float* score,
                 int* nleft, float* partials, float* out, int F, int B,
                 int s0, int cnt, int feat, int sbin, int dl, int cat,
                 int nanb, int nblocks, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Split sp{s0, cnt, feat, sbin, dl, cat, nanb};
-  const RowPtrs rows{bins, vals, rid, score, consts};
-  const RowPtrs scr{sbins, svals, srid, sscore, sconsts};
-  const int tiles = (cnt + kTile - 1) / kTile;
-  part::count_tiles<<<tiles, kThreads, 0, s>>>(bins, F, sp, tile_left);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  left_prefix<<<1, kThreads, 0, s>>>(tile_left, tiles, lprefix, nleft);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int smem = fused_split_smem_bytes(F, B);
-  static int smem_set = 0;
-  if (smem > smem_set) {
-    e = cudaFuncSetAttribute(fused_scatter_hist,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
-  }
-  const int fgroups = (F + kFeatPerBlock - 1) / kFeatPerBlock;
-  fused_scatter_hist<<<dim3(nblocks, 2, fgroups), kThreads, smem, s>>>(
-      rows, scr, F, B, sp, lprefix, tiles, partials);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int cells = F * B * 2;
-  histblock::reduce_partials<<<histblock::reduce_grid(cells, 2), 256, 0,
-                               s>>>(partials, nblocks, cells, 2, out);
-  return (int)cudaGetLastError();
+  return launch(RowPtrs{bins, vals, rid, score, consts},
+                RowPtrs{sbins, svals, srid, sscore, sconsts}, tile_left,
+                lprefix, nleft, partials, out, F, B,
+                Split{s0, cnt, feat, sbin, dl, cat, nanb}, nblocks,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The same over records: base and sbase u8 [n, S] (16-byte aligned), F
+// bins per record, vals at byte Fb.
+int fused_split_p2(uint8_t* base, uint8_t* sbase, int S, int Fb,
+                   int* tile_left, int* lprefix, int* nleft, float* partials,
+                   float* out, int F, int B, int s0, int cnt, int feat,
+                   int sbin, int dl, int cat, int nanb, int nblocks,
+                   void* stream) {
+  return launch(part::RecPtr{base, S, Fb}, part::RecPtr{sbase, S, Fb},
+                tile_left, lprefix, nleft, partials, out, F, B,
+                Split{s0, cnt, feat, sbin, dl, cat, nanb}, nblocks,
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

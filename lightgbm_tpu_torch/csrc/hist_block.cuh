@@ -18,7 +18,9 @@
 // (hist_kernel2.build_histogram_comb_ref) adds in this order too.
 // smem_bytes and accumulate take the staged bins' type: uint8_t (the
 // default, every kernel of the physical path) or uint16_t (hist_rows.cu
-// at max_bin > 255).
+// at max_bin > 255).  stage_record_word stages the bins and (g*w, h*w)
+// of a pack=2 record (partition_common.cuh RecPtr) from its 16-byte
+// words, into the same sb / sv rows accumulate() reads.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -93,6 +95,38 @@ __device__ __forceinline__ void accumulate(float* hist, const BinT* sb,
         hf[2 * bin + 1] = h;
       }
       __syncwarp();
+    }
+  }
+}
+
+// The 16-byte words of a record holding its bins and (g*w, h*w): bytes
+// [0, Fb + 8).
+__host__ __device__ inline int record_hist_words(int Fb) {
+  return (Fb + 8 + 15) / 16;
+}
+
+// Stage the part of word w (bytes [16 w, 16 w + 16)) of a record that a
+// histogram reads: its bins (bytes < F) into sb_row [F] and g*w, h*w
+// (bytes Fb and Fb + 4) into sv_row [2].  Little-endian: byte j of a
+// 32-bit lane is bits [8 j, 8 j + 8).
+__device__ __forceinline__ void stage_record_word(uint4 v, int w, int F,
+                                                  int Fb, uint8_t* sb_row,
+                                                  float* sv_row) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int off = w * 16 + k * 4;
+    if (off < F) {
+      if ((F & 3) == 0) {
+        *reinterpret_cast<uint32_t*>(sb_row + off) = u[k];
+      } else {
+        for (int j = 0; j < 4 && off + j < F; ++j)
+          sb_row[off + j] = (uint8_t)(u[k] >> (8 * j));
+      }
+    } else if (off == Fb) {
+      sv_row[0] = __uint_as_float(u[k]);
+    } else if (off == Fb + 4) {
+      sv_row[1] = __uint_as_float(u[k]);
     }
   }
 }

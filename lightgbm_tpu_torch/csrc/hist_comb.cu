@@ -23,6 +23,17 @@
 // writes its partial out; pass 2 sums the partials of every cell in
 // block order, starting from 0.
 //
+// hist_comb_p2 replaces the same pallas_call at pack=2
+// (_hist2_comb2_kernel, hist_kernel2.py:144, which unpacks both halves of
+// a 128-lane line): the same histogram of the same logical rows, read
+// from the pack=2 records (partition_common.cuh RecPtr).  Only the
+// staging differs: each block loads the 16-byte words of its chunk's
+// records that hold bins and (g*w, h*w) (bytes [0, Fb + 8), 48 of 64 at
+// F = 28) with uint4 loads, consecutive threads on consecutive words,
+// and stage_record_word writes them to the same shared rows; slices,
+// accumulation and the reduction are the pack=1 kernel's, so the two
+// histograms are bitwise equal.
+//
 // Bound on this card: bytes.  Each launch must read count * (F + 8)
 // bytes of rows (bins and the two value columns used) and write
 // F * B * 8 bytes; the partials add 2 * grid * F * B * 8 bytes of
@@ -39,11 +50,48 @@ namespace {
 using histblock::kChunk;
 using histblock::kThreads;
 
+// The launch only reads the rows, so every global load takes the
+// read-only data path (__ldg): a pointer inside a struct argument is not
+// restrict-qualified, and nvcc does not choose that path for it itself
+// (hist_comb took 4 % longer without it on the H100).
+
+// pack=1: bins u8 [n, F] and vals f32 [n, 3]
+struct CombRows {
+  const uint8_t* bins;
+  const float* vals;
+  // rows [r0, r0 + rows) into sb [rows, F] and sv [rows, 2]
+  __device__ __forceinline__ void stage(long long r0, int rows, int F,
+                                        uint8_t* sb, float* sv) const {
+    const uint8_t* src = bins + r0 * F;
+    for (int i = threadIdx.x; i < rows * F; i += kThreads)
+      sb[i] = __ldg(src + i);
+    for (int r = threadIdx.x; r < rows; r += kThreads) {
+      sv[2 * r] = __ldg(vals + (r0 + r) * 3);
+      sv[2 * r + 1] = __ldg(vals + (r0 + r) * 3 + 1);
+    }
+  }
+};
+
+// pack=2: records of S bytes, vals at byte Fb
+struct CombRecords {
+  const uint8_t* base;
+  int S, Fb;
+  __device__ __forceinline__ void stage(long long r0, int rows, int F,
+                                        uint8_t* sb, float* sv) const {
+    const int W = S / 16, Wh = histblock::record_hist_words(Fb);
+    const uint4* src = reinterpret_cast<const uint4*>(base + r0 * S);
+    for (int i = threadIdx.x; i < rows * Wh; i += kThreads) {
+      const int r = i / Wh, w = i - r * Wh;
+      histblock::stage_record_word(__ldg(src + r * W + w), w, F, Fb,
+                                   sb + r * F, sv + 2 * r);
+    }
+  }
+};
+
+template <class Src>
 __global__ void __launch_bounds__(kThreads)
-hist_comb_partial(const uint8_t* __restrict__ bins,
-                  const float* __restrict__ vals,
-                  const int* __restrict__ range, int n_rows, int F, int B,
-                  float* __restrict__ partials) {
+hist_comb_partial(Src rows_src, const int* __restrict__ range, int n_rows,
+                  int F, int B, float* __restrict__ partials) {
   extern __shared__ float smem[];
   const int cells = F * B * 2;
   float* hist = smem;                         // [F, B, 2]
@@ -61,12 +109,7 @@ hist_comb_partial(const uint8_t* __restrict__ bins,
   for (long long r0 = lo; r0 < hi; r0 += kChunk) {
     const int rows = (int)((hi - r0) < kChunk ? (hi - r0) : kChunk);
     __syncthreads();   // previous step's readers are done with sb / sv
-    const uint8_t* src = bins + r0 * F;
-    for (int i = threadIdx.x; i < rows * F; i += kThreads) sb[i] = src[i];
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      sv[2 * r] = vals[(r0 + r) * 3];
-      sv[2 * r + 1] = vals[(r0 + r) * 3 + 1];
-    }
+    rows_src.stage(r0, rows, F, sb, sv);
     __syncthreads();
     histblock::accumulate(hist, sb, sv, rows, F, B);
   }
@@ -75,11 +118,34 @@ hist_comb_partial(const uint8_t* __restrict__ bins,
   for (int i = threadIdx.x; i < cells; i += kThreads) out[i] = hist[i];
 }
 
+// the two passes over range of rows_src; 0 or the CUDA error code
+template <class Src>
+int launch(Src rows_src, const int* range, float* partials, float* out,
+           int n_rows, int F, int B, int nblocks, cudaStream_t s) {
+  const int smem = histblock::smem_bytes(F, B);
+  static int smem_set = 0;   // one per instantiation
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        hist_comb_partial<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  hist_comb_partial<Src><<<nblocks, kThreads, smem, s>>>(
+      rows_src, range, n_rows, F, B, partials);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int cells = F * B * 2;
+  histblock::reduce_partials<<<histblock::reduce_grid(cells, 1), 256, 0,
+                               s>>>(partials, nblocks, cells, 1, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes one block of the first pass needs.
+// Shared-memory bytes one block of the first pass needs (either pack).
 int hist_comb_smem_bytes(int F, int B) { return histblock::smem_bytes(F, B); }
 
 // bins u8 [n_rows, F]; vals f32 [n_rows, 3]; range i32[3] on the device;
@@ -88,24 +154,17 @@ int hist_comb_smem_bytes(int F, int B) { return histblock::smem_bytes(F, B); }
 int hist_comb(const uint8_t* bins, const float* vals, const int* range,
               float* partials, float* out, int n_rows, int F, int B,
               int nblocks, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int smem = histblock::smem_bytes(F, B);
-  static int smem_set = 0;
-  if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        hist_comb_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
-  }
-  hist_comb_partial<<<nblocks, kThreads, smem, s>>>(bins, vals, range,
-                                                    n_rows, F, B, partials);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int cells = F * B * 2;
-  histblock::reduce_partials<<<histblock::reduce_grid(cells, 1), 256, 0,
-                               s>>>(partials, nblocks, cells, 1, out);
-  return (int)cudaGetLastError();
+  return launch(CombRows{bins, vals}, range, partials, out, n_rows, F, B,
+                nblocks, static_cast<cudaStream_t>(stream));
+}
+
+// The same over records: base u8 [n_rows, S] (16-byte aligned), F bins
+// per record, vals at byte Fb.
+int hist_comb_p2(const uint8_t* base, int S, int Fb, const int* range,
+                 float* partials, float* out, int n_rows, int F, int B,
+                 int nblocks, void* stream) {
+  return launch(CombRecords{base, S, Fb}, range, partials, out, n_rows, F,
+                B, nblocks, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -17,6 +17,12 @@
 // column from scratch back into the row matrix and touches no row
 // outside it.
 //
+// partition_copyback_p2 replaces partition_kernel3.copyback_call_p2
+// (_copyback_kernel_p2, pallas_call at :562), the copyback at pack=2:
+// records [s0, s0 + cnt) (partition_common.cuh RecPtr), cnt * S
+// contiguous bytes, move as 16-byte words.  Every record is whole words
+// at any row index, so an odd s0 or cnt needs no parity handling.
+//
 // Rows: bins u8 [n, F], vals f32 [n, 3] (g*w, h*w, w), rid i32 [n]
 // (original row ids), score f32 [n] and consts f32 [n, 2] (the stream
 // route's per-row score and objective constants, which move with their
@@ -32,7 +38,7 @@
 //
 // Bound on this card: bytes.  The scan reads the split column of every
 // row once and moves each row (F + 28 bytes) once into scratch; the
-// copyback moves cnt * (F + 28) bytes back.
+// copyback moves cnt * (F + 28) bytes back, at pack=2 cnt * S.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -90,6 +96,20 @@ partition_scatter(RowPtrs rows, RowPtrs scr, int F, Split sp,
     *nleft = left_before + tile_total;
 }
 
+// records [s0, s0 + cnt) from scr into rows, 16-byte words, grid-stride;
+// no record outside the span is touched
+__global__ void copy_records(part::RecPtr rows, part::RecPtr scr, int s0,
+                             int cnt) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t W = rows.S / 16;
+  const size_t w0 = (size_t)s0 * W, nw = (size_t)cnt * W;
+  const uint4* s = reinterpret_cast<const uint4*>(scr.base) + w0;
+  uint4* d = reinterpret_cast<uint4*>(rows.base) + w0;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < nw;
+       i += stride)
+    d[i] = s[i];
+}
+
 }  // namespace
 
 extern "C" {
@@ -125,6 +145,18 @@ int partition_copyback(uint8_t* bins, float* vals, int* rid, float* score,
   const RowPtrs scr{sbins, svals, srid, sscore, sconsts};
   part::copy_span<<<part::copy_span_blocks(cnt, F), 256, 0, s>>>(
       rows, scr, F, s0, cnt);
+  return (int)cudaGetLastError();
+}
+
+// Copy records [s0, s0 + cnt) from sbase back to base (both u8 [n, S],
+// 16-byte aligned).
+int partition_copyback_p2(uint8_t* base, uint8_t* sbase, int S, int s0,
+                          int cnt, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const part::RecPtr rows{base, S, 0}, scr{sbase, S, 0};
+  // cnt * S / 16 words: copy_span's grid for as many 4-byte columns
+  copy_records<<<part::copy_span_blocks(cnt, S / 4), 256, 0, s>>>(rows, scr,
+                                                                  s0, cnt);
   return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,13 @@
 // copyback shared by partition.cu (scan + copyback), partition_3ph.cu and
 // fused_split.cu.
 //
-// Rows: bins u8 [n, F], vals f32 [n, 3] (g*w, h*w, w), rid i32 [n]
-// (original row ids), score f32 [n], consts f32 [n, 2] (the objective's
-// per-row constants); a scratch matrix has the same five arrays.
+// Two row-access policies.  pack=1, RowPtrs: bins u8 [n, F], vals f32
+// [n, 3] (g*w, h*w, w), rid i32 [n] (original row ids), score f32 [n],
+// consts f32 [n, 2] (the objective's per-row constants); a scratch matrix
+// has the same five arrays.  pack=2, RecPtr: one record of S bytes per
+// row (ops/device_data.RecordLayout): the bins at byte 0, the same
+// fields from byte Fb = 4 * ceil(F / 4), S = 16 * ceil((Fb + 28) / 16);
+// the base is 16-byte aligned, so every record is whole 16-byte words.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,6 +39,33 @@ struct RowPtrs {
   float* score;
   float* consts;
 };
+
+struct RecPtr {
+  uint8_t* base;
+  int S;    // record stride in bytes, a multiple of 16
+  int Fb;   // byte offset of vals
+};
+
+// bin of feature f of row r
+__device__ __forceinline__ int bin_at(const RowPtrs& rows, int F,
+                                      long long r, int f) {
+  return rows.bins[r * F + f];
+}
+__device__ __forceinline__ int bin_at(const RecPtr& rows, int F,
+                                      long long r, int f) {
+  return rows.base[r * rows.S + f];
+}
+
+// the bins and the row stride the count pass reads: a record's bins are
+// the first bytes of an S-byte row
+__device__ __host__ inline const uint8_t* bins_of(const RowPtrs& r) {
+  return r.bins;
+}
+__device__ __host__ inline const uint8_t* bins_of(const RecPtr& r) {
+  return r.base;
+}
+__device__ __host__ inline int bin_stride(const RowPtrs&, int F) { return F; }
+__device__ __host__ inline int bin_stride(const RecPtr& r, int) { return r.S; }
 
 // the thread's kPer rows of tile `tile`: left bits by the predicate
 // `go(col)`, and how many of them are rows of the segment

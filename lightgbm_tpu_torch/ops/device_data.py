@@ -21,6 +21,15 @@ The device bins are u8, or u16 where a feature has more than 256 bins
 implements few operations on ``torch.uint16`` (copies and casts), so
 :func:`bins_i32` is the one place stored bins become numbers for
 PyTorch ops; the kernels read the u16 bins themselves.
+
+Under ``LGBM_TPU_COMB_PACK=2`` the same per-row content is laid out as
+one **record** per row (:class:`RecordLayout`, :class:`PackedRows`):
+the bins, then the twenty-eight bytes of four-byte fields, in one
+stride of a multiple of 16 bytes, so a kernel moves a row with whole
+16-byte loads (64 bytes at 28 features: two records per 128-byte line,
+the card's counterpart of the TPU's two rows per 128-lane line).
+:meth:`PackedRows.fields` views the record buffer as :class:`Rows`, so
+every reader of the five arrays reads either layout.
 """
 from __future__ import annotations
 
@@ -65,6 +74,105 @@ class Rows(NamedTuple):
     rid: torch.Tensor     # i32 [n]: original row id
     score: torch.Tensor   # f32 [n]: raw score (stream route)
     consts: torch.Tensor  # f32 [n, 2]: objective constants (stream route)
+
+    def fields(self) -> "Rows":
+        """The five arrays (:meth:`PackedRows.fields`'s counterpart)."""
+        return self
+
+
+# bytes of the four-byte fields after a record's bins: vals f32 x 3,
+# rid i32, score f32, consts f32 x 2
+RECORD_FIELD_BYTES = 28
+
+
+@dataclasses.dataclass(frozen=True)
+class RecordLayout:
+    """The pack=2 row record of ``num_features`` u8 bins: bytes
+    ``[0, F)`` the bins, ``[F, Fb)`` zero with ``Fb = 4 * ceil(F / 4)``,
+    then vals at ``Fb``, rid at ``Fb + 12``, score at ``Fb + 16``,
+    consts at ``Fb + 20``, and zero up to the stride ``S = 16 *
+    ceil((Fb + 28) / 16)``.  ``Fb`` keeps every field four-byte aligned
+    and ``S`` every record a whole number of 16-byte words."""
+    num_features: int
+
+    @property
+    def fb(self) -> int:
+        return 4 * -(-self.num_features // 4)
+
+    @property
+    def stride(self) -> int:
+        return 16 * -(-(self.fb + RECORD_FIELD_BYTES) // 16)
+
+
+class PackedRows(NamedTuple):
+    """The row matrix as records: one contiguous u8 buffer ``[n, S]``
+    and its layout."""
+    buf: torch.Tensor     # u8 [n, S]
+    layout: RecordLayout
+
+    def fields(self) -> Rows:
+        """The five arrays as strided views into the buffer (writes go
+        to the records)."""
+        f, fb = self.layout.num_features, self.layout.fb
+        b = self.buf
+
+        def f32(lo: int, hi: int) -> torch.Tensor:
+            return b[:, lo:hi].view(torch.float32)
+        return Rows(b[:, :f], f32(fb, fb + 12),
+                    b[:, fb + 12:fb + 16].view(torch.int32)[:, 0],
+                    f32(fb + 16, fb + 20)[:, 0], f32(fb + 20, fb + 28))
+
+
+def empty_packed(n: int, num_features: int, device) -> PackedRows:
+    """Records of every row, all bytes zero (pads included)."""
+    layout = RecordLayout(int(num_features))
+    return PackedRows(torch.zeros((n, layout.stride), dtype=torch.uint8,
+                                  device=device), layout)
+
+
+def pack_rows(rows: Rows) -> PackedRows:
+    """The records of a row matrix (pad bytes zero)."""
+    n, f = rows.bins.shape
+    out = empty_packed(n, f, rows.bins.device)
+    for dst, src in zip(out.fields(), rows):
+        dst.copy_(src)
+    return out
+
+
+def init_packed_rows(bins: torch.Tensor) -> PackedRows:
+    """:func:`init_rows` as records: the bins copied, row ids 0..n-1,
+    every other field zero."""
+    n, f = bins.shape
+    out = empty_packed(n, f, bins.device)
+    view = out.fields()
+    view.bins.copy_(bins)
+    view.rid.copy_(torch.arange(n, dtype=torch.int32, device=bins.device))
+    return out
+
+
+def check_packed(rows: PackedRows, scratch=None) -> None:
+    """Raise unless ``rows`` (and ``scratch``, when given) hold a
+    contiguous u8 ``[n, S]`` record buffer of their layout's stride,
+    16-byte aligned, on one CUDA device: the kernels read it as 16-byte
+    words from its base."""
+    dev = rows.buf.device
+    for r in (rows,) if scratch is None else (rows, scratch):
+        b = r.buf
+        if (b.dtype != torch.uint8 or b.dim() != 2
+                or b.shape[1] != r.layout.stride or r.layout != rows.layout
+                or b.shape[0] != rows.buf.shape[0]):
+            raise LightGBMError(
+                f"record buffers must be u8 [n, {rows.layout.stride}] of "
+                "one layout and row count")
+        if (b.device != dev or not b.is_contiguous()
+                or b.data_ptr() % 16):
+            raise LightGBMError("record buffers must be contiguous, "
+                                "16-byte aligned and on one device")
+
+
+def empty_packed_like(rows: PackedRows) -> PackedRows:
+    """Partition scratch of the same layout (contents undefined)."""
+    return PackedRows(torch.empty_like(rows.buf), rows.layout)
 
 
 def init_rows(bins: torch.Tensor) -> Rows:

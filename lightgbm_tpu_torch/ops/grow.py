@@ -39,6 +39,15 @@ in another order).  Under ``LGBM_TPU_POOL_TAIL=0`` the kernel tail is
 ``apply_find_torch_pool`` (the pool ops in PyTorch, then the plain-pool
 kernel), the same arithmetic as ``apply_find_pool``.
 
+At ``LGBM_TPU_COMB_PACK=2`` (``route.pack == 2``, always with the fused
+split) the rows are records (``device_data.PackedRows``) and the
+record-layout kernels run in the same places: ``stream_init_p2``
+(``init_packed_rows`` under ``LGBM_TPU_STREAM=0``), ``hist_comb_p2``
+for the roots the refresh does not carry, ``fused_split_p2`` and
+``copyback_p2`` per split, ``stream_refresh_p2`` per tree; every other
+reader takes ``rows.fields()``.  Each record kernel writes its pack=1
+counterpart's bits, so both packs grow the same trees bit for bit.
+
 The loop runs on the host; the state (histogram pool, per-leaf best
 splits and sums, segments) stays on the device, and each split reads
 one small descriptor back (leaf, best split, segment), which the host
@@ -67,15 +76,18 @@ from .apply_find import (BCAT, BG, SC, SH, SMN, SMX, SOUT, SPAR, SplitAt,
                          TreeState, allow_split, apply_find_pool,
                          apply_find_pool_ref, apply_find_torch_pool,
                          build_finder_consts)
-from .device_data import (DeviceDataset, Rows, bins_i32, empty_rows_like,
-                          init_rows)
-from .fused_split import fused_split
-from .hist_kernel2 import build_histogram_comb, build_histogram_rows
-from .partition_kernel import copyback, partition, partition_3ph
+from .device_data import (DeviceDataset, PackedRows, Rows, bins_i32,
+                          empty_packed_like, empty_rows_like,
+                          init_packed_rows, init_rows)
+from .fused_split import fused_split, fused_split_p2
+from .hist_kernel2 import (build_histogram_comb, build_histogram_comb_p2,
+                           build_histogram_rows)
+from .partition_kernel import copyback, copyback_p2, partition, partition_3ph
 from .routing import RouteDecision
 from .split import (SplitHyperParams, calculate_leaf_output,
                     find_best_split, pack_split_info, selection_key)
-from .stream_grad import stream_init, stream_refresh, stream_refresh_plain
+from .stream_grad import (stream_init, stream_init_p2, stream_refresh,
+                          stream_refresh_p2, stream_refresh_plain)
 
 
 class TreeArrays(NamedTuple):
@@ -139,6 +151,27 @@ class StageTimer:
                   else (b - a) * 1e3)
             out[name] = out.get(name, 0.0) + ms
         return out
+
+
+class _RowOps(NamedTuple):
+    """The row-matrix operations of one pack: pack=1's arrays or
+    pack=2's records."""
+    stream_init: Callable
+    init: Callable        # bins -> rows, values zero
+    empty_like: Callable
+    histogram: Callable   # build_histogram_comb's signature
+    fused_split: Callable
+    copyback: Callable
+    stream_refresh: Callable
+
+
+ROW_OPS = {
+    1: _RowOps(stream_init, init_rows, empty_rows_like, build_histogram_comb,
+               fused_split, copyback, stream_refresh),
+    2: _RowOps(stream_init_p2, init_packed_rows, empty_packed_like,
+               build_histogram_comb_p2, fused_split_p2, copyback_p2,
+               stream_refresh_p2),
+}
 
 
 class StreamSpec(NamedTuple):
@@ -329,9 +362,13 @@ class SerialGrower(_Grower):
         if route.stream and stream is None:
             raise ValueError("the stream route needs the objective's "
                              "StreamSpec")
+        if route.pack == 2 and not route.fused:
+            raise ValueError("pack=2 grows with the fused split only")
         self.stream = stream
-        self.rows: Optional[Rows] = None
-        self.scratch: Optional[Rows] = None
+        self.ops = ROW_OPS[route.pack]
+        # Rows at pack=1, PackedRows at pack=2; rows.fields() is Rows
+        self.rows: Optional[Rows | PackedRows] = None
+        self.scratch: Optional[Rows | PackedRows] = None
         # stream route: () -> (score, validity, consts) of every row,
         # read when the row matrix is (re)built; the carried root
         self._stream_aux: Optional[Callable] = None
@@ -355,20 +392,20 @@ class SerialGrower(_Grower):
                 raise RuntimeError("the stream route needs set_stream_aux "
                                    "before training")
             score, valid, consts = self._stream_aux()
-            self.rows = stream_init(dd.bins, score.contiguous(),
-                                    valid.contiguous(), consts.contiguous(),
-                                    kind=self.stream.kind,
-                                    sigmoid=self.stream.sigmoid)
+            self.rows = self.ops.stream_init(
+                dd.bins, score.contiguous(), valid.contiguous(),
+                consts.contiguous(), kind=self.stream.kind,
+                sigmoid=self.stream.sigmoid)
         else:
-            self.rows = init_rows(dd.bins)
-        self.scratch = empty_rows_like(self.rows)
+            self.rows = self.ops.init(dd.bins)
+        self.scratch = self.ops.empty_like(self.rows)
 
-    def _root_histogram(self, rows: Rows) -> torch.Tensor:
+    def _root_histogram(self, rows) -> torch.Tensor:
         n = self.dd.num_data
         rng = torch.tensor([0, 0, n], dtype=torch.int32,
                            device=self.dd.device)
-        return build_histogram_comb(rows, rng, padded_bins=self.dd.padded_bins,
-                                    max_rows=n)
+        return self.ops.histogram(rows, rng, padded_bins=self.dd.padded_bins,
+                                  max_rows=n)
 
     def init_tree_state(self, rows: Rows, root_hist: torch.Tensor,
                         feature_mask: torch.Tensor) -> TreeState:
@@ -383,9 +420,9 @@ class SerialGrower(_Grower):
         s0, cnt = sel[0], sel[1]
         if self.route.fused:
             with stage("fused_split", dev):
-                h_pair = fused_split(rows, self.scratch, sel, nleft,
-                                     padded_bins=B)
-                copyback(rows, self.scratch, s0, cnt)
+                h_pair = self.ops.fused_split(rows, self.scratch, sel, nleft,
+                                              padded_bins=B)
+                self.ops.copyback(rows, self.scratch, s0, cnt)
             return h_pair[0], h_pair[1]
         with stage("partition", dev):
             part = partition_3ph if self.route.scheme == "3ph" else partition
@@ -418,6 +455,7 @@ class SerialGrower(_Grower):
             with stage("stream_init" if route.stream else "gradients", dev):
                 self._init_rows()
         rows = self.rows
+        fields = rows.fields()
         if route.stream and route.fused:
             if self._root_hist is None:
                 with stage("histogram", dev):
@@ -429,13 +467,14 @@ class SerialGrower(_Grower):
         else:
             with stage("gradients", dev):
                 gv = torch.stack([grad * inbag, hess * inbag, inbag], dim=1)
-                rows.vals.copy_(gv[rows.rid.long()])
+                fields.vals.copy_(gv[fields.rid.long()])
             with stage("histogram", dev):
                 root_hist = self._root_histogram(rows)
         with stage("split_tail", dev):
-            st = self.init_tree_state(rows, root_hist, feature_mask)
+            st = self.init_tree_state(fields, root_hist, feature_mask)
         tb = self._grow(st, feature_mask)
-        ta, leaf_id, leaf_value, leaf_of_pos = self._finish(st, tb, rows.rid)
+        ta, leaf_id, leaf_value, leaf_of_pos = self._finish(st, tb,
+                                                            fields.rid)
         if route.stream and tb.num_leaves > 1:
             # the next tree's rows: every position's score gains this
             # tree's shrunk output of the leaf owning it (the booster's
@@ -447,8 +486,8 @@ class SerialGrower(_Grower):
                 lv = (rate_t * leaf_value)[leaf_of_pos]
                 kw = dict(kind=self.stream.kind, sigmoid=self.stream.sigmoid)
                 if route.fused:
-                    self._root_hist = stream_refresh(rows, lv, padded_bins=B,
-                                                     **kw)
+                    self._root_hist = self.ops.stream_refresh(
+                        rows, lv, padded_bins=B, **kw)
                 else:
                     stream_refresh_plain(rows, lv, **kw)
         return ta, leaf_id, leaf_value

@@ -16,6 +16,12 @@ nothing.  Accumulation is f32 throughout, in a fixed order: the
 kernel's output is bitwise identical across launches on the same input,
 and the plain version adds in the same order.
 
+:func:`build_histogram_comb_p2` is the same histogram at pack=2
+(``_hist2_comb2_kernel``) over the records of
+:class:`~.device_data.PackedRows`: its plain version is
+:func:`build_histogram_comb_ref` over :meth:`PackedRows.fields`, and
+the kernel's bits are the pack=1 kernel's.
+
 **Row-indexed.** Counterpart of ``build_histogram_pallas2`` in the same
 file and of ``build_histogram_pallas`` in
 ``lightgbm_tpu/ops/pallas/hist_kernel.py`` (one function, one kernel):
@@ -39,7 +45,7 @@ import torch
 
 from ..utils.log import LightGBMError
 from . import _build
-from .device_data import Rows, bins_i32
+from .device_data import PackedRows, Rows, bins_i32, check_packed
 from .histogram import build_histogram
 
 # shared memory a block may use on the H100 (232,448 bytes)
@@ -95,9 +101,31 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hist_comb.argtypes = [p] * 5 + [i] * 4 + [p]
     lib.hist_comb.restype = i
+    lib.hist_comb_p2.argtypes = [p, i, i] + [p] * 3 + [i] * 4 + [p]
+    lib.hist_comb_p2.restype = i
     lib.hist_comb_smem_bytes.argtypes = [i, i]
     lib.hist_comb_smem_bytes.restype = i
     return lib
+
+
+def _check_rng(rng: torch.Tensor, dev) -> None:
+    if (rng.device != dev or rng.dtype != torch.int32 or rng.numel() != 3
+            or not rng.is_contiguous()):
+        raise LightGBMError("rng must be a contiguous i32 [3] tensor "
+                            "(start, off, count) on the rows' device")
+
+
+def _comb_buffers(lib, f: int, padded_bins: int, max_rows: int, dev):
+    """(nblocks, partials, out) of one comb-direct launch, after the
+    shared-memory check."""
+    if lib.hist_comb_smem_bytes(f, padded_bins) > MAX_SMEM:
+        raise LightGBMError(f"histogram of {f} features x {padded_bins} "
+                            "bins does not fit one block's shared memory")
+    nblocks = hist_blocks(max_rows)
+    partials = torch.empty((nblocks, f, padded_bins, 2), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((f, padded_bins, 2), dtype=torch.float32, device=dev)
+    return nblocks, partials, out
 
 
 def build_histogram_comb(rows: Rows, rng: torch.Tensor, *, padded_bins: int,
@@ -119,18 +147,10 @@ def build_histogram_comb(rows: Rows, rng: torch.Tensor, *, padded_bins: int,
             or not rows.vals.is_contiguous()):
         raise LightGBMError("histogram wants contiguous u8 bins [n, F] and "
                             "f32 vals [n, 3]")
-    if (rng.device != dev or rng.dtype != torch.int32 or rng.numel() != 3
-            or not rng.is_contiguous()):
-        raise LightGBMError("rng must be a contiguous i32 [3] tensor "
-                            "(start, off, count) on the rows' device")
+    _check_rng(rng, dev)
     lib = _lib()
-    if lib.hist_comb_smem_bytes(f, padded_bins) > MAX_SMEM:
-        raise LightGBMError(f"histogram of {f} features x {padded_bins} "
-                            "bins does not fit one block's shared memory")
-    nblocks = hist_blocks(max_rows)
-    partials = torch.empty((nblocks, f, padded_bins, 2), dtype=torch.float32,
-                           device=dev)
-    out = torch.empty((f, padded_bins, 2), dtype=torch.float32, device=dev)
+    nblocks, partials, out = _comb_buffers(lib, f, padded_bins, max_rows,
+                                           dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.hist_comb(rows.bins.data_ptr(), rows.vals.data_ptr(),
@@ -145,6 +165,52 @@ def build_histogram_comb(rows: Rows, rng: torch.Tensor, *, padded_bins: int,
 
 
 build_histogram_comb.launches = 0
+
+
+def build_histogram_comb_p2_ref(rows: PackedRows, rng: torch.Tensor, *,
+                                padded_bins: int,
+                                max_rows: int) -> torch.Tensor:
+    """Plain version of the pack=2 histogram:
+    :func:`build_histogram_comb_ref` over the records' fields."""
+    return build_histogram_comb_ref(rows.fields(), rng,
+                                    padded_bins=padded_bins,
+                                    max_rows=max_rows)
+
+
+def build_histogram_comb_p2(rows: PackedRows, rng: torch.Tensor, *,
+                            padded_bins: int,
+                            max_rows: int) -> torch.Tensor:
+    """:func:`build_histogram_comb` over records.  CPU tensors take
+    :func:`build_histogram_comb_p2_ref`; CUDA tensors launch the
+    kernel on the current stream."""
+    dev = rows.buf.device
+    if dev.type == "cpu":
+        return build_histogram_comb_p2_ref(rows, rng,
+                                           padded_bins=padded_bins,
+                                           max_rows=max_rows)
+    if dev.type != "cuda":
+        raise LightGBMError(f"histogram runs on cuda or cpu, not {dev}")
+    check_packed(rows)
+    _check_rng(rng, dev)
+    lib = _lib()
+    n, lay = rows.buf.shape[0], rows.layout
+    f = lay.num_features
+    nblocks, partials, out = _comb_buffers(lib, f, padded_bins, max_rows,
+                                           dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.hist_comb_p2(rows.buf.data_ptr(), lay.stride, lay.fb,
+                              rng.data_ptr(), partials.data_ptr(),
+                              out.data_ptr(), n, f, int(padded_bins),
+                              nblocks, stream)
+    if rc != 0:
+        raise LightGBMError(f"hist_comb_p2 kernel launch failed with CUDA "
+                            f"error {rc}")
+    build_histogram_comb_p2.launches += 1
+    return out
+
+
+build_histogram_comb_p2.launches = 0
 
 
 # -- row-indexed histogram (csrc/hist_rows.cu) ------------------------------

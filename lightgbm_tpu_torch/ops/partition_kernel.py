@@ -17,6 +17,11 @@ order, exactly as the compiled single-scan TPU kernel leaves it; after
 as the 3-phase kernel writes them.  Rows outside the segment are
 untouched.
 
+:func:`copyback_p2` is the copyback at pack=2 (``copyback_call_p2`` in
+``partition_kernel3.py``) over the records of
+:class:`~.device_data.PackedRows`; its plain version is
+:func:`copyback_ref` over :meth:`PackedRows.fields`.
+
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
 """
@@ -30,7 +35,7 @@ import torch
 
 from ..utils.log import LightGBMError
 from . import _build
-from .device_data import Rows
+from .device_data import PackedRows, Rows, check_packed
 
 # split descriptor layout (lightgbm_tpu/ops/pallas/partition_kernel.py):
 # seven slots (an eighth is spare), then optionally membership words
@@ -160,10 +165,11 @@ def split_args(sel: Sequence[int]) -> list:
                                   SEL_NANB)]
 
 
-def check_segment(rows: Rows, s0: int, cnt: int) -> None:
-    if s0 < 0 or cnt < 0 or s0 + cnt > rows.bins.shape[0]:
+def check_segment(n: int, s0: int, cnt: int) -> None:
+    """Raise unless [s0, s0 + cnt) lies inside an ``n``-row matrix."""
+    if s0 < 0 or cnt < 0 or s0 + cnt > n:
         raise LightGBMError(f"segment [{s0}, {s0 + cnt}) is outside the "
-                            f"{rows.bins.shape[0]}-row matrix")
+                            f"{n}-row matrix")
 
 
 @functools.lru_cache(maxsize=1)
@@ -174,6 +180,8 @@ def _lib():
     lib.partition_scan.restype = i
     lib.partition_copyback.argtypes = [p] * 10 + [i] * 3 + [p]
     lib.partition_copyback.restype = i
+    lib.partition_copyback_p2.argtypes = [p, p, i, i, i, p]
+    lib.partition_copyback_p2.restype = i
     return lib
 
 
@@ -200,7 +208,7 @@ def partition_scan(rows: Rows, scratch: Rows, sel: Sequence[int],
         raise LightGBMError(f"partition runs on cuda or cpu, not {dev}")
     check_rows(rows, scratch, nleft)
     s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
-    check_segment(rows, s0, cnt)
+    check_segment(rows.bins.shape[0], s0, cnt)
     if cnt == 0:
         nleft.zero_()
         return nleft
@@ -232,7 +240,7 @@ def copyback(rows: Rows, scratch: Rows, s0: int, cnt: int) -> None:
     if dev.type != "cuda":
         raise LightGBMError(f"copyback runs on cuda or cpu, not {dev}")
     check_rows(rows, scratch)
-    check_segment(rows, s0, cnt)
+    check_segment(rows.bins.shape[0], s0, cnt)
     if cnt == 0:
         return None
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -244,6 +252,39 @@ def copyback(rows: Rows, scratch: Rows, s0: int, cnt: int) -> None:
         raise LightGBMError(f"copyback kernel launch failed with CUDA "
                             f"error {rc}")
     copyback.launches += 1
+    return None
+
+
+def copyback_p2_ref(rows: PackedRows, scratch: PackedRows, s0: int,
+                    cnt: int) -> None:
+    """Plain version of the pack=2 copyback: :func:`copyback_ref` over
+    the records' fields."""
+    copyback_ref(rows.fields(), scratch.fields(), s0, cnt)
+
+
+def copyback_p2(rows: PackedRows, scratch: PackedRows, s0: int,
+                cnt: int) -> None:
+    """Move records [s0, s0 + cnt) from ``scratch`` back into ``rows``.
+    CPU tensors take :func:`copyback_p2_ref`; CUDA tensors launch the
+    kernel."""
+    dev = rows.buf.device
+    if dev.type == "cpu":
+        return copyback_p2_ref(rows, scratch, s0, cnt)
+    if dev.type != "cuda":
+        raise LightGBMError(f"copyback_p2 runs on cuda or cpu, not {dev}")
+    check_packed(rows, scratch)
+    check_segment(rows.buf.shape[0], s0, cnt)
+    if cnt == 0:
+        return None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().partition_copyback_p2(
+            rows.buf.data_ptr(), scratch.buf.data_ptr(), rows.layout.stride,
+            int(s0), int(cnt), stream)
+    if rc != 0:
+        raise LightGBMError(f"copyback_p2 kernel launch failed with CUDA "
+                            f"error {rc}")
+    copyback_p2.launches += 1
     return None
 
 
@@ -262,7 +303,7 @@ def partition_3ph(rows: Rows, scratch: Rows, sel: Sequence[int],
         raise LightGBMError(f"partition_3ph runs on cuda or cpu, not {dev}")
     check_rows(rows, scratch, nleft)
     s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
-    check_segment(rows, s0, cnt)
+    check_segment(rows.bins.shape[0], s0, cnt)
     words = member_words(sel)
     if len(words) > MAX_MEMBER_WORDS:
         raise LightGBMError(f"a split descriptor carries at most "
@@ -301,4 +342,5 @@ def partition(rows: Rows, scratch: Rows, sel: Sequence[int],
 
 partition_scan.launches = 0
 copyback.launches = 0
+copyback_p2.launches = 0
 partition_3ph.launches = 0

@@ -29,9 +29,13 @@ decision of ``decide``, ``:383-413``) and of the split-tail choice in
   ops in PyTorch;
 - ``pack``: rows per 128-lane line of the JAX package's comb
   (``LGBM_TPU_COMB_PACK``, its pack rules at ``:237-245`` and
-  ``:398-406``).  The port has no pack=2 kernels (ROADMAP B9): a
-  decision for pack=2 raises in :func:`require_ported`, where the JAX
-  package would train them.
+  ``:398-406``), decided by the JAX package's rules so that the port
+  engages pack=2 exactly where it does.  At pack=2 the port keeps one
+  64-byte record per row at 28 features (``device_data.PackedRows``)
+  and runs the pack=2 kernels of the fused route; the unfused pack=2
+  kernels (the single-scan partition and the plain refresh) are not
+  ported (ROADMAP B9), so a pack=2 decision without the fused split
+  raises in :func:`require_ported`.
 
 On ``row_order``, ``stream`` and ``fused`` are off: both move rows of
 the physical matrix, and their reason is the path itself.  The knobs are
@@ -176,13 +180,15 @@ class RouteDecision:
 
     def describe(self) -> str:
         """``path=.. fused=.. tail=.. (reasons)``; the scheme is named
-        when it is ``3ph`` and the pool tail when it is off."""
+        when it is ``3ph``, the pool tail when it is off and the pack
+        when it is 2."""
         why = f" ({', '.join(self.reasons)})" if self.reasons else ""
         scheme = " scheme=3ph" if self.scheme == "3ph" else ""
         pool = (" pool_tail=0" if self.tail == "kernel" and not self.pool_tail
                 else "")
+        pack = " pack=2" if self.pack == 2 else ""
         return (f"path={self.path}{scheme} fused={int(self.fused)} "
-                f"tail={self.tail}{pool}{why}")
+                f"tail={self.tail}{pool}{pack}{why}")
 
 
 def inputs_from_env(environ=None, **kw) -> RouteInputs:
@@ -253,9 +259,13 @@ def decide(i: RouteInputs) -> RouteDecision:
 
 
 def require_ported(d: RouteDecision) -> None:
-    """Raise for a decision the port has no kernels for: pack=2."""
-    if d.pack == 2:
+    """Raise for a decision the port has no kernels for: pack=2 without
+    the fused split."""
+    if d.pack == 2 and not d.fused:
         raise LightGBMError(
-            "LGBM_TPU_COMB_PACK=2 selects the pack=2 kernels (two rows per "
-            "128-lane comb line), which are not ported to lightgbm_tpu_torch "
-            "yet (see ROADMAP.md, B9); unset it to train with pack=1")
+            "LGBM_TPU_COMB_PACK=2 without the fused split "
+            f"({', '.join(d.reasons)}) selects the unfused pack=2 kernels, "
+            "the single-scan partition and the plain refresh (PERF.md rows "
+            "8 and 15), which are not ported to lightgbm_tpu_torch yet (see "
+            "ROADMAP.md, B9); unset LGBM_TPU_COMB_PACK, or keep the fused "
+            "split on, to train")

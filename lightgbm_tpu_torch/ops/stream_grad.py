@@ -21,6 +21,13 @@ The gradient arithmetic is the objectives' own (``binary_gradients``,
 f32 values.  The TPU kernels' bf16 rounding of g/h is not applied (the
 JAX package's interpret reference skips it too).
 
+:func:`stream_init_p2` and :func:`stream_refresh_p2` are the init and
+the refresh with the root histogram at pack=2 (``_init_kernel_p2``,
+``_refresh_hist_kernel_p2``) over the records of
+:class:`~.device_data.PackedRows`: their plain versions are the pack=1
+plain versions over :meth:`PackedRows.fields`, and the kernels write the
+pack=1 kernels' bits.
+
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
 """
@@ -35,7 +42,8 @@ from ..objective.binary import binary_gradients
 from ..objective.regression import l2_gradients
 from ..utils.log import LightGBMError
 from . import _build
-from .device_data import Rows
+from .device_data import (PackedRows, RecordLayout, Rows, check_packed,
+                          pack_rows)
 from .hist_kernel2 import MAX_SMEM, build_histogram_comb_ref, hist_blocks
 from .partition_kernel import check_rows
 
@@ -101,7 +109,12 @@ def _lib():
     lib.stream_init.restype = i
     lib.stream_refresh.argtypes = [p] * 5 + [i] * 4 + [f] + [p] * 2 + [i, p]
     lib.stream_refresh.restype = i
-    lib.stream_refresh_smem_bytes.argtypes = [i, i]
+    lib.stream_init_p2.argtypes = [p] * 4 + [i] * 5 + [f, p, p]
+    lib.stream_init_p2.restype = i
+    lib.stream_refresh_p2.argtypes = [p, i, i, p] + [i] * 4 + [f] + [p] * 2 \
+        + [i, p]
+    lib.stream_refresh_p2.restype = i
+    lib.stream_refresh_smem_bytes.argtypes = [i, i, i]
     lib.stream_refresh_smem_bytes.restype = i
     lib.stream_refresh_plain.argtypes = [p] * 4 + [i] * 2 + [f, p]
     lib.stream_refresh_plain.restype = i
@@ -115,6 +128,32 @@ def _check_vec(t: torch.Tensor, shape, dev, name: str) -> None:
                             f"{list(shape)} tensor on {dev}")
 
 
+def _refresh_buffers(lib, n: int, f: int, padded_bins: int, stride: int,
+                     dev):
+    """(nblocks, partials, out) of one refresh launch (``stride`` 0 at
+    pack=1, the record stride at pack=2), after the shared-memory
+    check."""
+    if lib.stream_refresh_smem_bytes(f, padded_bins, stride) > MAX_SMEM:
+        raise LightGBMError(f"histogram of {f} features x {padded_bins} "
+                            "bins does not fit one block's shared memory")
+    nblocks = hist_blocks(n)
+    partials = torch.empty((nblocks, f, padded_bins, 2), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((f, padded_bins, 2), dtype=torch.float32, device=dev)
+    return nblocks, partials, out
+
+
+def _check_init(bins, score, valid, consts) -> None:
+    dev = bins.device
+    n = bins.shape[0]
+    if bins.dtype != torch.uint8 or bins.dim() != 2 \
+            or not bins.is_contiguous():
+        raise LightGBMError("bins must be contiguous u8 [n, F]")
+    _check_vec(score, (n,), dev, "score")
+    _check_vec(valid, (n,), dev, "valid")
+    _check_vec(consts, (n, 2), dev, "consts")
+
+
 def stream_init(bins: torch.Tensor, score: torch.Tensor, valid: torch.Tensor,
                 consts: torch.Tensor, *, kind: str, sigmoid: float) -> Rows:
     """The stream route's row matrix.  CPU tensors take
@@ -126,11 +165,7 @@ def stream_init(bins: torch.Tensor, score: torch.Tensor, valid: torch.Tensor,
     if dev.type != "cuda":
         raise LightGBMError(f"stream_init runs on cuda or cpu, not {dev}")
     n, f = bins.shape
-    if bins.dtype != torch.uint8 or not bins.is_contiguous():
-        raise LightGBMError("bins must be contiguous u8 [n, F]")
-    _check_vec(score, (n,), dev, "score")
-    _check_vec(valid, (n,), dev, "valid")
-    _check_vec(consts, (n, 2), dev, "consts")
+    _check_init(bins, score, valid, consts)
     rows = Rows(torch.empty_like(bins),
                 torch.empty((n, 3), dtype=torch.float32, device=dev),
                 torch.empty(n, dtype=torch.int32, device=dev),
@@ -164,13 +199,7 @@ def stream_refresh(rows: Rows, lv: torch.Tensor, *, kind: str,
     n, f = rows.bins.shape
     _check_vec(lv, (n,), dev, "lv")
     lib = _lib()
-    if lib.stream_refresh_smem_bytes(f, padded_bins) > MAX_SMEM:
-        raise LightGBMError(f"histogram of {f} features x {padded_bins} "
-                            "bins does not fit one block's shared memory")
-    nblocks = hist_blocks(n)
-    partials = torch.empty((nblocks, f, padded_bins, 2), dtype=torch.float32,
-                           device=dev)
-    out = torch.empty((f, padded_bins, 2), dtype=torch.float32, device=dev)
+    nblocks, partials, out = _refresh_buffers(lib, n, f, padded_bins, 0, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.stream_refresh(
@@ -212,6 +241,86 @@ def stream_refresh_plain(rows: Rows, lv: torch.Tensor, *, kind: str,
     return None
 
 
+def stream_init_p2_ref(bins: torch.Tensor, score: torch.Tensor,
+                       valid: torch.Tensor, consts: torch.Tensor, *,
+                       kind: str, sigmoid: float) -> PackedRows:
+    """Plain version of the pack=2 init: :func:`stream_init_ref`'s rows
+    as records (pad bytes zero)."""
+    return pack_rows(stream_init_ref(bins, score, valid, consts, kind=kind,
+                                     sigmoid=sigmoid))
+
+
+def stream_refresh_p2_ref(rows: PackedRows, lv: torch.Tensor, *, kind: str,
+                          sigmoid: float, padded_bins: int) -> torch.Tensor:
+    """Plain version of the pack=2 refresh: :func:`stream_refresh_ref`
+    over the records' fields."""
+    return stream_refresh_ref(rows.fields(), lv, kind=kind, sigmoid=sigmoid,
+                              padded_bins=padded_bins)
+
+
+def stream_init_p2(bins: torch.Tensor, score: torch.Tensor,
+                   valid: torch.Tensor, consts: torch.Tensor, *, kind: str,
+                   sigmoid: float) -> PackedRows:
+    """The stream route's records.  CPU tensors take
+    :func:`stream_init_p2_ref`; CUDA tensors launch the kernel."""
+    dev = bins.device
+    if dev.type == "cpu":
+        return stream_init_p2_ref(bins, score, valid, consts, kind=kind,
+                                  sigmoid=sigmoid)
+    if dev.type != "cuda":
+        raise LightGBMError(f"stream_init_p2 runs on cuda or cpu, not {dev}")
+    n, f = bins.shape
+    _check_init(bins, score, valid, consts)
+    lay = RecordLayout(f)
+    rows = PackedRows(torch.empty((n, lay.stride), dtype=torch.uint8,
+                                  device=dev), lay)
+    check_packed(rows)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().stream_init_p2(
+            bins.data_ptr(), score.data_ptr(), valid.data_ptr(),
+            consts.data_ptr(), n, f, lay.stride, lay.fb, KINDS[kind],
+            float(sigmoid), rows.buf.data_ptr(), stream)
+    if rc != 0:
+        raise LightGBMError(f"stream_init_p2 kernel launch failed with CUDA "
+                            f"error {rc}")
+    stream_init_p2.launches += 1
+    return rows
+
+
+def stream_refresh_p2(rows: PackedRows, lv: torch.Tensor, *, kind: str,
+                      sigmoid: float, padded_bins: int) -> torch.Tensor:
+    """:func:`stream_refresh` over records.  CPU tensors take
+    :func:`stream_refresh_p2_ref`; CUDA tensors launch the kernel."""
+    dev = rows.buf.device
+    if dev.type == "cpu":
+        return stream_refresh_p2_ref(rows, lv, kind=kind, sigmoid=sigmoid,
+                                     padded_bins=padded_bins)
+    if dev.type != "cuda":
+        raise LightGBMError(f"stream_refresh_p2 runs on cuda or cpu, not "
+                            f"{dev}")
+    check_packed(rows)
+    n, lay = rows.buf.shape[0], rows.layout
+    f = lay.num_features
+    _check_vec(lv, (n,), dev, "lv")
+    lib = _lib()
+    nblocks, partials, out = _refresh_buffers(lib, n, f, padded_bins,
+                                              lay.stride, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.stream_refresh_p2(
+            rows.buf.data_ptr(), lay.stride, lay.fb, lv.data_ptr(), n, f,
+            int(padded_bins), KINDS[kind], float(sigmoid),
+            partials.data_ptr(), out.data_ptr(), nblocks, stream)
+    if rc != 0:
+        raise LightGBMError(f"stream_refresh_p2 kernel launch failed with "
+                            f"CUDA error {rc}")
+    stream_refresh_p2.launches += 1
+    return out
+
+
 stream_init.launches = 0
 stream_refresh.launches = 0
 stream_refresh_plain.launches = 0
+stream_init_p2.launches = 0
+stream_refresh_p2.launches = 0

@@ -15,6 +15,8 @@ refresh's root histogram and the fused split's two histograms equal
 hist_comb's of the same ranges.  The row-indexed histogram (slice 4)
 bitwise its plain version run on CPU copies of the inputs.  The 3-phase
 partition and the plain refresh (slice 5) bitwise their plain versions.
+The pack=2 record kernels (slice 6) bitwise their plain versions and
+their pack=1 kernels on the same logical rows.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
 row-order and 3ph routes), and the default route's equal slice 2's
@@ -28,10 +30,10 @@ import lightgbm_tpu_torch as lgt
 from chip_smoke import (apply_find_parity, compare_trees,
                         expected_launches, fused_parity, hist_parity,
                         hist_rows_case, leaves_bitwise, make_higgs_like,
-                        make_rows, partition_3ph_parity, partition_parity,
-                        random_model_text, random_row_matrix,
-                        refresh_plain_parity, rows_on, score_tolerance,
-                        stream_parity)
+                        make_rows, pack2_cases, partition_3ph_parity,
+                        partition_parity, random_model_text,
+                        random_row_matrix, refresh_plain_parity, rows_on,
+                        score_tolerance, stream_parity)
 from lightgbm_tpu_torch.ops import predict as tpred
 from lightgbm_tpu_torch.ops import serve_kernel as tkern
 
@@ -359,7 +361,8 @@ def test_slice5_routes_on_card_match_cpu(cuda, env, monkeypatch):
            "copyback": partition_kernel.copyback,
            "apply_find_pool": apply_find.apply_find_pool,
            "apply_find": apply_find.apply_find,
-           "build_histogram_rows": hist_kernel2.build_histogram_rows}
+           "build_histogram_rows": hist_kernel2.build_histogram_rows,
+           **_pack2_fns()}
     before = {k: f.launches for k, f in fns.items()}
     card = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
                      device="cuda")
@@ -373,3 +376,72 @@ def test_slice5_routes_on_card_match_cpu(cuda, env, monkeypatch):
     assert leaves_bitwise(card._models, cpu._models)
     if "LGBM_TPU_PART" not in env:
         assert leaves_bitwise(card._models, default._models)
+
+
+# -- slice 6: pack=2, one record per row ---------------------------------
+def _pack2_fns() -> dict:
+    from lightgbm_tpu_torch.ops import (fused_split, hist_kernel2,
+                                        partition_kernel, stream_grad)
+    return {"stream_init_p2": stream_grad.stream_init_p2,
+            "stream_refresh_p2": stream_grad.stream_refresh_p2,
+            "build_histogram_comb_p2": hist_kernel2.build_histogram_comb_p2,
+            "fused_split_p2": fused_split.fused_split_p2,
+            "copyback_p2": partition_kernel.copyback_p2}
+
+
+@pytest.mark.parametrize("f", [6, 13, 28, 40])
+def test_pack2_kernels_match_plain_and_pack1(cuda, f):
+    """The five record kernels against their plain versions and their
+    pack=1 kernels on the same logical rows, bitwise (histograms within
+    4 * n * eps * max|v| of the plain versions on the card): the root, a
+    range and a segment at odd offsets of odd lengths, a dead split,
+    strides 48, 64 and 80."""
+    rows = rows_on(random_row_matrix(20_011, f, 20 + f, nan_bin=254), cuda)
+    pack2_cases(rows.bins, rows, 256, f"test_F{f}")
+
+
+@pytest.mark.parametrize("env", [{}, {"LGBM_TPU_STREAM": "0"}])
+def test_pack2_route_on_card_matches_cpu_and_pack1(cuda, env, monkeypatch):
+    """LGBM_TPU_COMB_PACK=2 on the card grows the CPU run's trees and
+    the pack=1 route's trees bit for bit, launching each record kernel
+    as many times as the route says and no pack=1 row kernel."""
+    from chip_smoke import ROUTE_KNOBS
+    from lightgbm_tpu_torch.ops import (apply_find, fused_split,
+                                        hist_kernel2, partition_kernel,
+                                        stream_grad)
+    for k in ROUTE_KNOBS:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    x, y = make_higgs_like(6000, 8, seed=8)
+    x[np.random.default_rng(8).random(x.shape) < 0.1] = np.nan
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+    pack1 = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                      device="cuda")
+    monkeypatch.setenv("LGBM_TPU_COMB_PACK", "2")
+    fns = {"stream_init": stream_grad.stream_init,
+           "stream_refresh": stream_grad.stream_refresh,
+           "stream_refresh_plain": stream_grad.stream_refresh_plain,
+           "build_histogram_comb": hist_kernel2.build_histogram_comb,
+           "partition_scan": partition_kernel.partition_scan,
+           "partition_3ph": partition_kernel.partition_3ph,
+           "fused_split": fused_split.fused_split,
+           "copyback": partition_kernel.copyback,
+           "apply_find_pool": apply_find.apply_find_pool,
+           "apply_find": apply_find.apply_find,
+           "build_histogram_rows": hist_kernel2.build_histogram_rows,
+           **_pack2_fns()}
+    before = {k: fn.launches for k, fn in fns.items()}
+    card = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                     device="cuda")
+    got = {k: fn.launches - before[k] for k, fn in fns.items()}
+    route = card._inner.grow.route
+    assert route.pack == 2 and " pack=2" in route.describe()
+    splits = sum(t.num_leaves - 1 for t in card._models)
+    assert got == expected_launches(route, 3, splits)
+    cpu = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                    device="cpu")
+    for other in (cpu, pack1):
+        res = compare_trees(card._models, other._models)
+        assert res["ok"], res
+        assert leaves_bitwise(card._models, other._models)

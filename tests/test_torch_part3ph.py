@@ -223,10 +223,16 @@ def test_knob_decisions(env, scheme, pool_tail, describe):
 
 
 def test_pack2_decides_pack2_and_raises_naming_b9():
+    """pack=2 is ported on the fused route; without the fused split its
+    kernels are not, and the decision raises naming B9."""
     d = decide(inputs_from_env({"LGBM_TPU_COMB_PACK": "2"}))
     assert (d.pack, d.pack_reasons) == (2, ())
+    require_ported(d)
+    unfused = decide(inputs_from_env({"LGBM_TPU_COMB_PACK": "2",
+                                      "LGBM_TPU_FUSED": "0"}))
+    assert (unfused.pack, unfused.fused) == (2, False)
     with pytest.raises(LightGBMError, match="B9"):
-        require_ported(d)
+        require_ported(unfused)
     require_ported(decide(inputs_from_env({})))
 
 
@@ -418,7 +424,7 @@ def test_3ph_route_differs_from_default_only_by_noise():
 
 
 @pytest.mark.parametrize("env,params,match", [
-    ({"LGBM_TPU_COMB_PACK": "2"}, {}, "B9"),
+    ({"LGBM_TPU_COMB_PACK": "2", "LGBM_TPU_FUSED": "0"}, {}, "B9"),
     ({"LGBM_TPU_COMB_PACK": "2", "LGBM_TPU_PART": "3ph"}, {},
      "requires the single-scan partition kernel; unset LGBM_TPU_PART=3ph"),
     ({"LGBM_TPU_COMB_PACK": "2"}, {"max_bin": 1023},

@@ -333,6 +333,14 @@ def test_training_imports_no_jax():
         "              num_boost_round=2, device='cpu')\n"
         "assert b._inner.grow.route.describe() == ('path=stream scheme=3ph "
         "fused=0 tail=kernel pool_tail=0 (part_3ph)')\n"
+        "del os.environ['LGBM_TPU_PART'], os.environ['LGBM_TPU_POOL_TAIL']\n"
+        "os.environ['LGBM_TPU_COMB_PACK'] = '2'\n"
+        "b = lgt.train({'objective': 'binary', 'num_leaves': 7,\n"
+        "               'verbosity': -1}, lgt.Dataset(x, label=y),\n"
+        "              num_boost_round=2, device='cpu')\n"
+        "assert b._inner.grow.route.describe() == "
+        "'path=stream fused=1 tail=kernel pack=2'\n"
+        "b.predict(x)\n"
         "bad = [m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'lightgbm_tpu' "
         "or m.startswith('lightgbm_tpu.')]\n"
