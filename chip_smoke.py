@@ -65,7 +65,17 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    bitwise); its main path (1M x 28, 255 leaves, 10 iterations) counted,
    its trees held against the default route's bit for bit, and one
    profiled iteration;
-7. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+7. pack=2 without the fused split (slice 7): ``partition_scan_p2`` and
+   ``stream_refresh_plain_p2`` in the record-kernel phase above (the
+   whole, odd and dead segments; binary and l2), each timed beside its
+   pack=1 kernel; card against device="cpu" on ``LGBM_TPU_COMB_PACK=2
+   LGBM_TPU_FUSED=0`` and on slice 2's route at pack=2 (bitwise); the
+   main path ``LGBM_TPU_COMB_PACK=2 LGBM_TPU_FUSED=0`` (1M x 28, 255
+   leaves, 3 iterations) counted and served, beside the pack=1
+   ``LGBM_TPU_FUSED=0`` route, both bitwise the default route's first 3
+   trees, and slice 2's route at pack=2 (3), bitwise slice 2's route's
+   trees; one profiled iteration of each unfused route;
+8. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times, then the device line last.
 
 The forests and rows are generated from seeds: the card's machine has
@@ -970,7 +980,7 @@ SLICE2_PARITY_TREES = 1
 ROUTE_KNOBS = ("LGBM_TPU_STREAM", "LGBM_TPU_FUSED", "LGBM_TPU_APPLY_IMPL",
                "LGBM_TPU_PHYS", "LGBM_TPU_HIST_IMPL", "LGBM_TPU_PART",
                "LGBM_TPU_POOL_TAIL", "LGBM_TPU_COMB_PACK")
-# the port's kernels (PERF.md rows 1-7, 9-16)
+# the port's kernels (PERF.md rows 1-16)
 OUR_KERNEL_NAMES = ("hist_comb", "partition_", "partition3ph", "copy_span",
                     "count_tiles", "left_prefix", "fused_scatter",
                     "reduce_partials", "stream_", "apply_find", "hist_rows",
@@ -1045,6 +1055,20 @@ def leaves_bitwise(models_a, models_b) -> bool:
         np.asarray(a.leaf_value, np.float64).tobytes()
         == np.asarray(b.leaf_value, np.float64).tobytes()
         for a, b in zip(models_a, models_b))
+
+
+def _same_trees(bst_a, bst_b, label: str) -> dict:
+    """Hold ``bst_b``'s trees against the first as many of ``bst_a``'s,
+    bit for bit; raises if they differ."""
+    k = len(bst_b._models)
+    same = compare_trees(bst_a._models[:k], bst_b._models)
+    same.update(case=f"{label}, {k} trees at {TRAIN_ROWS} rows",
+                leaves_bitwise=leaves_bitwise(bst_a._models[:k],
+                                              bst_b._models))
+    print("parity routes " + json.dumps(same), flush=True)
+    if not (same["ok"] and same["leaves_bitwise"]):
+        raise RuntimeError(f"{label}: other trees: {same}")
+    return same
 
 
 def profile_iteration(bst, gpu: str) -> dict:
@@ -1533,18 +1557,19 @@ def expected_launches(route, trees: int, splits: int) -> dict:
     row-order path histograms every root and smaller child through the
     index; the physical path's stream init runs once, the fused route
     carries each next root histogram out of its refresh (tree 0's from
-    hist_comb), the unfused routes build every root with hist_comb and
-    refresh without one; per split the fused split + copyback, the scan
+    hist_comb; without the stream every root is built), the unfused
+    routes build every root and smaller child with hist_comb and refresh
+    without a histogram; per split the fused split + copyback, the scan
     + copyback or the 3-phase partition, and the tail's kernel entry.
-    At pack=2 the record kernels take the pack=1 kernels' places on the
-    fused route."""
+    At pack=2 the record kernels take the pack=1 kernels' places."""
     kernel_tail = route.tail == "kernel"
     expect = dict.fromkeys(
         ("stream_init", "stream_refresh", "stream_refresh_plain",
          "build_histogram_comb", "partition_scan", "partition_3ph",
          "fused_split", "copyback", "build_histogram_rows",
-         "stream_init_p2", "stream_refresh_p2", "build_histogram_comb_p2",
-         "fused_split_p2", "copyback_p2"), 0)
+         "stream_init_p2", "stream_refresh_p2", "stream_refresh_plain_p2",
+         "build_histogram_comb_p2", "partition_scan_p2", "fused_split_p2",
+         "copyback_p2"), 0)
     expect["apply_find_pool"] = splits if kernel_tail and route.pool_tail \
         else 0
     expect["apply_find"] = splits if kernel_tail and not route.pool_tail \
@@ -1554,23 +1579,19 @@ def expected_launches(route, trees: int, splits: int) -> dict:
         return expect
     stream, fused = route.stream, route.fused
     three = route.scheme == "3ph"
-    if route.pack == 2:
-        # the fused route's record kernels in the same places
-        expect.update(
-            stream_init_p2=1 if stream else 0,
-            stream_refresh_p2=trees if stream else 0,
-            build_histogram_comb_p2=1 if stream else trees,
-            fused_split_p2=splits, copyback_p2=splits)
-        return expect
-    expect.update(
+    rows = dict(
         stream_init=1 if stream else 0,
         stream_refresh=trees if stream and fused else 0,
         stream_refresh_plain=trees if stream and not fused else 0,
-        build_histogram_comb=1 if stream and fused else trees + splits,
+        build_histogram_comb=(1 if stream else trees) if fused
+        else trees + splits,
         fused_split=splits if fused else 0,
         partition_scan=splits if not fused and not three else 0,
         copyback=splits if not three else 0,
         partition_3ph=splits if three else 0)
+    # the 3ph scheme is never pack=2, so every nonzero count has a p2 kernel
+    suffix = "_p2" if route.pack == 2 else ""
+    expect.update({k + suffix: v for k, v in rows.items() if v})
     return expect
 
 
@@ -1610,17 +1631,8 @@ def part_3ph_phases(gpu: str, ds, valid, x, bst_default) -> tuple:
     if "pool_tail=0" not in pool["route"]:
         raise RuntimeError(f"LGBM_TPU_POOL_TAIL=0 took the route "
                            f"{pool['route']}")
-    routes = compare_trees(bst_default._models[:POOL_TAIL_ITERS],
-                           bst_pool._models)
-    routes.update(case=f"default route vs LGBM_TPU_POOL_TAIL=0, first "
-                  f"{POOL_TAIL_ITERS} trees at {TRAIN_ROWS} rows",
-                  leaves_bitwise=leaves_bitwise(
-                      bst_default._models[:POOL_TAIL_ITERS],
-                      bst_pool._models))
-    print("parity routes pool tail " + json.dumps(routes), flush=True)
-    if not (routes["ok"] and routes["leaves_bitwise"]):
-        raise RuntimeError(f"LGBM_TPU_POOL_TAIL=0 grew other trees than the "
-                           f"default route: {routes}")
+    _same_trees(bst_default, bst_pool, "default route vs "
+                "LGBM_TPU_POOL_TAIL=0")
     return bst, main, pool, parity
 
 
@@ -1795,36 +1807,143 @@ def pack2_split_case(rows, packed, sel, padded_bins: int, label: str) -> dict:
     return rec
 
 
+def pack2_scan_case(rows, packed, sel, label: str) -> dict:
+    """partition_scan_p2 + copyback_p2 (the unfused pack=2 split) on
+    copies of the records against their plain versions (scratch segment
+    and, after the copyback, the whole record buffer byte for byte) and
+    against partition_scan + copyback on the same rows (fields and nleft
+    bitwise); one counted launch each (none for a dead split)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import PackedRows, Rows
+    from lightgbm_tpu_torch.ops.partition_kernel import (
+        copyback, copyback_p2, copyback_p2_ref, partition_scan,
+        partition_scan_p2, partition_scan_p2_ref)
+    dev = rows.bins.device
+    pk = PackedRows(packed.buf.clone(), packed.layout)
+    pp = PackedRows(packed.buf.clone(), packed.layout)
+    sk = PackedRows(torch.zeros_like(packed.buf), packed.layout)
+    sp = PackedRows(torch.zeros_like(packed.buf), packed.layout)
+    r1 = Rows(*(a.clone() for a in rows))
+    s1 = Rows(*(torch.zeros_like(a) for a in rows))
+    nk, npl, n1 = (torch.full((1,), v, dtype=torch.int32, device=dev)
+                   for v in (-1, -2, -3))
+    s0, cnt = int(sel[0]), int(sel[1])
+    launches = (partition_scan_p2.launches, copyback_p2.launches)
+    partition_scan_p2(pk, sk, sel, nk)
+    partition_scan_p2_ref(pp, sp, sel, npl)
+    partition_scan(r1, s1, sel, n1)
+    torch.cuda.synchronize()
+    seg = slice(s0, s0 + cnt)
+    rec = {"case": label, "s0": s0, "cnt": cnt, "nleft": int(nk),
+           "stride": packed.layout.stride,
+           "nleft_equal": int(nk) == int(npl) == int(n1),
+           "scan_identical": torch_equal(sk.buf[seg], sp.buf[seg]),
+           "scan_fields_pack1_identical": _rows_equal(
+               [a[seg] for a in sk.fields()], [a[seg] for a in s1])}
+    copyback_p2(pk, sk, s0, cnt)
+    copyback_p2_ref(pp, sp, s0, cnt)
+    copyback(r1, s1, s0, cnt)
+    torch.cuda.synchronize()
+    rec.update(rows_identical=torch_equal(pk.buf, pp.buf),
+               rows_fields_pack1_identical=_rows_equal(pk.fields(), r1),
+               outside_untouched=(torch_equal(pk.buf[:s0], packed.buf[:s0])
+                                  and torch_equal(pk.buf[s0 + cnt:],
+                                                  packed.buf[s0 + cnt:])),
+               launched=[partition_scan_p2.launches - launches[0],
+                         copyback_p2.launches - launches[1]])
+    live = 1 if cnt > 0 else 0
+    rec["ok"] = (rec["nleft_equal"] and rec["scan_identical"]
+                 and rec["scan_fields_pack1_identical"]
+                 and rec["rows_identical"]
+                 and rec["rows_fields_pack1_identical"]
+                 and rec["outside_untouched"]
+                 and rec["launched"] == [live, live])
+    print("parity pack2 partition_scan+copyback " + json.dumps(rec),
+          flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"partition_scan_p2 / copyback_p2 disagree: {rec}")
+    return rec
+
+
+def pack2_refresh_plain_case(bins, kind: str, label: str,
+                             seed: int = 5) -> dict:
+    """stream_refresh_plain_p2 on the plain init's records against its
+    plain version (the records byte for byte, so the bins and pads
+    untouched) and against stream_refresh_plain on the same rows (the
+    fields bitwise); one counted launch."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import PackedRows, pack_rows
+    from lightgbm_tpu_torch.ops.stream_grad import (
+        stream_init_ref, stream_refresh_plain, stream_refresh_plain_p2,
+        stream_refresh_plain_p2_ref)
+    dev = bins.device
+    n = bins.shape[0]
+    score, valid, consts = stream_aux(n, kind, seed, dev)
+    kw = dict(kind=kind, sigmoid=1.0)
+    r1 = stream_init_ref(bins, score, valid, consts, **kw)
+    k2 = pack_rows(r1)
+    before = k2.buf.clone()
+    p2 = PackedRows(k2.buf.clone(), k2.layout)
+    lv = torch.tensor(np.random.default_rng(seed + 1).normal(size=n) * 0.1,
+                      dtype=torch.float32, device=dev)
+    launches = stream_refresh_plain_p2.launches
+    stream_refresh_plain_p2(k2, lv, **kw)
+    stream_refresh_plain_p2_ref(p2, lv, **kw)
+    stream_refresh_plain(r1, lv, **kw)
+    torch.cuda.synchronize()
+    fb = k2.layout.fb
+    rec = {"case": label, "n": n, "kind": kind, "stride": k2.layout.stride,
+           "rows_identical": torch_equal(k2.buf, p2.buf),
+           "fields_pack1_identical": _rows_equal(k2.fields(), r1),
+           "bins_untouched": torch_equal(k2.buf[:, :fb], before[:, :fb]),
+           "changed": not torch_equal(k2.buf, before),
+           "launched": stream_refresh_plain_p2.launches - launches}
+    rec["ok"] = (rec["rows_identical"] and rec["fields_pack1_identical"]
+                 and rec["bins_untouched"] and rec["changed"]
+                 and rec["launched"] == 1)
+    print("parity pack2 stream_refresh_plain " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"stream_refresh_plain_p2 disagrees: {rec}")
+    return rec
+
+
 def pack2_cases(bins, prows, padded_bins: int, label: str) -> dict:
     """Every pack=2 case at one width: the stream kernels on ``bins``
-    (binary and l2), the histogram and the split on the records of the
-    seeded row matrix ``prows`` (the root / the whole matrix, a range and
-    a segment at an odd offset of odd length, a dead split)."""
+    (binary and l2, both refreshes), the histogram and both splits on
+    the records of the seeded row matrix ``prows`` (the root / the whole
+    matrix, a range and a segment at an odd offset of odd length, a dead
+    split)."""
     from lightgbm_tpu_torch.ops.device_data import pack_rows
     n = prows.bins.shape[0]
     packed = pack_rows(prows)
     odd = (n // 10 | 1, n // 300 | 1, 0, 60, 1, 0, 254)
+    sels = (("whole", (0, n, 0, 120, 1, 0, 254)),
+            ("odd_offset_odd_count", odd),
+            ("dead_split", (n // 2, 0, 2, 10, 0, 0, -1)))
+    kinds = ("binary", "l2")
     return {
         "stream": [pack2_stream_case(bins, k, padded_bins, f"{label}_{k}")
-                   for k in ("binary", "l2")],
+                   for k in kinds],
+        "refresh_plain": [pack2_refresh_plain_case(bins, k, f"{label}_{k}")
+                          for k in kinds],
         "hist": [pack2_hist_case(prows, packed, r, padded_bins, f"{label}_{c}")
                  for c, r in (("root", (0, 0, n)),
                               ("odd", (n // 3 | 1, 4, n // 4 | 1)))],
         "split": [pack2_split_case(prows, packed, sel, padded_bins,
-                                   f"{label}_{c}")
-                  for c, sel in (("whole", (0, n, 0, 120, 1, 0, 254)),
-                                 ("odd_offset_odd_count", odd),
-                                 ("dead_split", (n // 2, 0, 2, 10, 0, 0,
-                                                 -1)))]}
+                                   f"{label}_{c}") for c, sel in sels],
+        "scan": [pack2_scan_case(prows, packed, sel, f"{label}_{c}")
+                 for c, sel in sels]}
 
 
 def pack2_kernels(gpu: str, ds) -> list:
-    """Slice 6: the five record kernels against their plain versions and
-    their pack=1 kernels at the main path's shapes (the training
-    matrix's real bins, 1M x 28, S = 64) and at 250,000 x 40 (S = 80),
-    then each one's time beside its pack=1 kernel's (taken in turns:
-    pack=1, pack=2, pack=2, pack=1) and its plain version's.  Returns the
-    five records, launches still 0."""
+    """Slices 6 and 7: the seven record kernels against their plain
+    versions and their pack=1 kernels at the main path's shapes (the
+    training matrix's real bins, 1M x 28, S = 64) and at 250,000 x 40
+    (S = 80), then each one's time beside its pack=1 kernel's (taken in
+    turns: pack=1, pack=2, pack=2, pack=1) and its plain version's.
+    Returns the seven records, launches still 0."""
     import torch
 
     from lightgbm_tpu_torch.ops.device_data import (PackedRows,
@@ -1836,15 +1955,13 @@ def pack2_kernels(gpu: str, ds) -> list:
     from lightgbm_tpu_torch.ops.hist_kernel2 import (
         build_histogram_comb, build_histogram_comb_p2,
         build_histogram_comb_p2_ref)
-    from lightgbm_tpu_torch.ops.partition_kernel import (copyback,
-                                                         copyback_p2,
-                                                         copyback_p2_ref)
-    from lightgbm_tpu_torch.ops.stream_grad import (stream_init,
-                                                    stream_init_p2,
-                                                    stream_init_p2_ref,
-                                                    stream_refresh,
-                                                    stream_refresh_p2,
-                                                    stream_refresh_p2_ref)
+    from lightgbm_tpu_torch.ops.partition_kernel import (
+        copyback, copyback_p2, copyback_p2_ref, partition_scan,
+        partition_scan_p2, partition_scan_p2_ref)
+    from lightgbm_tpu_torch.ops.stream_grad import (
+        stream_init, stream_init_p2, stream_init_p2_ref, stream_refresh,
+        stream_refresh_p2, stream_refresh_p2_ref, stream_refresh_plain,
+        stream_refresh_plain_p2, stream_refresh_plain_p2_ref)
     dev = torch.device("cuda")
     bins = torch.as_tensor(ds._binned.bin_matrix, device=dev)
     n, f = bins.shape
@@ -1897,6 +2014,14 @@ def pack2_kernels(gpu: str, ds) -> list:
             lambda: stream_refresh_p2(srows2, lv, padded_bins=b_pad, **s_kw),
             lambda: stream_refresh_p2_ref(srows2, lv, padded_bins=b_pad,
                                           **s_kw)),
+        "partition_scan": (
+            lambda: partition_scan(prows, scratch1, sel, nl),
+            lambda: partition_scan_p2(packed, scratch2, sel, nl),
+            lambda: partition_scan_p2_ref(packed, scratch2, sel, nl)),
+        "stream_refresh_plain": (
+            lambda: stream_refresh_plain(srows1, lv, **s_kw),
+            lambda: stream_refresh_plain_p2(srows2, lv, **s_kw),
+            lambda: stream_refresh_plain_p2_ref(srows2, lv, **s_kw)),
     }
     t = {}
     for name, (p1, p2, plain) in pairs.items():
@@ -1909,7 +2034,8 @@ def pack2_kernels(gpu: str, ds) -> list:
           + json.dumps(t) + f" [{gpu}]", flush=True)
     del packed, scratch1, scratch2, srows1, srows2, prows
 
-    stride = RecordLayout(f).stride
+    lay = RecordLayout(f)
+    stride = lay.stride
     row1 = f + ROW_EXTRA_BYTES
     hist_out = f * b_pad * 2 * 4
     def worst(kind: str) -> float:
@@ -1941,6 +2067,16 @@ def pack2_kernels(gpu: str, ds) -> list:
          "lightgbm_tpu/ops/pallas/stream_grad.py:610", "stream_refresh",
          n * (f + 20) + 12 * n + hist_out, n * (f + 20) + 12 * n + hist_out,
          n * (17 + 2 * f), worst("stream")),
+        # reads the split column, reads and writes every record of the
+        # segment once, writes nleft
+        ("partition_scan_p2", "lightgbm_tpu_torch/csrc/partition.cu",
+         "lightgbm_tpu/ops/pallas/partition_kernel3.py:633",
+         "partition_scan", 2 * n * stride + 4, 2 * n * row1 + 4, 0, 0.0),
+        # reads score, w, two constants and lv, writes score, g*w, h*w;
+        # ~17 operations a row (the f64 exp counted as one)
+        ("stream_refresh_plain_p2", "lightgbm_tpu_torch/csrc/stream_grad.cu",
+         "lightgbm_tpu/ops/pallas/stream_grad.py:652",
+         "stream_refresh_plain", 32 * n, 32 * n, 17 * n, 0.0),
     ]
     recs = []
     for name, src, replaces, p1, nb, nb1, ops, err in specs:
@@ -1954,10 +2090,24 @@ def pack2_kernels(gpu: str, ds) -> list:
                          library_call="index_add_ over a precomputed flat "
                                       "(feature, bin) index, index build "
                                       "excluded")
+        if name == "stream_refresh_plain_p2":
+            # what a record layout costs a narrow kernel: the 32-byte
+            # sectors that the fields [Fb, Fb + 28) touch, read once and
+            # written once, and lv
+            sector = n * (2 * 32 * _sectors(lay.fb, lay.fb + 28) + 4)
+            extra.update(sector_bytes=sector,
+                         sector_bound_ms=sector / PEAK_BYTES_S * 1e3)
         recs.append(_kernel_record(name, src, replaces, 0, err, tm["ms"],
                                    tm["plain_ms"], nb, ops, gpu, **extra))
     recs[0]["wide_case_stride"] = wide_cases["split"][0]["stride"]
     return recs
+
+
+def _sectors(lo: int, hi: int) -> int:
+    """32-byte sectors that bytes [lo, hi) of a record touch (records
+    start on 16-byte boundaries; S a multiple of 32 keeps the count
+    the same for every record)."""
+    return (hi - 1) // 32 - lo // 32 + 1
 
 
 def row_kernel_times(n: int = TRAIN_ROWS, f: int = N_FEATURES,
@@ -2012,16 +2162,51 @@ def pack2_phases(gpu: str, ds, valid, x, bst_default) -> tuple:
     if main["route"] != "path=stream fused=1 tail=kernel pack=2":
         raise RuntimeError(f"LGBM_TPU_COMB_PACK=2 took the route "
                            f"{main['route']}")
-    same = compare_trees(bst_default._models, bst._models)
-    same.update(case=f"default route vs pack=2 route, {TRAIN_ITERS} trees "
-                f"at {TRAIN_ROWS} rows",
-                leaves_bitwise=leaves_bitwise(bst_default._models,
-                                              bst._models))
-    print("parity routes pack=2 " + json.dumps(same), flush=True)
-    if not (same["ok"] and same["leaves_bitwise"]):
-        raise RuntimeError(f"the pack=2 route grew other trees than the "
-                           f"default route: {same}")
+    _same_trees(bst_default, bst, "default route vs pack=2 route")
     return bst, main, parity
+
+
+# ---------------------------------------------------------------------
+# Slice 7: pack=2 without the fused split
+FUSED_OFF = {"LGBM_TPU_FUSED": "0"}
+PACK2_UNFUSED = dict(PACK2, **FUSED_OFF)
+PACK2_SLICE2 = dict(PACK2, **SLICE2_ROUTE)
+PACK2_UNFUSED_ITERS = 3
+
+
+def pack2_unfused_phases(gpu: str, ds, valid, x, bst_default,
+                         bst_slice2) -> tuple:
+    """Slice 7's training: card against device="cpu" at 50,000 rows
+    (bitwise) on COMB_PACK=2 FUSED=0 and on pack=2 slice 2's route; the
+    main path COMB_PACK=2 FUSED=0 (1M x 28, 255 leaves, 3 iterations)
+    counted and served, beside the pack=1 FUSED=0 route (3 iterations),
+    both bitwise the default route's first 3 trees; slice 2's route at
+    pack=2 (3 iterations), bitwise slice 2's route's trees.  Returns
+    (boosters, records, parity records), each keyed by route."""
+    parity = {
+        "pack2_unfused": train_parity(gpu, PACK2_UNFUSED, PARITY_TREES,
+                                      "pack=2 unfused route", bitwise=True),
+        "pack2_slice2": train_parity(gpu, PACK2_SLICE2, SLICE2_PARITY_TREES,
+                                     "pack=2 slice 2 route", bitwise=True)}
+    # (key, knobs, label, the route they must take, the booster whose
+    # first trees they must grow)
+    runs = (("pack2_unfused", PACK2_UNFUSED, "main path, pack=2 unfused route",
+             "path=stream fused=0 tail=kernel pack=2 (fused_env_off)",
+             bst_default),
+            ("pack1_unfused", FUSED_OFF, "pack=1 unfused route",
+             "path=stream fused=0 tail=kernel (fused_env_off)", bst_default),
+            ("pack2_slice2", PACK2_SLICE2, "pack=2 slice 2 route",
+             "path=physical fused=0 tail=xla pack=2 (stream_env_off, "
+             "fused_env_off, tail_env_xla)", bst_slice2))
+    bsts, recs = {}, {}
+    for key, env, label, want, ref in runs:
+        bsts[key], recs[key] = train_main_path(gpu, ds, valid, x, env,
+                                               PACK2_UNFUSED_ITERS, label)
+        if recs[key]["route"] != want:
+            raise RuntimeError(f"{env} took the route {recs[key]['route']}")
+        _same_trees(ref, bsts[key],
+                    f"{label} vs {ref._inner.grow.route.describe()}")
+    return bsts, recs, parity
 
 
 def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
@@ -2039,22 +2224,19 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
     from lightgbm_tpu_torch.ops.hist_kernel2 import (build_histogram_comb,
                                                      build_histogram_comb_p2,
                                                      build_histogram_rows)
-    from lightgbm_tpu_torch.ops.partition_kernel import (copyback,
-                                                         copyback_p2,
-                                                         partition_3ph,
-                                                         partition_scan)
+    from lightgbm_tpu_torch.ops.partition_kernel import (
+        copyback, copyback_p2, partition_3ph, partition_scan,
+        partition_scan_p2)
     from lightgbm_tpu_torch.ops.serve_kernel import serve_traverse
-    from lightgbm_tpu_torch.ops.stream_grad import (stream_init,
-                                                    stream_init_p2,
-                                                    stream_refresh,
-                                                    stream_refresh_p2,
-                                                    stream_refresh_plain)
+    from lightgbm_tpu_torch.ops.stream_grad import (
+        stream_init, stream_init_p2, stream_refresh, stream_refresh_p2,
+        stream_refresh_plain, stream_refresh_plain_p2)
     counted = (stream_init, stream_refresh, stream_refresh_plain,
                build_histogram_comb, partition_scan, partition_3ph,
                fused_split, copyback, apply_find_pool, apply_find,
                build_histogram_rows, stream_init_p2, stream_refresh_p2,
                build_histogram_comb_p2, fused_split_p2, copyback_p2,
-               serve_traverse)
+               partition_scan_p2, stream_refresh_plain_p2, serve_traverse)
     its = []
 
     def _tick(env_):
@@ -2122,17 +2304,19 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
 
 
 def train_phases(gpu: str) -> list:
-    """Slices 2 to 6: the training kernels against their plain versions
-    at the main paths' shapes, training parity card vs CPU on five
+    """Slices 2 to 7: the training kernels against their plain versions
+    at the main paths' shapes, training parity card vs CPU on seven
     routes, the training main path on the default route (1M x 28, 255
     leaves, 10 iterations) counted, timed by stage and served, slice 2's
     route beside it (3 iterations, its trees held against the default
     route's first 3), the row-order route at max_bin=1023 (10
     iterations) and under LGBM_TPU_PHYS=0 (3), the 3ph route (3),
-    LGBM_TPU_POOL_TAIL=0 (2) and the pack=2 route (10, its trees held
-    against the default route's), and one profiled iteration of each
-    route but LGBM_TPU_POOL_TAIL=0.  Returns the fifteen training
-    kernels' records."""
+    LGBM_TPU_POOL_TAIL=0 (2), the pack=2 route (10, its trees held
+    against the default route's), the pack=2 and pack=1 unfused routes
+    (3 each, against the default route's) and slice 2's route at pack=2
+    (3, against slice 2's route's), and one profiled iteration of each
+    route but LGBM_TPU_POOL_TAIL=0 and slice 2's at pack=2.  Returns
+    the seventeen training kernels' records."""
     import lightgbm_tpu_torch as lgt
 
     x_all, y_all = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS, N_FEATURES,
@@ -2174,6 +2358,8 @@ def train_phases(gpu: str) -> list:
         gpu, ds, valid, ds_wide, valid_wide, x, bst)
     bst5, main5, pool5, parity5 = part_3ph_phases(gpu, ds, valid, x, bst)
     bst6, main6, parity6 = pack2_phases(gpu, ds, valid, x, bst)
+    bsts7, mains7, parity7 = pack2_unfused_phases(gpu, ds, valid, x, bst,
+                                                  bst2)
     # one more tree of each under the profiler, after every check
     with route_env({}):
         print("profiled iteration, default route "
@@ -2193,6 +2379,12 @@ def train_phases(gpu: str) -> list:
     with route_env(PACK2):
         print("profiled iteration, pack=2 route "
               + json.dumps(profile_iteration(bst6, gpu)), flush=True)
+    for key, env in (("pack2_unfused", PACK2_UNFUSED),
+                     ("pack1_unfused", FUSED_OFF)):
+        with route_env(env):
+            print(f"profiled iteration, {key.replace('_', ' ')} route "
+                  + json.dumps(profile_iteration(bsts7[key], gpu)),
+                  flush=True)
 
     names = {"hist_comb": "build_histogram_comb",
              "apply_find": "apply_find_pool",
@@ -2202,7 +2394,9 @@ def train_phases(gpu: str) -> list:
         key = names.get(r["name"], r["name"])
         for run, where in ((main, None), (main2, "slice 2 route"),
                            (main3, "row-order route"), (main5, "3ph route"),
-                           (main6, "pack=2 route")):
+                           (main6, "pack=2 route"),
+                           (mains7["pack2_unfused"], "pack=2 unfused route"),
+                           (mains7["pack2_slice2"], "pack=2 slice 2 route")):
             if run["launches"][key] > 0:
                 r["launches"] = run["launches"][key]
                 if where:
@@ -2210,15 +2404,19 @@ def train_phases(gpu: str) -> list:
                 break
         if r["launches"] <= 0:
             raise RuntimeError(f"{r['name']} was launched on no main path")
-    recs[-1]["phys_off_launches"] = off["launches"]["build_histogram_rows"]
-    recs[0]["train_parity"] = parity["ok"] and parity2["ok"]
-    recs[-1]["train_parity_bitwise"] = parity3["ok"]
     by_name = {r["name"]: r for r in recs}
+    by_name["hist_rows"]["phys_off_launches"] = \
+        off["launches"]["build_histogram_rows"]
+    recs[0]["train_parity"] = parity["ok"] and parity2["ok"]
+    by_name["hist_rows"]["train_parity_bitwise"] = parity3["ok"]
     by_name["apply_find"]["plain_entry_launches"] = \
         pool5["launches"]["apply_find"]
     by_name["apply_find"]["plain_entry_launched_on"] = "LGBM_TPU_POOL_TAIL=0"
     by_name["partition_3ph"]["train_parity_bitwise"] = parity5["ok"]
     by_name["fused_split_p2"]["train_parity_bitwise"] = parity6["ok"]
+    for name in ("partition_scan_p2", "stream_refresh_plain_p2"):
+        by_name[name]["train_parity_bitwise"] = all(
+            r["ok"] for r in parity7.values())
     return recs
 
 

@@ -54,10 +54,8 @@ ENV_KNOBS: Dict[str, tuple] = {
                                 "PyTorch, then the plain-pool kernel)"),
     "LGBM_TPU_COMB_PACK": ("1", "2 keeps each row as one record of its "
                                 "bins and fields (64 bytes at 28 features) "
-                                "and runs the pack=2 kernels of the fused "
-                                "route where the JAX package engages pack=2; "
-                                "without the fused split it raises (ROADMAP "
-                                "B9)"),
+                                "and runs the route's pack=2 kernels where "
+                                "the JAX package engages pack=2"),
 }
 
 

@@ -17,6 +17,15 @@
 // column from scratch back into the row matrix and touches no row
 // outside it.
 //
+// partition_scan_p2 replaces partition_kernel3.make_partition_p2
+// (_scan_kernel_p2, pallas_call at :633), the scan at pack=2: the same
+// kernels over records (partition_common.cuh RecPtr), instantiated from
+// the same templates, so the left rows, the reversed right rows and nleft
+// are partition_scan's; each row moves as its S / 16 16-byte words.  The
+// TPU kernel's parity carries (two rows share a 128-lane line,
+// partition_kernel3.py:340-500) have no counterpart: a record is whole
+// words at any row index.
+//
 // partition_copyback_p2 replaces partition_kernel3.copyback_call_p2
 // (_copyback_kernel_p2, pallas_call at :562), the copyback at pack=2:
 // records [s0, s0 + cnt) (partition_common.cuh RecPtr), cnt * S
@@ -37,8 +46,9 @@
 // the data only, so every launch writes the same bytes.
 //
 // Bound on this card: bytes.  The scan reads the split column of every
-// row once and moves each row (F + 28 bytes) once into scratch; the
-// copyback moves cnt * (F + 28) bytes back, at pack=2 cnt * S.
+// row once and moves each row (F + 28 bytes, at pack=2 S) once into
+// scratch; the copyback moves cnt * (F + 28) bytes back, at pack=2
+// cnt * S.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,8 +62,10 @@ using part::kTile;
 using part::RowPtrs;
 using part::Split;
 
+// Rows is part::RowPtrs (pack=1) or part::RecPtr (pack=2)
+template <class Rows>
 __global__ void __launch_bounds__(kThreads)
-partition_scatter(RowPtrs rows, RowPtrs scr, int F, Split sp,
+partition_scatter(Rows rows, Rows scr, int F, Split sp,
                   const int* __restrict__ tile_left,
                   int* __restrict__ nleft) {
   __shared__ int red[kThreads];
@@ -71,7 +83,9 @@ partition_scatter(RowPtrs rows, RowPtrs scr, int F, Split sp,
   const int right_before = blockIdx.x * kTile - left_before;
 
   unsigned bits;
-  const int live = part::thread_bits(rows.bins, F, sp, blockIdx.x, &bits);
+  const int live = part::thread_bits(part::bins_of(rows),
+                                     part::bin_stride(rows, F), sp,
+                                     blockIdx.x, &bits);
   const int nl = __popc(bits);
   int tile_total;
   const int l_off = part::block_exclusive_scan(nl, &tile_total);
@@ -110,6 +124,20 @@ __global__ void copy_records(part::RecPtr rows, part::RecPtr scr, int s0,
     d[i] = s[i];
 }
 
+// the scan's two launches; 0 or the CUDA error code
+template <class Rows>
+int scan_launch(Rows rows, Rows scr, int* tile_left, int* nleft, int F,
+                const Split& sp, cudaStream_t s) {
+  const int tiles = (sp.cnt + kTile - 1) / kTile;
+  part::count_tiles<<<tiles, kThreads, 0, s>>>(
+      part::bins_of(rows), part::bin_stride(rows, F), sp, tile_left);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  partition_scatter<Rows><<<tiles, kThreads, 0, s>>>(rows, scr, F, sp,
+                                                     tile_left, nleft);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -122,17 +150,22 @@ int partition_scan(uint8_t* bins, float* vals, int* rid, float* score,
                    float* sscore, float* sconsts, int* tile_left, int* nleft,
                    int F, int s0, int cnt, int feat, int sbin, int dl,
                    int cat, int nanb, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Split sp{s0, cnt, feat, sbin, dl, cat, nanb};
-  const RowPtrs rows{bins, vals, rid, score, consts};
-  const RowPtrs scr{sbins, svals, srid, sscore, sconsts};
-  const int tiles = (cnt + kTile - 1) / kTile;
-  part::count_tiles<<<tiles, kThreads, 0, s>>>(bins, F, sp, tile_left);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  partition_scatter<<<tiles, kThreads, 0, s>>>(rows, scr, F, sp, tile_left,
-                                               nleft);
-  return (int)cudaGetLastError();
+  return scan_launch(RowPtrs{bins, vals, rid, score, consts},
+                     RowPtrs{sbins, svals, srid, sscore, sconsts}, tile_left,
+                     nleft, F, Split{s0, cnt, feat, sbin, dl, cat, nanb},
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The same over records: base and sbase u8 [n, S] (16-byte aligned),
+// vals at byte Fb.  cnt must be > 0.
+int partition_scan_p2(uint8_t* base, uint8_t* sbase, int S, int Fb,
+                      int* tile_left, int* nleft, int s0, int cnt, int feat,
+                      int sbin, int dl, int cat, int nanb, void* stream) {
+  // a record's bin stride and copy are its own: F is not read
+  return scan_launch(part::RecPtr{base, S, Fb}, part::RecPtr{sbase, S, Fb},
+                     tile_left, nleft, 0,
+                     Split{s0, cnt, feat, sbin, dl, cat, nanb},
+                     static_cast<cudaStream_t>(stream));
 }
 
 // Copy rows [s0, s0 + cnt) of every column from scratch back.

@@ -1,6 +1,6 @@
-// The split predicate, the per-tile left counts, the row copy and the span
-// copyback shared by partition.cu (scan + copyback), partition_3ph.cu and
-// fused_split.cu.
+// The split predicate, the per-tile left counts, the row copy (either
+// layout) and the span copyback shared by partition.cu (scan + copyback,
+// both packs), partition_3ph.cu and fused_split.cu.
 //
 // Two row-access policies.  pack=1, RowPtrs: bins u8 [n, F], vals f32
 // [n, 3] (g*w, h*w, w), rid i32 [n] (original row ids), score f32 [n],
@@ -159,6 +159,17 @@ __device__ __forceinline__ void copy_row(const RowPtrs& s, const RowPtrs& d,
     for (int f = 0; f < F; ++f) d.bins[dst * F + f] = s.bins[src * F + f];
   }
   copy_values(s, d, src, dst);
+}
+
+// record src into record dst of another buffer: S / 16 16-byte words (F
+// unused; the record's bins are among its words)
+__device__ __forceinline__ void copy_row(const RecPtr& s, const RecPtr& d,
+                                         int, long long src,
+                                         long long dst) {
+  const int W = s.S / 16;
+  const uint4* a = reinterpret_cast<const uint4*>(s.base) + src * W;
+  uint4* b = reinterpret_cast<uint4*>(d.base) + dst * W;
+  for (int w = 0; w < W; ++w) b[w] = a[w];
 }
 
 // rows [s0, s0 + cnt) of every column from scr into rows, grid-stride;

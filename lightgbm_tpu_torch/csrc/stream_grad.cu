@@ -35,6 +35,15 @@
 // arithmetic, the slices and the histogram's order of additions are the
 // pack=1 kernels': the same rows get the same bits.
 //
+// stream_refresh_plain_p2 replaces _make_refresh_p2's plain variant
+// (_refresh_kernel_p2, pallas_call at :652), the refresh of the unfused
+// route at pack=2: per record position the plain refresh's update, read
+// and written as the record's 4-byte fields in place (score at Fb + 16,
+// w at Fb + 8, the constants at Fb + 20; g*w and h*w at Fb).  A 16-byte
+// word holding g*w may also hold bin bytes (Fb = 28 at F = 28), so the
+// kernel writes only the three fields and never a whole word.  Same
+// gradients(), same operation order: the pack=1 plain refresh's bits.
+//
 // Rows: bins u8 [n, F], vals f32 [n, 3] (g*w, h*w, w), rid i32 [n],
 // score f32 [n], consts f32 [n, 2]: binary (sign, label_weight), l2
 // (target, weight).  The TPU's bf16x3 split of score and constants is a
@@ -54,7 +63,10 @@
 // n * 20 bytes (score, w, constants, lv) and writes n * 12; it does not
 // read the bins.  At pack=2 the init writes n * S bytes of records
 // (S = 64 at F = 28) and the refresh reads n * (Fb + 28) and writes the
-// 16-byte words holding score, g*w and h*w.
+// 16-byte words holding score, g*w and h*w.  The plain refresh at pack=2
+// needs the same 20 bytes read and 12 written a row, but reaches them as
+// the 32-byte sectors that bytes [Fb, Fb + 28) of each record touch (two
+// at F = 28).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -312,6 +324,33 @@ __global__ void stream_refresh_plain_kernel(float* __restrict__ vals,
   }
 }
 
+// pack=2 plain refresh: one thread per record, its fields in place
+__global__ void stream_refresh_plain_p2_kernel(uint8_t* __restrict__ base,
+                                               int S, int Fb,
+                                               const float* __restrict__ lv,
+                                               int n, int kind, float sig) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       p < (size_t)n; p += stride) {
+    // vals (g*w, h*w, w), rid, score, consts
+    float* f = reinterpret_cast<float*>(base + p * S + Fb);
+    const float s = f[4] + lv[p];
+    float g, h;
+    gradients(kind, sig, s, f[5], f[6], f[2], &g, &h);
+    f[4] = s;
+    f[0] = g;
+    f[1] = h;
+  }
+}
+
+// grid of the plain refreshes: one thread a row, at most 16 blocks an SM
+int plain_blocks(int n) {
+  long long blocks = ((long long)n + 255) / 256;
+  if (blocks < 1) blocks = 1;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  return (int)blocks;
+}
+
 // shared-memory bytes of a refresh block; S = 0 at pack=1
 int refresh_smem(int F, int B, int S) {
   return histblock::smem_bytes(F, B) + (S ? kChunk * staged_words(S) * 4 : 0);
@@ -420,12 +459,19 @@ int stream_refresh_p2(uint8_t* base, int S, int Fb, const float* lv, int n,
 int stream_refresh_plain(float* vals, float* score, const float* consts,
                          const float* lv, int n, int kind, float sig,
                          void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int blocks = (int)(((long long)n + 255) / 256);
-  if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  stream_refresh_plain_kernel<<<blocks, 256, 0, s>>>(vals, score, consts, lv,
-                                                     n, kind, sig);
+  stream_refresh_plain_kernel<<<plain_blocks(n), 256, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      vals, score, consts, lv, n, kind, sig);
+  return (int)cudaGetLastError();
+}
+
+// The same over records: base u8 [n, S] (16-byte aligned), vals at byte
+// Fb.
+int stream_refresh_plain_p2(uint8_t* base, int S, int Fb, const float* lv,
+                            int n, int kind, float sig, void* stream) {
+  stream_refresh_plain_p2_kernel<<<plain_blocks(n), 256, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      base, S, Fb, lv, n, kind, sig);
   return (int)cudaGetLastError();
 }
 

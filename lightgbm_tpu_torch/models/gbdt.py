@@ -42,8 +42,7 @@ from ..ops.fused_split import fused_supported
 from ..ops.grow import (RowOrderGrower, SerialGrower, StageTimer,
                         StreamSpec, TreeArrays, predict_leaf_bins)
 from ..ops.histogram import histogram_impl
-from ..ops.routing import (decide, inputs_from_env, require_ported,
-                           resolve_layout)
+from ..ops.routing import decide, inputs_from_env, resolve_layout
 from ..ops.split import SplitHyperParams
 from ..utils import log
 from ..utils.log import LightGBMError
@@ -173,7 +172,6 @@ class GBDT:
             fused_ok=fused_supported(dd.num_features, dd.padded_bins),
             tail_ok=apply_find_supported(dd.num_features, dd.padded_bins)),
             num_features=dd.num_features, padded_bins=dd.padded_bins))
-        require_ported(self.route)
         if not self.route.physical:
             histogram_impl()     # raises for a knob value with no kernel
             self.grow = RowOrderGrower(self.hp, num_leaves=cfg.num_leaves,

@@ -35,8 +35,8 @@ from . import _build
 from .device_data import PackedRows, Rows, check_packed
 from .hist_kernel2 import MAX_SMEM, build_histogram_comb_ref, hist_blocks
 from .partition_kernel import (SCAN_TILE, SEL_CNT, SEL_FEAT, SEL_S0,
-                               check_rows, check_segment, partition_scan_ref,
-                               row_pointers, split_args)
+                               check_nleft, check_rows, check_segment,
+                               partition_scan_ref, row_pointers, split_args)
 
 
 def child_ranges(s0: int, cnt: int, nleft: int):
@@ -165,10 +165,7 @@ def fused_split_p2(rows: PackedRows, scratch: PackedRows, sel: Sequence[int],
     if dev.type != "cuda":
         raise LightGBMError(f"fused_split_p2 runs on cuda or cpu, not {dev}")
     check_packed(rows, scratch)
-    if (nleft.device != dev or nleft.dtype != torch.int32
-            or nleft.numel() != 1):
-        raise LightGBMError("nleft must be an i32 scalar on the rows' "
-                            "device")
+    check_nleft(nleft, dev)
     s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
     check_segment(rows.buf.shape[0], s0, cnt)
     lay = rows.layout

@@ -39,14 +39,18 @@ in another order).  Under ``LGBM_TPU_POOL_TAIL=0`` the kernel tail is
 ``apply_find_torch_pool`` (the pool ops in PyTorch, then the plain-pool
 kernel), the same arithmetic as ``apply_find_pool``.
 
-At ``LGBM_TPU_COMB_PACK=2`` (``route.pack == 2``, always with the fused
-split) the rows are records (``device_data.PackedRows``) and the
-record-layout kernels run in the same places: ``stream_init_p2``
-(``init_packed_rows`` under ``LGBM_TPU_STREAM=0``), ``hist_comb_p2``
-for the roots the refresh does not carry, ``fused_split_p2`` and
-``copyback_p2`` per split, ``stream_refresh_p2`` per tree; every other
-reader takes ``rows.fields()``.  Each record kernel writes its pack=1
-counterpart's bits, so both packs grow the same trees bit for bit.
+At ``LGBM_TPU_COMB_PACK=2`` (``route.pack == 2``; never with the 3ph
+scheme) the rows are records (``device_data.PackedRows``) and the
+record-layout kernels run in the pack=1 kernels' places (``ROW_OPS``):
+``stream_init_p2`` (``init_packed_rows`` under ``LGBM_TPU_STREAM=0``),
+``hist_comb_p2`` for every root the refresh does not carry and, without
+the fused split, every smaller child; per split ``fused_split_p2`` and
+``copyback_p2``, or without the fused split ``partition_scan_p2`` and
+``copyback_p2`` (``partition_p2``, ``make_partition_p2``'s two
+launches); per tree ``stream_refresh_p2``, or without the fused split
+``stream_refresh_plain_p2``.  Every other reader takes
+``rows.fields()``.  Each record kernel writes its pack=1 counterpart's
+bits, so both packs grow the same trees bit for bit.
 
 The loop runs on the host; the state (histogram pool, per-leaf best
 splits and sums, segments) stays on the device, and each split reads
@@ -82,12 +86,14 @@ from .device_data import (DeviceDataset, PackedRows, Rows, bins_i32,
 from .fused_split import fused_split, fused_split_p2
 from .hist_kernel2 import (build_histogram_comb, build_histogram_comb_p2,
                            build_histogram_rows)
-from .partition_kernel import copyback, copyback_p2, partition, partition_3ph
+from .partition_kernel import (copyback, copyback_p2, partition,
+                               partition_3ph, partition_p2)
 from .routing import RouteDecision
 from .split import (SplitHyperParams, calculate_leaf_output,
                     find_best_split, pack_split_info, selection_key)
 from .stream_grad import (stream_init, stream_init_p2, stream_refresh,
-                          stream_refresh_p2, stream_refresh_plain)
+                          stream_refresh_p2, stream_refresh_plain,
+                          stream_refresh_plain_p2)
 
 
 class TreeArrays(NamedTuple):
@@ -163,14 +169,17 @@ class _RowOps(NamedTuple):
     fused_split: Callable
     copyback: Callable
     stream_refresh: Callable
+    partition: Callable       # the unfused split's scan + copyback
+    refresh_plain: Callable   # the unfused stream route's refresh
 
 
 ROW_OPS = {
     1: _RowOps(stream_init, init_rows, empty_rows_like, build_histogram_comb,
-               fused_split, copyback, stream_refresh),
+               fused_split, copyback, stream_refresh, partition,
+               stream_refresh_plain),
     2: _RowOps(stream_init_p2, init_packed_rows, empty_packed_like,
                build_histogram_comb_p2, fused_split_p2, copyback_p2,
-               stream_refresh_p2),
+               stream_refresh_p2, partition_p2, stream_refresh_plain_p2),
 }
 
 
@@ -362,8 +371,6 @@ class SerialGrower(_Grower):
         if route.stream and stream is None:
             raise ValueError("the stream route needs the objective's "
                              "StreamSpec")
-        if route.pack == 2 and not route.fused:
-            raise ValueError("pack=2 grows with the fused split only")
         self.stream = stream
         self.ops = ROW_OPS[route.pack]
         # Rows at pack=1, PackedRows at pack=2; rows.fields() is Rows
@@ -425,7 +432,8 @@ class SerialGrower(_Grower):
                 self.ops.copyback(rows, self.scratch, s0, cnt)
             return h_pair[0], h_pair[1]
         with stage("partition", dev):
-            part = partition_3ph if self.route.scheme == "3ph" else partition
+            part = (partition_3ph if self.route.scheme == "3ph"
+                    else self.ops.partition)
             part(rows, self.scratch, sel, nleft)
         with stage("histogram", dev):
             small_left = nleft * 2 <= cnt
@@ -433,8 +441,8 @@ class SerialGrower(_Grower):
             child_cnt = torch.where(small_left, nleft, cnt - nleft)
             rng = torch.cat([child_start, torch.zeros_like(nleft),
                              child_cnt])
-            h = build_histogram_comb(rows, rng, padded_bins=B,
-                                     max_rows=cnt // 2 + 1)
+            h = self.ops.histogram(rows, rng, padded_bins=B,
+                                   max_rows=cnt // 2 + 1)
         return h, h
 
     def __call__(self, grad: Optional[torch.Tensor],
@@ -489,7 +497,7 @@ class SerialGrower(_Grower):
                     self._root_hist = self.ops.stream_refresh(
                         rows, lv, padded_bins=B, **kw)
                 else:
-                    stream_refresh_plain(rows, lv, **kw)
+                    self.ops.refresh_plain(rows, lv, **kw)
         return ta, leaf_id, leaf_value
 
 

@@ -17,10 +17,13 @@ order, exactly as the compiled single-scan TPU kernel leaves it; after
 as the 3-phase kernel writes them.  Rows outside the segment are
 untouched.
 
-:func:`copyback_p2` is the copyback at pack=2 (``copyback_call_p2`` in
-``partition_kernel3.py``) over the records of
-:class:`~.device_data.PackedRows`; its plain version is
-:func:`copyback_ref` over :meth:`PackedRows.fields`.
+:func:`partition_scan_p2` and :func:`copyback_p2` are the scan and the
+copyback at pack=2 (``make_partition_p2``'s ``_scan_kernel_p2`` and
+``copyback_call_p2`` in ``partition_kernel3.py``) over the records of
+:class:`~.device_data.PackedRows`; their plain versions are
+:func:`partition_scan_ref` and :func:`copyback_ref` over
+:meth:`PackedRows.fields`, and :func:`partition_p2` is the two
+launches ``make_partition_p2`` makes per split.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
@@ -146,9 +149,14 @@ def check_rows(rows: Rows, scratch: Rows, nleft=None) -> None:
             if a.device != dev or not a.is_contiguous():
                 raise LightGBMError("row matrix arrays must be contiguous "
                                     "and on one device")
-    if nleft is not None and (nleft.device != dev
-                              or nleft.dtype != torch.int32
-                              or nleft.numel() != 1):
+    if nleft is not None:
+        check_nleft(nleft, dev)
+
+
+def check_nleft(nleft: torch.Tensor, dev) -> None:
+    """Raise unless ``nleft`` is an i32 scalar on ``dev``."""
+    if nleft.device != dev or nleft.dtype != torch.int32 \
+            or nleft.numel() != 1:
         raise LightGBMError("nleft must be an i32 scalar on the rows' "
                             "device")
 
@@ -182,6 +190,8 @@ def _lib():
     lib.partition_copyback.restype = i
     lib.partition_copyback_p2.argtypes = [p, p, i, i, i, p]
     lib.partition_copyback_p2.restype = i
+    lib.partition_scan_p2.argtypes = [p, p, i, i, p, p] + [i] * 7 + [p]
+    lib.partition_scan_p2.restype = i
     return lib
 
 
@@ -253,6 +263,53 @@ def copyback(rows: Rows, scratch: Rows, s0: int, cnt: int) -> None:
                             f"error {rc}")
     copyback.launches += 1
     return None
+
+
+def partition_scan_p2_ref(rows: PackedRows, scratch: PackedRows,
+                          sel: Sequence[int],
+                          nleft: torch.Tensor) -> torch.Tensor:
+    """Plain version of the pack=2 scan: :func:`partition_scan_ref` over
+    the records' fields."""
+    return partition_scan_ref(rows.fields(), scratch.fields(), sel, nleft)
+
+
+def partition_scan_p2(rows: PackedRows, scratch: PackedRows,
+                      sel: Sequence[int],
+                      nleft: torch.Tensor) -> torch.Tensor:
+    """:func:`partition_scan` over records.  CPU tensors take
+    :func:`partition_scan_p2_ref`; CUDA tensors launch the kernel on the
+    current stream.  ``cnt == 0`` (a dead split) writes ``nleft = 0``
+    and launches nothing."""
+    dev = rows.buf.device
+    if dev.type == "cpu":
+        return partition_scan_p2_ref(rows, scratch, sel, nleft)
+    if dev.type != "cuda":
+        raise LightGBMError(f"partition_scan_p2 runs on cuda or cpu, not "
+                            f"{dev}")
+    check_packed(rows, scratch)
+    check_nleft(nleft, dev)
+    s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
+    check_segment(rows.buf.shape[0], s0, cnt)
+    if cnt == 0:
+        nleft.zero_()
+        return nleft
+    lay = rows.layout
+    f = lay.num_features
+    if not 0 <= int(sel[SEL_FEAT]) < f:
+        raise LightGBMError(f"split feature {sel[SEL_FEAT]} outside [0, {f})")
+    tile_left = torch.empty(-(-cnt // SCAN_TILE), dtype=torch.int32,
+                            device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().partition_scan_p2(
+            rows.buf.data_ptr(), scratch.buf.data_ptr(), lay.stride, lay.fb,
+            tile_left.data_ptr(), nleft.data_ptr(), s0, cnt,
+            *split_args(sel), stream)
+    if rc != 0:
+        raise LightGBMError(f"partition_scan_p2 kernel launch failed with "
+                            f"CUDA error {rc}")
+    partition_scan_p2.launches += 1
+    return nleft
 
 
 def copyback_p2_ref(rows: PackedRows, scratch: PackedRows, s0: int,
@@ -340,7 +397,17 @@ def partition(rows: Rows, scratch: Rows, sel: Sequence[int],
     return nleft
 
 
+def partition_p2(rows: PackedRows, scratch: PackedRows, sel: Sequence[int],
+                 nleft: torch.Tensor) -> torch.Tensor:
+    """:func:`partition` over records: :func:`partition_scan_p2`, then
+    :func:`copyback_p2`."""
+    partition_scan_p2(rows, scratch, sel, nleft)
+    copyback_p2(rows, scratch, int(sel[SEL_S0]), int(sel[SEL_CNT]))
+    return nleft
+
+
 partition_scan.launches = 0
+partition_scan_p2.launches = 0
 copyback.launches = 0
 copyback_p2.launches = 0
 partition_3ph.launches = 0

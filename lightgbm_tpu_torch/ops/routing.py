@@ -32,10 +32,8 @@ decision of ``decide``, ``:383-413``) and of the split-tail choice in
   ``:398-406``), decided by the JAX package's rules so that the port
   engages pack=2 exactly where it does.  At pack=2 the port keeps one
   64-byte record per row at 28 features (``device_data.PackedRows``)
-  and runs the pack=2 kernels of the fused route; the unfused pack=2
-  kernels (the single-scan partition and the plain refresh) are not
-  ported (ROADMAP B9), so a pack=2 decision without the fused split
-  raises in :func:`require_ported`.
+  and runs the pack=2 kernels of the route, with the fused split or
+  without it.
 
 On ``row_order``, ``stream`` and ``fused`` are off: both move rows of
 the physical matrix, and their reason is the path itself.  The knobs are
@@ -257,15 +255,3 @@ def decide(i: RouteInputs) -> RouteDecision:
         pool_tail=tail == "kernel" and i.pool_tail_env != "0",
         pack=pack, pack_reasons=pack_reasons)
 
-
-def require_ported(d: RouteDecision) -> None:
-    """Raise for a decision the port has no kernels for: pack=2 without
-    the fused split."""
-    if d.pack == 2 and not d.fused:
-        raise LightGBMError(
-            "LGBM_TPU_COMB_PACK=2 without the fused split "
-            f"({', '.join(d.reasons)}) selects the unfused pack=2 kernels, "
-            "the single-scan partition and the plain refresh (PERF.md rows "
-            "8 and 15), which are not ported to lightgbm_tpu_torch yet (see "
-            "ROADMAP.md, B9); unset LGBM_TPU_COMB_PACK, or keep the fused "
-            "split on, to train")

@@ -21,9 +21,10 @@ The gradient arithmetic is the objectives' own (``binary_gradients``,
 f32 values.  The TPU kernels' bf16 rounding of g/h is not applied (the
 JAX package's interpret reference skips it too).
 
-:func:`stream_init_p2` and :func:`stream_refresh_p2` are the init and
-the refresh with the root histogram at pack=2 (``_init_kernel_p2``,
-``_refresh_hist_kernel_p2``) over the records of
+:func:`stream_init_p2`, :func:`stream_refresh_p2` and
+:func:`stream_refresh_plain_p2` are the init and the two refreshes at
+pack=2 (``_init_kernel_p2``, ``_refresh_hist_kernel_p2``,
+``_refresh_kernel_p2``) over the records of
 :class:`~.device_data.PackedRows`: their plain versions are the pack=1
 plain versions over :meth:`PackedRows.fields`, and the kernels write the
 pack=1 kernels' bits.
@@ -118,6 +119,8 @@ def _lib():
     lib.stream_refresh_smem_bytes.restype = i
     lib.stream_refresh_plain.argtypes = [p] * 4 + [i] * 2 + [f, p]
     lib.stream_refresh_plain.restype = i
+    lib.stream_refresh_plain_p2.argtypes = [p, i, i, p, i, i, f, p]
+    lib.stream_refresh_plain_p2.restype = i
     return lib
 
 
@@ -258,6 +261,13 @@ def stream_refresh_p2_ref(rows: PackedRows, lv: torch.Tensor, *, kind: str,
                               padded_bins=padded_bins)
 
 
+def stream_refresh_plain_p2_ref(rows: PackedRows, lv: torch.Tensor, *,
+                                kind: str, sigmoid: float) -> None:
+    """Plain version of the pack=2 plain refresh:
+    :func:`stream_refresh_plain_ref` over the records' fields."""
+    stream_refresh_plain_ref(rows.fields(), lv, kind=kind, sigmoid=sigmoid)
+
+
 def stream_init_p2(bins: torch.Tensor, score: torch.Tensor,
                    valid: torch.Tensor, consts: torch.Tensor, *, kind: str,
                    sigmoid: float) -> PackedRows:
@@ -319,8 +329,36 @@ def stream_refresh_p2(rows: PackedRows, lv: torch.Tensor, *, kind: str,
     return out
 
 
+def stream_refresh_plain_p2(rows: PackedRows, lv: torch.Tensor, *,
+                            kind: str, sigmoid: float) -> None:
+    """:func:`stream_refresh_plain` over records.  CPU tensors take
+    :func:`stream_refresh_plain_p2_ref`; CUDA tensors launch the
+    kernel."""
+    dev = rows.buf.device
+    if dev.type == "cpu":
+        return stream_refresh_plain_p2_ref(rows, lv, kind=kind,
+                                           sigmoid=sigmoid)
+    if dev.type != "cuda":
+        raise LightGBMError(f"stream_refresh_plain_p2 runs on cuda or cpu, "
+                            f"not {dev}")
+    check_packed(rows)
+    n, lay = rows.buf.shape[0], rows.layout
+    _check_vec(lv, (n,), dev, "lv")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().stream_refresh_plain_p2(
+            rows.buf.data_ptr(), lay.stride, lay.fb, lv.data_ptr(), n,
+            KINDS[kind], float(sigmoid), stream)
+    if rc != 0:
+        raise LightGBMError(f"stream_refresh_plain_p2 kernel launch failed "
+                            f"with CUDA error {rc}")
+    stream_refresh_plain_p2.launches += 1
+    return None
+
+
 stream_init.launches = 0
 stream_refresh.launches = 0
 stream_refresh_plain.launches = 0
 stream_init_p2.launches = 0
 stream_refresh_p2.launches = 0
+stream_refresh_plain_p2.launches = 0

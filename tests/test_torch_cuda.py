@@ -15,8 +15,8 @@ refresh's root histogram and the fused split's two histograms equal
 hist_comb's of the same ranges.  The row-indexed histogram (slice 4)
 bitwise its plain version run on CPU copies of the inputs.  The 3-phase
 partition and the plain refresh (slice 5) bitwise their plain versions.
-The pack=2 record kernels (slice 6) bitwise their plain versions and
-their pack=1 kernels on the same logical rows.
+The pack=2 record kernels (slices 6 and 7) bitwise their plain versions
+and their pack=1 kernels on the same logical rows.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
 row-order and 3ph routes), and the default route's equal slice 2's
@@ -386,25 +386,33 @@ def _pack2_fns() -> dict:
             "stream_refresh_p2": stream_grad.stream_refresh_p2,
             "build_histogram_comb_p2": hist_kernel2.build_histogram_comb_p2,
             "fused_split_p2": fused_split.fused_split_p2,
-            "copyback_p2": partition_kernel.copyback_p2}
+            "copyback_p2": partition_kernel.copyback_p2,
+            "partition_scan_p2": partition_kernel.partition_scan_p2,
+            "stream_refresh_plain_p2": stream_grad.stream_refresh_plain_p2}
 
 
 @pytest.mark.parametrize("f", [6, 13, 28, 40])
 def test_pack2_kernels_match_plain_and_pack1(cuda, f):
-    """The five record kernels against their plain versions and their
+    """The seven record kernels against their plain versions and their
     pack=1 kernels on the same logical rows, bitwise (histograms within
     4 * n * eps * max|v| of the plain versions on the card): the root, a
-    range and a segment at odd offsets of odd lengths, a dead split,
-    strides 48, 64 and 80."""
+    range and a segment at odd offsets of odd lengths, a dead split (the
+    fused and the unfused split), both refreshes, strides 48, 64 and
+    80."""
     rows = rows_on(random_row_matrix(20_011, f, 20 + f, nan_bin=254), cuda)
     pack2_cases(rows.bins, rows, 256, f"test_F{f}")
 
 
-@pytest.mark.parametrize("env", [{}, {"LGBM_TPU_STREAM": "0"}])
+@pytest.mark.parametrize("env", [
+    {}, {"LGBM_TPU_STREAM": "0"}, {"LGBM_TPU_FUSED": "0"},
+    {"LGBM_TPU_STREAM": "0", "LGBM_TPU_FUSED": "0"},
+    {"LGBM_TPU_STREAM": "0", "LGBM_TPU_FUSED": "0",
+     "LGBM_TPU_APPLY_IMPL": "xla"}])
 def test_pack2_route_on_card_matches_cpu_and_pack1(cuda, env, monkeypatch):
-    """LGBM_TPU_COMB_PACK=2 on the card grows the CPU run's trees and
-    the pack=1 route's trees bit for bit, launching each record kernel
-    as many times as the route says and no pack=1 row kernel."""
+    """LGBM_TPU_COMB_PACK=2 on the card, with and without the fused
+    split, grows the CPU run's trees and the pack=1 route's trees bit
+    for bit, launching each record kernel as many times as the route
+    says and no pack=1 row kernel."""
     from chip_smoke import ROUTE_KNOBS
     from lightgbm_tpu_torch.ops import (apply_find, fused_split,
                                         hist_kernel2, partition_kernel,

@@ -49,11 +49,10 @@ from lightgbm_tpu_torch.ops.hist_kernel2 import (build_histogram_comb,
                                                  build_histogram_comb_p2)
 from lightgbm_tpu_torch.ops.partition_kernel import copyback, copyback_p2
 from lightgbm_tpu_torch.ops.routing import (RouteDecision, RouteInputs,
-                                            decide, require_ported)
+                                            decide)
 from lightgbm_tpu_torch.ops.stream_grad import (stream_init, stream_init_p2,
                                                 stream_refresh,
                                                 stream_refresh_p2)
-from lightgbm_tpu_torch.utils.log import LightGBMError
 
 torch.set_num_threads(1)
 
@@ -258,17 +257,23 @@ def test_hist_comb_p2_matches_jax_pack2(start, off, count):
 # -- routing -----------------------------------------------------------------
 
 def test_pack2_route_describe_and_refusal():
+    """pack=2 is decided with and without the fused split, and the
+    unfused pack=2 route trains (its grower holds records)."""
     fused = decide(RouteInputs(pack_env="2"))
     assert fused.pack == 2
     assert fused.describe() == "path=stream fused=1 tail=kernel pack=2"
-    require_ported(fused)
     unfused = decide(RouteInputs(pack_env="2", fused_env="0"))
     assert unfused.describe() == ("path=stream fused=0 tail=kernel pack=2 "
                                   "(fused_env_off)")
-    with pytest.raises(LightGBMError, match="B9"):
-        require_ported(unfused)
     assert RouteDecision(stream=True, fused=True, tail="kernel").describe() \
         == "path=stream fused=1 tail=kernel"
+    x, y = _data(300, 6, 30, "binary")
+    bst = _port_train(PARAMS["binary"], x, y, 1,
+                      {"LGBM_TPU_COMB_PACK": "2", "LGBM_TPU_FUSED": "0"})
+    grow = bst._inner.grow
+    assert grow.route == unfused
+    assert grow.rows.buf.shape == (300, 48)
+    assert bst._models[0].num_leaves > 1
 
 
 # -- training --------------------------------------------------------------

@@ -42,7 +42,7 @@ from lightgbm_tpu_torch.ops.partition_kernel import (go_left, partition_3ph,
                                                      partition_3ph_ref)
 from lightgbm_tpu_torch.ops.routing import (PACK_RULES, RouteInputs, decide,
                                             inputs_from_env, jax_feature_pad,
-                                            require_ported, resolve_layout)
+                                            resolve_layout)
 from lightgbm_tpu_torch.ops.stream_grad import stream_refresh_plain
 from lightgbm_tpu_torch.utils.log import LightGBMError
 from test_torch_stream import (B as S_B, C as S_C, F as S_F, N as S_N,
@@ -223,17 +223,24 @@ def test_knob_decisions(env, scheme, pool_tail, describe):
 
 
 def test_pack2_decides_pack2_and_raises_naming_b9():
-    """pack=2 is ported on the fused route; without the fused split its
-    kernels are not, and the decision raises naming B9."""
+    """pack=2 is decided on the fused route and without the fused split
+    (also with the stream off), and the port trains both: the unfused
+    pack=2 route's knobs give the route they decide."""
     d = decide(inputs_from_env({"LGBM_TPU_COMB_PACK": "2"}))
     assert (d.pack, d.pack_reasons) == (2, ())
-    require_ported(d)
-    unfused = decide(inputs_from_env({"LGBM_TPU_COMB_PACK": "2",
-                                      "LGBM_TPU_FUSED": "0"}))
-    assert (unfused.pack, unfused.fused) == (2, False)
-    with pytest.raises(LightGBMError, match="B9"):
-        require_ported(unfused)
-    require_ported(decide(inputs_from_env({})))
+    env = {"LGBM_TPU_COMB_PACK": "2", "LGBM_TPU_FUSED": "0"}
+    unfused = decide(inputs_from_env(env))
+    assert (unfused.pack, unfused.fused, unfused.scheme) == (2, False,
+                                                             "permute")
+    off = decide(inputs_from_env(dict(env, LGBM_TPU_STREAM="0")))
+    assert (off.pack, off.stream, off.fused) == (2, False, False)
+    assert decide(inputs_from_env({})).pack == 1
+    x, y = _data(300, 6, 26, "binary")
+    p = {"objective": "binary", "num_leaves": 7, "verbosity": -1}
+    for e, want in ((env, unfused), (dict(env, LGBM_TPU_STREAM="0"), off)):
+        bst = _port_train(p, x, y, 1, e)
+        assert bst._inner.grow.route == want
+        assert bst._models[0].num_leaves > 1
 
 
 @pytest.mark.parametrize("kw,reasons", [
@@ -245,7 +252,6 @@ def test_pack2_decides_pack2_and_raises_naming_b9():
 def test_pack_rules_keep_pack1(kw, reasons):
     d = decide(RouteInputs(pack_env="2", **kw))
     assert (d.pack, d.pack_reasons) == (1, reasons)
-    require_ported(d)
     assert {r.name for r in PACK_RULES} == {"pack_layout_too_wide",
                                             "pack_part_3ph"}
 
@@ -423,8 +429,21 @@ def test_3ph_route_differs_from_default_only_by_noise():
     assert res["ok"], res
 
 
+def test_training_takes_pack2_unfused():
+    """``LGBM_TPU_COMB_PACK=2 LGBM_TPU_FUSED=0`` trains on 28 features
+    (the records of the main path's width) on the unfused stream route
+    at pack=2."""
+    x, y = _data(300, 28, 26, "binary")
+    bst = _port_train({"objective": "binary", "verbosity": -1}, x, y, 1,
+                      {"LGBM_TPU_COMB_PACK": "2", "LGBM_TPU_FUSED": "0"})
+    grow = bst._inner.grow
+    assert grow.route.describe() == ("path=stream fused=0 tail=kernel "
+                                     "pack=2 (fused_env_off)")
+    assert grow.rows.buf.shape == (300, 64)
+    assert bst._models[0].num_leaves > 1
+
+
 @pytest.mark.parametrize("env,params,match", [
-    ({"LGBM_TPU_COMB_PACK": "2", "LGBM_TPU_FUSED": "0"}, {}, "B9"),
     ({"LGBM_TPU_COMB_PACK": "2", "LGBM_TPU_PART": "3ph"}, {},
      "requires the single-scan partition kernel; unset LGBM_TPU_PART=3ph"),
     ({"LGBM_TPU_COMB_PACK": "2"}, {"max_bin": 1023},
