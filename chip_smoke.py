@@ -6,6 +6,17 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 
 1. the card's name and power limit; the CUDA kernels are built from
    ``lightgbm_tpu_torch/csrc`` (one ``nvcc`` per source, all at once);
+   the analyzer (slice 8): the three fixture kernels of
+   ``csrc/analysis_fixtures.cu`` at their legal geometries, counted,
+   bitwise against their plain versions, each seeded geometry refused
+   before a launch, each kernel timed; then ``run_analysis`` under
+   ``--strict`` with the resources read fresh from the built libraries
+   (``cuobjdump -res-usage``, names from ``cu++filt``, ``ptxas -v``
+   held against it): no finding on the port, every fixture exactly its
+   codes, and one ``kernel resources`` line per kernel; the fresh report
+   is written to ``lightgbm_tpu_torch/build/``, and a checked-in
+   ``analysis/resources_sm90a.txt`` that differs from it fails the run
+   after every other phase;
 2. serving (slice 1): ``serve_traverse`` against its plain PyTorch
    version on small seeded forests with categorical splits, NaN rows,
    f32 and bf16 leaf tables and padded buckets, then the serving main
@@ -1173,6 +1184,20 @@ def library_hist_ms(bins, vals, padded_bins: int, rows=None,
     return _time_ms(lambda: out.index_add_(0, flat, upd), reps)
 
 
+def library_copy_ms(dst, src, s0: int, cnt: int, reps: int = 20) -> float:
+    """Time of the ``Tensor.copy_`` calls that compute a copyback: rows
+    ``[s0, s0 + cnt)`` of each array of ``src`` into ``dst`` (the five
+    arrays of a pack=1 ``Rows``, or the one record buffer of a
+    ``PackedRows``), one call per array."""
+    pairs = [(d.narrow(0, s0, cnt), s.narrow(0, s0, cnt))
+             for d, s in zip(dst, src) if hasattr(d, "narrow")]
+
+    def run():
+        for d, s in pairs:
+            d.copy_(s)
+    return _time_ms(run, reps)
+
+
 def training_kernels(gpu: str, ds) -> list:
     """Slices 2 and 3: every training kernel against its plain version
     at the main path's shapes (the training matrix's real bins, seeded
@@ -1274,6 +1299,7 @@ def training_kernels(gpu: str, ds) -> list:
     t["copyback"] = (
         _time_ms(lambda: copyback(prows, scratch, 0, n), 20),
         _time_ms(lambda: copyback_ref(prows, scratch, 0, n), 3))
+    copyback_library_ms = library_copy_ms(prows, scratch, 0, n)
     t["stream_init"] = (
         _time_ms(lambda: stream_init(bins, score, valid, consts, **s_kw), 20),
         _time_ms(lambda: stream_init_ref(bins, score, valid, consts, **s_kw),
@@ -1327,7 +1353,10 @@ def training_kernels(gpu: str, ds) -> list:
         _kernel_record(
             "copyback", "lightgbm_tpu_torch/csrc/partition.cu",
             "lightgbm_tpu/ops/pallas/partition_kernel2.py:325", 0, 0.0,
-            *t["copyback"], 2 * n * row_bytes, 0, gpu),
+            *t["copyback"], 2 * n * row_bytes, 0, gpu,
+            library_ms=copyback_library_ms,
+            library_call="five Tensor.copy_ of the segment's rows, one "
+                         "per array"),
         # reads bins, score, validity, two constants; writes every column;
         # ~16 f32 operations a row (the f64 exp counted as one)
         _kernel_record(
@@ -2030,6 +2059,7 @@ def pack2_kernels(gpu: str, ds) -> list:
         t[name] = {"pack1_ms": (a1 + b1) / 2, "ms": (a2 + b2) / 2,
                    "plain_ms": _time_ms(plain, 3)}
     library_ms = library_hist_ms(prows.bins, prows.vals, b_pad)
+    copy_library_ms = library_copy_ms(packed, scratch2, 0, n)
     print("pack2 kernel times [ms] at the main path's shapes "
           + json.dumps(t) + f" [{gpu}]", flush=True)
     del packed, scratch1, scratch2, srows1, srows2, prows
@@ -2090,6 +2120,10 @@ def pack2_kernels(gpu: str, ds) -> list:
                          library_call="index_add_ over a precomputed flat "
                                       "(feature, bin) index, index build "
                                       "excluded")
+        if name == "copyback_p2":
+            extra.update(library_ms=copy_library_ms,
+                         library_call="one Tensor.copy_ of the segment's "
+                                      "records")
         if name == "stream_refresh_plain_p2":
             # what a record layout costs a narrow kernel: the 32-byte
             # sectors that the fields [Fb, Fb + 28) touch, read once and
@@ -2420,6 +2454,221 @@ def train_phases(gpu: str) -> list:
     return recs
 
 
+# -- the static analyzer and its fixture kernels (slice 8) -------------------
+FIXTURES_DIR = "lightgbm_tpu/analysis/fixtures"
+FIXTURE_REPS = 20
+# above the 48 KB default: the legal accumulator that needs the opt-in
+SMEM_ACC_OPTIN = 64 * 1024
+
+
+def fixture_cases(seed: int = 0) -> list:
+    """The fixture kernels at their legal geometries
+    (``analysis/entries.py``) on seeded CPU tensors: [(kernel, label,
+    wrapper, plain version, args, kwargs)]."""
+    import torch
+
+    from lightgbm_tpu_torch.analysis.entries import (FIXTURE_STAGE_LEGAL,
+                                                     SMEM_ACC_LEGAL)
+    from lightgbm_tpu_torch.ops import analysis_fixtures as af
+    rng = np.random.default_rng(seed)
+    cases = []
+    for name, dtype, classes, rows, cols, copied, _ in FIXTURE_STAGE_LEGAL:
+        shape = (classes, rows, cols) if classes > 1 else (rows, cols)
+        x = (rng.integers(-2**31, 2**31 - 1, size=shape, dtype=np.int32)
+             if dtype == "int32" else rng.normal(size=shape).astype(
+                 np.float32))
+        cases.append(("fixture_stage_copy", name, af.stage_copy,
+                      af.stage_copy_ref, (torch.from_numpy(x), copied), {}))
+    x = torch.from_numpy(rng.normal(size=(32, 128)).astype(np.float32))
+    for acc in (SMEM_ACC_LEGAL, SMEM_ACC_OPTIN):
+        cases.append(("fixture_smem_acc", f"fixture_vmem acc={acc}",
+                      af.smem_acc, af.smem_acc_ref, (x,),
+                      {"acc_bytes": acc}))
+    xh = torch.from_numpy(rng.normal(size=(8, 128)).astype(np.float32))
+    cases.append(("fixture_scale_bias", "fixture_host", af.scale_bias,
+                  af.scale_bias_ref, (xh, xh[0, :1].clone(),
+                                      xh.sum().reshape(1)), {}))
+    return cases
+
+
+def _on(args, dev):
+    return tuple(a.to(dev) if hasattr(a, "to") else a for a in args)
+
+
+def _bits(t):
+    import torch
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def analysis_kernels(gpu: str) -> list:
+    """Slice 8: the three fixture kernels.  Their path, each legal
+    geometry once through its wrapper, runs with the counts zeroed just
+    before and read just after; each result is held bitwise against its
+    plain version on the CPU inputs; the seeded geometries are refused
+    before any launch; each kernel is timed over 20 launches beside its
+    plain version and one PyTorch call.  Returns the three records."""
+    import torch
+
+    from lightgbm_tpu_torch.analysis import fixtures as fx
+    from lightgbm_tpu_torch.ops import analysis_fixtures as af
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    dev = torch.device("cuda")
+    cases = fixture_cases()
+    wrappers = {"fixture_stage_copy": af.stage_copy,
+                "fixture_smem_acc": af.smem_acc,
+                "fixture_scale_bias": af.scale_bias}
+    for w in wrappers.values():
+        w.launches = 0
+    outs = [fn(*_on(args, dev), **kw) for _, _, fn, _, args, kw in cases]
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    parity = []
+    for (kernel, label, _, plain, args, kw), out in zip(cases, outs):
+        ok = torch.equal(_bits(out.cpu()), _bits(plain(*args, **kw)))
+        parity.append({"kernel": kernel, "case": label, "bitwise": ok})
+        if not ok:
+            raise RuntimeError(f"{kernel} differs from its plain version at "
+                               f"{label}")
+    # the seeded geometries: refused before a launch, counts unchanged
+    refused = []
+    for name, (_, dtype, classes, rows, cols, copied, _) in \
+            fx.STAGE_SEEDED.items():
+        shape = (classes, rows, cols) if classes > 1 else (rows, cols)
+        t = torch.zeros(shape, dtype=getattr(torch, dtype), device=dev)
+        try:
+            af.stage_copy(t, copied)
+        except LightGBMError:
+            refused.append(name)
+    try:
+        af.smem_acc(outs[4], acc_bytes=fx.SMEM_ACC_SEEDED)
+    except LightGBMError:
+        refused.append("bad_vmem")
+    torch.cuda.synchronize()
+    if (sorted(refused) != sorted([*fx.STAGE_SEEDED, "bad_vmem"])
+            or {k: w.launches for k, w in wrappers.items()} != launches):
+        raise RuntimeError(f"a seeded geometry reached a launch: refused "
+                           f"only {refused}")
+    print("analysis fixture kernels " + json.dumps(
+        {"launches": launches, "parity": parity, "seeded_refused": refused})
+        + f" [{gpu}]", flush=True)
+
+    by = {c[1]: c for c in cases}
+    recs = []
+    # (kernel, timed case, replaces, bytes, operations, library call)
+    x5, rows5 = _on(by["fixture_mc_batch"][4], dev)
+    out5 = torch.zeros_like(x5)
+    xv = _on(by["fixture_vmem acc=8192"][4], dev)[0]
+    ov = torch.empty_like(xv)
+    xh, sc, bi = _on(by["fixture_host"][4], dev)
+    specs = [
+        ("fixture_stage_copy", "fixture_mc_batch",
+         f"{FIXTURES_DIR}/__init__.py:77, :280, :326, :393",
+         2 * x5[..., :rows5, :].numel() * 4, 0,
+         lambda: out5.narrow(-2, 0, rows5).copy_(x5.narrow(-2, 0, rows5)),
+         "Tensor.copy_ of the rows"),
+        ("fixture_smem_acc", "fixture_vmem acc=8192",
+         f"{FIXTURES_DIR}/__init__.py:107", 2 * xv.numel() * 4, 0,
+         lambda: ov.copy_(xv), "Tensor.copy_"),
+        ("fixture_scale_bias", "fixture_host",
+         f"{FIXTURES_DIR}/bad_host_ast.py:21", 2 * xh.numel() * 4 + 8,
+         2 * xh.numel(), lambda: torch.addcmul(bi, xh, sc),
+         "torch.addcmul(bias, x, scale)"),
+    ]
+    for kernel, label, replaces, n_bytes, n_ops, lib, lib_call in specs:
+        _, _, fn, plain, args, kw = by[label]
+        dargs = _on(args, dev)
+        ms = _time_ms(lambda: fn(*dargs, **kw), FIXTURE_REPS)
+        plain_ms = _time_ms(lambda: plain(*dargs, **kw), FIXTURE_REPS)
+        recs.append(_kernel_record(
+            kernel, "lightgbm_tpu_torch/csrc/analysis_fixtures.cu",
+            replaces, launches[kernel], 0.0, ms, plain_ms, n_bytes, n_ops,
+            gpu, library_ms=_time_ms(lib, FIXTURE_REPS),
+            library_call=lib_call, timed_case=label,
+            parity_cases=[p["case"] for p in parity
+                          if p["kernel"] == kernel]))
+    return recs
+
+
+def same_resources(a: dict, b: dict) -> bool:
+    """Whether two resource reports hold the same sources, content
+    hashes and kernel resources (spills compared when both reports know
+    them: ``cuobjdump`` does not count them)."""
+    from dataclasses import replace
+    known = all(u.spills is not None for rep in (a, b)
+                for su in rep.values() for u in su.kernels.values())
+
+    def key(rep):
+        return {n: (su.digest, {k: u if known else replace(
+            u, spill_stores=None, spill_loads=None)
+            for k, u in su.kernels.items()}) for n, su in rep.items()}
+    return key(a) == key(b)
+
+
+def analysis_phase(gpu: str) -> dict:
+    """Slice 8: the static analyzer in-process under --strict with the
+    resources read fresh from the built libraries (``cuobjdump
+    -res-usage``, spills from this build's ``ptxas -v``, names from
+    ``cu++filt``): the report's two sources agree on every kernel's
+    static shared memory, the clean run has no finding (every smem
+    formula equal to its library export) and each fixture gives exactly
+    its codes.  Writes the fresh report to ``lightgbm_tpu_torch/build/``
+    (for regenerating the checked-in one) and records, without raising,
+    whether the checked-in ``resources_sm90a.txt`` equals it: ``main``
+    fails on a stale report only after every other phase has run.
+    Prints each registered kernel's registers, static and dynamic shared
+    memory, stack and spills.  Raises on any other mismatch."""
+    from lightgbm_tpu_torch.analysis import fixtures as fx
+    from lightgbm_tpu_torch.analysis import registry
+    from lightgbm_tpu_torch.analysis import resources as res
+    from lightgbm_tpu_torch.analysis.run import PASS_NAMES, run_analysis
+    from lightgbm_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    fresh = res.read_built()
+    with open(_build.BUILD_DIR / "resources_sm90a.txt", "w") as fh:
+        fh.write(res.format_report(fresh, f"gpu: {gpu}"))
+    for name, log in _build.BUILD_LOGS.items():
+        for sym, u in res.by_symbol(res.parse_ptxas(log)).items():
+            k = fresh[name].kernels[sym]
+            if (u.regs, u.smem, u.stack) != (k.regs, k.smem, k.stack):
+                raise RuntimeError(f"ptxas -v and cuobjdump disagree on "
+                                   f"{name} {sym}: {u} vs {k}")
+    current = same_resources(res.load_report(), fresh)
+    clean = run_analysis(strict=True, resources="built")
+    failing = clean.failing()
+    if failing:
+        raise RuntimeError(
+            f"analysis on the card: {len(failing)} failing finding(s) "
+            f"{[(f.code, f.where) for f in failing][:5]}")
+    fast = [p for p in PASS_NAMES if p != "purity"]
+    flagged = {}
+    for name in sorted(fx.FIXTURES):
+        rep = run_analysis(passes=PASS_NAMES if name == "bad_purity"
+                           else fast, fixtures=[name], strict=True,
+                           resources="built")
+        codes = {f.code for f in rep.findings if f.fixture}
+        if codes != fx.EXPECTED[name] or any(
+                not f.fixture and not f.allowlisted for f in rep.findings):
+            raise RuntimeError(f"fixture {name} gave {sorted(codes)}, "
+                               f"expected {sorted(fx.EXPECTED[name])}")
+        flagged[name] = sorted(codes)
+    exports = [e.name for e in registry.collect().values() if e.export]
+    for e in registry.collect().values():
+        u = fresh[e.source].kernels[e.symbol]
+        print(f"kernel resources {e.source} {e.symbol}: regs {u.regs} "
+              f"static smem {u.smem} B dynamic smem {e.dyn_smem} B at "
+              f"{e.name} stack {u.stack} B spill stores {u.spill_stores} B "
+              f"loads {u.spill_loads} B [{gpu}]", flush=True)
+    rec = {"strict": True, "resources": "cuobjdump -res-usage of the "
+           "built libraries", "entries": len(clean.entries),
+           "errors": 0, "allowlisted": sum(f.allowlisted
+                                           for f in clean.findings),
+           "smem_formulas_checked": exports, "fixtures": flagged,
+           "checked_in_report_current": current,
+           "seconds": time.perf_counter() - t0, "gpu": gpu}
+    print("analysis " + json.dumps(rec), flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2435,11 +2684,13 @@ def main() -> int:
     _build.build()
     build_s = time.perf_counter() - t0
     print(f"kernels built in {build_s:.2f} s", flush=True)
-    for name, log in _build.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
-    kernels = [serve_phases(gpu, build_s)] + train_phases(gpu)
+    fixtures = analysis_kernels(gpu)
+    analysis = analysis_phase(gpu)
+    kernels = [serve_phases(gpu, build_s)] + fixtures + train_phases(gpu)
+    if not analysis["checked_in_report_current"]:
+        raise RuntimeError(
+            "lightgbm_tpu_torch/analysis/resources_sm90a.txt is stale: copy "
+            "lightgbm_tpu_torch/build/resources_sm90a.txt over it")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,406 @@
+"""Every kernel of the port, registered at the main paths' shapes.
+
+The counterpart of ``lightgbm_tpu/analysis/entries.py``.  One entry per
+``__global__`` symbol and launch shape, the shared memory from the
+wrappers' own Python (``ops/*.py``), the tensors as the kernels
+address them: 1,000,000 rows x 28 features, u8 bins at B = 256 (the
+default, slice 2, 3ph and pack=2 routes) and u16 bins at B = 1024 (the
+row-order route), pack 1 (five arrays) and pack 2 (64-byte records), the
+split kernels on the 1M-row segment, the tails at B = 256, serving 100
+trees x 255 leaves over a 65,536-row bucket, and the fixture kernels at
+their legal geometries.  Nothing is allocated and nothing is launched.
+"""
+from __future__ import annotations
+
+from ..ops import apply_find as af
+from ..ops import fused_split as fs
+from ..ops import hist_kernel2 as hk
+from ..ops import stream_grad as sg
+from ..ops.device_data import RecordLayout
+from ..ops.partition_kernel import SCAN_TILE
+from .registry import (KernelEntry, register_kernel, register_purity_pin,
+                       vec_arg)
+
+N, F, B, B_WIDE = 1_000_000, 28, 256, 1024
+TREES, LEAVES, BUCKET = 100, 255, 65_536
+REC = RecordLayout(F)
+S = REC.stride
+THREADS = 256
+PALLAS = "lightgbm_tpu/ops/pallas"
+FUSED = {1: f"{PALLAS}/fused_split.py:346", 2: f"{PALLAS}/fused_split.py:417"}
+
+
+def _grid(x):
+    return (int(x), 1, 1)
+
+
+def _block(x):
+    return (int(x), 1, 1)
+
+
+def _rows_args(prefix: str = "", f: int = F, n: int = N, bins_vec: int = 4):
+    """The five arrays of the pack=1 row matrix."""
+    return (vec_arg(f"{prefix}bins", "uint8", (n, f), bins_vec),
+            vec_arg(f"{prefix}vals", "float32", (n, 3), 4),
+            vec_arg(f"{prefix}rid", "int32", (n, 1), 4),
+            vec_arg(f"{prefix}score", "float32", (n, 1), 4),
+            vec_arg(f"{prefix}consts", "float32", (n, 2), 4))
+
+
+def _records(name: str = "base", n: int = N, vec: int = 16):
+    return vec_arg(name, "uint8", (n, S), vec)
+
+
+def _hist_out(partials: int, b: int = B):
+    return (vec_arg("partials", "float32", (partials, F, b, 2), 4),
+            vec_arg("out", "float32", (F, b, 2), 4))
+
+
+def _reduce(source: str, wrapper: str, replaces: str, partials: int,
+            sets: int = 1, b: int = B) -> KernelEntry:
+    """``histblock::reduce_partials`` of one library."""
+    cells = F * b * 2
+    return register_kernel(KernelEntry(
+        name=f"{source}_reduce", source=source,
+        symbol="histblock::reduce_partials",
+        block=_block(256),
+        dyn_smem=0,
+        args=(vec_arg("partials", "float32", (sets * partials, cells), 4),
+              vec_arg("out", "float32", (sets, cells), 4)),
+        wrapper=wrapper, replaces=replaces))
+
+
+# -- serving ----------------------------------------------------------------
+def _serve():
+    ni = nl = 256
+    nodes = tuple(vec_arg(a, "int32", (TREES, ni), 4)
+                  for a in ("sf", "tb", "lc", "rc", "nm"))
+    bins = vec_arg("bins", "int32", (BUCKET, F), 4)
+    for bf16 in (False, True):
+        register_kernel(KernelEntry(
+            name=f"serve_traverse_scores{'_bf16' if bf16 else ''}",
+            source="serve_traverse",
+            symbol=f"scores_kernel<{'true' if bf16 else 'false'}>",
+            block=_block(128), dyn_smem=0,
+            args=nodes + (bins, vec_arg(
+                "leaf_value", "bfloat16" if bf16 else "float32",
+                (TREES, nl), 2 if bf16 else 4),
+                vec_arg("out", "float32", (BUCKET, 1), 4)),
+            wrapper="serve_kernel.serve_traverse",
+            replaces=f"{PALLAS}/serve_kernel.py:219"))
+    register_kernel(KernelEntry(
+        name="serve_traverse_leaves", source="serve_traverse",
+        symbol="leaves_kernel", block=_block(256), dyn_smem=0,
+        args=nodes + (bins, vec_arg("out", "int32", (BUCKET, TREES), 4)),
+        wrapper="serve_kernel.serve_traverse",
+        replaces=f"{PALLAS}/serve_kernel.py:219"))
+
+
+# -- histograms ---------------------------------------------------------------
+def _hist():
+    nb = hk.hist_blocks(N)
+    smem = hk.comb_smem_bytes(F, B)
+    for pack, src, rows in ((1, "CombRows", _rows_args()[:2]),
+                            (2, "CombRecords", (_records(),))):
+        sfx = "_p2" if pack == 2 else ""
+        register_kernel(KernelEntry(
+            name=f"hist_comb{sfx}", source="hist_comb",
+            symbol=f"hist_comb_partial<{src}>", block=_block(THREADS),
+            dyn_smem=smem,
+            args=rows + _hist_out(nb),
+            wrapper=f"hist_kernel2.build_histogram_comb{sfx}",
+            replaces=f"{PALLAS}/hist_kernel2.py:225",
+            export=("hist_comb_smem_bytes", (F, B))))
+    _reduce("hist_comb", "hist_kernel2.build_histogram_comb",
+            f"{PALLAS}/hist_kernel2.py:225", nb)
+    for bin_t, dtype, b in (("unsigned char", "uint8", B),
+                            ("unsigned short", "uint16", B_WIDE)):
+        width = 2 if dtype == "uint16" else 1
+        fc = hk.ROWS_FEATURES
+        while hk.rows_smem_bytes(fc, b, width) > hk.MAX_SMEM:
+            fc //= 2
+        slices = hk.rows_blocks(N, b)
+        register_kernel(KernelEntry(
+            name=f"hist_rows_{'u16' if width == 2 else 'u8'}",
+            source="hist_rows",
+            symbol=f"hist_rows_partial<{bin_t}>",
+            block=_block(THREADS),
+            dyn_smem=hk.rows_smem_bytes(fc, b, width),
+            args=(vec_arg("bins", dtype, (N, F), width),
+                  vec_arg("vals", "float32", (N, 2), 4),
+                  vec_arg("index", "int32", (N, 1), 4))
+            + _hist_out(slices, b),
+            wrapper="hist_kernel2.build_histogram_rows",
+            replaces=f"{PALLAS}/hist_kernel2.py:339, "
+                     f"{PALLAS}/hist_kernel.py:122",
+            export=("hist_rows_smem_bytes", (fc, b, width))))
+    _reduce("hist_rows", "hist_kernel2.build_histogram_rows",
+            f"{PALLAS}/hist_kernel2.py:339", hk.rows_blocks(N, B_WIDE),
+            b=B_WIDE)
+
+
+# -- partitions ---------------------------------------------------------------
+def _partition():
+    tiles = -(-N // SCAN_TILE)
+    scan = {1: f"{PALLAS}/partition_kernel2.py:377",
+            2: f"{PALLAS}/partition_kernel3.py:633"}
+    for source in ("partition", "fused_split"):
+        for pack in (1, 2):
+            sfx = "_p2" if pack == 2 else ""
+            bins = (_records(vec=1) if pack == 2
+                    else vec_arg("bins", "uint8", (N, F), 1))
+            register_kernel(KernelEntry(
+                name=f"{source}_count{sfx}", source=source,
+                symbol="part::count_tiles", block=_block(THREADS), dyn_smem=0,
+                args=(bins, vec_arg("tile_left", "int32", (tiles, 1), 4)),
+                wrapper=(f"partition_kernel.partition_scan{sfx}"
+                         if source == "partition"
+                         else f"fused_split.fused_split{sfx}"),
+                replaces=(scan[pack] if source == "partition"
+                          else FUSED[pack])))
+    for pack, rows in ((1, "part::RowPtrs"), (2, "part::RecPtr")):
+        sfx = "_p2" if pack == 2 else ""
+        args = (_rows_args() + _rows_args("s") if pack == 1
+                else (_records(), _records("sbase")))
+        register_kernel(KernelEntry(
+            name=f"partition_scan{sfx}", source="partition",
+            symbol=f"partition_scatter<{rows}>", block=_block(THREADS),
+            dyn_smem=0, args=args,
+            wrapper=f"partition_kernel.partition_scan{sfx}",
+            replaces=scan[pack]))
+    register_kernel(KernelEntry(
+        name="copyback", source="partition", symbol="part::copy_span",
+        block=_block(256), dyn_smem=0,
+        args=_rows_args() + _rows_args("s"),
+        wrapper="partition_kernel.copyback",
+        replaces=f"{PALLAS}/partition_kernel2.py:325"))
+    register_kernel(KernelEntry(
+        name="copyback_p2", source="partition", symbol="copy_records",
+        block=_block(256),
+        dyn_smem=0, args=(_records(), _records("sbase")),
+        wrapper="partition_kernel.copyback_p2",
+        replaces=f"{PALLAS}/partition_kernel3.py:562"))
+    p3 = f"{PALLAS}/partition_kernel.py:329"
+    register_kernel(KernelEntry(
+        name="partition_3ph_count", source="partition_3ph",
+        symbol="partition3ph_count", block=_block(THREADS), dyn_smem=0,
+        args=(vec_arg("bins", "uint8", (N, F), 1),),
+        wrapper="partition_kernel.partition_3ph", replaces=p3))
+    register_kernel(KernelEntry(
+        name="partition_3ph_scatter", source="partition_3ph",
+        symbol="partition3ph_scatter", block=_block(THREADS), dyn_smem=0,
+        args=_rows_args() + _rows_args("s"),
+        wrapper="partition_kernel.partition_3ph", replaces=p3))
+    register_kernel(KernelEntry(
+        name="partition_3ph_copyback", source="partition_3ph",
+        symbol="part::copy_span", block=_block(256), dyn_smem=0,
+        args=_rows_args() + _rows_args("s"),
+        wrapper="partition_kernel.partition_3ph", replaces=p3))
+
+
+def _fused():
+    nb = hk.hist_blocks(N // 2 + 1)
+    tiles = -(-N // SCAN_TILE)
+    register_kernel(KernelEntry(
+        name="fused_split_prefix", source="fused_split",
+        symbol="left_prefix", block=_block(THREADS),
+        dyn_smem=0,
+        args=(vec_arg("tile_left", "int32", (tiles, 1), 4),
+              vec_arg("lprefix", "int32", (tiles + 1, 1), 4)),
+        wrapper="fused_split.fused_split", replaces=FUSED[1]))
+    for pack, rows in ((1, "part::RowPtrs"), (2, "part::RecPtr")):
+        sfx = "_p2" if pack == 2 else ""
+        args = (_rows_args() + _rows_args("s") if pack == 1
+                else (_records(), _records("sbase")))
+        register_kernel(KernelEntry(
+            name=f"fused_split{sfx}", source="fused_split",
+            symbol=f"fused_scatter_hist<{rows}>",
+            block=_block(THREADS), dyn_smem=fs.smem_bytes(F, B),
+            args=args + (vec_arg("partials", "float32",
+                                 (2 * nb, F, B, 2), 4),),
+            wrapper=f"fused_split.fused_split{sfx}", replaces=FUSED[pack],
+            export=("fused_split_smem_bytes", (F, B))))
+    _reduce("fused_split", "fused_split.fused_split", FUSED[1], nb,
+            sets=2)
+
+
+def _apply_find():
+    for pool in (True, False):
+        name = "apply_find_pool" if pool else "apply_find"
+        hists = ((vec_arg("pool", "float32", (LEAVES, F, B, 2), 4),)
+                 if pool else ())
+        register_kernel(KernelEntry(
+            name=name, source="apply_find",
+            symbol=f"apply_find_kernel<{'true' if pool else 'false'}>",
+            block=_block(1024),
+            dyn_smem=af.smem_bytes(F, B),
+            args=hists + (vec_arg("h_a", "float32", (F, B, 2), 4),
+                          vec_arg("h_b", "float32", (F, B, 2), 4),
+                          vec_arg("best", "float32", (LEAVES, 10), 4),
+                          vec_arg("lstate", "float32", (LEAVES, 8), 4)),
+            wrapper=f"apply_find.{name}",
+            replaces=f"{PALLAS}/apply_find.py:{571 if pool else 529}"))
+
+
+def _stream():
+    rep = f"{PALLAS}/stream_grad.py"
+    aux = (vec_arg("score", "float32", (N, 1), 4),
+           vec_arg("valid", "float32", (N, 1), 4),
+           vec_arg("consts", "float32", (N, 2), 4))
+    src_bins = vec_arg("src_bins", "uint8", (N, F), 4)
+    register_kernel(KernelEntry(
+        name="stream_init", source="stream_grad",
+        symbol="stream_init_kernel",
+        block=_block(256), dyn_smem=0,
+        args=(src_bins,) + aux + _rows_args(),
+        wrapper="stream_grad.stream_init", replaces=f"{rep}:784"))
+    register_kernel(KernelEntry(
+        name="stream_init_p2", source="stream_grad",
+        symbol="stream_init_p2_kernel",
+        block=_block(THREADS), dyn_smem=sg.init_p2_smem_bytes(S),
+        args=(src_bins,) + aux + (_records(),),
+        wrapper="stream_grad.stream_init_p2",
+        replaces=f"{rep}:754"))
+    nb = hk.hist_blocks(N)
+    for pack, src in ((1, "RefreshRows"), (2, "RefreshRecords")):
+        sfx = "_p2" if pack == 2 else ""
+        stride = S if pack == 2 else 0
+        rows = ((_records(),) if pack == 2
+                else _rows_args()[:2] + _rows_args()[3:])
+        register_kernel(KernelEntry(
+            name=f"stream_refresh{sfx}", source="stream_grad",
+            symbol=f"stream_refresh_partial<{src}>", block=_block(THREADS),
+            dyn_smem=sg.refresh_smem_bytes(F, B, stride),
+            args=rows + (vec_arg("lv", "float32", (N, 1), 4),)
+            + _hist_out(nb),
+            wrapper=f"stream_grad.stream_refresh{sfx}",
+            replaces=f"{rep}:{610 if pack == 2 else 515}",
+            export=("stream_refresh_smem_bytes", (F, B, stride))))
+        register_kernel(KernelEntry(
+            name=f"stream_refresh_plain{sfx}", source="stream_grad",
+            symbol=f"stream_refresh_plain{sfx}_kernel",
+            block=_block(256), dyn_smem=0,
+            args=(((_records(vec=4),) if pack == 2
+                   else (_rows_args()[1], _rows_args()[3], _rows_args()[4]))
+                  + (vec_arg("lv", "float32", (N, 1), 4),)),
+            wrapper=f"stream_grad.stream_refresh_plain{sfx}",
+            replaces=f"{rep}:{652 if pack == 2 else 557}"))
+    _reduce("stream_grad", "stream_grad.stream_refresh", f"{rep}:515", nb)
+
+
+# -- the analyzer's fixture kernels at their legal geometries ---------------
+# (name, dtype, classes, rows, cols, copied rows, JAX fixture)
+FIXTURE_STAGE_LEGAL = (
+    ("fixture_lane", "float32", 1, 256, 64, 8, "__init__.py:77"),
+    ("fixture_cat", "int32", 1, 256, 16, 8, "__init__.py:280"),
+    ("fixture_serve", "int32", 1, 64, 64, 64, "__init__.py:326"),
+    ("fixture_mc_batch", "float32", 4, 16, 64, 16, "__init__.py:393"),
+)
+FIXTURES_DIR = "lightgbm_tpu/analysis/fixtures"
+SMEM_ACC_LEGAL = 8192        # bytes of the legal accumulator
+
+
+def stage_copy_entry(name, dtype, classes, rows, cols, copied, replaces,
+                     fixture=False, base_offset=0) -> KernelEntry:
+    """One ``fixture_stage_copy`` launch: ``copied`` rows of each of
+    ``classes`` slices ``[rows, cols]``."""
+    shape = (classes, rows, cols) if classes > 1 else (rows, cols)
+    row_bytes = cols * 4
+    return KernelEntry(
+        name=name, source="analysis_fixtures",
+        symbol=f"fixture_stage_copy<{'int' if dtype == 'int32' else 'float'}>",
+        grid=_grid(classes), block=_block(128),
+        dyn_smem=copied * row_bytes,
+        args=(vec_arg("src", dtype, shape, 16, base_offset),
+              vec_arg("dst", dtype, shape, 16, base_offset)),
+        wrapper="analysis_fixtures.stage_copy",
+        replaces=f"{FIXTURES_DIR}/{replaces}",
+        export=("analysis_stage_copy_smem_bytes", (copied, row_bytes)),
+        fixture=fixture)
+
+
+def smem_acc_entry(name: str, acc_bytes: int,
+                   fixture: bool = False) -> KernelEntry:
+    """One ``fixture_smem_acc`` launch: 4 blocks of (8, 128) f32."""
+    return KernelEntry(
+        name=name, source="analysis_fixtures", symbol="fixture_smem_acc",
+        grid=_grid(4), block=_block(128), dyn_smem=acc_bytes,
+        args=(vec_arg("x", "float32", (32, 128), 4),
+              vec_arg("o", "float32", (32, 128), 4)),
+        wrapper="analysis_fixtures.smem_acc",
+        replaces=f"{FIXTURES_DIR}/__init__.py:107", fixture=fixture)
+
+
+def _fixture_kernels():
+    for row in FIXTURE_STAGE_LEGAL:
+        register_kernel(stage_copy_entry(*row))
+    register_kernel(smem_acc_entry("fixture_vmem", SMEM_ACC_LEGAL))
+    register_kernel(KernelEntry(
+        name="fixture_host", source="analysis_fixtures",
+        symbol="fixture_scale_bias", block=_block(256),
+        dyn_smem=0,
+        args=(vec_arg("x", "float32", (8, 128), 4),
+              vec_arg("o", "float32", (8, 128), 4)),
+        wrapper="analysis_fixtures.scale_bias",
+        replaces=f"{FIXTURES_DIR}/bad_host_ast.py:21"))
+
+
+for _register in (_serve, _hist, _partition, _fused, _apply_find, _stream,
+                  _fixture_kernels):
+    _register()
+
+
+# -- purity pins: "knob off => the same program" ------------------------------
+def train_variant(env: dict, *, n_features: int, seed: int = 0):
+    """A function that trains 2 iterations of a 7-leaf binary model on
+    300 seeded rows on the CPU with ``env`` set (``None`` unsets)."""
+    def fn():
+        import os
+
+        import numpy as np
+
+        import lightgbm_tpu_torch as lgt
+        from ..utils import log
+        rng = np.random.default_rng(seed)
+        x = rng.normal(size=(300, n_features)).astype(np.float32)
+        y = (x[:, 0] + 0.5 * x[:, 1] > 0).astype(np.float32)
+        saved = {k: os.environ.get(k) for k in env}
+        verbosity = log.get_verbosity()
+        log.set_verbosity(-1)
+        try:
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            lgt.train({"objective": "binary", "num_leaves": 7,
+                       "min_data_in_leaf": 5},
+                      lgt.Dataset(x, label=y), 2, device="cpu")
+        finally:
+            log.set_verbosity(verbosity)
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return fn
+
+
+@register_purity_pin("pool-tail-explicit")
+def _pin_pool_tail():
+    """``LGBM_TPU_POOL_TAIL=1`` set is the default."""
+    return [("default", train_variant({"LGBM_TPU_POOL_TAIL": None},
+                                      n_features=4)),
+            ("LGBM_TPU_POOL_TAIL=1", train_variant(
+                {"LGBM_TPU_POOL_TAIL": "1"}, n_features=4))]
+
+
+@register_purity_pin("pack2-too-wide")
+def _pin_pack2_wide():
+    """``LGBM_TPU_COMB_PACK=2`` on a layout too wide for it (56 features:
+    56 + 13 stream columns over the 64-lane half line) is the pack=1
+    program (``ops/routing.resolve_layout``'s fall back)."""
+    return [("pack=1", train_variant({"LGBM_TPU_COMB_PACK": "1"},
+                                     n_features=56)),
+            ("pack=2 requested", train_variant({"LGBM_TPU_COMB_PACK": "2"},
+                                               n_features=56))]

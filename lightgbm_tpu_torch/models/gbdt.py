@@ -376,5 +376,5 @@ def _bin_tree(t: Tree, inner: dict) -> TreeArrays:
         is_categorical=(t.decision_type & 1) > 0,
         left_child=t.left_child, right_child=t.right_child,
         internal_value=z, internal_weight=z, internal_count=z,
-        leaf_value=np.asarray(t.leaf_value, np.float32),
+        leaf_value=t.leaf_value.astype(np.float32),
         leaf_weight=z, leaf_count=z, num_leaves=t.num_leaves)

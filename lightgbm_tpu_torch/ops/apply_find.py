@@ -184,7 +184,14 @@ def apply_find_supported(num_features: int, padded_bins: int) -> bool:
     """Whether both children's histograms fit one block's shared memory
     (the counterpart of the reference's ``tail_supported``: a route
     decision, taken up front)."""
-    return num_features * padded_bins * 16 + num_features * 16 <= MAX_SMEM
+    return smem_bytes(num_features, padded_bins) <= MAX_SMEM
+
+
+def smem_bytes(num_features: int, padded_bins: int) -> int:
+    """Shared memory of the kernel's one block (``smem_bytes`` in
+    ``csrc/apply_find.cu``): both children's histograms and their NaN-bin
+    values."""
+    return num_features * padded_bins * 16 + num_features * 16
 
 
 @functools.lru_cache(maxsize=1)

@@ -67,8 +67,13 @@ def fused_supported(num_features: int, padded_bins: int) -> bool:
     bins.  The pack=2 kernel needs the same: it moves each record's
     16-byte words from source to scratch through registers and stages
     only what the pack=1 kernel stages, so one test serves both packs."""
-    return (num_features * padded_bins * 8 + SCAN_TILE * (num_features + 12)
-            <= MAX_SMEM)
+    return smem_bytes(num_features, padded_bins) <= MAX_SMEM
+
+
+def smem_bytes(num_features: int, padded_bins: int) -> int:
+    """Shared memory of one scatter block, either pack (the library's
+    ``fused_split_smem_bytes``)."""
+    return num_features * padded_bins * 8 + SCAN_TILE * (num_features + 12)
 
 
 @functools.lru_cache(maxsize=1)

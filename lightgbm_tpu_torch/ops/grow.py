@@ -597,7 +597,7 @@ def predict_leaf_bins(ta: TreeArrays, bins: torch.Tensor,
     if nl <= 1:
         return torch.zeros(n, dtype=torch.int64, device=dev)
     ni = nl - 1
-    t = lambda a, dt: torch.as_tensor(np.asarray(a[:ni]), dtype=dt,  # noqa
+    t = lambda a, dt: torch.as_tensor(a[:ni], dtype=dt,  # noqa: E731
                                       device=dev)
     sf, tb = t(ta.split_feature, torch.int64), t(ta.threshold_bin,
                                                  torch.int32)

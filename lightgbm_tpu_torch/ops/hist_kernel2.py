@@ -53,6 +53,15 @@ MAX_SMEM = 232448
 # rows per first-pass block aimed at, and the most blocks one launch uses
 ROWS_PER_BLOCK = 4096
 MAX_BLOCKS = 2 * 132
+# rows a histogram block stages per step (csrc/hist_block.cuh kChunk)
+HIST_CHUNK = 256
+
+
+def comb_smem_bytes(f: int, padded_bins: int, bin_bytes: int = 1) -> int:
+    """Shared memory of one histogram block (``histblock::smem_bytes``,
+    the library's ``hist_comb_smem_bytes``): the ``[F, B, 2]`` f32
+    histogram, then per staged row (g*w, h*w) and the bins."""
+    return f * padded_bins * 8 + HIST_CHUNK * (8 + f * bin_bytes)
 
 
 def hist_blocks(max_rows: int) -> int:
@@ -216,6 +225,13 @@ build_histogram_comb_p2.launches = 0
 # -- row-indexed histogram (csrc/hist_rows.cu) ------------------------------
 # features one block histograms: one per warp
 ROWS_FEATURES = 8
+
+
+def rows_smem_bytes(fc: int, padded_bins: int, bin_bytes: int) -> int:
+    """Shared memory of one row-indexed block of ``fc`` features (the
+    library's ``hist_rows_smem_bytes``): :func:`comb_smem_bytes` plus the
+    staged row ids."""
+    return comb_smem_bytes(fc, padded_bins, bin_bytes) + HIST_CHUNK * 4
 
 
 def rows_blocks(max_rows: int, padded_bins: int) -> int:

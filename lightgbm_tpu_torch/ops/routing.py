@@ -42,11 +42,18 @@ the JAX package's: ``LGBM_TPU_STREAM=0``, ``LGBM_TPU_FUSED=0`` and
 gates are the port's own kernels' shared memory (the TPU's VMEM gates do
 not apply); a build or launch failure is never a reason to change route,
 it raises.
+
+:func:`enumerate_matrix` decides every cell of the port's lattice of
+inputs; ``python -m lightgbm_tpu_torch.ops.routing`` writes it to the
+golden ``analysis/routing_matrix.json`` that the analyzer's routing pass
+holds the rules against.
 """
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, field, replace
-from typing import Callable, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..config import env_knob
 from ..utils.log import LightGBMError
@@ -80,6 +87,24 @@ class RouteInputs:
     pool_tail_env: str = "1"
     pack_env: str = "1"              # LGBM_TPU_COMB_PACK: 1 | 2
     wide_layout: bool = False        # JAX comb columns > PACK_W
+
+    def key(self) -> str:
+        """Stable lattice-cell key (matrix row id).  The fields both
+        packages have keep the JAX package's names and spelling
+        (``RouteInputs.key``, ``lightgbm_tpu/ops/routing.py``); the port's
+        own knobs and shape gates follow them."""
+        b = lambda v: "1" if v else "0"  # noqa: E731
+        return (
+            f"learner={self.learner};u8={b(self.bins_u8)};"
+            f"wide={b(self.wide_layout)};bag={b(self.bagging)};"
+            f"lin={b(self.linear_tree)};boost={self.boosting};"
+            f"obj={self.objective_kind};"
+            f"k={'multi' if self.multi_tree else '1'};"
+            f"phys={self.phys_env};stream={self.stream_env};"
+            f"pack={self.pack_env};impl={self.part_env};"
+            f"fused={self.fused_env};apply={self.apply_impl_env};"
+            f"pool={self.pool_tail_env};fok={b(self.fused_ok)};"
+            f"tok={b(self.tail_ok)}")
 
 
 @dataclass(frozen=True)
@@ -255,3 +280,129 @@ def decide(i: RouteInputs) -> RouteDecision:
         pool_tail=tail == "kernel" and i.pool_tail_env != "0",
         pack=pack, pack_reasons=pack_reasons)
 
+
+
+# ---------------------------------------------------------------------
+# lattice enumeration and the golden matrix (the counterpart of
+# lightgbm_tpu/ops/routing.py:1126-1260 over the port's RouteInputs)
+# ---------------------------------------------------------------------
+ROUTING_SCHEMA = "lightgbm_tpu_torch/routing/v1"
+_BOOL = (False, True)
+# (objective_kind, multi_tree), as the JAX package's _OBJ
+_OBJ = (("binary", False), ("l2", False), ("other", True),
+        ("other", False))
+
+
+def enumerate_inputs() -> List[RouteInputs]:
+    """The audited lattice, deterministic and deduplicated by key: the
+    config lattice under the default knobs, every knob combination over
+    the default config, and the shape and boosting edge cells."""
+    cells: List[RouteInputs] = []
+    seen = set()
+
+    def add(**kw):
+        i = RouteInputs(**kw)
+        if i.key() not in seen:
+            seen.add(i.key())
+            cells.append(i)
+
+    for u8 in _BOOL:
+        for bag in _BOOL:
+            for lin in _BOOL:
+                for obj, multi in _OBJ:
+                    add(bins_u8=u8, bagging=bag, linear_tree=lin,
+                        objective_kind=obj, multi_tree=multi)
+    knobs = [dict(phys_env=phys, stream_env=stream, fused_env=fused,
+                  apply_impl_env=apply_impl, pool_tail_env=pool,
+                  part_env=part, pack_env=pack)
+             for phys in ("auto", "0") for stream in ("auto", "0")
+             for fused in ("1", "0") for apply_impl in ("kernel", "xla")
+             for pool in ("1", "0") for part in ("ss", "3ph")
+             for pack in ("1", "2")]
+    for obj in ("binary", "l2"):
+        for kw in knobs:
+            add(objective_kind=obj, **kw)
+    for pack in ("1", "2"):
+        for part in ("ss", "3ph"):
+            add(wide_layout=True, pack_env=pack, part_env=part)
+        add(bins_u8=False, pack_env=pack)
+        add(fused_ok=False, pack_env=pack)
+        add(tail_ok=False, pack_env=pack)
+        add(fused_ok=False, tail_ok=False, bins_u8=False, pack_env=pack)
+    for boost in ("dart", "goss", "rf"):
+        add(boosting=boost)
+    add(objective_kind="none")
+    return cells
+
+
+def encode_cell(d: RouteDecision) -> str:
+    """One-line cell encoding.  ``path``, ``pack``, ``scheme``, ``fused``,
+    ``why`` (the physical rules, else the stream rules) and ``pack_why``
+    are the JAX package's fields; ``tail``, ``pool``, ``fused_why`` and
+    ``tail_why`` are the port's."""
+    reasons = set(d.reasons)
+    j = lambda rules: "+".join(  # noqa: E731
+        r.name for r in rules if r.name in reasons) or "-"
+    by = {k: [r for r in RULES if r.blocks == k]
+          for k in ("physical", "stream", "fused", "tail")}
+    why = j(by["physical"]) if not d.physical else j(by["stream"])
+    return (f"path={d.path};pack={d.pack};scheme={d.scheme};"
+            f"fused={int(d.fused)};tail={d.tail};pool={int(d.pool_tail)};"
+            f"why={why};pack_why={'+'.join(d.pack_reasons) or '-'};"
+            f"fused_why={j(by['fused'])};tail_why={j(by['tail'])}")
+
+
+def decode_cell(enc: str) -> Dict[str, object]:
+    """``field -> value`` of a cell, ``*why`` fields as lists of rule
+    names; reads the JAX package's cells as well (the analyzer audits
+    cells the port cannot produce yet)."""
+    out: Dict[str, object] = {}
+    for part in enc.split(";"):
+        k, sep, v = part.partition("=")
+        if not sep:
+            raise ValueError(f"unparseable cell field {part!r}")
+        out[k] = ([] if v == "-" else v.split("+")) if k.endswith("why") \
+            else v
+    for k in ("path", "pack", "scheme", "fused"):
+        if k not in out:
+            raise ValueError(f"cell has no {k!r} field")
+    return out
+
+
+def enumerate_matrix() -> dict:
+    """The golden routing matrix document."""
+    cells: Dict[str, str] = {}
+    paths: Dict[str, int] = {}
+    reasons: Dict[str, int] = {}
+    for i in enumerate_inputs():
+        d = decide(i)
+        cells[i.key()] = encode_cell(d)
+        paths[d.path] = paths.get(d.path, 0) + 1
+        for name in d.reasons + d.pack_reasons:
+            reasons[name] = reasons.get(name, 0) + 1
+    return {"schema": ROUTING_SCHEMA, "cells": cells,
+            "summary": {"n_cells": len(cells), "paths": paths,
+                        "reasons": reasons}}
+
+
+def canonical_bytes(doc: dict) -> bytes:
+    """The byte-for-byte form the golden file is checked against."""
+    return (json.dumps(doc, indent=0, sort_keys=True) + "\n").encode()
+
+
+def default_matrix_path() -> str:
+    return os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "analysis", "routing_matrix.json")
+
+
+def write_matrix(path: Optional[str] = None) -> str:
+    path = path or default_matrix_path()
+    with open(path, "wb") as fh:
+        fh.write(canonical_bytes(enumerate_matrix()))
+    return path
+
+
+if __name__ == "__main__":
+    import sys
+    print(write_matrix(sys.argv[1] if len(sys.argv) > 1 else None))

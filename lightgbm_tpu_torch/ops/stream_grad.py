@@ -45,11 +45,27 @@ from ..utils.log import LightGBMError
 from . import _build
 from .device_data import (PackedRows, RecordLayout, Rows, check_packed,
                           pack_rows)
-from .hist_kernel2 import MAX_SMEM, build_histogram_comb_ref, hist_blocks
+from .hist_kernel2 import (HIST_CHUNK, MAX_SMEM, build_histogram_comb_ref,
+                           comb_smem_bytes, hist_blocks)
 from .partition_kernel import check_rows
 
 # the kernels' objective codes
 KINDS = {"binary": 0, "l2": 1}
+
+
+def init_p2_smem_bytes(stride: int) -> int:
+    """Shared memory of one ``stream_init_p2`` block: ``HIST_CHUNK``
+    records staged as ``stride / 4 + 1`` 32-bit words each
+    (``staged_words``)."""
+    return HIST_CHUNK * (stride // 4 + 1) * 4
+
+
+def refresh_smem_bytes(f: int, padded_bins: int, stride: int) -> int:
+    """Shared memory of one refresh block (the library's
+    ``stream_refresh_smem_bytes``): the histogram block's, plus the
+    staged records at pack=2 (``stride`` 0 at pack=1)."""
+    return (comb_smem_bytes(f, padded_bins)
+            + (init_p2_smem_bytes(stride) if stride else 0))
 
 
 def stream_gradients(kind: str, sigmoid: float, score: torch.Tensor,

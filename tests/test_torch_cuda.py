@@ -16,7 +16,12 @@ hist_comb's of the same ranges.  The row-indexed histogram (slice 4)
 bitwise its plain version run on CPU copies of the inputs.  The 3-phase
 partition and the plain refresh (slice 5) bitwise their plain versions.
 The pack=2 record kernels (slices 6 and 7) bitwise their plain versions
-and their pack=1 kernels on the same logical rows.
+and their pack=1 kernels on the same logical rows.  The analyzer's
+fixture kernels (slice 8) bitwise their plain versions at their legal
+geometries, their seeded geometries refused before a launch, the
+resource report read fresh from the built libraries equal to the
+checked-in ``analysis/resources_sm90a.txt``, and the analyzer clean
+under ``--strict`` with the fixtures flagged.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
 row-order and 3ph routes), and the default route's equal slice 2's
@@ -453,3 +458,53 @@ def test_pack2_route_on_card_matches_cpu_and_pack1(cuda, env, monkeypatch):
         res = compare_trees(card._models, other._models)
         assert res["ok"], res
         assert leaves_bitwise(card._models, other._models)
+
+
+# -- slice 8: the analyzer's fixture kernels and the resource report ----------
+@pytest.mark.parametrize("index", range(7))
+def test_fixture_kernel_bitwise_at_legal_geometry(cuda, index):
+    from chip_smoke import _bits, _on, fixture_cases
+    kernel, label, fn, plain, args, kw = fixture_cases(seed=index)[index]
+    before = fn.launches
+    out = fn(*_on(args, cuda), **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(_bits(out.cpu()), _bits(plain(*args, **kw))), label
+
+
+@pytest.mark.parametrize("name", ["bad_lane", "bad_cat", "bad_serve_kernel",
+                                  "bad_mc_batch"])
+def test_seeded_stage_geometry_never_launches(cuda, name):
+    from lightgbm_tpu_torch.analysis.fixtures import STAGE_SEEDED
+    from lightgbm_tpu_torch.ops import analysis_fixtures as af
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    _, dtype, classes, rows, cols, copied, _ = STAGE_SEEDED[name]
+    shape = (classes, rows, cols) if classes > 1 else (rows, cols)
+    before = af.stage_copy.launches
+    with pytest.raises(LightGBMError):
+        af.stage_copy(torch.zeros(shape, dtype=getattr(torch, dtype),
+                                  device=cuda), copied)
+    assert af.stage_copy.launches == before
+
+
+def test_resource_report_read_fresh_equals_the_checked_in_one(cuda):
+    from chip_smoke import same_resources
+    from lightgbm_tpu_torch.analysis import resources as res
+    from lightgbm_tpu_torch.ops import _build
+    _build.build()
+    assert same_resources(res.load_report(), res.read_built())
+
+
+def test_analyzer_strict_on_the_card(cuda):
+    from lightgbm_tpu_torch.analysis import fixtures as fx
+    from lightgbm_tpu_torch.analysis.run import run_analysis
+    from lightgbm_tpu_torch.ops import _build
+    _build.build()
+    report = run_analysis(passes=["align", "smem"], strict=True,
+                          resources="built")
+    assert report.failing() == []
+    seeded = run_analysis(passes=["align", "smem"], strict=True,
+                          resources="built",
+                          fixtures=["bad_lane", "bad_vmem"])
+    assert {f.code for f in seeded.findings if f.fixture} == (
+        fx.EXPECTED["bad_lane"] | fx.EXPECTED["bad_vmem"])

@@ -380,11 +380,14 @@ def test_queue_fifo_and_latency(engine_model):
 
 
 def test_bucket_knob_validated():
-    from lightgbm_tpu_torch.serve.engine import bucket_policy
+    # the error class from the same import as bucket_policy: a test file
+    # that purged the lightgbm_tpu* modules before this one leaves lgt's
+    # LightGBMError a different class from a fresh import's
+    from lightgbm_tpu_torch.serve.engine import LightGBMError, bucket_policy
     saved = save_env_knobs(KNOBS)
     try:
         os.environ["LGBM_TPU_SERVE_BUCKETS"] = "64:32"
-        with pytest.raises(lgt.LightGBMError, match="FLOOR:CAP"):
+        with pytest.raises(LightGBMError, match="FLOOR:CAP"):
             bucket_policy()
         os.environ["LGBM_TPU_SERVE_BUCKETS"] = "32:128"
         assert bucket_policy() == (32, 128)
