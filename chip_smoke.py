@@ -86,7 +86,23 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``LGBM_TPU_FUSED=0`` route, both bitwise the default route's first 3
    trees, and slice 2's route at pack=2 (3), bitwise slice 2's route's
    trees; one profiled iteration of each unfused route;
-8. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+8. the launch-cost probes (slice 9, TPU rows T11, T10, T9): the two
+   tools of ``lightgbm_tpu_torch.tools`` run with the counts zeroed
+   before and read after, their tables printed (T11: 254
+   ``select_update``s eager, from C, as a replayed CUDA graph and as
+   PyTorch ops; T10's four ``step_cost`` variants and T9's
+   ``stream_tiles`` at n = 2^20, each output exactly its plain
+   version's), then ``select_update`` bitwise its plain version after
+   254 eager launches, 254 from C and a graph replay from four seeded
+   states;
+9. wide datasets (slice 9): ``hist_comb`` at 1,000,000 x 136 u8 bins,
+   B = 256, in two feature chunks, bitwise its plain version run on CPU
+   copies and timed beside its byte bound and ``index_add_``; training
+   parity at 50,000 x 136, card against device="cpu", 3 trees,
+   bit-identical; 3 iterations of ``make_higgs_like(1M, 136)`` with 255
+   leaves on the unfused stream route with the PyTorch tail, counted
+   exactly;
+10. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times, then the device line last.
 
 The forests and rows are generated from seeds: the card's machine has
@@ -1018,14 +1034,15 @@ def route_env(env: dict):
 
 
 def train_parity(gpu: str, env: dict, trees: int, label: str,
-                 params: dict = TRAIN_PARAMS, bitwise: bool = False) -> dict:
-    """50,000 rows x 28 (NaN and zero missing values), 255 leaves,
-    ``trees`` trees on the route ``env`` selects, trained on the card and
-    with device="cpu"; whether the leaf values are bitwise equal too
-    (a gate when ``bitwise``)."""
+                 params: dict = TRAIN_PARAMS, bitwise: bool = False,
+                 n_features: int = N_FEATURES) -> dict:
+    """50,000 rows x ``n_features`` (28; NaN and zero missing values),
+    255 leaves, ``trees`` trees on the route ``env`` selects, trained on
+    the card and with device="cpu"; whether the leaf values are bitwise
+    equal too (a gate when ``bitwise``)."""
     import lightgbm_tpu_torch as lgt
-    x = make_rows(PARITY_ROWS, N_FEATURES, 3)
-    _, y = make_higgs_like(PARITY_ROWS, N_FEATURES, 3)
+    x = make_rows(PARITY_ROWS, n_features, 3)
+    _, y = make_higgs_like(PARITY_ROWS, n_features, 3)
     traces = []
 
     def _train(device):
@@ -1047,7 +1064,7 @@ def train_parity(gpu: str, env: dict, trees: int, label: str,
         i = diff[0]
         rec["first_split_diff"] = {"split": i, "cuda": traces[0][i],
                                    "cpu": traces[1][i]}
-    rec.update(case=f"{label}: {PARITY_ROWS}x{N_FEATURES}, {TRAIN_LEAVES} "
+    rec.update(case=f"{label}: {PARITY_ROWS}x{n_features}, {TRAIN_LEAVES} "
                f"leaves, {trees} trees", cuda_s=t1 - t0, cpu_s=t2 - t1,
                route=bst_c._inner.grow.route.describe(),
                leaves_bitwise=leaves_bitwise(bst_c._models, bst_p._models),
@@ -2244,7 +2261,8 @@ def pack2_unfused_phases(gpu: str, ds, valid, x, bst_default,
 
 
 def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
-                    label: str, params: dict = TRAIN_PARAMS):
+                    label: str, params: dict = TRAIN_PARAMS,
+                    n_features: int = N_FEATURES):
     """The training main path on the route ``env`` selects, counted and
     timed by stage, its booster served through serve_traverse.  Returns
     (booster, record)."""
@@ -2322,7 +2340,7 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
     per_it = np.diff([t_start] + its)
     stages = {k: v / len(models) for k, v in timer.totals_ms().items()}
     rec = {"case": label, "route": route.describe(), "rows": TRAIN_ROWS,
-           "features": N_FEATURES, "leaves": TRAIN_LEAVES,
+           "features": n_features, "leaves": TRAIN_LEAVES,
            "max_bin": params["max_bin"],
            "padded_bins": bst._inner.dd.padded_bins,
            "iterations": len(models), "train_s": train_s,
@@ -2669,6 +2687,269 @@ def analysis_phase(gpu: str) -> dict:
     return rec
 
 
+# -- slice 9: wide datasets and the launch-cost probes -----------------------
+WIDE_FEATURES = 136           # MSLR-WEB30K's width: hist_comb in chunks
+WIDE_ITERS = 3
+WIDE_ROUTE = "path=stream fused=0 tail=xla (fused_smem, tail_smem)"
+PROBE_ROWS = 1 << 20          # tools/profile_step_cost.py PN = 20
+PROBE_REPS = 20               # T11 iterations of 254 timed per mode
+STEP_REPS = 30                # tools/profile_step_cost.py REPS
+PROBE_SRC = "lightgbm_tpu_torch/csrc/probes.cu"
+
+
+def probe_states(seed: int = 0) -> dict:
+    """Seeded leaf states f32 [255, 20] for T11: the tool's own (zeros,
+    [0, 0] = 1), normal values, ties in column 0 and a row near 1e8,
+    where (row + 1) - row is not 1."""
+    rng = np.random.default_rng(seed)
+    tool = np.zeros((255, 20), np.float32)
+    tool[0, 0] = 1.0
+    normal = rng.normal(size=(255, 20)).astype(np.float32)
+    ties = rng.normal(size=(255, 20)).astype(np.float32)
+    ties[:, 0] = rng.integers(0, 3, size=255)
+    big = rng.normal(size=(255, 20)).astype(np.float32)
+    big[37] = 1e8 + rng.integers(0, 64, size=20) * 8
+    return {"tool": tool, "normal": normal, "ties": ties, "big": big}
+
+
+def probe_phases(gpu: str) -> list:
+    """Slice 9: the launch-cost probes (TPU rows T11, T10, T9).  Their
+    path, the two tools' runs (``lightgbm_tpu_torch.tools``: T11's five
+    modes, 254 updates a timed iteration; T10's four variants and T9 at
+    n = 2^20, each output held exactly against its plain version on the
+    card), runs with the counts zeroed just before and read just after,
+    its tables printed; then T11 bitwise its plain version after 254
+    eager launches, 254 from C and a graph replay, from each seeded
+    state.  Returns the six kernels' records."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import probes
+    from lightgbm_tpu_torch.tools import profile_pallas_ov as ov
+    from lightgbm_tpu_torch.tools import profile_step_cost as sc
+    counted = (probes.select_update, probes.step_cost, probes.stream_tiles)
+
+    def log(tag):
+        return lambda line: print(f"{tag} {line} [{gpu}]", flush=True)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    t11 = ov.run("cuda", reps=PROBE_REPS, log=log("T11"))
+    t10 = sc.run("cuda", n=PROBE_ROWS, reps=STEP_REPS, log=log("T10/T9"))
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    if launches["select_update"] != t11["expected_launches"] or \
+            [launches["step_cost"], launches["stream_tiles"]] != \
+            [t10["launches"]["step_cost"], t10["launches"]["stream_tiles"]]:
+        raise RuntimeError(f"the probes' launches {launches} differ from "
+                           f"the tools' counts")
+    checks = {}
+    for name, st in probe_states().items():
+        checks[name] = ov.check(torch.from_numpy(st).cuda())
+        if not all(checks[name][m] for m in ("eager", "c_loop", "graph")):
+            raise RuntimeError(f"select_update differs from its plain "
+                               f"version from the {name} state: "
+                               f"{checks[name]}")
+    print("parity probes " + json.dumps(
+        {"launches": launches, "select_update": checks,
+         "step_cost": [{k: r[k] for k in ("variant", "n", "out")}
+                       for r in t10["rows"]]}) + f" [{gpu}]", flush=True)
+    print("probes T11 " + json.dumps(t11), flush=True)
+    print("probes T10/T9 " + json.dumps(t10), flush=True)
+
+    modes = {r["mode"]: r["ms"] / ov.N for r in t11["rows"]}
+    lf = torch.from_numpy(probe_states()["normal"]).cuda()
+    recs = [_kernel_record(
+        "select_update", PROBE_SRC, "tools/profile_pallas_ov.py:40",
+        launches["select_update"], 0.0,
+        modes["select_update, Python wrapper"],
+        _time_ms(lambda: probes.select_update_ref(lf), 50),
+        2 * lf.numel() * 4 + probes.SEL * 4, 3 * lf.numel(), gpu,
+        library_ms=modes["PyTorch ops (xla_loop), eager"],
+        library_call="argmax + index_select + index_copy_ (xla_loop's "
+                     "body in PyTorch ops), a call",
+        c_loop_ms=modes["select_update_loop, one call from C"],
+        graph_ms=modes["CUDA graph of the wrapper calls, replayed"],
+        library_graph_ms=modes["PyTorch ops (xla_loop), CUDA graph"],
+        timed_case="254 updates of the tool's state, median of "
+                   f"{PROBE_REPS}, per launch",
+        parity_cases=sorted(checks))]
+    rows = sc.make_rows(PROBE_ROWS, "cuda")
+    sel = torch.tensor([0, PROBE_ROWS], dtype=torch.int32, device="cuda")
+    nb = PROBE_ROWS // probes.TILE_ROWS
+    # the one PyTorch call that gives each output (None: no one call)
+    one_call = {"empty": ("sel[:1].clone()", lambda: sel[:1].clone()),
+                "dma_nw": ("torch.add(sel[:1], nb)",
+                           lambda: torch.add(sel[:1], nb)),
+                "waits": ("torch.add(sel[:1], nb)",
+                          lambda: torch.add(sel[:1], nb))}
+    at_n = {r["variant"]: r for r in t10["rows"] if r["n"] == PROBE_ROWS}
+    per_var = {}
+    for r in t10["rows"]:
+        per_var[r["variant"]] = per_var.get(r["variant"], 0) + r["launches"]
+    for var in sc.VARIANTS:
+        r = at_n[var]
+        dma = var in ("dma_nw", "dma_bs")
+        name = "stream_tiles" if var == "dma_bs" else f"step_cost_{var}"
+        ref = sc.plain(var)
+        # bytes: the output, sel, and for the copy variants the rows
+        # they copy (the TPU kernel's work, not what the output needs);
+        # operations: a few integer ones a block
+        out_bytes = 4 + (nb * 4 if var == "dma_bs" else 8)
+        n_bytes = out_bytes + (rows.numel() * 4 if dma else 0)
+        call = one_call.get(var)
+        extra = {}
+        if dma:
+            extra = dict(
+                bound_note="copied bytes: the rows the probe copies, not "
+                           "the bytes its output depends on",
+                output_bound_ms=out_bytes / PEAK_BYTES_S * 1e3,
+                same_bytes_ms=t10["torch_sum_ms"],
+                same_bytes_call="torch.sum(rows): the same bytes, not the "
+                                "same function")
+        recs.append(_kernel_record(
+            name, PROBE_SRC, "tools/profile_step_cost.py:"
+            + ("52" if var == "dma_bs" else "86"),
+            per_var[var], 0.0, r["ms"],
+            _time_ms(lambda: ref(rows), 10), n_bytes, 4 * r["blocks"], gpu,
+            library_ms=_time_ms(call[1], 50) if call else None,
+            library_call=call[0] if call else None,
+            graph_ms=r["graph_ms"], blocks=r["blocks"],
+            us_per_block=r["us_per_block"], out=r["out"],
+            timed_case=f"n = {PROBE_ROWS}, {STEP_REPS} launches in a row",
+            **extra))
+    one = next(r for r in t10["rows"] if r["variant"] == "empty"
+               and r["blocks"] == 1)
+    recs[1].update(one_block_ms=one["ms"], one_block_graph_ms=one["graph_ms"])
+    for r in recs:
+        if r["launches"] <= 0:
+            raise RuntimeError(f"{r['name']} was not launched on its path")
+    return recs
+
+
+@contextlib.contextmanager
+def comb_chunk(fc: int):
+    """``hist_comb`` launched with ``fc`` features a block inside the
+    block (the wrapper's ``comb_feature_chunk`` replaced)."""
+    from lightgbm_tpu_torch.ops import hist_kernel2 as hk
+    saved = hk.comb_feature_chunk
+    hk.comb_feature_chunk = lambda f, b: fc
+    try:
+        yield
+    finally:
+        hk.comb_feature_chunk = saved
+
+
+# features a block timed beside the wrapper's chunk (17 at 136 features,
+# 14 at 28): 68 was the first rule's chunk, 28 one chunk
+CHUNK_SWEEP = {WIDE_FEATURES: (68, 34, 8), 28: (28, 7)}
+
+
+def comb_chunk_sweep(gpu: str, f: int, rows, k1) -> dict:
+    """``hist_comb`` over every row of ``rows`` (B = 256) timed at the
+    wrapper's chunk and at each of ``CHUNK_SWEEP[f]`` features a block,
+    each bitwise ``k1``, the wrapper's result."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.hist_kernel2 import (
+        build_histogram_comb, comb_feature_chunk, comb_smem_bytes)
+    n = rows.bins.shape[0]
+    kw = dict(padded_bins=256, max_rows=n)
+    rng = torch.tensor([0, 0, n], dtype=torch.int32, device="cuda")
+    shipped = comb_feature_chunk(f, 256)
+    out = {}
+    for fc in (shipped,) + CHUNK_SWEEP[f]:
+        with comb_chunk(fc):
+            same = torch_equal(build_histogram_comb(rows, rng, **kw), k1)
+            out[fc] = {"smem": comb_smem_bytes(fc, 256), "bitwise": same,
+                       "ms": _time_ms(
+                           lambda: build_histogram_comb(rows, rng, **kw), 20)}
+        if not same:
+            raise RuntimeError(f"hist_comb at {fc} of {f} features a block "
+                               f"differs from the wrapper's chunk of "
+                               f"{shipped}")
+    print(f"hist_comb chunk sweep, {n} x {f}, B = 256, wrapper's chunk "
+          f"{shipped}: " + json.dumps(out) + f" [{gpu}]", flush=True)
+    return out
+
+
+def hist_comb_wide_case(gpu: str) -> dict:
+    """hist_comb at 1,000,000 x 136 u8 bins, B = 256 (eight feature
+    chunks of 17): bitwise its plain version run on CPU copies, two
+    launches bitwise, timed beside the plain version on the card, one
+    ``index_add_`` and the byte bound; then the chunk sweeps of
+    ``CHUNK_SWEEP`` at 136 and at 28 features."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.hist_kernel2 import (
+        build_histogram_comb, build_histogram_comb_ref, comb_feature_chunk)
+    b = 256
+    arrays = random_row_matrix(TRAIN_ROWS, WIDE_FEATURES, 9)
+    rows = rows_on(arrays, "cuda")
+    rows_cpu = rows_on(arrays, "cpu")
+    kw = dict(padded_bins=b, max_rows=TRAIN_ROWS)
+    rng = torch.tensor([0, 0, TRAIN_ROWS], dtype=torch.int32, device="cuda")
+    k1 = build_histogram_comb(rows, rng, **kw)
+    k2 = build_histogram_comb(rows, rng, **kw)
+    ref = build_histogram_comb_ref(rows_cpu, rng.cpu(), **kw)
+    torch.cuda.synchronize()
+    rec = {"case": f"hist_comb root, {TRAIN_ROWS} x {WIDE_FEATURES}, B = {b}",
+           "feature_chunk": comb_feature_chunk(WIDE_FEATURES, b),
+           "bitwise_cpu_plain": torch_equal(k1.cpu(), ref),
+           "bitwise_repeat": torch_equal(k1, k2),
+           "max_abs_err": float((k1.cpu() - ref).abs().max())}
+    if not (rec["bitwise_cpu_plain"] and rec["bitwise_repeat"]):
+        raise RuntimeError(f"hist_comb at {WIDE_FEATURES} features differs "
+                           f"from its plain version: {rec}")
+    rec["ms"] = _time_ms(lambda: build_histogram_comb(rows, rng, **kw), 20)
+    rec["plain_ms"] = _time_ms(
+        lambda: build_histogram_comb_ref(rows, rng, **kw), 2)
+    rec["library_ms"] = library_hist_ms(rows.bins, rows.vals, b)
+    rec["bound_bytes"] = (TRAIN_ROWS * (WIDE_FEATURES + 8)
+                          + WIDE_FEATURES * b * 8)
+    rec["bound_ms"] = rec["bound_bytes"] / PEAK_BYTES_S * 1e3
+    rec["chunk_sweep"] = comb_chunk_sweep(gpu, WIDE_FEATURES, rows, k1)
+    del rows, rows_cpu, ref
+    narrow = rows_on(random_row_matrix(TRAIN_ROWS, 28, 9), "cuda")
+    rng28 = torch.tensor([0, 0, TRAIN_ROWS], dtype=torch.int32,
+                         device="cuda")
+    rec["chunk_sweep_28"] = comb_chunk_sweep(
+        gpu, 28, narrow, build_histogram_comb(narrow, rng28, **kw))
+    rec["gpu"] = gpu
+    print("parity hist_comb wide " + json.dumps(rec), flush=True)
+    return rec
+
+
+def wide_phases(gpu: str) -> dict:
+    """Slice 9's repair: datasets above 19 features at B = 256 build their
+    histograms in feature chunks, so 136 features fit.  ``hist_comb`` at 1M x 136 bitwise its
+    plain version and timed; training parity at 50,000 x 136, card
+    against device="cpu", 3 trees, bit-identical; the main path,
+    ``make_higgs_like(1M, 136)``, 255 leaves, 3 iterations on the route
+    the rules give (unfused stream, PyTorch tail), counted exactly.
+    Returns {"hist": ..., "parity": ..., "main": ...}."""
+    import lightgbm_tpu_torch as lgt
+    hist = hist_comb_wide_case(gpu)
+    parity = train_parity(gpu, {}, PARITY_TREES, "wide dataset",
+                          bitwise=True, n_features=WIDE_FEATURES)
+    x_all, y_all = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS, WIDE_FEATURES,
+                                   seed=0)
+    x, y = x_all[:TRAIN_ROWS], y_all[:TRAIN_ROWS]
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(x, label=y, params={"max_bin": 255}).construct()
+    valid = lgt.Dataset(x_all[TRAIN_ROWS:], label=y_all[TRAIN_ROWS:],
+                        reference=ds).construct()
+    print(f"binned {TRAIN_ROWS} + {HOLDOUT_ROWS} rows x {WIDE_FEATURES} in "
+          f"{time.perf_counter() - t0:.2f} s at max_bin=255 (host)",
+          flush=True)
+    bst, main = train_main_path(gpu, ds, valid, x, {}, WIDE_ITERS,
+                                "main path, wide dataset",
+                                n_features=WIDE_FEATURES)
+    if main["route"] != WIDE_ROUTE:
+        raise RuntimeError(f"the wide dataset took {main['route']}, "
+                           f"expected {WIDE_ROUTE}")
+    return {"hist": hist, "parity": parity, "main": main}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2686,7 +2967,15 @@ def main() -> int:
     print(f"kernels built in {build_s:.2f} s", flush=True)
     fixtures = analysis_kernels(gpu)
     analysis = analysis_phase(gpu)
+    probes = probe_phases(gpu)
     kernels = [serve_phases(gpu, build_s)] + fixtures + train_phases(gpu)
+    wide = wide_phases(gpu)
+    comb = next(k for k in kernels if k["name"] == "hist_comb")
+    comb.update({f"wide_{k}": wide["hist"][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "feature_chunk")})
+    comb["wide_launches"] = wide["main"]["launches"]["build_histogram_comb"]
+    comb["wide_train_parity_bitwise"] = wide["parity"]["ok"]
+    kernels += probes
     if not analysis["checked_in_report_current"]:
         raise RuntimeError(
             "lightgbm_tpu_torch/analysis/resources_sm90a.txt is stale: copy "

@@ -7,14 +7,17 @@ address them: 1,000,000 rows x 28 features, u8 bins at B = 256 (the
 default, slice 2, 3ph and pack=2 routes) and u16 bins at B = 1024 (the
 row-order route), pack 1 (five arrays) and pack 2 (64-byte records), the
 split kernels on the 1M-row segment, the tails at B = 256, serving 100
-trees x 255 leaves over a 65,536-row bucket, and the fixture kernels at
-their legal geometries.  Nothing is allocated and nothing is launched.
+trees x 255 leaves over a 65,536-row bucket, ``hist_comb`` also at the
+wide edge (136 features in two chunks of 68), the fixture kernels at
+their legal geometries and the launch-cost probes at their tools'
+shapes.  Nothing is allocated and nothing is launched.
 """
 from __future__ import annotations
 
 from ..ops import apply_find as af
 from ..ops import fused_split as fs
 from ..ops import hist_kernel2 as hk
+from ..ops import probes as pr
 from ..ops import stream_grad as sg
 from ..ops.device_data import RecordLayout
 from ..ops.partition_kernel import SCAN_TILE
@@ -22,6 +25,8 @@ from .registry import (KernelEntry, register_kernel, register_purity_pin,
                        vec_arg)
 
 N, F, B, B_WIDE = 1_000_000, 28, 256, 1024
+# the wide dataset's features (MSLR-WEB30K's 136): hist_comb in chunks
+F_WIDE = 136
 TREES, LEAVES, BUCKET = 100, 255, 65_536
 REC = RecordLayout(F)
 S = REC.stride
@@ -99,7 +104,8 @@ def _serve():
 # -- histograms ---------------------------------------------------------------
 def _hist():
     nb = hk.hist_blocks(N)
-    smem = hk.comb_smem_bytes(F, B)
+    fc = hk.comb_feature_chunk(F, B)
+    smem = hk.comb_smem_bytes(fc, B)
     for pack, src, rows in ((1, "CombRows", _rows_args()[:2]),
                             (2, "CombRecords", (_records(),))):
         sfx = "_p2" if pack == 2 else ""
@@ -110,9 +116,10 @@ def _hist():
             args=rows + _hist_out(nb),
             wrapper=f"hist_kernel2.build_histogram_comb{sfx}",
             replaces=f"{PALLAS}/hist_kernel2.py:225",
-            export=("hist_comb_smem_bytes", (F, B))))
+            export=("hist_comb_smem_bytes", (fc, B))))
     _reduce("hist_comb", "hist_kernel2.build_histogram_comb",
             f"{PALLAS}/hist_kernel2.py:225", nb)
+    register_kernel(hist_comb_wide_entry())
     for bin_t, dtype, b in (("unsigned char", "uint8", B),
                             ("unsigned short", "uint16", B_WIDE)):
         width = 2 if dtype == "uint16" else 1
@@ -137,6 +144,25 @@ def _hist():
     _reduce("hist_rows", "hist_kernel2.build_histogram_rows",
             f"{PALLAS}/hist_kernel2.py:339", hk.rows_blocks(N, B_WIDE),
             b=B_WIDE)
+
+
+def hist_comb_wide_entry(fc: int = None) -> KernelEntry:
+    """``hist_comb`` at the wide edge, F = 136, B = 256: one block of
+    ``fc`` features (the wrapper's ``comb_feature_chunk``, 17, unless
+    given)."""
+    fc = hk.comb_feature_chunk(F_WIDE, B) if fc is None else fc
+    return KernelEntry(
+        name="hist_comb_wide", source="hist_comb",
+        symbol="hist_comb_partial<CombRows>", block=_block(THREADS),
+        dyn_smem=hk.comb_smem_bytes(fc, B),
+        args=(vec_arg("bins", "uint8", (N, F_WIDE), 1),
+              vec_arg("vals", "float32", (N, 3), 4),
+              vec_arg("partials", "float32",
+                      (hk.hist_blocks(N), F_WIDE, B, 2), 4),
+              vec_arg("out", "float32", (F_WIDE, B, 2), 4)),
+        wrapper="hist_kernel2.build_histogram_comb",
+        replaces=f"{PALLAS}/hist_kernel2.py:225",
+        export=("hist_comb_smem_bytes", (fc, B)))
 
 
 # -- partitions ---------------------------------------------------------------
@@ -288,6 +314,40 @@ def _stream():
     _reduce("stream_grad", "stream_grad.stream_refresh", f"{rep}:515", nb)
 
 
+# -- the launch-cost probes at their tools' shapes ----------------------------
+PROBE_ROWS = 1 << 20           # tools/profile_step_cost.py PN = 20
+TOOLS = "tools"
+
+
+def _probes():
+    register_kernel(KernelEntry(
+        name="select_update", source="probes", symbol="select_update_kernel",
+        grid=_grid(1), block=_block(256), dyn_smem=0,
+        args=(vec_arg("leafs", "float32", (pr.LEAVES, pr.COLS), 4),
+              vec_arg("sel", "float32", (pr.SEL,), 4)),
+        wrapper="probes.select_update",
+        replaces=f"{TOOLS}/profile_pallas_ov.py:40"))
+    nb = PROBE_ROWS // pr.TILE_ROWS
+    rows = vec_arg("rows", "float32", (PROBE_ROWS, pr.TILE_COLS), 16)
+    out = vec_arg("out", "int32", (1,), 4)
+    for code, var in enumerate(pr.VARIANTS):
+        register_kernel(KernelEntry(
+            name=f"step_cost_{var}", source="probes",
+            symbol=f"step_cost_kernel<(int){code}>", grid=_grid(nb),
+            block=_block(32), dyn_smem=pr.smem_bytes(var),
+            args=(vec_arg("sel", "int32", (2,), 4), rows, out),
+            wrapper="probes.step_cost",
+            replaces=f"{TOOLS}/profile_step_cost.py:86",
+            export=("probes_smem_bytes", (code,))))
+    register_kernel(KernelEntry(
+        name="stream_tiles", source="probes", symbol="stream_tiles_kernel",
+        grid=_grid(nb), block=_block(32),
+        dyn_smem=pr.smem_bytes("stream_tiles"), args=(rows, out),
+        wrapper="probes.stream_tiles",
+        replaces=f"{TOOLS}/profile_step_cost.py:52",
+        export=("probes_smem_bytes", (len(pr.VARIANTS),))))
+
+
 # -- the analyzer's fixture kernels at their legal geometries ---------------
 # (name, dtype, classes, rows, cols, copied rows, JAX fixture)
 FIXTURE_STAGE_LEGAL = (
@@ -346,7 +406,7 @@ def _fixture_kernels():
 
 
 for _register in (_serve, _hist, _partition, _fused, _apply_find, _stream,
-                  _fixture_kernels):
+                  _probes, _fixture_kernels):
     _register()
 
 

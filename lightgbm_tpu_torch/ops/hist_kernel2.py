@@ -7,7 +7,11 @@ path.
 ``build_histogram_comb_dyn`` in
 ``lightgbm_tpu/ops/pallas/hist_kernel2.py``: the (sum g*w, sum h*w)
 histogram ``[F, B, 2]`` f32 of row-matrix rows
-``[start + off, start + off + count)``.  ``rng`` is an i32 ``[3]``
+``[start + off, start + off + count)``.  Above
+:func:`comb_feature_chunk` features (18 at B = 256) a block histograms
+one chunk of the features, so that five blocks share an SM and wide
+datasets (MSLR-WEB30K's 136 features) fit; the bits do not depend on
+the chunking.  ``rng`` is an i32 ``[3]``
 tensor ``(start, off, count)`` on the rows' device, so a range the
 device computed (the smaller child of a split) needs no host read; the
 caller passes ``max_rows``, an upper bound on ``count`` that sizes the
@@ -55,6 +59,13 @@ ROWS_PER_BLOCK = 4096
 MAX_BLOCKS = 2 * 132
 # rows a histogram block stages per step (csrc/hist_block.cuh kChunk)
 HIST_CHUNK = 256
+# shared memory of one SM on the H100 (233,472 bytes), of which the
+# system reserves 1 KB for each resident block
+SM_SMEM = 233472
+BLOCK_RESERVED_SMEM = 1024
+# comb-direct blocks sized to share an SM: fewer, larger feature chunks
+# left its warps idle (chip_smoke.py's hist_comb chunk sweep, PERF.md)
+COMB_BLOCKS_PER_SM = 5
 
 
 def comb_smem_bytes(f: int, padded_bins: int, bin_bytes: int = 1) -> int:
@@ -62,6 +73,23 @@ def comb_smem_bytes(f: int, padded_bins: int, bin_bytes: int = 1) -> int:
     the library's ``hist_comb_smem_bytes``): the ``[F, B, 2]`` f32
     histogram, then per staged row (g*w, h*w) and the bins."""
     return f * padded_bins * 8 + HIST_CHUNK * (8 + f * bin_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def comb_feature_chunk(f: int, padded_bins: int) -> int:
+    """Features one comb-direct block histograms: the most whose
+    blocks fit ``COMB_BLOCKS_PER_SM`` to an SM (18 at B = 256), balanced
+    over the chunks, ``ceil(F / ceil(F / most))`` (F = 28: two chunks of
+    14; F = 136: eight of 17).  ``F`` itself at or below the most: one
+    chunk.  Raises where not one feature fits a block."""
+    budget = SM_SMEM // COMB_BLOCKS_PER_SM - BLOCK_RESERVED_SMEM
+    most = max(1, (budget - HIST_CHUNK * 8)
+               // (int(padded_bins) * 8 + HIST_CHUNK))
+    if comb_smem_bytes(most, padded_bins) > MAX_SMEM:
+        raise LightGBMError(f"a histogram of {padded_bins} bins per feature "
+                            "does not fit one block's shared memory")
+    chunks = -(-int(f) // most)
+    return -(-int(f) // chunks)
 
 
 def hist_blocks(max_rows: int) -> int:
@@ -108,9 +136,9 @@ def build_histogram_comb_ref(rows: Rows, rng: torch.Tensor, *,
 def _lib():
     lib = _build.load("hist_comb")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hist_comb.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.hist_comb.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.hist_comb.restype = i
-    lib.hist_comb_p2.argtypes = [p, i, i] + [p] * 3 + [i] * 4 + [p]
+    lib.hist_comb_p2.argtypes = [p, i, i] + [p] * 3 + [i] * 5 + [p]
     lib.hist_comb_p2.restype = i
     lib.hist_comb_smem_bytes.argtypes = [i, i]
     lib.hist_comb_smem_bytes.restype = i
@@ -124,17 +152,15 @@ def _check_rng(rng: torch.Tensor, dev) -> None:
                             "(start, off, count) on the rows' device")
 
 
-def _comb_buffers(lib, f: int, padded_bins: int, max_rows: int, dev):
-    """(nblocks, partials, out) of one comb-direct launch, after the
-    shared-memory check."""
-    if lib.hist_comb_smem_bytes(f, padded_bins) > MAX_SMEM:
-        raise LightGBMError(f"histogram of {f} features x {padded_bins} "
-                            "bins does not fit one block's shared memory")
+def _comb_buffers(f: int, padded_bins: int, max_rows: int, dev):
+    """(fc, nblocks, partials, out) of one comb-direct launch: the
+    features per block (raises where not one fits) and the buffers."""
+    fc = comb_feature_chunk(f, padded_bins)
     nblocks = hist_blocks(max_rows)
     partials = torch.empty((nblocks, f, padded_bins, 2), dtype=torch.float32,
                            device=dev)
     out = torch.empty((f, padded_bins, 2), dtype=torch.float32, device=dev)
-    return nblocks, partials, out
+    return fc, nblocks, partials, out
 
 
 def build_histogram_comb(rows: Rows, rng: torch.Tensor, *, padded_bins: int,
@@ -158,14 +184,14 @@ def build_histogram_comb(rows: Rows, rng: torch.Tensor, *, padded_bins: int,
                             "f32 vals [n, 3]")
     _check_rng(rng, dev)
     lib = _lib()
-    nblocks, partials, out = _comb_buffers(lib, f, padded_bins, max_rows,
-                                           dev)
+    fc, nblocks, partials, out = _comb_buffers(f, padded_bins, max_rows,
+                                               dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.hist_comb(rows.bins.data_ptr(), rows.vals.data_ptr(),
                            rng.data_ptr(), partials.data_ptr(),
-                           out.data_ptr(), n, f, int(padded_bins), nblocks,
-                           stream)
+                           out.data_ptr(), n, f, int(padded_bins), fc,
+                           nblocks, stream)
     if rc != 0:
         raise LightGBMError(f"hist_comb kernel launch failed with CUDA "
                             f"error {rc}")
@@ -204,13 +230,13 @@ def build_histogram_comb_p2(rows: PackedRows, rng: torch.Tensor, *,
     lib = _lib()
     n, lay = rows.buf.shape[0], rows.layout
     f = lay.num_features
-    nblocks, partials, out = _comb_buffers(lib, f, padded_bins, max_rows,
-                                           dev)
+    fc, nblocks, partials, out = _comb_buffers(f, padded_bins, max_rows,
+                                               dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.hist_comb_p2(rows.buf.data_ptr(), lay.stride, lay.fb,
                               rng.data_ptr(), partials.data_ptr(),
-                              out.data_ptr(), n, f, int(padded_bins),
+                              out.data_ptr(), n, f, int(padded_bins), fc,
                               nblocks, stream)
     if rc != 0:
         raise LightGBMError(f"hist_comb_p2 kernel launch failed with CUDA "

@@ -21,7 +21,11 @@ fixture kernels (slice 8) bitwise their plain versions at their legal
 geometries, their seeded geometries refused before a launch, the
 resource report read fresh from the built libraries equal to the
 checked-in ``analysis/resources_sm90a.txt``, and the analyzer clean
-under ``--strict`` with the fixtures flagged.
+under ``--strict`` with the fixtures flagged.  The launch-cost probes
+(slice 9) bitwise or exactly their plain versions (``select_update``
+also through a replayed CUDA graph); ``hist_comb`` at 79, 80 and 136
+features bitwise its plain version, one feature chunk against several,
+and 136-feature training bit-identical to the CPU run.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
 row-order and 3ph routes), and the default route's equal slice 2's
@@ -508,3 +512,119 @@ def test_analyzer_strict_on_the_card(cuda):
                           fixtures=["bad_lane", "bad_vmem"])
     assert {f.code for f in seeded.findings if f.fixture} == (
         fx.EXPECTED["bad_lane"] | fx.EXPECTED["bad_vmem"])
+
+
+# -- slice 9: wide datasets and the launch-cost probes ------------------------
+@pytest.mark.parametrize("state", ["tool", "normal", "ties", "big"])
+def test_select_update_bitwise_eager_c_loop_and_graph(cuda, state):
+    """254 select_updates from one seeded state: through the wrapper,
+    from C and as a replayed CUDA graph, each bitwise 254 plain calls."""
+    from chip_smoke import probe_states
+    from lightgbm_tpu_torch.ops import probes
+    from lightgbm_tpu_torch.tools import profile_pallas_ov as ov
+    before = probes.select_update.launches
+    rec = ov.check(torch.from_numpy(probe_states()[state]).to(cuda))
+    assert rec["eager"] and rec["c_loop"] and rec["graph"], rec
+    # eager and C loop launch N each, the graph counts at its capture
+    assert probes.select_update.launches == before + 3 * ov.N
+
+
+@pytest.mark.parametrize("var", ["empty", "smemrw", "dma_nw", "dma_bs",
+                                 "waits"])
+@pytest.mark.parametrize("blocks", [1, 37, 2048])
+def test_step_cost_and_stream_tiles_exact(cuda, var, blocks):
+    from lightgbm_tpu_torch.ops import probes
+    from lightgbm_tpu_torch.tools import profile_step_cost as sc
+    rows = sc.make_rows(probes.TILE_ROWS * blocks, cuda, seed=blocks)
+    got = sc.kernel(var)(rows)
+    again = sc.kernel(var)(rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc.plain(var)(rows))
+    assert torch.equal(got.cpu(), sc.plain(var)(rows.cpu()))
+    assert torch.equal(got, again)
+
+
+def test_step_cost_wraps_on_the_card(cuda):
+    from lightgbm_tpu_torch.ops import probes
+    rows = torch.zeros((probes.TILE_ROWS * 3, probes.TILE_COLS),
+                       device=cuda)
+    rows[::probes.TILE_ROWS, 0] = 2.0 ** 30
+    sel = torch.tensor([2 ** 31 - 2, -7], dtype=torch.int32, device=cuda)
+    for got, want in ((probes.stream_tiles(rows), probes.stream_tiles_ref(
+            rows)), (probes.step_cost("smemrw", rows, sel),
+                     probes.step_cost_ref("smemrw", rows, sel)),
+            (probes.step_cost("waits", rows, sel),
+             probes.step_cost_ref("waits", rows, sel))):
+        assert torch.equal(got, want), (got, want)
+
+
+def _comb_case(cuda, f: int, fc=None, monkeypatch=None, n: int = 30_000):
+    from lightgbm_tpu_torch.ops import hist_kernel2 as hk
+    arrays = random_row_matrix(n, f, 13)
+    rows, rows_cpu = rows_on(arrays, cuda), rows_on(arrays, "cpu")
+    rng = (17, 5, n - 100)
+    if fc is not None:
+        monkeypatch.setattr(hk, "comb_feature_chunk", lambda f_, b_: fc)
+    got = hk.build_histogram_comb(
+        rows, torch.tensor(rng, dtype=torch.int32, device=cuda),
+        padded_bins=256, max_rows=n)
+    want = hk.build_histogram_comb_ref(
+        rows_cpu, torch.tensor(rng, dtype=torch.int32), padded_bins=256,
+        max_rows=n)
+    torch.cuda.synchronize()
+    return got.cpu(), want
+
+
+@pytest.mark.parametrize("f", [79, 80, 136])
+def test_hist_comb_wide_bitwise_plain(cuda, f):
+    from chip_smoke import torch_equal
+    got, want = _comb_case(cuda, f)
+    assert torch_equal(got, want)
+
+
+@pytest.mark.parametrize("f,fc_a,fc_b", [(80, 80, 40), (79, 79, 27),
+                                         (136, 68, 45)])
+def test_hist_comb_chunks_give_the_same_bits(cuda, monkeypatch, f, fc_a,
+                                             fc_b):
+    """One chunk against several (a single chunk of 80 features fits
+    232,448 bytes, far above the fifth of it the wrapper keeps to)."""
+    from chip_smoke import torch_equal
+    a, _ = _comb_case(cuda, f, fc_a, monkeypatch)
+    b, want = _comb_case(cuda, f, fc_b, monkeypatch)
+    assert torch_equal(a, b) and torch_equal(a, want)
+
+
+def test_hist_comb_p2_chunked_bitwise_pack1(cuda, monkeypatch):
+    """The record instantiation over feature chunks (every pack=2 layout
+    above 19 features, F = 28 included): the pack=1 kernel's bits."""
+    from chip_smoke import torch_equal
+    from lightgbm_tpu_torch.ops import hist_kernel2 as hk
+    from lightgbm_tpu_torch.ops.device_data import pack_rows
+    f, n = 40, 20_000
+    rows = rows_on(random_row_matrix(n, f, 21), cuda)
+    packed = pack_rows(rows)
+    rng = torch.tensor([0, 3, n - 3], dtype=torch.int32, device=cuda)
+    one = hk.build_histogram_comb(rows, rng, padded_bins=256, max_rows=n)
+    monkeypatch.setattr(hk, "comb_feature_chunk", lambda f_, b_: 13)
+    chunked = hk.build_histogram_comb_p2(packed, rng, padded_bins=256,
+                                         max_rows=n)
+    torch.cuda.synchronize()
+    assert torch_equal(one, chunked)
+
+
+def test_wide_training_on_card_matches_cpu(cuda):
+    """3,000 x 136, 15 leaves, 3 trees on the route the rules give (the
+    unfused stream route with the PyTorch tail): bit-identical to the
+    CPU run."""
+    x = make_rows(3000, 136, 5)
+    _, y = make_higgs_like(3000, 136, 5)
+    p = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
+    a = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                  device="cuda")
+    b = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
+                  device="cpu")
+    assert a._inner.grow.route.describe() == (
+        "path=stream fused=0 tail=xla (fused_smem, tail_smem)")
+    res = compare_trees(a._models, b._models)
+    assert res["ok"], res
+    assert leaves_bitwise(a._models, b._models)
