@@ -95,14 +95,22 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    version's), then ``select_update`` bitwise its plain version after
    254 eager launches, 254 from C and a graph replay from four seeded
    states;
-9. wide datasets (slice 9): ``hist_comb`` at 1,000,000 x 136 u8 bins,
+9. the partition-bisection probes (slice 10, TPU rows T1-T8): every
+   scenario of ``lightgbm_tpu_torch.tools.profile_legacy`` at its
+   default shape (``part2`` at 2^21 rows), counted with the counts zeroed
+   before and read after, each kernel output bitwise its plain version
+   on the card, timed eager and as a replayed CUDA graph; then the
+   adversarial in-place inputs (a first block keeping nothing, one kept
+   row a block, T = 512 k and 512 k +- 1, an odd s0 and cnt) and T8 on
+   overlapping windows, bitwise their plain versions;
+10. wide datasets (slice 9): ``hist_comb`` at 1,000,000 x 136 u8 bins,
    B = 256, in two feature chunks, bitwise its plain version run on CPU
    copies and timed beside its byte bound and ``index_add_``; training
    parity at 50,000 x 136, card against device="cpu", 3 trees,
    bit-identical; 3 iterations of ``make_higgs_like(1M, 136)`` with 255
    leaves on the unfused stream route with the PyTorch tail, counted
    exactly;
-10. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+11. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times, then the device line last.
 
 The forests and rows are generated from seeds: the card's machine has
@@ -2826,6 +2834,155 @@ def probe_phases(gpu: str) -> list:
     return recs
 
 
+# -- slice 10: the partition-bisection probes of tools/profile_legacy.py -------
+LEGACY_SRC = "lightgbm_tpu_torch/csrc/legacy_probes.cu"
+LEGACY_REPS = 10              # calls a timing and chained calls a graph
+# scenario -> (n, variants); part2 at 2^21 rather than 2^22 for time
+LEGACY_RUNS = (("part2", 1 << 21, None), ("part3", None, None),
+               ("part4", None, None), ("part5", None, None),
+               ("part6", None, None),
+               ("part7", None, ("nosmem", "deadsel", "scratchthr", "smem",
+                                "noalias", "hbmsel")),
+               ("part8", None, None), ("pool", None, None),
+               ("pool2", None, None), ("hbm_alias", None, None))
+# (TPU row, record name, scenario, the variants it covers, the timed one,
+# file:line of the pallas_call)
+LEGACY_ROWS = (
+    ("T1", "block_copy", "part3", ("copy", "copy3"), "copy", 150),
+    ("T2", "partition_dense", "part3", ("scan", "scan2", "full"), "scan2",
+     172),
+    ("T3", "compact_part4", "part4", None, "base", 369),
+    ("T4", "compact_part5", "part5", None, "pred", 467),
+    ("T5", "compact_prefetch", "part6", ("prefetch",), "prefetch", 562),
+    ("T6", "compact_part6", "part6", ("nosmem", "smem", "smemuse"), "nosmem",
+     577),
+    ("T7", "compact_part7", "part7", None, "nosmem", 686),
+    ("T8", "hbm_alias_step", "hbm_alias", None, None, 898))
+LEGACY_ADVERSARIAL_N = 1 << 19
+# T8's overlapping windows: dst > src and dst < src within 1024 rows
+ALIAS_OVERLAPS = ((100, 612), (612, 100), (3, 1026), (64512, 64000))
+
+
+def legacy_adversarial(gpu: str) -> dict:
+    """The in-place compaction, nsplit, noalias and the three-phase
+    partition on the adversarial inputs of ``profile_legacy`` at 2^19
+    rows, and the script's descriptor moved to an odd s0 and cnt; T8 on
+    overlapping windows: each bitwise its plain version on the card."""
+    from lightgbm_tpu_torch.tools import profile_legacy as tl
+    n = LEGACY_ADVERSARIAL_N
+    out = {}
+    cases = (("compact", "nosmem"), ("compact", "pred"),
+             ("compact", "nsplit"), ("compact", "noalias"),
+             ("compact", "grid2"), ("partition_dense", 3))
+    for kind in tl.ADVERSARIAL:
+        rows = tl.adversarial_rows(kind, n, n + 2 * tl.R, "cuda")
+        for sel in (tl.script_sel(n), [37, n - 1001] + tl.script_sel(n)[2:]):
+            inp = tl.Inputs(rows, sel, n, scratch_fill=-1.0)
+            for kernel, arg in cases:
+                rec = tl.check(kernel, arg, inp)
+                out[f"{kind} s0={sel[0]} {kernel}<{arg}>"] = rec["ok"]
+            del inp
+    for src, dst in ALIAS_OVERLAPS:
+        out[f"hbm_alias {src}->{dst}"] = tl.alias_check([(src, dst)],
+                                                          "cuda")
+    bad = [k for k, ok in out.items() if not ok]
+    print("parity legacy adversarial " + json.dumps(
+        {"cases": len(out), "failed": bad}) + f" [{gpu}]", flush=True)
+    if bad:
+        raise RuntimeError(f"legacy probes differ from their plain versions "
+                           f"on {bad}")
+    return out
+
+
+def legacy_phases(gpu: str) -> list:
+    """Slice 10: the partition-bisection probes (TPU rows T1-T8).  Their
+    path, every scenario of ``lightgbm_tpu_torch.tools.profile_legacy``
+    at its default shape (``part2`` at 2^21 rows, ``part7`` with
+    ``noalias`` and ``hbmsel``), runs with the counts zeroed just before
+    and read just after, each kernel output held bitwise against its
+    plain version on the card before it is timed; then the adversarial
+    inputs (not counted).  Returns one record per TPU row."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import legacy_probes as lp
+    from lightgbm_tpu_torch.tools import profile_legacy as tl
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    for fn in lp.COUNTED:
+        fn.launches = 0
+    runs, expected = {}, dict.fromkeys(tl.KERNELS, 0)
+    for scenario, n, variants in LEGACY_RUNS:
+        def log(line, tag=scenario):
+            print(f"legacy {tag} {line} [{gpu}]", flush=True)
+        runs[scenario] = tl.run(scenario, "cuda", n=n, reps=LEGACY_REPS,
+                                variants=variants, log=log)
+        for k, v in runs[scenario]["expected_launches"].items():
+            expected[k] += v
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in lp.COUNTED}
+    if launches != expected:
+        raise RuntimeError(f"the legacy probes counted {launches}, expected "
+                           f"{expected}")
+    for scenario, res in runs.items():
+        print(f"legacy {scenario} " + json.dumps(res), flush=True)
+    adversarial = legacy_adversarial(gpu)
+
+    recs = []
+    for row, name, scenario, covers, timed, line in LEGACY_ROWS:
+        res = runs[scenario]
+        if scenario == "hbm_alias":
+            r = res["rows"][0]
+            comb = torch.from_numpy(tl.alias_matrix()).cuda()
+            plain_ms = _time_ms(lambda: lp.hbm_alias_step_ref(comb, 0, 0),
+                                20)
+            lib_ms = _time_ms(lambda: torch.add(
+                comb[:lp.ALIAS_ROWS], 1.0,
+                out=comb[2 * lp.ALIAS_ROWS:3 * lp.ALIAS_ROWS]), 20)
+            recs.append(_kernel_record(
+                name, LEGACY_SRC, f"tools/profile_legacy.py:{line}",
+                res["launches"]["hbm_alias_step"], 0.0, r["ms"], plain_ms,
+                r["bound_bytes"], lp.ALIAS_ROWS * lp.C, gpu,
+                library_ms=lib_ms,
+                library_call="torch.add(comb[0:1024], 1, out=comb[2048:"
+                             "3072]), windows apart", tpu_row=row,
+                graph_ms=r.get("graph_ms"), single_ok=r["single_ok"],
+                chain_ok=r["chain_ok"], overlaps_ok=all(
+                    v for k, v in adversarial.items()
+                    if k.startswith("hbm_alias"))))
+            continue
+        rows = [r for r in res["rows"]
+                if covers is None or r["variant"] in covers]
+        t = next(r for r in rows if r["variant"] == timed)
+        n_alloc = tl.n_alloc_of(scenario, timed, t["n"])
+        inp = tl.Inputs(tl.make_rows(n_alloc, "cuda"), tl.script_sel(t["n"]),
+                        t["n"])
+        plain_ms = _time_ms(lambda: tl.apply(t["kernel"], t["arg"], inp,
+                                             plain=True), 3)
+        lib_ms, lib_call = None, None
+        if t["kernel"] == "block_copy":
+            m = t["n"]
+            lib_ms = _time_ms(lambda: inp.scratch[:m].copy_(inp.rows[:m]),
+                              20)
+            lib_call = "Tensor.copy_ of the first n rows"
+        del inp
+        recs.append(_kernel_record(
+            name, LEGACY_SRC, f"tools/profile_legacy.py:{line}",
+            sum(r["launches"] for r in rows), 0.0, t["ms"], plain_ms,
+            t["bound_bytes"], t["n_alloc"], gpu, library_ms=lib_ms,
+            library_call=lib_call, tpu_row=row, graph_ms=t.get("graph_ms"),
+            timed_case=f"{scenario} {timed}, n = {t['n']}",
+            variants={r["variant"]: {k: r.get(k) for k in (
+                "ms", "graph_ms", "bound_ms", "us_per_block", "launches")}
+                for r in rows}))
+    for r in recs:
+        if r["launches"] <= 0:
+            raise RuntimeError(f"{r['name']} was not launched on its path")
+    print("legacy records " + json.dumps(recs), flush=True)
+    print(f"legacy phase took {time.perf_counter() - t0:.1f} s (host clock, "
+          f"row generation included) [{gpu}]", flush=True)
+    return recs
+
+
 @contextlib.contextmanager
 def comb_chunk(fc: int):
     """``hist_comb`` launched with ``fc`` features a block inside the
@@ -2967,7 +3124,7 @@ def main() -> int:
     print(f"kernels built in {build_s:.2f} s", flush=True)
     fixtures = analysis_kernels(gpu)
     analysis = analysis_phase(gpu)
-    probes = probe_phases(gpu)
+    probes = probe_phases(gpu) + legacy_phases(gpu)
     kernels = [serve_phases(gpu, build_s)] + fixtures + train_phases(gpu)
     wide = wide_phases(gpu)
     comb = next(k for k in kernels if k["name"] == "hist_comb")

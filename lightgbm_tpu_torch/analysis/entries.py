@@ -9,14 +9,17 @@ row-order route), pack 1 (five arrays) and pack 2 (64-byte records), the
 split kernels on the 1M-row segment, the tails at B = 256, serving 100
 trees x 255 leaves over a 65,536-row bucket, ``hist_comb`` also at the
 wide edge (136 features in two chunks of 68), the fixture kernels at
-their legal geometries and the launch-cost probes at their tools'
-shapes.  Nothing is allocated and nothing is launched.
+their legal geometries, the launch-cost probes at their tools'
+shapes and the partition-bisection probes at ``profile_legacy``'s
+(2^20 rows, the ``hbm_alias`` comb).  Nothing is allocated and
+nothing is launched.
 """
 from __future__ import annotations
 
 from ..ops import apply_find as af
 from ..ops import fused_split as fs
 from ..ops import hist_kernel2 as hk
+from ..ops import legacy_probes as lp
 from ..ops import probes as pr
 from ..ops import stream_grad as sg
 from ..ops.device_data import RecordLayout
@@ -348,6 +351,82 @@ def _probes():
         export=("probes_smem_bytes", (len(pr.VARIANTS),))))
 
 
+# -- the partition-bisection probes at their tool's shapes --------------------
+LEGACY_N = 1 << 20             # tools/profile_legacy.py PN = 20 (part3-5)
+LEGACY_ALLOC = LEGACY_N + 2 * lp.R
+
+
+def _legacy_rows(*names, n: int = LEGACY_ALLOC):
+    return tuple(vec_arg(a, "float32", (n, lp.C), 16) for a in names)
+
+
+def _legacy_probes():
+    nb = LEGACY_N // lp.R
+    tiles = LEGACY_N // lp.TILE
+    ints = lambda name, k: vec_arg(name, "int32", (k,), 4)  # noqa: E731
+    legacy = "legacy_probes"
+    src = f"{TOOLS}/profile_legacy.py"
+    for phases in (1, 3):
+        register_kernel(KernelEntry(
+            name=f"legacy_block_copy{'3' if phases == 3 else ''}",
+            source=legacy, symbol=f"block_copy<(int){phases}>",
+            grid=(nb, phases, 1), block=_block(32),
+            dyn_smem=lp.smem_bytes("block_copy"),
+            args=_legacy_rows("rows", "scratch"),
+            wrapper="legacy_probes.block_copy", replaces=f"{src}:150",
+            export=("legacy_smem_bytes", (0,))))
+    dense = "legacy_probes.partition_dense"
+    register_kernel(KernelEntry(
+        name="legacy_dense_left_count", source=legacy,
+        symbol="dense_left_count", grid=_grid(tiles), block=_block(lp.TILE),
+        dyn_smem=0, args=_legacy_rows("rows") + (ints("tile_cnt", tiles),),
+        wrapper=dense, replaces=f"{src}:172"))
+    register_kernel(KernelEntry(
+        name="legacy_tile_scan", source=legacy, symbol="tile_scan",
+        grid=_grid(1), block=_block(1024), dyn_smem=0,
+        args=(ints("cnt", tiles), ints("pre", tiles), ints("total", 1)),
+        wrapper=dense, replaces=f"{src}:172"))
+    for phases in (1, 2):
+        register_kernel(KernelEntry(
+            name=f"legacy_dense_scatter{phases}", source=legacy,
+            symbol=f"dense_scatter<(int){phases}>", grid=_grid(tiles),
+            block=_block(lp.TILE), dyn_smem=0,
+            args=_legacy_rows("rows", "scratch"), wrapper=dense,
+            replaces=f"{src}:172"))
+    register_kernel(KernelEntry(
+        name="legacy_dense_copy_span", source=legacy,
+        symbol="dense_copy_span", block=_block(256), dyn_smem=0,
+        args=_legacy_rows("rows", "scratch"), wrapper=dense,
+        replaces=f"{src}:172"))
+    # part4 :369, part5 :467, part6 :562 (prefetch) / :577, part7 :686
+    line = dict.fromkeys(("nosmem", "grid2", "smem_full", "alias2",
+                          "nsplit"), 369)
+    line.update(dict.fromkeys(("selread", "when", "dynoff", "pred"), 467))
+    line.update(smemuse=577, prefetch=562)
+    line.update(dict.fromkeys(("deadsel", "scratchthr", "smem_thr",
+                               "noalias", "hbmsel"), 686))
+    for code, mech in enumerate(lp.MECHS):
+        grid = (1, tiles, 1) if 1 <= code <= 4 else _grid(tiles)
+        in_place = mech not in lp.TO_SCRATCH and mech != "noalias"
+        args = _legacy_rows("rows", "out") + (
+            vec_arg("sel", "int32", (8,), 16),)
+        for step in ("count", "move"):
+            smem = lp.smem_bytes("compact_move") if (
+                step == "move" and in_place) else 0
+            register_kernel(KernelEntry(
+                name=f"legacy_compact_{step}_{mech}", source=legacy,
+                symbol=f"compact_carry<(int){code}>", grid=grid,
+                block=_block(lp.TILE), dyn_smem=smem, args=args,
+                wrapper="legacy_probes.compact",
+                replaces=f"{src}:{line[mech]}",
+                export=("legacy_smem_bytes", (1,)) if smem else None))
+    register_kernel(KernelEntry(
+        name="legacy_hbm_alias_step", source=legacy,
+        symbol="hbm_alias_step", grid=_grid(8), block=_block(512),
+        dyn_smem=0, args=_legacy_rows("comb", n=lp.ALIAS_N),
+        wrapper="legacy_probes.hbm_alias_step", replaces=f"{src}:898"))
+
+
 # -- the analyzer's fixture kernels at their legal geometries ---------------
 # (name, dtype, classes, rows, cols, copied rows, JAX fixture)
 FIXTURE_STAGE_LEGAL = (
@@ -406,7 +485,7 @@ def _fixture_kernels():
 
 
 for _register in (_serve, _hist, _partition, _fused, _apply_find, _stream,
-                  _probes, _fixture_kernels):
+                  _probes, _legacy_probes, _fixture_kernels):
     _register()
 
 

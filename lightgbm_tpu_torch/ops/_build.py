@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("serve_traverse", "hist_comb", "partition", "stream_grad",
            "fused_split", "apply_find", "hist_rows", "partition_3ph",
-           "analysis_fixtures", "probes")
+           "analysis_fixtures", "probes", "legacy_probes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per-source flags added to NVCC_FLAGS

@@ -628,3 +628,112 @@ def test_wide_training_on_card_matches_cpu(cuda):
     res = compare_trees(a._models, b._models)
     assert res["ok"], res
     assert leaves_bitwise(a._models, b._models)
+
+
+# -- slice 10: the partition-bisection probes -----------------------------------
+LEGACY_N = 1 << 14
+
+
+def _legacy_cases():
+    from lightgbm_tpu_torch.tools import profile_legacy as tl
+    return sorted(tl.CASES)
+
+
+@pytest.mark.parametrize("scenario,var", _legacy_cases())
+def test_legacy_kernels_bitwise_plain(cuda, scenario, var):
+    """Every case of the tool at 2^14 rows, on the script's descriptor
+    and on an odd s0 and cnt, bitwise its plain version on the card and
+    on CPU copies."""
+    from lightgbm_tpu_torch.tools import profile_legacy as tl
+    n = LEGACY_N
+    n_alloc = tl.n_alloc_of(scenario, var, n)
+    kernel, arg = tl.CASES[(scenario, var)]
+    odd = [37, n - 1001] + tl.script_sel(n)[2:]
+    for sel in (tl.script_sel(n), odd):
+        if sel is odd and n_alloc == n:
+            sel = [0, n - 1001, 3, 100, 1, 0, -1, 0]
+        rows = tl.make_rows(n_alloc, cuda, seed=3)
+        inp = tl.Inputs(rows, sel, n, scratch_fill=-1.0)
+        assert tl.check(kernel, arg, inp)["ok"]
+        got = tl.apply(kernel, arg, inp)
+        cpu = tl.Inputs(rows.cpu(), sel, n, scratch_fill=-1.0)
+        want = tl.apply(kernel, arg, cpu, plain=True)
+        torch.cuda.synchronize()
+        for key in ("rows", "scratch"):
+            if not (kernel == "compact" and arg == "noalias"
+                    and key == "scratch"):
+                assert torch.equal(got[key].cpu(), want[key]), key
+
+
+@pytest.mark.parametrize("kind", ["late", "early", "one_per_block", "whole",
+                                  "whole_plus1", "whole_minus1"])
+@pytest.mark.parametrize("kernel,arg", [
+    ("compact", "nosmem"), ("compact", "grid2"), ("compact", "dynoff"),
+    ("compact", "pred"), ("compact", "hbmsel"), ("compact", "nsplit"),
+    ("compact", "noalias"), ("partition_dense", 1),
+    ("partition_dense", 3)])
+def test_legacy_adversarial_in_place(cuda, kind, kernel, arg):
+    """Adversarial inputs at 2^19 rows (4,096 tiles racing): a first
+    block keeping nothing and the rest everything, the reverse, one kept
+    row a block, T = 512 k and 512 k +- 1, bitwise the plain version."""
+    from lightgbm_tpu_torch.tools import profile_legacy as tl
+    n = 1 << 19
+    rows = tl.adversarial_rows(kind, n, n + 2 * tl.R, cuda)
+    for sel in (tl.script_sel(n), [37, n - 1001] + tl.script_sel(n)[2:]):
+        inp = tl.Inputs(rows, sel, n, scratch_fill=-1.0)
+        assert tl.check(kernel, arg, inp)["ok"], (kind, sel[:2])
+
+
+@pytest.mark.parametrize("src,dst", [(100, 612), (612, 100), (3, 1026),
+                                     (64512, 64000), (12345, 54321),
+                                     (0, 0)])
+def test_hbm_alias_step_overlaps(cuda, src, dst):
+    from lightgbm_tpu_torch.tools import profile_legacy as tl
+    assert tl.alias_check([(src, dst)], cuda)
+
+
+def test_hbm_alias_chain_and_graph(cuda):
+    """The while-loop's 8 chained steps eagerly and as a replayed CUDA
+    graph, bitwise the numpy recurrence; the graph counts its launches at
+    capture."""
+    from lightgbm_tpu_torch.ops import legacy_probes as lp
+    from lightgbm_tpu_torch.tools import profile_legacy as tl
+    from lightgbm_tpu_torch.tools import profile_lib
+    assert tl.alias_check(tl.CHAIN, cuda)
+    x = tl.alias_matrix()
+    comb = torch.tensor(x, device=cuda)
+    before = lp.hbm_alias_step.launches
+    graph = profile_lib.capture(
+        lambda: [lp.hbm_alias_step(comb, s, d) for s, d in tl.CHAIN],
+        warmup=0)
+    assert lp.hbm_alias_step.launches == before + len(tl.CHAIN)
+    comb.copy_(torch.from_numpy(x))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = tl.alias_steps_numpy(x, tl.CHAIN)
+    assert torch.equal(comb.cpu(), torch.from_numpy(want))
+    assert lp.hbm_alias_step.launches == before + len(tl.CHAIN)
+
+
+@pytest.mark.parametrize("mech", ["nosmem", "nsplit", "prefetch"])
+def test_compact_in_a_graph(cuda, mech):
+    """A captured compaction replays bitwise the eager one."""
+    from lightgbm_tpu_torch.ops import legacy_probes as lp
+    from lightgbm_tpu_torch.tools import profile_legacy as tl
+    from lightgbm_tpu_torch.tools import profile_lib
+    n = LEGACY_N
+    inp = tl.Inputs(tl.make_rows(n + 1024, cuda, seed=5), tl.script_sel(n),
+                    n)
+    eager = tl.apply("compact", mech, inp)
+    eager = {k: v.clone() for k, v in eager.items()
+             if isinstance(v, torch.Tensor)}
+    inp.reset()
+    out = {}
+    graph = profile_lib.capture(
+        lambda: out.update(tl.apply("compact", mech, inp)), warmup=0)
+    inp.reset()
+    graph.replay()
+    torch.cuda.synchronize()
+    for k, v in eager.items():
+        assert torch.equal(out[k], v), k
+    assert lp.compact.launches > 0
