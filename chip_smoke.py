@@ -57,12 +57,18 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the row-order route (slice 4) at ``max_bin=1023`` for 10 iterations
    and under ``LGBM_TPU_PHYS=0`` at ``max_bin=255`` for 3, counted the
    same way (``hist_rows`` once per tree and per split), the latter's
-   trees printed beside the default route's; the 3ph route (slice 5,
-   ``LGBM_TPU_PART=3ph``) for 3 iterations (``partition_3ph`` once per
-   split, ``hist_comb`` per tree and per split, the plain refresh per
-   tree), its trees printed beside the default route's, and
-   ``LGBM_TPU_POOL_TAIL=0`` for 2 (``apply_find`` once per split), its
-   trees held against the default route's bit for bit; one profiled
+   trees printed beside the default route's; ``hist_rows`` (slice 11)
+   timed at the root and at the quartiles and maximum of the row-order
+   trees' smaller children (and at 3,000 rows), eager and as one replay
+   of a CUDA graph of 20 calls, beside ``index_add_`` both ways and the
+   bound, each case bitwise its plain version first and its kernels
+   read from a profiler trace (one launch at up to two slices); the 3ph
+   route (slice 5, ``LGBM_TPU_PART=3ph``) for 3 iterations
+   (``partition_3ph`` once per split, ``hist_comb`` per tree and per
+   split, the plain refresh per tree), its trees printed beside the
+   default route's, and ``LGBM_TPU_POOL_TAIL=0`` for 2 (``apply_find``
+   once per split), its trees held against the default route's bit for
+   bit; one profiled
    iteration of each route but the last, its kernels counted per split
    and per stage;
 6. pack=2 (slice 6, ``LGBM_TPU_COMB_PACK=2``, one record per row): the
@@ -75,7 +81,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    pack=2 route card against device="cpu" (50,000 rows, 3 trees,
    bitwise); its main path (1M x 28, 255 leaves, 10 iterations) counted,
    its trees held against the default route's bit for bit, and one
-   profiled iteration;
+   profiled iteration; ``copyback_p2`` (slice 11, four 16-byte words in
+   flight a thread) at 1M records and at the median and largest segment
+   of the pack=2 route's splits, eager and in a graph, beside
+   ``Tensor.copy_``, in turns, its output bitwise ``copy_``'s;
 7. pack=2 without the fused split (slice 7): ``partition_scan_p2`` and
    ``stream_refresh_plain_p2`` in the record-kernel phase above (the
    whole, odd and dead segments; binary and l2), each timed beside its
@@ -121,6 +130,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1572,6 +1582,206 @@ def hist_rows_kernels(gpu: str, ds, ds_wide) -> dict:
     return rec
 
 
+# calls one CUDA graph of a timing holds, timed as one replay (slice 11)
+GRAPH_CALLS = 20
+
+
+def split_sizes(models) -> np.ndarray:
+    """[splits, 2] i64 (the split leaf's rows, its smaller child's rows)
+    of every split of ``models``, read from the trees' internal and leaf
+    counts."""
+    out = []
+    for t in models:
+        for node in range(len(t.internal_count)):
+            kids = [int(t.internal_count[c]) if c >= 0
+                    else int(t.leaf_count[~c])
+                    for c in (t.left_child[node], t.right_child[node])]
+            out.append((int(t.internal_count[node]), min(kids)))
+    return np.asarray(out, dtype=np.int64).reshape(-1, 2)
+
+
+def eager_and_graph_ms(fn) -> tuple:
+    """(eager, graph) milliseconds of one call of ``fn``: ``_time_ms``
+    over 20 calls back to back (the host's cost of each call included
+    where the card waits for it), and one replay of a CUDA graph of
+    ``GRAPH_CALLS`` calls (median of 5) over ``GRAPH_CALLS``: the card's
+    time alone."""
+    from lightgbm_tpu_torch.tools.profile_lib import graph_ms
+
+    def many():
+        for _ in range(GRAPH_CALLS):
+            fn()
+    eager = _time_ms(fn, 20)
+    graph, g = graph_ms(many, reps=5, warmup=1)
+    del g
+    return eager, graph / GRAPH_CALLS
+
+
+def kernels_of_call(fn) -> list:
+    """[[kernel, blocks], ...] of the device kernels one call of ``fn``
+    launches, in launch order, read from a ``torch.profiler`` trace
+    (written under the git-ignored build directory): each kernel's name
+    up to its template arguments, and its grid's block count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightgbm_tpu_torch.ops._build import BUILD_DIR
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = BUILD_DIR / "kernels_of_call.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    out = []
+    for e in sorted((e for e in events if e.get("cat") == "kernel"),
+                    key=lambda e: e["ts"]):
+        m = re.search(r"(\w+)\s*[<(]",
+                      e["name"].replace("(anonymous namespace)", ""))
+        name = m.group(1) if m else e["name"]
+        grid = e.get("args", {}).get("grid", [0])
+        out.append([name, int(np.prod(grid))])
+    return out
+
+
+def hist_rows_times(gpu: str, ds_wide, models) -> dict:
+    """Slice 11: hist_rows on the row-order main path's 1M x 28 u16 bins
+    (B = 1024) at the root, at the 3,000-row child, and at the
+    quartiles and the maximum of the smaller children of the trained
+    trees ``models`` (each through a seeded permutation from an odd
+    offset, with the grower's bound max_rows = parent // 2 + 1), eager
+    and in a graph, beside one ``index_add_`` over a precomputed flat
+    index both ways, the plain version on the card and the bound.  Each
+    case's output is held bitwise against the plain version on CPU
+    copies first, and the kernels one call launches (and their blocks)
+    are read from a profiler trace: one launch at up to two slices."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.hist_kernel2 import (
+        build_histogram_rows, build_histogram_rows_ref, rows_blocks)
+    dev = torch.device("cuda")
+    bins = torch.as_tensor(ds_wide._binned.bin_matrix, device=dev)
+    n, f = bins.shape
+    b = 1024
+    g = np.random.default_rng(17)
+    vals = torch.tensor(g.normal(size=(n, 2)).astype(np.float32), device=dev)
+    perm = torch.tensor(g.permutation(n).astype(np.int32), device=dev)
+    sizes = split_sizes(models)
+    order = np.argsort(sizes[:, 1], kind="stable")
+    at = {q: sizes[order[int(round(q * (len(order) - 1)))]]
+          for q in (0.25, 0.5, 0.75, 1.0)}
+    child = {"splits": int(len(sizes)),
+             **{name: int(at[q][1]) for name, q in (
+                 ("q25", 0.25), ("median", 0.5), ("q75", 0.75),
+                 ("max", 1.0))}}
+    print("row-order smaller children " + json.dumps(child), flush=True)
+    cases = [("root", 0, n, None, n),
+             (f"child_{CHILD_ROWS}", 100_001, CHILD_ROWS, perm,
+              CHILD_ROWS)]
+    cases += [(f"child_{name}", 100_001, int(at[q][1]), perm,
+               int(at[q][0]) // 2 + 1)
+              for name, q in (("q25", 0.25), ("median", 0.5),
+                              ("q75", 0.75), ("max", 1.0))]
+    out = []
+    for label, start, count, index, max_rows in cases:
+        rng_t = torch.tensor([start, count], dtype=torch.int32, device=dev)
+        kw = dict(index=index, padded_bins=b, max_rows=max_rows)
+        k1 = build_histogram_rows(bins, vals, rng_t, **kw)
+        ref = build_histogram_rows_ref(
+            bins.cpu(), vals.cpu(), rng_t.cpu(),
+            **dict(kw, index=None if index is None else index.cpu()))
+        if not torch_equal(k1.cpu(), ref):
+            raise RuntimeError(f"hist_rows {label} differs from its plain "
+                               f"version")
+        rows = None if index is None else index[start:start + count].long()
+        flat, upd = flat_hist_inputs(bins, vals, b, rows)
+        acc = torch.zeros((f * b, 2), dtype=torch.float32, device=dev)
+        ms, graph_ms_ = eager_and_graph_ms(
+            lambda: build_histogram_rows(bins, vals, rng_t, **kw))
+        lib, lib_graph = eager_and_graph_ms(
+            lambda: acc.index_add_(0, flat, upd))
+        nb = (count * (f * 2 + 8) + (4 * count if index is not None else 0)
+              + f * b * 8)
+        # one launch wherever max_rows gives at most two slices, else the
+        # partials and the reduction: read from the profiler's trace
+        kernels = kernels_of_call(
+            lambda: build_histogram_rows(bins, vals, rng_t, **kw))
+        want = (["hist_rows_direct"] if rows_blocks(max_rows, b) <= 2
+                else ["hist_rows_partial", "reduce_partials"])
+        if [k for k, _ in kernels] != want:
+            raise RuntimeError(f"hist_rows {label} launched {kernels}, "
+                               f"not {want}")
+        out.append({
+            "case": label, "rows": count, "max_rows": max_rows,
+            "slices": rows_blocks(max_rows, b),
+            "kernels_a_call": kernels,
+            "ms": ms, "graph_ms": graph_ms_,
+            "library_ms": lib, "library_graph_ms": lib_graph,
+            "plain_ms": _time_ms(lambda: build_histogram_rows_ref(
+                bins, vals, rng_t, **kw), 3),
+            "bound_ms": max(nb / PEAK_BYTES_S,
+                            2 * count * f / PEAK_OPS_S) * 1e3,
+            "bitwise_cpu_plain": True})
+        del flat, upd, acc
+    rec = {"child_sizes": child, "times": out, "gpu": gpu}
+    print("hist_rows times [ms] " + json.dumps(rec), flush=True)
+    return rec
+
+
+def copyback_p2_times(gpu: str, models) -> dict:
+    """Slice 11: copyback_p2 (16-byte words, four in flight a thread) on
+    1M seeded 64-byte records, at the whole buffer and at the median and
+    largest segment of the pack=2 route's splits (``models``' split
+    leaves), eager and in a graph, beside one ``Tensor.copy_`` of the
+    same bytes, taken in turns (kernel, copy_, copy_, kernel); the
+    kernel's output held bitwise against ``copy_``'s first, the records
+    around the segment untouched."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import PackedRows, pack_rows
+    from lightgbm_tpu_torch.ops.partition_kernel import copyback_p2
+    dev = torch.device("cuda")
+    rows = pack_rows(rows_on(random_row_matrix(TRAIN_ROWS, N_FEATURES, 11,
+                                               nan_bin=254), dev))
+    scratch = PackedRows(torch.randint(0, 256, rows.buf.shape,
+                                       dtype=torch.uint8, device=dev),
+                         rows.layout)
+    stride = rows.layout.stride
+    segs = np.sort(split_sizes(models)[:, 0])
+    cases = [("whole", 0, TRAIN_ROWS),
+             ("median_segment", 1, int(segs[len(segs) // 2])),
+             ("largest_segment", 0, int(segs[-1]))]
+    out = []
+    for label, s0, cnt in cases:
+        d, src = rows.buf[s0:s0 + cnt], scratch.buf[s0:s0 + cnt]
+        fns = {"kernel": lambda: copyback_p2(rows, scratch, s0, cnt),
+               "copy_": lambda: d.copy_(src)}
+        rows.buf.zero_()
+        fns["kernel"]()
+        torch.cuda.synchronize()
+        if not (torch.equal(d, src) and not rows.buf[:s0].any()
+                and not rows.buf[s0 + cnt:].any()):
+            raise RuntimeError(f"copyback_p2 {label} differs from "
+                               f"Tensor.copy_")
+        t = {k: [] for k in fns}
+        for name in ("kernel", "copy_", "copy_", "kernel"):
+            t[name].append(eager_and_graph_ms(fns[name]))
+        rec = {"case": label, "s0": s0, "records": cnt, "stride": stride}
+        for name, key in (("kernel", ""), ("copy_", "library_")):
+            rec[f"{key}ms"] = float(np.mean([e for e, _ in t[name]]))
+            rec[f"{key}graph_ms"] = float(np.mean([g_ for _, g_ in t[name]]))
+        rec["bound_ms"] = 2 * cnt * stride / PEAK_BYTES_S * 1e3
+        out.append(rec)
+    res = {"times": out, "gpu": gpu}
+    print("copyback_p2 times [ms] " + json.dumps(res), flush=True)
+    del rows, scratch
+    return res
+
+
 def row_order_phases(gpu: str, ds, valid, ds_wide, valid_wide, x,
                      bst_default) -> tuple:
     """Slice 4's training: card against device="cpu" at 50,000 rows
@@ -2416,8 +2626,10 @@ def train_phases(gpu: str) -> list:
                            f"2's route's: {routes}")
     bst3, main3, bst4, off, parity3 = row_order_phases(
         gpu, ds, valid, ds_wide, valid_wide, x, bst)
+    rows_times = hist_rows_times(gpu, ds_wide, bst3._models)
     bst5, main5, pool5, parity5 = part_3ph_phases(gpu, ds, valid, x, bst)
     bst6, main6, parity6 = pack2_phases(gpu, ds, valid, x, bst)
+    copy_times = copyback_p2_times(gpu, bst6._models)
     bsts7, mains7, parity7 = pack2_unfused_phases(gpu, ds, valid, x, bst,
                                                   bst2)
     # one more tree of each under the profiler, after every check
@@ -2469,6 +2681,9 @@ def train_phases(gpu: str) -> list:
         off["launches"]["build_histogram_rows"]
     recs[0]["train_parity"] = parity["ok"] and parity2["ok"]
     by_name["hist_rows"]["train_parity_bitwise"] = parity3["ok"]
+    by_name["hist_rows"]["child_sizes"] = rows_times["child_sizes"]
+    by_name["hist_rows"]["times"] = rows_times["times"]
+    by_name["copyback_p2"]["times"] = copy_times["times"]
     by_name["apply_find"]["plain_entry_launches"] = \
         pool5["launches"]["apply_find"]
     by_name["apply_find"]["plain_entry_launched_on"] = "LGBM_TPU_POOL_TAIL=0"

@@ -123,27 +123,33 @@ def _hist():
     _reduce("hist_comb", "hist_kernel2.build_histogram_comb",
             f"{PALLAS}/hist_kernel2.py:225", nb)
     register_kernel(hist_comb_wide_entry())
+    rows_src = (f"{PALLAS}/hist_kernel2.py:339, "
+                f"{PALLAS}/hist_kernel.py:122")
     for bin_t, dtype, b in (("unsigned char", "uint8", B),
                             ("unsigned short", "uint16", B_WIDE)):
         width = 2 if dtype == "uint16" else 1
-        fc = hk.ROWS_FEATURES
-        while hk.rows_smem_bytes(fc, b, width) > hk.MAX_SMEM:
-            fc //= 2
-        slices = hk.rows_blocks(N, b)
+        tag = "u16" if width == 2 else "u8"
+        ins = (vec_arg("bins", dtype, (N, F), width),
+               vec_arg("vals", "float32", (N, 2), 8),
+               vec_arg("index", "int32", (N, 1), 4))
+        # the root: several slices, then the reduction
+        root = hk.rows_geometry(F, b, width, hk.rows_blocks(N, b))
         register_kernel(KernelEntry(
-            name=f"hist_rows_{'u16' if width == 2 else 'u8'}",
-            source="hist_rows",
+            name=f"hist_rows_{tag}", source="hist_rows",
             symbol=f"hist_rows_partial<{bin_t}>",
-            block=_block(THREADS),
-            dyn_smem=hk.rows_smem_bytes(fc, b, width),
-            args=(vec_arg("bins", dtype, (N, F), width),
-                  vec_arg("vals", "float32", (N, 2), 4),
-                  vec_arg("index", "int32", (N, 1), 4))
-            + _hist_out(slices, b),
-            wrapper="hist_kernel2.build_histogram_rows",
-            replaces=f"{PALLAS}/hist_kernel2.py:339, "
-                     f"{PALLAS}/hist_kernel.py:122",
-            export=("hist_rows_smem_bytes", (fc, b, width))))
+            block=_block(THREADS), dyn_smem=root.smem,
+            args=ins + _hist_out(root.slices, b),
+            wrapper="hist_kernel2.build_histogram_rows", replaces=rows_src,
+            export=("hist_rows_smem_bytes", (root.feats, b, width))))
+        # a child of one slice: one launch writes out
+        child = hk.rows_geometry(F, b, width, 1)
+        register_kernel(KernelEntry(
+            name=f"hist_rows_direct_{tag}", source="hist_rows",
+            symbol=f"hist_rows_direct<{bin_t}>",
+            block=_block(THREADS), dyn_smem=child.smem,
+            args=ins + (vec_arg("out", "float32", (F, b, 2), 8),),
+            wrapper="hist_kernel2.build_histogram_rows", replaces=rows_src,
+            export=("hist_rows_direct_smem_bytes", (child.feats, width))))
     _reduce("hist_rows", "hist_kernel2.build_histogram_rows",
             f"{PALLAS}/hist_kernel2.py:339", hk.rows_blocks(N, B_WIDE),
             b=B_WIDE)

@@ -12,7 +12,9 @@
 // in lane order.  Every cell of a block's histogram is therefore the
 // sequential f32 sum of its rows in row order, whatever the chunking.
 // Each block writes its partial histogram out and reduce_partials() adds
-// the partials of every cell in block order, starting from 0.  Three
+// the partials of every cell in block order, starting from 0.
+// compact_range() and add_listed() are the same sum for a warp that owns
+// a 32-bin range of one feature (hist_rows.cu in one launch).  Three
 // kernels that stage the same rows of the same slices in the same order
 // give the same bits; the plain version
 // (hist_kernel2.build_histogram_comb_ref) adds in this order too.
@@ -96,6 +98,71 @@ __device__ __forceinline__ void accumulate(float* hist, const BinT* sb,
       }
       __syncwarp();
     }
+  }
+}
+
+// The bin-range variant of accumulate(), for one warp: the warp owns the
+// 32 cells of bins [b_lo, b_lo + 32) of one feature, in a warp-private
+// shared array cells [32, 2] (cell c: bin b_lo + c).  compact_range()
+// lists the staged rows whose bin falls in the range, in row order, as
+// (row << 8 | bin - b_lo) in the warp-private lst, and returns how many;
+// sb_f points at the feature's bin of staged row 0 (rows nf apart), rows
+// is at most 32 * kTiles.  Each lane reads its row of every 32-row tile
+// first, so those reads overlap.  add_listed() adds the listed rows
+// [a, b), 32 at a time, with sv the staged (g*w, h*w): the lanes holding
+// one cell form a group (__match_any_sync) whose lowest lane adds the
+// group's values one by one in lane (= row) order.  Every cell is the
+// sequential f32 sum of its rows in row order, the bits accumulate()
+// gives; rows whose bin lies outside the range are skipped.  Both are
+// called by all 32 lanes of the warp.
+template <int kTiles, typename BinT>
+__device__ __forceinline__ int compact_range(const BinT* sb_f, int nf,
+                                             int rows, int b_lo,
+                                             unsigned* lst) {
+  const unsigned lane = threadIdx.x % 32;
+  unsigned rel[kTiles];
+#pragma unroll
+  for (int k = 0; k < kTiles; ++k) {
+    const int r = 32 * k + (int)lane;
+    rel[k] = r < rows ? (unsigned)((int)sb_f[r * nf] - b_lo) : 32u;
+  }
+  int n = 0;
+#pragma unroll
+  for (int k = 0; k < kTiles; ++k) {
+    const bool live = rel[k] < 32u;
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    if (live)
+      lst[n + __popc(m & ((1u << lane) - 1u))] =
+          ((unsigned)(32 * k + lane) << 8) | rel[k];
+    n += __popc(m);
+  }
+  __syncwarp();
+  return n;
+}
+
+__device__ __forceinline__ void add_listed(const float2* sv,
+                                           const unsigned* lst, int a, int b,
+                                           float* cells) {
+  const int lane = threadIdx.x % 32;
+  for (int c0 = a; c0 < b; c0 += 32) {
+    const bool valid = c0 + lane < b;
+    // dead lanes get keys no live lane can hold, so each is alone
+    const unsigned cell = valid ? (lst[c0 + lane] & 255u) : 0x100u + lane;
+    const unsigned peers = __match_any_sync(0xffffffffu, cell);
+    if (valid && (__ffs(peers) - 1) == lane) {
+      float g = cells[2 * cell], h = cells[2 * cell + 1];
+      unsigned m = peers;
+      while (m) {
+        const int j = __ffs(m) - 1;
+        m &= m - 1;
+        const float2 v = sv[lst[c0 + j] >> 8];
+        g += v.x;
+        h += v.y;
+      }
+      cells[2 * cell] = g;
+      cells[2 * cell + 1] = h;
+    }
+    __syncwarp();
   }
 }
 

@@ -7,35 +7,64 @@
 // :122), which compute one function: hist[f, b, c] = the sum of vals[r, c]
 // over the rows r the range selects whose bins[r, f] == b, [F, B, 2] f32.
 // The TPU kernels contract nibble one-hots on the MXU (v2 with bf16
-// operands); here every (row, feature) adds its exact f32 values into a
-// shared-memory histogram, in the order of hist_block.cuh.
+// operands); here every (row, feature) adds its exact f32 values, in the
+// order of hist_block.cuh.
 //
 // Inputs: bins [n, F] row-major, uint8 or uint16 (max_bin > 255); vals
-// f32 [n, 2] (g*w, h*w) in original row order; an optional i32 index of
-// positions -> rows (the row-order grower's row_order, every entry in
-// [0, n)); range i32[2] (start, count) of positions, read from device
-// memory so a child range the device computed needs no host read.
-// Without an index the positions are the rows.  The JAX package gathers
-// the rows (jnp.take) before its kernel; this kernel reads the bins and
-// values through the index itself, so a split needs no [count, F] copy.
+// f32 [n, 2] (g*w, h*w) in original row order, 8-byte aligned; an
+// optional i32 index of positions -> rows (the row-order grower's
+// row_order, every entry in [0, n)); range i32[2] (start, count) of
+// positions, read from device memory so a child range the device
+// computed needs no host read.  Without an index the positions are the
+// rows.  The JAX package gathers the rows (jnp.take) before its kernel;
+// this kernel reads the bins and values through the index itself, so a
+// split needs no [count, F] copy.
 //
-// Determinism: no float atomics.  The position range is cut into grid.x
-// slices (histblock::slice, the same cut as hist_kernel2.block_ranges);
-// a block stages kChunk positions' row ids, values and bins of its
-// features in shared memory and accumulate() adds them in position order.
-// The features are split over grid.y (kFeat per block, one per warp) so
-// a block's shared histogram is [kFeat, B, 2]: at B = 1024 the whole
-// [28, 1024, 2] would need 238,592 bytes, over the 232,448 a block may
-// use.  Every cell is the sequential f32 sum of its rows in position
-// order whatever the feature split, and a second pass adds the slices'
-// partials in slice order, so the plain version
+// Determinism: no float atomics.  The position range is cut into
+// `nslices` slices (histblock::slice, the same cut as
+// hist_kernel2.block_ranges, chosen by the wrapper from the caller's
+// bound on count: hist_kernel2.rows_blocks).  Every cell is the
+// sequential f32 sum of its slice's rows in position order, from +0, and
+// the slices' sums are added in slice order from 0, so the plain version
 // (hist_kernel2.build_histogram_rows_ref) gives these bits on the CPU.
+// Two kernels keep that order; the wrapper picks one and its grid
+// (hist_kernel2.rows_geometry) and passes them in:
 //
-// Bound on this card: bytes.  A launch must read count * (F * bin bytes
-// + 8) bytes of bins and values (+ 4 per position through the index) and
-// write F * B * 8.  The partials add 2 * grid.x * F * B * 8 bytes; the
-// wrapper scales the slice count down with B (rows_blocks) so that at
-// B = 1024 the 1M-row root's partials stay near a fifth of its input.
+// - One or two slices (a bound on count up to 32,768 positions at
+//   B = 1024, 8,192 at B = 256: every child of a parent of up to 65,534
+//   rows): hist_rows_direct, one launch that writes out.  A warp owns one
+//   feature's 32-bin range, its 32 cells in warp-private shared memory,
+//   and walks all the range's rows (histblock::compact_range lists a
+//   step's rows in its range, histblock::add_listed adds them, 32 at a
+//   time), adding the first slice's sums to +0 where the second begins
+//   and the second's to that at the end, the reduction's order; a
+//   block's eight warps are eight consecutive (feature, range) units, so
+//   the grid is ceil(F * ceil(B / 32) / 8) blocks (112 at F = 28,
+//   B = 1024) and each cell has one writer.
+// - More slices (the root, large children): hist_rows_partial, grid
+//   (slices, ceil(F / fc)), each warp owning one of the block's fc
+//   features in a shared [fc, B, 2] histogram (histblock::accumulate;
+//   the whole [28, 1024, 2] would need 229,376 bytes), then
+//   histblock::reduce_partials adds the partials in slice order.
+//
+// Bound on this card: bytes at the root, latency at small children.  A
+// launch must read count * (F * bin bytes + 8) bytes of bins and values
+// (+ 4 per position through the index) and write F * B * 8; at the 1M-row
+// root that is 64 MB and the partials add 2 * slices * F * B * 8 (the
+// wrapper scales the slice count down with B so that they stay near a
+// fifth of the input).  A 3,000-row child moves ~200 KB, so its time is
+// the chain of dependent reads (index, then the row's values and bins)
+// and the per-warp walk over the rows.  Both kernels stage a step of
+// positions (512 in hist_rows_partial, 1,024 in hist_rows_direct)
+// through registers into a double-buffered shared stage: a step stores
+// the previous step's registers, meets one barrier, issues the next
+// step's value and bin loads (through row ids loaded a step earlier) and
+// the row ids of the step after, and then accumulates while those loads
+// are in flight.  In the direct kernel 112 blocks (rather than 4 at a
+// 3,000-row child) put more loads in flight; each warp's walk over every
+// row of the child bounds it (a one-row-at-a-time shuffle to the owning
+// lane took 1.5 times as long as listing a step's rows and adding them
+// 32 at a time).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,14 +72,119 @@
 
 namespace {
 
-using histblock::kChunk;
 using histblock::kThreads;
+using histblock::kWarps;
 
-// Shared-memory bytes of one block of fc features: hist_block's
-// histogram, values and bins, plus the staged row ids.
+// positions a thread stages a step: two in hist_rows_partial, one in
+// hist_rows_direct, whose warps walk every row of the range
+constexpr int kPartialRows = 2;
+constexpr int kDirectRows = 4;
+constexpr int kMaxFeat = kWarps;                 // features a block stages
+constexpr int kDirectSlices = 2;                 // slices a direct launch sums
+constexpr int kRange = 32;                       // bins a direct warp owns
+
+// Shared bytes of the double-buffered stage of nf features: (g*w, h*w)
+// and the bins of kThreads * SR positions, twice.
+template <typename BinT, int SR>
+__host__ __device__ inline int stage_bytes(int nf) {
+  return 2 * kThreads * SR * (8 + nf * (int)sizeof(BinT));
+}
+
 template <typename BinT>
-int block_smem(int fc, int B) {
-  return histblock::smem_bytes<BinT>(fc, B) + kChunk * 4;
+int partial_smem(int fc, int B) {
+  return fc * B * 2 * 4 + stage_bytes<BinT, kPartialRows>(fc);
+}
+
+// hist_rows_direct's shared bytes at nf features: the stage, and for each
+// warp its 32 cells and its list of the step's rows in its range.
+template <typename BinT>
+int direct_smem(int nf) {
+  return stage_bytes<BinT, kDirectRows>(nf) + kWarps * 32 * 2 * 4
+         + kWarps * kThreads * kDirectRows * 4;
+}
+
+// Positions [lo, hi) of range (start, count), clamped to [0, n_pos).
+__device__ __forceinline__ void clamp_range(const int* range, int n_pos,
+                                            long long* lo, long long* hi) {
+  long long a = (long long)range[0];
+  long long b = a + (long long)(range[1] > 0 ? range[1] : 0);
+  if (a < 0) a = 0;
+  if (b > n_pos) b = n_pos;
+  if (b < a) b = a;
+  *lo = a;
+  *hi = b;
+}
+
+// The rows of this thread's positions p0 + threadIdx.x + kThreads * k,
+// -1 at or past hi.
+template <int SR>
+__device__ __forceinline__ void load_rows(const int* __restrict__ index,
+                                          long long p0, long long hi,
+                                          int (&row)[SR]) {
+#pragma unroll
+  for (int k = 0; k < SR; ++k) {
+    const long long p = p0 + threadIdx.x + kThreads * k;
+    row[k] = p < hi ? (index != nullptr ? __ldg(index + p) : (int)p) : -1;
+  }
+}
+
+// Those rows' values and the bins of features [f_lo, f_lo + nf).
+template <typename BinT, int SR>
+__device__ __forceinline__ void load_data(
+    const BinT* __restrict__ bins, const float2* __restrict__ vals, int F,
+    int f_lo, int nf, const int (&row)[SR], float2 (&v)[SR],
+    BinT (&b)[SR][kMaxFeat]) {
+#pragma unroll
+  for (int k = 0; k < SR; ++k) {
+    if (row[k] < 0) continue;
+    v[k] = __ldg(vals + row[k]);
+    const BinT* br = bins + (size_t)row[k] * F + f_lo;
+#pragma unroll
+    for (int j = 0; j < kMaxFeat; ++j)
+      if (j < nf) b[k][j] = __ldg(br + j);
+  }
+}
+
+// Walk positions [lo, hi) in steps of kStage = kThreads * SR through the
+// double-buffered stage sv [2][kStage], sb [2][kStage * nf] (row r's bins
+// at r * nf), calling acc(sv, sb, rows, p0) on each step's rows (from
+// position p0) in position order.  Every thread of the block calls it;
+// one barrier a step.
+template <int SR, typename BinT, typename Acc>
+__device__ __forceinline__ void walk(const BinT* __restrict__ bins,
+                                     const float2* __restrict__ vals,
+                                     const int* __restrict__ index,
+                                     long long lo, long long hi, int F,
+                                     int f_lo, int nf, float2* sv, BinT* sb,
+                                     Acc&& acc) {
+  constexpr int kStage = kThreads * SR;
+  int row[SR], next[SR];
+  float2 v[SR];
+  BinT b[SR][kMaxFeat];
+  load_rows(index, lo, hi, row);
+  load_data(bins, vals, F, f_lo, nf, row, v, b);
+  load_rows(index, lo + kStage, hi, next);
+  int buf = 0;
+  for (long long p0 = lo; p0 < hi; p0 += kStage, buf ^= 1) {
+    float2* sv_b = sv + buf * kStage;
+    BinT* sb_b = sb + buf * kStage * nf;
+#pragma unroll
+    for (int k = 0; k < SR; ++k) {
+      const int r = threadIdx.x + kThreads * k;
+      sv_b[r] = v[k];
+#pragma unroll
+      for (int j = 0; j < kMaxFeat; ++j)
+        if (j < nf) sb_b[r * nf + j] = b[k][j];
+    }
+    // the stage is written; the other buffer's readers (the step before)
+    // are done, so the next step may write it
+    __syncthreads();
+    if (p0 + kStage < hi) {
+      load_data(bins, vals, F, f_lo, nf, next, v, b);
+      load_rows(index, p0 + 2 * kStage, hi, next);
+    }
+    acc(sv_b, sb_b, (int)(hi - p0 < kStage ? hi - p0 : kStage), p0);
+  }
 }
 
 template <typename BinT>
@@ -60,62 +194,137 @@ hist_rows_partial(const BinT* __restrict__ bins,
                   const int* __restrict__ index,
                   const int* __restrict__ range, int n_pos, int F, int B,
                   int fc, float* __restrict__ partials) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int f_lo = blockIdx.y * fc;
   const int fw = (F - f_lo) < fc ? (F - f_lo) : fc;
   const int cells = fw * B * 2;
-  float* hist = smem;                                    // [fw, B, 2]
-  float* sv = hist + fc * B * 2;                         // [kChunk, 2]
-  int* srow = reinterpret_cast<int*>(sv + 2 * kChunk);   // [kChunk]
-  BinT* sb = reinterpret_cast<BinT*>(srow + kChunk);     // [kChunk, fw]
-  histblock::zero(hist, cells);
-
-  long long lo = (long long)range[0];
-  long long hi = lo + (long long)(range[1] > 0 ? range[1] : 0);
-  if (lo < 0) lo = 0;
-  if (hi > n_pos) hi = n_pos;
-  if (hi < lo) hi = lo;
+  float* hist = smem;                                           // [fw, B, 2]
+  constexpr int kStage = kThreads * kPartialRows;
+  float2* sv = reinterpret_cast<float2*>(hist + fc * B * 2);    // [2][kStage]
+  BinT* sb = reinterpret_cast<BinT*>(sv + 2 * kStage);   // [2][kStage, fw]
+  histblock::zero(hist, cells);   // the first step's barrier orders it
+  long long lo, hi;
+  clamp_range(range, n_pos, &lo, &hi);
   histblock::slice(lo, hi, gridDim.x, blockIdx.x, &lo, &hi);
-
-  for (long long p0 = lo; p0 < hi; p0 += kChunk) {
-    const int rows = (int)((hi - p0) < kChunk ? (hi - p0) : kChunk);
-    __syncthreads();   // previous step's readers are done with the staging
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      const int row = index != nullptr ? index[p0 + r] : (int)(p0 + r);
-      srow[r] = row;
-      sv[2 * r] = vals[2 * (size_t)row];
-      sv[2 * r + 1] = vals[2 * (size_t)row + 1];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * fw; i += kThreads) {
-      const int r = i / fw;
-      sb[i] = bins[(size_t)srow[r] * F + f_lo + (i - r * fw)];
-    }
-    __syncthreads();
-    histblock::accumulate(hist, sb, sv, rows, fw, B);
-  }
+  walk<kPartialRows>(
+      bins, reinterpret_cast<const float2*>(vals), index, lo, hi, F, f_lo, fw,
+      sv, sb, [&](const float2* s_v, const BinT* s_b, int rows, long long) {
+        histblock::accumulate(hist, s_b, reinterpret_cast<const float*>(s_v),
+                              rows, fw, B);
+      });
   __syncthreads();
-  float* out = partials + (size_t)blockIdx.x * F * B * 2 + (size_t)f_lo * B * 2;
+  float* out =
+      partials + (size_t)blockIdx.x * F * B * 2 + (size_t)f_lo * B * 2;
   for (int i = threadIdx.x; i < cells; i += kThreads) out[i] = hist[i];
+}
+
+template <typename BinT>
+__global__ void __launch_bounds__(kThreads)
+hist_rows_direct(const BinT* __restrict__ bins,
+                 const float* __restrict__ vals,
+                 const int* __restrict__ index,
+                 const int* __restrict__ range, int n_pos, int F, int B,
+                 int R, int nslices, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kStage = kThreads * kDirectRows;
+  float2* sv = reinterpret_cast<float2*>(smem);             // [2][kStage]
+  float* cells_all = reinterpret_cast<float*>(sv + 2 * kStage);  // [8][32][2]
+  unsigned* lst_all =
+      reinterpret_cast<unsigned*>(cells_all + kWarps * 64);  // [8][kStage]
+  BinT* sb = reinterpret_cast<BinT*>(lst_all + kWarps * kStage);
+  const int units = F * R;
+  const int u0 = blockIdx.x * kWarps;
+  const int u_last = u0 + kWarps - 1 < units ? u0 + kWarps - 1 : units - 1;
+  const int f_lo = u0 / R;
+  const int nf = u_last / R - f_lo + 1;   // the wrapper's smem holds it
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int u = u0 + warp;
+  const int f = u / R;                    // this warp's feature
+  const int b_lo = (u % R) * kRange;      // and the first bin of its range
+  const bool owner = u < units;
+  float* cells = cells_all + warp * 64;
+  unsigned* lst = lst_all + warp * kStage;
+  cells[2 * lane] = 0.f;   // compact_range's __syncwarp orders these
+  cells[2 * lane + 1] = 0.f;
+  long long lo, hi;
+  clamp_range(range, n_pos, &lo, &hi);
+  // the second slice's first position (hi with one slice): a multiple of
+  // 32 positions from lo, so it starts a tile
+  long long cut, end;
+  histblock::slice(lo, hi, nslices, 0, &cut, &end);
+  cut = end;
+  float tg = 0.f, th = 0.f;   // the earlier slice's sums
+  walk<kDirectRows>(
+      bins, reinterpret_cast<const float2*>(vals), index, lo, hi, F, f_lo, nf,
+      sv, sb, [&](const float2* s_v, const BinT* s_b, int rows, long long p0) {
+        if (!owner) return;
+        const int n = histblock::compact_range<kStage / 32>(
+            s_b + (f - f_lo), nf, rows, b_lo, lst);
+        int split = 0;
+        if (cut >= p0 && cut < p0 + rows) {
+          // the listed rows before the cut, then the first slice's sums
+          // move to tg, th and the cells restart at +0
+          const unsigned at = (unsigned)(cut - p0);
+          for (int i = lane; i < n; i += 32) split += (lst[i] >> 8) < at;
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            split += __shfl_xor_sync(0xffffffffu, split, o);
+          histblock::add_listed(s_v, lst, 0, split, cells);
+          tg = tg + cells[2 * lane];
+          th = th + cells[2 * lane + 1];
+          cells[2 * lane] = 0.f;
+          cells[2 * lane + 1] = 0.f;
+          __syncwarp();
+        }
+        histblock::add_listed(s_v, lst, split, n, cells);
+      });
+  __syncwarp();
+  if (owner && b_lo + lane < B)
+    reinterpret_cast<float2*>(out)[(size_t)f * B + b_lo + lane] =
+        make_float2(tg + cells[2 * lane], th + cells[2 * lane + 1]);
 }
 
 template <typename BinT>
 int launch(const BinT* bins, const float* vals, const int* index,
            const int* range, float* partials, float* out, int n_pos, int F,
-           int B, int fc, int nslices, cudaStream_t s) {
-  const int smem = block_smem<BinT>(fc, B);
-  static int smem_set = 0;
-  if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        hist_rows_partial<BinT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
+           int B, int nslices, int direct, int grid_x, int grid_y, int feats,
+           int parts, cudaStream_t s) {
+  cudaError_t e;
+  if (direct) {
+    // the wrapper's geometry must cover every cell in at most
+    // kDirectSlices slices
+    if (nslices < 1 || nslices > kDirectSlices || parts * kRange < B
+        || grid_x * kWarps < F * parts)
+      return (int)cudaErrorInvalidValue;
+    static int direct_set = 0;
+    const int smem = direct_smem<BinT>(feats);
+    if (smem > direct_set) {
+      e = cudaFuncSetAttribute(hist_rows_direct<BinT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+      if (e != cudaSuccess) return (int)e;
+      direct_set = smem;
+    }
+    hist_rows_direct<BinT><<<grid_x, kThreads, smem, s>>>(
+        bins, vals, index, range, n_pos, F, B, parts, nslices, out);
+    return (int)cudaGetLastError();
   }
-  const dim3 grid(nslices, (F + fc - 1) / fc);
-  hist_rows_partial<BinT><<<grid, kThreads, smem, s>>>(
-      bins, vals, index, range, n_pos, F, B, fc, partials);
-  cudaError_t e = cudaGetLastError();
+  // a block (x, y) sums slice x of features [y * feats, ...)
+  if (partials == nullptr || grid_x != nslices || grid_y * feats < F)
+    return (int)cudaErrorInvalidValue;
+  static int partial_set = 0;
+  const int smem = partial_smem<BinT>(feats, B);
+  if (smem > partial_set) {
+    e = cudaFuncSetAttribute(hist_rows_partial<BinT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    partial_set = smem;
+  }
+  hist_rows_partial<BinT><<<dim3(grid_x, grid_y), kThreads, smem, s>>>(
+      bins, vals, index, range, n_pos, F, B, feats, partials);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int cells = F * B * 2;
   histblock::reduce_partials<<<histblock::reduce_grid(cells, 1), 256, 0,
@@ -127,26 +336,42 @@ int launch(const BinT* bins, const float* vals, const int* index,
 
 extern "C" {
 
-// Shared-memory bytes one block of fc features needs; bin_bytes 1 or 2.
+// Shared-memory bytes of one hist_rows_partial block of fc features;
+// bin_bytes 1 or 2.
 int hist_rows_smem_bytes(int fc, int B, int bin_bytes) {
-  return bin_bytes == 2 ? block_smem<uint16_t>(fc, B)
-                        : block_smem<uint8_t>(fc, B);
+  return bin_bytes == 2 ? partial_smem<uint16_t>(fc, B)
+                        : partial_smem<uint8_t>(fc, B);
+}
+
+// Shared-memory bytes of one hist_rows_direct block staging nf features.
+int hist_rows_direct_smem_bytes(int nf, int bin_bytes) {
+  return bin_bytes == 2 ? direct_smem<uint16_t>(nf)
+                        : direct_smem<uint8_t>(nf);
 }
 
 // bins [n, F] of bin_bytes (1: u8, 2: u16); vals f32 [n, 2]; index i32
 // [n_pos] or null (then n_pos = n); range i32[2] (start, count) on the
-// device; partials f32 [nslices, F, B, 2] scratch; out f32 [F, B, 2].
-// Returns the CUDA error code of the launches (0 on success).
+// device; out f32 [F, B, 2].  The geometry is the wrapper's
+// (hist_kernel2.rows_geometry); this entry only refuses one that does
+// not cover every cell.  direct: one launch of hist_rows_direct on
+// grid_x blocks, warp w of block x owning unit x * 8 + w of F * parts
+// (feature, 32-bin range) units, nslices (1 or 2) slices, feats the most
+// features one block stages, partials unused (may be null).  Otherwise
+// hist_rows_partial on (grid_x = nslices, grid_y) blocks of feats
+// features into partials f32 [nslices, F, B, 2], then the reduction into
+// out.  Returns the CUDA error code of the launches (0 on success).
 int hist_rows(const void* bins, int bin_bytes, const float* vals,
               const int* index, const int* range, float* partials,
-              float* out, int n_pos, int F, int B, int fc, int nslices,
-              void* stream) {
+              float* out, int n_pos, int F, int B, int nslices, int direct,
+              int grid_x, int grid_y, int feats, int parts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bin_bytes == 2)
     return launch(static_cast<const uint16_t*>(bins), vals, index, range,
-                  partials, out, n_pos, F, B, fc, nslices, s);
+                  partials, out, n_pos, F, B, nslices, direct, grid_x, grid_y,
+                  feats, parts, s);
   return launch(static_cast<const uint8_t*>(bins), vals, index, range,
-                partials, out, n_pos, F, B, fc, nslices, s);
+                partials, out, n_pos, F, B, nslices, direct, grid_x, grid_y,
+                feats, parts, s);
 }
 
 }  // extern "C"

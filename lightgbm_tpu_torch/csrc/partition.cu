@@ -29,8 +29,14 @@
 // partition_copyback_p2 replaces partition_kernel3.copyback_call_p2
 // (_copyback_kernel_p2, pallas_call at :562), the copyback at pack=2:
 // records [s0, s0 + cnt) (partition_common.cuh RecPtr), cnt * S
-// contiguous bytes, move as 16-byte words.  Every record is whole words
-// at any row index, so an odd s0 or cnt needs no parity handling.
+// contiguous bytes.  Every record is whole 16-byte words at any row
+// index, so an odd s0 or cnt needs no parity handling, and the span is
+// one contiguous range of words: copy_records moves it with four words
+// in flight a thread (the grid-stride loop it replaces had one load ->
+// store dependency a thread at a time).  A ring of TMA bulk copies
+// through shared memory was timed against it on the card: about as fast
+// at 1M records and slower on the small segments most splits move
+// (PERF.md), so it was not kept.
 //
 // Rows: bins u8 [n, F], vals f32 [n, 3] (g*w, h*w, w), rid i32 [n]
 // (original row ids), score f32 [n] and consts f32 [n, 2] (the stream
@@ -110,18 +116,28 @@ partition_scatter(Rows rows, Rows scr, int F, Split sp,
     *nleft = left_before + tile_total;
 }
 
-// records [s0, s0 + cnt) from scr into rows, 16-byte words, grid-stride;
-// no record outside the span is touched
-__global__ void copy_records(part::RecPtr rows, part::RecPtr scr, int s0,
-                             int cnt) {
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  const size_t W = rows.S / 16;
-  const size_t w0 = (size_t)s0 * W, nw = (size_t)cnt * W;
-  const uint4* s = reinterpret_cast<const uint4*>(scr.base) + w0;
-  uint4* d = reinterpret_cast<uint4*>(rows.base) + w0;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < nw;
-       i += stride)
-    d[i] = s[i];
+// copyback_p2: words [0, nw) of src to dst (uint4, both 16-byte
+// aligned), grid-stride; a thread loads four words a block-width apart,
+// then stores them, so four loads are in flight a thread and a block
+// moves 16 KiB a step (256 threads x 4 x 16 bytes).
+constexpr int kCopyThreads = 256;
+constexpr int kCopyWords = 4;
+constexpr int kCopyBlocks = 132 * 8;   // eight blocks an SM of the H100
+
+__global__ void __launch_bounds__(kCopyThreads)
+copy_records(const uint4* __restrict__ src, uint4* __restrict__ dst,
+             long long nw) {
+  const long long step = (long long)gridDim.x * kCopyThreads;
+  for (long long i = (long long)blockIdx.x * kCopyThreads + threadIdx.x;
+       i < nw; i += kCopyWords * step) {
+    uint4 w[kCopyWords];
+#pragma unroll
+    for (int k = 0; k < kCopyWords; ++k)
+      if (i + k * step < nw) w[k] = src[i + k * step];
+#pragma unroll
+    for (int k = 0; k < kCopyWords; ++k)
+      if (i + k * step < nw) dst[i + k * step] = w[k];
+  }
 }
 
 // the scan's two launches; 0 or the CUDA error code
@@ -182,14 +198,17 @@ int partition_copyback(uint8_t* bins, float* vals, int* rid, float* score,
 }
 
 // Copy records [s0, s0 + cnt) from sbase back to base (both u8 [n, S],
-// 16-byte aligned).
+// 16-byte aligned): cnt * S / 16 words, eight blocks an SM at most.
 int partition_copyback_p2(uint8_t* base, uint8_t* sbase, int S, int s0,
                           int cnt, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const part::RecPtr rows{base, S, 0}, scr{sbase, S, 0};
-  // cnt * S / 16 words: copy_span's grid for as many 4-byte columns
-  copy_records<<<part::copy_span_blocks(cnt, S / 4), 256, 0, s>>>(rows, scr,
-                                                                  s0, cnt);
+  const long long w0 = (long long)s0 * S / 16, nw = (long long)cnt * S / 16;
+  long long blocks = (nw + kCopyThreads * kCopyWords - 1)
+                     / (kCopyThreads * kCopyWords);
+  if (blocks > kCopyBlocks) blocks = kCopyBlocks;
+  copy_records<<<(int)blocks, kCopyThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint4*>(sbase) + w0,
+      reinterpret_cast<uint4*>(base) + w0, nw);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,9 @@ The port's own copy of the l2, binary_logloss and auc metrics of
 regression_metric.hpp, factory metric.cpp:16): numpy on the host over
 the f32 scores pulled from the device once per evaluation.  AUC is the
 weighted rank sum with midrank ties.  Each result is ``(name, value,
-higher_better)``.  Other metric names warn and are skipped, as unknown
-names do in the JAX package; they come with ``ROADMAP.md`` A8.
+higher_better)``.  A metric the JAX package computes and the port lacks
+raises ``LightGBMError`` (it comes with ``ROADMAP.md`` A8); a name
+neither package knows warns and is skipped, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 
 from ..config import Config
 from ..utils import log
+from ..utils.log import LightGBMError
 
 EvalResult = Tuple[str, float, bool]  # (metric name, value, higher_better)
 
@@ -90,11 +92,37 @@ class AUCMetric(Metric):
             self.label, np.asarray(raw, np.float64), self.weight), True)]
 
 
+# The JAX package's alias table (its metric/metrics.py), as data: every
+# name it knows, to its canonical metric, ported or not.
 _METRIC_ALIASES = {
     "l2": "l2", "mean_squared_error": "l2", "mse": "l2",
     "regression_l2": "l2", "regression": "l2",
+    "rmse": "rmse", "root_mean_squared_error": "rmse", "l2_root": "rmse",
+    "l1": "l1", "mean_absolute_error": "l1", "mae": "l1",
+    "regression_l1": "l1",
+    "quantile": "quantile",
+    "mape": "mape", "mean_absolute_percentage_error": "mape",
+    "huber": "huber",
+    "fair": "fair",
+    "poisson": "poisson",
+    "gamma": "gamma",
+    "gamma_deviance": "gamma_deviance",
+    "tweedie": "tweedie",
     "binary_logloss": "binary_logloss", "binary": "binary_logloss",
+    "binary_error": "binary_error",
     "auc": "auc",
+    "average_precision": "average_precision", "mean_average_precision": "map",
+    "auc_mu": "auc_mu",
+    "multi_logloss": "multi_logloss", "multiclass": "multi_logloss",
+    "softmax": "multi_logloss", "multiclassova": "multi_logloss",
+    "multi_error": "multi_error",
+    "ndcg": "ndcg", "lambdarank": "ndcg", "rank_xendcg": "ndcg",
+    "xendcg": "ndcg", "xe_ndcg": "ndcg",
+    "map": "map",
+    "cross_entropy": "cross_entropy", "xentropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
+    "xentlambda": "cross_entropy_lambda",
+    "kullback_leibler": "kullback_leibler", "kldiv": "kullback_leibler",
 }
 
 _METRIC_REGISTRY = {
@@ -122,10 +150,14 @@ def create_metrics(config: Config) -> List[Metric]:
         if name in ("", "none", "null", "na", "custom"):
             continue
         if name not in _METRIC_ALIASES:
-            log.warning("Unknown metric %s (not ported to "
-                        "lightgbm_tpu_torch yet; see ROADMAP.md A8)", name)
+            log.warning("Unknown metric %s", name)
             continue
         canon = _METRIC_ALIASES[name]
+        if canon not in _METRIC_REGISTRY:
+            raise LightGBMError(
+                f"metric {name} ({canon}) is not ported to "
+                "lightgbm_tpu_torch yet (see ROADMAP.md, A8); the JAX "
+                "package lightgbm_tpu computes it")
         if canon in seen:
             continue
         seen.add(canon)

@@ -35,7 +35,11 @@ at ``max_bin > 255``) and values ``[n, 2]``, over the positions
 positions are the rows).  The TPU kernels round the values to bf16
 inside their one-hot matmul (v2) as an MXU operand choice; the port adds
 the exact f32 values, in the comb-direct histogram's fixed order, so
-trees grown on the card and on the CPU stay bit-identical.
+trees grown on the card and on the CPU stay bit-identical.  Where
+``max_rows`` gives one or two slices (up to 32,768 rows at B = 1024)
+one launch writes the histogram, a warp owning a 32-bin range of one
+feature (:func:`rows_geometry`); larger ranges take per-slice partials
+and a reduction in slice order, with the same bits either way.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
@@ -44,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -249,15 +254,61 @@ build_histogram_comb_p2.launches = 0
 
 
 # -- row-indexed histogram (csrc/hist_rows.cu) ------------------------------
-# features one block histograms: one per warp
+# features one multi-slice block histograms: one per warp
 ROWS_FEATURES = 8
+# warps a block; positions a block stages a step (kThreads times
+# kPartialRows, kDirectRows); bins a one-launch warp owns (kRange)
+ROWS_WARPS = 8
+ROWS_STAGE_PARTIAL = 512
+ROWS_STAGE_DIRECT = 1024
+ROWS_RANGE = 32
+# slices one hist_rows_direct launch sums (kDirectSlices)
+ROWS_DIRECT_SLICES = 2
+
+
+def rows_stage_bytes(nf: int, bin_bytes: int, stage: int) -> int:
+    """Shared memory of a double-buffered stage of ``nf`` features
+    (``stage_bytes``): (g*w, h*w) and the bins of ``stage`` positions,
+    twice."""
+    return 2 * stage * (8 + nf * bin_bytes)
 
 
 def rows_smem_bytes(fc: int, padded_bins: int, bin_bytes: int) -> int:
-    """Shared memory of one row-indexed block of ``fc`` features (the
-    library's ``hist_rows_smem_bytes``): :func:`comb_smem_bytes` plus the
-    staged row ids."""
-    return comb_smem_bytes(fc, padded_bins, bin_bytes) + HIST_CHUNK * 4
+    """Shared memory of one multi-slice block of ``fc`` features (the
+    library's ``hist_rows_smem_bytes``): the ``[fc, B, 2]`` f32
+    histogram and the stage."""
+    return fc * padded_bins * 8 + rows_stage_bytes(fc, bin_bytes,
+                                                   ROWS_STAGE_PARTIAL)
+
+
+def rows_direct_smem_bytes(nf: int, bin_bytes: int) -> int:
+    """Shared memory of one one-launch block staging ``nf`` features (the
+    library's ``hist_rows_direct_smem_bytes``): the stage, and for each
+    warp its 32 cells (f32 pairs) and its list of a step's rows (u32)."""
+    return (rows_stage_bytes(nf, bin_bytes, ROWS_STAGE_DIRECT)
+            + ROWS_WARPS * ROWS_RANGE * 8 + ROWS_WARPS * ROWS_STAGE_DIRECT * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def rows_feature_chunk(padded_bins: int, bin_bytes: int) -> int:
+    """Features a multi-slice block histograms: ``ROWS_FEATURES``, halved
+    until one block's shared memory fits."""
+    fc = ROWS_FEATURES
+    while fc >= 1:
+        if rows_smem_bytes(fc, padded_bins, bin_bytes) <= MAX_SMEM:
+            return fc
+        fc //= 2
+    raise LightGBMError(f"a histogram of {padded_bins} bins per feature "
+                        "does not fit one block's shared memory")
+
+
+def rows_direct_feats(f: int, padded_bins: int) -> int:
+    """The most features one one-launch block stages: those its
+    ``ROWS_WARPS`` consecutive (feature, 32-bin range) units span."""
+    r = -(-int(padded_bins) // ROWS_RANGE)
+    units = int(f) * r
+    return max((min(u0 + ROWS_WARPS, units) - 1) // r - u0 // r + 1
+               for u0 in range(0, units, ROWS_WARPS))
 
 
 def rows_blocks(max_rows: int, padded_bins: int) -> int:
@@ -269,6 +320,47 @@ def rows_blocks(max_rows: int, padded_bins: int) -> int:
     scale = max(1, int(padded_bins) // 256)
     per = ROWS_PER_BLOCK * scale
     return max(1, min(MAX_BLOCKS // scale, -(-int(max_rows) // per)))
+
+
+class RowsGeometry(NamedTuple):
+    """One ``hist_rows`` call's launch geometry.
+
+    ``slices`` position slices (:func:`rows_blocks`).  At up to
+    ``ROWS_DIRECT_SLICES`` (``direct``) one launch of
+    ``hist_rows_direct``: ``grid[0]`` blocks of ``ROWS_WARPS`` warps,
+    warp ``w`` of block ``x`` owning unit ``u = x * ROWS_WARPS + w``
+    below ``f * bin_parts``: feature ``u // bin_parts``, bins ``[(u %
+    bin_parts) * 32, ... + 32)``, one cell a lane, for every slice;
+    ``feats`` the most features a block stages.  At more slices
+    ``hist_rows_partial`` on ``grid`` (slices, feature chunks) with
+    ``feats`` features a block (``bin_parts`` 1: a warp owns its feature's
+    every bin), then the reduction in a second launch.  The wrapper
+    passes the geometry to the library as it is (``smem`` is the
+    library's own figure at ``feats``, which the analyzer holds against
+    it); the library only refuses one that misses a cell."""
+    slices: int
+    direct: bool
+    grid: Tuple[int, int]
+    feats: int
+    bin_parts: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def rows_geometry(f: int, padded_bins: int, bin_bytes: int,
+                  slices: int) -> RowsGeometry:
+    """The geometry of a ``hist_rows`` call over ``f`` features of
+    ``padded_bins`` bins of ``bin_bytes`` bytes cut into ``slices``."""
+    f, b = int(f), int(padded_bins)
+    if slices <= ROWS_DIRECT_SLICES:
+        parts = -(-b // ROWS_RANGE)
+        nf = rows_direct_feats(f, b)
+        return RowsGeometry(int(slices), True,
+                            (-(-f * parts // ROWS_WARPS), 1), nf, parts,
+                            rows_direct_smem_bytes(nf, bin_bytes))
+    fc = rows_feature_chunk(b, bin_bytes)
+    return RowsGeometry(int(slices), False, (int(slices), -(-f // fc)), fc,
+                        1, rows_smem_bytes(fc, b, bin_bytes))
 
 
 def build_histogram_rows_ref(bins: torch.Tensor, vals: torch.Tensor,
@@ -303,24 +395,9 @@ def build_histogram_rows_ref(bins: torch.Tensor, vals: torch.Tensor,
 def _rows_lib():
     lib = _build.load("hist_rows")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hist_rows.argtypes = [p, i] + [p] * 5 + [i] * 5 + [p]
+    lib.hist_rows.argtypes = [p, i] + [p] * 5 + [i] * 9 + [p]
     lib.hist_rows.restype = i
-    lib.hist_rows_smem_bytes.argtypes = [i, i, i]
-    lib.hist_rows_smem_bytes.restype = i
     return lib
-
-
-def rows_feature_chunk(lib, padded_bins: int, bin_bytes: int) -> int:
-    """Features per block: ROWS_FEATURES, halved until one block's
-    shared memory fits."""
-    fc = ROWS_FEATURES
-    while fc >= 1:
-        if lib.hist_rows_smem_bytes(fc, int(padded_bins), bin_bytes) \
-                <= MAX_SMEM:
-            return fc
-        fc //= 2
-    raise LightGBMError(f"a histogram of {padded_bins} bins per feature "
-                        "does not fit one block's shared memory")
 
 
 def build_histogram_rows(bins: torch.Tensor, vals: torch.Tensor,
@@ -330,7 +407,10 @@ def build_histogram_rows(bins: torch.Tensor, vals: torch.Tensor,
     selects (``count`` at most ``max_rows``) of ``index`` (i32, entries
     in ``[0, n)``), or of the rows themselves without one.  CPU tensors
     take :func:`build_histogram_rows_ref`; CUDA tensors launch the
-    kernel on the current stream."""
+    kernel on the current stream in the geometry :func:`rows_geometry`
+    picks (one launch where ``max_rows`` gives one or two slices), with
+    no host read, allocating only the output (and the partials at more
+    slices), so a CUDA graph can capture it."""
     dev = bins.device
     if dev.type == "cpu":
         return build_histogram_rows_ref(bins, vals, rng, index=index,
@@ -342,9 +422,10 @@ def build_histogram_rows(bins: torch.Tensor, vals: torch.Tensor,
     if (bins.dtype not in (torch.uint8, torch.uint16)
             or vals.dtype != torch.float32 or tuple(vals.shape) != (n, 2)
             or vals.device != dev or not bins.is_contiguous()
-            or not vals.is_contiguous()):
+            or not vals.is_contiguous() or vals.data_ptr() % 8):
         raise LightGBMError("hist_rows wants contiguous u8 or u16 bins "
-                            "[n, F] and f32 vals [n, 2] on one device")
+                            "[n, F] and 8-byte aligned f32 vals [n, 2] on "
+                            "one device")
     if index is not None and (index.device != dev
                               or index.dtype != torch.int32
                               or index.dim() != 1
@@ -355,21 +436,22 @@ def build_histogram_rows(bins: torch.Tensor, vals: torch.Tensor,
             or not rng.is_contiguous()):
         raise LightGBMError("rng must be a contiguous i32 [2] tensor "
                             "(start, count) on the bins' device")
-    lib = _rows_lib()
     bin_bytes = bins.element_size()
-    fc = rows_feature_chunk(lib, padded_bins, bin_bytes)
-    nslices = rows_blocks(max_rows, padded_bins)
-    partials = torch.empty((nslices, f, padded_bins, 2),
-                           dtype=torch.float32, device=dev)
+    geo = rows_geometry(f, padded_bins, bin_bytes,
+                        rows_blocks(max_rows, padded_bins))
     out = torch.empty((f, padded_bins, 2), dtype=torch.float32, device=dev)
+    partials = None if geo.direct else torch.empty(
+        (geo.slices, f, padded_bins, 2), dtype=torch.float32, device=dev)
     n_pos = n if index is None else index.shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.hist_rows(bins.data_ptr(), bin_bytes, vals.data_ptr(),
-                           None if index is None else index.data_ptr(),
-                           rng.data_ptr(), partials.data_ptr(),
-                           out.data_ptr(), n_pos, f, int(padded_bins), fc,
-                           nslices, stream)
+        rc = _rows_lib().hist_rows(
+            bins.data_ptr(), bin_bytes, vals.data_ptr(),
+            None if index is None else index.data_ptr(), rng.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            out.data_ptr(), n_pos, f, int(padded_bins), geo.slices,
+            int(geo.direct), geo.grid[0], geo.grid[1], geo.feats,
+            geo.bin_parts, stream)
     if rc != 0:
         raise LightGBMError(f"hist_rows kernel launch failed with CUDA "
                             f"error {rc}")

@@ -25,7 +25,10 @@ under ``--strict`` with the fixtures flagged.  The launch-cost probes
 (slice 9) bitwise or exactly their plain versions (``select_update``
 also through a replayed CUDA graph); ``hist_comb`` at 79, 80 and 136
 features bitwise its plain version, one feature chunk against several,
-and 136-feature training bit-identical to the CPU run.
+and 136-feature training bit-identical to the CPU run.  The row-indexed
+histogram in one launch and through partials (slice 11) bitwise its
+plain version at counts 0 to 32,769, and a geometry that misses a cell
+refused; the pack=2 copyback's canary records; both in replayed graphs.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
 row-order and 3ph routes), and the default route's equal slice 2's
@@ -277,6 +280,158 @@ def test_hist_rows_matches_plain(cuda, b, f, indexed, rng):
                           device=cuda) if indexed else None)
     hist_rows_case(bins, vals, rng, index, b, max(rng[1], 1), "test",
                    timed=False)
+
+
+HIST_ROWS_COUNTS = [0, 1, 31, 33, 255, 257, 3000, 16_384, 16_385, 32_769]
+
+
+@pytest.mark.parametrize("count", HIST_ROWS_COUNTS)
+@pytest.mark.parametrize("b", [256, 1024, 1040])
+@pytest.mark.parametrize("f", [28, 136])
+def test_hist_rows_one_and_more_slices(cuda, f, b, count):
+    """hist_rows at counts on both sides of a warp, a stage, the
+    one-slice edge (16,384 at B = 1024: one slice; 16,385: two, both one
+    launch of the direct kernel) and the direct kernel's edge (32,769:
+    three slices, the partial kernel and the reduction), from an odd
+    start through a permutation, with ``max_rows = count``: bitwise its
+    plain version on CPU copies, two launches bitwise."""
+    g = np.random.default_rng(f * b + count)
+    dt = np.uint8 if b <= 256 else np.uint16
+    n = 40_000
+    bins = torch.tensor(g.integers(0, b, size=(n, f)).astype(dt),
+                        device=cuda)
+    vals = torch.tensor(g.normal(size=(n, 2)).astype(np.float32),
+                        device=cuda)
+    index = torch.tensor(g.permutation(n).astype(np.int32), device=cuda)
+    hist_rows_case(bins, vals, (1001, count), index, b, max(count, 1),
+                   "test", timed=False)
+
+
+def test_hist_rows_in_a_graph(cuda):
+    """hist_rows captured in a CUDA graph (one slice and several) and
+    replayed on new values: bitwise the eager call on them."""
+    from lightgbm_tpu_torch.ops.hist_kernel2 import build_histogram_rows
+    from lightgbm_tpu_torch.tools.profile_lib import capture
+    g = np.random.default_rng(5)
+    n = 40_000
+    bins = torch.tensor(g.integers(0, 1024, size=(n, 28)).astype(np.uint16),
+                        device=cuda)
+    vals = torch.tensor(g.normal(size=(n, 2)).astype(np.float32),
+                        device=cuda)
+    index = torch.tensor(g.permutation(n).astype(np.int32), device=cuda)
+    for count in (3000, 30_000):
+        rng = torch.tensor([7, count], dtype=torch.int32, device=cuda)
+        held = {}
+
+        def call():
+            held["out"] = build_histogram_rows(
+                bins, vals, rng, index=index, padded_bins=1024,
+                max_rows=count)
+        graph = capture(call)
+        vals.copy_(torch.tensor(g.normal(size=(n, 2)).astype(np.float32)))
+        graph.replay()
+        want = build_histogram_rows(bins, vals, rng, index=index,
+                                    padded_bins=1024, max_rows=count)
+        torch.cuda.synchronize()
+        assert torch.equal(held["out"], want)
+
+
+def _records(cuda, n, f, seed):
+    from lightgbm_tpu_torch.ops.device_data import PackedRows, RecordLayout
+    lay = RecordLayout(f)
+    g = np.random.default_rng(seed)
+
+    def buf():
+        return PackedRows(torch.tensor(
+            g.integers(0, 256, size=(n, lay.stride)).astype(np.uint8),
+            device=cuda), lay)
+    return buf(), buf()
+
+
+@pytest.mark.parametrize("f", [28, 40])
+@pytest.mark.parametrize("where", ["one", "odd", "to_end", "stage-1",
+                                   "stage", "stage+1", "many"])
+def test_copyback_p2_span_and_canaries(cuda, f, where):
+    """copyback_p2 copies exactly records [s0, s0 + cnt) from scratch
+    (one record; an odd s0 and cnt; a segment ending at the buffer's last
+    record; the 16 KiB one step of a block moves, and one record either
+    side; 19 MB, every block taking several steps) and
+    leaves the records on both sides, random canaries, untouched: the
+    whole buffer equals its plain version's byte for byte."""
+    from lightgbm_tpu_torch.ops.partition_kernel import (copyback_p2,
+                                                         copyback_p2_ref)
+    n = 300_000
+    rows, scratch = _records(cuda, n, f, f)
+    per_step = 16 * 1024 // rows.layout.stride
+    s0, cnt = {"one": (777, 1), "odd": (1, 10_001),
+               "to_end": (n - 40_003, 40_003),
+               "stage-1": (3, per_step - 1), "stage": (5, per_step),
+               "stage+1": (11, per_step + 1), "many": (7, n - 8)}[where]
+    orig = rows.buf.clone()
+    want = orig.clone()
+    want[s0:s0 + cnt] = scratch.buf[s0:s0 + cnt]
+    before = copyback_p2.launches
+    copyback_p2(rows, scratch, s0, cnt)
+    torch.cuda.synchronize()
+    assert copyback_p2.launches - before == 1
+    assert torch.equal(rows.buf, want)
+    # the plain version moves the records' fields (not their pad
+    # bytes); random bytes hold NaNs, so the fields compare as integers
+    ref = type(rows)(orig.cpu(), rows.layout)
+    copyback_p2_ref(ref, type(rows)(scratch.buf.cpu(), rows.layout), s0,
+                    cnt)
+    for a, b in zip(ref.fields(), type(rows)(rows.buf.cpu(),
+                                             rows.layout).fields()):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def test_copyback_p2_in_a_graph(cuda):
+    """copyback_p2 captured in a CUDA graph and replayed on new scratch
+    bytes copies them, bitwise, and leaves the other records as they
+    were."""
+    from lightgbm_tpu_torch.ops.partition_kernel import copyback_p2
+    from lightgbm_tpu_torch.tools.profile_lib import capture
+    rows, scratch = _records(cuda, 200_000, 28, 3)
+    s0, cnt = 999, 150_001
+    graph = capture(lambda: copyback_p2(rows, scratch, s0, cnt))
+    scratch.buf.copy_(torch.randint(0, 256, scratch.buf.shape,
+                                    dtype=torch.uint8, device=cuda))
+    keep = rows.buf.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    keep[s0:s0 + cnt] = scratch.buf[s0:s0 + cnt]
+    assert torch.equal(rows.buf, keep)
+
+
+def test_hist_rows_library_refuses_a_short_geometry(cuda):
+    """The library launches the geometry the wrapper passes and refuses
+    one that misses a cell: the one-launch kernel at three slices, too
+    few blocks or bin ranges, and the partial kernel without partials."""
+    from lightgbm_tpu_torch.ops.hist_kernel2 import _rows_lib, rows_geometry
+    n, f, b = 1000, 28, 1024
+    bins = torch.zeros((n, f), dtype=torch.uint16, device=cuda)
+    vals = torch.zeros((n, 2), dtype=torch.float32, device=cuda)
+    rng = torch.tensor([0, n], dtype=torch.int32, device=cuda)
+    out = torch.empty((f, b, 2), dtype=torch.float32, device=cuda)
+    partials = torch.empty((3, f, b, 2), dtype=torch.float32, device=cuda)
+    one, three = rows_geometry(f, b, 2, 1), rows_geometry(f, b, 2, 3)
+
+    def launch(geo, slices, direct, grid, parts, part_ptr):
+        return _rows_lib().hist_rows(
+            bins.data_ptr(), 2, vals.data_ptr(), None, rng.data_ptr(),
+            part_ptr, out.data_ptr(), n, f, b, slices, direct, grid[0],
+            grid[1], geo.feats, parts, torch.cuda.current_stream().cuda_stream)
+    assert launch(one, 1, 1, one.grid, one.bin_parts, None) == 0
+    assert launch(three, 3, 0, three.grid, 1, partials.data_ptr()) == 0
+    for bad in ((one, 3, 1, one.grid, one.bin_parts, None),
+                (one, 1, 1, (one.grid[0] - 1, 1), one.bin_parts, None),
+                (one, 1, 1, one.grid, one.bin_parts - 1, None),
+                (three, 3, 0, three.grid, 1, None),
+                (three, 3, 0, (2, three.grid[1]), 1, partials.data_ptr())):
+        assert launch(*bad) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("max_bin,env", [(1023, {}),

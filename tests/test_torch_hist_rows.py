@@ -25,10 +25,15 @@ from lightgbm_tpu.ops.histogram import build_histogram as jax_histogram
 from lightgbm_tpu.ops.histogram import feature_group_size
 from lightgbm_tpu.ops.pallas.hist_kernel import build_histogram_pallas
 from lightgbm_tpu.ops.pallas.hist_kernel2 import build_histogram_pallas2
-from lightgbm_tpu_torch.ops.hist_kernel2 import (block_ranges, hist_blocks,
+from lightgbm_tpu_torch.ops.hist_kernel2 import (MAX_SMEM, ROWS_RANGE,
+                                                 ROWS_WARPS, block_ranges,
+                                                 hist_blocks,
                                                  build_histogram_rows,
                                                  build_histogram_rows_ref,
-                                                 rows_blocks)
+                                                 rows_blocks,
+                                                 rows_direct_smem_bytes,
+                                                 rows_geometry,
+                                                 rows_smem_bytes)
 from lightgbm_tpu_torch.ops.histogram import build_histogram
 from lightgbm_tpu_torch.utils.log import LightGBMError
 
@@ -156,3 +161,71 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(LightGBMError, match="cuda or cpu"):
         build_histogram_rows(bins, vals, _rng(0, 4), padded_bins=16,
                              max_rows=4)
+
+
+def _cell_writers(geo, f, b):
+    """[slices, F, B] writers of each cell under ``geo``, counted the way
+    the kernels map blocks and warps to cells: in one launch warp ``w``
+    of block ``x`` owns unit ``x * ROWS_WARPS + w`` (below ``f *
+    bin_parts``), feature ``u // bin_parts`` and bins ``[(u % bin_parts)
+    * 32, ... + 32)`` cut at ``b``, in every slice; with partials block
+    ``(x, y)`` owns slice ``x`` of features ``[y * feats, (y + 1) *
+    feats)`` cut at ``f``, every bin."""
+    writers = np.zeros((geo.slices, f, b), dtype=np.int64)
+    if geo.direct:
+        for x in range(geo.grid[0]):
+            for w in range(ROWS_WARPS):
+                u = x * ROWS_WARPS + w
+                if u >= f * geo.bin_parts:
+                    continue
+                lo = (u % geo.bin_parts) * ROWS_RANGE
+                writers[:, u // geo.bin_parts, lo:lo + ROWS_RANGE] += 1
+    else:
+        for x in range(geo.grid[0]):
+            for y in range(geo.grid[1]):
+                writers[x, y * geo.feats:(y + 1) * geo.feats, :] += 1
+    return writers
+
+
+@pytest.mark.parametrize("f", [1, 28, 136])
+@pytest.mark.parametrize("b,edge,bin_bytes", [
+    (256, 4096, 1), (256, 4096, 2), (1024, 16_384, 2), (1040, 16_384, 2)])
+def test_rows_geometry_one_writer_a_cell(f, b, edge, bin_bytes):
+    """The geometry of a hist_rows call around the one-slice edge and the
+    direct kernel's two-slice edge (``max_rows`` = edge: one slice;
+    edge + 1 and 2 * edge: two, still one launch of the direct kernel,
+    ceil(B / 32) bin parts a feature; 2 * edge + 1: three, the partial
+    kernel and the reduction, eight features a block or fewer): every
+    cell of every slice has exactly one writer, and a block's shared
+    memory fits the card."""
+    for max_rows, slices in ((1, 1), (edge, 1), (edge + 1, 2),
+                             (2 * edge, 2), (2 * edge + 1, 3),
+                             (1_000_000, rows_blocks(1_000_000, b))):
+        assert rows_blocks(max_rows, b) == slices
+        geo = rows_geometry(f, b, bin_bytes, slices)
+        assert geo.slices == slices
+        assert geo.direct == (slices <= 2)
+        if geo.direct:
+            assert geo.bin_parts == -(-b // ROWS_RANGE)
+            assert geo.grid == (-(-f * geo.bin_parts // ROWS_WARPS), 1)
+            assert 1 <= geo.feats <= min(f, ROWS_WARPS)
+            assert geo.smem == rows_direct_smem_bytes(geo.feats, bin_bytes)
+        else:
+            assert geo.bin_parts == 1
+            assert geo.grid == (slices, -(-f // geo.feats))
+            assert geo.smem == rows_smem_bytes(geo.feats, b, bin_bytes)
+        assert geo.smem <= MAX_SMEM
+        assert (_cell_writers(geo, f, b) == 1).all()
+
+
+def test_rows_geometry_direct_block_counts():
+    """In one launch a child of the row-order route (F = 28, B = 1024)
+    runs on 112 blocks, each staging one feature; at B = 1040 a block's
+    eight 32-bin ranges may span two features; at B = 256 a block is one
+    whole feature."""
+    assert rows_geometry(28, 1024, 2, rows_blocks(3000, 1024))[:5] == (
+        1, True, (112, 1), 1, 32)
+    assert rows_geometry(28, 1024, 2, rows_blocks(23_854, 1024))[:5] == (
+        2, True, (112, 1), 1, 32)
+    assert rows_geometry(28, 1040, 2, 1).feats == 2
+    assert rows_geometry(28, 256, 1, 1)[:5] == (1, True, (28, 1), 1, 8)
