@@ -62,7 +62,13 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    trees' smaller children (and at 3,000 rows), eager and as one replay
    of a CUDA graph of 20 calls, beside ``index_add_`` both ways and the
    bound, each case bitwise its plain version first and its kernels
-   read from a profiler trace (one launch at up to two slices); the 3ph
+   read from a profiler trace (one launch at up to two slices);
+   ``fused_split`` and ``fused_split_p2`` (slice 12) timed at the 1M-row
+   root and at the quartiles and largest child of the default route's
+   split segments, eager and in a graph, beside the plain version and
+   the bound, each case bitwise its plain version first and its kernels
+   read from a profiler trace (``count_tiles``, ``fused_scatter``,
+   ``fused_hist``, and ``reduce_partials`` above 16 slices); the 3ph
    route (slice 5, ``LGBM_TPU_PART=3ph``) for 3 iterations
    (``partition_3ph`` once per split, ``hist_comb`` per tree and per
    split, the plain refresh per tree), its trees printed beside the
@@ -1027,7 +1033,7 @@ ROUTE_KNOBS = ("LGBM_TPU_STREAM", "LGBM_TPU_FUSED", "LGBM_TPU_APPLY_IMPL",
                "LGBM_TPU_POOL_TAIL", "LGBM_TPU_COMB_PACK")
 # the port's kernels (PERF.md rows 1-16)
 OUR_KERNEL_NAMES = ("hist_comb", "partition_", "partition3ph", "copy_span",
-                    "count_tiles", "left_prefix", "fused_scatter",
+                    "count_tiles", "fused_scatter", "fused_hist",
                     "reduce_partials", "stream_", "apply_find", "hist_rows",
                     "copy_records")
 
@@ -1161,6 +1167,14 @@ def profile_iteration(bst, gpu: str) -> dict:
                   if any(o in k for o in OUR_KERNEL_NAMES)) / 1e3
     splits = max(bst._models[-1].num_leaves - 1, 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    # the fused split's kernels (csrc/fused_split.cu): ms an iteration
+    fused = {}
+    for k, (c, us) in by_name.items():
+        m = re.search(r"(count_tiles|fused_\w+|reduce_partials)", k)
+        if m:
+            a = fused.setdefault(m.group(1), [0, 0.0])
+            a[0] += c
+            a[1] += us / 1e3
     return {"measured": True, "route": bst._inner.grow.route.describe(),
             "wall_ms": wall_ms, "busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms, "kernels": len(kernels),
@@ -1172,6 +1186,8 @@ def profile_iteration(bst, gpu: str) -> dict:
             "our_kernels_ms": ours_ms,
             "other_kernels_ms_per_split": (busy_ms - ours_ms) / splits,
             "top": [[k[:60], c, us / 1e3] for k, (c, us) in top],
+            "fused_split_kernels": fused,
+            "fused_split_ms": sum(ms for _, ms in fused.values()),
             "gpu": gpu}
 
 
@@ -1779,6 +1795,83 @@ def copyback_p2_times(gpu: str, models) -> dict:
     res = {"times": out, "gpu": gpu}
     print("copyback_p2 times [ms] " + json.dumps(res), flush=True)
     del rows, scratch
+    return res
+
+
+def segment_sizes(models) -> dict:
+    """The split segments of the trees ``models`` (each split leaf's
+    rows, from the trees' internal counts): the count, the quartiles
+    over every split and the largest segment below a tree's root."""
+    every, below_root = [], []
+    for t in models:
+        counts = [int(c) for c in t.internal_count]
+        every += counts
+        below_root += counts[1:]
+    every = np.sort(np.asarray(every, dtype=np.int64))
+    at = {q: int(every[int(round(q * (len(every) - 1)))])
+          for q in (0.25, 0.5, 0.75)}
+    return {"splits": int(len(every)), "q25": at[0.25], "median": at[0.5],
+            "q75": at[0.75], "max_child": int(max(below_root))}
+
+
+def fused_split_times(gpu: str, models) -> dict:
+    """Slice 12: fused_split and fused_split_p2 on 1M seeded rows
+    (``tools/profile_fused.make_rows``) at the 1M-row root and at the
+    quartiles and the largest child of the default route's split
+    segments (``models``' trees), eager (20 calls) and as one replay of
+    a graph of 20 calls, beside the plain version on the card and the
+    bound.  Each case's histograms, scratch rows and nleft are held
+    bitwise against the plain version on CPU copies first, and the
+    kernels one call launches (and their blocks) are read from a
+    profiler trace: count_tiles, fused_scatter, fused_hist, and
+    reduce_partials only where the geometry does not fold."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import Rows, pack_rows
+    from lightgbm_tpu_torch.ops.fused_split import (fused_geometry,
+                                                    fused_split,
+                                                    fused_split_p2)
+    from lightgbm_tpu_torch.tools.profile_fused import (make_rows,
+                                                        segment_sel,
+                                                        time_segment)
+    dev = torch.device("cuda")
+    arrays = make_rows()
+    rows = Rows(*(torch.tensor(a, device=dev) for a in arrays))
+    packed = pack_rows(rows)
+    cpu_rows = Rows(*(torch.tensor(a) for a in arrays))
+    sizes = segment_sizes(models)
+    print("default route split segments " + json.dumps(sizes), flush=True)
+    n, f = rows.bins.shape
+    b = 256
+    out = []
+    for label in ("root", "q25", "median", "q75", "max_child"):
+        cnt = n if label == "root" else sizes[label]
+        rec = time_segment(rows, packed, cpu_rows, cnt, plain=True)
+        rec["case"] = label
+        sel = segment_sel(cnt, n)
+        scr1 = Rows(*(torch.empty_like(a) for a in rows))
+        scr2 = type(packed)(torch.empty_like(packed.buf), packed.layout)
+        nl = torch.zeros(1, dtype=torch.int32, device=dev)
+        for pack, fn in ((1, lambda: fused_split(rows, scr1, sel, nl,
+                                                 padded_bins=b)),
+                         (2, lambda: fused_split_p2(packed, scr2, sel, nl,
+                                                    padded_bins=b))):
+            geo = fused_geometry(f, b, cnt)
+            want = ["count_tiles", "fused_scatter", "fused_hist"]
+            if geo.slices > 1 and not geo.fold:
+                want.append("reduce_partials")
+            kernels = kernels_of_call(fn)
+            if [k for k, _ in kernels] != want:
+                raise RuntimeError(f"fused split pack={pack} {label} "
+                                   f"launched {kernels}, not {want}")
+            key = "" if pack == 1 else "p2_"
+            rec[f"{key}kernels_a_call"] = kernels
+            rec[f"{key}geometry"] = geo._asdict()
+        del scr1, scr2
+        out.append(rec)
+    res = {"segments": sizes, "times": out, "gpu": gpu}
+    print("fused_split times [ms] " + json.dumps(res), flush=True)
+    del rows, packed
     return res
 
 
@@ -2627,6 +2720,7 @@ def train_phases(gpu: str) -> list:
     bst3, main3, bst4, off, parity3 = row_order_phases(
         gpu, ds, valid, ds_wide, valid_wide, x, bst)
     rows_times = hist_rows_times(gpu, ds_wide, bst3._models)
+    fused_times = fused_split_times(gpu, bst._models)
     bst5, main5, pool5, parity5 = part_3ph_phases(gpu, ds, valid, x, bst)
     bst6, main6, parity6 = pack2_phases(gpu, ds, valid, x, bst)
     copy_times = copyback_p2_times(gpu, bst6._models)
@@ -2684,6 +2778,9 @@ def train_phases(gpu: str) -> list:
     by_name["hist_rows"]["child_sizes"] = rows_times["child_sizes"]
     by_name["hist_rows"]["times"] = rows_times["times"]
     by_name["copyback_p2"]["times"] = copy_times["times"]
+    for name in ("fused_split", "fused_split_p2"):
+        by_name[name]["segments"] = fused_times["segments"]
+        by_name[name]["times"] = fused_times["times"]
     by_name["apply_find"]["plain_entry_launches"] = \
         pool5["launches"]["apply_find"]
     by_name["apply_find"]["plain_entry_launched_on"] = "LGBM_TPU_POOL_TAIL=0"

@@ -6,7 +6,8 @@ wrappers' own Python (``ops/*.py``), the tensors as the kernels
 address them: 1,000,000 rows x 28 features, u8 bins at B = 256 (the
 default, slice 2, 3ph and pack=2 routes) and u16 bins at B = 1024 (the
 row-order route), pack 1 (five arrays) and pack 2 (64-byte records), the
-split kernels on the 1M-row segment, the tails at B = 256, serving 100
+split kernels on the 1M-row segment (the fused split's histogram pass
+also on the median segment's geometry), the tails at B = 256, serving 100
 trees x 255 leaves over a 65,536-row bucket, ``hist_comb`` also at the
 wide edge (136 features in two chunks of 68), the fixture kernels at
 their legal geometries, the launch-cost probes at their tools'
@@ -36,6 +37,9 @@ S = REC.stride
 THREADS = 256
 PALLAS = "lightgbm_tpu/ops/pallas"
 FUSED = {1: f"{PALLAS}/fused_split.py:346", 2: f"{PALLAS}/fused_split.py:417"}
+# the default route's median split segment (the pack=2 route's trees are
+# its trees bit for bit)
+MEDIAN_SEGMENT = 13_128
 
 
 def _grid(x):
@@ -234,29 +238,33 @@ def _partition():
 
 
 def _fused():
-    nb = hk.hist_blocks(N // 2 + 1)
-    tiles = -(-N // SCAN_TILE)
-    register_kernel(KernelEntry(
-        name="fused_split_prefix", source="fused_split",
-        symbol="left_prefix", block=_block(THREADS),
-        dyn_smem=0,
-        args=(vec_arg("tile_left", "int32", (tiles, 1), 4),
-              vec_arg("lprefix", "int32", (tiles + 1, 1), 4)),
-        wrapper="fused_split.fused_split", replaces=FUSED[1]))
+    """The partition pass on the 1M-row segment (scratch and the
+    feature-major copy, either pack), the histogram pass over the copy at
+    the root's geometry and the median segment's, the reduction at the
+    root's slices."""
+    copy = (vec_arg("cols", "uint8", (F, N), 1),
+            vec_arg("gv", "float32", (N, 2), 8))
     for pack, rows in ((1, "part::RowPtrs"), (2, "part::RecPtr")):
         sfx = "_p2" if pack == 2 else ""
-        args = (_rows_args() + _rows_args("s") if pack == 1
-                else (_records(), _records("sbase")))
         register_kernel(KernelEntry(
-            name=f"fused_split{sfx}", source="fused_split",
-            symbol=f"fused_scatter_hist<{rows}>",
-            block=_block(THREADS), dyn_smem=fs.smem_bytes(F, B),
-            args=args + (vec_arg("partials", "float32",
-                                 (2 * nb, F, B, 2), 4),),
-            wrapper=f"fused_split.fused_split{sfx}", replaces=FUSED[pack],
-            export=("fused_split_smem_bytes", (F, B))))
-    _reduce("fused_split", "fused_split.fused_split", FUSED[1], nb,
-            sets=2)
+            name=f"fused_scatter{sfx}", source="fused_split",
+            symbol=f"fused_scatter<{rows}>", block=_block(THREADS),
+            dyn_smem=0,
+            args=(_rows_args() + _rows_args("s") if pack == 1
+                  else (_records(), _records("sbase"))) + copy,
+            wrapper=f"fused_split.fused_split{sfx}", replaces=FUSED[pack]))
+    for where, cnt in (("root", N), ("median", MEDIAN_SEGMENT)):
+        geo = fs.fused_geometry(F, B, cnt)
+        register_kernel(KernelEntry(
+            name=f"fused_hist_{where}", source="fused_split",
+            symbol="fused_hist", block=_block(THREADS), dyn_smem=geo.smem,
+            args=copy + (vec_arg("partials", "float32",
+                                 (2 * geo.slices, F, B, 2), 4),
+                         vec_arg("out", "float32", (2, F, B, 2), 4)),
+            wrapper="fused_split.fused_split", replaces=FUSED[1],
+            export=("fused_hist_smem_bytes", (geo.feats, geo.parts, B))))
+    _reduce("fused_split", "fused_split.fused_split", FUSED[1],
+            fs.fused_geometry(F, B, N).slices, sets=2)
 
 
 def _apply_find():

@@ -23,8 +23,10 @@ statement that names a started copy's destination before the next wait
 reads it in flight (``ASYNC_READ_BEFORE_WAIT``); a copy started after the
 last commit is never committed (``ASYNC_NEVER_COMMITTED``, a warning, as
 the JAX pass's ``DMA_NEVER_STARTED``).  The reading is straight-line: a
-wait in another branch or iteration counts as a wait.  The port's kernels
-start no asynchronous copy today, so the pass is clean on them; the
+wait in another branch or iteration counts as a wait, and a copy started
+inside a helper is not followed (``fused_hist`` in
+``csrc/fused_split.cu`` starts its ``cp.async`` copies in
+``cp_async16``), so the pass is clean on the port's kernels; the
 page-schedule audit of the JAX pass waits for ``ops/paged.py``.
 """
 from __future__ import annotations

@@ -29,6 +29,11 @@ and 136-feature training bit-identical to the CPU run.  The row-indexed
 histogram in one launch and through partials (slice 11) bitwise its
 plain version at counts 0 to 32,769, and a geometry that misses a cell
 refused; the pack=2 copyback's canary records; both in replayed graphs.
+The fused split's two passes (slice 12), both packs, bitwise their plain
+version run on CPU copies on adversarial splits (all rows to one side,
+one row, an odd start, NaN and one-hot descriptors, counts at the slice,
+mode and fold edges; F = 27, 28, 71, B = 64, 256), in a replayed graph,
+and a geometry that misses a row or a cell refused.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
 row-order and 3ph routes), and the default route's equal slice 2's
@@ -432,6 +437,159 @@ def test_hist_rows_library_refuses_a_short_geometry(cuda):
                 (three, 3, 0, (2, three.grid[1]), 1, partials.data_ptr())):
         assert launch(*bad) != 0
     torch.cuda.synchronize()
+
+
+# -- slice 12: the fused split's two passes ----------------------------------
+# (s0, cnt, feat, sbin, default_left, is_cat, nan_bin) on rows of F
+# features, bins below n_bins (feature 0's NaN bin n_bins - 1)
+FUSED_CASES = {
+    "all_left": (3, 20_000, 1, 300, 0, 0, -1),
+    "all_right": (5, 20_000, 2, -1, 0, 0, -1),
+    "one_row": (7, 1, 0, 10, 1, 0, -1),
+    "odd_s0_nan_left": (1, 13_129, 0, 50, 1, 0, "nan"),
+    "nan_right": (2, 13_128, 0, 50, 0, 0, "nan"),
+    "one_hot": (9, 30_001, 3, 17, 0, 1, -1),
+    "slice_edge_8190": (11, 8190, 1, 30, 0, 0, -1),
+    "slice_edge_8192": (11, 8192, 1, 30, 0, 0, -1),
+    "slice_edge_8194": (11, 8194, 1, 30, 0, 0, -1),
+    # the last count in range mode, and the first in feature mode
+    "mode_edge_65534": (13, 65_534, 2, 40, 0, 0, -1),
+    "mode_edge_65536": (13, 65_536, 2, 40, 0, 0, -1),
+    # the last count whose blocks fold the partials, and the first with
+    # the reduction
+    "fold_edge_131070": (1, 131_070, 0, 60, 1, 0, "nan"),
+    "fold_edge_131072": (1, 131_072, 0, 60, 1, 0, "nan"),
+}
+FUSED_SHAPES = [(28, 256), (27, 256), (71, 256), (28, 64)]
+
+
+def _fused_rows(cuda, f, b, seed):
+    from lightgbm_tpu_torch.ops.device_data import pack_rows
+    arrays = random_row_matrix(140_000, f, seed, n_bins=b - 1,
+                               nan_bin=b - 1)
+    rows = rows_on(arrays, cuda)
+    return rows, pack_rows(rows), rows_on(arrays, "cpu")
+
+
+@pytest.mark.parametrize("f,b", FUSED_SHAPES)
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_split_both_packs_bitwise(cuda, f, b, case):
+    """fused_split and fused_split_p2 bitwise their plain version run on
+    CPU copies (both histograms, the scratch segment, nleft) on
+    adversarial splits, one counted launch each."""
+    from lightgbm_tpu_torch.ops.device_data import PackedRows, Rows
+    from lightgbm_tpu_torch.ops.fused_split import (fused_split,
+                                                    fused_split_p2,
+                                                    fused_split_ref)
+    rows, packed, cpu_rows = _fused_rows(cuda, f, b, f + b)
+    sel = list(FUSED_CASES[case])
+    sel[6] = b - 1 if sel[6] == "nan" else sel[6]
+    s0, cnt = sel[0], sel[1]
+    seg = slice(s0, s0 + cnt)
+    scr_c = Rows(*(torch.zeros_like(a) for a in cpu_rows))
+    nl_c = torch.zeros(1, dtype=torch.int32)
+    ref = fused_split_ref(cpu_rows, scr_c, sel, nl_c, padded_bins=b)
+    nl = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+    scr1 = Rows(*(torch.zeros_like(a) for a in rows))
+    before = fused_split.launches
+    h1 = fused_split(rows, scr1, sel, nl, padded_bins=b)
+    torch.cuda.synchronize()
+    assert fused_split.launches - before == 1
+    assert int(nl) == int(nl_c)
+    assert torch.equal(h1.cpu(), ref)
+    for a, c in zip(scr1, scr_c):
+        assert torch.equal(a[seg].cpu(), c[seg])
+    nl.fill_(-1)
+    scr2 = PackedRows(torch.zeros_like(packed.buf), packed.layout)
+    before = fused_split_p2.launches
+    h2 = fused_split_p2(packed, scr2, sel, nl, padded_bins=b)
+    torch.cuda.synchronize()
+    assert fused_split_p2.launches - before == 1
+    assert int(nl) == int(nl_c)
+    assert torch.equal(h2.cpu(), ref)
+    for a, c in zip(scr2.fields(), scr_c):
+        assert torch.equal(a[seg].cpu(), c[seg])
+
+
+@pytest.mark.parametrize("pack", [1, 2])
+def test_fused_split_in_a_graph(cuda, pack):
+    """The fused split captured in a CUDA graph (range mode with folded
+    partials, and feature mode with the reduction) and replayed on new
+    gradients: bitwise the eager call on them."""
+    from lightgbm_tpu_torch.ops.device_data import (PackedRows, Rows,
+                                                    pack_rows)
+    from lightgbm_tpu_torch.ops.fused_split import (fused_split,
+                                                    fused_split_p2)
+    from lightgbm_tpu_torch.tools.profile_lib import capture
+    rows, packed, _ = _fused_rows(cuda, 28, 256, 3)
+    g = np.random.default_rng(8)
+    for cnt in (13_128, 139_000):
+        sel = (1, cnt, 0, 100, 1, 0, 255)
+        nl = torch.zeros(1, dtype=torch.int32, device=cuda)
+        held = {}
+        if pack == 1:
+            scr = Rows(*(torch.zeros_like(a) for a in rows))
+
+            def call():
+                held["out"] = fused_split(rows, scr, sel, nl,
+                                          padded_bins=256)
+        else:
+            scr = PackedRows(torch.zeros_like(packed.buf), packed.layout)
+
+            def call():
+                held["out"] = fused_split_p2(packed, scr, sel, nl,
+                                             padded_bins=256)
+        graph = capture(call)
+        rows.vals.copy_(torch.tensor(g.normal(size=(rows.vals.shape[0], 3))
+                                     .astype(np.float32), device=cuda))
+        if pack == 2:
+            packed.buf.copy_(pack_rows(rows).buf)
+        graph.replay()
+        got = held["out"].clone()
+        call()
+        torch.cuda.synchronize()
+        assert torch.equal(got, held["out"])
+
+
+def test_fused_split_library_refuses_a_short_geometry(cuda):
+    """The library launches the geometry the wrapper passes and refuses
+    one that misses a row or a cell: too few count tiles, too few
+    feature groups or range blocks, bin ranges that miss bins, a fold of
+    more slices than the blocks add, and several slices without
+    partials."""
+    from lightgbm_tpu_torch.ops.device_data import Rows
+    from lightgbm_tpu_torch.ops.fused_split import (_lib, _split_buffers,
+                                                    fused_geometry)
+    from lightgbm_tpu_torch.ops.partition_kernel import row_pointers
+    rows, _, _ = _fused_rows(cuda, 28, 256, 4)
+    scr = Rows(*(torch.zeros_like(a) for a in rows))
+    nl = torch.zeros(1, dtype=torch.int32, device=cuda)
+
+    def launch(cnt, tiles, slices, groups, feats, parts, fold,
+               partials=True):
+        geo = fused_geometry(28, 256, cnt)
+        ws, out, ptrs = _split_buffers(geo, 28, 256, cnt, cuda)
+        tk = torch.zeros(2 * groups, dtype=torch.int32, device=cuda)
+        pa = torch.empty((2, slices, 28, 256, 2), device=cuda)
+        rc = _lib().fused_split(
+            *row_pointers(rows), *row_pointers(scr), ptrs[0], nl.data_ptr(),
+            ptrs[1], ptrs[2], tk.data_ptr(),
+            pa.data_ptr() if partials else None, out.data_ptr(), 28, 256, 0,
+            cnt, 0, 100, 0, 0, -1, tiles, slices, groups, feats, parts,
+            int(fold), torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        return rc
+    # the wrapper's geometries launch
+    assert launch(13_128, 13, 2, 28, 0, 8, True) == 0
+    assert launch(139_000, 136, 17, 7, 4, 1, False) == 0
+    invalid = 1   # cudaErrorInvalidValue
+    for bad in ((13_128, 12, 2, 28, 0, 8, True),     # a row's tile missing
+                (13_128, 13, 2, 27, 0, 8, True),     # a range block missing
+                (13_128, 13, 2, 28, 0, 7, True),     # bins 224-255 missing
+                (139_000, 136, 17, 7, 3, 1, False),  # a feature missing
+                (139_000, 136, 17, 7, 4, 1, True)):  # 17 slices folded
+        assert launch(*bad) == invalid, bad
+    assert launch(13_128, 13, 2, 28, 0, 8, True, partials=False) == invalid
 
 
 @pytest.mark.parametrize("max_bin,env", [(1023, {}),
