@@ -515,6 +515,13 @@ fused_hist(const uint8_t* __restrict__ cols, const float2* __restrict__ gvs,
   for (int k = 0; k < steps; ++k) {
     cp_async_wait<kStages - 2>();
     __syncthreads();
+    // this step's stage, taken before another stage is refilled
+    const long long p0 = p_lo + (long long)k * kStageRows;
+    const int m = (int)min((long long)kStageRows, rows - (long long)k * kStageRows);
+    const uint8_t* s = ring + (k % kStages) * sb;
+    const float2* gv = reinterpret_cast<const float2*>(
+        s + sf * kColBytes
+        + (int)(reinterpret_cast<uintptr_t>(gvs + p0) & 15));
     // refill the stage the step before consumed
     const int kn = k + kStages - 1;
     if (kn < steps)
@@ -524,12 +531,6 @@ fused_hist(const uint8_t* __restrict__ cols, const float2* __restrict__ gvs,
                            rows - (long long)kn * kStageRows),
                   ring + (kn % kStages) * sb);
     cp_async_commit();
-    const long long p0 = p_lo + (long long)k * kStageRows;
-    const int m = (int)min((long long)kStageRows, rows - (long long)k * kStageRows);
-    const uint8_t* s = ring + (k % kStages) * sb;
-    const float2* gv = reinterpret_cast<const float2*>(
-        s + sf * kColBytes
-        + (int)(reinterpret_cast<uintptr_t>(gvs + p0) & 15));
     if (ranged) {
       if (owner) {
         const int n = list_cells(staged_col(s, cols, cnt, uf - fa, uf, p0),

@@ -7,7 +7,14 @@ bitwise against the plain version on CPU copies before anything is
 timed.
 
     python lightgbm_tpu_torch/tools/profile_fused.py \\
-        [--segments 1000000,13128] [--plain] [--package-root DIR]
+        [--segments 1000000,13128] [--plain] [--package-root DIR] \\
+        [--variants]
+
+``--variants`` times, instead, the pack=1 split at each segment on the
+histogram pass's other geometries (:func:`variant_geometries`: the
+partials reduced in a fourth launch instead of folded, range mode
+against feature mode at several feature groups), each held bitwise
+against the plain version first, in a replayed graph of 20 calls.
 
 Rows: 1,000,000 seeded rows x 28 features (uniform bins below 255, 5 %
 of feature 0's rows in the NaN bin 255), split on feature 0 at bin 120
@@ -130,6 +137,102 @@ def time_segment(rows, packed, cpu_rows, cnt: int, *, plain: bool = False,
     return rec
 
 
+def variant_geometries(f: int, b: int, cnt: int) -> list:
+    """[(label, FusedGeometry)] of the histogram pass at ``cnt`` rows:
+    the wrapper's choice ("chosen"), the same with its folded partials
+    reduced in a fourth launch ("reduce"), range mode ("range") and
+    feature mode at 1, 2, 4, 7, 14 and 28 feature groups ("feature<g>"),
+    each folding where the wrapper's rule would; a variant equal to the
+    chosen geometry is left out."""
+    from lightgbm_tpu_torch.ops.fused_split import (FOLD_SLICES,
+                                                    HIST_WARPS, RANGE_BINS,
+                                                    fused_geometry,
+                                                    hist_smem_bytes)
+    geo = fused_geometry(f, b, cnt)
+    fold = geo.slices <= FOLD_SLICES
+    out = [("chosen", geo)]
+    if geo.slices > 1 and geo.fold:
+        out.append(("reduce", geo._replace(fold=False)))
+    parts = -(-b // RANGE_BINS)
+    alt = [("range", geo._replace(groups=-(-f * parts // HIST_WARPS),
+                                  feats=0, parts=parts, fold=fold,
+                                  smem=hist_smem_bytes(0, parts, b)))]
+    for g in (1, 2, 4, 7, 14, 28):
+        feats = -(-f // min(g, f))
+        alt.append((f"feature{-(-f // feats)}", geo._replace(
+            groups=-(-f // feats), feats=feats, parts=1, fold=fold,
+            smem=hist_smem_bytes(feats, 1, b))))
+    seen = {geo}
+    for label, v in alt:
+        if v not in seen:
+            seen.add(v)
+            out.append((label, v))
+    return out
+
+
+def time_variants(rows, cpu_rows, cnt: int,
+                  padded_bins: int = PADDED_BINS) -> list:
+    """The pack=1 split of ``cnt`` rows on each of
+    :func:`variant_geometries`, launched through the library as the
+    wrapper launches it, held bitwise against the plain version on the
+    CPU copies, then timed in a replayed graph of 20 calls: one record
+    a variant."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import Rows
+    from lightgbm_tpu_torch.ops.fused_split import (_geometry_args, _lib,
+                                                    _split_buffers,
+                                                    fused_split_ref)
+    from lightgbm_tpu_torch.ops.partition_kernel import (row_pointers,
+                                                         split_args)
+    from lightgbm_tpu_torch.tools.profile_lib import graph_ms
+    dev = rows.bins.device
+    n, f = rows.bins.shape
+    sel = segment_sel(cnt, n)
+    s0 = sel[0]
+    seg = slice(s0, s0 + cnt)
+    scr_c = Rows(*(torch.zeros_like(a) for a in cpu_rows))
+    nl_c = torch.zeros(1, dtype=torch.int32)
+    ref = fused_split_ref(cpu_rows, scr_c, sel, nl_c, padded_bins=padded_bins)
+    scr = Rows(*(torch.zeros_like(a) for a in rows))
+    nl = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    out = []
+    for label, geo in variant_geometries(f, padded_bins, cnt):
+        held = {}
+
+        def call(geo=geo):
+            ws, hist, ptrs = _split_buffers(geo, f, padded_bins, cnt, dev)
+            rc = _lib().fused_split(
+                *row_pointers(rows), *row_pointers(scr), ptrs[0],
+                nl.data_ptr(), *ptrs[1:], hist.data_ptr(), f,
+                int(padded_bins), s0, cnt, *split_args(sel),
+                *_geometry_args(geo),
+                torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"{label} geometry {geo} refused: {rc}")
+            held["out"] = hist
+            del ws
+        nl.fill_(-1)
+        call()
+        same = (torch.equal(held["out"].cpu(), ref) and int(nl) == int(nl_c)
+                and all(torch.equal(a[seg].cpu(), c[seg])
+                        for a, c in zip(scr, scr_c)))
+        if not same:
+            raise RuntimeError(f"fused split at {cnt} rows on the {label} "
+                               "geometry differs from its plain version")
+
+        def many(call=call):
+            for _ in range(CALLS):
+                call()
+        graph, g = graph_ms(many, reps=5, warmup=1)
+        del g
+        torch.cuda.synchronize()
+        out.append({"rows": int(cnt), "variant": label,
+                    "geometry": geo._asdict(), "graph_ms": graph / CALLS,
+                    "bitwise_cpu_plain": True})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--segments", default=f"{N_ROWS}",
@@ -140,6 +243,9 @@ def main(argv=None) -> int:
                     default=str(Path(__file__).resolve().parents[2]),
                     help="directory holding the lightgbm_tpu_torch "
                          "package to time")
+    ap.add_argument("--variants", action="store_true",
+                    help="time the histogram pass's other geometries "
+                         "(pack=1) instead")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.package_root).resolve()))
     import torch
@@ -153,6 +259,11 @@ def main(argv=None) -> int:
     cpu_rows = Rows(*(torch.tensor(a) for a in arrays))
     import lightgbm_tpu_torch
     for cnt in (int(s) for s in args.segments.split(",")):
+        if args.variants:
+            for rec in time_variants(rows, cpu_rows, cnt):
+                rec["gpu"] = torch.cuda.get_device_name(0)
+                print(json.dumps(rec), flush=True)
+            continue
         rec = time_segment(rows, packed, cpu_rows, cnt, plain=args.plain)
         rec["package"] = str(Path(lightgbm_tpu_torch.__file__).parent)
         rec["gpu"] = torch.cuda.get_device_name(0)

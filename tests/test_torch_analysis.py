@@ -16,6 +16,7 @@ its fixtures: its lane pass is not asked to flag anything.
 import ast
 import json
 import os
+import re
 from pathlib import Path
 
 import jax
@@ -432,6 +433,56 @@ def test_cuda_scanner_ignores_comments_and_strings():
 
 def test_async_copy_is_clean_on_the_port():
     assert _run_on([], ["async-copy"]) == set()
+
+
+FUSED_SRC = REPO / "lightgbm_tpu_torch" / "csrc" / "fused_split.cu"
+
+
+def _fused_hist_findings(text: str):
+    stripped = strip_cuda(text)
+    helpers = async_copy.device_helpers(stripped)
+    kernel = next(k for k in cuda_kernels(stripped) if k.name == "fused_hist")
+    return helpers, async_copy.check_kernel(kernel.body, kernel.body_line,
+                                            helpers)
+
+
+def test_async_copy_follows_the_fused_splits_helpers():
+    """fused_hist starts, commits and waits for its cp.async copies only
+    through helpers: the pass sees each, and where a helper's copy
+    lands."""
+    helpers, found = _fused_hist_findings(FUSED_SRC.read_text())
+    assert helpers["cp_async16"].events == (("start", 0),)
+    assert helpers["copy_bytes"].events == (("start", 2),)
+    assert helpers["issue_stage"].events == (("start", 8),)
+    assert helpers["issue_stage"].params[8] == "s"
+    assert helpers["cp_async_commit"].events == (("commit", None),)
+    assert helpers["cp_async_wait"].events == (("wait", None),)
+    assert found == []
+
+
+def test_async_copy_catches_fused_hist_reading_its_refill():
+    """The ring's stage taken after the refill starts (the pass reads
+    names, so this reads the refill's destination in flight) is caught
+    in fused_hist; without the ring's wait, so is the commit."""
+    text = FUSED_SRC.read_text()
+    take = "    const uint8_t* s = ring + (k % kStages) * sb;\n"
+    commit = "                  ring + (kn % kStages) * sb);\n    cp_async_commit();\n"
+    assert text.count(take) == 1 and text.count(commit) == 1
+    moved = text.replace(take, "").replace(commit, commit + take)
+    _, found = _fused_hist_findings(moved)
+    assert [c for c, _, _ in found] == ["ASYNC_READ_BEFORE_WAIT"]
+    assert "'ring'" in found[0][2]
+    unwaited = re.sub(r"cp_async_wait<[^>]*>\(\);", ";", text)
+    _, found = _fused_hist_findings(unwaited)
+    assert "ASYNC_UNPAIRED_COMMIT" in [c for c, _, _ in found]
+
+
+def test_bad_async_fixture_catches_a_ring_refill_through_helpers():
+    report = run_analysis(passes=["async-copy"], fixtures=["bad_async"])
+    flagged = {(f.where.split(":")[1], f.code) for f in report.findings
+               if f.fixture}
+    assert ("refill_before_wait_kernel", "ASYNC_READ_BEFORE_WAIT") in flagged
+    assert len(flagged) == 4
 
 
 def test_host_pass_scopes():
