@@ -1824,13 +1824,13 @@ def fused_split_times(gpu: str, models) -> dict:
     bitwise against the plain version on CPU copies first, and the
     kernels one call launches (and their blocks) are read from a
     profiler trace: count_tiles, fused_scatter, fused_hist, and
-    reduce_partials only where the geometry does not fold."""
+    reduce_partials where the split has more than one slice."""
     import torch
 
     from lightgbm_tpu_torch.ops.device_data import Rows, pack_rows
-    from lightgbm_tpu_torch.ops.fused_split import (fused_geometry,
-                                                    fused_split,
+    from lightgbm_tpu_torch.ops.fused_split import (fused_split,
                                                     fused_split_p2)
+    from lightgbm_tpu_torch.ops.hist_kernel2 import hist_blocks
     from lightgbm_tpu_torch.tools.profile_fused import (make_rows,
                                                         segment_sel,
                                                         time_segment)
@@ -1841,7 +1841,7 @@ def fused_split_times(gpu: str, models) -> dict:
     cpu_rows = Rows(*(torch.tensor(a) for a in arrays))
     sizes = segment_sizes(models)
     print("default route split segments " + json.dumps(sizes), flush=True)
-    n, f = rows.bins.shape
+    n = rows.bins.shape[0]
     b = 256
     out = []
     for label in ("root", "q25", "median", "q75", "max_child"):
@@ -1856,9 +1856,8 @@ def fused_split_times(gpu: str, models) -> dict:
                                                  padded_bins=b)),
                          (2, lambda: fused_split_p2(packed, scr2, sel, nl,
                                                     padded_bins=b))):
-            geo = fused_geometry(f, b, cnt)
             want = ["count_tiles", "fused_scatter", "fused_hist"]
-            if geo.slices > 1 and not geo.fold:
+            if hist_blocks(cnt // 2 + 1) > 1:
                 want.append("reduce_partials")
             kernels = kernels_of_call(fn)
             if [k for k, _ in kernels] != want:
@@ -1866,7 +1865,6 @@ def fused_split_times(gpu: str, models) -> dict:
                                    f"launched {kernels}, not {want}")
             key = "" if pack == 1 else "p2_"
             rec[f"{key}kernels_a_call"] = kernels
-            rec[f"{key}geometry"] = geo._asdict()
         del scr1, scr2
         out.append(rec)
     res = {"segments": sizes, "times": out, "gpu": gpu}

@@ -40,7 +40,7 @@
 //    overlap the adds of this one.
 // 2. Small segments got a handful of blocks.  The histogram grid is
 //    (nblocks slices, 2 sides, groups), from the wrapper's geometry
-//    (ops/fused_split.fused_geometry).  Up to 8 slices (range mode) each
+//    (ops/fused_split.fused_geometry).  Up to 7 slices (range mode) each
 //    warp owns a 32-bin range of one feature, one cell a lane: it lists
 //    a stage's rows in its range with their values (list_cells: a ballot
 //    a 32-row step) and every lane walks the list in row order, adding
@@ -49,17 +49,22 @@
 //    group of whole features, a warp a feature: the lanes holding one bin
 //    form a group (found from one ballot a bit of the bin) whose lowest
 //    lane adds its values in lane (= row) order; as many groups as bring
-//    the launch to two blocks an SM (two at the 1M-row root).
+//    the launch to two blocks an SM (two at the 1M-row root).  Range
+//    mode was the faster of the two from 2 to 7 slices, feature mode
+//    from 8 (PERF.md).
 // 3. Rows were read four times (each feature group re-scanned and
 //    re-gathered every row).  Each row is read once by the partition
 //    pass; a histogram block reads only its features' columns and the
 //    values of its slice, one byte a row a feature and 8 bytes a row.
-// 4. Four dependent launches a split.  Three where nblocks <= kFoldSlices
-//    (count_tiles, fused_scatter, fused_hist): the last block of each
-//    (side, group), taken by an atomic ticket after __threadfence, adds
-//    the partials in slice order.  Above, that block's serial reduction
-//    would take longer than a launch, and histblock::reduce_partials
-//    runs as a fourth.
+// 4. Four dependent launches a split (count_tiles, left_prefix, the
+//    fused pass, reduce_partials).  Three where nblocks is 1
+//    (count_tiles, fused_scatter, fused_hist writing out); above, a
+//    fourth, histblock::reduce_partials, adds the slices' partials in
+//    slice order from 0.  The left prefix is summed by each scatter
+//    block itself.  Folding the partials into the last histogram block
+//    of each (side, group), taken by an atomic ticket, was timed against
+//    the fourth launch and gained nothing at 2, 8, 9 or 16 slices
+//    (PERF.md), so the reduction is the one path.
 //
 // Every cell of a slice has one writer and sums its rows in row order
 // from +0 in either mode, so the bits are those of the plain version
@@ -85,8 +90,6 @@ constexpr int kStageRows = 512;
 constexpr int kStages = 4;
 // bins a range-mode warp owns
 constexpr int kRange = 32;
-// the most slices the last block of a (side, block group) adds itself
-constexpr int kFoldSlices = 16;
 
 // -- the partition pass -----------------------------------------------------
 // One thread a row: a block moves one 1,024-row count tile.
@@ -201,21 +204,16 @@ __device__ __forceinline__ void move_row(const RecPtr& s, const RecPtr& d,
 // the tiles before it (their counts summed), the row's predicate and the
 // tile's ballot scan give every row its destination (left rows in
 // order, right rows reversed: partition_scan's layout), then each thread
-// moves its row.  The last block writes nleft; block 0 clears the
-// histogram pass's tickets.
+// moves its row.  The last block writes nleft.
 template <class Rows>
 __global__ void __launch_bounds__(kScatterThreads)
 fused_scatter(Rows rows, Rows scr, int F, Split sp,
               const int* __restrict__ tile_left, int* __restrict__ nleft,
-              uint8_t* __restrict__ cols, float2* __restrict__ gv,
-              int* __restrict__ tickets, int n_tickets) {
+              uint8_t* __restrict__ cols, float2* __restrict__ gv) {
   constexpr int kW = kScatterThreads / 32;
   __shared__ int part_sum[kW];
   __shared__ int warp_left[kW];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (blockIdx.x == 0)
-    for (int i = threadIdx.x; i < n_tickets; i += kScatterThreads)
-      tickets[i] = 0;
   // left rows of the tiles before this one
   int acc = 0;
   for (int b = threadIdx.x; b < (int)blockIdx.x; b += kScatterThreads)
@@ -451,14 +449,6 @@ __device__ __forceinline__ const uint8_t* staged_col(const uint8_t* s,
                  & 15);
 }
 
-// The nb partials of one cell (stride apart) added in slice order from 0.
-__device__ __forceinline__ float sum_partials(const float* p, int nb,
-                                              size_t stride) {
-  float acc = 0.f;
-  for (int b = 0; b < nb; ++b) acc += __ldcg(p + (size_t)b * stride);
-  return acc;
-}
-
 // Block (x, side, z) sums slice x of the side's positions of the
 // feature-major copy.  Feature mode (parts == 1): features [z * fg, z *
 // fg + fg), warp w owning features z * fg + w + 8 k, every bin.  Range
@@ -468,10 +458,9 @@ __device__ __forceinline__ float sum_partials(const float* p, int nb,
 __global__ void __launch_bounds__(kThreads, 1)
 fused_hist(const uint8_t* __restrict__ cols, const float2* __restrict__ gvs,
            int F, int B, int cnt, const int* __restrict__ nleft, int fg,
-           int parts, int fold, float* __restrict__ partials,
-           float* __restrict__ out, int* __restrict__ tickets) {
+           int parts, float* __restrict__ partials,
+           float* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int is_last;
   const int nb = gridDim.x, side = blockIdx.y, z = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool ranged = parts > 1;
@@ -562,22 +551,6 @@ fused_hist(const uint8_t* __restrict__ cols, const float2* __restrict__ gvs,
     dst[off + 1] = h;
   }
   for (int i = threadIdx.x; i < mine; i += kThreads) dst[off + i] = hist[i];
-  if (nb == 1 || !fold) return;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    is_last = atomicAdd(tickets + side * gridDim.z + z, 1) == nb - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  // the last block of (side, z): the partials in slice order from 0
-  const float* p = partials + (size_t)side * nb * all + off;
-  if (live_cell) {
-    out[side * all + off] = sum_partials(p, nb, all);
-    out[side * all + off + 1] = sum_partials(p + 1, nb, all);
-  }
-  for (int i = threadIdx.x; i < mine; i += kThreads)
-    out[side * all + off + i] = sum_partials(p + i, nb, all);
 }
 
 int set_smem(int smem) {
@@ -594,14 +567,14 @@ int set_smem(int smem) {
 // The launches of one fused split on the wrapper's geometry: tiles count
 // tiles; the histogram on (nblocks, 2, groups) blocks, in feature mode
 // (parts == 1) of fg features, in range mode (parts > 1) of 8 (feature,
-// 32-bin range) units; fold (nblocks <= kFoldSlices) or the reduction.
-// 0 or the CUDA error code, cudaErrorInvalidValue for a geometry that
-// misses a row or a cell.
+// 32-bin range) units; the reduction where nblocks > 1.  0 or the CUDA
+// error code, cudaErrorInvalidValue for a geometry that misses a row or
+// a cell.
 template <class Rows>
 int launch(Rows rows, Rows scr, int F, int B, const Split& sp, int tiles,
-           int nblocks, int groups, int fg, int parts, int fold,
-           int* tile_left, int* nleft, uint8_t* cols, float* gv,
-           int* tickets, float* partials, float* out, cudaStream_t s) {
+           int nblocks, int groups, int fg, int parts, int* tile_left,
+           int* nleft, uint8_t* cols, float* gv, float* partials, float* out,
+           cudaStream_t s) {
   const bool cells_ok =
       parts == 1 ? (fg >= 1 && (long long)groups * fg >= F
                     && (long long)(groups - 1) * fg < F)
@@ -611,18 +584,15 @@ int launch(Rows rows, Rows scr, int F, int B, const Split& sp, int tiles,
                     && (long long)(groups - 1) * kWarps < (long long)F * parts);
   if (sp.cnt < 1 || tiles < 1 || (long long)tiles * kTile < sp.cnt
       || (long long)(tiles - 1) * kTile >= sp.cnt || nblocks < 1
-      || groups < 1 || !cells_ok || (nblocks > 1 && partials == nullptr)
-      || (fold && nblocks > kFoldSlices)
-      || (fold && nblocks > 1 && tickets == nullptr))
+      || groups < 1 || !cells_ok || (nblocks > 1 && partials == nullptr))
     return (int)cudaErrorInvalidValue;
-  const bool ticketed = fold && nblocks > 1;
   part::count_tiles<<<tiles, kThreads, 0, s>>>(
       part::bins_of(rows), part::bin_stride(rows, F), sp, tile_left);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   fused_scatter<Rows><<<tiles, kScatterThreads, 0, s>>>(
       rows, scr, F, sp, tile_left, nleft, cols,
-      reinterpret_cast<float2*>(gv), tickets, ticketed ? 2 * groups : 0);
+      reinterpret_cast<float2*>(gv));
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int smem = hist_smem(fg, parts, B);
@@ -630,9 +600,9 @@ int launch(Rows rows, Rows scr, int F, int B, const Split& sp, int tiles,
   if (rc != 0) return rc;
   fused_hist<<<dim3(nblocks, 2, groups), kThreads, smem, s>>>(
       cols, reinterpret_cast<const float2*>(gv), F, B, sp.cnt, nleft, fg,
-      parts, ticketed ? 1 : 0, partials, out, tickets);
+      parts, partials, out);
   e = cudaGetLastError();
-  if (e != cudaSuccess || nblocks == 1 || fold) return (int)e;
+  if (e != cudaSuccess || nblocks == 1) return (int)e;
   const int cells = F * B * 2;
   histblock::reduce_partials<<<histblock::reduce_grid(cells, 2), 256, 0,
                                s>>>(partials, nblocks, cells, 2, out);
@@ -654,41 +624,39 @@ int fused_hist_smem_bytes(int fg, int parts, int B) {
 // (ops/fused_split.fused_geometry): tiles = ceil(cnt / 1024) count
 // tiles; nblocks slices a side; groups histogram blocks a slice and
 // side, of fg features (parts == 1) or 8 (feature, 32-bin range) units
-// (parts = ceil(B / 32)); fold (1 up to 16 slices) has the histogram
-// blocks add the partials, else the reduction runs.  Scratch buffers:
-// tile_left i32 [tiles]; cols u8 [F, cnt] and gv f32 [cnt, 2] (8-byte
-// aligned), the feature-major copy of the partitioned segment; tickets
-// i32 [2 * groups] where fold and nblocks > 1 (else may be null);
-// partials f32 [2, nblocks, F, B, 2] where nblocks > 1 (else may be
-// null); nleft an i32 device scalar.  cnt must be > 0.  Returns the CUDA
+// (parts = ceil(B / 32)); above one slice the reduction adds the
+// partials.  Scratch buffers: tile_left i32 [tiles]; cols u8 [F, cnt]
+// and gv f32 [cnt, 2] (8-byte aligned), the feature-major copy of the
+// partitioned segment; partials f32 [2, nblocks, F, B, 2] where
+// nblocks > 1 (else may be null); nleft an i32 device scalar.  cnt must be > 0.  Returns the CUDA
 // error code (0 on success; cudaErrorInvalidValue for a geometry that
 // misses a row or a cell).
 int fused_split(uint8_t* bins, float* vals, int* rid, float* score,
                 float* consts, uint8_t* sbins, float* svals, int* srid,
                 float* sscore, float* sconsts, int* tile_left, int* nleft,
-                uint8_t* cols, float* gv, int* tickets, float* partials,
-                float* out, int F, int B, int s0, int cnt, int feat,
-                int sbin, int dl, int cat, int nanb, int tiles, int nblocks,
-                int groups, int fg, int parts, int fold, void* stream) {
+                uint8_t* cols, float* gv, float* partials, float* out, int F,
+                int B, int s0, int cnt, int feat, int sbin, int dl, int cat,
+                int nanb, int tiles, int nblocks, int groups, int fg,
+                int parts, void* stream) {
   return launch(RowPtrs{bins, vals, rid, score, consts},
                 RowPtrs{sbins, svals, srid, sscore, sconsts}, F, B,
                 Split{s0, cnt, feat, sbin, dl, cat, nanb}, tiles, nblocks,
-                groups, fg, parts, fold, tile_left, nleft, cols, gv, tickets,
-                partials, out, static_cast<cudaStream_t>(stream));
+                groups, fg, parts, tile_left, nleft, cols, gv, partials, out,
+                static_cast<cudaStream_t>(stream));
 }
 
 // The same over records: base and sbase u8 [n, S] (16-byte aligned), F
 // bins per record, vals at byte Fb.
 int fused_split_p2(uint8_t* base, uint8_t* sbase, int S, int Fb,
                    int* tile_left, int* nleft, uint8_t* cols, float* gv,
-                   int* tickets, float* partials, float* out, int F, int B,
-                   int s0, int cnt, int feat, int sbin, int dl, int cat,
-                   int nanb, int tiles, int nblocks, int groups, int fg,
-                   int parts, int fold, void* stream) {
+                   float* partials, float* out, int F, int B, int s0,
+                   int cnt, int feat, int sbin, int dl, int cat, int nanb,
+                   int tiles, int nblocks, int groups, int fg, int parts,
+                   void* stream) {
   return launch(RecPtr{base, S, Fb}, RecPtr{sbase, S, Fb}, F, B,
                 Split{s0, cnt, feat, sbin, dl, cat, nanb}, tiles, nblocks,
-                groups, fg, parts, fold, tile_left, nleft, cols, gv, tickets,
-                partials, out, static_cast<cudaStream_t>(stream));
+                groups, fg, parts, tile_left, nleft, cols, gv, partials, out,
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -82,17 +82,17 @@ def smem_bytes(num_features: int, padded_bins: int) -> int:
 
 
 # the histogram pass (csrc/fused_split.cu): rows a ring stage holds, the
-# ring's stages, the most slices its blocks fold themselves, a
-# range-mode warp's bins and a block's warps (kStageRows, kStages,
-# kFoldSlices, kRange, kWarps)
+# ring's stages, a range-mode warp's bins and a block's warps
+# (kStageRows, kStages, kRange, kWarps)
 STAGE_ROWS = 512
 STAGES = 4
-FOLD_SLICES = 16
 RANGE_BINS = 32
 HIST_WARPS = 8
 # slices up to which a warp owns a 32-bin range of one feature (range
-# mode); above, a warp owns whole features (feature mode)
-RANGE_SLICES = 8
+# mode); above, a warp owns whole features (feature mode): range mode
+# was the faster from 2 to 7 slices at F = 28, B = 256 and feature mode
+# at 8 (tools/profile_fused.py --variants on the H100)
+RANGE_SLICES = 7
 # feature-mode histogram blocks a launch aims at: two an SM of the H100
 FILL_BLOCKS = 2 * 132
 
@@ -135,18 +135,16 @@ class FusedGeometry(NamedTuple):
     block ``z`` owns unit ``u = z * 8 + w`` below ``F * parts``: feature
     ``u // parts``, bins ``[(u % parts) * 32, ... + 32)``.  Feature mode
     (``parts`` 1): block ``z`` sums features ``[z * feats, z * feats +
-    feats)``, a warp owning whole features.  ``fold``: the histogram
-    blocks add the slices' partials themselves (the last of each side
-    and group, by ticket), else the reduction runs in a fourth launch;
-    ``smem`` the library's own figure for a histogram block (held
-    against it by the analyzer).  The wrapper passes it to the library
+    feats)``, a warp owning whole features.  Above one slice the
+    reduction adds the slices' partials in a fourth launch.  ``smem``:
+    the library's own figure for a histogram block (held against it by
+    the analyzer).  The wrapper passes it to the library
     as it is; the library refuses one that misses a row or a cell."""
     tiles: int
     slices: int
     groups: int
     feats: int
     parts: int
-    fold: bool
     smem: int
 
     @property
@@ -156,10 +154,9 @@ class FusedGeometry(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def _hist_geometry(f: int, b: int, slices: int):
-    fold = slices <= FOLD_SLICES
     parts = -(-b // RANGE_BINS)
     if slices <= RANGE_SLICES and parts > 1:
-        return (-(-f * parts // HIST_WARPS), 0, parts, fold,
+        return (-(-f * parts // HIST_WARPS), 0, parts,
                 hist_smem_bytes(0, parts, b))
     groups = max(1, min(f, -(-FILL_BLOCKS // (2 * slices))))
     feats = -(-f // groups)
@@ -168,7 +165,7 @@ def _hist_geometry(f: int, b: int, slices: int):
         if feats == 0:
             raise LightGBMError(f"a histogram of {b} bins per feature does "
                                 "not fit one block's shared memory")
-    return (-(-f // feats), feats, 1, fold, hist_smem_bytes(feats, 1, b))
+    return (-(-f // feats), feats, 1, hist_smem_bytes(feats, 1, b))
 
 
 def fused_geometry(f: int, padded_bins: int, cnt: int) -> FusedGeometry:
@@ -189,9 +186,9 @@ def fused_geometry(f: int, padded_bins: int, cnt: int) -> FusedGeometry:
 def _lib():
     lib = _build.load("fused_split")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_split.argtypes = [p] * 17 + [i] * 15 + [p]
+    lib.fused_split.argtypes = [p] * 16 + [i] * 14 + [p]
     lib.fused_split.restype = i
-    lib.fused_split_p2.argtypes = [p] * 2 + [i] * 2 + [p] * 7 + [i] * 15 + [p]
+    lib.fused_split_p2.argtypes = [p] * 2 + [i] * 2 + [p] * 6 + [i] * 14 + [p]
     lib.fused_split_p2.restype = i
     lib.fused_hist_smem_bytes.argtypes = [i] * 3
     lib.fused_hist_smem_bytes.restype = i
@@ -208,17 +205,15 @@ def _check_split(sel, f: int, padded_bins: int) -> None:
 
 def _split_buffers(geo: FusedGeometry, f: int, padded_bins: int, cnt: int,
                    dev) -> tuple:
-    """(workspace, out, [tile_left, cols, gv, tickets, partials]) of one
-    launch: ``out`` f32 [2, F, B, 2], and the device addresses (0 for
-    none) of the launch's buffers, 256-byte aligned in one workspace:
-    tile_left i32 [tiles], the feature-major copy of the segment (cols
-    u8 [F, cnt], gv f32 [cnt, 2]), tickets i32 [2 * groups] only where
-    the blocks fold more than one slice, partials f32 [2, slices, F, B,
-    2] only where there is more than one slice.  Two allocations a
+    """(workspace, out, [tile_left, cols, gv, partials]) of one launch:
+    ``out`` f32 [2, F, B, 2], and the device addresses (0 for none) of
+    the launch's buffers, 256-byte aligned in one workspace: tile_left
+    i32 [tiles], the feature-major copy of the segment (cols u8 [F,
+    cnt], gv f32 [cnt, 2]), partials f32 [2, slices, F, B, 2] only where
+    there is more than one slice.  Two allocations a
     launch; the caller keeps the workspace alive until the launch is
     enqueued (the caching allocator orders its reuse on the stream)."""
     sizes = [4 * geo.tiles, f * cnt, 8 * cnt,
-             4 * 2 * geo.groups if geo.fold and geo.slices > 1 else 0,
              4 * 2 * geo.slices * f * padded_bins * 2 if geo.slices > 1
              else 0]
     ws = torch.empty(sum(-(-n // 256) * 256 for n in sizes),
@@ -233,8 +228,7 @@ def _split_buffers(geo: FusedGeometry, f: int, padded_bins: int, cnt: int,
 
 
 def _geometry_args(geo: FusedGeometry) -> list:
-    return [geo.tiles, geo.slices, geo.groups, geo.feats, geo.parts,
-            int(geo.fold)]
+    return [geo.tiles, geo.slices, geo.groups, geo.feats, geo.parts]
 
 
 def fused_split(rows: Rows, scratch: Rows, sel: Sequence[int],

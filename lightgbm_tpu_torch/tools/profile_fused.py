@@ -11,9 +11,8 @@ timed.
         [--variants]
 
 ``--variants`` times, instead, the pack=1 split at each segment on the
-histogram pass's other geometries (:func:`variant_geometries`: the
-partials reduced in a fourth launch instead of folded, range mode
-against feature mode at several feature groups), each held bitwise
+histogram pass's other geometries (:func:`variant_geometries`: range
+mode against feature mode at several feature groups), each held bitwise
 against the plain version first, in a replayed graph of 20 calls.
 
 Rows: 1,000,000 seeded rows x 28 features (uniform bins below 255, 5 %
@@ -139,28 +138,22 @@ def time_segment(rows, packed, cpu_rows, cnt: int, *, plain: bool = False,
 
 def variant_geometries(f: int, b: int, cnt: int) -> list:
     """[(label, FusedGeometry)] of the histogram pass at ``cnt`` rows:
-    the wrapper's choice ("chosen"), the same with its folded partials
-    reduced in a fourth launch ("reduce"), range mode ("range") and
-    feature mode at 1, 2, 4, 7, 14 and 28 feature groups ("feature<g>"),
-    each folding where the wrapper's rule would; a variant equal to the
-    chosen geometry is left out."""
-    from lightgbm_tpu_torch.ops.fused_split import (FOLD_SLICES,
-                                                    HIST_WARPS, RANGE_BINS,
+    the wrapper's choice ("chosen"), range mode ("range") and feature
+    mode at 1, 2, 4, 7, 14 and 28 feature groups ("feature<g>"); a
+    variant equal to the chosen geometry is left out."""
+    from lightgbm_tpu_torch.ops.fused_split import (HIST_WARPS, RANGE_BINS,
                                                     fused_geometry,
                                                     hist_smem_bytes)
     geo = fused_geometry(f, b, cnt)
-    fold = geo.slices <= FOLD_SLICES
     out = [("chosen", geo)]
-    if geo.slices > 1 and geo.fold:
-        out.append(("reduce", geo._replace(fold=False)))
     parts = -(-b // RANGE_BINS)
     alt = [("range", geo._replace(groups=-(-f * parts // HIST_WARPS),
-                                  feats=0, parts=parts, fold=fold,
+                                  feats=0, parts=parts,
                                   smem=hist_smem_bytes(0, parts, b)))]
     for g in (1, 2, 4, 7, 14, 28):
         feats = -(-f // min(g, f))
         alt.append((f"feature{-(-f // feats)}", geo._replace(
-            groups=-(-f // feats), feats=feats, parts=1, fold=fold,
+            groups=-(-f // feats), feats=feats, parts=1,
             smem=hist_smem_bytes(feats, 1, b))))
     seen = {geo}
     for label, v in alt:

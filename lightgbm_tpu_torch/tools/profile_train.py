@@ -6,7 +6,11 @@ served scores held against the training scores), then one profiled
 iteration (``chip_smoke.profile_iteration``): s/iteration (first, and
 the mean of the rest), the stages' ms a tree, holdout AUC, the
 device's busy share, kernels a split and the fused split's kernels' ms
-in the profiled iteration.
+in the profiled iteration.  For the host's share it also gives the
+caching allocator's device allocations, frees and retries over the
+training (``torch.cuda.memory_stats``) and the host operations of one
+more iteration under ``cProfile`` (the functions with the most time of
+their own, and the port's with the most time in all).
 
     python lightgbm_tpu_torch/tools/profile_train.py \\
         [--package-root DIR] [--routes default,pack2] [--iters 10]
@@ -27,6 +31,39 @@ from pathlib import Path
 
 # the fused split's kernels (either commit's) in a profiled iteration
 FUSED_KERNELS = re.compile(r"count_tiles|fused_\w+|reduce_partials")
+# the caching allocator's counters read around the training
+ALLOC_STATS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
+               "num_sync_all_streams")
+
+
+def host_top(bst, n: int = 15) -> dict:
+    """The host's time in one more iteration of ``bst`` under
+    ``cProfile``: {"wall_ms", "self": [[function, calls, ms of its
+    own]], "port": [[function, calls, ms in all]]}, the functions with
+    the most time of their own, and the port's with the most time in
+    all (a foreign call's time is its caller's own)."""
+    import cProfile
+    import pstats
+    import time
+
+    import torch
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    bst.update()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+
+    def rows(key, keep=lambda f: True):
+        got = sorted(((k, v) for k, v in stats.items() if keep(k[0])),
+                     key=lambda kv: -kv[1][key])[:n]
+        return [[f"{Path(f).name}:{line}:{fn}", v[1], v[key] * 1e3]
+                for (f, line, fn), v in got]
+    return {"wall_ms": wall_ms, "self": rows(2),
+            "port": rows(3, lambda f: "lightgbm_tpu_torch" in f)}
 
 
 def main(argv=None) -> int:
@@ -60,10 +97,14 @@ def main(argv=None) -> int:
                         reference=ds).construct()
     for name in args.routes.split(","):
         env = envs[name]
+        before = torch.cuda.memory_stats()
         bst, rec = cs.train_main_path(gpu, ds, valid, x, env, args.iters,
                                       f"{name} route")
+        after = torch.cuda.memory_stats()
+        alloc = {k: after.get(k, 0) - before.get(k, 0) for k in ALLOC_STATS}
         with cs.route_env(env):
             prof = cs.profile_iteration(bst, gpu)
+            top = host_top(bst)
         fused = {}
         for k, c, ms in prof.get("top", []):
             m = FUSED_KERNELS.search(k)
@@ -80,7 +121,8 @@ def main(argv=None) -> int:
             "busy_share": prof.get("busy_share"),
             "wall_ms": prof.get("wall_ms"), "busy_ms": prof.get("busy_ms"),
             "kernels_per_split": prof.get("kernels_per_split"),
-            "fused_split_kernels_top10": fused, "gpu": gpu}), flush=True)
+            "fused_split_kernels_top10": fused, "allocator": alloc,
+            "host_top": top, "gpu": gpu}), flush=True)
         del bst
         torch.cuda.empty_cache()
     return 0

@@ -31,8 +31,9 @@ plain version at counts 0 to 32,769, and a geometry that misses a cell
 refused; the pack=2 copyback's canary records; both in replayed graphs.
 The fused split's two passes (slice 12), both packs, bitwise their plain
 version run on CPU copies on adversarial splits (all rows to one side,
-one row, an odd start, NaN and one-hot descriptors, counts at the slice,
-mode and fold edges; F = 27, 28, 71, B = 64, 256), in a replayed graph,
+one row, an odd start, NaN and one-hot descriptors, counts at the slice
+and mode edges and at 16 and 17 slices; F = 27, 28, 71, B = 64, 256),
+in a replayed graph,
 and a geometry that misses a row or a cell refused.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
@@ -453,12 +454,11 @@ FUSED_CASES = {
     "slice_edge_8192": (11, 8192, 1, 30, 0, 0, -1),
     "slice_edge_8194": (11, 8194, 1, 30, 0, 0, -1),
     # the last count in range mode, and the first in feature mode
-    "mode_edge_65534": (13, 65_534, 2, 40, 0, 0, -1),
-    "mode_edge_65536": (13, 65_536, 2, 40, 0, 0, -1),
-    # the last count whose blocks fold the partials, and the first with
-    # the reduction
-    "fold_edge_131070": (1, 131_070, 0, 60, 1, 0, "nan"),
-    "fold_edge_131072": (1, 131_072, 0, 60, 1, 0, "nan"),
+    "mode_edge_57342": (13, 57_342, 2, 40, 0, 0, -1),
+    "mode_edge_57344": (13, 57_344, 2, 40, 0, 0, -1),
+    # 16 and 17 slices a side, the partials added by the reduction
+    "slices_16_131070": (1, 131_070, 0, 60, 1, 0, "nan"),
+    "slices_17_131072": (1, 131_072, 0, 60, 1, 0, "nan"),
 }
 FUSED_SHAPES = [(28, 256), (27, 256), (71, 256), (28, 64)]
 
@@ -513,9 +513,9 @@ def test_fused_split_both_packs_bitwise(cuda, f, b, case):
 
 @pytest.mark.parametrize("pack", [1, 2])
 def test_fused_split_in_a_graph(cuda, pack):
-    """The fused split captured in a CUDA graph (range mode with folded
-    partials, and feature mode with the reduction) and replayed on new
-    gradients: bitwise the eager call on them."""
+    """The fused split captured in a CUDA graph (range mode and feature
+    mode, each with the reduction) and replayed on new gradients:
+    bitwise the eager call on them."""
     from lightgbm_tpu_torch.ops.device_data import (PackedRows, Rows,
                                                     pack_rows)
     from lightgbm_tpu_torch.ops.fused_split import (fused_split,
@@ -554,9 +554,8 @@ def test_fused_split_in_a_graph(cuda, pack):
 def test_fused_split_library_refuses_a_short_geometry(cuda):
     """The library launches the geometry the wrapper passes and refuses
     one that misses a row or a cell: too few count tiles, too few
-    feature groups or range blocks, bin ranges that miss bins, a fold of
-    more slices than the blocks add, and several slices without
-    partials."""
+    feature groups or range blocks, bin ranges that miss bins, and
+    several slices without partials."""
     from lightgbm_tpu_torch.ops.device_data import Rows
     from lightgbm_tpu_torch.ops.fused_split import (_lib, _split_buffers,
                                                     fused_geometry)
@@ -565,31 +564,28 @@ def test_fused_split_library_refuses_a_short_geometry(cuda):
     scr = Rows(*(torch.zeros_like(a) for a in rows))
     nl = torch.zeros(1, dtype=torch.int32, device=cuda)
 
-    def launch(cnt, tiles, slices, groups, feats, parts, fold,
-               partials=True):
+    def launch(cnt, tiles, slices, groups, feats, parts, partials=True):
         geo = fused_geometry(28, 256, cnt)
         ws, out, ptrs = _split_buffers(geo, 28, 256, cnt, cuda)
-        tk = torch.zeros(2 * groups, dtype=torch.int32, device=cuda)
         pa = torch.empty((2, slices, 28, 256, 2), device=cuda)
         rc = _lib().fused_split(
             *row_pointers(rows), *row_pointers(scr), ptrs[0], nl.data_ptr(),
-            ptrs[1], ptrs[2], tk.data_ptr(),
-            pa.data_ptr() if partials else None, out.data_ptr(), 28, 256, 0,
-            cnt, 0, 100, 0, 0, -1, tiles, slices, groups, feats, parts,
-            int(fold), torch.cuda.current_stream().cuda_stream)
+            ptrs[1], ptrs[2], pa.data_ptr() if partials else None,
+            out.data_ptr(), 28, 256, 0, cnt, 0, 100, 0, 0, -1, tiles,
+            slices, groups, feats, parts,
+            torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         return rc
     # the wrapper's geometries launch
-    assert launch(13_128, 13, 2, 28, 0, 8, True) == 0
-    assert launch(139_000, 136, 17, 7, 4, 1, False) == 0
+    assert launch(13_128, 13, 2, 28, 0, 8) == 0
+    assert launch(139_000, 136, 17, 7, 4, 1) == 0
     invalid = 1   # cudaErrorInvalidValue
-    for bad in ((13_128, 12, 2, 28, 0, 8, True),     # a row's tile missing
-                (13_128, 13, 2, 27, 0, 8, True),     # a range block missing
-                (13_128, 13, 2, 28, 0, 7, True),     # bins 224-255 missing
-                (139_000, 136, 17, 7, 3, 1, False),  # a feature missing
-                (139_000, 136, 17, 7, 4, 1, True)):  # 17 slices folded
+    for bad in ((13_128, 12, 2, 28, 0, 8),     # a row's tile missing
+                (13_128, 13, 2, 27, 0, 8),     # a range block missing
+                (13_128, 13, 2, 28, 0, 7),     # bins 224-255 missing
+                (139_000, 136, 17, 7, 3, 1)):  # a feature missing
         assert launch(*bad) == invalid, bad
-    assert launch(13_128, 13, 2, 28, 0, 8, True, partials=False) == invalid
+    assert launch(13_128, 13, 2, 28, 0, 8, partials=False) == invalid
 
 
 @pytest.mark.parametrize("max_bin,env", [(1023, {}),

@@ -12,8 +12,8 @@ GPU is needed.
 """
 import pytest
 
-from lightgbm_tpu_torch.ops.fused_split import (FOLD_SLICES, HIST_WARPS,
-                                                RANGE_BINS, fused_geometry,
+from lightgbm_tpu_torch.ops.fused_split import (HIST_WARPS, RANGE_BINS,
+                                                RANGE_SLICES, fused_geometry,
                                                 fused_supported,
                                                 hist_smem_bytes,
                                                 staged_features)
@@ -73,7 +73,6 @@ def test_one_writer_a_cell(f, b, cnt):
 def test_slices_cover_every_destination_row_once(cnt):
     geo = fused_geometry(28, 256, cnt)
     assert geo.slices == hist_blocks(cnt // 2 + 1)
-    assert geo.fold == (geo.slices <= FOLD_SLICES)
     assert geo.tiles == -(-cnt // SCAN_TILE)
     assert (geo.tiles - 1) * SCAN_TILE < cnt <= geo.tiles * SCAN_TILE
     # each side's destination ranks, for sides of every size the split
@@ -117,13 +116,20 @@ def test_range_blocks_stage_every_feature_they_span(f, b):
 def test_grid_at_the_median_and_the_root():
     med = fused_geometry(28, 256, MEDIAN)
     # range mode: 28 features x 8 ranges of 32 bins, 8 warps a block
-    assert (med.grid, med.parts, med.fold) == ((2, 2, 28), 8, True)
+    assert (med.grid, med.parts) == ((2, 2, 28), 8)
     assert med.slices * 2 * med.groups == 112
     root = fused_geometry(28, 256, ROOT)
-    # feature mode: two blocks of 14 features a slice and side, the
-    # partials added by the reduction
-    assert (root.grid, root.feats, root.parts, root.fold) == (
-        (123, 2, 2), 14, 1, False)
+    # feature mode: two blocks of 14 features a slice and side
+    assert (root.grid, root.feats, root.parts) == ((123, 2, 2), 14, 1)
+
+
+@pytest.mark.parametrize("cnt,slices,parts", [(57_342, 7, 8),
+                                               (57_344, 8, 1)])
+def test_mode_edge(cnt, slices, parts):
+    """Range mode up to ``RANGE_SLICES`` slices, feature mode above."""
+    geo = fused_geometry(28, 256, cnt)
+    assert (geo.slices, geo.parts) == (slices, parts)
+    assert geo.slices <= RANGE_SLICES or geo.parts == 1
 
 
 def test_geometry_depends_on_the_count_through_its_slices():
