@@ -466,7 +466,8 @@ def test_async_copy_catches_fused_hist_reading_its_refill():
     in fused_hist; without the ring's wait, so is the commit."""
     text = FUSED_SRC.read_text()
     take = "    const uint8_t* s = ring + (k % kStages) * sb;\n"
-    commit = "                  ring + (kn % kStages) * sb);\n    cp_async_commit();\n"
+    commit = ("                  ring + (kn % kStages) * sb);\n"
+              "    cp_async_commit();\n")
     assert text.count(take) == 1 and text.count(commit) == 1
     moved = text.replace(take, "").replace(commit, commit + take)
     _, found = _fused_hist_findings(moved)
