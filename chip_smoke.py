@@ -32,7 +32,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    histogram bitwise ``hist_comb``'s; ``fused_split`` on the 1M-row
    segment and on a 3,000-row segment at an odd offset, its rows and
    nleft bitwise and both histograms bitwise ``hist_comb``'s of each
-   child range; ``apply_find`` on a real split's histograms, bitwise;
+   child range; ``apply_find`` (slice 13: one cluster of blocks over the
+   features) bitwise on a real split's histograms (the 1M-row root
+   split) and on seeded adversarial splits at 28 and 136 features (equal
+   keys in the last two blocks, the winner in the last block);
    ``partition_3ph`` bitwise on the 1M-row segment, the 3,000-row one,
    a 400,000-row mid-matrix segment with an 8-word bitset descriptor
    and a dead split (also against its plain version on CPU copies);
@@ -74,9 +77,14 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    split, the plain refresh per tree), its trees printed beside the
    default route's, and ``LGBM_TPU_POOL_TAIL=0`` for 2 (``apply_find``
    once per split), its trees held against the default route's bit for
-   bit; one profiled
+   bit; the tail (slice 13) bitwise its plain version on the median
+   split of a default-route and of a row-order tree, both entries timed
+   at 28 x 256, 28 x 1024 and 136 x 256, eager and in a graph
+   (``tools/profile_apply_find.py``); the 10-iteration main paths'
+   holdout AUCs held to the earlier slices' (default and pack=2
+   0.774389521391751, row-order 0.7743261350960159); one profiled
    iteration of each route but the last, its kernels counted per split
-   and per stage;
+   and per stage (the tail's ms among them);
 6. pack=2 (slice 6, ``LGBM_TPU_COMB_PACK=2``, one record per row): the
    five record kernels (``stream_init_p2``, ``hist_comb_p2``,
    ``fused_split_p2``, ``copyback_p2``, ``stream_refresh_p2``) bitwise
@@ -123,8 +131,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    copies and timed beside its byte bound and ``index_add_``; training
    parity at 50,000 x 136, card against device="cpu", 3 trees,
    bit-identical; 3 iterations of ``make_higgs_like(1M, 136)`` with 255
-   leaves on the unfused stream route with the PyTorch tail, counted
-   exactly;
+   leaves on the unfused stream route with the cluster kernel tail,
+   counted exactly, the tail bitwise on a tree's median split, and one
+   profiled iteration;
 11. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times, then the device line last.
 
@@ -961,42 +970,158 @@ def split_state(grower, rows):
 
 
 def apply_find_parity(grower, rows, label: str) -> dict:
-    """apply_find_pool and apply_find against their plain versions on a
-    real split's histograms and state, bitwise (every state tensor and
-    both pool rows), and the done guard leaving every tensor untouched."""
+    """:func:`tail_parity` on a real split: the root's state built by
+    ``grower`` from ``rows`` and its best split applied
+    (:func:`split_state`)."""
+    from lightgbm_tpu_torch.tools.profile_apply_find import TailCase
+    st, pair, nleft, fmask, at = split_state(grower, rows)
+    return tail_parity(TailCase(pair[0], pair[1], nleft, st, grower.finder,
+                                fmask, grower.hp, grower.max_depth, at),
+                       label)
+
+
+def tail_parity(case, label: str, want_features=None) -> dict:
+    """apply_find_pool and apply_find on ``case`` (a
+    ``tools.profile_apply_find.TailCase`` on the card) against their
+    plain versions on the card and on CPU copies, bitwise (every state
+    tensor and both pool rows), and the done guard leaving every tensor
+    untouched; ``want_features``: the features both children's splits
+    must lie in (the adversarial cases).  Launches the pool entry twice and the
+    plain-pool entry once."""
     import torch
 
-    from lightgbm_tpu_torch.ops.apply_find import (TreeState, apply_find,
+    from lightgbm_tpu_torch.ops.apply_find import (BF, TreeState, apply_find,
                                                    apply_find_pool,
                                                    apply_find_pool_ref,
-                                                   apply_find_ref)
-    st, pair, nleft, fmask, at = split_state(grower, rows)
-    args = (grower.finder, fmask, grower.hp, grower.max_depth)
+                                                   apply_find_ref,
+                                                   tail_geometry)
+    at = case.at
     copy = lambda s: TreeState(*(a.clone() for a in s))  # noqa: E731
-    sk, sp = copy(st), copy(st)
-    apply_find_pool(pair[0], pair[1], nleft, sk, *args, at)
-    apply_find_pool_ref(pair[0], pair[1], nleft, sp, *args, at)
+    cpu = case.to("cpu")
+    sk, sp, sc = copy(case.st), copy(case.st), copy(cpu.st)
+    apply_find_pool(case.h_a, case.h_b, case.nleft, sk, *case.args()[2:])
+    apply_find_pool_ref(case.h_a, case.h_b, case.nleft, sp,
+                        *case.args()[2:])
+    apply_find_pool_ref(cpu.h_a, cpu.h_b, cpu.nleft, sc, *cpu.args()[2:])
     torch.cuda.synchronize()
     pool_ok = all(torch_equal(a, b) for a, b in zip(sk, sp))
+    pool_cpu = all(torch_equal(a.cpu(), b) for a, b in zip(sk, sc))
     h2 = torch.stack([sp.pool[at.leaf], sp.pool[at.right]]).contiguous()
-    pk, pp = copy(st), copy(st)
-    apply_find(h2, nleft, pk, *args, at)
-    apply_find_ref(h2, nleft, pp, *args, at)
-    dk = copy(st)
-    apply_find_pool(pair[0], pair[1], nleft, dk, *args, at._replace(done=1))
+    pk, pp = copy(case.st), copy(case.st)
+    apply_find(h2, case.nleft, pk, *case.args()[2:])
+    apply_find_ref(h2, case.nleft, pp, *case.args()[2:])
+    dk = copy(case.st)
+    apply_find_pool(case.h_a, case.h_b, case.nleft, dk, *case.args()[2:-1],
+                    at._replace(done=1))
     torch.cuda.synchronize()
-    rec = {"case": label, "nleft": int(nleft), "pool_entry_identical": pool_ok,
+    f, b = case.h_a.shape[:2]
+    feats = [int(v) for v in sk.best[[at.leaf, at.right], BF].tolist()]
+    rec = {"case": label, "features": int(f), "bins": int(b),
+           "cnt": at.cnt, "nleft": int(case.nleft),
+           "geometry": tail_geometry(int(f), int(b))._asdict(),
+           "pool_entry_identical": pool_ok,
+           "pool_entry_identical_cpu_plain": pool_cpu,
            "plain_entry_identical": all(torch_equal(a, b)
                                         for a, b in zip(pk, pp)),
-           "done_untouched": all(torch_equal(a, b) for a, b in zip(dk, st)),
+           "done_untouched": all(torch_equal(a, b)
+                                 for a, b in zip(dk, case.st)),
            "best_rows": sk.best[[at.leaf, at.right]].tolist()}
-    rec["ok"] = (pool_ok and rec["plain_entry_identical"]
-                 and rec["done_untouched"])
+    rec["ok"] = (pool_ok and pool_cpu and rec["plain_entry_identical"]
+                 and rec["done_untouched"]
+                 and (want_features is None
+                      or all(v in want_features for v in feats)))
     print("parity apply_find " + json.dumps(rec), flush=True)
     if not rec["ok"]:
         raise RuntimeError(f"apply_find disagrees with its plain version: "
                            f"{rec}")
     return rec
+
+
+def tail_edge_cases(f: int, b: int = 256) -> list:
+    """The adversarial tails at ``f`` x ``b`` (synthetic splits): equal
+    keys in the last two blocks of the cluster (a strong feature, the
+    last of the second-last block, copied into the first of the last:
+    the smaller wins), and the winner in the last feature of the last
+    block."""
+    from lightgbm_tpu_torch.ops.apply_find import tail_geometry
+    from lightgbm_tpu_torch.tools.profile_apply_find import synthetic_split
+    geo = tail_geometry(f, b)
+    j = (geo.blocks - 1) * geo.feats - 1
+    return [tail_parity(synthetic_split(f, b, ties=(j,), strong=(j,),
+                                        device="cuda"),
+                        f"{f}x{b}_equal_keys_in_the_last_two_blocks",
+                        want_features=(j,)),
+            tail_parity(synthetic_split(f, b, strong=(f - 1,),
+                                        device="cuda"),
+                        f"{f}x{b}_winner_in_the_last_block",
+                        want_features=(f - 1,))]
+
+
+def median_tail_parity(ds, env: dict, params: dict, label: str) -> dict:
+    """:func:`tail_parity` on the median-sized split of one tree trained
+    on ``ds`` on the route ``env`` selects: the tree is trained twice,
+    the first time for the splits' segment sizes, the second to take a
+    copy of the tail's inputs at the split of the median size."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import grow as grow_mod
+    from lightgbm_tpu_torch.ops.apply_find import TreeState
+    from lightgbm_tpu_torch.tools.profile_apply_find import TailCase
+    real = grow_mod.apply_find_pool
+    sizes, held = [], {}
+
+    def hook(h_a, h_b, nleft, st, fc, fmask, hp, max_depth, at):
+        if held.get("at") == len(sizes):
+            held["case"] = TailCase(
+                h_a.clone(), h_b.clone(), nleft.clone(),
+                TreeState(*(a.clone() for a in st)), fc, fmask.clone(), hp,
+                max_depth, at)
+        sizes.append(at.cnt if not at.done else -1)
+        return real(h_a, h_b, nleft, st, fc, fmask, hp, max_depth, at)
+    grow_mod.apply_find_pool = hook
+    try:
+        with route_env(env):
+            lgt.train(params, ds, num_boost_round=1, device="cuda")
+            live = sorted(c for c in sizes if c >= 0)
+            median = live[len(live) // 2]
+            held["at"] = sizes.index(median)
+            sizes.clear()
+            lgt.train(params, ds, num_boost_round=1, device="cuda")
+    finally:
+        grow_mod.apply_find_pool = real
+    torch.cuda.synchronize()
+    if "case" not in held:
+        raise RuntimeError(f"no tail call to copy on the {label}")
+    rec = tail_parity(held["case"], f"median split, {label}")
+    rec["splits"] = len(live)
+    return rec
+
+
+def apply_find_times(gpu: str) -> dict:
+    """Both tail entries timed at the main paths' shapes (28 x 256, the
+    row-order route's 28 x 1024, the wide route's 136 x 256) on seeded
+    1M-row splits, eager (20 calls) and as one replay of a CUDA graph of
+    20 calls, each bitwise its plain version on CPU copies first
+    (``tools/profile_apply_find.py``), beside the byte bound; each
+    shape's geometry and the clusters of it the card holds at once."""
+    from lightgbm_tpu_torch.ops.apply_find import max_clusters, tail_geometry
+    from lightgbm_tpu_torch.tools import profile_apply_find as pa
+    out = {}
+    for shape in pa.SHAPES.split(","):
+        f, b = (int(v) for v in shape.split("x"))
+        geo = tail_geometry(f, b)
+        out[shape] = {"geometry": geo._asdict(),
+                      "max_clusters": max_clusters(geo, f, b)}
+        for r in pa.time_shape(f, b):
+            out[shape][r["entry"]] = {k: r[k] for k in
+                                      ("ms", "graph_ms", "bound_ms")}
+        if out[shape]["max_clusters"] < 1:
+            raise RuntimeError(f"the card holds no cluster of the tail's "
+                               f"geometry {geo} at {shape}")
+    print("apply_find times [ms] " + json.dumps(out) + f" [{gpu}]",
+          flush=True)
+    return out
 
 
 def compare_trees(models_a, models_b, rtol: float = LEAF_RTOL) -> dict:
@@ -1188,6 +1313,8 @@ def profile_iteration(bst, gpu: str) -> dict:
             "top": [[k[:60], c, us / 1e3] for k, (c, us) in top],
             "fused_split_kernels": fused,
             "fused_split_ms": sum(ms for _, ms in fused.values()),
+            "apply_find_ms": sum(us for k, (_, us) in by_name.items()
+                                 if "apply_find" in k) / 1e3,
             "gpu": gpu}
 
 
@@ -1325,6 +1452,7 @@ def training_kernels(gpu: str, ds) -> list:
     af_rows = init_rows(dd.bins)
     af_rows.vals.copy_(torch.as_tensor(vals, device=dev))
     af_recs = [apply_find_parity(grower, af_rows, "1M_root_split")]
+    af_recs += tail_edge_cases(N_FEATURES) + tail_edge_cases(WIDE_FEATURES)
 
     # times at the main path's shapes (root range, whole-matrix segment,
     # the root split's tail), L2 warm as in training's back-to-back splits
@@ -1444,6 +1572,7 @@ def training_kernels(gpu: str, ds) -> list:
                           "(plain-pool entry apply_find, same body)",
             plain_entry_ms=t["apply_find_plain_entry"][0],
             plain_entry_plain_ms=t["apply_find_plain_entry"][1],
+            parity_cases=[r["case"] for r in af_recs],
             # reads both children's histograms; no pool row moves
             plain_entry_bound_ms=max(2 * hist_out / PEAK_BYTES_S,
                                      40 * cells / PEAK_OPS_S) * 1e3),
@@ -1475,6 +1604,10 @@ def training_kernels(gpu: str, ds) -> list:
 # ---------------------------------------------------------------------
 # Slice 4: the row-order route (u16 bins, hist_rows)
 WIDE_PARAMS = dict(TRAIN_PARAMS, max_bin=1023)
+# holdout AUC of the 10-iteration main paths at each max_bin: the trees
+# every route has grown since slice 3 (default and pack=2) and slice 4
+# (row-order), bit for bit
+MAIN_PATH_AUC = {255: 0.774389521391751, 1023: 0.7743261350960159}
 ROW_ORDER_ITERS = 10
 ROW_ORDER_PARITY_TREES = 3
 PHYS_OFF = {"LGBM_TPU_PHYS": "0"}
@@ -2717,6 +2850,11 @@ def train_phases(gpu: str) -> list:
                            f"2's route's: {routes}")
     bst3, main3, bst4, off, parity3 = row_order_phases(
         gpu, ds, valid, ds_wide, valid_wide, x, bst)
+    tail_medians = [
+        median_tail_parity(ds, {}, TRAIN_PARAMS, "default route"),
+        median_tail_parity(ds_wide, {}, WIDE_PARAMS,
+                           "row-order route, max_bin=1023")]
+    tail_times = apply_find_times(gpu)
     rows_times = hist_rows_times(gpu, ds_wide, bst3._models)
     fused_times = fused_split_times(gpu, bst._models)
     bst5, main5, pool5, parity5 = part_3ph_phases(gpu, ds, valid, x, bst)
@@ -2724,6 +2862,12 @@ def train_phases(gpu: str) -> list:
     copy_times = copyback_p2_times(gpu, bst6._models)
     bsts7, mains7, parity7 = pack2_unfused_phases(gpu, ds, valid, x, bst,
                                                   bst2)
+    for run in (main, main6, main3):
+        want = MAIN_PATH_AUC[run["max_bin"]]
+        if run["holdout_auc"] != want:
+            raise RuntimeError(f"the {run['case']} gave holdout AUC "
+                               f"{run['holdout_auc']}, not the {want} of "
+                               "the trees the earlier slices grew")
     # one more tree of each under the profiler, after every check
     with route_env({}):
         print("profiled iteration, default route "
@@ -2782,6 +2926,15 @@ def train_phases(gpu: str) -> list:
     by_name["apply_find"]["plain_entry_launches"] = \
         pool5["launches"]["apply_find"]
     by_name["apply_find"]["plain_entry_launched_on"] = "LGBM_TPU_POOL_TAIL=0"
+    by_name["apply_find"]["row_order_launches"] = \
+        main3["launches"]["apply_find_pool"]
+    # the times at each shape; the geometry stays on the times line (one
+    # launch a call whatever the cluster)
+    by_name["apply_find"]["times"] = {
+        shape: {k: v for k, v in rec.items() if k.startswith("apply_find")}
+        for shape, rec in tail_times.items()}
+    by_name["apply_find"]["parity_cases"] += [r["case"]
+                                              for r in tail_medians]
     by_name["partition_3ph"]["train_parity_bitwise"] = parity5["ok"]
     by_name["fused_split_p2"]["train_parity_bitwise"] = parity6["ok"]
     for name in ("partition_scan_p2", "stream_refresh_plain_p2"):
@@ -3008,7 +3161,7 @@ def analysis_phase(gpu: str) -> dict:
 # -- slice 9: wide datasets and the launch-cost probes -----------------------
 WIDE_FEATURES = 136           # MSLR-WEB30K's width: hist_comb in chunks
 WIDE_ITERS = 3
-WIDE_ROUTE = "path=stream fused=0 tail=xla (fused_smem, tail_smem)"
+WIDE_ROUTE = "path=stream fused=0 tail=kernel (fused_smem)"
 PROBE_ROWS = 1 << 20          # tools/profile_step_cost.py PN = 20
 PROBE_REPS = 20               # T11 iterations of 254 timed per mode
 STEP_REPS = 30                # tools/profile_step_cost.py REPS
@@ -3392,8 +3545,10 @@ def wide_phases(gpu: str) -> dict:
     plain version and timed; training parity at 50,000 x 136, card
     against device="cpu", 3 trees, bit-identical; the main path,
     ``make_higgs_like(1M, 136)``, 255 leaves, 3 iterations on the route
-    the rules give (unfused stream, PyTorch tail), counted exactly.
-    Returns {"hist": ..., "parity": ..., "main": ...}."""
+    the rules give (unfused stream, the cluster kernel tail), counted
+    exactly; the tail bitwise its plain version on the median split of
+    one tree, and one profiled iteration.  Returns {"hist": ...,
+    "parity": ..., "main": ..., "tail": ...}."""
     import lightgbm_tpu_torch as lgt
     hist = hist_comb_wide_case(gpu)
     parity = train_parity(gpu, {}, PARITY_TREES, "wide dataset",
@@ -3414,7 +3569,11 @@ def wide_phases(gpu: str) -> dict:
     if main["route"] != WIDE_ROUTE:
         raise RuntimeError(f"the wide dataset took {main['route']}, "
                            f"expected {WIDE_ROUTE}")
-    return {"hist": hist, "parity": parity, "main": main}
+    tail = median_tail_parity(ds, {}, TRAIN_PARAMS, "wide route")
+    with route_env({}):
+        print("profiled iteration, wide route "
+              + json.dumps(profile_iteration(bst, gpu)), flush=True)
+    return {"hist": hist, "parity": parity, "main": main, "tail": tail}
 
 
 def main() -> int:
@@ -3442,6 +3601,9 @@ def main() -> int:
         "ms", "plain_ms", "library_ms", "bound_ms", "feature_chunk")})
     comb["wide_launches"] = wide["main"]["launches"]["build_histogram_comb"]
     comb["wide_train_parity_bitwise"] = wide["parity"]["ok"]
+    tail = next(k for k in kernels if k["name"] == "apply_find")
+    tail["wide_launches"] = wide["main"]["launches"]["apply_find_pool"]
+    tail["parity_cases"].append(wide["tail"]["case"])
     kernels += probes
     if not analysis["checked_in_report_current"]:
         raise RuntimeError(

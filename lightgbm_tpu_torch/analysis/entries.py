@@ -7,7 +7,9 @@ address them: 1,000,000 rows x 28 features, u8 bins at B = 256 (the
 default, slice 2, 3ph and pack=2 routes) and u16 bins at B = 1024 (the
 row-order route), pack 1 (five arrays) and pack 2 (64-byte records), the
 split kernels on the 1M-row segment (the fused split's histogram pass
-also on the median segment's geometry), the tails at B = 256, serving 100
+also on the median segment's geometry), the tails at B = 256 (the pool
+entry also at the row-order route's B = 1024 and the wide route's 136
+features, each one cluster of its geometry's blocks), serving 100
 trees x 255 leaves over a 65,536-row bucket, ``hist_comb`` also at the
 wide edge (136 features in two chunks of 68), the fixture kernels at
 their legal geometries, the launch-cost probes at their tools'
@@ -268,21 +270,28 @@ def _fused():
 
 
 def _apply_find():
-    for pool in (True, False):
-        name = "apply_find_pool" if pool else "apply_find"
-        hists = ((vec_arg("pool", "float32", (LEAVES, F, B, 2), 4),)
+    """Both entries at the default route's 28 x 256, and the pool entry
+    at the row-order route's 28 x 1024 and the wide route's 136 x 256:
+    one cluster of ``tail_geometry``'s blocks."""
+    shapes = ((True, F, B, ""), (False, F, B, ""),
+              (True, F, B_WIDE, "_b1024"), (True, F_WIDE, B, "_wide"))
+    for pool, f, b, tag in shapes:
+        base = "apply_find_pool" if pool else "apply_find"
+        geo = af.tail_geometry(f, b)
+        hists = ((vec_arg("pool", "float32", (LEAVES, f, b, 2), 8),)
                  if pool else ())
         register_kernel(KernelEntry(
-            name=name, source="apply_find",
+            name=base + tag, source="apply_find",
             symbol=f"apply_find_kernel<{'true' if pool else 'false'}>",
-            block=_block(1024),
-            dyn_smem=af.smem_bytes(F, B),
-            args=hists + (vec_arg("h_a", "float32", (F, B, 2), 4),
-                          vec_arg("h_b", "float32", (F, B, 2), 4),
+            grid=_grid(geo.blocks), block=_block(af.TAIL_THREADS),
+            cluster=geo.blocks, dyn_smem=geo.smem,
+            args=hists + (vec_arg("h_a", "float32", (f, b, 2), 8),
+                          vec_arg("h_b", "float32", (f, b, 2), 8),
                           vec_arg("best", "float32", (LEAVES, 10), 4),
                           vec_arg("lstate", "float32", (LEAVES, 8), 4)),
-            wrapper=f"apply_find.{name}",
-            replaces=f"{PALLAS}/apply_find.py:{571 if pool else 529}"))
+            wrapper=f"apply_find.{base}",
+            replaces=f"{PALLAS}/apply_find.py:{571 if pool else 529}",
+            export=("apply_find_smem_bytes", (geo.feats, b))))
 
 
 def _stream():
@@ -437,6 +446,7 @@ def _legacy_probes():
     register_kernel(KernelEntry(
         name="legacy_hbm_alias_step", source=legacy,
         symbol="hbm_alias_step", grid=_grid(8), block=_block(512),
+        cluster=8,
         dyn_smem=0, args=_legacy_rows("comb", n=lp.ALIAS_N),
         wrapper="legacy_probes.hbm_alias_step", replaces=f"{src}:898"))
 

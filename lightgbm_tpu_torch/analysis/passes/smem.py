@@ -15,7 +15,14 @@ For each registered entry, with the resources ``ptxas`` gave its symbol
   (``REGS_OVER_BUDGET``); spills are a warning (``REGS_SPILL``);
 - where the library exports its own shared-memory formula and is built
   (on the card), the wrapper's Python formula must give the same bytes
-  (``SMEM_FORMULA_DIVERGES``).
+  (``SMEM_FORMULA_DIVERGES``);
+- a cluster launch (``KernelEntry.cluster``) may hold at most
+  ``MAX_CLUSTER`` = 16 blocks (``CLUSTER_OVER_LIMIT``); above
+  ``PORTABLE_CLUSTER`` = 8 the kernel needs a ``cudaFuncSetAttribute(...,
+  cudaFuncAttributeNonPortableClusterSizeAllowed, 1)`` in its source, or
+  the launch is refused (``CLUSTER_OPTIN_MISSING``); a registered grid
+  must be whole clusters (``CLUSTER_GRID``).  Each block of a cluster
+  keeps the one-block budget above.
 
 A report whose content hash no longer matches a source gives
 ``RESOURCES_STALE`` (a warning from the checked-in report off the card,
@@ -38,8 +45,13 @@ MAX_SMEM = 232448            # one block's shared memory on the H100
 DEFAULT_SMEM = 48 * 1024     # dynamic shared memory without an opt-in
 MAX_REGS = 65536             # 32-bit registers of one SM
 WARN_FRACTION = 0.8          # as vmem.WARN_FRACTION
+MAX_CLUSTER = 16             # blocks of a non-portable cluster
+PORTABLE_CLUSTER = 8
 
 _OPTIN = re.compile(r"cudaFuncSetAttribute\s*\(\s*([A-Za-z_][\w:]*)")
+_CLUSTER_OPTIN = re.compile(
+    r"cudaFuncSetAttribute\s*\(\s*([A-Za-z_][\w:]*)[^;]*?"
+    r"cudaFuncAttributeNonPortableClusterSizeAllowed")
 
 
 def base_name(symbol: str) -> str:
@@ -47,11 +59,49 @@ def base_name(symbol: str) -> str:
     return symbol.split("<", 1)[0].rsplit("::", 1)[-1]
 
 
-def opted_in(source: str) -> set:
+def opted_in(source: str, pattern=_OPTIN) -> set:
     """Kernel names a ``cudaFuncSetAttribute`` call names in
-    ``csrc/<source>.cu``."""
+    ``csrc/<source>.cu`` (with ``_CLUSTER_OPTIN``: a call that allows a
+    non-portable cluster)."""
     text = strip_cuda((PACKAGE / "csrc" / f"{source}.cu").read_text())
-    return {m.rsplit("::", 1)[-1] for m in _OPTIN.findall(text)}
+    return {m.rsplit("::", 1)[-1] for m in pattern.findall(text)}
+
+
+def _cluster_findings(e, where: str, cluster_optins: Dict[str, set]
+                      ) -> List[Finding]:
+    out: List[Finding] = []
+    n = e.cluster
+    if n is None:
+        return out
+    if not 1 <= n <= MAX_CLUSTER:
+        out.append(Finding(
+            pass_name=PASS_NAME, code="CLUSTER_OVER_LIMIT",
+            severity=SEV_ERROR, where=where,
+            message=(f"a cluster of {n} blocks: the card schedules 1 to "
+                     f"{MAX_CLUSTER} blocks a cluster; the launch is "
+                     f"refused"),
+            entry=e.name, fixture=e.fixture))
+    elif n > PORTABLE_CLUSTER:
+        if e.source not in cluster_optins:
+            cluster_optins[e.source] = opted_in(e.source, _CLUSTER_OPTIN)
+        if base_name(e.symbol) not in cluster_optins[e.source]:
+            out.append(Finding(
+                pass_name=PASS_NAME, code="CLUSTER_OPTIN_MISSING",
+                severity=SEV_ERROR, where=where,
+                message=(f"a cluster of {n} blocks is above the portable "
+                         f"{PORTABLE_CLUSTER}, and csrc/{e.source}.cu "
+                         f"sets no cudaFuncAttributeNonPortableCluster"
+                         f"SizeAllowed on {base_name(e.symbol)}: the "
+                         f"launch is refused"),
+                entry=e.name, fixture=e.fixture))
+    if e.grid is not None and n >= 1 and e.grid[0] % n:
+        out.append(Finding(
+            pass_name=PASS_NAME, code="CLUSTER_GRID",
+            severity=SEV_ERROR, where=where,
+            message=(f"a grid of {e.grid[0]} blocks is not whole clusters "
+                     f"of {n}: the launch is refused"),
+            entry=e.name, fixture=e.fixture))
+    return out
 
 
 def library_export(source: str, export: str, args) -> int:
@@ -90,8 +140,10 @@ def _resource_findings(ctx) -> List[Finding]:
 def run(ctx) -> List[Finding]:
     out = _resource_findings(ctx)
     optins: Dict[str, set] = {}
+    cluster_optins: Dict[str, set] = {}
     for e in ctx.entries:
         where = f"entry:{e.name} kernel:{e.symbol}"
+        out += _cluster_findings(e, where, cluster_optins)
         su = ctx.resources.get(e.source)
         u = su.kernels.get(e.symbol) if su else None
         if u is None:

@@ -12,7 +12,8 @@ and nothing is launched.
 
 Two registries live here:
 
-* ``KERNELS``      name -> :class:`KernelEntry` (align, smem);
+* ``KERNELS``      name -> :class:`KernelEntry` (align, smem, with the
+                   cluster rules);
 * ``PURITY_PINS``  name -> maker of the variants of one "knob off =>
                    the same program" invariant (purity).
 
@@ -56,6 +57,9 @@ class KernelEntry:
     # kernels', held against the JAX fixtures' grids); None where the
     # library sizes it
     grid: Optional[Tuple[int, int, int]] = None
+    # blocks of the thread-block cluster the launch asks for
+    # (cudaLaunchAttributeClusterDimension); None for no cluster
+    cluster: Optional[int] = None
 
     @property
     def threads(self) -> int:

@@ -16,8 +16,8 @@
 //      min-data / min-hessian gates on counts derived from hessians,
 //      max_depth, the feature mask and path smoothing;
 //   3. the winner by selection_key, feature-major (split.py
-//      find_best_split): the largest key, ties to the smallest
-//      (feature, direction, bin);
+//      find_best_split): the largest key, ties to the smallest rank
+//      r = f * 2B + d * B + b;
 //   4. the best and lstate rows of `leaf` and `right`, the node row and
 //      the seg rows -- none of them, and no pool row, when done != 0.
 // The tree's child pointers stay on the host.
@@ -26,24 +26,44 @@
 // (this source builds with -fmad=false, ops/_build.py, so no product is
 // fused into an add).  Bin prefix sums: one thread per (child, feature,
 // channel) adds the B bins sequentially in f64 and rounds each prefix
-// once to f32, as torch.cumsum in f64 does on the CPU.  The zero-hessian
-// guard 1e-38 is subnormal; nothing here flushes it (no -ftz).
+// once to f32, as torch.cumsum in f64 does on the CPU; a parallel scan
+// would add in another order and change bits.  The zero-hessian guard
+// 1e-38 is subnormal; nothing here flushes it (no -ftz).
 //
-// One block of 1024 threads; both children's histograms sit in shared
-// memory (2 * F * B * 8 bytes, 114,688 at F=28, B=256, opted in above
-// 48 KB).  Bound on this card: bytes for the pool rows (read the parent
-// and the smaller child, write two rows: 4 * F * B * 8 bytes); the
-// candidate arithmetic (2 * 2 * F * B candidates, a few dozen operations
-// each) is far below the f32 rate.  A single block leaves the card
-// mostly idle: the tail is latency, not throughput.
+// Design: one thread-block cluster over the features (the geometry is the
+// wrapper's, ops/apply_find.tail_geometry).  Block k owns features
+// [k * fpb, min(F, (k + 1) * fpb)): it moves only their slice of the pool
+// rows, stages only their two children's histograms, one validity byte a
+// (feature, bin) with the feature mask folded in, the NaN bin's index and
+// the categorical flag in shared memory (fpb * (17 B + 24) bytes), runs
+// their f64 prefix chains out of shared memory (the NaN bin read once, not
+// tested at each link) and searches their candidates, keeping its best
+// (key, rank) and that candidate's fields per child.  After cluster.sync()
+// block 0 reads every block's best through distributed shared memory,
+// merges them with the same better() (associative over disjoint rank
+// ranges, so the winner is the one-block search's bit for bit) and writes
+// the state rows; a second cluster.sync() keeps every block resident
+// until block 0 has read it.  Bound on this card: bytes for the pool rows
+// (read the parent and the smaller child, write two rows: 4 * F * B * 8
+// bytes); the candidate arithmetic is far below the f32 rate.  The tail
+// is latency: the B-link f64 chain, a global load and two cluster
+// barriers; more blocks shorten only the candidate search.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 16;       // non-portable above 8
+constexpr int kPortableCluster = 8;
+constexpr int kMaxSmem = 232448;      // one block's shared memory
+constexpr int kStaticReserve = 1024;  // the kernel's static shared memory
+constexpr int kNone = 0x7fffffff;     // the rank of no candidate
 
 // state row layouts (ops/grow.py)
 constexpr int BG = 0, BLG = 5, BLH = 6, BLC = 7, BLO = 8, BRO = 9;
@@ -66,7 +86,16 @@ struct Args {
   const float* consts;  // [4, F, B]: valid0, valid1, nan one-hot, is_cat
   const float* fmask;   // [F]
   int F, B, leaf, right, node, s0, cnt, done;
+  int blocks, fpb;      // the cluster: blocks of fpb features
   HP hp;
+};
+
+// one block's best candidate of one child, read by block 0
+struct Best {
+  float key;
+  int rank;
+  float gain, lg, lh, lc, lo, ro;
+  int cat;
 };
 
 __device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
@@ -128,31 +157,27 @@ struct Cand {
   float gain, lg, lh, lc, lo, ro;
 };
 
-// candidate rank r = f * 2B + d * B + b of one child; A holds the prefix
-// sums of numerical features and the raw bins of categorical ones, nanv
-// the NaN bin's raw (g, h) per feature
-__device__ __forceinline__ Cand candidate(const Args& a, const Child& c,
+// the candidate (lf, d, b) -- local rank lf * 2B + d * B + b -- of one
+// child in this block; A holds its features' prefix sums (the raw bins
+// of categorical ones), nanv the NaN bin's raw (g, h) per feature, vb
+// one byte a (feature, bin): bit d = valid in direction d and feature on
+__device__ __forceinline__ Cand candidate(const HP& hp, const Child& c,
                                           const float* A, const float* nanv,
-                                          int r) {
-  const HP& hp = a.hp;
-  const int B = a.B;
-  const int f = r / (2 * B);
-  const int d = (r - f * 2 * B) / B;
-  const int b = r - f * 2 * B - d * B;
-  const int cell = f * B + b;
+                                          const uint8_t* vb, int B, int lf,
+                                          int d, int b) {
+  const int cell = lf * B + b;
   Cand o;
   o.lg = A[2 * cell];
   o.lh = A[2 * cell + 1];
   if (d == 1) {
-    o.lg = o.lg + nanv[2 * f];
-    o.lh = o.lh + nanv[2 * f + 1];
+    o.lg = o.lg + nanv[2 * lf];
+    o.lh = o.lh + nanv[2 * lf + 1];
   }
   o.lc = floorf(o.lh * c.factor + 0.5f);
   const float rg = c.sg - o.lg, rh = c.sh - o.lh, rc = c.cc - o.lc;
-  const bool ok = a.consts[d * a.F * B + cell] > 0.5f
+  const bool ok = ((vb[cell] >> d) & 1) != 0
                   && o.lc >= hp.min_data && rc >= hp.min_data
-                  && o.lh >= hp.min_hess && rh >= hp.min_hess
-                  && a.fmask[f] > 0.f && c.allow;
+                  && o.lh >= hp.min_hess && rh >= hp.min_hess && c.allow;
   float gain;
   if (hp.smooth) {
     o.lo = leaf_out_s(o.lg, o.lh, o.lc, c.po, hp);
@@ -172,73 +197,131 @@ __device__ __forceinline__ bool better(float q, int r, float bq, int br) {
   return q > bq || (q == bq && r < br);
 }
 
+__device__ __forceinline__ void warp_best(float& bq, int& br) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float q = __shfl_down_sync(0xffffffffu, bq, o);
+    const int r = __shfl_down_sync(0xffffffffu, br, o);
+    if (better(q, r, bq, br)) {
+      bq = q;
+      br = r;
+    }
+  }
+}
+
+// in-place inclusive prefix sums of A[0], A[2], ..., A[2 (B - 1)] in f64,
+// each rounded once to f32, in bin order; loads run eight bins ahead of
+// the chain (B % 8 == 0)
+__device__ __forceinline__ void prefix_f64(float* A, int B) {
+  double acc = 0.0;
+  float cur[8], nxt[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) cur[k] = A[2 * k];
+  for (int b = 0; b < B; b += 8) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) nxt[k] = b + 8 < B ? A[2 * (b + 8 + k)] : 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      acc += (double)cur[k];
+      A[2 * (b + k)] = (float)acc;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) cur[k] = nxt[k];
+  }
+}
+
+// shared bytes of a block of fpb features: both children's histograms
+// [2, fpb, B, 2] f32, the NaN bins' values [2, fpb, 2] f32, the NaN bin
+// and the categorical flag [fpb] i32 each, the validity bytes [fpb, B]
+__host__ __device__ inline int smem_bytes(int fpb, int B) {
+  return fpb * (17 * B + 24);
+}
+
 template <bool kPool>
 __global__ void __launch_bounds__(kThreads) apply_find_kernel(Args a) {
   if (a.done) return;
-  extern __shared__ float smem[];
-  const int F = a.F, B = a.B;
-  const int cells = F * B * 2;
-  float* H = smem;                       // [2, F, B, 2] children
-  float* nanv = smem + 2 * cells;        // [2, F, 2]
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  const int F = a.F, B = a.B, fpb = a.fpb;
+  const int blk = blockIdx.x;              // the grid is one cluster
+  const int f0 = blk * fpb;
+  const int nf = min(fpb, F - f0);
+  const int cs = fpb * B * 2;              // floats of one child's slice
+  float* H = reinterpret_cast<float*>(smem4);   // [2, fpb, B, 2]
+  float* nanv = H + 2 * cs;                     // [2, fpb, 2]
+  int* nanb = reinterpret_cast<int*>(nanv + 4 * fpb);   // [fpb]
+  int* catf = nanb + fpb;                                // [fpb]
+  uint8_t* vbits = reinterpret_cast<uint8_t*>(catf + fpb);  // [fpb, B]
+  __shared__ float parent[18];             // the leaf's best, lstate rows
   __shared__ float wq[2][kWarps];
   __shared__ int wr[2][kWarps];
-  __shared__ int win[2];
+  __shared__ Best res[2];
 
-  // the parent's rows, read before any write
-  const float* brow = a.best + (size_t)a.leaf * 10;
-  const float* lrow = a.lstate + (size_t)a.leaf * 8;
-  const float pg = lrow[SG], ph = lrow[SH], pc = lrow[SC];
-  const float dep = lrow[SDEP], mn = lrow[SMN], mx = lrow[SMX];
-  const float gain_rec = brow[BG];
-  const float lg = brow[BLG], lh = brow[BLH], lc = brow[BLC];
-  const float lo = brow[BLO], ro = brow[BRO];
+  for (int i = threadIdx.x; i < nf; i += kThreads) nanb[i] = -1;
+  __syncthreads();
+
+  // 1. this block's slice of the children's histograms (with the pool,
+  // of its two rows), the masks and the parent's rows, read before any
+  // block writes them (block 0 writes after the first cluster barrier)
+  if (threadIdx.x < 10) {
+    parent[threadIdx.x] = a.best[(size_t)a.leaf * 10 + threadIdx.x];
+  } else if (threadIdx.x < 18) {
+    parent[threadIdx.x] = a.lstate[(size_t)a.leaf * 8 + threadIdx.x - 10];
+  }
   const int nl = *a.nleft;
-
-  // 1. the children's histograms (and, with the pool, its two rows)
-  if (kPool) {
-    const bool small_left = 2LL * nl <= (long long)a.cnt;
-    const float* hs = small_left ? a.ha : a.hb;
-    float* prow = a.pool + (size_t)a.leaf * cells;
-    float* rrow = a.pool + (size_t)a.right * cells;
-    for (int i = threadIdx.x; i < cells; i += kThreads) {
-      const float p = prow[i], s = hs[i];
-      const float hl = small_left ? s : p - s;
-      const float hr = p - hl;
+  const bool small_left = 2LL * nl <= (long long)a.cnt;
+  const size_t g0 = (size_t)f0 * B;        // this block's first cell
+  const size_t FB = (size_t)F * B;
+  const float2* ha = reinterpret_cast<const float2*>(a.ha) + g0;
+  const float2* hb = reinterpret_cast<const float2*>(a.hb) + g0;
+  float2* prow = kPool ? reinterpret_cast<float2*>(a.pool) + a.leaf * FB + g0
+                      : nullptr;
+  float2* rrow = kPool ? reinterpret_cast<float2*>(a.pool) + a.right * FB + g0
+                      : nullptr;
+  float2* H2 = reinterpret_cast<float2*>(H);
+  const int ncell = nf * B;
+  for (int i = threadIdx.x; i < ncell; i += kThreads) {
+    float2 hl, hr;
+    if (kPool) {
+      const float2 p = prow[i], sa = ha[i], sb = hb[i];
+      const float2 s = small_left ? sa : sb;
+      hl = small_left ? s : make_float2(p.x - s.x, p.y - s.y);
+      hr = make_float2(p.x - hl.x, p.y - hl.y);
       prow[i] = hl;
       rrow[i] = hr;
-      H[i] = hl;
-      H[cells + i] = hr;
+    } else {
+      hl = ha[i];
+      hr = hb[i];
     }
-  } else {
-    for (int i = threadIdx.x; i < cells; i += kThreads) {
-      H[i] = a.ha[i];
-      H[cells + i] = a.hb[i];
-    }
+    H2[i] = hl;
+    H2[cs / 2 + i] = hr;
+    const int lf = i / B, b = i - lf * B;
+    const size_t gc = g0 + i;
+    const int v = (a.consts[gc] > 0.5f ? 1 : 0)
+                  | (a.consts[FB + gc] > 0.5f ? 2 : 0);
+    vbits[i] = a.fmask[f0 + lf] > 0.f ? (uint8_t)v : (uint8_t)0;
+    if (a.consts[2 * FB + gc] > 0.5f) nanb[lf] = b;   // one-hot: one bin
+    if (b == 0) catf[lf] = a.consts[3 * FB + gc] > 0.5f ? 1 : 0;
   }
-  for (int i = threadIdx.x; i < 4 * F; i += kThreads) nanv[i] = 0.f;
   __syncthreads();
 
   // 2. bin prefix sums in f64, one thread per (child, feature, channel);
   // categorical features keep their raw bins
-  const float* nan_oh = a.consts + 2 * F * B;
-  const float* catv = a.consts + 3 * F * B;
-  for (int j = threadIdx.x; j < 4 * F; j += kThreads) {
-    const int c = j / (2 * F);
-    const int f = (j / 2) % F;
+  for (int j = threadIdx.x; j < 4 * nf; j += kThreads) {
+    const int c = j / (2 * nf);
+    const int lf = (j / 2) % nf;
     const int ch = j % 2;
-    const bool cat = catv[f * B] > 0.5f;
-    float* A = H + c * cells + f * B * 2 + ch;
-    double acc = 0.0;
-    for (int b = 0; b < B; ++b) {
-      const float v = A[2 * b];
-      acc += (double)v;
-      if (nan_oh[f * B + b] > 0.5f) nanv[(c * F + f) * 2 + ch] = v;
-      if (!cat) A[2 * b] = (float)acc;
-    }
+    float* A = H + c * cs + lf * B * 2 + ch;
+    const int nb = nanb[lf];
+    nanv[(c * fpb + lf) * 2 + ch] = nb >= 0 ? A[2 * nb] : 0.f;
+    if (!catf[lf]) prefix_f64(A, B);
   }
   __syncthreads();
 
-  // 3. every candidate of both children; the winner per child
+  // 3. this block's candidates of both children; its winner per child
+  const float pg = parent[10 + SG], ph = parent[10 + SH];
+  const float pc = parent[10 + SC], dep = parent[10 + SDEP];
+  const float lg = parent[BLG], lh = parent[BLH], lc = parent[BLC];
+  const float lo = parent[BLO], ro = parent[BRO];
   const float rg = pg - lg, rh = ph - lh, rc = pc - lc;
   const float d_child = dep + 1.0f;
   const bool allow = a.hp.max_depth <= 0 || d_child < (float)a.hp.max_depth;
@@ -251,27 +334,34 @@ __global__ void __launch_bounds__(kThreads) apply_find_kernel(Args a) {
     ch[c].pgain = a.hp.smooth ? gain_given(ch[c].sg, ch[c].sh, ch[c].po, a.hp)
                               : split_gain(ch[c].sg, ch[c].sh, a.hp);
   }
-  const int ncand = 2 * F * B;
+  const int ncand = nf * 2 * B;
+  const int r0 = f0 * 2 * B;               // the global rank of rl = 0
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  // a thread's ranks step by kThreads: (lf, d * B + b) advanced without
+  // a division
+  const int step_f = kThreads / (2 * B), step_r = kThreads % (2 * B);
+  const int lf0 = threadIdx.x / (2 * B), rem0 = threadIdx.x % (2 * B);
   for (int c = 0; c < 2; ++c) {
     float bq = -INFINITY;
-    int br = 0x7fffffff;
-    for (int r = threadIdx.x; r < ncand; r += kThreads) {
-      const float q = sel_key(
-          candidate(a, ch[c], H + c * cells, nanv + c * F * 2, r).gain);
-      if (better(q, r, bq, br)) {
+    int br = kNone;
+    int lf = lf0, rem = rem0;
+    for (int rl = threadIdx.x; rl < ncand; rl += kThreads) {
+      const int d = rem >= B ? 1 : 0;
+      const float q = sel_key(candidate(a.hp, ch[c], H + c * cs,
+                                        nanv + c * fpb * 2, vbits, B, lf, d,
+                                        rem - d * B).gain);
+      if (better(q, r0 + rl, bq, br)) {
         bq = q;
-        br = r;
+        br = r0 + rl;
+      }
+      lf += step_f;
+      rem += step_r;
+      if (rem >= 2 * B) {
+        rem -= 2 * B;
+        ++lf;
       }
     }
-    for (int o = 16; o > 0; o >>= 1) {
-      const float q = __shfl_down_sync(0xffffffffu, bq, o);
-      const int r = __shfl_down_sync(0xffffffffu, br, o);
-      if (better(q, r, bq, br)) {
-        bq = q;
-        br = r;
-      }
-    }
+    warp_best(bq, br);
     if (lane == 0) {
       wq[c][warp] = bq;
       wr[c][warp] = br;
@@ -280,57 +370,84 @@ __global__ void __launch_bounds__(kThreads) apply_find_kernel(Args a) {
   __syncthreads();
   if (warp < 2) {
     const int c = warp;
-    float bq = wq[c][lane];
-    int br = wr[c][lane];
-    for (int o = 16; o > 0; o >>= 1) {
-      const float q = __shfl_down_sync(0xffffffffu, bq, o);
-      const int r = __shfl_down_sync(0xffffffffu, br, o);
-      if (better(q, r, bq, br)) {
-        bq = q;
-        br = r;
+    float bq = lane < kWarps ? wq[c][lane] : -INFINITY;
+    int br = lane < kWarps ? wr[c][lane] : kNone;
+    warp_best(bq, br);
+    if (lane == 0) {
+      Best w{bq, br, -INFINITY, 0.f, 0.f, 0.f, 0.f, 0.f, 0};
+      if (br != kNone) {
+        const int rl = br - r0;
+        const int lf = rl / (2 * B), d = (rl - lf * 2 * B) / B;
+        const Cand o = candidate(a.hp, ch[c], H + c * cs, nanv + c * fpb * 2,
+                                 vbits, B, lf, d, rl - lf * 2 * B - d * B);
+        w.gain = o.gain;
+        w.lg = o.lg;
+        w.lh = o.lh;
+        w.lc = o.lc;
+        w.lo = o.lo;
+        w.ro = o.ro;
+        if (!a.hp.smooth) {
+          w.lo = leaf_out(o.lg, o.lh, a.hp);
+          w.ro = leaf_out(ch[c].sg - o.lg, ch[c].sh - o.lh, a.hp);
+        }
+        w.cat = catf[lf];
       }
+      res[c] = w;
     }
-    if (lane == 0) win[c] = br;
   }
-  __syncthreads();
 
-  // 4. the state rows
-  if (threadIdx.x < 2) {
-    const int c = threadIdx.x;
-    const int r = win[c];
-    const Cand w = candidate(a, ch[c], H + c * cells, nanv + c * F * 2, r);
+  // 4. the winner across the cluster, read by block 0 through
+  // distributed shared memory, then the state rows
+  cluster.sync();
+  Best w{};
+  if (blk == 0 && warp < 2) {
+    const int c = warp;
+    float bq = -INFINITY;
+    int br = kNone;
+    if (lane < a.blocks) {
+      const Best* rb = cluster.map_shared_rank(&res[c], lane);
+      bq = rb->key;
+      br = rb->rank;
+    }
+    warp_best(bq, br);
+    br = __shfl_sync(0xffffffffu, br, 0);
+    if (lane == 0) {
+      const int kw = br == kNone ? 0 : br / (2 * B) / fpb;
+      w = *cluster.map_shared_rank(&res[c], kw);
+    }
+  }
+  cluster.sync();   // no block leaves while block 0 may read it
+  if (blk != 0) return;
+  if (warp < 2 && lane == 0) {
+    const int c = warp;
+    const int r = w.rank;
     const int f = r / (2 * B);
     const int d = (r - f * 2 * B) / B;
     const int b = r - f * 2 * B - d * B;
-    float b_lo = w.lo, b_ro = w.ro;
-    if (!a.hp.smooth) {
-      b_lo = leaf_out(w.lg, w.lh, a.hp);
-      b_ro = leaf_out(ch[c].sg - w.lg, ch[c].sh - w.lh, a.hp);
-    }
     const int tgt = c == 0 ? a.leaf : a.right;
     float* bo = a.best + (size_t)tgt * 10;
     bo[0] = w.gain;
     bo[1] = (float)f;
     bo[2] = (float)b;
     bo[3] = d == 1 ? 1.f : 0.f;
-    bo[4] = catv[f * B] > 0.5f ? 1.f : 0.f;
+    bo[4] = w.cat ? 1.f : 0.f;
     bo[5] = w.lg;
     bo[6] = w.lh;
     bo[7] = w.lc;
-    bo[8] = b_lo;
-    bo[9] = b_ro;
+    bo[8] = w.lo;
+    bo[9] = w.ro;
     float* so = a.lstate + (size_t)tgt * 8;
     so[0] = ch[c].sg;
     so[1] = ch[c].sh;
     so[2] = ch[c].cc;
     so[3] = d_child;
     so[4] = (float)a.node;
-    so[5] = mn;
-    so[6] = mx;
+    so[5] = parent[10 + SMN];
+    so[6] = parent[10 + SMX];
     so[7] = ch[c].po;
-  } else if (threadIdx.x == 32) {
+  } else if (threadIdx.x == 64) {
     float* no = a.nodes + (size_t)a.node * 4;
-    no[0] = gain_rec;
+    no[0] = parent[BG];
     no[1] = leaf_out(pg, ph, a.hp);
     no[2] = ph;
     no[3] = pc;
@@ -340,37 +457,77 @@ __global__ void __launch_bounds__(kThreads) apply_find_kernel(Args a) {
   }
 }
 
-// both children's histograms and their NaN-bin values
-// (apply_find.apply_find_supported gates on the same size)
-inline int smem_bytes(int F, int B) {
-  return F * B * 2 * 4 * 2 + F * 2 * 4 * 2;
+// the wrapper's geometry (ops/apply_find.tail_geometry), refused where it
+// misses a feature or does not fit
+bool geometry_ok(int F, int B, int blocks, int fpb) {
+  return F >= 1 && B >= 8 && B % 8 == 0 && blocks >= 1
+         && blocks <= kMaxCluster && fpb >= 1
+         && (long long)blocks * fpb >= F && (long long)(blocks - 1) * fpb < F
+         && (long long)fpb * (17LL * B + 24) <= kMaxSmem - kStaticReserve;
+}
+
+template <bool kPool>
+cudaError_t set_attributes(int smem, int blocks) {
+  static int smem_set = 0;
+  static bool nonportable = false;
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        apply_find_kernel<kPool>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set = smem;
+  }
+  if (blocks > kPortableCluster && !nonportable) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        apply_find_kernel<kPool>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    nonportable = true;
+  }
+  return cudaSuccess;
+}
+
+struct Launch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+};
+
+void configure(Launch& l, int blocks, int smem, cudaStream_t s) {
+  l.cfg = cudaLaunchConfig_t{};
+  l.cfg.gridDim = dim3(blocks);
+  l.cfg.blockDim = dim3(kThreads);
+  l.cfg.dynamicSmemBytes = smem;
+  l.cfg.stream = s;
+  l.attr[0].id = cudaLaunchAttributeClusterDimension;
+  l.attr[0].val.clusterDim.x = blocks;
+  l.attr[0].val.clusterDim.y = 1;
+  l.attr[0].val.clusterDim.z = 1;
+  l.cfg.attrs = l.attr;
+  l.cfg.numAttrs = 1;
 }
 
 template <bool kPool>
 int launch(const Args& a, void* stream) {
-  const int smem = smem_bytes(a.F, a.B);
-  static int smem_set = 0;
-  if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        apply_find_kernel<kPool>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
-  }
-  apply_find_kernel<kPool><<<1, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  if (!geometry_ok(a.F, a.B, a.blocks, a.fpb))
+    return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(a.fpb, a.B);
+  cudaError_t e = set_attributes<kPool>(smem, a.blocks);
+  if (e != cudaSuccess) return (int)e;
+  Launch l;
+  configure(l, a.blocks, smem, static_cast<cudaStream_t>(stream));
+  e = cudaLaunchKernelEx(&l.cfg, apply_find_kernel<kPool>, a);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 Args make_args(float* pool, const float* ha, const float* hb,
                const int* nleft, float* best, float* lstate, float* nodes,
                int* seg, const float* consts, const float* fmask, int F,
                int B, int leaf, int right, int node, int s0, int cnt,
-               int done, int max_depth, float l1, float l2, float min_data,
-               float min_hess, float min_gain, float mds, float ps,
-               int smooth) {
+               int done, int blocks, int fpb, int max_depth, float l1,
+               float l2, float min_data, float min_hess, float min_gain,
+               float mds, float ps, int smooth) {
   return Args{pool, ha, hb, nleft, best, lstate, nodes, seg, consts, fmask,
-              F, B, leaf, right, node, s0, cnt, done,
+              F, B, leaf, right, node, s0, cnt, done, blocks, fpb,
               HP{l1, l2, min_data, min_hess, min_gain, mds, ps, smooth,
                  max_depth}};
 }
@@ -379,20 +536,48 @@ Args make_args(float* pool, const float* ha, const float* hb,
 
 extern "C" {
 
+// Dynamic shared bytes of one block of fpb features at B bins
+// (ops/apply_find.tail_smem_bytes gives the same).
+int apply_find_smem_bytes(int fpb, int B) { return smem_bytes(fpb, B); }
+
+// Clusters of this geometry the card can hold at once
+// (cudaOccupancyMaxActiveClusters; 0: the launch cannot run), or minus
+// the CUDA error code.
+int apply_find_max_clusters(int pool, int F, int B, int blocks, int fpb) {
+  if (!geometry_ok(F, B, blocks, fpb)) return -(int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(fpb, B);
+  cudaError_t e = pool ? set_attributes<true>(smem, blocks)
+                       : set_attributes<false>(smem, blocks);
+  if (e != cudaSuccess) return -(int)e;
+  Launch l;
+  configure(l, blocks, smem, nullptr);
+  int n = 0;
+  e = pool ? cudaOccupancyMaxActiveClusters(&n, apply_find_kernel<true>,
+                                            &l.cfg)
+           : cudaOccupancyMaxActiveClusters(&n, apply_find_kernel<false>,
+                                            &l.cfg);
+  return e != cudaSuccess ? -(int)e : n;
+}
+
 // The pool entry: ha / hb the smaller child's histogram candidates
-// (left-smaller / right-smaller), pool [L, F, B, 2] updated in place.
+// (left-smaller / right-smaller), pool [L, F, B, 2] updated in place;
+// one cluster of `blocks` blocks of `fpb` features.  Every pointer
+// 8-byte aligned.  Returns the CUDA error code (0 on success;
+// cudaErrorInvalidValue for a geometry that misses a feature or does not
+// fit).
 int apply_find_pool(float* pool, const float* ha, const float* hb,
                     const int* nleft, float* best, float* lstate,
                     float* nodes, int* seg, const float* consts,
                     const float* fmask, int F, int B, int leaf, int right,
-                    int node, int s0, int cnt, int done, int max_depth,
-                    float l1, float l2, float min_data, float min_hess,
-                    float min_gain, float mds, float ps, int smooth,
-                    void* stream) {
+                    int node, int s0, int cnt, int done, int blocks, int fpb,
+                    int max_depth, float l1, float l2, float min_data,
+                    float min_hess, float min_gain, float mds, float ps,
+                    int smooth, void* stream) {
   return launch<true>(
       make_args(pool, ha, hb, nleft, best, lstate, nodes, seg, consts, fmask,
-                F, B, leaf, right, node, s0, cnt, done, max_depth, l1, l2,
-                min_data, min_hess, min_gain, mds, ps, smooth),
+                F, B, leaf, right, node, s0, cnt, done, blocks, fpb,
+                max_depth, l1, l2, min_data, min_hess, min_gain, mds, ps,
+                smooth),
       stream);
 }
 
@@ -401,14 +586,14 @@ int apply_find(const float* h_left, const float* h_right, const int* nleft,
                float* best, float* lstate, float* nodes, int* seg,
                const float* consts, const float* fmask, int F, int B,
                int leaf, int right, int node, int s0, int cnt, int done,
-               int max_depth, float l1, float l2, float min_data,
-               float min_hess, float min_gain, float mds, float ps,
-               int smooth, void* stream) {
+               int blocks, int fpb, int max_depth, float l1, float l2,
+               float min_data, float min_hess, float min_gain, float mds,
+               float ps, int smooth, void* stream) {
   return launch<false>(
       make_args(nullptr, h_left, h_right, nleft, best, lstate, nodes, seg,
                 consts, fmask, F, B, leaf, right, node, s0, cnt, done,
-                max_depth, l1, l2, min_data, min_hess, min_gain, mds, ps,
-                smooth),
+                blocks, fpb, max_depth, l1, l2, min_data, min_hess, min_gain,
+                mds, ps, smooth),
       stream);
 }
 

@@ -22,6 +22,14 @@ operation by operation (f64 bin prefix sums rounded once, no fused
 multiply-adds), so on the CPU both routes grow the same trees and on
 the card the kernel equals its plain version bit for bit.
 
+The kernel runs as one thread-block cluster over the features
+(:func:`tail_geometry`: up to ``MAX_CLUSTER`` blocks, each holding its
+features' two child histograms in shared memory), so the tail fits
+wherever one cluster's shared memory holds both children: 28 x 1024
+(the row-order route at ``max_bin=1023``) and 136 x 256 (the wide route)
+included.  :func:`cluster_winner_ref` models its search (each block's
+winner over its feature range, then the merge) for the tests.
+
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
 """
@@ -29,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -180,34 +188,143 @@ def apply_find_torch_pool(h_a: torch.Tensor, h_b: torch.Tensor,
                feature_mask, hp, max_depth, at)
 
 
+# the kernel's launch (csrc/apply_find.cu): one thread-block cluster of
+# up to MAX_CLUSTER blocks of TAIL_THREADS threads over the features
+# (the most blocks were the fastest at every shape timed, PERF.md);
+# above PORTABLE_CLUSTER blocks the cluster is non-portable
+TAIL_THREADS = 512
+MAX_CLUSTER = 16
+PORTABLE_CLUSTER = 8
+# bytes of one block's shared memory kept for the kernel's static arrays
+STATIC_RESERVE = 1024
+
+
+class TailGeometry(NamedTuple):
+    """The split tail's launch: one cluster of ``blocks`` blocks, block
+    ``k`` owning features ``[k * feats, min(F, (k + 1) * feats))``;
+    ``smem`` the dynamic shared bytes a block (the library's
+    ``apply_find_smem_bytes``).  The wrapper passes it to the library as
+    it is; the library refuses one that misses a feature or does not
+    fit."""
+    blocks: int
+    feats: int
+    smem: int
+
+    def ranges(self, num_features: int) -> list:
+        """Each block's feature range ``(start, stop)``."""
+        return [(k * self.feats, min(num_features, (k + 1) * self.feats))
+                for k in range(self.blocks)]
+
+
+def tail_smem_bytes(feats: int, padded_bins: int) -> int:
+    """Dynamic shared memory of a block of ``feats`` features: both
+    children's ``[feats, B, 2]`` f32 histograms, the NaN bins' values
+    (16 bytes a feature), the NaN bin and the categorical flag (8), one
+    validity byte a bin."""
+    return feats * (17 * padded_bins + 24)
+
+
+@functools.lru_cache(maxsize=None)
+def tail_geometry(num_features: int, padded_bins: int,
+                  max_blocks: int = MAX_CLUSTER) -> Optional[TailGeometry]:
+    """The geometry of the tail of ``num_features`` x ``padded_bins``:
+    ``min(F, max_blocks)`` blocks of balanced feature ranges (fewer where
+    the ranges round up); ``None`` where a block's share does not fit its
+    shared memory.  ``max_blocks`` below ``MAX_CLUSTER`` is for timing
+    other cluster sizes."""
+    f, b = int(num_features), int(padded_bins)
+    if f < 1 or b < 8 or b % 8 or not 1 <= max_blocks <= MAX_CLUSTER:
+        return None
+    feats = -(-f // min(f, int(max_blocks)))
+    smem = tail_smem_bytes(feats, b)
+    if smem > MAX_SMEM - STATIC_RESERVE:
+        return None
+    return TailGeometry(-(-f // feats), feats, smem)
+
+
 def apply_find_supported(num_features: int, padded_bins: int) -> bool:
-    """Whether both children's histograms fit one block's shared memory
-    (the counterpart of the reference's ``tail_supported``: a route
-    decision, taken up front)."""
-    return smem_bytes(num_features, padded_bins) <= MAX_SMEM
+    """Whether the tail's features fit one cluster's shared memory
+    (:func:`tail_geometry`; the counterpart of the reference's
+    ``tail_supported``: a route decision, taken up front)."""
+    return tail_geometry(num_features, padded_bins) is not None
 
 
-def smem_bytes(num_features: int, padded_bins: int) -> int:
-    """Shared memory of the kernel's one block (``smem_bytes`` in
-    ``csrc/apply_find.cu``): both children's histograms and their NaN-bin
-    values."""
-    return num_features * padded_bins * 16 + num_features * 16
+# the rank of no candidate (every key NaN), as the kernel's kNone
+NO_RANK = 0x7FFFFFFF
+
+
+def block_winners_ref(keys: torch.Tensor, geo: TailGeometry,
+                      padded_bins: int) -> tuple:
+    """Each block's winner, as the kernel's blocks find it: ``keys``
+    [K, F * 2B] are the candidates' selection keys in rank order (rank r
+    = f * 2B + d * B + b); block k searches its features' ranks and keeps
+    the largest key, ties to the smallest rank (a NaN key never wins; a
+    block of NaN keys keeps ``(-inf, NO_RANK)``).  Returns (keys f32 [K,
+    blocks], ranks i64 [K, blocks])."""
+    k, n = keys.shape
+    f = n // (2 * padded_bins)
+    bq = torch.full((k, geo.blocks), float("-inf"), dtype=torch.float32)
+    br = torch.full((k, geo.blocks), NO_RANK, dtype=torch.int64)
+    ranks = torch.arange(n, dtype=torch.int64)
+    for blk, (lo, hi) in enumerate(geo.ranges(f)):
+        sl = slice(lo * 2 * padded_bins, hi * 2 * padded_bins)
+        for i in range(k):
+            q, r = keys[i, sl], ranks[sl]
+            ok = ~torch.isnan(q)
+            if bool(ok.any()):
+                bq[i, blk] = q[ok].max()
+                br[i, blk] = r[ok & (q == bq[i, blk])].min()
+    return bq, br
+
+
+def cluster_winner_ref(keys: torch.Tensor, geo: TailGeometry,
+                       padded_bins: int) -> torch.Tensor:
+    """Plain model of the kernel's search: :func:`block_winners_ref`,
+    then block 0's merge of the blocks' winners with the same
+    ``better()`` (a larger key, or an equal key of a smaller rank).
+    Returns the winning rank of each of the K rows, i64 [K]."""
+    bq, br = block_winners_ref(keys, geo, padded_bins)
+    out = torch.empty(keys.shape[0], dtype=torch.int64)
+    for i in range(keys.shape[0]):
+        wq, wr = float("-inf"), NO_RANK
+        for q, r in zip(bq[i].tolist(), br[i].tolist()):
+            if q > wq or (q == wq and r < wr):
+                wq, wr = q, r
+        out[i] = wr
+    return out
 
 
 @functools.lru_cache(maxsize=1)
 def _lib():
     lib = _build.load("apply_find")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [i] * 9 + [f] * 7 + [i, p]
+    tail = [i] * 11 + [f] * 7 + [i, p]
     lib.apply_find_pool.argtypes = [p] * 10 + tail
     lib.apply_find_pool.restype = i
     lib.apply_find.argtypes = [p] * 9 + tail
     lib.apply_find.restype = i
+    lib.apply_find_smem_bytes.argtypes = [i, i]
+    lib.apply_find_smem_bytes.restype = i
+    lib.apply_find_max_clusters.argtypes = [i] * 5
+    lib.apply_find_max_clusters.restype = i
     return lib
 
 
+def max_clusters(geo: TailGeometry, num_features: int, padded_bins: int,
+                 pool: bool = True) -> int:
+    """Clusters of ``geo`` the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; 0: the launch cannot run)."""
+    n = _lib().apply_find_max_clusters(int(pool), int(num_features),
+                                       int(padded_bins), geo.blocks,
+                                       geo.feats)
+    if n < 0:
+        raise LightGBMError(f"apply_find occupancy query of {geo} failed "
+                            f"with CUDA error {-n}")
+    return n
+
+
 def _check(h_a, h_b, nleft, st: TreeState, fc: FinderConsts,
-           feature_mask) -> None:
+           feature_mask) -> TailGeometry:
     L, f, b, _ = st.pool.shape
     dev = st.pool.device
     want = ((st.pool, torch.float32, (L, f, b, 2)),
@@ -224,23 +341,69 @@ def _check(h_a, h_b, nleft, st: TreeState, fc: FinderConsts,
                 or not t.is_contiguous()):
             raise LightGBMError(f"apply_find wants contiguous {dt} "
                                 f"{list(shape)} tensors on {dev}")
-    if not apply_find_supported(f, b):
+    if any(t.data_ptr() % 8 for t in (st.pool, h_a, h_b)):
+        raise LightGBMError("apply_find reads histograms in 8-byte (g, h) "
+                            "pairs: pool and histograms must be 8-byte "
+                            "aligned")
+    geo = tail_geometry(f, b)
+    if geo is None:
         raise LightGBMError(f"apply_find of {f} features x {b} bins does "
-                            "not fit one block's shared memory")
+                            f"not fit a cluster of {MAX_CLUSTER} blocks' "
+                            "shared memory")
+    return geo
 
 
 def _scalars(at: SplitAt, max_depth: int, hp: SplitHyperParams, f: int,
-             b: int) -> list:
+             b: int, geo: TailGeometry) -> list:
     return [f, b, at.leaf, at.right, at.node, at.s0, at.cnt, int(at.done),
-            int(max_depth), hp.lambda_l1, hp.lambda_l2,
-            float(hp.min_data_in_leaf), hp.min_sum_hessian_in_leaf,
-            hp.min_gain_to_split, hp.max_delta_step, hp.path_smooth,
-            int(hp.use_smoothing)]
+            geo.blocks, geo.feats, int(max_depth), hp.lambda_l1,
+            hp.lambda_l2, float(hp.min_data_in_leaf),
+            hp.min_sum_hessian_in_leaf, hp.min_gain_to_split,
+            hp.max_delta_step, hp.path_smooth, int(hp.use_smoothing)]
 
 
 def _state_ptrs(st: TreeState) -> list:
     return [st.best.data_ptr(), st.lstate.data_ptr(), st.nodes.data_ptr(),
             st.seg.data_ptr()]
+
+
+def launch_pool(h_a: torch.Tensor, h_b: torch.Tensor, nleft: torch.Tensor,
+                st: TreeState, fc: FinderConsts, feature_mask: torch.Tensor,
+                hp: SplitHyperParams, max_depth: int, at: SplitAt,
+                geo: TailGeometry) -> None:
+    """The pool entry's launch on ``geo`` (CUDA tensors already checked);
+    raises on a launch error.  Counts nothing: :func:`apply_find_pool`
+    counts its launches."""
+    dev = st.pool.device
+    _, f, b, _ = st.pool.shape
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().apply_find_pool(
+            st.pool.data_ptr(), h_a.data_ptr(), h_b.data_ptr(),
+            nleft.data_ptr(), *_state_ptrs(st), fc.masks.data_ptr(),
+            feature_mask.data_ptr(), *_scalars(at, max_depth, hp, f, b, geo),
+            stream)
+    if rc != 0:
+        raise LightGBMError(f"apply_find_pool kernel launch failed with "
+                            f"CUDA error {rc}")
+
+
+def launch_plain(h2: torch.Tensor, nleft: torch.Tensor, st: TreeState,
+                 fc: FinderConsts, feature_mask: torch.Tensor,
+                 hp: SplitHyperParams, max_depth: int, at: SplitAt,
+                 geo: TailGeometry) -> None:
+    """The plain-pool entry's launch on ``geo``, as :func:`launch_pool`."""
+    dev = st.pool.device
+    _, f, b, _ = st.pool.shape
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().apply_find(
+            h2[0].data_ptr(), h2[1].data_ptr(), nleft.data_ptr(),
+            *_state_ptrs(st), fc.masks.data_ptr(), feature_mask.data_ptr(),
+            *_scalars(at, max_depth, hp, f, b, geo), stream)
+    if rc != 0:
+        raise LightGBMError(f"apply_find kernel launch failed with CUDA "
+                            f"error {rc}")
 
 
 def apply_find_pool(h_a: torch.Tensor, h_b: torch.Tensor,
@@ -249,25 +412,15 @@ def apply_find_pool(h_a: torch.Tensor, h_b: torch.Tensor,
                     max_depth: int, at: SplitAt) -> None:
     """The split tail with the histogram pool (the main path's entry).
     CPU tensors take :func:`apply_find_pool_ref`; CUDA tensors launch
-    the kernel."""
+    the kernel on :func:`tail_geometry`."""
     dev = st.pool.device
     if dev.type == "cpu":
         return apply_find_pool_ref(h_a, h_b, nleft, st, fc, feature_mask, hp,
                                    max_depth, at)
     if dev.type != "cuda":
         raise LightGBMError(f"apply_find runs on cuda or cpu, not {dev}")
-    _check(h_a, h_b, nleft, st, fc, feature_mask)
-    _, f, b, _ = st.pool.shape
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _lib().apply_find_pool(
-            st.pool.data_ptr(), h_a.data_ptr(), h_b.data_ptr(),
-            nleft.data_ptr(), *_state_ptrs(st), fc.masks.data_ptr(),
-            feature_mask.data_ptr(), *_scalars(at, max_depth, hp, f, b),
-            stream)
-    if rc != 0:
-        raise LightGBMError(f"apply_find_pool kernel launch failed with "
-                            f"CUDA error {rc}")
+    geo = _check(h_a, h_b, nleft, st, fc, feature_mask)
+    launch_pool(h_a, h_b, nleft, st, fc, feature_mask, hp, max_depth, at, geo)
     apply_find_pool.launches += 1
     return None
 
@@ -277,7 +430,8 @@ def apply_find(h2: torch.Tensor, nleft: torch.Tensor, st: TreeState,
                hp: SplitHyperParams, max_depth: int, at: SplitAt) -> None:
     """The split tail with both children's histograms given (``h2``
     [2, F, B, 2]); the pool is not touched.  CPU tensors take
-    :func:`apply_find_ref`; CUDA tensors launch the kernel."""
+    :func:`apply_find_ref`; CUDA tensors launch the kernel on
+    :func:`tail_geometry`."""
     dev = st.pool.device
     if dev.type == "cpu":
         return apply_find_ref(h2, nleft, st, fc, feature_mask, hp, max_depth,
@@ -286,17 +440,8 @@ def apply_find(h2: torch.Tensor, nleft: torch.Tensor, st: TreeState,
         raise LightGBMError(f"apply_find runs on cuda or cpu, not {dev}")
     if not h2.is_contiguous() or h2.dim() != 4 or h2.shape[0] != 2:
         raise LightGBMError("h2 must be a contiguous [2, F, B, 2] tensor")
-    _check(h2[0], h2[1], nleft, st, fc, feature_mask)
-    _, f, b, _ = st.pool.shape
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _lib().apply_find(
-            h2[0].data_ptr(), h2[1].data_ptr(), nleft.data_ptr(),
-            *_state_ptrs(st), fc.masks.data_ptr(), feature_mask.data_ptr(),
-            *_scalars(at, max_depth, hp, f, b), stream)
-    if rc != 0:
-        raise LightGBMError(f"apply_find kernel launch failed with CUDA "
-                            f"error {rc}")
+    geo = _check(h2[0], h2[1], nleft, st, fc, feature_mask)
+    launch_plain(h2, nleft, st, fc, feature_mask, hp, max_depth, at, geo)
     apply_find.launches += 1
     return None
 

@@ -164,8 +164,8 @@ RULES: Tuple[Rule, ...] = (
          "the one-kernel split tail disabled by LGBM_TPU_APPLY_IMPL=xla",
          lambda i: i.apply_impl_env == "xla"),
     Rule("tail_smem", "tail", "max_bin",
-         "both children's histograms exceed one block's shared memory "
-         "(apply_find.apply_find_supported)",
+         "both children's histograms exceed the shared memory of a "
+         "cluster of 16 blocks (apply_find.apply_find_supported)",
          lambda i: not i.tail_ok),
 )
 

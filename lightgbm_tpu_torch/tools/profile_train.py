@@ -1,19 +1,22 @@
 """End-to-end training time of the default and pack=2 routes on the
 card, as ``chip_smoke.py`` drives them: 1,000,000 + 100,000 Higgs-style
 rows x 28 features, 255 leaves, ``max_bin`` 255, 10 iterations counted
-and timed by ``chip_smoke.train_main_path`` (launch counts held exact,
+and timed by ``chip_smoke.train_main_path`` (``row_order``: the same rows
+at ``max_bin`` 1023; ``wide``: 136 features; launch counts held exact,
 served scores held against the training scores), then one profiled
 iteration (``chip_smoke.profile_iteration``): s/iteration (first, and
 the mean of the rest), the stages' ms a tree, holdout AUC, the
 device's busy share, kernels a split and the fused split's kernels' ms
-in the profiled iteration.  For the host's share it also gives the
+and the split tail's kernels' ms in the profiled iteration.  For the
+host's share it also gives the
 caching allocator's device allocations, frees and retries over the
 training (``torch.cuda.memory_stats``) and the host operations of one
 more iteration under ``cProfile`` (the functions with the most time of
 their own, and the port's with the most time in all).
 
     python lightgbm_tpu_torch/tools/profile_train.py \\
-        [--package-root DIR] [--routes default,pack2] [--iters 10]
+        [--package-root DIR] [--routes default,pack2,row_order,wide] \
+        [--iters 10]
 
 Run by path, the script imports the package and ``chip_smoke.py`` from
 ``--package-root`` (default: the checkout it lies in), so one call can
@@ -29,8 +32,10 @@ import re
 import sys
 from pathlib import Path
 
-# the fused split's kernels (either commit's) in a profiled iteration
+# the fused split's and the split tail's kernels (either commit's) in a
+# profiled iteration
 FUSED_KERNELS = re.compile(r"count_tiles|fused_\w+|reduce_partials")
+TAIL_KERNELS = re.compile(r"apply_find\w*")
 # the caching allocator's counters read around the training
 ALLOC_STATS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
                "num_sync_all_streams")
@@ -73,7 +78,8 @@ def main(argv=None) -> int:
                     help="directory holding lightgbm_tpu_torch and "
                          "chip_smoke.py")
     ap.add_argument("--routes", default="default,pack2",
-                    help="comma-separated: default, pack2")
+                    help="comma-separated: default, pack2, row_order, "
+                         "wide")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
     root = Path(args.package_root).resolve()
@@ -87,29 +93,47 @@ def main(argv=None) -> int:
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import _build
     _build.build()
-    envs = {"default": {}, "pack2": cs.PACK2}
+    # route -> (env, params, features)
+    routes = {"default": ({}, cs.TRAIN_PARAMS, cs.N_FEATURES),
+              "pack2": (cs.PACK2, cs.TRAIN_PARAMS, cs.N_FEATURES),
+              "row_order": ({}, cs.WIDE_PARAMS, cs.N_FEATURES),
+              "wide": ({}, cs.TRAIN_PARAMS, cs.WIDE_FEATURES)}
     gpu = torch.cuda.get_device_name(0)
-    x_all, y_all = cs.make_higgs_like(cs.TRAIN_ROWS + cs.HOLDOUT_ROWS,
-                                      cs.N_FEATURES, seed=0)
-    x, y = x_all[:cs.TRAIN_ROWS], y_all[:cs.TRAIN_ROWS]
-    ds = lgt.Dataset(x, label=y, params={"max_bin": 255}).construct()
-    valid = lgt.Dataset(x_all[cs.TRAIN_ROWS:], label=y_all[cs.TRAIN_ROWS:],
-                        reference=ds).construct()
+    data = {}
+
+    def dataset(params, features):
+        key = (params["max_bin"], features)
+        if key not in data:
+            x_all, y_all = cs.make_higgs_like(
+                cs.TRAIN_ROWS + cs.HOLDOUT_ROWS, features, seed=0)
+            x, y = x_all[:cs.TRAIN_ROWS], y_all[:cs.TRAIN_ROWS]
+            ds = lgt.Dataset(x, label=y,
+                             params={"max_bin": params["max_bin"]}
+                             ).construct()
+            valid = lgt.Dataset(x_all[cs.TRAIN_ROWS:],
+                                label=y_all[cs.TRAIN_ROWS:],
+                                reference=ds).construct()
+            data.clear()
+            data[key] = (ds, valid, x)
+        return data[key]
     for name in args.routes.split(","):
-        env = envs[name]
+        env, params, features = routes[name]
+        ds, valid, x = dataset(params, features)
         before = torch.cuda.memory_stats()
         bst, rec = cs.train_main_path(gpu, ds, valid, x, env, args.iters,
-                                      f"{name} route")
+                                      f"{name} route", params=params,
+                                      n_features=features)
         after = torch.cuda.memory_stats()
         alloc = {k: after.get(k, 0) - before.get(k, 0) for k in ALLOC_STATS}
         with cs.route_env(env):
             prof = cs.profile_iteration(bst, gpu)
             top = host_top(bst)
-        fused = {}
+        fused, tail = {}, {}
         for k, c, ms in prof.get("top", []):
-            m = FUSED_KERNELS.search(k)
-            if m:
-                fused[m.group()] = [c, ms]
+            for pattern, out in ((FUSED_KERNELS, fused), (TAIL_KERNELS, tail)):
+                m = pattern.search(k)
+                if m:
+                    out[m.group()] = [c, ms]
         print("profile_train " + json.dumps({
             "package": str(root), "route": rec["route"],
             "iterations": rec["iterations"],
@@ -121,7 +145,8 @@ def main(argv=None) -> int:
             "busy_share": prof.get("busy_share"),
             "wall_ms": prof.get("wall_ms"), "busy_ms": prof.get("busy_ms"),
             "kernels_per_split": prof.get("kernels_per_split"),
-            "fused_split_kernels_top10": fused, "allocator": alloc,
+            "fused_split_kernels_top10": fused,
+            "split_tail_kernels_top10": tail, "allocator": alloc,
             "host_top": top, "gpu": gpu}), flush=True)
         del bst
         torch.cuda.empty_cache()

@@ -264,6 +264,33 @@ def test_smem_rules():
     assert _run_on([missing], ["smem"]) == {"RESOURCES_NO_SYMBOL"}
 
 
+@pytest.mark.parametrize("source,symbol,grid,cluster,codes", [
+    # the split tail's cluster of 16 opts in to non-portable sizes
+    ("apply_find", "apply_find_kernel<true>", (16, 1, 1), 16, set()),
+    ("apply_find", "apply_find_kernel<false>", (14, 1, 1), 14, set()),
+    # serve_traverse sets no cudaFuncAttributeNonPortableClusterSizeAllowed
+    ("serve_traverse", "leaves_kernel", (16, 1, 1), 16,
+     {"CLUSTER_OPTIN_MISSING"}),
+    ("serve_traverse", "leaves_kernel", (8, 1, 1), 8, set()),
+    ("apply_find", "apply_find_kernel<true>", (17, 1, 1), 17,
+     {"CLUSTER_OVER_LIMIT"}),
+    ("legacy_probes", "hbm_alias_step", (12, 1, 1), 8, {"CLUSTER_GRID"}),
+])
+def test_cluster_rules(source, symbol, grid, cluster, codes):
+    """A cluster launch: at most 16 blocks, above 8 only with the
+    kernel's non-portable opt-in in its source, and whole clusters."""
+    e = _entry(source=source, symbol=symbol, grid=grid, cluster=cluster)
+    assert _run_on([e], ["smem"]) == codes
+
+
+def test_cluster_opt_in_is_read_from_the_source():
+    from lightgbm_tpu_torch.analysis.passes.smem import (_CLUSTER_OPTIN,
+                                                         opted_in)
+    assert opted_in("apply_find", _CLUSTER_OPTIN) == {"apply_find_kernel"}
+    assert opted_in("legacy_probes", _CLUSTER_OPTIN) == set()
+    assert "apply_find_kernel" in opted_in("apply_find")
+
+
 def test_register_rules():
     report = res.load_report()
     su = report["serve_traverse"]

@@ -195,4 +195,5 @@ def test_finder_consts_match_jax():
     got = build_finder_consts(dd.num_bins, dd.has_nan, dd.is_cat,
                               dd.padded_bins).masks.numpy()
     np.testing.assert_array_equal(got, want[:4])
-    assert apply_find_supported(28, 256) and not apply_find_supported(64, 256)
+    assert apply_find_supported(28, 256) and not apply_find_supported(209,
+                                                                      1024)

@@ -34,7 +34,12 @@ version run on CPU copies on adversarial splits (all rows to one side,
 one row, an odd start, NaN and one-hot descriptors, counts at the slice
 and mode edges and at 16 and 17 slices; F = 27, 28, 71, B = 64, 256),
 in a replayed graph,
-and a geometry that misses a row or a cell refused.
+and a geometry that misses a row or a cell refused.  The split tail as
+one cluster over the features (slice 13) bitwise its plain version at
+28 and 136 features, B = 256 and 1024, on seeded splits with equal keys
+across every block boundary and the winner in the last block, on other
+cluster sizes, in a replayed graph, and a geometry that misses a
+feature refused.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
 row-order and 3ph routes), and the default route's equal slice 2's
@@ -51,7 +56,7 @@ from chip_smoke import (apply_find_parity, compare_trees,
                         make_rows, pack2_cases, partition_3ph_parity,
                         partition_parity, random_model_text,
                         random_row_matrix, refresh_plain_parity, rows_on,
-                        score_tolerance, stream_parity)
+                        score_tolerance, stream_parity, tail_parity)
 from lightgbm_tpu_torch.ops import predict as tpred
 from lightgbm_tpu_torch.ops import serve_kernel as tkern
 
@@ -224,6 +229,93 @@ def test_apply_find_matches_plain(cuda, hp_kw):
     apply_find_parity(grower, rows, "test")
     assert (apply_find_pool.launches, apply_find.launches) == (
         before[0] + 2, before[1] + 1)
+
+
+def _tail_case(f, b, kind):
+    """A seeded split at f x b and the features its winners must lie in:
+    "plain", "ties" (at every block boundary the two features equal and
+    strong: the winner is a boundary's first) or "last" (the last
+    feature strongest)."""
+    from lightgbm_tpu_torch.ops.apply_find import tail_geometry
+    from lightgbm_tpu_torch.tools.profile_apply_find import synthetic_split
+    geo = tail_geometry(f, b)
+    if kind == "ties":
+        js = tuple(k * geo.feats - 1 for k in range(1, geo.blocks))
+        return synthetic_split(f, b, cnt=200_000, ties=js, strong=js,
+                               device="cuda"), js
+    if kind == "last":
+        return synthetic_split(f, b, cnt=200_000, strong=(f - 1,),
+                               device="cuda"), (f - 1,)
+    return synthetic_split(f, b, cnt=200_000, seed=f + b,
+                           device="cuda"), None
+
+
+@pytest.mark.parametrize("f,b,kind", [
+    (28, 256, "plain"), (28, 1024, "plain"), (136, 256, "plain"),
+    (136, 1024, "plain"), (1, 16, "plain"), (17, 64, "plain"),
+    (28, 256, "ties"), (28, 1024, "ties"), (136, 256, "ties"),
+    (28, 256, "last"), (136, 256, "last"), (136, 1024, "last"),
+])
+def test_apply_find_cluster_matches_plain(cuda, f, b, kind):
+    """Both entries bitwise their plain versions (on the card and on CPU
+    copies), done untouched, at the routes' shapes and on adversarial
+    ties across the cluster's blocks."""
+    from lightgbm_tpu_torch.ops.apply_find import apply_find, apply_find_pool
+    case, want = _tail_case(f, b, kind)
+    before = (apply_find_pool.launches, apply_find.launches)
+    tail_parity(case, f"{f}x{b}_{kind}", want_features=want)
+    assert (apply_find_pool.launches, apply_find.launches) == (
+        before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.parametrize("max_blocks", [1, 2, 4, 8, 16])
+def test_apply_find_on_other_cluster_sizes(cuda, max_blocks):
+    """The pool entry on every cluster size the geometry can give, with
+    ties across every boundary of the 16-block geometry: bitwise the
+    plain version on CPU copies."""
+    from lightgbm_tpu_torch.ops.apply_find import (apply_find_pool_ref,
+                                                   launch_pool, max_clusters,
+                                                   tail_geometry)
+    from lightgbm_tpu_torch.tools.profile_apply_find import (call_entry,
+                                                             held_bitwise)
+    case, _ = _tail_case(28, 256, "ties")
+    geo = tail_geometry(28, 256, max_blocks)
+    assert max_clusters(geo, 28, 256) >= 1
+    entry = call_entry(lambda c: launch_pool(c.h_a, c.h_b, *c.args(), geo))
+    assert held_bitwise(entry, apply_find_pool_ref,
+                        lambda c: (c.h_a, c.h_b), case)
+
+
+def test_apply_find_in_a_graph(cuda):
+    """The pool entry captured in a CUDA graph and replayed once leaves
+    the state one eager launch leaves."""
+    from lightgbm_tpu_torch.ops.apply_find import apply_find_pool
+    from lightgbm_tpu_torch.tools.profile_lib import capture
+    case, _ = _tail_case(28, 1024, "plain")
+    eager, graphed = case.clone(), case.clone()
+    apply_find_pool(eager.h_a, eager.h_b, *eager.args())
+    g = capture(lambda: apply_find_pool(graphed.h_a, graphed.h_b,
+                                        *graphed.args()), warmup=0)
+    g.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(eager.st, graphed.st))
+
+
+def test_apply_find_library_refuses_a_short_geometry(cuda):
+    """A geometry that misses a feature, has an empty block or more than
+    16 blocks is refused before a launch (cudaErrorInvalidValue)."""
+    from lightgbm_tpu_torch.ops.apply_find import (TailGeometry, _lib,
+                                                   launch_pool,
+                                                   tail_smem_bytes)
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    case, _ = _tail_case(28, 256, "plain")
+    for blocks, feats in ((7, 3), (15, 2), (28, 1), (1, 27)):
+        geo = TailGeometry(blocks, feats, tail_smem_bytes(feats, 256))
+        st = case.clone()
+        with pytest.raises(LightGBMError, match="CUDA error 1"):
+            launch_pool(st.h_a, st.h_b, *st.args(), geo)
+        assert all(torch.equal(a, b) for a, b in zip(st.st, case.st))
+    assert _lib().apply_find_smem_bytes(9, 1024) == tail_smem_bytes(9, 1024)
 
 
 @pytest.mark.parametrize("objective", ["binary", "regression"])
@@ -923,7 +1015,7 @@ def test_hist_comb_p2_chunked_bitwise_pack1(cuda, monkeypatch):
 
 def test_wide_training_on_card_matches_cpu(cuda):
     """3,000 x 136, 15 leaves, 3 trees on the route the rules give (the
-    unfused stream route with the PyTorch tail): bit-identical to the
+    unfused stream route with the cluster kernel tail): bit-identical to the
     CPU run."""
     x = make_rows(3000, 136, 5)
     _, y = make_higgs_like(3000, 136, 5)
@@ -933,7 +1025,7 @@ def test_wide_training_on_card_matches_cpu(cuda):
     b = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
                   device="cpu")
     assert a._inner.grow.route.describe() == (
-        "path=stream fused=0 tail=xla (fused_smem, tail_smem)")
+        "path=stream fused=0 tail=kernel (fused_smem)")
     res = compare_trees(a._models, b._models)
     assert res["ok"], res
     assert leaves_bitwise(a._models, b._models)

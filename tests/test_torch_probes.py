@@ -280,7 +280,7 @@ def test_wide_comb_histogram_matches_jax():
     assert np.array_equal(got, want)
 
 
-WIDE_ROUTE = "path=stream fused=0 tail=xla (fused_smem, tail_smem)"
+WIDE_ROUTE = "path=stream fused=0 tail=kernel (fused_smem)"
 JAX_ROUTE = {"LGBM_TPU_PHYS": "interpret", "LGBM_TPU_STREAM": "0",
              "LGBM_TPU_FUSED": "0"}
 ROUTE_KNOBS = ("LGBM_TPU_PHYS", "LGBM_TPU_STREAM", "LGBM_TPU_FUSED",
@@ -295,7 +295,7 @@ def _purge():
 
 def test_wide_training_matches_jax():
     """3,000 x 136, 15 leaves, 2 trees: the port's route is the unfused
-    stream route with the PyTorch tail (no new rule; nothing raises) and
+    stream route with the kernel tail (no new rule; nothing raises) and
     its trees equal the JAX package's physical route's in structure."""
     rng = np.random.default_rng(136)
     x = rng.normal(size=(3000, 136)).astype(np.float32)

@@ -122,16 +122,15 @@ def test_route_rules(inputs, path, reason, tail):
 
 
 @pytest.mark.parametrize("max_bin,env,b,desc", [
-    (1023, {}, 1024, "path=row_order fused=0 tail=xla (non_u8_bins, "
-                     "tail_smem)"),
+    (1023, {}, 1024, "path=row_order fused=0 tail=kernel (non_u8_bins)"),
     (255, {"LGBM_TPU_PHYS": "0"}, 256,
      "path=row_order fused=0 tail=kernel (phys_env_off)"),
     (255, {}, 256, "path=stream fused=1 tail=kernel"),
 ])
 def test_booster_route(max_bin, env, b, desc):
     """The booster's route at 28 features: max_bin=1023 gives u16 bins,
-    B = 1024 and the PyTorch tail (both children's histograms exceed a
-    block's shared memory); LGBM_TPU_PHYS=0 at max_bin=255 keeps the
+    B = 1024 and the kernel tail (both children's histograms spread over
+    a cluster's blocks); LGBM_TPU_PHYS=0 at max_bin=255 keeps the
     one-kernel tail; the default route at max_bin <= 255 is unchanged."""
     x, y = _data(1500, 28, 3, nan_frac=0.0)
     params = {"objective": "binary", "num_leaves": 7, "max_bin": max_bin,
