@@ -108,7 +108,16 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    leaves, 3 iterations) counted and served, beside the pack=1
    ``LGBM_TPU_FUSED=0`` route, both bitwise the default route's first 3
    trees, and slice 2's route at pack=2 (3), bitwise slice 2's route's
-   trees; one profiled iteration of each unfused route;
+   trees; one profiled iteration of each unfused route; then (slice 14)
+   ``hist_comb`` and ``hist_comb_p2`` on seeded 1M x 28 rows at the
+   root, at the smaller children's quartiles and largest of the P1
+   ``FUSED=0`` route's trees and at every slice count up to one past
+   the range-mode limit, each bitwise its plain version on CPU copies
+   with the kernels a call launches read from a profiler trace (range
+   mode one ``hist_comb_range``, feature mode ``hist_comb_partial`` and
+   ``reduce_partials``), the root and children timed eager and in a
+   graph beside ``index_add_`` (the same again at 136 features in the
+   wide phase);
 8. the launch-cost probes (slice 9, TPU rows T11, T10, T9): the two
    tools of ``lightgbm_tpu_torch.tools`` run with the counts zeroed
    before and read after, their tables printed (T11: 254
@@ -127,7 +136,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    row a block, T = 512 k and 512 k +- 1, an odd s0 and cnt) and T8 on
    overlapping windows, bitwise their plain versions;
 10. wide datasets (slice 9): ``hist_comb`` at 1,000,000 x 136 u8 bins,
-   B = 256, in two feature chunks, bitwise its plain version run on CPU
+   B = 256, in 17 feature chunks of 8, bitwise its plain version run on CPU
    copies and timed beside its byte bound and ``index_add_``; training
    parity at 50,000 x 136, card against device="cpu", 3 trees,
    bit-identical; 3 iterations of ``make_higgs_like(1M, 136)`` with 255
@@ -1300,6 +1309,18 @@ def profile_iteration(bst, gpu: str) -> dict:
             a = fused.setdefault(m.group(1), [0, 0.0])
             a[0] += c
             a[1] += us / 1e3
+    # hist_comb's kernels (csrc/hist_comb.cu): ms an iteration; on the
+    # physical routes without the fused split the only reduce_partials is
+    # its own (the fused split's and hist_rows' elsewhere)
+    hist = {}
+    route = bst._inner.grow.route
+    own_reduce = not route.fused and route.path != "row_order"
+    for k, (c, us) in by_name.items():
+        m = re.search(r"(hist_comb_\w+|reduce_partials)", k)
+        if m and (own_reduce or m.group(1) != "reduce_partials"):
+            a = hist.setdefault(m.group(1), [0, 0.0])
+            a[0] += c
+            a[1] += us / 1e3
     return {"measured": True, "route": bst._inner.grow.route.describe(),
             "wall_ms": wall_ms, "busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms, "kernels": len(kernels),
@@ -1315,6 +1336,8 @@ def profile_iteration(bst, gpu: str) -> dict:
             "fused_split_ms": sum(ms for _, ms in fused.values()),
             "apply_find_ms": sum(us for k, (_, us) in by_name.items()
                                  if "apply_find" in k) / 1e3,
+            "hist_comb_kernels": hist,
+            "hist_comb_ms": sum(ms for _, ms in hist.values()),
             "gpu": gpu}
 
 
@@ -1766,34 +1789,72 @@ def eager_and_graph_ms(fn) -> tuple:
     return eager, graph / GRAPH_CALLS
 
 
+def mangled_base_name(name: str) -> str:
+    """A kernel's name up to its template arguments from its mangled
+    symbol (``_ZN<len><name>...I...``: the last name of the nested
+    name), the symbol itself where it is not mangled."""
+    m = re.match(r"_ZN?", name)
+    if not m:
+        return name
+    at, last = m.end(), name
+    while at < len(name) and name[at].isdigit():
+        n = re.match(r"\d+", name[at:]).group()
+        at += len(n)
+        last = name[at:at + int(n)]
+        at += int(n)
+    return last
+
+
 def kernels_of_call(fn) -> list:
     """[[kernel, blocks], ...] of the device kernels one call of ``fn``
-    launches, in launch order, read from a ``torch.profiler`` trace
-    (written under the git-ignored build directory): each kernel's name
-    up to its template arguments, and its grid's block count."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    launches, in launch order: the call (after one warm-up call) is
+    captured into a CUDA graph, whose kernel nodes the driver API lists
+    (a stream's capture is a chain, listed in the order its nodes were
+    made), each with its kernel's name up to its template arguments and
+    its grid's block count."""
+    import ctypes
 
-    from lightgbm_tpu_torch.ops._build import BUILD_DIR
+    import torch
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    def check(rc):
+        if rc != 0:
+            raise RuntimeError(f"CUDA driver call failed with error {rc}")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
         fn()
-        torch.cuda.synchronize()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = BUILD_DIR / "kernels_of_call.json"
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    path.unlink()
+    graph = vp(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)))
+    nodes = (vp * max(n.value, 1))()
+    if n.value:
+        check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)))
     out = []
-    for e in sorted((e for e in events if e.get("cat") == "kernel"),
-                    key=lambda e: e["ts"]):
-        m = re.search(r"(\w+)\s*[<(]",
-                      e["name"].replace("(anonymous namespace)", ""))
-        name = m.group(1) if m else e["name"]
-        grid = e.get("args", {}).get("grid", [0])
-        out.append([name, int(np.prod(grid))])
+    for node in list(nodes)[:n.value]:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)))
+        if kind.value != 0:          # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at 0, gridDim at 8, 12, 16,
+        # kern (CUkernel) at 56
+        params = (ctypes.c_uint8 * 128)()
+        check(cu.cuGraphKernelNodeGetParams_v2(vp(node), params))
+        func = vp.from_buffer(params, 0).value
+        grid = [ctypes.c_uint32.from_buffer(params, 8 + 4 * k).value
+                for k in range(3)]
+        name = ctypes.c_char_p()
+        if func:
+            check(cu.cuFuncGetName(ctypes.byref(name), vp(func)))
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name),
+                                     vp(vp.from_buffer(params, 56).value)))
+        out.append([mangled_base_name(name.value.decode()),
+                    int(np.prod(grid))])
+    del g
+    torch.cuda.synchronize()
     return out
 
 
@@ -2004,6 +2065,62 @@ def fused_split_times(gpu: str, models) -> dict:
     print("fused_split times [ms] " + json.dumps(res), flush=True)
     del rows, packed
     return res
+
+
+def hist_comb_cases(models) -> tuple:
+    """Slice 14's ranges: the 1M-row root, the smaller children's
+    quartiles and the largest smaller child of ``models`` (the P1
+    ``FUSED=0`` route's trees), each under the bound ``parent // 2 + 1``
+    the grower passes, and each slice count from 1 to one past
+    ``COMB_RANGE_SLICES``.  Returns (cases, children)."""
+    from lightgbm_tpu_torch.ops.hist_kernel2 import COMB_RANGE_SLICES
+    from lightgbm_tpu_torch.tools.profile_hist_comb import cases
+    sizes = split_sizes(models)
+    order = np.argsort(sizes[:, 1], kind="stable")
+    children = {}
+    for name, q in (("q25", 0.25), ("median", 0.5), ("q75", 0.75),
+                    ("max", 1.0)):
+        parent, child = sizes[order[int(round(q * (len(order) - 1)))]]
+        children[name] = (int(child), int(parent) // 2 + 1)
+    return (cases(TRAIN_ROWS, children, range(1, COMB_RANGE_SLICES + 2)),
+            children)
+
+
+def hist_comb_times(gpu: str, f: int, cases: list) -> list:
+    """Slice 14: hist_comb and hist_comb_p2 on seeded 1M x ``f`` rows
+    (``tools/profile_hist_comb.device_rows``) at each of ``cases``: both
+    packs bitwise the plain version run on CPU copies, and the kernels
+    one call launches read from a profiler trace (range mode one
+    ``hist_comb_range`` and no ``reduce_partials``, feature mode
+    ``hist_comb_partial`` and ``reduce_partials``); the root and the
+    children also timed, eager (20 calls) and as one replay of a graph
+    of 20, beside one ``index_add_`` of the same rows both ways and the
+    byte bound."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.hist_kernel2 import comb_geometry
+    from lightgbm_tpu_torch.tools.profile_hist_comb import (device_rows,
+                                                            time_case)
+    me = sys.modules[__name__]
+    rows, packed, rows_cpu = device_rows(f)
+    out = []
+    for label, rng, max_rows in cases:
+        geo = comb_geometry(f, 256, max_rows)
+        rec = time_case(me, rows, packed, rows_cpu, rng, max_rows,
+                        timed=not label.startswith("slices_"))
+        want = (["hist_comb_range"] if geo.ranged
+                else ["hist_comb_partial", "reduce_partials"])
+        for key in ("kernels_a_call", "p2_kernels_a_call"):
+            if [k for k, _ in rec[key]] != want:
+                raise RuntimeError(f"hist_comb {label} at {f} features "
+                                   f"launched {rec[key]}, not {want}")
+        rec.update(case=label, features=f, ranged=geo.ranged)
+        out.append(rec)
+    print(f"hist_comb times [ms] {f} features " + json.dumps(
+        {"times": out, "gpu": gpu}), flush=True)
+    del rows, packed
+    torch.cuda.empty_cache()
+    return out
 
 
 def row_order_phases(gpu: str, ds, valid, ds_wide, valid_wide, x,
@@ -2862,6 +2979,8 @@ def train_phases(gpu: str) -> list:
     copy_times = copyback_p2_times(gpu, bst6._models)
     bsts7, mains7, parity7 = pack2_unfused_phases(gpu, ds, valid, x, bst,
                                                   bst2)
+    comb_cases, comb_children = hist_comb_cases(bsts7["pack1_unfused"]._models)
+    comb_times = hist_comb_times(gpu, N_FEATURES, comb_cases)
     for run in (main, main6, main3):
         want = MAIN_PATH_AUC[run["max_bin"]]
         if run["holdout_auc"] != want:
@@ -2920,6 +3039,10 @@ def train_phases(gpu: str) -> list:
     by_name["hist_rows"]["child_sizes"] = rows_times["child_sizes"]
     by_name["hist_rows"]["times"] = rows_times["times"]
     by_name["copyback_p2"]["times"] = copy_times["times"]
+    for name in ("hist_comb", "hist_comb_p2"):
+        by_name[name]["child_sizes"] = comb_children
+        by_name[name]["cases"] = comb_cases
+        by_name[name]["times"] = comb_times
     for name in ("fused_split", "fused_split_p2"):
         by_name[name]["segments"] = fused_times["segments"]
         by_name[name]["times"] = fused_times["times"]
@@ -3447,21 +3570,22 @@ def legacy_phases(gpu: str) -> list:
 
 
 @contextlib.contextmanager
-def comb_chunk(fc: int):
-    """``hist_comb`` launched with ``fc`` features a block inside the
-    block (the wrapper's ``comb_feature_chunk`` replaced)."""
+def forced_comb_chunk(fc: int):
+    """``hist_comb`` launched with ``fc`` features a feature-mode block
+    inside the block (the wrapper's ``comb_chunk`` replaced)."""
     from lightgbm_tpu_torch.ops import hist_kernel2 as hk
-    saved = hk.comb_feature_chunk
-    hk.comb_feature_chunk = lambda f, b: fc
+    saved = hk.comb_chunk
+    hk.comb_chunk = lambda f, b, slices: fc
     try:
         yield
     finally:
-        hk.comb_feature_chunk = saved
+        hk.comb_chunk = saved
 
 
-# features a block timed beside the wrapper's chunk (17 at 136 features,
-# 14 at 28): 68 was the first rule's chunk, 28 one chunk
-CHUNK_SWEEP = {WIDE_FEATURES: (68, 34, 8), 28: (28, 7)}
+# features a block timed beside the wrapper's chunk at the 1M-row root
+# (8 at 136 features, 14 at 28): 17 the first chunked rule's, 32 the
+# most a feature-mode block stages, 28 one chunk, 7 one feature a warp
+CHUNK_SWEEP = {WIDE_FEATURES: (17, 32), 28: (28, 7)}
 
 
 def comb_chunk_sweep(gpu: str, f: int, rows, k1) -> dict:
@@ -3471,16 +3595,16 @@ def comb_chunk_sweep(gpu: str, f: int, rows, k1) -> dict:
     import torch
 
     from lightgbm_tpu_torch.ops.hist_kernel2 import (
-        build_histogram_comb, comb_feature_chunk, comb_smem_bytes)
+        build_histogram_comb, comb_chunk, comb_feature_smem, hist_blocks)
     n = rows.bins.shape[0]
     kw = dict(padded_bins=256, max_rows=n)
     rng = torch.tensor([0, 0, n], dtype=torch.int32, device="cuda")
-    shipped = comb_feature_chunk(f, 256)
+    shipped = comb_chunk(f, 256, hist_blocks(n))
     out = {}
     for fc in (shipped,) + CHUNK_SWEEP[f]:
-        with comb_chunk(fc):
+        with forced_comb_chunk(fc):
             same = torch_equal(build_histogram_comb(rows, rng, **kw), k1)
-            out[fc] = {"smem": comb_smem_bytes(fc, 256), "bitwise": same,
+            out[fc] = {"smem": comb_feature_smem(fc, 256), "bitwise": same,
                        "ms": _time_ms(
                            lambda: build_histogram_comb(rows, rng, **kw), 20)}
         if not same:
@@ -3493,15 +3617,16 @@ def comb_chunk_sweep(gpu: str, f: int, rows, k1) -> dict:
 
 
 def hist_comb_wide_case(gpu: str) -> dict:
-    """hist_comb at 1,000,000 x 136 u8 bins, B = 256 (eight feature
-    chunks of 17): bitwise its plain version run on CPU copies, two
+    """hist_comb at 1,000,000 x 136 u8 bins, B = 256 (17 feature
+    chunks of 8): bitwise its plain version run on CPU copies, two
     launches bitwise, timed beside the plain version on the card, one
     ``index_add_`` and the byte bound; then the chunk sweeps of
     ``CHUNK_SWEEP`` at 136 and at 28 features."""
     import torch
 
     from lightgbm_tpu_torch.ops.hist_kernel2 import (
-        build_histogram_comb, build_histogram_comb_ref, comb_feature_chunk)
+        build_histogram_comb, build_histogram_comb_ref, comb_chunk,
+        hist_blocks)
     b = 256
     arrays = random_row_matrix(TRAIN_ROWS, WIDE_FEATURES, 9)
     rows = rows_on(arrays, "cuda")
@@ -3513,7 +3638,8 @@ def hist_comb_wide_case(gpu: str) -> dict:
     ref = build_histogram_comb_ref(rows_cpu, rng.cpu(), **kw)
     torch.cuda.synchronize()
     rec = {"case": f"hist_comb root, {TRAIN_ROWS} x {WIDE_FEATURES}, B = {b}",
-           "feature_chunk": comb_feature_chunk(WIDE_FEATURES, b),
+           "feature_chunk": comb_chunk(WIDE_FEATURES, b,
+                                       hist_blocks(TRAIN_ROWS)),
            "bitwise_cpu_plain": torch_equal(k1.cpu(), ref),
            "bitwise_repeat": torch_equal(k1, k2),
            "max_abs_err": float((k1.cpu() - ref).abs().max())}
@@ -3539,7 +3665,7 @@ def hist_comb_wide_case(gpu: str) -> dict:
     return rec
 
 
-def wide_phases(gpu: str) -> dict:
+def wide_phases(gpu: str, comb_cases: list) -> dict:
     """Slice 9's repair: datasets above 19 features at B = 256 build their
     histograms in feature chunks, so 136 features fit.  ``hist_comb`` at 1M x 136 bitwise its
     plain version and timed; training parity at 50,000 x 136, card
@@ -3547,10 +3673,13 @@ def wide_phases(gpu: str) -> dict:
     ``make_higgs_like(1M, 136)``, 255 leaves, 3 iterations on the route
     the rules give (unfused stream, the cluster kernel tail), counted
     exactly; the tail bitwise its plain version on the median split of
-    one tree, and one profiled iteration.  Returns {"hist": ...,
-    "parity": ..., "main": ..., "tail": ...}."""
+    one tree, and one profiled iteration; slice 14's ``comb_cases`` of
+    hist_comb in both packs at 136 features (``hist_comb_times``).
+    Returns {"hist": ..., "parity": ..., "main": ..., "tail": ...,
+    "times": ...}."""
     import lightgbm_tpu_torch as lgt
     hist = hist_comb_wide_case(gpu)
+    times = hist_comb_times(gpu, WIDE_FEATURES, comb_cases)
     parity = train_parity(gpu, {}, PARITY_TREES, "wide dataset",
                           bitwise=True, n_features=WIDE_FEATURES)
     x_all, y_all = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS, WIDE_FEATURES,
@@ -3573,7 +3702,8 @@ def wide_phases(gpu: str) -> dict:
     with route_env({}):
         print("profiled iteration, wide route "
               + json.dumps(profile_iteration(bst, gpu)), flush=True)
-    return {"hist": hist, "parity": parity, "main": main, "tail": tail}
+    return {"hist": hist, "parity": parity, "main": main, "tail": tail,
+            "times": times}
 
 
 def main() -> int:
@@ -3595,12 +3725,15 @@ def main() -> int:
     analysis = analysis_phase(gpu)
     probes = probe_phases(gpu) + legacy_phases(gpu)
     kernels = [serve_phases(gpu, build_s)] + fixtures + train_phases(gpu)
-    wide = wide_phases(gpu)
     comb = next(k for k in kernels if k["name"] == "hist_comb")
+    wide = wide_phases(gpu, comb["cases"])
     comb.update({f"wide_{k}": wide["hist"][k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "feature_chunk")})
     comb["wide_launches"] = wide["main"]["launches"]["build_histogram_comb"]
     comb["wide_train_parity_bitwise"] = wide["parity"]["ok"]
+    for k in kernels:
+        if k["name"] in ("hist_comb", "hist_comb_p2"):
+            k["wide_times"] = wide["times"]
     tail = next(k for k in kernels if k["name"] == "apply_find")
     tail["wide_launches"] = wide["main"]["launches"]["apply_find_pool"]
     tail["parity_cases"].append(wide["tail"]["case"])

@@ -10,8 +10,10 @@ split kernels on the 1M-row segment (the fused split's histogram pass
 also on the median segment's geometry), the tails at B = 256 (the pool
 entry also at the row-order route's B = 1024 and the wide route's 136
 features, each one cluster of its geometry's blocks), serving 100
-trees x 255 leaves over a 65,536-row bucket, ``hist_comb`` also at the
-wide edge (136 features in two chunks of 68), the fixture kernels at
+trees x 255 leaves over a 65,536-row bucket, ``hist_comb`` in both
+modes (feature mode at the 1M-row root, range mode at the median
+smaller child) at 28 and 136 features and both packs, the fixture
+kernels at
 their legal geometries, the launch-cost probes at their tools'
 shapes and the partition-bisection probes at ``profile_legacy``'s
 (2^20 rows, the ``hbm_alias`` comb).  Nothing is allocated and
@@ -110,25 +112,55 @@ def _serve():
         replaces=f"{PALLAS}/serve_kernel.py:219"))
 
 
+def _comb_rows(pack: int, f: int):
+    """The row arguments of ``hist_comb`` (pack 1: bins and vals; pack
+    2: the records) at ``f`` features."""
+    if pack == 1:
+        return (vec_arg("bins", "uint8", (N, f), 4),
+                vec_arg("vals", "float32", (N, 3), 4))
+    return (vec_arg("base", "uint8", (N, RecordLayout(f).stride), 4),)
+
+
+def comb_entry(f: int, max_rows: int, pack: int = 1,
+               fc: int = None) -> KernelEntry:
+    """``hist_comb`` (``_p2`` at pack 2) at ``f`` features, B = 256, on
+    the geometry ``hist_kernel2.comb_geometry`` gives a range of up to
+    ``max_rows`` rows: feature mode (``hist_comb_partial``, the
+    partials) at the root, range mode (``hist_comb_range``, one launch)
+    at a smaller child.  ``fc`` replaces the feature chunk."""
+    geo = hk.comb_geometry(f, B, max_rows)
+    if fc is not None:
+        geo = geo._replace(grid=(geo.grid[0], -(-f // fc)), feats=fc,
+                           smem=hk.comb_feature_smem(fc, B))
+    layout = "CombRows" if pack == 1 else "CombRecords"
+    kernel = "hist_comb_range" if geo.ranged else "hist_comb_partial"
+    width = "_wide" if f == F_WIDE else ""
+    mode = "_range" if geo.ranged else ""
+    sfx = "_p2" if pack == 2 else ""
+    out = vec_arg("out", "float32", (f, B, 2), 8 if geo.ranged else 4)
+    partials = () if geo.ranged else (
+        vec_arg("partials", "float32", (geo.slices, f, B, 2), 4),)
+    return KernelEntry(
+        name=f"hist_comb{width}{mode}{sfx}", source="hist_comb",
+        symbol=f"{kernel}<{layout}>", block=_block(THREADS),
+        dyn_smem=geo.smem, args=_comb_rows(pack, f) + partials + (out,),
+        wrapper=f"hist_kernel2.build_histogram_comb{sfx}",
+        replaces=(f"{PALLAS}/hist_kernel2.py:225" if pack == 1
+                  else f"{PALLAS}/hist_kernel2.py:144, :225"),
+        export=("hist_comb_smem_bytes", (geo.feats, B, int(geo.ranged))))
+
+
 # -- histograms ---------------------------------------------------------------
 def _hist():
-    nb = hk.hist_blocks(N)
-    fc = hk.comb_feature_chunk(F, B)
-    smem = hk.comb_smem_bytes(fc, B)
-    for pack, src, rows in ((1, "CombRows", _rows_args()[:2]),
-                            (2, "CombRecords", (_records(),))):
-        sfx = "_p2" if pack == 2 else ""
-        register_kernel(KernelEntry(
-            name=f"hist_comb{sfx}", source="hist_comb",
-            symbol=f"hist_comb_partial<{src}>", block=_block(THREADS),
-            dyn_smem=smem,
-            args=rows + _hist_out(nb),
-            wrapper=f"hist_kernel2.build_histogram_comb{sfx}",
-            replaces=f"{PALLAS}/hist_kernel2.py:225",
-            export=("hist_comb_smem_bytes", (fc, B))))
+    # both modes at the shapes the routes give: the 1M-row root and the
+    # median smaller child (the default route's median split segment;
+    # the grower's bound cnt // 2 + 1), 28 and 136 features, both packs
+    for f in (F, F_WIDE):
+        for max_rows in (N, MEDIAN_SEGMENT // 2 + 1):
+            for pack in (1, 2):
+                register_kernel(comb_entry(f, max_rows, pack))
     _reduce("hist_comb", "hist_kernel2.build_histogram_comb",
-            f"{PALLAS}/hist_kernel2.py:225", nb)
-    register_kernel(hist_comb_wide_entry())
+            f"{PALLAS}/hist_kernel2.py:225", hk.hist_blocks(N))
     rows_src = (f"{PALLAS}/hist_kernel2.py:339, "
                 f"{PALLAS}/hist_kernel.py:122")
     for bin_t, dtype, b in (("unsigned char", "uint8", B),
@@ -162,22 +194,10 @@ def _hist():
 
 
 def hist_comb_wide_entry(fc: int = None) -> KernelEntry:
-    """``hist_comb`` at the wide edge, F = 136, B = 256: one block of
-    ``fc`` features (the wrapper's ``comb_feature_chunk``, 17, unless
-    given)."""
-    fc = hk.comb_feature_chunk(F_WIDE, B) if fc is None else fc
-    return KernelEntry(
-        name="hist_comb_wide", source="hist_comb",
-        symbol="hist_comb_partial<CombRows>", block=_block(THREADS),
-        dyn_smem=hk.comb_smem_bytes(fc, B),
-        args=(vec_arg("bins", "uint8", (N, F_WIDE), 1),
-              vec_arg("vals", "float32", (N, 3), 4),
-              vec_arg("partials", "float32",
-                      (hk.hist_blocks(N), F_WIDE, B, 2), 4),
-              vec_arg("out", "float32", (F_WIDE, B, 2), 4)),
-        wrapper="hist_kernel2.build_histogram_comb",
-        replaces=f"{PALLAS}/hist_kernel2.py:225",
-        export=("hist_comb_smem_bytes", (fc, B)))
+    """``hist_comb`` at the wide edge's root, F = 136, B = 256, in
+    feature mode: blocks of ``fc`` features (the wrapper's chunk, 8,
+    unless given)."""
+    return comb_entry(F_WIDE, N, 1, fc)
 
 
 # -- partitions ---------------------------------------------------------------

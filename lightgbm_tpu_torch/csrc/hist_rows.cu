@@ -69,38 +69,36 @@
 #include <stdint.h>
 
 #include "hist_block.cuh"
+#include "hist_walk.cuh"
 
 namespace {
 
 using histblock::kThreads;
 using histblock::kWarps;
+using histwalk::kRange;
 
-// positions a thread stages a step: two in hist_rows_partial, one in
+// positions a thread stages a step: two in hist_rows_partial, four in
 // hist_rows_direct, whose warps walk every row of the range
 constexpr int kPartialRows = 2;
 constexpr int kDirectRows = 4;
 constexpr int kMaxFeat = kWarps;                 // features a block stages
 constexpr int kDirectSlices = 2;                 // slices a direct launch sums
-constexpr int kRange = 32;                       // bins a direct warp owns
 
-// Shared bytes of the double-buffered stage of nf features: (g*w, h*w)
-// and the bins of kThreads * SR positions, twice.
 template <typename BinT, int SR>
-__host__ __device__ inline int stage_bytes(int nf) {
-  return 2 * kThreads * SR * (8 + nf * (int)sizeof(BinT));
-}
+using Source = histwalk::IndexedRows<BinT, SR, kMaxFeat>;
 
 template <typename BinT>
 int partial_smem(int fc, int B) {
-  return fc * B * 2 * 4 + stage_bytes<BinT, kPartialRows>(fc);
+  return fc * B * 2 * 4
+         + histwalk::stage_bytes(kPartialRows, fc * (int)sizeof(BinT));
 }
 
 // hist_rows_direct's shared bytes at nf features: the stage, and for each
 // warp its 32 cells and its list of the step's rows in its range.
 template <typename BinT>
 int direct_smem(int nf) {
-  return stage_bytes<BinT, kDirectRows>(nf) + kWarps * 32 * 2 * 4
-         + kWarps * kThreads * kDirectRows * 4;
+  return histwalk::stage_bytes(kDirectRows, nf * (int)sizeof(BinT))
+         + histwalk::range_state_bytes(kDirectRows);
 }
 
 // Positions [lo, hi) of range (start, count), clamped to [0, n_pos).
@@ -113,78 +111,6 @@ __device__ __forceinline__ void clamp_range(const int* range, int n_pos,
   if (b < a) b = a;
   *lo = a;
   *hi = b;
-}
-
-// The rows of this thread's positions p0 + threadIdx.x + kThreads * k,
-// -1 at or past hi.
-template <int SR>
-__device__ __forceinline__ void load_rows(const int* __restrict__ index,
-                                          long long p0, long long hi,
-                                          int (&row)[SR]) {
-#pragma unroll
-  for (int k = 0; k < SR; ++k) {
-    const long long p = p0 + threadIdx.x + kThreads * k;
-    row[k] = p < hi ? (index != nullptr ? __ldg(index + p) : (int)p) : -1;
-  }
-}
-
-// Those rows' values and the bins of features [f_lo, f_lo + nf).
-template <typename BinT, int SR>
-__device__ __forceinline__ void load_data(
-    const BinT* __restrict__ bins, const float2* __restrict__ vals, int F,
-    int f_lo, int nf, const int (&row)[SR], float2 (&v)[SR],
-    BinT (&b)[SR][kMaxFeat]) {
-#pragma unroll
-  for (int k = 0; k < SR; ++k) {
-    if (row[k] < 0) continue;
-    v[k] = __ldg(vals + row[k]);
-    const BinT* br = bins + (size_t)row[k] * F + f_lo;
-#pragma unroll
-    for (int j = 0; j < kMaxFeat; ++j)
-      if (j < nf) b[k][j] = __ldg(br + j);
-  }
-}
-
-// Walk positions [lo, hi) in steps of kStage = kThreads * SR through the
-// double-buffered stage sv [2][kStage], sb [2][kStage * nf] (row r's bins
-// at r * nf), calling acc(sv, sb, rows, p0) on each step's rows (from
-// position p0) in position order.  Every thread of the block calls it;
-// one barrier a step.
-template <int SR, typename BinT, typename Acc>
-__device__ __forceinline__ void walk(const BinT* __restrict__ bins,
-                                     const float2* __restrict__ vals,
-                                     const int* __restrict__ index,
-                                     long long lo, long long hi, int F,
-                                     int f_lo, int nf, float2* sv, BinT* sb,
-                                     Acc&& acc) {
-  constexpr int kStage = kThreads * SR;
-  int row[SR], next[SR];
-  float2 v[SR];
-  BinT b[SR][kMaxFeat];
-  load_rows(index, lo, hi, row);
-  load_data(bins, vals, F, f_lo, nf, row, v, b);
-  load_rows(index, lo + kStage, hi, next);
-  int buf = 0;
-  for (long long p0 = lo; p0 < hi; p0 += kStage, buf ^= 1) {
-    float2* sv_b = sv + buf * kStage;
-    BinT* sb_b = sb + buf * kStage * nf;
-#pragma unroll
-    for (int k = 0; k < SR; ++k) {
-      const int r = threadIdx.x + kThreads * k;
-      sv_b[r] = v[k];
-#pragma unroll
-      for (int j = 0; j < kMaxFeat; ++j)
-        if (j < nf) sb_b[r * nf + j] = b[k][j];
-    }
-    // the stage is written; the other buffer's readers (the step before)
-    // are done, so the next step may write it
-    __syncthreads();
-    if (p0 + kStage < hi) {
-      load_data(bins, vals, F, f_lo, nf, next, v, b);
-      load_rows(index, p0 + 2 * kStage, hi, next);
-    }
-    acc(sv_b, sb_b, (int)(hi - p0 < kStage ? hi - p0 : kStage), p0);
-  }
 }
 
 template <typename BinT>
@@ -206,9 +132,11 @@ hist_rows_partial(const BinT* __restrict__ bins,
   long long lo, hi;
   clamp_range(range, n_pos, &lo, &hi);
   histblock::slice(lo, hi, gridDim.x, blockIdx.x, &lo, &hi);
-  walk<kPartialRows>(
-      bins, reinterpret_cast<const float2*>(vals), index, lo, hi, F, f_lo, fw,
-      sv, sb, [&](const float2* s_v, const BinT* s_b, int rows, long long) {
+  const Source<BinT, kPartialRows> src{
+      bins, reinterpret_cast<const float2*>(vals), index, F, f_lo, fw};
+  histwalk::walk<kPartialRows>(
+      src, lo, hi, sv, sb,
+      [&](const float2* s_v, const BinT* s_b, int rows, long long) {
         histblock::accumulate(hist, s_b, reinterpret_cast<const float*>(s_v),
                               rows, fw, B);
       });
@@ -218,6 +146,8 @@ hist_rows_partial(const BinT* __restrict__ bins,
   for (int i = threadIdx.x; i < cells; i += kThreads) out[i] = hist[i];
 }
 
+// One launch: histwalk::range_hist over the position range, its warps
+// owning (feature, 32-bin range) units.
 template <typename BinT>
 __global__ void __launch_bounds__(kThreads)
 hist_rows_direct(const BinT* __restrict__ bins,
@@ -230,59 +160,16 @@ hist_rows_direct(const BinT* __restrict__ bins,
   float2* sv = reinterpret_cast<float2*>(smem);             // [2][kStage]
   float* cells_all = reinterpret_cast<float*>(sv + 2 * kStage);  // [8][32][2]
   unsigned* lst_all =
-      reinterpret_cast<unsigned*>(cells_all + kWarps * 64);  // [8][kStage]
+      reinterpret_cast<unsigned*>(cells_all + kWarps * 2 * kRange);
   BinT* sb = reinterpret_cast<BinT*>(lst_all + kWarps * kStage);
-  const int units = F * R;
-  const int u0 = blockIdx.x * kWarps;
-  const int u_last = u0 + kWarps - 1 < units ? u0 + kWarps - 1 : units - 1;
-  const int f_lo = u0 / R;
-  const int nf = u_last / R - f_lo + 1;   // the wrapper's smem holds it
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int u = u0 + warp;
-  const int f = u / R;                    // this warp's feature
-  const int b_lo = (u % R) * kRange;      // and the first bin of its range
-  const bool owner = u < units;
-  float* cells = cells_all + warp * 64;
-  unsigned* lst = lst_all + warp * kStage;
-  cells[2 * lane] = 0.f;   // compact_range's __syncwarp orders these
-  cells[2 * lane + 1] = 0.f;
+  int f_lo, nf;   // the wrapper's smem holds nf
+  histwalk::range_features(blockIdx.x, F, R, &f_lo, &nf);
   long long lo, hi;
   clamp_range(range, n_pos, &lo, &hi);
-  // the second slice's first position (hi with one slice): a multiple of
-  // 32 positions from lo, so it starts a tile
-  long long cut, end;
-  histblock::slice(lo, hi, nslices, 0, &cut, &end);
-  cut = end;
-  float tg = 0.f, th = 0.f;   // the earlier slice's sums
-  walk<kDirectRows>(
-      bins, reinterpret_cast<const float2*>(vals), index, lo, hi, F, f_lo, nf,
-      sv, sb, [&](const float2* s_v, const BinT* s_b, int rows, long long p0) {
-        if (!owner) return;
-        const int n = histblock::compact_range<kStage / 32>(
-            s_b + (f - f_lo), nf, rows, b_lo, lst);
-        int split = 0;
-        if (cut >= p0 && cut < p0 + rows) {
-          // the listed rows before the cut, then the first slice's sums
-          // move to tg, th and the cells restart at +0
-          const unsigned at = (unsigned)(cut - p0);
-          for (int i = lane; i < n; i += 32) split += (lst[i] >> 8) < at;
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1)
-            split += __shfl_xor_sync(0xffffffffu, split, o);
-          histblock::add_listed(s_v, lst, 0, split, cells);
-          tg = tg + cells[2 * lane];
-          th = th + cells[2 * lane + 1];
-          cells[2 * lane] = 0.f;
-          cells[2 * lane + 1] = 0.f;
-          __syncwarp();
-        }
-        histblock::add_listed(s_v, lst, split, n, cells);
-      });
-  __syncwarp();
-  if (owner && b_lo + lane < B)
-    reinterpret_cast<float2*>(out)[(size_t)f * B + b_lo + lane] =
-        make_float2(tg + cells[2 * lane], th + cells[2 * lane + 1]);
+  const Source<BinT, kDirectRows> src{
+      bins, reinterpret_cast<const float2*>(vals), index, F, f_lo, nf};
+  histwalk::range_hist<kDirectRows>(src, lo, hi, nslices, F, B, R, sv, sb,
+                                    cells_all, lst_all, out);
 }
 
 template <typename BinT>

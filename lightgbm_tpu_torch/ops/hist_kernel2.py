@@ -7,18 +7,22 @@ path.
 ``build_histogram_comb_dyn`` in
 ``lightgbm_tpu/ops/pallas/hist_kernel2.py``: the (sum g*w, sum h*w)
 histogram ``[F, B, 2]`` f32 of row-matrix rows
-``[start + off, start + off + count)``.  Above
-:func:`comb_feature_chunk` features (18 at B = 256) a block histograms
-one chunk of the features, so that five blocks share an SM and wide
-datasets (MSLR-WEB30K's 136 features) fit; the bits do not depend on
-the chunking.  ``rng`` is an i32 ``[3]``
+``[start + off, start + off + count)``.  ``rng`` is an i32 ``[3]``
 tensor ``(start, off, count)`` on the rows' device, so a range the
 device computed (the smaller child of a split) needs no host read; the
-caller passes ``max_rows``, an upper bound on ``count`` that sizes the
-grid.  Rows outside the range, or outside the matrix, contribute
-nothing.  Accumulation is f32 throughout, in a fixed order: the
-kernel's output is bitwise identical across launches on the same input,
-and the plain version adds in the same order.
+caller passes ``max_rows``, an upper bound on ``count`` that sets the
+slices the bits are summed in (:func:`hist_blocks`).  Rows outside the
+range, or outside the matrix, contribute nothing.  Accumulation is f32
+throughout, in a fixed order: the kernel's output is bitwise identical
+across launches on the same input, and the plain version adds in the
+same order.  :func:`comb_geometry` picks one of two kernels: up to
+``COMB_RANGE_SLICES`` slices one launch in which a warp owns a 32-bin
+range of one feature and walks every slice (range mode: the smaller
+children, most launches), above it per-slice partials over feature
+chunks of :func:`comb_chunk` features (one feature a warp, unless the
+slices are many enough to fill the card with larger chunks) and a
+reduction (feature mode: the larger children and the roots); the bits
+are the same either way.
 
 :func:`build_histogram_comb_p2` is the same histogram at pack=2
 (``_hist2_comb2_kernel``) over the records of
@@ -74,8 +78,9 @@ COMB_BLOCKS_PER_SM = 5
 
 
 def comb_smem_bytes(f: int, padded_bins: int, bin_bytes: int = 1) -> int:
-    """Shared memory of one histogram block (``histblock::smem_bytes``,
-    the library's ``hist_comb_smem_bytes``): the ``[F, B, 2]`` f32
+    """Shared memory of one block of ``histblock::smem_bytes``'s layout
+    (the stream refresh's histogram, and the figure
+    :func:`comb_feature_chunk` sizes chunks by): the ``[F, B, 2]`` f32
     histogram, then per staged row (g*w, h*w) and the bins."""
     return f * padded_bins * 8 + HIST_CHUNK * (8 + f * bin_bytes)
 
@@ -86,7 +91,11 @@ def comb_feature_chunk(f: int, padded_bins: int) -> int:
     blocks fit ``COMB_BLOCKS_PER_SM`` to an SM (18 at B = 256), balanced
     over the chunks, ``ceil(F / ceil(F / most))`` (F = 28: two chunks of
     14; F = 136: eight of 17).  ``F`` itself at or below the most: one
-    chunk.  Raises where not one feature fits a block."""
+    chunk.  Raises where not one feature fits a block.  The rule was set
+    on the first feature-chunked kernel; the feature-mode block of
+    ``csrc/hist_comb.cu`` takes :func:`comb_feature_smem` (40,960
+    bytes at 14 features, five an SM), and :func:`comb_chunk` keeps the
+    rule where it fills the card below ``COMB_WIDE_FEATURES``."""
     budget = SM_SMEM // COMB_BLOCKS_PER_SM - BLOCK_RESERVED_SMEM
     most = max(1, (budget - HIST_CHUNK * 8)
                // (int(padded_bins) * 8 + HIST_CHUNK))
@@ -137,15 +146,141 @@ def build_histogram_comb_ref(rows: Rows, rng: torch.Tensor, *,
     return out
 
 
+# comb-direct kernels (csrc/hist_comb.cu): the most features a block
+# stages in feature mode (4 * kFeatureWords) and in range mode (4 *
+# kRangeWords); rows a step stages in each (kThreads * kFeatureRows,
+# kThreads * kRangeRows); bins a range-mode warp owns (histwalk::kRange)
+COMB_MAX_CHUNK = 32
+COMB_RANGE_FEATS = 8
+COMB_STAGE_FEATURE = 256
+COMB_STAGE_RANGE = 1024
+COMB_RANGE_BINS = 32
+COMB_WARPS = 8
+# slices up to which a warp owns a 32-bin range of one feature and walks
+# every slice in one launch (range mode); above, feature mode: range mode
+# was the faster from 1 to 3 slices at 28 features, feature mode (one
+# feature a warp) from 4; at 136 from 3 (tools/profile_hist_comb.py
+# --variants on the H100, PERF.md)
+COMB_RANGE_SLICES = 3
+# feature mode holds one feature a warp (a block of 7 at 28 features, 8
+# at 136) unless the chunks of comb_feature_chunk (14 at 28) already give
+# COMB_FILL_BLOCKS blocks: the root (245 slices x 2) was the faster in
+# 14-feature blocks, the largest child (97 x 2) and every count of 8
+# slices or fewer in blocks of 7; from COMB_WIDE_FEATURES features one
+# feature a warp was the faster at every size measured (136)
+COMB_FILL_BLOCKS = 2 * 132
+COMB_WIDE_FEATURES = 64
+
+
+def _staged_bytes(nf: int) -> int:
+    """Bytes of one staged row of ``nf`` u8 bins (whole 32-bit words)."""
+    return 4 * -(-int(nf) // 4)
+
+
+def comb_feature_smem(fc: int, padded_bins: int) -> int:
+    """Shared memory of one feature-mode block of ``fc`` features (the
+    library's ``hist_comb_smem_bytes(fc, B, 0)``): the ``[fc, B, 2]`` f32
+    histogram, then two stages of ``COMB_STAGE_FEATURE`` rows' (g*w,
+    h*w) and bins."""
+    return (int(fc) * int(padded_bins) * 8
+            + 2 * COMB_STAGE_FEATURE * (8 + _staged_bytes(fc)))
+
+
+def comb_range_smem(nf: int) -> int:
+    """Shared memory of one range-mode block staging ``nf`` features
+    (``hist_comb_smem_bytes(nf, B, 1)``): two stages of
+    ``COMB_STAGE_RANGE`` rows, and for each warp its 32 cells (f32
+    pairs) and its list of a step's rows (u32)."""
+    return (2 * COMB_STAGE_RANGE * (8 + _staged_bytes(nf))
+            + COMB_WARPS * COMB_RANGE_BINS * 8
+            + COMB_WARPS * COMB_STAGE_RANGE * 4)
+
+
+class CombGeometry(NamedTuple):
+    """One ``hist_comb`` call's launch geometry.
+
+    ``slices`` = :func:`hist_blocks` of the caller's bound (the bits'
+    cut).  Range mode (``ranged``, ``bin_parts`` = ``ceil(B / 32)`` > 1,
+    up to ``COMB_RANGE_SLICES`` slices): one launch of ``grid[0]``
+    blocks of ``COMB_WARPS`` warps, warp ``w`` of block ``x`` owning
+    unit ``u = x * 8 + w`` below ``f * bin_parts``: feature ``u //
+    bin_parts``, bins ``[(u % bin_parts) * 32, ... + 32)``, one cell a
+    lane, for every slice; ``feats`` the most features a block stages.
+    Feature mode: ``grid`` = (slices, feature chunks) blocks of
+    ``feats`` features each into per-slice partials, then the reduction
+    in a second launch.  The wrapper passes the geometry to the library
+    as it is (``smem`` is the library's own figure, which the analyzer
+    holds against it); the library only refuses one that misses a cell
+    or that its kernels cannot stage."""
+    slices: int
+    ranged: bool
+    grid: Tuple[int, int]
+    feats: int
+    bin_parts: int
+    smem: int
+
+
+def _balanced(f: int, most: int) -> int:
+    """The chunk of at most ``most`` features that cuts ``f`` features
+    into the fewest, most even chunks."""
+    return -(-int(f) // -(-int(f) // int(most)))
+
+
+def comb_chunk(f: int, padded_bins: int, slices: int) -> int:
+    """Features a feature-mode block histograms at ``slices`` slices: one
+    a warp (at most ``COMB_WARPS``, balanced over the chunks) where the
+    chunks of :func:`comb_feature_chunk` (read at each call) give fewer
+    than ``COMB_FILL_BLOCKS`` blocks or from ``COMB_WIDE_FEATURES``
+    features on, else those chunks, rebalanced over more chunks where
+    they pass the ``COMB_MAX_CHUNK`` features a block stages (only below
+    B = 128)."""
+    fc = comb_feature_chunk(f, padded_bins)
+    if (f >= COMB_WIDE_FEATURES
+            or slices * -(-int(f) // fc) < COMB_FILL_BLOCKS):
+        return _balanced(f, min(fc, COMB_WARPS))
+    return fc if fc <= COMB_MAX_CHUNK else _balanced(f, COMB_MAX_CHUNK)
+
+
+def comb_geometry(f: int, padded_bins: int, max_rows: int) -> CombGeometry:
+    """The geometry of a ``hist_comb`` call over ``f`` features of
+    ``padded_bins`` bins and a range of at most ``max_rows`` rows: range
+    mode up to ``COMB_RANGE_SLICES`` slices where a feature has more than
+    one 32-bin range, else feature mode in chunks of :func:`comb_chunk`
+    features (both read at each call).  No host read: a CUDA graph can
+    capture the call."""
+    slices = hist_blocks(max_rows)
+    return mode_geometry(f, padded_bins, slices,
+                         comb_chunk(f, padded_bins, slices),
+                         COMB_RANGE_SLICES)
+
+
+@functools.lru_cache(maxsize=None)
+def mode_geometry(f: int, b: int, slices: int, fc: int,
+                  range_slices: int) -> CombGeometry:
+    """:func:`comb_geometry` of ``slices`` slices with chunks of ``fc``
+    features and range mode up to ``range_slices`` slices."""
+    f, b = int(f), int(b)
+    parts = -(-b // COMB_RANGE_BINS)
+    if parts > 1 and slices <= range_slices:
+        nf = rows_direct_feats(f, b)
+        return CombGeometry(slices, True, (-(-f * parts // COMB_WARPS), 1),
+                            nf, parts, comb_range_smem(nf))
+    smem = comb_feature_smem(fc, b)
+    if smem > MAX_SMEM:
+        raise LightGBMError(f"a histogram of {b} bins per feature does not "
+                            "fit one block's shared memory")
+    return CombGeometry(slices, False, (slices, -(-f // fc)), fc, 1, smem)
+
+
 @functools.lru_cache(maxsize=1)
 def _lib():
     lib = _build.load("hist_comb")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hist_comb.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.hist_comb.argtypes = [p] * 5 + [i] * 9 + [p]
     lib.hist_comb.restype = i
-    lib.hist_comb_p2.argtypes = [p, i, i] + [p] * 3 + [i] * 5 + [p]
+    lib.hist_comb_p2.argtypes = [p, i, i] + [p] * 3 + [i] * 9 + [p]
     lib.hist_comb_p2.restype = i
-    lib.hist_comb_smem_bytes.argtypes = [i, i]
+    lib.hist_comb_smem_bytes.argtypes = [i, i, i]
     lib.hist_comb_smem_bytes.restype = i
     return lib
 
@@ -157,15 +292,22 @@ def _check_rng(rng: torch.Tensor, dev) -> None:
                             "(start, off, count) on the rows' device")
 
 
-def _comb_buffers(f: int, padded_bins: int, max_rows: int, dev):
-    """(fc, nblocks, partials, out) of one comb-direct launch: the
-    features per block (raises where not one fits) and the buffers."""
-    fc = comb_feature_chunk(f, padded_bins)
-    nblocks = hist_blocks(max_rows)
-    partials = torch.empty((nblocks, f, padded_bins, 2), dtype=torch.float32,
-                           device=dev)
+def _comb_buffers(geo: CombGeometry, f: int, padded_bins: int, dev):
+    """(partials, out) of one comb-direct call: the partials only in
+    feature mode."""
+    partials = None if geo.ranged else torch.empty(
+        (geo.slices, f, padded_bins, 2), dtype=torch.float32, device=dev)
     out = torch.empty((f, padded_bins, 2), dtype=torch.float32, device=dev)
-    return fc, nblocks, partials, out
+    return partials, out
+
+
+def comb_args(geo: CombGeometry, partials, out, n: int, f: int,
+              padded_bins: int) -> tuple:
+    """The library's arguments after the rows and the range."""
+    return (None if partials is None else partials.data_ptr(),
+            out.data_ptr(), n, f, int(padded_bins), geo.slices,
+            int(geo.ranged), geo.grid[0], geo.grid[1], geo.feats,
+            geo.bin_parts)
 
 
 def build_histogram_comb(rows: Rows, rng: torch.Tensor, *, padded_bins: int,
@@ -173,7 +315,10 @@ def build_histogram_comb(rows: Rows, rng: torch.Tensor, *, padded_bins: int,
     """Histogram ``[F, padded_bins, 2]`` f32 of the rows ``rng`` selects
     (``count`` at most ``max_rows``).  CPU tensors take
     :func:`build_histogram_comb_ref`; CUDA tensors launch the kernel on
-    the current stream."""
+    the current stream in the geometry :func:`comb_geometry` picks (one
+    launch in range mode), with no host read, allocating only the output
+    (and the partials in feature mode), so a CUDA graph can capture
+    it."""
     dev = rows.bins.device
     if dev.type == "cpu":
         return build_histogram_comb_ref(rows, rng, padded_bins=padded_bins,
@@ -188,15 +333,14 @@ def build_histogram_comb(rows: Rows, rng: torch.Tensor, *, padded_bins: int,
         raise LightGBMError("histogram wants contiguous u8 bins [n, F] and "
                             "f32 vals [n, 3]")
     _check_rng(rng, dev)
-    lib = _lib()
-    fc, nblocks, partials, out = _comb_buffers(f, padded_bins, max_rows,
-                                               dev)
+    geo = comb_geometry(f, padded_bins, max_rows)
+    partials, out = _comb_buffers(geo, f, padded_bins, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.hist_comb(rows.bins.data_ptr(), rows.vals.data_ptr(),
-                           rng.data_ptr(), partials.data_ptr(),
-                           out.data_ptr(), n, f, int(padded_bins), fc,
-                           nblocks, stream)
+        rc = _lib().hist_comb(rows.bins.data_ptr(), rows.vals.data_ptr(),
+                              rng.data_ptr(),
+                              *comb_args(geo, partials, out, n, f,
+                                         padded_bins), stream)
     if rc != 0:
         raise LightGBMError(f"hist_comb kernel launch failed with CUDA "
                             f"error {rc}")
@@ -220,7 +364,8 @@ def build_histogram_comb_p2_ref(rows: PackedRows, rng: torch.Tensor, *,
 def build_histogram_comb_p2(rows: PackedRows, rng: torch.Tensor, *,
                             padded_bins: int,
                             max_rows: int) -> torch.Tensor:
-    """:func:`build_histogram_comb` over records.  CPU tensors take
+    """:func:`build_histogram_comb` over records, in the same geometry
+    and with the same bits.  CPU tensors take
     :func:`build_histogram_comb_p2_ref`; CUDA tensors launch the
     kernel on the current stream."""
     dev = rows.buf.device
@@ -232,17 +377,16 @@ def build_histogram_comb_p2(rows: PackedRows, rng: torch.Tensor, *,
         raise LightGBMError(f"histogram runs on cuda or cpu, not {dev}")
     check_packed(rows)
     _check_rng(rng, dev)
-    lib = _lib()
     n, lay = rows.buf.shape[0], rows.layout
     f = lay.num_features
-    fc, nblocks, partials, out = _comb_buffers(f, padded_bins, max_rows,
-                                               dev)
+    geo = comb_geometry(f, padded_bins, max_rows)
+    partials, out = _comb_buffers(geo, f, padded_bins, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.hist_comb_p2(rows.buf.data_ptr(), lay.stride, lay.fb,
-                              rng.data_ptr(), partials.data_ptr(),
-                              out.data_ptr(), n, f, int(padded_bins), fc,
-                              nblocks, stream)
+        rc = _lib().hist_comb_p2(rows.buf.data_ptr(), lay.stride, lay.fb,
+                                 rng.data_ptr(),
+                                 *comb_args(geo, partials, out, n, f,
+                                            padded_bins), stream)
     if rc != 0:
         raise LightGBMError(f"hist_comb_p2 kernel launch failed with CUDA "
                             f"error {rc}")

@@ -2,12 +2,13 @@
 card, as ``chip_smoke.py`` drives them: 1,000,000 + 100,000 Higgs-style
 rows x 28 features, 255 leaves, ``max_bin`` 255, 10 iterations counted
 and timed by ``chip_smoke.train_main_path`` (``row_order``: the same rows
-at ``max_bin`` 1023; ``wide``: 136 features; launch counts held exact,
+at ``max_bin`` 1023; ``wide``: 136 features; ``unfused``: the P1
+``LGBM_TPU_FUSED=0`` route; ``3ph``: ``LGBM_TPU_PART=3ph``; launch counts held exact,
 served scores held against the training scores), then one profiled
 iteration (``chip_smoke.profile_iteration``): s/iteration (first, and
 the mean of the rest), the stages' ms a tree, holdout AUC, the
-device's busy share, kernels a split and the fused split's kernels' ms
-and the split tail's kernels' ms in the profiled iteration.  For the
+device's busy share, kernels a split and the fused split's, the split
+tail's and ``hist_comb``'s kernels' ms in the profiled iteration.  For the
 host's share it also gives the
 caching allocator's device allocations, frees and retries over the
 training (``torch.cuda.memory_stats``) and the host operations of one
@@ -15,8 +16,8 @@ more iteration under ``cProfile`` (the functions with the most time of
 their own, and the port's with the most time in all).
 
     python lightgbm_tpu_torch/tools/profile_train.py \\
-        [--package-root DIR] [--routes default,pack2,row_order,wide] \
-        [--iters 10]
+        [--package-root DIR] \
+        [--routes default,pack2,row_order,wide,unfused,3ph] [--iters 10]
 
 Run by path, the script imports the package and ``chip_smoke.py`` from
 ``--package-root`` (default: the checkout it lies in), so one call can
@@ -36,6 +37,9 @@ from pathlib import Path
 # profiled iteration
 FUSED_KERNELS = re.compile(r"count_tiles|fused_\w+|reduce_partials")
 TAIL_KERNELS = re.compile(r"apply_find\w*")
+# hist_comb's kernels (either commit's; on the unfused routes the only
+# reduce_partials is hist_comb's)
+HIST_KERNELS = re.compile(r"hist_comb\w*|reduce_partials")
 # the caching allocator's counters read around the training
 ALLOC_STATS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
                "num_sync_all_streams")
@@ -79,7 +83,7 @@ def main(argv=None) -> int:
                          "chip_smoke.py")
     ap.add_argument("--routes", default="default,pack2",
                     help="comma-separated: default, pack2, row_order, "
-                         "wide")
+                         "wide, unfused, 3ph")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
     root = Path(args.package_root).resolve()
@@ -97,7 +101,9 @@ def main(argv=None) -> int:
     routes = {"default": ({}, cs.TRAIN_PARAMS, cs.N_FEATURES),
               "pack2": (cs.PACK2, cs.TRAIN_PARAMS, cs.N_FEATURES),
               "row_order": ({}, cs.WIDE_PARAMS, cs.N_FEATURES),
-              "wide": ({}, cs.TRAIN_PARAMS, cs.WIDE_FEATURES)}
+              "wide": ({}, cs.TRAIN_PARAMS, cs.WIDE_FEATURES),
+              "unfused": (cs.FUSED_OFF, cs.TRAIN_PARAMS, cs.N_FEATURES),
+              "3ph": (cs.PART_3PH, cs.TRAIN_PARAMS, cs.N_FEATURES)}
     gpu = torch.cuda.get_device_name(0)
     data = {}
 
@@ -128,12 +134,16 @@ def main(argv=None) -> int:
         with cs.route_env(env):
             prof = cs.profile_iteration(bst, gpu)
             top = host_top(bst)
-        fused, tail = {}, {}
+        fused, tail, hist = {}, {}, {}
         for k, c, ms in prof.get("top", []):
-            for pattern, out in ((FUSED_KERNELS, fused), (TAIL_KERNELS, tail)):
+            for pattern, out in ((FUSED_KERNELS, fused), (TAIL_KERNELS, tail),
+                                 (HIST_KERNELS, hist)):
                 m = pattern.search(k)
                 if m:
                     out[m.group()] = [c, ms]
+        # every hist_comb kernel where chip_smoke counts them, else the
+        # top ten's
+        hist = prof.get("hist_comb_kernels", hist)
         print("profile_train " + json.dumps({
             "package": str(root), "route": rec["route"],
             "iterations": rec["iterations"],
@@ -146,7 +156,9 @@ def main(argv=None) -> int:
             "wall_ms": prof.get("wall_ms"), "busy_ms": prof.get("busy_ms"),
             "kernels_per_split": prof.get("kernels_per_split"),
             "fused_split_kernels_top10": fused,
-            "split_tail_kernels_top10": tail, "allocator": alloc,
+            "split_tail_kernels_top10": tail, "hist_comb_kernels": hist,
+            "hist_comb_ms": sum(ms for _, ms in hist.values()),
+            "allocator": alloc,
             "host_top": top, "gpu": gpu}), flush=True)
         del bst
         torch.cuda.empty_cache()

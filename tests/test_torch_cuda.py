@@ -39,7 +39,12 @@ one cluster over the features (slice 13) bitwise its plain version at
 28 and 136 features, B = 256 and 1024, on seeded splits with equal keys
 across every block boundary and the winner in the last block, on other
 cluster sizes, in a replayed graph, and a geometry that misses a
-feature refused.
+feature refused.  The comb-direct histogram in two modes (slice 14),
+both packs, bitwise its plain version run on CPU copies at every slice
+count 1 to 9 (range mode up to the limit, feature mode above) at F = 27,
+28 and 136, on adversarial ranges, with every row in one bin (B = 64,
+256, 1024), in either mode on the same call, in a replayed graph, and a
+geometry that misses a cell refused.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
 row-order and 3ph routes), and the default route's equal slice 2's
@@ -965,7 +970,7 @@ def _comb_case(cuda, f: int, fc=None, monkeypatch=None, n: int = 30_000):
     rows, rows_cpu = rows_on(arrays, cuda), rows_on(arrays, "cpu")
     rng = (17, 5, n - 100)
     if fc is not None:
-        monkeypatch.setattr(hk, "comb_feature_chunk", lambda f_, b_: fc)
+        monkeypatch.setattr(hk, "comb_chunk", lambda f_, b_, s_: fc)
     got = hk.build_histogram_comb(
         rows, torch.tensor(rng, dtype=torch.int32, device=cuda),
         padded_bins=256, max_rows=n)
@@ -983,12 +988,12 @@ def test_hist_comb_wide_bitwise_plain(cuda, f):
     assert torch_equal(got, want)
 
 
-@pytest.mark.parametrize("f,fc_a,fc_b", [(80, 80, 40), (79, 79, 27),
-                                         (136, 68, 45)])
+@pytest.mark.parametrize("f,fc_a,fc_b", [(80, 32, 20), (79, 27, 13),
+                                         (136, 17, 8), (28, 14, 8)])
 def test_hist_comb_chunks_give_the_same_bits(cuda, monkeypatch, f, fc_a,
                                              fc_b):
-    """One chunk against several (a single chunk of 80 features fits
-    232,448 bytes, far above the fifth of it the wrapper keeps to)."""
+    """Two chunk widths against each other and the plain version (a
+    feature-mode block stages at most 32 features)."""
     from chip_smoke import torch_equal
     a, _ = _comb_case(cuda, f, fc_a, monkeypatch)
     b, want = _comb_case(cuda, f, fc_b, monkeypatch)
@@ -1006,11 +1011,146 @@ def test_hist_comb_p2_chunked_bitwise_pack1(cuda, monkeypatch):
     packed = pack_rows(rows)
     rng = torch.tensor([0, 3, n - 3], dtype=torch.int32, device=cuda)
     one = hk.build_histogram_comb(rows, rng, padded_bins=256, max_rows=n)
-    monkeypatch.setattr(hk, "comb_feature_chunk", lambda f_, b_: 13)
+    monkeypatch.setattr(hk, "comb_chunk", lambda f_, b_, s_: 13)
     chunked = hk.build_histogram_comb_p2(packed, rng, padded_bins=256,
                                          max_rows=n)
     torch.cuda.synchronize()
     assert torch_equal(one, chunked)
+
+
+# -- slice 14: hist_comb in range mode and feature mode ------------------
+def _comb_modes_case(cuda, f, n, rng, max_rows, *, b=256, n_bins=255,
+                     one_bin=None, seed=31):
+    """hist_comb and hist_comb_p2 on the same seeded rows, each bitwise
+    the plain version run on CPU copies; returns the geometry."""
+    from chip_smoke import torch_equal
+    from lightgbm_tpu_torch.ops import hist_kernel2 as hk
+    from lightgbm_tpu_torch.ops.device_data import pack_rows
+    arrays = list(random_row_matrix(n, f, seed, n_bins=n_bins))
+    if one_bin is not None:
+        arrays[0][:] = one_bin
+    rows, rows_cpu = rows_on(arrays, cuda), rows_on(arrays, "cpu")
+    packed = pack_rows(rows)
+    t = torch.tensor(rng, dtype=torch.int32, device=cuda)
+    want = hk.build_histogram_comb_ref(rows_cpu, t.cpu(), padded_bins=b,
+                                       max_rows=max_rows)
+    one = hk.build_histogram_comb(rows, t, padded_bins=b, max_rows=max_rows)
+    two = hk.build_histogram_comb_p2(packed, t, padded_bins=b,
+                                     max_rows=max_rows)
+    torch.cuda.synchronize()
+    assert torch_equal(one.cpu(), want)
+    assert torch_equal(two.cpu(), want)
+    return hk.comb_geometry(f, b, max_rows)
+
+
+@pytest.mark.parametrize("f", [28, 27, 136])
+@pytest.mark.parametrize("slices", range(1, 10))
+def test_hist_comb_modes_bitwise_plain(cuda, f, slices):
+    """Every slice count from 1 to past the range-mode limit, from an
+    odd start: range mode up to ``COMB_RANGE_SLICES``, feature mode
+    above, both bitwise the plain version, both packs."""
+    from lightgbm_tpu_torch.ops.hist_kernel2 import (COMB_RANGE_SLICES,
+                                                     ROWS_PER_BLOCK)
+    max_rows = slices * ROWS_PER_BLOCK
+    geo = _comb_modes_case(cuda, f, max_rows + 100, (17, 3, max_rows - 20),
+                           max_rows)
+    assert geo.ranged == (slices <= COMB_RANGE_SLICES)
+
+
+@pytest.mark.parametrize("rng,max_rows", [
+    ((0, 0, 0), 5000), ((70, 0, -3), 5000), ((9990, 0, 500), 6000),
+    ((-30, 5, 200), 200), ((1, 0, 33), 28_672), ((3, 1, 9990), 9999),
+    ((5, 0, 9995), 40_000)])
+def test_hist_comb_adversarial_ranges(cuda, rng, max_rows):
+    """Empty and negative counts, ranges past either end of the matrix,
+    33 rows cut into seven 32-row slices, and a range of nearly every
+    row, in either mode."""
+    _comb_modes_case(cuda, 28, 10_000, rng, max_rows)
+
+
+@pytest.mark.parametrize("b,n_bins", [(256, 255), (64, 64), (1024, 255)])
+@pytest.mark.parametrize("max_rows", [3000, 28_672, 40_000])
+def test_hist_comb_ties_of_one_bin(cuda, b, n_bins, max_rows):
+    """Every row in one bin: one cell a feature sums every row of each
+    slice in order (one warp lists every row, the others none)."""
+    _comb_modes_case(cuda, 28, max_rows + 10, (5, 0, max_rows), max_rows,
+                     b=b, n_bins=n_bins, one_bin=n_bins // 2)
+
+
+def test_hist_comb_modes_agree(cuda, monkeypatch):
+    """The same call in range mode and in feature mode (the limit moved
+    either way) gives the same bits, at 2 and at 9 slices."""
+    from chip_smoke import torch_equal
+    from lightgbm_tpu_torch.ops import hist_kernel2 as hk
+    n = 40_000
+    rows = rows_on(random_row_matrix(n, 28, 8), cuda)
+    for max_rows in (6000, 9 * hk.ROWS_PER_BLOCK):
+        rng = torch.tensor([11, 0, max_rows - 7], dtype=torch.int32,
+                           device=cuda)
+        got = {}
+        for limit in (0, 16):
+            monkeypatch.setattr(hk, "COMB_RANGE_SLICES", limit)
+            got[limit] = hk.build_histogram_comb(rows, rng, padded_bins=256,
+                                                 max_rows=max_rows)
+        assert hk.comb_geometry(28, 256, max_rows).ranged
+        torch.cuda.synchronize()
+        assert torch_equal(got[0], got[16])
+
+
+def test_hist_comb_in_a_graph(cuda):
+    """hist_comb captured in a CUDA graph (range mode and feature mode)
+    and replayed on new values: bitwise the eager call on them."""
+    from lightgbm_tpu_torch.ops.hist_kernel2 import build_histogram_comb
+    from lightgbm_tpu_torch.tools.profile_lib import capture
+    n = 80_000
+    rows = rows_on(random_row_matrix(n, 28, 14), cuda)
+    g = np.random.default_rng(14)
+    for count in (3000, 70_000):
+        rng = torch.tensor([7, 1, count], dtype=torch.int32, device=cuda)
+        held = {}
+
+        def call():
+            held["out"] = build_histogram_comb(rows, rng, padded_bins=256,
+                                               max_rows=count)
+        graph = capture(call)
+        rows.vals.copy_(torch.tensor(
+            g.normal(size=(n, 3)).astype(np.float32)))
+        graph.replay()
+        want = build_histogram_comb(rows, rng, padded_bins=256,
+                                    max_rows=count)
+        torch.cuda.synchronize()
+        assert torch.equal(held["out"], want)
+
+
+def test_hist_comb_library_refuses_a_short_geometry(cuda):
+    """The library launches the geometry the wrapper passes and refuses
+    one that misses a cell or that its kernels cannot stage."""
+    from lightgbm_tpu_torch.ops import hist_kernel2 as hk
+    n, f, b = 1000, 28, 256
+    rows = rows_on(random_row_matrix(n, f, 3), cuda)
+    rng = torch.tensor([0, 0, n], dtype=torch.int32, device=cuda)
+    out = torch.empty((f, b, 2), dtype=torch.float32, device=cuda)
+    partials = torch.empty((9, f, b, 2), dtype=torch.float32, device=cuda)
+    rng_g, feat_g = hk.comb_geometry(f, b, 2000), hk.comb_geometry(
+        f, b, 9 * hk.ROWS_PER_BLOCK)
+
+    def launch(geo, part_ptr):
+        return hk._lib().hist_comb(
+            rows.bins.data_ptr(), rows.vals.data_ptr(), rng.data_ptr(),
+            part_ptr, out.data_ptr(), n, f, b, geo.slices, int(geo.ranged),
+            geo.grid[0], geo.grid[1], geo.feats, geo.bin_parts,
+            torch.cuda.current_stream().cuda_stream)
+    assert launch(rng_g, None) == 0
+    assert launch(feat_g, partials.data_ptr()) == 0
+    for bad in (rng_g._replace(grid=(rng_g.grid[0] - 1, 1)),
+                rng_g._replace(bin_parts=rng_g.bin_parts - 1),
+                rng_g._replace(feats=9),
+                feat_g._replace(grid=(8, feat_g.grid[1])),
+                feat_g._replace(feats=33, grid=(9, 1)),
+                feat_g._replace(grid=(9, 1))):
+        assert launch(bad, partials.data_ptr()) != 0, bad
+    assert launch(feat_g, None) != 0
+    torch.cuda.synchronize()
 
 
 def test_wide_training_on_card_matches_cpu(cuda):

@@ -241,13 +241,14 @@ def test_comb_feature_chunk():
 
 
 def test_wide_entry_smem_pass():
-    """The registered F = 136 entry is clean; the same launch with one
-    chunk of all 136 features is over the budget."""
+    """The registered F = 136 entry (the root, feature mode) is clean;
+    the same launch with one chunk of all 136 features is over the
+    budget."""
     from lightgbm_tpu_torch.analysis import registry
     from lightgbm_tpu_torch.analysis.run import build_context
     ctx = build_context()
     wide = entries.hist_comb_wide_entry()
-    assert wide.dyn_smem == 41_216 and wide.export[1] == (17, 256)
+    assert wide.dyn_smem == 24_576 and wide.export[1] == (8, 256, 0)
     assert registry.collect()["hist_comb_wide"] == wide
     for entry, codes in ((wide, set()),
                          (entries.hist_comb_wide_entry(fc=136),
