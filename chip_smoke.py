@@ -117,7 +117,21 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    mode one ``hist_comb_range``, feature mode ``hist_comb_partial`` and
    ``reduce_partials``), the root and children timed eager and in a
    graph beside ``index_add_`` (the same again at 136 features in the
-   wide phase);
+   wide phase); and (slice 15) the partitions' one-launch scan
+   (``csrc/partition_scan.cuh``): ``partition_scan`` + ``copyback``,
+   ``partition_3ph`` and ``partition_scan_p2`` + ``copyback_p2``
+   bitwise their plain versions on the adversarial segments of
+   ``partition_edge_cases`` (every row left or right, one row, one row
+   past a tile boundary, an odd start with the NaN bin routed either
+   way, one-hot categorical, 8 membership words) at 28 and 136 features
+   and at pack=2, and at 8,000 features (the scan's unstaged kernels),
+   then each timed at the 1M-row root and at its route's split-segment
+   quartiles and largest segment below a root
+   (``tools/profile_partition.py``'s cases), eager and in a graph beside
+   the bound, failing unless a scan call is one memset of its look-back
+   state and ``scan_tiles``, and a 3ph call the same and
+   ``copyback_3ph``; each profiled iteration counts the partitions'
+   kernels and memsets (``partition_kernels``);
 8. the launch-cost probes (slice 9, TPU rows T11, T10, T9): the two
    tools of ``lightgbm_tpu_torch.tools`` run with the counts zeroed
    before and read after, their tables printed (T11: 254
@@ -775,6 +789,36 @@ def partition_3ph_parity(rows, sel, label: str) -> dict:
     return rec
 
 
+# membership words of the partitions' bitset case: word 2 with bit 31
+# set, word 7 bit 31 alone (as i32)
+EDGE_WORDS = (0x0F0F0F0F, 0x12345678, -0x7FFF0000, 0, 0x7FFFFFFF,
+              0x55555555, 0x00010001, -0x80000000)
+
+
+def partition_edge_cases(tile: int, nan_bin: int, n_rows: int = 0,
+                         bitset: bool = False) -> list:
+    """[(label, sel)] of the partitions' adversarial segments for a scan
+    of ``tile``-row tiles over rows of at least 6 features whose feature
+    0 holds ``nan_bin`` and whose other bins lie below 255: every row
+    left, every row right, one row (at the middle of ``n_rows``), one
+    row past a tile boundary (and two tiles past), an odd ``s0`` with
+    the NaN bin routed left and right, a one-hot categorical split and,
+    with ``bitset``, one of 8 membership words over feature 5 (the
+    3-phase partition's descriptor)."""
+    out = [("all_left", (1, 3 * tile + 5, 1, 254, 0, 0, -1)),
+           ("all_right", (2, 2 * tile + 7, 1, -1, 0, 0, -1)),
+           ("one_row", (n_rows // 2 + 1, 1, 2, 100, 0, 0, -1)),
+           ("one_past_tile", (0, tile + 1, 3, 127, 0, 0, -1)),
+           ("two_tiles_and_one", (tile, 2 * tile + 1, 3, 60, 0, 0, -1)),
+           ("odd_s0_nan_left", (1_235, 4 * tile + 3, 0, 90, 1, 0, nan_bin)),
+           ("odd_s0_nan_right", (777, 2 * tile + 1, 0, 90, 0, 0, nan_bin)),
+           ("one_hot_categorical", (5, 3 * tile - 1, 4, 17, 0, 1, -1))]
+    if bitset:
+        out.append(("bitset_8_words", (129, 3 * tile + 2, 5, 0, 0, 1, -1, 0,
+                                       *EDGE_WORDS)))
+    return out
+
+
 def _rows_equal(a, b, lo: int = 0, hi=None) -> bool:
     return all(torch_equal(x[lo:hi], y[lo:hi]) for x, y in zip(a, b))
 
@@ -1166,10 +1210,15 @@ ROUTE_KNOBS = ("LGBM_TPU_STREAM", "LGBM_TPU_FUSED", "LGBM_TPU_APPLY_IMPL",
                "LGBM_TPU_PHYS", "LGBM_TPU_HIST_IMPL", "LGBM_TPU_PART",
                "LGBM_TPU_POOL_TAIL", "LGBM_TPU_COMB_PACK")
 # the port's kernels (PERF.md rows 1-16)
-OUR_KERNEL_NAMES = ("hist_comb", "partition_", "partition3ph", "copy_span",
+OUR_KERNEL_NAMES = ("hist_comb", "scan_tiles", "copyback_3ph", "copy_span",
                     "count_tiles", "fused_scatter", "fused_hist",
                     "reduce_partials", "stream_", "apply_find", "hist_rows",
                     "copy_records")
+# the partitions' kernels (csrc/partition_scan.cuh, partition.cu,
+# partition_3ph.cu): the scan, its state's memset (the profiler's
+# "Memset (Device)") and each route's copyback
+PARTITION_KERNELS = re.compile(
+    r"scan_tiles|Memset|copyback_3ph|copy_span|copy_records")
 
 
 @contextlib.contextmanager
@@ -1321,6 +1370,13 @@ def profile_iteration(bst, gpu: str) -> dict:
             a = hist.setdefault(m.group(1), [0, 0.0])
             a[0] += c
             a[1] += us / 1e3
+    part = {}
+    for k, (c, us) in by_name.items():
+        m = PARTITION_KERNELS.search(k)
+        if m:
+            a = part.setdefault(m.group(), [0, 0.0])
+            a[0] += c
+            a[1] += us / 1e3
     return {"measured": True, "route": bst._inner.grow.route.describe(),
             "wall_ms": wall_ms, "busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms, "kernels": len(kernels),
@@ -1338,6 +1394,10 @@ def profile_iteration(bst, gpu: str) -> dict:
                                  if "apply_find" in k) / 1e3,
             "hist_comb_kernels": hist,
             "hist_comb_ms": sum(ms for _, ms in hist.values()),
+            "partition_kernels": part,
+            "partition_ms": sum(ms for _, ms in part.values()),
+            "partition_launches_per_split":
+                sum(c for c, _ in part.values()) / splits,
             "gpu": gpu}
 
 
@@ -1811,7 +1871,7 @@ def kernels_of_call(fn) -> list:
     captured into a CUDA graph, whose kernel nodes the driver API lists
     (a stream's capture is a chain, listed in the order its nodes were
     made), each with its kernel's name up to its template arguments and
-    its grid's block count."""
+    its grid's block count; a memset node as ``["memset", bytes]``."""
     import ctypes
 
     import torch
@@ -1836,6 +1896,16 @@ def kernels_of_call(fn) -> list:
     for node in list(nodes)[:n.value]:
         kind = ctypes.c_int(-1)
         check(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)))
+        if kind.value == 2:          # CU_GRAPH_NODE_TYPE_MEMSET
+            # CUDA_MEMSET_NODE_PARAMS: elementSize at 20, width at 24,
+            # height at 32
+            params = (ctypes.c_uint8 * 64)()
+            check(cu.cuGraphMemsetNodeGetParams(vp(node), params))
+            size = [ctypes.c_uint32.from_buffer(params, 20).value,
+                    ctypes.c_uint64.from_buffer(params, 24).value,
+                    ctypes.c_uint64.from_buffer(params, 32).value]
+            out.append(["memset", int(np.prod(size))])
+            continue
         if kind.value != 0:          # CU_GRAPH_NODE_TYPE_KERNEL
             continue
         # CUDA_KERNEL_NODE_PARAMS_v2: func at 0, gridDim at 8, 12, 16,
@@ -2064,6 +2134,97 @@ def fused_split_times(gpu: str, models) -> dict:
     res = {"segments": sizes, "times": out, "gpu": gpu}
     print("fused_split times [ms] " + json.dumps(res), flush=True)
     del rows, packed
+    return res
+
+
+# slice 15: the kernels one call of each unfused partition launches
+# (after the memset of the scan's look-back state)
+PARTITION_CALL_KERNELS = {"scan": ["memset", "scan_tiles"],
+                          "scan_p2": ["memset", "scan_tiles"],
+                          "3ph": ["memset", "scan_tiles", "copyback_3ph"]}
+
+
+# rows too wide for the partition scan to stage (its unstaged kernels)
+MANY_FEATURES, MANY_ROWS = 8_000, 6_000
+
+
+def partition_edges(rows, packed, n: int, f: int) -> list:
+    """``partition_scan`` + ``copyback``, ``partition_3ph`` and
+    ``partition_scan_p2`` + ``copyback_p2`` bitwise their plain versions
+    on the adversarial segments (``partition_edge_cases`` at the tile
+    the geometry gives each) of ``n`` rows of ``f`` features."""
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    from lightgbm_tpu_torch.tools import profile_partition as pp
+    tile = pk.scan_geometry(n, f).tile
+    tile2 = pk.scan_geometry(n, record_stride=packed.layout.stride).tile
+    out = [partition_parity(rows, sel, f"{f}_{label}")
+           for label, sel in partition_edge_cases(tile, pp.NAN_BIN, n)]
+    out += [partition_3ph_parity(rows, sel, f"{f}_{label}")
+            for label, sel in partition_edge_cases(tile, pp.NAN_BIN, n,
+                                                   bitset=True)]
+    out += [pack2_scan_case(rows, packed, sel, f"{f}_{label}")
+            for label, sel in partition_edge_cases(tile2, pp.NAN_BIN, n)]
+    return out
+
+
+def partition_phases(gpu: str, route_models: dict) -> dict:
+    """Slice 15, the partitions' one-launch scan: on seeded 1M-row
+    matrices of 28 and 136 features (``tools/profile_partition.py``'s
+    rows), :func:`partition_edges`, then each timed at the 1M-row root
+    and (at 28 features) at the split-segment quartiles and largest
+    segment below a root of its route's trees (``route_models``: ``unfused``,
+    ``pack2_unfused``, ``3ph``), eager and in a graph beside the bound,
+    each case bitwise its plain version first and the phase failing
+    unless a call launches ``PARTITION_CALL_KERNELS``; last,
+    :func:`partition_edges` on ``MANY_ROWS`` rows of ``MANY_FEATURES``,
+    which the scan reads unstaged."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    from lightgbm_tpu_torch.ops.device_data import pack_rows
+    from lightgbm_tpu_torch.tools import profile_partition as pp
+    cs = sys.modules[__name__]
+    n = pp.N_ROWS
+    edges, times, segments = [], [], {}
+    for route, models in route_models.items():
+        seg = segment_sizes(models)
+        segments[route] = {k: seg[k] for k in ("q25", "median", "q75",
+                                               "max_child")}
+    for f in (N_FEATURES, WIDE_FEATURES):
+        rows, packed = pp.device_rows(cs, f)
+        edges += partition_edges(rows, packed, n, f)
+        for route, kernel in (("unfused", "scan"), ("pack2_unfused",
+                                                    "scan_p2"),
+                              ("3ph", "3ph")):
+            if f != N_FEATURES and kernel == "scan_p2":
+                continue
+            cases = [("root", 0, n)] + [
+                (k, pp.SEG_START, c) for k, c in segments[route].items()
+                if f == N_FEATURES]
+            for label, s0, cnt in cases:
+                rec = pp.time_case(cs, kernel, rows, packed,
+                                   (s0, cnt, 0, 120, 1, 0, pp.NAN_BIN))
+                got = [k for k, _ in rec["kernels_a_call"]]
+                if got != PARTITION_CALL_KERNELS[kernel]:
+                    raise RuntimeError(f"{kernel} at {cnt} rows launched "
+                                       f"{got}, not "
+                                       f"{PARTITION_CALL_KERNELS[kernel]}")
+                rec.update(route=route, case=label)
+                times.append(rec)
+        del rows, packed
+        torch.cuda.empty_cache()
+    rows = rows_on(random_row_matrix(MANY_ROWS, MANY_FEATURES, 32,
+                                     nan_bin=pp.NAN_BIN), "cuda")
+    packed = pack_rows(rows)
+    if pk.scan_geometry(MANY_ROWS, MANY_FEATURES).staged or pk.scan_geometry(
+            MANY_ROWS, record_stride=packed.layout.stride).staged:
+        raise RuntimeError(f"the scan stages rows of {MANY_FEATURES} "
+                           "features")
+    edges += partition_edges(rows, packed, MANY_ROWS, MANY_FEATURES)
+    del rows, packed
+    res = {"segments": segments, "times": times,
+           "edge_cases": len(edges), "gpu": gpu}
+    print("partition times [ms] " + json.dumps(res), flush=True)
     return res
 
 
@@ -2979,6 +3140,10 @@ def train_phases(gpu: str) -> list:
     copy_times = copyback_p2_times(gpu, bst6._models)
     bsts7, mains7, parity7 = pack2_unfused_phases(gpu, ds, valid, x, bst,
                                                   bst2)
+    part_times = partition_phases(gpu, {
+        "unfused": bsts7["pack1_unfused"]._models,
+        "pack2_unfused": bsts7["pack2_unfused"]._models,
+        "3ph": bst5._models})
     comb_cases, comb_children = hist_comb_cases(bsts7["pack1_unfused"]._models)
     comb_times = hist_comb_times(gpu, N_FEATURES, comb_cases)
     for run in (main, main6, main3):
@@ -3059,6 +3224,13 @@ def train_phases(gpu: str) -> list:
     by_name["apply_find"]["parity_cases"] += [r["case"]
                                               for r in tail_medians]
     by_name["partition_3ph"]["train_parity_bitwise"] = parity5["ok"]
+    for name, kernel in (("partition_scan", "scan"),
+                         ("partition_scan_p2", "scan_p2"),
+                         ("partition_3ph", "3ph")):
+        by_name[name]["segments"] = part_times["segments"]
+        by_name[name]["times"] = [t for t in part_times["times"]
+                                  if t["kernel"] == kernel]
+        by_name[name]["edge_cases_bitwise"] = part_times["edge_cases"]
     by_name["fused_split_p2"]["train_parity_bitwise"] = parity6["ok"]
     for name in ("partition_scan_p2", "stream_refresh_plain_p2"):
         by_name[name]["train_parity_bitwise"] = all(

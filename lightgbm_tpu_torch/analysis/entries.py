@@ -28,6 +28,7 @@ from ..ops import legacy_probes as lp
 from ..ops import probes as pr
 from ..ops import stream_grad as sg
 from ..ops.device_data import RecordLayout
+from ..ops import partition_kernel as pk
 from ..ops.partition_kernel import SCAN_TILE
 from .registry import (KernelEntry, register_kernel, register_purity_pin,
                        vec_arg)
@@ -35,6 +36,8 @@ from .registry import (KernelEntry, register_kernel, register_purity_pin,
 N, F, B, B_WIDE = 1_000_000, 28, 256, 1024
 # the wide dataset's features (MSLR-WEB30K's 136): hist_comb in chunks
 F_WIDE = 136
+# rows too wide for the partition scan to stage (its unstaged kernels)
+F_MANY, N_MANY = 8_000, 100_000
 TREES, LEAVES, BUCKET = 100, 255, 65_536
 REC = RecordLayout(F)
 S = REC.stride
@@ -202,33 +205,53 @@ def hist_comb_wide_entry(fc: int = None) -> KernelEntry:
 
 # -- partitions ---------------------------------------------------------------
 def _partition():
+    """The scan (``part::scan_tiles``) at the wrapper's geometry on the
+    1M-row segment (staged) and on rows of ``F_MANY`` features
+    (unstaged), both packs and the 3-phase partition's instantiation;
+    the copybacks; the fused split's count pass."""
     tiles = -(-N // SCAN_TILE)
     scan = {1: f"{PALLAS}/partition_kernel2.py:377",
             2: f"{PALLAS}/partition_kernel3.py:633"}
-    for source in ("partition", "fused_split"):
-        for pack in (1, 2):
-            sfx = "_p2" if pack == 2 else ""
-            bins = (_records(vec=1) if pack == 2
-                    else vec_arg("bins", "uint8", (N, F), 1))
-            register_kernel(KernelEntry(
-                name=f"{source}_count{sfx}", source=source,
-                symbol="part::count_tiles", block=_block(THREADS), dyn_smem=0,
-                args=(bins, vec_arg("tile_left", "int32", (tiles, 1), 4)),
-                wrapper=(f"partition_kernel.partition_scan{sfx}"
-                         if source == "partition"
-                         else f"fused_split.fused_split{sfx}"),
-                replaces=(scan[pack] if source == "partition"
-                          else FUSED[pack])))
-    for pack, rows in ((1, "part::RowPtrs"), (2, "part::RecPtr")):
+    for pack in (1, 2):
         sfx = "_p2" if pack == 2 else ""
-        args = (_rows_args() + _rows_args("s") if pack == 1
-                else (_records(), _records("sbase")))
+        bins = (_records(vec=1) if pack == 2
+                else vec_arg("bins", "uint8", (N, F), 1))
         register_kernel(KernelEntry(
-            name=f"partition_scan{sfx}", source="partition",
-            symbol=f"partition_scatter<{rows}>", block=_block(THREADS),
-            dyn_smem=0, args=args,
-            wrapper=f"partition_kernel.partition_scan{sfx}",
-            replaces=scan[pack]))
+            name=f"fused_split_count{sfx}", source="fused_split",
+            symbol="part::count_tiles", block=_block(THREADS), dyn_smem=0,
+            args=(bins, vec_arg("tile_left", "int32", (tiles, 1), 4)),
+            wrapper=f"fused_split.fused_split{sfx}", replaces=FUSED[pack]))
+    p3 = f"{PALLAS}/partition_kernel.py:329"
+    many = RecordLayout(F_MANY).stride
+    for source, pack, rows in (("partition", 1, "part::RowPtrs"),
+                               ("partition", 2, "part::RecPtr"),
+                               ("partition_3ph", 1, "part::RowPtrs")):
+        sfx = "_p2" if pack == 2 else ""
+        name = "partition_3ph" if source == "partition_3ph" else \
+            f"partition_scan{sfx}"
+        replaces = p3 if source == "partition_3ph" else scan[pack]
+        # staged at F, unstaged at F_MANY features (rows too wide to stage)
+        for n, f, stride in ((N, F, S), (N_MANY, F_MANY, many)):
+            geo = (pk.scan_geometry(n, record_stride=stride) if pack == 2
+                   else pk.scan_geometry(n, f))
+            args = (_rows_args(f=f, n=n) + _rows_args("s", f=f, n=n)
+                    if pack == 1 else
+                    tuple(vec_arg(a, "uint8", (n, stride), 16)
+                          for a in ("base", "sbase")))
+            state = vec_arg("state", "int64", (1 + geo.tiles, 1), 8)
+            tag = "" if geo.staged else "_unstaged"
+            register_kernel(KernelEntry(
+                name=(f"{name}_scan{tag}" if source == "partition_3ph"
+                      else f"{name}{tag}"),
+                source=source,
+                symbol=f"part::scan_tiles<{rows}, "
+                       f"{'true' if geo.staged else 'false'}>",
+                block=_block(pk.SCAN_THREADS), dyn_smem=geo.smem,
+                args=args + (state,), wrapper=f"partition_kernel.{name}",
+                replaces=replaces,
+                export=(f"{name}_smem_bytes",
+                        (geo.tile, stride if pack == 2 else f,
+                         int(geo.staged)))))
     register_kernel(KernelEntry(
         name="copyback", source="partition", symbol="part::copy_span",
         block=_block(256), dyn_smem=0,
@@ -241,20 +264,9 @@ def _partition():
         dyn_smem=0, args=(_records(), _records("sbase")),
         wrapper="partition_kernel.copyback_p2",
         replaces=f"{PALLAS}/partition_kernel3.py:562"))
-    p3 = f"{PALLAS}/partition_kernel.py:329"
-    register_kernel(KernelEntry(
-        name="partition_3ph_count", source="partition_3ph",
-        symbol="partition3ph_count", block=_block(THREADS), dyn_smem=0,
-        args=(vec_arg("bins", "uint8", (N, F), 1),),
-        wrapper="partition_kernel.partition_3ph", replaces=p3))
-    register_kernel(KernelEntry(
-        name="partition_3ph_scatter", source="partition_3ph",
-        symbol="partition3ph_scatter", block=_block(THREADS), dyn_smem=0,
-        args=_rows_args() + _rows_args("s"),
-        wrapper="partition_kernel.partition_3ph", replaces=p3))
     register_kernel(KernelEntry(
         name="partition_3ph_copyback", source="partition_3ph",
-        symbol="part::copy_span", block=_block(256), dyn_smem=0,
+        symbol="copyback_3ph", block=_block(256), dyn_smem=0,
         args=_rows_args() + _rows_args("s"),
         wrapper="partition_kernel.partition_3ph", replaces=p3))
 

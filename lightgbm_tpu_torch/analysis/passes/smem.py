@@ -59,12 +59,27 @@ def base_name(symbol: str) -> str:
     return symbol.split("<", 1)[0].rsplit("::", 1)[-1]
 
 
+_INCLUDE = re.compile(r'#\s*include\s*"([\w.]+)"')
+
+
+def source_text(name: str, seen=None) -> str:
+    """``csrc/<name>`` with the package headers it includes, the headers
+    they include, each once."""
+    seen = set() if seen is None else seen
+    seen.add(name)
+    text = (PACKAGE / "csrc" / name).read_text()
+    return text + "".join(source_text(h, seen)
+                          for h in _INCLUDE.findall(text)
+                          if h not in seen and (PACKAGE / "csrc" / h).exists())
+
+
 def opted_in(source: str, pattern=_OPTIN) -> set:
     """Kernel names a ``cudaFuncSetAttribute`` call names in
-    ``csrc/<source>.cu`` (with ``_CLUSTER_OPTIN``: a call that allows a
-    non-portable cluster)."""
-    text = strip_cuda((PACKAGE / "csrc" / f"{source}.cu").read_text())
-    return {m.rsplit("::", 1)[-1] for m in pattern.findall(text)}
+    ``csrc/<source>.cu`` and the headers it includes (with
+    ``_CLUSTER_OPTIN``: a call that allows a non-portable cluster)."""
+    text = strip_cuda(source_text(f"{source}.cu"))
+    return {m.rsplit("::", 1)[-1].split("<", 1)[0]
+            for m in pattern.findall(text)}
 
 
 def _cluster_findings(e, where: str, cluster_optins: Dict[str, set]

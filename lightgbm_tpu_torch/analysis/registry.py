@@ -102,7 +102,7 @@ def collect() -> Dict[str, KernelEntry]:
 
 
 DTYPE_BYTES = {"uint8": 1, "uint16": 2, "int32": 4, "float32": 4,
-               "bfloat16": 2}
+               "bfloat16": 2, "int64": 8}
 
 
 def vec_arg(name: str, dtype: str, shape, vec: int,

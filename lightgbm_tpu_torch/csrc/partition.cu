@@ -19,12 +19,11 @@
 //
 // partition_scan_p2 replaces partition_kernel3.make_partition_p2
 // (_scan_kernel_p2, pallas_call at :633), the scan at pack=2: the same
-// kernels over records (partition_common.cuh RecPtr), instantiated from
-// the same templates, so the left rows, the reversed right rows and nleft
-// are partition_scan's; each row moves as its S / 16 16-byte words.  The
-// TPU kernel's parity carries (two rows share a 128-lane line,
-// partition_kernel3.py:340-500) have no counterpart: a record is whole
-// words at any row index.
+// kernel over records (partition_common.cuh RecPtr), instantiated from
+// the same template, so the left rows, the reversed right rows and nleft
+// are partition_scan's.  The TPU kernel's parity carries (two rows share
+// a 128-lane line, partition_kernel3.py:340-500) have no counterpart: a
+// record is whole 16-byte words at any row index.
 //
 // partition_copyback_p2 replaces partition_kernel3.copyback_call_p2
 // (_copyback_kernel_p2, pallas_call at :562), the copyback at pack=2:
@@ -43,78 +42,27 @@
 // route's per-row score and objective constants, which move with their
 // row on every route).  Scratch has the same five arrays.
 //
-// Design: a deterministic block prefix sum.  Each block owns a tile of
-// kTile consecutive rows, each thread kPer consecutive rows of it.
-// Kernel 1 counts the tile's left rows.  Kernel 2 recomputes the
-// predicate, sums the counts of the tiles before its own, scans the
-// per-thread counts inside the block, and scatters every row to its
-// final place; the last block writes nleft.  Positions are a function of
-// the data only, so every launch writes the same bytes.
+// Design of the scan (partition_scan.cuh scan_tiles): one launch after
+// a memset of its look-back state, a block a tile of rows staged in
+// shared memory by cp.async (the bins or records read from global memory
+// where the rows are too wide to stage), the tiles' left counts chained
+// by a decoupled look-back, and each tile's left and right runs written
+// as consecutive words.  The design it replaces
+// counted the tiles in one launch, then re-summed every earlier tile's
+// count in each block of a second launch and moved each thread's four
+// rows one after another, a word at a time (PERF.md).
 //
-// Bound on this card: bytes.  The scan reads the split column of every
-// row once and moves each row (F + 28 bytes, at pack=2 S) once into
-// scratch; the copyback moves cnt * (F + 28) bytes back, at pack=2
-// cnt * S.
+// Bound on this card: bytes.  The scan reads each row of the segment
+// once and moves it (F + 28 bytes, at pack=2 S) once into scratch; the
+// copyback moves cnt * (F + 28) bytes back, at pack=2 cnt * S.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "partition_common.cuh"
+#include "partition_scan.cuh"
 
 namespace {
 
-using part::kPer;
-using part::kThreads;
-using part::kTile;
 using part::RowPtrs;
-using part::Split;
-
-// Rows is part::RowPtrs (pack=1) or part::RecPtr (pack=2)
-template <class Rows>
-__global__ void __launch_bounds__(kThreads)
-partition_scatter(Rows rows, Rows scr, int F, Split sp,
-                  const int* __restrict__ tile_left,
-                  int* __restrict__ nleft) {
-  __shared__ int red[kThreads];
-  // left rows of the tiles before this one
-  int acc = 0;
-  for (int b = threadIdx.x; b < (int)blockIdx.x; b += kThreads)
-    acc += tile_left[b];
-  red[threadIdx.x] = acc;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  const int left_before = red[0];
-  const int right_before = blockIdx.x * kTile - left_before;
-
-  unsigned bits;
-  const int live = part::thread_bits(part::bins_of(rows),
-                                     part::bin_stride(rows, F), sp,
-                                     blockIdx.x, &bits);
-  const int nl = __popc(bits);
-  int tile_total;
-  const int l_off = part::block_exclusive_scan(nl, &tile_total);
-  // rows of this tile before this thread's first row
-  int first_in_tile = threadIdx.x * kPer;
-  const int tile_rows = min(kTile, sp.cnt - (int)blockIdx.x * kTile);
-  if (first_in_tile > tile_rows) first_in_tile = tile_rows;
-  int l_rank = left_before + l_off;
-  int r_rank = right_before + (first_in_tile - l_off);
-  const int first = blockIdx.x * kTile + threadIdx.x * kPer;
-  for (int k = 0; k < live; ++k) {
-    const int src = sp.s0 + first + k;
-    int dst;
-    if (bits & (1u << k)) {
-      dst = sp.s0 + l_rank++;
-    } else {
-      dst = sp.s0 + sp.cnt - 1 - r_rank++;
-    }
-    part::copy_row(rows, scr, F, src, dst);
-  }
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0)
-    *nleft = left_before + tile_total;
-}
 
 // copyback_p2: words [0, nw) of src to dst (uint4, both 16-byte
 // aligned), grid-stride; a thread loads four words a block-width apart,
@@ -140,48 +88,51 @@ copy_records(const uint4* __restrict__ src, uint4* __restrict__ dst,
   }
 }
 
-// the scan's two launches; 0 or the CUDA error code
-template <class Rows>
-int scan_launch(Rows rows, Rows scr, int* tile_left, int* nleft, int F,
-                const Split& sp, cudaStream_t s) {
-  const int tiles = (sp.cnt + kTile - 1) / kTile;
-  part::count_tiles<<<tiles, kThreads, 0, s>>>(
-      part::bins_of(rows), part::bin_stride(rows, F), sp, tile_left);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  partition_scatter<Rows><<<tiles, kThreads, 0, s>>>(rows, scr, F, sp,
-                                                     tile_left, nleft);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// Partition scan of [s0, s0 + cnt) into scratch; tile_left is int32
-// scratch of at least ceil(cnt / 1024) entries, nleft an int32 device
-// scalar.  cnt must be > 0.  Returns the CUDA error code (0 on success).
+// Shared-memory bytes of a scan block of T rows of F features (pack=1)
+// or of T records of S bytes (pack=2), staged or not.
+int partition_scan_smem_bytes(int T, int F, int staged) {
+  return part::scan_smem(T, F, staged != 0);
+}
+int partition_scan_p2_smem_bytes(int T, int S, int staged) {
+  return part::scan_smem_rec(T, S, staged != 0);
+}
+
+// Partition scan of [s0, s0 + cnt) into scratch in tiles of T rows,
+// the bins staged in shared memory or not; state is the look-back state
+// (1 + ceil(cnt / T) 64-bit words, zeroed here on the stream), nleft an
+// int32 device scalar.  cnt must be > 0.  Returns the CUDA error code (0
+// on success).
 int partition_scan(uint8_t* bins, float* vals, int* rid, float* score,
                    float* consts, uint8_t* sbins, float* svals, int* srid,
-                   float* sscore, float* sconsts, int* tile_left, int* nleft,
-                   int F, int s0, int cnt, int feat, int sbin, int dl,
-                   int cat, int nanb, void* stream) {
-  return scan_launch(RowPtrs{bins, vals, rid, score, consts},
-                     RowPtrs{sbins, svals, srid, sscore, sconsts}, tile_left,
-                     nleft, F, Split{s0, cnt, feat, sbin, dl, cat, nanb},
-                     static_cast<cudaStream_t>(stream));
+                   float* sscore, float* sconsts, unsigned long long* state,
+                   int* nleft, int F, int s0, int cnt, int feat, int sbin,
+                   int dl, int cat, int nanb, int T, int staged,
+                   void* stream) {
+  part::Pred p{};
+  p.sp = part::Split{s0, cnt, feat, sbin, dl, cat, nanb};
+  return part::scan_launch(RowPtrs{bins, vals, rid, score, consts},
+                           RowPtrs{sbins, svals, srid, sscore, sconsts}, F,
+                           p, T, staged, state, nleft,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // The same over records: base and sbase u8 [n, S] (16-byte aligned),
 // vals at byte Fb.  cnt must be > 0.
 int partition_scan_p2(uint8_t* base, uint8_t* sbase, int S, int Fb,
-                      int* tile_left, int* nleft, int s0, int cnt, int feat,
-                      int sbin, int dl, int cat, int nanb, void* stream) {
+                      unsigned long long* state, int* nleft, int s0, int cnt,
+                      int feat, int sbin, int dl, int cat, int nanb, int T,
+                      int staged, void* stream) {
+  if (S % 16) return (int)cudaErrorInvalidValue;
+  part::Pred p{};
+  p.sp = part::Split{s0, cnt, feat, sbin, dl, cat, nanb};
   // a record's bin stride and copy are its own: F is not read
-  return scan_launch(part::RecPtr{base, S, Fb}, part::RecPtr{sbase, S, Fb},
-                     tile_left, nleft, 0,
-                     Split{s0, cnt, feat, sbin, dl, cat, nanb},
-                     static_cast<cudaStream_t>(stream));
+  return part::scan_launch(part::RecPtr{base, S, Fb},
+                           part::RecPtr{sbase, S, Fb}, 0, p, T, staged, state,
+                           nleft, static_cast<cudaStream_t>(stream));
 }
 
 // Copy rows [s0, s0 + cnt) of every column from scratch back.

@@ -22,149 +22,127 @@
 // Rows: bins u8 [n, F], vals f32 [n, 3] (g*w, h*w, w), rid i32 [n], score
 // f32 [n], consts f32 [n, 2]; scratch has the same five arrays.
 //
-// Design: the TPU kernel's three sequential grid phases (left rows, right
-// rows, copyback, with a carry window and full-R flushes for its DMA
-// granularity) become three launches on one stream, each parallel over
-// tiles of kTile consecutive rows.  (1) Each block counts its tile's left
-// rows.  (2) Each block sums the counts of the tiles before its own and
-// of the whole segment (nleft), scans the per-thread counts inside the
-// block and writes every row to scratch: a left row at s0 + (lefts before
-// it), a right row at s0 + nleft + (rights before it); block 0 writes
-// nleft.  (3) The span moves back from scratch.  Positions are a function
-// of the data only (no atomics), so every launch writes the same bytes.
+// Design: two launches on one stream, after the scan's memset.  (1) The
+// scan of partition_scan.cuh (scan_tiles, partition_scan's kernel) with
+// the membership words in its predicate writes the segment to scratch as
+// the left rows in order, then the right rows reversed, and nleft.  (2)
+// copyback_3ph reads nleft on the device and moves the span back: the
+// left rows as they are, the right rows reversed into ascending order.
+// Both write the same bytes on every launch.  The design it replaces
+// took three launches (count, scatter re-summing every tile's count,
+// copy) and moved each row in a chain of word loads (PERF.md).
 //
-// Bound on this card: bytes.  The split column is read once (cnt bytes,
-// strided), each row (F + 28 bytes) is written to scratch and moved back:
-// about 2 * 2 * cnt * (F + 28) bytes of traffic for the three launches.
+// Bound on this card: bytes.  An in-place stable partition reads each
+// row (F + 28 bytes) once and writes it once; this design's trip through
+// scratch and back moves each twice each way.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "partition_common.cuh"
+#include "partition_scan.cuh"
 
 namespace {
 
-using part::kPer;
-using part::kThreads;
-using part::kTile;
 using part::RowPtrs;
-using part::Split;
 
-constexpr int kMaxWords = 8;   // layout.CAT_BITSET_WORDS
+constexpr int kBackThreads = 256;
+constexpr int kBackRows = 128;    // rows a copyback block moves
+constexpr int kBackWords = 4;     // loads in flight a thread
 
-struct Pred {
-  Split sp;
-  unsigned words[kMaxWords];
-  int nwords;                  // 0: one-hot categorical splits
-};
-
-// _go_left with the optional membership words: the words replace
-// bin == sbin for categorical splits only
-__device__ __forceinline__ bool go_left3(int col, const Pred& p) {
-  if (p.sp.cat && p.nwords > 0) {
-    const int w = col >> 5;
-    return w < p.nwords && ((p.words[w] >> (col & 31)) & 1u) != 0u;
-  }
-  return part::go_left(col, p.sp);
-}
-
-__device__ __forceinline__ int bits3(const uint8_t* bins, int F,
-                                     const Pred& p, int tile,
-                                     unsigned* bits) {
-  return part::thread_bits_by(bins, F, p.sp, tile, bits,
-                              [&](int col) { return go_left3(col, p); });
-}
-
-__global__ void __launch_bounds__(kThreads)
-partition3ph_count(const uint8_t* __restrict__ bins, int F, Pred p,
-                   int* __restrict__ tile_left) {
-  unsigned bits;
-  bits3(bins, F, p, blockIdx.x, &bits);
-  int total;
-  part::block_exclusive_scan(__popc(bits), &total);
-  if (threadIdx.x == 0) tile_left[blockIdx.x] = total;
-}
-
-__global__ void __launch_bounds__(kThreads)
-partition3ph_scatter(RowPtrs rows, RowPtrs scr, int F, Pred p,
-                     const int* __restrict__ tile_left,
-                     int* __restrict__ nleft) {
-  __shared__ int red_before[kThreads];
-  __shared__ int red_all[kThreads];
-  // left rows of the tiles before this one, and of the whole segment
-  int before = 0, all = 0;
-  for (int b = threadIdx.x; b < (int)gridDim.x; b += kThreads) {
-    const int v = tile_left[b];
-    all += v;
-    if (b < (int)blockIdx.x) before += v;
-  }
-  red_before[threadIdx.x] = before;
-  red_all[threadIdx.x] = all;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-      red_before[threadIdx.x] += red_before[threadIdx.x + s];
-      red_all[threadIdx.x] += red_all[threadIdx.x + s];
+// Rows [p0, p0 + rows) of the span, wpr words a row: dst row s0 + q
+// takes src row s0 + q for q < nl (the left run), else s0 + cnt - 1 - q
+// + nl (the right run reversed).  Consecutive threads take consecutive
+// words; each thread issues kBackWords loads before its stores.
+template <class W>
+__device__ __forceinline__ void move_back(const W* __restrict__ src,
+                                          W* __restrict__ dst, int wpr,
+                                          long long s0, int p0, int rows,
+                                          int cnt, int nl) {
+  const int total = rows * wpr;
+  int p = (int)threadIdx.x / wpr;
+  int k = (int)threadIdx.x - p * wpr;
+  const int dq = kBackThreads / wpr, dr = kBackThreads - dq * wpr;
+  for (int i = threadIdx.x; i < total; i += kBackWords * kBackThreads) {
+    W v[kBackWords];
+    long long d[kBackWords];
+#pragma unroll
+    for (int u = 0; u < kBackWords; ++u) {
+      if (i + u * kBackThreads < total) {
+        const int q = p0 + p;
+        const int from = q < nl ? q : cnt - 1 - q + nl;
+        v[u] = src[(s0 + from) * wpr + k];
+        d[u] = (s0 + q) * wpr + k;
+      }
+      k += dr;
+      p += dq;
+      if (k >= wpr) {
+        k -= wpr;
+        ++p;
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kBackWords; ++u)
+      if (i + u * kBackThreads < total) dst[d[u]] = v[u];
   }
-  const int left_before = red_before[0];
-  const int total_left = red_all[0];
-  const int right_before = blockIdx.x * kTile - left_before;
+}
 
-  const Split& sp = p.sp;
-  unsigned bits;
-  const int live = bits3(rows.bins, F, p, blockIdx.x, &bits);
-  int tile_total;
-  const int l_off = part::block_exclusive_scan(__popc(bits), &tile_total);
-  // rows of this tile before this thread's first row
-  int first_in_tile = threadIdx.x * kPer;
-  const int tile_rows = min(kTile, sp.cnt - (int)blockIdx.x * kTile);
-  if (first_in_tile > tile_rows) first_in_tile = tile_rows;
-  int l_rank = left_before + l_off;
-  int r_rank = right_before + (first_in_tile - l_off);
-  const int first = blockIdx.x * kTile + threadIdx.x * kPer;
-  for (int k = 0; k < live; ++k) {
-    const int src = sp.s0 + first + k;
-    const int dst = (bits & (1u << k)) ? sp.s0 + l_rank++
-                                       : sp.s0 + total_left + r_rank++;
-    part::copy_row(rows, scr, F, src, dst);
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *nleft = total_left;
+__global__ void __launch_bounds__(kBackThreads)
+copyback_3ph(RowPtrs rows, RowPtrs scr, int F, int s0, int cnt,
+             const int* __restrict__ nleft) {
+  const int nl = *nleft;
+  const int p0 = blockIdx.x * kBackRows;
+  const int m = min(kBackRows, cnt - p0);
+  if ((F & 3) == 0)
+    move_back(reinterpret_cast<const uint32_t*>(scr.bins),
+              reinterpret_cast<uint32_t*>(rows.bins), F / 4, s0, p0, m, cnt,
+              nl);
+  else
+    move_back<uint8_t>(scr.bins, rows.bins, F, s0, p0, m, cnt, nl);
+  move_back(reinterpret_cast<const uint32_t*>(scr.vals),
+            reinterpret_cast<uint32_t*>(rows.vals), 3, s0, p0, m, cnt, nl);
+  move_back(reinterpret_cast<const uint32_t*>(scr.rid),
+            reinterpret_cast<uint32_t*>(rows.rid), 1, s0, p0, m, cnt, nl);
+  move_back(reinterpret_cast<const uint32_t*>(scr.score),
+            reinterpret_cast<uint32_t*>(rows.score), 1, s0, p0, m, cnt, nl);
+  move_back(reinterpret_cast<const uint32_t*>(scr.consts),
+            reinterpret_cast<uint32_t*>(rows.consts), 2, s0, p0, m, cnt, nl);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The 3-phase partition of [s0, s0 + cnt) in place, through scratch.
-// tile_left is int32 scratch of at least ceil(cnt / 1024) entries, nleft
-// an int32 device scalar, words nwords (<= 8) host membership words (may
-// be null when nwords is 0).  cnt must be > 0.  Returns the CUDA error
-// code (0 on success), or cudaErrorInvalidValue for nwords > 8.
+// Shared-memory bytes of a scan block of T rows of F features, staged
+// or not.
+int partition_3ph_smem_bytes(int T, int F, int staged) {
+  return part::scan_smem(T, F, staged != 0);
+}
+
+// The 3-phase partition of [s0, s0 + cnt) in place, through scratch, in
+// tiles of T rows, the bins staged or not.  state is the look-back state
+// (1 + ceil(cnt / T) 64-bit words, zeroed here on the stream), nleft an
+// int32 device scalar, words nwords (<= 8) host membership words (may be
+// null when nwords is 0).  cnt must be > 0.  Returns the CUDA error code
+// (0 on success), or cudaErrorInvalidValue for nwords > 8.
 int partition_3ph(uint8_t* bins, float* vals, int* rid, float* score,
                   float* consts, uint8_t* sbins, float* svals, int* srid,
-                  float* sscore, float* sconsts, int* tile_left, int* nleft,
-                  int F, int s0, int cnt, int feat, int sbin, int dl,
-                  int cat, int nanb, int nwords, const unsigned* words,
-                  void* stream) {
-  if (nwords < 0 || nwords > kMaxWords) return (int)cudaErrorInvalidValue;
+                  float* sscore, float* sconsts, unsigned long long* state,
+                  int* nleft, int F, int s0, int cnt, int feat, int sbin,
+                  int dl, int cat, int nanb, int nwords,
+                  const unsigned* words, int T, int staged, void* stream) {
+  if (nwords < 0 || nwords > part::kMaxWords)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Pred p{};
-  p.sp = Split{s0, cnt, feat, sbin, dl, cat, nanb};
+  part::Pred p{};
+  p.sp = part::Split{s0, cnt, feat, sbin, dl, cat, nanb};
   p.nwords = nwords;
   for (int k = 0; k < nwords; ++k) p.words[k] = words[k];
   const RowPtrs rows{bins, vals, rid, score, consts};
   const RowPtrs scr{sbins, svals, srid, sscore, sconsts};
-  const int tiles = (cnt + kTile - 1) / kTile;
-  partition3ph_count<<<tiles, kThreads, 0, s>>>(bins, F, p, tile_left);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  partition3ph_scatter<<<tiles, kThreads, 0, s>>>(rows, scr, F, p,
-                                                  tile_left, nleft);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  part::copy_span<<<part::copy_span_blocks(cnt, F), 256, 0, s>>>(
-      rows, scr, F, s0, cnt);
+  const int e = part::scan_launch(rows, scr, F, p, T, staged, state, nleft,
+                                  s);
+  if (e != 0) return e;
+  copyback_3ph<<<(cnt + kBackRows - 1) / kBackRows, kBackThreads, 0, s>>>(
+      rows, scr, F, s0, cnt, nleft);
   return (int)cudaGetLastError();
 }
 

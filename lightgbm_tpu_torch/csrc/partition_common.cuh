@@ -1,6 +1,6 @@
-// The split predicate, the per-tile left counts, the row copy (either
-// layout) and the span copyback shared by partition.cu (scan + copyback,
-// both packs), partition_3ph.cu and fused_split.cu.
+// The split predicate, the row layouts, the per-tile left counts and the
+// span copyback shared by partition.cu (scan + copyback, both packs),
+// partition_3ph.cu (through partition_scan.cuh) and fused_split.cu.
 //
 // Two row-access policies.  pack=1, RowPtrs: bins u8 [n, F], vals f32
 // [n, 3] (g*w, h*w, w), rid i32 [n] (original row ids), score f32 [n],
@@ -67,12 +67,11 @@ __device__ __host__ inline const uint8_t* bins_of(const RecPtr& r) {
 __device__ __host__ inline int bin_stride(const RowPtrs&, int F) { return F; }
 __device__ __host__ inline int bin_stride(const RecPtr& r, int) { return r.S; }
 
-// the thread's kPer rows of tile `tile`: left bits by the predicate
-// `go(col)`, and how many of them are rows of the segment
-template <class GoLeft>
-__device__ __forceinline__ int thread_bits_by(const uint8_t* bins, int F,
-                                              const Split& sp, int tile,
-                                              unsigned* bits, GoLeft go) {
+// the thread's kPer rows of tile `tile`: their left bits, and how many
+// of them are rows of the segment
+__device__ __forceinline__ int thread_bits(const uint8_t* bins, int F,
+                                           const Split& sp, int tile,
+                                           unsigned* bits) {
   const int first = tile * kTile + threadIdx.x * kPer;
   int live = 0;
   unsigned b = 0;
@@ -81,19 +80,11 @@ __device__ __forceinline__ int thread_bits_by(const uint8_t* bins, int F,
     if (p < sp.cnt) {
       ++live;
       const int col = bins[(size_t)(sp.s0 + p) * F + sp.feat];
-      if (go(col)) b |= 1u << k;
+      if (go_left(col, sp)) b |= 1u << k;
     }
   }
   *bits = b;
   return live;
-}
-
-// thread_bits_by with go_left
-__device__ __forceinline__ int thread_bits(const uint8_t* bins, int F,
-                                           const Split& sp, int tile,
-                                           unsigned* bits) {
-  return thread_bits_by(bins, F, sp, tile, bits,
-                        [&](int col) { return go_left(col, sp); });
 }
 
 // exclusive block scan of v (int) over kThreads threads; returns the
@@ -132,44 +123,6 @@ count_tiles(const uint8_t* __restrict__ bins, int F, Split sp,
   int total;
   block_exclusive_scan(__popc(bits), &total);
   if (threadIdx.x == 0) tile_left[blockIdx.x] = total;
-}
-
-// every column of the row but its bins
-__device__ __forceinline__ void copy_values(const RowPtrs& s,
-                                            const RowPtrs& d, long long src,
-                                            long long dst) {
-  d.vals[dst * 3] = s.vals[src * 3];
-  d.vals[dst * 3 + 1] = s.vals[src * 3 + 1];
-  d.vals[dst * 3 + 2] = s.vals[src * 3 + 2];
-  d.rid[dst] = s.rid[src];
-  d.score[dst] = s.score[src];
-  d.consts[dst * 2] = s.consts[src * 2];
-  d.consts[dst * 2 + 1] = s.consts[src * 2 + 1];
-}
-
-// every column of row src into row dst of another matrix
-__device__ __forceinline__ void copy_row(const RowPtrs& s, const RowPtrs& d,
-                                         int F, long long src,
-                                         long long dst) {
-  if ((F & 3) == 0) {
-    const uint32_t* a = reinterpret_cast<const uint32_t*>(s.bins + src * F);
-    uint32_t* b = reinterpret_cast<uint32_t*>(d.bins + dst * F);
-    for (int w = 0; w < F / 4; ++w) b[w] = a[w];
-  } else {
-    for (int f = 0; f < F; ++f) d.bins[dst * F + f] = s.bins[src * F + f];
-  }
-  copy_values(s, d, src, dst);
-}
-
-// record src into record dst of another buffer: S / 16 16-byte words (F
-// unused; the record's bins are among its words)
-__device__ __forceinline__ void copy_row(const RecPtr& s, const RecPtr& d,
-                                         int, long long src,
-                                         long long dst) {
-  const int W = s.S / 16;
-  const uint4* a = reinterpret_cast<const uint4*>(s.base) + src * W;
-  uint4* b = reinterpret_cast<uint4*>(d.base) + dst * W;
-  for (int w = 0; w < W; ++w) b[w] = a[w];
 }
 
 // rows [s0, s0 + cnt) of every column from scr into rows, grid-stride;

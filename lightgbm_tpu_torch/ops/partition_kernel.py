@@ -25,6 +25,16 @@ copyback at pack=2 (``make_partition_p2``'s ``_scan_kernel_p2`` and
 :meth:`PackedRows.fields`, and :func:`partition_p2` is the two
 launches ``make_partition_p2`` makes per split.
 
+The scans (:func:`partition_scan`, :func:`partition_scan_p2` and the
+first launch of :func:`partition_3ph`) run one kernel,
+``csrc/partition_scan.cuh`` ``scan_tiles``: a block a tile of rows
+staged in shared memory (the bins or records left in global memory
+where the rows are too wide to stage), the tiles chained by a decoupled
+look-back through a state each call allocates on the caller's stream
+and the library zeroes there; :func:`scan_geometry` gives the tile, the
+staging and the shared memory.  The wrappers make no host read, so a
+CUDA graph can capture them.
+
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
 """
@@ -32,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -46,8 +56,98 @@ SEL_S0, SEL_CNT, SEL_FEAT, SEL_SBIN, SEL_DL, SEL_CAT, SEL_NANB = range(7)
 SEL_MEMBER = 8
 # membership words a descriptor may carry (layout.CAT_BITSET_WORDS)
 MAX_MEMBER_WORDS = 8
-# rows per block of the scan kernels (csrc/partition.cu kTile)
+# rows per count tile of the fused split's partition pass
+# (csrc/partition_common.cuh kTile)
 SCAN_TILE = 1024
+# the scan kernel (csrc/partition_scan.cuh): threads a block, the tile
+# sizes it takes (a multiple of 32 up to 1,024 rows), the shared memory
+# a block may use on the H100 and the kernel's static part of it (perm,
+# the group masks and prefixes, three ints, 2,316 B, which the compiler
+# rounds to 16; analysis/resources_sm90a.txt),
+# and the most a tile stages unless a tile is asked for (PERF.md: 256
+# rows at 28 features and at pack=2, 128 at 136 features were the
+# fastest or within 5 % of it at every segment size timed)
+SCAN_THREADS = 256
+SCAN_TILES = (1024, 512, 256, 128, 64, 32)
+MAX_SMEM = 232_448
+SCAN_STATIC_SMEM = 2_320
+SCAN_SMEM_BUDGET = 24 * 1024
+
+
+class ScanGeometry(NamedTuple):
+    """One scan launch: ``tile`` rows a block, ``tiles`` blocks of
+    ``SCAN_THREADS`` threads, ``smem`` dynamic shared bytes a block,
+    ``staged`` whether the bins (records at pack=2) pass through it."""
+    tile: int
+    tiles: int
+    smem: int
+    staged: bool
+
+
+def stage_bytes(n: int) -> int:
+    """Shared bytes staging ``n`` bytes from a 4-byte-aligned address
+    (``partition_scan.cuh`` ``stage_bytes``)."""
+    return (n + 16 + 15) // 16 * 16
+
+
+def scan_smem(tile: int, num_features: int = 0,
+              record_stride: Optional[int] = None,
+              staged: bool = True) -> int:
+    """A scan block's dynamic shared memory: ``tile`` rows of the five
+    arrays at ``num_features`` bins (the four value arrays alone
+    unstaged), or ``tile`` records of ``record_stride`` bytes (none
+    unstaged) (``scan_smem`` / ``scan_smem_rec``)."""
+    if record_stride is not None:
+        return stage_bytes(tile * record_stride) if staged else 0
+    return ((stage_bytes(tile * num_features) if staged else 0)
+            + stage_bytes(12 * tile) + 2 * stage_bytes(4 * tile)
+            + stage_bytes(8 * tile))
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_launch(num_features: int, record_stride: Optional[int],
+                 tile: Optional[int], staged: Optional[bool]) -> tuple:
+    """(tile, smem, staged) of :func:`scan_geometry`, which depends on
+    the row's width and the overrides only (kept: a split's wrapper call
+    asks for it)."""
+    def fits(t, st, limit):
+        return scan_smem(t, num_features, record_stride, st) <= limit
+    if tile is None:
+        modes = (True, False) if staged is None else (staged,)
+        fitting = [(t, st) for st in modes for t in SCAN_TILES
+                   if fits(t, st, SCAN_SMEM_BUDGET)]
+        tile, staged = fitting[0] if fitting else (SCAN_TILES[-1], staged)
+    if tile not in SCAN_TILES:
+        raise LightGBMError(f"a scan tile is one of {SCAN_TILES} rows, "
+                            f"not {tile}")
+    room = MAX_SMEM - SCAN_STATIC_SMEM
+    if staged is None:
+        staged = fits(tile, True, room)
+    smem = scan_smem(tile, num_features, record_stride, staged)
+    if smem > room:
+        raise LightGBMError(
+            f"a staged {tile}-row scan tile of "
+            f"{record_stride or num_features + 28}-byte rows needs {smem} "
+            f"bytes of shared memory beside the kernel's "
+            f"{SCAN_STATIC_SMEM}, over the {MAX_SMEM} a block may use")
+    return tile, smem, bool(staged)
+
+
+def scan_geometry(cnt: int, num_features: int = 0,
+                  record_stride: Optional[int] = None,
+                  tile: Optional[int] = None,
+                  staged: Optional[bool] = None) -> ScanGeometry:
+    """The scan's launch over a ``cnt``-row segment: the largest tile of
+    :data:`SCAN_TILES` whose staging fits :data:`SCAN_SMEM_BUDGET` with
+    the bins (records) staged, else the largest that fits with them
+    unstaged, read from global memory (rows of about 740 features or
+    more, records of more than 736 bytes); ``ceil(cnt / tile)``
+    blocks.  ``tile`` and ``staged`` override the choice (a given tile
+    is staged when a block holds it).  Raises when the tile is not one
+    the kernel takes or a staged one does not fit a block."""
+    t, smem, st = _scan_launch(int(num_features), record_stride, tile,
+                               staged)
+    return ScanGeometry(t, -(-int(cnt) // t), smem, st)
 
 
 def member_words(sel: Sequence[int]) -> list:
@@ -184,13 +284,13 @@ def check_segment(n: int, s0: int, cnt: int) -> None:
 def _lib():
     lib = _build.load("partition")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.partition_scan.argtypes = [p] * 12 + [i] * 8 + [p]
+    lib.partition_scan.argtypes = [p] * 12 + [i] * 10 + [p]
     lib.partition_scan.restype = i
     lib.partition_copyback.argtypes = [p] * 10 + [i] * 3 + [p]
     lib.partition_copyback.restype = i
     lib.partition_copyback_p2.argtypes = [p, p, i, i, i, p]
     lib.partition_copyback_p2.restype = i
-    lib.partition_scan_p2.argtypes = [p, p, i, i, p, p] + [i] * 7 + [p]
+    lib.partition_scan_p2.argtypes = [p, p, i, i, p, p] + [i] * 9 + [p]
     lib.partition_scan_p2.restype = i
     return lib
 
@@ -199,9 +299,50 @@ def _lib():
 def _lib_3ph():
     lib = _build.load("partition_3ph")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.partition_3ph.argtypes = [p] * 12 + [i] * 9 + [p, p]
+    lib.partition_3ph.argtypes = [p] * 12 + [i] * 9 + [p, i, i, p]
     lib.partition_3ph.restype = i
     return lib
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise LightGBMError(f"{name} kernel launch failed with CUDA error "
+                            f"{rc}")
+
+
+def launch_scan(rows, scratch, sel: Sequence[int], nleft: torch.Tensor,
+                geo: ScanGeometry, scheme: str = "ss") -> None:
+    """Launch the scan of a checked, live segment on ``geo``: ``scheme``
+    ``ss`` (:func:`partition_scan`, or :func:`partition_scan_p2` for
+    records) or ``3ph`` (:func:`partition_3ph`'s two launches).  The
+    look-back state, i64 ``[1 + geo.tiles]``, is allocated here on the
+    current stream, so calls on other streams never share it and a
+    graph keeps the one it captured; the library zeroes it on the
+    stream before the kernel."""
+    packed = isinstance(rows, PackedRows)
+    dev = rows.buf.device if packed else rows.bins.device
+    s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
+    with torch.cuda.device(dev):
+        state = torch.empty(1 + geo.tiles, dtype=torch.int64, device=dev)
+        tail = [geo.tile, int(geo.staged),
+                torch.cuda.current_stream(dev).cuda_stream]
+        if packed:
+            lay = rows.layout
+            rc = _lib().partition_scan_p2(
+                rows.buf.data_ptr(), scratch.buf.data_ptr(), lay.stride,
+                lay.fb, state.data_ptr(), nleft.data_ptr(), s0, cnt,
+                *split_args(sel), *tail)
+            return _raise_on(rc, "partition_scan_p2")
+        head = [*row_pointers(rows), *row_pointers(scratch),
+                state.data_ptr(), nleft.data_ptr(), rows.bins.shape[1], s0,
+                cnt, *split_args(sel)]
+        if scheme == "3ph":
+            words = member_words(sel)
+            words_c = (ctypes.c_uint32 * max(len(words), 1))(*words)
+            rc = _lib_3ph().partition_3ph(*head, len(words), words_c, *tail)
+            return _raise_on(rc, "partition_3ph")
+        return _raise_on(_lib().partition_scan(*head, *tail),
+                         "partition_scan")
 
 
 def partition_scan(rows: Rows, scratch: Rows, sel: Sequence[int],
@@ -225,17 +366,7 @@ def partition_scan(rows: Rows, scratch: Rows, sel: Sequence[int],
     f = rows.bins.shape[1]
     if not 0 <= int(sel[SEL_FEAT]) < f:
         raise LightGBMError(f"split feature {sel[SEL_FEAT]} outside [0, {f})")
-    tiles = -(-cnt // SCAN_TILE)
-    tile_left = torch.empty(tiles, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _lib().partition_scan(
-            *row_pointers(rows), *row_pointers(scratch),
-            tile_left.data_ptr(), nleft.data_ptr(), f, s0, cnt,
-            *split_args(sel), stream)
-    if rc != 0:
-        raise LightGBMError(f"partition_scan kernel launch failed with "
-                            f"CUDA error {rc}")
+    launch_scan(rows, scratch, sel, nleft, scan_geometry(cnt, f))
     partition_scan.launches += 1
     return nleft
 
@@ -297,17 +428,8 @@ def partition_scan_p2(rows: PackedRows, scratch: PackedRows,
     f = lay.num_features
     if not 0 <= int(sel[SEL_FEAT]) < f:
         raise LightGBMError(f"split feature {sel[SEL_FEAT]} outside [0, {f})")
-    tile_left = torch.empty(-(-cnt // SCAN_TILE), dtype=torch.int32,
-                            device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _lib().partition_scan_p2(
-            rows.buf.data_ptr(), scratch.buf.data_ptr(), lay.stride, lay.fb,
-            tile_left.data_ptr(), nleft.data_ptr(), s0, cnt,
-            *split_args(sel), stream)
-    if rc != 0:
-        raise LightGBMError(f"partition_scan_p2 kernel launch failed with "
-                            f"CUDA error {rc}")
+    launch_scan(rows, scratch, sel, nleft,
+                scan_geometry(cnt, record_stride=lay.stride))
     partition_scan_p2.launches += 1
     return nleft
 
@@ -349,8 +471,9 @@ def partition_3ph(rows: Rows, scratch: Rows, sel: Sequence[int],
                   nleft: torch.Tensor) -> torch.Tensor:
     """The 3-phase partition of the segment ``sel`` describes, in place
     (through ``scratch``), its left count into ``nleft``.  CPU tensors
-    take :func:`partition_3ph_ref`; CUDA tensors launch the kernel's
-    three passes on the current stream (one launch in the count).
+    take :func:`partition_3ph_ref`; CUDA tensors launch the scan and the
+    reversing copyback on the current stream (one launch in the
+    count).
     ``cnt == 0`` (a dead split) writes ``nleft = 0`` and launches
     nothing."""
     dev = rows.bins.device
@@ -372,18 +495,8 @@ def partition_3ph(rows: Rows, scratch: Rows, sel: Sequence[int],
     f = rows.bins.shape[1]
     if not 0 <= int(sel[SEL_FEAT]) < f:
         raise LightGBMError(f"split feature {sel[SEL_FEAT]} outside [0, {f})")
-    tiles = -(-cnt // SCAN_TILE)
-    tile_left = torch.empty(tiles, dtype=torch.int32, device=dev)
-    words_c = (ctypes.c_uint32 * max(len(words), 1))(*words)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _lib_3ph().partition_3ph(
-            *row_pointers(rows), *row_pointers(scratch),
-            tile_left.data_ptr(), nleft.data_ptr(), f, s0, cnt,
-            *split_args(sel), len(words), words_c, stream)
-    if rc != 0:
-        raise LightGBMError(f"partition_3ph kernel launch failed with CUDA "
-                            f"error {rc}")
+    launch_scan(rows, scratch, sel, nleft, scan_geometry(cnt, f),
+                scheme="3ph")
     partition_3ph.launches += 1
     return nleft
 

@@ -3,12 +3,15 @@ card, as ``chip_smoke.py`` drives them: 1,000,000 + 100,000 Higgs-style
 rows x 28 features, 255 leaves, ``max_bin`` 255, 10 iterations counted
 and timed by ``chip_smoke.train_main_path`` (``row_order``: the same rows
 at ``max_bin`` 1023; ``wide``: 136 features; ``unfused``: the P1
-``LGBM_TPU_FUSED=0`` route; ``3ph``: ``LGBM_TPU_PART=3ph``; launch counts held exact,
+``LGBM_TPU_FUSED=0`` route; ``pack2_unfused``: the P2 one; ``3ph``:
+``LGBM_TPU_PART=3ph``; launch counts held exact,
 served scores held against the training scores), then one profiled
 iteration (``chip_smoke.profile_iteration``): s/iteration (first, and
 the mean of the rest), the stages' ms a tree, holdout AUC, the
 device's busy share, kernels a split and the fused split's, the split
-tail's and ``hist_comb``'s kernels' ms in the profiled iteration.  For the
+tail's and ``hist_comb``'s kernels' ms in the profiled iteration, and
+the partitions' kernels (launches and ms) of one more profiled
+iteration, read the same way from either commit.  For the
 host's share it also gives the
 caching allocator's device allocations, frees and retries over the
 training (``torch.cuda.memory_stats``) and the host operations of one
@@ -17,7 +20,8 @@ their own, and the port's with the most time in all).
 
     python lightgbm_tpu_torch/tools/profile_train.py \\
         [--package-root DIR] \
-        [--routes default,pack2,row_order,wide,unfused,3ph] [--iters 10]
+        [--routes default,pack2,row_order,wide,unfused,pack2_unfused,3ph]
+        [--iters 10]
 
 Run by path, the script imports the package and ``chip_smoke.py`` from
 ``--package-root`` (default: the checkout it lies in), so one call can
@@ -40,6 +44,12 @@ TAIL_KERNELS = re.compile(r"apply_find\w*")
 # hist_comb's kernels (either commit's; on the unfused routes the only
 # reduce_partials is hist_comb's)
 HIST_KERNELS = re.compile(r"hist_comb\w*|reduce_partials")
+# the partitions' kernels, either commit's: the scan, its state's
+# memset and the copybacks (on the unfused routes count_tiles and
+# copy_span are the partition's)
+PART_KERNELS = re.compile(
+    r"scan_tiles|Memset|copyback_3ph|partition_scatter|"
+    r"partition3ph_\w+|count_tiles|copy_span|copy_records")
 # the caching allocator's counters read around the training
 ALLOC_STATS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
                "num_sync_all_streams")
@@ -75,6 +85,31 @@ def host_top(bst, n: int = 15) -> dict:
             "port": rows(3, lambda f: "lightgbm_tpu_torch" in f)}
 
 
+def partition_kernels(bst) -> dict:
+    """{kernel: [launches, ms]} of the partitions' kernels in one more
+    iteration of ``bst`` under ``torch.profiler``, and their launches a
+    split."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bst.update()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        m = (PART_KERNELS.search(e.name)
+             if e.device_type == DeviceType.CUDA else None)
+        if m:
+            a = out.setdefault(m.group(), [0, 0.0])
+            a[0] += 1
+            a[1] += e.time_range.elapsed_us() / 1e3
+    splits = max(bst._models[-1].num_leaves - 1, 1)
+    return {"kernels": out, "ms": sum(ms for _, ms in out.values()),
+            "launches_per_split": sum(c for c, _ in out.values()) / splits}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package-root",
@@ -83,7 +118,7 @@ def main(argv=None) -> int:
                          "chip_smoke.py")
     ap.add_argument("--routes", default="default,pack2",
                     help="comma-separated: default, pack2, row_order, "
-                         "wide, unfused, 3ph")
+                         "wide, unfused, pack2_unfused, 3ph")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
     root = Path(args.package_root).resolve()
@@ -103,6 +138,8 @@ def main(argv=None) -> int:
               "row_order": ({}, cs.WIDE_PARAMS, cs.N_FEATURES),
               "wide": ({}, cs.TRAIN_PARAMS, cs.WIDE_FEATURES),
               "unfused": (cs.FUSED_OFF, cs.TRAIN_PARAMS, cs.N_FEATURES),
+              "pack2_unfused": (cs.PACK2_UNFUSED, cs.TRAIN_PARAMS,
+                                cs.N_FEATURES),
               "3ph": (cs.PART_3PH, cs.TRAIN_PARAMS, cs.N_FEATURES)}
     gpu = torch.cuda.get_device_name(0)
     data = {}
@@ -133,6 +170,7 @@ def main(argv=None) -> int:
         alloc = {k: after.get(k, 0) - before.get(k, 0) for k in ALLOC_STATS}
         with cs.route_env(env):
             prof = cs.profile_iteration(bst, gpu)
+            part = partition_kernels(bst)
             top = host_top(bst)
         fused, tail, hist = {}, {}, {}
         for k, c, ms in prof.get("top", []):
@@ -158,7 +196,7 @@ def main(argv=None) -> int:
             "fused_split_kernels_top10": fused,
             "split_tail_kernels_top10": tail, "hist_comb_kernels": hist,
             "hist_comb_ms": sum(ms for _, ms in hist.values()),
-            "allocator": alloc,
+            "partition_kernels": part, "allocator": alloc,
             "host_top": top, "gpu": gpu}), flush=True)
         del bst
         torch.cuda.empty_cache()

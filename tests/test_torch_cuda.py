@@ -737,6 +737,173 @@ def test_partition_3ph_matches_plain(cuda, sel):
     partition_3ph_parity(rows_on(r, cuda), sel, "test")
 
 
+# -- slice 15: the one-launch scan of both partitions ---------------------------
+EDGE_ROWS = 20_000
+# rows of the scan's unstaged kernels (too wide to stage)
+MANY_ROWS = 6_000
+
+
+def _edge_rows(f: int, device, n: int = EDGE_ROWS):
+    """Seeded rows: feature 0 with 5 % in the NaN bin 254, feature 5
+    over the whole u8 range (the bitset's), the rest below 255."""
+    r = random_row_matrix(n, f, 40 + f, nan_bin=254)
+    r[0][:, 5] = np.random.default_rng(41 + f).integers(0, 256, n)
+    return rows_on(r, device)
+
+
+@pytest.mark.parametrize("kind", ["scan", "3ph", "scan_p2"])
+@pytest.mark.parametrize("f", [27, 28, 136, 8_000, 20_000])
+def test_partitions_on_adversarial_segments(cuda, f, kind):
+    """partition_scan + copyback, partition_3ph and partition_scan_p2 +
+    copyback_p2 bitwise their plain versions (3ph also on CPU copies) on
+    every adversarial segment at the tile the wrapper's geometry gives:
+    every row left or right, one row, one row past a tile boundary, an
+    odd s0 with the NaN bin routed either way, one-hot categorical, 8
+    membership words (3ph); staged at 27-136 features, unstaged at
+    8,000 and 20,000."""
+    from chip_smoke import pack2_scan_case, partition_edge_cases
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    from lightgbm_tpu_torch.ops.device_data import pack_rows
+    n = EDGE_ROWS if f < 1_000 else MANY_ROWS
+    rows = _edge_rows(f, cuda, n)
+    packed = pack_rows(rows)
+    stride = packed.layout.stride if kind == "scan_p2" else None
+    geo = pk.scan_geometry(n, f, stride)
+    assert geo.staged == (f < 1_000)
+    for label, sel in partition_edge_cases(geo.tile, 254, n,
+                                           bitset=kind == "3ph"):
+        if kind == "scan":
+            partition_parity(rows, sel, label)
+        elif kind == "3ph":
+            partition_3ph_parity(rows, sel, label)
+        else:
+            pack2_scan_case(rows, packed, sel, label)
+
+
+def _scan_case(kind: str, f: int, device, sel=(1_001, 9_999, 0, 120, 1, 0,
+                                                254)):
+    """(rows, scratch, the plain version's rows / scratch and nleft,
+    the split) of one segment (by default across several tiles, at an
+    odd start)."""
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    from lightgbm_tpu_torch.ops.device_data import (empty_packed_like,
+                                                    empty_rows_like,
+                                                    pack_rows)
+    rows = _edge_rows(f, device)
+    nl = torch.full((1,), -1, dtype=torch.int32, device=device)
+    if kind == "scan_p2":
+        rows = pack_rows(rows)
+        want = empty_packed_like(rows)
+        pk.partition_scan_p2_ref(rows, want, sel, nl)
+        return rows, empty_packed_like(rows), (want.fields(), nl), sel
+    if kind == "3ph":
+        want = pk.Rows(*(a.clone() for a in rows))
+        pk.partition_3ph_ref(want, empty_rows_like(rows), sel, nl)
+        return rows, empty_rows_like(rows), (want, nl), sel
+    want = empty_rows_like(rows)
+    pk.partition_scan_ref(rows, want, sel, nl)
+    return rows, empty_rows_like(rows), (want, nl), sel
+
+
+def _scan_equal(kind, rows, scratch, sel, want) -> bool:
+    """The segment the scan wrote (3ph: the rows) bitwise ``want``'s."""
+    from chip_smoke import torch_equal
+    s0, cnt = sel[:2]
+    out = (rows if kind == "3ph" else scratch.fields() if kind == "scan_p2"
+           else scratch)
+    return all(torch_equal(a[s0:s0 + cnt], b[s0:s0 + cnt])
+               for a, b in zip(out, want))
+
+
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("tile", [32, 128, 256, 512, 1024])
+@pytest.mark.parametrize("kind", ["scan", "3ph", "scan_p2"])
+def test_scan_every_tile_staged_and_unstaged(cuda, kind, tile, staged):
+    """The scan on every tile the kernel takes, with the rows staged in
+    shared memory and read in place, bitwise the plain version on three
+    launches in a row (each zeroes its own look-back state)."""
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    f = 28
+    rows, scratch, (want, nl_want), sel = _scan_case(kind, f, cuda)
+    stride = rows.layout.stride if kind == "scan_p2" else None
+    geo = pk.scan_geometry(sel[1], f, stride, tile=tile, staged=staged)
+    assert geo.staged == staged
+    nl = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+    base = [a.clone() for a in (rows if kind == "3ph" else ())]
+    for _ in range(3):
+        for a, b in zip(rows if kind == "3ph" else (), base):
+            a.copy_(b)
+        pk.launch_scan(rows, scratch, sel, nl, geo,
+                       scheme="3ph" if kind == "3ph" else "ss")
+        torch.cuda.synchronize()
+        assert int(nl) == int(nl_want)
+        assert _scan_equal(kind, rows, scratch, sel, want)
+
+
+@pytest.mark.parametrize("kind", ["scan", "3ph", "scan_p2"])
+def test_partitions_in_a_graph(cuda, kind):
+    """Each partition captured in a CUDA graph (after an eager call on a
+    smaller segment) and replayed three times gives the plain version's
+    bytes every time, and counts its launch at the capture, not at the
+    replays."""
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    from lightgbm_tpu_torch.tools.profile_lib import capture
+    rows, scratch, (want, nl_want), sel = _scan_case(kind, 28, cuda)
+    base = [a.clone() for a in (rows if kind == "3ph" else ())]
+    nl = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+    fn = {"scan": pk.partition_scan, "3ph": pk.partition_3ph,
+          "scan_p2": pk.partition_scan_p2}[kind]
+    fn(rows, scratch, (7, 40, 0, 120, 1, 0, 254), nl)
+    for a, b in zip(rows if kind == "3ph" else (), base):
+        a.copy_(b)
+    graph = capture(lambda: fn(rows, scratch, sel, nl), warmup=1)
+    launches = fn.launches
+    for _ in range(3):
+        for a, b in zip(rows if kind == "3ph" else (), base):
+            a.copy_(b)
+        nl.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(nl) == int(nl_want)
+        assert _scan_equal(kind, rows, scratch, sel, want)
+    assert fn.launches == launches
+
+
+@pytest.mark.parametrize("kind", ["scan", "3ph", "scan_p2"])
+def test_partitions_on_two_streams_at_once(cuda, kind):
+    """Scans of two matrices, each queued ten times on a stream of its
+    own with neither waiting for the other, give each its plain
+    version's bytes (3ph: ten plain partitions): their look-back states
+    are their own."""
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    from lightgbm_tpu_torch.ops.device_data import empty_rows_like
+    fn = {"scan": pk.partition_scan, "3ph": pk.partition_3ph,
+          "scan_p2": pk.partition_scan_p2}[kind]
+    cases = [_scan_case(kind, 28, cuda, sel)
+             for sel in ((1_001, 9_999, 0, 120, 1, 0, 254),
+                         (3, 19_000, 0, 90, 0, 0, 254))]
+    start = [[a.clone() for a in rows] if kind == "3ph" else None
+             for rows, *_ in cases]
+    streams = [torch.cuda.Stream(cuda) for _ in cases]
+    nls = [torch.full((1,), -1, dtype=torch.int32, device=cuda)
+           for _ in cases]
+    torch.cuda.synchronize()
+    for _ in range(10):
+        for (rows, scratch, _, sel), st, nl in zip(cases, streams, nls):
+            with torch.cuda.stream(st):
+                fn(rows, scratch, sel, nl)
+    torch.cuda.synchronize()
+    for (rows, scratch, (want, nl_want), sel), nl, a0 in zip(cases, nls,
+                                                             start):
+        if kind == "3ph":
+            want = pk.Rows(*a0)
+            for _ in range(10):
+                pk.partition_3ph_ref(want, empty_rows_like(want), sel,
+                                     nl_want)
+        assert int(nl) == int(nl_want)
+        assert _scan_equal(kind, rows, scratch, sel, want)
+
+
 @pytest.mark.parametrize("kind,sigmoid", [("binary", 1.0), ("binary", 0.7),
                                           ("l2", 1.0)])
 def test_stream_refresh_plain_matches_plain(cuda, kind, sigmoid):
