@@ -17,19 +17,27 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    is written to ``lightgbm_tpu_torch/build/``, and a checked-in
    ``analysis/resources_sm90a.txt`` that differs from it fails the run
    after every other phase;
-2. serving (slice 1): ``serve_traverse`` against its plain PyTorch
-   version on small seeded forests with categorical splits, NaN rows,
-   f32 and bf16 leaf tables and padded buckets, then the serving main
-   path at full width: a seeded binary forest of 100 trees x 255 leaves
-   over 28 features, loaded from model text, scoring 1,000,000 rows
-   with ``Booster.predict`` and 512 batches of 64 rows through
-   ``ServingQueue``, counted, and 4,096 rows held against the f64 host
-   walk;
+2. serving (slice 1, redesigned in slice 16): ``serve_traverse``'s
+   two entries (the bins entry, and the raw entry with the quantizer
+   inside) in both forms against their plain versions on small seeded
+   forests with categorical splits, NaN rows, f32 and bf16 leaf tables,
+   the wide record, the quantizer's edge values (the raw entry's bins
+   bitwise ``quantize_rows_kernel``'s) and padded buckets, and on a
+   2,000-tree x 255-leaf forest larger than shared memory; then the
+   serving main path at full width: a seeded binary forest of 100 trees
+   x 255 leaves over 28 features, loaded from model text, scoring
+   1,000,000 rows with ``Booster.predict`` and 512 batches of 64 rows
+   through ``ServingQueue`` (both through the raw entry), counted, the
+   queue's results bitwise bulk predict's, and 4,096 rows held against
+   the f64 host walk; the kernel's times at 65,536 and 64 rows, eager
+   and in a graph, and the dispatch breakdown at both sizes;
 3. the training kernels (slices 2, 3 and 5) against their plain
    versions at the main path's shapes (1,000,000 x 28 real bins, B =
    256): ``hist_comb``, ``partition_scan`` and ``copyback``;
    ``stream_init`` and ``stream_refresh`` bitwise, the refresh's root
-   histogram bitwise ``hist_comb``'s; ``fused_split`` on the 1M-row
+   histogram bitwise ``hist_comb``'s (slice 16: the refresh is the plain
+   refresh's kernel and then ``hist_comb``'s root, timed beside its two
+   parts, both packs, eager and in a graph); ``fused_split`` on the 1M-row
    segment and on a 3,000-row segment at an odd offset, its rows and
    nleft bitwise and both histograms bitwise ``hist_comb``'s of each
    child range; ``apply_find`` (slice 13: one cluster of blocks over the
@@ -329,6 +337,41 @@ def make_rows(n_rows: int, n_features: int, seed: int, cat_features=(),
     return x
 
 
+def adversarial_rows(forest, n_orig: int, seed: int = 0) -> np.ndarray:
+    """f32 rows [n, n_orig] that put the quantizer's edge values in every
+    used column: NaN, +-inf, +-0, +-1e-35 and their f32 neighbours,
+    subnormals, each ``ub`` entry of the feature and one ulp either
+    side; categorical columns get 3e9, 2^31, -1, -0.5, NaN, +-inf and
+    the int32 range's edges.  Columns cycle through their lists, the
+    rest of the row is seeded normal noise."""
+    f = forest.numpy()
+    f32 = np.float32
+    tiny = f32(1e-35)
+    common = [np.nan, np.inf, -np.inf, 0.0, -0.0, tiny, -tiny,
+              np.nextafter(tiny, f32(0)), np.nextafter(tiny, f32(1)),
+              np.nextafter(-tiny, f32(0)), np.nextafter(-tiny, f32(-1)),
+              1e-40, -1e-40, np.float32(1.4e-45), np.float32(-1.4e-45)]
+    cat_vals = [3e9, 2.0 ** 31, -1.0, -0.5, np.nan, np.inf, -np.inf, 0.0,
+                -0.0, 0.5, 1.0, 7.9, 2147483520.0, -2147483648.0, -3e9,
+                31.0, 32.0, 33.0, 1e-40]
+    cols = {}
+    for i, c in enumerate(f["used_cols"]):
+        if f["cat_col"][i]:
+            vals = np.asarray(cat_vals, f32)
+        else:
+            ub = f["ub"][i]
+            ub = ub[np.isfinite(ub)].astype(f32)
+            near = np.concatenate([ub, np.nextafter(ub, f32(np.inf)),
+                                   np.nextafter(ub, f32(-np.inf))])
+            vals = np.concatenate([np.asarray(common, f32), near])
+        cols[int(c)] = vals
+    n = max([len(v) for v in cols.values()] + [1])
+    x = np.random.default_rng(seed).normal(size=(n, n_orig)).astype(f32)
+    for c, vals in cols.items():
+        x[:, c] = np.resize(vals, n)
+    return x
+
+
 def score_tolerance(scores: np.ndarray, n_trees: int) -> np.ndarray:
     """64 f32 ulps per tree, relative to max(|s|, 1): the f32 sums are
     taken in another order than the reference's."""
@@ -380,16 +423,24 @@ def _leaf_depths(forest) -> np.ndarray:
     return depth
 
 
-def _parity(sm, x: np.ndarray, n_real: int, label: str) -> dict:
-    """Kernel vs plain version on the card, both forms, same inputs."""
+def _parity(sm, x: np.ndarray, n_real: int, label: str,
+            wide=None) -> dict:
+    """Both entries of the kernel, both forms, against the plain version
+    on the card, same inputs: leaves exactly, scores bitwise (the plain
+    version adds in the kernel's order) and within 64 ulps a tree; the
+    raw entry's bins exactly ``quantize_rows_kernel``'s.  ``wide=True``
+    packs the forest with the wide record."""
     import torch
 
     from lightgbm_tpu_torch.ops.predict import quantize_rows_kernel
     from lightgbm_tpu_torch.ops.serve_kernel import (forest_kernel_args,
+                                                     pack_forest,
                                                      serve_traverse,
+                                                     serve_traverse_raw,
                                                      serve_traverse_ref)
     f = sm.forest
     dev = f.device
+    pf = pack_forest(f, sm.n_steps, wide=wide) if wide else sm.packed()
     raw = torch.from_numpy(x).to(dev)
     bins = quantize_rows_kernel(f, raw[:, f.used_cols.long()]).contiguous()
     n = bins.shape[0]
@@ -397,27 +448,38 @@ def _parity(sm, x: np.ndarray, n_real: int, label: str) -> dict:
     largs = forest_kernel_args(f, leaves=True)
     sargs = forest_kernel_args(f)
     lk = torch.full((n, sm.n_trees), -7, dtype=torch.int32, device=dev)
+    lr = torch.full_like(lk, -7)
     lp = torch.empty_like(lk)
-    serve_traverse(largs, bins, n_real, lk, n_steps=sm.n_steps, leaves=True)
+    bo = torch.full_like(bins, -9)
+    serve_traverse(largs, bins, n_real, lk, n_steps=sm.n_steps, leaves=True,
+                   packed=pf)
+    serve_traverse_raw(pf, raw, n_real, lr, leaves=True, bins_out=bo)
     serve_traverse_ref(largs, bins, n_real, lp, n_steps=sm.n_steps,
                        leaves=True)
     sk = torch.full((n, k), float("nan"), device=dev)
+    sr = torch.full_like(sk, float("nan"))
     sp = torch.empty_like(sk)
-    serve_traverse(sargs, bins, n_real, sk, n_steps=sm.n_steps)
+    serve_traverse(sargs, bins, n_real, sk, n_steps=sm.n_steps, packed=pf)
+    serve_traverse_raw(pf, raw, n_real, sr)
     serve_traverse_ref(sargs, bins, n_real, sp, n_steps=sm.n_steps)
     torch.cuda.synchronize()
-    lk, lp = lk.cpu().numpy(), lp.cpu().numpy()
-    sk, sp = sk.cpu().numpy(), sp.cpu().numpy()
-    leaves_exact = bool(np.array_equal(lk, lp))
-    err = np.abs(sk - sp)
-    scores_ok = bool(np.all(np.isfinite(sk))
+    bins_exact = torch_equal(bo, bins)
+    lk, lr, lp = lk.cpu().numpy(), lr.cpu().numpy(), lp.cpu().numpy()
+    sk, sr, sp = sk.cpu().numpy(), sr.cpu().numpy(), sp.cpu().numpy()
+    leaves_exact = bool(np.array_equal(lk, lp) and np.array_equal(lr, lp))
+    err = np.maximum(np.abs(sk - sp), np.abs(sr - sp))
+    scores_ok = bool(np.all(np.isfinite(sk)) and np.all(np.isfinite(sr))
                      and np.all(err <= score_tolerance(sp, sm.n_trees)))
     rec = {"case": label, "n": int(n), "n_real": int(n_real),
-           "trees": sm.n_trees, "num_class": k,
+           "trees": sm.n_trees, "num_class": k, "tiles": pf.n_tiles,
+           "wide": pf.wide, "staged_tiles": bool(pf.stage_units),
            "cat_words_w": sm.kernel_geometry()["cat_words_w"],
            "leaf_dtype": str(f.leaf_value.dtype).replace("torch.", ""),
-           "leaves_exact": leaves_exact, "max_abs_err": float(err.max()),
-           "ok": leaves_exact and scores_ok}
+           "leaves_exact": leaves_exact, "raw_bins_exact": bins_exact,
+           "scores_bitwise_plain": bool(np.array_equal(sk, sp)
+                                        and np.array_equal(sr, sp)),
+           "max_abs_err": float(err.max()),
+           "ok": leaves_exact and scores_ok and bins_exact}
     print("parity " + json.dumps(rec), flush=True)
     if not rec["ok"]:
         raise RuntimeError(f"serve_traverse disagrees with its plain "
@@ -428,16 +490,24 @@ def _parity(sm, x: np.ndarray, n_real: int, label: str) -> dict:
 def _dispatch_breakdown(eng, x: np.ndarray, reps: int = 20) -> dict:
     """Where one bucketed dispatch's time goes, in ms per stage: the
     host-side pad (host clock), then on the stream the host-to-device
-    copy, the quantizer, the traversal kernel and the device-to-host
-    copy of the live rows (CUDA events); the mean of ``reps`` runs
-    after one warm-up."""
+    copy, the quantizer and the traversal kernel, and the device-to-host
+    copy of the live rows (CUDA events); the mean of ``reps`` runs after
+    one warm-up.  An engine of the port's raw entry (``_packed``) runs
+    the quantizer inside the kernel: its ``quantize`` stage is 0 and
+    ``kernel`` holds both; an engine of an earlier commit runs
+    ``quantize_rows_kernel`` and then the bins kernel (the package is
+    the engine's own, so one process can time two commits)."""
+    import importlib
+
     import torch
 
-    from lightgbm_tpu_torch.ops.predict import quantize_rows_kernel
-    from lightgbm_tpu_torch.ops.serve_kernel import serve_traverse
+    pkg = type(eng).__module__.rsplit(".serve", 1)[0]
+    sk = importlib.import_module(pkg + ".ops.serve_kernel")
+    pred = importlib.import_module(pkg + ".ops.predict")
     n = x.shape[0]
     bucket = eng.bucket_for(n)
     model = eng.model
+    raw_entry = hasattr(eng, "_packed")
     cols = model.forest.used_cols.long()
     buf = torch.empty((bucket, model.num_class), device=eng.device)
     stages = ("pad_host", "h2d", "quantize", "kernel", "d2h")
@@ -450,9 +520,15 @@ def _dispatch_breakdown(eng, x: np.ndarray, reps: int = 20) -> dict:
         ev[0].record()
         raw = torch.from_numpy(padded).to(eng.device)
         ev[1].record()
-        bins = quantize_rows_kernel(model.forest, raw[:, cols]).contiguous()
-        ev[2].record()
-        serve_traverse(eng._scores_args, bins, n, buf, n_steps=model.n_steps)
+        if raw_entry:
+            ev[2].record()
+            sk.serve_traverse_raw(eng._packed, raw, n, buf)
+        else:
+            bins = pred.quantize_rows_kernel(model.forest,
+                                             raw[:, cols]).contiguous()
+            ev[2].record()
+            sk.serve_traverse(eng._scores_args, bins, n, buf,
+                              n_steps=model.n_steps)
         ev[3].record()
         buf[:n].cpu()
         ev[4].record()
@@ -461,26 +537,26 @@ def _dispatch_breakdown(eng, x: np.ndarray, reps: int = 20) -> dict:
             sums["pad_host"] += pad_ms
             for i, name in enumerate(stages[1:]):
                 sums[name] += ev[i].elapsed_time(ev[i + 1])
-    out = {"rows": n, "bucket": bucket}
+    out = {"rows": n, "bucket": bucket,
+           "entry": "raw" if raw_entry else "bins"}
     out.update({k: v / reps for k, v in sums.items()})
     return out
 
 
 def serve_phases(gpu: str, build_s: float) -> dict:
-    """Slice 1: serve_traverse against its plain version, then the
-    serving main path (bulk predict and the queue), counted.  Returns
-    the kernel's record for the ``{"kernels": [...]}`` line."""
+    """Slice 1 (slice 16's packed kernel): serve_traverse's two entries
+    against their plain versions, then the serving main path (bulk
+    predict and the queue, both through the raw entry), counted.
+    Returns the kernel's record for the ``{"kernels": [...]}`` line."""
     import dataclasses
 
     import torch
 
     import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.ops.predict import quantize_rows_kernel
-    from lightgbm_tpu_torch.ops.serve_kernel import (forest_kernel_args,
-                                                     serve_traverse,
-                                                     serve_traverse_ref)
+    from lightgbm_tpu_torch.ops.serve_kernel import serve_traverse
 
-    # 2. kernel vs plain on the card: small edge forests
+    # 2. kernel vs plain on the card: small edge forests, the quantizer's
+    # edge values, the wide record, a forest past shared memory
     cat = (2, 5)
     small = []
     for label, k, bf16 in (("cat_f32_binary", 1, False),
@@ -500,6 +576,16 @@ def serve_phases(gpu: str, build_s: float) -> dict:
                                       np.float32)
         small.append(_parity(sm, x, 1000, label))
         small.append(_parity(sm, x[:64], 64, label + "_n64"))
+        small.append(_parity(sm, x, 1000, label + "_wide", wide=True))
+        small.append(_parity(sm, adversarial_rows(sm.forest, 10, 11 + k),
+                             1000, label + "_adversarial"))
+    big_text = random_model_text(n_trees=2000, num_leaves=255,
+                                 n_features=N_FEATURES, seed=3)
+    big = lgt.Booster(model_str=big_text).serving_engine().model
+    x_big = make_rows(512, N_FEATURES, 3)
+    small.append(_parity(big, x_big, 500, "forest_2000x255"))
+    small.append(_parity(big, x_big[:64], 64, "forest_2000x255_n64"))
+    del big
 
     # the main path's forest and bucket
     main_text = random_model_text(n_trees=MAIN_TREES,
@@ -511,21 +597,24 @@ def serve_phases(gpu: str, build_s: float) -> dict:
     main_par = _parity(sm, x_main[:BUCKET], BUCKET, "main_bucket")
     small.append(_parity(sm, x_main[:BUCKET], BUCKET - 17,
                          "main_bucket_padded"))
+    small.append(_parity(sm, adversarial_rows(sm.forest, N_FEATURES, 1),
+                         100, "main_adversarial"))
 
-    # 3. the serving main path, counted
+    # 3. the serving main path, counted: bulk predict, then the queue
     bst.predict(x_main[:100])          # warm: engine, pools, CUDA context
     torch.cuda.synchronize()
     serve_traverse.launches = 0
     t0 = time.perf_counter()
     prob = bst.predict(x_main)
     bulk_s = time.perf_counter() - t0
+    bulk_launches = serve_traverse.launches
     q = lgt.ServingQueue(bst.serving_engine())
     for i in range(QUEUE_BATCHES):
         q.submit(x_main[i * QUEUE_ROWS:(i + 1) * QUEUE_ROWS])
     got = q.drain()
     launches = serve_traverse.launches
     lat = q.latency_percentiles()
-    if launches <= 0:
+    if bulk_launches <= 0 or launches - bulk_launches <= 0:
         raise RuntimeError("the main path launched serve_traverse 0 times")
 
     # what came out
@@ -556,55 +645,34 @@ def serve_phases(gpu: str, build_s: float) -> dict:
           f"depth {sm.n_steps}, {MAIN_ROWS} rows in {bulk_s:.3f} s = "
           f"{MAIN_ROWS / bulk_s:.0f} rows/s; queue {QUEUE_BATCHES}x"
           f"{QUEUE_ROWS} rows p50 {lat['p50_ms']} ms p99 "
-          f"{lat['p99_ms']} ms; host walk parity ok on {HOST_ROWS} rows "
-          f"[{gpu}]", flush=True)
+          f"{lat['p99_ms']} ms; launches {bulk_launches} bulk + "
+          f"{launches - bulk_launches} queue; host walk parity ok on "
+          f"{HOST_ROWS} rows [{gpu}]", flush=True)
 
-    # timing at the main path's bucket, forest and rows hot in L2 as in
-    # steady serving
-    f = sm.forest
-    raw = torch.from_numpy(x_main[:BUCKET]).cuda()
-    bins = quantize_rows_kernel(f, raw[:, f.used_cols.long()]).contiguous()
-    sargs = forest_kernel_args(f)
-    buf = torch.empty((BUCKET, 1), device="cuda")
-    n_steps = sm.n_steps
-    launches_before = serve_traverse.launches
-    ms = _time_ms(lambda: serve_traverse(sargs, bins, BUCKET, buf,
-                                         n_steps=n_steps), 50)
-    plain_ms = _time_ms(lambda: serve_traverse_ref(sargs, bins, BUCKET,
-                                                   buf, n_steps=n_steps), 3)
-    if serve_traverse.launches <= launches_before:
-        raise RuntimeError("the timed calls did not launch the kernel")
-    leaves = torch.empty((BUCKET, MAIN_TREES), dtype=torch.int32,
-                         device="cuda")
-    serve_traverse_ref(forest_kernel_args(f, leaves=True), bins, BUCKET,
-                       leaves, n_steps=n_steps, leaves=True)
-    depth = _leaf_depths(f)
-    visits = int(depth[np.arange(MAIN_TREES)[None, :],
-                       leaves.cpu().numpy()].sum())
-    forest_bytes = sum(a.numel() * a.element_size() for a in sargs)
-    n_bytes = bins.numel() * 4 + BUCKET * 1 * 4 + forest_bytes
-    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
-    ops_ms = visits * OPS_PER_VISIT / PEAK_OPS_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"serve_traverse @ {BUCKET} rows: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes "
-          f"{n_bytes} -> {bytes_ms:.5f} ms, node visits {visits} -> "
-          f"{ops_ms:.5f} ms) [{gpu}]", flush=True)
-
+    times = serve_times(sm, x_main, gpu)
+    big_t = times[str(BUCKET)]
     kernels = [{
         "name": "serve_traverse",
         "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/serve_traverse.cu",
         "replaces": "lightgbm_tpu/ops/pallas/serve_kernel.py:219",
         "launches": launches,
+        "launches_bulk": bulk_launches,
+        "launches_queue": launches - bulk_launches,
         "max_abs_err": max(r["max_abs_err"] for r in [main_par] + small),
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "ms": big_t["raw_ms"],
+        "plain_ms": big_t["plain_ms"],
+        "bound_ms": big_t["bound_ms"],
+        "bound_by": big_t["bound_by"],
         "library_ms": None,
+        "graph_ms": big_t["raw_graph_ms"],
+        "ms_64": times[str(QUEUE_ROWS)]["raw_ms"],
+        "graph_ms_64": times[str(QUEUE_ROWS)]["raw_graph_ms"],
+        "bound_ms_64": times[str(QUEUE_ROWS)]["bound_ms"],
         "parity": "ok",
         "leaves_exact": all(r["leaves_exact"] for r in [main_par] + small),
+        "raw_bins_exact": all(r["raw_bins_exact"]
+                              for r in [main_par] + small),
         "gpu": gpu,
         "rows_per_s": MAIN_ROWS / bulk_s,
         "queue_p50_ms": lat["p50_ms"],
@@ -620,6 +688,94 @@ def serve_phases(gpu: str, build_s: float) -> dict:
     print(f"breakdown booster f64 -> f32 input copies of {MAIN_ROWS} rows: "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host)", flush=True)
     return kernels[0]
+
+
+def serve_bound(sm, x: np.ndarray) -> dict:
+    """The least time of the raw entry on ``x`` (all rows live): the
+    bytes it must move (the raw rows, the packed forest and the
+    quantizer's tables once, the scores once) over the HBM rate, and its
+    operations (``OPS_PER_VISIT`` a node visit this data makes, and a
+    binary search of the thresholds a used feature of a row) over the
+    f32 rate."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.serve_kernel import (forest_kernel_args,
+                                                     serve_traverse_ref)
+    f = sm.forest
+    pf = sm.packed()
+    n = x.shape[0]
+    from lightgbm_tpu_torch.ops.predict import quantize_rows_kernel
+    raw = torch.from_numpy(x).to(f.device)
+    bins = quantize_rows_kernel(f, raw[:, f.used_cols.long()]).contiguous()
+    leaves = torch.empty((n, sm.n_trees), dtype=torch.int32,
+                         device=f.device)
+    serve_traverse_ref(forest_kernel_args(f, leaves=True), bins, n, leaves,
+                       n_steps=sm.n_steps, leaves=True)
+    depth = _leaf_depths(f)
+    visits = int(depth[np.arange(sm.n_trees)[None, :],
+                       leaves.cpu().numpy()].sum())
+    n_feat = int(f.used_cols.shape[0])
+    bq = int(f.ub.shape[1])
+    search = 3 * int(np.ceil(np.log2(bq + 1))) + 4
+    n_bytes = (x.size * 4 + pf.blob.numel() * 4 + pf.qmeta.numel() * 4
+               + f.ub.numel() * 4 + 8 * pf.trees + n * sm.num_class * 4)
+    n_ops = visits * OPS_PER_VISIT + n * n_feat * search
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    ops_ms = n_ops / PEAK_OPS_S * 1e3
+    return {"bytes": n_bytes, "visits": visits, "ops": n_ops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def serve_times(sm, x_main: np.ndarray, gpu: str) -> dict:
+    """The kernel's times at the main path's bucket and at the queue's
+    64 rows, rows and forest hot in L2 as in steady serving: the raw
+    entry (the quantizer inside) and the bins entry, eager (20 calls
+    back to back) and as one replay of a graph of 20 calls, beside the
+    plain version (quantize_rows_kernel and serve_traverse_ref, 65,536
+    rows only) and the bound; the kernels a raw call launches from a
+    profiler trace."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.predict import quantize_rows_kernel
+    from lightgbm_tpu_torch.ops.serve_kernel import (forest_kernel_args,
+                                                     serve_geometry,
+                                                     serve_traverse,
+                                                     serve_traverse_raw,
+                                                     serve_traverse_raw_ref)
+    f = sm.forest
+    pf = sm.packed()
+    sargs = forest_kernel_args(f)
+    out = {}
+    for n in (BUCKET, QUEUE_ROWS):
+        raw = torch.from_numpy(x_main[:n]).cuda()
+        bins = quantize_rows_kernel(f, raw[:, f.used_cols.long()]
+                                    ).contiguous()
+        buf = torch.empty((n, 1), device="cuda")
+        before = serve_traverse.launches
+        raw_ms, raw_graph = eager_and_graph_ms(
+            lambda: serve_traverse_raw(pf, raw, n, buf))
+        bins_ms, bins_graph = eager_and_graph_ms(
+            lambda: serve_traverse(sargs, bins, n, buf,
+                                   n_steps=sm.n_steps, packed=pf))
+        if serve_traverse.launches <= before:
+            raise RuntimeError("the timed calls did not launch the kernel")
+        geo = serve_geometry(pf, n, int(f.used_cols.shape[0]), raw=True,
+                             leaves=False)
+        rec = {"rows": n, "raw_ms": raw_ms, "raw_graph_ms": raw_graph,
+               "bins_ms": bins_ms, "bins_graph_ms": bins_graph,
+               "geometry": dict(rows=geo.rows, grid=[geo.grid_x, geo.grid_y],
+                                tiles_per_block=geo.tiles_per_block,
+                                nbuf=geo.nbuf, smem=geo.smem),
+               "kernels": kernels_of_call(
+                   lambda: serve_traverse_raw(pf, raw, n, buf))}
+        if n == BUCKET:
+            rec["plain_ms"] = _time_ms(
+                lambda: serve_traverse_raw_ref(pf, raw, n, buf), 3)
+        rec.update(serve_bound(sm, x_main[:n]))
+        out[str(n)] = rec
+    print("serve times [ms] " + json.dumps(dict(out, gpu=gpu)), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------
@@ -2921,6 +3077,47 @@ def row_kernel_times(n: int = TRAIN_ROWS, f: int = N_FEATURES,
     return out
 
 
+def refresh_times(gpu: str, n: int = TRAIN_ROWS, f: int = N_FEATURES,
+                         pkg: str = "lightgbm_tpu_torch") -> dict:
+    """The root-histogram refresh at the main path's shapes (n rows x f
+    features, B = 256), both packs, beside its parts in this package
+    (the plain refresh and ``hist_comb``'s root over [0, n)), eager and
+    as one replay of a graph of 20 calls (``eager_and_graph_ms``).
+    ``pkg`` names the package to time (another commit's, loaded under
+    another name, whose refresh may be one fused kernel)."""
+    import importlib
+
+    import torch
+    sg = importlib.import_module(pkg + ".ops.stream_grad")
+    hk = importlib.import_module(pkg + ".ops.hist_kernel2")
+    dev = torch.device("cuda")
+    bins = rows_on(random_row_matrix(n, f, 11, nan_bin=254), dev).bins
+    score, valid, consts = stream_aux(n, "binary", 5, dev)
+    kw = dict(kind="binary", sigmoid=1.0)
+    lv = torch.tensor(np.random.default_rng(6).normal(size=n) * 0.01,
+                      dtype=torch.float32, device=dev)
+    root = torch.tensor([0, 0, n], dtype=torch.int32, device=dev)
+    out = {"rows": n, "features": f, "package": pkg, "gpu": gpu}
+    for pack in (1, 2):
+        init = sg.stream_init if pack == 1 else sg.stream_init_p2
+        refresh = sg.stream_refresh if pack == 1 else sg.stream_refresh_p2
+        plain = (sg.stream_refresh_plain if pack == 1
+                 else sg.stream_refresh_plain_p2)
+        hist = (hk.build_histogram_comb if pack == 1
+                else hk.build_histogram_comb_p2)
+        rows = init(bins, score, valid, consts, **kw)
+        out[f"pack{pack}"] = {
+            "refresh": eager_and_graph_ms(
+                lambda: refresh(rows, lv, padded_bins=256, **kw)),
+            "plain_refresh": eager_and_graph_ms(
+                lambda: plain(rows, lv, **kw)),
+            "hist_comb_root": eager_and_graph_ms(
+                lambda: hist(rows, root, padded_bins=256, max_rows=n))}
+        del rows
+    print("refresh times [ms, graph ms] " + json.dumps(out), flush=True)
+    return out
+
+
 def pack2_phases(gpu: str, ds, valid, x, bst_default) -> tuple:
     """Slice 6's training: the pack=2 route card against device="cpu" at
     50,000 rows (bitwise), its main path (1M x 28, 255 leaves, 10
@@ -3109,6 +3306,12 @@ def train_phases(gpu: str) -> list:
     recs = training_kernels(gpu, ds)
     recs.append(hist_rows_kernels(gpu, ds, ds_wide))
     recs += pack2_kernels(gpu, ds)
+    refresh_t = refresh_times(gpu)
+    for r in recs:
+        if r["name"] in ("stream_refresh", "stream_refresh_p2"):
+            d = refresh_t["pack2" if r["name"].endswith("p2") else "pack1"]
+            r.update({f"{k}_ms": v[0] for k, v in d.items()})
+            r.update({f"{k}_graph_ms": v[1] for k, v in d.items()})
     parity = train_parity(gpu, {}, PARITY_TREES, "default route")
     parity2 = train_parity(gpu, SLICE2_ROUTE, SLICE2_PARITY_TREES,
                            "slice 2 route")

@@ -21,11 +21,14 @@ nothing is launched.
 """
 from __future__ import annotations
 
+import dataclasses
+
 from ..ops import apply_find as af
 from ..ops import fused_split as fs
 from ..ops import hist_kernel2 as hk
 from ..ops import legacy_probes as lp
 from ..ops import probes as pr
+from ..ops import serve_kernel as sk
 from ..ops import stream_grad as sg
 from ..ops.device_data import RecordLayout
 from ..ops import partition_kernel as pk
@@ -38,7 +41,7 @@ N, F, B, B_WIDE = 1_000_000, 28, 256, 1024
 F_WIDE = 136
 # rows too wide for the partition scan to stage (its unstaged kernels)
 F_MANY, N_MANY = 8_000, 100_000
-TREES, LEAVES, BUCKET = 100, 255, 65_536
+TREES, LEAVES, BUCKET, QUEUE = 100, 255, 65_536, 64
 REC = RecordLayout(F)
 S = REC.stride
 THREADS = 256
@@ -91,27 +94,54 @@ def _reduce(source: str, wrapper: str, replaces: str, partials: int,
 
 # -- serving ----------------------------------------------------------------
 def _serve():
+    """The traversal at the main path's forest (100 trees x 255 leaves,
+    ni_pad = nl_pad = 256: 12 tiles of 9 trees, a tile at most 9 padded
+    trees), both entries and both forms over a 65,536-row bucket
+    (resident geometry), the raw entry's scores also at the queue's 64
+    rows (split geometry), the wide record (forced) beside the narrow
+    one, and the tile sums of the split geometry."""
     ni = nl = 256
-    nodes = tuple(vec_arg(a, "int32", (TREES, ni), 4)
-                  for a in ("sf", "tb", "lc", "rc", "nm"))
-    bins = vec_arg("bins", "int32", (BUCKET, F), 4)
-    for bf16 in (False, True):
-        register_kernel(KernelEntry(
-            name=f"serve_traverse_scores{'_bf16' if bf16 else ''}",
-            source="serve_traverse",
-            symbol=f"scores_kernel<{'true' if bf16 else 'false'}>",
-            block=_block(128), dyn_smem=0,
-            args=nodes + (bins, vec_arg(
-                "leaf_value", "bfloat16" if bf16 else "float32",
-                (TREES, nl), 2 if bf16 else 4),
-                vec_arg("out", "float32", (BUCKET, 1), 4)),
-            wrapper="serve_kernel.serve_traverse",
-            replaces=f"{PALLAS}/serve_kernel.py:219"))
+    per = sk.tile_trees(TREES, ni, nl)
+    tiles = -(-TREES // per)
+    blob = vec_arg("blob", "int32", (tiles * per * (2 * ni + nl // 4), 4), 16)
+    tree_tabs = tuple(vec_arg(a, "int32", (TREES, 1), 4)
+                      for a in ("tree_rec", "tree_leaf"))
+    for wide in (False, True):
+        units = per * ((2 if wide else 1) * ni + nl // 4)
+        for raw in (False, True):
+            for leaves in (False, True):
+                sizes = [BUCKET] + ([QUEUE] if raw and not leaves else [])
+                for n in sizes:
+                    geo = sk.geometry_for(n, F, n_tiles=tiles, per_tile=per,
+                                          stage_units=units, bq=255, k=1,
+                                          raw=raw, leaves=leaves)
+                    rows = (vec_arg("raw", "float32", (n, F), 4),
+                            vec_arg("qmeta", "int32", (F, 4), 16),
+                            vec_arg("ub", "float32", (F, 255), 4)) if raw \
+                        else (vec_arg("bins", "int32", (n, F), 4),)
+                    out = vec_arg("out", "int32", (n, TREES), 4) if leaves \
+                        else vec_arg("out", "float32", (n, 1), 4)
+                    name = ("serve_traverse" + ("_raw" if raw else "")
+                            + ("_leaves" if leaves else "_scores")
+                            + ("_wide" if wide else "")
+                            + ("" if n == BUCKET else f"_{n}"))
+                    flags = ", ".join("true" if v else "false"
+                                      for v in (wide, leaves, raw))
+                    register_kernel(KernelEntry(
+                        name=name, source="serve_traverse",
+                        symbol=f"traverse_kernel<{flags}>",
+                        grid=(geo.grid_x, geo.grid_y, 1),
+                        block=_block(sk.THREADS), dyn_smem=geo.smem,
+                        args=(blob,) + tree_tabs + rows + (out,),
+                        wrapper=("serve_kernel.serve_traverse_raw" if raw
+                                 else "serve_kernel.serve_traverse"),
+                        replaces=f"{PALLAS}/serve_kernel.py:219"))
     register_kernel(KernelEntry(
-        name="serve_traverse_leaves", source="serve_traverse",
-        symbol="leaves_kernel", block=_block(256), dyn_smem=0,
-        args=nodes + (bins, vec_arg("out", "int32", (BUCKET, TREES), 4)),
-        wrapper="serve_kernel.serve_traverse",
+        name="serve_traverse_tile_sums", source="serve_traverse",
+        symbol="sum_tiles", block=_block(256), dyn_smem=0,
+        args=(vec_arg("partials", "float32", (tiles, QUEUE, 1), 4),
+              vec_arg("out", "float32", (QUEUE, 1), 4)),
+        wrapper="serve_kernel.serve_traverse_raw",
         replaces=f"{PALLAS}/serve_kernel.py:219"))
 
 
@@ -345,22 +375,9 @@ def _stream():
         args=(src_bins,) + aux + (_records(),),
         wrapper="stream_grad.stream_init_p2",
         replaces=f"{rep}:754"))
-    nb = hk.hist_blocks(N)
-    for pack, src in ((1, "RefreshRows"), (2, "RefreshRecords")):
+    for pack in (1, 2):
         sfx = "_p2" if pack == 2 else ""
-        stride = S if pack == 2 else 0
-        rows = ((_records(),) if pack == 2
-                else _rows_args()[:2] + _rows_args()[3:])
-        register_kernel(KernelEntry(
-            name=f"stream_refresh{sfx}", source="stream_grad",
-            symbol=f"stream_refresh_partial<{src}>", block=_block(THREADS),
-            dyn_smem=sg.refresh_smem_bytes(F, B, stride),
-            args=rows + (vec_arg("lv", "float32", (N, 1), 4),)
-            + _hist_out(nb),
-            wrapper=f"stream_grad.stream_refresh{sfx}",
-            replaces=f"{rep}:{610 if pack == 2 else 515}",
-            export=("stream_refresh_smem_bytes", (F, B, stride))))
-        register_kernel(KernelEntry(
+        plain = KernelEntry(
             name=f"stream_refresh_plain{sfx}", source="stream_grad",
             symbol=f"stream_refresh_plain{sfx}_kernel",
             block=_block(256), dyn_smem=0,
@@ -368,8 +385,17 @@ def _stream():
                    else (_rows_args()[1], _rows_args()[3], _rows_args()[4]))
                   + (vec_arg("lv", "float32", (N, 1), 4),)),
             wrapper=f"stream_grad.stream_refresh_plain{sfx}",
-            replaces=f"{rep}:{652 if pack == 2 else 557}"))
-    _reduce("stream_grad", "stream_grad.stream_refresh", f"{rep}:515", nb)
+            replaces=f"{rep}:{652 if pack == 2 else 557}")
+        register_kernel(plain)
+        # the root-histogram refresh: the plain refresh's kernel, then
+        # hist_comb's root over [0, n)
+        hist_rep = f"{rep}:{610 if pack == 2 else 515}"
+        register_kernel(dataclasses.replace(
+            plain, name=f"stream_refresh{sfx}",
+            wrapper=f"stream_grad.stream_refresh{sfx}", replaces=hist_rep))
+        register_kernel(dataclasses.replace(
+            comb_entry(F, N, pack), name=f"stream_refresh{sfx}_root_hist",
+            wrapper=f"stream_grad.stream_refresh{sfx}", replaces=hist_rep))
 
 
 # -- the launch-cost probes at their tools' shapes ----------------------------

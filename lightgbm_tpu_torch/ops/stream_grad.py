@@ -11,10 +11,12 @@ position, with no gather by row id: ``s = score + lv`` (``lv`` the
 per-position score delta, shrinkage times the output of the leaf owning
 the position), then ``g*w, h*w`` from ``s`` and the constants
 (:func:`stream_refresh_plain`, the unfused routes').  On the fused route
-the same pass accumulates the next tree's root histogram
-(:func:`stream_refresh`), laid out exactly as ``hist_comb`` over
-``[0, n)`` with ``max_rows = n``, so it equals the histogram the unfused
-routes build at the next tree's start, bit for bit.
+the refresh also returns the next tree's root histogram
+(:func:`stream_refresh`): the plain refresh's kernel and then
+``hist_comb``'s root over ``[0, n)`` with ``max_rows = n``, the
+histogram the unfused routes build at the next tree's start, bit for
+bit.  On the H100 these two launches take less time than one kernel
+that sums the histogram as it refreshes the rows (``PERF.md``).
 
 The gradient arithmetic is the objectives' own (``binary_gradients``,
 ``l2_gradients``): the CPU route and slice 2's route compute the same
@@ -45,8 +47,10 @@ from ..utils.log import LightGBMError
 from . import _build
 from .device_data import (PackedRows, RecordLayout, Rows, check_packed,
                           pack_rows)
-from .hist_kernel2 import (HIST_CHUNK, MAX_SMEM, build_histogram_comb_ref,
-                           comb_smem_bytes, hist_blocks)
+from .hist_kernel2 import (HIST_CHUNK, _comb_buffers,
+                           build_histogram_comb_ref, comb_args,
+                           comb_geometry)
+from .hist_kernel2 import _lib as _comb_lib
 from .partition_kernel import check_rows
 
 # the kernels' objective codes
@@ -58,14 +62,6 @@ def init_p2_smem_bytes(stride: int) -> int:
     records staged as ``stride / 4 + 1`` 32-bit words each
     (``staged_words``)."""
     return HIST_CHUNK * (stride // 4 + 1) * 4
-
-
-def refresh_smem_bytes(f: int, padded_bins: int, stride: int) -> int:
-    """Shared memory of one refresh block (the library's
-    ``stream_refresh_smem_bytes``): the histogram block's, plus the
-    staged records at pack=2 (``stride`` 0 at pack=1)."""
-    return (comb_smem_bytes(f, padded_bins)
-            + (init_p2_smem_bytes(stride) if stride else 0))
 
 
 def stream_gradients(kind: str, sigmoid: float, score: torch.Tensor,
@@ -124,15 +120,8 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.stream_init.argtypes = [p] * 4 + [i] * 3 + [f] + [p] * 6
     lib.stream_init.restype = i
-    lib.stream_refresh.argtypes = [p] * 5 + [i] * 4 + [f] + [p] * 2 + [i, p]
-    lib.stream_refresh.restype = i
     lib.stream_init_p2.argtypes = [p] * 4 + [i] * 5 + [f, p, p]
     lib.stream_init_p2.restype = i
-    lib.stream_refresh_p2.argtypes = [p, i, i, p] + [i] * 4 + [f] + [p] * 2 \
-        + [i, p]
-    lib.stream_refresh_p2.restype = i
-    lib.stream_refresh_smem_bytes.argtypes = [i, i, i]
-    lib.stream_refresh_smem_bytes.restype = i
     lib.stream_refresh_plain.argtypes = [p] * 4 + [i] * 2 + [f, p]
     lib.stream_refresh_plain.restype = i
     lib.stream_refresh_plain_p2.argtypes = [p, i, i, p, i, i, f, p]
@@ -147,19 +136,31 @@ def _check_vec(t: torch.Tensor, shape, dev, name: str) -> None:
                             f"{list(shape)} tensor on {dev}")
 
 
-def _refresh_buffers(lib, n: int, f: int, padded_bins: int, stride: int,
-                     dev):
-    """(nblocks, partials, out) of one refresh launch (``stride`` 0 at
-    pack=1, the record stride at pack=2), after the shared-memory
-    check."""
-    if lib.stream_refresh_smem_bytes(f, padded_bins, stride) > MAX_SMEM:
-        raise LightGBMError(f"histogram of {f} features x {padded_bins} "
-                            "bins does not fit one block's shared memory")
-    nblocks = hist_blocks(n)
-    partials = torch.empty((nblocks, f, padded_bins, 2), dtype=torch.float32,
-                           device=dev)
-    out = torch.empty((f, padded_bins, 2), dtype=torch.float32, device=dev)
-    return nblocks, partials, out
+_ROOT_RANGES: dict = {}
+
+
+def _root_range(n: int, dev) -> torch.Tensor:
+    """The i32 (start, off, count) = (0, 0, n) of hist_comb's root on
+    ``dev``, made once a (device, n)."""
+    key = (str(dev), int(n))
+    rng = _ROOT_RANGES.get(key)
+    if rng is None:
+        rng = _ROOT_RANGES[key] = torch.tensor([0, 0, n], dtype=torch.int32,
+                                               device=dev)
+    return rng
+
+
+def _root_hist(lib_call, first_args, n: int, f: int, padded_bins: int, dev,
+               stream):
+    """The refresh's second kernel: hist_comb's root over [0, n) in its
+    own geometry (``comb_geometry(f, B, n)``), through the hist_comb
+    library entry ``lib_call`` with the rows' arguments ``first_args``;
+    returns (rc, out)."""
+    geo = comb_geometry(f, padded_bins, n)
+    partials, out = _comb_buffers(geo, f, padded_bins, dev)
+    rc = lib_call(*first_args, _root_range(n, dev).data_ptr(),
+                  *comb_args(geo, partials, out, n, f, padded_bins), stream)
+    return rc, out
 
 
 def _check_init(bins, score, valid, consts) -> None:
@@ -207,7 +208,9 @@ def stream_refresh(rows: Rows, lv: torch.Tensor, *, kind: str,
                    sigmoid: float, padded_bins: int) -> torch.Tensor:
     """Refresh the rows in place with the per-position score delta
     ``lv`` [n] and return the next tree's root histogram.  CPU tensors
-    take :func:`stream_refresh_ref`; CUDA tensors launch the kernel."""
+    take :func:`stream_refresh_ref`; CUDA tensors launch the plain
+    refresh's kernel and then ``hist_comb``'s root over [0, n) (one call
+    counted here, none in the two kernels' own wrappers)."""
     dev = rows.bins.device
     if dev.type == "cpu":
         return stream_refresh_ref(rows, lv, kind=kind, sigmoid=sigmoid,
@@ -217,15 +220,17 @@ def stream_refresh(rows: Rows, lv: torch.Tensor, *, kind: str,
     check_rows(rows, rows)
     n, f = rows.bins.shape
     _check_vec(lv, (n,), dev, "lv")
-    lib = _lib()
-    nblocks, partials, out = _refresh_buffers(lib, n, f, padded_bins, 0, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.stream_refresh(
-            rows.bins.data_ptr(), rows.vals.data_ptr(),
-            rows.score.data_ptr(), rows.consts.data_ptr(), lv.data_ptr(), n,
-            f, int(padded_bins), KINDS[kind], float(sigmoid),
-            partials.data_ptr(), out.data_ptr(), nblocks, stream)
+        rc = _lib().stream_refresh_plain(
+            rows.vals.data_ptr(), rows.score.data_ptr(),
+            rows.consts.data_ptr(), lv.data_ptr(), n, KINDS[kind],
+            float(sigmoid), stream)
+        if rc == 0:
+            rc, out = _root_hist(
+                _comb_lib().hist_comb,
+                (rows.bins.data_ptr(), rows.vals.data_ptr()), n, f,
+                padded_bins, dev, stream)
     if rc != 0:
         raise LightGBMError(f"stream_refresh kernel launch failed with CUDA "
                             f"error {rc}")
@@ -316,8 +321,9 @@ def stream_init_p2(bins: torch.Tensor, score: torch.Tensor,
 
 def stream_refresh_p2(rows: PackedRows, lv: torch.Tensor, *, kind: str,
                       sigmoid: float, padded_bins: int) -> torch.Tensor:
-    """:func:`stream_refresh` over records.  CPU tensors take
-    :func:`stream_refresh_p2_ref`; CUDA tensors launch the kernel."""
+    """:func:`stream_refresh` over records: the pack=2 plain refresh's
+    kernel, then ``hist_comb_p2``'s root.  CPU tensors take
+    :func:`stream_refresh_p2_ref`; CUDA tensors launch the kernels."""
     dev = rows.buf.device
     if dev.type == "cpu":
         return stream_refresh_p2_ref(rows, lv, kind=kind, sigmoid=sigmoid,
@@ -329,15 +335,16 @@ def stream_refresh_p2(rows: PackedRows, lv: torch.Tensor, *, kind: str,
     n, lay = rows.buf.shape[0], rows.layout
     f = lay.num_features
     _check_vec(lv, (n,), dev, "lv")
-    lib = _lib()
-    nblocks, partials, out = _refresh_buffers(lib, n, f, padded_bins,
-                                              lay.stride, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.stream_refresh_p2(
-            rows.buf.data_ptr(), lay.stride, lay.fb, lv.data_ptr(), n, f,
-            int(padded_bins), KINDS[kind], float(sigmoid),
-            partials.data_ptr(), out.data_ptr(), nblocks, stream)
+        rc = _lib().stream_refresh_plain_p2(
+            rows.buf.data_ptr(), lay.stride, lay.fb, lv.data_ptr(), n,
+            KINDS[kind], float(sigmoid), stream)
+        if rc == 0:
+            rc, out = _root_hist(
+                _comb_lib().hist_comb_p2,
+                (rows.buf.data_ptr(), lay.stride, lay.fb), n, f,
+                padded_bins, dev, stream)
     if rc != 0:
         raise LightGBMError(f"stream_refresh_p2 kernel launch failed with "
                             f"CUDA error {rc}")

@@ -1,5 +1,6 @@
-"""ServingEngine: bucketed dispatch through the traversal kernel, a
-per-bucket score-buffer pool the kernel writes into in place, and an
+"""ServingEngine: bucketed dispatch through the traversal kernel's raw
+entry (the quantizer runs inside the kernel), a per-bucket score-buffer
+pool the kernel writes into in place, and an
 async dispatch queue.
 
 Batch sizes round up to power-of-two row buckets between the
@@ -24,8 +25,7 @@ import numpy as np
 import torch
 
 from ..config import env_knob
-from ..ops.predict import quantize_rows_kernel
-from ..ops.serve_kernel import forest_kernel_args, serve_traverse
+from ..ops.serve_kernel import serve_traverse_raw
 from ..utils.device import resolve_device
 from ..utils.log import LightGBMError
 from . import flight
@@ -91,10 +91,7 @@ class ServingEngine:
         self.bucket_max = int(bucket_max or hi)
         if self.bucket_max < self.bucket_min:
             raise LightGBMError("serving bucket cap below floor")
-        forest = self.model.forest
-        self._scores_args = forest_kernel_args(forest)
-        self._leaves_args = forest_kernel_args(forest, leaves=True)
-        self._used_cols = forest.used_cols.long()
+        self._packed = self.model.packed()
         self._pool: Dict[int, List[torch.Tensor]] = {}
         self._buckets: set = set()
         self.dispatches = 0
@@ -139,12 +136,10 @@ class ServingEngine:
         out[:chunk.shape[0]] = chunk
         return out
 
-    def _bins(self, chunk: np.ndarray, bucket: int) -> torch.Tensor:
-        """Pad, move to the device, and quantize one chunk into the
-        kernel's [bucket, F] i32 input."""
-        raw = torch.from_numpy(self._pad(chunk, bucket)).to(self.device)
-        return quantize_rows_kernel(self.model.forest,
-                                    raw[:, self._used_cols]).contiguous()
+    def _raw(self, chunk: np.ndarray, bucket: int) -> torch.Tensor:
+        """Pad one chunk and move it to the device: the raw entry's
+        [bucket, Forig] f32 input."""
+        return torch.from_numpy(self._pad(chunk, bucket)).to(self.device)
 
     def dispatch(self, chunk: np.ndarray) -> _Pending:
         """Submit one bucketed dispatch (rows <= bucket cap); on CUDA it
@@ -155,13 +150,12 @@ class ServingEngine:
             raise LightGBMError(
                 f"dispatch of {n} rows exceeds the bucket cap "
                 f"{self.bucket_max}; chunk through predict()")
-        bins = self._bins(chunk, bucket)
+        raw = self._raw(chunk, bucket)
         pool = self._pool.setdefault(bucket, [])
         buf = pool.pop() if pool else torch.empty(
             (bucket, self.model.num_class), dtype=torch.float32,
             device=self.device)
-        serve_traverse(self._scores_args, bins, n, buf,
-                       n_steps=self.model.n_steps)
+        serve_traverse_raw(self._packed, raw, n, buf)
         if bucket not in self._buckets:
             self._buckets.add(bucket)
             if self._warm:
@@ -174,7 +168,8 @@ class ServingEngine:
     def collect(self, p: _Pending) -> np.ndarray:
         """Wait for one pending dispatch and copy its live rows to the
         host; its buffer returns to the bucket's pool."""
-        host = p.out[:p.n].cpu().numpy()
+        # a copy on either device: the buffer goes back to the pool
+        host = p.out[:p.n].to("cpu", copy=True).numpy()
         self._pool.setdefault(p.bucket, []).append(p.out)
         p.out = None
         return host
@@ -221,9 +216,8 @@ class ServingEngine:
             bucket = self.bucket_for(chunk.shape[0])
             leaf = torch.empty((bucket, self.model.n_trees),
                                dtype=torch.int32, device=self.device)
-            serve_traverse(self._leaves_args, self._bins(chunk, bucket),
-                           chunk.shape[0], leaf,
-                           n_steps=self.model.n_steps, leaves=True)
+            serve_traverse_raw(self._packed, self._raw(chunk, bucket),
+                               chunk.shape[0], leaf, leaves=True)
             outs.append(leaf[:chunk.shape[0]].cpu().numpy())
         return np.concatenate(outs, axis=0)
 

@@ -22,6 +22,7 @@ import torch
 from ..config import env_knob
 from ..io.binning import MissingType
 from ..ops.predict import ServingForest
+from ..ops.serve_kernel import PackedForest, pack_forest
 from ..utils.device import resolve_device
 from ..utils.log import LightGBMError
 
@@ -123,6 +124,16 @@ class ServingModel:
         self.end_iteration = int(end_iteration)
         self.n_trees = int(n_trees)
         self.digest = digest
+        self._packed: Optional[PackedForest] = None
+
+    def packed(self) -> PackedForest:
+        """The forest as the traversal kernel reads it
+        (``serve_kernel.pack_forest``), built at the first call: derived
+        data beside the ``ServingForest`` fields, which the digest
+        covers."""
+        if self._packed is None or self._packed.forest is not self.forest:
+            self._packed = pack_forest(self.forest, self.n_steps)
+        return self._packed
 
     @property
     def device(self) -> torch.device:

@@ -90,3 +90,22 @@ def graph_ms(fn: Callable, *, reps: int = 20,
     once; the replays are ``warmup + reps``."""
     graph = capture(fn, warmup=warmup)
     return median_ms(graph.replay, reps=reps, warmup=warmup), graph
+
+
+def load_package(root, alias: str):
+    """The ``lightgbm_tpu_torch`` package of the checkout at ``root``,
+    imported under the name ``alias`` (its modules import each other
+    relatively and build their kernels from their own ``csrc/`` into
+    their own ``build/``), so that one process can time two commits."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    pkg_dir = Path(root).resolve() / "lightgbm_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        alias, pkg_dir / "__init__.py",
+        submodule_search_locations=[str(pkg_dir)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return mod

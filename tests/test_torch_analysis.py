@@ -215,7 +215,7 @@ def test_list_names_every_entry(capsys):
 # -- the passes on synthetic entries ---------------------------------------
 def _entry(**kw):
     base = dict(name="synthetic", source="serve_traverse",
-                symbol="leaves_kernel", grid=(1, 1, 1), block=(256, 1, 1),
+                symbol="sum_tiles", grid=(1, 1, 1), block=(256, 1, 1),
                 dyn_smem=0)
     base.update(kw)
     return KernelEntry(**base)
@@ -247,7 +247,7 @@ def test_align_rule(arg, codes):
 
 
 def test_smem_rules():
-    # serve_traverse has no opt-in: 64 KB dynamic is refused at launch
+    # sum_tiles has no opt-in: 64 KB dynamic is refused at launch
     assert _run_on([_entry(dyn_smem=64 * 1024)], ["smem"]) == {
         "SMEM_OPTIN_MISSING"}
     # hist_comb opts in; 200 KB is past 80 % of the budget
@@ -268,10 +268,10 @@ def test_smem_rules():
     # the split tail's cluster of 16 opts in to non-portable sizes
     ("apply_find", "apply_find_kernel<true>", (16, 1, 1), 16, set()),
     ("apply_find", "apply_find_kernel<false>", (14, 1, 1), 14, set()),
-    # serve_traverse sets no cudaFuncAttributeNonPortableClusterSizeAllowed
-    ("serve_traverse", "leaves_kernel", (16, 1, 1), 16,
+    # sum_tiles sets no cudaFuncAttributeNonPortableClusterSizeAllowed
+    ("serve_traverse", "sum_tiles", (16, 1, 1), 16,
      {"CLUSTER_OPTIN_MISSING"}),
-    ("serve_traverse", "leaves_kernel", (8, 1, 1), 8, set()),
+    ("serve_traverse", "sum_tiles", (8, 1, 1), 8, set()),
     ("apply_find", "apply_find_kernel<true>", (17, 1, 1), 17,
      {"CLUSTER_OVER_LIMIT"}),
     ("legacy_probes", "hbm_alias_step", (12, 1, 1), 8, {"CLUSTER_GRID"}),
@@ -294,7 +294,7 @@ def test_cluster_opt_in_is_read_from_the_source():
 def test_register_rules():
     report = res.load_report()
     su = report["serve_traverse"]
-    heavy = dict(su.kernels, leaves_kernel=res.Usage(
+    heavy = dict(su.kernels, sum_tiles=res.Usage(
         regs=255, spill_stores=8, spill_loads=8))
     resources = dict(report, serve_traverse=res.SourceUsage(
         "serve_traverse", su.digest, heavy))

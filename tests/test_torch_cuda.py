@@ -1445,3 +1445,141 @@ def test_compact_in_a_graph(cuda, mech):
     for k, v in eager.items():
         assert torch.equal(out[k], v), k
     assert lp.compact.launches > 0
+
+
+# -- slice 16: the packed traversal, its raw entry, the refresh designs ------
+def _packed_model(device, *, trees=12, leaves=31, k=1, cat=True,
+                  n_features=8, seed=60):
+    cats = (1, 4) if cat else ()
+    text = random_model_text(n_trees=trees * k, num_leaves=leaves,
+                             n_features=n_features, seed=seed,
+                             cat_features=cats, num_class=k)
+    return lgt.Booster(model_str=text,
+                       device=device).serving_engine().model, cats
+
+
+def _raw_vs_plain(sm, x, n_real, *, wide=None):
+    """Both entries, both forms, against their plain versions on the same
+    card tensors; the raw entry's bins bitwise quantize_rows_kernel's."""
+    f = sm.forest
+    dev = f.device
+    pf = tkern.pack_forest(f, sm.n_steps, wide=wide)
+    raw = torch.from_numpy(x).to(dev)
+    n, nf = x.shape[0], int(f.used_cols.shape[0])
+    k = sm.num_class
+    bins = tpred.quantize_rows_kernel(f, raw[:, f.used_cols.long()])
+    for leaves in (True, False):
+        shape = (n, sm.n_trees if leaves else k)
+        dt = torch.int32 if leaves else torch.float32
+        want = torch.empty(shape, dtype=dt, device=dev)
+        tkern.serve_traverse_raw_ref(pf, raw, n_real, want, leaves=leaves)
+        got_raw = torch.full(shape, 7, dtype=dt, device=dev)
+        got_bins = torch.full(shape, 7, dtype=dt, device=dev)
+        bins_o = torch.full((n, nf), -9, dtype=torch.int32, device=dev)
+        before = tkern.serve_traverse.launches
+        tkern.serve_traverse_raw(pf, raw, n_real, got_raw, leaves=leaves,
+                                 bins_out=bins_o)
+        tkern.serve_traverse(tkern.forest_kernel_args(f, leaves=leaves),
+                             bins.contiguous(), n_real, got_bins,
+                             n_steps=sm.n_steps, leaves=leaves, packed=pf)
+        assert tkern.serve_traverse.launches == before + 2
+        torch.cuda.synchronize()
+        assert torch.equal(bins_o, bins)
+        # the order of additions is the plain version's: bitwise
+        assert torch.equal(got_raw, want), leaves
+        assert torch.equal(got_bins, want), leaves
+    return pf
+
+
+@pytest.mark.parametrize("cat,k,bf16", [(False, 1, False), (True, 1, True),
+                                        (True, 3, False)])
+@pytest.mark.parametrize("wide", [None, True])
+def test_serve_packed_entries_match_plain(cuda, cat, k, bf16, wide):
+    sm, cats = _packed_model(cuda, trees=40, k=k, cat=cat)
+    if bf16:
+        sm.forest.leaf_value = sm.forest.leaf_value.to(torch.bfloat16)
+    x = make_rows(700, 8, 41, cats)
+    x[:5] = np.nan
+    for n, n_real in ((700, 691), (64, 64), (1, 1), (3, 0)):
+        pf = _raw_vs_plain(sm, x[:n], n_real, wide=wide)
+    assert pf.n_tiles > 1
+
+
+@pytest.mark.parametrize("cat", [False, True])
+def test_serve_raw_entry_bins_on_adversarial_rows(cuda, cat):
+    from chip_smoke import adversarial_rows
+    sm, _ = _packed_model(cuda, trees=30, leaves=63, cat=cat)
+    x = adversarial_rows(sm.forest, 8, seed=2)
+    _raw_vs_plain(sm, x, x.shape[0] - 3)
+
+
+def test_serve_forest_larger_than_shared_memory(cuda):
+    """2,000 trees x 255 leaves (10 MB packed, 223 tiles) and one tree of
+    4,000 leaves (a tile past the staged region, walked from global
+    memory)."""
+    sm, _ = _packed_model(cuda, trees=2000, leaves=255, cat=False, seed=61)
+    x = make_rows(300, 8, 61)
+    pf = _raw_vs_plain(sm, x, 290)
+    assert pf.blob.numel() * 4 > 227 * 1024 and pf.n_tiles == 223
+    big, _ = _packed_model(cuda, trees=1, leaves=4000, cat=True, seed=62)
+    pf = _raw_vs_plain(big, make_rows(300, 8, 62, (1, 4)), 300)
+    assert pf.stage_units == 0
+
+
+def test_serve_rows_too_wide_to_stage(cuda):
+    """20,000 features: the rows are read from global memory and the
+    quantizer tables are not staged."""
+    sm, _ = _packed_model(cuda, trees=6, leaves=31, cat=False,
+                          n_features=20_000, seed=63)
+    x = np.random.default_rng(63).normal(size=(200, 20_000)).astype(
+        np.float32)
+    geo = tkern.serve_geometry(sm.packed(), 200, 20_000, raw=True,
+                               leaves=False)
+    assert geo.row_stride == 0 and not geo.quant_staged
+    _raw_vs_plain(sm, x, 200)
+
+
+def test_serve_queue_equals_bulk_and_graph_replay(cuda):
+    sm, cats = _packed_model(cuda, trees=40, k=3)
+    x = make_rows(4096, 8, 64, cats)
+    eng = lgt.ServingEngine(sm, bucket_min=64, bucket_max=4096,
+                            device=cuda)
+    bulk = eng.predict(x)
+    q = lgt.ServingQueue(eng)
+    for i in range(0, 4096, 64):
+        q.submit(x[i:i + 64])
+    np.testing.assert_array_equal(np.concatenate(q.drain(), axis=0), bulk)
+    pf = sm.packed()
+    raw = torch.from_numpy(x[:64]).to(cuda)
+    out = torch.empty((64, 3), device=cuda)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        tkern.serve_traverse_raw(pf, raw, 64, out)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        tkern.serve_traverse_raw(pf, raw, 64, out)
+    out.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(out.cpu().numpy(), bulk[:64])
+
+
+@pytest.mark.parametrize("kind,sigmoid", [("binary", 1.0), ("binary", 0.7),
+                                          ("l2", 1.0)])
+def test_refresh_both_packs_match_plain_at_28_features(cuda, kind, sigmoid):
+    """The root-histogram refresh (the plain refresh's kernel, then
+    hist_comb's root in its feature chunks) at the main path's 28
+    features, both packs: rows bitwise the plain version's, the
+    histogram bitwise hist_comb's over the refreshed rows, one counted
+    call."""
+    from chip_smoke import pack2_stream_case
+    from lightgbm_tpu_torch.ops.stream_grad import (stream_refresh,
+                                                    stream_refresh_p2)
+    rows = rows_on(random_row_matrix(20_011, 28, 17), cuda)
+    before = (stream_refresh.launches, stream_refresh_p2.launches)
+    stream_parity(rows.bins, kind, 256, "test", sigmoid=sigmoid)
+    pack2_stream_case(rows.bins, kind, 256, "test")
+    assert (stream_refresh.launches, stream_refresh_p2.launches) == (
+        before[0] + 2, before[1] + 1)

@@ -72,10 +72,10 @@ def _purge():
 
 
 def _jax_train(params, x, y, rounds, xv=None, yv=None, ds_params=None,
-               cat=None, route=None):
+               cat=None, route=None, ds_kw=None):
     """JAX training on the route under test (slice 2's unless ``route``
     names the knobs of another): (booster, binned dataset, validation
-    raw scores)."""
+    raw scores).  ``ds_kw`` (weight, init_score) go to the Dataset."""
     route = ROUTE if route is None else route
     saved = save_env_knobs(ROUTE_KNOBS)
     for k in ROUTE_KNOBS:
@@ -85,7 +85,7 @@ def _jax_train(params, x, y, rounds, xv=None, yv=None, ds_params=None,
         _purge()
         import lightgbm_tpu as lgb
         ds = lgb.Dataset(x, label=y, params=ds_params,
-                         categorical_feature=cat or "auto")
+                         categorical_feature=cat or "auto", **(ds_kw or {}))
         valid = ([lgb.Dataset(xv, label=yv, reference=ds)]
                  if xv is not None else None)
         bst = lgb.train(params, ds, num_boost_round=rounds,
@@ -361,13 +361,13 @@ def test_train_defaults_to_cuda():
                   lgt.Dataset(x, label=y), num_boost_round=1)
 
 
-def _port_train(params, x, y, rounds, env):
+def _port_train(params, x, y, rounds, env, ds_kw=None):
     saved = save_env_knobs(ROUTE_KNOBS)
     for k in ROUTE_KNOBS:
         os.environ.pop(k, None)
     os.environ.update(env)
     try:
-        return lgt.train(params, lgt.Dataset(x, label=y),
+        return lgt.train(params, lgt.Dataset(x, label=y, **(ds_kw or {})),
                          num_boost_round=rounds, device="cpu")
     finally:
         restore_env_knobs(saved)
@@ -440,3 +440,101 @@ def test_default_route_matches_jax_default_route(config):
     bt = _port_train(params, x, y, 4, {})
     res = compare_trees(bt._models, bj._models, rtol=LEAF_RTOL)
     assert res["ok"], res
+
+
+# (params over the binary / l2 base, objective, Dataset extras, the route
+# the port picks by default, the recorded f32 tie: None, or the (tree,
+# node) where the two packages' gains for two candidate splits agree to
+# f32 noise and each takes another, after which their trees differ)
+DEFAULT = "path=stream fused=1 tail=kernel"
+SETTINGS = {
+    "lambda_l1": ({"lambda_l1": 1.0}, "binary", {}, DEFAULT, None),
+    "max_delta_step": ({"max_delta_step": 0.3}, "binary", {}, DEFAULT,
+                       None),
+    "path_smooth": ({"path_smooth": 2.0}, "binary", {}, DEFAULT, None),
+    "is_unbalance": ({"is_unbalance": True}, "binary", {}, DEFAULT, None),
+    "scale_pos_weight": ({"scale_pos_weight": 3.0}, "binary", {}, DEFAULT,
+                         None),
+    "sigmoid": ({"sigmoid": 0.6}, "binary", {}, DEFAULT, None),
+    "weights_binary": ({}, "binary", {"weight": True}, DEFAULT, None),
+    "weights_l2": ({}, "regression", {"weight": True}, DEFAULT, None),
+    "init_score": ({}, "binary", {"init_score": True}, DEFAULT, None),
+    "boost_from_average_false": ({"boost_from_average": False}, "binary",
+                                 {}, DEFAULT, None),
+    "reg_sqrt": ({"reg_sqrt": True}, "regression", {}, DEFAULT, None),
+    "max_bin_15": ({"max_bin": 15}, "binary", {}, DEFAULT, (2, 3)),
+    "max_depth_3": ({"max_depth": 3}, "binary", {}, DEFAULT, None),
+    "feature_fraction": ({"feature_fraction": 0.5}, "binary", {}, DEFAULT,
+                         None),
+    "min_data_in_leaf_200": ({"min_data_in_leaf": 200}, "binary", {},
+                             DEFAULT, (2, 8)),
+    "learning_rate": ({"learning_rate": 0.5}, "binary", {}, DEFAULT, None),
+}
+# the JAX package's row-order path on the CPU, with the stream route and
+# the fused split off
+ROW_ORDER_ROUTE = {"LGBM_TPU_STREAM": "0", "LGBM_TPU_FUSED": "0"}
+SETTING_LEAF_RTOL = 1.2e-5
+# raw scores at the default learning rate 0.1; a score is the rate times
+# the leaf sums, so the bound grows with the rate
+SETTING_RAW_ATOL = 3.5e-6
+NODE_KEYS = ("split_feature", "threshold_bin", "decision_type", "left_child",
+             "right_child")
+
+
+def _first_divergence(models_a, models_b):
+    """(tree, node) of the first node, in tree and node order, where the
+    two forests differ in a structural field; None where none does."""
+    for t, (a, b) in enumerate(zip(models_a, models_b)):
+        ni = min(a.num_leaves, b.num_leaves) - 1
+        for i in range(ni):
+            if any(getattr(a, k)[i] != getattr(b, k)[i] for k in NODE_KEYS):
+                return t, i
+        if a.num_leaves != b.num_leaves:
+            return t, ni
+    return None
+
+
+@pytest.mark.parametrize("name", list(SETTINGS))
+def test_training_setting_matches_jax(name):
+    """Sixteen training settings the configurations above leave out,
+    parity generator seed 11 (3,000 x 6), 15 leaves, 3 trees: the port
+    on the route it picks by default (recorded per case) against the
+    JAX package on its row-order route.  Several reach the refresh's
+    gradient constants (weights, is_unbalance, scale_pos_weight,
+    sigmoid, init_score, boost_from_average).  Trees equal in structure,
+    leaves within 1.2e-5 of the tree's largest, raw scores within 3.5e-6
+    times the learning rate over 0.1 (at least 1).  Where the case
+    records an f32 tie, the trees are equal in structure up to that node
+    and first differ there, the node's two gains agree within 1e-3 of
+    the gain (a gain is a difference of sums some 1e3 times larger, so
+    its f32 noise is), and the trees before it hold this file's
+    ``LEAF_RTOL``."""
+    extra, objective, data, route, tie = SETTINGS[name]
+    x, y = _data(3000, 6, 11, objective)
+    rng = np.random.default_rng(11)
+    ds_kw = {}
+    if data.get("weight"):
+        ds_kw["weight"] = rng.uniform(0.2, 2.0, len(y)).astype(np.float32)
+    if data.get("init_score"):
+        ds_kw["init_score"] = rng.normal(0.0, 0.3, len(y))
+    params = dict({"objective": objective, "num_leaves": 15,
+                   "verbosity": -1}, **extra)
+    bj, _, _ = _jax_train(params, x, y, 3, route=ROW_ORDER_ROUTE,
+                          ds_kw=ds_kw)
+    bt = _port_train(params, x, y, 3, {}, ds_kw=ds_kw)
+    assert bt._inner.grow.route.describe() == route
+    assert len(bt._models) == len(bj._models) == 3
+    assert _first_divergence(bt._models, bj._models) == tie
+    trees = 3 if tie is None else tie[0]
+    if tie is not None:
+        ga = bt._models[tie[0]].split_gain[tie[1]]
+        gb = bj._models[tie[0]].split_gain[tie[1]]
+        assert abs(ga - gb) <= 1e-3 * abs(gb)
+    res = compare_trees(bt._models[:trees], bj._models[:trees],
+                        rtol=SETTING_LEAF_RTOL if tie is None else LEAF_RTOL)
+    assert res["ok"], res
+    rate = params.get("learning_rate", 0.1)
+    np.testing.assert_allclose(
+        bt.predict(x, raw_score=True, num_iteration=trees),
+        np.asarray(bj.predict(x, raw_score=True, num_iteration=trees)),
+        rtol=0, atol=SETTING_RAW_ATOL * max(1.0, rate / 0.1))
