@@ -165,7 +165,26 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    leaves on the unfused stream route with the cluster kernel tail,
    counted exactly, the tail bitwise on a tree's median split, and one
    profiled iteration;
-11. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+11. sorted-subset categorical splits (slice 17), on
+   ``make_categorical_like`` (``bench.py --categorical 1024,8``: 2^20
+   training and 100,000 holdout rows, 28 dense and 8 categorical
+   features of 1,024 Zipf-skewed categories, binary, 255 leaves,
+   ``max_cat_to_onehot`` 4, ``min_data_per_group`` 5): the five
+   membership-word modes (``fused_split``, ``fused_split_p2``,
+   ``partition_scan``, ``partition_scan_p2``, ``partition_3ph`` with 8
+   words) against their plain versions on adversarial words at 36
+   features (rows and nleft bitwise; the fused modes' histograms within
+   4 * n * eps_f32 * max|v|); the card against device="cpu" on the first 20,000 rows on
+   six routes (bitwise); the default route for 10 iterations, pack=2,
+   both ``FUSED=0`` routes and 3ph for 3 (pack=2's and the unfused
+   routes' trees bitwise the default route's), ``max_bin`` 1023
+   (``cat_overwide``, row-order) and the one-hot twin
+   (``max_cat_to_onehot`` 1025, the kernel tail) for 3, each counted
+   with each word mode launched on its route, holdout
+   AUCs and splits of more than one category printed, served
+   predictions held against the f64 host walk on edge categories; each
+   word mode timed beside its one-hot mode, eager and in a graph;
+12. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times, then the device line last.
 
 The forests and rows are generated from seeds: the card's machine has
@@ -1453,7 +1472,8 @@ def _same_trees(bst_a, bst_b, label: str) -> dict:
     bit for bit; raises if they differ."""
     k = len(bst_b._models)
     same = compare_trees(bst_a._models[:k], bst_b._models)
-    same.update(case=f"{label}, {k} trees at {TRAIN_ROWS} rows",
+    same.update(case=f"{label}, {k} trees at "
+                f"{bst_b._inner.train_set.num_data} rows",
                 leaves_bitwise=leaves_bitwise(bst_a._models[:k],
                                               bst_b._models))
     print("parity routes " + json.dumps(same), flush=True)
@@ -2003,6 +2023,31 @@ def eager_and_graph_ms(fn) -> tuple:
     graph, g = graph_ms(many, reps=5, warmup=1)
     del g
     return eager, graph / GRAPH_CALLS
+
+
+L2_FLUSH_BYTES = 128 << 20      # over twice the H100's 50 MB L2
+
+
+def cold_ms(fn, reps: int = 20) -> float:
+    """Median milliseconds of one call of ``fn`` with the L2 cache
+    flushed before it (a 128 MB buffer written between calls, outside
+    the timed span): the time from device memory, where a replayed graph
+    of calls can find a working set under 50 MB still in L2."""
+    import torch
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    del flush
+    return float(np.median(times))
 
 
 def mangled_base_name(name: str) -> str:
@@ -3111,6 +3156,10 @@ def refresh_times(gpu: str, n: int = TRAIN_ROWS, f: int = N_FEATURES,
                 lambda: refresh(rows, lv, padded_bins=256, **kw)),
             "plain_refresh": eager_and_graph_ms(
                 lambda: plain(rows, lv, **kw)),
+            # from device memory: the rows' 32 MB stay in L2 between
+            # the calls of a replayed graph
+            "plain_refresh_l2_flushed": cold_ms(
+                lambda: plain(rows, lv, **kw)),
             "hist_comb_root": eager_and_graph_ms(
                 lambda: hist(rows, root, padded_bins=256, max_rows=n))}
         del rows
@@ -3238,7 +3287,7 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
                            "serve_traverse")
     auc = bst.best_score["valid_0"]["auc"]
     train_score = bst._inner.train_score.cpu().numpy().astype(np.float64)
-    if raw.shape != (TRAIN_ROWS,) or not np.all(np.isfinite(raw)):
+    if raw.shape != (x.shape[0],) or not np.all(np.isfinite(raw)):
         raise RuntimeError("predict on the trained booster gave non-finite "
                            "or misshapen scores")
     tol = score_tolerance(train_score, len(models))
@@ -3256,7 +3305,7 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
                                "booster's training scores")
     per_it = np.diff([t_start] + its)
     stages = {k: v / len(models) for k, v in timer.totals_ms().items()}
-    rec = {"case": label, "route": route.describe(), "rows": TRAIN_ROWS,
+    rec = {"case": label, "route": route.describe(), "rows": x.shape[0],
            "features": n_features, "leaves": TRAIN_LEAVES,
            "max_bin": params["max_bin"],
            "padded_bins": bst._inner.dd.padded_bins,
@@ -3266,8 +3315,8 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
            "s_per_iter": [float(v) for v in per_it],
            "stage_ms_per_tree": stages, "holdout_auc": auc,
            "splits": splits, "host_reads": bst._inner.grow.host_reads,
-           "launches": launches, "predict_max_abs_err": float(err.max()),
-           "gpu": gpu}
+           "launches": launches,
+           "predict_max_abs_err": float(err.max()), "gpu": gpu}
     print(f"training {label} " + json.dumps(rec), flush=True)
     return bst, rec
 
@@ -3310,8 +3359,14 @@ def train_phases(gpu: str) -> list:
     for r in recs:
         if r["name"] in ("stream_refresh", "stream_refresh_p2"):
             d = refresh_t["pack2" if r["name"].endswith("p2") else "pack1"]
-            r.update({f"{k}_ms": v[0] for k, v in d.items()})
-            r.update({f"{k}_graph_ms": v[1] for k, v in d.items()})
+            for k, v in d.items():
+                if isinstance(v, tuple):
+                    r[f"{k}_ms"], r[f"{k}_graph_ms"] = v
+                else:
+                    r[f"{k}_ms"] = v
+        if r["name"] in ("stream_refresh_plain", "stream_refresh_plain_p2"):
+            d = refresh_t["pack2" if r["name"].endswith("p2") else "pack1"]
+            r["l2_flushed_ms"] = d["plain_refresh_l2_flushed"]
     parity = train_parity(gpu, {}, PARITY_TREES, "default route")
     parity2 = train_parity(gpu, SLICE2_ROUTE, SLICE2_PARITY_TREES,
                            "slice 2 route")
@@ -4081,6 +4136,434 @@ def wide_phases(gpu: str, comb_cases: list) -> dict:
             "times": times}
 
 
+# ---------------------------------------------------------------------
+# Slice 17: sorted-subset categorical splits, the membership-word modes
+# of the fused split and the partitions
+CAT_CATS, CAT_COLS = 1024, 8          # bench.py --categorical 1024,8
+CAT_ROWS = 1_048_576
+CAT_FEATURES = N_FEATURES + CAT_COLS
+CAT_PARAMS = {"objective": "binary", "num_leaves": TRAIN_LEAVES,
+              "max_bin": 255, "max_cat_to_onehot": 4,
+              "min_data_per_group": 5, "metric": "auc", "verbosity": -1}
+CAT_DS_PARAMS = {"max_bin": 255, "min_data_in_bin": 1}
+# bench_cat_onehot's setting: a threshold above the cardinality keeps
+# every categorical split one-hot (and the kernel tail)
+CAT_ONEHOT_PARAMS = dict(CAT_PARAMS, max_cat_to_onehot=CAT_CATS + 1)
+CAT_ITERS = 10
+CAT_SHORT_ITERS = 3
+# the cut of the categorical data the card is held against the CPU on
+CAT_PARITY_ROWS = 20_000
+CAT_PARITY_TREES = 2
+CAT_ROUTES = {"default": {}, "pack2": PACK2, "unfused": FUSED_OFF,
+              "pack2_unfused": PACK2_UNFUSED, "3ph": PART_3PH}
+# each word mode: (wrapper name, the route whose main path launches it,
+# source, the JAX package's registration of the mode)
+CAT_WORD_MODES = {
+    "fused_split_cat": ("fused_split", "default",
+                        "lightgbm_tpu_torch/csrc/fused_split.cu",
+                        "lightgbm_tpu/ops/pallas/fused_split.py:483"),
+    "fused_split_p2_cat": ("fused_split_p2", "pack2",
+                           "lightgbm_tpu_torch/csrc/fused_split.cu",
+                           "lightgbm_tpu/ops/pallas/fused_split.py:505"),
+    "partition_scan_cat": ("partition_scan", "unfused",
+                           "lightgbm_tpu_torch/csrc/partition.cu",
+                           "lightgbm_tpu/ops/pallas/partition_kernel3.py"
+                           ":689"),
+    "partition_scan_p2_cat": ("partition_scan_p2", "pack2_unfused",
+                              "lightgbm_tpu_torch/csrc/partition.cu",
+                              "lightgbm_tpu/ops/pallas/partition_kernel3.py"
+                              ":710"),
+    "partition_3ph_cat": ("partition_3ph", "3ph",
+                          "lightgbm_tpu_torch/csrc/partition_3ph.cu",
+                          "lightgbm_tpu/ops/pallas/partition_kernel.py:372"),
+}
+# adversarial membership words (as i32)
+CAT_WORDS = {
+    "all_zero": (0,) * 8,
+    "all_set": (-1,) * 8,
+    "bit31_every_word": (-(1 << 31),) * 8,
+    "single_bit": (0, 0, 1 << 13, 0, 0, 0, 0, 0),
+    "last_word": (0,) * 7 + (-0x7FFF0000,),
+    "mixed": EDGE_WORDS,
+}
+
+
+def make_categorical_like(n_rows: int, n_cats: int, n_cat_cols: int,
+                          n_features: int = N_FEATURES, seed: int = 0):
+    """Higgs-style dense features and ``n_cat_cols`` categorical columns
+    of ``n_cats`` Zipf-skewed categories (frequency ~ 1 / rank^1.1), a
+    hidden good third of each column's categories flipping the label
+    where most columns hold one (the generator bench.py serves for
+    ``--categorical``).  Returns ``(x, y, categorical column ids)``,
+    the categorical columns first."""
+    x, y = make_higgs_like(n_rows, n_features, seed)
+    rng = np.random.default_rng(seed + 2)
+    probs = 1.0 / np.arange(1.0, n_cats + 1.0) ** 1.1
+    probs /= probs.sum()
+    cats = rng.choice(n_cats, size=(n_rows, n_cat_cols),
+                      p=probs).astype(np.float32)
+    flip = np.zeros(n_rows, np.float32)
+    for j in range(n_cat_cols):
+        good = rng.choice(n_cats, size=max(n_cats // 3, 1), replace=False)
+        flip += np.isin(cats[:, j], good)
+    y = np.logical_xor(y > 0,
+                       flip >= (n_cat_cols + 1) // 2).astype(np.float32)
+    return np.hstack([cats, x]), y, list(range(n_cat_cols))
+
+
+def cat_word_cases(tile: int, cat_feature: int, nan_bin: int) -> list:
+    """[(label, sel)] of the word modes' adversarial descriptors over
+    rows whose feature ``cat_feature`` spans every u8 bin and whose
+    feature 0 holds ``nan_bin``: a categorical split with each of
+    ``CAT_WORDS``, across tiles at odd starts; numerical splits carrying
+    zero words (the NaN bin routed left, no NaN bin) and one carrying
+    set words, which it ignores."""
+    zero = CAT_WORDS["all_zero"]
+    out = [(f"cat_{k}", (1 + 2 * i, 3 * tile + 2 * i + 1, cat_feature, 0, 0,
+                         1, -1, 0, *w))
+           for i, (k, w) in enumerate(CAT_WORDS.items())]
+    out += [("nan_bin_zero_words", (777, 2 * tile + 1, 0, 90, 1, 0, nan_bin,
+                                    0, *zero)),
+            ("numerical_zero_words", (5, 4 * tile - 3, 1, 100, 0, 0, -1, 0,
+                                      *zero)),
+            ("numerical_ignores_words", (3, 3 * tile, 2, 60, 0, 0, -1, 0,
+                                         *CAT_WORDS["mixed"]))]
+    return out
+
+
+def cat_rows(n: int, f: int, seed: int, device):
+    """Seeded rows for the word modes: ``random_row_matrix`` with feature
+    0's NaN bin 254 and the last feature over every u8 bin."""
+    arrays = list(random_row_matrix(n, f, seed, n_bins=254, nan_bin=254))
+    arrays[0][:, f - 1] = np.random.default_rng(seed + 1).integers(0, 256, n)
+    return rows_on(arrays, device)
+
+
+def cat_word_parity(gpu: str) -> dict:
+    """Each word mode against its plain version on the adversarial
+    descriptors of ``cat_word_cases`` at 36 features (the categorical
+    cell's width, 64-byte records): partition_scan + copyback,
+    partition_3ph (also on CPU copies), partition_scan_p2 + copyback_p2,
+    fused_split + copyback and fused_split_p2 + copyback_p2, each call
+    one launch.  The partitions are gated bitwise; the fused modes' rows
+    and nleft are bitwise, their histograms bitwise hist_comb's and within
+    4 * n * eps_f32 * max|v| of the plain version.  Returns {mode:
+    {"cases": [labels], "max_abs_err": the largest difference from the
+    plain version over the cases, "tol": the largest tolerance}}."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import fused_split as fs
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    from lightgbm_tpu_torch.ops.device_data import pack_rows
+    n, f = 200_000, CAT_FEATURES
+    rows = cat_rows(n, f, 17, "cuda")
+    packed = pack_rows(rows)
+    tile = pk.scan_geometry(n, f).tile
+    runs = {"partition_scan_cat": (pk.partition_scan,
+                                   lambda sel, lab: partition_parity(
+                                       rows, sel, lab)),
+            "partition_3ph_cat": (pk.partition_3ph,
+                                  lambda sel, lab: partition_3ph_parity(
+                                      rows, sel, lab)),
+            "partition_scan_p2_cat": (pk.partition_scan_p2,
+                                      lambda sel, lab: pack2_scan_case(
+                                          rows, packed, sel, lab)),
+            "fused_split_cat": (fs.fused_split,
+                                lambda sel, lab: fused_parity(
+                                    rows, sel, 256, lab)),
+            "fused_split_p2_cat": (fs.fused_split_p2,
+                                   lambda sel, lab: pack2_split_case(
+                                       rows, packed, sel, 256, lab))}
+    out = {}
+    for mode, (fn, check) in runs.items():
+        recs, labels = [], []
+        for label, sel in cat_word_cases(tile, f - 1, 254):
+            before = fn.launches
+            recs.append(check(sel, f"{mode} {label}"))
+            labels.append(label)
+            torch.cuda.synchronize()
+            if fn.launches - before != 1:
+                raise RuntimeError(f"{mode} {label} launched {fn.__name__} "
+                                   f"{fn.launches - before} times, not once")
+        out[mode] = {"cases": labels,
+                     "max_abs_err": max(r.get("max_abs_err", 0.0)
+                                        for r in recs),
+                     "tol": max(r.get("tol", 0.0) for r in recs)}
+    print("parity word modes " + json.dumps(
+        {"rows": n, "features": f, "tile": tile, "cases": out,
+         "gpu": gpu}), flush=True)
+    del rows, packed
+    return out
+
+
+def cat_word_times(gpu: str, models) -> dict:
+    """Each word mode beside its one-hot mode on the same split (the
+    words hold the one-hot bin alone, so both move the same rows), on
+    seeded 2^20 x 36 rows at the root and at the quartiles of the
+    categorical main path's split segments (``models``' trees), eager
+    and as one replay of a graph of 20 calls; the word mode's plain
+    version at the root.  Returns {mode: {"root": ..., "times": [...]}}."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import fused_split as fs
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    from lightgbm_tpu_torch.ops.device_data import (empty_packed_like,
+                                                    empty_rows_like,
+                                                    pack_rows)
+    n, f = CAT_ROWS, CAT_FEATURES
+    rows = cat_rows(n, f, 23, "cuda")
+    packed = pack_rows(rows)
+    scr, scr2 = empty_rows_like(rows), empty_packed_like(packed)
+    nl = torch.zeros(1, dtype=torch.int32, device=rows.bins.device)
+    sizes = segment_sizes(models)
+    print("categorical route split segments " + json.dumps(sizes),
+          flush=True)
+    bin_, cat_f = 17, f - 1
+    words = [0] * 8
+    words[bin_ // 32] = 1 << (bin_ % 32)
+    calls = {
+        "fused_split_cat": lambda sel: fs.fused_split(rows, scr, sel, nl,
+                                                      padded_bins=256),
+        "fused_split_p2_cat": lambda sel: fs.fused_split_p2(
+            packed, scr2, sel, nl, padded_bins=256),
+        "partition_scan_cat": lambda sel: pk.partition_scan(rows, scr, sel,
+                                                            nl),
+        "partition_scan_p2_cat": lambda sel: pk.partition_scan_p2(
+            packed, scr2, sel, nl),
+        "partition_3ph_cat": lambda sel: pk.partition_3ph(rows, scr, sel,
+                                                          nl)}
+    plain = {
+        "fused_split_cat": lambda sel: fs.fused_split_ref(rows, scr, sel, nl,
+                                                          padded_bins=256),
+        "fused_split_p2_cat": lambda sel: fs.fused_split_p2_ref(
+            packed, scr2, sel, nl, padded_bins=256),
+        "partition_scan_cat": lambda sel: pk.partition_scan_ref(rows, scr,
+                                                                sel, nl),
+        "partition_scan_p2_cat": lambda sel: pk.partition_scan_p2_ref(
+            packed, scr2, sel, nl),
+        "partition_3ph_cat": lambda sel: pk.partition_3ph_ref(rows, scr, sel,
+                                                              nl)}
+    out = {}
+    for mode, call in calls.items():
+        times = []
+        for label in ("root", "q25", "median", "q75"):
+            cnt = n if label == "root" else sizes[label]
+            s0 = (n - cnt) // 2
+            onehot = (s0, cnt, cat_f, bin_, 0, 1, -1)
+            worded = onehot + (0, *words)
+            e1, g1 = eager_and_graph_ms(lambda: call(onehot))
+            e2, g2 = eager_and_graph_ms(lambda: call(worded))
+            times.append({"case": label, "cnt": cnt, "onehot_ms": e1,
+                          "onehot_graph_ms": g1, "words_ms": e2,
+                          "words_graph_ms": g2,
+                          "graph_diff_ms": g2 - g1})
+        root = (0, n, cat_f, 0, 0, 1, -1, 0, *CAT_WORDS["mixed"])
+        out[mode] = {"ms": _time_ms(lambda: call(root), 20),
+                     "plain_ms": _time_ms(lambda: plain[mode](root), 3),
+                     "times": times}
+    res = {"segments": sizes, "modes": out, "gpu": gpu}
+    print("word mode times [ms] " + json.dumps(res), flush=True)
+    del rows, packed, scr, scr2
+    return res
+
+
+def cat_train_parity(gpu: str, x, y, cats, env: dict, params: dict,
+                     label: str) -> dict:
+    """``CAT_PARITY_TREES`` trees of the categorical workload's first
+    ``CAT_PARITY_ROWS`` rows on the route ``env`` selects, on the card
+    and with device="cpu": trees and leaves bit for bit (a gate), and
+    whether every split descriptor (membership words included) read on
+    the card equals the CPU run's."""
+    import lightgbm_tpu_torch as lgt
+    xc, yc = x[:CAT_PARITY_ROWS], y[:CAT_PARITY_ROWS]
+    traces, bsts = [], []
+    with route_env(env):
+        for device in ("cuda", "cpu"):
+            ds = lgt.Dataset(xc, label=yc, categorical_feature=cats,
+                             params=dict(CAT_DS_PARAMS,
+                                         max_bin=params["max_bin"]))
+            bst = lgt.Booster(params, ds, device=device)
+            traces.append([])
+            bst._inner.grow.trace = traces[-1]
+            t0 = time.perf_counter()
+            for _ in range(CAT_PARITY_TREES):
+                bst.update()
+            bsts.append((bst, time.perf_counter() - t0))
+    (bc, tc), (bp, tp) = bsts
+    rec = compare_trees(bc._models, bp._models)
+    rec.update(case=f"categorical {label}: first {CAT_PARITY_ROWS} rows x "
+               f"{CAT_FEATURES}, {TRAIN_LEAVES} leaves, {CAT_PARITY_TREES} "
+               "trees", route=bc._inner.grow.route.describe(),
+               leaves_bitwise=leaves_bitwise(bc._models, bp._models),
+               descriptors_equal=traces[0] == traces[1],
+               multi_category_splits=multi_category_splits(bc._models),
+               cuda_s=tc, cpu_s=tp)
+    rec["ok"] = rec["ok"] and rec["leaves_bitwise"]
+    print("parity training " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"categorical training on the card differs from "
+                           f"the CPU run: {rec}")
+    return rec
+
+
+def multi_category_splits(models) -> int:
+    """Categorical splits whose bitset holds more than one category."""
+    n = 0
+    for t in models:
+        for i in range(t.num_leaves - 1):
+            if t.decision_type[i] & 1:
+                slot = int(t.threshold[i])
+                lo, hi = t.cat_boundaries[slot], t.cat_boundaries[slot + 1]
+                n += sum(bin(int(w)).count("1")
+                         for w in t.cat_threshold[lo:hi]) > 1
+    return n
+
+
+def cat_phases(gpu: str) -> list:
+    """Slice 17: the categorical workload (``bench.py --categorical
+    1024,8``: 2^20 training and 100,000 holdout rows, 28 dense and 8
+    categorical features of Zipf-skewed categories, binary, 255 leaves,
+    max_bin 255, min_data_in_bin 1, min_data_per_group 5,
+    max_cat_to_onehot 4).  The word modes against their plain versions
+    on adversarial words; the card against the CPU on a cut of the data
+    on every categorical route (bit for bit); the default route for 10
+    iterations, pack=2, both FUSED=0 routes and 3ph for 3 (pack=2 and
+    the unfused routes' trees bitwise the default route's), max_bin 1023
+    (cat_overwide, row_order) for 3 and the one-hot twin
+    (max_cat_to_onehot 1025, the kernel tail) for 3, each counted, each
+    word mode launched on its route, served through
+    serve_traverse and held against the f64 host walk; the word modes
+    timed beside their one-hot modes.  Returns the five word modes'
+    kernel records."""
+    import lightgbm_tpu_torch as lgt
+    parity = cat_word_parity(gpu)
+    x_all, y_all, cats = make_categorical_like(CAT_ROWS + HOLDOUT_ROWS,
+                                               CAT_CATS, CAT_COLS)
+    x, y = x_all[:CAT_ROWS], y_all[:CAT_ROWS]
+    xv, yv = x_all[CAT_ROWS:], y_all[CAT_ROWS:]
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(x, label=y, categorical_feature=cats,
+                     params=CAT_DS_PARAMS).construct()
+    valid = lgt.Dataset(xv, label=yv, reference=ds).construct()
+    t1 = time.perf_counter()
+    ds_wide = lgt.Dataset(x, label=y, categorical_feature=cats,
+                          params=dict(CAT_DS_PARAMS, max_bin=1023)).construct()
+    valid_wide = lgt.Dataset(xv, label=yv, reference=ds_wide).construct()
+    print(f"binned {CAT_ROWS} + {HOLDOUT_ROWS} rows x {CAT_FEATURES} "
+          f"({CAT_COLS} categorical of {CAT_CATS} categories) in "
+          f"{t1 - t0:.2f} s at max_bin=255 and "
+          f"{time.perf_counter() - t1:.2f} s at max_bin=1023 (host)",
+          flush=True)
+    wide_params = dict(CAT_PARAMS, max_bin=1023)
+    parities = {k: cat_train_parity(gpu, x, y, cats, env, CAT_PARAMS, k)
+                for k, env in CAT_ROUTES.items()}
+    parities["max_bin_1023"] = cat_train_parity(gpu, x, y, cats, {},
+                                                wide_params, "max_bin 1023")
+
+    runs, bsts = {}, {}
+    for key, env in CAT_ROUTES.items():
+        bsts[key], runs[key] = train_main_path(
+            gpu, ds, valid, x, env,
+            CAT_ITERS if key == "default" else CAT_SHORT_ITERS,
+            f"categorical {key} route", params=CAT_PARAMS,
+            n_features=CAT_FEATURES)
+    bsts["max_bin_1023"], runs["max_bin_1023"] = train_main_path(
+        gpu, ds_wide, valid_wide, x, {}, CAT_SHORT_ITERS,
+        "categorical max_bin 1023 route", params=wide_params,
+        n_features=CAT_FEATURES)
+    bsts["onehot"], runs["onehot"] = train_main_path(
+        gpu, ds, valid, x, {}, CAT_SHORT_ITERS, "categorical one-hot twin",
+        params=CAT_ONEHOT_PARAMS, n_features=CAT_FEATURES)
+    want_routes = {
+        "default": "path=stream fused=1 tail=xla (tail_cat_subset)",
+        "max_bin_1023": "path=row_order fused=0 tail=xla (cat_overwide, "
+                        "non_u8_bins, tail_cat_subset)",
+        "onehot": "path=stream fused=1 tail=kernel"}
+    for key, want in want_routes.items():
+        if runs[key]["route"] != want:
+            raise RuntimeError(f"the categorical {key} run took "
+                               f"{runs[key]['route']}, not {want}")
+    summary = {}
+    for key, run in runs.items():
+        models = bsts[key]._models
+        summary[key] = {"route": run["route"],
+                        "s_per_iter": run["s_per_iter_rest_mean"],
+                        "holdout_auc": run["holdout_auc"],
+                        "multi_category_splits":
+                            multi_category_splits(models),
+                        "splits": run["splits"],
+                        "host_reads": run["host_reads"],
+                        "launches": {k: v for k, v in run["launches"].items()
+                                     if v}}
+        if key != "onehot" and summary[key]["multi_category_splits"] <= 0:
+            raise RuntimeError(f"the categorical {key} run made no split of "
+                               "more than one category")
+        if run["host_reads"] > run["splits"] + len(models):
+            raise RuntimeError(f"the categorical {key} run read the host "
+                               f"{run['host_reads']} times for "
+                               f"{run['splits']} splits")
+    # each word mode ran on its route (every split of a subset model
+    # carries the words)
+    for mode, (wrapper, key, _, _) in CAT_WORD_MODES.items():
+        if runs[key]["launches"][wrapper] <= 0:
+            raise RuntimeError(f"the categorical {key} route launched "
+                               f"{wrapper} no time")
+    # pack=2 and the unfused routes grow the default route's trees
+    for key in ("pack2", "unfused", "pack2_unfused"):
+        _same_trees(bsts["default"], bsts[key], f"categorical {key} route")
+    k = CAT_SHORT_ITERS
+    p3 = compare_trees(bsts["default"]._models[:k], bsts["3ph"]._models)
+    p3["case"] = (f"categorical 3ph route vs the default route, {k} trees "
+                  "(reported, not a gate: the right rows come in another "
+                  "order)")
+    print("parity routes " + json.dumps(p3), flush=True)
+    # served predictions against the f64 host walk
+    bst = bsts["default"]
+    xh = np.array(xv[:HOST_ROWS], np.float64)
+    xh[:64, 0] = -3.0                    # a negative category
+    xh[64:128, 1] = 5_000.0              # an unseen category
+    xh[128:192, 2] = np.nan              # a NaN category
+    served = bst.predict(xh, raw_score=True)
+    host = sum(t.leaf_value[t.predict_leaf(xh)] for t in bst._models)
+    tol = score_tolerance(host, len(bst._models))
+    if not np.all(np.abs(served - host) <= tol):
+        raise RuntimeError("served categorical predictions differ from the "
+                           "host walk")
+    summary["default"]["predict_vs_host_max_abs_err"] = float(
+        np.abs(served - host).max())
+    print("categorical routes " + json.dumps(summary) + f" [{gpu}]",
+          flush=True)
+    with route_env({}):
+        print("profiled iteration, categorical default route "
+              + json.dumps(profile_iteration(bsts["default"], gpu)),
+              flush=True)
+
+    times = cat_word_times(gpu, bsts["default"]._models)
+    n, row_bytes = CAT_ROWS, CAT_FEATURES + ROW_EXTRA_BYTES
+    stride = 64
+    hist_out = CAT_FEATURES * 256 * 2 * 4
+    bounds = {"fused_split_cat": (2 * n * row_bytes + 2 * hist_out,
+                                  2 * n * CAT_FEATURES),
+              "fused_split_p2_cat": (2 * n * stride + 2 * hist_out,
+                                     2 * n * CAT_FEATURES),
+              "partition_scan_cat": (2 * n * row_bytes + 4, 0),
+              "partition_scan_p2_cat": (2 * n * stride + 4, 0),
+              "partition_3ph_cat": (2 * n * row_bytes + 4, 0)}
+    recs = []
+    for mode, (wrapper, key, source, replaces) in CAT_WORD_MODES.items():
+        t = times["modes"][mode]
+        recs.append(_kernel_record(
+            mode, source, replaces, runs[key]["launches"][wrapper],
+            parity[mode]["max_abs_err"], t["ms"], t["plain_ms"],
+            *bounds[mode], gpu, launched_on=f"categorical {key} route",
+            times=t["times"], segments=times["segments"],
+            parity_cases=parity[mode]["cases"], tol=parity[mode]["tol"],
+            train_parity_bitwise=parities[key]["ok"]))
+    recs[0]["categorical_runs"] = summary
+    recs[0]["train_parity"] = {k: r["ok"] for k, r in parities.items()}
+    return recs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4112,6 +4595,7 @@ def main() -> int:
     tail = next(k for k in kernels if k["name"] == "apply_find")
     tail["wide_launches"] = wide["main"]["launches"]["apply_find_pool"]
     tail["parity_cases"].append(wide["tail"]["case"])
+    kernels += cat_phases(gpu)
     kernels += probes
     if not analysis["checked_in_report_current"]:
         raise RuntimeError(

@@ -12,8 +12,9 @@ entry also at the row-order route's B = 1024 and the wide route's 136
 features, each one cluster of its geometry's blocks), serving 100
 trees x 255 leaves over a 65,536-row bucket, ``hist_comb`` in both
 modes (feature mode at the 1M-row root, range mode at the median
-smaller child) at 28 and 136 features and both packs, the fixture
-kernels at
+smaller child) at 28 and 136 features and both packs, the
+membership-word modes of the partitions and the fused split at the
+categorical cell's 2^20 rows x 36 features, the fixture kernels at
 their legal geometries, the launch-cost probes at their tools'
 shapes and the partition-bisection probes at ``profile_legacy``'s
 (2^20 rows, the ``hbm_alias`` comb).  Nothing is allocated and
@@ -50,6 +51,15 @@ FUSED = {1: f"{PALLAS}/fused_split.py:346", 2: f"{PALLAS}/fused_split.py:417"}
 # the default route's median split segment (the pack=2 route's trees are
 # its trees bit for bit)
 MEDIAN_SEGMENT = 13_128
+# the categorical workload (bench.py --categorical 1024,8): 28 dense and
+# 8 categorical features, 2^20 rows; its splits run the kernels in the
+# membership-word mode (the sorted-subset search's descriptor)
+N_CAT, F_CAT = 1_048_576, 36
+CAT = {"fused_split": f"{PALLAS}/fused_split.py:483",
+       "fused_split_p2": f"{PALLAS}/fused_split.py:505",
+       "partition_scan": f"{PALLAS}/partition_kernel3.py:689",
+       "partition_scan_p2": f"{PALLAS}/partition_kernel3.py:710",
+       "partition_3ph": f"{PALLAS}/partition_kernel.py:372"}
 
 
 def _grid(x):
@@ -234,6 +244,67 @@ def hist_comb_wide_entry(fc: int = None) -> KernelEntry:
 
 
 # -- partitions ---------------------------------------------------------------
+def _cat_modes():
+    """The membership-word modes at the categorical workload's shapes
+    (2^20 rows x 36 features, 64-byte records): the scans of both packs
+    and of the 3-phase partition, the fused split's count and scatter
+    passes of both packs and its histogram pass at the root."""
+    rec = RecordLayout(F_CAT).stride
+    for name, pack, source, rows in (
+            ("partition_scan", 1, "partition", "part::RowPtrs"),
+            ("partition_scan_p2", 2, "partition", "part::RecPtr"),
+            ("partition_3ph", 1, "partition_3ph", "part::RowPtrs")):
+        geo = (pk.scan_geometry(N_CAT, record_stride=rec) if pack == 2
+               else pk.scan_geometry(N_CAT, F_CAT))
+        args = (_rows_args(f=F_CAT, n=N_CAT) + _rows_args("s", f=F_CAT,
+                                                          n=N_CAT)
+                if pack == 1 else
+                tuple(vec_arg(a, "uint8", (N_CAT, rec), 16)
+                      for a in ("base", "sbase")))
+        register_kernel(KernelEntry(
+            name=f"{name}_cat", source=source,
+            symbol=f"part::scan_tiles<{rows}, "
+                   f"{'true' if geo.staged else 'false'}>",
+            block=_block(pk.SCAN_THREADS), dyn_smem=geo.smem,
+            args=args + (vec_arg("state", "int64", (1 + geo.tiles, 1), 8),),
+            wrapper=f"partition_kernel.{name}", replaces=CAT[name],
+            export=(f"{name}_smem_bytes",
+                    (geo.tile, rec if pack == 2 else F_CAT,
+                     int(geo.staged)))))
+    tiles = -(-N_CAT // SCAN_TILE)
+    copy = (vec_arg("cols", "uint8", (F_CAT, N_CAT), 1),
+            vec_arg("gv", "float32", (N_CAT, 2), 8))
+    for pack, rows in ((1, "part::RowPtrs"), (2, "part::RecPtr")):
+        name = "fused_split" + ("_p2" if pack == 2 else "")
+        recs = tuple(vec_arg(a, "uint8", (N_CAT, rec), v)
+                     for a, v in (("base", 1), ("sbase", 16)))
+        register_kernel(KernelEntry(
+            name=f"{name}_cat_count", source="fused_split",
+            symbol="part::count_tiles", block=_block(THREADS), dyn_smem=0,
+            args=((recs[0] if pack == 2
+                   else vec_arg("bins", "uint8", (N_CAT, F_CAT), 1)),
+                  vec_arg("tile_left", "int32", (tiles, 1), 4)),
+            wrapper=f"fused_split.{name}", replaces=CAT[name]))
+        register_kernel(KernelEntry(
+            name=f"{name}_cat_scatter", source="fused_split",
+            symbol=f"fused_scatter<{rows}>", block=_block(THREADS),
+            dyn_smem=0,
+            args=(_rows_args(f=F_CAT, n=N_CAT)
+                  + _rows_args("s", f=F_CAT, n=N_CAT) if pack == 1
+                  else (vec_arg("base", "uint8", (N_CAT, rec), 16),
+                        recs[1])) + copy,
+            wrapper=f"fused_split.{name}", replaces=CAT[name]))
+    geo = fs.fused_geometry(F_CAT, B, N_CAT)
+    register_kernel(KernelEntry(
+        name="fused_split_cat_hist_root", source="fused_split",
+        symbol="fused_hist", block=_block(THREADS), dyn_smem=geo.smem,
+        args=copy + (vec_arg("partials", "float32",
+                             (2 * geo.slices, F_CAT, B, 2), 4),
+                     vec_arg("out", "float32", (2, F_CAT, B, 2), 4)),
+        wrapper="fused_split.fused_split", replaces=CAT["fused_split"],
+        export=("fused_hist_smem_bytes", (geo.feats, geo.parts, B))))
+
+
 def _partition():
     """The scan (``part::scan_tiles``) at the wrapper's geometry on the
     1M-row segment (staged) and on rows of ``F_MANY`` features
@@ -566,7 +637,8 @@ def _fixture_kernels():
         replaces=f"{FIXTURES_DIR}/bad_host_ast.py:21"))
 
 
-for _register in (_serve, _hist, _partition, _fused, _apply_find, _stream,
+for _register in (_serve, _hist, _partition, _fused, _cat_modes,
+                  _apply_find, _stream,
                   _probes, _legacy_probes, _fixture_kernels):
     _register()
 

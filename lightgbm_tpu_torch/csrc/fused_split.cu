@@ -79,6 +79,7 @@
 namespace {
 
 using part::kTile;
+using part::Pred;
 using part::RecPtr;
 using part::RowPtrs;
 using part::Split;
@@ -201,15 +202,17 @@ __device__ __forceinline__ void move_row(const RecPtr& s, const RecPtr& d,
 }
 
 // One block a 1,024-row count tile, one thread a row: the left rows of
-// the tiles before it (their counts summed), the row's predicate and the
-// tile's ballot scan give every row its destination (left rows in
-// order, right rows reversed: partition_scan's layout), then each thread
-// moves its row.  The last block writes nleft.
+// the tiles before it (their counts summed), the row's predicate (the
+// count pass's, part::pred_left on the same Pred) and the tile's ballot
+// scan give every row its destination (left rows in order, right rows
+// reversed: partition_scan's layout), then each thread moves its row.
+// The last block writes nleft.
 template <class Rows>
 __global__ void __launch_bounds__(kScatterThreads)
-fused_scatter(Rows rows, Rows scr, int F, Split sp,
+fused_scatter(Rows rows, Rows scr, int F, Pred pr,
               const int* __restrict__ tile_left, int* __restrict__ nleft,
               uint8_t* __restrict__ cols, float2* __restrict__ gv) {
+  const Split& sp = pr.sp;
   constexpr int kW = kScatterThreads / 32;
   __shared__ int part_sum[kW];
   __shared__ int warp_left[kW];
@@ -225,7 +228,7 @@ fused_scatter(Rows rows, Rows scr, int F, Split sp,
   const bool live = i < sp.cnt;
   const long long src = (long long)sp.s0 + i;
   const bool left =
-      live && part::go_left(part::bin_at(rows, F, src, sp.feat), sp);
+      live && part::pred_left(part::bin_at(rows, F, src, sp.feat), pr);
   const unsigned lm = __ballot_sync(0xffffffffu, left);
   if (lane == 0) {
     part_sum[warp] = acc;
@@ -571,10 +574,11 @@ int set_smem(int smem) {
 // error code, cudaErrorInvalidValue for a geometry that misses a row or
 // a cell.
 template <class Rows>
-int launch(Rows rows, Rows scr, int F, int B, const Split& sp, int tiles,
+int launch(Rows rows, Rows scr, int F, int B, const Pred& pr, int tiles,
            int nblocks, int groups, int fg, int parts, int* tile_left,
            int* nleft, uint8_t* cols, float* gv, float* partials, float* out,
            cudaStream_t s) {
+  const Split& sp = pr.sp;
   const bool cells_ok =
       parts == 1 ? (fg >= 1 && (long long)groups * fg >= F
                     && (long long)(groups - 1) * fg < F)
@@ -587,11 +591,11 @@ int launch(Rows rows, Rows scr, int F, int B, const Split& sp, int tiles,
       || groups < 1 || !cells_ok || (nblocks > 1 && partials == nullptr))
     return (int)cudaErrorInvalidValue;
   part::count_tiles<<<tiles, kThreads, 0, s>>>(
-      part::bins_of(rows), part::bin_stride(rows, F), sp, tile_left);
+      part::bins_of(rows), part::bin_stride(rows, F), pr, tile_left);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   fused_scatter<Rows><<<tiles, kScatterThreads, 0, s>>>(
-      rows, scr, F, sp, tile_left, nleft, cols,
+      rows, scr, F, pr, tile_left, nleft, cols,
       reinterpret_cast<float2*>(gv));
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -628,21 +632,26 @@ int fused_hist_smem_bytes(int fg, int parts, int B) {
 // partials.  Scratch buffers: tile_left i32 [tiles]; cols u8 [F, cnt]
 // and gv f32 [cnt, 2] (8-byte aligned), the feature-major copy of the
 // partitioned segment; partials f32 [2, nblocks, F, B, 2] where
-// nblocks > 1 (else may be null); nleft an i32 device scalar.  cnt must be > 0.  Returns the CUDA
-// error code (0 on success; cudaErrorInvalidValue for a geometry that
-// misses a row or a cell).
+// nblocks > 1 (else may be null); nleft an i32 device scalar; words
+// nwords (<= 8) host membership words (read by categorical splits; may
+// be null when nwords is 0).  cnt must be > 0.  Returns the CUDA error
+// code (0 on success; cudaErrorInvalidValue for a geometry that misses a
+// row or a cell, or for nwords > 8).
 int fused_split(uint8_t* bins, float* vals, int* rid, float* score,
                 float* consts, uint8_t* sbins, float* svals, int* srid,
                 float* sscore, float* sconsts, int* tile_left, int* nleft,
                 uint8_t* cols, float* gv, float* partials, float* out, int F,
                 int B, int s0, int cnt, int feat, int sbin, int dl, int cat,
-                int nanb, int tiles, int nblocks, int groups, int fg,
-                int parts, void* stream) {
+                int nanb, int nwords, const unsigned* words, int tiles,
+                int nblocks, int groups, int fg, int parts, void* stream) {
+  Pred pr;
+  if (!part::make_pred(Split{s0, cnt, feat, sbin, dl, cat, nanb}, nwords,
+                       words, &pr))
+    return (int)cudaErrorInvalidValue;
   return launch(RowPtrs{bins, vals, rid, score, consts},
-                RowPtrs{sbins, svals, srid, sscore, sconsts}, F, B,
-                Split{s0, cnt, feat, sbin, dl, cat, nanb}, tiles, nblocks,
-                groups, fg, parts, tile_left, nleft, cols, gv, partials, out,
-                static_cast<cudaStream_t>(stream));
+                RowPtrs{sbins, svals, srid, sscore, sconsts}, F, B, pr,
+                tiles, nblocks, groups, fg, parts, tile_left, nleft, cols,
+                gv, partials, out, static_cast<cudaStream_t>(stream));
 }
 
 // The same over records: base and sbase u8 [n, S] (16-byte aligned), F
@@ -651,12 +660,16 @@ int fused_split_p2(uint8_t* base, uint8_t* sbase, int S, int Fb,
                    int* tile_left, int* nleft, uint8_t* cols, float* gv,
                    float* partials, float* out, int F, int B, int s0,
                    int cnt, int feat, int sbin, int dl, int cat, int nanb,
-                   int tiles, int nblocks, int groups, int fg, int parts,
+                   int nwords, const unsigned* words, int tiles,
+                   int nblocks, int groups, int fg, int parts,
                    void* stream) {
-  return launch(RecPtr{base, S, Fb}, RecPtr{sbase, S, Fb}, F, B,
-                Split{s0, cnt, feat, sbin, dl, cat, nanb}, tiles, nblocks,
-                groups, fg, parts, tile_left, nleft, cols, gv, partials, out,
-                static_cast<cudaStream_t>(stream));
+  Pred pr;
+  if (!part::make_pred(Split{s0, cnt, feat, sbin, dl, cat, nanb}, nwords,
+                       words, &pr))
+    return (int)cudaErrorInvalidValue;
+  return launch(RecPtr{base, S, Fb}, RecPtr{sbase, S, Fb}, F, B, pr, tiles,
+                nblocks, groups, fg, parts, tile_left, nleft, cols, gv,
+                partials, out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

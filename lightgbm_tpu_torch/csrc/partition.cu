@@ -3,10 +3,14 @@
 //
 // partition_scan replaces lightgbm_tpu/ops/pallas/partition_kernel2.py
 // make_partition_ss (with partition_kernel3.make_partition_perm's
-// packing; pallas_call at partition_kernel2.py:377): the rows of the
-// segment [s0, s0 + cnt) are split by the go-left predicate of
-// partition_kernel._go_left (numerical bin <= sbin, the NaN bin routed by
-// default_left, one-hot categorical bin == sbin), and written to scratch
+// packing; pallas_call at partition_kernel2.py:377), and with membership
+// words its sorted-subset modes partition_ss_permute_cat /
+// partition_ss_matmul_cat (partition_kernel3.py:689,
+// partition_kernel2.py:429): the rows of the segment [s0, s0 + cnt) are
+// split by the go-left predicate of partition_kernel._go_left (numerical
+// bin <= sbin, the NaN bin routed by default_left, categorical bin ==
+// sbin, or the bin's bit of the descriptor's membership words where it
+// carries them: part::pred_left), and written to scratch
 // as the left rows in their original order followed by the right rows in
 // REVERSED original order -- the layout the compiled TPU kernel leaves
 // (its per-block right packing is reversed and written downward).  nleft
@@ -18,7 +22,8 @@
 // outside it.
 //
 // partition_scan_p2 replaces partition_kernel3.make_partition_p2
-// (_scan_kernel_p2, pallas_call at :633), the scan at pack=2: the same
+// (_scan_kernel_p2, pallas_call at :633; with words partition_p2_cat,
+// :710), the scan at pack=2: the same
 // kernel over records (partition_common.cuh RecPtr), instantiated from
 // the same template, so the left rows, the reversed right rows and nleft
 // are partition_scan's.  The TPU kernel's parity carries (two rows share
@@ -104,16 +109,20 @@ int partition_scan_p2_smem_bytes(int T, int S, int staged) {
 // Partition scan of [s0, s0 + cnt) into scratch in tiles of T rows,
 // the bins staged in shared memory or not; state is the look-back state
 // (1 + ceil(cnt / T) 64-bit words, zeroed here on the stream), nleft an
-// int32 device scalar.  cnt must be > 0.  Returns the CUDA error code (0
-// on success).
+// int32 device scalar, words nwords (<= 8) host membership words (read
+// by categorical splits; may be null when nwords is 0).  cnt must be >
+// 0.  Returns the CUDA error code (0 on success), cudaErrorInvalidValue
+// for nwords > 8.
 int partition_scan(uint8_t* bins, float* vals, int* rid, float* score,
                    float* consts, uint8_t* sbins, float* svals, int* srid,
                    float* sscore, float* sconsts, unsigned long long* state,
                    int* nleft, int F, int s0, int cnt, int feat, int sbin,
-                   int dl, int cat, int nanb, int T, int staged,
-                   void* stream) {
-  part::Pred p{};
-  p.sp = part::Split{s0, cnt, feat, sbin, dl, cat, nanb};
+                   int dl, int cat, int nanb, int nwords,
+                   const unsigned* words, int T, int staged, void* stream) {
+  part::Pred p;
+  if (!part::make_pred(part::Split{s0, cnt, feat, sbin, dl, cat, nanb},
+                       nwords, words, &p))
+    return (int)cudaErrorInvalidValue;
   return part::scan_launch(RowPtrs{bins, vals, rid, score, consts},
                            RowPtrs{sbins, svals, srid, sscore, sconsts}, F,
                            p, T, staged, state, nleft,
@@ -124,11 +133,14 @@ int partition_scan(uint8_t* bins, float* vals, int* rid, float* score,
 // vals at byte Fb.  cnt must be > 0.
 int partition_scan_p2(uint8_t* base, uint8_t* sbase, int S, int Fb,
                       unsigned long long* state, int* nleft, int s0, int cnt,
-                      int feat, int sbin, int dl, int cat, int nanb, int T,
-                      int staged, void* stream) {
-  if (S % 16) return (int)cudaErrorInvalidValue;
-  part::Pred p{};
-  p.sp = part::Split{s0, cnt, feat, sbin, dl, cat, nanb};
+                      int feat, int sbin, int dl, int cat, int nanb,
+                      int nwords, const unsigned* words, int T, int staged,
+                      void* stream) {
+  part::Pred p;
+  if (S % 16
+      || !part::make_pred(part::Split{s0, cnt, feat, sbin, dl, cat, nanb},
+                          nwords, words, &p))
+    return (int)cudaErrorInvalidValue;
   // a record's bin stride and copy are its own: F is not read
   return part::scan_launch(part::RecPtr{base, S, Fb},
                            part::RecPtr{sbase, S, Fb}, 0, p, T, staged, state,

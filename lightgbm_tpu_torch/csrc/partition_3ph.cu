@@ -2,7 +2,9 @@
 //
 // partition_3ph replaces lightgbm_tpu/ops/pallas/partition_kernel.py
 // make_partition (_partition_kernel, _go_left, _member_bit; pallas_call at
-// partition_kernel.py:329), the kernel behind LGBM_TPU_PART=3ph.  The
+// partition_kernel.py:329), the kernel behind LGBM_TPU_PART=3ph, and
+// with membership words its sorted-subset mode partition_3ph_cat
+// (partition_kernel.py:372).  The
 // rows of the segment [s0, s0 + cnt) are split by the go-left predicate
 // of _go_left -- numerical bin <= sbin with the NaN bin routed by
 // default_left; a categorical split one-hot (bin == sbin) or, when the
@@ -129,13 +131,11 @@ int partition_3ph(uint8_t* bins, float* vals, int* rid, float* score,
                   int* nleft, int F, int s0, int cnt, int feat, int sbin,
                   int dl, int cat, int nanb, int nwords,
                   const unsigned* words, int T, int staged, void* stream) {
-  if (nwords < 0 || nwords > part::kMaxWords)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  part::Pred p{};
-  p.sp = part::Split{s0, cnt, feat, sbin, dl, cat, nanb};
-  p.nwords = nwords;
-  for (int k = 0; k < nwords; ++k) p.words[k] = words[k];
+  part::Pred p;
+  if (!part::make_pred(part::Split{s0, cnt, feat, sbin, dl, cat, nanb},
+                       nwords, words, &p))
+    return (int)cudaErrorInvalidValue;
   const RowPtrs rows{bins, vals, rid, score, consts};
   const RowPtrs scr{sbins, svals, srid, sscore, sconsts};
   const int e = part::scan_launch(rows, scr, F, p, T, staged, state, nleft,

@@ -1,5 +1,5 @@
-// The split predicate, the row layouts, the per-tile left counts and the
-// span copyback shared by partition.cu (scan + copyback, both packs),
+// The split predicate (with the optional membership words), the row
+// layouts, the per-tile left counts and the span copyback shared by partition.cu (scan + copyback, both packs),
 // partition_3ph.cu (through partition_scan.cuh) and fused_split.cu.
 //
 // Two row-access policies.  pack=1, RowPtrs: bins u8 [n, F], vals f32
@@ -30,6 +30,50 @@ __device__ __forceinline__ bool go_left(int col, const Split& sp) {
   if (sp.cat) return col == sp.sbin;
   const bool at_nan = sp.nanb >= 0 && col == sp.nanb;
   return at_nan ? sp.dl != 0 : col <= sp.sbin;
+}
+
+// membership words a descriptor may carry (layout.CAT_BITSET_WORDS)
+constexpr int kMaxWords = 8;
+
+// The split: the descriptor and, for categorical splits, optional
+// membership words (partition_kernel._member_bit, the sorted-subset
+// routes' descriptor); nwords 0 is the one-hot test.  Every kernel that
+// decides a row's side takes the whole Pred and calls pred_left, so the
+// passes of one split (the fused split's count and scatter) can never
+// test different predicates.
+struct Pred {
+  Split sp;
+  unsigned words[kMaxWords];
+  int nwords;
+};
+
+// _go_left with the optional membership words: the words replace bin ==
+// sbin for categorical splits only; a bin past the last word goes right
+__device__ __forceinline__ bool pred_left(int col, const Pred& p) {
+  if (p.sp.cat && p.nwords > 0) {
+    // word col / 32 by selection (an indexed parameter would be copied
+    // to the stack)
+    const int w = col >> 5;
+    unsigned word = 0u;
+#pragma unroll
+    for (int k = 0; k < kMaxWords; ++k)
+      if (k == w && k < p.nwords) word = p.words[k];
+    return ((word >> (col & 31)) & 1u) != 0u;
+  }
+  return go_left(col, p.sp);
+}
+
+// The Pred of a descriptor and nwords (0 to kMaxWords) host words; false
+// for a word count out of range.
+inline bool make_pred(const Split& sp, int nwords, const unsigned* words,
+                      Pred* p) {
+  if (nwords < 0 || nwords > kMaxWords || (nwords > 0 && words == nullptr))
+    return false;
+  *p = Pred{};
+  p->sp = sp;
+  p->nwords = nwords;
+  for (int k = 0; k < nwords; ++k) p->words[k] = words[k];
+  return true;
 }
 
 struct RowPtrs {
@@ -70,8 +114,9 @@ __device__ __host__ inline int bin_stride(const RecPtr& r, int) { return r.S; }
 // the thread's kPer rows of tile `tile`: their left bits, and how many
 // of them are rows of the segment
 __device__ __forceinline__ int thread_bits(const uint8_t* bins, int F,
-                                           const Split& sp, int tile,
+                                           const Pred& pr, int tile,
                                            unsigned* bits) {
+  const Split& sp = pr.sp;
   const int first = tile * kTile + threadIdx.x * kPer;
   int live = 0;
   unsigned b = 0;
@@ -80,7 +125,7 @@ __device__ __forceinline__ int thread_bits(const uint8_t* bins, int F,
     if (p < sp.cnt) {
       ++live;
       const int col = bins[(size_t)(sp.s0 + p) * F + sp.feat];
-      if (go_left(col, sp)) b |= 1u << k;
+      if (pred_left(col, pr)) b |= 1u << k;
     }
   }
   *bits = b;
@@ -116,10 +161,10 @@ __device__ int block_exclusive_scan(int v, int* total) {
 
 // left rows of each kTile-row tile of the segment
 __global__ void __launch_bounds__(kThreads)
-count_tiles(const uint8_t* __restrict__ bins, int F, Split sp,
+count_tiles(const uint8_t* __restrict__ bins, int F, Pred p,
             int* __restrict__ tile_left) {
   unsigned bits;
-  thread_bits(bins, F, sp, blockIdx.x, &bits);
+  thread_bits(bins, F, p, blockIdx.x, &bits);
   int total;
   block_exclusive_scan(__popc(bits), &total);
   if (threadIdx.x == 0) tile_left[blockIdx.x] = total;

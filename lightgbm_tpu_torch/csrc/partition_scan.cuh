@@ -59,36 +59,10 @@ namespace {
 
 constexpr int kScanThreads = 256;
 constexpr int kScanMaxTile = 1024;    // 32 ballot groups at most
-constexpr int kMaxWords = 8;          // layout.CAT_BITSET_WORDS
 constexpr int kDirectWords = 4;       // global loads in flight (unstaged)
 // status word flags (the count is the low 32 bits)
 constexpr unsigned long long kAgg = 1ull << 32;
 constexpr unsigned long long kPrefix = 2ull << 32;
-
-// The split: the descriptor and, for categorical splits, optional
-// membership words (partition_kernel._member_bit); nwords 0 is the
-// one-hot test.
-struct Pred {
-  Split sp;
-  unsigned words[kMaxWords];
-  int nwords;
-};
-
-// _go_left with the optional membership words: the words replace bin ==
-// sbin for categorical splits only
-__device__ __forceinline__ bool pred_left(int col, const Pred& p) {
-  if (p.sp.cat && p.nwords > 0) {
-    // word col / 32 by selection (an indexed parameter would be copied
-    // to the stack)
-    const int w = col >> 5;
-    unsigned word = 0u;
-#pragma unroll
-    for (int k = 0; k < kMaxWords; ++k)
-      if (k == w && k < p.nwords) word = p.words[k];
-    return ((word >> (col & 31)) & 1u) != 0u;
-  }
-  return go_left(col, p.sp);
-}
 
 // Shared bytes staging n bytes from any 4-byte-aligned address: a head
 // of up to 15 bytes, whole 16-byte chunks.

@@ -75,7 +75,7 @@ def check_pack_conflicts(cfg: Config) -> None:
                   "kernel; unset LGBM_TPU_PART=3ph")
 
 
-def check_supported(cfg: Config, ds: Optional[BinnedDataset]) -> None:
+def check_supported(cfg: Config) -> None:
     """Raise for the pack conflicts and for every parameter this slice
     does not port."""
     check_pack_conflicts(cfg)
@@ -108,11 +108,14 @@ def check_supported(cfg: Config, ds: Optional[BinnedDataset]) -> None:
         _unported("extra_trees")
     if cfg.linear_tree:
         _unported("linear_tree")
-    if ds is not None and any(
-            m.bin_type == BinType.CATEGORICAL
-            and m.num_bins > cfg.max_cat_to_onehot for m in ds.mappers):
-        _unported("categorical subset splits (a categorical feature has "
-                  "more bins than max_cat_to_onehot)")
+
+
+def uses_cat_subset(cfg: Config, ds: BinnedDataset) -> bool:
+    """Whether the sorted-subset categorical search runs
+    (``lightgbm_tpu/models/gbdt.py:130-158``): a categorical feature has
+    more bins than ``max_cat_to_onehot``."""
+    return any(m.bin_type == BinType.CATEGORICAL
+               and m.num_bins > cfg.max_cat_to_onehot for m in ds.mappers)
 
 
 class _ValidSet:
@@ -134,7 +137,7 @@ class GBDT:
                  objective: Optional[ObjectiveFunction],
                  metrics: Sequence[Metric] = (), *,
                  device: torch.device, timer: Optional[StageTimer] = None):
-        check_supported(config, train_set)
+        check_supported(config)
         self.config = config
         self.train_set = train_set
         self.objective = objective
@@ -151,13 +154,23 @@ class GBDT:
         self._fmask_const = None
         self.timer = timer or StageTimer()
         cfg = config
+        subset = uses_cat_subset(cfg, train_set)
+        if subset:
+            log.info("sorted-subset categorical search enabled (a "
+                     "categorical feature exceeds max_cat_to_onehot=%d); "
+                     "the splits' membership words ride the partition "
+                     "descriptor", cfg.max_cat_to_onehot)
         self.hp = SplitHyperParams(
             lambda_l1=cfg.lambda_l1, lambda_l2=cfg.lambda_l2,
             min_data_in_leaf=cfg.min_data_in_leaf,
             min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
             min_gain_to_split=cfg.min_gain_to_split,
             max_delta_step=cfg.max_delta_step, path_smooth=cfg.path_smooth,
-            use_smoothing=cfg.path_smooth > 0.0)
+            use_smoothing=cfg.path_smooth > 0.0, cat_l2=cfg.cat_l2,
+            cat_smooth=cfg.cat_smooth, use_cat_subset=subset,
+            max_cat_to_onehot=cfg.max_cat_to_onehot,
+            max_cat_threshold=cfg.max_cat_threshold,
+            min_data_per_group=cfg.min_data_per_group)
         self.dd: DeviceDataset = to_device(train_set, device)
         dd = self.dd
         kind = getattr(objective, "STREAM_KIND", None)
@@ -168,7 +181,7 @@ class GBDT:
             bagging=cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0,
             linear_tree=bool(cfg.linear_tree),
             learner=cfg.tree_learner,
-            bins_u8=dd.bins.dtype == torch.uint8,
+            bins_u8=dd.bins.dtype == torch.uint8, cat_subset=subset,
             fused_ok=fused_supported(dd.num_features, dd.padded_bins),
             tail_ok=apply_find_supported(dd.num_features, dd.padded_bins)),
             num_features=dd.num_features, padded_bins=dd.padded_bins))
@@ -260,7 +273,9 @@ class GBDT:
         ``inner`` maps original to inner feature ids."""
         lv = torch.as_tensor(t.leaf_value, dtype=torch.float32,
                              device=self.device)
-        return lv[predict_leaf_bins(_bin_tree(t, inner), bins,
+        members = (t.bin_members(self.dd.padded_bins)
+                   if self.hp.use_cat_subset else None)
+        return lv[predict_leaf_bins(_bin_tree(t, inner, members), bins,
                                     self.dd.num_bins, self.dd.has_nan)]
 
     def _feature_mask(self) -> torch.Tensor:
@@ -363,9 +378,11 @@ class GBDT:
         return self.iter_
 
 
-def _bin_tree(t: Tree, inner: dict) -> TreeArrays:
+def _bin_tree(t: Tree, inner: dict,
+              members: Optional[np.ndarray] = None) -> TreeArrays:
     """Bin-space arrays of a finished tree (for scoring a validation set
-    that joins after trees exist)."""
+    that joins after trees exist); ``members`` its categorical nodes'
+    bins (``Tree.bin_members``) under the sorted-subset search."""
     ni = t.num_leaves - 1
     z = np.zeros(ni, np.float32)
     return TreeArrays(
@@ -377,4 +394,5 @@ def _bin_tree(t: Tree, inner: dict) -> TreeArrays:
         left_child=t.left_child, right_child=t.right_child,
         internal_value=z, internal_weight=z, internal_count=z,
         leaf_value=t.leaf_value.astype(np.float32),
-        leaf_weight=z, leaf_count=z, num_leaves=t.num_leaves)
+        leaf_weight=z, leaf_count=z, num_leaves=t.num_leaves,
+        cat_members=members)

@@ -19,11 +19,23 @@ from typing import List
 import numpy as np
 
 from ..io.binning import MissingType
+from ..ops.descriptor import words_to_members
 from ..utils.log import LightGBMError
 
 _K_CATEGORICAL_MASK = 1
 _K_DEFAULT_LEFT_MASK = 2
 _K_ZERO_THRESHOLD = 1e-35
+
+
+def _bitset(values) -> np.ndarray:
+    """uint32 words with bit ``v % 32`` of word ``v // 32`` set for each
+    of the non-negative ints ``values`` (one zero word for none)."""
+    vals = np.asarray(values, np.int64)
+    words = np.zeros(int(vals.max()) // 32 + 1 if len(vals) else 1,
+                     np.uint32)
+    for v in vals:
+        words[v // 32] |= np.uint32(1 << (int(v) % 32))
+    return words
 
 
 @dataclasses.dataclass
@@ -48,6 +60,9 @@ class Tree:
     num_cat: int = 0
     cat_boundaries: np.ndarray = None    # int32 [num_cat + 1]
     cat_threshold: np.ndarray = None     # uint32 bitset words over raw values
+    # the same bitsets over bins (training space; not in the model text)
+    cat_boundaries_inner: np.ndarray = None
+    cat_threshold_inner: np.ndarray = None
     shrinkage: float = 1.0
     is_linear: bool = False              # always False: see from_string
 
@@ -71,6 +86,8 @@ class Tree:
         t.num_cat = 0
         t.cat_boundaries = np.array([0], np.int32)
         t.cat_threshold = np.zeros(0, np.uint32)
+        t.cat_boundaries_inner = np.array([0], np.int32)
+        t.cat_threshold_inner = np.zeros(0, np.uint32)
         return t
 
     @classmethod
@@ -78,8 +95,12 @@ class Tree:
         """Finalize grown ``TreeArrays`` into model space (the JAX
         package's ``Tree.from_device``): inner -> original feature ids,
         bin thresholds -> real thresholds by the dataset's bin mappers,
-        and the ``decision_type`` bits.  One-hot categorical splits get a
-        bitset over the raw category values that go left."""
+        and the ``decision_type`` bits.  A categorical split gets a
+        bitset over the raw category values that go left: those of its
+        member bins (``ta.cat_members``, the sorted-subset search) or of
+        its one bin (one-hot); bin 0 holds no raw value, so other, NaN,
+        negative and unseen categories go right.  The bitsets over bins
+        are kept beside them (``cat_threshold_inner``)."""
         nl = int(ta.num_leaves)
         ni = max(nl - 1, 0)
         t = cls(num_leaves=nl)
@@ -100,23 +121,27 @@ class Tree:
         t.leaf_value = np.asarray(ta.leaf_value)[:nl].astype(np.float64)
         t.leaf_weight = np.asarray(ta.leaf_weight)[:nl].astype(np.float64)
         t.leaf_count = np.asarray(ta.leaf_count)[:nl].astype(np.int64)
+        members = ta.cat_members
         thresh = np.zeros(ni, np.float64)
         dtype_arr = np.zeros(ni, np.uint8)
-        cat_bounds = [0]
+        cat_bounds, cat_bounds_inner = [0], [0]
         cat_words: List[np.ndarray] = []
+        cat_words_inner: List[np.ndarray] = []
         for i in range(ni):
             mapper = dataset.mappers[sf_inner[i]]
             d = 0
             if cat[i]:
                 d |= _K_CATEGORICAL_MASK
-                vals = mapper.cat_values[np.isin(mapper.cat_bins, [tb[i]])]
-                maxv = int(vals.max()) if len(vals) else 0
-                words = np.zeros(maxv // 32 + 1, np.uint32)
-                for v in vals:
-                    words[v // 32] |= np.uint32(1 << (int(v) % 32))
+                in_set = (np.flatnonzero(members[i]) if members is not None
+                          else np.array([int(tb[i])]))
+                vals = mapper.cat_values[np.isin(mapper.cat_bins, in_set)]
+                words = _bitset(vals)
                 thresh[i] = len(cat_words)   # slot into cat_boundaries
                 cat_words.append(words)
                 cat_bounds.append(cat_bounds[-1] + len(words))
+                wi = _bitset(in_set)
+                cat_words_inner.append(wi)
+                cat_bounds_inner.append(cat_bounds_inner[-1] + len(wi))
                 d |= MissingType.NAN << 2    # NaN goes right
             else:
                 d |= int(mapper.missing_type) << 2
@@ -135,7 +160,29 @@ class Tree:
         t.cat_boundaries = np.asarray(cat_bounds, np.int32)
         t.cat_threshold = (np.concatenate(cat_words) if cat_words
                            else np.zeros(0, np.uint32))
+        t.cat_boundaries_inner = np.asarray(cat_bounds_inner, np.int32)
+        t.cat_threshold_inner = (np.concatenate(cat_words_inner)
+                                 if cat_words_inner
+                                 else np.zeros(0, np.uint32))
         return t
+
+    def bin_members(self, padded_bins: int) -> np.ndarray:
+        """bool [num_leaves - 1, padded_bins]: the bins each categorical
+        node sends left, from the bitsets over bins a trained tree keeps
+        (``predict_leaf_bins``' ``cat_members``)."""
+        if self.cat_threshold_inner is None:
+            raise LightGBMError("the tree keeps no bitsets over bins (it was "
+                                "not trained in this process)")
+        ni = self.num_leaves - 1
+        out = np.zeros((ni, padded_bins), bool)
+        for i in range(ni):
+            if self.decision_type[i] & _K_CATEGORICAL_MASK:
+                slot = int(self.threshold[i])
+                lo, hi = (self.cat_boundaries_inner[slot],
+                          self.cat_boundaries_inner[slot + 1])
+                out[i] = words_to_members(
+                    self.cat_threshold_inner[lo:hi].tolist(), padded_bins)
+        return out
 
     def apply_shrinkage(self, rate: float) -> None:
         """Tree::Shrinkage (tree.h:207)."""

@@ -31,7 +31,10 @@ included.  :func:`cluster_winner_ref` models its search (each block's
 winner over its feature range, then the merge) for the tests.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel or raises.  The kernel has no
+sorted-subset categorical search: under ``hp.use_cat_subset`` the route
+takes the PyTorch tail (:func:`apply_find_pool_ref`, whose
+``find_best_split`` searches the subsets), and a kernel launch raises.
 """
 from __future__ import annotations
 
@@ -88,14 +91,16 @@ def build_finder_consts(num_bins: torch.Tensor, has_nan: torch.Tensor,
                         is_cat: torch.Tensor, padded_bins: int
                         ) -> FinderConsts:
     """``apply_find.build_finder_consts`` without the monotone row:
-    0 valid0 (numerical forward merged with one-hot categorical), 1
+    0 valid0 (numerical forward merged with one-hot categorical, bin 0
+    of a categorical feature left out as in ``split.py``), 1
     valid1 (numerical, missing left), 2 the NaN bin's one-hot (zero
     without a NaN bin), 3 is_cat broadcast over bins."""
     bins_r = torch.arange(padded_bins, dtype=torch.int32,
                           device=num_bins.device)[None, :]
     max_t = num_bins[:, None] - 2 - has_nan[:, None].to(torch.int32)
     num_valid = (bins_r <= max_t) & ~is_cat[:, None]
-    cat_valid = (bins_r < num_bins[:, None]) & is_cat[:, None]
+    cat_valid = ((bins_r >= 1) & (bins_r < num_bins[:, None])
+                 & is_cat[:, None])
     nan_oh = ((bins_r == torch.clamp(num_bins - 1, min=0)[:, None])
               & has_nan[:, None])
     masks = torch.stack([num_valid | cat_valid, num_valid & has_nan[:, None],
@@ -355,6 +360,12 @@ def _check(h_a, h_b, nleft, st: TreeState, fc: FinderConsts,
 
 def _scalars(at: SplitAt, max_depth: int, hp: SplitHyperParams, f: int,
              b: int, geo: TailGeometry) -> list:
+    if hp.use_cat_subset:
+        # the kernel searches no sorted subsets: the route sends such
+        # models to the PyTorch tail (routing rule tail_cat_subset)
+        raise LightGBMError("the kernel split tail has no sorted-subset "
+                            "categorical search; the PyTorch tail "
+                            "(apply_find_pool_ref) runs it")
     return [f, b, at.leaf, at.right, at.node, at.s0, at.cnt, int(at.done),
             geo.blocks, geo.feats, int(max_depth), hp.lambda_l1,
             hp.lambda_l2, float(hp.min_data_in_leaf),

@@ -18,6 +18,13 @@ smaller child by ``nleft * 2 <= cnt``.
 :func:`fused_split_ref` over :meth:`PackedRows.fields`, and the kernel
 writes the pack=1 kernel's rows, ``nleft`` and histograms.
 
+A descriptor may carry up to eight membership words after its eight
+slots (``descriptor.SEL_MEMBER``; the sorted-subset routes pass
+them with every split): a categorical row then goes left where its
+bin's bit is set, as in ``partition_kernel.go_left``.  Both entries
+pass them to the kernels (``count_tiles`` and ``fused_scatter`` test
+one predicate, ``part::pred_left``).
+
 :func:`fused_split` and :func:`fused_split_p2` take the plain version
 only for tensors on the CPU; for CUDA tensors they launch the kernels or
 raise.  On the card a split runs in two passes (``csrc/fused_split.cu``):
@@ -40,7 +47,8 @@ from .device_data import PackedRows, Rows, check_packed
 from .hist_kernel2 import MAX_SMEM, build_histogram_comb_ref, hist_blocks
 from .partition_kernel import (SCAN_TILE, SEL_CNT, SEL_FEAT, SEL_S0,
                                check_nleft, check_rows, check_segment,
-                               partition_scan_ref, row_pointers, split_args)
+                               check_words, partition_scan_ref, row_pointers,
+                               split_args, word_args)
 
 
 def child_ranges(s0: int, cnt: int, nleft: int):
@@ -186,9 +194,10 @@ def fused_geometry(f: int, padded_bins: int, cnt: int) -> FusedGeometry:
 def _lib():
     lib = _build.load("fused_split")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_split.argtypes = [p] * 16 + [i] * 14 + [p]
+    lib.fused_split.argtypes = [p] * 16 + [i] * 9 + [i, p] + [i] * 5 + [p]
     lib.fused_split.restype = i
-    lib.fused_split_p2.argtypes = [p] * 2 + [i] * 2 + [p] * 6 + [i] * 14 + [p]
+    lib.fused_split_p2.argtypes = ([p] * 2 + [i] * 2 + [p] * 6 + [i] * 9
+                                   + [i, p] + [i] * 5 + [p])
     lib.fused_split_p2.restype = i
     lib.fused_hist_smem_bytes.argtypes = [i] * 3
     lib.fused_hist_smem_bytes.restype = i
@@ -248,6 +257,7 @@ def fused_split(rows: Rows, scratch: Rows, sel: Sequence[int],
     check_rows(rows, scratch, nleft)
     s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
     check_segment(rows.bins.shape[0], s0, cnt)
+    check_words(sel)
     f = rows.bins.shape[1]
     shape = (2, f, padded_bins, 2)
     if cnt == 0:
@@ -261,7 +271,7 @@ def fused_split(rows: Rows, scratch: Rows, sel: Sequence[int],
         rc = _lib().fused_split(
             *row_pointers(rows), *row_pointers(scratch), ptrs[0],
             nleft.data_ptr(), *ptrs[1:], out.data_ptr(), f,
-            int(padded_bins), s0, cnt, *split_args(sel),
+            int(padded_bins), s0, cnt, *split_args(sel), *word_args(sel),
             *_geometry_args(geo), stream)
     if rc != 0:
         raise LightGBMError(f"fused_split kernel launch failed with CUDA "
@@ -299,6 +309,7 @@ def fused_split_p2(rows: PackedRows, scratch: PackedRows, sel: Sequence[int],
     check_nleft(nleft, dev)
     s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
     check_segment(rows.buf.shape[0], s0, cnt)
+    check_words(sel)
     lay = rows.layout
     f = lay.num_features
     if cnt == 0:
@@ -313,7 +324,7 @@ def fused_split_p2(rows: PackedRows, scratch: PackedRows, sel: Sequence[int],
         rc = _lib().fused_split_p2(
             rows.buf.data_ptr(), scratch.buf.data_ptr(), lay.stride, lay.fb,
             ptrs[0], nleft.data_ptr(), *ptrs[1:], out.data_ptr(), f,
-            int(padded_bins), s0, cnt, *split_args(sel),
+            int(padded_bins), s0, cnt, *split_args(sel), *word_args(sel),
             *_geometry_args(geo), stream)
     if rc != 0:
         raise LightGBMError(f"fused_split_p2 kernel launch failed with CUDA "

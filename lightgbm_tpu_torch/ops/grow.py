@@ -76,8 +76,8 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .apply_find import (BCAT, BG, SC, SH, SMN, SMX, SOUT, SPAR, SplitAt,
-                         TreeState, allow_split, apply_find_pool,
+from .apply_find import (BB, BCAT, BF, BG, SC, SH, SMN, SMX, SOUT, SPAR,
+                         SplitAt, TreeState, allow_split, apply_find_pool,
                          apply_find_pool_ref, apply_find_torch_pool,
                          build_finder_consts)
 from .device_data import (DeviceDataset, PackedRows, Rows, bins_i32,
@@ -86,11 +86,13 @@ from .device_data import (DeviceDataset, PackedRows, Rows, bins_i32,
 from .fused_split import fused_split, fused_split_p2
 from .hist_kernel2 import (build_histogram_comb, build_histogram_comb_p2,
                            build_histogram_rows)
-from .partition_kernel import (copyback, copyback_p2, partition,
+from .descriptor import members_to_words, words_to_members
+from .partition_kernel import (copyback, copyback_p2, go_left, partition,
                                partition_3ph, partition_p2)
-from .routing import RouteDecision
+from .routing import RouteDecision, cat_bitset_fit
 from .split import (SplitHyperParams, calculate_leaf_output,
-                    find_best_split, pack_split_info, selection_key)
+                    cat_subset_member, derived_counts, find_best_split,
+                    pack_split_info, selection_key)
 from .stream_grad import (stream_init, stream_init_p2, stream_refresh,
                           stream_refresh_p2, stream_refresh_plain,
                           stream_refresh_plain_p2)
@@ -115,6 +117,10 @@ class TreeArrays(NamedTuple):
     leaf_weight: np.ndarray      # f32
     leaf_count: np.ndarray       # f32
     num_leaves: int
+    # bool [L-1, B]: the bins each categorical node sends left, under the
+    # sorted-subset search (a one-hot node's is its one bin); None when
+    # every categorical split is one-hot (threshold_bin is the bin)
+    cat_members: Optional[np.ndarray] = None
 
 
 class StageTimer:
@@ -195,6 +201,9 @@ class _TreeBuilder:
 
     def __init__(self, L: int):
         ni = L - 1
+        # each node's membership words as read (i32), where the
+        # descriptor carried them
+        self.words: Dict[int, List[int]] = {}
         self.split_feature = np.zeros(ni, np.int32)
         self.threshold_bin = np.zeros(ni, np.int32)
         self.default_left = np.zeros(ni, bool)
@@ -205,7 +214,9 @@ class _TreeBuilder:
         self.num_leaves = 1
 
     def split(self, leaf: int, right: int, node: int, feat: int, sbin: int,
-              dl: int, cat: int) -> None:
+              dl: int, cat: int, words=()) -> None:
+        if words:
+            self.words[node] = list(words)
         p, side = self.leaf_parent[leaf]
         if p >= 0:
             (self.left_child if side == 0 else self.right_child)[p] = node
@@ -215,6 +226,14 @@ class _TreeBuilder:
         self.leaf_parent[leaf] = (node, 0)
         self.leaf_parent[right] = (node, 1)
         self.num_leaves += 1
+
+    def members(self, padded_bins: int) -> np.ndarray:
+        """bool [L-1, B]: bit ``b % 32`` of node word ``b // 32``, the
+        bins each node sends left (all false for numerical nodes)."""
+        out = np.zeros((len(self.split_feature), padded_bins), bool)
+        for node, words in self.words.items():
+            out[node] = words_to_members(words, padded_bins)
+        return out
 
 
 class _Grower:
@@ -236,6 +255,7 @@ class _Grower:
                                           dd.is_cat, dd.padded_bins)
         self._num_bins = dd.num_bins.cpu().numpy()
         self._has_nan = dd.has_nan.cpu().numpy()
+        self._bins = torch.arange(dd.padded_bins, device=dd.device)
         # host reads of the split descriptor over the run
         self.host_reads = 0
         # set to a list to record every split descriptor read
@@ -279,9 +299,31 @@ class _Grower:
 
     def _split_step(self, sel: tuple, nleft: torch.Tensor):
         """Partition the leaf's segment ``sel = (s0, cnt, feature, bin,
-        default_left, is_cat, nan_bin)``, set ``nleft``, and return the
-        children's histograms ``(h_a, h_b)`` as the tail takes them."""
+        default_left, is_cat, nan_bin)`` (then a spare slot and the
+        membership words under the sorted-subset search), set ``nleft``,
+        and return the children's histograms ``(h_a, h_b)`` as the tail
+        takes them."""
         raise NotImplementedError
+
+    def _winner_words(self, st: TreeState, leaf_t: torch.Tensor
+                      ) -> torch.Tensor:
+        """The membership words of leaf ``leaf_t``'s best split, i32
+        ``[ceil(B / 32)]`` on the device (``grow.py:1511-1546``): a subset
+        winner (``threshold_bin = B * (1 + dir) + k - 1``) takes the
+        finder's own ranking of the leaf's pooled histogram row, with the
+        row counts derived from the leaf's ``(count, sum_h)``; a one-hot
+        winner its one bin; a numerical winner none."""
+        b, hp = self.dd.padded_bins, self.hp
+        brow, lrow = st.best[leaf_t], st.lstate[leaf_t]
+        feat, sbin = brow[BF].long(), brow[BB].long()
+        hrow = st.pool[leaf_t, feat]                           # [B, 2]
+        hc = derived_counts(hrow[:, 1], lrow[SC], lrow[SH])
+        subset = cat_subset_member(
+            hrow[:, 0], hrow[:, 1], hc, self.dd.num_bins[feat], sbin % b + 1,
+            torch.clamp(sbin // b - 1, 0, 1), hp)
+        member = (torch.where(sbin >= b, subset, self._bins == sbin)
+                  & (brow[BCAT] > 0.5))
+        return members_to_words(member[None])[0]
 
     def _grow(self, st: TreeState, feature_mask: torch.Tensor
               ) -> _TreeBuilder:
@@ -293,12 +335,18 @@ class _Grower:
                 if route.tail == "kernel" else apply_find_pool_ref)
         tb = _TreeBuilder(self.L)
         nleft = torch.zeros(1, dtype=torch.int32, device=dev)
+        subset = self.hp.use_cat_subset
         for i in range(self.L - 1):
             with stage("split_tail", dev):
                 leaf_t = torch.argmax(selection_key(st.best[:, BG]))
-                desc = torch.cat([leaf_t[None].double(),
-                                  st.best[leaf_t, :BCAT + 1].double(),
-                                  st.seg[leaf_t].double()]).tolist()
+                parts = [leaf_t[None].double(),
+                         st.best[leaf_t, :BCAT + 1].double(),
+                         st.seg[leaf_t].double()]
+                if subset:
+                    # the words ride the same read, as integers (an f32
+                    # word above 2^24 would lose bits)
+                    parts.append(self._winner_words(st, leaf_t).double())
+                desc = torch.cat(parts).tolist()
             self.host_reads += 1
             if self.trace is not None:
                 self.trace.append(desc)
@@ -306,17 +354,19 @@ class _Grower:
                 int(desc[0]), desc[1], int(desc[2]), int(desc[3]),
                 int(desc[4] > 0.5), int(desc[5] > 0.5), int(desc[6]),
                 int(desc[7]))
+            words = tuple(int(w) for w in desc[8:])
             if gain <= 0.0:
                 break
             node, right = i, tb.num_leaves
             nanb = (int(self._num_bins[feat]) - 1 if self._has_nan[feat]
                     else -1)
-            h_a, h_b = self._split_step((s0, cnt, feat, sbin, dl, cat, nanb),
-                                        nleft)
+            sel = (s0, cnt, feat, sbin, dl, cat, nanb) + (
+                (0,) + words if subset else ())
+            h_a, h_b = self._split_step(sel, nleft)
             with stage("split_tail", dev):
                 tail(h_a, h_b, nleft, st, self.finder, feature_mask, self.hp,
                      self.max_depth, SplitAt(leaf, right, node, s0, cnt))
-            tb.split(leaf, right, node, feat, sbin, dl, cat)
+            tb.split(leaf, right, node, feat, sbin, dl, cat, words)
         return tb
 
     def _finish(self, st: TreeState, tb: _TreeBuilder, rid: torch.Tensor):
@@ -350,7 +400,9 @@ class _Grower:
             leaf_value=host[nf + 2 * L:nf + 3 * L].copy(),
             leaf_weight=host[nf:nf + L].copy(),
             leaf_count=host[nf + L:nf + 2 * L].copy(),
-            num_leaves=tb.num_leaves)
+            num_leaves=tb.num_leaves,
+            cat_members=(tb.members(dd.padded_bins)
+                         if self.hp.use_cat_subset else None))
         return ta, leaf_id, leaf_value, leaf_of_pos
 
 
@@ -368,6 +420,11 @@ class SerialGrower(_Grower):
                          dd=dd, route=route, timer=timer)
         if not route.physical:
             raise ValueError("the row_order path grows with RowOrderGrower")
+        if hp.use_cat_subset and not cat_bitset_fit(dd.padded_bins):
+            raise ValueError(
+                f"cat_overwide: the membership words of {dd.padded_bins} "
+                "bins exceed the split descriptor's 8; such models grow on "
+                "the row_order path")
         if route.stream and stream is None:
             raise ValueError("the stream route needs the objective's "
                              "StreamSpec")
@@ -532,17 +589,15 @@ class RowOrderGrower(_Grower):
                                     max_rows=max_rows)
 
     def _split_step(self, sel: tuple, nleft: torch.Tensor):
-        s0, cnt, feat, sbin, dl, cat, nanb = sel
+        s0, cnt, feat = sel[:3]
         dev, stage = self.dd.device, self.timer.stage
         with stage("partition", dev):
             seg = self.row_order[s0:s0 + cnt]
             col = bins_i32(self.dd.bins, seg, feat)
-            if cat:
-                go = col == sbin
-            elif nanb >= 0:
-                go = torch.where(col == nanb, bool(dl), col <= sbin)
-            else:
-                go = col <= sbin
+            # the membership test, where the descriptor carries words
+            # (any number: this path's u16 bins take up to 2,048), is a
+            # gather of the bin's word (grow.py:1620-1627)
+            go = go_left(col, sel)
             # a stable compaction with no host read: a left row goes to
             # (lefts up to it) - 1, a right row to nleft + (rights
             # before it)
@@ -589,8 +644,11 @@ def predict_leaf_bins(ta: TreeArrays, bins: torch.Tensor,
                       num_bins: torch.Tensor,
                       has_nan: torch.Tensor) -> torch.Tensor:
     """Rows -> leaf index, walking one tree in bin space (the JAX
-    package's ``ops.predict.predict_leaf_bins``, one-hot categorical
-    splits): ``bins`` [n, F] u8 or u16 on the device, result [n] i64."""
+    package's ``ops.predict.predict_leaf_bins``): a categorical node
+    sends a row left where its bin is one of ``ta.cat_members``' (the
+    bitset walk), or without members where it is ``threshold_bin``
+    (one-hot).  ``bins`` [n, F] u8 or u16 on the device, result [n]
+    i64."""
     n = bins.shape[0]
     nl = int(ta.num_leaves)
     dev = bins.device
@@ -604,6 +662,8 @@ def predict_leaf_bins(ta: TreeArrays, bins: torch.Tensor,
     dl, cat = t(ta.default_left, torch.bool), t(ta.is_categorical,
                                                 torch.bool)
     lc, rc = t(ta.left_child, torch.int64), t(ta.right_child, torch.int64)
+    members = (None if ta.cat_members is None
+               else torch.as_tensor(ta.cat_members[:ni], device=dev))
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     b_all = bins_i32(bins)
     for _ in range(_tree_depth(ta)):
@@ -612,7 +672,9 @@ def predict_leaf_bins(ta: TreeArrays, bins: torch.Tensor,
         b = torch.gather(b_all, 1, feat[:, None])[:, 0]
         at_nan = has_nan[feat] & (b == num_bins[feat] - 1)
         thr = tb[nd]
-        go = torch.where(cat[nd], b == thr,
+        cat_go = (b == thr if members is None else
+                  members[nd, b.clamp(0, members.shape[1] - 1).long()])
+        go = torch.where(cat[nd], cat_go,
                          torch.where(at_nan, dl[nd], b <= thr))
         node = torch.where(node >= 0, torch.where(go, lc[nd], rc[nd]), node)
     return ~node

@@ -7,10 +7,9 @@ Counterpart of ``lightgbm_tpu/ops/pallas/partition_kernel2.py``
 (``make_partition_ss`` with ``partition_kernel3.make_partition_perm``'s
 packing, and ``copyback_call``) and of
 ``lightgbm_tpu/ops/pallas/partition_kernel.py`` (``make_partition``,
-behind ``LGBM_TPU_PART=3ph``).  The split descriptor keeps the layout
-of ``partition_kernel.py`` (``SEL_S0 .. SEL_NANB``, and optionally
-membership words from ``SEL_MEMBER`` on) and the predicate is
-``_go_left``'s.  After :func:`partition` the segment holds its left
+behind ``LGBM_TPU_PART=3ph``).  The split descriptor is
+:mod:`.descriptor`'s (the layout of ``partition_kernel.py``) and the
+predicate is ``_go_left``'s.  After :func:`partition` the segment holds its left
 rows in their original order, then its right rows in reversed original
 order, exactly as the compiled single-scan TPU kernel leaves it; after
 :func:`partition_3ph` the right rows come in ascending original order,
@@ -35,6 +34,11 @@ and the library zeroes there; :func:`scan_geometry` gives the tile, the
 staging and the shared memory.  The wrappers make no host read, so a
 CUDA graph can capture them.
 
+A descriptor of the sorted-subset routes carries up to
+``descriptor.MAX_MEMBER_WORDS`` membership words after its eight slots;
+every entry passes them to its kernel (``part::pred_left``); more words
+raise.
+
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
 """
@@ -48,14 +52,11 @@ import torch
 
 from ..utils.log import LightGBMError
 from . import _build
+from .descriptor import (MAX_MEMBER_WORDS, SEL_CAT, SEL_CNT, SEL_DL,
+                         SEL_FEAT, SEL_MEMBER, SEL_NANB, SEL_S0, SEL_SBIN,
+                         member_words)
 from .device_data import PackedRows, Rows, check_packed
 
-# split descriptor layout (lightgbm_tpu/ops/pallas/partition_kernel.py):
-# seven slots (an eighth is spare), then optionally membership words
-SEL_S0, SEL_CNT, SEL_FEAT, SEL_SBIN, SEL_DL, SEL_CAT, SEL_NANB = range(7)
-SEL_MEMBER = 8
-# membership words a descriptor may carry (layout.CAT_BITSET_WORDS)
-MAX_MEMBER_WORDS = 8
 # rows per count tile of the fused split's partition pass
 # (csrc/partition_common.cuh kTile)
 SCAN_TILE = 1024
@@ -148,12 +149,6 @@ def scan_geometry(cnt: int, num_features: int = 0,
     t, smem, st = _scan_launch(int(num_features), record_stride, tile,
                                staged)
     return ScanGeometry(t, -(-int(cnt) // t), smem, st)
-
-
-def member_words(sel: Sequence[int]) -> list:
-    """The descriptor's membership words as u32 values (empty without
-    them); i32 words with bit 31 set are read as their u32 bits."""
-    return [int(w) & 0xFFFFFFFF for w in sel[SEL_MEMBER:]]
 
 
 def go_left(col: torch.Tensor, sel: Sequence[int]) -> torch.Tensor:
@@ -273,6 +268,25 @@ def split_args(sel: Sequence[int]) -> list:
                                   SEL_NANB)]
 
 
+def word_args(sel: Sequence[int]) -> list:
+    """(nwords, words) of a descriptor: the kernels' membership-word
+    arguments, the words as a C array of u32 (one zero word where there
+    are none, so the pointer is never null)."""
+    words = member_words(sel)
+    return [len(words), (ctypes.c_uint32 * max(len(words), 1))(*words)]
+
+
+def check_words(sel: Sequence[int]) -> int:
+    """The descriptor's word count; raises above
+    ``MAX_MEMBER_WORDS`` (no kernel reads more: a wider bitset is the
+    ``cat_overwide`` route's, which partitions in PyTorch)."""
+    n = len(sel) - SEL_MEMBER if len(sel) > SEL_MEMBER else 0
+    if n > MAX_MEMBER_WORDS:
+        raise LightGBMError(f"a split descriptor carries at most "
+                            f"{MAX_MEMBER_WORDS} membership words, not {n}")
+    return n
+
+
 def check_segment(n: int, s0: int, cnt: int) -> None:
     """Raise unless [s0, s0 + cnt) lies inside an ``n``-row matrix."""
     if s0 < 0 or cnt < 0 or s0 + cnt > n:
@@ -284,13 +298,15 @@ def check_segment(n: int, s0: int, cnt: int) -> None:
 def _lib():
     lib = _build.load("partition")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.partition_scan.argtypes = [p] * 12 + [i] * 10 + [p]
+    lib.partition_scan.argtypes = ([p] * 12 + [i] * 8 + [i, p] + [i] * 2
+                                   + [p])
     lib.partition_scan.restype = i
     lib.partition_copyback.argtypes = [p] * 10 + [i] * 3 + [p]
     lib.partition_copyback.restype = i
     lib.partition_copyback_p2.argtypes = [p, p, i, i, i, p]
     lib.partition_copyback_p2.restype = i
-    lib.partition_scan_p2.argtypes = [p, p, i, i, p, p] + [i] * 9 + [p]
+    lib.partition_scan_p2.argtypes = ([p, p, i, i, p, p] + [i] * 7 + [i, p]
+                                      + [i] * 2 + [p])
     lib.partition_scan_p2.restype = i
     return lib
 
@@ -324,7 +340,7 @@ def launch_scan(rows, scratch, sel: Sequence[int], nleft: torch.Tensor,
     s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
     with torch.cuda.device(dev):
         state = torch.empty(1 + geo.tiles, dtype=torch.int64, device=dev)
-        tail = [geo.tile, int(geo.staged),
+        tail = [*word_args(sel), geo.tile, int(geo.staged),
                 torch.cuda.current_stream(dev).cuda_stream]
         if packed:
             lay = rows.layout
@@ -337,9 +353,7 @@ def launch_scan(rows, scratch, sel: Sequence[int], nleft: torch.Tensor,
                 state.data_ptr(), nleft.data_ptr(), rows.bins.shape[1], s0,
                 cnt, *split_args(sel)]
         if scheme == "3ph":
-            words = member_words(sel)
-            words_c = (ctypes.c_uint32 * max(len(words), 1))(*words)
-            rc = _lib_3ph().partition_3ph(*head, len(words), words_c, *tail)
+            rc = _lib_3ph().partition_3ph(*head, *tail)
             return _raise_on(rc, "partition_3ph")
         return _raise_on(_lib().partition_scan(*head, *tail),
                          "partition_scan")
@@ -360,6 +374,7 @@ def partition_scan(rows: Rows, scratch: Rows, sel: Sequence[int],
     check_rows(rows, scratch, nleft)
     s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
     check_segment(rows.bins.shape[0], s0, cnt)
+    check_words(sel)
     if cnt == 0:
         nleft.zero_()
         return nleft
@@ -421,6 +436,7 @@ def partition_scan_p2(rows: PackedRows, scratch: PackedRows,
     check_nleft(nleft, dev)
     s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
     check_segment(rows.buf.shape[0], s0, cnt)
+    check_words(sel)
     if cnt == 0:
         nleft.zero_()
         return nleft
@@ -484,11 +500,7 @@ def partition_3ph(rows: Rows, scratch: Rows, sel: Sequence[int],
     check_rows(rows, scratch, nleft)
     s0, cnt = int(sel[SEL_S0]), int(sel[SEL_CNT])
     check_segment(rows.bins.shape[0], s0, cnt)
-    words = member_words(sel)
-    if len(words) > MAX_MEMBER_WORDS:
-        raise LightGBMError(f"a split descriptor carries at most "
-                            f"{MAX_MEMBER_WORDS} membership words, not "
-                            f"{len(words)}")
+    check_words(sel)
     if cnt == 0:
         nleft.zero_()
         return nleft

@@ -23,7 +23,11 @@ decision of ``decide``, ``:383-413``) and of the split-tail choice in
   rule ``part_3ph``, ``grow.py:747-750``); ``none`` off the physical
   path;
 - ``tail``: ``kernel`` (``ops/apply_find.py``) or ``xla``, the PyTorch
-  split tail of slice 2 (the name is the JAX package's); with
+  split tail of slice 2 (the name is the JAX package's), which the
+  sorted-subset categorical search also takes (rule
+  ``tail_cat_subset``: the kernel tail searches no subsets, as the JAX
+  package's ``use_kernel_tail`` requires ``not hp.use_cat_subset``,
+  ``grow.py:877-888``); with
   ``pool_tail`` off (``LGBM_TPU_POOL_TAIL=0``, ``grow.py:1253-1262``)
   the kernel tail is the plain-pool entry ``apply_find`` after the pool
   ops in PyTorch;
@@ -34,6 +38,13 @@ decision of ``decide``, ``:383-413``) and of the split-tail choice in
   64-byte record per row at 28 features (``device_data.PackedRows``)
   and runs the pack=2 kernels of the route, with the fused split or
   without it.
+
+A sorted-subset model (``cat_subset``) keeps the physical path with its
+membership words in every split descriptor, up to
+``descriptor.MAX_MEMBER_WORDS`` words (:func:`cat_bitset_fit`, 256
+padded bins); over wider bins it goes to ``row_order`` (rule
+``cat_overwide``, the JAX package's ``:176-181``), where the membership
+test is a gather in PyTorch.
 
 On ``row_order``, ``stream`` and ``fused`` are off: both move rows of
 the physical matrix, and their reason is the path itself.  The knobs are
@@ -57,6 +68,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from ..config import env_knob
 from ..utils.log import LightGBMError
+from .descriptor import MAX_MEMBER_WORDS
 
 # the JAX package's comb layout: logical columns of a pack=2 half line
 # (layout.PACK_W), and the columns beside the bins (routing.py:315,
@@ -65,6 +77,13 @@ PACK_W = 64
 NON_STREAM_EXTRA_COLS = 6
 STREAM_EXTRA_COLS = {"binary": 13, "l2": 15}
 PACK_REQUIRES_PHYSICAL = "pack_requires_physical"
+
+
+def cat_bitset_fit(padded_bins: int) -> bool:
+    """Whether a membership bitset over ``padded_bins`` bins fits the
+    descriptor's words (``layout.cat_bitset_fit``): the shape fact behind
+    ``cat_overwide``, shared with the grower's refusal."""
+    return 0 < int(padded_bins) <= 32 * MAX_MEMBER_WORDS
 
 
 @dataclass(frozen=True)
@@ -77,6 +96,7 @@ class RouteInputs:
     linear_tree: bool = False
     learner: str = "serial"
     bins_u8: bool = True             # every feature's bins fit uint8
+    cat_subset: bool = False         # the sorted-subset categorical search
     phys_env: str = "auto"
     stream_env: str = "auto"
     fused_env: str = "1"
@@ -96,7 +116,8 @@ class RouteInputs:
         b = lambda v: "1" if v else "0"  # noqa: E731
         return (
             f"learner={self.learner};u8={b(self.bins_u8)};"
-            f"wide={b(self.wide_layout)};bag={b(self.bagging)};"
+            f"wide={b(self.wide_layout)};cat={b(self.cat_subset)};"
+            f"bag={b(self.bagging)};"
             f"lin={b(self.linear_tree)};boost={self.boosting};"
             f"obj={self.objective_kind};"
             f"k={'multi' if self.multi_tree else '1'};"
@@ -117,6 +138,11 @@ class Rule:
 
 
 RULES: Tuple[Rule, ...] = (
+    Rule("cat_overwide", "physical", "max_bin",
+         "the categorical membership bitset would exceed the 8-word / "
+         "256-bin split descriptor (MAX_MEMBER_WORDS); sorted-subset "
+         "splits over wider bins keep the row_order path",
+         lambda i: i.cat_subset and not i.bins_u8),
     Rule("non_u8_bins", "physical", "max_bin",
          "bins are wider than uint8 (max_bin > 256); the partition "
          "kernel's bf16 extract matmuls would round bin ids",
@@ -167,6 +193,10 @@ RULES: Tuple[Rule, ...] = (
          "both children's histograms exceed the shared memory of a "
          "cluster of 16 blocks (apply_find.apply_find_supported)",
          lambda i: not i.tail_ok),
+    Rule("tail_cat_subset", "tail", "max_cat_to_onehot",
+         "the one-kernel split tail searches no sorted subsets "
+         "(grow.py use_kernel_tail requires not use_cat_subset)",
+         lambda i: i.cat_subset),
 )
 
 # the pack rules, read only for a pack=2 request on the physical path;
@@ -332,6 +362,14 @@ def enumerate_inputs() -> List[RouteInputs]:
     for boost in ("dart", "goss", "rf"):
         add(boosting=boost)
     add(objective_kind="none")
+    # the sorted-subset search on each route a user selects, and over
+    # bins wider than u8
+    for kw in ({}, dict(pack_env="2"), dict(fused_env="0"),
+               dict(fused_env="0", pack_env="2"), dict(part_env="3ph"),
+               dict(stream_env="0", fused_env="0", apply_impl_env="xla"),
+               dict(phys_env="0"), dict(bins_u8=False),
+               dict(bins_u8=False, pack_env="2")):
+        add(cat_subset=True, **kw)
     return cells
 
 

@@ -6,11 +6,29 @@ cuda_best_split_finder.cu:209-263): cumulative sums over the bin axis
 give every threshold's left sums at once, the gains of all (direction,
 feature, bin) candidates form one masked tensor, and the winner is
 chosen on :func:`selection_key`, feature-major.  Numerical splits in
-both missing directions and one-hot categorical splits are ported, with
-L1/L2, ``max_delta_step``, ``min_gain_to_split``, the min-data /
-min-hessian gates and path smoothing.  Monotone constraints, sorted-
-subset categorical splits, CEGB and extra_trees are not
-(``ROADMAP.md`` A9).
+both missing directions, one-hot categorical splits and the sorted-
+subset search over categorical features with more than
+``max_cat_to_onehot`` bins (:func:`cat_subset_rank`,
+:func:`cat_subset_member`, ``_cat_subset_tensors``) are ported, with
+L1/L2, ``cat_l2`` / ``cat_smooth`` / ``max_cat_threshold`` /
+``min_data_per_group``, ``max_delta_step``, ``min_gain_to_split``, the
+min-data / min-hessian gates and path smoothing.  Monotone constraints,
+CEGB and extra_trees are not (``ROADMAP.md`` A9).
+
+A subset winner is encoded in ``threshold_bin`` as ``B * (1 + dir) +
+(k - 1)``: the first ``k`` candidate bins of the ratio order
+(``dir`` 0 ascending, 1 descending) go left.  Its membership is
+recomputed from the leaf's pooled histogram row by
+:func:`cat_subset_member`, the finder's own ranking.  One deviation
+from the JAX package: bin 0 of a categorical feature (other, NaN,
+negative and unseen categories, ``io/binning.py``) is never a
+categorical candidate, subset or one-hot, as the reference leaves its
+other bin out (feature_histogram.hpp
+FindBestThresholdCategoricalInner), because the model's bitset over raw
+category values cannot send it left: a split sending it left would
+route those rows one way in training and the other way in serving (the
+JAX package does so, ROADMAP C).  Where bin 0 is empty the search is
+the JAX package's.
 
 Every function takes a leading batch dimension K (the two children of
 a split are searched in one pass) and keeps the JAX package's
@@ -33,6 +51,15 @@ class SplitHyperParams(NamedTuple):
     max_delta_step: float = 0.0
     path_smooth: float = 0.0
     use_smoothing: bool = False
+    # the sorted-subset categorical search (feature_histogram.hpp:278),
+    # on for categorical features with more than max_cat_to_onehot bins
+    # when use_cat_subset is set
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    use_cat_subset: bool = False
+    max_cat_to_onehot: int = 4
+    max_cat_threshold: int = 32
+    min_data_per_group: int = 100
 
 
 class SplitInfo(NamedTuple):
@@ -40,7 +67,7 @@ class SplitInfo(NamedTuple):
     every field is a [K] tensor."""
     gain: torch.Tensor            # f32; <= 0 means "no valid split"
     feature: torch.Tensor         # i64 inner feature index
-    threshold_bin: torch.Tensor   # i64
+    threshold_bin: torch.Tensor   # i64; a subset winner B * (1 + dir) + k - 1
     default_left: torch.Tensor    # bool
     is_categorical: torch.Tensor  # bool
     left_sum_g: torch.Tensor
@@ -126,7 +153,13 @@ def _candidate_tensors(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
     bins_r = torch.arange(b, dtype=torch.int32, device=hist.device)[None, :]
     max_t = num_bins[:, None] - 2 - has_nan[:, None].to(torch.int32)
     num_valid = (bins_r <= max_t) & ~is_cat[:, None]           # [F, B]
-    cat_valid = (bins_r < num_bins[:, None]) & is_cat[:, None]
+    # bin 0 (other, NaN, unseen) is no one-hot candidate: it holds no
+    # raw value, so the served model sends it right
+    cat_valid = ((bins_r >= 1) & (bins_r < num_bins[:, None])
+                 & is_cat[:, None])
+    if hp.use_cat_subset:
+        # wider categorical features take the sorted-subset search only
+        cat_valid = cat_valid & (num_bins[:, None] <= hp.max_cat_to_onehot)
 
     cat3 = is_cat[None, :, None]
     left_g0 = torch.where(cat3, hg, cg)
@@ -167,6 +200,147 @@ def _candidate_tensors(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
     return gains, lg, lh, lc, l_out, r_out
 
 
+def cat_subset_rank(hg, hh, hc, valid, hp: SplitHyperParams):
+    """The candidate bins of the sorted-subset search and their rank in
+    the ratio order (feature_histogram.hpp:379-400; the JAX package's
+    ``cat_subset_rank``), over the last axis of ``[..., B]`` tensors.
+
+    A candidate has a hessian-estimated count ``hc`` of at least
+    ``cat_smooth`` and above 0, lies below the feature's bin count
+    (``valid``) and is not bin 0; candidates are ranked ascending by
+    the f32 ratio ``hg / (hh + cat_smooth)``, ties by bin.  Returns
+    ``(cand bool, rank i64, used i64)``; ``rank`` means something only
+    where ``cand``.  The rank is the position in a stable sort, the
+    count of candidates strictly before the bin in (ratio, bin) order,
+    as the JAX package counts it pairwise; ``-0.0`` is made ``+0.0``
+    first, so that the card's bit-ordered sort ties it as the
+    comparison does."""
+    b = hg.shape[-1]
+    bins = torch.arange(b, device=hg.device)
+    cand = (hc >= hp.cat_smooth) & (hc > 0) & valid & (bins >= 1)
+    ratio = hg / (hh + hp.cat_smooth) + 0.0
+    r = torch.where(cand, ratio, torch.full_like(ratio, float("inf")))
+    order = torch.sort(r, dim=-1, stable=True).indices
+    rank = torch.empty_like(order).scatter_(
+        -1, order, bins.expand(order.shape).contiguous())
+    used = cand.sum(dim=-1)
+    return cand, rank, used
+
+
+def cat_subset_member(hg, hh, hc, nb, k, direction, hp: SplitHyperParams):
+    """``[..., B]`` bool membership of a subset winner: the first ``k``
+    bins of the ratio-sorted candidates (``direction`` 0 ascending, 1
+    descending); its bins go left (the JAX package's
+    ``cat_subset_member``).  ``nb`` is the feature's bin count; ``nb``,
+    ``k`` and ``direction`` broadcast against the leading dims."""
+    b = hg.shape[-1]
+    valid = (torch.arange(b, device=hg.device)
+             < torch.as_tensor(nb, device=hg.device)[..., None])
+    cand, rank, used = cat_subset_rank(hg, hh, hc, valid, hp)
+    d = torch.as_tensor(direction, device=hg.device)[..., None]
+    kk = torch.as_tensor(k, device=hg.device)[..., None]
+    rank_d = torch.where(d > 0, used[..., None] - 1 - rank, rank)
+    return cand & (rank_d < kk)
+
+
+def _cat_subset_tensors(hist, sum_g, sum_h, count, num_bins, is_cat,
+                        feature_mask, allow_split, hp: SplitHyperParams,
+                        parent_output=None):
+    """Sorted-subset candidates of K leaves (the JAX package's
+    ``_cat_subset_tensors``): prefix index ``i`` of direction ``d`` means
+    "the first ``i + 1`` candidates of the ratio order (``d`` 0
+    ascending, 1 descending) go left".  Returns gains ``[K, 2, F, B]``
+    (-inf where invalid), the left sums and, with path smoothing, the
+    children's outputs.  The rank-order prefix sums are taken in f64
+    and rounded once, as the bin prefix sums are; the right child's
+    ``min_data_per_group`` gate is applied, the group accumulator's
+    ``continue`` is not (as in the JAX package)."""
+    k, f, b, _ = hist.shape
+    hg, hh = hist[..., 0], hist[..., 1]                        # [K, F, B]
+    c3, sh3 = count[:, None, None], sum_h[:, None, None]
+    hc = derived_counts(hh, c3, sh3)
+    valid = (torch.arange(b, device=hist.device)[None, :]
+             < num_bins[:, None])                              # [F, B]
+    cand, rank, used = cat_subset_rank(hg, hh, hc, valid[None], hp)
+    iot = torch.arange(b, device=hist.device)
+    # the bins in rank order (rank is a permutation of the bins, the
+    # candidates first)
+    order = torch.empty_like(rank).scatter_(
+        -1, rank, iot.expand(rank.shape).contiguous())
+
+    def _rank_cumsum(x):
+        # the channel in rank order (non-candidates, last, add zero),
+        # summed along it
+        srt = torch.gather(x * cand, -1, order)
+        return torch.cumsum(srt.double(), dim=-1).to(hist.dtype)
+    # backward prefix of i + 1 = total - forward prefix of used - i - 1
+    j = used[..., None] - 2 - iot                              # [K, F, B]
+    jc = torch.clamp(j, 0, b - 1)
+
+    def _dirs(cum):
+        tot = cum[..., -1:]
+        take_j = torch.gather(cum, -1, jc)
+        bwd = tot - torch.where(j >= 0, take_j, torch.zeros_like(take_j))
+        return torch.stack([cum, bwd], dim=1)                  # [K, 2, F, B]
+
+    lg = _dirs(_rank_cumsum(hg))
+    lh = _dirs(_rank_cumsum(hh)) + 1e-15
+    lc = _dirs(_rank_cumsum(hc))
+    sg4, sh4 = sum_g[:, None, None, None], sum_h[:, None, None, None]
+    c4 = count[:, None, None, None]
+    rg, rh, rc = sg4 - lg, sh4 - lh, c4 - lc
+
+    eligible = is_cat & (num_bins > hp.max_cat_to_onehot)     # [F]
+    kk = (iot + 1)[None, None, None, :]                       # prefix size
+    used4 = used[:, None, :, None]
+    max_num_cat = torch.clamp((used4 + 1) // 2, max=hp.max_cat_threshold)
+    min_data = float(hp.min_data_in_leaf)
+    ok = (eligible[None, None, :, None]
+          & (kk <= max_num_cat) & (kk <= used4)
+          & (lc >= min_data) & (rc >= min_data)
+          & (rc >= float(hp.min_data_per_group))
+          & (lh >= hp.min_sum_hessian_in_leaf)
+          & (rh >= hp.min_sum_hessian_in_leaf)
+          & (feature_mask[None, None, :, None] > 0)
+          & allow_split[:, None, None, None])
+    # the children's gains with l2 + cat_l2, the parent's with l2
+    # (feature_histogram.hpp:297-302)
+    hp2 = hp._replace(lambda_l2=hp.lambda_l2 + hp.cat_l2)
+    if hp.use_smoothing:
+        po4 = parent_output[:, None, None, None]
+        l_out = calculate_leaf_output(lg, lh, hp2, lc, po4)
+        r_out = calculate_leaf_output(rg, rh, hp2, rc, po4)
+        gains = (leaf_gain_given_output(lg, lh, l_out, hp2)
+                 + leaf_gain_given_output(rg, rh, r_out, hp2)
+                 - leaf_gain_given_output(sg4, sh4, po4, hp)
+                 - hp.min_gain_to_split)
+    else:
+        l_out = r_out = None
+        gains = (leaf_split_gain(lg, lh, hp2) + leaf_split_gain(rg, rh, hp2)
+                 - leaf_split_gain(sg4, sh4, hp) - hp.min_gain_to_split)
+    gains = torch.where(ok, gains, torch.full_like(gains, float("-inf")))
+    return gains, lg, lh, lc, l_out, r_out
+
+
+def per_feature_best_gain(hist, sum_g, sum_h, count, num_bins, has_nan,
+                          is_cat, feature_mask, hp: SplitHyperParams, *,
+                          parent_output=None) -> torch.Tensor:
+    """The best gain of each feature of K leaves, ``[K, F]`` (the JAX
+    package's ``per_feature_best_gain``, the voting learner's ballot),
+    the subset candidates included."""
+    allow = torch.ones(hist.shape[0], dtype=torch.bool, device=hist.device)
+    gains, *_ = _candidate_tensors(
+        hist, sum_g, sum_h, count, num_bins, has_nan, is_cat, feature_mask,
+        allow, hp, parent_output=parent_output)
+    best = gains.amax(dim=(1, 3))
+    if hp.use_cat_subset:
+        gains_s, *_ = _cat_subset_tensors(
+            hist, sum_g, sum_h, count, num_bins, is_cat, feature_mask,
+            allow, hp, parent_output=parent_output)
+        best = torch.maximum(best, gains_s.amax(dim=(1, 3)))
+    return best
+
+
 def find_best_split(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
                     feature_mask, allow_split, hp: SplitHyperParams, *,
                     parent_output=None) -> SplitInfo:
@@ -175,23 +349,37 @@ def find_best_split(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
     ``hist`` [K, F, B, 2] (grad, hess); ``sum_g``, ``sum_h``, ``count``,
     ``allow_split`` (bool) and ``parent_output`` are [K]; ``num_bins``
     [F] i32 (NaN bin included), ``has_nan`` / ``is_cat`` [F] bool,
-    ``feature_mask`` [F] f32."""
+    ``feature_mask`` [F] f32.  With ``hp.use_cat_subset`` the subset
+    candidates are two more directions, and a subset winner's
+    ``threshold_bin`` is ``B * (1 + dir) + (k - 1)``."""
     k, f, b, _ = hist.shape
     gains, lg, lh, lc, l_out, r_out = _candidate_tensors(
         hist, sum_g, sum_h, count, num_bins, has_nan, is_cat, feature_mask,
         allow_split, hp, parent_output=parent_output)
+    if hp.use_cat_subset:
+        gs, lgs, lhs, lcs, los, ros = _cat_subset_tensors(
+            hist, sum_g, sum_h, count, num_bins, is_cat, feature_mask,
+            allow_split, hp, parent_output=parent_output)
+        gains = torch.cat([gains, gs], dim=1)                  # [K, 4, F, B]
+        lg, lh, lc = (torch.cat([a, c], dim=1)
+                      for a, c in ((lg, lgs), (lh, lhs), (lc, lcs)))
+        if hp.use_smoothing:
+            l_out = torch.cat([l_out, los], dim=1)
+            r_out = torch.cat([r_out, ros], dim=1)
+    d_all = gains.shape[1]
     # feature-major winner over the quantized key: equal keys tie-break
     # on the smallest feature, then direction, then bin
     flat = gains.reshape(k, -1)
     qflat = selection_key(flat)
     gmax = qflat.max(dim=1, keepdim=True).values
     io = torch.arange(flat.shape[1], device=hist.device)
-    fm_rank = ((io % (f * b)) // b * (2 * b) + io // (f * b) * b + io % b)
+    fm_rank = ((io % (f * b)) // b * (d_all * b) + io // (f * b) * b
+               + io % b)
     big = torch.full_like(fm_rank, 1 << 30)
     bi_fm = torch.where(qflat >= gmax, fm_rank[None, :],
                         big[None, :]).min(dim=1).values        # [K]
-    feat = bi_fm // (2 * b)
-    d = (bi_fm % (2 * b)) // b
+    feat = bi_fm // (d_all * b)
+    d = (bi_fm % (d_all * b)) // b
     tbin = bi_fm % b
     best = d * (f * b) + feat * b + tbin
     pick = lambda a: torch.gather(                            # noqa: E731
@@ -202,6 +390,19 @@ def find_best_split(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
     else:
         b_lo = calculate_leaf_output(blg, blh, hp)
         b_ro = calculate_leaf_output(sum_g - blg, sum_h - blh, hp)
+    if hp.use_cat_subset:
+        is_subset = d >= 2
+        tbin = torch.where(is_subset, b * (1 + (d - 2)) + tbin, tbin)
+        if not hp.use_smoothing:
+            # subset leaf outputs with l2 + cat_l2
+            # (feature_histogram.hpp:477-489)
+            hp_out = hp._replace(lambda_l2=hp.lambda_l2 + hp.cat_l2)
+            b_lo = torch.where(is_subset,
+                               calculate_leaf_output(blg, blh, hp_out), b_lo)
+            b_ro = torch.where(
+                is_subset,
+                calculate_leaf_output(sum_g - blg, sum_h - blh, hp_out),
+                b_ro)
     return SplitInfo(gain=pick(gains), feature=feat, threshold_bin=tbin,
                      default_left=d == 1, is_categorical=is_cat[feat],
                      left_sum_g=blg, left_sum_h=blh, left_count=blc,

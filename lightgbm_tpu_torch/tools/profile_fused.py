@@ -177,7 +177,8 @@ def time_variants(rows, cpu_rows, cnt: int,
                                                     _split_buffers,
                                                     fused_split_ref)
     from lightgbm_tpu_torch.ops.partition_kernel import (row_pointers,
-                                                         split_args)
+                                                         split_args,
+                                                         word_args)
     from lightgbm_tpu_torch.tools.profile_lib import graph_ms
     dev = rows.bins.device
     n, f = rows.bins.shape
@@ -199,7 +200,7 @@ def time_variants(rows, cpu_rows, cnt: int,
                 *row_pointers(rows), *row_pointers(scr), ptrs[0],
                 nl.data_ptr(), *ptrs[1:], hist.data_ptr(), f,
                 int(padded_bins), s0, cnt, *split_args(sel),
-                *_geometry_args(geo),
+                *word_args(sel), *_geometry_args(geo),
                 torch.cuda.current_stream(dev).cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"{label} geometry {geo} refused: {rc}")

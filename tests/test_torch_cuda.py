@@ -45,6 +45,11 @@ count 1 to 9 (range mode up to the limit, feature mode above) at F = 27,
 28 and 136, on adversarial ranges, with every row in one bin (B = 64,
 256, 1024), in either mode on the same call, in a replayed graph, and a
 geometry that misses a cell refused.
+The membership-word modes (slice 17) of the partitions and the fused
+split, both packs, bitwise their plain versions on adversarial words at
+28, 36 and 136 features, on staged and unstaged scan tiles, eager and
+replayed in a graph, more than 8 words refused, and sorted-subset
+training on the card bit-identical to the CPU run on four routes.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
 row-order and 3ph routes), and the default route's equal slice 2's
@@ -668,8 +673,8 @@ def test_fused_split_library_refuses_a_short_geometry(cuda):
         rc = _lib().fused_split(
             *row_pointers(rows), *row_pointers(scr), ptrs[0], nl.data_ptr(),
             ptrs[1], ptrs[2], pa.data_ptr() if partials else None,
-            out.data_ptr(), 28, 256, 0, cnt, 0, 100, 0, 0, -1, tiles,
-            slices, groups, feats, parts,
+            out.data_ptr(), 28, 256, 0, cnt, 0, 100, 0, 0, -1, 0, None,
+            tiles, slices, groups, feats, parts,
             torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         return rc
@@ -1583,3 +1588,183 @@ def test_refresh_both_packs_match_plain_at_28_features(cuda, kind, sigmoid):
     pack2_stream_case(rows.bins, kind, 256, "test")
     assert (stream_refresh.launches, stream_refresh_p2.launches) == (
         before[0] + 2, before[1] + 1)
+
+
+# -- slice 17: the membership-word modes ----------------------------------------
+# (kind, features): the fused split serves up to 71 features at B = 256
+CAT_SHAPES = [(k, f) for k in ("scan", "3ph", "scan_p2") for f in
+              (28, 36, 136)] + [(k, f) for k in ("fused", "fused_p2")
+                                for f in (28, 36)]
+CAT_ROWS_CARD = 60_000
+
+
+def _cat_check(kind, rows, packed, sel, label):
+    from chip_smoke import (fused_parity, pack2_scan_case, pack2_split_case,
+                            partition_3ph_parity, partition_parity)
+    if kind == "scan":
+        return partition_parity(rows, sel, label)
+    if kind == "3ph":
+        return partition_3ph_parity(rows, sel, label)
+    if kind == "scan_p2":
+        return pack2_scan_case(rows, packed, sel, label)
+    if kind == "fused":
+        return fused_parity(rows, sel, 256, label)
+    return pack2_split_case(rows, packed, sel, 256, label)
+
+
+@pytest.mark.parametrize("kind,f", CAT_SHAPES)
+def test_cat_word_modes_bitwise(cuda, kind, f):
+    """Each word mode bitwise its plain version on the adversarial
+    descriptors (every word zero, every bit set, bit 31 of every word, a
+    single bit, bins of the last word only, mixed words; numerical
+    splits with zero words and with the NaN bin, and one ignoring set
+    words) at 28, 36 and 136 features, each call one launch."""
+    from chip_smoke import cat_rows, cat_word_cases
+    from lightgbm_tpu_torch.ops import fused_split as fs
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    from lightgbm_tpu_torch.ops.device_data import pack_rows
+    rows = cat_rows(CAT_ROWS_CARD, f, f, cuda)
+    packed = pack_rows(rows)
+    fn = {"scan": pk.partition_scan, "3ph": pk.partition_3ph,
+          "scan_p2": pk.partition_scan_p2, "fused": fs.fused_split,
+          "fused_p2": fs.fused_split_p2}[kind]
+    tile = pk.scan_geometry(CAT_ROWS_CARD, f).tile
+    for label, sel in cat_word_cases(tile, f - 1, 254):
+        before = fn.launches
+        _cat_check(kind, rows, packed, sel, label)
+        assert fn.launches - before == 1
+
+
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("tile", [32, 256, 1024])
+@pytest.mark.parametrize("kind", ["scan", "3ph", "scan_p2"])
+def test_cat_scan_staged_and_unstaged(cuda, kind, tile, staged):
+    """The scan's word mode on staged and unstaged tiles, bitwise the
+    plain version."""
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    sel = (1_001, 9_999, 5, 0, 0, 1, -1, 0, 0x0F0F0F0F, -1, 0, 1 << 31,
+           0x00010001, 0x7FFFFFFF, 0, -0x7FFF0000)
+    rows, scratch, (want, nl_want), sel = _scan_case(kind, 28, cuda, sel)
+    stride = rows.layout.stride if kind == "scan_p2" else None
+    geo = pk.scan_geometry(sel[1], 28, stride, tile=tile, staged=staged)
+    nl = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+    pk.launch_scan(rows, scratch, sel, nl, geo,
+                   scheme="3ph" if kind == "3ph" else "ss")
+    torch.cuda.synchronize()
+    assert int(nl) == int(nl_want)
+    assert _scan_equal(kind, rows, scratch, sel, want)
+
+
+@pytest.mark.parametrize("kind", ["scan", "3ph", "scan_p2", "fused",
+                                  "fused_p2"])
+def test_cat_word_modes_eager_and_in_a_graph(cuda, kind):
+    """Each word mode captured in a CUDA graph and replayed three times
+    writes the eager call's bytes and nleft every time (the words are
+    kernel arguments, copied at the capture)."""
+    from chip_smoke import cat_rows, torch_equal
+    from lightgbm_tpu_torch.ops import fused_split as fs
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    from lightgbm_tpu_torch.ops.device_data import (empty_packed_like,
+                                                    empty_rows_like,
+                                                    pack_rows)
+    from lightgbm_tpu_torch.tools.profile_lib import capture
+    rows = cat_rows(CAT_ROWS_CARD, 36, 3, cuda)
+    packed = pack_rows(rows)
+    src = packed if kind.endswith("p2") else rows
+    scratch = (empty_packed_like(packed) if kind.endswith("p2")
+               else empty_rows_like(rows))
+    sel = (7, 50_001, 35, 0, 0, 1, -1, 0, 0x55555555, 0, -1, 1 << 31, 0,
+           0x12345678, 0, -0x7FFF0000)
+    nl = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+    held = {}
+    fn = {"scan": pk.partition_scan, "3ph": pk.partition_3ph,
+          "scan_p2": pk.partition_scan_p2}.get(kind)
+    base = (src.buf.clone() if kind.endswith("p2")
+            else [a.clone() for a in src])
+
+    def reset():
+        if kind.endswith("p2"):
+            src.buf.copy_(base)
+        else:
+            for a, b in zip(src, base):
+                a.copy_(b)
+
+    def call():
+        if kind == "fused":
+            held["h"] = fs.fused_split(src, scratch, sel, nl,
+                                       padded_bins=256)
+        elif kind == "fused_p2":
+            held["h"] = fs.fused_split_p2(src, scratch, sel, nl,
+                                          padded_bins=256)
+        else:
+            fn(src, scratch, sel, nl)
+
+    def state():
+        out = src if kind == "3ph" else scratch
+        bufs = [out.buf] if kind.endswith("p2") else list(out)
+        return [b.clone() for b in bufs] + [nl.clone()] + (
+            [held["h"].clone()] if "h" in held else [])
+    reset()
+    call()
+    torch.cuda.synchronize()
+    want = state()
+    reset()
+    graph = capture(call, warmup=1)
+    for _ in range(3):
+        reset()
+        nl.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        got = state()
+        assert all(torch_equal(a, b) for a, b in zip(got, want))
+
+
+def test_cat_library_refuses_more_than_eight_words(cuda):
+    """The libraries refuse a word count above 8 with
+    cudaErrorInvalidValue (1) before any launch; the wrappers refuse the
+    descriptor first."""
+    import ctypes
+
+    from lightgbm_tpu_torch.ops import fused_split as fs
+    from lightgbm_tpu_torch.ops import partition_kernel as pk
+    from lightgbm_tpu_torch.ops.device_data import empty_rows_like
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    rows = _edge_rows(28, cuda)
+    scratch = empty_rows_like(rows)
+    nl = torch.zeros(1, dtype=torch.int32, device=cuda)
+    sel = (0, 100, 5, 0, 0, 1, -1, 0) + (1,) * 9
+    for fn in (pk.partition_scan, pk.partition_3ph):
+        with pytest.raises(LightGBMError, match="membership words"):
+            fn(rows, scratch, sel, nl)
+    with pytest.raises(LightGBMError, match="membership words"):
+        fs.fused_split(rows, scratch, sel, nl, padded_bins=256)
+    state = torch.zeros(2, dtype=torch.int64, device=cuda)
+    words = (ctypes.c_uint32 * 9)(*([1] * 9))
+    rc = pk._lib().partition_scan(
+        *pk.row_pointers(rows), *pk.row_pointers(scratch), state.data_ptr(),
+        nl.data_ptr(), 28, 0, 100, 5, 0, 0, 1, -1, 9, words, 256, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 1
+
+
+@pytest.mark.parametrize("env", [{}, {"LGBM_TPU_COMB_PACK": "2"},
+                                 {"LGBM_TPU_FUSED": "0"},
+                                 {"LGBM_TPU_PART": "3ph"}])
+def test_cat_training_on_card_matches_cpu(cuda, env, monkeypatch):
+    """Sorted-subset training on the card grows the CPU run's trees bit
+    for bit, with splits of more than one category."""
+    from chip_smoke import make_categorical_like, multi_category_splits
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    x, y, cats = make_categorical_like(20_000, 200, 3, n_features=6, seed=4)
+    params = {"objective": "binary", "num_leaves": 31, "max_bin": 255,
+              "min_data_per_group": 5, "verbosity": -1}
+    bsts = [lgt.train(params, lgt.Dataset(x, label=y,
+                                          categorical_feature=cats,
+                                          params={"min_data_in_bin": 1}),
+                      num_boost_round=3, device=d) for d in ("cuda", "cpu")]
+    assert bsts[0]._inner.route.tail == "xla"
+    res = compare_trees(bsts[0]._models, bsts[1]._models)
+    assert res["ok"], res
+    assert leaves_bitwise(bsts[0]._models, bsts[1]._models)
+    assert multi_category_splits(bsts[0]._models) > 0

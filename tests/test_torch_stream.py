@@ -177,16 +177,23 @@ def test_each_rule_blocks_its_part(rule):
           "tail_env_xla": {"apply_impl_env": "xla"},
           "tail_smem": {"tail_ok": False},
           "non_u8_bins": {"bins_u8": False},
-          "phys_env_off": {"phys_env": "0"}}[rule]
+          "phys_env_off": {"phys_env": "0"},
+          "tail_cat_subset": {"cat_subset": True},
+          "cat_overwide": {"cat_subset": True, "bins_u8": False}}[rule]
+    # cat_overwide never fires alone: its bins wider than u8 fire
+    # non_u8_bins, and a subset model takes the PyTorch tail
+    also = {"cat_overwide": ("non_u8_bins", "tail_cat_subset")}.get(rule,
+                                                                     ())
     d = decide(RouteInputs(**kw))
-    assert d.reasons == (rule,)
-    blocks = {r.name: r.blocks for r in RULES}[rule]
+    assert d.reasons == (rule,) + also
+    of = {r.name: r.blocks for r in RULES}
+    blocks = of[rule]
     # off the physical path stream and fused are off too
     off = blocks == "physical"
     assert (not d.stream, not d.fused, d.tail == "xla",
             d.path == "row_order") == (
         blocks == "stream" or off, blocks == "fused" or off,
-        blocks == "tail", off)
+        any(of[r] == "tail" for r in (rule,) + also), off)
 
 
 def test_reset_stream_rebuilds_rows_on_both_routes():

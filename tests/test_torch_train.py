@@ -297,10 +297,20 @@ def test_unported_parameters_raise(params):
 
 
 def test_categorical_subset_raises():
+    """A categorical feature with more bins than max_cat_to_onehot now
+    trains with the sorted-subset search (tests/test_torch_cat_subset.py
+    holds it against the JAX package); what raises beside it is what
+    raises without it, an unported parameter."""
     x, y = _data(500, 4, 2)
     x[:, 3] = np.arange(500) % 12
-    with pytest.raises(LightGBMError, match="categorical subset"):
-        lgt.train({"objective": "binary", "verbosity": -1},
+    bst = lgt.train({"objective": "binary", "verbosity": -1},
+                    lgt.Dataset(x, label=y, categorical_feature=[3]),
+                    num_boost_round=1, device="cpu")
+    assert bst._inner.hp.use_cat_subset
+    assert bst._inner.route.tail == "xla"
+    with pytest.raises(LightGBMError, match="ROADMAP"):
+        lgt.train({"objective": "binary", "verbosity": -1,
+                   "extra_trees": True},
                   lgt.Dataset(x, label=y, categorical_feature=[3]),
                   num_boost_round=1, device="cpu")
 
