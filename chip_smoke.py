@@ -184,7 +184,29 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    AUCs and splits of more than one category printed, served
    predictions held against the f64 host walk on edge categories; each
    word mode timed beside its one-hot mode, eager and in a graph;
-12. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+12. monotone constraints (slice 18), on the main path's cell with +1 on
+   features 0-3 and -1 on 4-7: the constrained instantiation of the
+   split tail (``apply_find_mono_kernel``, both entries) bitwise its
+   plain version on the card and on CPU copies on adversarial cases at
+   28 and 136 features (a winner the violation mask removes, bounds
+   clipping every candidate, equal keys across the last two blocks with
+   one constrained, the penalty's 1e-15 floor, the done guard) and on
+   the median split of a default-route, a row-order and a wide tree;
+   the card against device="cpu" on the first 20,000 rows on the
+   default, pack=2 and row-order routes (bitwise); the basic method on
+   the default route for 10 iterations, pack=2, P1 ``FUSED=0``, 3ph,
+   ``POOL_TAIL=0``, row-order (``max_bin`` 1023) and the wide 1M x 136
+   route for 3, ``monotone_penalty`` 2.0 and the intermediate method
+   (the PyTorch tail and the adjacency pass) for 3, each counted and
+   held to its route, pack=2's, ``FUSED=0``'s and ``POOL_TAIL=0``'s
+   trees bitwise the default route's, every model's served predictions
+   monotone on a grid of each constrained feature's bin bounds over 256
+   holdout rows (zero violations), and within 64 ulps a tree of the
+   host walk; printed: s / iteration and holdout AUC beside the
+   unconstrained twin's, splits on constrained features, the tail's
+   share, kernels a split and the constrained tail's times beside the
+   unconstrained ones (``monotone routes``, ``monotone tail times``);
+13. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times, then the device line last.
 
 The forests and rows are generated from seeds: the card's machine has
@@ -221,9 +243,11 @@ PEAK_OPS_S = 67e12
 OPS_PER_VISIT = 8
 
 
-def make_higgs_like(n_rows: int, n_features: int = 28, seed: int = 0):
+def make_higgs_like(n_rows: int, n_features: int = 28, seed: int = 0,
+                    with_weights: bool = False):
     """Higgs-style rows: kinematic-style continuous features and a
-    nonlinear decision surface (the generator bench.py serves)."""
+    nonlinear decision surface (the generator bench.py serves).
+    ``with_weights`` also returns the linear weights ``w``."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n_rows, n_features)).astype(np.float32)
     w = rng.normal(size=(n_features,))
@@ -232,7 +256,7 @@ def make_higgs_like(n_rows: int, n_features: int = 28, seed: int = 0):
              - 0.6 * np.abs(x[:, 2])
              + 0.5 * x[:, 3] ** 2)
     y = (logit + rng.logistic(size=n_rows) > 0).astype(np.float32)
-    return x, y
+    return (x, y, w) if with_weights else (x, y)
 
 
 def feature_missing_types(n_features: int, seed: int, cat_features=()):
@@ -1331,8 +1355,10 @@ def apply_find_times(gpu: str) -> dict:
     row-order route's 28 x 1024, the wide route's 136 x 256) on seeded
     1M-row splits, eager (20 calls) and as one replay of a CUDA graph of
     20 calls, each bitwise its plain version on CPU copies first
-    (``tools/profile_apply_find.py``), beside the byte bound; each
-    shape's geometry and the clusters of it the card holds at once."""
+    (``tools/profile_apply_find.py``), beside the byte bound, in the
+    unconstrained and then the monotone instantiation (keys
+    ``<entry>_mono``); each shape's geometry and the clusters of it the
+    card holds at once."""
     from lightgbm_tpu_torch.ops.apply_find import max_clusters, tail_geometry
     from lightgbm_tpu_torch.tools import profile_apply_find as pa
     out = {}
@@ -1340,11 +1366,15 @@ def apply_find_times(gpu: str) -> dict:
         f, b = (int(v) for v in shape.split("x"))
         geo = tail_geometry(f, b)
         out[shape] = {"geometry": geo._asdict(),
-                      "max_clusters": max_clusters(geo, f, b)}
+                      "max_clusters": max_clusters(geo, f, b),
+                      "max_clusters_mono": max_clusters(geo, f, b,
+                                                        mono=True)}
         for r in pa.time_shape(f, b):
-            out[shape][r["entry"]] = {k: r[k] for k in
-                                      ("ms", "graph_ms", "bound_ms")}
-        if out[shape]["max_clusters"] < 1:
+            key = r["entry"] + ("_mono" if r["mode"] == "mono" else "")
+            out[shape][key] = {k: r[k] for k in
+                               ("ms", "graph_ms", "bound_ms")}
+        if min(out[shape]["max_clusters"],
+               out[shape]["max_clusters_mono"]) < 1:
             raise RuntimeError(f"the card holds no cluster of the tail's "
                                f"geometry {geo} at {shape}")
     print("apply_find times [ms] " + json.dumps(out) + f" [{gpu}]",
@@ -3333,8 +3363,10 @@ def train_phases(gpu: str) -> list:
     against the default route's), the pack=2 and pack=1 unfused routes
     (3 each, against the default route's) and slice 2's route at pack=2
     (3, against slice 2's route's), and one profiled iteration of each
-    route but LGBM_TPU_POOL_TAIL=0 and slice 2's at pack=2.  Returns
-    the seventeen training kernels' records."""
+    route but LGBM_TPU_POOL_TAIL=0 and slice 2's at pack=2, then the
+    monotone phase (:func:`mono_phases`) on the same datasets.  Returns
+    the seventeen training kernels' records and the tail's two
+    constrained instantiations'."""
     import lightgbm_tpu_torch as lgt
 
     x_all, y_all = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS, N_FEATURES,
@@ -3493,6 +3525,8 @@ def train_phases(gpu: str) -> list:
     for name in ("partition_scan_p2", "stream_refresh_plain_p2"):
         by_name[name]["train_parity_bitwise"] = all(
             r["ok"] for r in parity7.values())
+    recs += mono_phases(gpu, ds, valid, ds_wide, valid_wide, x, y, xv, main,
+                        tail_times)
     return recs
 
 
@@ -4112,8 +4146,9 @@ def wide_phases(gpu: str, comb_cases: list) -> dict:
     times = hist_comb_times(gpu, WIDE_FEATURES, comb_cases)
     parity = train_parity(gpu, {}, PARITY_TREES, "wide dataset",
                           bitwise=True, n_features=WIDE_FEATURES)
-    x_all, y_all = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS, WIDE_FEATURES,
-                                   seed=0)
+    x_all, y_all, w = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS,
+                                      WIDE_FEATURES, seed=0,
+                                      with_weights=True)
     x, y = x_all[:TRAIN_ROWS], y_all[:TRAIN_ROWS]
     t0 = time.perf_counter()
     ds = lgt.Dataset(x, label=y, params={"max_bin": 255}).construct()
@@ -4132,8 +4167,396 @@ def wide_phases(gpu: str, comb_cases: list) -> dict:
     with route_env({}):
         print("profiled iteration, wide route "
               + json.dumps(profile_iteration(bst, gpu)), flush=True)
+    mono = mono_wide_phase(gpu, ds, valid, x, x_all[TRAIN_ROWS:], bst, w)
     return {"hist": hist, "parity": parity, "main": main, "tail": tail,
-            "times": times}
+            "times": times, "mono": mono}
+
+
+# ---------------------------------------------------------------------
+# Slice 18: monotone constraints, the constrained mode of the split tail
+MONO_CONSTRAINED = 8
+MONO_SIGNS = [1] * 4 + [-1] * 4      # features 0-3 up, 4-7 down, rest free
+MONO_ITERS = 10
+MONO_SHORT_ITERS = 3
+MONO_PENALTY = 2.0
+MONO_PARITY_ROWS = 20_000
+MONO_PARITY_TREES = 2
+MONO_GRID_ROWS = 256
+MONO_ROUTES = {"pack2": PACK2, "unfused": FUSED_OFF, "3ph": PART_3PH,
+               "pool_tail_off": POOL_TAIL_OFF}
+MONO_ROUTE_NAMES = {
+    "default": "path=stream fused=1 tail=kernel",
+    "pack2": "path=stream fused=1 tail=kernel pack=2",
+    "unfused": "path=stream fused=0 tail=kernel (fused_env_off)",
+    "3ph": "path=stream scheme=3ph fused=0 tail=kernel (part_3ph)",
+    "pool_tail_off": "path=stream fused=1 tail=kernel pool_tail=0",
+    "max_bin_1023": "path=row_order fused=0 tail=kernel (non_u8_bins)",
+    "penalty": "path=stream fused=1 tail=kernel",
+    "intermediate": "path=stream fused=1 tail=xla (tail_mono_intermediate)",
+    "wide": WIDE_ROUTE}
+
+
+def mono_params(params: dict, n_features: int, **extra) -> dict:
+    """``params`` with ``MONO_SIGNS`` on the first eight of
+    ``n_features`` features, 0 on the rest."""
+    signs = MONO_SIGNS + [0] * (n_features - MONO_CONSTRAINED)
+    return dict(params, monotone_constraints=signs, **extra)
+
+
+def constrained_splits(models) -> int:
+    """Splits on the constrained features (0-7) over ``models``."""
+    return sum(int(np.sum(np.asarray(t.split_feature[:t.num_leaves - 1])
+                          < MONO_CONSTRAINED)) for t in models)
+
+
+def splits_along_signs(models) -> dict:
+    """Of ``models``' splits on each constrained feature (0-7): how many
+    there are, and how many order their children's outputs along
+    ``MONO_SIGNS`` (the right child, the larger values, not below the
+    left one for +1, not above it for -1): the splits a constrained
+    search could also have taken."""
+    out = {j: [0, 0] for j in range(MONO_CONSTRAINED)}
+    for t in models:
+        for i in range(t.num_leaves - 1):
+            j = int(t.split_feature[i])
+            if j >= MONO_CONSTRAINED:
+                continue
+            lo, ro = (float(t.internal_value[c]) if c >= 0
+                      else float(t.leaf_value[~c])
+                      for c in (int(t.left_child[i]), int(t.right_child[i])))
+            out[j][0] += 1
+            out[j][1] += int(MONO_SIGNS[j] * (ro - lo) >= 0)
+    return {j: {"splits": n, "along_sign": k} for j, (n, k) in out.items()}
+
+
+def mono_violations(bst, xv: np.ndarray, label: str) -> dict:
+    """``MONO_GRID_ROWS`` holdout rows, each constrained feature walked
+    over every upper bound of its bins (in the booster's own binning)
+    and one value past the last: the served raw predictions must never
+    move against the feature's sign (exactly: each tree is monotone, and
+    f32 sums in a fixed order keep the order).  Raises on a violation."""
+    ts = bst._inner.train_set
+    rows = np.array(xv[:MONO_GRID_ROWS], np.float64)
+    counts, walked = {}, 0
+    for j, s in enumerate(MONO_SIGNS):
+        inner = int(np.flatnonzero(ts.used_feature_map == j)[0])
+        ub = np.asarray(ts.mappers[inner].upper_bounds, np.float64)
+        fin = ub[np.isfinite(ub)]
+        grid = np.append(fin, fin[-1] + 1.0 if len(fin) else 0.0)
+        xs = np.repeat(rows, len(grid), axis=0)
+        xs[:, j] = np.tile(grid, len(rows))
+        p = bst.predict(xs, raw_score=True).reshape(len(rows), len(grid))
+        counts[j] = int(np.sum(s * np.diff(p, axis=1) < 0))
+        walked += xs.shape[0]
+    rec = {"case": label, "rows": len(rows), "points": walked,
+           "violations": sum(counts.values()), "by_feature": counts}
+    if rec["violations"]:
+        raise RuntimeError(f"the {label} moves against its monotone "
+                           f"constraints: {rec}")
+    return rec
+
+
+def mono_train_parity(gpu: str, x, y, env: dict, params: dict,
+                      label: str) -> dict:
+    """``MONO_PARITY_TREES`` trees of the monotone cell's first
+    ``MONO_PARITY_ROWS`` rows on the route ``env`` selects, on the card
+    and with device="cpu": trees and leaves bit for bit (a gate), and
+    whether every split descriptor the card read equals the CPU run's."""
+    import lightgbm_tpu_torch as lgt
+    xc, yc = x[:MONO_PARITY_ROWS], y[:MONO_PARITY_ROWS]
+    traces, bsts = [], []
+    with route_env(env):
+        for device in ("cuda", "cpu"):
+            ds = lgt.Dataset(xc, label=yc,
+                             params={"max_bin": params["max_bin"]})
+            bst = lgt.Booster(params, ds, device=device)
+            traces.append([])
+            bst._inner.grow.trace = traces[-1]
+            t0 = time.perf_counter()
+            for _ in range(MONO_PARITY_TREES):
+                bst.update()
+            bsts.append((bst, time.perf_counter() - t0))
+    (bc, tc), (bp, tp) = bsts
+    rec = compare_trees(bc._models, bp._models)
+    rec.update(case=f"monotone {label}: first {MONO_PARITY_ROWS} rows x "
+               f"{x.shape[1]}, {TRAIN_LEAVES} leaves, {MONO_PARITY_TREES} "
+               "trees", route=bc._inner.grow.route.describe(),
+               leaves_bitwise=leaves_bitwise(bc._models, bp._models),
+               descriptors_equal=traces[0] == traces[1],
+               constrained_splits=constrained_splits(bc._models),
+               cuda_s=tc, cpu_s=tp)
+    rec["ok"] = rec["ok"] and rec["leaves_bitwise"]
+    print("parity training " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"monotone training on the card differs from "
+                           f"the CPU run: {rec}")
+    return rec
+
+
+def mono_tail_edge_cases(f: int = N_FEATURES, b: int = 256) -> list:
+    """The constrained tail's adversarial cases at ``f`` x ``b``
+    (synthetic 1M-row splits, ``tools/profile_apply_find.synthetic_split``
+    with ``mono``), each through :func:`tail_parity` (both entries
+    bitwise their plain versions on the card and on CPU copies, the done
+    guard leaving every tensor untouched): a winner the violation mask
+    removes (the strong feature's sign set against one child's order:
+    that child's winner moves off it), bounds that clip every candidate
+    (``[0.001, 0.002]``, the right child's bounds crossing), equal keys
+    in the last two blocks of the cluster, the second constrained (the
+    smaller, free feature wins), and a depth at which the penalty factor
+    is the 1e-15 floor (penalty 3.0 at the children's depth 2: both
+    winners on free features)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.apply_find import (BF, BLO, BRO, SMN, SMX,
+                                                   apply_find_pool_ref,
+                                                   tail_geometry)
+    from lightgbm_tpu_torch.tools.profile_apply_find import synthetic_split
+    geo = tail_geometry(f, b)
+    out = []
+    # 1. the violation mask removes a winner
+    j = 5
+    free = synthetic_split(f, b, strong=(j,), mono=True, signs=[0] * f)
+    ref = free.clone()
+    apply_find_pool_ref(ref.h_a, ref.h_b, *ref.args())
+    rows = ref.st.best[[ref.at.leaf, ref.at.right]]
+    won = [int(v) for v in rows[:, BF].tolist()]
+    order = float(rows[0, BRO] - rows[0, BLO])
+    signs = [0] * f
+    signs[j] = -1 if order > 0 else 1
+    case = synthetic_split(f, b, strong=(j,), mono=True, signs=signs,
+                           device="cuda")
+    rec = tail_parity(case, f"{f}x{b}_mono_violation_removes_the_winner")
+    moved = int(rec["best_rows"][0][BF])
+    rec["free_winners"] = won
+    if won[0] != j or moved == j:
+        raise RuntimeError(f"the violation case did not remove the left "
+                           f"child's winner on feature {j}: {won} -> "
+                           f"{moved}")
+    out.append(rec)
+    # 2. bounds that clip every candidate
+    case = synthetic_split(f, b, mono=True, bounds=(0.001, 0.002),
+                           device="cuda")
+    rec = tail_parity(case, f"{f}x{b}_mono_bounds_clip_every_candidate")
+    st = case.clone()
+    apply_find_pool_ref(st.h_a, st.h_b, *st.args())
+    lo = st.st.lstate[[st.at.leaf, st.at.right]][:, [SMN, SMX]]
+    outs = st.st.best[[st.at.leaf, st.at.right]][:, [BLO, BRO]]
+    if not bool(((outs >= torch.minimum(lo[:, :1], lo[:, 1:]))
+                 & (outs <= lo[:, 1:])).all()):
+        raise RuntimeError("the clipping case's winners left their bounds")
+    out.append(rec)
+    # 3. equal keys in the last two blocks, the second constrained
+    k = (geo.blocks - 1) * geo.feats - 1
+    signs = [0] * f
+    signs[k + 1] = 1
+    out.append(tail_parity(
+        synthetic_split(f, b, ties=(k,), strong=(k,), mono=True,
+                        signs=signs, penalty=0.0, device="cuda"),
+        f"{f}x{b}_mono_equal_keys_in_the_last_two_blocks",
+        want_features=(k,)))
+    # 4. the penalty factor at its floor
+    signs = [1 if i % 2 else -1 for i in range(f)]
+    signs[0] = 1
+    for i in (3, 6):
+        signs[i] = 0
+    out.append(tail_parity(
+        synthetic_split(f, b, strong=(2, 3), mono=True, signs=signs,
+                        penalty=3.0, depth=1.0, device="cuda"),
+        f"{f}x{b}_mono_penalty_floor", want_features=(3, 6)))
+    return out
+
+
+def mono_phases(gpu: str, ds, valid, ds_wide, valid_wide, x, y, xv,
+                twin: dict, tail_times: dict) -> list:
+    """Slice 18: monotone constraints on the main path's cell (1M x 28
+    Higgs-like rows, 100,000 holdout, 255 leaves, binary; +1 on features
+    0-3, -1 on 4-7).  The constrained tail bitwise its plain version on
+    its adversarial cases and on the median split of a default-route and
+    a row-order tree; the card against the CPU on the first 20,000 rows
+    on the default, pack=2 and row-order routes (bitwise); the basic
+    method on the default route for 10 iterations, pack=2, P1
+    ``FUSED=0``, 3ph, ``POOL_TAIL=0`` and row-order (``max_bin`` 1023)
+    for 3, ``monotone_penalty`` 2.0 and the intermediate method for 3,
+    each counted (the tail's launches are its constrained launches),
+    pack=2's, ``FUSED=0``'s and ``POOL_TAIL=0``'s trees bitwise the
+    default route's, every model monotone on the grid, served scores
+    within 64 ulps a tree of the host walk; ``twin`` is the unconstrained
+    default route's run.  Returns the two constrained instantiations'
+    kernel records (the wide route's run is added in the wide phase)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.apply_find import (apply_find_pool_ref,
+                                                   apply_find_ref)
+    from lightgbm_tpu_torch.tools.profile_apply_find import synthetic_split
+    params = mono_params(TRAIN_PARAMS, N_FEATURES)
+    params_1023 = mono_params(WIDE_PARAMS, N_FEATURES)
+    edges = mono_tail_edge_cases() + mono_tail_edge_cases(WIDE_FEATURES)
+    medians = [median_tail_parity(ds, {}, params, "monotone default route"),
+               median_tail_parity(ds_wide, {}, params_1023,
+                                  "monotone row-order route, max_bin=1023")]
+    parities = {k: mono_train_parity(gpu, x, y, env, params, k)
+                for k, env in (("default", {}), ("pack2", PACK2))}
+    parities["max_bin_1023"] = mono_train_parity(gpu, x, y, {}, params_1023,
+                                                 "max_bin 1023")
+    runs, bsts = {}, {}
+    bsts["default"], runs["default"] = train_main_path(
+        gpu, ds, valid, x, {}, MONO_ITERS, "monotone default route",
+        params=params)
+    for key, env in MONO_ROUTES.items():
+        bsts[key], runs[key] = train_main_path(
+            gpu, ds, valid, x, env, MONO_SHORT_ITERS,
+            f"monotone {key} route", params=params)
+    bsts["max_bin_1023"], runs["max_bin_1023"] = train_main_path(
+        gpu, ds_wide, valid_wide, x, {}, MONO_SHORT_ITERS,
+        "monotone max_bin 1023 route", params=params_1023)
+    bsts["penalty"], runs["penalty"] = train_main_path(
+        gpu, ds, valid, x, {}, MONO_SHORT_ITERS, "monotone penalty 2.0",
+        params=dict(params, monotone_penalty=MONO_PENALTY))
+    bsts["intermediate"], runs["intermediate"] = train_main_path(
+        gpu, ds, valid, x, {}, MONO_SHORT_ITERS, "monotone intermediate",
+        params=dict(params, monotone_constraints_method="intermediate"))
+    for key, run in runs.items():
+        if run["route"] != MONO_ROUTE_NAMES[key]:
+            raise RuntimeError(f"the monotone {key} run took {run['route']},"
+                               f" not {MONO_ROUTE_NAMES[key]}")
+    for key in ("pack2", "unfused", "pool_tail_off"):
+        _same_trees(bsts["default"], bsts[key], f"monotone {key} route")
+    k = MONO_SHORT_ITERS
+    p3 = compare_trees(bsts["default"]._models[:k], bsts["3ph"]._models)
+    p3["case"] = (f"monotone 3ph route vs the default route, {k} trees "
+                  "(reported, not a gate: the right rows come in another "
+                  "order)")
+    print("parity routes " + json.dumps(p3), flush=True)
+    grid = {key: mono_violations(bst, xv, f"monotone {key} route")
+            for key, bst in bsts.items()}
+    # served predictions against the f64 host walk
+    bst = bsts["default"]
+    xh = np.array(xv[:HOST_ROWS], np.float64)
+    served = bst.predict(xh, raw_score=True)
+    host = sum(t.leaf_value[t.predict_leaf(xh)] for t in bst._models)
+    if not np.all(np.abs(served - host)
+                  <= score_tolerance(host, len(bst._models))):
+        raise RuntimeError("served monotone predictions differ from the "
+                           "host walk")
+    with route_env({}):
+        prof = profile_iteration(bsts["default"], gpu)
+    print("profiled iteration, monotone default route " + json.dumps(prof),
+          flush=True)
+    with route_env({}):
+        prof_i = profile_iteration(bsts["intermediate"], gpu)
+    print("profiled iteration, monotone intermediate " + json.dumps(prof_i),
+          flush=True)
+    summary = {}
+    for key, run in runs.items():
+        stages = run["stage_ms_per_tree"]
+        summary[key] = {
+            "route": run["route"], "iterations": run["iterations"],
+            "s_per_iter_first": run["s_per_iter_first"],
+            "s_per_iter": run["s_per_iter_rest_mean"],
+            "holdout_auc": run["holdout_auc"], "splits": run["splits"],
+            "constrained_splits": constrained_splits(bsts[key]._models),
+            "split_tail_share": stages.get("split_tail", 0.0)
+            / max(sum(stages.values()), 1e-9),
+            "host_reads": run["host_reads"],
+            "launches": {n: v for n, v in run["launches"].items() if v},
+            "grid_violations": grid[key]["violations"]}
+    summary["default"].update(
+        twin_holdout_auc=twin["holdout_auc"],
+        twin_s_per_iter=twin["s_per_iter_rest_mean"],
+        kernels_per_split=prof.get("kernels_per_split"),
+        apply_find_ms=prof.get("apply_find_ms"),
+        apply_find_share_of_busy=(prof["apply_find_ms"] / prof["busy_ms"]
+                                  if prof.get("measured") else None),
+        busy_share=prof.get("busy_share"),
+        predict_vs_host_max_abs_err=float(np.abs(served - host).max()))
+    summary["intermediate"].update(
+        kernels_per_split=prof_i.get("kernels_per_split"),
+        busy_share=prof_i.get("busy_share"))
+    times = {shape: {k: v for k, v in rec.items() if k.startswith(
+        "apply_find")} for shape, rec in tail_times.items()}
+    print("monotone routes " + json.dumps(summary) + f" [{gpu}]", flush=True)
+    print("monotone tail times [ms] " + json.dumps(times) + f" [{gpu}]",
+          flush=True)
+    for key, run in runs.items():
+        if constrained_splits(bsts[key]._models) <= 0:
+            raise RuntimeError(f"the monotone {key} run split no "
+                               "constrained feature")
+    # the plain versions' times on the default shape's constrained split
+    case = synthetic_split(N_FEATURES, 256, mono=True, device="cuda")
+    t = case.clone()
+    plain_ms = _time_ms(lambda: apply_find_pool_ref(t.h_a, t.h_b, *t.args()),
+                        5)
+    h2 = torch.stack([t.st.pool[t.at.leaf], t.st.pool[t.at.right]])
+    plain_entry_ms = _time_ms(lambda: apply_find_ref(h2, *t.args()), 5)
+    cells = N_FEATURES * 256
+    hist_out = cells * 2 * 4
+    shape = f"{N_FEATURES}x256"
+    recs = []
+    for name, wrapper, key, replaces, plain, n_bytes in (
+            ("apply_find_pool_mono", "apply_find_pool", "default", 571,
+             plain_ms, 4 * hist_out),
+            ("apply_find_mono", "apply_find", "pool_tail_off", 529,
+             plain_entry_ms, 2 * hist_out)):
+        tt = tail_times[shape][wrapper + "_mono"]
+        recs.append(_kernel_record(
+            name, "lightgbm_tpu_torch/csrc/apply_find.cu",
+            f"lightgbm_tpu/ops/pallas/apply_find.py:{replaces}",
+            runs[key]["launches"][wrapper], 0.0, tt["ms"], plain,
+            n_bytes, 40 * cells, gpu,
+            launched_on=f"monotone {key} route",
+            instantiation=f"apply_find_mono_kernel<"
+                          f"{'true' if wrapper.endswith('pool') else 'false'}>",
+            graph_ms=tt["graph_ms"],
+            unconstrained_ms=tail_times[shape][wrapper]["ms"],
+            unconstrained_graph_ms=tail_times[shape][wrapper]["graph_ms"],
+            times=times,
+            launches_by_route={k: r["launches"][wrapper]
+                               for k, r in runs.items()
+                               if r["launches"][wrapper]},
+            parity_cases=[r["case"] for r in edges + medians],
+            train_parity_bitwise=all(r["ok"] for r in parities.values())))
+    recs[0]["monotone_runs"] = summary
+    return recs
+
+
+def mono_wide_phase(gpu: str, ds, valid, x, xv, twin, w) -> dict:
+    """The monotone cell's signs on the wide 1M x 136 dataset: 3
+    iterations on its route (unfused stream, the cluster tail), counted,
+    monotone on the grid, and the constrained tail bitwise its plain
+    version on a tree's median split at 136 x 256; the splits on the
+    constrained features are printed, beside those of ``twin`` (the
+    unconstrained wide model) on each of them, how many of its splits
+    order their children along the sign, and the generator's linear
+    weights ``w`` of features 0-7."""
+    params = mono_params(TRAIN_PARAMS, WIDE_FEATURES)
+    tail = median_tail_parity(ds, {}, params, "monotone wide route")
+    bst, run = train_main_path(gpu, ds, valid, x, {}, MONO_SHORT_ITERS,
+                               "monotone wide route", params=params,
+                               n_features=WIDE_FEATURES)
+    if run["route"] != MONO_ROUTE_NAMES["wide"]:
+        raise RuntimeError(f"the monotone wide run took {run['route']}")
+    grid = mono_violations(bst, xv, "monotone wide route")
+    # printed, not a gate: among 136 features the eight constrained ones
+    # may find no split that keeps their order in 3 trees
+    rec = {"route": run["route"], "s_per_iter": run["s_per_iter_rest_mean"],
+           "holdout_auc": run["holdout_auc"], "splits": run["splits"],
+           "constrained_splits": constrained_splits(bst._models),
+           "launches": run["launches"]["apply_find_pool"],
+           "grid_violations": grid["violations"], "tail": tail["case"]}
+    print("monotone wide route " + json.dumps(rec) + f" [{gpu}]", flush=True)
+    # a witness of whether no constrained winner is a property of the
+    # data: the twin's splits on features 0-7 and the generator's signs
+    twin_rec = {"twin_constrained_splits": constrained_splits(twin._models),
+                "twin_splits": sum(t.num_leaves - 1 for t in twin._models),
+                "twin_by_feature": splits_along_signs(twin._models),
+                "signs": MONO_SIGNS,
+                "generator_w": [round(float(v), 4)
+                                for v in w[:MONO_CONSTRAINED]]}
+    print("monotone wide twin " + json.dumps(twin_rec) + f" [{gpu}]",
+          flush=True)
+    rec["twin"] = twin_rec
+    return rec
 
 
 # ---------------------------------------------------------------------
@@ -4595,6 +5018,10 @@ def main() -> int:
     tail = next(k for k in kernels if k["name"] == "apply_find")
     tail["wide_launches"] = wide["main"]["launches"]["apply_find_pool"]
     tail["parity_cases"].append(wide["tail"]["case"])
+    tail = next(k for k in kernels if k["name"] == "apply_find_pool_mono")
+    tail["wide_launches"] = wide["mono"]["launches"]
+    tail["parity_cases"].append(wide["mono"]["tail"])
+    tail["monotone_runs"]["wide"] = wide["mono"]
     kernels += cat_phases(gpu)
     kernels += probes
     if not analysis["checked_in_report_current"]:

@@ -23,6 +23,7 @@ nothing is launched.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 from ..ops import apply_find as af
 from ..ops import fused_split as fs
@@ -405,17 +406,19 @@ def _fused():
 def _apply_find():
     """Both entries at the default route's 28 x 256, and the pool entry
     at the row-order route's 28 x 1024 and the wide route's 136 x 256:
-    one cluster of ``tail_geometry``'s blocks."""
+    one cluster of ``tail_geometry``'s blocks; each in the unconstrained
+    and the monotone instantiation (``apply_find_mono_kernel``)."""
     shapes = ((True, F, B, ""), (False, F, B, ""),
               (True, F, B_WIDE, "_b1024"), (True, F_WIDE, B, "_wide"))
-    for pool, f, b, tag in shapes:
+    for (pool, f, b, tag), mono in itertools.product(shapes, (False, True)):
         base = "apply_find_pool" if pool else "apply_find"
         geo = af.tail_geometry(f, b)
         hists = ((vec_arg("pool", "float32", (LEAVES, f, b, 2), 8),)
                  if pool else ())
+        kernel = "apply_find_mono_kernel" if mono else "apply_find_kernel"
         register_kernel(KernelEntry(
-            name=base + tag, source="apply_find",
-            symbol=f"apply_find_kernel<{'true' if pool else 'false'}>",
+            name=base + ("_mono" if mono else "") + tag, source="apply_find",
+            symbol=f"{kernel}<{'true' if pool else 'false'}>",
             grid=_grid(geo.blocks), block=_block(af.TAIL_THREADS),
             cluster=geo.blocks, dyn_smem=geo.smem,
             args=hists + (vec_arg("h_a", "float32", (f, b, 2), 8),

@@ -22,6 +22,22 @@
 //      the seg rows -- none of them, and no pool row, when done != 0.
 // The tree's child pointers stay on the host.
 //
+// Monotone constraints, the basic method (make_apply_find's mono_s mode,
+// apply_find.py:377-416), are a second instantiation of the same body,
+// apply_find_mono_kernel, chosen by the host; apply_find_kernel is the
+// unconstrained code.  In it every block derives both children's output
+// bounds from the parent's (lstate SMN / SMX) and the midpoint of its
+// winner's outputs when the winning feature is monotone and the split
+// numerical (BasicLeafConstraints::Update); each candidate's outputs are
+// clipped to its child's bounds (the larger of the output and mn, then
+// the smaller of that and mx, as jnp.clip), a candidate whose outputs
+// break its feature's sign is invalid, the gains are given-output gains,
+// those of monotone features times the depth penalty read from the host's
+// table at the children's depth, the parent gain is the given-output gain
+// at the child's output, the winners keep their clipped outputs and the
+// children's lstate rows their bounds.  Each feature's sign rides in its
+// flag word beside the categorical bit, so the shared memory is the same.
+//
 // Arithmetic: split.py's operation order, one f32 rounding per operation
 // (this source builds with -fmad=false, ops/_build.py, so no product is
 // fused into an add).  Bin prefix sums: one thread per (child, feature,
@@ -66,7 +82,8 @@ constexpr int kStaticReserve = 1024;  // the kernel's static shared memory
 constexpr int kNone = 0x7fffffff;     // the rank of no candidate
 
 // state row layouts (ops/grow.py)
-constexpr int BG = 0, BLG = 5, BLH = 6, BLC = 7, BLO = 8, BRO = 9;
+constexpr int BG = 0, BF = 1, BCAT = 4, BLG = 5, BLH = 6, BLC = 7, BLO = 8,
+              BRO = 9;
 constexpr int SG = 0, SH = 1, SC = 2, SDEP = 3, SMN = 5, SMX = 6;
 
 struct HP {
@@ -85,8 +102,11 @@ struct Args {
   int* seg;             // [L, 2]
   const float* consts;  // [4, F, B]: valid0, valid1, nan one-hot, is_cat
   const float* fmask;   // [F]
+  const int* mono;      // [F] monotone sign (monotone instantiation)
+  const float* pen;     // [pen_len] the depth penalty factor by depth
   int F, B, leaf, right, node, s0, cnt, done;
   int blocks, fpb;      // the cluster: blocks of fpb features
+  int pen_len;
   HP hp;
 };
 
@@ -101,6 +121,17 @@ struct Best {
 __device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
+
+// torch.maximum / torch.minimum: NaN if either is NaN
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return a != a ? a : (b != b ? b : (a < b ? b : a));
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return a != a ? a : (b != b ? b : (b < a ? b : a));
+}
+
+// a feature's flag word: bit 0 categorical, bit 1 sign +1, bit 2 sign -1
+constexpr int kCat = 1, kInc = 2, kDec = 4;
 
 // split.threshold_l1
 __device__ __forceinline__ float tl1(float s, const HP& hp) {
@@ -160,11 +191,15 @@ struct Cand {
 // the candidate (lf, d, b) -- local rank lf * 2B + d * B + b -- of one
 // child in this block; A holds its features' prefix sums (the raw bins
 // of categorical ones), nanv the NaN bin's raw (g, h) per feature, vb
-// one byte a (feature, bin): bit d = valid in direction d and feature on
+// one byte a (feature, bin): bit d = valid in direction d and feature on,
+// flag the feature's flag word; the monotone instantiation clips to
+// [mn, mx] and scales monotone features' gains by pen
+template <bool kMono>
 __device__ __forceinline__ Cand candidate(const HP& hp, const Child& c,
+                                          float mn, float mx, float pen,
                                           const float* A, const float* nanv,
-                                          const uint8_t* vb, int B, int lf,
-                                          int d, int b) {
+                                          const uint8_t* vb, int flag, int B,
+                                          int lf, int d, int b) {
   const int cell = lf * B + b;
   Cand o;
   o.lg = A[2 * cell];
@@ -175,11 +210,25 @@ __device__ __forceinline__ Cand candidate(const HP& hp, const Child& c,
   }
   o.lc = floorf(o.lh * c.factor + 0.5f);
   const float rg = c.sg - o.lg, rh = c.sh - o.lh, rc = c.cc - o.lc;
-  const bool ok = ((vb[cell] >> d) & 1) != 0
-                  && o.lc >= hp.min_data && rc >= hp.min_data
-                  && o.lh >= hp.min_hess && rh >= hp.min_hess && c.allow;
+  bool ok = ((vb[cell] >> d) & 1) != 0
+            && o.lc >= hp.min_data && rc >= hp.min_data
+            && o.lh >= hp.min_hess && rh >= hp.min_hess && c.allow;
   float gain;
-  if (hp.smooth) {
+  if (kMono) {
+    // split.py _candidate_tensors' constrained branch
+    float lo = hp.smooth ? leaf_out_s(o.lg, o.lh, o.lc, c.po, hp)
+                         : leaf_out(o.lg, o.lh, hp);
+    float ro = hp.smooth ? leaf_out_s(rg, rh, rc, c.po, hp)
+                         : leaf_out(rg, rh, hp);
+    lo = min_nan(max_nan(lo, mn), mx);
+    ro = min_nan(max_nan(ro, mn), mx);
+    o.lo = lo;
+    o.ro = ro;
+    if (((flag & kInc) && lo > ro) || ((flag & kDec) && lo < ro)) ok = false;
+    gain = ((gain_given(o.lg, o.lh, lo, hp) + gain_given(rg, rh, ro, hp))
+            - c.pgain) - hp.min_gain;
+    if (flag & (kInc | kDec)) gain = gain * pen;
+  } else if (hp.smooth) {
     o.lo = leaf_out_s(o.lg, o.lh, o.lc, c.po, hp);
     o.ro = leaf_out_s(rg, rh, rc, c.po, hp);
     gain = ((gain_given(o.lg, o.lh, o.lo, hp) + gain_given(rg, rh, o.ro, hp))
@@ -236,8 +285,8 @@ __host__ __device__ inline int smem_bytes(int fpb, int B) {
   return fpb * (17 * B + 24);
 }
 
-template <bool kPool>
-__global__ void __launch_bounds__(kThreads) apply_find_kernel(Args a) {
+template <bool kPool, bool kMono>
+__device__ __forceinline__ void tail(const Args& a) {
   if (a.done) return;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
@@ -249,8 +298,8 @@ __global__ void __launch_bounds__(kThreads) apply_find_kernel(Args a) {
   float* H = reinterpret_cast<float*>(smem4);   // [2, fpb, B, 2]
   float* nanv = H + 2 * cs;                     // [2, fpb, 2]
   int* nanb = reinterpret_cast<int*>(nanv + 4 * fpb);   // [fpb]
-  int* catf = nanb + fpb;                                // [fpb]
-  uint8_t* vbits = reinterpret_cast<uint8_t*>(catf + fpb);  // [fpb, B]
+  int* flags = nanb + fpb;                               // [fpb]
+  uint8_t* vbits = reinterpret_cast<uint8_t*>(flags + fpb);  // [fpb, B]
   __shared__ float parent[18];             // the leaf's best, lstate rows
   __shared__ float wq[2][kWarps];
   __shared__ int wr[2][kWarps];
@@ -300,7 +349,14 @@ __global__ void __launch_bounds__(kThreads) apply_find_kernel(Args a) {
                   | (a.consts[FB + gc] > 0.5f ? 2 : 0);
     vbits[i] = a.fmask[f0 + lf] > 0.f ? (uint8_t)v : (uint8_t)0;
     if (a.consts[2 * FB + gc] > 0.5f) nanb[lf] = b;   // one-hot: one bin
-    if (b == 0) catf[lf] = a.consts[3 * FB + gc] > 0.5f ? 1 : 0;
+    if (b == 0) {
+      int fl = a.consts[3 * FB + gc] > 0.5f ? kCat : 0;
+      if (kMono) {
+        const int sg = a.mono[f0 + lf];
+        fl |= sg > 0 ? kInc : (sg < 0 ? kDec : 0);
+      }
+      flags[lf] = fl;
+    }
   }
   __syncthreads();
 
@@ -313,7 +369,7 @@ __global__ void __launch_bounds__(kThreads) apply_find_kernel(Args a) {
     float* A = H + c * cs + lf * B * 2 + ch;
     const int nb = nanb[lf];
     nanv[(c * fpb + lf) * 2 + ch] = nb >= 0 ? A[2 * nb] : 0.f;
-    if (!catf[lf]) prefix_f64(A, B);
+    if (!(flags[lf] & kCat)) prefix_f64(A, B);
   }
   __syncthreads();
 
@@ -325,14 +381,32 @@ __global__ void __launch_bounds__(kThreads) apply_find_kernel(Args a) {
   const float rg = pg - lg, rh = ph - lh, rc = pc - lc;
   const float d_child = dep + 1.0f;
   const bool allow = a.hp.max_depth <= 0 || d_child < (float)a.hp.max_depth;
+  // the children's output bounds: the parent's, or under the basic method
+  // pinned to either side of the winner's midpoint (apply_find.py:384-389)
+  const float mn_p = parent[10 + SMN], mx_p = parent[10 + SMX];
+  float l_mn = mn_p, l_mx = mx_p, r_mn = mn_p, r_mx = mx_p, pen = 1.f;
+  if (kMono) {  // the unconstrained instantiation never reads these
+    int fw = (int)parent[BF];
+    fw = fw < 0 ? 0 : (fw >= F ? F - 1 : fw);
+    const int sg = parent[BCAT] > 0.5f ? 0 : a.mono[fw];
+    const float mid = (lo + ro) * 0.5f;
+    if (sg < 0) l_mn = max_nan(mn_p, mid);
+    if (sg > 0) l_mx = min_nan(mx_p, mid);
+    if (sg > 0) r_mn = max_nan(mn_p, mid);
+    if (sg < 0) r_mx = min_nan(mx_p, mid);
+    int di = (int)d_child;
+    di = di < 0 ? 0 : (di >= a.pen_len ? a.pen_len - 1 : di);
+    pen = a.pen[di];
+  }
   Child ch[2];
   ch[0] = Child{lg, lh, lc, lo, 0.f, 0.f, allow};
   ch[1] = Child{rg, rh, rc, ro, 0.f, 0.f, allow};
   for (int c = 0; c < 2; ++c) {
     const float shc = ch[c].sh < 1e-38f ? 1e-38f : ch[c].sh;
     ch[c].factor = ch[c].cc / shc;
-    ch[c].pgain = a.hp.smooth ? gain_given(ch[c].sg, ch[c].sh, ch[c].po, a.hp)
-                              : split_gain(ch[c].sg, ch[c].sh, a.hp);
+    ch[c].pgain = (kMono || a.hp.smooth)
+                      ? gain_given(ch[c].sg, ch[c].sh, ch[c].po, a.hp)
+                      : split_gain(ch[c].sg, ch[c].sh, a.hp);
   }
   const int ncand = nf * 2 * B;
   const int r0 = f0 * 2 * B;               // the global rank of rl = 0
@@ -347,9 +421,9 @@ __global__ void __launch_bounds__(kThreads) apply_find_kernel(Args a) {
     int lf = lf0, rem = rem0;
     for (int rl = threadIdx.x; rl < ncand; rl += kThreads) {
       const int d = rem >= B ? 1 : 0;
-      const float q = sel_key(candidate(a.hp, ch[c], H + c * cs,
-                                        nanv + c * fpb * 2, vbits, B, lf, d,
-                                        rem - d * B).gain);
+      const float q = sel_key(candidate<kMono>(
+          a.hp, ch[c], c ? r_mn : l_mn, c ? r_mx : l_mx, pen, H + c * cs,
+          nanv + c * fpb * 2, vbits, flags[lf], B, lf, d, rem - d * B).gain);
       if (better(q, r0 + rl, bq, br)) {
         bq = q;
         br = r0 + rl;
@@ -378,19 +452,21 @@ __global__ void __launch_bounds__(kThreads) apply_find_kernel(Args a) {
       if (br != kNone) {
         const int rl = br - r0;
         const int lf = rl / (2 * B), d = (rl - lf * 2 * B) / B;
-        const Cand o = candidate(a.hp, ch[c], H + c * cs, nanv + c * fpb * 2,
-                                 vbits, B, lf, d, rl - lf * 2 * B - d * B);
+        const Cand o = candidate<kMono>(
+            a.hp, ch[c], c ? r_mn : l_mn, c ? r_mx : l_mx, pen, H + c * cs,
+            nanv + c * fpb * 2, vbits, flags[lf], B, lf, d,
+            rl - lf * 2 * B - d * B);
         w.gain = o.gain;
         w.lg = o.lg;
         w.lh = o.lh;
         w.lc = o.lc;
         w.lo = o.lo;
         w.ro = o.ro;
-        if (!a.hp.smooth) {
+        if (!kMono && !a.hp.smooth) {
           w.lo = leaf_out(o.lg, o.lh, a.hp);
           w.ro = leaf_out(ch[c].sg - o.lg, ch[c].sh - o.lh, a.hp);
         }
-        w.cat = catf[lf];
+        w.cat = flags[lf] & kCat;
       }
       res[c] = w;
     }
@@ -442,8 +518,8 @@ __global__ void __launch_bounds__(kThreads) apply_find_kernel(Args a) {
     so[2] = ch[c].cc;
     so[3] = d_child;
     so[4] = (float)a.node;
-    so[5] = parent[10 + SMN];
-    so[6] = parent[10 + SMX];
+    so[5] = kMono ? (c ? r_mn : l_mn) : parent[10 + SMN];
+    so[6] = kMono ? (c ? r_mx : l_mx) : parent[10 + SMX];
     so[7] = ch[c].po;
   } else if (threadIdx.x == 64) {
     float* no = a.nodes + (size_t)a.node * 4;
@@ -457,6 +533,21 @@ __global__ void __launch_bounds__(kThreads) apply_find_kernel(Args a) {
   }
 }
 
+template <bool kPool>
+__global__ void __launch_bounds__(kThreads) apply_find_kernel(Args a) {
+  tail<kPool, false>(a);
+}
+
+template <bool kPool>
+__global__ void __launch_bounds__(kThreads) apply_find_mono_kernel(Args a) {
+  tail<kPool, true>(a);
+}
+
+template <bool kPool, bool kMono>
+void (*kernel())(Args) {
+  return kMono ? apply_find_mono_kernel<kPool> : apply_find_kernel<kPool>;
+}
+
 // the wrapper's geometry (ops/apply_find.tail_geometry), refused where it
 // misses a feature or does not fit
 bool geometry_ok(int F, int B, int blocks, int fpb) {
@@ -466,21 +557,31 @@ bool geometry_ok(int F, int B, int blocks, int fpb) {
          && (long long)fpb * (17LL * B + 24) <= kMaxSmem - kStaticReserve;
 }
 
-template <bool kPool>
+// each call names its kernel: the analyzer's smem pass reads the
+// non-portable cluster opt-in of each kernel from this source
+template <bool kPool, bool kMono>
 cudaError_t set_attributes(int smem, int blocks) {
   static int smem_set = 0;
   static bool nonportable = false;
   if (smem > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        apply_find_kernel<kPool>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t e =
+        kMono ? cudaFuncSetAttribute(
+                    apply_find_mono_kernel<kPool>,
+                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+              : cudaFuncSetAttribute(
+                    apply_find_kernel<kPool>,
+                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     smem_set = smem;
   }
   if (blocks > kPortableCluster && !nonportable) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        apply_find_kernel<kPool>,
-        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    const cudaError_t e =
+        kMono ? cudaFuncSetAttribute(
+                    apply_find_mono_kernel<kPool>,
+                    cudaFuncAttributeNonPortableClusterSizeAllowed, 1)
+              : cudaFuncSetAttribute(
+                    apply_find_kernel<kPool>,
+                    cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
     nonportable = true;
   }
@@ -506,28 +607,48 @@ void configure(Launch& l, int blocks, int smem, cudaStream_t s) {
   l.cfg.numAttrs = 1;
 }
 
-template <bool kPool>
-int launch(const Args& a, void* stream) {
-  if (!geometry_ok(a.F, a.B, a.blocks, a.fpb))
-    return (int)cudaErrorInvalidValue;
+template <bool kPool, bool kMono>
+int launch_as(const Args& a, void* stream) {
   const int smem = smem_bytes(a.fpb, a.B);
-  cudaError_t e = set_attributes<kPool>(smem, a.blocks);
+  cudaError_t e = set_attributes<kPool, kMono>(smem, a.blocks);
   if (e != cudaSuccess) return (int)e;
   Launch l;
   configure(l, a.blocks, smem, static_cast<cudaStream_t>(stream));
-  e = cudaLaunchKernelEx(&l.cfg, apply_find_kernel<kPool>, a);
+  e = cudaLaunchKernelEx(&l.cfg, kernel<kPool, kMono>(), a);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+template <bool kPool>
+int launch(const Args& a, int mono, void* stream) {
+  if (!geometry_ok(a.F, a.B, a.blocks, a.fpb)
+      || (mono && (a.mono == nullptr || a.pen == nullptr || a.pen_len < 1)))
+    return (int)cudaErrorInvalidValue;
+  return mono ? launch_as<kPool, true>(a, stream)
+              : launch_as<kPool, false>(a, stream);
+}
+
+template <bool kPool, bool kMono>
+int occupancy(int smem, int blocks) {
+  cudaError_t e = set_attributes<kPool, kMono>(smem, blocks);
+  if (e != cudaSuccess) return -(int)e;
+  Launch l;
+  configure(l, blocks, smem, nullptr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kernel<kPool, kMono>(), &l.cfg);
+  return e != cudaSuccess ? -(int)e : n;
 }
 
 Args make_args(float* pool, const float* ha, const float* hb,
                const int* nleft, float* best, float* lstate, float* nodes,
-               int* seg, const float* consts, const float* fmask, int F,
-               int B, int leaf, int right, int node, int s0, int cnt,
-               int done, int blocks, int fpb, int max_depth, float l1,
-               float l2, float min_data, float min_hess, float min_gain,
-               float mds, float ps, int smooth) {
+               int* seg, const float* consts, const float* fmask,
+               const int* mono, const float* pen, int F, int B, int leaf,
+               int right, int node, int s0, int cnt, int done, int blocks,
+               int fpb, int max_depth, int pen_len, float l1, float l2,
+               float min_data, float min_hess, float min_gain, float mds,
+               float ps, int smooth) {
   return Args{pool, ha, hb, nleft, best, lstate, nodes, seg, consts, fmask,
-              F, B, leaf, right, node, s0, cnt, done, blocks, fpb,
+              mono, pen, F, B, leaf, right, node, s0, cnt, done, blocks, fpb,
+              pen_len,
               HP{l1, l2, min_data, min_hess, min_gain, mds, ps, smooth,
                  max_depth}};
 }
@@ -541,60 +662,60 @@ extern "C" {
 int apply_find_smem_bytes(int fpb, int B) { return smem_bytes(fpb, B); }
 
 // Clusters of this geometry the card can hold at once
-// (cudaOccupancyMaxActiveClusters; 0: the launch cannot run), or minus
-// the CUDA error code.
-int apply_find_max_clusters(int pool, int F, int B, int blocks, int fpb) {
+// (cudaOccupancyMaxActiveClusters; 0: the launch cannot run) of the
+// unconstrained or, with mono, the monotone instantiation, or minus the
+// CUDA error code.
+int apply_find_max_clusters(int pool, int F, int B, int blocks, int fpb,
+                            int mono) {
   if (!geometry_ok(F, B, blocks, fpb)) return -(int)cudaErrorInvalidValue;
   const int smem = smem_bytes(fpb, B);
-  cudaError_t e = pool ? set_attributes<true>(smem, blocks)
-                       : set_attributes<false>(smem, blocks);
-  if (e != cudaSuccess) return -(int)e;
-  Launch l;
-  configure(l, blocks, smem, nullptr);
-  int n = 0;
-  e = pool ? cudaOccupancyMaxActiveClusters(&n, apply_find_kernel<true>,
-                                            &l.cfg)
-           : cudaOccupancyMaxActiveClusters(&n, apply_find_kernel<false>,
-                                            &l.cfg);
-  return e != cudaSuccess ? -(int)e : n;
+  if (pool)
+    return mono ? occupancy<true, true>(smem, blocks)
+                : occupancy<true, false>(smem, blocks);
+  return mono ? occupancy<false, true>(smem, blocks)
+              : occupancy<false, false>(smem, blocks);
 }
 
 // The pool entry: ha / hb the smaller child's histogram candidates
 // (left-smaller / right-smaller), pool [L, F, B, 2] updated in place;
-// one cluster of `blocks` blocks of `fpb` features.  Every pointer
+// one cluster of `blocks` blocks of `fpb` features.  mono != 0 launches
+// the monotone instantiation with the signs `mono_s` [F] and the depth
+// penalty table `pen` [pen_len] (all 1.0 without a penalty).  Every pointer
 // 8-byte aligned.  Returns the CUDA error code (0 on success;
 // cudaErrorInvalidValue for a geometry that misses a feature or does not
-// fit).
+// fit, or a monotone launch without its constants).
 int apply_find_pool(float* pool, const float* ha, const float* hb,
                     const int* nleft, float* best, float* lstate,
                     float* nodes, int* seg, const float* consts,
-                    const float* fmask, int F, int B, int leaf, int right,
-                    int node, int s0, int cnt, int done, int blocks, int fpb,
-                    int max_depth, float l1, float l2, float min_data,
+                    const float* fmask, const int* mono_s, const float* pen,
+                    int F, int B, int leaf, int right, int node, int s0,
+                    int cnt, int done, int blocks, int fpb, int max_depth,
+                    int pen_len, float l1, float l2, float min_data,
                     float min_hess, float min_gain, float mds, float ps,
-                    int smooth, void* stream) {
+                    int smooth, int mono, void* stream) {
   return launch<true>(
       make_args(pool, ha, hb, nleft, best, lstate, nodes, seg, consts, fmask,
-                F, B, leaf, right, node, s0, cnt, done, blocks, fpb,
-                max_depth, l1, l2, min_data, min_hess, min_gain, mds, ps,
-                smooth),
-      stream);
+                mono_s, pen, F, B, leaf, right, node, s0, cnt, done, blocks,
+                fpb, max_depth, pen_len, l1, l2, min_data, min_hess,
+                min_gain, mds, ps, smooth),
+      mono, stream);
 }
 
 // The plain-pool entry: h_left and h_right given, no pool.
 int apply_find(const float* h_left, const float* h_right, const int* nleft,
                float* best, float* lstate, float* nodes, int* seg,
-               const float* consts, const float* fmask, int F, int B,
-               int leaf, int right, int node, int s0, int cnt, int done,
-               int blocks, int fpb, int max_depth, float l1, float l2,
-               float min_data, float min_hess, float min_gain, float mds,
-               float ps, int smooth, void* stream) {
+               const float* consts, const float* fmask, const int* mono_s,
+               const float* pen, int F, int B, int leaf, int right, int node,
+               int s0, int cnt, int done, int blocks, int fpb, int max_depth,
+               int pen_len, float l1, float l2, float min_data,
+               float min_hess, float min_gain, float mds, float ps,
+               int smooth, int mono, void* stream) {
   return launch<false>(
       make_args(nullptr, h_left, h_right, nleft, best, lstate, nodes, seg,
-                consts, fmask, F, B, leaf, right, node, s0, cnt, done,
-                blocks, fpb, max_depth, l1, l2, min_data, min_hess, min_gain,
-                mds, ps, smooth),
-      stream);
+                consts, fmask, mono_s, pen, F, B, leaf, right, node, s0, cnt,
+                done, blocks, fpb, max_depth, pen_len, l1, l2, min_data,
+                min_hess, min_gain, mds, ps, smooth),
+      mono, stream);
 }
 
 }  // extern "C"

@@ -34,6 +34,7 @@ from ..config import Config, env_knob
 from ..io.binning import BinType
 from ..io.dataset_core import BinnedDataset
 from ..metric import Metric
+from ..models.constraints import build_grow_constraints
 from ..models.model_text import feature_infos
 from ..objective.base import ObjectiveFunction
 from ..ops.device_data import DeviceDataset, to_device
@@ -93,8 +94,6 @@ def check_supported(cfg: Config) -> None:
         _unported("pre_partition (paged / distributed data)")
     if cfg.gpu_use_dp:
         _unported("gpu_use_dp")
-    if any(int(m) != 0 for m in cfg.monotone_constraints):
-        _unported("monotone_constraints")
     if cfg.interaction_constraints:
         _unported("interaction_constraints")
     if (cfg.cegb_penalty_split > 0 or cfg.cegb_penalty_feature_lazy
@@ -171,6 +170,8 @@ class GBDT:
             max_cat_to_onehot=cfg.max_cat_to_onehot,
             max_cat_threshold=cfg.max_cat_threshold,
             min_data_per_group=cfg.min_data_per_group)
+        hp_updates, monotone = build_grow_constraints(cfg, train_set)
+        self.hp = self.hp._replace(**hp_updates)
         self.dd: DeviceDataset = to_device(train_set, device)
         dd = self.dd
         kind = getattr(objective, "STREAM_KIND", None)
@@ -182,6 +183,8 @@ class GBDT:
             linear_tree=bool(cfg.linear_tree),
             learner=cfg.tree_learner,
             bins_u8=dd.bins.dtype == torch.uint8, cat_subset=subset,
+            mono_intermediate=self.hp.use_monotone
+            and self.hp.mono_intermediate,
             fused_ok=fused_supported(dd.num_features, dd.padded_bins),
             tail_ok=apply_find_supported(dd.num_features, dd.padded_bins)),
             num_features=dd.num_features, padded_bins=dd.padded_bins))
@@ -189,7 +192,8 @@ class GBDT:
             histogram_impl()     # raises for a knob value with no kernel
             self.grow = RowOrderGrower(self.hp, num_leaves=cfg.num_leaves,
                                        max_depth=cfg.max_depth, dd=dd,
-                                       route=self.route, timer=self.timer)
+                                       route=self.route, timer=self.timer,
+                                       monotone=monotone)
         else:
             stream = (StreamSpec(kind,
                                  float(getattr(objective, "sigmoid", 1.0)))
@@ -197,7 +201,7 @@ class GBDT:
             self.grow = SerialGrower(self.hp, num_leaves=cfg.num_leaves,
                                      max_depth=cfg.max_depth, dd=dd,
                                      route=self.route, stream=stream,
-                                     timer=self.timer)
+                                     timer=self.timer, monotone=monotone)
             if self.route.stream:
                 self.grow.set_stream_aux(self._stream_aux)
         n = train_set.num_data

@@ -30,11 +30,22 @@ wherever one cluster's shared memory holds both children: 28 x 1024
 included.  :func:`cluster_winner_ref` models its search (each block's
 winner over its feature range, then the merge) for the tests.
 
+Monotone constraints, the basic method (``make_apply_find``'s
+``mono_s`` mode): the children's output bounds come from the parent's
+bounds and the midpoint of its winner's outputs on a monotone feature
+(``BasicLeafConstraints::Update``, :func:`child_bounds`), both children
+search with them (clipped outputs, the violation mask, the depth
+penalty read from ``FinderConsts.penalty``), and their ``lstate`` rows
+hold them.  On the card this is the kernel's second instantiation
+(``apply_find_mono_kernel``), chosen under ``hp.use_monotone``; the
+unconstrained one is unchanged.
+
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  The kernel has no
-sorted-subset categorical search: under ``hp.use_cat_subset`` the route
-takes the PyTorch tail (:func:`apply_find_pool_ref`, whose
-``find_best_split`` searches the subsets), and a kernel launch raises.
+sorted-subset categorical search and no intermediate monotone method:
+under ``hp.use_cat_subset`` or ``hp.mono_intermediate`` the route takes
+the PyTorch tail (:func:`apply_find_pool_ref`), and a kernel launch
+raises.
 """
 from __future__ import annotations
 
@@ -60,11 +71,13 @@ SG, SH, SC, SDEP, SPAR, SMN, SMX, SOUT = range(8)
 class FinderConsts(NamedTuple):
     """The dataset's bin metadata for the split search: ``masks`` [4, F,
     B] f32 (``build_finder_consts``) for the kernel, the [F] vectors for
-    the plain version."""
+    the plain version, and the monotone constants for both."""
     masks: torch.Tensor
     num_bins: torch.Tensor   # i32 [F], the NaN bin included
     has_nan: torch.Tensor    # bool [F]
     is_cat: torch.Tensor     # bool [F]
+    mono: torch.Tensor       # i32 [F] monotone sign; zeros when off
+    penalty: torch.Tensor    # f32 [D] split.monotone_penalty_table by depth
 
 
 class TreeState(NamedTuple):
@@ -88,13 +101,17 @@ class SplitAt(NamedTuple):
 
 
 def build_finder_consts(num_bins: torch.Tensor, has_nan: torch.Tensor,
-                        is_cat: torch.Tensor, padded_bins: int
+                        is_cat: torch.Tensor, padded_bins: int,
+                        monotone: Optional[torch.Tensor] = None,
+                        penalty: Optional[torch.Tensor] = None
                         ) -> FinderConsts:
-    """``apply_find.build_finder_consts`` without the monotone row:
-    0 valid0 (numerical forward merged with one-hot categorical, bin 0
-    of a categorical feature left out as in ``split.py``), 1
-    valid1 (numerical, missing left), 2 the NaN bin's one-hot (zero
-    without a NaN bin), 3 is_cat broadcast over bins."""
+    """``apply_find.build_finder_consts``'s masks: 0 valid0 (numerical
+    forward merged with one-hot categorical, bin 0 of a categorical
+    feature left out as in ``split.py``), 1 valid1 (numerical, missing
+    left), 2 the NaN bin's one-hot (zero without a NaN bin), 3 is_cat
+    broadcast over bins.  Its fifth row, the monotone sign, is the [F]
+    vector ``monotone`` (zeros when None), which the kernel stages per
+    feature; ``penalty`` the depth penalty table (one 1.0 when None)."""
     bins_r = torch.arange(padded_bins, dtype=torch.int32,
                           device=num_bins.device)[None, :]
     max_t = num_bins[:, None] - 2 - has_nan[:, None].to(torch.int32)
@@ -105,14 +122,43 @@ def build_finder_consts(num_bins: torch.Tensor, has_nan: torch.Tensor,
               & has_nan[:, None])
     masks = torch.stack([num_valid | cat_valid, num_valid & has_nan[:, None],
                          nan_oh, is_cat[:, None].expand_as(num_valid)])
+    dev = num_bins.device
+    mono = (torch.zeros(num_bins.shape, dtype=torch.int32, device=dev)
+            if monotone is None
+            else monotone.to(device=dev, dtype=torch.int32).contiguous())
+    pen = (torch.ones(1, dtype=torch.float32, device=dev) if penalty is None
+           else penalty.to(device=dev, dtype=torch.float32).contiguous())
     return FinderConsts(masks.to(torch.float32).contiguous(), num_bins,
-                        has_nan, is_cat)
+                        has_nan, is_cat, mono, pen)
 
 
 def allow_split(depth: torch.Tensor, max_depth: int) -> torch.Tensor:
     if max_depth <= 0:
         return torch.ones(depth.shape, dtype=torch.bool, device=depth.device)
     return depth < max_depth
+
+
+def child_bounds(brow: torch.Tensor, lrow: torch.Tensor, fc: FinderConsts,
+                 hp: SplitHyperParams) -> tuple:
+    """``(l_mn, l_mx, r_mn, r_mx)``: the children's output bounds of the
+    split ``brow`` of the leaf ``lrow`` (0-d tensors).  Under the basic
+    method a numerical split on a monotone feature pins the children to
+    either side of the midpoint of its outputs
+    (``BasicLeafConstraints::Update``, monotone_constraints.hpp:485-501;
+    ``apply_find.py:384-389``); otherwise, and under the intermediate
+    method (whose adjacency pass tightens them after the split), they
+    inherit the parent's."""
+    mn, mx = lrow[SMN], lrow[SMX]
+    if not hp.use_monotone or hp.mono_intermediate:
+        return mn, mx, mn, mx
+    feat = torch.clamp(brow[BF].long(), min=0)
+    sign = torch.where(brow[BCAT] > 0.5, torch.zeros_like(fc.mono[feat]),
+                       fc.mono[feat])
+    mid = (brow[BLO] + brow[BRO]) * 0.5
+    return (torch.where(sign < 0, torch.maximum(mn, mid), mn),
+            torch.where(sign > 0, torch.minimum(mx, mid), mx),
+            torch.where(sign > 0, torch.maximum(mn, mid), mn),
+            torch.where(sign < 0, torch.minimum(mx, mid), mx))
 
 
 def apply_find_ref(h2: torch.Tensor, nleft: torch.Tensor, st: TreeState,
@@ -137,15 +183,18 @@ def apply_find_ref(h2: torch.Tensor, nleft: torch.Tensor, st: TreeState,
         [brow[BG], calculate_leaf_output(pg, ph, hp), ph, pc])
     d_child = lrow[SDEP] + 1.0
     fnode = d_child.new_tensor(float(at.node))
-    mn, mx = lrow[SMN], lrow[SMX]
+    l_mn, l_mx, r_mn, r_mx = child_bounds(brow, lrow, fc, hp)
     st.lstate[[leaf, right]] = torch.stack([
-        torch.stack([lg, lh, lc, d_child, fnode, mn, mx, lo]),
-        torch.stack([rg, rh, rc, d_child, fnode, mn, mx, ro])])
+        torch.stack([lg, lh, lc, d_child, fnode, l_mn, l_mx, lo]),
+        torch.stack([rg, rh, rc, d_child, fnode, r_mn, r_mx, ro])])
+    depth = torch.stack([d_child, d_child])
     si = find_best_split(
         h2, torch.stack([lg, rg]), torch.stack([lh, rh]),
         torch.stack([lc, rc]), fc.num_bins, fc.has_nan, fc.is_cat,
-        feature_mask, allow_split(torch.stack([d_child, d_child]), max_depth),
-        hp, parent_output=torch.stack([lo, ro]))
+        feature_mask, allow_split(depth, max_depth), hp,
+        parent_output=torch.stack([lo, ro]), monotone=fc.mono,
+        mn=torch.stack([l_mn, r_mn]), mx=torch.stack([l_mx, r_mx]),
+        depth=depth, penalty=fc.penalty)
     st.best[[leaf, right]] = pack_split_info(si)
 
 
@@ -303,25 +352,28 @@ def cluster_winner_ref(keys: torch.Tensor, geo: TailGeometry,
 def _lib():
     lib = _build.load("apply_find")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [i] * 11 + [f] * 7 + [i, p]
+    # the sign vector and the penalty table, then the scalars
+    tail = [p, p] + [i] * 12 + [f] * 7 + [i] * 2 + [p]
     lib.apply_find_pool.argtypes = [p] * 10 + tail
     lib.apply_find_pool.restype = i
     lib.apply_find.argtypes = [p] * 9 + tail
     lib.apply_find.restype = i
     lib.apply_find_smem_bytes.argtypes = [i, i]
     lib.apply_find_smem_bytes.restype = i
-    lib.apply_find_max_clusters.argtypes = [i] * 5
+    lib.apply_find_max_clusters.argtypes = [i] * 6
     lib.apply_find_max_clusters.restype = i
     return lib
 
 
 def max_clusters(geo: TailGeometry, num_features: int, padded_bins: int,
-                 pool: bool = True) -> int:
+                 pool: bool = True, mono: bool = False) -> int:
     """Clusters of ``geo`` the card holds at once
-    (``cudaOccupancyMaxActiveClusters``; 0: the launch cannot run)."""
+    (``cudaOccupancyMaxActiveClusters``; 0: the launch cannot run), of
+    the unconstrained instantiation or, with ``mono``, the constrained
+    one."""
     n = _lib().apply_find_max_clusters(int(pool), int(num_features),
                                        int(padded_bins), geo.blocks,
-                                       geo.feats)
+                                       geo.feats, int(mono))
     if n < 0:
         raise LightGBMError(f"apply_find occupancy query of {geo} failed "
                             f"with CUDA error {-n}")
@@ -340,6 +392,8 @@ def _check(h_a, h_b, nleft, st: TreeState, fc: FinderConsts,
             (st.nodes, torch.float32, (max(L - 1, 1), 4)),
             (st.seg, torch.int32, (L, 2)),
             (fc.masks, torch.float32, (4, f, b)),
+            (fc.mono, torch.int32, (f,)),
+            (fc.penalty, torch.float32, (fc.penalty.numel(),)),
             (feature_mask, torch.float32, (f,)))
     for t, dt, shape in want:
         if (t.dtype != dt or tuple(t.shape) != shape or t.device != dev
@@ -358,19 +412,30 @@ def _check(h_a, h_b, nleft, st: TreeState, fc: FinderConsts,
     return geo
 
 
-def _scalars(at: SplitAt, max_depth: int, hp: SplitHyperParams, f: int,
-             b: int, geo: TailGeometry) -> list:
+def _scalars(at: SplitAt, max_depth: int, hp: SplitHyperParams,
+             fc: FinderConsts, f: int, b: int, geo: TailGeometry) -> list:
+    """The library's arguments after the state pointers: the monotone
+    constants, then the scalars; the mode (``hp.use_monotone``) picks
+    the instantiation."""
     if hp.use_cat_subset:
         # the kernel searches no sorted subsets: the route sends such
         # models to the PyTorch tail (routing rule tail_cat_subset)
         raise LightGBMError("the kernel split tail has no sorted-subset "
                             "categorical search; the PyTorch tail "
                             "(apply_find_pool_ref) runs it")
-    return [f, b, at.leaf, at.right, at.node, at.s0, at.cnt, int(at.done),
-            geo.blocks, geo.feats, int(max_depth), hp.lambda_l1,
+    if hp.use_monotone and hp.mono_intermediate:
+        # routing rule tail_mono_intermediate
+        raise LightGBMError("the kernel split tail has no intermediate "
+                            "monotone method; the PyTorch tail "
+                            "(apply_find_pool_ref) and the grower's "
+                            "adjacency pass run it")
+    return [fc.mono.data_ptr(), fc.penalty.data_ptr(), f, b, at.leaf,
+            at.right, at.node, at.s0, at.cnt, int(at.done), geo.blocks,
+            geo.feats, int(max_depth), fc.penalty.numel(), hp.lambda_l1,
             hp.lambda_l2, float(hp.min_data_in_leaf),
             hp.min_sum_hessian_in_leaf, hp.min_gain_to_split,
-            hp.max_delta_step, hp.path_smooth, int(hp.use_smoothing)]
+            hp.max_delta_step, hp.path_smooth, int(hp.use_smoothing),
+            int(hp.use_monotone)]
 
 
 def _state_ptrs(st: TreeState) -> list:
@@ -392,8 +457,8 @@ def launch_pool(h_a: torch.Tensor, h_b: torch.Tensor, nleft: torch.Tensor,
         rc = _lib().apply_find_pool(
             st.pool.data_ptr(), h_a.data_ptr(), h_b.data_ptr(),
             nleft.data_ptr(), *_state_ptrs(st), fc.masks.data_ptr(),
-            feature_mask.data_ptr(), *_scalars(at, max_depth, hp, f, b, geo),
-            stream)
+            feature_mask.data_ptr(),
+            *_scalars(at, max_depth, hp, fc, f, b, geo), stream)
     if rc != 0:
         raise LightGBMError(f"apply_find_pool kernel launch failed with "
                             f"CUDA error {rc}")
@@ -411,7 +476,7 @@ def launch_plain(h2: torch.Tensor, nleft: torch.Tensor, st: TreeState,
         rc = _lib().apply_find(
             h2[0].data_ptr(), h2[1].data_ptr(), nleft.data_ptr(),
             *_state_ptrs(st), fc.masks.data_ptr(), feature_mask.data_ptr(),
-            *_scalars(at, max_depth, hp, f, b, geo), stream)
+            *_scalars(at, max_depth, hp, fc, f, b, geo), stream)
     if rc != 0:
         raise LightGBMError(f"apply_find kernel launch failed with CUDA "
                             f"error {rc}")

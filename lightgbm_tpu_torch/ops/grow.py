@@ -66,6 +66,15 @@ instead: per split a stable compaction of the leaf's segment in PyTorch
 ops and the smaller child's histogram through the index
 (``hist_rows``), then the route's tail.  Both growers share the host
 loop, the tree state and the tree's structure.
+
+Monotone constraints: the tail gives the children their output bounds
+(the basic method, ``apply_find.child_bounds``).  Under the intermediate
+method (``hp.mono_intermediate``, the PyTorch tail) the children inherit
+the parent's bounds, and after each split :meth:`_Grower._mono_adjacent`
+keeps every leaf's box in bin space, tightens the bounds of the leaves
+face-adjacent to a new child across a monotone feature with its output
+and searches the tightened leaves again from the pool
+(``grow.py:2075-2150``); it reads nothing back.
 """
 from __future__ import annotations
 
@@ -76,10 +85,10 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .apply_find import (BB, BCAT, BF, BG, SC, SH, SMN, SMX, SOUT, SPAR,
-                         SplitAt, TreeState, allow_split, apply_find_pool,
-                         apply_find_pool_ref, apply_find_torch_pool,
-                         build_finder_consts)
+from .apply_find import (BB, BCAT, BF, BG, SC, SDEP, SG, SH, SMN, SMX,
+                         SOUT, SPAR, SplitAt, TreeState, allow_split,
+                         apply_find_pool, apply_find_pool_ref,
+                         apply_find_torch_pool, build_finder_consts)
 from .device_data import (DeviceDataset, PackedRows, Rows, bins_i32,
                           empty_packed_like, empty_rows_like,
                           init_packed_rows, init_rows)
@@ -92,7 +101,7 @@ from .partition_kernel import (copyback, copyback_p2, go_left, partition,
 from .routing import RouteDecision, cat_bitset_fit
 from .split import (SplitHyperParams, calculate_leaf_output,
                     cat_subset_member, derived_counts, find_best_split,
-                    pack_split_info, selection_key)
+                    monotone_penalty_table, pack_split_info, selection_key)
 from .stream_grad import (stream_init, stream_init_p2, stream_refresh,
                           stream_refresh_p2, stream_refresh_plain,
                           stream_refresh_plain_p2)
@@ -244,15 +253,28 @@ class _Grower:
 
     def __init__(self, hp: SplitHyperParams, *, num_leaves: int,
                  max_depth: int, dd: DeviceDataset, route: RouteDecision,
-                 timer: Optional[StageTimer] = None):
+                 timer: Optional[StageTimer] = None,
+                 monotone: Optional[np.ndarray] = None):
         self.hp = hp
         self.L = int(num_leaves)
         self.max_depth = int(max_depth)
         self.dd = dd
         self.route = route
         self.timer = timer or StageTimer()
+        # monotone: the features' signs and the depth penalty by depth
+        # (depths 0 .. L - 1), both on the device
+        mono = pen = None
+        if hp.use_monotone:
+            if monotone is None or len(monotone) != dd.num_features:
+                raise ValueError("hp.use_monotone needs one monotone sign "
+                                 "a feature")
+            mono = torch.as_tensor(np.asarray(monotone, np.int32),
+                                   device=dd.device)
+            pen = torch.as_tensor(monotone_penalty_table(
+                hp.monotone_penalty, self.L + 1), device=dd.device)
         self.finder = build_finder_consts(dd.num_bins, dd.has_nan,
-                                          dd.is_cat, dd.padded_bins)
+                                          dd.is_cat, dd.padded_bins,
+                                          monotone=mono, penalty=pen)
         self._num_bins = dd.num_bins.cpu().numpy()
         self._has_nan = dd.has_nan.cpu().numpy()
         self._bins = torch.arange(dd.padded_bins, device=dd.device)
@@ -273,11 +295,15 @@ class _Grower:
         sg0, sh0, c0 = sums.unbind()
         root_out = calculate_leaf_output(sg0, sh0, hp)
         depth0 = torch.zeros(1, dtype=f32, device=dev)
+        fc = self.finder
         si0 = find_best_split(
             root_hist[None], sg0[None], sh0[None], c0[None], dd.num_bins,
             dd.has_nan, dd.is_cat, feature_mask,
             allow_split(depth0, self.max_depth), hp,
-            parent_output=root_out[None])
+            parent_output=root_out[None], monotone=fc.mono,
+            mn=torch.full_like(depth0, float("-inf")),
+            mx=torch.full_like(depth0, float("inf")), depth=depth0,
+            penalty=fc.penalty)
         pool = torch.zeros((L, dd.num_features, dd.padded_bins, 2),
                            dtype=f32, device=dev)
         pool[0] = root_hist
@@ -336,6 +362,9 @@ class _Grower:
         tb = _TreeBuilder(self.L)
         nleft = torch.zeros(1, dtype=torch.int32, device=dev)
         subset = self.hp.use_cat_subset
+        boxes = (self._root_boxes()
+                 if self.hp.use_monotone and self.hp.mono_intermediate
+                 else None)
         for i in range(self.L - 1):
             with stage("split_tail", dev):
                 leaf_t = torch.argmax(selection_key(st.best[:, BG]))
@@ -366,8 +395,74 @@ class _Grower:
             with stage("split_tail", dev):
                 tail(h_a, h_b, nleft, st, self.finder, feature_mask, self.hp,
                      self.max_depth, SplitAt(leaf, right, node, s0, cnt))
+                if boxes is not None:
+                    self._mono_adjacent(st, boxes, leaf, right, feat, sbin,
+                                        cat, feature_mask)
             tb.split(leaf, right, node, feat, sbin, dl, cat, words)
         return tb
+
+    def _root_boxes(self) -> torch.Tensor:
+        """Every leaf's box in bin space, f32 [L, 2, F] (low, high
+        bins): the whole range, ``[0, num_bins - 1]``, for each."""
+        dd = self.dd
+        hi = torch.clamp(dd.num_bins - 1, min=0).to(torch.float32)
+        return torch.stack([torch.zeros_like(hi), hi])[None].repeat(
+            self.L, 1, 1)
+
+    def _mono_adjacent(self, st: TreeState, boxes: torch.Tensor, leaf: int,
+                       right: int, feat: int, sbin: int, cat: int,
+                       feature_mask: torch.Tensor) -> None:
+        """The intermediate method after a split of ``leaf`` into
+        ``leaf`` and ``right`` (``IntermediateLeafConstraints``,
+        monotone_constraints.hpp:514, as the JAX package re-expresses it
+        in boxes, ``grow.py:2075-2150``): the children's boxes (a
+        numerical split cuts ``feat`` at ``sbin``); each live leaf whose
+        box is disjoint from a child's in exactly one feature, touches it
+        there, and that feature is monotone takes the child's output as
+        its lower or upper bound, by the sign and the side; the leaves
+        whose bounds tightened search their best split again from the
+        pool, in one batched search."""
+        live = right + 1
+        blo, bhi = boxes[:live, 0], boxes[:live, 1]           # [live, F]
+        blo[right] = blo[leaf]
+        bhi[right] = bhi[leaf]
+        if not cat:
+            bhi[leaf, feat] = torch.clamp(bhi[leaf, feat], max=float(sbin))
+            blo[right, feat] = torch.clamp(blo[right, feat],
+                                           min=float(sbin) + 1.0)
+        sign = self.finder.mono.to(torch.float32)[None]        # [1, F]
+        ls = st.lstate[:live]
+        mn0, mx0 = ls[:, SMN].clone(), ls[:, SMX].clone()
+
+        def update(x, mn_c, mx_c):
+            xlo, xhi, out = blo[x], bhi[x], ls[x, SOUT]
+            disj = (blo > xhi + 0.5) | (bhi < xlo - 0.5)
+            above = torch.abs(blo - (xhi + 1.0)) < 0.5
+            below = torch.abs(bhi - (xlo - 1.0)) < 0.5
+            contact = (above | below) & disj & (sign != 0.0)
+            one = ((disj.sum(dim=1) == 1) & (contact.sum(dim=1) == 1))
+            m_at = torch.where(contact, sign, 0.0).sum(dim=1)
+            is_ab = torch.where(contact, above.to(torch.float32),
+                                0.0).sum(dim=1) > 0.5
+            upd_min = one & (((m_at > 0) & is_ab) | ((m_at < 0) & ~is_ab))
+            upd_max = one & (((m_at > 0) & ~is_ab) | ((m_at < 0) & is_ab))
+            return (torch.where(upd_min, torch.maximum(mn_c, out), mn_c),
+                    torch.where(upd_max, torch.minimum(mx_c, out), mx_c))
+
+        mn_c, mx_c = update(leaf, mn0, mx0)
+        mn_c, mx_c = update(right, mn_c, mx_c)
+        changed = (mn_c > mn0) | (mx_c < mx0)
+        ls[:, SMN] = torch.where(changed, mn_c, mn0)
+        ls[:, SMX] = torch.where(changed, mx_c, mx0)
+        dd, fc = self.dd, self.finder
+        si = find_best_split(
+            st.pool[:live], ls[:, SG], ls[:, SH], ls[:, SC], dd.num_bins,
+            dd.has_nan, dd.is_cat, feature_mask,
+            allow_split(ls[:, SDEP], self.max_depth), self.hp,
+            parent_output=ls[:, SOUT], monotone=fc.mono, mn=ls[:, SMN],
+            mx=ls[:, SMX], depth=ls[:, SDEP], penalty=fc.penalty)
+        st.best[:live] = torch.where(changed[:, None], pack_split_info(si),
+                                     st.best[:live])
 
     def _finish(self, st: TreeState, tb: _TreeBuilder, rid: torch.Tensor):
         """``(TreeArrays, leaf_id, leaf_value, leaf_of_pos)``: every
@@ -415,9 +510,10 @@ class SerialGrower(_Grower):
     def __init__(self, hp: SplitHyperParams, *, num_leaves: int,
                  max_depth: int, dd: DeviceDataset, route: RouteDecision,
                  stream: Optional[StreamSpec] = None,
-                 timer: Optional[StageTimer] = None):
+                 timer: Optional[StageTimer] = None,
+                 monotone: Optional[np.ndarray] = None):
         super().__init__(hp, num_leaves=num_leaves, max_depth=max_depth,
-                         dd=dd, route=route, timer=timer)
+                         dd=dd, route=route, timer=timer, monotone=monotone)
         if not route.physical:
             raise ValueError("the row_order path grows with RowOrderGrower")
         if hp.use_cat_subset and not cat_bitset_fit(dd.padded_bins):
@@ -573,9 +669,10 @@ class RowOrderGrower(_Grower):
 
     def __init__(self, hp: SplitHyperParams, *, num_leaves: int,
                  max_depth: int, dd: DeviceDataset, route: RouteDecision,
-                 timer: Optional[StageTimer] = None):
+                 timer: Optional[StageTimer] = None,
+                 monotone: Optional[np.ndarray] = None):
         super().__init__(hp, num_leaves=num_leaves, max_depth=max_depth,
-                         dd=dd, route=route, timer=timer)
+                         dd=dd, route=route, timer=timer, monotone=monotone)
         if route.physical:
             raise ValueError("RowOrderGrower grows on the row_order path")
         self.row_order: Optional[torch.Tensor] = None

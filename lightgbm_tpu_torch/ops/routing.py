@@ -27,7 +27,10 @@ decision of ``decide``, ``:383-413``) and of the split-tail choice in
   sorted-subset categorical search also takes (rule
   ``tail_cat_subset``: the kernel tail searches no subsets, as the JAX
   package's ``use_kernel_tail`` requires ``not hp.use_cat_subset``,
-  ``grow.py:877-888``); with
+  ``grow.py:877-888``), and so does the intermediate monotone method
+  (rule ``tail_mono_intermediate``: the kernel tail runs the basic
+  method only, ``use_kernel_tail`` requires ``not (hp.use_monotone and
+  hp.mono_intermediate)``); with
   ``pool_tail`` off (``LGBM_TPU_POOL_TAIL=0``, ``grow.py:1253-1262``)
   the kernel tail is the plain-pool entry ``apply_find`` after the pool
   ops in PyTorch;
@@ -97,6 +100,7 @@ class RouteInputs:
     learner: str = "serial"
     bins_u8: bool = True             # every feature's bins fit uint8
     cat_subset: bool = False         # the sorted-subset categorical search
+    mono_intermediate: bool = False  # hp.use_monotone and intermediate
     phys_env: str = "auto"
     stream_env: str = "auto"
     fused_env: str = "1"
@@ -121,6 +125,7 @@ class RouteInputs:
             f"lin={b(self.linear_tree)};boost={self.boosting};"
             f"obj={self.objective_kind};"
             f"k={'multi' if self.multi_tree else '1'};"
+            f"mono={b(self.mono_intermediate)};"
             f"phys={self.phys_env};stream={self.stream_env};"
             f"pack={self.pack_env};impl={self.part_env};"
             f"fused={self.fused_env};apply={self.apply_impl_env};"
@@ -197,6 +202,11 @@ RULES: Tuple[Rule, ...] = (
          "the one-kernel split tail searches no sorted subsets "
          "(grow.py use_kernel_tail requires not use_cat_subset)",
          lambda i: i.cat_subset),
+    Rule("tail_mono_intermediate", "tail", "monotone_constraints_method",
+         "the one-kernel split tail runs the basic monotone method only; "
+         "the intermediate method's adjacency pass follows the PyTorch "
+         "tail (grow.py use_kernel_tail requires not mono_intermediate)",
+         lambda i: i.mono_intermediate),
 )
 
 # the pack rules, read only for a pack=2 request on the physical path;
@@ -370,6 +380,12 @@ def enumerate_inputs() -> List[RouteInputs]:
                dict(phys_env="0"), dict(bins_u8=False),
                dict(bins_u8=False, pack_env="2")):
         add(cat_subset=True, **kw)
+    # the intermediate monotone method on the same routes
+    for kw in ({}, dict(pack_env="2"), dict(fused_env="0"),
+               dict(part_env="3ph"), dict(pool_tail_env="0"),
+               dict(bins_u8=False), dict(tail_ok=False),
+               dict(cat_subset=True)):
+        add(mono_intermediate=True, **kw)
     return cells
 
 

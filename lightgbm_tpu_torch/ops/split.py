@@ -12,8 +12,10 @@ subset search over categorical features with more than
 :func:`cat_subset_member`, ``_cat_subset_tensors``) are ported, with
 L1/L2, ``cat_l2`` / ``cat_smooth`` / ``max_cat_threshold`` /
 ``min_data_per_group``, ``max_delta_step``, ``min_gain_to_split``, the
-min-data / min-hessian gates and path smoothing.  Monotone constraints,
-CEGB and extra_trees are not (``ROADMAP.md`` A9).
+min-data / min-hessian gates, path smoothing and monotone constraints
+(each leaf's output bounds ``mn`` / ``mx``, the violation mask and the
+depth penalty, read from :func:`monotone_penalty_table`).  CEGB and
+extra_trees are not (``ROADMAP.md`` A9).
 
 A subset winner is encoded in ``threshold_bin`` as ``B * (1 + dir) +
 (k - 1)``: the first ``k`` candidate bins of the ratio order
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -60,6 +63,14 @@ class SplitHyperParams(NamedTuple):
     max_cat_to_onehot: int = 4
     max_cat_threshold: int = 32
     min_data_per_group: int = 100
+    # monotone constraints (monotone_constraints.hpp): per-leaf output
+    # bounds, the sibling-order violation mask and, with a penalty, the
+    # depth factor on monotone features' gains; the intermediate method
+    # (monotone_constraints.hpp:514) also tightens face-adjacent leaves'
+    # bounds after each split (ops/grow.py)
+    use_monotone: bool = False
+    monotone_penalty: float = 0.0
+    mono_intermediate: bool = False
 
 
 class SplitInfo(NamedTuple):
@@ -98,14 +109,20 @@ def threshold_l1(s: torch.Tensor, l1: float) -> torch.Tensor:
 
 
 def calculate_leaf_output(sum_g, sum_h, hp: SplitHyperParams, count=None,
-                          parent_output=None) -> torch.Tensor:
-    """CalculateSplittedLeafOutput (feature_histogram.hpp:743-781)."""
+                          parent_output=None, mn=None,
+                          mx=None) -> torch.Tensor:
+    """CalculateSplittedLeafOutput (feature_histogram.hpp:743-781), with
+    the monotone clip to ``[mn, mx]`` last (``jnp.clip``'s order: the
+    larger of the output and ``mn``, then the smaller of that and
+    ``mx``)."""
     out = -threshold_l1(sum_g, hp.lambda_l1) / (sum_h + hp.lambda_l2 + 1e-38)
     if hp.max_delta_step > 0.0:
         out = torch.clamp(out, -hp.max_delta_step, hp.max_delta_step)
     if hp.use_smoothing and count is not None and parent_output is not None:
         w = count / hp.path_smooth
         out = out * w / (w + 1.0) + parent_output / (w + 1.0)
+    if hp.use_monotone and mn is not None:
+        out = torch.minimum(torch.maximum(out, mn), mx)
     return out
 
 
@@ -113,6 +130,27 @@ def leaf_gain_given_output(sum_g, sum_h, out, hp: SplitHyperParams):
     """GetLeafGainGivenOutput (feature_histogram.hpp:848)."""
     sg = threshold_l1(sum_g, hp.lambda_l1)
     return -(2.0 * sg * out + (sum_h + hp.lambda_l2) * out * out)
+
+
+def monotone_penalty_table(penalty: float, depths: int) -> np.ndarray:
+    """ComputeMonotoneSplitGainPenalty (monotone_constraints.hpp:355;
+    the JAX package's ``monotone_penalty_factor``) at depths ``0 ..
+    depths - 1``, f32 as the JAX package computes it.  Built once a
+    training on the host: the plain versions and the kernel tail index
+    it by the leaf's depth, so the CPU and the card multiply by the same
+    factor (``exp2`` of a non-integer may differ by an ulp between
+    them).  Without a penalty (``penalty <= 0``, where the JAX package
+    applies no factor) every entry is 1.0, and the gains pass unchanged."""
+    if penalty <= 0.0:
+        return np.ones(depths, np.float32)
+    d = np.arange(depths, dtype=np.float32)
+    one, eps = np.float32(1.0), np.float32(1e-15)
+    pen = np.float32(penalty)
+    with np.errstate(over="ignore"):      # 2^d is inf from d = 128
+        small = one - pen / np.exp2(d) + eps
+    large = one - np.exp2(pen - one - d) + eps
+    fac = small if penalty <= 1.0 else large
+    return np.where(pen >= d + one, eps, fac).astype(np.float32)
 
 
 def leaf_split_gain(sum_g, sum_h, hp: SplitHyperParams) -> torch.Tensor:
@@ -132,11 +170,25 @@ def derived_counts(h, count, sum_h):
     return torch.floor(h * factor + 0.5)
 
 
+def _bounds4(mn, mx, hp: SplitHyperParams):
+    """The [K] output bounds broadcast over the candidates, or None."""
+    if not hp.use_monotone:
+        return None, None
+    return mn[:, None, None, None], mx[:, None, None, None]
+
+
 def _candidate_tensors(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
                        feature_mask, allow_split, hp: SplitHyperParams,
-                       parent_output=None):
+                       parent_output=None, monotone=None, mn=None, mx=None,
+                       depth=None, penalty=None):
     """All (direction, feature, bin) candidates of K leaves: gains
-    ``[K, 2, F, B]`` (-inf where invalid) and the left sums."""
+    ``[K, 2, F, B]`` (-inf where invalid), the left sums and, where the
+    search is constrained (path smoothing or monotone constraints), the
+    children's outputs.  Under ``hp.use_monotone`` the outputs are
+    clipped to the leaf's ``[mn, mx]``, a candidate whose outputs are out
+    of its feature's ``monotone`` order is invalid, and the gains of
+    monotone features are scaled by ``penalty[depth]`` (the table of
+    :func:`monotone_penalty_table`, all 1.0 without a penalty)."""
     k, f, b, _ = hist.shape
     hg, hh = hist[..., 0], hist[..., 1]                        # [K, F, B]
     # prefix sums in f64, rounded once: the CPU's sequential and the
@@ -183,14 +235,28 @@ def _candidate_tensors(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
           & (rh >= hp.min_sum_hessian_in_leaf)
           & (feature_mask[None, None, :, None] > 0)
           & allow_split[:, None, None, None])
-    if hp.use_smoothing:
+    if hp.use_smoothing or hp.use_monotone:
+        # GetSplitGains USE_MC / USE_SMOOTHING
+        # (feature_histogram.hpp:786-824): each candidate's outputs and
+        # the gains at them
         po4 = parent_output[:, None, None, None]
-        l_out = calculate_leaf_output(lg, lh, hp, lc, po4)
-        r_out = calculate_leaf_output(rg, rh, hp, rc, po4)
+        mn4, mx4 = _bounds4(mn, mx, hp)
+        l_out = calculate_leaf_output(lg, lh, hp, lc, po4, mn4, mx4)
+        r_out = calculate_leaf_output(rg, rh, hp, rc, po4, mn4, mx4)
+        if hp.use_monotone:
+            mono = monotone[None, None, :, None]
+            ok = ok & ~(((mono > 0) & (l_out > r_out))
+                        | ((mono < 0) & (l_out < r_out)))
         parent_gain = leaf_gain_given_output(sg4, sh4, po4, hp)
         gains = (leaf_gain_given_output(lg, lh, l_out, hp)
                  + leaf_gain_given_output(rg, rh, r_out, hp)
                  - parent_gain - hp.min_gain_to_split)
+        if hp.use_monotone:
+            # the table is 1.0 at every depth without a penalty; depths
+            # past its end read its last entry, as the kernel tail does
+            d = torch.clamp(depth.long(), 0, penalty.numel() - 1)
+            fac = penalty[d][:, None, None, None]
+            gains = torch.where(mono != 0, gains * fac, gains)
     else:
         l_out = r_out = None
         parent_gain = leaf_split_gain(sg4, sh4, hp)
@@ -245,13 +311,15 @@ def cat_subset_member(hg, hh, hc, nb, k, direction, hp: SplitHyperParams):
 
 def _cat_subset_tensors(hist, sum_g, sum_h, count, num_bins, is_cat,
                         feature_mask, allow_split, hp: SplitHyperParams,
-                        parent_output=None):
+                        parent_output=None, mn=None, mx=None):
     """Sorted-subset candidates of K leaves (the JAX package's
     ``_cat_subset_tensors``): prefix index ``i`` of direction ``d`` means
     "the first ``i + 1`` candidates of the ratio order (``d`` 0
     ascending, 1 descending) go left".  Returns gains ``[K, 2, F, B]``
-    (-inf where invalid), the left sums and, with path smoothing, the
-    children's outputs.  The rank-order prefix sums are taken in f64
+    (-inf where invalid), the left sums and, with path smoothing or
+    monotone constraints, the children's outputs (clipped to the leaf's
+    ``[mn, mx]``; a subset split has no order, so no violation mask and
+    no penalty, as in the JAX package).  The rank-order prefix sums are taken in f64
     and rounded once, as the bin prefix sums are; the right child's
     ``min_data_per_group`` gate is applied, the group accumulator's
     ``continue`` is not (as in the JAX package)."""
@@ -306,10 +374,11 @@ def _cat_subset_tensors(hist, sum_g, sum_h, count, num_bins, is_cat,
     # the children's gains with l2 + cat_l2, the parent's with l2
     # (feature_histogram.hpp:297-302)
     hp2 = hp._replace(lambda_l2=hp.lambda_l2 + hp.cat_l2)
-    if hp.use_smoothing:
+    if hp.use_smoothing or hp.use_monotone:
         po4 = parent_output[:, None, None, None]
-        l_out = calculate_leaf_output(lg, lh, hp2, lc, po4)
-        r_out = calculate_leaf_output(rg, rh, hp2, rc, po4)
+        mn4, mx4 = _bounds4(mn, mx, hp)
+        l_out = calculate_leaf_output(lg, lh, hp2, lc, po4, mn4, mx4)
+        r_out = calculate_leaf_output(rg, rh, hp2, rc, po4, mn4, mx4)
         gains = (leaf_gain_given_output(lg, lh, l_out, hp2)
                  + leaf_gain_given_output(rg, rh, r_out, hp2)
                  - leaf_gain_given_output(sg4, sh4, po4, hp)
@@ -343,7 +412,8 @@ def per_feature_best_gain(hist, sum_g, sum_h, count, num_bins, has_nan,
 
 def find_best_split(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
                     feature_mask, allow_split, hp: SplitHyperParams, *,
-                    parent_output=None) -> SplitInfo:
+                    parent_output=None, monotone=None, mn=None, mx=None,
+                    depth=None, penalty=None) -> SplitInfo:
     """Best split of each of K leaves.
 
     ``hist`` [K, F, B, 2] (grad, hess); ``sum_g``, ``sum_h``, ``count``,
@@ -351,19 +421,25 @@ def find_best_split(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
     [F] i32 (NaN bin included), ``has_nan`` / ``is_cat`` [F] bool,
     ``feature_mask`` [F] f32.  With ``hp.use_cat_subset`` the subset
     candidates are two more directions, and a subset winner's
-    ``threshold_bin`` is ``B * (1 + dir) + (k - 1)``."""
+    ``threshold_bin`` is ``B * (1 + dir) + (k - 1)``.  Under
+    ``hp.use_monotone``: ``monotone`` i32 [F] the features' signs, ``mn``
+    / ``mx`` / ``depth`` [K] each leaf's output bounds and depth,
+    ``penalty`` the f32 table of :func:`monotone_penalty_table`; the
+    winner's outputs are its clipped ones."""
     k, f, b, _ = hist.shape
     gains, lg, lh, lc, l_out, r_out = _candidate_tensors(
         hist, sum_g, sum_h, count, num_bins, has_nan, is_cat, feature_mask,
-        allow_split, hp, parent_output=parent_output)
+        allow_split, hp, parent_output=parent_output, monotone=monotone,
+        mn=mn, mx=mx, depth=depth, penalty=penalty)
+    constrained = hp.use_smoothing or hp.use_monotone
     if hp.use_cat_subset:
         gs, lgs, lhs, lcs, los, ros = _cat_subset_tensors(
             hist, sum_g, sum_h, count, num_bins, is_cat, feature_mask,
-            allow_split, hp, parent_output=parent_output)
+            allow_split, hp, parent_output=parent_output, mn=mn, mx=mx)
         gains = torch.cat([gains, gs], dim=1)                  # [K, 4, F, B]
         lg, lh, lc = (torch.cat([a, c], dim=1)
                       for a, c in ((lg, lgs), (lh, lhs), (lc, lcs)))
-        if hp.use_smoothing:
+        if constrained:
             l_out = torch.cat([l_out, los], dim=1)
             r_out = torch.cat([r_out, ros], dim=1)
     d_all = gains.shape[1]
@@ -385,7 +461,7 @@ def find_best_split(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
     pick = lambda a: torch.gather(                            # noqa: E731
         a.reshape(k, -1), 1, best[:, None])[:, 0]
     blg, blh, blc = pick(lg), pick(lh), pick(lc)
-    if hp.use_smoothing:
+    if constrained:
         b_lo, b_ro = pick(l_out), pick(r_out)
     else:
         b_lo = calculate_leaf_output(blg, blh, hp)
@@ -393,7 +469,7 @@ def find_best_split(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
     if hp.use_cat_subset:
         is_subset = d >= 2
         tbin = torch.where(is_subset, b * (1 + (d - 2)) + tbin, tbin)
-        if not hp.use_smoothing:
+        if not constrained:
             # subset leaf outputs with l2 + cat_l2
             # (feature_histogram.hpp:477-489)
             hp_out = hp._replace(lambda_l2=hp.lambda_l2 + hp.cat_l2)

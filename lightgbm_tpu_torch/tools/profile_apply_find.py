@@ -1,13 +1,16 @@
 """Times of the split tail on the card: ``apply_find_pool`` (the pool
 entry) and ``apply_find`` (the plain-pool entry) at given shapes, eager
 (20 calls back to back, CUDA events) and as one replay of a CUDA graph
-of 20 calls, beside the byte bound.  Each case's state rows and pool
-rows are held bitwise against the plain version on CPU copies before
-anything is timed.
+of 20 calls, beside the byte bound, in each mode: ``plain`` (the
+unconstrained instantiation) and ``mono`` (monotone constraints, the
+basic method with ``monotone_penalty`` 2.0: :func:`synthetic_split`'s
+``mono``), in turns.  Each case's state rows and pool rows are held
+bitwise against the plain version on CPU copies before anything is
+timed.
 
     python lightgbm_tpu_torch/tools/profile_apply_find.py \\
-        [--shapes 28x256,28x1024,136x256] [--package-root DIR] \\
-        [--variants]
+        [--shapes 28x256,28x1024,136x256] [--modes plain,mono] \\
+        [--package-root DIR] [--variants]
 
 ``--variants`` times, instead, the pool entry at each shape on other
 cluster sizes (:func:`variant_geometries`: 1 to 16 blocks), each held
@@ -21,8 +24,9 @@ bin, one categorical feature), so a tail's work is that of a real split
 of that shape.  Run by path, the script imports the package from
 ``--package-root`` (default: the checkout it lies in), so one call can
 time two commits in turns: unpack the other commit there with ``git
-archive``; a shape the package does not support is reported, not timed.
-Prints one JSON line a case and needs a GPU.
+archive``; a shape the package does not support, or a mode it does not
+have, is reported, not timed.  Prints one JSON line a case and needs a
+GPU.
 """
 from __future__ import annotations
 
@@ -30,11 +34,13 @@ import argparse
 import json
 import sys
 from pathlib import Path
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 
 SHAPES = "28x256,28x1024,136x256"
+MODES = "plain,mono"
+MONO_PENALTY = 2.0
 N_ROWS = 1_000_000
 LEAVES = 255
 CALLS = 20
@@ -75,7 +81,11 @@ class TailCase(NamedTuple):
 
 def synthetic_split(f: int, b: int, *, seed: int = 0, cnt: int = N_ROWS,
                     leaves: int = LEAVES, ties: Sequence[int] = (),
-                    strong: Sequence[int] = (), device="cpu") -> TailCase:
+                    strong: Sequence[int] = (), mono: bool = False,
+                    signs: Optional[Sequence[int]] = None,
+                    penalty: float = MONO_PENALTY, depth: float = 2.0,
+                    bounds: tuple = (-np.inf, np.inf),
+                    device="cpu") -> TailCase:
     """A seeded split of ``cnt`` rows over ``f`` features of ``b`` padded
     bins: the left child (a third of the rows, the smaller) in leaf 3,
     the right child new in leaf 7, node 6.  Each child's per-bin row
@@ -84,7 +94,13 @@ def synthetic_split(f: int, b: int, *, seed: int = 0, cnt: int = N_ROWS,
     middle bin, every feature's gradient sum made equal.  Each feature
     ``j`` of ``ties`` is copied into ``j + 1`` (bins, metadata and both
     children), so the two give equal keys.  ``h_a`` is the smaller
-    child's histogram, ``h_b`` a copy (the unfused route's pair)."""
+    child's histogram, ``h_b`` a copy (the unfused route's pair).
+
+    ``mono``: monotone constraints, the basic method with ``penalty``:
+    each feature's sign from ``signs`` (default: seeded, -1, 0 or +1,
+    feature 0, the parent's winner, +1), the parent leaf at ``depth``
+    (2: the children's factor 0.75 at the penalty 2.0) with the output
+    ``bounds``."""
     import torch
 
     from lightgbm_tpu_torch.ops.apply_find import (FinderConsts, SplitAt,
@@ -136,7 +152,7 @@ def synthetic_split(f: int, b: int, *, seed: int = 0, cnt: int = N_ROWS,
     pg = np.float32(parent[0, :, 0].astype(np.float64).sum())
     ph = np.float32(parent[0, :, 1].astype(np.float64).sum())
     best[leaf] = [1.0, 0, 1, 0, 0, lg, lh, nl, -0.01, 0.02]
-    lstate[leaf] = [pg, ph, cnt, 2, 1, -np.inf, np.inf, 0.005]
+    lstate[leaf] = [pg, ph, cnt, depth, 1, bounds[0], bounds[1], 0.005]
     seg = g.integers(0, cnt, size=(leaves, 2)).astype(np.int32)
     seg[leaf] = (12_345, cnt)
     st = TreeState(
@@ -144,14 +160,26 @@ def synthetic_split(f: int, b: int, *, seed: int = 0, cnt: int = N_ROWS,
         torch.from_numpy(lstate),
         torch.from_numpy(g.normal(size=(leaves - 1, 4)).astype(np.float32)),
         torch.from_numpy(seg))
+    # a package without monotone constraints (an earlier commit timed in
+    # turns) is called as it was
+    hp, kw = SplitHyperParams(), {}
+    if mono:
+        from lightgbm_tpu_torch.ops.split import monotone_penalty_table
+        sign = (np.asarray(signs, np.int32) if signs is not None
+                else g.integers(-1, 2, size=f).astype(np.int32))
+        if signs is None:
+            sign[0] = 1
+        hp = SplitHyperParams(use_monotone=True, monotone_penalty=penalty)
+        kw = {"monotone": torch.from_numpy(sign),
+              "penalty": torch.from_numpy(
+                  monotone_penalty_table(penalty, leaves + 1))}
     fc = build_finder_consts(torch.from_numpy(nb.astype(np.int32)),
                              torch.from_numpy(has_nan),
-                             torch.from_numpy(is_cat), b)
+                             torch.from_numpy(is_cat), b, **kw)
     case = TailCase(torch.from_numpy(hl), torch.from_numpy(hl.copy()),
                     torch.tensor([nl], dtype=torch.int32), st,
                     FinderConsts(*fc), torch.ones(f, dtype=torch.float32),
-                    SplitHyperParams(), -1,
-                    SplitAt(leaf, right, node, 12_345, cnt))
+                    hp, -1, SplitAt(leaf, right, node, 12_345, cnt))
     return case.to(device)
 
 
@@ -205,27 +233,40 @@ def _eager_graph_ms(fn) -> tuple:
     return eager, graph / CALLS
 
 
-def time_shape(f: int, b: int) -> list:
-    """Both entries at ``f`` x ``b``: bitwise, then eager and graph
-    times; a shape the package does not support gives a record saying
-    so."""
+def mode_supported(mode: str) -> bool:
+    """Whether the package has ``mode`` (``mono``: the split search's
+    ``use_monotone``)."""
+    from lightgbm_tpu_torch.ops.split import SplitHyperParams
+    return mode == "plain" or "use_monotone" in SplitHyperParams._fields
+
+
+def time_shape(f: int, b: int, modes: Sequence[str] = ("plain",
+                                                       "mono")) -> list:
+    """Both entries at ``f`` x ``b`` in each of ``modes``, in turns:
+    bitwise, then eager and graph times; a shape the package does not
+    support, or a mode it does not have, gives a record saying so."""
     from lightgbm_tpu_torch.ops.apply_find import apply_find_supported
-    if not apply_find_supported(f, b):
-        return [{"entry": name, "features": f, "bins": b,
-                 "supported": False} for name in _entries()]
-    case = synthetic_split(f, b, device="cuda")
+    cases = {mode: synthetic_split(f, b, mono=mode == "mono", device="cuda")
+             for mode in modes
+             if apply_find_supported(f, b) and mode_supported(mode)}
     out = []
     for name, (entry, ref, hists) in _entries().items():
-        if not held_bitwise(entry, ref, hists, case):
-            raise RuntimeError(f"{name} at {f} x {b} differs from its plain "
-                               "version")
-        timed = case.clone()
-        args = hists(timed)
-        eager, graph = _eager_graph_ms(lambda: entry(*args, *timed.args()))
-        out.append({"entry": name, "features": f, "bins": b,
-                    "supported": True, "bitwise_cpu_plain": True,
-                    "ms": eager, "graph_ms": graph,
-                    "bound_ms": bound_ms(f, b, name == "apply_find_pool")})
+        for mode in modes:
+            rec = {"entry": name, "mode": mode, "features": f, "bins": b,
+                   "supported": mode in cases}
+            out.append(rec)
+            if mode not in cases:
+                continue
+            case = cases[mode]
+            if not held_bitwise(entry, ref, hists, case):
+                raise RuntimeError(f"{name} ({mode}) at {f} x {b} differs "
+                                   "from its plain version")
+            timed = case.clone()
+            args = hists(timed)
+            eager, graph = _eager_graph_ms(
+                lambda: entry(*args, *timed.args()))
+            rec.update(bitwise_cpu_plain=True, ms=eager, graph_ms=graph,
+                       bound_ms=bound_ms(f, b, name == "apply_find_pool"))
     return out
 
 
@@ -289,6 +330,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--shapes", default=SHAPES,
                     help="comma-separated FxB shapes")
+    ap.add_argument("--modes", default=MODES,
+                    help="comma-separated modes: plain (unconstrained), "
+                         "mono (monotone constraints)")
     ap.add_argument("--package-root",
                     default=str(Path(__file__).resolve().parents[2]),
                     help="directory holding the lightgbm_tpu_torch "
@@ -306,7 +350,8 @@ def main(argv=None) -> int:
     gpu = torch.cuda.get_device_name(0)
     for shape in args.shapes.split(","):
         f, b = (int(v) for v in shape.split("x"))
-        recs = time_variants(f, b) if args.variants else time_shape(f, b)
+        recs = (time_variants(f, b) if args.variants
+                else time_shape(f, b, args.modes.split(",")))
         for rec in recs:
             rec["package"] = str(Path(lightgbm_tpu_torch.__file__).parent)
             rec["gpu"] = gpu

@@ -286,7 +286,8 @@ def test_cluster_rules(source, symbol, grid, cluster, codes):
 def test_cluster_opt_in_is_read_from_the_source():
     from lightgbm_tpu_torch.analysis.passes.smem import (_CLUSTER_OPTIN,
                                                          opted_in)
-    assert opted_in("apply_find", _CLUSTER_OPTIN) == {"apply_find_kernel"}
+    assert opted_in("apply_find", _CLUSTER_OPTIN) == {
+        "apply_find_kernel", "apply_find_mono_kernel"}
     assert opted_in("legacy_probes", _CLUSTER_OPTIN) == set()
     assert "apply_find_kernel" in opted_in("apply_find")
 

@@ -54,7 +54,7 @@ def _hp(kw):
     return t, j
 
 
-def _split(hp, max_depth=-1):
+def _split(hp, max_depth=-1, monotone=None):
     x, y = make_higgs_like(5000, 6, seed=8)
     x[np.random.default_rng(8).random(x.shape) < 0.1] = np.nan
     x[:, 5] = np.random.default_rng(9).integers(0, 4, 5000)
@@ -64,7 +64,8 @@ def _split(hp, max_depth=-1):
     assert dd.padded_bins == 128
     grower = SerialGrower(hp, num_leaves=L, max_depth=max_depth, dd=dd,
                           route=decide(RouteInputs()),
-                          stream=StreamSpec("binary", 1.0))
+                          stream=StreamSpec("binary", 1.0),
+                          monotone=monotone)
     rows = init_rows(dd.bins)
     rows.vals.copy_(torch.as_tensor(random_row_matrix(5000, 1, 10)[1]))
     st, pair, nleft, fmask, at = split_state(grower, rows)
@@ -75,7 +76,10 @@ def _copy(st):
     return TreeState(*(a.clone() for a in st))
 
 
-def _jax_tail(hp_j, grower, st, h2, nleft, fmask, at, done=0):
+def _jax_tail(hp_j, grower, st, h2, nleft, fmask, at, done=0, mono=None):
+    """The JAX tail on the port's inputs; ``mono`` the features' monotone
+    signs (its ``mono_s`` operand and the consts' fifth row), zeros when
+    None."""
     dd = grower.dd
     f, b = dd.num_features, dd.padded_bins
     h4 = np.zeros((2, f, 4, b), np.float32)
@@ -84,15 +88,18 @@ def _jax_tail(hp_j, grower, st, h2, nleft, fmask, at, done=0):
                       at.cnt, 0], np.int32)
     sel_f = np.concatenate([st.best[at.leaf].numpy(),
                             st.lstate[at.leaf].numpy(), np.zeros(6)])
+    mono_s = jnp.asarray(np.zeros(f, np.int32) if mono is None else mono,
+                         jnp.int32)
     consts = jax_finder_consts(jnp.asarray(dd.num_bins.numpy()),
                                jnp.asarray(dd.has_nan.numpy()),
-                               jnp.asarray(dd.is_cat.numpy()), b)
+                               jnp.asarray(dd.is_cat.numpy()), b,
+                               monotone=None if mono is None else mono_s)
     fn = make_apply_find(hp_j, L=L, f=f, b=b, max_depth=grower.max_depth,
                          interpret=True)
     out = fn(jnp.asarray(sel_i), jnp.asarray(sel_f, jnp.float32),
              jnp.asarray(h4), jnp.asarray(fmask.numpy()[None]), consts,
              jnp.asarray(dd.is_cat.numpy().astype(np.int32)),
-             jnp.zeros((f,), jnp.int32), jnp.asarray(st.best.numpy()),
+             mono_s, jnp.asarray(st.best.numpy()),
              jnp.asarray(st.lstate.numpy()),
              jnp.zeros((L - 1, 10), jnp.float32),
              jnp.asarray(st.seg.numpy()))

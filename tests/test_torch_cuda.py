@@ -1768,3 +1768,79 @@ def test_cat_training_on_card_matches_cpu(cuda, env, monkeypatch):
     assert res["ok"], res
     assert leaves_bitwise(bsts[0]._models, bsts[1]._models)
     assert multi_category_splits(bsts[0]._models) > 0
+
+
+# -- slice 18: the constrained mode of the split tail ---------------------
+@pytest.mark.parametrize("f,b", [(28, 256), (28, 1024), (136, 256)])
+@pytest.mark.parametrize("penalty", [0.0, 2.0])
+def test_apply_find_mono_matches_plain(cuda, f, b, penalty):
+    """The constrained instantiation of both entries bitwise its plain
+    version (on the card and on CPU copies), done untouched, at the
+    routes' shapes, without and with the depth penalty; each call one
+    launch of its entry."""
+    from lightgbm_tpu_torch.ops.apply_find import apply_find, apply_find_pool
+    from lightgbm_tpu_torch.tools.profile_apply_find import synthetic_split
+    case = synthetic_split(f, b, cnt=200_000, seed=f + b, mono=True,
+                           penalty=penalty, device="cuda")
+    before = (apply_find_pool.launches, apply_find.launches)
+    tail_parity(case, f"{f}x{b}_mono_penalty_{penalty}")
+    assert (apply_find_pool.launches, apply_find.launches) == (
+        before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.parametrize("f", [28, 136])
+def test_apply_find_mono_adversarial_cases(cuda, f):
+    """The constrained tail's adversarial cases (a winner the violation
+    mask removes, bounds that clip every candidate, equal keys across
+    the last two blocks with one constrained, the penalty's floor, the
+    done guard) bitwise the plain version."""
+    from chip_smoke import mono_tail_edge_cases
+    assert len(mono_tail_edge_cases(f)) == 4
+
+
+def test_apply_find_mono_in_a_graph(cuda):
+    """The constrained pool entry captured in a CUDA graph and replayed
+    once leaves the eager launch's state."""
+    from lightgbm_tpu_torch.ops.apply_find import apply_find_pool
+    from lightgbm_tpu_torch.tools.profile_apply_find import synthetic_split
+    from lightgbm_tpu_torch.tools.profile_lib import capture
+    case = synthetic_split(28, 256, cnt=200_000, mono=True, device="cuda")
+    eager, graphed = case.clone(), case.clone()
+    apply_find_pool(eager.h_a, eager.h_b, *eager.args())
+    g = capture(lambda: apply_find_pool(graphed.h_a, graphed.h_b,
+                                        *graphed.args()), warmup=0)
+    g.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(eager.st, graphed.st))
+
+
+@pytest.mark.parametrize("env,extra", [
+    ({}, {}), ({"LGBM_TPU_COMB_PACK": "2"}, {}),
+    ({"LGBM_TPU_FUSED": "0"}, {}), ({"LGBM_TPU_PART": "3ph"}, {}),
+    ({"LGBM_TPU_POOL_TAIL": "0"}, {}), ({}, {"max_bin": 1023}),
+    ({}, {"monotone_penalty": 2.0}),
+    ({}, {"monotone_constraints_method": "intermediate"})])
+def test_monotone_training_on_card_matches_cpu(cuda, env, extra,
+                                               monkeypatch):
+    """Monotone training on the card grows the CPU run's trees bit for
+    bit on every route, through the constrained tail on the kernel
+    routes (launched once a split)."""
+    from lightgbm_tpu_torch.ops.apply_find import apply_find, apply_find_pool
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    x, y = make_higgs_like(8000, 10, seed=6)
+    params = dict({"objective": "binary", "num_leaves": 31, "verbosity": -1,
+                   "monotone_constraints": [1, 1, -1, -1, 1, 0, 0, -1]},
+                  **extra)
+    ds_params = {"max_bin": extra.get("max_bin", 255), "min_data_in_bin": 1}
+    before = apply_find_pool.launches + apply_find.launches
+    bsts = [lgt.train(params, lgt.Dataset(x, label=y, params=ds_params),
+                      num_boost_round=3, device=d) for d in ("cuda", "cpu")]
+    route = bsts[0]._inner.route
+    splits = sum(t.num_leaves - 1 for t in bsts[0]._models)
+    launched = apply_find_pool.launches + apply_find.launches - before
+    assert launched == (0 if route.tail == "xla" else splits)
+    assert (route.tail == "xla") == ("monotone_constraints_method" in extra)
+    res = compare_trees(bsts[0]._models, bsts[1]._models)
+    assert res["ok"], res
+    assert leaves_bitwise(bsts[0]._models, bsts[1]._models)

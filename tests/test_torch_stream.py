@@ -179,6 +179,7 @@ def test_each_rule_blocks_its_part(rule):
           "non_u8_bins": {"bins_u8": False},
           "phys_env_off": {"phys_env": "0"},
           "tail_cat_subset": {"cat_subset": True},
+          "tail_mono_intermediate": {"mono_intermediate": True},
           "cat_overwide": {"cat_subset": True, "bins_u8": False}}[rule]
     # cat_overwide never fires alone: its bins wider than u8 fire
     # non_u8_bins, and a subset model takes the PyTorch tail

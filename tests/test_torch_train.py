@@ -282,7 +282,7 @@ def test_gradients_match_jax(objective):
     {"boosting": "goss"}, {"boosting": "dart"},
     {"objective": "multiclass", "num_class": 3},
     {"objective": "lambdarank"},
-    {"monotone_constraints": [1, 0, 0, 0]},
+    {"interaction_constraints": "[[0, 1]]"},
     {"linear_tree": True}, {"extra_trees": True},
     {"feature_fraction_bynode": 0.5}, {"tree_learner": "data"},
 ])
