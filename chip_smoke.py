@@ -55,8 +55,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    each timed beside its plain version, one ``index_add_`` and its
    bound;
 4. training parity, card against ``device="cpu"``, 50,000 x 28, 255
-   leaves: 3 trees on the default route, 1 on slice 2's route, 3 on the
-   row-order route at ``max_bin=1023``, 3 on the 3ph route (bitwise);
+   leaves: 2 trees on the default route, 1 on slice 2's route, 2 on the
+   row-order route at ``max_bin=1023``, 2 on the 3ph route (bitwise);
 5. the training main path on the default route (score-resident
    gradients, fused split, one-kernel split tail): 1,000,000 x 28, 255
    leaves, 10 iterations, the launch counts zeroed just before and read
@@ -100,7 +100,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    same logical rows, at 1,000,000 x 28 (S = 64: the root, the 1M-row
    segment, a segment at an odd offset of odd length, a dead split) and
    at 250,000 x 40 (S = 80), each timed beside its pack=1 kernel; the
-   pack=2 route card against device="cpu" (50,000 rows, 3 trees,
+   pack=2 route card against device="cpu" (50,000 rows, 2 trees,
    bitwise); its main path (1M x 28, 255 leaves, 10 iterations) counted,
    its trees held against the default route's bit for bit, and one
    profiled iteration; ``copyback_p2`` (slice 11, four 16-byte words in
@@ -160,7 +160,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 10. wide datasets (slice 9): ``hist_comb`` at 1,000,000 x 136 u8 bins,
    B = 256, in 17 feature chunks of 8, bitwise its plain version run on CPU
    copies and timed beside its byte bound and ``index_add_``; training
-   parity at 50,000 x 136, card against device="cpu", 3 trees,
+   parity at 50,000 x 136, card against device="cpu", 1 tree,
    bit-identical; 3 iterations of ``make_higgs_like(1M, 136)`` with 255
    leaves on the unfused stream route with the cluster kernel tail,
    counted exactly, the tail bitwise on a tree's median split, and one
@@ -174,12 +174,13 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``partition_scan``, ``partition_scan_p2``, ``partition_3ph`` with 8
    words) against their plain versions on adversarial words at 36
    features (rows and nleft bitwise; the fused modes' histograms within
-   4 * n * eps_f32 * max|v|); the card against device="cpu" on the first 20,000 rows on
-   six routes (bitwise); the default route for 10 iterations, pack=2,
-   both ``FUSED=0`` routes and 3ph for 3 (pack=2's and the unfused
-   routes' trees bitwise the default route's), ``max_bin`` 1023
-   (``cat_overwide``, row-order) and the one-hot twin
-   (``max_cat_to_onehot`` 1025, the kernel tail) for 3, each counted
+   4 * n * eps_f32 * max|v|); the card against device="cpu" on the
+   first 10,000 rows on six routes, 1 tree (bitwise); the default route
+   for 3 iterations, pack=2, both ``FUSED=0`` routes and 3ph for 2
+   (pack=2's and the unfused routes' trees bitwise the default
+   route's), ``max_bin`` 1023 (``cat_overwide``, row-order) and the
+   one-hot twin (``max_cat_to_onehot`` 1025, the kernel tail) for 2,
+   each counted
    with each word mode launched on its route, holdout
    AUCs and splits of more than one category printed, served
    predictions held against the f64 host walk on edge categories; each
@@ -192,12 +193,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    clipping every candidate, equal keys across the last two blocks with
    one constrained, the penalty's 1e-15 floor, the done guard) and on
    the median split of a default-route, a row-order and a wide tree;
-   the card against device="cpu" on the first 20,000 rows on the
-   default, pack=2 and row-order routes (bitwise); the basic method on
+   the card against device="cpu" on the first 10,000 rows, 1 tree, on
+   the default, pack=2 and row-order routes (bitwise); the basic method on
    the default route for 10 iterations, pack=2, P1 ``FUSED=0``, 3ph,
    ``POOL_TAIL=0``, row-order (``max_bin`` 1023) and the wide 1M x 136
-   route for 3, ``monotone_penalty`` 2.0 and the intermediate method
-   (the PyTorch tail and the adjacency pass) for 3, each counted and
+   route for 2, ``monotone_penalty`` 2.0 and the intermediate method
+   (the PyTorch tail and the adjacency pass) for 2, each counted and
    held to its route, pack=2's, ``FUSED=0``'s and ``POOL_TAIL=0``'s
    trees bitwise the default route's, every model's served predictions
    monotone on a grid of each constrained feature's bin bounds over 256
@@ -206,8 +207,29 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    unconstrained twin's, splits on constrained features, the tail's
    share, kernels a split and the constrained tail's times beside the
    unconstrained ones (``monotone routes``, ``monotone tail times``);
-13. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
-   parity and times, then the device line last.
+13. multiclass training and the regression and cross-entropy objectives
+   (slice 19), on the kernel-tail physical route: the card against
+   device="cpu" at 50,000 x 28, 255 leaves, bitwise, for 2 iterations
+   of the 5-class softmax and the 3-class one-vs-all, the softmax at
+   pack=2 bitwise the pack=1 card trees, and 2 trees of each of
+   ``regression_l1``, ``huber``, ``fair``, ``poisson``, ``quantile``
+   (alpha 0.9), ``mape``, ``gamma``, ``tweedie``, ``cross_entropy`` and
+   ``cross_entropy_lambda`` on a seeded label each accepts
+   (``objective_label``); the multiclass main path (``bench.py
+   --multiclass 5``'s cell, ``make_multiclass_like``: 1M x 28 training
+   and 100,000 holdout rows, 255 leaves, 10 iterations of 5 trees)
+   counted against ``expected_launches``, its holdout ``multi_logloss``
+   below the class prior's, served through ``serve_traverse`` within 64
+   ulps a tree of the training scores and of the f64 host walk on 4,096
+   holdout rows, its probabilities summing to 1 within 1e-6, and one
+   profiled iteration; the l1 main path on the same rows and a
+   heavy-tailed target (3 iterations) counted, its holdout ``l1`` below
+   the constant median's, the leaf renewal timed as a stage; printed as
+   ``objective routes {...}``;
+14. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+   parity and times (``multiclass_launches`` on the multiclass main
+   path), then the device line last; ``phase NAME took S s`` after each
+   phase.
 
 The forests and rows are generated from seeds: the card's machine has
 no JAX.
@@ -828,7 +850,7 @@ HOLDOUT_ROWS = 100_000
 TRAIN_LEAVES = 255
 TRAIN_ITERS = 10
 PARITY_ROWS = 50_000
-PARITY_TREES = 3
+PARITY_TREES = 2
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": TRAIN_LEAVES,
                 "max_bin": 255, "learning_rate": 0.1, "metric": "auc",
                 "verbosity": -1}
@@ -1447,14 +1469,16 @@ def route_env(env: dict):
 
 def train_parity(gpu: str, env: dict, trees: int, label: str,
                  params: dict = TRAIN_PARAMS, bitwise: bool = False,
-                 n_features: int = N_FEATURES) -> dict:
+                 n_features: int = N_FEATURES, y=None) -> dict:
     """50,000 rows x ``n_features`` (28; NaN and zero missing values),
-    255 leaves, ``trees`` trees on the route ``env`` selects, trained on
-    the card and with device="cpu"; whether the leaf values are bitwise
-    equal too (a gate when ``bitwise``)."""
+    255 leaves, ``trees`` iterations on the route ``env`` selects,
+    trained on the card and with device="cpu"; whether the leaf values
+    are bitwise equal too (a gate when ``bitwise``).  ``y`` replaces the
+    binary label."""
     import lightgbm_tpu_torch as lgt
     x = make_rows(PARITY_ROWS, n_features, 3)
-    _, y = make_higgs_like(PARITY_ROWS, n_features, 3)
+    if y is None:
+        _, y = make_higgs_like(PARITY_ROWS, n_features, 3)
     traces = []
 
     def _train(device):
@@ -1512,19 +1536,63 @@ def _same_trees(bst_a, bst_b, label: str) -> dict:
     return same
 
 
+def profile_tallies(prof) -> tuple:
+    """``(by_name, by_stage)`` of a finished ``torch.profiler`` run, read
+    from its raw events (building ``prof.events()``' tree takes seconds
+    an iteration): every device event but the ranges' own annotations
+    as ``{name: (count, us)}``, and the kernels each ``stage:<name>``
+    range of an enabled ``StageTimer`` launched, by the host event each
+    kernel is linked to (``linked_correlation_id``) starting inside the
+    range.  The port's own kernels, launched through ctypes, are linked
+    to no host op and count in no stage.  The kernels and their times
+    are ``events()``' to the count; ``events()``' tree also put some 0.8
+    kernels a split more in the grower's stages (one default-route
+    iteration on an H100: 2,801 against 2,703 in ``split_tail``, 101
+    against 0 in ``fused_split``)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    stage = "stage:"
+
+    def span(e):
+        if hasattr(e, "start_ns"):
+            return e.start_ns(), e.duration_ns()
+        return e.start_us() * 1000, e.duration_us() * 1000
+    by_name, ranges, ops, linked = {}, [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            t, d = span(e)
+            if name.startswith(stage):
+                ranges.append((t, t + d, name[len(stage):]))
+            corr = e.linked_correlation_id()
+            if corr > 0:
+                ops.setdefault(corr, t)
+        elif not name.startswith(stage):
+            c, us = by_name.get(name, (0, 0.0))
+            by_name[name] = (c + 1, us + span(e)[1] / 1e3)
+            linked.append(e.linked_correlation_id())
+    ranges.sort()
+    starts = [r[0] for r in ranges]
+    by_stage = {}
+    for corr in linked:
+        t = ops.get(corr) if corr > 0 else None
+        if t is None:
+            continue
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= ranges[i][1]:
+            by_stage[ranges[i][2]] = by_stage.get(ranges[i][2], 0) + 1
+    return by_name, by_stage
+
+
 def profile_iteration(bst, gpu: str) -> dict:
     """One more boosting iteration of ``bst`` under ``torch.profiler``:
-    kernel launches, in all and per split by the grower's stage (the
-    PyTorch ops' kernels linked to each ``stage:<name>`` range of an
-    enabled ``StageTimer``; the port's own kernels, launched through
-    ctypes, are linked to no range and count as outside the stages), and
-    the device's busy share of the host wall time (the profiler's own
-    overhead lengthens the wall time, so the busy share is a lower
-    bound).  The ranges' own device-side annotations are not kernels
-    and are left out.  Returns {"measured": False, ...} when the
-    profiler reports no device kernels."""
+    kernel launches, in all and per split by the grower's stage
+    (:func:`profile_tallies`), and the device's busy share of the host
+    wall time (the profiler's own overhead lengthens the wall time, so
+    the busy share is a lower bound).  Returns {"measured": False, ...}
+    when the profiler reports no device kernels."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1533,28 +1601,15 @@ def profile_iteration(bst, gpu: str) -> dict:
         bst.update()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    stage = "stage:"
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.name.startswith(stage)]
+    by_name, by_stage = profile_tallies(prof)
+    kernels = sum(c for c, _ in by_name.values())
     if not kernels:
         return {"measured": False, "gpu": gpu}
-
-    def launched(e):
-        return (sum(not k.name.startswith(stage) for k in e.kernels)
-                + sum(launched(c) for c in e.cpu_children))
-    by_stage = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name.startswith(stage):
-            name = e.name[len(stage):]
-            by_stage[name] = by_stage.get(name, 0) + launched(e)
-    by_name = {}
-    for e in kernels:
-        c, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     ours_ms = sum(us for k, (_, us) in by_name.items()
                   if any(o in k for o in OUR_KERNEL_NAMES)) / 1e3
-    splits = max(bst._models[-1].num_leaves - 1, 1)
+    k = bst._inner.num_tree_per_iteration
+    splits = max(sum(t.num_leaves - 1 for t in bst._models[-k:]), 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     # the fused split's kernels (csrc/fused_split.cu): ms an iteration
     fused = {}
@@ -1585,12 +1640,12 @@ def profile_iteration(bst, gpu: str) -> dict:
             a[1] += us / 1e3
     return {"measured": True, "route": bst._inner.grow.route.describe(),
             "wall_ms": wall_ms, "busy_ms": busy_ms,
-            "busy_share": busy_ms / wall_ms, "kernels": len(kernels),
-            "splits": splits, "kernels_per_split": len(kernels) / splits,
+            "busy_share": busy_ms / wall_ms, "kernels": kernels,
+            "splits": splits, "kernels_per_split": kernels / splits,
             "stage_kernels_per_split": {k: v / splits
                                         for k, v in by_stage.items()},
             "kernels_outside_stages_per_split":
-                (len(kernels) - sum(by_stage.values())) / splits,
+                (kernels - sum(by_stage.values())) / splits,
             "our_kernels_ms": ours_ms,
             "other_kernels_ms_per_split": (busy_ms - ours_ms) / splits,
             "top": [[k[:60], c, us / 1e3] for k, (c, us) in top],
@@ -1898,7 +1953,7 @@ WIDE_PARAMS = dict(TRAIN_PARAMS, max_bin=1023)
 # (row-order), bit for bit
 MAIN_PATH_AUC = {255: 0.774389521391751, 1023: 0.7743261350960159}
 ROW_ORDER_ITERS = 10
-ROW_ORDER_PARITY_TREES = 3
+ROW_ORDER_PARITY_TREES = 2
 PHYS_OFF = {"LGBM_TPU_PHYS": "0"}
 PHYS_OFF_ITERS = 3
 CHILD_ROWS = 3000
@@ -3182,6 +3237,12 @@ def refresh_times(gpu: str, n: int = TRAIN_ROWS, f: int = N_FEATURES,
                 else hk.build_histogram_comb_p2)
         rows = init(bins, score, valid, consts, **kw)
         out[f"pack{pack}"] = {
+            # one launch a training; from device memory like the first
+            # tree's, the bins' 28 MB flushed out of L2 before each call
+            "init": eager_and_graph_ms(
+                lambda: init(bins, score, valid, consts, **kw)),
+            "init_l2_flushed": cold_ms(
+                lambda: init(bins, score, valid, consts, **kw)),
             "refresh": eager_and_graph_ms(
                 lambda: refresh(rows, lv, padded_bins=256, **kw)),
             "plain_refresh": eager_and_graph_ms(
@@ -3256,35 +3317,50 @@ def pack2_unfused_phases(gpu: str, ds, valid, x, bst_default,
     return bsts, recs, parity
 
 
-def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
-                    label: str, params: dict = TRAIN_PARAMS,
-                    n_features: int = N_FEATURES):
-    """The training main path on the route ``env`` selects, counted and
-    timed by stage, its booster served through serve_traverse.  Returns
-    (booster, record)."""
-    import torch
-
-    import lightgbm_tpu_torch as lgt
+def counted_training_kernels():
+    """The training kernels a main path counts (``train_main_path``)."""
     from lightgbm_tpu_torch.ops.apply_find import apply_find, apply_find_pool
     from lightgbm_tpu_torch.ops.fused_split import (fused_split,
                                                     fused_split_p2)
-    from lightgbm_tpu_torch.ops.grow import StageTimer
     from lightgbm_tpu_torch.ops.hist_kernel2 import (build_histogram_comb,
                                                      build_histogram_comb_p2,
                                                      build_histogram_rows)
     from lightgbm_tpu_torch.ops.partition_kernel import (
         copyback, copyback_p2, partition_3ph, partition_scan,
         partition_scan_p2)
-    from lightgbm_tpu_torch.ops.serve_kernel import serve_traverse
     from lightgbm_tpu_torch.ops.stream_grad import (
         stream_init, stream_init_p2, stream_refresh, stream_refresh_p2,
         stream_refresh_plain, stream_refresh_plain_p2)
-    counted = (stream_init, stream_refresh, stream_refresh_plain,
-               build_histogram_comb, partition_scan, partition_3ph,
-               fused_split, copyback, apply_find_pool, apply_find,
-               build_histogram_rows, stream_init_p2, stream_refresh_p2,
-               build_histogram_comb_p2, fused_split_p2, copyback_p2,
-               partition_scan_p2, stream_refresh_plain_p2, serve_traverse)
+    return (stream_init, stream_refresh, stream_refresh_plain,
+            build_histogram_comb, partition_scan, partition_3ph,
+            fused_split, copyback, apply_find_pool, apply_find,
+            build_histogram_rows, stream_init_p2, stream_refresh_p2,
+            build_histogram_comb_p2, fused_split_p2, copyback_p2,
+            partition_scan_p2, stream_refresh_plain_p2)
+
+
+def binary_holdout(bst) -> dict:
+    """The binary main paths' holdout gate: an AUC better than chance."""
+    auc = bst.best_score["valid_0"]["auc"]
+    if not (0.5 < auc <= 1.0):
+        raise RuntimeError(f"holdout AUC {auc} is not better than chance")
+    return {"holdout_auc": auc}
+
+
+def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
+                    label: str, params: dict = TRAIN_PARAMS,
+                    n_features: int = N_FEATURES, holdout=binary_holdout):
+    """The training main path on the route ``env`` selects, counted and
+    timed by stage, its booster served through serve_traverse (the
+    served raw scores of every class against the training scores), its
+    holdout metrics gated by ``holdout(booster) -> dict``.  Returns
+    (booster, record)."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.grow import StageTimer
+    from lightgbm_tpu_torch.ops.serve_kernel import serve_traverse
+    counted = counted_training_kernels() + (serve_traverse,)
     its = []
 
     def _tick(env_):
@@ -3315,18 +3391,20 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
     if launches["serve_traverse"] <= 0:
         raise RuntimeError("predict on the trained booster did not launch "
                            "serve_traverse")
-    auc = bst.best_score["valid_0"]["auc"]
-    train_score = bst._inner.train_score.cpu().numpy().astype(np.float64)
-    if raw.shape != (x.shape[0],) or not np.all(np.isfinite(raw)):
+    k = bst._inner.num_tree_per_iteration
+    n = x.shape[0]
+    train_score = bst._inner.scores.cpu().numpy().astype(np.float64)
+    if (raw.shape != ((n,) if k == 1 else (n, k))
+            or not np.all(np.isfinite(raw))):
         raise RuntimeError("predict on the trained booster gave non-finite "
                            "or misshapen scores")
-    tol = score_tolerance(train_score, len(models))
+    raw = raw.reshape(n, k).T
+    tol = score_tolerance(train_score, len(models) // k)
     err = np.abs(raw - train_score)
     if not np.all(err <= tol):
         raise RuntimeError(f"served scores differ from the training scores "
                            f"beyond 64 ulps per tree (max {err.max()})")
-    if not (0.5 < auc <= 1.0):
-        raise RuntimeError(f"holdout AUC {auc} is not better than chance")
+    held = holdout(bst)
     if route.stream:
         rows = bst._inner.grow.rows.fields()
         if not torch.equal(rows.score, bst._inner.train_score[
@@ -3343,7 +3421,7 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
            "s_per_iter_first": float(per_it[0]),
            "s_per_iter_rest_mean": float(per_it[1:].mean()),
            "s_per_iter": [float(v) for v in per_it],
-           "stage_ms_per_tree": stages, "holdout_auc": auc,
+           "stage_ms_per_tree": stages, **held,
            "splits": splits, "host_reads": bst._inner.grow.host_reads,
            "launches": launches,
            "predict_max_abs_err": float(err.max()), "gpu": gpu}
@@ -3384,10 +3462,15 @@ def train_phases(gpu: str) -> list:
           f"{time.perf_counter() - t1:.2f} s at max_bin=1023 (host)",
           flush=True)
 
+    lap("training/binning")
     recs = training_kernels(gpu, ds)
+    lap("training/kernels")
     recs.append(hist_rows_kernels(gpu, ds, ds_wide))
+    lap("training/hist_rows kernels")
     recs += pack2_kernels(gpu, ds)
+    lap("training/pack2 kernels")
     refresh_t = refresh_times(gpu)
+    lap("training/refresh times")
     for r in recs:
         if r["name"] in ("stream_refresh", "stream_refresh_p2"):
             d = refresh_t["pack2" if r["name"].endswith("p2") else "pack1"]
@@ -3399,9 +3482,14 @@ def train_phases(gpu: str) -> list:
         if r["name"] in ("stream_refresh_plain", "stream_refresh_plain_p2"):
             d = refresh_t["pack2" if r["name"].endswith("p2") else "pack1"]
             r["l2_flushed_ms"] = d["plain_refresh_l2_flushed"]
+        if r["name"] in ("stream_init", "stream_init_p2"):
+            d = refresh_t["pack2" if r["name"].endswith("p2") else "pack1"]
+            r["eager_ms"], r["graph_ms"] = d["init"]
+            r["l2_flushed_ms"] = d["init_l2_flushed"]
     parity = train_parity(gpu, {}, PARITY_TREES, "default route")
     parity2 = train_parity(gpu, SLICE2_ROUTE, SLICE2_PARITY_TREES,
                            "slice 2 route")
+    lap("training/parity default, slice 2")
 
     bst, main = train_main_path(gpu, ds, valid, x, {}, TRAIN_ITERS,
                                 "main path, default route")
@@ -3416,26 +3504,33 @@ def train_phases(gpu: str) -> list:
     if not routes["ok"]:
         raise RuntimeError(f"the default route's trees differ from slice "
                            f"2's route's: {routes}")
+    lap("training/main path, slice 2 route")
     bst3, main3, bst4, off, parity3 = row_order_phases(
         gpu, ds, valid, ds_wide, valid_wide, x, bst)
+    lap("training/row-order")
     tail_medians = [
         median_tail_parity(ds, {}, TRAIN_PARAMS, "default route"),
         median_tail_parity(ds_wide, {}, WIDE_PARAMS,
                            "row-order route, max_bin=1023")]
     tail_times = apply_find_times(gpu)
+    lap("training/tail medians and times")
     rows_times = hist_rows_times(gpu, ds_wide, bst3._models)
     fused_times = fused_split_times(gpu, bst._models)
+    lap("training/hist_rows and fused_split times")
     bst5, main5, pool5, parity5 = part_3ph_phases(gpu, ds, valid, x, bst)
     bst6, main6, parity6 = pack2_phases(gpu, ds, valid, x, bst)
     copy_times = copyback_p2_times(gpu, bst6._models)
     bsts7, mains7, parity7 = pack2_unfused_phases(gpu, ds, valid, x, bst,
                                                   bst2)
+    lap("training/3ph, pack=2, unfused")
     part_times = partition_phases(gpu, {
         "unfused": bsts7["pack1_unfused"]._models,
         "pack2_unfused": bsts7["pack2_unfused"]._models,
         "3ph": bst5._models})
+    lap("training/partition times")
     comb_cases, comb_children = hist_comb_cases(bsts7["pack1_unfused"]._models)
     comb_times = hist_comb_times(gpu, N_FEATURES, comb_cases)
+    lap("training/hist_comb times")
     for run in (main, main6, main3):
         want = MAIN_PATH_AUC[run["max_bin"]]
         if run["holdout_auc"] != want:
@@ -3467,6 +3562,7 @@ def train_phases(gpu: str) -> list:
             print(f"profiled iteration, {key.replace('_', ' ')} route "
                   + json.dumps(profile_iteration(bsts7[key], gpu)),
                   flush=True)
+    lap("training/profiled iterations")
 
     names = {"hist_comb": "build_histogram_comb",
              "apply_find": "apply_find_pool",
@@ -3527,6 +3623,7 @@ def train_phases(gpu: str) -> list:
             r["ok"] for r in parity7.values())
     recs += mono_phases(gpu, ds, valid, ds_wide, valid_wide, x, y, xv, main,
                         tail_times)
+    lap("training/monotone")
     return recs
 
 
@@ -3748,6 +3845,7 @@ def analysis_phase(gpu: str) -> dict:
 # -- slice 9: wide datasets and the launch-cost probes -----------------------
 WIDE_FEATURES = 136           # MSLR-WEB30K's width: hist_comb in chunks
 WIDE_ITERS = 3
+WIDE_PARITY_TREES = 1
 WIDE_ROUTE = "path=stream fused=0 tail=kernel (fused_smem)"
 PROBE_ROWS = 1 << 20          # tools/profile_step_cost.py PN = 20
 PROBE_REPS = 20               # T11 iterations of 254 timed per mode
@@ -4133,7 +4231,7 @@ def wide_phases(gpu: str, comb_cases: list) -> dict:
     """Slice 9's repair: datasets above 19 features at B = 256 build their
     histograms in feature chunks, so 136 features fit.  ``hist_comb`` at 1M x 136 bitwise its
     plain version and timed; training parity at 50,000 x 136, card
-    against device="cpu", 3 trees, bit-identical; the main path,
+    against device="cpu", 1 tree, bit-identical; the main path,
     ``make_higgs_like(1M, 136)``, 255 leaves, 3 iterations on the route
     the rules give (unfused stream, the cluster kernel tail), counted
     exactly; the tail bitwise its plain version on the median split of
@@ -4144,8 +4242,10 @@ def wide_phases(gpu: str, comb_cases: list) -> dict:
     import lightgbm_tpu_torch as lgt
     hist = hist_comb_wide_case(gpu)
     times = hist_comb_times(gpu, WIDE_FEATURES, comb_cases)
-    parity = train_parity(gpu, {}, PARITY_TREES, "wide dataset",
+    lap("wide/hist_comb")
+    parity = train_parity(gpu, {}, WIDE_PARITY_TREES, "wide dataset",
                           bitwise=True, n_features=WIDE_FEATURES)
+    lap("wide/parity")
     x_all, y_all, w = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS,
                                       WIDE_FEATURES, seed=0,
                                       with_weights=True)
@@ -4157,6 +4257,7 @@ def wide_phases(gpu: str, comb_cases: list) -> dict:
     print(f"binned {TRAIN_ROWS} + {HOLDOUT_ROWS} rows x {WIDE_FEATURES} in "
           f"{time.perf_counter() - t0:.2f} s at max_bin=255 (host)",
           flush=True)
+    lap("wide/binning")
     bst, main = train_main_path(gpu, ds, valid, x, {}, WIDE_ITERS,
                                 "main path, wide dataset",
                                 n_features=WIDE_FEATURES)
@@ -4177,10 +4278,10 @@ def wide_phases(gpu: str, comb_cases: list) -> dict:
 MONO_CONSTRAINED = 8
 MONO_SIGNS = [1] * 4 + [-1] * 4      # features 0-3 up, 4-7 down, rest free
 MONO_ITERS = 10
-MONO_SHORT_ITERS = 3
+MONO_SHORT_ITERS = 2
 MONO_PENALTY = 2.0
-MONO_PARITY_ROWS = 20_000
-MONO_PARITY_TREES = 2
+MONO_PARITY_ROWS = 10_000
+MONO_PARITY_TREES = 1
 MONO_GRID_ROWS = 256
 MONO_ROUTES = {"pack2": PACK2, "unfused": FUSED_OFF, "3ph": PART_3PH,
                "pool_tail_off": POOL_TAIL_OFF}
@@ -4373,11 +4474,11 @@ def mono_phases(gpu: str, ds, valid, ds_wide, valid_wide, x, y, xv,
     Higgs-like rows, 100,000 holdout, 255 leaves, binary; +1 on features
     0-3, -1 on 4-7).  The constrained tail bitwise its plain version on
     its adversarial cases and on the median split of a default-route and
-    a row-order tree; the card against the CPU on the first 20,000 rows
-    on the default, pack=2 and row-order routes (bitwise); the basic
+    a row-order tree; the card against the CPU on the first 10,000 rows
+    (1 tree) on the default, pack=2 and row-order routes (bitwise); the basic
     method on the default route for 10 iterations, pack=2, P1
     ``FUSED=0``, 3ph, ``POOL_TAIL=0`` and row-order (``max_bin`` 1023)
-    for 3, ``monotone_penalty`` 2.0 and the intermediate method for 3,
+    for 2, ``monotone_penalty`` 2.0 and the intermediate method for 2,
     each counted (the tail's launches are its constrained launches),
     pack=2's, ``FUSED=0``'s and ``POOL_TAIL=0``'s trees bitwise the
     default route's, every model monotone on the grid, served scores
@@ -4572,11 +4673,11 @@ CAT_DS_PARAMS = {"max_bin": 255, "min_data_in_bin": 1}
 # bench_cat_onehot's setting: a threshold above the cardinality keeps
 # every categorical split one-hot (and the kernel tail)
 CAT_ONEHOT_PARAMS = dict(CAT_PARAMS, max_cat_to_onehot=CAT_CATS + 1)
-CAT_ITERS = 10
-CAT_SHORT_ITERS = 3
+CAT_ITERS = 3
+CAT_SHORT_ITERS = 2
 # the cut of the categorical data the card is held against the CPU on
-CAT_PARITY_ROWS = 20_000
-CAT_PARITY_TREES = 2
+CAT_PARITY_ROWS = 10_000
+CAT_PARITY_TREES = 1
 CAT_ROUTES = {"default": {}, "pack2": PACK2, "unfused": FUSED_OFF,
               "pack2_unfused": PACK2_UNFUSED, "3ph": PART_3PH}
 # each word mode: (wrapper name, the route whose main path launches it,
@@ -4849,17 +4950,18 @@ def cat_phases(gpu: str) -> list:
     max_bin 255, min_data_in_bin 1, min_data_per_group 5,
     max_cat_to_onehot 4).  The word modes against their plain versions
     on adversarial words; the card against the CPU on a cut of the data
-    on every categorical route (bit for bit); the default route for 10
-    iterations, pack=2, both FUSED=0 routes and 3ph for 3 (pack=2 and
+    on every categorical route (bit for bit); the default route for 3
+    iterations, pack=2, both FUSED=0 routes and 3ph for 2 (pack=2 and
     the unfused routes' trees bitwise the default route's), max_bin 1023
-    (cat_overwide, row_order) for 3 and the one-hot twin
-    (max_cat_to_onehot 1025, the kernel tail) for 3, each counted, each
+    (cat_overwide, row_order) for 2 and the one-hot twin
+    (max_cat_to_onehot 1025, the kernel tail) for 2, each counted, each
     word mode launched on its route, served through
     serve_traverse and held against the f64 host walk; the word modes
     timed beside their one-hot modes.  Returns the five word modes'
     kernel records."""
     import lightgbm_tpu_torch as lgt
     parity = cat_word_parity(gpu)
+    lap("categorical/word parity")
     x_all, y_all, cats = make_categorical_like(CAT_ROWS + HOLDOUT_ROWS,
                                                CAT_CATS, CAT_COLS)
     x, y = x_all[:CAT_ROWS], y_all[:CAT_ROWS]
@@ -4883,6 +4985,7 @@ def cat_phases(gpu: str) -> list:
     parities["max_bin_1023"] = cat_train_parity(gpu, x, y, cats, {},
                                                 wide_params, "max_bin 1023")
 
+    lap("categorical/binning and train parity")
     runs, bsts = {}, {}
     for key, env in CAT_ROUTES.items():
         bsts[key], runs[key] = train_main_path(
@@ -4961,6 +5064,7 @@ def cat_phases(gpu: str) -> list:
               + json.dumps(profile_iteration(bsts["default"], gpu)),
               flush=True)
 
+    lap("categorical/main paths")
     times = cat_word_times(gpu, bsts["default"]._models)
     n, row_bytes = CAT_ROWS, CAT_FEATURES + ROW_EXTRA_BYTES
     stride = 64
@@ -4987,6 +5091,264 @@ def cat_phases(gpu: str) -> list:
     return recs
 
 
+# -- Slice 19: multiclass training and the regression and cross-entropy
+# objectives (on the kernel-tail physical route) ----------------------------
+MC_CLASSES = 5
+MC_ITERS = 10
+MC_PARAMS = {"objective": "multiclass", "num_class": MC_CLASSES,
+             "num_leaves": TRAIN_LEAVES, "max_bin": 255,
+             "learning_rate": 0.1, "metric": ["multi_logloss", "multi_error"],
+             "verbosity": -1}
+OVA_PARAMS = dict(MC_PARAMS, objective="multiclassova", num_class=3)
+MC_PARITY_ITERS = 2
+MC_ROUTE = ("path=physical fused=1 tail=kernel (objective_not_streamable, "
+            "multi_tree_iter)")
+OBJ_ROUTE = "path=physical fused=1 tail=kernel (objective_not_streamable)"
+# the objectives whose trees the card grows as the CPU does, 2 each
+OBJ_PARITY = {"regression_l1": {}, "huber": {}, "fair": {}, "poisson": {},
+              "quantile": {"alpha": 0.9}, "mape": {}, "gamma": {},
+              "tweedie": {}, "cross_entropy": {}, "cross_entropy_lambda": {}}
+OBJ_PARITY_TREES = 2
+L1_ITERS = 3
+L1_PARAMS = {"objective": "regression_l1", "num_leaves": TRAIN_LEAVES,
+             "max_bin": 255, "learning_rate": 0.1, "metric": "l1",
+             "verbosity": -1}
+
+
+def make_multiclass_like(n_rows: int, num_class: int,
+                         n_features: int = 28, seed: int = 0):
+    """Higgs-style dense features with a K-way label whose classes are
+    separated by hidden per-class split structure (the generator of
+    ``bench.py --multiclass K``, the 5-class softmax cell of
+    BASELINE.json): every class gets a private feature-pair threshold
+    rule on top of a shared linear field."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n_rows, n_features)).astype(np.float32)
+    w = rng.normal(size=(n_features, num_class))
+    logits = (x @ w) * 0.4
+    for c in range(num_class):
+        j0, j1 = rng.choice(n_features, size=2, replace=False)
+        t0, t1 = rng.normal(scale=0.5, size=2)
+        logits[:, c] += 1.5 * np.logical_xor(x[:, j0] > t0,
+                                             x[:, j1] > t1)
+    y = np.argmax(logits + rng.gumbel(size=logits.shape),
+                  axis=1).astype(np.float32)
+    return x, y
+
+
+def objective_label(objective: str, x: np.ndarray, seed: int) -> np.ndarray:
+    """A seeded label ``objective`` accepts from rows ``x`` (NaN read as
+    0): classes for the multiclass objectives, counts for poisson and
+    tweedie, positive values for gamma, probabilities for the
+    cross-entropies, and a continuous target with heavy-tailed noise
+    (Student's t, 2 degrees of freedom: the user of l1 or huber) for the
+    rest."""
+    rng = np.random.default_rng(seed)
+    xz = np.nan_to_num(x[:, :8]).astype(np.float64)
+    t = xz @ rng.normal(size=8) * 0.5 + xz[:, 0] * xz[:, 1]
+    noise = rng.standard_t(2, size=len(x))
+    if objective.startswith("multiclass"):
+        k = OVA_PARAMS["num_class"] if objective == "multiclassova" \
+            else MC_CLASSES
+        logits = xz[:, :k] + rng.gumbel(size=(len(x), k))
+        return np.argmax(logits, axis=1).astype(np.float32)
+    if objective in ("poisson", "tweedie"):
+        return rng.poisson(np.exp(0.3 * np.tanh(t))).astype(np.float32)
+    if objective == "gamma":
+        return np.exp(0.3 * np.tanh(t) + 0.2 * rng.normal(size=len(x))
+                      ).astype(np.float32)
+    if objective.startswith("cross_entropy"):
+        return (1.0 / (1.0 + np.exp(-t))).astype(np.float32)
+    return (t + 0.5 * noise).astype(np.float32)
+
+
+def relabel(ds, y: np.ndarray):
+    """The constructed Dataset ``ds``'s bins under another label (no
+    binning again)."""
+    import copy
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.io.dataset_core import Metadata
+    binned = copy.copy(ds._binned)
+    binned.metadata = Metadata()
+    binned.metadata.set_label(y)
+    binned.metadata.check(binned.num_data)
+    return lgt.Dataset.from_binned(binned)
+
+
+def card_booster(params: dict, x, y, iters: int, env: dict):
+    """``iters`` iterations on the card on the route ``env`` selects, the
+    training kernels' launches counted: (booster, launches)."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    counted = counted_training_kernels()
+    with route_env(env):
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+        bst = lgt.Booster(params, lgt.Dataset(x, label=y), device="cuda")
+        for _ in range(iters):
+            bst.update()
+        torch.cuda.synchronize()
+    return bst, {fn.__name__: fn.launches for fn in counted}
+
+
+def objective_parities(gpu: str) -> dict:
+    """The card against device="cpu" at 50,000 x 28, 255 leaves, bitwise:
+    softmax (K = 5) and one-vs-all (K = 3) for 2 iterations, the softmax
+    at pack=2 bitwise the pack=1 card trees (its record kernels
+    counted), and 2 trees of each regression and cross-entropy
+    objective on a label it accepts."""
+    x = make_rows(PARITY_ROWS, N_FEATURES, 3)
+    out = {}
+    for name, params in (("multiclass", MC_PARAMS),
+                         ("multiclassova", OVA_PARAMS)):
+        rec = train_parity(gpu, {}, MC_PARITY_ITERS, name, params=params,
+                           bitwise=True, y=objective_label(name, x, 5))
+        if rec["route"] != MC_ROUTE:
+            raise RuntimeError(f"{name} trained on {rec['route']}")
+        out[name] = rec
+    y = objective_label("multiclass", x, 5)
+    p1, _ = card_booster(MC_PARAMS, x, y, MC_PARITY_ITERS, {})
+    p2, launches = card_booster(MC_PARAMS, x, y, MC_PARITY_ITERS, PACK2)
+    if p2._inner.grow.route.pack != 2:
+        raise RuntimeError("the pack=2 multiclass run trained pack=1")
+    out["multiclass_pack2"] = _same_trees(p1, p2, "multiclass pack=2 route")
+    out["multiclass_pack2"]["launches"] = {k: v for k, v in launches.items()
+                                           if v}
+    for name, extra in OBJ_PARITY.items():
+        params = dict(TRAIN_PARAMS, objective=name, metric="None", **extra)
+        rec = train_parity(gpu, {}, OBJ_PARITY_TREES, name, params=params,
+                           bitwise=True, y=objective_label(name, x, 7))
+        if rec["route"] != OBJ_ROUTE:
+            raise RuntimeError(f"{name} trained on {rec['route']}")
+        out[name] = rec
+    return out
+
+
+def multiclass_holdout(y_train: np.ndarray, yv: np.ndarray):
+    """The multiclass main path's holdout gate: ``multi_logloss`` below
+    the class-prior model's."""
+    counts = np.bincount(y_train.astype(np.int64), minlength=MC_CLASSES)
+    prior = counts / counts.sum()
+    prior_loss = float(-np.mean(np.log(prior[yv.astype(np.int64)])))
+
+    def gate(bst) -> dict:
+        got = bst.best_score["valid_0"]
+        if not got["multi_logloss"] < prior_loss:
+            raise RuntimeError(f"holdout multi_logloss "
+                               f"{got['multi_logloss']} is not below the "
+                               f"class prior's {prior_loss}")
+        return {"holdout_multi_logloss": got["multi_logloss"],
+                "holdout_multi_error": got["multi_error"],
+                "prior_multi_logloss": prior_loss}
+    return gate
+
+
+def l1_holdout(y_train: np.ndarray, yv: np.ndarray):
+    """The l1 main path's holdout gate: ``l1`` below the constant-median
+    model's."""
+    const = float(np.mean(np.abs(yv - np.median(y_train))))
+
+    def gate(bst) -> dict:
+        got = bst.best_score["valid_0"]["l1"]
+        if not got < const:
+            raise RuntimeError(f"holdout l1 {got} is not below the "
+                               f"constant median's {const}")
+        return {"holdout_l1": got, "median_l1": const}
+    return gate
+
+
+def multiclass_phases(gpu: str) -> dict:
+    """Slice 19: the objectives' parity runs (:func:`objective_parities`),
+    then the multiclass main path at full width (``bench.py --multiclass
+    5``'s cell: 1M x 28 training and 100,000 holdout rows, 5-class
+    softmax, 255 leaves, 10 iterations, 50 trees) on the kernel-tail
+    physical route, counted, its holdout ``multi_logloss`` below the
+    class prior's, the booster served through serve_traverse (every
+    class's raw scores within 64 ulps a tree of the training scores and
+    of the f64 host walk at 4,096 holdout rows, the probabilities
+    summing to 1 within 1e-6), one profiled iteration; then the l1 main
+    path on the same rows with a heavy-tailed continuous target (3
+    iterations, its leaf renewal timed as a stage of its own), its
+    holdout ``l1`` below the constant median's."""
+    import lightgbm_tpu_torch as lgt
+    parity = objective_parities(gpu)
+    lap("multiclass/parity")
+    x_all, y_all = make_multiclass_like(TRAIN_ROWS + HOLDOUT_ROWS,
+                                        MC_CLASSES, seed=0)
+    x, y = x_all[:TRAIN_ROWS], y_all[:TRAIN_ROWS]
+    xv, yv = x_all[TRAIN_ROWS:], y_all[TRAIN_ROWS:]
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(x, label=y, params={"max_bin": 255}).construct()
+    valid = lgt.Dataset(xv, label=yv, reference=ds).construct()
+    print(f"binned {TRAIN_ROWS} + {HOLDOUT_ROWS} rows x {N_FEATURES} "
+          f"(multiclass) in {time.perf_counter() - t0:.2f} s (host)",
+          flush=True)
+    bst, run = train_main_path(gpu, ds, valid, x, {}, MC_ITERS,
+                               "multiclass main path", params=MC_PARAMS,
+                               holdout=multiclass_holdout(y, yv))
+    if run["route"] != MC_ROUTE:
+        raise RuntimeError(f"the multiclass main path took {run['route']}")
+    if any(t.num_leaves <= 1 for t in bst._models):
+        raise RuntimeError("a multiclass main-path tree is a stump")
+    k = MC_CLASSES
+    xh = np.array(xv[:HOST_ROWS], np.float64)
+    served = bst.predict(xh, raw_score=True)
+    host = np.stack([sum(t.leaf_value[t.predict_leaf(xh)]
+                         for t in bst._models[c::k]) for c in range(k)],
+                    axis=1)
+    if not np.all(np.abs(served - host)
+                  <= score_tolerance(host, len(bst._models) // k)):
+        raise RuntimeError("served multiclass scores differ from the host "
+                           "walk")
+    prob = bst.predict(xv)
+    sums = np.abs(prob.sum(axis=1) - 1.0).max()
+    if prob.shape != (HOLDOUT_ROWS, k) or not sums <= 1e-6:
+        raise RuntimeError(f"multiclass probabilities of shape "
+                           f"{prob.shape} sum to 1 only within {sums}")
+    run.update(host_walk_rows=HOST_ROWS, probability_sum_err=float(sums))
+    with route_env({}):
+        prof = profile_iteration(bst, gpu)
+    print("profiled iteration, multiclass main path " + json.dumps(prof),
+          flush=True)
+    lap("multiclass/main path")
+    y1_all = objective_label("regression_l1", x_all, 11)
+    y1, yv1 = y1_all[:TRAIN_ROWS], y1_all[TRAIN_ROWS:]
+    bst1, run1 = train_main_path(gpu, relabel(ds, y1), relabel(valid, yv1),
+                                 x, {}, L1_ITERS, "l1 main path",
+                                 params=L1_PARAMS,
+                                 holdout=l1_holdout(y1, yv1))
+    if run1["route"] != OBJ_ROUTE:
+        raise RuntimeError(f"the l1 main path took {run1['route']}")
+    renew = run1["stage_ms_per_tree"].get("leaf_renew")
+    if renew is None:
+        raise RuntimeError("the l1 main path renewed no leaves")
+    print("objective routes " + json.dumps({
+        "multiclass": {key: run[key] for key in (
+            "route", "s_per_iter_rest_mean", "holdout_multi_logloss",
+            "holdout_multi_error", "prior_multi_logloss", "splits")},
+        "multiclass_profiled": {key: prof.get(key) for key in (
+            "kernels_per_split", "busy_share", "wall_ms")},
+        "l1": {key: run1[key] for key in (
+            "route", "s_per_iter_rest_mean", "holdout_l1", "median_l1")},
+        "l1_leaf_renew_ms_per_tree": renew, "gpu": gpu}), flush=True)
+    return {"parity": parity, "multiclass": run, "l1": run1,
+            "profile": prof}
+
+
+_CLOCK = [time.perf_counter()]
+
+
+def lap(phase: str) -> None:
+    """Print the seconds since the previous lap as ``phase NAME took S
+    s`` (the script's time budget is read from these lines)."""
+    now = time.perf_counter()
+    print(f"phase {phase} took {now - _CLOCK[0]:.1f} s", flush=True)
+    _CLOCK[0] = now
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5002,12 +5364,21 @@ def main() -> int:
     _build.build()
     build_s = time.perf_counter() - t0
     print(f"kernels built in {build_s:.2f} s", flush=True)
+    lap("build")
     fixtures = analysis_kernels(gpu)
     analysis = analysis_phase(gpu)
-    probes = probe_phases(gpu) + legacy_phases(gpu)
-    kernels = [serve_phases(gpu, build_s)] + fixtures + train_phases(gpu)
+    lap("analysis")
+    probes = probe_phases(gpu)
+    lap("probes")
+    probes += legacy_phases(gpu)
+    lap("legacy probes")
+    kernels = [serve_phases(gpu, build_s)] + fixtures
+    lap("serving")
+    kernels += train_phases(gpu)
+    lap("training")
     comb = next(k for k in kernels if k["name"] == "hist_comb")
     wide = wide_phases(gpu, comb["cases"])
+    lap("wide")
     comb.update({f"wide_{k}": wide["hist"][k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "feature_chunk")})
     comb["wide_launches"] = wide["main"]["launches"]["build_histogram_comb"]
@@ -5023,6 +5394,20 @@ def main() -> int:
     tail["parity_cases"].append(wide["mono"]["tail"])
     tail["monotone_runs"]["wide"] = wide["mono"]
     kernels += cat_phases(gpu)
+    lap("categorical")
+    objectives = multiclass_phases(gpu)
+    lap("multiclass and objectives")
+    # the multiclass route's launches (its pack=2 parity run's beside)
+    mc, mc2 = (objectives["multiclass"]["launches"],
+               objectives["parity"]["multiclass_pack2"]["launches"])
+    for k in kernels:
+        key = {"hist_comb": "build_histogram_comb",
+               "hist_comb_p2": "build_histogram_comb_p2",
+               "apply_find": "apply_find_pool"}.get(k["name"], k["name"])
+        if key in mc and k.get("route") == "cuda" and mc[key]:
+            k["multiclass_launches"] = mc[key]
+        if key in mc2 and k.get("route") == "cuda":
+            k["multiclass_pack2_parity_launches"] = mc2[key]
     kernels += probes
     if not analysis["checked_in_report_current"]:
         raise RuntimeError(

@@ -98,14 +98,15 @@ def dataset_from_numpy(mappers: Sequence[Dict], bin_matrix: np.ndarray,
                        label, *, used_feature_map: Sequence[int],
                        num_total_features: int,
                        feature_names: Optional[List[str]] = None,
-                       weight=None) -> Dataset:
+                       weight=None, init_score=None) -> Dataset:
     """The port's constructed ``Dataset`` from a binned dataset's
     numpy state.  ``mappers`` are dicts of the ``BinMapper.to_dict``
     fields (``bin_type``, ``missing_type``, ``num_bins``,
     ``upper_bounds``, ``cat_values``, ``cat_bins``, ``default_bin``) of
     each used feature; ``bin_matrix`` is the ``[n, used_features]``
     binned matrix; ``used_feature_map`` maps used to original feature
-    ids."""
+    ids; ``init_score`` is ``[n]``, or class-major ``[K * n]`` for a
+    multiclass model."""
     binned = BinnedDataset()
     binned.mappers = [BinMapper.from_dict(m) for m in mappers]
     binned.bin_matrix = np.ascontiguousarray(bin_matrix)
@@ -117,5 +118,6 @@ def dataset_from_numpy(mappers: Sequence[Dict], bin_matrix: np.ndarray,
     md = binned.metadata
     md.set_label(label)
     md.set_weight(weight)
+    md.set_init_score(init_score)
     md.check(binned.num_data)
     return Dataset.from_binned(binned)

@@ -7,9 +7,10 @@ UpdateScore :580-607).  The route is decided up front
 gradients live in the row matrix and are refreshed there at each tree's
 end, so an iteration computes no objective gradients; the grower reads
 the scores (boost-from-average included) once when it builds its rows
-and the shrinkage rate on every call.  On slice 2's route the
-objective's gradients are computed on the device from the training
-scores each iteration, and so on the ``row_order`` path (u16 bins at
+and the shrinkage rate on every call.  On slice 2's route, and for
+every objective the stream route has no formula for, the objective's
+gradients are computed on the device from the training scores each
+iteration, and so on the ``row_order`` path (u16 bins at
 ``max_bin > 255``, or ``LGBM_TPU_PHYS=0``).  One tree grows on the row
 matrix (``ops.grow.SerialGrower``) or on a row-order index
 (``ops.grow.RowOrderGrower``), and the training and validation scores
@@ -18,10 +19,20 @@ take the tree's shrunk leaf outputs on the device, for ``eval`` and
 ``Tree`` (one read per tree); the boost-from-average init score is
 folded into the first tree, so saved models are self-contained.
 
+A multiclass objective grows K trees an iteration (models at
+``iter * K + k``), the scores class-major ``[K, n]``: class by class,
+each through the same grower, whose row matrix carries from class to
+class (the JAX package's serial-K path, which its batched scan
+reproduces bit for bit).  A class whose first-round tree is a stump
+trains no more and gets zero stumps (``class_need_train``).  The
+percentile objectives (l1, huber, quantile, mape) refit each tree's
+leaf outputs before the score update (``objective.regression.
+renew_leaf_values``, on the training device).
+
 Unlike the JAX package, trees are finalized synchronously, so an
-iteration whose tree cannot split stops training at once (the
-reference's synchronous behaviour).  Parameters this slice does not
-port raise ``LightGBMError`` (:func:`check_supported`).
+iteration in which no class's tree can split stops training at once
+(the reference's synchronous behaviour).  Parameters this slice does
+not port raise ``LightGBMError`` (:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -37,6 +48,7 @@ from ..metric import Metric
 from ..models.constraints import build_grow_constraints
 from ..models.model_text import feature_infos
 from ..objective.base import ObjectiveFunction
+from ..objective.regression import renew_leaf_values
 from ..ops.device_data import DeviceDataset, to_device
 from ..ops.apply_find import apply_find_supported
 from ..ops.fused_split import fused_supported
@@ -86,8 +98,6 @@ def check_supported(cfg: Config) -> None:
                                  or cfg.pos_bagging_fraction < 1.0
                                  or cfg.neg_bagging_fraction < 1.0):
         _unported("bagging")
-    if cfg.num_class > 1:
-        _unported("multiclass")
     if cfg.tree_learner != "serial" or cfg.num_machines > 1:
         _unported(f"tree_learner={cfg.tree_learner} (the mesh learners)")
     if cfg.pre_partition:
@@ -117,6 +127,22 @@ def uses_cat_subset(cfg: Config, ds: BinnedDataset) -> bool:
                and m.num_bins > cfg.max_cat_to_onehot for m in ds.mappers)
 
 
+def _init_scores(md, k: int, n: int, device) -> torch.Tensor:
+    """[K, n] f32 scores from the dataset's init scores (class-major
+    ``K * n``, or ``n`` for every class), zeros without them."""
+    score = torch.zeros((k, n), dtype=torch.float32, device=device)
+    if md.init_score is not None:
+        s = md.init_score.reshape(-1)     # host f64 (Metadata)
+        s = s.reshape(k, n) if s.size == k * n else s[:n].reshape(1, n)
+        score += torch.as_tensor(s, dtype=torch.float32, device=device)
+    return score
+
+
+def _class_view(scores: torch.Tensor) -> torch.Tensor:
+    """The scores as a one-model booster reads them, [n], else [K, n]."""
+    return scores[0] if scores.shape[0] == 1 else scores
+
+
 class _ValidSet:
     def __init__(self, name: str, data: BinnedDataset, bins: torch.Tensor,
                  metrics: Sequence[Metric]):
@@ -124,7 +150,12 @@ class _ValidSet:
         self.data = data
         self.bins = bins
         self.metrics = list(metrics)
-        self.score: Optional[torch.Tensor] = None   # [n] f32
+        self.scores: Optional[torch.Tensor] = None   # [K, n] f32
+
+    @property
+    def score(self) -> torch.Tensor:
+        """[n] for a one-model booster, else [K, n]."""
+        return _class_view(self.scores)
 
 
 class GBDT:
@@ -145,7 +176,9 @@ class GBDT:
         self.iter_ = 0
         self.shrinkage_rate = config.learning_rate
         self.average_output = False
-        self.num_tree_per_iteration = 1
+        self.num_tree_per_iteration = (
+            objective.num_models() if objective is not None
+            else max(config.num_class, 1))
         self.valid_sets: List[_ValidSet] = []
         self._train_metrics = list(metrics)
         self._rng_feature = np.random.Generator(
@@ -176,9 +209,10 @@ class GBDT:
         dd = self.dd
         kind = getattr(objective, "STREAM_KIND", None)
         self.route = decide(resolve_layout(inputs_from_env(
-            objective_kind=kind or "none",
+            objective_kind=kind or ("none" if objective is None
+                                    else "other"),
             boosting=cfg.boosting.strip().lower().replace("gbrt", "gbdt"),
-            multi_tree=cfg.num_class > 1,
+            multi_tree=self.num_tree_per_iteration > 1,
             bagging=cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0,
             linear_tree=bool(cfg.linear_tree),
             learner=cfg.tree_learner,
@@ -205,13 +239,12 @@ class GBDT:
             if self.route.stream:
                 self.grow.set_stream_aux(self._stream_aux)
         n = train_set.num_data
-        score = torch.zeros(n, dtype=torch.float32, device=device)
         md = train_set.metadata
         self._has_init_score = md.init_score is not None
-        if self._has_init_score:
-            score += torch.as_tensor(md.init_score.reshape(-1)[:n],
-                                     dtype=torch.float32, device=device)
-        self.train_score = score
+        self.scores = _init_scores(md, self.num_tree_per_iteration, n, device)
+        # reference class_need_train_: cleared for a class whose
+        # first-round tree is a stump
+        self._class_need_train = [True] * self.num_tree_per_iteration
         self._inbag = torch.ones(n, dtype=torch.float32, device=device)
         for m in self._train_metrics:
             m.init(md, n)
@@ -222,6 +255,12 @@ class GBDT:
                  "feature (%s); route %s%s", device, n, self.dd.num_features,
                  self.dd.padded_bins, str(dd.bins.dtype).replace("torch.", ""),
                  self.route.describe(), pack_note)
+
+    @property
+    def train_score(self) -> torch.Tensor:
+        """The training scores, [n] for a one-model booster (a view of
+        ``scores``), else [K, n]."""
+        return _class_view(self.scores)
 
     def _stream_aux(self):
         """The stream route's per-row inputs: the current scores (boost
@@ -257,16 +296,13 @@ class GBDT:
         bins = torch.as_tensor(np.ascontiguousarray(data.bin_matrix),
                                device=self.device)
         vs = _ValidSet(name, data, bins, metrics)
-        score = torch.zeros(data.num_data, dtype=torch.float32,
-                            device=self.device)
-        if data.metadata.init_score is not None:
-            score += torch.as_tensor(data.metadata.init_score.reshape(-1),
-                                     dtype=torch.float32, device=self.device)
-        vs.score = score
+        k = self.num_tree_per_iteration
+        vs.scores = _init_scores(data.metadata, k, data.num_data,
+                                 self.device)
         inner = {int(o): i for i, o in
                  enumerate(self.train_set.used_feature_map)}
-        for t in self.models:
-            vs.score += self._tree_score(t, bins, inner)
+        for i, t in enumerate(self.models):
+            vs.scores[i % k] += self._tree_score(t, bins, inner)
         for m in vs.metrics:
             m.init(data.metadata, data.num_data)
         self.valid_sets.append(vs)
@@ -296,39 +332,55 @@ class GBDT:
 
     # ------------------------------------------------------------------
     def train_one_iter(self) -> bool:
-        """One boosting iteration; True when training cannot continue
-        (no splittable leaf), like GBDT::TrainOneIter."""
+        """One boosting iteration, one tree a class; True when training
+        cannot continue (no class's tree could split), like
+        GBDT::TrainOneIter."""
         if self.objective is None:
             log.fatal("No objective function provided")
         dev = self.device
-        init_score = 0.0
+        k = self.num_tree_per_iteration
+        init_scores = np.zeros(k)
         if (not self.models and not self._has_init_score
                 and self.config.boost_from_average):
-            init_score = float(self.objective.boost_from_score()[0])
-            if abs(init_score) > 1e-35:
-                self.train_score = self.train_score + init_score
+            init_scores = np.array(self.objective.boost_from_score(),
+                                   dtype=np.float64).reshape(k)
+            if np.any(np.abs(init_scores) > 1e-35):
+                add = torch.as_tensor(init_scores, dtype=torch.float32,
+                                      device=dev)[:, None]
+                self.scores = self.scores + add
                 for vs in self.valid_sets:
-                    vs.score = vs.score + init_score
+                    vs.scores = vs.scores + add
                 log.info("Start training from score %s",
-                         np.array2string(np.array([init_score]),
-                                         precision=6))
+                         np.array2string(init_scores, precision=6))
         if self.route.stream:
             # the gradients live in the row matrix and were refreshed
             # there at the previous tree's end
-            grad = hess = None
+            grad = hess = [None] * k
         else:
             with self.timer.stage("gradients", dev):
                 grad, hess = self.objective.get_gradients(self.train_score)
-        tree = self._train_one_tree(grad, hess, init_score)
+                grad, hess = grad.reshape(k, -1), hess.reshape(k, -1)
+        grew = False
+        for c in range(k):
+            if not self._class_need_train[c]:
+                # keeps models[iter * K + class] aligned
+                self.models.append(Tree.single_leaf(0.0))
+                continue
+            if self._train_one_tree(grad[c], hess[c], c,
+                                    float(init_scores[c])) is not None:
+                grew = True
         self.iter_ += 1
-        if tree is None:
+        if not grew:
             log.warning("Stopped training because there are no more "
                         "leaves that meet the split requirements")
             return True
         return False
 
-    def _train_one_tree(self, grad, hess, init_score: float
+    def _train_one_tree(self, grad, hess, c: int, init_score: float
                         ) -> Optional[Tree]:
+        """Grow class ``c``'s tree, refit its leaves where the objective
+        asks, add its shrunk outputs to the scores and finish it; None
+        when it is a stump."""
         # the shrinkage rate is read per call: the stream route adds the
         # tree's outputs to the rows' scores with it
         ta, leaf_id, leaf_value = self.grow(grad, hess, self._inbag,
@@ -336,24 +388,46 @@ class GBDT:
                                             rate=self.shrinkage_rate)
         nl = int(ta.num_leaves)
         if nl <= 1:
+            if len(self.models) < self.num_tree_per_iteration:
+                self._class_need_train[c] = False
             self.models.append(Tree.single_leaf(init_score))
             return None
+        if self.objective.NEEDS_RENEW:
+            with self.timer.stage("leaf_renew", self.device):
+                leaf_value, host_values = self._renew_leaves(leaf_id,
+                                                             leaf_value, c)
+            ta = ta._replace(leaf_value=host_values)
         rate = self.shrinkage_rate
         with self.timer.stage("score_update", self.device):
             rate_t = torch.tensor(rate, dtype=torch.float32,
                                   device=self.device)
-            self.train_score = self.train_score + rate_t * leaf_value[
-                leaf_id]
+            self.scores[c] = self.scores[c] + rate_t * leaf_value[leaf_id]
             for vs in self.valid_sets:
                 leaf_v = predict_leaf_bins(ta, vs.bins, self.dd.num_bins,
                                            self.dd.has_nan)
-                vs.score = vs.score + rate_t * leaf_value[leaf_v]
+                vs.scores[c] = vs.scores[c] + rate_t * leaf_value[leaf_v]
         tree = Tree.from_device(ta, self.train_set)
         tree.apply_shrinkage(rate)
         if abs(init_score) > 1e-35:
             tree.add_bias(init_score)
         self.models.append(tree)
         return tree
+
+    def _renew_leaves(self, leaf_id: torch.Tensor, leaf_value: torch.Tensor,
+                      c: int) -> Tuple[torch.Tensor, np.ndarray]:
+        """Class ``c``'s leaf outputs refit to the objective's percentile
+        of the residuals of the current (pre-tree) scores (JAX
+        ``_renew_leaf_values``): on the device, and their host copy for
+        the finished tree."""
+        obj = self.objective
+        w = obj.renew_weight()
+        out = renew_leaf_values(
+            obj.leaf_residual(self.scores[c]),
+            torch.ones_like(self._inbag) if w is None else w, leaf_id,
+            self._inbag > 0, leaf_value, L=int(leaf_value.shape[0]),
+            alpha=float(obj.renew_leaf_percentile()),
+            weighted=w is not None)
+        return out, out.cpu().numpy()
 
     # ------------------------------------------------------------------
     def eval(self) -> List[Tuple[str, str, float, bool]]:
@@ -364,7 +438,7 @@ class GBDT:
         def run(metrics, score, ds_name):
             if not metrics:
                 return
-            raw = score.detach()
+            raw = _class_view(score.detach())
             conv = (self.objective.convert_output(raw)
                     if self.objective is not None else raw)
             prob = conv.double().cpu().numpy()
@@ -373,9 +447,9 @@ class GBDT:
                 for name, v, hb in m.eval(prob, raw_np):
                     out.append((ds_name, name, v, hb))
 
-        run(self._train_metrics, self.train_score, "training")
+        run(self._train_metrics, self.scores, "training")
         for vs in self.valid_sets:
-            run(vs.metrics, vs.score, vs.name)
+            run(vs.metrics, vs.scores, vs.name)
         return out
 
     def current_iteration(self) -> int:

@@ -1844,3 +1844,100 @@ def test_monotone_training_on_card_matches_cpu(cuda, env, extra,
     res = compare_trees(bsts[0]._models, bsts[1]._models)
     assert res["ok"], res
     assert leaves_bitwise(bsts[0]._models, bsts[1]._models)
+
+
+# -- slice 19: multiclass and the regression and cross-entropy objectives --
+SLICE19 = {
+    "multiclass": {"objective": "multiclass", "num_class": 5},
+    "multiclassova": {"objective": "multiclassova", "num_class": 3},
+    "regression_l1": {"objective": "regression_l1"},
+    "huber": {"objective": "huber"}, "fair": {"objective": "fair"},
+    "poisson": {"objective": "poisson"},
+    "quantile": {"objective": "quantile", "alpha": 0.9},
+    "mape": {"objective": "mape"}, "gamma": {"objective": "gamma"},
+    "tweedie": {"objective": "tweedie"},
+    "cross_entropy": {"objective": "cross_entropy"},
+    "cross_entropy_lambda": {"objective": "cross_entropy_lambda"},
+}
+
+
+@pytest.mark.parametrize("env", [{}, {"LGBM_TPU_COMB_PACK": "2"},
+                                  {"LGBM_TPU_PHYS": "0"}])
+@pytest.mark.parametrize("name", list(SLICE19))
+def test_objective_training_on_card_matches_cpu(cuda, name, env,
+                                                monkeypatch):
+    """Multiclass (K trees an iteration) and every regression and
+    cross-entropy objective grow the CPU run's trees bit for bit on the
+    card, on the kernel-tail physical route (both packs) and the
+    row-order route, the percentile objectives' leaves renewed on the
+    card; the training kernels launch as ``expected_launches`` counts."""
+    from chip_smoke import counted_training_kernels, objective_label
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    x = make_rows(6000, 12, 9)
+    y = objective_label(name, x, 4)
+    params = dict({"num_leaves": 31, "verbosity": -1}, **SLICE19[name])
+    if name == "cross_entropy_lambda":
+        # the weighted lambda link
+        w = np.random.default_rng(4).uniform(0.2, 2.0, len(y))
+    else:
+        w = None
+    counted = counted_training_kernels()
+    before = {fn.__name__: fn.launches for fn in counted}
+    bsts = [lgt.train(params, lgt.Dataset(x, label=y, weight=w),
+                      num_boost_round=2, device=d) for d in ("cuda", "cpu")]
+    launched = {fn.__name__: fn.launches - before[fn.__name__]
+                for fn in counted}
+    bt = bsts[0]
+    k = bt._inner.num_tree_per_iteration
+    assert len(bt._models) == 2 * k
+    assert all(t.num_leaves > 1 for t in bt._models)
+    route = bt._inner.grow.route
+    assert not route.stream and route.tail == "kernel"
+    splits = sum(t.num_leaves - 1 for t in bt._models)
+    for kname, want in expected_launches(route, len(bt._models),
+                                         splits).items():
+        assert launched[kname] == want, kname
+    res = compare_trees(bsts[0]._models, bsts[1]._models)
+    assert res["ok"], res
+    assert leaves_bitwise(bsts[0]._models, bsts[1]._models)
+    assert torch.equal(bt._inner.scores.cpu(), bsts[1]._inner.scores)
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 4097, 1_000_003])
+def test_blocked_cumsum_and_segment_sums_on_card(cuda, n):
+    """The weighted refit's sums in XLA:CPU's order give the CPU's bits
+    on the card."""
+    from lightgbm_tpu_torch.objective.regression import (blocked_cumsum,
+                                                         segment_sums_seq)
+    x = torch.from_numpy(np.random.default_rng(n).uniform(
+        0.0, 3.0, n).astype(np.float32))
+    assert torch.equal(blocked_cumsum(x.to(cuda)).cpu(), blocked_cumsum(x))
+    cnt = torch.tensor([0, min(n, 5), max(n - 5, 0)])
+    start = torch.cumsum(cnt, 0) - cnt
+    assert torch.equal(
+        segment_sums_seq(x.to(cuda), start.to(cuda), cnt.to(cuda)).cpu(),
+        segment_sums_seq(x, start, cnt))
+
+
+def test_renew_leaf_values_on_card(cuda):
+    """The percentile refit on the card equals its CPU run, both schemes,
+    with ties, an empty leaf and zero weights."""
+    from lightgbm_tpu_torch.objective.regression import renew_leaf_values
+    rng = np.random.default_rng(3)
+    n, L = 200_000, 255
+    lid = torch.from_numpy(rng.integers(0, L - 1, n))
+    resid = torch.from_numpy(np.round(rng.normal(size=n), 2).astype(
+        np.float32))
+    w = torch.from_numpy(rng.uniform(0.0, 2.0, n).astype(np.float32))
+    w[::7] = 0.0
+    valid = torch.from_numpy(rng.random(n) > 0.05)
+    lv0 = torch.from_numpy(rng.normal(size=L).astype(np.float32))
+    for alpha in (0.1, 0.5, 0.9):
+        for weighted in (False, True):
+            args = (resid, w, lid, valid, lv0)
+            got = renew_leaf_values(*(a.to(cuda) for a in args), L=L,
+                                    alpha=alpha, weighted=weighted)
+            want = renew_leaf_values(*args, L=L, alpha=alpha,
+                                     weighted=weighted)
+            assert torch.equal(got.cpu(), want)

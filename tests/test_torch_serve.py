@@ -298,8 +298,7 @@ def test_booster_multiclass_and_unported_options():
     with pytest.raises(lgt.LightGBMError, match="ROADMAP"):
         pb.predict(x, pred_early_stop=True)
     with pytest.raises(lgt.LightGBMError, match="ROADMAP"):
-        lgt.Booster(params={"objective": "multiclass", "num_class": 3,
-                            "verbosity": -1},
+        lgt.Booster(params={"objective": "lambdarank", "verbosity": -1},
                     train_set=lgt.Dataset(x, label=np.arange(200) % 3),
                     device="cpu")
 

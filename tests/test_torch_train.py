@@ -280,7 +280,7 @@ def test_gradients_match_jax(objective):
 @pytest.mark.parametrize("params", [
     {"bagging_fraction": 0.5, "bagging_freq": 1},
     {"boosting": "goss"}, {"boosting": "dart"},
-    {"objective": "multiclass", "num_class": 3},
+    {"objective": "rank_xendcg"},
     {"objective": "lambdarank"},
     {"interaction_constraints": "[[0, 1]]"},
     {"linear_tree": True}, {"extra_trees": True},
@@ -289,8 +289,6 @@ def test_gradients_match_jax(objective):
 def test_unported_parameters_raise(params):
     x, y = _data(300, 4, 1)
     p = dict({"objective": "binary", "verbosity": -1}, **params)
-    if p["objective"] == "multiclass":
-        y = (np.arange(300) % 3).astype(np.float32)
     with pytest.raises(LightGBMError, match="ROADMAP"):
         lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=1,
                   device="cpu")
