@@ -209,9 +209,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    unconstrained ones (``monotone routes``, ``monotone tail times``);
 13. multiclass training and the regression and cross-entropy objectives
    (slice 19), on the kernel-tail physical route: the card against
-   device="cpu" at 50,000 x 28, 255 leaves, bitwise, for 2 iterations
+   device="cpu" at 50,000 x 28, 255 leaves, bitwise, for 1 iteration
    of the 5-class softmax and the 3-class one-vs-all, the softmax at
-   pack=2 bitwise the pack=1 card trees, and 2 trees of each of
+   pack=2 bitwise the pack=1 card trees, and 1 tree of each of
    ``regression_l1``, ``huber``, ``fair``, ``poisson``, ``quantile``
    (alpha 0.9), ``mape``, ``gamma``, ``tweedie``, ``cross_entropy`` and
    ``cross_entropy_lambda`` on a seeded label each accepts
@@ -226,10 +226,25 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    heavy-tailed target (3 iterations) counted, its holdout ``l1`` below
    the constant median's, the leaf renewal timed as a stage; printed as
    ``objective routes {...}``;
-14. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+14. bagging, GOSS and random-forest boosting (slice 20), on the
+   kernel-tail physical route: the threefry draws on the card bitwise
+   the CPU's at 1M rows (the bagging mask at iterations 0 and 5, GOSS's
+   sample); the card against device="cpu" at 50,000 x 28, 255 leaves,
+   bitwise, for 2 trees of bagging (0.8, every iteration), of
+   ``pos_bagging_fraction`` 0.5 and of RF, 3 of GOSS (sampling from its
+   third), and the bagging run at pack=2 bitwise the pack=1 card trees;
+   the three main paths on the training main path's rows (LightGBM's
+   ``binary_classification`` example's bagging 0.8 every 5 iterations
+   with ``feature_fraction`` 0.8 for 10 iterations, GOSS 0.2 / 0.1 for
+   12, RF 0.7 every iteration with ``feature_fraction`` 0.8 for 3),
+   counted against ``expected_launches``, each holdout AUC above 0.5,
+   served through ``serve_traverse`` within 64 ulps a tree of the f64
+   host walk (RF's the average), one profiled iteration each; printed
+   as ``sampling routes {...}``;
+15. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times (``multiclass_launches`` on the multiclass main
-   path), then the device line last; ``phase NAME took S s`` after each
-   phase.
+   path, ``sampling_launches`` on the three sampling main paths), then
+   the device line last; ``phase NAME took S s`` after each phase.
 
 The forests and rows are generated from seeds: the card's machine has
 no JAX.
@@ -3394,6 +3409,9 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
     k = bst._inner.num_tree_per_iteration
     n = x.shape[0]
     train_score = bst._inner.scores.cpu().numpy().astype(np.float64)
+    if bst._inner.average_output:
+        # RF: the scores hold the sum of the trees' outputs
+        train_score /= bst._inner.iter_
     if (raw.shape != ((n,) if k == 1 else (n, k))
             or not np.all(np.isfinite(raw))):
         raise RuntimeError("predict on the trained booster gave non-finite "
@@ -3429,7 +3447,7 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
     return bst, rec
 
 
-def train_phases(gpu: str) -> list:
+def train_phases(gpu: str) -> tuple:
     """Slices 2 to 7: the training kernels against their plain versions
     at the main paths' shapes, training parity card vs CPU on seven
     routes, the training main path on the default route (1M x 28, 255
@@ -3444,7 +3462,8 @@ def train_phases(gpu: str) -> list:
     route but LGBM_TPU_POOL_TAIL=0 and slice 2's at pack=2, then the
     monotone phase (:func:`mono_phases`) on the same datasets.  Returns
     the seventeen training kernels' records and the tail's two
-    constrained instantiations'."""
+    constrained instantiations', and the main path's datasets and
+    holdout AUC for :func:`sampling_phases`."""
     import lightgbm_tpu_torch as lgt
 
     x_all, y_all = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS, N_FEATURES,
@@ -3624,7 +3643,9 @@ def train_phases(gpu: str) -> list:
     recs += mono_phases(gpu, ds, valid, ds_wide, valid_wide, x, y, xv, main,
                         tail_times)
     lap("training/monotone")
-    return recs
+    higgs = {"ds": ds, "valid": valid, "x": x, "xv": xv,
+             "auc": main["holdout_auc"]}
+    return recs, higgs
 
 
 # -- the static analyzer and its fixture kernels (slice 8) -------------------
@@ -5100,7 +5121,7 @@ MC_PARAMS = {"objective": "multiclass", "num_class": MC_CLASSES,
              "learning_rate": 0.1, "metric": ["multi_logloss", "multi_error"],
              "verbosity": -1}
 OVA_PARAMS = dict(MC_PARAMS, objective="multiclassova", num_class=3)
-MC_PARITY_ITERS = 2
+MC_PARITY_ITERS = 1
 MC_ROUTE = ("path=physical fused=1 tail=kernel (objective_not_streamable, "
             "multi_tree_iter)")
 OBJ_ROUTE = "path=physical fused=1 tail=kernel (objective_not_streamable)"
@@ -5108,7 +5129,7 @@ OBJ_ROUTE = "path=physical fused=1 tail=kernel (objective_not_streamable)"
 OBJ_PARITY = {"regression_l1": {}, "huber": {}, "fair": {}, "poisson": {},
               "quantile": {"alpha": 0.9}, "mape": {}, "gamma": {},
               "tweedie": {}, "cross_entropy": {}, "cross_entropy_lambda": {}}
-OBJ_PARITY_TREES = 2
+OBJ_PARITY_TREES = 1
 L1_ITERS = 3
 L1_PARAMS = {"objective": "regression_l1", "num_leaves": TRAIN_LEAVES,
              "max_bin": 255, "learning_rate": 0.1, "metric": "l1",
@@ -5196,10 +5217,10 @@ def card_booster(params: dict, x, y, iters: int, env: dict):
 
 def objective_parities(gpu: str) -> dict:
     """The card against device="cpu" at 50,000 x 28, 255 leaves, bitwise:
-    softmax (K = 5) and one-vs-all (K = 3) for 2 iterations, the softmax
+    softmax (K = 5) and one-vs-all (K = 3) for 1 iteration, the softmax
     at pack=2 bitwise the pack=1 card trees (its record kernels
-    counted), and 2 trees of each regression and cross-entropy
-    objective on a label it accepts."""
+    counted), and 1 tree of each regression and cross-entropy objective
+    on a label it accepts (one tree each: the script's time budget)."""
     x = make_rows(PARITY_ROWS, N_FEATURES, 3)
     out = {}
     for name, params in (("multiclass", MC_PARAMS),
@@ -5338,6 +5359,172 @@ def multiclass_phases(gpu: str) -> dict:
             "profile": prof}
 
 
+# ---------------------------------------------------------------------
+# Slice 20: bagging, GOSS and random-forest boosting
+BAG_PARAMS = dict(TRAIN_PARAMS, bagging_fraction=0.8, bagging_freq=5,
+                  feature_fraction=0.8)
+GOSS_PARAMS = dict(TRAIN_PARAMS, boosting="goss", top_rate=0.2,
+                   other_rate=0.1)
+RF_PARAMS = dict(TRAIN_PARAMS, boosting="rf", bagging_fraction=0.7,
+                 bagging_freq=1, feature_fraction=0.8)
+# (params, iterations, route) of each main path: the example's bagging,
+# GOSS sampling from its 11th iteration (1 / learning_rate of warm-up)
+SAMPLING_MAIN = {
+    "bagging": (BAG_PARAMS, 10,
+                "path=physical fused=1 tail=kernel (bagging_on)"),
+    "goss": (GOSS_PARAMS, 12,
+             "path=physical fused=1 tail=kernel (boosting_not_gbdt)"),
+    "rf": (RF_PARAMS, 3, "path=physical fused=1 tail=kernel "
+           "(boosting_not_gbdt, bagging_on)"),
+}
+# (params, trees) of each card-against-CPU run at PARITY_ROWS
+SAMPLING_PARITY = {
+    "bagging": (dict(TRAIN_PARAMS, bagging_fraction=0.8, bagging_freq=1), 2),
+    "pos_bagging": (dict(TRAIN_PARAMS, pos_bagging_fraction=0.5,
+                         bagging_freq=1), 2),
+    "goss": (dict(TRAIN_PARAMS, boosting="goss", learning_rate=0.5), 3),
+    "rf": (dict(TRAIN_PARAMS, boosting="rf", bagging_fraction=0.7,
+                bagging_freq=1), 2),
+}
+SAMPLE_REPS = 20
+
+
+def _event_ms(fn, reps: int = SAMPLE_REPS) -> float:
+    """Median device time of ``fn()`` over ``reps`` calls, each between
+    two CUDA events."""
+    import torch
+    fn()
+    out = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return float(np.median(out))
+
+
+def sampling_draws(gpu: str, bag, goss) -> dict:
+    """The card's draws against the same draws on the CPU, bitwise, at
+    the main path's rows: the bagging main path's mask at iterations 0
+    and 5 (``GBDT._bagging_mask`` run on a CPU stand-in of the booster)
+    and the GOSS main path's sample at its last iteration from its own
+    gradients (``GOSS._sample`` on CPU copies); each timed on the card."""
+    import torch
+
+    from lightgbm_tpu_torch.models.gbdt import GBDT
+    from lightgbm_tpu_torch.models.goss import GOSS
+    n = bag.train_set.num_data
+    cpu = torch.device("cpu")
+    twin = types.SimpleNamespace(config=bag.config, _cached_bag=None,
+                                 train_set=bag.train_set, device=cpu,
+                                 _label_pos=None)
+    out = {"rows": n}
+    for it in (0, 5):
+        card = bag._bagging_mask(it).cpu()
+        host = GBDT._bagging_mask(twin, it)
+        if not torch.equal(card, host):
+            raise RuntimeError(f"the card's bagging mask of iteration {it} "
+                               "differs from the CPU's")
+        out[f"bagging_it{it}_in_bag"] = int(card.sum())
+    out["bagging_draw_ms"] = _event_ms(lambda: bag._bagging_mask(0))
+    grad, hess = goss._gradients()
+    it = goss.iter_ - 1
+    card = GOSS._sample(goss, grad, hess, it)
+    stand_in = types.SimpleNamespace(config=goss.config,
+                                     _valid_rows=torch.ones(n))
+    host = GOSS._sample(stand_in, grad.cpu(), hess.cpu(), it)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(card, host)):
+        raise RuntimeError("the card's GOSS sample differs from the CPU's")
+    out["goss_in_bag"] = int(card[2].sum())
+    out["goss_sample_ms"] = _event_ms(
+        lambda: GOSS._sample(goss, grad, hess, it))
+    out["gpu"] = gpu
+    print("sampling draws " + json.dumps(out), flush=True)
+    return out
+
+
+def sampling_parities(gpu: str) -> dict:
+    """The card against device="cpu" at 50,000 x 28, 255 leaves,
+    bitwise, for each of ``SAMPLING_PARITY``, and the bagging run at
+    pack=2 bitwise the pack=1 card trees (its record kernels counted)."""
+    out = {}
+    for name, (params, trees) in SAMPLING_PARITY.items():
+        out[name] = train_parity(gpu, {}, trees, name, params=params,
+                                 bitwise=True)
+    x = make_rows(PARITY_ROWS, N_FEATURES, 3)
+    _, y = make_higgs_like(PARITY_ROWS, N_FEATURES, 3)
+    params, trees = SAMPLING_PARITY["bagging"]
+    p1, _ = card_booster(params, x, y, trees, {})
+    p2, launches = card_booster(params, x, y, trees, PACK2)
+    if p2._inner.grow.route.pack != 2:
+        raise RuntimeError("the pack=2 bagging run trained pack=1")
+    out["bagging_pack2"] = _same_trees(p1, p2, "bagging pack=2 route")
+    out["bagging_pack2"]["launches"] = {k: v for k, v in launches.items()
+                                        if v}
+    return out
+
+
+def sampling_phases(gpu: str, higgs: dict) -> dict:
+    """Slice 20: the card-against-CPU runs (:func:`sampling_parities`),
+    then bagging, GOSS and RF at full width on the training main path's
+    rows (``SAMPLING_MAIN``), each counted, its holdout AUC above 0.5
+    and printed beside the default route's, its in-bag rows a tree (the
+    root's count), served through serve_traverse within 64 ulps a tree
+    of the f64 host walk on 4,096 holdout rows (RF: the walk's average),
+    the draws held against the CPU's (:func:`sampling_draws`), and one
+    profiled iteration each."""
+    parity = sampling_parities(gpu)
+    lap("sampling/parity")
+    ds, valid, x, xv = higgs["ds"], higgs["valid"], higgs["x"], higgs["xv"]
+    xh = np.array(xv[:HOST_ROWS], np.float64)
+    bsts, runs = {}, {}
+    for mode, (params, iters, want) in SAMPLING_MAIN.items():
+        bst, run = train_main_path(gpu, ds, valid, x, {}, iters,
+                                   f"{mode} main path", params=params)
+        if run["route"] != want:
+            raise RuntimeError(f"the {mode} main path took {run['route']}")
+        served = bst.predict(xh, raw_score=True)
+        host = sum(t.leaf_value[t.predict_leaf(xh)] for t in bst._models)
+        if bst._inner.average_output:
+            host = host / len(bst._models)
+        tol = score_tolerance(host, len(bst._models))
+        if not np.all(np.abs(served - host) <= tol):
+            raise RuntimeError(f"the {mode} main path's served scores "
+                               "differ from the host walk")
+        run.update(in_bag_rows=[int(t.internal_count[0])
+                                for t in bst._models],
+                   host_walk_rows=HOST_ROWS,
+                   host_walk_max_abs_err=float(np.abs(served - host).max()),
+                   default_route_auc=higgs["auc"])
+        bsts[mode], runs[mode] = bst, run
+    lap("sampling/main paths")
+    draws = sampling_draws(gpu, bsts["bagging"]._inner, bsts["goss"]._inner)
+    profiles = {}
+    with route_env({}):
+        for mode, bst in bsts.items():
+            profiles[mode] = profile_iteration(bst, gpu)
+            print(f"profiled iteration, {mode} main path "
+                  + json.dumps(profiles[mode]), flush=True)
+    summary = {mode: {
+        "route": run["route"], "iterations": run["iterations"],
+        "s_per_iter_rest_mean": run["s_per_iter_rest_mean"],
+        "sample_ms_per_iter": run["stage_ms_per_tree"].get("sample"),
+        "holdout_auc": run["holdout_auc"],
+        "default_route_auc": run["default_route_auc"],
+        "in_bag_rows": run["in_bag_rows"], "splits": run["splits"],
+        "kernels_per_split": profiles[mode].get("kernels_per_split"),
+        "busy_share": profiles[mode].get("busy_share")}
+        for mode, run in runs.items()}
+    summary["draws"] = {k: v for k, v in draws.items() if k != "gpu"}
+    summary["gpu"] = gpu
+    print("sampling routes " + json.dumps(summary), flush=True)
+    return {"parity": parity, "main": runs, "draws": draws,
+            "profile": profiles}
+
+
 _CLOCK = [time.perf_counter()]
 
 
@@ -5374,7 +5561,8 @@ def main() -> int:
     lap("legacy probes")
     kernels = [serve_phases(gpu, build_s)] + fixtures
     lap("serving")
-    kernels += train_phases(gpu)
+    train_recs, higgs = train_phases(gpu)
+    kernels += train_recs
     lap("training")
     comb = next(k for k in kernels if k["name"] == "hist_comb")
     wide = wide_phases(gpu, comb["cases"])
@@ -5397,17 +5585,29 @@ def main() -> int:
     lap("categorical")
     objectives = multiclass_phases(gpu)
     lap("multiclass and objectives")
-    # the multiclass route's launches (its pack=2 parity run's beside)
+    sampling = sampling_phases(gpu, higgs)
+    lap("sampling")
+    # the launches of the multiclass and sampling routes, and of their
+    # pack=2 parity runs
     mc, mc2 = (objectives["multiclass"]["launches"],
                objectives["parity"]["multiclass_pack2"]["launches"])
+    bag2 = sampling["parity"]["bagging_pack2"]["launches"]
     for k in kernels:
+        if k.get("route") != "cuda":
+            continue
         key = {"hist_comb": "build_histogram_comb",
                "hist_comb_p2": "build_histogram_comb_p2",
                "apply_find": "apply_find_pool"}.get(k["name"], k["name"])
-        if key in mc and k.get("route") == "cuda" and mc[key]:
+        if mc.get(key):
             k["multiclass_launches"] = mc[key]
-        if key in mc2 and k.get("route") == "cuda":
+        if key in mc2:
             k["multiclass_pack2_parity_launches"] = mc2[key]
+        got = {mode: run["launches"][key] for mode, run in
+               sampling["main"].items() if run["launches"].get(key)}
+        if got:
+            k["sampling_launches"] = got
+        if key in bag2:
+            k["bagging_pack2_parity_launches"] = bag2[key]
     kernels += probes
     if not analysis["checked_in_report_current"]:
         raise RuntimeError(

@@ -1,10 +1,12 @@
 """lightgbm_tpu_torch: the PyTorch / CUDA port of lightgbm_tpu.
 
-The port trains binary and l2 GBDT models on one NVIDIA GPU and serves
-LightGBM model files there.  Training (``train``, ``Dataset``,
-``Booster``) grows trees on a physically partitioned row matrix with
-hand-written CUDA kernels for the histogram (``csrc/hist_comb.cu``) and
-the partition scan and copyback (``csrc/partition.cu``); serving scores
+The port trains GBDT, GOSS and random-forest models (bagged or not) for
+the binary, multiclass, regression and cross-entropy objectives on one
+NVIDIA GPU and serves LightGBM model files there.  Training (``train``,
+``Dataset``, ``Booster``) grows trees on a physically partitioned row
+matrix with hand-written CUDA kernels for the histogram
+(``csrc/hist_comb.cu``) and the partition scan and copyback
+(``csrc/partition.cu``); serving scores
 rows through a CUDA forest traversal kernel
 (``csrc/serve_traverse.cu``).  The kernels are built with ``nvcc`` at
 first use.  Entry points run on ``cuda`` unless the caller passes

@@ -10,9 +10,11 @@ is read here is the Python around them.
   or calls a library loader (``_lib()``, ``_rows_lib()``,
   ``_build.load``).  Plain versions (``*_ref``) run only on the CPU and
   are exempt.
-- The **training loop's path** is every function of ``ops/grow.py`` and
-  ``models/gbdt.py`` but ``__init__`` and the plain versions: each runs
-  once an iteration or more often (per tree, per split).
+- The **training loop's path** is every function of ``ops/grow.py``,
+  the boosters (``models/gbdt.py``, ``goss.py``, ``rf.py``) and the
+  per-row draws (``utils/random.py``) but ``__init__`` and the plain
+  versions: each runs once an iteration or more often (per tree, per
+  split).
 
 :func:`host_pulls` finds the calls that wait for the device and copy to
 the host: ``.item()``, ``.tolist()``, ``.cpu()``, ``.numpy()``,
@@ -135,8 +137,9 @@ class PyModule:
 def default_python_modules() -> List[PyModule]:
     ops = sorted((PACKAGE / "ops").glob("*.py"))
     return ([PyModule(p, "wrappers") for p in ops]
-            + [PyModule(PACKAGE / "ops" / "grow.py", "loop"),
-               PyModule(PACKAGE / "models" / "gbdt.py", "loop")])
+            + [PyModule(PACKAGE / rel, "loop") for rel in (
+                "ops/grow.py", "models/gbdt.py", "models/goss.py",
+                "models/rf.py", "utils/random.py")])
 
 
 # ---------------------------------------------------------------------

@@ -12,8 +12,9 @@ waits for the card to drain and copies to the host.  Read by ``ast``
   ``ops/*.py`` (a function that launches a kernel; plain ``*_ref``
   versions, which run only on the CPU, are exempt);
 - ``HOST_PULL_IN_LOOP``: a pull on the training loop's path, every
-  function of ``ops/grow.py`` and ``models/gbdt.py`` but ``__init__``
-  (per iteration, per tree or per split).
+  function of ``ops/grow.py``, the boosters (``models/gbdt.py``,
+  ``goss.py``, ``rf.py``) and ``utils/random.py`` but ``__init__`` (per
+  iteration, per tree or per split).
 
 A pull the design needs today stays as an allowlist entry whose
 justification names the roadmap item that removes it.

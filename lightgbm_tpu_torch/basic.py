@@ -20,7 +20,7 @@ import numpy as np
 from .config import Config
 from .io.dataset_core import BinnedDataset
 from .metric import create_metrics
-from .models.gbdt import GBDT
+from .models import GBDT, create_boosting
 from .models.model_text import (load_model_from_string, loaded_param_string,
                                 save_model_to_string)
 from .objective import create_objective
@@ -146,8 +146,8 @@ class Booster:
             binned = train_set._binned
             if objective is not None:
                 objective.init(binned.metadata, binned.num_data, self.device)
-            self._inner = GBDT(cfg, binned, objective, metrics,
-                               device=self.device, timer=timer)
+            self._inner = create_boosting(cfg, binned, objective, metrics,
+                                          device=self.device, timer=timer)
             self.config = cfg
             return
         if model_file is not None:

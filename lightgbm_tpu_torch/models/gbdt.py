@@ -19,6 +19,15 @@ take the tree's shrunk leaf outputs on the device, for ``eval`` and
 ``Tree`` (one read per tree); the boost-from-average init score is
 folded into the first tree, so saved models are self-contained.
 
+Each iteration's gradients go through the sampling hook
+(:meth:`GBDT._sample`, JAX ``gbdt.py:1358``): bagging draws an in-bag
+mask from the JAX package's threefry stream (``utils/random.uniform``),
+GOSS (``models/goss.py``) keeps the large gradients and a sample of the
+rest, RF (``models/rf.py``) bags trees grown from constant gradients.
+The mask weights each row's gradient, hessian and count in the
+histograms; out-of-bag rows still move through every partition and take
+the tree's output in the scores.
+
 A multiclass objective grows K trees an iteration (models at
 ``iter * K + k``), the scores class-major ``[K, n]``: class by class,
 each through the same grower, whose row matrix carries from class to
@@ -59,13 +68,27 @@ from ..ops.routing import decide, inputs_from_env, resolve_layout
 from ..ops.split import SplitHyperParams
 from ..utils import log
 from ..utils.log import LightGBMError
+from ..utils.random import make_rng, prng_key, uniform
 from .tree import Tree
 
 
-def _unported(what: str) -> None:
+def _unported(what: str, where: str = "A8/A9") -> None:
     raise LightGBMError(
         f"{what} is not ported to lightgbm_tpu_torch yet (see ROADMAP.md, "
-        "A8/A9); the JAX package lightgbm_tpu trains it")
+        f"{where}); the JAX package lightgbm_tpu trains it")
+
+
+def bagging_on(cfg: Config) -> bool:
+    """Whether bagging draws an in-bag mask (JAX ``gbdt.py:590-593``)."""
+    return cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0
+                                     or cfg.pos_bagging_fraction < 1.0
+                                     or cfg.neg_bagging_fraction < 1.0)
+
+
+def sample_key(cfg: Config, it: int):
+    """The threefry key of iteration ``it``'s bagging or GOSS draw (JAX
+    ``gbdt.py:896``, ``goss.py:47``)."""
+    return prng_key((cfg.bagging_seed * 2654435761 + it) & 0x7FFFFFFF)
 
 
 def check_pack_conflicts(cfg: Config) -> None:
@@ -92,12 +115,6 @@ def check_supported(cfg: Config) -> None:
     """Raise for the pack conflicts and for every parameter this slice
     does not port."""
     check_pack_conflicts(cfg)
-    if cfg.boosting.strip().lower() not in ("gbdt", "gbrt"):
-        _unported(f"boosting={cfg.boosting} (GOSS, DART and RF)")
-    if cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0
-                                 or cfg.pos_bagging_fraction < 1.0
-                                 or cfg.neg_bagging_fraction < 1.0):
-        _unported("bagging")
     if cfg.tree_learner != "serial" or cfg.num_machines > 1:
         _unported(f"tree_learner={cfg.tree_learner} (the mesh learners)")
     if cfg.pre_partition:
@@ -181,9 +198,9 @@ class GBDT:
             else max(config.num_class, 1))
         self.valid_sets: List[_ValidSet] = []
         self._train_metrics = list(metrics)
-        self._rng_feature = np.random.Generator(
-            np.random.PCG64(config.feature_fraction_seed & 0xFFFFFFFF))
+        self._rng_feature = make_rng(config.feature_fraction_seed)
         self._fmask_const = None
+        self._cached_bag: Optional[torch.Tensor] = None
         self.timer = timer or StageTimer()
         cfg = config
         subset = uses_cat_subset(cfg, train_set)
@@ -211,9 +228,9 @@ class GBDT:
         self.route = decide(resolve_layout(inputs_from_env(
             objective_kind=kind or ("none" if objective is None
                                     else "other"),
-            boosting=cfg.boosting.strip().lower().replace("gbrt", "gbdt"),
+            boosting=self.NAME,
             multi_tree=self.num_tree_per_iteration > 1,
-            bagging=cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0,
+            bagging=bagging_on(cfg),
             linear_tree=bool(cfg.linear_tree),
             learner=cfg.tree_learner,
             bins_u8=dd.bins.dtype == torch.uint8, cat_subset=subset,
@@ -245,7 +262,10 @@ class GBDT:
         # reference class_need_train_: cleared for a class whose
         # first-round tree is a stump
         self._class_need_train = [True] * self.num_tree_per_iteration
-        self._inbag = torch.ones(n, dtype=torch.float32, device=device)
+        self._valid_rows = torch.ones(n, dtype=torch.float32, device=device)
+        # the bagging draw's positive rows, where pos/neg fractions apply
+        self._label_pos = (None if md.label is None
+                           else torch.as_tensor(md.label > 0, device=device))
         for m in self._train_metrics:
             m.init(md, n)
         pack_note = (f"; LGBM_TPU_COMB_PACK=2 trains pack=1 "
@@ -266,7 +286,7 @@ class GBDT:
         """The stream route's per-row inputs: the current scores (boost
         from average included), the validity mask and the objective's
         constants.  Read when the grower builds its row matrix."""
-        return (self.train_score, self._inbag,
+        return (self.train_score, self._valid_rows,
                 self.objective.stream_consts())
 
     # ------------------------------------------------------------------
@@ -331,6 +351,60 @@ class GBDT:
         return torch.as_tensor(mask, device=self.device)
 
     # ------------------------------------------------------------------
+    def get_training_score(self) -> torch.Tensor:
+        """[K, n] scores the gradients and the leaf refit are taken at
+        (RF: the constant init scores)."""
+        return self.scores
+
+    def _bagging_mask(self, it: int) -> Optional[torch.Tensor]:
+        """The in-bag mask of iteration ``it`` (f32 [n] of 0 / 1), None
+        without bagging (JAX ``gbdt.py:886-905``, reference
+        gbdt.cpp:230-330): a row is in the bag when its uniform draw is
+        below the fraction (its class's fraction under pos/neg bagging),
+        drawn anew every ``bagging_freq`` iterations."""
+        cfg = self.config
+        if not bagging_on(cfg):
+            return None
+        if it % cfg.bagging_freq != 0 and self._cached_bag is not None:
+            return self._cached_bag
+        f32 = torch.float32
+        u = uniform(sample_key(cfg, it), self.train_set.num_data,
+                    self.device)
+        if cfg.pos_bagging_fraction != 1.0 or cfg.neg_bagging_fraction != 1.0:
+            p = torch.where(
+                self._label_pos,
+                torch.tensor(cfg.pos_bagging_fraction, dtype=f32,
+                             device=self.device),
+                torch.tensor(cfg.neg_bagging_fraction, dtype=f32,
+                             device=self.device))
+        else:
+            p = torch.tensor(cfg.bagging_fraction, dtype=f32,
+                             device=self.device)
+        self._cached_bag = (u < p).to(f32)
+        return self._cached_bag
+
+    def _sample(self, grad: torch.Tensor, hess: torch.Tensor, it: int):
+        """The sampling hook, once an iteration after the gradients:
+        ``(grad, hess, inbag)`` for every class's tree (GOSS overrides
+        it)."""
+        inbag = self._bagging_mask(it)
+        return grad, hess, self._valid_rows if inbag is None else inbag
+
+    def _gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[K, n] gradients and hessians at the training scores."""
+        k = self.num_tree_per_iteration
+        grad, hess = self.objective.get_gradients(
+            _class_view(self.get_training_score()))
+        return grad.reshape(k, -1), hess.reshape(k, -1)
+
+    def _sampled_gradients(self):
+        """The iteration's gradients through the sampling hook:
+        ``(grad, hess, inbag)``."""
+        with self.timer.stage("gradients", self.device):
+            grad, hess = self._gradients()
+        with self.timer.stage("sample", self.device):
+            return self._sample(grad, hess, self.iter_)
+
     def train_one_iter(self) -> bool:
         """One boosting iteration, one tree a class; True when training
         cannot continue (no class's tree could split), like
@@ -354,19 +428,18 @@ class GBDT:
                          np.array2string(init_scores, precision=6))
         if self.route.stream:
             # the gradients live in the row matrix and were refreshed
-            # there at the previous tree's end
+            # there at the previous tree's end; the route takes no sample
             grad = hess = [None] * k
+            inbag = self._valid_rows
         else:
-            with self.timer.stage("gradients", dev):
-                grad, hess = self.objective.get_gradients(self.train_score)
-                grad, hess = grad.reshape(k, -1), hess.reshape(k, -1)
+            grad, hess, inbag = self._sampled_gradients()
         grew = False
         for c in range(k):
             if not self._class_need_train[c]:
                 # keeps models[iter * K + class] aligned
                 self.models.append(Tree.single_leaf(0.0))
                 continue
-            if self._train_one_tree(grad[c], hess[c], c,
+            if self._train_one_tree(grad[c], hess[c], inbag, c,
                                     float(init_scores[c])) is not None:
                 grew = True
         self.iter_ += 1
@@ -376,14 +449,14 @@ class GBDT:
             return True
         return False
 
-    def _train_one_tree(self, grad, hess, c: int, init_score: float
+    def _train_one_tree(self, grad, hess, inbag, c: int, init_score: float
                         ) -> Optional[Tree]:
         """Grow class ``c``'s tree, refit its leaves where the objective
         asks, add its shrunk outputs to the scores and finish it; None
         when it is a stump."""
         # the shrinkage rate is read per call: the stream route adds the
         # tree's outputs to the rows' scores with it
-        ta, leaf_id, leaf_value = self.grow(grad, hess, self._inbag,
+        ta, leaf_id, leaf_value = self.grow(grad, hess, inbag,
                                             self._feature_mask(),
                                             rate=self.shrinkage_rate)
         nl = int(ta.num_leaves)
@@ -394,8 +467,8 @@ class GBDT:
             return None
         if self.objective.NEEDS_RENEW:
             with self.timer.stage("leaf_renew", self.device):
-                leaf_value, host_values = self._renew_leaves(leaf_id,
-                                                             leaf_value, c)
+                leaf_value, host_values = self._renew_leaves(
+                    leaf_id, leaf_value, inbag, c)
             ta = ta._replace(leaf_value=host_values)
         rate = self.shrinkage_rate
         with self.timer.stage("score_update", self.device):
@@ -414,17 +487,18 @@ class GBDT:
         return tree
 
     def _renew_leaves(self, leaf_id: torch.Tensor, leaf_value: torch.Tensor,
-                      c: int) -> Tuple[torch.Tensor, np.ndarray]:
+                      inbag: torch.Tensor, c: int
+                      ) -> Tuple[torch.Tensor, np.ndarray]:
         """Class ``c``'s leaf outputs refit to the objective's percentile
-        of the residuals of the current (pre-tree) scores (JAX
-        ``_renew_leaf_values``): on the device, and their host copy for
-        the finished tree."""
+        of the in-bag rows' residuals at the current (pre-tree) training
+        scores (JAX ``_renew_leaf_values``): on the device, and their
+        host copy for the finished tree."""
         obj = self.objective
         w = obj.renew_weight()
         out = renew_leaf_values(
-            obj.leaf_residual(self.scores[c]),
-            torch.ones_like(self._inbag) if w is None else w, leaf_id,
-            self._inbag > 0, leaf_value, L=int(leaf_value.shape[0]),
+            obj.leaf_residual(self.get_training_score()[c]),
+            torch.ones_like(inbag) if w is None else w, leaf_id,
+            inbag > 0, leaf_value, L=int(leaf_value.shape[0]),
             alpha=float(obj.renew_leaf_percentile()),
             weighted=w is not None)
         return out, out.cpu().numpy()
@@ -439,6 +513,9 @@ class GBDT:
             if not metrics:
                 return
             raw = _class_view(score.detach())
+            if self.average_output:
+                # RF: the scores hold the sum of the trees' outputs
+                raw = raw / max(self.iter_, 1)
             conv = (self.objective.convert_output(raw)
                     if self.objective is not None else raw)
             prob = conv.double().cpu().numpy()

@@ -50,6 +50,9 @@ split, both packs, bitwise their plain versions on adversarial words at
 28, 36 and 136 features, on staged and unstaged scan tiles, eager and
 replayed in a graph, more than 8 words refused, and sorted-subset
 training on the card bit-identical to the CPU run on four routes.
+The threefry draws (slice 20) give the CPU's bits on the card, GOSS's
+sample at 1M rows too, and bagged, GOSS and RF training grows the CPU
+run's trees on four routes.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
 row-order and 3ph routes), and the default route's equal slice 2's
@@ -1941,3 +1944,79 @@ def test_renew_leaf_values_on_card(cuda):
             want = renew_leaf_values(*args, L=L, alpha=alpha,
                                      weighted=weighted)
             assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [1, 4097, 1_000_000])
+def test_threefry_uniform_on_card(cuda, n):
+    """The threefry draws (integer operations on int64) give the CPU's
+    bits on the card."""
+    from lightgbm_tpu_torch.utils.random import prng_key, uniform
+    for seed in (0, 1520856339):
+        assert torch.equal(uniform(prng_key(seed), n, cuda).cpu(),
+                           uniform(prng_key(seed), n, "cpu"))
+
+
+def test_goss_sample_on_card(cuda):
+    """GOSS's sample at 1M rows and K = 3 (sort, threshold, draw,
+    amplification) on the card equals its CPU run bit for bit."""
+    import types
+
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.models.goss import GOSS
+    n = 1_000_000
+    rng = np.random.default_rng(8)
+    g = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32))
+    h = torch.from_numpy(rng.uniform(0.05, 0.3, (3, n)).astype(np.float32))
+    g[:, ::5] = g[:, :1]
+    cfg = Config.from_params({"boosting": "goss", "learning_rate": 0.5})
+    outs = [GOSS._sample(types.SimpleNamespace(
+        config=cfg, _valid_rows=torch.ones(n, device=d)),
+        g.to(d), h.to(d), 2) for d in (cuda, torch.device("cpu"))]
+    for a, b in zip(*outs):
+        assert torch.equal(a.cpu(), b)
+
+
+SLICE20 = {
+    "bagging": {"bagging_fraction": 0.8, "bagging_freq": 2},
+    "pos_neg_bagging": {"pos_bagging_fraction": 0.5,
+                        "neg_bagging_fraction": 0.8, "bagging_freq": 1},
+    "goss": {"boosting": "goss", "learning_rate": 0.5},
+    "rf": {"boosting": "rf", "bagging_fraction": 0.7, "bagging_freq": 1},
+}
+
+
+@pytest.mark.parametrize("env", [{}, {"LGBM_TPU_COMB_PACK": "2"},
+                                  {"LGBM_TPU_FUSED": "0"},
+                                  {"LGBM_TPU_PHYS": "0"}])
+@pytest.mark.parametrize("name", list(SLICE20))
+def test_sampling_training_on_card_matches_cpu(cuda, name, env,
+                                               monkeypatch):
+    """Bagging, GOSS and RF grow the CPU run's trees bit for bit on the
+    card on the kernel-tail physical routes and the row-order route, the
+    training kernels launching as ``expected_launches`` counts."""
+    from chip_smoke import counted_training_kernels
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    x = make_rows(6000, 12, 10)
+    _, y = make_higgs_like(6000, 12, 10)
+    params = dict({"objective": "binary", "num_leaves": 31,
+                   "verbosity": -1}, **SLICE20[name])
+    counted = counted_training_kernels()
+    before = {fn.__name__: fn.launches for fn in counted}
+    bsts = [lgt.train(params, lgt.Dataset(x, label=y), num_boost_round=3,
+                      device=d) for d in ("cuda", "cpu")]
+    launched = {fn.__name__: fn.launches - before[fn.__name__]
+                for fn in counted}
+    bt = bsts[0]
+    assert len(bt._models) == 3
+    assert all(t.num_leaves > 1 for t in bt._models)
+    route = bt._inner.grow.route
+    assert not route.stream and route.tail == "kernel"
+    splits = sum(t.num_leaves - 1 for t in bt._models)
+    for kname, want in expected_launches(route, len(bt._models),
+                                         splits).items():
+        assert launched[kname] == want, kname
+    res = compare_trees(bsts[0]._models, bsts[1]._models)
+    assert res["ok"], res
+    assert leaves_bitwise(bsts[0]._models, bsts[1]._models)
+    assert torch.equal(bt._inner.scores.cpu(), bsts[1]._inner.scores)

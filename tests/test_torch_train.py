@@ -278,8 +278,7 @@ def test_gradients_match_jax(objective):
 
 
 @pytest.mark.parametrize("params", [
-    {"bagging_fraction": 0.5, "bagging_freq": 1},
-    {"boosting": "goss"}, {"boosting": "dart"},
+    {"boosting": "dart"},
     {"objective": "rank_xendcg"},
     {"objective": "lambdarank"},
     {"interaction_constraints": "[[0, 1]]"},
