@@ -1484,16 +1484,17 @@ def route_env(env: dict):
 
 def train_parity(gpu: str, env: dict, trees: int, label: str,
                  params: dict = TRAIN_PARAMS, bitwise: bool = False,
-                 n_features: int = N_FEATURES, y=None) -> dict:
-    """50,000 rows x ``n_features`` (28; NaN and zero missing values),
-    255 leaves, ``trees`` iterations on the route ``env`` selects,
-    trained on the card and with device="cpu"; whether the leaf values
-    are bitwise equal too (a gate when ``bitwise``).  ``y`` replaces the
-    binary label."""
+                 n_features: int = N_FEATURES, y=None,
+                 rows: int = PARITY_ROWS) -> dict:
+    """``rows`` (50,000) rows x ``n_features`` (28; NaN and zero missing
+    values), 255 leaves, ``trees`` iterations on the route ``env``
+    selects, trained on the card and with device="cpu"; whether the leaf
+    values are bitwise equal too (a gate when ``bitwise``).  ``y``
+    replaces the binary label."""
     import lightgbm_tpu_torch as lgt
-    x = make_rows(PARITY_ROWS, n_features, 3)
+    x = make_rows(rows, n_features, 3)
     if y is None:
-        _, y = make_higgs_like(PARITY_ROWS, n_features, 3)
+        _, y = make_higgs_like(rows, n_features, 3)
     traces = []
 
     def _train(device):
@@ -1515,7 +1516,7 @@ def train_parity(gpu: str, env: dict, trees: int, label: str,
         i = diff[0]
         rec["first_split_diff"] = {"split": i, "cuda": traces[0][i],
                                    "cpu": traces[1][i]}
-    rec.update(case=f"{label}: {PARITY_ROWS}x{n_features}, {TRAIN_LEAVES} "
+    rec.update(case=f"{label}: {rows}x{n_features}, {TRAIN_LEAVES} "
                f"leaves, {trees} trees", cuda_s=t1 - t0, cpu_s=t2 - t1,
                route=bst_c._inner.grow.route.describe(),
                leaves_bitwise=leaves_bitwise(bst_c._models, bst_p._models),
@@ -3364,12 +3365,13 @@ def binary_holdout(bst) -> dict:
 
 def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
                     label: str, params: dict = TRAIN_PARAMS,
-                    n_features: int = N_FEATURES, holdout=binary_holdout):
+                    n_features: int = N_FEATURES, holdout=binary_holdout,
+                    callbacks=()):
     """The training main path on the route ``env`` selects, counted and
     timed by stage, its booster served through serve_traverse (the
     served raw scores of every class against the training scores), its
-    holdout metrics gated by ``holdout(booster) -> dict``.  Returns
-    (booster, record)."""
+    holdout metrics gated by ``holdout(booster) -> dict``; ``callbacks``
+    run after each iteration too.  Returns (booster, record)."""
     import torch
 
     import lightgbm_tpu_torch as lgt
@@ -3389,7 +3391,7 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
             fn.launches = 0
         t_start = time.perf_counter()
         bst = lgt.train(params, ds, num_boost_round=iters,
-                        valid_sets=[valid], callbacks=[_tick],
+                        valid_sets=[valid], callbacks=[_tick, *callbacks],
                         device="cuda", timer=timer)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t_start
@@ -3867,6 +3869,7 @@ def analysis_phase(gpu: str) -> dict:
 WIDE_FEATURES = 136           # MSLR-WEB30K's width: hist_comb in chunks
 WIDE_ITERS = 3
 WIDE_PARITY_TREES = 1
+WIDE_PARITY_ROWS = 20_000     # the script's time budget
 WIDE_ROUTE = "path=stream fused=0 tail=kernel (fused_smem)"
 PROBE_ROWS = 1 << 20          # tools/profile_step_cost.py PN = 20
 PROBE_REPS = 20               # T11 iterations of 254 timed per mode
@@ -4251,7 +4254,7 @@ def hist_comb_wide_case(gpu: str) -> dict:
 def wide_phases(gpu: str, comb_cases: list) -> dict:
     """Slice 9's repair: datasets above 19 features at B = 256 build their
     histograms in feature chunks, so 136 features fit.  ``hist_comb`` at 1M x 136 bitwise its
-    plain version and timed; training parity at 50,000 x 136, card
+    plain version and timed; training parity at 20,000 x 136, card
     against device="cpu", 1 tree, bit-identical; the main path,
     ``make_higgs_like(1M, 136)``, 255 leaves, 3 iterations on the route
     the rules give (unfused stream, the cluster kernel tail), counted
@@ -4259,13 +4262,15 @@ def wide_phases(gpu: str, comb_cases: list) -> dict:
     one tree, and one profiled iteration; slice 14's ``comb_cases`` of
     hist_comb in both packs at 136 features (``hist_comb_times``).
     Returns {"hist": ..., "parity": ..., "main": ..., "tail": ...,
-    "times": ...}."""
+    "times": ..., "mono": ..., "data": the binned 1M x 136 rows and
+    their holdout}."""
     import lightgbm_tpu_torch as lgt
     hist = hist_comb_wide_case(gpu)
     times = hist_comb_times(gpu, WIDE_FEATURES, comb_cases)
     lap("wide/hist_comb")
     parity = train_parity(gpu, {}, WIDE_PARITY_TREES, "wide dataset",
-                          bitwise=True, n_features=WIDE_FEATURES)
+                          bitwise=True, n_features=WIDE_FEATURES,
+                          rows=WIDE_PARITY_ROWS)
     lap("wide/parity")
     x_all, y_all, w = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS,
                                       WIDE_FEATURES, seed=0,
@@ -4291,7 +4296,9 @@ def wide_phases(gpu: str, comb_cases: list) -> dict:
               + json.dumps(profile_iteration(bst, gpu)), flush=True)
     mono = mono_wide_phase(gpu, ds, valid, x, x_all[TRAIN_ROWS:], bst, w)
     return {"hist": hist, "parity": parity, "main": main, "tail": tail,
-            "times": times, "mono": mono}
+            "times": times, "mono": mono,
+            "data": {"ds": ds, "valid": valid, "x": x,
+                     "xv": x_all[TRAIN_ROWS:]}}
 
 
 # ---------------------------------------------------------------------
@@ -5130,6 +5137,9 @@ OBJ_PARITY = {"regression_l1": {}, "huber": {}, "fair": {}, "poisson": {},
               "quantile": {"alpha": 0.9}, "mape": {}, "gamma": {},
               "tweedie": {}, "cross_entropy": {}, "cross_entropy_lambda": {}}
 OBJ_PARITY_TREES = 1
+# rows of the objectives' and the sampling modes' card-against-CPU runs
+# (fewer than PARITY_ROWS: the script's time budget)
+OBJ_PARITY_ROWS = 10_000
 L1_ITERS = 3
 L1_PARAMS = {"objective": "regression_l1", "num_leaves": TRAIN_LEAVES,
              "max_bin": 255, "learning_rate": 0.1, "metric": "l1",
@@ -5216,17 +5226,19 @@ def card_booster(params: dict, x, y, iters: int, env: dict):
 
 
 def objective_parities(gpu: str) -> dict:
-    """The card against device="cpu" at 50,000 x 28, 255 leaves, bitwise:
+    """The card against device="cpu" at 10,000 x 28, 255 leaves, bitwise:
     softmax (K = 5) and one-vs-all (K = 3) for 1 iteration, the softmax
     at pack=2 bitwise the pack=1 card trees (its record kernels
     counted), and 1 tree of each regression and cross-entropy objective
-    on a label it accepts (one tree each: the script's time budget)."""
-    x = make_rows(PARITY_ROWS, N_FEATURES, 3)
+    on a label it accepts (one tree and 10,000 rows each: the script's
+    time budget)."""
+    x = make_rows(OBJ_PARITY_ROWS, N_FEATURES, 3)
     out = {}
     for name, params in (("multiclass", MC_PARAMS),
                          ("multiclassova", OVA_PARAMS)):
         rec = train_parity(gpu, {}, MC_PARITY_ITERS, name, params=params,
-                           bitwise=True, y=objective_label(name, x, 5))
+                           bitwise=True, y=objective_label(name, x, 5),
+                           rows=OBJ_PARITY_ROWS)
         if rec["route"] != MC_ROUTE:
             raise RuntimeError(f"{name} trained on {rec['route']}")
         out[name] = rec
@@ -5241,7 +5253,8 @@ def objective_parities(gpu: str) -> dict:
     for name, extra in OBJ_PARITY.items():
         params = dict(TRAIN_PARAMS, objective=name, metric="None", **extra)
         rec = train_parity(gpu, {}, OBJ_PARITY_TREES, name, params=params,
-                           bitwise=True, y=objective_label(name, x, 7))
+                           bitwise=True, y=objective_label(name, x, 7),
+                           rows=OBJ_PARITY_ROWS)
         if rec["route"] != OBJ_ROUTE:
             raise RuntimeError(f"{name} trained on {rec['route']}")
         out[name] = rec
@@ -5377,7 +5390,7 @@ SAMPLING_MAIN = {
     "rf": (RF_PARAMS, 3, "path=physical fused=1 tail=kernel "
            "(boosting_not_gbdt, bagging_on)"),
 }
-# (params, trees) of each card-against-CPU run at PARITY_ROWS
+# (params, trees) of each card-against-CPU run at OBJ_PARITY_ROWS
 SAMPLING_PARITY = {
     "bagging": (dict(TRAIN_PARAMS, bagging_fraction=0.8, bagging_freq=1), 2),
     "pos_bagging": (dict(TRAIN_PARAMS, pos_bagging_fraction=0.5,
@@ -5447,15 +5460,15 @@ def sampling_draws(gpu: str, bag, goss) -> dict:
 
 
 def sampling_parities(gpu: str) -> dict:
-    """The card against device="cpu" at 50,000 x 28, 255 leaves,
+    """The card against device="cpu" at 10,000 x 28, 255 leaves,
     bitwise, for each of ``SAMPLING_PARITY``, and the bagging run at
     pack=2 bitwise the pack=1 card trees (its record kernels counted)."""
     out = {}
     for name, (params, trees) in SAMPLING_PARITY.items():
         out[name] = train_parity(gpu, {}, trees, name, params=params,
-                                 bitwise=True)
-    x = make_rows(PARITY_ROWS, N_FEATURES, 3)
-    _, y = make_higgs_like(PARITY_ROWS, N_FEATURES, 3)
+                                 bitwise=True, rows=OBJ_PARITY_ROWS)
+    x = make_rows(OBJ_PARITY_ROWS, N_FEATURES, 3)
+    _, y = make_higgs_like(OBJ_PARITY_ROWS, N_FEATURES, 3)
     params, trees = SAMPLING_PARITY["bagging"]
     p1, _ = card_booster(params, x, y, trees, {})
     p2, launches = card_booster(params, x, y, trees, PACK2)
@@ -5525,6 +5538,311 @@ def sampling_phases(gpu: str, higgs: dict) -> dict:
             "profile": profiles}
 
 
+# ---------------------------------------------------------------------
+# Slice 21: learning to rank with DART (BASELINE.json's fourth
+# configuration, examples/lambdarank's train.conf at MSLR-WEB30K's width)
+RANK_PARAMS = {"objective": "lambdarank", "boosting": "dart",
+               "metric": "ndcg", "eval_at": [1, 3, 5],
+               "min_data_in_leaf": 50, "min_sum_hessian_in_leaf": 5.0,
+               "learning_rate": 0.1, "max_bin": 255,
+               "num_leaves": TRAIN_LEAVES, "verbosity": -1,
+               # DART's defaults (drop_rate 0.1, skip_drop 0.5) drop no
+               # tree in 10 iterations from the default drop_seed 4 (the
+               # first drop is at iteration 12); seed 11 drops [0],
+               # [0, 1] and [6] at iterations 2, 3 and 7
+               "drop_seed": 11}
+RANK_ITERS = 10
+RANK_DROPS = [[], [], [0], [0, 1], [], [], [], [6], [], []]
+RANK_ROUTE = ("path=physical fused=0 tail=kernel (objective_not_streamable, "
+              "boosting_not_gbdt, fused_smem)")
+RANK_TWIN_ROUTE = ("path=physical fused=0 tail=kernel "
+                   "(objective_not_streamable, fused_smem)")
+RANK_PARITY_ROWS = 20_000
+# (params, iterations) of each card-against-CPU run at RANK_PARITY_ROWS x
+# 28: lambdarank DART dropping from its third iteration ([], [], [1], [0]
+# from drop_seed 4), rank_xendcg GBDT
+RANK_PARITY = {
+    "lambdarank_dart": (dict(RANK_PARAMS, drop_rate=0.5, skip_drop=0.0,
+                             drop_seed=4), 4),
+    "rank_xendcg": (dict(RANK_PARAMS, objective="rank_xendcg",
+                         boosting="gbdt"), 2),
+}
+
+
+def rank_labels(x: np.ndarray, seed: int) -> np.ndarray:
+    """Relevance grades 0-4 from a seeded, noisy function of the rows'
+    first 16 features (NaN read as 0): half the documents 0, 30 % 1,
+    13 % 2, 5 % 3 and 2 % 4, about MSLR-WEB30K's mix."""
+    rng = np.random.default_rng(seed)
+    xz = np.nan_to_num(x[:, :16]).astype(np.float64)
+    t = (xz @ rng.normal(size=xz.shape[1]) * 0.4
+         + 0.6 * xz[:, 0] * xz[:, 1] - 0.4 * np.abs(xz[:, 2])
+         + rng.normal(size=len(x)))
+    return np.digitize(t, np.quantile(t, [0.5, 0.8, 0.93, 0.98])).astype(
+        np.float32)
+
+
+def rank_groups(n: int, seed: int, lo: int = 20, hi: int = 236
+                ) -> np.ndarray:
+    """Seeded query sizes of ``lo``-``hi`` documents (mean 128, near
+    MSLR-WEB30K's ~120) over ``n`` rows in order; the last query takes
+    the rest (into the one before it when under ``lo``: at most 255)."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(lo, hi + 1, size=n // lo + 1)
+    ends = np.cumsum(sizes)
+    q = int(np.searchsorted(ends, n))
+    sizes = sizes[:q + 1].copy()
+    sizes[-1] = n - (int(ends[q - 1]) if q else 0)
+    if sizes[-1] < lo and len(sizes) > 1:
+        sizes[-2] += sizes[-1]
+        sizes = sizes[:-1]
+    return sizes
+
+
+def regroup(ds, y: np.ndarray, group: np.ndarray):
+    """The constructed Dataset ``ds``'s bins under another label and query
+    groups (no binning again)."""
+    import copy
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.io.dataset_core import Metadata
+    binned = copy.copy(ds._binned)
+    binned.metadata = Metadata()
+    binned.metadata.num_data = binned.num_data
+    binned.metadata.set_label(y)
+    binned.metadata.set_group(group)
+    binned.metadata.check(binned.num_data)
+    return lgt.Dataset.from_binned(binned)
+
+
+def ranking_holdout(yv: np.ndarray, gv: np.ndarray):
+    """The ranking main paths' holdout gate: each ``ndcg@k`` above the
+    documents' own order's (a random order: the rows are drawn
+    independently)."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset_core import Metadata
+    from lightgbm_tpu_torch.metric import create_metrics
+    md = Metadata()
+    md.num_data = len(yv)
+    md.set_label(yv)
+    md.set_group(gv)
+    (metric,) = create_metrics(Config.from_params(
+        {"metric": "ndcg", "eval_at": RANK_PARAMS["eval_at"]}))
+    metric.init(md, len(yv))
+    zero = np.zeros(len(yv))
+    base = {name: v for name, v, _ in metric.eval(zero, zero)}
+
+    def gate(bst) -> dict:
+        got = bst.best_score["valid_0"]
+        for name, v in base.items():
+            if not got[name] > v:
+                raise RuntimeError(f"holdout {name} {got[name]} is not above "
+                                   f"the documents' own order's {v}")
+        return {"holdout_ndcg": {k: got[k] for k in base},
+                "own_order_ndcg": base}
+    return gate
+
+
+def rank_parity(gpu: str, name: str, params: dict, iters: int) -> dict:
+    """``iters`` iterations of ``params`` on a seeded 20,000 x 28 ranking
+    set (``make_rows``' missing values, ``rank_labels``, ``rank_groups``)
+    trained on the card and with device="cpu": the trees must be equal
+    and their leaves bitwise, and the drop sets equal."""
+    import lightgbm_tpu_torch as lgt
+    x = make_rows(RANK_PARITY_ROWS, N_FEATURES, 3)
+    y = rank_labels(x, 7)
+    group = rank_groups(RANK_PARITY_ROWS, 8)
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        bst = lgt.Booster(params, lgt.Dataset(x, label=y, group=group),
+                          device=device)
+        drops = []
+        for _ in range(iters):
+            bst.update()
+            drops.append(list(getattr(bst._inner, "drop_index", [])))
+        out[device] = (bst, drops, time.perf_counter() - t0)
+    (bc, dc, tc), (bp, dp, tp) = out["cuda"], out["cpu"]
+    rec = compare_trees(bc._models, bp._models)
+    rec.update(case=f"{name}: {RANK_PARITY_ROWS}x{N_FEATURES}, "
+               f"{len(group)} queries, {TRAIN_LEAVES} leaves, {iters} "
+               "iterations", route=bc._inner.grow.route.describe(),
+               drop_sets=dc, cuda_s=tc, cpu_s=tp,
+               leaves_bitwise=leaves_bitwise(bc._models, bp._models),
+               leaves=[t.num_leaves for t in bc._models])
+    rec["ok"] = rec["ok"] and rec["leaves_bitwise"] and dc == dp
+    print("parity ranking " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"ranking training on the card differs from the "
+                           f"CPU run: {rec}")
+    return rec
+
+
+def rank_gradient_parity(gpu: str, bst, label: str, score,
+                         queries=None) -> dict:
+    """The main path's lambdarank gradients on the card against the plain
+    CPU run of the same function (the objective initialised on the CPU
+    from the same metadata) on the same scores, over every query or the
+    first ``queries`` (a query's gradients read its own rows only): the
+    largest difference, within 4 f32 eps of the largest gradient, and
+    the card's time."""
+    import torch
+
+    from lightgbm_tpu_torch.io.dataset_core import Metadata
+    from lightgbm_tpu_torch.objective import create_objective
+    inner = bst._inner
+    card = inner.objective
+    md = inner.train_set.metadata
+    qb = md.query_boundaries
+    if queries is not None and queries >= len(qb) - 1:
+        queries = None
+    n = int(qb[queries]) if queries is not None else inner.train_set.num_data
+    if queries is not None:
+        part = Metadata()
+        part.num_data = n
+        part.set_label(md.label[:n])
+        part.set_group(qb[:queries + 1])
+        md = part
+    host = create_objective(inner.config)
+    host.init(md, n, torch.device("cpu"))
+    t0 = time.perf_counter()
+    want = host.get_gradients(score[:n].cpu())
+    cpu_s = time.perf_counter() - t0
+    got = [v[:n].cpu() for v in card.get_gradients(score)]
+    err = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    scale = [float(b.abs().max()) for b in want]
+    rec = {"case": label, "rows": n, "queries": host.num_queries,
+           "batches": len(card.batches),
+           "max_abs_err": err, "max_abs": scale,
+           "bitwise": all(torch.equal(a, b) for a, b in zip(got, want)),
+           "cpu_s": cpu_s, "card_ms": _event_ms(
+               lambda: card.get_gradients(score), reps=5), "gpu": gpu}
+    print("lambdarank gradients " + json.dumps(rec), flush=True)
+    tol = 4 * np.finfo(np.float32).eps
+    if not all(e <= tol * max(m, 1e-30) for e, m in zip(err, scale)):
+        raise RuntimeError(f"the card's lambdarank gradients differ from "
+                           f"the CPU run's: {rec}")
+    return rec
+
+
+def ranking_phases(gpu: str, wide: dict) -> dict:
+    """Slice 21: the card-against-CPU runs (:func:`rank_parity`: lambdarank
+    DART and rank_xendcg at 20,000 x 28), then lambdarank DART on the
+    wide phase's binned 1M x 136 rows (``RANK_PARAMS``, 10 iterations)
+    with seeded grades and query groups (``rank_labels``,
+    ``rank_groups``: ~7,800 training queries, the 100,000 holdout rows
+    in their own), on the wide route without the stream, counted, its
+    stages and drop sets, its holdout ``ndcg@1/3/5`` against a GBDT
+    twin's, the lambdarank gradients of its first iteration (every
+    query) and of its trained scores (the first 1,000) held against the
+    CPU's
+    (:func:`rank_gradient_parity`), the model saved and loaded
+    predicting the booster's holdout scores, and one profiled
+    iteration."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    parity = {name: rank_parity(gpu, name, params, iters)
+              for name, (params, iters) in RANK_PARITY.items()}
+    lap("ranking/parity")
+    data = wide["data"]
+    x, xv = data["x"], data["xv"]
+    y_all = rank_labels(np.concatenate([x, xv]), 21)
+    y, yv = y_all[:len(x)], y_all[len(x):]
+    group = rank_groups(len(y), 23)
+    gv = rank_groups(len(yv), 24)
+    ds = regroup(data["ds"], y, group)
+    valid = regroup(data["valid"], yv, gv)
+    gate = ranking_holdout(yv, gv)
+    drops = []
+
+    def _drops(env):
+        drops.append(list(env.model._inner.drop_index))
+    _drops.order = 41
+    bst, run = train_main_path(gpu, ds, valid, x, {}, RANK_ITERS,
+                               "ranking main path", params=RANK_PARAMS,
+                               n_features=WIDE_FEATURES, holdout=gate,
+                               callbacks=[_drops])
+    if run["route"] != RANK_ROUTE:
+        raise RuntimeError(f"the ranking main path took {run['route']}, "
+                           f"expected {RANK_ROUTE}")
+    if drops != RANK_DROPS:
+        raise RuntimeError(f"the ranking main path dropped {drops}, "
+                           f"expected {RANK_DROPS}")
+    for stage in ("gradients", "dart"):
+        if stage not in run["stage_ms_per_tree"]:
+            raise RuntimeError(f"the ranking main path timed no {stage} "
+                               "stage")
+    run.update(drop_sets=drops, queries=len(group),
+               holdout_queries=len(gv),
+               grades=np.bincount(y.astype(np.int64)).tolist(),
+               largest_query=int(max(group.max(), gv.max())))
+    lap("ranking/main path")
+    twin, twin_run = train_main_path(
+        gpu, ds, valid, x, {}, RANK_ITERS, "ranking GBDT twin",
+        params=dict(RANK_PARAMS, boosting="gbdt"), n_features=WIDE_FEATURES,
+        holdout=gate)
+    if twin_run["route"] != RANK_TWIN_ROUTE:
+        raise RuntimeError(f"the ranking twin took {twin_run['route']}")
+    lap("ranking/GBDT twin")
+    n = len(y)
+    grads = {"first_iteration": rank_gradient_parity(
+        gpu, bst, "ranking main path, first iteration (zero scores)",
+        torch.zeros(n, device=bst._inner.device)),
+        "trained": rank_gradient_parity(
+        gpu, bst, "ranking main path, trained scores, first 1,000 queries",
+        bst._inner.train_score, queries=1000)}
+    lap("ranking/gradient parity")
+    loaded = lgt.Booster(model_str=bst.model_to_string(), device="cuda")
+    served = loaded.predict(xv, raw_score=True)
+    held = bst._inner.valid_sets[0].scores[0].cpu().numpy().astype(
+        np.float64)
+    serve_err = float(np.abs(served - held).max())
+    if not np.all(np.abs(served - held)
+                  <= score_tolerance(held, len(bst._models))):
+        raise RuntimeError(f"the loaded DART model's holdout scores differ "
+                           f"from the booster's (max {serve_err})")
+    with route_env({}):
+        prof = profile_iteration(bst, gpu)
+    print("profiled iteration, ranking main path " + json.dumps(prof),
+          flush=True)
+    # the kernels one gradient pass launches, from a captured graph (last:
+    # a capture the CUDA driver refused would leave the stream unusable)
+    try:
+        names = [k for k, _ in kernels_of_call(
+            lambda: bst._inner.objective.get_gradients(
+                bst._inner.train_score))]
+        graph = {"kernels": len(names),
+                 "by_name": {k: names.count(k) for k in sorted(set(names))}}
+    except Exception as e:      # noqa: BLE001 - reported, not measured
+        graph = {"kernels": f"not measured: {type(e).__name__}: {e}"}
+    summary = {
+        "route": run["route"], "iterations": RANK_ITERS,
+        "s_per_iter_rest_mean": run["s_per_iter_rest_mean"],
+        "twin_s_per_iter_rest_mean": twin_run["s_per_iter_rest_mean"],
+        "stage_ms_per_tree": run["stage_ms_per_tree"],
+        "twin_stage_ms_per_tree": twin_run["stage_ms_per_tree"],
+        "drop_sets": drops, "holdout_ndcg": run["holdout_ndcg"],
+        "twin_holdout_ndcg": twin_run["holdout_ndcg"],
+        "own_order_ndcg": run["own_order_ndcg"],
+        "queries": len(group), "holdout_queries": len(gv),
+        "splits": run["splits"],
+        "launches": {k: v for k, v in run["launches"].items() if v},
+        "launches_per_split": {k: v / run["splits"] for k, v in
+                               run["launches"].items() if v},
+        "kernels_per_split": prof.get("kernels_per_split"),
+        "stage_kernels_per_split": prof.get("stage_kernels_per_split"),
+        "busy_share": prof.get("busy_share"),
+        "gradient_card_ms": {k: g["card_ms"] for k, g in grads.items()},
+        "gradient_graph_kernels": graph,
+        "gradient_max_abs_err": {k: g["max_abs_err"]
+                                 for k, g in grads.items()},
+        "loaded_model_holdout_max_abs_err": serve_err, "gpu": gpu}
+    print("ranking route " + json.dumps(summary), flush=True)
+    return {"parity": parity, "main": run, "twin": twin_run,
+            "gradients": grads, "gradient_graph": graph, "profile": prof}
+
+
 _CLOCK = [time.perf_counter()]
 
 
@@ -5587,8 +5905,10 @@ def main() -> int:
     lap("multiclass and objectives")
     sampling = sampling_phases(gpu, higgs)
     lap("sampling")
-    # the launches of the multiclass and sampling routes, and of their
-    # pack=2 parity runs
+    ranking = ranking_phases(gpu, wide)
+    lap("ranking")
+    # the launches of the multiclass, sampling and ranking routes, and of
+    # their pack=2 parity runs
     mc, mc2 = (objectives["multiclass"]["launches"],
                objectives["parity"]["multiclass_pack2"]["launches"])
     bag2 = sampling["parity"]["bagging_pack2"]["launches"]
@@ -5608,6 +5928,8 @@ def main() -> int:
             k["sampling_launches"] = got
         if key in bag2:
             k["bagging_pack2_parity_launches"] = bag2[key]
+        if ranking["main"]["launches"].get(key):
+            k["ranking_launches"] = ranking["main"]["launches"][key]
     kernels += probes
     if not analysis["checked_in_report_current"]:
         raise RuntimeError(

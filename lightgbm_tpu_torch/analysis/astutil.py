@@ -11,7 +11,8 @@ is read here is the Python around them.
   ``_build.load``).  Plain versions (``*_ref``) run only on the CPU and
   are exempt.
 - The **training loop's path** is every function of ``ops/grow.py``,
-  the boosters (``models/gbdt.py``, ``goss.py``, ``rf.py``) and the
+  the boosters (``models/gbdt.py``, ``goss.py``, ``rf.py``,
+  ``dart.py``) and the
   per-row draws (``utils/random.py``) but ``__init__`` and the plain
   versions: each runs once an iteration or more often (per tree, per
   split).
@@ -139,7 +140,7 @@ def default_python_modules() -> List[PyModule]:
     return ([PyModule(p, "wrappers") for p in ops]
             + [PyModule(PACKAGE / rel, "loop") for rel in (
                 "ops/grow.py", "models/gbdt.py", "models/goss.py",
-                "models/rf.py", "utils/random.py")])
+                "models/rf.py", "models/dart.py", "utils/random.py")])
 
 
 # ---------------------------------------------------------------------

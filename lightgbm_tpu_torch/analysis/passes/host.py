@@ -13,8 +13,8 @@ waits for the card to drain and copies to the host.  Read by ``ast``
   versions, which run only on the CPU, are exempt);
 - ``HOST_PULL_IN_LOOP``: a pull on the training loop's path, every
   function of ``ops/grow.py``, the boosters (``models/gbdt.py``,
-  ``goss.py``, ``rf.py``) and ``utils/random.py`` but ``__init__`` (per
-  iteration, per tree or per split).
+  ``goss.py``, ``rf.py``, ``dart.py``) and ``utils/random.py`` but
+  ``__init__`` (per iteration, per tree or per split).
 
 A pull the design needs today stays as an allowlist entry whose
 justification names the roadmap item that removes it.

@@ -45,7 +45,7 @@ class Dataset:
     it)."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, init_score=None,
+                 weight=None, group=None, init_score=None,
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
@@ -54,6 +54,7 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -99,11 +100,28 @@ class Dataset:
                if self.reference is not None else None)
         self._binned = BinnedDataset.construct(
             self.data, cfg, label=self.label, weight=self.weight,
-            init_score=self.init_score, feature_names=feature_names,
+            group=self.group, init_score=self.init_score,
+            feature_names=feature_names,
             categorical_indices=cat_idx, reference=ref)
         if self.free_raw_data:
             self.data = None
         return self
+
+    def set_group(self, group) -> "Dataset":
+        """Query sizes (or boundaries), kept as the binned metadata's
+        boundaries once constructed."""
+        self.group = group
+        if self._binned is not None:
+            self._binned.metadata.set_group(group)
+        return self
+
+    def get_group(self):
+        """Per-query sizes: from the binned metadata once constructed,
+        else as given."""
+        if (self._binned is not None
+                and self._binned.metadata.query_boundaries is not None):
+            return np.diff(self._binned.metadata.query_boundaries)
+        return self.group
 
     def num_data(self) -> int:
         return self.construct()._binned.num_data

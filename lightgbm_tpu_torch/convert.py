@@ -98,7 +98,8 @@ def dataset_from_numpy(mappers: Sequence[Dict], bin_matrix: np.ndarray,
                        label, *, used_feature_map: Sequence[int],
                        num_total_features: int,
                        feature_names: Optional[List[str]] = None,
-                       weight=None, init_score=None) -> Dataset:
+                       weight=None, init_score=None,
+                       query_boundaries=None) -> Dataset:
     """The port's constructed ``Dataset`` from a binned dataset's
     numpy state.  ``mappers`` are dicts of the ``BinMapper.to_dict``
     fields (``bin_type``, ``missing_type``, ``num_bins``,
@@ -106,7 +107,8 @@ def dataset_from_numpy(mappers: Sequence[Dict], bin_matrix: np.ndarray,
     each used feature; ``bin_matrix`` is the ``[n, used_features]``
     binned matrix; ``used_feature_map`` maps used to original feature
     ids; ``init_score`` is ``[n]``, or class-major ``[K * n]`` for a
-    multiclass model."""
+    multiclass model; ``query_boundaries`` are a ranking set's ``[Q +
+    1]`` boundaries (``Metadata.query_boundaries``)."""
     binned = BinnedDataset()
     binned.mappers = [BinMapper.from_dict(m) for m in mappers]
     binned.bin_matrix = np.ascontiguousarray(bin_matrix)
@@ -119,5 +121,7 @@ def dataset_from_numpy(mappers: Sequence[Dict], bin_matrix: np.ndarray,
     md.set_label(label)
     md.set_weight(weight)
     md.set_init_score(init_score)
+    md.num_data = binned.num_data
+    md.set_group(query_boundaries)
     md.check(binned.num_data)
     return Dataset.from_binned(binned)

@@ -5,7 +5,7 @@ before / after callbacks, ``booster.update()``, evaluation and
 ``EarlyStopException`` handling, on the device ``device`` names
 (``"cuda"`` unless the caller asks for ``"cpu"``).  Custom objectives,
 ``feval``, ``init_model``, checkpoint/resume and fault handling are not
-ported (``ROADMAP.md`` A11, A13).
+ported (``ROADMAP.md`` A5, A11).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ def train(
         num_boost_round = cfg.num_iterations
     if callable(params.get("objective")):
         raise LightGBMError("custom objective functions are not ported to "
-                            "lightgbm_tpu_torch yet (see ROADMAP.md A13)")
+                            "lightgbm_tpu_torch yet (see ROADMAP.md A5)")
 
     booster = Booster(params=params, train_set=train_set, device=device,
                       timer=timer)

@@ -6,8 +6,9 @@ The port's own copy of the dense-input core of
 seeded row sample exactly as the JAX package finds them, trivial
 (single-bin) features are dropped under ``feature_pre_filter``, and the
 quantized matrix is one dense ``[rows, used_features]`` uint8 matrix.
-Scipy sparse input, streaming sequences, ranking groups, EFB bundling
-and the binary cache are not ported (``ROADMAP.md`` A9).
+Query groups are kept as boundaries (``Metadata.set_group``).  Scipy
+sparse input, streaming sequences, EFB bundling and the binary cache
+are not ported (``ROADMAP.md`` A5).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ class Metadata:
     label: Optional[np.ndarray] = None          # float32 [n]
     weight: Optional[np.ndarray] = None         # float32 [n]
     init_score: Optional[np.ndarray] = None     # float64 [n * num_class]
-    query_boundaries: Optional[np.ndarray] = None
+    query_boundaries: Optional[np.ndarray] = None   # int32 [Q + 1]
     num_data: int = 0
 
     def set_label(self, label) -> None:
@@ -54,8 +55,31 @@ class Metadata:
                            else np.ascontiguousarray(
                                init_score, dtype=np.float64).reshape(-1))
 
+    def set_group(self, group) -> None:
+        """Per-query sizes (the reference's query file) stored as
+        cumulative boundaries (dataset.h:222).  An array that already
+        reads as boundaries (non-decreasing, ending at ``num_data``) is
+        taken as such, with a leading 0 added where it lacks one."""
+        if group is None:
+            self.query_boundaries = None
+            return
+        g = np.ascontiguousarray(group, dtype=np.int64).reshape(-1)
+        if (len(g) and g[-1] == self.num_data and np.all(np.diff(g) >= 0)
+                and g[0] != self.num_data):
+            bounds = np.concatenate([[0], g]) if g[0] != 0 else g
+        else:
+            bounds = np.concatenate([[0], np.cumsum(g)])
+        if self.num_data and bounds[-1] != self.num_data:
+            log.fatal("Sum of query counts (%d) != num_data (%d)",
+                      bounds[-1], self.num_data)
+        self.query_boundaries = bounds.astype(np.int32)
+
     def check(self, num_data: int) -> None:
         self.num_data = num_data
+        qb = self.query_boundaries
+        if qb is not None and qb[-1] != num_data:
+            log.fatal("Sum of query counts (%d) != num_data (%d)",
+                      qb[-1], num_data)
         if self.label is not None and len(self.label) != num_data:
             log.fatal("Length of label (%d) != num_data (%d)",
                       len(self.label), num_data)
@@ -100,6 +124,7 @@ class BinnedDataset:
         *,
         label=None,
         weight=None,
+        group=None,
         init_score=None,
         feature_names: Optional[Sequence[str]] = None,
         categorical_indices: Optional[Sequence[int]] = None,
@@ -110,7 +135,7 @@ class BinnedDataset:
         identically to the training set)."""
         if hasattr(data, "tocsc") and not isinstance(data, np.ndarray):
             log.fatal("scipy sparse input is not ported to "
-                      "lightgbm_tpu_torch yet (see ROADMAP.md A9); pass "
+                      "lightgbm_tpu_torch yet (see ROADMAP.md A5); pass "
                       "a dense array")
         data = np.asarray(data)
         if data.ndim == 1:
@@ -149,6 +174,7 @@ class BinnedDataset:
         if label is not None:
             self.metadata.set_label(label)
         self.metadata.set_weight(weight)
+        self.metadata.set_group(group)
         self.metadata.set_init_score(init_score)
         self.metadata.check(n)
         return self

@@ -6,10 +6,10 @@ xentropy_metric.hpp, factory metric.cpp:16): numpy on the host over the
 f32 scores pulled from the device once per evaluation.  ``prob`` is the
 objective-converted score and ``raw`` the raw one, ``[n]``, or ``[K,
 n]`` for a multiclass model.  AUC is the weighted rank sum with midrank
-ties.  Each result is ``(name, value, higher_better)``.  The ranking
-metrics ``ndcg`` and ``map`` need query groups and raise
-``LightGBMError`` (they come with ``ROADMAP.md`` A8.5); a name neither
-package knows warns and is skipped, as in the JAX package.
+ties.  ``ndcg@k`` and ``map@k`` (one result for each ``eval_at``) follow
+the JAX package's host path, query by query, and need the dataset's
+query groups.  Each result is ``(name, value, higher_better)``.  A name
+neither package knows warns and is skipped, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -19,7 +19,6 @@ import numpy as np
 
 from ..config import Config
 from ..utils import log
-from ..utils.log import LightGBMError
 
 EvalResult = Tuple[str, float, bool]  # (metric name, value, higher_better)
 
@@ -36,6 +35,7 @@ class Metric:
                       else np.asarray(metadata.label, np.float64))
         self.weight = (None if metadata.weight is None
                        else np.asarray(metadata.weight, np.float64))
+        self.query_boundaries = metadata.query_boundaries
         self.num_data = num_data
         self.sum_weight = (float(num_data) if self.weight is None
                            else float(self.weight.sum()))
@@ -303,6 +303,64 @@ class KullbackLeiblerMetric(Metric):
         return [(self.NAME, self._avg(ce - ent), False)]
 
 
+# -- ranking (rank_metric.hpp NDCG, map_metric.hpp MAP), on raw [n] ---------
+class _RankingMetric(Metric):
+    HIGHER_BETTER = True
+
+    def init(self, metadata, num_data: int) -> None:
+        super().init(metadata, num_data)
+        if self.query_boundaries is None:
+            log.fatal("%s metric requires query information",
+                      self.NAME.upper())
+
+    def _queries(self, raw):
+        """Each query's labels and the order of its documents by
+        descending score (ties in document order)."""
+        qb = self.query_boundaries
+        for i in range(len(qb) - 1):
+            lab = self.label[qb[i]:qb[i + 1]]
+            yield lab, np.argsort(-raw[qb[i]:qb[i + 1]], kind="mergesort")
+
+
+class NDCGMetric(_RankingMetric):
+    NAME = "ndcg"
+
+    def eval(self, prob, raw):
+        ks = self.config.eval_at or [1, 2, 3, 4, 5]
+        max_label = int(self.label.max())
+        gains = np.asarray(self.config.label_gain or [
+            float((1 << i) - 1) for i in range(max(max_label + 1, 2))])
+        results = {k: [] for k in ks}
+        for lab, order in self._queries(np.asarray(raw)):
+            lab = lab.astype(np.int64)
+            ideal = np.sort(lab)[::-1]
+            disc = 1.0 / np.log2(np.arange(len(lab)) + 2.0)
+            for k in ks:
+                kk = min(k, len(lab))
+                dcg = np.sum(gains[lab[order[:kk]]] * disc[:kk])
+                idcg = np.sum(gains[ideal[:kk]] * disc[:kk])
+                # a query whose labels are all 0 counts as ranked right
+                results[k].append(dcg / idcg if idcg > 0 else 1.0)
+        return [(f"ndcg@{k}", float(np.mean(results[k])), True) for k in ks]
+
+
+class MapMetric(_RankingMetric):
+    NAME = "map"
+
+    def eval(self, prob, raw):
+        ks = self.config.eval_at or [1, 2, 3, 4, 5]
+        results = {k: [] for k in ks}
+        for lab, order in self._queries(np.asarray(raw)):
+            rel = (lab > 0).astype(np.float64)[order]
+            prec = np.cumsum(rel) / np.arange(1, len(rel) + 1)
+            for k in ks:
+                kk = min(k, len(rel))
+                npos = rel[:kk].sum()
+                results[k].append(float(np.sum(prec[:kk] * rel[:kk]) / npos)
+                                  if npos > 0 else 0.0)
+        return [(f"map@{k}", float(np.mean(results[k])), True) for k in ks]
+
+
 # The JAX package's alias table (its metric/metrics.py), as data: every
 # name it knows, to its canonical metric, ported or not.
 _METRIC_ALIASES = {
@@ -345,6 +403,7 @@ _METRIC_REGISTRY = {
     "auc": AUCMetric, "average_precision": AveragePrecisionMetric,
     "auc_mu": AucMuMetric,
     "multi_logloss": MultiLoglossMetric, "multi_error": MultiErrorMetric,
+    "ndcg": NDCGMetric, "map": MapMetric,
     "cross_entropy": CrossEntropyMetric,
     "cross_entropy_lambda": CrossEntropyLambdaMetric,
     "kullback_leibler": KullbackLeiblerMetric,
@@ -358,6 +417,7 @@ _DEFAULT_METRIC = {
     "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
     "cross_entropy": "cross_entropy",
     "cross_entropy_lambda": "cross_entropy_lambda",
+    "lambdarank": "ndcg", "rank_xendcg": "ndcg",
 }
 
 
@@ -382,12 +442,6 @@ def create_metrics(config: Config) -> List[Metric]:
             log.warning("Unknown metric %s", name)
             continue
         canon = _METRIC_ALIASES[name]
-        if canon not in _METRIC_REGISTRY:
-            raise LightGBMError(
-                f"metric {name} ({canon}) is not ported to "
-                "lightgbm_tpu_torch yet (the ranking metrics need query "
-                "groups; see ROADMAP.md, A8.5); the JAX package "
-                "lightgbm_tpu computes it")
         if canon in seen:
             continue
         seen.add(canon)

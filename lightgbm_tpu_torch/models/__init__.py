@@ -2,7 +2,8 @@
 __init__.py``; reference boosting.cpp:35 factory)."""
 from ..config import Config
 from ..utils import log
-from .gbdt import GBDT, _unported
+from .dart import DART
+from .gbdt import GBDT
 from .goss import GOSS
 from .rf import RF
 
@@ -12,15 +13,14 @@ _ALIASES = {"gbdt": "gbdt", "gbrt": "gbdt", "dart": "dart", "goss": "goss",
 
 def create_boosting(config: Config, train_set, objective, metrics=(), *,
                     device, timer=None) -> GBDT:
-    """Boosting::CreateBoosting: gbdt | goss | rf (DART raises)."""
+    """Boosting::CreateBoosting: gbdt | dart | goss | rf."""
     name = config.boosting.strip().lower()
     if name not in _ALIASES:
         log.fatal("Unknown boosting type %s", name)
-    if _ALIASES[name] == "dart":
-        _unported("boosting=dart", "slice 21")
-    cls = {"gbdt": GBDT, "goss": GOSS, "rf": RF}[_ALIASES[name]]
+    cls = {"gbdt": GBDT, "dart": DART, "goss": GOSS,
+           "rf": RF}[_ALIASES[name]]
     return cls(config, train_set, objective, metrics, device=device,
                timer=timer)
 
 
-__all__ = ["GBDT", "GOSS", "RF", "create_boosting"]
+__all__ = ["DART", "GBDT", "GOSS", "RF", "create_boosting"]

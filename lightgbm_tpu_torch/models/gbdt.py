@@ -72,7 +72,7 @@ from ..utils.random import make_rng, prng_key, uniform
 from .tree import Tree
 
 
-def _unported(what: str, where: str = "A8/A9") -> None:
+def _unported(what: str, where: str) -> None:
     raise LightGBMError(
         f"{what} is not ported to lightgbm_tpu_torch yet (see ROADMAP.md, "
         f"{where}); the JAX package lightgbm_tpu trains it")
@@ -116,24 +116,25 @@ def check_supported(cfg: Config) -> None:
     does not port."""
     check_pack_conflicts(cfg)
     if cfg.tree_learner != "serial" or cfg.num_machines > 1:
-        _unported(f"tree_learner={cfg.tree_learner} (the mesh learners)")
+        _unported(f"tree_learner={cfg.tree_learner} (the mesh learners)",
+                  "A10")
     if cfg.pre_partition:
-        _unported("pre_partition (paged / distributed data)")
+        _unported("pre_partition (paged / distributed data)", "A11")
     if cfg.gpu_use_dp:
-        _unported("gpu_use_dp")
+        _unported("gpu_use_dp", "A9")
     if cfg.interaction_constraints:
-        _unported("interaction_constraints")
+        _unported("interaction_constraints", "A9")
     if (cfg.cegb_penalty_split > 0 or cfg.cegb_penalty_feature_lazy
             or cfg.cegb_penalty_feature_coupled):
-        _unported("CEGB")
+        _unported("CEGB", "A9")
     if cfg.forcedsplits_filename:
-        _unported("forced splits")
+        _unported("forced splits", "A9")
     if cfg.feature_fraction_bynode < 1.0:
-        _unported("feature_fraction_bynode")
+        _unported("feature_fraction_bynode", "A9")
     if cfg.extra_trees:
-        _unported("extra_trees")
+        _unported("extra_trees", "A9")
     if cfg.linear_tree:
-        _unported("linear_tree")
+        _unported("linear_tree", "A9")
 
 
 def uses_cat_subset(cfg: Config, ds: BinnedDataset) -> bool:

@@ -9,7 +9,10 @@ Each tree carries its class's init score as a bias, as LightGBM's
 the tree's outputs, so ``eval``'s average is ``predict``'s.  The JAX
 package leaves the init score out of its trees (ROADMAP C).  The leaf
 refit of the percentile objectives reads the residuals at the init
-score, ``label - init``, in both packages as in LightGBM.
+score, ``label - init``, in both packages as in LightGBM.  A dataset
+``init_score`` is refused: every tree grows from the constant init
+score, so a per-row one has no meaning (the JAX package trains on and
+ignores it, ROADMAP C).
 """
 from __future__ import annotations
 
@@ -26,8 +29,13 @@ from .tree import Tree
 class RF(GBDT):
     NAME = "rf"
 
-    def __init__(self, *args, **kw):
-        super().__init__(*args, **kw)
+    def __init__(self, config, train_set, *args, **kw):
+        if train_set.metadata.init_score is not None:
+            log.fatal("boosting=rf cannot train from a dataset init_score: "
+                      "a random forest grows every tree from the constant "
+                      "init score, so a per-row init score has no meaning "
+                      "there")
+        super().__init__(config, train_set, *args, **kw)
         self.average_output = True
         self.shrinkage_rate = 1.0
         k = self.num_tree_per_iteration

@@ -1,9 +1,7 @@
 """Objective factory (reference objective_function.cpp:20-146; the JAX
-package's ``objective/__init__.py`` and its alias table).
-
-Every objective of the JAX package is ported but the ranking ones,
-``lambdarank`` and ``rank_xendcg``, which need query groups: they raise
-``LightGBMError`` pointing to ``ROADMAP.md`` (A8.5).
+package's ``objective/__init__.py`` and its alias table).  Every
+objective of the JAX package is ported; the ranking ones
+(``objective/rank.py``) need the dataset's query groups.
 """
 from __future__ import annotations
 
@@ -14,6 +12,7 @@ from ..utils import log
 from .base import ObjectiveFunction
 from .binary import BinaryLogloss
 from .multiclass import MulticlassOVA, MulticlassSoftmax
+from .rank import LambdarankNDCG, RankXENDCG
 from .regression import (Fair, Gamma, Huber, Mape, Poisson, Quantile,
                          RegressionL1, RegressionL2, Tweedie)
 from .xentropy import CrossEntropy, CrossEntropyLambda
@@ -43,7 +42,6 @@ _OBJECTIVE_ALIASES = {
     "xendcg_mart": "rank_xendcg",
     "none": "none", "null": "none", "custom": "none", "na": "none",
 }
-_UNPORTED = ("lambdarank", "rank_xendcg")
 _REGISTRY = {
     "regression": RegressionL2, "regression_l1": RegressionL1,
     "huber": Huber, "fair": Fair, "poisson": Poisson,
@@ -52,6 +50,7 @@ _REGISTRY = {
     "multiclass": MulticlassSoftmax, "multiclassova": MulticlassOVA,
     "cross_entropy": CrossEntropy,
     "cross_entropy_lambda": CrossEntropyLambda,
+    "lambdarank": LambdarankNDCG, "rank_xendcg": RankXENDCG,
 }
 
 
@@ -61,12 +60,7 @@ def canonical_objective(name: str) -> str:
     base = name.split(" ")[0]
     if base not in _OBJECTIVE_ALIASES:
         log.fatal("Unknown objective %s", name)
-    canon = _OBJECTIVE_ALIASES[base]
-    if canon in _UNPORTED:
-        log.fatal("objective %s is not ported to lightgbm_tpu_torch yet "
-                  "(the ranking objectives need query groups; see "
-                  "ROADMAP.md A8.5)", name)
-    return canon
+    return _OBJECTIVE_ALIASES[base]
 
 
 def create_objective(config: Config) -> Optional[ObjectiveFunction]:

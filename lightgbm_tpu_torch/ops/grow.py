@@ -738,14 +738,16 @@ class RowOrderGrower(_Grower):
 
 
 def predict_leaf_bins(ta: TreeArrays, bins: torch.Tensor,
-                      num_bins: torch.Tensor,
-                      has_nan: torch.Tensor) -> torch.Tensor:
+                      num_bins: torch.Tensor, has_nan: torch.Tensor,
+                      depth: Optional[int] = None) -> torch.Tensor:
     """Rows -> leaf index, walking one tree in bin space (the JAX
     package's ``ops.predict.predict_leaf_bins``): a categorical node
     sends a row left where its bin is one of ``ta.cat_members``' (the
     bitset walk), or without members where it is ``threshold_bin``
     (one-hot).  ``bins`` [n, F] u8 or u16 on the device, result [n]
-    i64."""
+    i64.  ``ta``'s arrays may already be tensors on the device; then
+    ``depth`` gives the tree's depth, which is otherwise read from
+    ``ta``'s host arrays."""
     n = bins.shape[0]
     nl = int(ta.num_leaves)
     dev = bins.device
@@ -763,7 +765,7 @@ def predict_leaf_bins(ta: TreeArrays, bins: torch.Tensor,
                else torch.as_tensor(ta.cat_members[:ni], device=dev))
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     b_all = bins_i32(bins)
-    for _ in range(_tree_depth(ta)):
+    for _ in range(_tree_depth(ta) if depth is None else depth):
         nd = node.clamp(min=0)
         feat = sf[nd]
         b = torch.gather(b_all, 1, feat[:, None])[:, 0]

@@ -52,7 +52,9 @@ replayed in a graph, more than 8 words refused, and sorted-subset
 training on the card bit-identical to the CPU run on four routes.
 The threefry draws (slice 20) give the CPU's bits on the card, GOSS's
 sample at 1M rows too, and bagged, GOSS and RF training grows the CPU
-run's trees on four routes.
+run's trees on four routes.  The lambdarank gradients (slice 21) give
+the CPU's bits on the card, and lambdarank DART grows the CPU run's
+trees, drop sets and scores on four routes.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
 row-order and 3ph routes), and the default route's equal slice 2's
@@ -2009,6 +2011,80 @@ def test_sampling_training_on_card_matches_cpu(cuda, name, env,
                 for fn in counted}
     bt = bsts[0]
     assert len(bt._models) == 3
+    assert all(t.num_leaves > 1 for t in bt._models)
+    route = bt._inner.grow.route
+    assert not route.stream and route.tail == "kernel"
+    splits = sum(t.num_leaves - 1 for t in bt._models)
+    for kname, want in expected_launches(route, len(bt._models),
+                                         splits).items():
+        assert launched[kname] == want, kname
+    res = compare_trees(bsts[0]._models, bsts[1]._models)
+    assert res["ok"], res
+    assert leaves_bitwise(bsts[0]._models, bsts[1]._models)
+    assert torch.equal(bt._inner.scores.cpu(), bsts[1]._inner.scores)
+
+
+def _ranking_case(n: int, f: int, seed: int):
+    from chip_smoke import rank_groups, rank_labels
+    x = make_rows(n, f, seed)
+    return x, rank_labels(x, seed + 1), rank_groups(n, seed + 2)
+
+
+@pytest.mark.parametrize("norm", [True, False])
+def test_lambdarank_gradients_on_card(cuda, norm):
+    """The lambdarank gradients at 200,000 rows (about 1,600 queries of
+    20-236 documents, several batches) on the card equal the CPU run's
+    bit for bit, at tied (zero) and at seeded scores."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset_core import Metadata
+    from lightgbm_tpu_torch.objective import create_objective
+    from lightgbm_tpu_torch.objective.rank import PAIR_BUDGET
+    n = 200_000
+    _, y, group = _ranking_case(n, 4, 31)
+    md = Metadata()
+    md.num_data = n
+    md.set_label(y)
+    md.set_group(group)
+    objs = []
+    for d in (cuda, torch.device("cpu")):
+        o = create_objective(Config.from_params(
+            {"objective": "lambdarank", "lambdarank_norm": norm}))
+        o.init(md, n, d)
+        o.plan(PAIR_BUDGET // 8)
+        objs.append(o)
+    assert len(objs[0].batches) > 2
+    rng = np.random.default_rng(32)
+    for score in (np.zeros(n, np.float32),
+                  rng.normal(size=n).astype(np.float32)):
+        s = torch.from_numpy(score)
+        got = objs[0].get_gradients(s.to(cuda))
+        want = objs[1].get_gradients(s)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("env", [{}, {"LGBM_TPU_COMB_PACK": "2"},
+                                  {"LGBM_TPU_FUSED": "0"},
+                                  {"LGBM_TPU_PHYS": "0"}])
+def test_dart_lambdarank_on_card_matches_cpu(cuda, env, monkeypatch):
+    """3 iterations of lambdarank DART (drop sets [], [], [1]) grow the CPU
+    run's trees bit for bit on the card, with its training scores, the
+    training kernels launching as ``expected_launches`` counts."""
+    from chip_smoke import counted_training_kernels
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    x, y, group = _ranking_case(8000, 12, 40)
+    params = {"objective": "lambdarank", "boosting": "dart",
+              "num_leaves": 31, "drop_rate": 0.5, "skip_drop": 0.0,
+              "verbosity": -1}
+    counted = counted_training_kernels()
+    before = {fn.__name__: fn.launches for fn in counted}
+    bsts = [lgt.train(params, lgt.Dataset(x, label=y, group=group),
+                      num_boost_round=3, device=d) for d in ("cuda", "cpu")]
+    launched = {fn.__name__: fn.launches - before[fn.__name__]
+                for fn in counted}
+    bt = bsts[0]
+    assert bt._inner.drop_index == bsts[1]._inner.drop_index == [1]
     assert all(t.num_leaves > 1 for t in bt._models)
     route = bt._inner.grow.route
     assert not route.stream and route.tail == "kernel"

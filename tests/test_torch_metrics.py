@@ -1,11 +1,10 @@
 """The port's metric factory (``metric.create_metrics``) against the JAX
 package's, on the CPU.
 
-A metric name the JAX package computes and the port does not yet (the
-ranking metrics ``ndcg`` and ``map``, which need query groups) raises
-``LightGBMError`` pointing to ROADMAP A8, from ``train`` and from
-``Booster.add_valid``: training on without it would stop early stopping
-at another iteration than the JAX package.  ``binary_error``, ``rmse``
+The ranking metrics ``ndcg`` and ``map`` on a dataset without query
+groups raise ``LightGBMError``, from ``train`` and from
+``Booster.add_valid``, as LightGBM's metric ``Init`` does: training on
+without them would stop early stopping at another iteration.  ``binary_error``, ``rmse``
 and its alias ``l2_root``, which once raised, equal the JAX package's
 (tests/test_torch_objectives.py holds every metric).  A name neither package
 knows warns and is dropped in both.  The JAX package trains on its
@@ -104,13 +103,13 @@ def _port_train(params, rounds, objective="binary", callbacks=None):
     ("ndcg", "regression"), ("map", "regression"),
     ("mean_average_precision", "binary")])
 def test_unported_metric_raises(name, objective, entry):
-    """A metric of the JAX registry the port lacks (the ranking metrics,
-    which need query groups) raises, naming the metric and ROADMAP A8,
-    whether training asks for it or a validation set is added to a
-    Booster."""
+    """A ranking metric (``ndcg``, ``map``) on data without query groups
+    raises, naming the missing query information, whether training asks
+    for it or a validation set is added to a Booster."""
     params = {"objective": objective, "metric": name, "num_leaves": 7,
               "verbosity": -1}
-    with pytest.raises(LightGBMError, match=rf"metric {name} .*A8"):
+    with pytest.raises(LightGBMError,
+                       match=r"(NDCG|MAP) metric requires query information"):
         if entry == "train":
             _port_train(params, 2, objective)
         else:
@@ -195,9 +194,9 @@ def test_auc_early_stopping_stops_where_jax_does():
 def test_alias_table_is_the_jax_packages():
     """The port's copy of the alias table names every metric the JAX
     package knows, to the same canonical metric; the port computes all
-    of them but the ranking metrics and raises for those."""
+    of them."""
     from lightgbm_tpu.metric import metrics as jax_metrics
     from lightgbm_tpu_torch.metric import metrics as port_metrics
     assert port_metrics._METRIC_ALIASES == jax_metrics._METRIC_ALIASES
     ported = set(port_metrics._METRIC_REGISTRY)
-    assert ported == set(jax_metrics._METRIC_REGISTRY) - {"ndcg", "map"}
+    assert ported == set(jax_metrics._METRIC_REGISTRY)

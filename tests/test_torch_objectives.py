@@ -32,9 +32,10 @@ metrics of the PyTorch port against the JAX package, on the CPU.
   slope.  The renewed leaves of l1, huber, quantile and mape are the
   percentiles of the rows' residuals.
 - (d) Each metric of ``metric/metrics.py`` against the JAX metric on
-  seeded scores, with and without weights, within 1e-5; ``ndcg`` and
-  ``map`` raise ``LightGBMError`` naming A8.5, as do ``lambdarank`` and
-  ``rank_xendcg``.
+  seeded scores, with and without weights, within 1e-5; ``lambdarank``
+  and ``rank_xendcg`` on a dataset without query groups raise
+  ``LightGBMError`` as the JAX package does (tests/test_torch_rank.py
+  holds them, and ``ndcg`` and ``map``, against it).
 """
 import numpy as np
 import pytest
@@ -427,7 +428,7 @@ def test_metric_matches_jax(name, weighted):
 @pytest.mark.parametrize("name", ["lambdarank", "rank_xendcg"])
 def test_ranking_objectives_raise(name):
     x, y = _data(300, 4, 1, "regression")
-    with pytest.raises(LightGBMError, match="A8.5"):
+    with pytest.raises(LightGBMError, match="query information"):
         lgt.train({"objective": name, "verbosity": -1},
                   lgt.Dataset(x, label=np.abs(np.round(y))), 1,
                   device="cpu")

@@ -278,9 +278,9 @@ def test_gradients_match_jax(objective):
 
 
 @pytest.mark.parametrize("params", [
-    {"boosting": "dart"},
-    {"objective": "rank_xendcg"},
-    {"objective": "lambdarank"},
+    {"cegb_penalty_split": 0.5},
+    {"pre_partition": True},
+    {"gpu_use_dp": True},
     {"interaction_constraints": "[[0, 1]]"},
     {"linear_tree": True}, {"extra_trees": True},
     {"feature_fraction_bynode": 0.5}, {"tree_learner": "data"},
