@@ -55,8 +55,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    each timed beside its plain version, one ``index_add_`` and its
    bound;
 4. training parity, card against ``device="cpu"``, 50,000 x 28, 255
-   leaves: 2 trees on the default route, 1 on slice 2's route, 2 on the
-   row-order route at ``max_bin=1023``, 2 on the 3ph route (bitwise);
+   leaves: 1 tree on the default route, slice 2's route, the row-order
+   route at ``max_bin=1023`` and the 3ph route (bitwise);
 5. the training main path on the default route (score-resident
    gradients, fused split, one-kernel split tail): 1,000,000 x 28, 255
    leaves, 10 iterations, the launch counts zeroed just before and read
@@ -160,8 +160,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 10. wide datasets (slice 9): ``hist_comb`` at 1,000,000 x 136 u8 bins,
    B = 256, in 17 feature chunks of 8, bitwise its plain version run on CPU
    copies and timed beside its byte bound and ``index_add_``; training
-   parity at 50,000 x 136, card against device="cpu", 1 tree,
-   bit-identical; 3 iterations of ``make_higgs_like(1M, 136)`` with 255
+   parity at 20,000 x 136, card against device="cpu", 1 tree of 63
+   leaves, bit-identical; 3 iterations of ``make_higgs_like(1M, 136)`` with 255
    leaves on the unfused stream route with the cluster kernel tail,
    counted exactly, the tail bitwise on a tree's median split, and one
    profiled iteration;
@@ -175,8 +175,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    words) against their plain versions on adversarial words at 36
    features (rows and nleft bitwise; the fused modes' histograms within
    4 * n * eps_f32 * max|v|); the card against device="cpu" on the
-   first 10,000 rows on six routes, 1 tree (bitwise); the default route
-   for 3 iterations, pack=2, both ``FUSED=0`` routes and 3ph for 2
+   first 10,000 rows on six routes, 1 tree of 63 leaves (bitwise); the
+   default route for 2 iterations, pack=2, both
+   ``FUSED=0`` routes and 3ph for 2
    (pack=2's and the unfused routes' trees bitwise the default
    route's), ``max_bin`` 1023 (``cat_overwide``, row-order) and the
    one-hot twin (``max_cat_to_onehot`` 1025, the kernel tail) for 2,
@@ -193,8 +194,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    clipping every candidate, equal keys across the last two blocks with
    one constrained, the penalty's 1e-15 floor, the done guard) and on
    the median split of a default-route, a row-order and a wide tree;
-   the card against device="cpu" on the first 10,000 rows, 1 tree, on
-   the default, pack=2 and row-order routes (bitwise); the basic method on
+   the card against device="cpu" on the first 10,000 rows, 1 tree of 63
+   leaves, on the default, pack=2 and row-order routes (bitwise); the basic method on
    the default route for 10 iterations, pack=2, P1 ``FUSED=0``, 3ph,
    ``POOL_TAIL=0``, row-order (``max_bin`` 1023) and the wide 1M x 136
    route for 2, ``monotone_penalty`` 2.0 and the intermediate method
@@ -209,13 +210,13 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    unconstrained ones (``monotone routes``, ``monotone tail times``);
 13. multiclass training and the regression and cross-entropy objectives
    (slice 19), on the kernel-tail physical route: the card against
-   device="cpu" at 50,000 x 28, 255 leaves, bitwise, for 1 iteration
-   of the 5-class softmax and the 3-class one-vs-all, the softmax at
-   pack=2 bitwise the pack=1 card trees, and 1 tree of each of
+   device="cpu" at 10,000 x 28, 63 leaves, bitwise, for 1 iteration of
+   the 5-class softmax and the 3-class one-vs-all and 1 tree of each of
    ``regression_l1``, ``huber``, ``fair``, ``poisson``, ``quantile``
    (alpha 0.9), ``mape``, ``gamma``, ``tweedie``, ``cross_entropy`` and
    ``cross_entropy_lambda`` on a seeded label each accepts
-   (``objective_label``); the multiclass main path (``bench.py
+   (``objective_label``), the softmax at pack=2 (255 leaves) bitwise
+   the pack=1 card trees; the multiclass main path (``bench.py
    --multiclass 5``'s cell, ``make_multiclass_like``: 1M x 28 training
    and 100,000 holdout rows, 255 leaves, 10 iterations of 5 trees)
    counted against ``expected_launches``, its holdout ``multi_logloss``
@@ -229,7 +230,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 14. bagging, GOSS and random-forest boosting (slice 20), on the
    kernel-tail physical route: the threefry draws on the card bitwise
    the CPU's at 1M rows (the bagging mask at iterations 0 and 5, GOSS's
-   sample); the card against device="cpu" at 50,000 x 28, 255 leaves,
+   sample); the card against device="cpu" at 10,000 x 28, 63 leaves,
    bitwise, for 2 trees of bagging (0.8, every iteration), of
    ``pos_bagging_fraction`` 0.5 and of RF, 3 of GOSS (sampling from its
    third), and the bagging run at pack=2 bitwise the pack=1 card trees;
@@ -241,10 +242,30 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    served through ``serve_traverse`` within 64 ulps a tree of the f64
    host walk (RF's the average), one profiled iteration each; printed
    as ``sampling routes {...}``;
-15. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+15. the split options (slice 22) on the PyTorch split tail: interaction
+   constraints (the UCI HIGGS column groups), CEGB with a split
+   penalty and coupled costs on the derived masses (columns 21-27), the
+   same costs as lazy costs (the row-order path), forced splits
+   (``FORCED_SPLITS``, in the shape of LightGBM's
+   ``examples/binary_classification/forced_splits.json``),
+   ``feature_fraction_bynode`` 0.5 with ``feature_fraction`` 0.8 and
+   ``extra_trees``: each card against device="cpu" at 10,000 x 28, 63
+   leaves, 2 trees, bitwise; a tree's node draws on the card bitwise the
+   CPU's; each on the training main path's rows for 3 iterations,
+   counted against ``expected_launches``, its route, s / iteration, ms a
+   tree by stage, kernels a split and busy share of one profiled
+   iteration, holdout AUC beside the default route's booster at 3
+   iterations, and its gate (no root-to-leaf path leaving one
+   interaction set; fewer splits on columns 21-27 than the default
+   route's first 3 trees under coupled and lazy CEGB; the forced nodes
+   on top of every tree; by-node sampling's and extra trees' trees
+   other than the default route's); printed as ``split options {...}``;
+16. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times (``multiclass_launches`` on the multiclass main
-   path, ``sampling_launches`` on the three sampling main paths), then
-   the device line last; ``phase NAME took S s`` after each phase.
+   path, ``sampling_launches`` on the three sampling main paths,
+   ``ranking_launches``, ``split_options_launches`` on the split
+   options' routes), then the device line last; ``phase NAME took S
+   s`` after each phase.
 
 The forests and rows are generated from seeds: the card's machine has
 no JAX.
@@ -865,7 +886,11 @@ HOLDOUT_ROWS = 100_000
 TRAIN_LEAVES = 255
 TRAIN_ITERS = 10
 PARITY_ROWS = 50_000
-PARITY_TREES = 2
+PARITY_TREES = 1
+# the leaves of the card-against-CPU runs of every phase after the
+# training main paths (the script's time budget: a CPU tree's time is
+# about its splits')
+PARITY_CUT_LEAVES = 63
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": TRAIN_LEAVES,
                 "max_bin": 255, "learning_rate": 0.1, "metric": "auc",
                 "verbosity": -1}
@@ -1360,14 +1385,16 @@ def median_tail_parity(ds, env: dict, params: dict, label: str) -> dict:
     real = grow_mod.apply_find_pool
     sizes, held = [], {}
 
-    def hook(h_a, h_b, nleft, st, fc, fmask, hp, max_depth, at):
+    def hook(h_a, h_b, nleft, st, fc, fmask, hp, max_depth, at,
+             child=None):
         if held.get("at") == len(sizes):
             held["case"] = TailCase(
                 h_a.clone(), h_b.clone(), nleft.clone(),
                 TreeState(*(a.clone() for a in st)), fc, fmask.clone(), hp,
                 max_depth, at)
         sizes.append(at.cnt if not at.done else -1)
-        return real(h_a, h_b, nleft, st, fc, fmask, hp, max_depth, at)
+        return real(h_a, h_b, nleft, st, fc, fmask, hp, max_depth, at,
+                    child)
     grow_mod.apply_find_pool = hook
     try:
         with route_env(env):
@@ -1516,7 +1543,7 @@ def train_parity(gpu: str, env: dict, trees: int, label: str,
         i = diff[0]
         rec["first_split_diff"] = {"split": i, "cuda": traces[0][i],
                                    "cpu": traces[1][i]}
-    rec.update(case=f"{label}: {rows}x{n_features}, {TRAIN_LEAVES} "
+    rec.update(case=f"{label}: {rows}x{n_features}, {params['num_leaves']} "
                f"leaves, {trees} trees", cuda_s=t1 - t0, cpu_s=t2 - t1,
                route=bst_c._inner.grow.route.describe(),
                leaves_bitwise=leaves_bitwise(bst_c._models, bst_p._models),
@@ -1969,7 +1996,7 @@ WIDE_PARAMS = dict(TRAIN_PARAMS, max_bin=1023)
 # (row-order), bit for bit
 MAIN_PATH_AUC = {255: 0.774389521391751, 1023: 0.7743261350960159}
 ROW_ORDER_ITERS = 10
-ROW_ORDER_PARITY_TREES = 2
+ROW_ORDER_PARITY_TREES = 1
 PHYS_OFF = {"LGBM_TPU_PHYS": "0"}
 PHYS_OFF_ITERS = 3
 CHILD_ROWS = 3000
@@ -3645,8 +3672,8 @@ def train_phases(gpu: str) -> tuple:
     recs += mono_phases(gpu, ds, valid, ds_wide, valid_wide, x, y, xv, main,
                         tail_times)
     lap("training/monotone")
-    higgs = {"ds": ds, "valid": valid, "x": x, "xv": xv,
-             "auc": main["holdout_auc"]}
+    higgs = {"ds": ds, "valid": valid, "x": x, "xv": xv, "yv": yv,
+             "auc": main["holdout_auc"], "bst": bst}
     return recs, higgs
 
 
@@ -4269,6 +4296,8 @@ def wide_phases(gpu: str, comb_cases: list) -> dict:
     times = hist_comb_times(gpu, WIDE_FEATURES, comb_cases)
     lap("wide/hist_comb")
     parity = train_parity(gpu, {}, WIDE_PARITY_TREES, "wide dataset",
+                          params=dict(TRAIN_PARAMS,
+                                      num_leaves=PARITY_CUT_LEAVES),
                           bitwise=True, n_features=WIDE_FEATURES,
                           rows=WIDE_PARITY_ROWS)
     lap("wide/parity")
@@ -4387,8 +4416,9 @@ def mono_violations(bst, xv: np.ndarray, label: str) -> dict:
 
 def mono_train_parity(gpu: str, x, y, env: dict, params: dict,
                       label: str) -> dict:
-    """``MONO_PARITY_TREES`` trees of the monotone cell's first
-    ``MONO_PARITY_ROWS`` rows on the route ``env`` selects, on the card
+    """``MONO_PARITY_TREES`` trees of ``PARITY_CUT_LEAVES`` leaves of the
+    monotone cell's first ``MONO_PARITY_ROWS`` rows on the route ``env``
+    selects, on the card
     and with device="cpu": trees and leaves bit for bit (a gate), and
     whether every split descriptor the card read equals the CPU run's."""
     import lightgbm_tpu_torch as lgt
@@ -4398,7 +4428,8 @@ def mono_train_parity(gpu: str, x, y, env: dict, params: dict,
         for device in ("cuda", "cpu"):
             ds = lgt.Dataset(xc, label=yc,
                              params={"max_bin": params["max_bin"]})
-            bst = lgt.Booster(params, ds, device=device)
+            bst = lgt.Booster(dict(params, num_leaves=PARITY_CUT_LEAVES),
+                              ds, device=device)
             traces.append([])
             bst._inner.grow.trace = traces[-1]
             t0 = time.perf_counter()
@@ -4408,8 +4439,9 @@ def mono_train_parity(gpu: str, x, y, env: dict, params: dict,
     (bc, tc), (bp, tp) = bsts
     rec = compare_trees(bc._models, bp._models)
     rec.update(case=f"monotone {label}: first {MONO_PARITY_ROWS} rows x "
-               f"{x.shape[1]}, {TRAIN_LEAVES} leaves, {MONO_PARITY_TREES} "
-               "trees", route=bc._inner.grow.route.describe(),
+               f"{x.shape[1]}, {PARITY_CUT_LEAVES} leaves, "
+               f"{MONO_PARITY_TREES} trees",
+               route=bc._inner.grow.route.describe(),
                leaves_bitwise=leaves_bitwise(bc._models, bp._models),
                descriptors_equal=traces[0] == traces[1],
                constrained_splits=constrained_splits(bc._models),
@@ -4701,7 +4733,7 @@ CAT_DS_PARAMS = {"max_bin": 255, "min_data_in_bin": 1}
 # bench_cat_onehot's setting: a threshold above the cardinality keeps
 # every categorical split one-hot (and the kernel tail)
 CAT_ONEHOT_PARAMS = dict(CAT_PARAMS, max_cat_to_onehot=CAT_CATS + 1)
-CAT_ITERS = 3
+CAT_ITERS = 2
 CAT_SHORT_ITERS = 2
 # the cut of the categorical data the card is held against the CPU on
 CAT_PARITY_ROWS = 10_000
@@ -4944,8 +4976,9 @@ def cat_train_parity(gpu: str, x, y, cats, env: dict, params: dict,
     (bc, tc), (bp, tp) = bsts
     rec = compare_trees(bc._models, bp._models)
     rec.update(case=f"categorical {label}: first {CAT_PARITY_ROWS} rows x "
-               f"{CAT_FEATURES}, {TRAIN_LEAVES} leaves, {CAT_PARITY_TREES} "
-               "trees", route=bc._inner.grow.route.describe(),
+               f"{CAT_FEATURES}, {params['num_leaves']} leaves, "
+               f"{CAT_PARITY_TREES} trees",
+               route=bc._inner.grow.route.describe(),
                leaves_bitwise=leaves_bitwise(bc._models, bp._models),
                descriptors_equal=traces[0] == traces[1],
                multi_category_splits=multi_category_splits(bc._models),
@@ -4978,7 +5011,7 @@ def cat_phases(gpu: str) -> list:
     max_bin 255, min_data_in_bin 1, min_data_per_group 5,
     max_cat_to_onehot 4).  The word modes against their plain versions
     on adversarial words; the card against the CPU on a cut of the data
-    on every categorical route (bit for bit); the default route for 3
+    on every categorical route (bit for bit); the default route for 2
     iterations, pack=2, both FUSED=0 routes and 3ph for 2 (pack=2 and
     the unfused routes' trees bitwise the default route's), max_bin 1023
     (cat_overwide, row_order) for 2 and the one-hot twin
@@ -5008,10 +5041,12 @@ def cat_phases(gpu: str) -> list:
           f"{time.perf_counter() - t1:.2f} s at max_bin=1023 (host)",
           flush=True)
     wide_params = dict(CAT_PARAMS, max_bin=1023)
-    parities = {k: cat_train_parity(gpu, x, y, cats, env, CAT_PARAMS, k)
+    cut = {"num_leaves": PARITY_CUT_LEAVES}
+    parities = {k: cat_train_parity(gpu, x, y, cats, env,
+                                    dict(CAT_PARAMS, **cut), k)
                 for k, env in CAT_ROUTES.items()}
-    parities["max_bin_1023"] = cat_train_parity(gpu, x, y, cats, {},
-                                                wide_params, "max_bin 1023")
+    parities["max_bin_1023"] = cat_train_parity(
+        gpu, x, y, cats, {}, dict(wide_params, **cut), "max_bin 1023")
 
     lap("categorical/binning and train parity")
     runs, bsts = {}, {}
@@ -5226,16 +5261,18 @@ def card_booster(params: dict, x, y, iters: int, env: dict):
 
 
 def objective_parities(gpu: str) -> dict:
-    """The card against device="cpu" at 10,000 x 28, 255 leaves, bitwise:
-    softmax (K = 5) and one-vs-all (K = 3) for 1 iteration, the softmax
-    at pack=2 bitwise the pack=1 card trees (its record kernels
-    counted), and 1 tree of each regression and cross-entropy objective
-    on a label it accepts (one tree and 10,000 rows each: the script's
+    """The card against device="cpu" at 10,000 x 28, bitwise: softmax
+    (K = 5) and one-vs-all (K = 3) for 1 iteration, the softmax at
+    pack=2 (255 leaves) bitwise the pack=1 card trees (its record
+    kernels counted), and 1 tree of each regression and cross-entropy
+    objective on a label it accepts (one tree, 10,000 rows and
+    ``PARITY_CUT_LEAVES`` leaves each but the pack=2 pair: the script's
     time budget)."""
     x = make_rows(OBJ_PARITY_ROWS, N_FEATURES, 3)
     out = {}
     for name, params in (("multiclass", MC_PARAMS),
                          ("multiclassova", OVA_PARAMS)):
+        params = dict(params, num_leaves=PARITY_CUT_LEAVES)
         rec = train_parity(gpu, {}, MC_PARITY_ITERS, name, params=params,
                            bitwise=True, y=objective_label(name, x, 5),
                            rows=OBJ_PARITY_ROWS)
@@ -5251,7 +5288,8 @@ def objective_parities(gpu: str) -> dict:
     out["multiclass_pack2"]["launches"] = {k: v for k, v in launches.items()
                                            if v}
     for name, extra in OBJ_PARITY.items():
-        params = dict(TRAIN_PARAMS, objective=name, metric="None", **extra)
+        params = dict(TRAIN_PARAMS, objective=name, metric="None",
+                      num_leaves=PARITY_CUT_LEAVES, **extra)
         rec = train_parity(gpu, {}, OBJ_PARITY_TREES, name, params=params,
                            bitwise=True, y=objective_label(name, x, 7),
                            rows=OBJ_PARITY_ROWS)
@@ -5460,13 +5498,15 @@ def sampling_draws(gpu: str, bag, goss) -> dict:
 
 
 def sampling_parities(gpu: str) -> dict:
-    """The card against device="cpu" at 10,000 x 28, 255 leaves,
+    """The card against device="cpu" at 10,000 x 28, 63 leaves,
     bitwise, for each of ``SAMPLING_PARITY``, and the bagging run at
     pack=2 bitwise the pack=1 card trees (its record kernels counted)."""
     out = {}
     for name, (params, trees) in SAMPLING_PARITY.items():
-        out[name] = train_parity(gpu, {}, trees, name, params=params,
-                                 bitwise=True, rows=OBJ_PARITY_ROWS)
+        out[name] = train_parity(
+            gpu, {}, trees, name,
+            params=dict(params, num_leaves=PARITY_CUT_LEAVES), bitwise=True,
+            rows=OBJ_PARITY_ROWS)
     x = make_rows(OBJ_PARITY_ROWS, N_FEATURES, 3)
     _, y = make_higgs_like(OBJ_PARITY_ROWS, N_FEATURES, 3)
     params, trees = SAMPLING_PARITY["bagging"]
@@ -5644,8 +5684,8 @@ def ranking_holdout(yv: np.ndarray, gv: np.ndarray):
 
 
 def rank_parity(gpu: str, name: str, params: dict, iters: int) -> dict:
-    """``iters`` iterations of ``params`` on a seeded 20,000 x 28 ranking
-    set (``make_rows``' missing values, ``rank_labels``, ``rank_groups``)
+    """``iters`` iterations of ``params`` at ``PARITY_CUT_LEAVES`` leaves
+    on a seeded 20,000 x 28 ranking set (``make_rows``' missing values, ``rank_labels``, ``rank_groups``)
     trained on the card and with device="cpu": the trees must be equal
     and their leaves bitwise, and the drop sets equal."""
     import lightgbm_tpu_torch as lgt
@@ -5655,7 +5695,8 @@ def rank_parity(gpu: str, name: str, params: dict, iters: int) -> dict:
     out = {}
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        bst = lgt.Booster(params, lgt.Dataset(x, label=y, group=group),
+        bst = lgt.Booster(dict(params, num_leaves=PARITY_CUT_LEAVES),
+                          lgt.Dataset(x, label=y, group=group),
                           device=device)
         drops = []
         for _ in range(iters):
@@ -5665,7 +5706,7 @@ def rank_parity(gpu: str, name: str, params: dict, iters: int) -> dict:
     (bc, dc, tc), (bp, dp, tp) = out["cuda"], out["cpu"]
     rec = compare_trees(bc._models, bp._models)
     rec.update(case=f"{name}: {RANK_PARITY_ROWS}x{N_FEATURES}, "
-               f"{len(group)} queries, {TRAIN_LEAVES} leaves, {iters} "
+               f"{len(group)} queries, {PARITY_CUT_LEAVES} leaves, {iters} "
                "iterations", route=bc._inner.grow.route.describe(),
                drop_sets=dc, cuda_s=tc, cpu_s=tp,
                leaves_bitwise=leaves_bitwise(bc._models, bp._models),
@@ -5843,6 +5884,227 @@ def ranking_phases(gpu: str, wide: dict) -> dict:
             "gradients": grads, "gradient_graph": graph, "profile": prof}
 
 
+# ---------------------------------------------------------------------
+# Slice 22: the split options on the PyTorch split tail (interaction
+# constraints, CEGB, forced splits, feature_fraction_bynode, extra_trees)
+SPLIT_ITERS = 3
+SPLIT_PARITY_TREES = 2
+# the UCI HIGGS columns' groups: the lepton and the missing energy, each
+# of the four jets, the seven derived masses
+HIGGS_SETS = [list(range(0, 5)), list(range(5, 9)), list(range(9, 13)),
+              list(range(13, 17)), list(range(17, 21)), list(range(21, 28))]
+# CEGB costs on the derived masses (columns 21-27), the features that
+# cost to compute: CEGB_COST is near the median gain of the twin's splits
+# on them at 1M rows (PERF.md section 4), so their first use in a tree
+# must beat the other columns by that much; the per-row split penalty
+# stays far below every split's gain per row
+CEGB_COLS = range(21, 28)
+CEGB_COST = 150.0
+CEGB_SPLIT = 5e-4
+CEGB_COSTS = [CEGB_COST if c in CEGB_COLS else 0.0
+              for c in range(N_FEATURES)]
+# the shape of LightGBM's examples/binary_classification/forced_splits.json
+FORCED_SPLITS = {"feature": 25, "threshold": 1.30,
+                 "left": {"feature": 26, "threshold": 0.85},
+                 "right": {"feature": 26, "threshold": 0.85}}
+SPLIT_ROUTE = "path=stream fused=1 tail=xla ({})"
+# (extra params, route) of each split option's main path
+SPLIT_OPTIONS = {
+    "interaction": ({"interaction_constraints": HIGGS_SETS},
+                    SPLIT_ROUTE.format("tail_interaction")),
+    "cegb_coupled": ({"cegb_penalty_split": CEGB_SPLIT,
+                      "cegb_penalty_feature_coupled": CEGB_COSTS},
+                     SPLIT_ROUTE.format("tail_cegb")),
+    "cegb_lazy": ({"cegb_penalty_split": CEGB_SPLIT,
+                   "cegb_penalty_feature_lazy": CEGB_COSTS},
+                  "path=row_order fused=0 tail=xla (cegb_lazy, tail_cegb)"),
+    "forced": ({"forcedsplits_filename": None},
+               SPLIT_ROUTE.format("tail_forced")),
+    "bynode": ({"feature_fraction_bynode": 0.5, "feature_fraction": 0.8},
+               SPLIT_ROUTE.format("tail_bynode")),
+    "extra_trees": ({"extra_trees": True, "extra_seed": 6},
+                    SPLIT_ROUTE.format("tail_extra_trees")),
+}
+
+
+def forced_splits_file() -> str:
+    """``FORCED_SPLITS`` written under the checkout's build directory."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "lightgbm_tpu_torch", "build")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "forced_splits.json")
+    with open(path, "w") as fh:
+        json.dump(FORCED_SPLITS, fh)
+    return path
+
+
+def split_option_params(name: str) -> dict:
+    extra = dict(SPLIT_OPTIONS[name][0])
+    if "forcedsplits_filename" in extra:
+        extra["forcedsplits_filename"] = forced_splits_file()
+    return dict(TRAIN_PARAMS, **extra)
+
+
+def tree_paths(t) -> list:
+    """The split features (raw columns) on each root-to-leaf path."""
+    out, stack = [], [(0, ())]
+    while stack:
+        node, feats = stack.pop()
+        feats = feats + (int(t.split_feature[node]),)
+        for c in (int(t.left_child[node]), int(t.right_child[node])):
+            if c >= 0:
+                stack.append((c, feats))
+            else:
+                out.append(feats)
+    return out
+
+
+def interaction_violations(models, sets) -> int:
+    """Root-to-leaf paths whose features no one interaction set holds."""
+    sets = [set(s) for s in sets]
+    return sum(not any(set(p) <= s for s in sets)
+               for t in models if t.num_leaves > 1 for p in tree_paths(t))
+
+
+def splits_on(models, cols) -> int:
+    return int(sum(np.isin(t.split_feature[:t.num_leaves - 1],
+                           list(cols)).sum() for t in models))
+
+
+def forced_nodes_on_top(models, ds) -> dict:
+    """Whether every tree's first three nodes are the forced ones: node 0
+    on column 25 at the bin of 1.30, its children nodes 1 and 2 on column
+    26 at the bin of 0.85 (every forced child here is non-empty)."""
+    inner = {int(c): j for j, c in enumerate(ds.used_feature_map)}
+    b25 = int(ds.mappers[inner[25]].values_to_bins(np.array([1.30]))[0])
+    b26 = int(ds.mappers[inner[26]].values_to_bins(np.array([0.85]))[0])
+    ok = all(t.num_leaves >= 4
+             and [int(v) for v in t.split_feature[:3]] == [25, 26, 26]
+             and [int(v) for v in t.threshold_bin[:3]] == [b25, b26, b26]
+             and int(t.left_child[0]) == 1 and int(t.right_child[0]) == 2
+             for t in models)
+    return {"ok": ok, "bins": [b25, b26],
+            "root_counts": [[float(c) for c in t.internal_count[:3]]
+                            for t in models]}
+
+
+def split_draws(gpu: str) -> dict:
+    """A tree's node draws (``utils/random``: fold_in keys over the 2L - 1
+    node salts, then a uniform row a node) on the card bitwise the CPU's,
+    timed on the card."""
+    import torch
+
+    from lightgbm_tpu_torch.utils.random import fold_in, prng_key, uniform_rows
+
+    def draw(dev):
+        salts = torch.arange(2 * TRAIN_LEAVES - 1, dtype=torch.int64,
+                             device=dev)
+        keys = fold_in(fold_in(prng_key(6), 7, dev), salts)
+        return uniform_rows(keys, N_FEATURES, dev)
+    card, host = draw("cuda"), draw("cpu")
+    if not torch.equal(card.cpu(), host):
+        raise RuntimeError("the card's node draws differ from the CPU's")
+    out = {"nodes": 2 * TRAIN_LEAVES - 1, "features": N_FEATURES,
+           "bitwise": True, "draw_ms": _event_ms(lambda: draw("cuda")),
+           "gpu": gpu}
+    print("split draws " + json.dumps(out), flush=True)
+    return out
+
+
+def split_option_phases(gpu: str, higgs: dict) -> dict:
+    """Slice 22: each split option (``SPLIT_OPTIONS``) trained on the card
+    against device="cpu" at 10,000 x 28, 63 leaves, 2 trees (bitwise),
+    then on the training main path's 1M rows (``TRAIN_PARAMS``, 3
+    iterations) on its route, counted against ``expected_launches``,
+    its holdout AUC beside the default route's booster at 3 iterations,
+    its gate (no path leaving one interaction set; fewer splits on
+    columns 21-27 than that booster's first 3 trees under coupled and
+    lazy CEGB; the forced nodes on top of every tree; trees other than
+    the twin's under by-node sampling and extra trees), one profiled
+    iteration; the node draws bitwise (:func:`split_draws`)."""
+    from lightgbm_tpu_torch.metric.metrics import _weighted_auc
+    parity = {}
+    for name in SPLIT_OPTIONS:
+        parity[name] = train_parity(
+            gpu, {}, SPLIT_PARITY_TREES, f"split options {name}",
+            params=dict(split_option_params(name),
+                        num_leaves=PARITY_CUT_LEAVES),
+            bitwise=True, rows=OBJ_PARITY_ROWS)
+    draws = split_draws(gpu)
+    lap("split options/parity")
+    ds, valid, x, xv = higgs["ds"], higgs["valid"], higgs["x"], higgs["xv"]
+    twin = higgs["bst"]._models[:SPLIT_ITERS]
+    twin_auc = _weighted_auc(
+        higgs["yv"], higgs["bst"].predict(xv, raw_score=True,
+                                          num_iteration=SPLIT_ITERS), None)
+    gains = np.concatenate([t.split_gain[:t.num_leaves - 1]
+                            for t in higgs["bst"]._models])
+    feats = np.concatenate([t.split_feature[:t.num_leaves - 1]
+                            for t in higgs["bst"]._models])
+    on_cols = np.isin(feats, list(CEGB_COLS))
+    twin_gains = {
+        "trees": len(higgs["bst"]._models),
+        "splits": int(len(gains)), "splits_on_21_27": int(on_cols.sum()),
+        "gain_quartiles": np.percentile(gains, [25, 50, 75]).tolist(),
+        "gain_quartiles_21_27": (np.percentile(gains[on_cols], [25, 50, 75])
+                                 .tolist() if on_cols.any() else None)}
+    print("split options twin gains " + json.dumps(twin_gains), flush=True)
+    runs, profiles, gates = {}, {}, {}
+    for name, (_, want) in SPLIT_OPTIONS.items():
+        params = split_option_params(name)
+        bst, run = train_main_path(gpu, ds, valid, x, {}, SPLIT_ITERS,
+                                   f"split options {name}", params=params)
+        if run["route"] != want:
+            raise RuntimeError(f"the {name} main path took {run['route']}")
+        models = bst._models[:SPLIT_ITERS]
+        if name == "interaction":
+            gate = {"paths_leaving_a_set": interaction_violations(
+                models, HIGGS_SETS)}
+            ok = gate["paths_leaving_a_set"] == 0
+        elif name.startswith("cegb"):
+            gate = {"splits_on_21_27": splits_on(models, CEGB_COLS),
+                    "twin_splits_on_21_27": splits_on(twin, CEGB_COLS),
+                    "leaves": [t.num_leaves for t in models]}
+            ok = (gate["splits_on_21_27"] < gate["twin_splits_on_21_27"]
+                  and all(n == TRAIN_LEAVES for n in gate["leaves"]))
+        elif name == "forced":
+            gate = forced_nodes_on_top(models, ds._binned)
+            ok = gate["ok"]
+        else:
+            gate = {"differs_from_twin": not compare_trees(
+                models, twin)["ok"]}
+            ok = gate["differs_from_twin"]
+        if not ok:
+            raise RuntimeError(f"the {name} main path fails its gate: {gate}")
+        gates[name] = gate
+        runs[name] = run
+        profiles[name] = profile_iteration(bst, gpu)
+        print(f"profiled iteration, split options {name} "
+              + json.dumps(profiles[name]), flush=True)
+        lap(f"split options/{name}")
+    summary = {name: {
+        "route": run["route"], "iterations": run["iterations"],
+        "s_per_iter_first": run["s_per_iter_first"],
+        "s_per_iter_rest_mean": run["s_per_iter_rest_mean"],
+        "stage_ms_per_tree": run["stage_ms_per_tree"],
+        "kernels_per_split": profiles[name].get("kernels_per_split"),
+        "busy_share": profiles[name].get("busy_share"),
+        "holdout_auc": run["holdout_auc"],
+        "default_route_auc_3_iterations": twin_auc,
+        "splits": run["splits"], "host_reads": run["host_reads"],
+        "gate": gates[name],
+        "parity_bitwise": parity[name]["ok"]}
+        for name, run in runs.items()}
+    summary["draws"] = {k: v for k, v in draws.items() if k != "gpu"}
+    summary["twin_gains"] = twin_gains
+    summary["costs"] = {"cegb_cost_21_27": CEGB_COST,
+                        "cegb_penalty_split": CEGB_SPLIT}
+    summary["gpu"] = gpu
+    print("split options " + json.dumps(summary), flush=True)
+    return {"parity": parity, "main": runs, "profile": profiles,
+            "draws": draws}
+
+
 _CLOCK = [time.perf_counter()]
 
 
@@ -5907,8 +6169,10 @@ def main() -> int:
     lap("sampling")
     ranking = ranking_phases(gpu, wide)
     lap("ranking")
-    # the launches of the multiclass, sampling and ranking routes, and of
-    # their pack=2 parity runs
+    options = split_option_phases(gpu, higgs)
+    lap("split options")
+    # the launches of the multiclass, sampling, ranking and split-option
+    # routes, and of the pack=2 parity runs
     mc, mc2 = (objectives["multiclass"]["launches"],
                objectives["parity"]["multiclass_pack2"]["launches"])
     bag2 = sampling["parity"]["bagging_pack2"]["launches"]
@@ -5917,6 +6181,7 @@ def main() -> int:
             continue
         key = {"hist_comb": "build_histogram_comb",
                "hist_comb_p2": "build_histogram_comb_p2",
+               "hist_rows": "build_histogram_rows",
                "apply_find": "apply_find_pool"}.get(k["name"], k["name"])
         if mc.get(key):
             k["multiclass_launches"] = mc[key]
@@ -5930,6 +6195,10 @@ def main() -> int:
             k["bagging_pack2_parity_launches"] = bag2[key]
         if ranking["main"]["launches"].get(key):
             k["ranking_launches"] = ranking["main"]["launches"][key]
+        got = {name: run["launches"][key] for name, run in
+               options["main"].items() if run["launches"].get(key)}
+        if got:
+            k["split_options_launches"] = got
     kernels += probes
     if not analysis["checked_in_report_current"]:
         raise RuntimeError(

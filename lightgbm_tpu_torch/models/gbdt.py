@@ -38,10 +38,18 @@ percentile objectives (l1, huber, quantile, mape) refit each tree's
 leaf outputs before the score update (``objective.regression.
 renew_leaf_values``, on the training device).
 
+The split options the kernel tail has no mode for (interaction
+constraints, CEGB, forced splits, ``feature_fraction_bynode``,
+``extra_trees``; ``models/constraints.py``) go to the grower as
+``ops.grow.GrowOptions`` and take the PyTorch tail (``tail=xla``); each
+tree's draws are salted by ``iteration * K + class`` (JAX
+``gbdt.py:1378``), and lazy CEGB's paid mask ``[F, n]`` lives here,
+across trees, on the row-order path.
+
 Unlike the JAX package, trees are finalized synchronously, so an
 iteration in which no class's tree can split stops training at once
-(the reference's synchronous behaviour).  Parameters this slice does
-not port raise ``LightGBMError`` (:func:`check_supported`).
+(the reference's synchronous behaviour).  Parameters the port does not
+have yet raise ``LightGBMError`` (:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -112,8 +120,8 @@ def check_pack_conflicts(cfg: Config) -> None:
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise for the pack conflicts and for every parameter this slice
-    does not port."""
+    """Raise for the pack conflicts and for every parameter the port does
+    not have yet."""
     check_pack_conflicts(cfg)
     if cfg.tree_learner != "serial" or cfg.num_machines > 1:
         _unported(f"tree_learner={cfg.tree_learner} (the mesh learners)",
@@ -122,19 +130,23 @@ def check_supported(cfg: Config) -> None:
         _unported("pre_partition (paged / distributed data)", "A11")
     if cfg.gpu_use_dp:
         _unported("gpu_use_dp", "A9")
-    if cfg.interaction_constraints:
-        _unported("interaction_constraints", "A9")
-    if (cfg.cegb_penalty_split > 0 or cfg.cegb_penalty_feature_lazy
-            or cfg.cegb_penalty_feature_coupled):
-        _unported("CEGB", "A9")
-    if cfg.forcedsplits_filename:
-        _unported("forced splits", "A9")
-    if cfg.feature_fraction_bynode < 1.0:
-        _unported("feature_fraction_bynode", "A9")
-    if cfg.extra_trees:
-        _unported("extra_trees", "A9")
     if cfg.linear_tree:
         _unported("linear_tree", "A9")
+
+
+def bynode_count(cfg: Config, ds: BinnedDataset) -> int:
+    """Features a node keeps under ``feature_fraction_bynode`` (JAX
+    ``gbdt.py:964-981``; 0 without by-node sampling): the fraction of
+    the by-tree sample (ColSampler samples from used_feature_indices_),
+    not of every feature.  The JAX package's warning and no-op for the
+    feature-parallel learner does not arise: that learner raises in
+    :func:`check_supported`."""
+    if cfg.feature_fraction_bynode >= 1.0:
+        return 0
+    k_tree = ds.num_features
+    if cfg.feature_fraction < 1.0:
+        k_tree = max(1, int(np.ceil(k_tree * cfg.feature_fraction)))
+    return max(1, int(np.ceil(k_tree * cfg.feature_fraction_bynode)))
 
 
 def uses_cat_subset(cfg: Config, ds: BinnedDataset) -> bool:
@@ -220,9 +232,13 @@ class GBDT:
             cat_smooth=cfg.cat_smooth, use_cat_subset=subset,
             max_cat_to_onehot=cfg.max_cat_to_onehot,
             max_cat_threshold=cfg.max_cat_threshold,
-            min_data_per_group=cfg.min_data_per_group)
-        hp_updates, monotone = build_grow_constraints(cfg, train_set)
+            min_data_per_group=cfg.min_data_per_group,
+            use_extra_trees=bool(cfg.extra_trees))
+        hp_updates, monotone, opts = build_grow_constraints(cfg, train_set)
         self.hp = self.hp._replace(**hp_updates)
+        self.grow_options = opts = opts._replace(
+            bynode_count=bynode_count(cfg, train_set),
+            bynode_seed=cfg.feature_fraction_seed, extra_seed=cfg.extra_seed)
         self.dd: DeviceDataset = to_device(train_set, device)
         dd = self.dd
         kind = getattr(objective, "STREAM_KIND", None)
@@ -237,6 +253,11 @@ class GBDT:
             bins_u8=dd.bins.dtype == torch.uint8, cat_subset=subset,
             mono_intermediate=self.hp.use_monotone
             and self.hp.mono_intermediate,
+            interaction=opts.interaction_sets is not None,
+            cegb=self.hp.use_cegb, cegb_lazy=opts.cegb_lazy is not None,
+            forced_splits=opts.forced is not None,
+            bynode=opts.bynode_count > 0,
+            extra_trees=self.hp.use_extra_trees,
             fused_ok=fused_supported(dd.num_features, dd.padded_bins),
             tail_ok=apply_find_supported(dd.num_features, dd.padded_bins)),
             num_features=dd.num_features, padded_bins=dd.padded_bins))
@@ -245,7 +266,7 @@ class GBDT:
             self.grow = RowOrderGrower(self.hp, num_leaves=cfg.num_leaves,
                                        max_depth=cfg.max_depth, dd=dd,
                                        route=self.route, timer=self.timer,
-                                       monotone=monotone)
+                                       monotone=monotone, options=opts)
         else:
             stream = (StreamSpec(kind,
                                  float(getattr(objective, "sigmoid", 1.0)))
@@ -253,11 +274,16 @@ class GBDT:
             self.grow = SerialGrower(self.hp, num_leaves=cfg.num_leaves,
                                      max_depth=cfg.max_depth, dd=dd,
                                      route=self.route, stream=stream,
-                                     timer=self.timer, monotone=monotone)
+                                     timer=self.timer, monotone=monotone,
+                                     options=opts)
             if self.route.stream:
                 self.grow.set_stream_aux(self._stream_aux)
         n = train_set.num_data
         md = train_set.metadata
+        # lazy CEGB: the rows paid for each feature, kept across trees
+        # (feature_used_in_data_, cost_effective_gradient_boosting.hpp:169)
+        self._cegb_paid = (None if opts.cegb_lazy is None else torch.zeros(
+            (dd.num_features, n), dtype=torch.bool, device=device))
         self._has_init_score = md.init_score is not None
         self.scores = _init_scores(md, self.num_tree_per_iteration, n, device)
         # reference class_need_train_: cleared for a class whose
@@ -456,10 +482,12 @@ class GBDT:
         asks, add its shrunk outputs to the scores and finish it; None
         when it is a stump."""
         # the shrinkage rate is read per call: the stream route adds the
-        # tree's outputs to the rows' scores with it
-        ta, leaf_id, leaf_value = self.grow(grad, hess, inbag,
-                                            self._feature_mask(),
-                                            rate=self.shrinkage_rate)
+        # tree's outputs to the rows' scores with it; the tree's draws
+        # take the salt iteration * K + class
+        ta, leaf_id, leaf_value = self.grow(
+            grad, hess, inbag, self._feature_mask(), rate=self.shrinkage_rate,
+            tree_seed=self.iter_ * self.num_tree_per_iteration + c,
+            paid=self._cegb_paid)
         nl = int(ta.num_leaves)
         if nl <= 1:
             if len(self.models) < self.num_tree_per_iteration:

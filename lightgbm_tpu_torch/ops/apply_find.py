@@ -42,10 +42,13 @@ unconstrained one is unchanged.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  The kernel has no
-sorted-subset categorical search and no intermediate monotone method:
-under ``hp.use_cat_subset`` or ``hp.mono_intermediate`` the route takes
-the PyTorch tail (:func:`apply_find_pool_ref`), and a kernel launch
-raises.
+sorted-subset categorical search, no intermediate monotone method and
+no per-child search inputs (:class:`ChildSearch`: interaction
+constraints, by-node feature sampling, CEGB penalties, the extra
+trees' draws): under ``hp.use_cat_subset``, ``hp.mono_intermediate``,
+``hp.use_cegb`` or ``hp.use_extra_trees``, or with a ``ChildSearch``,
+the route takes the PyTorch tail (:func:`apply_find_pool_ref`), and a
+kernel launch raises.
 """
 from __future__ import annotations
 
@@ -87,6 +90,16 @@ class TreeState(NamedTuple):
     lstate: torch.Tensor   # f32 [L, 8] sums, depth, parent, bounds, output
     nodes: torch.Tensor    # f32 [L - 1, 4] gain, output, weight, count
     seg: torch.Tensor      # i32 [L, 2] segment (start, count) of each leaf
+
+
+class ChildSearch(NamedTuple):
+    """The two children's own search inputs, built once a split by the
+    grower (``ops/grow._SearchPlan.children``): each ``[2, F]`` f32
+    (left, right); None where the option is off."""
+    mask: torch.Tensor                     # feature mask of each child
+    cegb: Optional[torch.Tensor] = None    # CEGB per-feature penalty
+    rand: Optional[torch.Tensor] = None    # extra trees: thresholds' draws
+    rand_subset: Optional[torch.Tensor] = None   # extra trees: subsets'
 
 
 class SplitAt(NamedTuple):
@@ -163,9 +176,12 @@ def child_bounds(brow: torch.Tensor, lrow: torch.Tensor, fc: FinderConsts,
 
 def apply_find_ref(h2: torch.Tensor, nleft: torch.Tensor, st: TreeState,
                    fc: FinderConsts, feature_mask: torch.Tensor,
-                   hp: SplitHyperParams, max_depth: int, at: SplitAt) -> None:
+                   hp: SplitHyperParams, max_depth: int, at: SplitAt,
+                   child: Optional[ChildSearch] = None) -> None:
     """Plain version of the plain-pool entry: ``h2`` [2, F, B, 2] holds
-    the left and right child's histograms."""
+    the left and right child's histograms.  With ``child`` the children
+    search with its masks (instead of ``feature_mask``), penalties and
+    draws."""
     if at.done:
         return
     leaf, right = at.leaf, at.right
@@ -188,13 +204,15 @@ def apply_find_ref(h2: torch.Tensor, nleft: torch.Tensor, st: TreeState,
         torch.stack([lg, lh, lc, d_child, fnode, l_mn, l_mx, lo]),
         torch.stack([rg, rh, rc, d_child, fnode, r_mn, r_mx, ro])])
     depth = torch.stack([d_child, d_child])
+    cs = child or ChildSearch(feature_mask)
     si = find_best_split(
         h2, torch.stack([lg, rg]), torch.stack([lh, rh]),
         torch.stack([lc, rc]), fc.num_bins, fc.has_nan, fc.is_cat,
-        feature_mask, allow_split(depth, max_depth), hp,
+        cs.mask, allow_split(depth, max_depth), hp,
         parent_output=torch.stack([lo, ro]), monotone=fc.mono,
         mn=torch.stack([l_mn, r_mn]), mx=torch.stack([l_mx, r_mx]),
-        depth=depth, penalty=fc.penalty)
+        depth=depth, penalty=fc.penalty, cegb_penalty=cs.cegb,
+        rand=cs.rand, rand_subset=cs.rand_subset)
     st.best[[leaf, right]] = pack_split_info(si)
 
 
@@ -219,27 +237,31 @@ def pool_children(h_a: torch.Tensor, h_b: torch.Tensor, nleft: torch.Tensor,
 def apply_find_pool_ref(h_a: torch.Tensor, h_b: torch.Tensor,
                         nleft: torch.Tensor, st: TreeState, fc: FinderConsts,
                         feature_mask: torch.Tensor, hp: SplitHyperParams,
-                        max_depth: int, at: SplitAt) -> None:
+                        max_depth: int, at: SplitAt,
+                        child: Optional[ChildSearch] = None) -> None:
     """Plain version of the pool entry: :func:`pool_children`, then
-    :func:`apply_find_ref`."""
+    :func:`apply_find_ref`.  The PyTorch tail of the routes whose
+    search the kernel has no mode for (``ChildSearch`` and the options
+    named in the module docstring)."""
     if at.done:
         return
     apply_find_ref(pool_children(h_a, h_b, nleft, st, at), nleft, st, fc,
-                   feature_mask, hp, max_depth, at)
+                   feature_mask, hp, max_depth, at, child)
 
 
 def apply_find_torch_pool(h_a: torch.Tensor, h_b: torch.Tensor,
                           nleft: torch.Tensor, st: TreeState,
                           fc: FinderConsts, feature_mask: torch.Tensor,
                           hp: SplitHyperParams, max_depth: int,
-                          at: SplitAt) -> None:
+                          at: SplitAt,
+                          child: Optional[ChildSearch] = None) -> None:
     """The split tail under ``LGBM_TPU_POOL_TAIL=0``: the pool ops in
     PyTorch (:func:`pool_children`), then the plain-pool entry
     :func:`apply_find` (the kernel on CUDA tensors)."""
     if at.done:
         return
     apply_find(pool_children(h_a, h_b, nleft, st, at), nleft, st, fc,
-               feature_mask, hp, max_depth, at)
+               feature_mask, hp, max_depth, at, child)
 
 
 # the kernel's launch (csrc/apply_find.cu): one thread-block cluster of
@@ -429,6 +451,11 @@ def _scalars(at: SplitAt, max_depth: int, hp: SplitHyperParams,
                             "monotone method; the PyTorch tail "
                             "(apply_find_pool_ref) and the grower's "
                             "adjacency pass run it")
+    if hp.use_cegb or hp.use_extra_trees:
+        # routing rules tail_cegb, tail_extra_trees
+        raise LightGBMError("the kernel split tail has no CEGB penalty and "
+                            "no extra trees' draws; the PyTorch tail "
+                            "(apply_find_pool_ref) runs them")
     return [fc.mono.data_ptr(), fc.penalty.data_ptr(), f, b, at.leaf,
             at.right, at.node, at.s0, at.cnt, int(at.done), geo.blocks,
             geo.feats, int(max_depth), fc.penalty.numel(), hp.lambda_l1,
@@ -482,19 +509,31 @@ def launch_plain(h2: torch.Tensor, nleft: torch.Tensor, st: TreeState,
                             f"error {rc}")
 
 
+def _no_child(child: Optional[ChildSearch]) -> None:
+    if child is not None:
+        # routing rules tail_interaction, tail_bynode (and the others
+        # that build per-child inputs)
+        raise LightGBMError("the kernel split tail takes one feature mask "
+                            "for both children; per-child masks, penalties "
+                            "and draws run on the PyTorch tail "
+                            "(apply_find_pool_ref)")
+
+
 def apply_find_pool(h_a: torch.Tensor, h_b: torch.Tensor,
                     nleft: torch.Tensor, st: TreeState, fc: FinderConsts,
                     feature_mask: torch.Tensor, hp: SplitHyperParams,
-                    max_depth: int, at: SplitAt) -> None:
+                    max_depth: int, at: SplitAt,
+                    child: Optional[ChildSearch] = None) -> None:
     """The split tail with the histogram pool (the main path's entry).
     CPU tensors take :func:`apply_find_pool_ref`; CUDA tensors launch
-    the kernel on :func:`tail_geometry`."""
+    the kernel on :func:`tail_geometry` (and raise with ``child``)."""
     dev = st.pool.device
     if dev.type == "cpu":
         return apply_find_pool_ref(h_a, h_b, nleft, st, fc, feature_mask, hp,
-                                   max_depth, at)
+                                   max_depth, at, child)
     if dev.type != "cuda":
         raise LightGBMError(f"apply_find runs on cuda or cpu, not {dev}")
+    _no_child(child)
     geo = _check(h_a, h_b, nleft, st, fc, feature_mask)
     launch_pool(h_a, h_b, nleft, st, fc, feature_mask, hp, max_depth, at, geo)
     apply_find_pool.launches += 1
@@ -503,17 +542,19 @@ def apply_find_pool(h_a: torch.Tensor, h_b: torch.Tensor,
 
 def apply_find(h2: torch.Tensor, nleft: torch.Tensor, st: TreeState,
                fc: FinderConsts, feature_mask: torch.Tensor,
-               hp: SplitHyperParams, max_depth: int, at: SplitAt) -> None:
+               hp: SplitHyperParams, max_depth: int, at: SplitAt,
+               child: Optional[ChildSearch] = None) -> None:
     """The split tail with both children's histograms given (``h2``
     [2, F, B, 2]); the pool is not touched.  CPU tensors take
     :func:`apply_find_ref`; CUDA tensors launch the kernel on
-    :func:`tail_geometry`."""
+    :func:`tail_geometry` (and raise with ``child``)."""
     dev = st.pool.device
     if dev.type == "cpu":
         return apply_find_ref(h2, nleft, st, fc, feature_mask, hp, max_depth,
-                              at)
+                              at, child)
     if dev.type != "cuda":
         raise LightGBMError(f"apply_find runs on cuda or cpu, not {dev}")
+    _no_child(child)
     if not h2.is_contiguous() or h2.dim() != 4 or h2.shape[0] != 2:
         raise LightGBMError("h2 must be a contiguous [2, F, B, 2] tensor")
     geo = _check(h2[0], h2[1], nleft, st, fc, feature_mask)

@@ -75,6 +75,32 @@ keeps every leaf's box in bin space, tightens the bounds of the leaves
 face-adjacent to a new child across a monotone feature with its output
 and searches the tightened leaves again from the pool
 (``grow.py:2075-2150``); it reads nothing back.
+
+The split options the kernel tail has no mode for (``GrowOptions``;
+the route sends them to the PyTorch tail, ``tail=xla``) live in a
+tree's :class:`_SearchPlan`, on the device (JAX ``grow.py:1266-1281``,
+``:1371-1402``, ``:1464-1507``, ``:1876-1891``, ``:2009-2071``):
+
+- interaction constraints: the features used on each leaf's path
+  (``used_feat [L, F]``), a child searching the union of the sets that
+  hold all of them;
+- ``feature_fraction_bynode``: each node keeps the ``k`` features of
+  largest uniform among those allowed;
+- ``extra_trees``: one random threshold (and subset size) a feature and
+  node;
+- CEGB: the coupled penalty of the features no split of the tree used
+  yet (``model_used [F]``) and, on the row-order path, the lazy penalty
+  of each child's in-bag rows not yet paid for a feature (the booster's
+  paid mask ``[F, n]``, marked at every split);
+- forced splits: the schedule's first splits of every tree, computed
+  on the device from the leaf's pooled histogram; where both children
+  are non-empty the forced split is written into the leaf's best row
+  and chosen, its flag riding the split's one descriptor read.
+
+The draws depend only on ``(seed, tree, node)``: node ``i``'s children
+take salts ``2i + 1`` and ``2i + 2``, the root 0, so a tree's ``[2L - 1,
+F]`` uniforms are drawn in one batched threefry when it starts (JAX's
+``fold_in`` keys, bit for bit).
 """
 from __future__ import annotations
 
@@ -85,9 +111,11 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..objective.regression import blocked_cumsum
+from ..utils.random import fold_in, prng_key, uniform_rows
 from .apply_find import (BB, BCAT, BF, BG, SC, SDEP, SG, SH, SMN, SMX,
-                         SOUT, SPAR, SplitAt, TreeState, allow_split,
-                         apply_find_pool, apply_find_pool_ref,
+                         SOUT, SPAR, ChildSearch, SplitAt, TreeState,
+                         allow_split, apply_find_pool, apply_find_pool_ref,
                          apply_find_torch_pool, build_finder_consts)
 from .device_data import (DeviceDataset, PackedRows, Rows, bins_i32,
                           empty_packed_like, empty_rows_like,
@@ -101,7 +129,8 @@ from .partition_kernel import (copyback, copyback_p2, go_left, partition,
 from .routing import RouteDecision, cat_bitset_fit
 from .split import (SplitHyperParams, calculate_leaf_output,
                     cat_subset_member, derived_counts, find_best_split,
-                    monotone_penalty_table, pack_split_info, selection_key)
+                    leaf_split_gain, monotone_penalty_table, pack_split_info,
+                    selection_key)
 from .stream_grad import (stream_init, stream_init_p2, stream_refresh,
                           stream_refresh_p2, stream_refresh_plain,
                           stream_refresh_plain_p2)
@@ -204,6 +233,126 @@ class StreamSpec(NamedTuple):
     sigmoid: float
 
 
+class GrowOptions(NamedTuple):
+    """The split options of a training that the kernel tail has no mode
+    for (``models/constraints.build_grow_constraints``; the booster's
+    by-node count and seeds).  Each per-feature array has one entry an
+    inner feature; None or 0 where the option is off."""
+    interaction_sets: Optional[np.ndarray] = None   # bool [S, F]
+    cegb_coupled: Optional[np.ndarray] = None       # f32 [F]
+    cegb_lazy: Optional[np.ndarray] = None          # f32 [F]
+    # the forced splits' schedule: "leaf", "feature", "bin",
+    # "default_left" arrays, one entry a step
+    forced: Optional[dict] = None
+    bynode_count: int = 0        # features a node keeps (0: no sampling)
+    bynode_seed: int = 0         # feature_fraction_seed
+    extra_seed: int = 6
+
+    def per_child(self, hp: SplitHyperParams) -> bool:
+        """Whether the children search with inputs of their own."""
+        return (self.interaction_sets is not None
+                or self.cegb_coupled is not None
+                or self.cegb_lazy is not None or self.bynode_count > 0
+                or hp.use_extra_trees)
+
+
+class _SearchPlan:
+    """One tree's per-node search inputs on the device (see the module
+    docstring).  ``children`` builds a split's :class:`ChildSearch`
+    with no host read: the leaf, the feature and the split's index are
+    the host's already."""
+
+    def __init__(self, g: "_Grower", feature_mask: torch.Tensor,
+                 tree_seed: int, lazy_u0: Optional[torch.Tensor] = None):
+        opt, hp, dev = g.opts, g.hp, g.dd.device
+        f32 = torch.float32
+        self.fmask = feature_mask
+        self.ic = g._ic
+        self.coupled, self.lazy = g._coupled, g._lazy
+        f, L = g.dd.num_features, g.L
+        self.k_node = min(opt.bynode_count, f)
+        # the root may use only features some interaction set holds
+        self.mask0 = (feature_mask * self.ic.amax(dim=0)
+                      if self.ic is not None else feature_mask)
+        self.used_feat = (torch.zeros((L, f), dtype=f32, device=dev)
+                          if self.ic is not None else None)
+        self.model_used = (torch.zeros(f, dtype=f32, device=dev)
+                           if self.coupled is not None else None)
+        self.cegb = self.coupled         # the coupled penalty of the tree
+        salts = torch.arange(2 * L - 1, dtype=torch.int64, device=dev)
+
+        def draws(seed):
+            keys = fold_in(fold_in(prng_key(seed), tree_seed, dev), salts)
+            return keys, uniform_rows(keys, f, dev)
+        self.u_node = (draws(opt.bynode_seed)[1] if opt.bynode_count > 0
+                       else None)
+        self.u_rand = self.u_sub = None
+        if hp.use_extra_trees:
+            keys, self.u_rand = draws(opt.extra_seed)
+            if hp.use_cat_subset:
+                self.u_sub = uniform_rows(fold_in(keys, 1), f, dev)
+        pen0 = self.coupled
+        if lazy_u0 is not None:
+            lz = self.lazy * lazy_u0
+            pen0 = lz if pen0 is None else pen0 + lz
+        self.root = ChildSearch(self.node_mask(self.mask0[None], [0]),
+                                pen0, self._u(self.u_rand, [0]),
+                                self._u(self.u_sub, [0]))
+        # the intermediate monotone method searches leaves again: each
+        # leaf's mask and salt
+        self.leaf_mask = self.leaf_salt = None
+        if hp.use_monotone and hp.mono_intermediate:
+            self.leaf_mask = self.root.mask.expand(L, f).clone()
+            self.leaf_salt = torch.zeros(L, dtype=torch.int64, device=dev)
+
+    @staticmethod
+    def _u(u: Optional[torch.Tensor], salts) -> Optional[torch.Tensor]:
+        return None if u is None else u[salts]
+
+    def node_mask(self, base: torch.Tensor, salts) -> torch.Tensor:
+        """By-node sampling (ColSampler feature_fraction_bynode,
+        col_sampler.hpp) of the ``[R, F]`` allowed masks ``base`` at the
+        nodes ``salts``: each keeps the ``k`` allowed features of largest
+        uniform, ties to the smaller feature (``lax.top_k``'s order)."""
+        if self.u_node is None:
+            return base
+        r = torch.where(base > 0, self.u_node[salts],
+                        torch.full_like(base, float("-inf")))
+        top = torch.sort(r, dim=1, descending=True, stable=True).indices
+        keep = torch.zeros_like(base).scatter_(
+            1, top[:, :self.k_node], torch.ones_like(base))
+        return base * keep
+
+    def children(self, leaf: int, right: int, i: int, feat: int,
+                 u2: Optional[torch.Tensor] = None) -> ChildSearch:
+        """The children's inputs of split ``i`` of ``leaf`` on ``feat``
+        (``u2`` f32 [F, 2]: each child's unpaid in-bag rows under lazy
+        CEGB), and the tree state they carry forward."""
+        base = self.fmask
+        if self.ic is not None:
+            used = self.used_feat[leaf].clone()
+            used[feat] = 1.0
+            self.used_feat[[leaf, right]] = used
+            holds = (self.ic >= used[None]).all(dim=1)
+            allowed = (self.ic * holds[:, None].to(self.ic.dtype)).amax(dim=0)
+            base = base * allowed
+        if self.model_used is not None:
+            self.model_used[feat] = 1.0
+            self.cegb = self.coupled * (1.0 - self.model_used)
+        pen = self.cegb
+        if u2 is not None:
+            lz = torch.stack([self.lazy * u2[:, 0], self.lazy * u2[:, 1]])
+            pen = lz if pen is None else pen[None] + lz
+        salts = [2 * i + 1, 2 * i + 2]
+        mask = self.node_mask(base[None].expand(2, -1), salts)
+        if self.leaf_mask is not None:
+            self.leaf_mask[[leaf, right]] = mask
+            self.leaf_salt[[leaf, right]] = torch.tensor(
+                salts, device=self.leaf_salt.device)
+        return ChildSearch(mask, pen, self._u(self.u_rand, salts),
+                           self._u(self.u_sub, salts))
+
+
 class _TreeBuilder:
     """The host side of a growing tree's structure (reference
     Tree::Split, tree.h:541): child pointers, split features and bins."""
@@ -254,13 +403,20 @@ class _Grower:
     def __init__(self, hp: SplitHyperParams, *, num_leaves: int,
                  max_depth: int, dd: DeviceDataset, route: RouteDecision,
                  timer: Optional[StageTimer] = None,
-                 monotone: Optional[np.ndarray] = None):
+                 monotone: Optional[np.ndarray] = None,
+                 options: Optional[GrowOptions] = None):
         self.hp = hp
         self.L = int(num_leaves)
         self.max_depth = int(max_depth)
         self.dd = dd
         self.route = route
         self.timer = timer or StageTimer()
+        self.opts = options or GrowOptions()
+        opt = self.opts
+        if route.tail == "kernel" and opt.per_child(hp):
+            raise ValueError("per-child search inputs (interaction "
+                             "constraints, CEGB penalties, by-node sampling, "
+                             "extra trees) run on the PyTorch tail")
         # monotone: the features' signs and the depth penalty by depth
         # (depths 0 .. L - 1), both on the device
         mono = pen = None
@@ -278,14 +434,36 @@ class _Grower:
         self._num_bins = dd.num_bins.cpu().numpy()
         self._has_nan = dd.has_nan.cpu().numpy()
         self._bins = torch.arange(dd.padded_bins, device=dd.device)
+        dev_f32 = lambda a: (None if a is None else  # noqa: E731
+                             torch.as_tensor(np.asarray(a, np.float32),
+                                             device=dd.device))
+        self._ic = dev_f32(opt.interaction_sets)
+        self._coupled = dev_f32(opt.cegb_coupled)
+        self._lazy = dev_f32(opt.cegb_lazy)
+        fs = opt.forced
+        self._forced = ([] if fs is None else list(zip(
+            (int(v) for v in fs["leaf"]), (int(v) for v in fs["feature"]),
+            (int(v) for v in fs["bin"]),
+            (bool(v) for v in fs["default_left"]))))
+        # lazy CEGB: each child's unpaid in-bag rows of the split under
+        # way, f32 [F, 2] (set by the row-order grower's split step)
+        self._u2: Optional[torch.Tensor] = None
         # host reads of the split descriptor over the run
         self.host_reads = 0
         # set to a list to record every split descriptor read
-        # (leaf, gain, feature, bin, default_left, is_cat, s0, cnt)
+        # (leaf, gain, feature, bin, default_left, is_cat, s0, cnt, then
+        # the forced flag on a forced step, then the membership words)
         self.trace: Optional[list] = None
 
+    def plan(self, feature_mask: torch.Tensor, tree_seed: int = 0,
+             lazy_u0: Optional[torch.Tensor] = None) -> _SearchPlan:
+        """The tree's per-node search inputs (``tree_seed``: the salt of
+        its draws, ``iteration * K + class``; ``lazy_u0`` f32 [F]: the
+        root's unpaid in-bag rows under lazy CEGB)."""
+        return _SearchPlan(self, feature_mask, tree_seed, lazy_u0)
+
     def _init_state(self, sums: torch.Tensor, root_hist: torch.Tensor,
-                    feature_mask: torch.Tensor) -> TreeState:
+                    plan: _SearchPlan) -> TreeState:
         """The device state of a tree that is one leaf: the root's sums
         ``(g, h, count)`` (f32 [3], summed in f64 and rounded once: the
         CPU's and the card's reduction orders then give the same f32),
@@ -295,15 +473,16 @@ class _Grower:
         sg0, sh0, c0 = sums.unbind()
         root_out = calculate_leaf_output(sg0, sh0, hp)
         depth0 = torch.zeros(1, dtype=f32, device=dev)
-        fc = self.finder
+        fc, rs = self.finder, plan.root
         si0 = find_best_split(
             root_hist[None], sg0[None], sh0[None], c0[None], dd.num_bins,
-            dd.has_nan, dd.is_cat, feature_mask,
+            dd.has_nan, dd.is_cat, rs.mask,
             allow_split(depth0, self.max_depth), hp,
             parent_output=root_out[None], monotone=fc.mono,
             mn=torch.full_like(depth0, float("-inf")),
             mx=torch.full_like(depth0, float("inf")), depth=depth0,
-            penalty=fc.penalty)
+            penalty=fc.penalty, cegb_penalty=rs.cegb, rand=rs.rand,
+            rand_subset=rs.rand_subset)
         pool = torch.zeros((L, dd.num_features, dd.padded_bins, 2),
                            dtype=f32, device=dev)
         pool[0] = root_hist
@@ -351,10 +530,47 @@ class _Grower:
                   & (brow[BCAT] > 0.5))
         return members_to_words(member[None])[0]
 
-    def _grow(self, st: TreeState, feature_mask: torch.Tensor
-              ) -> _TreeBuilder:
+    def _forced_step(self, st: TreeState, i: int) -> torch.Tensor:
+        """Step ``i`` of the forced splits' schedule
+        (serial_tree_learner.cpp:459 ForceSplits; JAX ``grow.py:1464-1484``,
+        ``:1876-1891``): the split of its leaf at its feature and bin, from
+        the leaf's pooled histogram (the bin's prefix sums in XLA:CPU's
+        order, the NaN bin's added where it goes left), with counts
+        derived from the leaf's.  Where both children are non-empty it
+        overwrites the leaf's best row (numerical, its outputs, and the
+        unconstrained gain the node records).  Returns that validity, bool
+        [1], on the device."""
+        hp = self.hp
+        leaf, feat, sbin, dl = self._forced[i]
+        row = st.pool[leaf, feat]                              # [B, 2]
+        cum = torch.stack([blocked_cumsum(row[:, 0]),
+                           blocked_cumsum(row[:, 1])])         # [2, B]
+        nanb = max(int(self._num_bins[feat]) - 1, 0)
+        nan_gh = (row[nanb] if self._has_nan[feat]
+                  else torch.zeros_like(row[nanb]))
+        sums = cum[:, sbin] + (nan_gh if dl else torch.zeros_like(nan_gh))
+        lg, lh = sums[0], sums[1]
+        lrow = st.lstate[leaf]
+        pg, ph, pc = lrow[SG], lrow[SH], lrow[SC]
+        lc = derived_counts(lh, pc, ph)
+        valid = (lc > 0) & (pc - lc > 0)
+        p_out, mn, mx = lrow[SOUT], lrow[SMN], lrow[SMX]
+        lo = calculate_leaf_output(lg, lh, hp, lc, p_out, mn, mx)
+        ro = calculate_leaf_output(pg - lg, ph - lh, hp, pc - lc, p_out, mn,
+                                   mx)
+        gain = (leaf_split_gain(lg, lh, hp)
+                + leaf_split_gain(pg - lg, ph - lh, hp)
+                - leaf_split_gain(pg, ph, hp))
+        c = lambda v: lg.new_tensor(float(v))  # noqa: E731
+        frow = torch.stack([gain, c(feat), c(sbin), c(dl), c(0.0), lg, lh,
+                            lc, lo, ro])
+        st.best[leaf] = torch.where(valid, frow, st.best[leaf])
+        return valid[None]
+
+    def _grow(self, st: TreeState, plan: _SearchPlan) -> _TreeBuilder:
         """The host loop over splits, until the tree has L leaves or no
-        leaf has a positive gain."""
+        leaf has a positive gain (a valid forced split is taken
+        whatever its gain)."""
         dev, stage = self.dd.device, self.timer.stage
         route = self.route
         tail = ((apply_find_pool if route.pool_tail else apply_find_torch_pool)
@@ -362,15 +578,23 @@ class _Grower:
         tb = _TreeBuilder(self.L)
         nleft = torch.zeros(1, dtype=torch.int32, device=dev)
         subset = self.hp.use_cat_subset
+        per_child = self.opts.per_child(self.hp)
         boxes = (self._root_boxes()
                  if self.hp.use_monotone and self.hp.mono_intermediate
                  else None)
+        n_forced = len(self._forced)
         for i in range(self.L - 1):
             with stage("split_tail", dev):
                 leaf_t = torch.argmax(selection_key(st.best[:, BG]))
+                if i < n_forced:
+                    forced_t = self._forced_step(st, i)
+                    leaf_t = torch.where(forced_t[0], self._forced[i][0],
+                                         leaf_t)
                 parts = [leaf_t[None].double(),
                          st.best[leaf_t, :BCAT + 1].double(),
                          st.seg[leaf_t].double()]
+                if i < n_forced:
+                    parts.append(forced_t.double())
                 if subset:
                     # the words ride the same read, as integers (an f32
                     # word above 2^24 would lose bits)
@@ -383,8 +607,9 @@ class _Grower:
                 int(desc[0]), desc[1], int(desc[2]), int(desc[3]),
                 int(desc[4] > 0.5), int(desc[5] > 0.5), int(desc[6]),
                 int(desc[7]))
-            words = tuple(int(w) for w in desc[8:])
-            if gain <= 0.0:
+            forced = i < n_forced and desc[8] > 0.5
+            words = tuple(int(w) for w in desc[8 + (i < n_forced):])
+            if gain <= 0.0 and not forced:
                 break
             node, right = i, tb.num_leaves
             nanb = (int(self._num_bins[feat]) - 1 if self._has_nan[feat]
@@ -393,11 +618,14 @@ class _Grower:
                 (0,) + words if subset else ())
             h_a, h_b = self._split_step(sel, nleft)
             with stage("split_tail", dev):
-                tail(h_a, h_b, nleft, st, self.finder, feature_mask, self.hp,
-                     self.max_depth, SplitAt(leaf, right, node, s0, cnt))
+                child = (plan.children(leaf, right, i, feat, self._u2)
+                         if per_child else None)
+                tail(h_a, h_b, nleft, st, self.finder, plan.fmask, self.hp,
+                     self.max_depth, SplitAt(leaf, right, node, s0, cnt),
+                     child)
                 if boxes is not None:
                     self._mono_adjacent(st, boxes, leaf, right, feat, sbin,
-                                        cat, feature_mask)
+                                        cat, plan)
             tb.split(leaf, right, node, feat, sbin, dl, cat, words)
         return tb
 
@@ -411,7 +639,7 @@ class _Grower:
 
     def _mono_adjacent(self, st: TreeState, boxes: torch.Tensor, leaf: int,
                        right: int, feat: int, sbin: int, cat: int,
-                       feature_mask: torch.Tensor) -> None:
+                       plan: _SearchPlan) -> None:
         """The intermediate method after a split of ``leaf`` into
         ``leaf`` and ``right`` (``IntermediateLeafConstraints``,
         monotone_constraints.hpp:514, as the JAX package re-expresses it
@@ -421,7 +649,8 @@ class _Grower:
         there, and that feature is monotone takes the child's output as
         its lower or upper bound, by the sign and the side; the leaves
         whose bounds tightened search their best split again from the
-        pool, in one batched search."""
+        pool, in one batched search, each with its own mask and draws and
+        the tree's current coupled penalty."""
         live = right + 1
         blo, bhi = boxes[:live, 0], boxes[:live, 1]           # [live, F]
         blo[right] = blo[leaf]
@@ -455,12 +684,15 @@ class _Grower:
         ls[:, SMN] = torch.where(changed, mn_c, mn0)
         ls[:, SMX] = torch.where(changed, mx_c, mx0)
         dd, fc = self.dd, self.finder
+        salts = plan.leaf_salt[:live]
         si = find_best_split(
             st.pool[:live], ls[:, SG], ls[:, SH], ls[:, SC], dd.num_bins,
-            dd.has_nan, dd.is_cat, feature_mask,
+            dd.has_nan, dd.is_cat, plan.leaf_mask[:live],
             allow_split(ls[:, SDEP], self.max_depth), self.hp,
             parent_output=ls[:, SOUT], monotone=fc.mono, mn=ls[:, SMN],
-            mx=ls[:, SMX], depth=ls[:, SDEP], penalty=fc.penalty)
+            mx=ls[:, SMX], depth=ls[:, SDEP], penalty=fc.penalty,
+            cegb_penalty=plan.cegb, rand=plan._u(plan.u_rand, salts),
+            rand_subset=plan._u(plan.u_sub, salts))
         st.best[:live] = torch.where(changed[:, None], pack_split_info(si),
                                      st.best[:live])
 
@@ -511,11 +743,17 @@ class SerialGrower(_Grower):
                  max_depth: int, dd: DeviceDataset, route: RouteDecision,
                  stream: Optional[StreamSpec] = None,
                  timer: Optional[StageTimer] = None,
-                 monotone: Optional[np.ndarray] = None):
+                 monotone: Optional[np.ndarray] = None,
+                 options: Optional[GrowOptions] = None):
         super().__init__(hp, num_leaves=num_leaves, max_depth=max_depth,
-                         dd=dd, route=route, timer=timer, monotone=monotone)
+                         dd=dd, route=route, timer=timer, monotone=monotone,
+                         options=options)
         if not route.physical:
             raise ValueError("the row_order path grows with RowOrderGrower")
+        if self.opts.cegb_lazy is not None:
+            raise ValueError("cegb_lazy: the per-(feature, row) paid mask "
+                             "is not plumbed through the partition kernels; "
+                             "lazy CEGB grows on the row_order path")
         if hp.use_cat_subset and not cat_bitset_fit(dd.padded_bins):
             raise ValueError(
                 f"cat_overwide: the membership words of {dd.padded_bins} "
@@ -568,11 +806,14 @@ class SerialGrower(_Grower):
                                   max_rows=n)
 
     def init_tree_state(self, rows: Rows, root_hist: torch.Tensor,
-                        feature_mask: torch.Tensor) -> TreeState:
+                        feature_mask: torch.Tensor,
+                        plan: Optional[_SearchPlan] = None) -> TreeState:
         """The one-leaf tree state of ``rows``: the root's sums from the
-        rows' (g*w, h*w, w) values."""
+        rows' (g*w, h*w, w) values; the root searches ``plan``'s inputs
+        (tree 0's plan of ``feature_mask`` when None)."""
         sums = rows.vals.double().sum(dim=0).to(torch.float32)
-        return self._init_state(sums, root_hist, feature_mask)
+        return self._init_state(sums, root_hist,
+                                plan or self.plan(feature_mask))
 
     def _split_step(self, sel: tuple, nleft: torch.Tensor):
         rows, B = self.rows, self.dd.padded_bins
@@ -601,14 +842,16 @@ class SerialGrower(_Grower):
     def __call__(self, grad: Optional[torch.Tensor],
                  hess: Optional[torch.Tensor],
                  inbag: Optional[torch.Tensor], feature_mask: torch.Tensor,
-                 rate: float = 0.0):
+                 rate: float = 0.0, tree_seed: int = 0,
+                 paid: Optional[torch.Tensor] = None):
         """Grow one tree.  ``grad``, ``hess`` and ``inbag`` are the
         objective's [n] values on slice 2's route (unused, may be None,
         on the stream route, where ``rate`` is the shrinkage the tree's
-        outputs enter the scores with).  Returns ``(TreeArrays,
-        leaf_id, leaf_value)``: host arrays of the tree, the [n] leaf of
-        every row in original order and the [L] leaf outputs, both on
-        the device."""
+        outputs enter the scores with); ``tree_seed`` salts the tree's
+        draws; ``paid`` is lazy CEGB's, which this path does not grow.
+        Returns ``(TreeArrays, leaf_id, leaf_value)``: host arrays of the
+        tree, the [n] leaf of every row in original order and the [L]
+        leaf outputs, both on the device."""
         dd, route = self.dd, self.route
         dev, B = dd.device, dd.padded_bins
         stage = self.timer.stage
@@ -632,8 +875,9 @@ class SerialGrower(_Grower):
             with stage("histogram", dev):
                 root_hist = self._root_histogram(rows)
         with stage("split_tail", dev):
-            st = self.init_tree_state(fields, root_hist, feature_mask)
-        tb = self._grow(st, feature_mask)
+            plan = self.plan(feature_mask, tree_seed)
+            st = self.init_tree_state(fields, root_hist, feature_mask, plan)
+        tb = self._grow(st, plan)
         ta, leaf_id, leaf_value, leaf_of_pos = self._finish(st, tb,
                                                             fields.rid)
         if route.stream and tb.num_leaves > 1:
@@ -665,18 +909,29 @@ class RowOrderGrower(_Grower):
     the index (``hist_rows``).  The JAX package pads each segment to a
     power-of-two bucket and masks the values, for XLA's static shapes;
     the port histograms exactly the child's positions, the same rows.
-    The tail is the route's."""
+    The tail is the route's.
+
+    Lazy CEGB grows here only (routing rule ``cegb_lazy``): each split
+    marks the leaf's in-bag rows paid for its feature in the caller's
+    paid mask ``[F, n]`` (bool, by original row, kept across trees) and
+    counts each child's in-bag rows still unpaid for every feature
+    (JAX ``grow.py:1643-1658``)."""
 
     def __init__(self, hp: SplitHyperParams, *, num_leaves: int,
                  max_depth: int, dd: DeviceDataset, route: RouteDecision,
                  timer: Optional[StageTimer] = None,
-                 monotone: Optional[np.ndarray] = None):
+                 monotone: Optional[np.ndarray] = None,
+                 options: Optional[GrowOptions] = None):
         super().__init__(hp, num_leaves=num_leaves, max_depth=max_depth,
-                         dd=dd, route=route, timer=timer, monotone=monotone)
+                         dd=dd, route=route, timer=timer, monotone=monotone,
+                         options=options)
         if route.physical:
             raise ValueError("RowOrderGrower grows on the row_order path")
         self.row_order: Optional[torch.Tensor] = None
         self.vals: Optional[torch.Tensor] = None
+        # lazy CEGB: the tree's in-bag rows and the caller's paid mask
+        self._bag: Optional[torch.Tensor] = None
+        self._paid: Optional[torch.Tensor] = None
 
     def _histogram(self, rng: torch.Tensor, max_rows: int,
                    index: Optional[torch.Tensor]) -> torch.Tensor:
@@ -695,6 +950,8 @@ class RowOrderGrower(_Grower):
             # (any number: this path's u16 bins take up to 2,048), is a
             # gather of the bin's word (grow.py:1620-1627)
             go = go_left(col, sel)
+            if self._paid is not None:
+                self._u2 = self._pay(seg.long(), feat, go)
             # a stable compaction with no host read: a left row goes to
             # (lefts up to it) - 1, a right row to nleft + (rights
             # before it)
@@ -711,16 +968,36 @@ class RowOrderGrower(_Grower):
             h = self._histogram(rng, cnt // 2 + 1, self.row_order)
         return h, h
 
+    def _pay(self, idx: torch.Tensor, feat: int, go: torch.Tensor
+             ) -> torch.Tensor:
+        """Lazy CEGB at a split of the rows ``idx`` on ``feat``
+        (UpdateLeafBestSplits, cost_effective_gradient_boosting.hpp:125-134):
+        the in-bag ones become paid for ``feat``; returns each child's
+        in-bag rows unpaid for every feature, f32 [F, 2] (integer
+        counts)."""
+        bag = self._bag[idx] > 0
+        self._paid[feat, idx] |= bag
+        unpaid = ~self._paid[:, idx]                           # [F, cnt]
+        return torch.stack([(unpaid & (go & bag)).sum(dim=1),
+                            (unpaid & (~go & bag)).sum(dim=1)],
+                           dim=1).to(torch.float32)
+
     def __call__(self, grad: torch.Tensor, hess: torch.Tensor,
                  inbag: torch.Tensor, feature_mask: torch.Tensor,
-                 rate: float = 0.0):
+                 rate: float = 0.0, tree_seed: int = 0,
+                 paid: Optional[torch.Tensor] = None):
         """Grow one tree from the objective's [n] gradients, hessians and
-        in-bag weights (``rate`` is unused: this path keeps no scores).
-        Returns ``(TreeArrays, leaf_id, leaf_value)`` as
-        :class:`SerialGrower` does."""
+        in-bag weights (``rate`` is unused: this path keeps no scores;
+        ``tree_seed`` salts the tree's draws; ``paid`` is lazy CEGB's
+        bool [F, n] paid mask, updated in place).  Returns ``(TreeArrays,
+        leaf_id, leaf_value)`` as :class:`SerialGrower` does."""
         dd = self.dd
         dev, n = dd.device, dd.num_data
         stage = self.timer.stage
+        if (paid is None) != (self.opts.cegb_lazy is None):
+            raise ValueError("lazy CEGB grows with the booster's paid mask, "
+                             "and only then")
+        self._bag, self._paid = inbag, paid
         with stage("gradients", dev):
             self.vals = torch.stack([grad * inbag, hess * inbag], dim=1)
             self.row_order = torch.arange(n, dtype=torch.int32, device=dev)
@@ -731,9 +1008,15 @@ class RowOrderGrower(_Grower):
         with stage("split_tail", dev):
             sums = torch.cat([self.vals.double().sum(dim=0),
                               inbag.double().sum()[None]]).to(torch.float32)
-            st = self._init_state(sums, root_hist, feature_mask)
-        tb = self._grow(st, feature_mask)
+            # lazy CEGB at the root: the in-bag rows not yet paid for
+            # each feature (CalculateOndemandCosts, hpp:139-163)
+            u0 = (None if paid is None
+                  else (~paid).to(torch.float32) @ inbag)
+            plan = self.plan(feature_mask, tree_seed, u0)
+            st = self._init_state(sums, root_hist, plan)
+        tb = self._grow(st, plan)
         ta, leaf_id, leaf_value, _ = self._finish(st, tb, self.row_order)
+        self._bag = self._paid = self._u2 = None
         return ta, leaf_id, leaf_value
 
 

@@ -30,7 +30,12 @@ decision of ``decide``, ``:383-413``) and of the split-tail choice in
   ``grow.py:877-888``), and so does the intermediate monotone method
   (rule ``tail_mono_intermediate``: the kernel tail runs the basic
   method only, ``use_kernel_tail`` requires ``not (hp.use_monotone and
-  hp.mono_intermediate)``); with
+  hp.mono_intermediate)``), and so do the split options whose children
+  search with inputs of their own or whose splits are forced (rules
+  ``tail_interaction``, ``tail_cegb``, ``tail_forced``, ``tail_bynode``,
+  ``tail_extra_trees``: ``use_kernel_tail`` requires ``not use_ic``,
+  ``not hp.use_cegb``, ``n_forced == 0``, ``bynode_count == 0`` and ``not
+  hp.use_extra_trees``); with
   ``pool_tail`` off (``LGBM_TPU_POOL_TAIL=0``, ``grow.py:1253-1262``)
   the kernel tail is the plain-pool entry ``apply_find`` after the pool
   ops in PyTorch;
@@ -101,6 +106,12 @@ class RouteInputs:
     bins_u8: bool = True             # every feature's bins fit uint8
     cat_subset: bool = False         # the sorted-subset categorical search
     mono_intermediate: bool = False  # hp.use_monotone and intermediate
+    interaction: bool = False        # interaction_constraints
+    cegb: bool = False               # hp.use_cegb (any CEGB term)
+    cegb_lazy: bool = False          # cegb_penalty_feature_lazy
+    forced_splits: bool = False      # forcedsplits_filename
+    bynode: bool = False             # feature_fraction_bynode < 1
+    extra_trees: bool = False        # hp.use_extra_trees
     phys_env: str = "auto"
     stream_env: str = "auto"
     fused_env: str = "1"
@@ -120,12 +131,15 @@ class RouteInputs:
         b = lambda v: "1" if v else "0"  # noqa: E731
         return (
             f"learner={self.learner};u8={b(self.bins_u8)};"
-            f"wide={b(self.wide_layout)};cat={b(self.cat_subset)};"
-            f"bag={b(self.bagging)};"
+            f"wide={b(self.wide_layout)};cegb={b(self.cegb_lazy)};"
+            f"cat={b(self.cat_subset)};bag={b(self.bagging)};"
             f"lin={b(self.linear_tree)};boost={self.boosting};"
             f"obj={self.objective_kind};"
             f"k={'multi' if self.multi_tree else '1'};"
+            f"forced={b(self.forced_splits)};"
             f"mono={b(self.mono_intermediate)};"
+            f"ic={b(self.interaction)};cegbon={b(self.cegb)};"
+            f"bynode={b(self.bynode)};et={b(self.extra_trees)};"
             f"phys={self.phys_env};stream={self.stream_env};"
             f"pack={self.pack_env};impl={self.part_env};"
             f"fused={self.fused_env};apply={self.apply_impl_env};"
@@ -152,6 +166,10 @@ RULES: Tuple[Rule, ...] = (
          "bins are wider than uint8 (max_bin > 256); the partition "
          "kernel's bf16 extract matmuls would round bin ids",
          lambda i: not i.bins_u8),
+    Rule("cegb_lazy", "physical", "cegb_penalty_feature_lazy",
+         "the per-(feature,row) paid mask is not plumbed through the "
+         "partition kernel",
+         lambda i: i.cegb_lazy),
     Rule("phys_env_off", "physical", "LGBM_TPU_PHYS",
          "physical partition mode disabled by LGBM_TPU_PHYS=0",
          lambda i: i.phys_env == "0"),
@@ -207,6 +225,27 @@ RULES: Tuple[Rule, ...] = (
          "the intermediate method's adjacency pass follows the PyTorch "
          "tail (grow.py use_kernel_tail requires not mono_intermediate)",
          lambda i: i.mono_intermediate),
+    Rule("tail_interaction", "tail", "interaction_constraints",
+         "each child searches the union of the interaction sets holding "
+         "its path's features; the one-kernel tail takes one mask for "
+         "both (grow.py use_kernel_tail requires not use_ic)",
+         lambda i: i.interaction),
+    Rule("tail_cegb", "tail", "cegb_penalty_split",
+         "the one-kernel split tail pays no CEGB penalty (grow.py "
+         "use_kernel_tail requires not hp.use_cegb)",
+         lambda i: i.cegb),
+    Rule("tail_forced", "tail", "forcedsplits_filename",
+         "forced splits are computed beside the tail from the pooled "
+         "histogram (grow.py use_kernel_tail requires n_forced == 0)",
+         lambda i: i.forced_splits),
+    Rule("tail_bynode", "tail", "feature_fraction_bynode",
+         "each child searches its own by-node feature sample (grow.py "
+         "use_kernel_tail requires bynode_count == 0)",
+         lambda i: i.bynode),
+    Rule("tail_extra_trees", "tail", "extra_trees",
+         "each child searches one random threshold a feature (grow.py "
+         "use_kernel_tail requires not hp.use_extra_trees)",
+         lambda i: i.extra_trees),
 )
 
 # the pack rules, read only for a pack=2 request on the physical path;
@@ -386,6 +425,23 @@ def enumerate_inputs() -> List[RouteInputs]:
                dict(bins_u8=False), dict(tail_ok=False),
                dict(cat_subset=True)):
         add(mono_intermediate=True, **kw)
+    # the split options on the same routes; lazy CEGB (CEGB on) also
+    # where the physical path is already gone and under pack=2
+    routes = ({}, dict(pack_env="2"), dict(fused_env="0"),
+              dict(fused_env="0", pack_env="2"), dict(part_env="3ph"),
+              dict(stream_env="0", fused_env="0", apply_impl_env="xla"),
+              dict(pool_tail_env="0"), dict(bins_u8=False),
+              dict(tail_ok=False), dict(cat_subset=True),
+              dict(mono_intermediate=True), dict(bagging=True),
+              dict(objective_kind="other", multi_tree=True))
+    for opt in (dict(interaction=True), dict(cegb=True),
+                dict(cegb=True, cegb_lazy=True), dict(forced_splits=True),
+                dict(bynode=True), dict(extra_trees=True)):
+        for kw in routes:
+            add(**opt, **kw)
+    add(interaction=True, cegb=True, forced_splits=True, bynode=True,
+        extra_trees=True)
+    add(cegb=True, cegb_lazy=True, phys_env="0")
     return cells
 
 

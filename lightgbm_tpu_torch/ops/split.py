@@ -14,8 +14,10 @@ L1/L2, ``cat_l2`` / ``cat_smooth`` / ``max_cat_threshold`` /
 ``min_data_per_group``, ``max_delta_step``, ``min_gain_to_split``, the
 min-data / min-hessian gates, path smoothing and monotone constraints
 (each leaf's output bounds ``mn`` / ``mx``, the violation mask and the
-depth penalty, read from :func:`monotone_penalty_table`).  CEGB and
-extra_trees are not (``ROADMAP.md`` A9).
+depth penalty, read from :func:`monotone_penalty_table`), CEGB (a
+per-count and a per-feature penalty off every gain) and extremely
+randomized trees (one random threshold a feature, one random subset
+size a feature, from the uniforms the grower draws for the node).
 
 A subset winner is encoded in ``threshold_bin`` as ``B * (1 + dir) +
 (k - 1)``: the first ``k`` candidate bins of the ratio order
@@ -34,8 +36,10 @@ the JAX package's.
 
 Every function takes a leading batch dimension K (the two children of
 a split are searched in one pass) and keeps the JAX package's
-operation order.  The bin prefix sums are taken in f64 and rounded, so
-the CPU and the card compute the same f32 gains.
+operation order; the per-leaf inputs (feature mask, CEGB penalty, the
+extra trees' uniforms) are ``[K, F]`` or one ``[F]`` row for all.  The
+bin prefix sums are taken in f64 and rounded, so the CPU and the card
+compute the same f32 gains.
 """
 from __future__ import annotations
 
@@ -71,6 +75,15 @@ class SplitHyperParams(NamedTuple):
     use_monotone: bool = False
     monotone_penalty: float = 0.0
     mono_intermediate: bool = False
+    # extremely randomized trees (feature_histogram.hpp USE_RAND): one
+    # random candidate threshold (or subset size) a feature and leaf
+    use_extra_trees: bool = False
+    # CEGB (cost_effective_gradient_boosting.hpp:80 DeltaGain):
+    # cegb_tradeoff * cegb_penalty_split * count, plus the caller's
+    # per-feature penalty, off every gain
+    use_cegb: bool = False
+    cegb_tradeoff: float = 1.0
+    cegb_penalty_split: float = 0.0
 
 
 class SplitInfo(NamedTuple):
@@ -170,6 +183,34 @@ def derived_counts(h, count, sum_h):
     return torch.floor(h * factor + 0.5)
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """A per-leaf input as ``[K or 1, F]``."""
+    return x if x.dim() == 2 else x[None]
+
+
+def _cegb_delta(gains, count, cegb_penalty, hp: SplitHyperParams):
+    """``gains`` less CEGB's DeltaGain: ``cegb_tradeoff *
+    cegb_penalty_split`` times the leaf's count, plus the leaf's
+    per-feature penalty (``[K, F]`` or ``[F]``; None for none)."""
+    if not hp.use_cegb:
+        return gains
+    delta = (hp.cegb_tradeoff * hp.cegb_penalty_split) * count[
+        :, None, None, None]
+    if cegb_penalty is not None:
+        delta = delta + _rows(cegb_penalty)[:, None, :, None]
+    return gains - delta
+
+
+def random_pick(u: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The extra trees' candidate index of each feature:
+    ``floor(u * (hi + 1))`` in f32 with ``hi`` clamped at 0, clipped to
+    ``[0, hi]`` (the JAX package's ``rand.NextInt`` over the scan
+    bounds), i32 of ``u``'s shape."""
+    hm = torch.clamp(hi, min=0)
+    pick = torch.floor(u * (hm + 1)).to(torch.int32)
+    return torch.minimum(torch.clamp(pick, min=0), hm.to(torch.int32))
+
+
 def _bounds4(mn, mx, hp: SplitHyperParams):
     """The [K] output bounds broadcast over the candidates, or None."""
     if not hp.use_monotone:
@@ -180,7 +221,8 @@ def _bounds4(mn, mx, hp: SplitHyperParams):
 def _candidate_tensors(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
                        feature_mask, allow_split, hp: SplitHyperParams,
                        parent_output=None, monotone=None, mn=None, mx=None,
-                       depth=None, penalty=None):
+                       depth=None, penalty=None, cegb_penalty=None,
+                       rand=None):
     """All (direction, feature, bin) candidates of K leaves: gains
     ``[K, 2, F, B]`` (-inf where invalid), the left sums and, where the
     search is constrained (path smoothing or monotone constraints), the
@@ -188,7 +230,10 @@ def _candidate_tensors(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
     clipped to the leaf's ``[mn, mx]``, a candidate whose outputs are out
     of its feature's ``monotone`` order is invalid, and the gains of
     monotone features are scaled by ``penalty[depth]`` (the table of
-    :func:`monotone_penalty_table`, all 1.0 without a penalty)."""
+    :func:`monotone_penalty_table`, all 1.0 without a penalty).  With
+    ``hp.use_extra_trees`` and the leaves' uniforms ``rand`` each
+    feature keeps the one threshold :func:`random_pick` draws; with
+    ``hp.use_cegb`` the gains pay :func:`_cegb_delta`."""
     k, f, b, _ = hist.shape
     hg, hh = hist[..., 0], hist[..., 1]                        # [K, F, B]
     # prefix sums in f64, rounded once: the CPU's sequential and the
@@ -233,8 +278,15 @@ def _candidate_tensors(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
           & (lc >= min_data) & (rc >= min_data)
           & (lh >= hp.min_sum_hessian_in_leaf)
           & (rh >= hp.min_sum_hessian_in_leaf)
-          & (feature_mask[None, None, :, None] > 0)
+          & (_rows(feature_mask)[:, None, :, None] > 0)
           & allow_split[:, None, None, None])
+    if hp.use_extra_trees and rand is not None:
+        # USE_RAND: one random candidate threshold a feature, within its
+        # valid range (categorical: its bins); both missing directions
+        # are still searched at that bin
+        hi = torch.where(is_cat, num_bins - 1, max_t[:, 0])
+        pick = random_pick(_rows(rand), hi)                    # [K, F]
+        ok = ok & (bins_r[None, None] == pick[:, None, :, None])
     if hp.use_smoothing or hp.use_monotone:
         # GetSplitGains USE_MC / USE_SMOOTHING
         # (feature_histogram.hpp:786-824): each candidate's outputs and
@@ -262,6 +314,7 @@ def _candidate_tensors(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
         parent_gain = leaf_split_gain(sg4, sh4, hp)
         gains = (leaf_split_gain(lg, lh, hp) + leaf_split_gain(rg, rh, hp)
                  - parent_gain - hp.min_gain_to_split)
+    gains = _cegb_delta(gains, count, cegb_penalty, hp)
     gains = torch.where(ok, gains, torch.full_like(gains, float("-inf")))
     return gains, lg, lh, lc, l_out, r_out
 
@@ -311,7 +364,8 @@ def cat_subset_member(hg, hh, hc, nb, k, direction, hp: SplitHyperParams):
 
 def _cat_subset_tensors(hist, sum_g, sum_h, count, num_bins, is_cat,
                         feature_mask, allow_split, hp: SplitHyperParams,
-                        parent_output=None, mn=None, mx=None):
+                        parent_output=None, mn=None, mx=None,
+                        cegb_penalty=None, rand=None):
     """Sorted-subset candidates of K leaves (the JAX package's
     ``_cat_subset_tensors``): prefix index ``i`` of direction ``d`` means
     "the first ``i + 1`` candidates of the ratio order (``d`` 0
@@ -322,7 +376,10 @@ def _cat_subset_tensors(hist, sum_g, sum_h, count, num_bins, is_cat,
     no penalty, as in the JAX package).  The rank-order prefix sums are taken in f64
     and rounded once, as the bin prefix sums are; the right child's
     ``min_data_per_group`` gate is applied, the group accumulator's
-    ``continue`` is not (as in the JAX package)."""
+    ``continue`` is not (as in the JAX package).  With
+    ``hp.use_extra_trees`` each feature keeps one random prefix size,
+    drawn from ``rand`` (the JAX package's ``fold_in(key, 1)`` stream);
+    with ``hp.use_cegb`` the gains pay :func:`_cegb_delta`."""
     k, f, b, _ = hist.shape
     hg, hh = hist[..., 0], hist[..., 1]                        # [K, F, B]
     c3, sh3 = count[:, None, None], sum_h[:, None, None]
@@ -369,8 +426,14 @@ def _cat_subset_tensors(hist, sum_g, sum_h, count, num_bins, is_cat,
           & (rc >= float(hp.min_data_per_group))
           & (lh >= hp.min_sum_hessian_in_leaf)
           & (rh >= hp.min_sum_hessian_in_leaf)
-          & (feature_mask[None, None, :, None] > 0)
+          & (_rows(feature_mask)[:, None, :, None] > 0)
           & allow_split[:, None, None, None])
+    if hp.use_extra_trees and rand is not None:
+        # USE_RAND: one random prefix size a feature
+        # (feature_histogram.hpp:401-406)
+        max_thr = torch.minimum(max_num_cat, used4)[:, 0, :, 0] - 1
+        pick = random_pick(_rows(rand), max_thr)               # [K, F]
+        ok = ok & (iot[None, None, None, :] == pick[:, None, :, None])
     # the children's gains with l2 + cat_l2, the parent's with l2
     # (feature_histogram.hpp:297-302)
     hp2 = hp._replace(lambda_l2=hp.lambda_l2 + hp.cat_l2)
@@ -387,6 +450,7 @@ def _cat_subset_tensors(hist, sum_g, sum_h, count, num_bins, is_cat,
         l_out = r_out = None
         gains = (leaf_split_gain(lg, lh, hp2) + leaf_split_gain(rg, rh, hp2)
                  - leaf_split_gain(sg4, sh4, hp) - hp.min_gain_to_split)
+    gains = _cegb_delta(gains, count, cegb_penalty, hp)
     gains = torch.where(ok, gains, torch.full_like(gains, float("-inf")))
     return gains, lg, lh, lc, l_out, r_out
 
@@ -413,7 +477,8 @@ def per_feature_best_gain(hist, sum_g, sum_h, count, num_bins, has_nan,
 def find_best_split(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
                     feature_mask, allow_split, hp: SplitHyperParams, *,
                     parent_output=None, monotone=None, mn=None, mx=None,
-                    depth=None, penalty=None) -> SplitInfo:
+                    depth=None, penalty=None, cegb_penalty=None, rand=None,
+                    rand_subset=None) -> SplitInfo:
     """Best split of each of K leaves.
 
     ``hist`` [K, F, B, 2] (grad, hess); ``sum_g``, ``sum_h``, ``count``,
@@ -430,12 +495,14 @@ def find_best_split(hist, sum_g, sum_h, count, num_bins, has_nan, is_cat,
     gains, lg, lh, lc, l_out, r_out = _candidate_tensors(
         hist, sum_g, sum_h, count, num_bins, has_nan, is_cat, feature_mask,
         allow_split, hp, parent_output=parent_output, monotone=monotone,
-        mn=mn, mx=mx, depth=depth, penalty=penalty)
+        mn=mn, mx=mx, depth=depth, penalty=penalty, cegb_penalty=cegb_penalty,
+        rand=rand)
     constrained = hp.use_smoothing or hp.use_monotone
     if hp.use_cat_subset:
         gs, lgs, lhs, lcs, los, ros = _cat_subset_tensors(
             hist, sum_g, sum_h, count, num_bins, is_cat, feature_mask,
-            allow_split, hp, parent_output=parent_output, mn=mn, mx=mx)
+            allow_split, hp, parent_output=parent_output, mn=mn, mx=mx,
+            cegb_penalty=cegb_penalty, rand=rand_subset)
         gains = torch.cat([gains, gs], dim=1)                  # [K, 4, F, B]
         lg, lh, lc = (torch.cat([a, c], dim=1)
                       for a, c in ((lg, lgs), (lh, lhs), (lc, lcs)))

@@ -583,9 +583,9 @@ def test_legal_geometries_are_the_table():
 # the JAX key fields the port's RouteInputs cannot express, at the value
 # under which the port's rules apply
 _JAX_ONLY = {"learner": "serial", "shards": "1", "efb": "0", "over": "0",
-             "ew": "0", "fdiv": "1", "dp": "0", "cegb": "0", "cat": "0",
-             "forced": "0", "mono": "0", "cegbc": "0", "part": "permute",
-             "ob": "0", "pg": "auto", "mcb": "auto"}
+             "ew": "0", "fdiv": "1", "dp": "0", "cat": "0", "mono": "0",
+             "cegbc": "0", "part": "permute", "ob": "0", "pg": "auto",
+             "mcb": "auto"}
 
 
 def _port_inputs(key: str):
@@ -604,7 +604,8 @@ def _port_inputs(key: str):
         phys_env=kf["phys"], stream_env=kf["stream"],
         fused_env="1" if kf["fused"] == "1" else "0",
         part_env=kf["impl"], pack_env=kf["pack"],
-        wide_layout=kf["wide"] == "1")
+        wide_layout=kf["wide"] == "1", cegb=kf["cegb"] == "1",
+        cegb_lazy=kf["cegb"] == "1", forced_splits=kf["forced"] == "1")
 
 
 def test_routing_matrix_matches_the_jax_golden():

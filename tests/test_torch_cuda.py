@@ -55,6 +55,10 @@ sample at 1M rows too, and bagged, GOSS and RF training grows the CPU
 run's trees on four routes.  The lambdarank gradients (slice 21) give
 the CPU's bits on the card, and lambdarank DART grows the CPU run's
 trees, drop sets and scores on four routes.
+The split options (slice 22: interaction constraints, CEGB, forced
+splits, by-node sampling, extra trees) grow the CPU run's trees on four
+routes (lazy CEGB's paid mask too), the node draws give the CPU's bits,
+and the kernel tail refuses what it has no mode for.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
 row-order and 3ph routes), and the default route's equal slice 2's
@@ -2096,3 +2100,120 @@ def test_dart_lambdarank_on_card_matches_cpu(cuda, env, monkeypatch):
     assert res["ok"], res
     assert leaves_bitwise(bsts[0]._models, bsts[1]._models)
     assert torch.equal(bt._inner.scores.cpu(), bsts[1]._inner.scores)
+
+
+def _split_option_params(name: str, tmp_path) -> dict:
+    import json
+
+    from chip_smoke import CEGB_COSTS, HIGGS_SETS
+    path = tmp_path / "forced_splits.json"
+    path.write_text(json.dumps({"feature": 3, "threshold": 0.4,
+                                "left": {"feature": 5, "threshold": -0.2},
+                                "right": {"feature": 5, "threshold": 0.1}}))
+    small = [c / 100.0 for c in CEGB_COSTS]
+    return {"interaction": {"interaction_constraints": HIGGS_SETS},
+            "cegb_coupled": {"cegb_penalty_split": 5e-4,
+                             "cegb_penalty_feature_coupled": small},
+            "cegb_lazy": {"cegb_penalty_split": 5e-4,
+                          "cegb_penalty_feature_lazy": [
+                              c / 1e4 for c in CEGB_COSTS],
+                          "bagging_fraction": 0.8, "bagging_freq": 1},
+            "forced": {"forcedsplits_filename": str(path)},
+            "bynode": {"feature_fraction_bynode": 0.5,
+                       "feature_fraction": 0.8},
+            "extra_trees": {"extra_trees": True, "extra_seed": 6}}[name]
+
+
+@pytest.mark.parametrize("env", [{}, {"LGBM_TPU_COMB_PACK": "2"},
+                                  {"LGBM_TPU_FUSED": "0"},
+                                  {"LGBM_TPU_PHYS": "0"}])
+@pytest.mark.parametrize("name", ["interaction", "cegb_coupled",
+                                  "cegb_lazy", "forced", "bynode",
+                                  "extra_trees"])
+def test_split_options_on_card_match_cpu(cuda, name, env, monkeypatch,
+                                         tmp_path):
+    """Each split option (slice 22) grows the CPU run's trees bit for bit
+    on the card at 28 features, on the PyTorch split tail (lazy CEGB on
+    the row-order path), the training kernels launching as
+    ``expected_launches`` counts; lazy CEGB's paid mask equals the
+    CPU's."""
+    from chip_smoke import N_FEATURES, counted_training_kernels
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    x = make_rows(6000, N_FEATURES, 11)
+    _, y = make_higgs_like(6000, N_FEATURES, 11)
+    params = dict({"objective": "binary", "num_leaves": 31,
+                   "verbosity": -1}, **_split_option_params(name, tmp_path))
+    counted = counted_training_kernels()
+    before = {fn.__name__: fn.launches for fn in counted}
+    bsts = [lgt.train(params, lgt.Dataset(x, label=y), num_boost_round=3,
+                      device=d) for d in ("cuda", "cpu")]
+    launched = {fn.__name__: fn.launches - before[fn.__name__]
+                for fn in counted}
+    bt = bsts[0]
+    route = bt._inner.grow.route
+    assert route.tail == "xla"
+    assert (route.path == "row_order") == (name == "cegb_lazy" or
+                                           env == {"LGBM_TPU_PHYS": "0"})
+    assert all(t.num_leaves > 1 for t in bt._models)
+    splits = sum(t.num_leaves - 1 for t in bt._models)
+    for kname, want in expected_launches(route, len(bt._models),
+                                         splits).items():
+        assert launched[kname] == want, kname
+    res = compare_trees(bsts[0]._models, bsts[1]._models)
+    assert res["ok"], res
+    assert leaves_bitwise(bsts[0]._models, bsts[1]._models)
+    assert torch.equal(bt._inner.scores.cpu(), bsts[1]._inner.scores)
+    if name == "cegb_lazy":
+        assert torch.equal(bt._inner._cegb_paid.cpu(),
+                           bsts[1]._inner._cegb_paid)
+
+
+@pytest.mark.parametrize("seed", [0, 6, 2**31 - 1])
+def test_node_draws_on_card(cuda, seed):
+    """A tree's node draws (fold_in keys over 509 salts, a uniform row
+    of 28 a node, and the subset stream's fold_in(key, 1)) give the
+    CPU's bits on the card."""
+    from lightgbm_tpu_torch.utils.random import (fold_in, prng_key,
+                                                 uniform_rows)
+
+    def draw(dev):
+        salts = torch.arange(509, dtype=torch.int64, device=dev)
+        keys = fold_in(fold_in(prng_key(seed), 41, dev), salts)
+        return (uniform_rows(keys, 28, dev),
+                uniform_rows(fold_in(keys, 1), 28, dev))
+    for a, b in zip(draw(cuda), draw("cpu")):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_kernel_tail_refuses_per_child_inputs_on_card(cuda):
+    """The kernel entries raise, before a launch, for the per-child
+    inputs and the CEGB and extra-trees modes they do not have."""
+    from lightgbm_tpu_torch.ops.apply_find import (ChildSearch, SplitAt,
+                                                   apply_find_pool,
+                                                   build_finder_consts)
+    from lightgbm_tpu_torch.ops.split import SplitHyperParams
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    f, b, L = 4, 16, 4
+    fc = build_finder_consts(torch.full((f,), 8, dtype=torch.int32,
+                                        device=cuda),
+                             torch.zeros(f, dtype=torch.bool, device=cuda),
+                             torch.zeros(f, dtype=torch.bool, device=cuda), b)
+    from lightgbm_tpu_torch.ops.apply_find import TreeState
+    st = TreeState(torch.zeros((L, f, b, 2), device=cuda),
+                   torch.zeros((L, 10), device=cuda),
+                   torch.zeros((L, 8), device=cuda),
+                   torch.zeros((L - 1, 4), device=cuda),
+                   torch.zeros((L, 2), dtype=torch.int32, device=cuda))
+    h = torch.zeros((f, b, 2), device=cuda)
+    nl = torch.zeros(1, dtype=torch.int32, device=cuda)
+    mask = torch.ones(f, device=cuda)
+    with pytest.raises(LightGBMError, match="per-child"):
+        apply_find_pool(h, h, nl, st, fc, mask, SplitHyperParams(), -1,
+                        SplitAt(0, 1, 0, 0, 10),
+                        ChildSearch(mask[None].expand(2, f)))
+    for hp in (SplitHyperParams(use_cegb=True),
+               SplitHyperParams(use_extra_trees=True)):
+        with pytest.raises(LightGBMError, match="PyTorch tail"):
+            apply_find_pool(h, h, nl, st, fc, mask, hp, -1,
+                            SplitAt(0, 1, 0, 0, 10))

@@ -398,15 +398,28 @@ def test_rf_refuses_a_dataset_init_score():
 @pytest.mark.parametrize("params,item", [
     ({"tree_learner": "data"}, "A10"), ({"tree_learner": "voting"}, "A10"),
     ({"pre_partition": True}, "A11"), ({"gpu_use_dp": True}, "A9"),
-    ({"interaction_constraints": "[[0, 1]]"}, "A9"),
-    ({"cegb_penalty_split": 0.5}, "A9"),
-    ({"feature_fraction_bynode": 0.5}, "A9"), ({"extra_trees": True}, "A9"),
     ({"linear_tree": True}, "A9")])
 def test_unported_messages_name_their_item(params, item):
     x, y = _data(300, 4, 1)
     with pytest.raises(LightGBMError, match=rf"ROADMAP\.md, {item}\)"):
         lgt.train(dict({"objective": "binary", "verbosity": -1}, **params),
                   lgt.Dataset(x, label=y), 1, device="cpu")
+
+
+@pytest.mark.parametrize("params,rule", [
+    ({"interaction_constraints": "[[0, 1]]"}, "tail_interaction"),
+    ({"cegb_penalty_split": 0.5}, "tail_cegb"),
+    ({"feature_fraction_bynode": 0.5}, "tail_bynode"),
+    ({"extra_trees": True}, "tail_extra_trees")])
+def test_dart_trains_the_split_options(params, rule):
+    """A9's split options, which raised before slice 22, train a DART
+    booster on the PyTorch tail under their rule."""
+    x, y = _data(300, 4, 1)
+    bst = lgt.train(dict({"objective": "binary", "boosting": "dart",
+                          "verbosity": -1}, **params),
+                    lgt.Dataset(x, label=y), 2, device="cpu")
+    assert bst._inner.grow.route.describe() == (
+        f"path=physical fused=1 tail=xla (boosting_not_gbdt, {rule})")
 
 
 def test_callable_objective_names_a5():

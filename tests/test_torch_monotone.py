@@ -467,15 +467,27 @@ def test_kernel_launch_refuses_the_intermediate_method():
                     2, 8, geo)[-1] == 0
 
 
-def test_constraints_raise_naming_the_roadmap():
+def test_constraints_raise_naming_the_roadmap(tmp_path):
+    """With monotone constraints, the split options slice 22 ported
+    (which raised before) train on the PyTorch tail; linear trees still
+    raise naming their ROADMAP item."""
     x, y = _data(300, 4, 1)
-    for extra in ({"interaction_constraints": "[[0, 1]]"},
-                  {"cegb_penalty_split": 0.5},
-                  {"forcedsplits_filename": "forced.json"}):
-        with pytest.raises(LightGBMError, match="A9"):
-            lgt.train(dict(BASE, monotone_constraints=[1, 0, 0, -1], **extra),
-                      lgt.Dataset(x, label=y), num_boost_round=1,
-                      device="cpu")
+    forced = tmp_path / "forced.json"
+    forced.write_text('{"feature": 1, "threshold": 0.0}')
+    for extra, rule in (
+            ({"interaction_constraints": "[[0, 1]]"}, "tail_interaction"),
+            ({"cegb_penalty_split": 0.5}, "tail_cegb"),
+            ({"forcedsplits_filename": str(forced)}, "tail_forced")):
+        bst = lgt.train(dict(BASE, monotone_constraints=[1, 0, 0, -1],
+                             **extra),
+                        lgt.Dataset(x, label=y), num_boost_round=1,
+                        device="cpu")
+        assert bst._inner.grow.route.describe() == (
+            f"path=stream fused=1 tail=xla ({rule})")
+    with pytest.raises(LightGBMError, match="A9"):
+        lgt.train(dict(BASE, monotone_constraints=[1, 0, 0, -1],
+                       linear_tree=True),
+                  lgt.Dataset(x, label=y), num_boost_round=1, device="cpu")
     # a sign vector shorter than the features pads with zeros
     bst = lgt.train(dict(BASE, monotone_constraints=[1]),
                     lgt.Dataset(x, label=y), num_boost_round=1, device="cpu")

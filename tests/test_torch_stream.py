@@ -180,7 +180,13 @@ def test_each_rule_blocks_its_part(rule):
           "phys_env_off": {"phys_env": "0"},
           "tail_cat_subset": {"cat_subset": True},
           "tail_mono_intermediate": {"mono_intermediate": True},
-          "cat_overwide": {"cat_subset": True, "bins_u8": False}}[rule]
+          "cat_overwide": {"cat_subset": True, "bins_u8": False},
+          "cegb_lazy": {"cegb_lazy": True},
+          "tail_interaction": {"interaction": True},
+          "tail_cegb": {"cegb": True},
+          "tail_forced": {"forced_splits": True},
+          "tail_bynode": {"bynode": True},
+          "tail_extra_trees": {"extra_trees": True}}[rule]
     # cat_overwide never fires alone: its bins wider than u8 fire
     # non_u8_bins, and a subset model takes the PyTorch tail
     also = {"cat_overwide": ("non_u8_bins", "tail_cat_subset")}.get(rule,

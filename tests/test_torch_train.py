@@ -278,12 +278,9 @@ def test_gradients_match_jax(objective):
 
 
 @pytest.mark.parametrize("params", [
-    {"cegb_penalty_split": 0.5},
     {"pre_partition": True},
     {"gpu_use_dp": True},
-    {"interaction_constraints": "[[0, 1]]"},
-    {"linear_tree": True}, {"extra_trees": True},
-    {"feature_fraction_bynode": 0.5}, {"tree_learner": "data"},
+    {"linear_tree": True}, {"tree_learner": "data"},
 ])
 def test_unported_parameters_raise(params):
     x, y = _data(300, 4, 1)
@@ -291,6 +288,24 @@ def test_unported_parameters_raise(params):
     with pytest.raises(LightGBMError, match="ROADMAP"):
         lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=1,
                   device="cpu")
+
+
+@pytest.mark.parametrize("params,rule", [
+    ({"cegb_penalty_split": 0.5}, "tail_cegb"),
+    ({"interaction_constraints": "[[0, 1]]"}, "tail_interaction"),
+    ({"extra_trees": True}, "tail_extra_trees"),
+    ({"feature_fraction_bynode": 0.5}, "tail_bynode"),
+])
+def test_split_options_train_on_the_pytorch_tail(params, rule):
+    """The split options that raised before slice 22 train, on the
+    PyTorch split tail under their rule (tests/test_torch_split_options.py
+    holds them against the JAX package)."""
+    x, y = _data(300, 4, 1)
+    p = dict({"objective": "binary", "verbosity": -1}, **params)
+    bst = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=1,
+                    device="cpu")
+    assert bst._inner.grow.route.describe() == (
+        f"path=stream fused=1 tail=xla ({rule})")
 
 
 def test_categorical_subset_raises():
@@ -307,7 +322,7 @@ def test_categorical_subset_raises():
     assert bst._inner.route.tail == "xla"
     with pytest.raises(LightGBMError, match="ROADMAP"):
         lgt.train({"objective": "binary", "verbosity": -1,
-                   "extra_trees": True},
+                   "linear_tree": True},
                   lgt.Dataset(x, label=y, categorical_feature=[3]),
                   num_boost_round=1, device="cpu")
 
@@ -348,6 +363,22 @@ def test_training_imports_no_jax():
         "assert b._inner.grow.route.describe() == "
         "'path=stream fused=1 tail=kernel pack=2'\n"
         "b.predict(x)\n"
+        "del os.environ['LGBM_TPU_COMB_PACK']\n"
+        "import json, tempfile\n"
+        "fs = os.path.join(tempfile.mkdtemp(), 'forced.json')\n"
+        "json.dump({'feature': 0, 'threshold': 0.0}, open(fs, 'w'))\n"
+        "for extra in ({'interaction_constraints': [[0, 1], [1, 2, 3]],\n"
+        "               'cegb_penalty_feature_coupled': [0, 1, 0, 2],\n"
+        "               'forcedsplits_filename': fs,\n"
+        "               'feature_fraction_bynode': 0.5,\n"
+        "               'extra_trees': True},\n"
+        "              {'cegb_penalty_feature_lazy': [0, 0.01, 0, 0]}):\n"
+        "    b = lgt.train(dict({'objective': 'binary', 'num_leaves': 7,\n"
+        "                        'verbosity': -1}, **extra),\n"
+        "                  lgt.Dataset(x, label=y), num_boost_round=2,\n"
+        "                  device='cpu')\n"
+        "    assert 'tail=xla' in b._inner.grow.route.describe()\n"
+        "    b.predict(x)\n"
         "bad = [m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'lightgbm_tpu' "
         "or m.startswith('lightgbm_tpu.')]\n"
