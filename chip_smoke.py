@@ -54,7 +54,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    permutation index), u8 bins through an index and a B = 1040 case,
    each timed beside its plain version, one ``index_add_`` and its
    bound;
-4. training parity, card against ``device="cpu"``, 50,000 x 28, 255
+4. training parity, card against ``device="cpu"``, 20,000 x 28, 255
    leaves: 1 tree on the default route, slice 2's route, the row-order
    route at ``max_bin=1023`` and the 3ph route (bitwise);
 5. the training main path on the default route (score-resident
@@ -100,7 +100,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    same logical rows, at 1,000,000 x 28 (S = 64: the root, the 1M-row
    segment, a segment at an odd offset of odd length, a dead split) and
    at 250,000 x 40 (S = 80), each timed beside its pack=1 kernel; the
-   pack=2 route card against device="cpu" (50,000 rows, 2 trees,
+   pack=2 route card against device="cpu" (20,000 rows, 1 tree,
    bitwise); its main path (1M x 28, 255 leaves, 10 iterations) counted,
    its trees held against the default route's bit for bit, and one
    profiled iteration; ``copyback_p2`` (slice 11, four 16-byte words in
@@ -175,12 +175,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    words) against their plain versions on adversarial words at 36
    features (rows and nleft bitwise; the fused modes' histograms within
    4 * n * eps_f32 * max|v|); the card against device="cpu" on the
-   first 10,000 rows on six routes, 1 tree of 63 leaves (bitwise); the
+   first 10,000 rows on six routes, 1 tree of 31 leaves (bitwise); the
    default route for 2 iterations, pack=2, both
-   ``FUSED=0`` routes and 3ph for 2
+   ``FUSED=0`` routes and 3ph for 1
    (pack=2's and the unfused routes' trees bitwise the default
    route's), ``max_bin`` 1023 (``cat_overwide``, row-order) and the
-   one-hot twin (``max_cat_to_onehot`` 1025, the kernel tail) for 2,
+   one-hot twin (``max_cat_to_onehot`` 1025, the kernel tail) for 1,
    each counted
    with each word mode launched on its route, holdout
    AUCs and splits of more than one category printed, served
@@ -196,7 +196,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the median split of a default-route, a row-order and a wide tree;
    the card against device="cpu" on the first 10,000 rows, 1 tree of 63
    leaves, on the default, pack=2 and row-order routes (bitwise); the basic method on
-   the default route for 10 iterations, pack=2, P1 ``FUSED=0``, 3ph,
+   the default route for 5 iterations, pack=2, P1 ``FUSED=0``, 3ph,
    ``POOL_TAIL=0``, row-order (``max_bin`` 1023) and the wide 1M x 136
    route for 2, ``monotone_penalty`` 2.0 and the intermediate method
    (the PyTorch tail and the adjacency pass) for 2, each counted and
@@ -210,7 +210,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    unconstrained ones (``monotone routes``, ``monotone tail times``);
 13. multiclass training and the regression and cross-entropy objectives
    (slice 19), on the kernel-tail physical route: the card against
-   device="cpu" at 10,000 x 28, 63 leaves, bitwise, for 1 iteration of
+   device="cpu" at 10,000 x 28, 31 leaves, bitwise, for 1 iteration of
    the 5-class softmax and the 3-class one-vs-all and 1 tree of each of
    ``regression_l1``, ``huber``, ``fair``, ``poisson``, ``quantile``
    (alpha 0.9), ``mape``, ``gamma``, ``tweedie``, ``cross_entropy`` and
@@ -218,7 +218,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (``objective_label``), the softmax at pack=2 (255 leaves) bitwise
    the pack=1 card trees; the multiclass main path (``bench.py
    --multiclass 5``'s cell, ``make_multiclass_like``: 1M x 28 training
-   and 100,000 holdout rows, 255 leaves, 10 iterations of 5 trees)
+   and 100,000 holdout rows, 255 leaves, 5 iterations of 5 trees)
    counted against ``expected_launches``, its holdout ``multi_logloss``
    below the class prior's, served through ``serve_traverse`` within 64
    ulps a tree of the training scores and of the f64 host walk on 4,096
@@ -230,7 +230,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 14. bagging, GOSS and random-forest boosting (slice 20), on the
    kernel-tail physical route: the threefry draws on the card bitwise
    the CPU's at 1M rows (the bagging mask at iterations 0 and 5, GOSS's
-   sample); the card against device="cpu" at 10,000 x 28, 63 leaves,
+   sample); the card against device="cpu" at 10,000 x 28, 31 leaves,
    bitwise, for 2 trees of bagging (0.8, every iteration), of
    ``pos_bagging_fraction`` 0.5 and of RF, 3 of GOSS (sampling from its
    third), and the bagging run at pack=2 bitwise the pack=1 card trees;
@@ -251,21 +251,53 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``feature_fraction_bynode`` 0.5 with ``feature_fraction`` 0.8 and
    ``extra_trees``: each card against device="cpu" at 10,000 x 28, 63
    leaves, 2 trees, bitwise; a tree's node draws on the card bitwise the
-   CPU's; each on the training main path's rows for 3 iterations,
+   CPU's; each on the training main path's rows for 2 iterations,
    counted against ``expected_launches``, its route, s / iteration, ms a
    tree by stage, kernels a split and busy share of one profiled
-   iteration, holdout AUC beside the default route's booster at 3
+   iteration, holdout AUC beside the default route's booster at 2
    iterations, and its gate (no root-to-leaf path leaving one
    interaction set; fewer splits on columns 21-27 than the default
-   route's first 3 trees under coupled and lazy CEGB; the forced nodes
+   route's first 2 trees under coupled and lazy CEGB; the forced nodes
    on top of every tree; by-node sampling's and extra trees' trees
    other than the default route's); printed as ``split options {...}``;
-16. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+16. linear trees (slice 23, ``linear_phase``): the card against
+   device="cpu" at 10,000 x 28, 63 leaves, 2 trees (the second grown on
+   the first's linear scores), trees, leaf values and leaf models
+   bitwise; the main path on the training main path's bins with their
+   raw values kept (``with_raw``) and ``linear_target``'s seeded
+   piecewise-linear label, ``LINEAR_PARAMS`` (regression,
+   ``linear_lambda`` 0.1, 255 leaves), 10 iterations on ``path=physical
+   fused=1 tail=kernel (linear_tree)``, counted (one ``linear_moments``
+   a tree), the ``linear_fit`` stage cut into the moments kernel, the
+   host solve and the prediction, one profiled iteration, its holdout
+   l2 beside the constant-leaf twin's; ``linear_moments`` bitwise its
+   plain version on tree 0's leaves (and on CPU copies of the first
+   four leaves' rows), timed beside its bound; ``Booster.predict`` on the
+   holdout against the f64 host walk, the model text saved and loaded
+   predicting the trained booster's bits, the serving model refusing the
+   linear trees; 2 iterations continued from the model text through
+   ``init_model`` starting from the model's raw predictions;
+   ``rollback_one_iter`` on this route and on the default stream route
+   (the main path's booster) giving back the scores bit for bit;
+   printed as ``linear trees {...}``;
+17. ``gpu_use_dp`` (slice 23, ``dp_phase``): the f64 mode of
+   ``hist_rows`` bitwise its plain version on the card and on CPU
+   copies at B = 256 (the main path's bins: root, 3,000 and 250,000
+   indexed rows) and B = 1024 (seeded u16 bins: root, 3,000 indexed);
+   the card against device="cpu" at the parity cut (bitwise); the
+   Higgs binary main path with ``gpu_use_dp`` for 10 iterations on
+   ``path=row_order`` (reason ``gpu_use_dp``), counted, beside its f32
+   row-order twin (``LGBM_TPU_PHYS=0``, 10 iterations); the f64 mode
+   at the root and the smaller children's quartiles and maximum, in
+   turns with the f32 mode, beside ``index_add_`` in f64 and the bound;
+   printed as ``gpu_use_dp {...}``;
+18. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times (``multiclass_launches`` on the multiclass main
    path, ``sampling_launches`` on the three sampling main paths,
    ``ranking_launches``, ``split_options_launches`` on the split
-   options' routes), then the device line last; ``phase NAME took S
-   s`` after each phase.
+   options' routes, ``linear_launches`` and ``gpu_use_dp_launches``),
+   then the device line last; ``phase NAME took S s`` after each
+   phase.
 
 The forests and rows are generated from seeds: the card's machine has
 no JAX.
@@ -885,12 +917,12 @@ TRAIN_ROWS = 1_000_000
 HOLDOUT_ROWS = 100_000
 TRAIN_LEAVES = 255
 TRAIN_ITERS = 10
-PARITY_ROWS = 50_000
+PARITY_ROWS = 20_000
 PARITY_TREES = 1
 # the leaves of the card-against-CPU runs of every phase after the
 # training main paths (the script's time budget: a CPU tree's time is
 # about its splits')
-PARITY_CUT_LEAVES = 63
+PARITY_CUT_LEAVES = 31
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": TRAIN_LEAVES,
                 "max_bin": 255, "learning_rate": 0.1, "metric": "auc",
                 "verbosity": -1}
@@ -1513,7 +1545,7 @@ def train_parity(gpu: str, env: dict, trees: int, label: str,
                  params: dict = TRAIN_PARAMS, bitwise: bool = False,
                  n_features: int = N_FEATURES, y=None,
                  rows: int = PARITY_ROWS) -> dict:
-    """``rows`` (50,000) rows x ``n_features`` (28; NaN and zero missing
+    """``rows`` (20,000) rows x ``n_features`` (28; NaN and zero missing
     values), 255 leaves, ``trees`` iterations on the route ``env``
     selects, trained on the card and with device="cpu"; whether the leaf
     values are bitwise equal too (a gate when ``bitwise``).  ``y``
@@ -2615,7 +2647,7 @@ def hist_comb_times(gpu: str, f: int, cases: list) -> list:
 
 def row_order_phases(gpu: str, ds, valid, ds_wide, valid_wide, x,
                      bst_default) -> tuple:
-    """Slice 4's training: card against device="cpu" at 50,000 rows
+    """Slice 4's training: card against device="cpu" at 20,000 rows
     (max_bin=1023, bitwise), the row-order main path (1M x 28,
     max_bin=1023, 10 iterations) counted and served, and LGBM_TPU_PHYS=0
     at max_bin=255 (3 iterations, the one-kernel tail), its trees
@@ -2656,7 +2688,9 @@ def expected_launches(route, trees: int, splits: int) -> dict:
     routes build every root and smaller child with hist_comb and refresh
     without a histogram; per split the fused split + copyback, the scan
     + copyback or the 3-phase partition, and the tail's kernel entry.
-    At pack=2 the record kernels take the pack=1 kernels' places."""
+    At pack=2 the record kernels take the pack=1 kernels' places.  Under
+    ``gpu_use_dp`` the row-order histograms are its f64 mode's; linear
+    trees fit each tree's leaves with one ``linear_moments``."""
     kernel_tail = route.tail == "kernel"
     expect = dict.fromkeys(
         ("stream_init", "stream_refresh", "stream_refresh_plain",
@@ -2664,13 +2698,17 @@ def expected_launches(route, trees: int, splits: int) -> dict:
          "fused_split", "copyback", "build_histogram_rows",
          "stream_init_p2", "stream_refresh_p2", "stream_refresh_plain_p2",
          "build_histogram_comb_p2", "partition_scan_p2", "fused_split_p2",
-         "copyback_p2"), 0)
+         "copyback_p2", "build_histogram_rows_dp"), 0)
+    expect["linear_moments"] = trees if "linear_tree" in route.reasons \
+        else 0
     expect["apply_find_pool"] = splits if kernel_tail and route.pool_tail \
         else 0
     expect["apply_find"] = splits if kernel_tail and not route.pool_tail \
         else 0
     if route.path == "row_order":
-        expect["build_histogram_rows"] = trees + splits
+        dp = "gpu_use_dp" in route.reasons
+        expect["build_histogram_rows_dp" if dp
+               else "build_histogram_rows"] = trees + splits
         return expect
     stream, fused = route.stream, route.fused
     three = route.scheme == "3ph"
@@ -2700,7 +2738,7 @@ POOL_TAIL_ITERS = 2
 
 def part_3ph_phases(gpu: str, ds, valid, x, bst_default) -> tuple:
     """Slice 5's training: the 3ph route card against device="cpu" at
-    50,000 rows (bitwise), its main path (1M x 28, 255 leaves, 3
+    20,000 rows (bitwise), its main path (1M x 28, 255 leaves, 3
     iterations) counted and served, its trees printed beside the default
     route's first 3 (not a gate: the right children add their rows in
     another order), and LGBM_TPU_POOL_TAIL=0 (2 iterations), counted,
@@ -3303,7 +3341,7 @@ def refresh_times(gpu: str, n: int = TRAIN_ROWS, f: int = N_FEATURES,
 
 def pack2_phases(gpu: str, ds, valid, x, bst_default) -> tuple:
     """Slice 6's training: the pack=2 route card against device="cpu" at
-    50,000 rows (bitwise), its main path (1M x 28, 255 leaves, 10
+    20,000 rows (bitwise), its main path (1M x 28, 255 leaves, 10
     iterations) counted and served, its trees held against the default
     route's bit for bit.  Returns (booster, record, parity record)."""
     parity = train_parity(gpu, PACK2, PARITY_TREES, "pack=2 route",
@@ -3327,7 +3365,7 @@ PACK2_UNFUSED_ITERS = 3
 
 def pack2_unfused_phases(gpu: str, ds, valid, x, bst_default,
                          bst_slice2) -> tuple:
-    """Slice 7's training: card against device="cpu" at 50,000 rows
+    """Slice 7's training: card against device="cpu" at 20,000 rows
     (bitwise) on COMB_PACK=2 FUSED=0 and on pack=2 slice 2's route; the
     main path COMB_PACK=2 FUSED=0 (1M x 28, 255 leaves, 3 iterations)
     counted and served, beside the pack=1 FUSED=0 route (3 iterations),
@@ -3365,9 +3403,10 @@ def counted_training_kernels():
     from lightgbm_tpu_torch.ops.apply_find import apply_find, apply_find_pool
     from lightgbm_tpu_torch.ops.fused_split import (fused_split,
                                                     fused_split_p2)
-    from lightgbm_tpu_torch.ops.hist_kernel2 import (build_histogram_comb,
-                                                     build_histogram_comb_p2,
-                                                     build_histogram_rows)
+    from lightgbm_tpu_torch.ops.hist_kernel2 import (
+        build_histogram_comb, build_histogram_comb_p2, build_histogram_rows,
+        build_histogram_rows_dp)
+    from lightgbm_tpu_torch.ops.linear_kernel import linear_moments
     from lightgbm_tpu_torch.ops.partition_kernel import (
         copyback, copyback_p2, partition_3ph, partition_scan,
         partition_scan_p2)
@@ -3379,7 +3418,8 @@ def counted_training_kernels():
             fused_split, copyback, apply_find_pool, apply_find,
             build_histogram_rows, stream_init_p2, stream_refresh_p2,
             build_histogram_comb_p2, fused_split_p2, copyback_p2,
-            partition_scan_p2, stream_refresh_plain_p2)
+            partition_scan_p2, stream_refresh_plain_p2,
+            build_histogram_rows_dp, linear_moments)
 
 
 def binary_holdout(bst) -> dict:
@@ -4334,7 +4374,7 @@ def wide_phases(gpu: str, comb_cases: list) -> dict:
 # Slice 18: monotone constraints, the constrained mode of the split tail
 MONO_CONSTRAINED = 8
 MONO_SIGNS = [1] * 4 + [-1] * 4      # features 0-3 up, 4-7 down, rest free
-MONO_ITERS = 10
+MONO_ITERS = 5
 MONO_SHORT_ITERS = 2
 MONO_PENALTY = 2.0
 MONO_PARITY_ROWS = 10_000
@@ -4536,7 +4576,7 @@ def mono_phases(gpu: str, ds, valid, ds_wide, valid_wide, x, y, xv,
     its adversarial cases and on the median split of a default-route and
     a row-order tree; the card against the CPU on the first 10,000 rows
     (1 tree) on the default, pack=2 and row-order routes (bitwise); the basic
-    method on the default route for 10 iterations, pack=2, P1
+    method on the default route for 5 iterations, pack=2, P1
     ``FUSED=0``, 3ph, ``POOL_TAIL=0`` and row-order (``max_bin`` 1023)
     for 2, ``monotone_penalty`` 2.0 and the intermediate method for 2,
     each counted (the tail's launches are its constrained launches),
@@ -4734,7 +4774,7 @@ CAT_DS_PARAMS = {"max_bin": 255, "min_data_in_bin": 1}
 # every categorical split one-hot (and the kernel tail)
 CAT_ONEHOT_PARAMS = dict(CAT_PARAMS, max_cat_to_onehot=CAT_CATS + 1)
 CAT_ITERS = 2
-CAT_SHORT_ITERS = 2
+CAT_SHORT_ITERS = 1
 # the cut of the categorical data the card is held against the CPU on
 CAT_PARITY_ROWS = 10_000
 CAT_PARITY_TREES = 1
@@ -5012,10 +5052,10 @@ def cat_phases(gpu: str) -> list:
     max_cat_to_onehot 4).  The word modes against their plain versions
     on adversarial words; the card against the CPU on a cut of the data
     on every categorical route (bit for bit); the default route for 2
-    iterations, pack=2, both FUSED=0 routes and 3ph for 2 (pack=2 and
+    iterations, pack=2, both FUSED=0 routes and 3ph for 1 (pack=2 and
     the unfused routes' trees bitwise the default route's), max_bin 1023
-    (cat_overwide, row_order) for 2 and the one-hot twin
-    (max_cat_to_onehot 1025, the kernel tail) for 2, each counted, each
+    (cat_overwide, row_order) for 1 and the one-hot twin
+    (max_cat_to_onehot 1025, the kernel tail) for 1, each counted, each
     word mode launched on its route, served through
     serve_traverse and held against the f64 host walk; the word modes
     timed beside their one-hot modes.  Returns the five word modes'
@@ -5157,7 +5197,7 @@ def cat_phases(gpu: str) -> list:
 # -- Slice 19: multiclass training and the regression and cross-entropy
 # objectives (on the kernel-tail physical route) ----------------------------
 MC_CLASSES = 5
-MC_ITERS = 10
+MC_ITERS = 5
 MC_PARAMS = {"objective": "multiclass", "num_class": MC_CLASSES,
              "num_leaves": TRAIN_LEAVES, "max_bin": 255,
              "learning_rate": 0.1, "metric": ["multi_logloss", "multi_error"],
@@ -5336,7 +5376,7 @@ def multiclass_phases(gpu: str) -> dict:
     """Slice 19: the objectives' parity runs (:func:`objective_parities`),
     then the multiclass main path at full width (``bench.py --multiclass
     5``'s cell: 1M x 28 training and 100,000 holdout rows, 5-class
-    softmax, 255 leaves, 10 iterations, 50 trees) on the kernel-tail
+    softmax, 255 leaves, 5 iterations, 25 trees) on the kernel-tail
     physical route, counted, its holdout ``multi_logloss`` below the
     class prior's, the booster served through serve_traverse (every
     class's raw scores within 64 ulps a tree of the training scores and
@@ -5498,7 +5538,7 @@ def sampling_draws(gpu: str, bag, goss) -> dict:
 
 
 def sampling_parities(gpu: str) -> dict:
-    """The card against device="cpu" at 10,000 x 28, 63 leaves,
+    """The card against device="cpu" at 10,000 x 28, 31 leaves,
     bitwise, for each of ``SAMPLING_PARITY``, and the bagging run at
     pack=2 bitwise the pack=1 card trees (its record kernels counted)."""
     out = {}
@@ -5887,7 +5927,7 @@ def ranking_phases(gpu: str, wide: dict) -> dict:
 # ---------------------------------------------------------------------
 # Slice 22: the split options on the PyTorch split tail (interaction
 # constraints, CEGB, forced splits, feature_fraction_bynode, extra_trees)
-SPLIT_ITERS = 3
+SPLIT_ITERS = 2
 SPLIT_PARITY_TREES = 2
 # the UCI HIGGS columns' groups: the lepton and the missing energy, each
 # of the four jets, the seven derived masses
@@ -6013,12 +6053,12 @@ def split_draws(gpu: str) -> dict:
 
 def split_option_phases(gpu: str, higgs: dict) -> dict:
     """Slice 22: each split option (``SPLIT_OPTIONS``) trained on the card
-    against device="cpu" at 10,000 x 28, 63 leaves, 2 trees (bitwise),
-    then on the training main path's 1M rows (``TRAIN_PARAMS``, 3
+    against device="cpu" at 10,000 x 28, 31 leaves, 2 trees (bitwise),
+    then on the training main path's 1M rows (``TRAIN_PARAMS``, 2
     iterations) on its route, counted against ``expected_launches``,
-    its holdout AUC beside the default route's booster at 3 iterations,
+    its holdout AUC beside the default route's booster at 2 iterations,
     its gate (no path leaving one interaction set; fewer splits on
-    columns 21-27 than that booster's first 3 trees under coupled and
+    columns 21-27 than that booster's first 2 trees under coupled and
     lazy CEGB; the forced nodes on top of every tree; trees other than
     the twin's under by-node sampling and extra trees), one profiled
     iteration; the node draws bitwise (:func:`split_draws`)."""
@@ -6090,7 +6130,7 @@ def split_option_phases(gpu: str, higgs: dict) -> dict:
         "kernels_per_split": profiles[name].get("kernels_per_split"),
         "busy_share": profiles[name].get("busy_share"),
         "holdout_auc": run["holdout_auc"],
-        "default_route_auc_3_iterations": twin_auc,
+        "default_route_auc_same_iterations": twin_auc,
         "splits": run["splits"], "host_reads": run["host_reads"],
         "gate": gates[name],
         "parity_bitwise": parity[name]["ok"]}
@@ -6103,6 +6143,573 @@ def split_option_phases(gpu: str, higgs: dict) -> dict:
     print("split options " + json.dumps(summary), flush=True)
     return {"parity": parity, "main": runs, "profile": profiles,
             "draws": draws}
+
+
+# -- slice 23: linear trees, gpu_use_dp, init_model, rollback_one_iter -------
+LINEAR_PARAMS = {"objective": "regression", "linear_tree": True,
+                 "linear_lambda": 0.1, "num_leaves": TRAIN_LEAVES,
+                 "max_bin": 255, "learning_rate": 0.1, "metric": "l2",
+                 "verbosity": -1}
+LINEAR_ITERS = 10
+LINEAR_CONTINUED = 2
+LINEAR_ROUTE = "path=physical fused=1 tail=kernel (linear_tree)"
+LINEAR_PARITY_TREES = 2
+# the leaves of slice 23's card-against-CPU runs (63: the second tree
+# grows on the first's linear scores over many leaves)
+LINEAR_PARITY_LEAVES = 63
+# Booster.predict (the leaf entry, f64 leaf models on the card) against
+# the f64 host walk (Tree.predict) on f32-exact rows: the same leaves, the
+# sums taken in another order (k order against numpy's matmul)
+LINEAR_PREDICT_RTOL = 1e-12
+LINEAR_PREDICT_ATOL = 1e-9
+DP_PARAMS = dict(TRAIN_PARAMS, gpu_use_dp=True)
+DP_ITERS = 10
+DP_ROUTE = "path=row_order fused=0 tail=kernel (gpu_use_dp)"
+# H100 SXM data sheet: FP64 through the tensor cores (the vector rate is
+# 34 TFLOP/s); the f64 modes' bound is taken at the higher rate
+PEAK_F64_OPS_S = 67e12
+
+
+def linear_target(x: np.ndarray, seed: int, noise_seed: int) -> np.ndarray:
+    """A seeded piecewise-linear regression target of ``x`` (NaN read as
+    0): four regions cut by features 0 and 1, each its own linear field
+    over all the features (drawn from ``seed``: training and holdout rows
+    share it) and its own offset, and Gaussian noise (from
+    ``noise_seed``); a constant-leaf tree needs many splits where a
+    linear leaf needs one."""
+    w = np.random.default_rng(seed).normal(size=(4, x.shape[1])) * 0.3
+    xz = np.nan_to_num(x).astype(np.float64)
+    region = (xz[:, 0] > 0).astype(np.int64) * 2 + (xz[:, 1] > 0)
+    y = ((xz * w[region]).sum(axis=1) + 0.5 * region
+         + 0.1 * np.random.default_rng(noise_seed).normal(size=len(x)))
+    return y.astype(np.float32)
+
+
+def with_raw(ds, x: np.ndarray, y: np.ndarray):
+    """The constructed Dataset ``ds``'s bins under the label ``y`` with the
+    raw values of its used columns kept (``convert.dataset_from_numpy``:
+    no binning again), as ``linear_tree`` needs."""
+    from lightgbm_tpu_torch.convert import dataset_from_numpy
+    b = ds._binned
+    return dataset_from_numpy(
+        [m.to_dict() for m in b.mappers], b.bin_matrix, y,
+        used_feature_map=b.used_feature_map,
+        num_total_features=b.num_total_features,
+        raw_matrix=x[:, b.used_feature_map])
+
+
+def linear_fields_bitwise(models_a, models_b) -> bool:
+    """Every tree's leaf models bit for bit (constants, features,
+    coefficients)."""
+    def key(t):
+        if not t.is_linear:
+            return (False,)
+        return (True, np.asarray(t.leaf_const, np.float64).tobytes(),
+                tuple(np.asarray(f, np.int64).tobytes()
+                      for f in t.leaf_features),
+                tuple(np.asarray(c, np.float64).tobytes()
+                      for c in t.leaf_coeff))
+    return (len(models_a) == len(models_b)
+            and all(key(a) == key(b) for a, b in zip(models_a, models_b)))
+
+
+def linear_parity(gpu: str) -> dict:
+    """The card against device="cpu" at the parity cut (10,000 x 28, 63
+    leaves, 2 trees, so the second tree grows on the first's linear
+    scores): trees equal, leaf values and the leaf models bit for bit."""
+    import lightgbm_tpu_torch as lgt
+    rows = OBJ_PARITY_ROWS
+    x = make_rows(rows, N_FEATURES, 3)
+    y = linear_target(x, 5, 6)
+    params = dict(LINEAR_PARAMS, num_leaves=LINEAR_PARITY_LEAVES)
+
+    def train(device):
+        bst = lgt.Booster(params, lgt.Dataset(x, label=y), device=device)
+        for _ in range(LINEAR_PARITY_TREES):
+            bst.update()
+        return bst
+    t0 = time.perf_counter()
+    bc = train("cuda")
+    t1 = time.perf_counter()
+    bp = train("cpu")
+    rec = compare_trees(bc._models, bp._models)
+    rec.update(case=f"linear trees: {rows}x{N_FEATURES}, "
+               f"{LINEAR_PARITY_LEAVES} leaves, {LINEAR_PARITY_TREES} trees",
+               route=bc._inner.grow.route.describe(),
+               leaves_bitwise=leaves_bitwise(bc._models, bp._models),
+               linear_bitwise=linear_fields_bitwise(bc._models, bp._models),
+               scores_bitwise=torch_equal(bc._inner.scores.cpu(),
+                                          bp._inner.scores),
+               leaf_features=[sum(len(f) > 0 for f in t.leaf_features)
+                              for t in bc._models],
+               cuda_s=t1 - t0, cpu_s=time.perf_counter() - t1, gpu=gpu)
+    rec["ok"] = (rec["ok"] and rec["leaves_bitwise"]
+                 and rec["linear_bitwise"] and rec["scores_bitwise"]
+                 and all(t.is_linear for t in bc._models))
+    print("parity training " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"linear trees on the card differ from the CPU "
+                           f"run: {rec}")
+    return rec
+
+
+def linear_moments_case(gpu: str, raw, leaf_id, feat_idx, label: str
+                        ) -> dict:
+    """``linear_moments`` against its plain version on the same card
+    inputs (and on CPU copies of them), bitwise; timed beside the plain
+    version with its bound (the path features' values each row needs,
+    the row's order, leaf and factors read once, the moments written
+    once; the f64 operations of each leaf's own entries)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.linear_kernel import (
+        linear_moments, linear_moments_ref, moment_layout)
+    dev = raw.device
+    n = raw.shape[0]
+    g = np.random.default_rng(29)
+    grad = torch.tensor(g.normal(size=n).astype(np.float32), device=dev)
+    hess = torch.tensor(g.uniform(0.1, 1.0, size=n).astype(np.float32),
+                        device=dev)
+    w = torch.tensor((g.random(n) < 0.9).astype(np.float32), device=dev)
+    launches = linear_moments.launches
+    k1 = linear_moments(raw, leaf_id, grad, hess, w, feat_idx)
+    k2 = linear_moments(raw, leaf_id, grad, hess, w, feat_idx)
+    ref = linear_moments_ref(raw, leaf_id, grad, hess, w, feat_idx)
+    torch.cuda.synchronize()
+    sub = leaf_id < 4         # CPU copies: the rows of the first leaves
+    ref_cpu = linear_moments_ref(raw[sub].cpu(), leaf_id[sub].cpu(),
+                                 grad[sub].cpu(), hess[sub].cpu(),
+                                 w[sub].cpu(), feat_idx.cpu())
+    k_sub = linear_moments(raw[sub].contiguous(), leaf_id[sub].contiguous(),
+                           grad[sub].contiguous(), hess[sub].contiguous(),
+                           w[sub].contiguous(), feat_idx)
+    rec = {"case": label, "rows": n, "leaves": int(feat_idx.shape[0]),
+           "kmax": int(feat_idx.shape[1]),
+           "bitwise_plain": torch_equal(k1, ref),
+           "bitwise_cpu_plain": torch_equal(k_sub.cpu(), ref_cpu),
+           "bitwise_repeat": torch_equal(k1, k2),
+           "max_abs_err": float((k1 - ref).abs().max()),
+           "launched": linear_moments.launches - launches}
+    rec["ok"] = (rec["bitwise_plain"] and rec["bitwise_cpu_plain"]
+                 and rec["bitwise_repeat"] and rec["launched"] == 3)
+    rec["ms"] = _time_ms(lambda: linear_moments(raw, leaf_id, grad, hess, w,
+                                                feat_idx), 10)
+    rec["plain_ms"] = _time_ms(lambda: linear_moments_ref(
+        raw, leaf_id, grad, hess, w, feat_idx), 2)
+    k_leaf = (feat_idx >= 0).sum(dim=1).long()[leaf_id.long()]   # [n]
+    k1_row = k_leaf + 1
+    p_row = k1_row * (k1_row + 1) // 2
+    _, e = moment_layout(feat_idx.shape[1])
+    rec["bound_bytes"] = int(4 * k_leaf.sum()) + n * 20 + \
+        int(feat_idx.shape[0]) * e * 8
+    rec["bound_ops"] = int((3 * p_row + 2 * k1_row + 1).sum())
+    rec["bound_ms"] = max(rec["bound_bytes"] / PEAK_BYTES_S,
+                          rec["bound_ops"] / PEAK_F64_OPS_S) * 1e3
+    rec["bound_by"] = ("bytes" if rec["bound_bytes"] / PEAK_BYTES_S
+                       >= rec["bound_ops"] / PEAK_F64_OPS_S
+                       else "operations")
+    rec["gpu"] = gpu
+    print("parity linear_moments " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"linear_moments disagrees with its plain "
+                           f"version: {rec}")
+    return rec
+
+
+def tree_leaf_inputs(bst, i: int):
+    """Tree ``i`` of a trained linear booster as the fit saw it: every
+    training row's leaf (bin-space walk on the card) and the leaves' path
+    features (``models.linear.leaf_path_features``)."""
+    import torch
+
+    from lightgbm_tpu_torch.models.gbdt import _bin_tree
+    from lightgbm_tpu_torch.models.linear import leaf_path_features
+    from lightgbm_tpu_torch.ops.grow import predict_leaf_bins
+    inner = bst._inner
+    ta = _bin_tree(bst._models[i], inner._inner_ids())
+    bins = inner.dd.bins
+    leaf = predict_leaf_bins(ta, bins, inner.dd.num_bins, inner.dd.has_nan)
+    fi = leaf_path_features(ta, inner._is_cat, ta.num_leaves)
+    return (leaf.to(torch.int32).contiguous(),
+            torch.as_tensor(fi, device=bins.device))
+
+
+def linear_predict_checks(bst, xv: np.ndarray, gpu: str) -> dict:
+    """``Booster.predict`` of the linear model on the holdout (f32-exact
+    rows) against the f64 host walk (``Tree.predict`` summed in tree
+    order), within LINEAR_PREDICT_RTOL / _ATOL; its text saved and
+    loaded on the card predicts the trained booster's bits; the serving
+    model refuses the linear trees (``predict_linear_tree``)."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.serve import ServingModel
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    xq = np.asarray(xv, np.float32).astype(np.float64)
+    t0 = time.perf_counter()
+    got = bst.predict(xq, raw_score=True)
+    predict_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = np.zeros(len(xq))
+    for t in bst._models:
+        host += t.predict(xq)
+    host_s = time.perf_counter() - t0
+    err = np.abs(got - host)
+    tol = LINEAR_PREDICT_ATOL + LINEAR_PREDICT_RTOL * np.abs(host)
+    loaded = lgt.Booster(model_str=bst.model_to_string(), device="cuda")
+    again = loaded.predict(xq, raw_score=True)
+    try:
+        ServingModel.from_booster(bst, device="cuda")
+        refused = False
+    except LightGBMError:
+        refused = True
+    rec = {"rows": len(xq), "trees": len(bst._models),
+           "max_abs_err_host_walk": float(err.max()),
+           "within_tol": bool(np.all(err <= tol)),
+           "rtol": LINEAR_PREDICT_RTOL, "atol": LINEAR_PREDICT_ATOL,
+           "loaded_bitwise": bool(np.asarray(again).tobytes()
+                                  == np.asarray(got).tobytes()),
+           "serving_refuses_linear": refused,
+           "predict_s": predict_s, "host_walk_s": host_s, "gpu": gpu}
+    print("linear predict " + json.dumps(rec), flush=True)
+    if not (rec["within_tol"] and rec["loaded_bitwise"] and refused
+            and np.all(np.isfinite(got))):
+        raise RuntimeError(f"linear predict fails its checks: {rec}")
+    return rec
+
+
+def rollback_check(bst, label: str) -> dict:
+    """One more iteration of ``bst``, then ``rollback_one_iter``: the
+    training and validation scores bit for bit the ones before it, the
+    tree gone; then one iteration again (on the stream route the rows
+    are rebuilt from the scores, and their scores must equal the
+    booster's).  The regrown tree is printed beside the rolled-back one:
+    the rows it sums come in another order (rebuilt, or still in the
+    rolled-back tree's permutation), so its leaves may differ in their
+    last bits."""
+    import torch
+    inner = bst._inner
+    before = inner.scores.clone()
+    before_v = [vs.scores.clone() for vs in inner.valid_sets]
+    n_trees = len(bst._models)
+    bst.update()
+    grown = bst._models[-1]
+    bst.rollback_one_iter()
+    torch.cuda.synchronize()
+    rec = {"case": label, "route": inner.grow.route.describe(),
+           "scores_bitwise": torch.equal(inner.scores, before),
+           "valid_bitwise": all(torch.equal(vs.scores, b) for vs, b in
+                                zip(inner.valid_sets, before_v)),
+           "trees_back": len(bst._models) == n_trees}
+    bst.update()
+    again = bst._models[-1]
+    if inner.route.stream:
+        rows = inner.grow.rows.fields()
+        rec["rows_carry_scores"] = torch.equal(
+            rows.score, inner.train_score[rows.rid.long()])
+    rec["ok"] = all(v for v in rec.values() if isinstance(v, bool))
+    rec["regrown"] = dict(compare_trees([grown], [again]),
+                          leaves_bitwise=leaves_bitwise([grown], [again]))
+    print("rollback " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"rollback_one_iter fails on the {label}: {rec}")
+    return rec
+
+
+def l2_holdout(yv: np.ndarray):
+    """The linear main path's holdout gate: ``l2`` finite and below the
+    label's variance (the constant model's)."""
+    const = float(np.var(yv))
+
+    def gate(bst) -> dict:
+        got = bst.best_score["valid_0"]["l2"]
+        if not (np.isfinite(got) and got < const):
+            raise RuntimeError(f"holdout l2 {got} is not below the label "
+                               f"variance {const}")
+        return {"holdout_l2": got, "variance_l2": const}
+    return gate
+
+
+def linear_phase(gpu: str, higgs: dict) -> tuple:
+    """Slice 23's main path: linear trees at Higgs width (the main path's
+    1M x 28 bins with their raw values kept, ``linear_target``'s label,
+    100,000 holdout rows, ``LINEAR_PARAMS``, 10 iterations) counted and
+    timed by stage (``linear_fit`` cut into the moments kernel, the host
+    solve and the prediction), its holdout l2 beside the constant-leaf
+    twin's; ``linear_moments`` bitwise its plain version on tree 0's
+    leaves; the parity run; predict, save / load and the serving
+    refusal; 2 iterations continued through ``init_model`` from the
+    model text; ``rollback_one_iter`` on this route and on the default
+    stream route (the main path's booster).  Returns (the kernel's
+    record, the phase's summary)."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    parity = linear_parity(gpu)
+    lap("linear/parity")
+    x, xv = higgs["x"], higgs["xv"]
+    y, yv = linear_target(x, 11, 12), linear_target(xv, 11, 13)
+    ds = with_raw(higgs["ds"], x, y)
+    valid = with_raw(higgs["valid"], xv, yv)
+    bst, run = train_main_path(gpu, ds, valid, x, {}, LINEAR_ITERS,
+                               "linear main path", params=LINEAR_PARAMS,
+                               holdout=l2_holdout(yv))
+    if run["route"] != LINEAR_ROUTE:
+        raise RuntimeError(f"the linear main path took {run['route']}")
+    profile = profile_iteration(bst, gpu)
+    print("profiled iteration, linear main path " + json.dumps(profile),
+          flush=True)
+    bst.rollback_one_iter()
+    twin, twin_run = train_main_path(
+        gpu, ds, valid, x, {}, LINEAR_ITERS, "linear twin, constant leaves",
+        params=dict(LINEAR_PARAMS, linear_tree=False),
+        holdout=l2_holdout(yv))
+    lap("linear/main path and twin")
+    leaf, fi = tree_leaf_inputs(bst, 0)
+    kernel = linear_moments_case(gpu, bst._inner._raw, leaf, fi,
+                                 "tree 0 of the linear main path")
+    lap("linear/kernel")
+    predict = linear_predict_checks(bst, xv, gpu)
+    # continued training from the model text: the dataset's init score
+    # is the model's raw predictions, and the first new tree starts there
+    init = bst.predict(x, raw_score=True)
+    ds2 = with_raw(higgs["ds"], x, y)
+    ds2.set_init_score(init)
+    start = []
+
+    def first_scores(env):
+        if not start:
+            start.append(env.model._inner.scores.clone())
+    first_scores.before_iteration = True
+    cont = lgt.train(LINEAR_PARAMS, ds2, num_boost_round=LINEAR_CONTINUED,
+                     valid_sets=[valid], init_model=bst.model_to_string(),
+                     callbacks=[first_scores], device="cuda")
+    want = torch.as_tensor(init.astype(np.float32), device="cuda")[None]
+    continued = {
+        "trees": len(cont._models), "iterations": cont.current_iteration(),
+        "starts_from_init_scores": torch.equal(start[0], want),
+        "holdout_l2": cont.best_score["valid_0"]["l2"],
+        "base_holdout_l2": run["holdout_l2"]}
+    continued["ok"] = (continued["starts_from_init_scores"]
+                       and continued["trees"]
+                       == len(bst._models) + LINEAR_CONTINUED
+                       and continued["holdout_l2"] <= run["holdout_l2"])
+    print("linear continued " + json.dumps(continued), flush=True)
+    if not continued["ok"]:
+        raise RuntimeError(f"continued training from init_model fails: "
+                           f"{continued}")
+    rollback = [rollback_check(bst, "linear main path"),
+                rollback_check(higgs["bst"], "default route")]
+    lap("linear/predict, continued, rollback")
+    stages = run["stage_ms_per_tree"]
+    summary = {
+        "route": run["route"], "iterations": run["iterations"],
+        "s_per_iter_first": run["s_per_iter_first"],
+        "s_per_iter_rest_mean": run["s_per_iter_rest_mean"],
+        "linear_fit_ms_per_tree": {k: stages.get(k) for k in (
+            "linear_fit", "linear_moments", "linear_solve",
+            "linear_predict")},
+        "stage_ms_per_tree": stages,
+        "kernels_per_split": profile.get("kernels_per_split"),
+        "busy_share": profile.get("busy_share"),
+        "holdout_l2": run["holdout_l2"],
+        "twin_holdout_l2": twin_run["holdout_l2"],
+        "twin_s_per_iter_rest_mean": twin_run["s_per_iter_rest_mean"],
+        "variance_l2": run["variance_l2"],
+        "linear_moments_ms": kernel["ms"],
+        "linear_moments_bound_ms": kernel["bound_ms"],
+        "parity_bitwise": parity["ok"], "predict": predict,
+        "continued": continued, "rollback": rollback,
+        "launches": run["launches"], "gpu": gpu}
+    print("linear trees " + json.dumps(summary), flush=True)
+    rec = _kernel_record(
+        "linear_moments", "lightgbm_tpu_torch/csrc/linear_fit.cu",
+        "none: lightgbm_tpu/models/linear.py:101 (XLA einsum)",
+        run["launches"]["linear_moments"], kernel["max_abs_err"],
+        kernel["ms"], kernel["plain_ms"], kernel["bound_bytes"], 0, gpu,
+        bound_ops=kernel["bound_ops"], bound_ms=kernel["bound_ms"],
+        bound_by=kernel["bound_by"], library_ms=None,
+        library_call="none: no one PyTorch call computes the per-leaf "
+                     "moments",
+        bitwise_plain=kernel["bitwise_plain"],
+        bitwise_cpu_plain=kernel["bitwise_cpu_plain"],
+        train_parity_bitwise=parity["ok"], kmax=kernel["kmax"])
+    print("kernel linear_moments " + json.dumps(rec), flush=True)
+    return rec, summary
+
+
+def dp_hist_case(bins, vals, rng: tuple, index, padded_bins: int,
+                 max_rows: int, label: str) -> dict:
+    """The gpu_use_dp mode against its plain version: bitwise on the card
+    and on CPU copies (the f64 sums' order is the kernel's), two launches
+    bitwise."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.hist_kernel2 import (
+        build_histogram_rows_dp, build_histogram_rows_ref)
+    dev = bins.device
+    rng_t = torch.tensor(rng, dtype=torch.int32, device=dev)
+    kw = dict(index=index, padded_bins=padded_bins, max_rows=max_rows)
+    launches = build_histogram_rows_dp.launches
+    k1 = build_histogram_rows_dp(bins, vals, rng_t, **kw)
+    k2 = build_histogram_rows_dp(bins, vals, rng_t, **kw)
+    ref = build_histogram_rows_ref(bins, vals, rng_t, dp=True, **kw)
+    ref_cpu = build_histogram_rows_ref(
+        bins.cpu(), vals.cpu(), rng_t.cpu(), dp=True,
+        **dict(kw, index=None if index is None else index.cpu()))
+    torch.cuda.synchronize()
+    rec = {"case": label, "range": list(rng), "padded_bins": padded_bins,
+           "bins": str(bins.dtype).replace("torch.", ""),
+           "bitwise_plain": torch_equal(k1, ref),
+           "bitwise_cpu_plain": torch_equal(k1.cpu(), ref_cpu),
+           "bitwise_repeat": torch_equal(k1, k2),
+           "max_abs_err": float((k1 - ref).abs().max()),
+           "launched": build_histogram_rows_dp.launches - launches}
+    rec["ok"] = (rec["bitwise_plain"] and rec["bitwise_cpu_plain"]
+                 and rec["bitwise_repeat"] and rec["launched"] == 2)
+    print("parity hist_rows f64 " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"the gpu_use_dp histogram disagrees with its "
+                           f"plain version: {rec}")
+    return rec
+
+
+def dp_hist_times(gpu: str, bins, vals, perm, models) -> list:
+    """The f64 mode at the dp main path's root and at the quartiles and
+    maximum of its trees' smaller children (through a seeded permutation,
+    max_rows = parent // 2 + 1), eager, in turns with the f32 mode (f32,
+    f64, f64, f32), beside the plain version, ``index_add_`` in f64 and
+    the bound."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.hist_kernel2 import (
+        build_histogram_rows, build_histogram_rows_dp,
+        build_histogram_rows_ref)
+    dev = bins.device
+    n, f = bins.shape
+    b = 256
+    sizes = split_sizes(models)
+    order = np.argsort(sizes[:, 1], kind="stable")
+    at = {q: sizes[order[int(round(q * (len(order) - 1)))]]
+          for q in (0.25, 0.5, 0.75, 1.0)}
+    cases = [("root", 0, n, None, n)] + [
+        (f"child_{name}", 100_001, int(at[q][1]), perm,
+         int(at[q][0]) // 2 + 1)
+        for name, q in (("q25", 0.25), ("median", 0.5), ("q75", 0.75),
+                        ("max", 1.0))]
+    out = []
+    for label, start, count, index, max_rows in cases:
+        rng_t = torch.tensor([start, count], dtype=torch.int32, device=dev)
+        kw = dict(index=index, padded_bins=b, max_rows=max_rows)
+        turns = {"f32": [], "f64": []}
+        for mode in ("f32", "f64", "f64", "f32"):
+            fn = (build_histogram_rows_dp if mode == "f64"
+                  else build_histogram_rows)
+            turns[mode].append(_time_ms(
+                lambda: fn(bins, vals, rng_t, **kw), 20))
+        rows = None if index is None else index[start:start + count].long()
+        flat, upd = flat_hist_inputs(bins, vals, b, rows)
+        upd = upd.double()
+        acc = torch.zeros((f * b, 2), dtype=torch.float64, device=dev)
+        lib = _time_ms(lambda: acc.index_add_(0, flat, upd), 10)
+        nb = (count * (f + 8) + (4 * count if index is not None else 0)
+              + f * b * 8)
+        out.append({
+            "case": label, "rows": count, "max_rows": max_rows,
+            "f64_ms": turns["f64"], "f32_ms": turns["f32"],
+            "plain_ms": _time_ms(lambda: build_histogram_rows_ref(
+                bins, vals, rng_t, dp=True, **kw), 2),
+            "library_f64_ms": lib,
+            "bound_ms": max(nb / PEAK_BYTES_S,
+                            2 * count * f / PEAK_F64_OPS_S) * 1e3})
+        del flat, upd, acc
+    rec = {"times": out, "gpu": gpu}
+    print("hist_rows f64 times [ms] " + json.dumps(rec), flush=True)
+    return out
+
+
+def dp_phase(gpu: str, higgs: dict) -> tuple:
+    """Slice 23: ``gpu_use_dp`` on the Higgs binary main path (1M x 28, 255
+    leaves, 10 iterations; route ``path=row_order`` for ``gpu_use_dp``)
+    counted and timed, beside its f32 row-order twin (``LGBM_TPU_PHYS=0``,
+    10 iterations); the f64 mode bitwise its plain version at B = 256 (the
+    main path's bins) and B = 1024 (seeded u16 bins), root and an indexed
+    child; the card's trees against the CPU's at the parity cut; the f64
+    mode's times in turns with the f32 mode's.  Returns (the mode's
+    record, the phase's summary)."""
+    import torch
+    dev = torch.device("cuda")
+    ds, valid, x = higgs["ds"], higgs["valid"], higgs["x"]
+    parity = train_parity(gpu, {}, 2, "gpu_use_dp",
+                          params=dict(DP_PARAMS,
+                                      num_leaves=LINEAR_PARITY_LEAVES),
+                          bitwise=True, rows=OBJ_PARITY_ROWS)
+    if parity["route"] != DP_ROUTE:
+        raise RuntimeError(f"the gpu_use_dp parity run took "
+                           f"{parity['route']}")
+    bins = torch.as_tensor(ds._binned.bin_matrix, device=dev)
+    n, f = bins.shape
+    g = np.random.default_rng(23)
+    vals = torch.tensor(g.normal(size=(n, 2)).astype(np.float32), device=dev)
+    perm = torch.tensor(g.permutation(n).astype(np.int32), device=dev)
+    wide = torch.tensor(g.integers(0, 1024, size=(n, f)).astype(np.uint16),
+                        device=dev)
+    cases = [dp_hist_case(bins, vals, (0, n), None, 256, n, "1M_u8_B256_root"),
+             dp_hist_case(bins, vals, (100_001, CHILD_ROWS), perm, 256,
+                          CHILD_ROWS, "3000_u8_B256_indexed"),
+             dp_hist_case(bins, vals, (333_331, 250_000), perm, 256,
+                          250_000, "250000_u8_B256_indexed"),
+             dp_hist_case(wide, vals, (0, n), None, 1024, n,
+                          "1M_u16_B1024_root"),
+             dp_hist_case(wide, vals, (100_001, CHILD_ROWS), perm, 1024,
+                          CHILD_ROWS, "3000_u16_B1024_indexed")]
+    del wide
+    lap("gpu_use_dp/parity and kernel")
+    bst, run = train_main_path(gpu, ds, valid, x, {}, DP_ITERS,
+                               "gpu_use_dp main path", params=DP_PARAMS)
+    if run["route"] != DP_ROUTE:
+        raise RuntimeError(f"the gpu_use_dp main path took {run['route']}")
+    twin, twin_run = train_main_path(gpu, ds, valid, x, PHYS_OFF, DP_ITERS,
+                                     "gpu_use_dp twin, f32 row order")
+    profile = profile_iteration(bst, gpu)
+    print("profiled iteration, gpu_use_dp main path "
+          + json.dumps(profile), flush=True)
+    times = dp_hist_times(gpu, bins, vals, perm, bst._models[:DP_ITERS])
+    lap("gpu_use_dp/main path, twin and times")
+    same = compare_trees(bst._models[:DP_ITERS], twin._models)
+    summary = {
+        "route": run["route"], "iterations": run["iterations"],
+        "s_per_iter_first": run["s_per_iter_first"],
+        "s_per_iter_rest_mean": run["s_per_iter_rest_mean"],
+        "twin_s_per_iter_rest_mean": twin_run["s_per_iter_rest_mean"],
+        "holdout_auc": run["holdout_auc"],
+        "twin_holdout_auc": twin_run["holdout_auc"],
+        "trees_equal_twin_structure": same["ok"] or same.get("reason"),
+        "stage_ms_per_tree": run["stage_ms_per_tree"],
+        "twin_stage_ms_per_tree": twin_run["stage_ms_per_tree"],
+        "kernels_per_split": profile.get("kernels_per_split"),
+        "busy_share": profile.get("busy_share"),
+        "parity_bitwise": parity["ok"], "launches": run["launches"],
+        "gpu": gpu}
+    print("gpu_use_dp " + json.dumps(summary), flush=True)
+    root = times[0]
+    root_bound = root["bound_ms"]
+    m = n
+    rec = _kernel_record(
+        "hist_rows_f64", "lightgbm_tpu_torch/csrc/hist_rows.cu",
+        "none: lightgbm_tpu/ops/histogram.py:178 (XLA scatter-add under "
+        "x64)", run["launches"]["build_histogram_rows_dp"],
+        max(c["max_abs_err"] for c in cases), float(np.median(root["f64_ms"])),
+        root["plain_ms"], m * (f + 8) + f * 256 * 8, 0, gpu,
+        bound_ops=2 * m * f, bound_ms=root_bound, bound_by="bytes",
+        library_ms=root["library_f64_ms"],
+        library_call="index_add_ in f64 over a precomputed flat (feature, "
+                     "bin) index, index build excluded",
+        f32_mode_ms=float(np.median(root["f32_ms"])),
+        bitwise_plain=all(c["bitwise_plain"] for c in cases),
+        bitwise_cpu_plain=all(c["bitwise_cpu_plain"] for c in cases),
+        train_parity_bitwise=parity["ok"],
+        cases=[c["case"] for c in cases], times=times)
+    print("kernel hist_rows_f64 " + json.dumps(rec), flush=True)
+    return rec, summary
 
 
 _CLOCK = [time.perf_counter()]
@@ -6171,6 +6778,10 @@ def main() -> int:
     lap("ranking")
     options = split_option_phases(gpu, higgs)
     lap("split options")
+    linear_rec, linear = linear_phase(gpu, higgs)
+    lap("linear trees")
+    dp_rec, dp = dp_phase(gpu, higgs)
+    lap("gpu_use_dp")
     # the launches of the multiclass, sampling, ranking and split-option
     # routes, and of the pack=2 parity runs
     mc, mc2 = (objectives["multiclass"]["launches"],
@@ -6182,6 +6793,7 @@ def main() -> int:
         key = {"hist_comb": "build_histogram_comb",
                "hist_comb_p2": "build_histogram_comb_p2",
                "hist_rows": "build_histogram_rows",
+               "hist_rows_f64": "build_histogram_rows_dp",
                "apply_find": "apply_find_pool"}.get(k["name"], k["name"])
         if mc.get(key):
             k["multiclass_launches"] = mc[key]
@@ -6199,6 +6811,11 @@ def main() -> int:
                options["main"].items() if run["launches"].get(key)}
         if got:
             k["split_options_launches"] = got
+        if linear["launches"].get(key):
+            k["linear_launches"] = linear["launches"][key]
+        if dp["launches"].get(key):
+            k["gpu_use_dp_launches"] = dp["launches"][key]
+    kernels += [linear_rec, dp_rec]
     kernels += probes
     if not analysis["checked_in_report_current"]:
         raise RuntimeError(

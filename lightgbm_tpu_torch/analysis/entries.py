@@ -29,6 +29,7 @@ from ..ops import apply_find as af
 from ..ops import fused_split as fs
 from ..ops import hist_kernel2 as hk
 from ..ops import legacy_probes as lp
+from ..ops import linear_kernel as lk
 from ..ops import probes as pr
 from ..ops import serve_kernel as sk
 from ..ops import stream_grad as sg
@@ -207,34 +208,80 @@ def _hist():
             f"{PALLAS}/hist_kernel2.py:225", hk.hist_blocks(N))
     rows_src = (f"{PALLAS}/hist_kernel2.py:339, "
                 f"{PALLAS}/hist_kernel.py:122")
-    for bin_t, dtype, b in (("unsigned char", "uint8", B),
-                            ("unsigned short", "uint16", B_WIDE)):
+    # the gpu_use_dp mode replaces no Pallas kernel: the JAX package's
+    # f64 histogram is the XLA scatter-add of ops/histogram.py:178
+    dp_src = "lightgbm_tpu/ops/histogram.py:178 (XLA scatter-add, no kernel)"
+    for (bin_t, dtype, b), (acc, acc_bytes) in itertools.product(
+            (("unsigned char", "uint8", B),
+             ("unsigned short", "uint16", B_WIDE)),
+            (("float", 4), ("double", 8))):
         width = 2 if dtype == "uint16" else 1
-        tag = "u16" if width == 2 else "u8"
+        tag = ("u16" if width == 2 else "u8") + (
+            "_f64" if acc_bytes == 8 else "")
+        wrapper = ("hist_kernel2.build_histogram_rows_dp" if acc_bytes == 8
+                   else "hist_kernel2.build_histogram_rows")
+        src = dp_src if acc_bytes == 8 else rows_src
         ins = (vec_arg("bins", dtype, (N, F), width),
                vec_arg("vals", "float32", (N, 2), 8),
                vec_arg("index", "int32", (N, 1), 4))
         # the root: several slices, then the reduction
-        root = hk.rows_geometry(F, b, width, hk.rows_blocks(N, b))
+        root = hk.rows_geometry(F, b, width, hk.rows_blocks(N, b), acc_bytes)
         register_kernel(KernelEntry(
             name=f"hist_rows_{tag}", source="hist_rows",
-            symbol=f"hist_rows_partial<{bin_t}>",
+            symbol=f"hist_rows_partial<{bin_t}, {acc}>",
             block=_block(THREADS), dyn_smem=root.smem,
-            args=ins + _hist_out(root.slices, b),
-            wrapper="hist_kernel2.build_histogram_rows", replaces=rows_src,
-            export=("hist_rows_smem_bytes", (root.feats, b, width))))
+            args=ins + (vec_arg("partials", f"float{8 * acc_bytes}",
+                                (root.slices, F, b, 2), acc_bytes),
+                        vec_arg("out", "float32", (F, b, 2), 4)),
+            wrapper=wrapper, replaces=src,
+            export=("hist_rows_smem_bytes",
+                    (root.feats, b, width, acc_bytes))))
         # a child of one slice: one launch writes out
-        child = hk.rows_geometry(F, b, width, 1)
+        child = hk.rows_geometry(F, b, width, 1, acc_bytes)
         register_kernel(KernelEntry(
             name=f"hist_rows_direct_{tag}", source="hist_rows",
-            symbol=f"hist_rows_direct<{bin_t}>",
+            symbol=f"hist_rows_direct<{bin_t}, {acc}>",
             block=_block(THREADS), dyn_smem=child.smem,
             args=ins + (vec_arg("out", "float32", (F, b, 2), 8),),
-            wrapper="hist_kernel2.build_histogram_rows", replaces=rows_src,
-            export=("hist_rows_direct_smem_bytes", (child.feats, width))))
+            wrapper=wrapper, replaces=src,
+            export=("hist_rows_direct_smem_bytes",
+                    (child.feats, width, acc_bytes))))
     _reduce("hist_rows", "hist_kernel2.build_histogram_rows",
             f"{PALLAS}/hist_kernel2.py:339", hk.rows_blocks(N, B_WIDE),
             b=B_WIDE)
+    cells = F * B_WIDE * 2
+    register_kernel(KernelEntry(
+        name="hist_rows_reduce_f64", source="hist_rows",
+        symbol="reduce_partials_f64", block=_block(256), dyn_smem=0,
+        args=(vec_arg("partials", "float64",
+                      (hk.rows_blocks(N, B_WIDE), cells), 8),
+              vec_arg("out", "float32", (1, cells), 4)),
+        wrapper="hist_kernel2.build_histogram_rows_dp", replaces=dp_src))
+
+
+# -- the linear-leaf fit --------------------------------------------------------
+def _linear():
+    """``linear_moments`` at the linear main path's shapes: 1M rows x 28
+    features, 255 leaves, a leaf's path features up to 28 (every
+    feature), ``CHUNK`` rows a chunk; and at 136 features."""
+    for f, tag in ((F, ""), (F_WIDE, "_wide")):
+        register_kernel(KernelEntry(
+            name=f"linear_moments{tag}", source="linear_fit",
+            symbol="linear_moments_kernel", block=_block(lk.THREADS),
+            dyn_smem=lk.smem_bytes(f),
+            args=(vec_arg("raw", "float32", (N, f), 4),
+                  vec_arg("order", "int32", (N, 1), 4),
+                  vec_arg("seg", "int32", (LEAVES, 2), 4),
+                  vec_arg("g", "float32", (N, 1), 4),
+                  vec_arg("h", "float32", (N, 1), 4),
+                  vec_arg("w", "float32", (N, 1), 4),
+                  vec_arg("feat_idx", "int32", (LEAVES, f), 4),
+                  vec_arg("out", "float64",
+                          (LEAVES, lk.moment_layout(f)[1]), 8)),
+            wrapper="linear_kernel.linear_moments",
+            replaces="lightgbm_tpu/models/linear.py:101 (XLA einsum, no "
+                     "kernel)",
+            export=("linear_moments_smem_bytes", (f, lk.CHUNK))))
 
 
 def hist_comb_wide_entry(fc: int = None) -> KernelEntry:
@@ -640,7 +687,7 @@ def _fixture_kernels():
         replaces=f"{FIXTURES_DIR}/bad_host_ast.py:21"))
 
 
-for _register in (_serve, _hist, _partition, _fused, _cat_modes,
+for _register in (_serve, _hist, _linear, _partition, _fused, _cat_modes,
                   _apply_find, _stream,
                   _probes, _legacy_probes, _fixture_kernels):
     _register()

@@ -22,12 +22,27 @@ This module stays import-light: ``entries.py`` fills the tables when
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import astuple, dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 
-@dataclass(frozen=True)
-class TensorArg:
+class _ByValue:
+    """Equality and hash by the fields' values and the class's name, not
+    the class object: an entry built before the package's modules were
+    dropped from ``sys.modules`` and imported again (as test processes
+    that also hold the JAX package's tests do) still equals the one
+    registered after."""
+
+    def __eq__(self, other):
+        return (type(other).__qualname__ == type(self).__qualname__
+                and astuple(self) == astuple(other))
+
+    def __hash__(self):
+        return hash((type(self).__qualname__, astuple(self)))
+
+
+@dataclass(frozen=True, eq=False)
+class TensorArg(_ByValue):
     """One tensor a kernel reads or writes, as the kernel addresses it."""
     name: str
     dtype: str                 # torch dtype name: float32, int32, uint8, ...
@@ -37,8 +52,8 @@ class TensorArg:
     base_offset: int = 0       # bytes from a 256-byte aligned allocation
 
 
-@dataclass(frozen=True)
-class KernelEntry:
+@dataclass(frozen=True, eq=False)
+class KernelEntry(_ByValue):
     """One registered kernel launch at one shape."""
     name: str
     source: str                # csrc/<source>.cu
@@ -102,7 +117,7 @@ def collect() -> Dict[str, KernelEntry]:
 
 
 DTYPE_BYTES = {"uint8": 1, "uint16": 2, "int32": 4, "float32": 4,
-               "bfloat16": 2, "int64": 8}
+               "bfloat16": 2, "int64": 8, "float64": 8}
 
 
 def vec_arg(name: str, dtype: str, shape, vec: int,

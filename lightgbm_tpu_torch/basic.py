@@ -8,8 +8,10 @@ trains on one device (``update``, ``eval_train``, ``eval_valid``);
 scores raw rows through the compiled serving engine for both (the CUDA
 traversal kernel, or its plain version with ``device="cpu"``),
 ``pred_leaf`` walks the trees on the host, and ``model_to_string`` /
-``save_model`` write the model text.  SHAP contributions and linear
-trees come with later slices.
+``save_model`` write the model text.  A model with linear trees predicts
+through the traversal kernel's leaf entry and adds each tree's leaf
+models on the device in f64, in tree order.  ``rollback_one_iter``
+drops the last iteration.  SHAP contributions come with a later slice.
 """
 from __future__ import annotations
 
@@ -105,6 +107,14 @@ class Dataset:
             categorical_indices=cat_idx, reference=ref)
         if self.free_raw_data:
             self.data = None
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        """Per-row init scores (class-major ``K * n`` for a multiclass
+        model), kept as the binned metadata's once constructed."""
+        self.init_score = init_score
+        if self._binned is not None:
+            self._binned.metadata.set_init_score(init_score)
         return self
 
     def set_group(self, group) -> "Dataset":
@@ -236,6 +246,16 @@ class Booster:
         self._serve_engines.clear()
         return self._inner.train_one_iter()
 
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration's trees and their outputs from the
+        training and validation scores (reference
+        Booster.rollback_one_iter)."""
+        if self._inner is None:
+            raise LightGBMError("Cannot roll back a loaded model")
+        self._serve_engines.clear()
+        self._inner.rollback_one_iter()
+        return self
+
     def eval_train(self) -> List:
         return self._eval("training")
 
@@ -260,6 +280,9 @@ class Booster:
         **kwargs,
     ) -> np.ndarray:
         if pred_contrib:
+            if self._is_linear():
+                raise LightGBMError(
+                    "pred_contrib is not supported for linear trees")
             raise LightGBMError(
                 "pred_contrib (SHAP) is not ported to lightgbm_tpu_torch "
                 "yet (see ROADMAP.md)")
@@ -286,7 +309,9 @@ class Booster:
                         t.predict_leaf(arr)
             return out
 
-        raw = self._serve_raw(arr, start_iteration, end)
+        raw = (self._linear_raw(arr, start_iteration, end)
+               if self._is_linear() else
+               self._serve_raw(arr, start_iteration, end))
         if self._average_output:
             raw /= max(end - start_iteration, 1)
         if raw_score:
@@ -321,6 +346,47 @@ class Booster:
         while len(cache) > 4:
             del cache[next(iter(cache))]
         return eng
+
+    def _is_linear(self) -> bool:
+        return any(t.is_linear for t in self._models)
+
+    def _linear_raw(self, arr, start, end) -> np.ndarray:
+        """Raw scores [k, n] f64 of a model with linear trees: every
+        tree's leaf from the traversal kernel's leaf entry (a serving
+        model of the structure, ``leaves_only``), then each tree's output
+        (``models.linear.linear_leaf_output``, its leaf models by raw
+        column; a constant tree its leaf values) added on the device in
+        f64, in tree order."""
+        import torch
+
+        from .models.linear import linear_leaf_output, linear_params
+        from .serve import ServingEngine, ServingModel
+        key = ("leaves", int(start), int(end))
+        eng = self._serve_engines.get(key)
+        if eng is None:
+            sm = ServingModel.from_booster(
+                self, start_iteration=start, end_iteration=end,
+                device=self.device, leaves_only=True)
+            eng = self._serve_engines[key] = ServingEngine(
+                sm, device=self.device)
+        k = max(self._k, 1)
+        trees = self._models[start * k:end * k]
+        out = torch.zeros((k, arr.shape[0]), dtype=torch.float64,
+                          device=self.device)
+        if not trees:
+            return out.cpu().numpy()
+        leaves = torch.as_tensor(eng.predict_leaves(arr), device=self.device)
+        x = torch.as_tensor(arr, dtype=torch.float64, device=self.device)
+        for j, t in enumerate(trees):
+            leaf = leaves[:, j].long()
+            if t.is_linear:
+                p = linear_params(t.leaf_features, t.leaf_coeff,
+                                  t.leaf_const, t.leaf_value, self.device)
+                out[j % k] += linear_leaf_output(leaf, x, p)
+            else:
+                out[j % k] += torch.as_tensor(t.leaf_value,
+                                              device=self.device)[leaf]
+        return out.cpu().numpy()
 
     def _serve_raw(self, arr, start, end) -> np.ndarray:
         """Compiled-forest raw scores in [k, n] f64.  Inputs are cast

@@ -99,7 +99,7 @@ def dataset_from_numpy(mappers: Sequence[Dict], bin_matrix: np.ndarray,
                        num_total_features: int,
                        feature_names: Optional[List[str]] = None,
                        weight=None, init_score=None,
-                       query_boundaries=None) -> Dataset:
+                       query_boundaries=None, raw_matrix=None) -> Dataset:
     """The port's constructed ``Dataset`` from a binned dataset's
     numpy state.  ``mappers`` are dicts of the ``BinMapper.to_dict``
     fields (``bin_type``, ``missing_type``, ``num_bins``,
@@ -108,12 +108,16 @@ def dataset_from_numpy(mappers: Sequence[Dict], bin_matrix: np.ndarray,
     binned matrix; ``used_feature_map`` maps used to original feature
     ids; ``init_score`` is ``[n]``, or class-major ``[K * n]`` for a
     multiclass model; ``query_boundaries`` are a ranking set's ``[Q +
-    1]`` boundaries (``Metadata.query_boundaries``)."""
+    1]`` boundaries (``Metadata.query_boundaries``); ``raw_matrix`` is a
+    linear-tree dataset's ``[n, used_features]`` raw values
+    (``BinnedDataset.raw_matrix``)."""
     binned = BinnedDataset()
     binned.mappers = [BinMapper.from_dict(m) for m in mappers]
     binned.bin_matrix = np.ascontiguousarray(bin_matrix)
     binned.used_feature_map = np.asarray(used_feature_map, np.int32)
     binned.num_total_features = int(num_total_features)
+    if raw_matrix is not None:
+        binned.raw_matrix = np.ascontiguousarray(raw_matrix, np.float32)
     binned.feature_names = (list(feature_names) if feature_names is not None
                             else [f"Column_{i}"
                                   for i in range(num_total_features)])

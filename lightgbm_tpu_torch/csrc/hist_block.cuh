@@ -20,7 +20,10 @@
 // (hist_kernel2.build_histogram_comb_ref) adds in this order too.
 // smem_bytes and accumulate take the staged bins' type: uint8_t (the
 // default, every kernel of the physical path) or uint16_t (hist_rows.cu
-// at max_bin > 255).  stage_record_word stages the bins and (g*w, h*w)
+// at max_bin > 255).  accumulate, add_listed and zero also take the
+// accumulator's type: float (the default, every kernel but one mode) or
+// double (hist_rows.cu's gpu_use_dp mode, which adds the f32 values in
+// f64 in the same order).  stage_record_word stages the bins and (g*w, h*w)
 // of a pack=2 record (partition_common.cuh RecPtr) from its 16-byte
 // words, into the same sb / sv rows accumulate() reads.
 #pragma once
@@ -55,8 +58,9 @@ __host__ __device__ inline int smem_bytes(int F, int B) {
   return F * B * 2 * 4 + kChunk * 2 * 4 + kChunk * F * (int)sizeof(BinT);
 }
 
-__device__ __forceinline__ void zero(float* hist, int cells) {
-  for (int i = threadIdx.x; i < cells; i += kThreads) hist[i] = 0.f;
+template <typename Acc = float>
+__device__ __forceinline__ void zero(Acc* hist, int cells) {
+  for (int i = threadIdx.x; i < cells; i += kThreads) hist[i] = Acc(0);
 }
 
 // Add `rows` staged rows (bins sb [rows, F], values sv [rows, 2] f32,
@@ -65,8 +69,8 @@ __device__ __forceinline__ void zero(float* hist, int cells) {
 // before (staging done) and after (staging reused).  Blocks that share
 // a slice may split its features between them: each cell still sums
 // its rows in row order.
-template <typename BinT>
-__device__ __forceinline__ void accumulate(float* hist, const BinT* sb,
+template <typename BinT, typename Acc = float>
+__device__ __forceinline__ void accumulate(Acc* hist, const BinT* sb,
                                            const float* sv, int rows, int F,
                                            int B, int f_lo = 0,
                                            int f_hi = 1 << 30) {
@@ -74,7 +78,7 @@ __device__ __forceinline__ void accumulate(float* hist, const BinT* sb,
   const int lane = threadIdx.x % 32;
   if (f_hi > F) f_hi = F;
   for (int f = f_lo + warp; f < f_hi; f += kWarps) {
-    float* hf = hist + f * B * 2;
+    Acc* hf = hist + f * B * 2;
     for (int t = 0; t < rows; t += 32) {
       const int r = t + lane;
       const int bin = r < rows ? (int)sb[r * F + f] : 0;
@@ -85,13 +89,13 @@ __device__ __forceinline__ void accumulate(float* hist, const BinT* sb,
       if (live && (__ffs(peers) - 1) == lane) {
         // the cell takes the group's values one by one in lane (= row)
         // order
-        float g = hf[2 * bin], h = hf[2 * bin + 1];
+        Acc g = hf[2 * bin], h = hf[2 * bin + 1];
         unsigned m = peers;
         while (m) {
           const int j = __ffs(m) - 1;
           m &= m - 1;
-          g += sv[2 * (t + j)];
-          h += sv[2 * (t + j) + 1];
+          g += (Acc)sv[2 * (t + j)];
+          h += (Acc)sv[2 * (t + j) + 1];
         }
         hf[2 * bin] = g;
         hf[2 * bin + 1] = h;
@@ -140,9 +144,10 @@ __device__ __forceinline__ int compact_range(const BinT* sb_f, int nf,
   return n;
 }
 
+template <typename Acc = float>
 __device__ __forceinline__ void add_listed(const float2* sv,
                                            const unsigned* lst, int a, int b,
-                                           float* cells) {
+                                           Acc* cells) {
   const int lane = threadIdx.x % 32;
   for (int c0 = a; c0 < b; c0 += 32) {
     const bool valid = c0 + lane < b;
@@ -150,14 +155,14 @@ __device__ __forceinline__ void add_listed(const float2* sv,
     const unsigned cell = valid ? (lst[c0 + lane] & 255u) : 0x100u + lane;
     const unsigned peers = __match_any_sync(0xffffffffu, cell);
     if (valid && (__ffs(peers) - 1) == lane) {
-      float g = cells[2 * cell], h = cells[2 * cell + 1];
+      Acc g = cells[2 * cell], h = cells[2 * cell + 1];
       unsigned m = peers;
       while (m) {
         const int j = __ffs(m) - 1;
         m &= m - 1;
         const float2 v = sv[lst[c0 + j] >> 8];
-        g += v.x;
-        h += v.y;
+        g += (Acc)v.x;
+        h += (Acc)v.y;
       }
       cells[2 * cell] = g;
       cells[2 * cell + 1] = h;

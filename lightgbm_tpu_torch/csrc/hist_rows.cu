@@ -47,6 +47,18 @@
 //   the whole [28, 1024, 2] would need 229,376 bytes), then
 //   histblock::reduce_partials adds the partials in slice order.
 //
+// The gpu_use_dp mode (hist_rows_f64; no TPU kernel: it replaces the XLA
+// scatter-add of lightgbm_tpu/ops/histogram.py:178-190 under x64) is the
+// same two kernels instantiated with a double accumulator (Acc): every
+// cell is the sequential f64 sum of its slice's f32 values in position
+// order from +0, the slices' f64 sums are added in slice order from 0
+// (the partials, [nslices, F, B, 2] f64, by reduce_partials_f64), and the
+// total is rounded to f32 once; the output stays [F, B, 2] f32, so the
+// sibling subtraction and the split tail are unchanged.  Its shared
+// histogram and per-warp cells are twice the bytes (the wrapper's
+// rows_feature_chunk halves the features a partial block takes where
+// they would not fit).
+//
 // Bound on this card: bytes at the root, latency at small children.  A
 // launch must read count * (F * bin bytes + 8) bytes of bins and values
 // (+ 4 per position through the index) and write F * B * 8; at the 1M-row
@@ -87,18 +99,18 @@ constexpr int kDirectSlices = 2;                 // slices a direct launch sums
 template <typename BinT, int SR>
 using Source = histwalk::IndexedRows<BinT, SR, kMaxFeat>;
 
-template <typename BinT>
+template <typename BinT, typename Acc>
 int partial_smem(int fc, int B) {
-  return fc * B * 2 * 4
+  return fc * B * 2 * (int)sizeof(Acc)
          + histwalk::stage_bytes(kPartialRows, fc * (int)sizeof(BinT));
 }
 
 // hist_rows_direct's shared bytes at nf features: the stage, and for each
 // warp its 32 cells and its list of the step's rows in its range.
-template <typename BinT>
+template <typename BinT, typename Acc>
 int direct_smem(int nf) {
   return histwalk::stage_bytes(kDirectRows, nf * (int)sizeof(BinT))
-         + histwalk::range_state_bytes(kDirectRows);
+         + histwalk::range_state_bytes(kDirectRows, (int)sizeof(Acc));
 }
 
 // Positions [lo, hi) of range (start, count), clamped to [0, n_pos).
@@ -113,18 +125,21 @@ __device__ __forceinline__ void clamp_range(const int* range, int n_pos,
   *hi = b;
 }
 
-template <typename BinT>
-__global__ void __launch_bounds__(kThreads)
+// The minimum of one block an SM changes no limit (at most 255 registers
+// a thread either way) but steers ptxas (CUDA 12.9) off an 8-byte spill
+// it makes in the u16 / f64 instantiation without it.
+template <typename BinT, typename Acc>
+__global__ void __launch_bounds__(kThreads, 1)
 hist_rows_partial(const BinT* __restrict__ bins,
                   const float* __restrict__ vals,
                   const int* __restrict__ index,
                   const int* __restrict__ range, int n_pos, int F, int B,
-                  int fc, float* __restrict__ partials) {
+                  int fc, Acc* __restrict__ partials) {
   extern __shared__ __align__(16) float smem[];
   const int f_lo = blockIdx.y * fc;
   const int fw = (F - f_lo) < fc ? (F - f_lo) : fc;
   const int cells = fw * B * 2;
-  float* hist = smem;                                           // [fw, B, 2]
+  Acc* hist = reinterpret_cast<Acc*>(smem);                     // [fw, B, 2]
   constexpr int kStage = kThreads * kPartialRows;
   float2* sv = reinterpret_cast<float2*>(hist + fc * B * 2);    // [2][kStage]
   BinT* sb = reinterpret_cast<BinT*>(sv + 2 * kStage);   // [2][kStage, fw]
@@ -141,14 +156,14 @@ hist_rows_partial(const BinT* __restrict__ bins,
                               rows, fw, B);
       });
   __syncthreads();
-  float* out =
+  Acc* out =
       partials + (size_t)blockIdx.x * F * B * 2 + (size_t)f_lo * B * 2;
   for (int i = threadIdx.x; i < cells; i += kThreads) out[i] = hist[i];
 }
 
 // One launch: histwalk::range_hist over the position range, its warps
 // owning (feature, 32-bin range) units.
-template <typename BinT>
+template <typename BinT, typename Acc>
 __global__ void __launch_bounds__(kThreads)
 hist_rows_direct(const BinT* __restrict__ bins,
                  const float* __restrict__ vals,
@@ -158,7 +173,7 @@ hist_rows_direct(const BinT* __restrict__ bins,
   extern __shared__ __align__(16) float smem[];
   constexpr int kStage = kThreads * kDirectRows;
   float2* sv = reinterpret_cast<float2*>(smem);             // [2][kStage]
-  float* cells_all = reinterpret_cast<float*>(sv + 2 * kStage);  // [8][32][2]
+  Acc* cells_all = reinterpret_cast<Acc*>(sv + 2 * kStage);  // [8][32][2]
   unsigned* lst_all =
       reinterpret_cast<unsigned*>(cells_all + kWarps * 2 * kRange);
   BinT* sb = reinterpret_cast<BinT*>(lst_all + kWarps * kStage);
@@ -172,9 +187,34 @@ hist_rows_direct(const BinT* __restrict__ bins,
                                     cells_all, lst_all, out);
 }
 
-template <typename BinT>
+// out[i] = the f64 sum of partials[b, i] over b in block order from 0,
+// rounded to f32 once (the gpu_use_dp mode's reduction).
+__global__ void reduce_partials_f64(const double* __restrict__ partials,
+                                    int nblocks, int cells,
+                                    float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cells) return;
+  const double* p = partials + i;
+  double acc = 0.0;
+  for (int b = 0; b < nblocks; ++b) acc += p[(size_t)b * cells];
+  out[i] = (float)acc;
+}
+
+inline void reduce(const float* partials, int nslices, int cells, float* out,
+                   cudaStream_t s) {
+  histblock::reduce_partials<<<histblock::reduce_grid(cells, 1), 256, 0,
+                               s>>>(partials, nslices, cells, 1, out);
+}
+
+inline void reduce(const double* partials, int nslices, int cells,
+                   float* out, cudaStream_t s) {
+  reduce_partials_f64<<<histblock::reduce_grid(cells, 1), 256, 0, s>>>(
+      partials, nslices, cells, out);
+}
+
+template <typename BinT, typename Acc>
 int launch(const BinT* bins, const float* vals, const int* index,
-           const int* range, float* partials, float* out, int n_pos, int F,
+           const int* range, Acc* partials, float* out, int n_pos, int F,
            int B, int nslices, int direct, int grid_x, int grid_y, int feats,
            int parts, cudaStream_t s) {
   cudaError_t e;
@@ -185,15 +225,15 @@ int launch(const BinT* bins, const float* vals, const int* index,
         || grid_x * kWarps < F * parts)
       return (int)cudaErrorInvalidValue;
     static int direct_set = 0;
-    const int smem = direct_smem<BinT>(feats);
+    const int smem = direct_smem<BinT, Acc>(feats);
     if (smem > direct_set) {
-      e = cudaFuncSetAttribute(hist_rows_direct<BinT>,
+      e = cudaFuncSetAttribute(hist_rows_direct<BinT, Acc>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
       if (e != cudaSuccess) return (int)e;
       direct_set = smem;
     }
-    hist_rows_direct<BinT><<<grid_x, kThreads, smem, s>>>(
+    hist_rows_direct<BinT, Acc><<<grid_x, kThreads, smem, s>>>(
         bins, vals, index, range, n_pos, F, B, parts, nslices, out);
     return (int)cudaGetLastError();
   }
@@ -201,21 +241,19 @@ int launch(const BinT* bins, const float* vals, const int* index,
   if (partials == nullptr || grid_x != nslices || grid_y * feats < F)
     return (int)cudaErrorInvalidValue;
   static int partial_set = 0;
-  const int smem = partial_smem<BinT>(feats, B);
+  const int smem = partial_smem<BinT, Acc>(feats, B);
   if (smem > partial_set) {
-    e = cudaFuncSetAttribute(hist_rows_partial<BinT>,
+    e = cudaFuncSetAttribute(hist_rows_partial<BinT, Acc>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return (int)e;
     partial_set = smem;
   }
-  hist_rows_partial<BinT><<<dim3(grid_x, grid_y), kThreads, smem, s>>>(
+  hist_rows_partial<BinT, Acc><<<dim3(grid_x, grid_y), kThreads, smem, s>>>(
       bins, vals, index, range, n_pos, F, B, feats, partials);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int cells = F * B * 2;
-  histblock::reduce_partials<<<histblock::reduce_grid(cells, 1), 256, 0,
-                               s>>>(partials, nslices, cells, 1, out);
+  reduce(partials, nslices, F * B * 2, out, s);
   return (int)cudaGetLastError();
 }
 
@@ -224,16 +262,22 @@ int launch(const BinT* bins, const float* vals, const int* index,
 extern "C" {
 
 // Shared-memory bytes of one hist_rows_partial block of fc features;
-// bin_bytes 1 or 2.
-int hist_rows_smem_bytes(int fc, int B, int bin_bytes) {
-  return bin_bytes == 2 ? partial_smem<uint16_t>(fc, B)
-                        : partial_smem<uint8_t>(fc, B);
+// bin_bytes 1 or 2, acc_bytes 4 (f32) or 8 (the gpu_use_dp mode).
+int hist_rows_smem_bytes(int fc, int B, int bin_bytes, int acc_bytes) {
+  if (acc_bytes == 8)
+    return bin_bytes == 2 ? partial_smem<uint16_t, double>(fc, B)
+                          : partial_smem<uint8_t, double>(fc, B);
+  return bin_bytes == 2 ? partial_smem<uint16_t, float>(fc, B)
+                        : partial_smem<uint8_t, float>(fc, B);
 }
 
 // Shared-memory bytes of one hist_rows_direct block staging nf features.
-int hist_rows_direct_smem_bytes(int nf, int bin_bytes) {
-  return bin_bytes == 2 ? direct_smem<uint16_t>(nf)
-                        : direct_smem<uint8_t>(nf);
+int hist_rows_direct_smem_bytes(int nf, int bin_bytes, int acc_bytes) {
+  if (acc_bytes == 8)
+    return bin_bytes == 2 ? direct_smem<uint16_t, double>(nf)
+                          : direct_smem<uint8_t, double>(nf);
+  return bin_bytes == 2 ? direct_smem<uint16_t, float>(nf)
+                        : direct_smem<uint8_t, float>(nf);
 }
 
 // bins [n, F] of bin_bytes (1: u8, 2: u16); vals f32 [n, 2]; index i32
@@ -251,6 +295,23 @@ int hist_rows(const void* bins, int bin_bytes, const float* vals,
               const int* index, const int* range, float* partials,
               float* out, int n_pos, int F, int B, int nslices, int direct,
               int grid_x, int grid_y, int feats, int parts, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bin_bytes == 2)
+    return launch(static_cast<const uint16_t*>(bins), vals, index, range,
+                  partials, out, n_pos, F, B, nslices, direct, grid_x, grid_y,
+                  feats, parts, s);
+  return launch(static_cast<const uint8_t*>(bins), vals, index, range,
+                partials, out, n_pos, F, B, nslices, direct, grid_x, grid_y,
+                feats, parts, s);
+}
+
+// The gpu_use_dp mode: hist_rows with f64 accumulation, partials f64
+// [nslices, F, B, 2] (unused, may be null, in one direct launch); the
+// geometry is the wrapper's at acc_bytes 8; out stays f32 [F, B, 2].
+int hist_rows_f64(const void* bins, int bin_bytes, const float* vals,
+                  const int* index, const int* range, double* partials,
+                  float* out, int n_pos, int F, int B, int nslices, int direct,
+                  int grid_x, int grid_y, int feats, int parts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bin_bytes == 2)
     return launch(static_cast<const uint16_t*>(bins), vals, index, range,

@@ -31,7 +31,9 @@
 // one step) the warp adds its cells to its running totals and restarts
 // them at +0, so every cell is the sequential f32 sum of each slice's
 // rows in row order, and the slice sums are added in slice order from
-// 0: the bits of the per-slice partials and their reduction.  Every
+// 0: the bits of the per-slice partials and their reduction.  The cells
+// and running totals are of the accumulator's type (float, or double in
+// hist_rows' gpu_use_dp mode, rounded to f32 once when written).  Every
 // position of the range passes through every warp, so a launch costs
 // the walk over the range, not the slice count.
 #pragma once
@@ -53,10 +55,10 @@ __host__ __device__ inline int stage_bytes(int sr, int bin_bytes) {
   return 2 * kThreads * sr * (8 + bin_bytes);
 }
 
-// Shared bytes of range mode's per-warp state: 32 cells (f32 pairs) and
-// the list of a step's rows in the warp's range.
-__host__ __device__ inline int range_state_bytes(int sr) {
-  return kWarps * kRange * 2 * 4 + kWarps * kThreads * sr * 4;
+// Shared bytes of range mode's per-warp state: 32 cells (pairs of
+// acc_bytes each) and the list of a step's rows in the warp's range.
+__host__ __device__ inline int range_state_bytes(int sr, int acc_bytes = 4) {
+  return kWarps * kRange * 2 * acc_bytes + kWarps * kThreads * sr * 4;
 }
 
 // -- row sources ------------------------------------------------------------
@@ -220,14 +222,14 @@ __device__ __forceinline__ void walk(const Src& src, long long lo,
 // this block owns unit blockIdx.x * kWarps + w of F * R (feature, 32-bin
 // range) units and writes its cells of out [F, B, 2]; the block stages
 // features [f_lo, ...) (src.f_lo) with src's stride.  cells_all [kWarps,
-// 32, 2] and lst_all [kWarps, kThreads * SR] are the warps' shared state.
-// Every thread of the block calls it.
-template <int SR, class Src>
+// 32, 2] (of the accumulator's type) and lst_all [kWarps, kThreads * SR]
+// are the warps' shared state.  Every thread of the block calls it.
+template <int SR, class Src, typename Acc = float>
 __device__ __forceinline__ void range_hist(const Src& src, long long lo,
                                            long long hi, int nslices, int F,
                                            int B, int R, float2* sv,
                                            typename Src::Bin* sb,
-                                           float* cells_all,
+                                           Acc* cells_all,
                                            unsigned* lst_all, float* out) {
   using Bin = typename Src::Bin;
   constexpr int kStage = kThreads * SR;
@@ -239,17 +241,17 @@ __device__ __forceinline__ void range_hist(const Src& src, long long lo,
   const bool owner = u < F * R;
   const int stride = src.stride();
   const int col = f - src.f_lo;           // its staged column
-  float* cells = cells_all + warp * 2 * kRange;
+  Acc* cells = cells_all + warp * 2 * kRange;
   unsigned* lst = lst_all + warp * kStage;
-  cells[2 * lane] = 0.f;   // compact_range's __syncwarp orders these
-  cells[2 * lane + 1] = 0.f;
+  cells[2 * lane] = Acc(0);   // compact_range's __syncwarp orders these
+  cells[2 * lane + 1] = Acc(0);
   // the slices' cuts: slice s starts at lo + per * s (histblock::slice),
   // a multiple of 32 positions from lo
   long long per = (hi - lo + nslices - 1) / nslices;
   per = (per + 31) / 32 * 32;
   long long cut = lo + per;
   int cuts = nslices - 1;
-  float tg = 0.f, th = 0.f;   // the finished slices' sums
+  Acc tg = Acc(0), th = Acc(0);   // the finished slices' sums
   walk<SR>(src, lo, hi, sv, sb,
            [&](const float2* s_v, const Bin* s_b, int rows, long long p0) {
     if (!owner) return;
@@ -268,8 +270,8 @@ __device__ __forceinline__ void range_hist(const Src& src, long long lo,
       histblock::add_listed(s_v, lst, done, split, cells);
       tg = tg + cells[2 * lane];
       th = th + cells[2 * lane + 1];
-      cells[2 * lane] = 0.f;
-      cells[2 * lane + 1] = 0.f;
+      cells[2 * lane] = Acc(0);
+      cells[2 * lane + 1] = Acc(0);
       __syncwarp();
       done = split;
       cut += per;
@@ -280,7 +282,8 @@ __device__ __forceinline__ void range_hist(const Src& src, long long lo,
   __syncwarp();
   if (owner && b_lo + lane < B)
     reinterpret_cast<float2*>(out)[(size_t)f * B + b_lo + lane] =
-        make_float2(tg + cells[2 * lane], th + cells[2 * lane + 1]);
+        make_float2((float)(tg + cells[2 * lane]),
+                    (float)(th + cells[2 * lane + 1]));
 }
 
 // The features [*f_lo, *f_lo + *nf) block x's units span (R units a

@@ -3,13 +3,18 @@
 Counterpart of ``lightgbm_tpu/engine.py`` ``train``: the same loop of
 before / after callbacks, ``booster.update()``, evaluation and
 ``EarlyStopException`` handling, on the device ``device`` names
-(``"cuda"`` unless the caller asks for ``"cpu"``).  Custom objectives,
-``feval``, ``init_model``, checkpoint/resume and fault handling are not
+(``"cuda"`` unless the caller asks for ``"cpu"``), and continued
+training from ``init_model`` (JAX ``engine.py:65-85``).  Custom
+objectives, ``feval``, checkpoint/resume and fault handling are not
 ported (``ROADMAP.md`` A5, A11).
 """
 from __future__ import annotations
 
+import copy
+import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+
+import numpy as np
 
 from . import callback as callback_mod
 from .basic import Booster, Dataset
@@ -29,9 +34,14 @@ def train(
     callbacks: Optional[Sequence[Callable]] = None,
     device="cuda",
     timer=None,
+    init_model: Optional[Union[str, Booster]] = None,
 ) -> Booster:
     """Train a booster on ``device``; ``timer`` (an enabled
-    ``ops.grow.StageTimer``) records the per-stage device time."""
+    ``ops.grow.StageTimer``) records the per-stage device time.
+    ``init_model`` (a ``Booster``, a model file or a model string)
+    continues training: its trees are kept, its raw predictions are the
+    dataset's init score where it has none, and a model with linear
+    trees makes ``linear_tree`` the default."""
     params = dict(params or {})
     cfg = Config.from_params(params)
     if "num_iterations" in {Config.canonical_name(k) for k in params}:
@@ -40,8 +50,23 @@ def train(
         raise LightGBMError("custom objective functions are not ported to "
                             "lightgbm_tpu_torch yet (see ROADMAP.md A5)")
 
+    predictor = None
+    if init_model is not None:
+        predictor = _init_predictor(init_model, device)
+        if any(t.is_linear for t in predictor._models):
+            # the dataset must keep raw values for the leaf models' replay
+            # (the reference reads linear_tree from the model file)
+            params.setdefault("linear_tree", True)
+            train_set._update_params({"linear_tree": True})
+        if train_set.init_score is None and train_set.data is not None:
+            raw = predictor.predict(train_set.data, raw_score=True)
+            train_set.set_init_score(np.asarray(raw, np.float64).T.reshape(-1)
+                                     if raw.ndim == 2 else raw)
     booster = Booster(params=params, train_set=train_set, device=device,
                       timer=timer)
+    if predictor is not None:
+        booster._inner.set_init_model(
+            [copy.deepcopy(t) for t in predictor._models])
     if valid_sets is not None:
         if isinstance(valid_sets, Dataset):
             valid_sets = [valid_sets]
@@ -98,6 +123,17 @@ def train(
         booster.best_iteration = booster.current_iteration()
         _record_best(booster, evaluation_result_list)
     return booster
+
+
+def _init_predictor(init_model, device) -> Booster:
+    """The booster ``init_model`` names: itself, a model file's or a
+    model string's."""
+    if isinstance(init_model, Booster):
+        return init_model
+    text = str(init_model)
+    if not os.path.exists(text) and text.lstrip().startswith("tree"):
+        return Booster(model_str=text, device=device)
+    return Booster(model_file=text, device=device)
 
 
 def _record_best(booster: Booster, results) -> None:

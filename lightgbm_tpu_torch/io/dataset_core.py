@@ -6,7 +6,10 @@ The port's own copy of the dense-input core of
 seeded row sample exactly as the JAX package finds them, trivial
 (single-bin) features are dropped under ``feature_pre_filter``, and the
 quantized matrix is one dense ``[rows, used_features]`` uint8 matrix.
-Query groups are kept as boundaries (``Metadata.set_group``).  Scipy
+Query groups are kept as boundaries (``Metadata.set_group``).  With
+``linear_tree`` the raw values of the used features are kept too
+(``raw_matrix`` ``[rows, used_features]`` f32, JAX
+``dataset_core.py:217-225``) for the leaf models.  Scipy
 sparse input, streaming sequences, EFB bundling and the binary cache
 are not ported (``ROADMAP.md`` A5).
 """
@@ -93,11 +96,13 @@ class BinnedDataset:
 
     ``bin_matrix`` is ``[num_data, num_used_features]`` uint8 (uint16
     when a feature has more than 256 bins); ``mappers[j]`` quantizes
-    original feature ``used_feature_map[j]``.
+    original feature ``used_feature_map[j]``; ``raw_matrix`` holds the
+    same columns' raw values (f32) under ``linear_tree``, else None.
     """
 
     def __init__(self) -> None:
         self.bin_matrix: Optional[np.ndarray] = None
+        self.raw_matrix: Optional[np.ndarray] = None
         self.mappers: List[BinMapper] = []
         self.used_feature_map: np.ndarray = np.array([], dtype=np.int32)
         self.num_total_features: int = 0
@@ -170,6 +175,9 @@ class BinnedDataset:
                                           self.mappers)):
             mat[:, j] = m.values_to_bins(data[:, orig]).astype(dtype)
         self.bin_matrix = mat
+        if config.linear_tree and self.mappers:
+            self.raw_matrix = np.ascontiguousarray(
+                data[:, self.used_feature_map], dtype=np.float32)
         self.metadata.num_data = n
         if label is not None:
             self.metadata.set_label(label)

@@ -46,6 +46,23 @@ tree's draws are salted by ``iteration * K + class`` (JAX
 ``gbdt.py:1378``), and lazy CEGB's paid mask ``[F, n]`` lives here,
 across trees, on the row-order path.
 
+Linear trees (``linear_tree``, ``models/linear.py``; routing rule
+``linear_tree`` takes the stream away): after each tree is grown, its
+leaves' linear models are fitted from the dataset's raw values (on the
+device once) under the stage ``linear_fit``, the training scores take
+``rate * pred`` and each validation set replays the tree's models.
+Under ``gpu_use_dp`` the route is ``row_order`` (rule ``gpu_use_dp``)
+and the grower's histograms accumulate in f64.
+
+Continued training (:meth:`GBDT.set_init_model`, JAX ``gbdt.py:667-700``)
+keeps an earlier model's trees, their bin thresholds found anew against
+this dataset's bin mappers, while the dataset's init score (the caller
+sets it to the earlier model's raw predictions) starts the scores.
+:meth:`GBDT.rollback_one_iter` (JAX ``gbdt.py:1875-1920``) drops the
+last iteration's trees: the scores from before that iteration are kept
+(one copy), so rolling it back restores them bit for bit; an older
+iteration's trees are subtracted, as LightGBM does.
+
 Unlike the JAX package, trees are finalized synchronously, so an
 iteration in which no class's tree can split stops training at once
 (the reference's synchronous behaviour).  Parameters the port does not
@@ -72,12 +89,15 @@ from ..ops.fused_split import fused_supported
 from ..ops.grow import (RowOrderGrower, SerialGrower, StageTimer,
                         StreamSpec, TreeArrays, predict_leaf_bins)
 from ..ops.histogram import histogram_impl
-from ..ops.routing import decide, inputs_from_env, resolve_layout
+from ..ops.routing import (decide, inputs_from_env, loud_rules,
+                           resolve_layout)
 from ..ops.split import SplitHyperParams
 from ..utils import log
 from ..utils.log import LightGBMError
 from ..utils.random import make_rng, prng_key, uniform
-from .tree import Tree
+from .linear import (LinearParams, fit_linear_models, linear_leaf_output,
+                     linear_params)
+from .tree import Tree, _bitset
 
 
 def _unported(what: str, where: str) -> None:
@@ -128,10 +148,6 @@ def check_supported(cfg: Config) -> None:
                   "A10")
     if cfg.pre_partition:
         _unported("pre_partition (paged / distributed data)", "A11")
-    if cfg.gpu_use_dp:
-        _unported("gpu_use_dp", "A9")
-    if cfg.linear_tree:
-        _unported("linear_tree", "A9")
 
 
 def bynode_count(cfg: Config, ds: BinnedDataset) -> int:
@@ -181,6 +197,7 @@ class _ValidSet:
         self.bins = bins
         self.metrics = list(metrics)
         self.scores: Optional[torch.Tensor] = None   # [K, n] f32
+        self.raw: Optional[torch.Tensor] = None      # [n, F] f32, linear
 
     @property
     def score(self) -> torch.Tensor:
@@ -249,6 +266,7 @@ class GBDT:
             multi_tree=self.num_tree_per_iteration > 1,
             bagging=bagging_on(cfg),
             linear_tree=bool(cfg.linear_tree),
+            gpu_use_dp=bool(cfg.gpu_use_dp),
             learner=cfg.tree_learner,
             bins_u8=dd.bins.dtype == torch.uint8, cat_subset=subset,
             mono_intermediate=self.hp.use_monotone
@@ -266,7 +284,8 @@ class GBDT:
             self.grow = RowOrderGrower(self.hp, num_leaves=cfg.num_leaves,
                                        max_depth=cfg.max_depth, dd=dd,
                                        route=self.route, timer=self.timer,
-                                       monotone=monotone, options=opts)
+                                       monotone=monotone, options=opts,
+                                       dp=bool(cfg.gpu_use_dp))
         else:
             stream = (StreamSpec(kind,
                                  float(getattr(objective, "sigmoid", 1.0)))
@@ -278,8 +297,37 @@ class GBDT:
                                      options=opts)
             if self.route.stream:
                 self.grow.set_stream_aux(self._stream_aux)
+        for rule in loud_rules(self.route):
+            log.warning("routing: %s takes the %s path (%s)", rule.name,
+                        self.route.path, rule.reason)
         n = train_set.num_data
         md = train_set.metadata
+        # linear trees (JAX gbdt.py:514-531): the raw values on the
+        # device once, and the features categorical splits leave out
+        self._raw: Optional[torch.Tensor] = None
+        if cfg.linear_tree:
+            if objective is not None and objective.NEEDS_RENEW:
+                log.fatal("linear_tree is not supported with objective %s "
+                          "(per-leaf percentile refit conflicts with linear "
+                          "leaf models)", cfg.objective)
+            if self.NAME in ("dart", "rf"):
+                log.fatal("linear_tree is not supported with boosting=%s",
+                          self.NAME)
+            if train_set.raw_matrix is None:
+                log.fatal("linear_tree=true but the dataset kept no raw "
+                          "values; pass linear_tree in the Dataset params")
+            self._raw = torch.as_tensor(
+                np.ascontiguousarray(train_set.raw_matrix, np.float32),
+                device=device)
+            self._is_cat = dd.is_cat.cpu().numpy()
+        # the trees' linear models on the device, aligned with models
+        # (None for a constant tree)
+        self._linear: List[Optional[LinearParams]] = []
+        # continued training: the iterations an init model brought
+        self.num_init_iteration = 0
+        # (iteration, scores, validation scores) before the latest
+        # iteration, for an exact rollback_one_iter
+        self._undo = None
         # lazy CEGB: the rows paid for each feature, kept across trees
         # (feature_used_in_data_, cost_effective_gradient_boosting.hpp:169)
         self._cegb_paid = (None if opts.cegb_lazy is None else torch.zeros(
@@ -343,27 +391,68 @@ class GBDT:
         bins = torch.as_tensor(np.ascontiguousarray(data.bin_matrix),
                                device=self.device)
         vs = _ValidSet(name, data, bins, metrics)
+        if self._raw is not None:
+            if data.raw_matrix is None:
+                log.fatal("linear_tree: validation dataset kept no raw "
+                          "values (construct it with the same params)")
+            vs.raw = torch.as_tensor(
+                np.ascontiguousarray(data.raw_matrix, np.float32),
+                device=self.device)
         k = self.num_tree_per_iteration
         vs.scores = _init_scores(data.metadata, k, data.num_data,
                                  self.device)
-        inner = {int(o): i for i, o in
-                 enumerate(self.train_set.used_feature_map)}
         for i, t in enumerate(self.models):
-            vs.scores[i % k] += self._tree_score(t, bins, inner)
+            vs.scores[i % k] += self._tree_score(i, bins, vs.raw)
         for m in vs.metrics:
             m.init(data.metadata, data.num_data)
         self.valid_sets.append(vs)
+        self._undo = None
 
-    def _tree_score(self, t: Tree, bins: torch.Tensor,
-                    inner: dict) -> torch.Tensor:
-        """A finished (shrunk, biased) tree's f32 outputs on ``bins``;
-        ``inner`` maps original to inner feature ids."""
+    def _inner_ids(self) -> dict:
+        """Original -> inner feature ids of the training set."""
+        return {int(o): i for i, o in
+                enumerate(self.train_set.used_feature_map)}
+
+    def _tree_score(self, i: int, bins: torch.Tensor,
+                    raw: Optional[torch.Tensor]) -> torch.Tensor:
+        """Finished (shrunk, biased) tree ``i``'s f32 outputs on ``bins``
+        (and, for a linear tree, the same rows' raw values ``raw``)."""
+        t = self.models[i]
+        members = (t.bin_members(self.dd.padded_bins)
+                   if self.hp.use_cat_subset and t.num_cat else None)
+        leaf = predict_leaf_bins(_bin_tree(t, self._inner_ids(), members),
+                                 bins, self.dd.num_bins, self.dd.has_nan)
+        lin = self._linear[i] if i < len(self._linear) else None
+        if lin is not None:
+            return linear_leaf_output(leaf, raw, lin).to(torch.float32)
         lv = torch.as_tensor(t.leaf_value, dtype=torch.float32,
                              device=self.device)
-        members = (t.bin_members(self.dd.padded_bins)
-                   if self.hp.use_cat_subset else None)
-        return lv[predict_leaf_bins(_bin_tree(t, inner, members), bins,
-                                    self.dd.num_bins, self.dd.has_nan)]
+        return lv[leaf]
+
+    def _linear_params_of(self, t: Tree) -> Optional[LinearParams]:
+        """A finished tree's leaf models on the device, by inner feature
+        (JAX ``_linear_params_of``, ``gbdt.py:1722-1759``); None for a
+        constant tree.  A loaded tree's features are mapped to inner ids,
+        each coefficient kept with its feature; a feature this dataset
+        does not use drops its term, with a warning."""
+        if not t.is_linear:
+            return None
+        feats, coefs = t.leaf_features_inner, t.leaf_coeff
+        if feats is None:
+            inner = self._inner_ids()
+            feats, coefs, dropped = [], [], 0
+            for fl, cl in zip(t.leaf_features, t.leaf_coeff):
+                keep = [(inner[int(f)], c) for f, c in zip(fl, cl)
+                        if int(f) in inner]
+                dropped += len(fl) - len(keep)
+                feats.append(np.array([f for f, _ in keep], np.int64))
+                coefs.append(np.array([c for _, c in keep], np.float64))
+            if dropped:
+                log.warning("linear tree replay: %d leaf-model features are "
+                            "not present in this dataset; their terms are "
+                            "dropped", dropped)
+        return linear_params(feats, coefs, t.leaf_const, t.leaf_value,
+                             self.device)
 
     def _feature_mask(self) -> torch.Tensor:
         f = self.dd.num_features
@@ -432,12 +521,19 @@ class GBDT:
         with self.timer.stage("sample", self.device):
             return self._sample(grad, hess, self.iter_)
 
+    def _keep_undo(self) -> None:
+        """Keep the scores from before the iteration about to train, for
+        an exact :meth:`rollback_one_iter`."""
+        self._undo = (self.iter_, self.scores.clone(),
+                      [vs.scores.clone() for vs in self.valid_sets])
+
     def train_one_iter(self) -> bool:
         """One boosting iteration, one tree a class; True when training
         cannot continue (no class's tree could split), like
         GBDT::TrainOneIter."""
         if self.objective is None:
             log.fatal("No objective function provided")
+        self._keep_undo()
         dev = self.device
         k = self.num_tree_per_iteration
         init_scores = np.zeros(k)
@@ -465,6 +561,7 @@ class GBDT:
             if not self._class_need_train[c]:
                 # keeps models[iter * K + class] aligned
                 self.models.append(Tree.single_leaf(0.0))
+                self._linear.append(None)
                 continue
             if self._train_one_tree(grad[c], hess[c], inbag, c,
                                     float(init_scores[c])) is not None:
@@ -490,30 +587,63 @@ class GBDT:
             paid=self._cegb_paid)
         nl = int(ta.num_leaves)
         if nl <= 1:
-            if len(self.models) < self.num_tree_per_iteration:
+            first_round = ((self.num_init_iteration + 1)
+                           * self.num_tree_per_iteration)
+            if len(self.models) < first_round:
                 self._class_need_train[c] = False
             self.models.append(Tree.single_leaf(init_score))
+            self._linear.append(None)
             return None
         if self.objective.NEEDS_RENEW:
             with self.timer.stage("leaf_renew", self.device):
                 leaf_value, host_values = self._renew_leaves(
                     leaf_id, leaf_value, inbag, c)
             ta = ta._replace(leaf_value=host_values)
+        fit = None
+        if self._raw is not None:
+            # the leaves' linear models (LinearTreeLearner::CalculateLinear)
+            with self.timer.stage("linear_fit", self.device):
+                fit = fit_linear_models(
+                    ta, leaf_id, self._raw, grad, hess, inbag, self._is_cat,
+                    self.config.linear_lambda, self.config.num_leaves,
+                    self.timer)
         rate = self.shrinkage_rate
         with self.timer.stage("score_update", self.device):
             rate_t = torch.tensor(rate, dtype=torch.float32,
                                   device=self.device)
-            self.scores[c] = self.scores[c] + rate_t * leaf_value[leaf_id]
+            out = fit.pred if fit is not None else leaf_value[leaf_id]
+            self.scores[c] = self.scores[c] + rate_t * out
             for vs in self.valid_sets:
                 leaf_v = predict_leaf_bins(ta, vs.bins, self.dd.num_bins,
                                            self.dd.has_nan)
-                vs.scores[c] = vs.scores[c] + rate_t * leaf_value[leaf_v]
+                out_v = (linear_leaf_output(leaf_v, vs.raw, fit.params).to(
+                    torch.float32) if fit is not None else leaf_value[leaf_v])
+                vs.scores[c] = vs.scores[c] + rate_t * out_v
         tree = Tree.from_device(ta, self.train_set)
+        if fit is not None:
+            self._set_linear(tree, fit, nl)
         tree.apply_shrinkage(rate)
         if abs(init_score) > 1e-35:
             tree.add_bias(init_score)
         self.models.append(tree)
+        self._linear.append(self._linear_params_of(tree))
         return tree
+
+    def _set_linear(self, tree: Tree, fit, nl: int) -> None:
+        """The finished tree's linear fields from its fit (JAX
+        ``gbdt.py:1653-1676``): a leaf that is not ``ok`` has no
+        features and its leaf value as the constant."""
+        tree.is_linear = True
+        tree.leaf_const = fit.const[:nl].copy()
+        tree.leaf_coeff, tree.leaf_features = [], []
+        tree.leaf_features_inner = []
+        for leaf in range(nl):
+            fl = fit.feat_idx[leaf]
+            fl = fl[fl >= 0] if fit.ok[leaf] else fl[:0]
+            tree.leaf_features_inner.append(fl.astype(np.int64))
+            tree.leaf_features.append(
+                self.train_set.used_feature_map[fl].astype(np.int32))
+            tree.leaf_coeff.append(fit.coef[leaf, :len(fl)].copy())
 
     def _renew_leaves(self, leaf_id: torch.Tensor, leaf_value: torch.Tensor,
                       inbag: torch.Tensor, c: int
@@ -531,6 +661,100 @@ class GBDT:
             alpha=float(obj.renew_leaf_percentile()),
             weighted=w is not None)
         return out, out.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def set_init_model(self, trees: List[Tree]) -> None:
+        """Continued training (JAX ``set_init_model``, reference
+        application.cpp:94-97): keep an earlier model's ``trees`` so the
+        final model is whole.  Call it before the first iteration; the
+        caller sets the dataset's init score to the earlier model's raw
+        predictions.  Each tree's bin thresholds are found anew against
+        this dataset's bin mappers (:meth:`_rebin_tree`), for the
+        validation replay and rollback."""
+        if self.models:
+            log.fatal("set_init_model must be called before training starts")
+        if self._raw is None and any(t.is_linear for t in trees):
+            log.fatal("init_model contains linear trees; pass "
+                      "linear_tree=true so the dataset keeps raw values")
+        k = self.num_tree_per_iteration
+        if len(trees) % k:
+            log.fatal("init_model has %d trees, not a multiple of the %d "
+                      "trees an iteration", len(trees), k)
+        for t in trees:
+            if t.num_leaves > 1:
+                self._rebin_tree(t)
+            self.models.append(t)
+            self._linear.append(self._linear_params_of(t))
+        self.num_init_iteration = len(trees) // k
+
+    def _rebin_tree(self, t: Tree) -> None:
+        """``t``'s thresholds as bins of this dataset (JAX
+        ``_rebin_tree``): a numerical threshold is the bin whose upper
+        bound it is (a tree grown on these mappers gets its own bins
+        back), a categorical node's bitset over raw values becomes the
+        bitset over their bins (``cat_threshold_inner``) and its first
+        bin; a feature this dataset does not use sends every row left."""
+        inner = self._inner_ids()
+        ni = t.num_leaves - 1
+        tb = np.zeros(ni, np.int32)
+        words_inner = [np.zeros(1, np.uint32)] * t.num_cat
+        for i in range(ni):
+            f = int(t.split_feature[i])
+            if f not in inner:
+                continue
+            m = self.train_set.mappers[inner[f]]
+            if int(t.decision_type[i]) & 1:
+                slot = int(t.threshold[i])
+                lo, hi = t.cat_boundaries[slot], t.cat_boundaries[slot + 1]
+                words = t.cat_threshold[lo:hi]
+                vals = [w * 32 + b for w in range(hi - lo) for b in range(32)
+                        if (int(words[w]) >> b) & 1]
+                bins = sorted({int(b) for b in m.values_to_bins(
+                    np.array(vals, np.float64))} - {0}) if vals else []
+                tb[i] = bins[0] if bins else 0
+                words_inner[slot] = _bitset(bins)
+            else:
+                tb[i] = int(np.searchsorted(m.upper_bounds, t.threshold[i],
+                                            side="left"))
+        t.threshold_bin = tb
+        t.cat_boundaries_inner = np.concatenate(
+            [[0], np.cumsum([len(w) for w in words_inner])]).astype(np.int32)
+        t.cat_threshold_inner = (np.concatenate(words_inner) if words_inner
+                                 else np.zeros(0, np.uint32))
+
+    def rollback_one_iter(self) -> None:
+        """Drop the last iteration's K trees and take their outputs, linear
+        ones included, back out of the training and validation scores
+        (JAX ``rollback_one_iter``, reference GBDT::RollbackOneIter).  The
+        scores from before the latest iteration were kept, so rolling it
+        back restores them bit for bit; an older iteration's trees are
+        subtracted.  On the stream route the rows are rebuilt from the
+        scores at the next tree."""
+        if self.NAME == "dart":
+            raise LightGBMError("rollback_one_iter is not supported with "
+                                "boosting=dart: a DART iteration rescales "
+                                "the trees it dropped")
+        if self.iter_ <= 0:
+            return
+        k = self.num_tree_per_iteration
+        undo, self._undo = self._undo, None
+        exact = undo is not None and undo[0] == self.iter_ - 1
+        for c in reversed(range(k)):
+            i = len(self.models) - 1
+            if not exact:
+                self.scores[c] -= self._tree_score(i, self.dd.bins, self._raw)
+                for vs in self.valid_sets:
+                    vs.scores[c] -= self._tree_score(i, vs.bins, vs.raw)
+            self.models.pop()
+            self._linear.pop()
+        if exact:
+            self.scores = undo[1]
+            for vs, kept in zip(self.valid_sets, undo[2]):
+                vs.scores = kept
+        self.iter_ -= 1
+        reset = getattr(self.grow, "reset_stream", None)
+        if self.route.stream and reset is not None:
+            reset()
 
     # ------------------------------------------------------------------
     def eval(self) -> List[Tuple[str, str, float, bool]]:
@@ -559,7 +783,9 @@ class GBDT:
         return out
 
     def current_iteration(self) -> int:
-        return self.iter_
+        """Iterations in the model, an init model's included (reference
+        GBDT::GetCurrentIteration: iter_ + num_init_iteration_)."""
+        return self.iter_ + self.num_init_iteration
 
 
 def _bin_tree(t: Tree, inner: dict,

@@ -63,6 +63,7 @@ class RF(GBDT):
         tree could split (the JAX package's RF stops then)."""
         if self.objective is None:
             log.fatal("No objective function provided")
+        self._keep_undo()
         grad, hess, inbag = self._sampled_gradients()
         grew = False
         for c in range(self.num_tree_per_iteration):

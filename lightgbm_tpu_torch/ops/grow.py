@@ -122,7 +122,7 @@ from .device_data import (DeviceDataset, PackedRows, Rows, bins_i32,
                           init_packed_rows, init_rows)
 from .fused_split import fused_split, fused_split_p2
 from .hist_kernel2 import (build_histogram_comb, build_histogram_comb_p2,
-                           build_histogram_rows)
+                           build_histogram_rows, build_histogram_rows_dp)
 from .descriptor import members_to_words, words_to_members
 from .partition_kernel import (copyback, copyback_p2, go_left, partition,
                                partition_3ph, partition_p2)
@@ -911,6 +911,11 @@ class RowOrderGrower(_Grower):
     the port histograms exactly the child's positions, the same rows.
     The tail is the route's.
 
+    Under ``gpu_use_dp`` (``dp``; routing rule ``gpu_use_dp``) every
+    histogram, the root's and each smaller child's, is the f64-accumulating
+    mode (``build_histogram_rows_dp``, JAX ``histogram.py:184-190``); its
+    output is f32, so the subtraction and the tail are the f32 route's.
+
     Lazy CEGB grows here only (routing rule ``cegb_lazy``): each split
     marks the leaf's in-bag rows paid for its feature in the caller's
     paid mask ``[F, n]`` (bool, by original row, kept across trees) and
@@ -921,12 +926,13 @@ class RowOrderGrower(_Grower):
                  max_depth: int, dd: DeviceDataset, route: RouteDecision,
                  timer: Optional[StageTimer] = None,
                  monotone: Optional[np.ndarray] = None,
-                 options: Optional[GrowOptions] = None):
+                 options: Optional[GrowOptions] = None, dp: bool = False):
         super().__init__(hp, num_leaves=num_leaves, max_depth=max_depth,
                          dd=dd, route=route, timer=timer, monotone=monotone,
                          options=options)
         if route.physical:
             raise ValueError("RowOrderGrower grows on the row_order path")
+        self._hist = build_histogram_rows_dp if dp else build_histogram_rows
         self.row_order: Optional[torch.Tensor] = None
         self.vals: Optional[torch.Tensor] = None
         # lazy CEGB: the tree's in-bag rows and the caller's paid mask
@@ -935,10 +941,9 @@ class RowOrderGrower(_Grower):
 
     def _histogram(self, rng: torch.Tensor, max_rows: int,
                    index: Optional[torch.Tensor]) -> torch.Tensor:
-        return build_histogram_rows(self.dd.bins, self.vals, rng,
-                                    index=index,
-                                    padded_bins=self.dd.padded_bins,
-                                    max_rows=max_rows)
+        return self._hist(self.dd.bins, self.vals, rng, index=index,
+                          padded_bins=self.dd.padded_bins,
+                          max_rows=max_rows)
 
     def _split_step(self, sel: tuple, nleft: torch.Tensor):
         s0, cnt, feat = sel[:3]

@@ -45,6 +45,14 @@ one launch writes the histogram, a warp owning a 32-bin range of one
 feature (:func:`rows_geometry`); larger ranges take per-slice partials
 and a reduction in slice order, with the same bits either way.
 
+**The gpu_use_dp mode** (:func:`build_histogram_rows_dp`; the JAX
+package's histogram under ``gpu_use_dp`` and x64 is the XLA scatter-add
+of ``lightgbm_tpu/ops/histogram.py:178-190``, no Pallas kernel) is the
+same kernel with an f64 accumulator: each slice's cells summed in f64 in
+position order, the slices' sums added in slice order in f64, rounded to
+f32 once.  Its output is the same ``[F, B, 2]`` f32, and its geometry
+takes the accumulator's bytes (``acc_bytes`` 8).
+
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
 """
@@ -417,29 +425,35 @@ def rows_stage_bytes(nf: int, bin_bytes: int, stage: int) -> int:
     return 2 * stage * (8 + nf * bin_bytes)
 
 
-def rows_smem_bytes(fc: int, padded_bins: int, bin_bytes: int) -> int:
+def rows_smem_bytes(fc: int, padded_bins: int, bin_bytes: int,
+                    acc_bytes: int = 4) -> int:
     """Shared memory of one multi-slice block of ``fc`` features (the
-    library's ``hist_rows_smem_bytes``): the ``[fc, B, 2]`` f32
-    histogram and the stage."""
-    return fc * padded_bins * 8 + rows_stage_bytes(fc, bin_bytes,
-                                                   ROWS_STAGE_PARTIAL)
+    library's ``hist_rows_smem_bytes``): the ``[fc, B, 2]`` histogram of
+    ``acc_bytes`` cells (4: f32, 8: the gpu_use_dp mode) and the
+    stage."""
+    return (fc * padded_bins * 2 * acc_bytes
+            + rows_stage_bytes(fc, bin_bytes, ROWS_STAGE_PARTIAL))
 
 
-def rows_direct_smem_bytes(nf: int, bin_bytes: int) -> int:
+def rows_direct_smem_bytes(nf: int, bin_bytes: int,
+                           acc_bytes: int = 4) -> int:
     """Shared memory of one one-launch block staging ``nf`` features (the
     library's ``hist_rows_direct_smem_bytes``): the stage, and for each
-    warp its 32 cells (f32 pairs) and its list of a step's rows (u32)."""
+    warp its 32 cells (pairs of ``acc_bytes``) and its list of a step's
+    rows (u32)."""
     return (rows_stage_bytes(nf, bin_bytes, ROWS_STAGE_DIRECT)
-            + ROWS_WARPS * ROWS_RANGE * 8 + ROWS_WARPS * ROWS_STAGE_DIRECT * 4)
+            + ROWS_WARPS * ROWS_RANGE * 2 * acc_bytes
+            + ROWS_WARPS * ROWS_STAGE_DIRECT * 4)
 
 
 @functools.lru_cache(maxsize=None)
-def rows_feature_chunk(padded_bins: int, bin_bytes: int) -> int:
+def rows_feature_chunk(padded_bins: int, bin_bytes: int,
+                       acc_bytes: int = 4) -> int:
     """Features a multi-slice block histograms: ``ROWS_FEATURES``, halved
     until one block's shared memory fits."""
     fc = ROWS_FEATURES
     while fc >= 1:
-        if rows_smem_bytes(fc, padded_bins, bin_bytes) <= MAX_SMEM:
+        if rows_smem_bytes(fc, padded_bins, bin_bytes, acc_bytes) <= MAX_SMEM:
             return fc
         fc //= 2
     raise LightGBMError(f"a histogram of {padded_bins} bins per feature "
@@ -492,36 +506,38 @@ class RowsGeometry(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def rows_geometry(f: int, padded_bins: int, bin_bytes: int,
-                  slices: int) -> RowsGeometry:
+                  slices: int, acc_bytes: int = 4) -> RowsGeometry:
     """The geometry of a ``hist_rows`` call over ``f`` features of
-    ``padded_bins`` bins of ``bin_bytes`` bytes cut into ``slices``."""
+    ``padded_bins`` bins of ``bin_bytes`` bytes cut into ``slices``, with
+    cells of ``acc_bytes`` (8: the gpu_use_dp mode)."""
     f, b = int(f), int(padded_bins)
     if slices <= ROWS_DIRECT_SLICES:
         parts = -(-b // ROWS_RANGE)
         nf = rows_direct_feats(f, b)
         return RowsGeometry(int(slices), True,
                             (-(-f * parts // ROWS_WARPS), 1), nf, parts,
-                            rows_direct_smem_bytes(nf, bin_bytes))
-    fc = rows_feature_chunk(b, bin_bytes)
+                            rows_direct_smem_bytes(nf, bin_bytes, acc_bytes))
+    fc = rows_feature_chunk(b, bin_bytes, acc_bytes)
     return RowsGeometry(int(slices), False, (int(slices), -(-f // fc)), fc,
-                        1, rows_smem_bytes(fc, b, bin_bytes))
+                        1, rows_smem_bytes(fc, b, bin_bytes, acc_bytes))
 
 
 def build_histogram_rows_ref(bins: torch.Tensor, vals: torch.Tensor,
                              rng: torch.Tensor, *, index=None,
-                             padded_bins: int,
-                             max_rows: int) -> torch.Tensor:
-    """Plain version, in the kernel's order of f32 additions: each
-    slice's rows (gathered through ``index``) summed into their own
-    histogram by one ``index_add_`` (sequential on the CPU), the slice
-    histograms added in slice order.  On the CPU it gives the kernel's
+                             padded_bins: int, max_rows: int,
+                             dp: bool = False) -> torch.Tensor:
+    """Plain version, in the kernel's order of additions: each slice's
+    rows (gathered through ``index``) summed into their own histogram by
+    one ``index_add_`` (sequential on the CPU), the slice histograms
+    added in slice order; in f32, or with ``dp`` (the gpu_use_dp mode) in
+    f64 and rounded to f32 at the end.  On the CPU it gives the kernel's
     bits."""
     n_pos = bins.shape[0] if index is None else index.shape[0]
     start, count = (int(v) for v in rng.tolist())
     lo, hi = _window((start, 0, count), n_pos)
     f = bins.shape[1]
-    out = torch.zeros((f, padded_bins, 2), dtype=torch.float32,
-                      device=bins.device)
+    acc = torch.float64 if dp else torch.float32
+    out = torch.zeros((f, padded_bins, 2), dtype=acc, device=bins.device)
     for b_lo, b_hi in block_ranges(lo, hi,
                                    rows_blocks(max_rows, padded_bins)):
         if b_hi <= b_lo:
@@ -531,16 +547,18 @@ def build_histogram_rows_ref(bins: torch.Tensor, vals: torch.Tensor,
         else:
             rows = index[b_lo:b_hi].long()
             b, v = bins_i32(bins, rows), vals.index_select(0, rows)
-        out = out + build_histogram(b, v, padded_bins=padded_bins)
-    return out
+        out = out + build_histogram(b, v, padded_bins=padded_bins,
+                                    dtype=acc)
+    return out.to(torch.float32)
 
 
 @functools.lru_cache(maxsize=1)
 def _rows_lib():
     lib = _build.load("hist_rows")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hist_rows.argtypes = [p, i] + [p] * 5 + [i] * 9 + [p]
-    lib.hist_rows.restype = i
+    for fn in (lib.hist_rows, lib.hist_rows_f64):
+        fn.argtypes = [p, i] + [p] * 5 + [i] * 9 + [p]
+        fn.restype = i
     return lib
 
 
@@ -555,11 +573,42 @@ def build_histogram_rows(bins: torch.Tensor, vals: torch.Tensor,
     picks (one launch where ``max_rows`` gives one or two slices), with
     no host read, allocating only the output (and the partials at more
     slices), so a CUDA graph can capture it."""
-    dev = bins.device
-    if dev.type == "cpu":
+    if bins.device.type == "cpu":
         return build_histogram_rows_ref(bins, vals, rng, index=index,
                                         padded_bins=padded_bins,
                                         max_rows=max_rows)
+    out = _rows_call(bins, vals, rng, index, padded_bins, max_rows, False)
+    build_histogram_rows.launches += 1
+    return out
+
+
+build_histogram_rows.launches = 0
+
+
+def build_histogram_rows_dp(bins: torch.Tensor, vals: torch.Tensor,
+                            rng: torch.Tensor, *, index=None,
+                            padded_bins: int, max_rows: int) -> torch.Tensor:
+    """The gpu_use_dp mode of :func:`build_histogram_rows`: the same
+    histogram accumulated in f64 and rounded to f32 once (the library's
+    ``hist_rows_f64``).  CPU tensors take
+    ``build_histogram_rows_ref(..., dp=True)``."""
+    if bins.device.type == "cpu":
+        return build_histogram_rows_ref(bins, vals, rng, index=index,
+                                        padded_bins=padded_bins,
+                                        max_rows=max_rows, dp=True)
+    out = _rows_call(bins, vals, rng, index, padded_bins, max_rows, True)
+    build_histogram_rows_dp.launches += 1
+    return out
+
+
+build_histogram_rows_dp.launches = 0
+
+
+def _rows_call(bins, vals, rng, index, padded_bins: int, max_rows: int,
+               dp: bool) -> torch.Tensor:
+    """Check the inputs and launch ``hist_rows`` (``dp``: its f64 entry)
+    on the current stream."""
+    dev = bins.device
     if dev.type != "cuda":
         raise LightGBMError(f"histogram runs on cuda or cpu, not {dev}")
     n, f = bins.shape
@@ -582,14 +631,16 @@ def build_histogram_rows(bins: torch.Tensor, vals: torch.Tensor,
                             "(start, count) on the bins' device")
     bin_bytes = bins.element_size()
     geo = rows_geometry(f, padded_bins, bin_bytes,
-                        rows_blocks(max_rows, padded_bins))
+                        rows_blocks(max_rows, padded_bins), 8 if dp else 4)
     out = torch.empty((f, padded_bins, 2), dtype=torch.float32, device=dev)
     partials = None if geo.direct else torch.empty(
-        (geo.slices, f, padded_bins, 2), dtype=torch.float32, device=dev)
+        (geo.slices, f, padded_bins, 2),
+        dtype=torch.float64 if dp else torch.float32, device=dev)
     n_pos = n if index is None else index.shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _rows_lib()
     with torch.cuda.device(dev):
-        rc = _rows_lib().hist_rows(
+        rc = (lib.hist_rows_f64 if dp else lib.hist_rows)(
             bins.data_ptr(), bin_bytes, vals.data_ptr(),
             None if index is None else index.data_ptr(), rng.data_ptr(),
             None if partials is None else partials.data_ptr(),
@@ -599,8 +650,4 @@ def build_histogram_rows(bins: torch.Tensor, vals: torch.Tensor,
     if rc != 0:
         raise LightGBMError(f"hist_rows kernel launch failed with CUDA "
                             f"error {rc}")
-    build_histogram_rows.launches += 1
     return out
-
-
-build_histogram_rows.launches = 0

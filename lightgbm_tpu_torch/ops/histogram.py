@@ -36,19 +36,21 @@ def histogram_impl(environ=None) -> str:
 
 
 def build_histogram(bins: torch.Tensor, values: torch.Tensor, *,
-                    padded_bins: int) -> torch.Tensor:
+                    padded_bins: int,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``bins`` [n, F] u8 or int32 bins < padded_bins, ``values`` [n, C] f32
-    -> hist [F, padded_bins, C] f32: one ``index_add_`` of every
-    (row, feature) into the flat histogram (the reference CPU loop,
+    -> hist [F, padded_bins, C] of ``dtype`` (f32, or f64 for the
+    gpu_use_dp mode's plain version): one ``index_add_`` of every (row,
+    feature) into the flat histogram (the reference CPU loop,
     dense_bin.hpp:98-140)."""
     n, f = bins.shape
     c = values.shape[1]
     idx = (bins.to(torch.int64)
            + torch.arange(f, device=bins.device) * padded_bins).reshape(-1)
     upd = values[:, None, :].expand(n, f, c).reshape(-1, c)
-    hist = torch.zeros((f * padded_bins, c), dtype=torch.float32,
+    hist = torch.zeros((f * padded_bins, c), dtype=dtype,
                        device=bins.device)
-    hist.index_add_(0, idx, upd.to(torch.float32))
+    hist.index_add_(0, idx, upd.to(dtype))
     return hist.reshape(f, padded_bins, c)
 
 

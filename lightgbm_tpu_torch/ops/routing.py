@@ -10,9 +10,13 @@ decision of ``decide``, ``:383-413``) and of the split-tail choice in
 - ``physical``: the physically partitioned row matrix, or the
   ``row_order`` path (an index vector partitioned per split, histograms
   read through it, ``ops/grow.RowOrderGrower``) when the bins are wider
-  than u8 or ``LGBM_TPU_PHYS=0``.  The JAX package's other row-order
-  triggers (``gpu_use_dp``, lazy CEGB, the feature and voting learners)
-  raise ``LightGBMError`` in ``models/gbdt.check_supported``;
+  than u8, under ``gpu_use_dp`` (the f64-accumulating mode of the
+  row-order histogram, ``hist_kernel2.build_histogram_rows``), under lazy
+  CEGB or ``LGBM_TPU_PHYS=0``.  The JAX package's other row-order
+  triggers (the feature and voting learners) raise ``LightGBMError`` in
+  ``models/gbdt.check_supported``; a rule marked ``loud`` (a
+  configuration's own fallback, JAX ``routing.py:142-155``) is logged as
+  a warning when the booster takes its route;
 - ``stream``: score-resident gradients (``ops/stream_grad.py``) or the
   objective's gradients gathered into the rows per tree (slice 2);
 - ``fused``: the fused partition + dual histogram (``ops/fused_split.py``)
@@ -102,6 +106,7 @@ class RouteInputs:
     multi_tree: bool = False
     bagging: bool = False
     linear_tree: bool = False
+    gpu_use_dp: bool = False         # f64 histogram accumulation
     learner: str = "serial"
     bins_u8: bool = True             # every feature's bins fit uint8
     cat_subset: bool = False         # the sorted-subset categorical search
@@ -131,7 +136,8 @@ class RouteInputs:
         b = lambda v: "1" if v else "0"  # noqa: E731
         return (
             f"learner={self.learner};u8={b(self.bins_u8)};"
-            f"wide={b(self.wide_layout)};cegb={b(self.cegb_lazy)};"
+            f"wide={b(self.wide_layout)};dp={b(self.gpu_use_dp)};"
+            f"cegb={b(self.cegb_lazy)};"
             f"cat={b(self.cat_subset)};bag={b(self.bagging)};"
             f"lin={b(self.linear_tree)};boost={self.boosting};"
             f"obj={self.objective_kind};"
@@ -154,6 +160,7 @@ class Rule:
     knob: str
     reason: str
     pred: Callable[[RouteInputs], bool] = field(repr=False, default=None)
+    loud: bool = False
 
 
 RULES: Tuple[Rule, ...] = (
@@ -166,6 +173,10 @@ RULES: Tuple[Rule, ...] = (
          "bins are wider than uint8 (max_bin > 256); the partition "
          "kernel's bf16 extract matmuls would round bin ids",
          lambda i: not i.bins_u8),
+    Rule("gpu_use_dp", "physical", "gpu_use_dp",
+         "double-precision histograms disable the f32 comb-direct "
+         "histogram kernel",
+         lambda i: i.gpu_use_dp, loud=True),
     Rule("cegb_lazy", "physical", "cegb_penalty_feature_lazy",
          "the per-(feature,row) paid mask is not plumbed through the "
          "partition kernel",
@@ -291,6 +302,11 @@ class RouteDecision:
         pack = " pack=2" if self.pack == 2 else ""
         return (f"path={self.path}{scheme} fused={int(self.fused)} "
                 f"tail={self.tail}{pool}{pack}{why}")
+
+
+def loud_rules(d: RouteDecision) -> Tuple[Rule, ...]:
+    """The rules marked ``loud`` among ``d``'s reasons."""
+    return tuple(r for r in RULES if r.loud and r.name in d.reasons)
 
 
 def inputs_from_env(environ=None, **kw) -> RouteInputs:
@@ -442,6 +458,15 @@ def enumerate_inputs() -> List[RouteInputs]:
     add(interaction=True, cegb=True, forced_splits=True, bynode=True,
         extra_trees=True)
     add(cegb=True, cegb_lazy=True, phys_env="0")
+    # gpu_use_dp on the routes a user selects and beside the options
+    # that already leave a part of the route
+    for kw in ({}, dict(pack_env="2"), dict(fused_env="0"),
+               dict(part_env="3ph"), dict(bins_u8=False), dict(phys_env="0"),
+               dict(linear_tree=True), dict(bagging=True),
+               dict(objective_kind="other", multi_tree=True),
+               dict(cat_subset=True), dict(cegb=True, cegb_lazy=True),
+               dict(interaction=True)):
+        add(gpu_use_dp=True, **kw)
     return cells
 
 

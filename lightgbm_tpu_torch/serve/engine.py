@@ -144,6 +144,11 @@ class ServingEngine:
     def dispatch(self, chunk: np.ndarray) -> _Pending:
         """Submit one bucketed dispatch (rows <= bucket cap); on CUDA it
         returns once the kernel is queued."""
+        if self.model.linear:
+            raise LightGBMError(
+                "ServingModel does not support linear trees (routing rule "
+                "predict_linear_tree): a leaves_only model serves "
+                "predict_leaves only")
         n = chunk.shape[0]
         bucket = self.bucket_for(n)
         if n > bucket:
@@ -231,6 +236,10 @@ class ServingQueue:
 
     def __init__(self, engine: ServingEngine,
                  depth: Optional[int] = None):
+        if engine.model.linear:
+            raise LightGBMError(
+                "ServingModel does not support linear trees (routing rule "
+                "predict_linear_tree)")
         self.engine = engine
         self.depth = int(depth or _queue_depth_knob())
         self._inflight: deque = deque()

@@ -9,7 +9,11 @@ threshold becomes a bin edge, floor-rounded to f32, so for f32 inputs
 bin-space walk matches the f64 host walk leaf for leaf.  The arrays,
 ``n_steps`` and the content ``digest`` equal the JAX build's for the
 same model text.  A booster trained by the JAX package crosses over
-through ``lightgbm_tpu_torch.convert`` instead.
+through ``lightgbm_tpu_torch.convert`` instead.  A model with linear
+trees is refused (routing rule ``predict_linear_tree``: the leaf models
+read raw feature vectors outside the stacked node arrays), except as a
+model of its structure (``leaves_only``), whose leaf entry
+``Booster.predict`` reads before it adds the leaf models.
 """
 from __future__ import annotations
 
@@ -113,8 +117,12 @@ class ServingModel:
     def __init__(self, forest: ServingForest, *, n_steps: int,
                  num_class: int, average_output: bool, objective_str: str,
                  n_orig_features: int, start_iteration: int,
-                 end_iteration: int, n_trees: int, digest: str):
+                 end_iteration: int, n_trees: int, digest: str,
+                 linear: bool = False):
         self.forest = forest
+        # built leaves_only from linear trees: its leaf table lacks the
+        # leaf models, so only the leaf entry may read it
+        self.linear = bool(linear)
         self.n_steps = int(n_steps)
         self.num_class = int(num_class)
         self.average_output = bool(average_output)
@@ -158,10 +166,13 @@ class ServingModel:
     @classmethod
     def from_booster(cls, booster, *, start_iteration: int = 0,
                      end_iteration: Optional[int] = None,
-                     device="cuda") -> "ServingModel":
+                     device="cuda", leaves_only: bool = False
+                     ) -> "ServingModel":
         """Stack the ``[start, end)`` iteration slice of a booster
         (loaded from model text or trained by the port), re-deriving an
-        exact quantizer from the trees' own thresholds."""
+        exact quantizer from the trees' own thresholds.  Linear trees
+        raise unless ``leaves_only``: then the model serves their leaves
+        only (``ServingEngine.predict_leaves``)."""
         dev = resolve_device(device)
         models = booster._models
         k = booster._k
@@ -170,6 +181,11 @@ class ServingModel:
             else min(int(end_iteration), total_iter)
         start = max(int(start_iteration), 0)
         trees = models[start * k:end * k]
+        linear = any(t.is_linear for t in trees)
+        if linear and not leaves_only:
+            raise LightGBMError(
+                "ServingModel does not support linear trees "
+                "(routing rule predict_linear_tree)")
 
         t_cnt = len(trees)
         ni_max = max([max(t.num_leaves - 1, 0) for t in trees] + [1])
@@ -314,7 +330,7 @@ class ServingModel:
                    objective_str=booster._objective_str,
                    n_orig_features=f_cnt,
                    start_iteration=start, end_iteration=end,
-                   n_trees=t_cnt, digest=digest)
+                   n_trees=t_cnt, digest=digest, linear=linear)
 
     # ------------------------------------------------------------------
     def to(self, device) -> "ServingModel":
@@ -329,7 +345,7 @@ class ServingModel:
             n_orig_features=self.n_orig_features,
             start_iteration=self.start_iteration,
             end_iteration=self.end_iteration, n_trees=self.n_trees,
-            digest=self.digest)
+            digest=self.digest, linear=self.linear)
 
     def to_json(self) -> dict:
         """Identity block of the compiled model."""

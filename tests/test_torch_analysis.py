@@ -583,7 +583,7 @@ def test_legal_geometries_are_the_table():
 # the JAX key fields the port's RouteInputs cannot express, at the value
 # under which the port's rules apply
 _JAX_ONLY = {"learner": "serial", "shards": "1", "efb": "0", "over": "0",
-             "ew": "0", "fdiv": "1", "dp": "0", "cat": "0", "mono": "0",
+             "ew": "0", "fdiv": "1", "cat": "0", "mono": "0",
              "cegbc": "0", "part": "permute", "ob": "0", "pg": "auto",
              "mcb": "auto"}
 
@@ -600,7 +600,8 @@ def _port_inputs(key: str):
     return troute.RouteInputs(
         objective_kind=kf["obj"], boosting=kf["boost"],
         multi_tree=kf["k"] == "multi", bagging=kf["bag"] == "1",
-        linear_tree=kf["lin"] == "1", bins_u8=kf["u8"] == "1",
+        linear_tree=kf["lin"] == "1", gpu_use_dp=kf["dp"] == "1",
+        bins_u8=kf["u8"] == "1",
         phys_env=kf["phys"], stream_env=kf["stream"],
         fused_env="1" if kf["fused"] == "1" else "0",
         part_env=kf["impl"], pack_env=kf["pack"],
@@ -629,6 +630,25 @@ def test_routing_matrix_matches_the_jax_golden():
             assert troute.decode_cell(port[i.key()]) == got
             in_port_matrix += 1
     assert compared >= 150 and in_port_matrix >= 60
+
+
+def test_routing_matrix_dp_cells_take_row_order():
+    """Every golden cell's key carries the ``dp`` fact; a ``dp=1`` cell
+    takes the row-order path and names the ``gpu_use_dp`` rule, and the
+    JAX golden's ``dp=1`` cells the port can express are compared by
+    ``test_routing_matrix_matches_the_jax_golden``."""
+    cells = json.loads(Path(troute.default_matrix_path()).read_text())[
+        "cells"]
+    assert all(";dp=0;" in k or ";dp=1;" in k for k in cells)
+    dp = {k: troute.decode_cell(v) for k, v in cells.items()
+          if ";dp=1;" in k}
+    assert len(dp) >= 10
+    for key, c in dp.items():
+        assert c["path"] == "row_order" and "gpu_use_dp" in c["why"], key
+    golden = json.loads((REPO / "lightgbm_tpu" / "analysis" /
+                         "routing_matrix.json").read_text())["cells"]
+    assert any("dp=1" in k.split(";") and _port_inputs(k) is not None
+               for k in golden)
 
 
 def test_port_matrix_golden_is_fresh():

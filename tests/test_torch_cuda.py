@@ -2217,3 +2217,87 @@ def test_kernel_tail_refuses_per_child_inputs_on_card(cuda):
         with pytest.raises(LightGBMError, match="PyTorch tail"):
             apply_find_pool(h, h, nl, st, fc, mask, hp, -1,
                             SplitAt(0, 1, 0, 0, 10))
+
+
+# -- slice 23: the gpu_use_dp histogram, the linear-leaf moments -------------
+@pytest.mark.parametrize("b,count", [(256, 0), (256, 1), (256, 3000),
+                                     (256, 16_385), (256, 40_000),
+                                     (1024, 31), (1024, 16_385),
+                                     (1024, 32_769), (1040, 5000)])
+def test_hist_rows_f64_matches_plain(cuda, b, count):
+    """The gpu_use_dp mode bitwise its plain version, on the card and on
+    CPU copies, in one launch and through the f64 partials."""
+    from chip_smoke import dp_hist_case
+    g = np.random.default_rng(b + count)
+    dt = np.uint8 if b <= 256 else np.uint16
+    n = 50_000
+    bins = torch.tensor(g.integers(0, b, size=(n, 28)).astype(dt),
+                        device=cuda)
+    vals = torch.tensor(g.normal(size=(n, 2)).astype(np.float32),
+                        device=cuda)
+    index = torch.tensor(g.permutation(n).astype(np.int32), device=cuda)
+    dp_hist_case(bins, vals, (7, count), index, b, max(count, 1), "test")
+
+
+@pytest.mark.parametrize("kmax,leaves", [(1, 3), (5, 31), (28, 255),
+                                         (136, 7), (200, 3)])
+def test_linear_moments_matches_plain(cuda, kmax, leaves):
+    """linear_moments bitwise its plain version on the card and on CPU
+    copies, NaN rows and padded features included; 200 path features
+    take the shared-memory opt-in above 48 KB."""
+    from lightgbm_tpu_torch.ops.linear_kernel import (linear_moments,
+                                                      linear_moments_ref)
+    g = np.random.default_rng(kmax)
+    n, f = 20_000, max(kmax, 8)
+    raw = g.normal(size=(n, f)).astype(np.float32)
+    raw[g.random(raw.shape) < 0.01] = np.nan
+    leaf = np.minimum(g.geometric(0.05, n) - 1, leaves - 1)
+    fi = np.full((leaves, kmax), -1, np.int32)
+    for lf in range(leaves):
+        k = g.integers(0, kmax + 1)
+        fi[lf, :k] = g.choice(f, size=k, replace=False)
+    args = [torch.tensor(a, device=cuda) for a in (
+        raw, leaf, g.normal(size=n).astype(np.float32),
+        g.uniform(0.1, 1, n).astype(np.float32),
+        (g.random(n) < 0.9).astype(np.float32), fi)]
+    got = linear_moments(*args)
+    assert torch.equal(got, linear_moments(*args))
+    assert torch.equal(got, linear_moments_ref(*args))
+    assert torch.equal(got.cpu(), linear_moments_ref(*(a.cpu()
+                                                       for a in args)))
+
+
+@pytest.mark.parametrize("params", [
+    {"objective": "regression", "linear_tree": True},
+    {"objective": "regression", "linear_tree": True, "linear_lambda": 1.0,
+     "bagging_fraction": 0.7, "bagging_freq": 1},
+    {"objective": "binary", "linear_tree": True, "max_bin": 1023},
+    {"objective": "binary", "gpu_use_dp": True},
+    {"objective": "binary", "gpu_use_dp": True, "max_bin": 1023}])
+def test_linear_and_dp_training_match_the_cpu(cuda, params):
+    """Linear trees and gpu_use_dp grow the CPU run's trees, leaf values
+    and leaf models bit for bit; rollback_one_iter gives the scores
+    back bit for bit."""
+    from chip_smoke import linear_fields_bitwise, linear_target
+    x = make_rows(5000, 12, 9)
+    y = (linear_target(x, 3, 4) if params["objective"] == "regression"
+         else make_higgs_like(5000, 12, 9)[1])
+    p = dict(params, num_leaves=31, verbosity=-1)
+
+    def train(dev):
+        bst = lgt.Booster(p, lgt.Dataset(x, label=y), device=dev)
+        for _ in range(3):
+            bst.update()
+        return bst
+    bc, bp = train("cuda"), train("cpu")
+    assert compare_trees(bc._models, bp._models)["ok"]
+    assert leaves_bitwise(bc._models, bp._models)
+    assert linear_fields_bitwise(bc._models, bp._models)
+    before = bc._inner.scores.clone()
+    bc.update()
+    bc.rollback_one_iter()
+    assert torch.equal(bc._inner.scores, before)
+    xq = x.astype(np.float32).astype(np.float64)
+    np.testing.assert_allclose(bc.predict(xq, raw_score=True),
+                               bp.predict(xq, raw_score=True),
+                               rtol=1e-12, atol=1e-9)

@@ -397,8 +397,7 @@ def test_rf_refuses_a_dataset_init_score():
 
 @pytest.mark.parametrize("params,item", [
     ({"tree_learner": "data"}, "A10"), ({"tree_learner": "voting"}, "A10"),
-    ({"pre_partition": True}, "A11"), ({"gpu_use_dp": True}, "A9"),
-    ({"linear_tree": True}, "A9")])
+    ({"pre_partition": True}, "A11")])
 def test_unported_messages_name_their_item(params, item):
     x, y = _data(300, 4, 1)
     with pytest.raises(LightGBMError, match=rf"ROADMAP\.md, {item}\)"):

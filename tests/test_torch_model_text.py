@@ -114,9 +114,3 @@ def test_single_leaf_tree_round_trip():
     np.testing.assert_array_equal(t.predict(np.zeros((4, 2))),
                                   np.full(4, -1.5))
 
-
-def test_linear_tree_raises(trained_texts):
-    text, _ = trained_texts["dense"]
-    linear = text.replace("is_linear=0", "is_linear=1", 1)
-    with pytest.raises(lgt.LightGBMError, match="ROADMAP"):
-        lgt.Booster(model_str=linear, device="cpu")

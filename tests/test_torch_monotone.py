@@ -469,8 +469,8 @@ def test_kernel_launch_refuses_the_intermediate_method():
 
 def test_constraints_raise_naming_the_roadmap(tmp_path):
     """With monotone constraints, the split options slice 22 ported
-    (which raised before) train on the PyTorch tail; linear trees still
-    raise naming their ROADMAP item."""
+    (which raised before) train on the PyTorch tail, and linear trees
+    (slice 23) on the kernel tail without the stream."""
     x, y = _data(300, 4, 1)
     forced = tmp_path / "forced.json"
     forced.write_text('{"feature": 1, "threshold": 0.0}')
@@ -484,10 +484,13 @@ def test_constraints_raise_naming_the_roadmap(tmp_path):
                         device="cpu")
         assert bst._inner.grow.route.describe() == (
             f"path=stream fused=1 tail=xla ({rule})")
-    with pytest.raises(LightGBMError, match="A9"):
-        lgt.train(dict(BASE, monotone_constraints=[1, 0, 0, -1],
-                       linear_tree=True),
-                  lgt.Dataset(x, label=y), num_boost_round=1, device="cpu")
+    bst = lgt.train(dict(BASE, monotone_constraints=[1, 0, 0, -1],
+                         linear_tree=True),
+                    lgt.Dataset(x, label=y), num_boost_round=1,
+                    device="cpu")
+    assert bst._inner.grow.route.describe() == (
+        "path=physical fused=1 tail=kernel (linear_tree)")
+    assert all(t.is_linear for t in bst._models if t.num_leaves > 1)
     # a sign vector shorter than the features pads with zeros
     bst = lgt.train(dict(BASE, monotone_constraints=[1]),
                     lgt.Dataset(x, label=y), num_boost_round=1, device="cpu")

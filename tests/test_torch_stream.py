@@ -182,6 +182,7 @@ def test_each_rule_blocks_its_part(rule):
           "tail_mono_intermediate": {"mono_intermediate": True},
           "cat_overwide": {"cat_subset": True, "bins_u8": False},
           "cegb_lazy": {"cegb_lazy": True},
+          "gpu_use_dp": {"gpu_use_dp": True},
           "tail_interaction": {"interaction": True},
           "tail_cegb": {"cegb": True},
           "tail_forced": {"forced_splits": True},

@@ -278,9 +278,7 @@ def test_gradients_match_jax(objective):
 
 
 @pytest.mark.parametrize("params", [
-    {"pre_partition": True},
-    {"gpu_use_dp": True},
-    {"linear_tree": True}, {"tree_learner": "data"},
+    {"pre_partition": True}, {"tree_learner": "data"},
 ])
 def test_unported_parameters_raise(params):
     x, y = _data(300, 4, 1)
@@ -322,7 +320,7 @@ def test_categorical_subset_raises():
     assert bst._inner.route.tail == "xla"
     with pytest.raises(LightGBMError, match="ROADMAP"):
         lgt.train({"objective": "binary", "verbosity": -1,
-                   "linear_tree": True},
+                   "tree_learner": "data"},
                   lgt.Dataset(x, label=y, categorical_feature=[3]),
                   num_boost_round=1, device="cpu")
 
