@@ -80,7 +80,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the bound, each case bitwise its plain version first and its kernels
    read from a profiler trace (``count_tiles``, ``fused_scatter``,
    ``fused_hist``, and ``reduce_partials`` above 16 slices); the 3ph
-   route (slice 5, ``LGBM_TPU_PART=3ph``) for 3 iterations
+   route (slice 5, ``LGBM_TPU_PART=3ph``) for 2 iterations
    (``partition_3ph`` once per split, ``hist_comb`` per tree and per
    split, the plain refresh per tree), its trees printed beside the
    default route's, and ``LGBM_TPU_POOL_TAIL=0`` for 2 (``apply_find``
@@ -113,7 +113,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    pack=1 kernel; card against device="cpu" on ``LGBM_TPU_COMB_PACK=2
    LGBM_TPU_FUSED=0`` and on slice 2's route at pack=2 (bitwise); the
    main path ``LGBM_TPU_COMB_PACK=2 LGBM_TPU_FUSED=0`` (1M x 28, 255
-   leaves, 3 iterations) counted and served, beside the pack=1
+   leaves, 2 iterations) counted and served, beside the pack=1
    ``LGBM_TPU_FUSED=0`` route, both bitwise the default route's first 3
    trees, and slice 2's route at pack=2 (3), bitwise slice 2's route's
    trees; one profiled iteration of each unfused route; then (slice 14)
@@ -160,8 +160,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 10. wide datasets (slice 9): ``hist_comb`` at 1,000,000 x 136 u8 bins,
    B = 256, in 17 feature chunks of 8, bitwise its plain version run on CPU
    copies and timed beside its byte bound and ``index_add_``; training
-   parity at 20,000 x 136, card against device="cpu", 1 tree of 63
-   leaves, bit-identical; 3 iterations of ``make_higgs_like(1M, 136)`` with 255
+   parity at 10,000 x 136, card against device="cpu", 1 tree of 63
+   leaves, bit-identical; 2 iterations of ``make_higgs_like(1M, 136)`` with 255
    leaves on the unfused stream route with the cluster kernel tail,
    counted exactly, the tail bitwise on a tree's median split, and one
    profiled iteration;
@@ -175,7 +175,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    words) against their plain versions on adversarial words at 36
    features (rows and nleft bitwise; the fused modes' histograms within
    4 * n * eps_f32 * max|v|); the card against device="cpu" on the
-   first 10,000 rows on six routes, 1 tree of 31 leaves (bitwise); the
+   first 5,000 rows on six routes, 1 tree of 31 leaves (bitwise); the
    default route for 2 iterations, pack=2, both
    ``FUSED=0`` routes and 3ph for 1
    (pack=2's and the unfused routes' trees bitwise the default
@@ -194,9 +194,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    clipping every candidate, equal keys across the last two blocks with
    one constrained, the penalty's 1e-15 floor, the done guard) and on
    the median split of a default-route, a row-order and a wide tree;
-   the card against device="cpu" on the first 10,000 rows, 1 tree of 63
+   the card against device="cpu" on the first 5,000 rows, 1 tree of 63
    leaves, on the default, pack=2 and row-order routes (bitwise); the basic method on
-   the default route for 5 iterations, pack=2, P1 ``FUSED=0``, 3ph,
+   the default route for 3 iterations, pack=2, P1 ``FUSED=0``, 3ph,
    ``POOL_TAIL=0``, row-order (``max_bin`` 1023) and the wide 1M x 136
    route for 2, ``monotone_penalty`` 2.0 and the intermediate method
    (the PyTorch tail and the adjacency pass) for 2, each counted and
@@ -210,7 +210,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    unconstrained ones (``monotone routes``, ``monotone tail times``);
 13. multiclass training and the regression and cross-entropy objectives
    (slice 19), on the kernel-tail physical route: the card against
-   device="cpu" at 10,000 x 28, 31 leaves, bitwise, for 1 iteration of
+   device="cpu" at 5,000 x 28, 31 leaves, bitwise, for 1 iteration of
    the 5-class softmax and the 3-class one-vs-all and 1 tree of each of
    ``regression_l1``, ``huber``, ``fair``, ``poisson``, ``quantile``
    (alpha 0.9), ``mape``, ``gamma``, ``tweedie``, ``cross_entropy`` and
@@ -218,19 +218,19 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (``objective_label``), the softmax at pack=2 (255 leaves) bitwise
    the pack=1 card trees; the multiclass main path (``bench.py
    --multiclass 5``'s cell, ``make_multiclass_like``: 1M x 28 training
-   and 100,000 holdout rows, 255 leaves, 5 iterations of 5 trees)
+   and 100,000 holdout rows, 255 leaves, 2 iterations of 5 trees)
    counted against ``expected_launches``, its holdout ``multi_logloss``
    below the class prior's, served through ``serve_traverse`` within 64
    ulps a tree of the training scores and of the f64 host walk on 4,096
    holdout rows, its probabilities summing to 1 within 1e-6, and one
    profiled iteration; the l1 main path on the same rows and a
-   heavy-tailed target (3 iterations) counted, its holdout ``l1`` below
+   heavy-tailed target (2 iterations) counted, its holdout ``l1`` below
    the constant median's, the leaf renewal timed as a stage; printed as
    ``objective routes {...}``;
 14. bagging, GOSS and random-forest boosting (slice 20), on the
    kernel-tail physical route: the threefry draws on the card bitwise
    the CPU's at 1M rows (the bagging mask at iterations 0 and 5, GOSS's
-   sample); the card against device="cpu" at 10,000 x 28, 31 leaves,
+   sample); the card against device="cpu" at 5,000 x 28, 31 leaves,
    bitwise, for 2 trees of bagging (0.8, every iteration), of
    ``pos_bagging_fraction`` 0.5 and of RF, 3 of GOSS (sampling from its
    third), and the bagging run at pack=2 bitwise the pack=1 card trees;
@@ -249,7 +249,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    (``FORCED_SPLITS``, in the shape of LightGBM's
    ``examples/binary_classification/forced_splits.json``),
    ``feature_fraction_bynode`` 0.5 with ``feature_fraction`` 0.8 and
-   ``extra_trees``: each card against device="cpu" at 10,000 x 28, 63
+   ``extra_trees``: each card against device="cpu" at 5,000 x 28, 63
    leaves, 2 trees, bitwise; a tree's node draws on the card bitwise the
    CPU's; each on the training main path's rows for 2 iterations,
    counted against ``expected_launches``, its route, s / iteration, ms a
@@ -261,12 +261,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    on top of every tree; by-node sampling's and extra trees' trees
    other than the default route's); printed as ``split options {...}``;
 16. linear trees (slice 23, ``linear_phase``): the card against
-   device="cpu" at 10,000 x 28, 63 leaves, 2 trees (the second grown on
+   device="cpu" at 5,000 x 28, 63 leaves, 2 trees (the second grown on
    the first's linear scores), trees, leaf values and leaf models
    bitwise; the main path on the training main path's bins with their
    raw values kept (``with_raw``) and ``linear_target``'s seeded
    piecewise-linear label, ``LINEAR_PARAMS`` (regression,
-   ``linear_lambda`` 0.1, 255 leaves), 10 iterations on ``path=physical
+   ``linear_lambda`` 0.1, 255 leaves), 5 iterations on ``path=physical
    fused=1 tail=kernel (linear_tree)``, counted (one ``linear_moments``
    a tree), the ``linear_fit`` stage cut into the moments kernel, the
    host solve and the prediction, one profiled iteration, its holdout
@@ -285,17 +285,36 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    copies at B = 256 (the main path's bins: root, 3,000 and 250,000
    indexed rows) and B = 1024 (seeded u16 bins: root, 3,000 indexed);
    the card against device="cpu" at the parity cut (bitwise); the
-   Higgs binary main path with ``gpu_use_dp`` for 10 iterations on
+   Higgs binary main path with ``gpu_use_dp`` for 5 iterations on
    ``path=row_order`` (reason ``gpu_use_dp``), counted, beside its f32
-   row-order twin (``LGBM_TPU_PHYS=0``, 10 iterations); the f64 mode
+   row-order twin (``LGBM_TPU_PHYS=0``, 5 iterations); the f64 mode
    at the root and the smaller children's quartiles and maximum, in
    turns with the f32 mode, beside ``index_add_`` in f64 and the bound;
    printed as ``gpu_use_dp {...}``;
-18. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+18. the parallel learners (slice 24, ``parallel_phase``): the split
+   tail's global side (``side=``) bitwise its plain version on the card
+   and on CPU copies (agreeing with the local counts, then also bitwise
+   the call without it, and flipping them) at 28 x 256, 28 x 1024,
+   136 x 256 and on a real root split; every wrapper of the path on a
+   segment empty on a rank (zeros, ``nleft = 0``, no launch); then W = 2
+   ranks spawned on the one card over gloo (CUDA tensors staged through
+   pinned host buffers): ``tree_learner=data`` on the main path's rows
+   (1M x 28, 255 leaves, ``max_bin`` 255, 3 iterations) with the
+   reduce-scatter merge, counted on rank 0, and with the full merge
+   (bitwise the same trees); ``data``, ``voting`` (``top_k`` 5) and
+   ``feature`` at ``PARITY_ROWS`` x ``PARITY_CUT_LEAVES`` leaves, 2
+   trees, card against the same 2-rank run on the CPU, bitwise; every
+   rank's model text the same; the holdout AUC within 0.002 of the
+   serial route's at 3 iterations; a world-size-1 NCCL group through
+   ``parallel.collectives.Comm``; printed as ``parallel {...}``
+   (s / iteration, collectives and bytes a split, the ``collective``
+   stage's ms a tree);
+19. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times (``multiclass_launches`` on the multiclass main
    path, ``sampling_launches`` on the three sampling main paths,
    ``ranking_launches``, ``split_options_launches`` on the split
-   options' routes, ``linear_launches`` and ``gpu_use_dp_launches``),
+   options' routes, ``linear_launches``, ``gpu_use_dp_launches`` and
+   ``parallel_launches``),
    then the device line last; ``phase NAME took S s`` after each
    phase.
 
@@ -1509,7 +1528,8 @@ SLICE2_ITERS = 3
 SLICE2_PARITY_TREES = 1
 ROUTE_KNOBS = ("LGBM_TPU_STREAM", "LGBM_TPU_FUSED", "LGBM_TPU_APPLY_IMPL",
                "LGBM_TPU_PHYS", "LGBM_TPU_HIST_IMPL", "LGBM_TPU_PART",
-               "LGBM_TPU_POOL_TAIL", "LGBM_TPU_COMB_PACK")
+               "LGBM_TPU_POOL_TAIL", "LGBM_TPU_COMB_PACK",
+               "LGBM_TPU_HIST_SCATTER")
 # the port's kernels (PERF.md rows 1-16)
 OUR_KERNEL_NAMES = ("hist_comb", "scan_tiles", "copyback_3ph", "copy_span",
                     "count_tiles", "fused_scatter", "fused_hist",
@@ -2731,7 +2751,7 @@ def expected_launches(route, trees: int, splits: int) -> dict:
 # ---------------------------------------------------------------------
 # Slice 5: the 3-phase partition route and the pool-less tail
 PART_3PH = {"LGBM_TPU_PART": "3ph"}
-PART_3PH_ITERS = 3
+PART_3PH_ITERS = 2
 POOL_TAIL_OFF = {"LGBM_TPU_POOL_TAIL": "0"}
 POOL_TAIL_ITERS = 2
 
@@ -3360,7 +3380,7 @@ def pack2_phases(gpu: str, ds, valid, x, bst_default) -> tuple:
 FUSED_OFF = {"LGBM_TPU_FUSED": "0"}
 PACK2_UNFUSED = dict(PACK2, **FUSED_OFF)
 PACK2_SLICE2 = dict(PACK2, **SLICE2_ROUTE)
-PACK2_UNFUSED_ITERS = 3
+PACK2_UNFUSED_ITERS = 2
 
 
 def pack2_unfused_phases(gpu: str, ds, valid, x, bst_default,
@@ -3934,9 +3954,9 @@ def analysis_phase(gpu: str) -> dict:
 
 # -- slice 9: wide datasets and the launch-cost probes -----------------------
 WIDE_FEATURES = 136           # MSLR-WEB30K's width: hist_comb in chunks
-WIDE_ITERS = 3
+WIDE_ITERS = 2
 WIDE_PARITY_TREES = 1
-WIDE_PARITY_ROWS = 20_000     # the script's time budget
+WIDE_PARITY_ROWS = 10_000     # the script's time budget
 WIDE_ROUTE = "path=stream fused=0 tail=kernel (fused_smem)"
 PROBE_ROWS = 1 << 20          # tools/profile_step_cost.py PN = 20
 PROBE_REPS = 20               # T11 iterations of 254 timed per mode
@@ -4321,7 +4341,7 @@ def hist_comb_wide_case(gpu: str) -> dict:
 def wide_phases(gpu: str, comb_cases: list) -> dict:
     """Slice 9's repair: datasets above 19 features at B = 256 build their
     histograms in feature chunks, so 136 features fit.  ``hist_comb`` at 1M x 136 bitwise its
-    plain version and timed; training parity at 20,000 x 136, card
+    plain version and timed; training parity at 10,000 x 136, card
     against device="cpu", 1 tree, bit-identical; the main path,
     ``make_higgs_like(1M, 136)``, 255 leaves, 3 iterations on the route
     the rules give (unfused stream, the cluster kernel tail), counted
@@ -4374,10 +4394,10 @@ def wide_phases(gpu: str, comb_cases: list) -> dict:
 # Slice 18: monotone constraints, the constrained mode of the split tail
 MONO_CONSTRAINED = 8
 MONO_SIGNS = [1] * 4 + [-1] * 4      # features 0-3 up, 4-7 down, rest free
-MONO_ITERS = 5
+MONO_ITERS = 3
 MONO_SHORT_ITERS = 2
 MONO_PENALTY = 2.0
-MONO_PARITY_ROWS = 10_000
+MONO_PARITY_ROWS = 5_000
 MONO_PARITY_TREES = 1
 MONO_GRID_ROWS = 256
 MONO_ROUTES = {"pack2": PACK2, "unfused": FUSED_OFF, "3ph": PART_3PH,
@@ -4574,9 +4594,9 @@ def mono_phases(gpu: str, ds, valid, ds_wide, valid_wide, x, y, xv,
     Higgs-like rows, 100,000 holdout, 255 leaves, binary; +1 on features
     0-3, -1 on 4-7).  The constrained tail bitwise its plain version on
     its adversarial cases and on the median split of a default-route and
-    a row-order tree; the card against the CPU on the first 10,000 rows
+    a row-order tree; the card against the CPU on the first 5,000 rows
     (1 tree) on the default, pack=2 and row-order routes (bitwise); the basic
-    method on the default route for 5 iterations, pack=2, P1
+    method on the default route for 3 iterations, pack=2, P1
     ``FUSED=0``, 3ph, ``POOL_TAIL=0`` and row-order (``max_bin`` 1023)
     for 2, ``monotone_penalty`` 2.0 and the intermediate method for 2,
     each counted (the tail's launches are its constrained launches),
@@ -4776,7 +4796,7 @@ CAT_ONEHOT_PARAMS = dict(CAT_PARAMS, max_cat_to_onehot=CAT_CATS + 1)
 CAT_ITERS = 2
 CAT_SHORT_ITERS = 1
 # the cut of the categorical data the card is held against the CPU on
-CAT_PARITY_ROWS = 10_000
+CAT_PARITY_ROWS = 5_000
 CAT_PARITY_TREES = 1
 CAT_ROUTES = {"default": {}, "pack2": PACK2, "unfused": FUSED_OFF,
               "pack2_unfused": PACK2_UNFUSED, "3ph": PART_3PH}
@@ -5197,7 +5217,7 @@ def cat_phases(gpu: str) -> list:
 # -- Slice 19: multiclass training and the regression and cross-entropy
 # objectives (on the kernel-tail physical route) ----------------------------
 MC_CLASSES = 5
-MC_ITERS = 5
+MC_ITERS = 2
 MC_PARAMS = {"objective": "multiclass", "num_class": MC_CLASSES,
              "num_leaves": TRAIN_LEAVES, "max_bin": 255,
              "learning_rate": 0.1, "metric": ["multi_logloss", "multi_error"],
@@ -5214,8 +5234,8 @@ OBJ_PARITY = {"regression_l1": {}, "huber": {}, "fair": {}, "poisson": {},
 OBJ_PARITY_TREES = 1
 # rows of the objectives' and the sampling modes' card-against-CPU runs
 # (fewer than PARITY_ROWS: the script's time budget)
-OBJ_PARITY_ROWS = 10_000
-L1_ITERS = 3
+OBJ_PARITY_ROWS = 5_000
+L1_ITERS = 2
 L1_PARAMS = {"objective": "regression_l1", "num_leaves": TRAIN_LEAVES,
              "max_bin": 255, "learning_rate": 0.1, "metric": "l1",
              "verbosity": -1}
@@ -5301,11 +5321,11 @@ def card_booster(params: dict, x, y, iters: int, env: dict):
 
 
 def objective_parities(gpu: str) -> dict:
-    """The card against device="cpu" at 10,000 x 28, bitwise: softmax
+    """The card against device="cpu" at 5,000 x 28, bitwise: softmax
     (K = 5) and one-vs-all (K = 3) for 1 iteration, the softmax at
     pack=2 (255 leaves) bitwise the pack=1 card trees (its record
     kernels counted), and 1 tree of each regression and cross-entropy
-    objective on a label it accepts (one tree, 10,000 rows and
+    objective on a label it accepts (one tree, 5,000 rows and
     ``PARITY_CUT_LEAVES`` leaves each but the pack=2 pair: the script's
     time budget)."""
     x = make_rows(OBJ_PARITY_ROWS, N_FEATURES, 3)
@@ -5376,7 +5396,7 @@ def multiclass_phases(gpu: str) -> dict:
     """Slice 19: the objectives' parity runs (:func:`objective_parities`),
     then the multiclass main path at full width (``bench.py --multiclass
     5``'s cell: 1M x 28 training and 100,000 holdout rows, 5-class
-    softmax, 255 leaves, 5 iterations, 25 trees) on the kernel-tail
+    softmax, 255 leaves, 2 iterations, 10 trees) on the kernel-tail
     physical route, counted, its holdout ``multi_logloss`` below the
     class prior's, the booster served through serve_traverse (every
     class's raw scores within 64 ulps a tree of the training scores and
@@ -5538,7 +5558,7 @@ def sampling_draws(gpu: str, bag, goss) -> dict:
 
 
 def sampling_parities(gpu: str) -> dict:
-    """The card against device="cpu" at 10,000 x 28, 31 leaves,
+    """The card against device="cpu" at 5,000 x 28, 31 leaves,
     bitwise, for each of ``SAMPLING_PARITY``, and the bagging run at
     pack=2 bitwise the pack=1 card trees (its record kernels counted)."""
     out = {}
@@ -5637,7 +5657,7 @@ RANK_ROUTE = ("path=physical fused=0 tail=kernel (objective_not_streamable, "
               "boosting_not_gbdt, fused_smem)")
 RANK_TWIN_ROUTE = ("path=physical fused=0 tail=kernel "
                    "(objective_not_streamable, fused_smem)")
-RANK_PARITY_ROWS = 20_000
+RANK_PARITY_ROWS = 10_000
 # (params, iterations) of each card-against-CPU run at RANK_PARITY_ROWS x
 # 28: lambdarank DART dropping from its third iteration ([], [], [1], [0]
 # from drop_seed 4), rank_xendcg GBDT
@@ -5725,7 +5745,8 @@ def ranking_holdout(yv: np.ndarray, gv: np.ndarray):
 
 def rank_parity(gpu: str, name: str, params: dict, iters: int) -> dict:
     """``iters`` iterations of ``params`` at ``PARITY_CUT_LEAVES`` leaves
-    on a seeded 20,000 x 28 ranking set (``make_rows``' missing values, ``rank_labels``, ``rank_groups``)
+    on a seeded 10,000 x 28 ranking set (``make_rows``' missing values,
+    ``rank_labels``, ``rank_groups``)
     trained on the card and with device="cpu": the trees must be equal
     and their leaves bitwise, and the drop sets equal."""
     import lightgbm_tpu_torch as lgt
@@ -5808,7 +5829,7 @@ def rank_gradient_parity(gpu: str, bst, label: str, score,
 
 def ranking_phases(gpu: str, wide: dict) -> dict:
     """Slice 21: the card-against-CPU runs (:func:`rank_parity`: lambdarank
-    DART and rank_xendcg at 20,000 x 28), then lambdarank DART on the
+    DART and rank_xendcg at 10,000 x 28), then lambdarank DART on the
     wide phase's binned 1M x 136 rows (``RANK_PARAMS``, 10 iterations)
     with seeded grades and query groups (``rank_labels``,
     ``rank_groups``: ~7,800 training queries, the 100,000 holdout rows
@@ -6053,7 +6074,7 @@ def split_draws(gpu: str) -> dict:
 
 def split_option_phases(gpu: str, higgs: dict) -> dict:
     """Slice 22: each split option (``SPLIT_OPTIONS``) trained on the card
-    against device="cpu" at 10,000 x 28, 31 leaves, 2 trees (bitwise),
+    against device="cpu" at 5,000 x 28, 31 leaves, 2 trees (bitwise),
     then on the training main path's 1M rows (``TRAIN_PARAMS``, 2
     iterations) on its route, counted against ``expected_launches``,
     its holdout AUC beside the default route's booster at 2 iterations,
@@ -6150,7 +6171,7 @@ LINEAR_PARAMS = {"objective": "regression", "linear_tree": True,
                  "linear_lambda": 0.1, "num_leaves": TRAIN_LEAVES,
                  "max_bin": 255, "learning_rate": 0.1, "metric": "l2",
                  "verbosity": -1}
-LINEAR_ITERS = 10
+LINEAR_ITERS = 5
 LINEAR_CONTINUED = 2
 LINEAR_ROUTE = "path=physical fused=1 tail=kernel (linear_tree)"
 LINEAR_PARITY_TREES = 2
@@ -6163,7 +6184,7 @@ LINEAR_PARITY_LEAVES = 63
 LINEAR_PREDICT_RTOL = 1e-12
 LINEAR_PREDICT_ATOL = 1e-9
 DP_PARAMS = dict(TRAIN_PARAMS, gpu_use_dp=True)
-DP_ITERS = 10
+DP_ITERS = 5
 DP_ROUTE = "path=row_order fused=0 tail=kernel (gpu_use_dp)"
 # H100 SXM data sheet: FP64 through the tensor cores (the vector rate is
 # 34 TFLOP/s); the f64 modes' bound is taken at the higher rate
@@ -6214,7 +6235,7 @@ def linear_fields_bitwise(models_a, models_b) -> bool:
 
 
 def linear_parity(gpu: str) -> dict:
-    """The card against device="cpu" at the parity cut (10,000 x 28, 63
+    """The card against device="cpu" at the parity cut (5,000 x 28, 63
     leaves, 2 trees, so the second tree grows on the first's linear
     scores): trees equal, leaf values and the leaf models bit for bit."""
     import lightgbm_tpu_torch as lgt
@@ -6431,7 +6452,7 @@ def l2_holdout(yv: np.ndarray):
 def linear_phase(gpu: str, higgs: dict) -> tuple:
     """Slice 23's main path: linear trees at Higgs width (the main path's
     1M x 28 bins with their raw values kept, ``linear_target``'s label,
-    100,000 holdout rows, ``LINEAR_PARAMS``, 10 iterations) counted and
+    100,000 holdout rows, ``LINEAR_PARAMS``, 5 iterations) counted and
     timed by stage (``linear_fit`` cut into the moments kernel, the host
     solve and the prediction), its holdout l2 beside the constant-leaf
     twin's; ``linear_moments`` bitwise its plain version on tree 0's
@@ -6628,9 +6649,9 @@ def dp_hist_times(gpu: str, bins, vals, perm, models) -> list:
 
 def dp_phase(gpu: str, higgs: dict) -> tuple:
     """Slice 23: ``gpu_use_dp`` on the Higgs binary main path (1M x 28, 255
-    leaves, 10 iterations; route ``path=row_order`` for ``gpu_use_dp``)
+    leaves, 5 iterations; route ``path=row_order`` for ``gpu_use_dp``)
     counted and timed, beside its f32 row-order twin (``LGBM_TPU_PHYS=0``,
-    10 iterations); the f64 mode bitwise its plain version at B = 256 (the
+    5 iterations); the f64 mode bitwise its plain version at B = 256 (the
     main path's bins) and B = 1024 (seeded u16 bins), root and an indexed
     child; the card's trees against the CPU's at the parity cut; the f64
     mode's times in turns with the f32 mode's.  Returns (the mode's
@@ -6712,6 +6733,459 @@ def dp_phase(gpu: str, higgs: dict) -> tuple:
     return rec, summary
 
 
+# ---------------------------------------------------------------------
+# Slice 24: the parallel tree learners (tree_learner=data|voting|feature)
+# on torch.distributed, W = 2 ranks sharing the one card over gloo
+PARALLEL_RANKS = 2
+PARALLEL_ITERS = 3
+PARALLEL_PARITY_TREES = 2
+PARALLEL_TIMEOUT_S = 600
+PARALLEL_LEARNERS = {"data": {"tree_learner": "data"},
+                     "voting": {"tree_learner": "voting", "top_k": 5},
+                     "feature": {"tree_learner": "feature"}}
+# the main run's AUC against the serial kernel-tail route's at as many
+# iterations: near-ties may flip where the merged sums add in another order
+PARALLEL_AUC_SPREAD = 0.002
+
+
+def side_tail_parity(case, label: str) -> dict:
+    """The split tail's global side (``side=``, slice 24): the pool entry
+    with ``side`` bitwise its plain version on the card and on CPU
+    copies, at the side the local counts give (then also bitwise the
+    call without ``side``) and at one that flips it (the globally smaller
+    child is the locally larger: the pool takes ``h_b`` and the segments
+    still move by the local ``nleft``)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.apply_find import (TreeState, apply_find_pool,
+                                                   apply_find_pool_ref)
+    at, nl = case.at, int(case.nleft)
+    copy = lambda s: TreeState(*(a.clone() for a in s))  # noqa: E731
+    cpu = case.to("cpu")
+    # the flip: the side the local counts do not pick
+    flip = [at.cnt, at.cnt] if 2 * nl <= at.cnt else [0, at.cnt]
+    sides = {"agree": [nl, at.cnt], "flip": flip}
+    base = copy(case.st)
+    apply_find_pool(case.h_a, case.h_b, case.nleft, base, *case.args()[2:])
+    rec = {"case": label, "cnt": at.cnt, "nleft": nl}
+    outs = {}
+    for name, sv in sides.items():
+        side = torch.tensor(sv, dtype=torch.int32, device=case.nleft.device)
+        sk, sp, sc = copy(case.st), copy(case.st), copy(cpu.st)
+        apply_find_pool(case.h_a, case.h_b, case.nleft, sk, *case.args()[2:],
+                        side=side)
+        apply_find_pool_ref(case.h_a, case.h_b, case.nleft, sp,
+                            *case.args()[2:], side=side)
+        apply_find_pool_ref(cpu.h_a, cpu.h_b, cpu.nleft, sc, *cpu.args()[2:],
+                            side=side.cpu())
+        torch.cuda.synchronize()
+        rec[f"{name}_identical"] = all(torch_equal(a, b)
+                                       for a, b in zip(sk, sp))
+        rec[f"{name}_identical_cpu_plain"] = all(
+            torch_equal(a.cpu(), b) for a, b in zip(sk, sc))
+        outs[name] = sk
+    rec["agree_equals_no_side"] = all(torch_equal(a, b) for a, b in
+                                      zip(outs["agree"], base))
+    rec["flip_moves_the_pool"] = not torch_equal(outs["flip"].pool,
+                                                 base.pool)
+    rec["flip_segments_local"] = torch_equal(outs["flip"].seg, base.seg)
+    rec["ok"] = all(v for k, v in rec.items()
+                    if k.endswith(("identical", "plain", "no_side",
+                                   "pool", "local")))
+    print("parity apply_find side " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"apply_find_pool with side disagrees: {rec}")
+    return rec
+
+
+def empty_segment_cases(device) -> dict:
+    """The wrappers of the parallel learners' path on a segment empty on
+    this rank: ``fused_split``, the partition scan and ``copyback`` at
+    ``cnt = 0`` write ``nleft = 0`` and return zeros, ``hist_comb`` and
+    ``hist_rows`` at ``max_rows = 0`` return zeros, none of them
+    launching; ``hist_comb`` and ``hist_rows`` launched over a range
+    whose device count is 0 return zeros.  Counts their launches."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import empty_rows_like, init_rows
+    from lightgbm_tpu_torch.ops.fused_split import fused_split
+    from lightgbm_tpu_torch.ops.hist_kernel2 import (build_histogram_comb,
+                                                     build_histogram_rows)
+    from lightgbm_tpu_torch.ops.partition_kernel import (copyback, partition,
+                                                         partition_scan)
+    n, f, b = 4096, N_FEATURES, 256
+    gen = torch.Generator().manual_seed(24)
+    bins = torch.randint(0, 255, (n, f), generator=gen,
+                         dtype=torch.uint8).to(device)
+    rows = init_rows(bins)
+    rows.vals.copy_(torch.rand((n, 3), generator=gen).to(device))
+    scratch = empty_rows_like(rows)
+    before = [r.clone() for r in rows]
+    nleft = torch.full((1,), 7, dtype=torch.int32, device=device)
+    fns = (fused_split, partition_scan, copyback, build_histogram_comb,
+           build_histogram_rows)
+    counts0 = [fn.launches for fn in fns]
+    sel = (1000, 0, 3, 100, 0, 0, -1)
+    h2 = fused_split(rows, scratch, sel, nleft, padded_bins=b)
+    ok = {"fused_split": bool((h2 == 0).all()) and int(nleft) == 0}
+    nleft.fill_(7)
+    partition(rows, scratch, sel, nleft)
+    copyback(rows, scratch, 1000, 0)
+    ok["partition_copyback"] = int(nleft) == 0 and all(
+        torch_equal(a, c) for a, c in zip(rows, before))
+    rng3 = torch.tensor([1000, 0, 0], dtype=torch.int32, device=device)
+    ok["hist_comb_max_rows_0"] = bool((build_histogram_comb(
+        rows, rng3, padded_bins=b, max_rows=0) == 0).all())
+    vals = rows.vals[:, :2].contiguous()
+    rng2 = torch.tensor([1000, 0], dtype=torch.int32, device=device)
+    ok["hist_rows_max_rows_0"] = bool((build_histogram_rows(
+        bins, vals, rng2, padded_bins=b, max_rows=0) == 0).all())
+    no_launch = [fn.launches - c for fn, c in zip(fns, counts0)]
+    ok["no_launch"] = not any(no_launch)
+    # a launch over a range whose device count is zero
+    ok["hist_comb_count_0"] = bool((build_histogram_comb(
+        rows, rng3, padded_bins=b, max_rows=2048) == 0).all())
+    ok["hist_rows_count_0"] = bool((build_histogram_rows(
+        bins, vals, rng2, padded_bins=b, max_rows=2048) == 0).all())
+    torch.cuda.synchronize()
+    rec = {"cases": ok, "ok": all(ok.values())}
+    print("parity empty segments " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"a wrapper mishandles an empty segment: {rec}")
+    return rec
+
+
+def nccl_world_one(device) -> dict:
+    """A world-size-1 NCCL group through ``parallel.collectives.Comm`` on
+    device tensors: every collective the learners make runs once through
+    NCCL on the card, each result the input's (W = 1).  NCCL across
+    several ranks needs a card a rank: unverified on this machine."""
+    import torch
+    import torch.distributed as dist
+
+    from lightgbm_tpu_torch.parallel import Comm
+    port = _free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        comm = Comm(device=device)
+        h = torch.rand((N_FEATURES, 256, 2), device=device)
+        rows = torch.rand((2, 10), device=device)
+        nl = torch.tensor([5], dtype=torch.int32, device=device)
+        checks = {
+            "backend": comm.backend, "staged": comm.staged,
+            "all_gather": torch_equal(comm.all_gather(h)[0], h),
+            "all_to_all": torch_equal(comm.all_to_all([h])[0], h),
+            "allreduce_sum": torch_equal(comm.allreduce_sum(h), h),
+            "reduce_scatter": torch_equal(comm.reduce_scatter(h), h),
+            "full_merge": torch_equal(comm.full_merge(h), h),
+            "elect": torch_equal(comm.elect(rows), rows),
+            "counts": comm.counts(nl, 9).tolist() == [5, 9],
+            "gather_rows": torch_equal(comm.gather_rows(rows, 10), rows)}
+        # W = 1 returns without a collective where it can; these run one
+        dist.all_reduce(h)
+        dist.all_to_all([torch.empty_like(h)], [h])
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    checks["ok"] = checks["backend"] == "nccl" and not checks["staged"] and \
+        all(v for k, v in checks.items()
+            if k not in ("backend", "staged"))
+    print("parallel nccl world 1 " + json.dumps(checks), flush=True)
+    if not checks["ok"]:
+        raise RuntimeError(f"NCCL collectives at W = 1 failed: {checks}")
+    return checks
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+_PAR_DATA = {}
+
+
+def _parallel_data(rows: int):
+    """The main path's rows (``make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS,
+    28, seed=0)``): the first ``rows`` binned at ``max_bin`` 255, and the
+    holdout's raw rows and labels; binned once a rank process."""
+    import lightgbm_tpu_torch as lgt
+    if rows not in _PAR_DATA:
+        x_all, y_all = make_higgs_like(TRAIN_ROWS + HOLDOUT_ROWS, N_FEATURES,
+                                       seed=0)
+        ds = lgt.Dataset(x_all[:rows], label=y_all[:rows],
+                         params={"max_bin": 255}).construct()
+        _PAR_DATA[rows] = (ds, x_all[TRAIN_ROWS:], y_all[TRAIN_ROWS:])
+    return _PAR_DATA[rows]
+
+
+def _parallel_job(job: dict) -> dict:
+    """One training of a rank (``parallel_phase``'s jobs): returns its
+    model text, route, collectives and, for a counted main run, its
+    kernel launches, s / iteration, stages and holdout AUC."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.metric.metrics import _weighted_auc
+    from lightgbm_tpu_torch.ops.grow import StageTimer
+    ds, xv, yv = _parallel_data(job["rows"])
+    dev = job["device"]
+    counted = counted_training_kernels()
+    its = []
+
+    def _tick(env_):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        its.append(time.perf_counter())
+    timer = StageTimer(enabled=job["count"])
+    with route_env(job["env"]):
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        bst = lgt.train(job["params"], ds, num_boost_round=job["iters"],
+                        callbacks=[_tick], device=dev, timer=timer)
+        launches = {fn.__name__: fn.launches for fn in counted}
+    inner = bst._inner
+    models = bst._models
+    splits = sum(t.num_leaves - 1 for t in models)
+    out = {"text": bst.model_to_string(), "route": inner.route.describe(),
+           "trees": len(models), "splits": splits,
+           "collectives": inner.comm.calls,
+           "bytes_sent": inner.comm.bytes_sent}
+    if job["count"]:
+        per_it = np.diff([t0] + its)
+        expect = expected_launches(inner.grow.route, len(models), splits)
+        out.update(
+            launches={k: v for k, v in launches.items() if v},
+            launches_expected={k: v for k, v in expect.items() if v},
+            launches_ok=all(launches[k] == v for k, v in expect.items()),
+            s_per_iter=[float(v) for v in per_it],
+            stage_ms_per_tree={k: v / len(models)
+                               for k, v in timer.totals_ms().items()},
+            holdout_auc=_weighted_auc(yv, bst.predict(xv, raw_score=True),
+                                      None),
+            merged_hist_bytes=inner.dd.num_features * inner.dd.padded_bins
+            * 2 * 4,
+            rows_on_rank=inner.dd.num_data)
+    return out
+
+
+def _parallel_rank(rank: int, world: int, port: int, jobs, queue) -> None:
+    """A rank of the parallel phase (spawned; module level): join the
+    gloo group and run ``jobs`` in order, then put ``(rank, results)``."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    import lightgbm_tpu_torch as lgt
+    torch.set_num_threads(4)
+    lgt.set_verbosity(-1)
+    out = {}
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S))
+        for job in jobs:
+            t0 = time.perf_counter()
+            out[job["label"]] = _parallel_job(job)
+            out[job["label"]]["seconds"] = time.perf_counter() - t0
+    except Exception:   # noqa: BLE001 - reported to the parent
+        out["error"] = traceback.format_exc()
+    finally:
+        queue.put((rank, out))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(world: int, jobs: list, timeout: float) -> list:
+    """``jobs`` on ``world`` spawned ranks; each rank's results in rank
+    order.  Every rank still alive at ``timeout`` is killed."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_parallel_rank,
+                         args=(r, world, port, jobs, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) < world:
+            r, res = queue.get(timeout=max(deadline - time.monotonic(), 1))
+            got[r] = res
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    for r in range(world):
+        if "error" in got[r]:
+            raise RuntimeError(f"parallel rank {r} failed:\n{got[r]['error']}")
+    return [got[r] for r in range(world)]
+
+
+def parallel_phase(gpu: str, higgs: dict) -> dict:
+    """Slice 24: the tail's global side against its plain version and the
+    empty-segment wrappers in this process; then W = 2 ranks spawned on
+    the one card over gloo (the kernels already built): ``tree_learner=
+    data`` on the main path's 1M x 28 rows, 255 leaves, ``max_bin`` 255,
+    3 iterations with the reduce-scatter merge (counted on rank 0) and
+    with the full merge (``LGBM_TPU_HIST_SCATTER=0``); at
+    ``PARITY_ROWS`` x ``PARITY_CUT_LEAVES`` the card's ``data``,
+    ``voting`` (``top_k`` 5) and ``feature`` trees against the same
+    2-rank run on the CPU; then a world-size-1 NCCL group.  Gates: every
+    rank's model text the same, the full merge's the reduce-scatter's,
+    card = CPU bit for bit, the launch counts, the holdout AUC within
+    ``PARALLEL_AUC_SPREAD`` of the serial kernel-tail route's at 3
+    iterations.  Prints ``parallel {...}``."""
+    import torch
+
+    from lightgbm_tpu_torch.tools.profile_apply_find import synthetic_split
+    side = [side_tail_parity(synthetic_split(f, b, seed=f + b,
+                                             device="cuda"),
+                             f"{f}x{b}")
+            for f, b in ((N_FEATURES, 256), (N_FEATURES, 1024), (136, 256))]
+    split = split_state_case()
+    side.append(side_tail_parity(split, "root split of 20,000 seeded rows"))
+    empty = empty_segment_cases(torch.device("cuda"))
+    lap("parallel/side and empty segments")
+    base = dict(TRAIN_PARAMS, verbosity=-1)
+    main = dict(rows=TRAIN_ROWS, iters=PARALLEL_ITERS, device="cuda",
+                count=True, params=dict(base, tree_learner="data"))
+    # the full merge first: it bins the rows and warms the ranks, so the
+    # counted reduce-scatter run is timed warm
+    jobs = [dict(main, label="full", env={"LGBM_TPU_HIST_SCATTER": "0"},
+                 count=False),
+            dict(main, label="scatter", env={})]
+    for name, lp in PARALLEL_LEARNERS.items():
+        for dev in ("cuda", "cpu"):
+            jobs.append(dict(label=f"{name}_{dev}", rows=PARITY_ROWS,
+                             iters=PARALLEL_PARITY_TREES, device=dev,
+                             count=dev == "cuda", env={},
+                             params=dict(base, num_leaves=PARITY_CUT_LEAVES,
+                                         **lp)))
+    # the unfused data route (the scan and copyback, hist_comb a child)
+    for dev in ("cuda", "cpu"):
+        data = next(j for j in jobs if j["label"] == f"data_{dev}")
+        jobs.append(dict(data, label=f"data_unfused_{dev}",
+                         env={"LGBM_TPU_FUSED": "0"}))
+    t0 = time.perf_counter()
+    ranks = run_ranks(PARALLEL_RANKS, jobs, timeout=PARALLEL_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    lap("parallel/ranks")
+    same = {j["label"]: all(r[j["label"]]["text"] == ranks[0][j["label"]]
+                            ["text"] for r in ranks) for j in jobs}
+    r0 = ranks[0]
+    sc, full = r0["scatter"], r0["full"]
+    parity = {name: r0[f"{name}_cuda"]["text"] == r0[f"{name}_cpu"]["text"]
+              for name in list(PARALLEL_LEARNERS) + ["data_unfused"]}
+    counted = [j["label"] for j in jobs if j["count"]]
+    twin_auc = _weighted_auc_np(higgs["yv"], higgs["bst"].predict(
+        higgs["xv"], raw_score=True, num_iteration=PARALLEL_ITERS))
+    splits = sc["splits"]
+    per_it = sc["s_per_iter"]
+    nccl = nccl_world_one(torch.device("cuda"))
+    rec = {"ranks": PARALLEL_RANKS, "backend": "gloo (pinned host staging)",
+           "rows_per_rank": [r["scatter"]["rows_on_rank"] for r in ranks],
+           "route": sc["route"], "route_full": full["route"],
+           "routes_parity": {n: r0[f"{n}_cuda"]["route"]
+                             for n in PARALLEL_LEARNERS},
+           "same_text_every_rank": same,
+           "full_equals_scatter": sc["text"] == full["text"],
+           "card_equals_cpu": parity,
+           # the unfused smaller child sums its rows in the geometry of
+           # the local segment's bound, the fused split in that of half
+           # of it: the same trees up to the order of f32 additions
+           "unfused_bitwise_fused": (r0["data_unfused_cuda"]["text"]
+                                     == r0["data_cuda"]["text"]),
+           "s_per_iter": per_it,
+           "s_per_iter_rest_mean": float(np.mean(per_it[1:])),
+           "s_per_iter_note": "both ranks share the one card",
+           "stage_ms_per_tree": sc["stage_ms_per_tree"],
+           "collective_ms_per_tree": sc["stage_ms_per_tree"].get(
+               "collective", 0.0),
+           "holdout_auc": sc["holdout_auc"],
+           "serial_kernel_tail_auc": twin_auc,
+           "auc_delta": sc["holdout_auc"] - twin_auc,
+           "splits": splits,
+           "collectives_per_split": sc["collectives"] / splits,
+           "bytes_sent_per_split": sc["bytes_sent"] / splits,
+           "merged_hist_bytes": sc["merged_hist_bytes"],
+           "collectives_per_split_full": full["collectives"] / splits,
+           "bytes_sent_per_split_full": full["bytes_sent"] / splits,
+           "launches": sc["launches"],
+           "launches_expected": sc["launches_expected"],
+           "parity_launches": {lb: r0[lb]["launches"] for lb in counted
+                               if lb != "scatter"},
+           "parity_routes": {lb: r0[lb]["route"] for lb in counted},
+           "parity_rows": PARITY_ROWS, "parity_leaves": PARITY_CUT_LEAVES,
+           "parity_trees": PARALLEL_PARITY_TREES,
+           "seconds": {j["label"]: r0[j["label"]]["seconds"] for j in jobs},
+           "ranks_s": ranks_s, "side_tail": side, "empty_segments": empty,
+           "nccl_world_1": nccl, "gpu": gpu}
+    print("parallel " + json.dumps(rec), flush=True)
+    fails = [k for k, v in same.items() if not v]
+    if fails:
+        raise RuntimeError(f"the ranks' model texts differ: {fails}")
+    if not rec["full_equals_scatter"]:
+        raise RuntimeError("the full merge's trees differ from the "
+                           "reduce-scatter merge's")
+    if not all(parity.values()):
+        raise RuntimeError(f"card != CPU on the parallel learners: {parity}")
+    for lb in counted:
+        if not r0[lb]["launches_ok"]:
+            raise RuntimeError(f"the parallel run {lb} launched "
+                               f"{r0[lb]['launches']}, expected "
+                               f"{r0[lb]['launches_expected']}")
+    if abs(rec["auc_delta"]) > PARALLEL_AUC_SPREAD:
+        raise RuntimeError(f"the data learner's holdout AUC "
+                           f"{sc['holdout_auc']} is more than "
+                           f"{PARALLEL_AUC_SPREAD} from the serial route's "
+                           f"{twin_auc}")
+    return rec
+
+
+def _weighted_auc_np(y, raw) -> float:
+    from lightgbm_tpu_torch.metric.metrics import _weighted_auc
+    return float(_weighted_auc(y, raw, None))
+
+
+def split_state_case():
+    """A real split on the card as a tail case: the root of 20,000 seeded
+    rows x 8 features (10 % NaN), its best split applied
+    (``split_state``)."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.device_data import init_rows, to_device
+    from lightgbm_tpu_torch.ops.grow import SerialGrower, StreamSpec
+    from lightgbm_tpu_torch.ops.routing import RouteInputs, decide
+    from lightgbm_tpu_torch.ops.split import SplitHyperParams
+    from lightgbm_tpu_torch.tools.profile_apply_find import TailCase
+    x, y = make_higgs_like(20_000, 8, seed=4)
+    x[np.random.default_rng(4).random(x.shape) < 0.1] = np.nan
+    dd = to_device(lgt.Dataset(x, label=y).construct()._binned,
+                   torch.device("cuda"))
+    grower = SerialGrower(SplitHyperParams(), num_leaves=31, max_depth=-1,
+                          dd=dd, route=decide(RouteInputs()),
+                          stream=StreamSpec("binary", 1.0))
+    rows = init_rows(dd.bins)
+    rows.vals.copy_(torch.as_tensor(random_row_matrix(20_000, 1, 6)[1],
+                                    device=dd.device))
+    st, pair, nleft, fmask, at = split_state(grower, rows)
+    return TailCase(pair[0], pair[1], nleft, st, grower.finder, fmask,
+                    grower.hp, grower.max_depth, at)
+
+
 _CLOCK = [time.perf_counter()]
 
 
@@ -6782,6 +7256,8 @@ def main() -> int:
     lap("linear trees")
     dp_rec, dp = dp_phase(gpu, higgs)
     lap("gpu_use_dp")
+    par = parallel_phase(gpu, higgs)
+    lap("parallel")
     # the launches of the multiclass, sampling, ranking and split-option
     # routes, and of the pack=2 parity runs
     mc, mc2 = (objectives["multiclass"]["launches"],
@@ -6815,6 +7291,10 @@ def main() -> int:
             k["linear_launches"] = linear["launches"][key]
         if dp["launches"].get(key):
             k["gpu_use_dp_launches"] = dp["launches"][key]
+        if par["launches"].get(key):
+            k["parallel_launches"] = par["launches"][key]
+        if k["name"] == "apply_find":
+            k["side_parity"] = par["side_tail"]
     kernels += [linear_rec, dp_rec]
     kernels += probes
     if not analysis["checked_in_report_current"]:

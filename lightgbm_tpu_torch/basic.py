@@ -18,14 +18,17 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 from .config import Config
 from .io.dataset_core import BinnedDataset
 from .metric import create_metrics
 from .models import GBDT, create_boosting
+from .models.gbdt import check_supported
 from .models.model_text import (load_model_from_string, loaded_param_string,
                                 save_model_to_string)
 from .objective import create_objective
+from .parallel import MESH_LEARNERS, Network, rank_device
 from .utils import log
 from .utils.device import resolve_device
 from .utils.log import LightGBMError
@@ -168,6 +171,14 @@ class Booster:
                 raise TypeError("Training data should be Dataset instance")
             train_set._update_params(self.params).construct()
             cfg = Config.from_params(self.params)
+            check_supported(cfg)
+            if (cfg.tree_learner in MESH_LEARNERS
+                    and self.device.type == "cuda"
+                    and torch.device(device).index is None):
+                # a parallel learner's rank trains on its own card
+                # (parallel/network.py): the group first, then the card
+                Network.init(cfg, device=self.device)
+                self.device = rank_device(torch.device("cuda"))
             objective = create_objective(cfg)
             metrics = (create_metrics(cfg)
                        if cfg.is_provide_training_metric else [])

@@ -52,6 +52,10 @@ ENV_KNOBS: Dict[str, tuple] = {
     "LGBM_TPU_POOL_TAIL": ("1", "0 disables the pool-resident "
                                 "apply+find kernel (the pool ops run in "
                                 "PyTorch, then the plain-pool kernel)"),
+    "LGBM_TPU_HIST_SCATTER": ("1", "0 merges the data-parallel learner's "
+                                   "histograms whole on every rank "
+                                   "instead of reduce-scattering them by "
+                                   "feature chunk (the same bits)"),
     "LGBM_TPU_COMB_PACK": ("1", "2 keeps each row as one record of its "
                                 "bins and fields (64 bytes at 28 features) "
                                 "and runs the route's pack=2 kernels where "

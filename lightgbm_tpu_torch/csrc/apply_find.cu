@@ -6,7 +6,11 @@
 // :571); apply_find replaces make_apply_find (:529), the same body with
 // both children's histograms given and no pool.  With the pool:
 //   1. the smaller child is the left one when nleft * 2 <= cnt (nleft is
-//      read from device memory); its histogram is ha or hb accordingly
+//      read from device memory), or, given the split's global side
+//      (side = (nl_g, cnt_g), the counts summed over the ranks of a
+//      parallel learner, ops/apply_find.py), when nl_g * 2 <= cnt_g; the
+//      segments move by the local nleft and cnt either way; its
+//      histogram is ha or hb accordingly
 //      (the fused split passes its left / right pair, the unfused route
 //      its one smaller-child histogram twice); h_left = small_left ?
 //      h_small : parent - h_small, h_right = parent - h_left, and both
@@ -96,6 +100,7 @@ struct Args {
   const float* ha;      // pool: the smaller child's histogram if the left
   const float* hb;      //   one is smaller / if not; else h_left, h_right
   const int* nleft;
+  const int* side;      // pool: (nl_g, cnt_g) or null (the local test)
   float* best;          // [L, 10]
   float* lstate;        // [L, 8]
   float* nodes;         // [L - 1, 4]
@@ -317,7 +322,9 @@ __device__ __forceinline__ void tail(const Args& a) {
     parent[threadIdx.x] = a.lstate[(size_t)a.leaf * 8 + threadIdx.x - 10];
   }
   const int nl = *a.nleft;
-  const bool small_left = 2LL * nl <= (long long)a.cnt;
+  const bool small_left = a.side != nullptr
+                              ? 2LL * a.side[0] <= (long long)a.side[1]
+                              : 2LL * nl <= (long long)a.cnt;
   const size_t g0 = (size_t)f0 * B;        // this block's first cell
   const size_t FB = (size_t)F * B;
   const float2* ha = reinterpret_cast<const float2*>(a.ha) + g0;
@@ -639,16 +646,17 @@ int occupancy(int smem, int blocks) {
 }
 
 Args make_args(float* pool, const float* ha, const float* hb,
-               const int* nleft, float* best, float* lstate, float* nodes,
-               int* seg, const float* consts, const float* fmask,
+               const int* nleft, const int* side, float* best,
+               float* lstate, float* nodes, int* seg, const float* consts,
+               const float* fmask,
                const int* mono, const float* pen, int F, int B, int leaf,
                int right, int node, int s0, int cnt, int done, int blocks,
                int fpb, int max_depth, int pen_len, float l1, float l2,
                float min_data, float min_hess, float min_gain, float mds,
                float ps, int smooth) {
-  return Args{pool, ha, hb, nleft, best, lstate, nodes, seg, consts, fmask,
-              mono, pen, F, B, leaf, right, node, s0, cnt, done, blocks, fpb,
-              pen_len,
+  return Args{pool, ha, hb, nleft, side, best, lstate, nodes, seg, consts,
+              fmask, mono, pen, F, B, leaf, right, node, s0, cnt, done,
+              blocks, fpb, pen_len,
               HP{l1, l2, min_data, min_hess, min_gain, mds, ps, smooth,
                  max_depth}};
 }
@@ -677,7 +685,8 @@ int apply_find_max_clusters(int pool, int F, int B, int blocks, int fpb,
 }
 
 // The pool entry: ha / hb the smaller child's histogram candidates
-// (left-smaller / right-smaller), pool [L, F, B, 2] updated in place;
+// (left-smaller / right-smaller), side the split's global (nl_g, cnt_g)
+// or null (the local nleft * 2 <= cnt), pool [L, F, B, 2] updated in place;
 // one cluster of `blocks` blocks of `fpb` features.  mono != 0 launches
 // the monotone instantiation with the signs `mono_s` [F] and the depth
 // penalty table `pen` [pen_len] (all 1.0 without a penalty).  Every pointer
@@ -685,8 +694,8 @@ int apply_find_max_clusters(int pool, int F, int B, int blocks, int fpb,
 // cudaErrorInvalidValue for a geometry that misses a feature or does not
 // fit, or a monotone launch without its constants).
 int apply_find_pool(float* pool, const float* ha, const float* hb,
-                    const int* nleft, float* best, float* lstate,
-                    float* nodes, int* seg, const float* consts,
+                    const int* nleft, const int* side, float* best,
+                    float* lstate, float* nodes, int* seg, const float* consts,
                     const float* fmask, const int* mono_s, const float* pen,
                     int F, int B, int leaf, int right, int node, int s0,
                     int cnt, int done, int blocks, int fpb, int max_depth,
@@ -694,9 +703,9 @@ int apply_find_pool(float* pool, const float* ha, const float* hb,
                     float min_hess, float min_gain, float mds, float ps,
                     int smooth, int mono, void* stream) {
   return launch<true>(
-      make_args(pool, ha, hb, nleft, best, lstate, nodes, seg, consts, fmask,
-                mono_s, pen, F, B, leaf, right, node, s0, cnt, done, blocks,
-                fpb, max_depth, pen_len, l1, l2, min_data, min_hess,
+      make_args(pool, ha, hb, nleft, side, best, lstate, nodes, seg, consts,
+                fmask, mono_s, pen, F, B, leaf, right, node, s0, cnt, done,
+                blocks, fpb, max_depth, pen_len, l1, l2, min_data, min_hess,
                 min_gain, mds, ps, smooth),
       mono, stream);
 }
@@ -711,9 +720,9 @@ int apply_find(const float* h_left, const float* h_right, const int* nleft,
                float min_hess, float min_gain, float mds, float ps,
                int smooth, int mono, void* stream) {
   return launch<false>(
-      make_args(nullptr, h_left, h_right, nleft, best, lstate, nodes, seg,
-                consts, fmask, mono_s, pen, F, B, leaf, right, node, s0, cnt,
-                done, blocks, fpb, max_depth, pen_len, l1, l2, min_data,
+      make_args(nullptr, h_left, h_right, nleft, nullptr, best, lstate, nodes,
+                seg, consts, fmask, mono_s, pen, F, B, leaf, right, node, s0,
+                cnt, done, blocks, fpb, max_depth, pen_len, l1, l2, min_data,
                 min_hess, min_gain, mds, ps, smooth),
       mono, stream);
 }

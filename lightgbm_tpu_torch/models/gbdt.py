@@ -63,6 +63,18 @@ last iteration's trees: the scores from before that iteration are kept
 (one copy), so rolling it back restores them bit for bit; an older
 iteration's trees are subtracted, as LightGBM does.
 
+Under a parallel learner (``tree_learner=data|voting|feature``,
+``parallel/``; one process a rank) the booster opens the rank's
+collectives (``parallel.mesh_comm``; a group of one rank trains
+serially), keeps its block of rows on the device under the data and
+voting learners (every row under the feature learner), initialises the
+objective on those rows after taking the ``boost_from_average`` score
+from the whole dataset, and hands the grower the learner's merge points;
+the training metrics read the ranks' scores gathered in rank order
+(:meth:`GBDT.eval`).  The parameter values the parallel learners do not
+train yet raise ``LightGBMError`` naming ROADMAP A10
+(:func:`mesh_refusals`).
+
 Unlike the JAX package, trees are finalized synchronously, so an
 iteration in which no class's tree can split stops training at once
 (the reference's synchronous behaviour).  Parameters the port does not
@@ -75,12 +87,16 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+import copy
+
+from .. import parallel
 from ..config import Config, env_knob
 from ..io.binning import BinType
 from ..io.dataset_core import BinnedDataset
 from ..metric import Metric
 from ..models.constraints import build_grow_constraints
 from ..models.model_text import feature_infos
+from ..objective import canonical_objective
 from ..objective.base import ObjectiveFunction
 from ..objective.regression import renew_leaf_values
 from ..ops.device_data import DeviceDataset, to_device
@@ -139,13 +155,54 @@ def check_pack_conflicts(cfg: Config) -> None:
                   "kernel; unset LGBM_TPU_PART=3ph")
 
 
+# the objectives the parallel learners train (canonical names)
+MESH_OBJECTIVES = ("binary", "regression", "multiclass", "multiclassova")
+
+
+def mesh_refusals(cfg: Config) -> List[str]:
+    """The parameter values of ``cfg`` that a parallel learner does not
+    train yet (ROADMAP A10's remainder): every one the serial port trains
+    beyond the binary, l2 and multiclass objectives with ``gbdt``
+    boosting.  The sorted-subset categorical search, which depends on the
+    data, is refused in :class:`GBDT`."""
+    out = []
+    obj = canonical_objective(cfg.objective)
+    if obj not in MESH_OBJECTIVES:
+        out.append(f"objective={cfg.objective}")
+    if cfg.boosting.strip().lower() not in ("gbdt", "gbrt"):
+        out.append(f"boosting={cfg.boosting}")
+    if bagging_on(cfg):
+        out.append("bagging")
+    flags = (("linear_tree", cfg.linear_tree), ("gpu_use_dp", cfg.gpu_use_dp),
+             ("is_unbalance", cfg.is_unbalance),
+             ("monotone_constraints", any(int(v) for v in
+                                          cfg.monotone_constraints)),
+             ("CEGB", cfg.cegb_penalty_split > 0.0
+              or bool(cfg.cegb_penalty_feature_coupled)
+              or bool(cfg.cegb_penalty_feature_lazy)),
+             ("forced splits", bool(cfg.forcedsplits_filename)),
+             ("interaction_constraints",
+              bool(cfg.interaction_constraints.strip())),
+             ("feature_fraction_bynode", cfg.feature_fraction_bynode < 1.0),
+             ("extra_trees", cfg.extra_trees),
+             ("LGBM_TPU_COMB_PACK=2", env_knob("LGBM_TPU_COMB_PACK") == "2"),
+             ("LGBM_TPU_PART=3ph", env_knob("LGBM_TPU_PART") == "3ph"),
+             ("the hybrid data x feature mesh",
+              len(parallel.mesh.parse_mesh_axes(cfg.tpu_mesh_axes)) > 1))
+    return out + [name for name, on in flags if on]
+
+
 def check_supported(cfg: Config) -> None:
     """Raise for the pack conflicts and for every parameter the port does
-    not have yet."""
+    not have yet (under a parallel learner: :func:`mesh_refusals`).  A
+    serial learner trains serially whatever ``num_machines`` says, as
+    LightGBM's does."""
     check_pack_conflicts(cfg)
-    if cfg.tree_learner != "serial" or cfg.num_machines > 1:
-        _unported(f"tree_learner={cfg.tree_learner} (the mesh learners)",
-                  "A10")
+    if cfg.tree_learner != "serial":
+        refused = mesh_refusals(cfg)
+        if refused:
+            _unported(f"tree_learner={cfg.tree_learner} with "
+                      f"{', '.join(refused)}", "A10")
     if cfg.pre_partition:
         _unported("pre_partition (paged / distributed data)", "A11")
 
@@ -171,6 +228,27 @@ def uses_cat_subset(cfg: Config, ds: BinnedDataset) -> bool:
     more bins than ``max_cat_to_onehot``."""
     return any(m.bin_type == BinType.CATEGORICAL
                and m.num_bins > cfg.max_cat_to_onehot for m in ds.mappers)
+
+
+def row_block_dataset(ds: BinnedDataset, lo: int, hi: int) -> BinnedDataset:
+    """The rows ``[lo, hi)`` of ``ds``: its bins, raw values and
+    metadata (labels, weights, each class's init scores) sliced, the
+    mappers shared."""
+    out = copy.copy(ds)
+    out.bin_matrix = ds.bin_matrix[lo:hi]
+    if ds.raw_matrix is not None:
+        out.raw_matrix = ds.raw_matrix[lo:hi]
+    md = copy.copy(ds.metadata)
+    n = ds.num_data
+    for name in ("label", "weight"):
+        v = getattr(md, name)
+        if v is not None:
+            setattr(md, name, v[lo:hi])
+    if md.init_score is not None:
+        md.init_score = md.init_score.reshape(-1, n)[:, lo:hi].reshape(-1)
+    md.num_data = hi - lo
+    out.metadata = md
+    return out
 
 
 def _init_scores(md, k: int, n: int, device) -> torch.Tensor:
@@ -217,6 +295,26 @@ class GBDT:
         check_supported(config)
         self.config = config
         self.train_set = train_set
+        # a parallel learner's collectives (None: serial training)
+        self.comm = (parallel.mesh_comm(config, device)
+                     if config.tree_learner in parallel.MESH_LEARNERS
+                     else None)
+        learner = "serial" if self.comm is None else config.tree_learner
+        self._rows_sharded = learner in ("data", "voting")
+        local = train_set
+        self._boost_init = None
+        if self._rows_sharded:
+            lo, hi = parallel.row_block(train_set.num_data, self.comm.rank,
+                                        self.comm.world)
+            if hi <= lo:
+                raise LightGBMError(
+                    f"rank {self.comm.rank} of {self.comm.world} gets no row "
+                    f"of {train_set.num_data}")
+            local = row_block_dataset(train_set, lo, hi)
+            if objective is not None:
+                # the whole data's init score, then the rank's rows
+                self._boost_init = objective.boost_from_score()
+                objective.init(local.metadata, local.num_data, device)
         self.objective = objective
         self.device = device
         self.models: List[Tree] = []
@@ -234,6 +332,9 @@ class GBDT:
         self.timer = timer or StageTimer()
         cfg = config
         subset = uses_cat_subset(cfg, train_set)
+        if subset and cfg.tree_learner in parallel.MESH_LEARNERS:
+            _unported(f"tree_learner={cfg.tree_learner} with sorted-subset "
+                      "categorical splits", "A10")
         if subset:
             log.info("sorted-subset categorical search enabled (a "
                      "categorical feature exceeds max_cat_to_onehot=%d); "
@@ -256,7 +357,7 @@ class GBDT:
         self.grow_options = opts = opts._replace(
             bynode_count=bynode_count(cfg, train_set),
             bynode_seed=cfg.feature_fraction_seed, extra_seed=cfg.extra_seed)
-        self.dd: DeviceDataset = to_device(train_set, device)
+        self.dd: DeviceDataset = to_device(local, device)
         dd = self.dd
         kind = getattr(objective, "STREAM_KIND", None)
         self.route = decide(resolve_layout(inputs_from_env(
@@ -267,7 +368,9 @@ class GBDT:
             bagging=bagging_on(cfg),
             linear_tree=bool(cfg.linear_tree),
             gpu_use_dp=bool(cfg.gpu_use_dp),
-            learner=cfg.tree_learner,
+            learner=learner,
+            features_per_rank=(self.comm is None
+                               or dd.num_features >= self.comm.world),
             bins_u8=dd.bins.dtype == torch.uint8, cat_subset=subset,
             mono_intermediate=self.hp.use_monotone
             and self.hp.mono_intermediate,
@@ -279,13 +382,16 @@ class GBDT:
             fused_ok=fused_supported(dd.num_features, dd.padded_bins),
             tail_ok=apply_find_supported(dd.num_features, dd.padded_bins)),
             num_features=dd.num_features, padded_bins=dd.padded_bins))
+        merge = (None if self.comm is None else parallel.make_merge(
+            learner, self.comm, dd, scatter=self.route.hist_merge == "scatter",
+            hp=self.hp, top_k=cfg.top_k, timer=self.timer))
         if not self.route.physical:
             histogram_impl()     # raises for a knob value with no kernel
             self.grow = RowOrderGrower(self.hp, num_leaves=cfg.num_leaves,
                                        max_depth=cfg.max_depth, dd=dd,
                                        route=self.route, timer=self.timer,
                                        monotone=monotone, options=opts,
-                                       dp=bool(cfg.gpu_use_dp))
+                                       dp=bool(cfg.gpu_use_dp), merge=merge)
         else:
             stream = (StreamSpec(kind,
                                  float(getattr(objective, "sigmoid", 1.0)))
@@ -294,14 +400,14 @@ class GBDT:
                                      max_depth=cfg.max_depth, dd=dd,
                                      route=self.route, stream=stream,
                                      timer=self.timer, monotone=monotone,
-                                     options=opts)
+                                     options=opts, merge=merge)
             if self.route.stream:
                 self.grow.set_stream_aux(self._stream_aux)
         for rule in loud_rules(self.route):
             log.warning("routing: %s takes the %s path (%s)", rule.name,
                         self.route.path, rule.reason)
-        n = train_set.num_data
-        md = train_set.metadata
+        n = local.num_data
+        md = local.metadata
         # linear trees (JAX gbdt.py:514-531): the raw values on the
         # device once, and the features categorical splits leave out
         self._raw: Optional[torch.Tensor] = None
@@ -342,7 +448,7 @@ class GBDT:
         self._label_pos = (None if md.label is None
                            else torch.as_tensor(md.label > 0, device=device))
         for m in self._train_metrics:
-            m.init(md, n)
+            m.init(train_set.metadata, train_set.num_data)
         pack_note = (f"; LGBM_TPU_COMB_PACK=2 trains pack=1 "
                      f"({', '.join(self.route.pack_reasons)})"
                      if self.route.pack_reasons else "")
@@ -539,8 +645,9 @@ class GBDT:
         init_scores = np.zeros(k)
         if (not self.models and not self._has_init_score
                 and self.config.boost_from_average):
-            init_scores = np.array(self.objective.boost_from_score(),
-                                   dtype=np.float64).reshape(k)
+            init_scores = np.array(
+                self.objective.boost_from_score() if self._boost_init is None
+                else self._boost_init, dtype=np.float64).reshape(k)
             if np.any(np.abs(init_scores) > 1e-35):
                 add = torch.as_tensor(init_scores, dtype=torch.float32,
                                       device=dev)[:, None]
@@ -673,6 +780,9 @@ class GBDT:
         validation replay and rollback."""
         if self.models:
             log.fatal("set_init_model must be called before training starts")
+        if self.comm is not None:
+            _unported("init_model under tree_learner="
+                      f"{self.config.tree_learner}", "A10")
         if self._raw is None and any(t.is_linear for t in trees):
             log.fatal("init_model contains linear trees; pass "
                       "linear_tree=true so the dataset keeps raw values")
@@ -777,7 +887,11 @@ class GBDT:
                 for name, v, hb in m.eval(prob, raw_np):
                     out.append((ds_name, name, v, hb))
 
-        run(self._train_metrics, self.scores, "training")
+        train = self.scores
+        if self._train_metrics and self._rows_sharded:
+            # every rank's rows, in rank order
+            train = self.comm.gather_rows(self.scores, self.train_set.num_data)
+        run(self._train_metrics, train, "training")
         for vs in self.valid_sets:
             run(vs.metrics, vs.scores, vs.name)
         return out

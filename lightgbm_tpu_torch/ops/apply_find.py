@@ -40,6 +40,17 @@ hold them.  On the card this is the kernel's second instantiation
 (``apply_find_mono_kernel``), chosen under ``hp.use_monotone``; the
 unconstrained one is unchanged.
 
+Under a parallel learner (``parallel/``) the pool entry takes the
+split's global side: ``side`` (i32 [2] on the device, ``(nl_g, cnt_g)``,
+the left child's and the leaf's rows summed over the ranks) picks the
+smaller child by ``nl_g * 2 <= cnt_g`` while the segments still move by
+the rank's own ``nleft`` and ``cnt``; without it the test is the local
+``nleft * 2 <= cnt``, bit for bit the serial tail.  Under the
+reduce-scatter merge the pool, the finder's constants and the mask hold
+the rank's feature chunk only, so the kernel runs at ``F_r`` features
+and its winners' feature indices are the chunk's (the grower shifts and
+elects them).
+
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  The kernel has no
 sorted-subset categorical search, no intermediate monotone method and
@@ -216,14 +227,25 @@ def apply_find_ref(h2: torch.Tensor, nleft: torch.Tensor, st: TreeState,
     st.best[[leaf, right]] = pack_split_info(si)
 
 
+def small_is_left(nleft: torch.Tensor, cnt: int,
+                  side: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Whether the left child is the smaller, bool [1]: ``nleft * 2 <=
+    cnt``, or with ``side`` (``(nl_g, cnt_g)``, i32 [2]) the same test on
+    the counts summed over the ranks."""
+    if side is None:
+        return nleft * 2 <= cnt
+    return side[:1] * 2 <= side[1:]
+
+
 def pool_children(h_a: torch.Tensor, h_b: torch.Tensor, nleft: torch.Tensor,
-                  st: TreeState, at: SplitAt) -> torch.Tensor:
+                  st: TreeState, at: SplitAt,
+                  side: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The pool ops of a split: the smaller child's histogram is ``h_a``
-    when ``nleft * 2 <= cnt`` (the left child is the smaller) and ``h_b``
-    otherwise, the sibling is parent minus child; both go to the pool
-    (the left child in the parent's slot) and are returned as [2, F, B,
-    2] (left, right)."""
-    small_left = nleft * 2 <= at.cnt
+    when ``nleft * 2 <= cnt`` (the left child is the smaller; with
+    ``side``, by the global counts) and ``h_b`` otherwise, the sibling is
+    parent minus child; both go to the pool (the left child in the
+    parent's slot) and are returned as [2, F, B, 2] (left, right)."""
+    small_left = small_is_left(nleft, at.cnt, side)
     h_small = torch.where(small_left, h_a, h_b)
     h_parent = st.pool[at.leaf]
     h_left = torch.where(small_left, h_small,
@@ -238,15 +260,16 @@ def apply_find_pool_ref(h_a: torch.Tensor, h_b: torch.Tensor,
                         nleft: torch.Tensor, st: TreeState, fc: FinderConsts,
                         feature_mask: torch.Tensor, hp: SplitHyperParams,
                         max_depth: int, at: SplitAt,
-                        child: Optional[ChildSearch] = None) -> None:
+                        child: Optional[ChildSearch] = None,
+                        side: Optional[torch.Tensor] = None) -> None:
     """Plain version of the pool entry: :func:`pool_children`, then
     :func:`apply_find_ref`.  The PyTorch tail of the routes whose
     search the kernel has no mode for (``ChildSearch`` and the options
     named in the module docstring)."""
     if at.done:
         return
-    apply_find_ref(pool_children(h_a, h_b, nleft, st, at), nleft, st, fc,
-                   feature_mask, hp, max_depth, at, child)
+    apply_find_ref(pool_children(h_a, h_b, nleft, st, at, side), nleft, st,
+                   fc, feature_mask, hp, max_depth, at, child)
 
 
 def apply_find_torch_pool(h_a: torch.Tensor, h_b: torch.Tensor,
@@ -254,13 +277,14 @@ def apply_find_torch_pool(h_a: torch.Tensor, h_b: torch.Tensor,
                           fc: FinderConsts, feature_mask: torch.Tensor,
                           hp: SplitHyperParams, max_depth: int,
                           at: SplitAt,
-                          child: Optional[ChildSearch] = None) -> None:
+                          child: Optional[ChildSearch] = None,
+                          side: Optional[torch.Tensor] = None) -> None:
     """The split tail under ``LGBM_TPU_POOL_TAIL=0``: the pool ops in
     PyTorch (:func:`pool_children`), then the plain-pool entry
     :func:`apply_find` (the kernel on CUDA tensors)."""
     if at.done:
         return
-    apply_find(pool_children(h_a, h_b, nleft, st, at), nleft, st, fc,
+    apply_find(pool_children(h_a, h_b, nleft, st, at, side), nleft, st, fc,
                feature_mask, hp, max_depth, at, child)
 
 
@@ -376,7 +400,7 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # the sign vector and the penalty table, then the scalars
     tail = [p, p] + [i] * 12 + [f] * 7 + [i] * 2 + [p]
-    lib.apply_find_pool.argtypes = [p] * 10 + tail
+    lib.apply_find_pool.argtypes = [p] * 11 + tail
     lib.apply_find_pool.restype = i
     lib.apply_find.argtypes = [p] * 9 + tail
     lib.apply_find.restype = i
@@ -403,7 +427,7 @@ def max_clusters(geo: TailGeometry, num_features: int, padded_bins: int,
 
 
 def _check(h_a, h_b, nleft, st: TreeState, fc: FinderConsts,
-           feature_mask) -> TailGeometry:
+           feature_mask, side=None) -> TailGeometry:
     L, f, b, _ = st.pool.shape
     dev = st.pool.device
     want = ((st.pool, torch.float32, (L, f, b, 2)),
@@ -417,6 +441,8 @@ def _check(h_a, h_b, nleft, st: TreeState, fc: FinderConsts,
             (fc.mono, torch.int32, (f,)),
             (fc.penalty, torch.float32, (fc.penalty.numel(),)),
             (feature_mask, torch.float32, (f,)))
+    if side is not None:
+        want += ((side, torch.int32, (2,)),)
     for t, dt, shape in want:
         if (t.dtype != dt or tuple(t.shape) != shape or t.device != dev
                 or not t.is_contiguous()):
@@ -473,17 +499,19 @@ def _state_ptrs(st: TreeState) -> list:
 def launch_pool(h_a: torch.Tensor, h_b: torch.Tensor, nleft: torch.Tensor,
                 st: TreeState, fc: FinderConsts, feature_mask: torch.Tensor,
                 hp: SplitHyperParams, max_depth: int, at: SplitAt,
-                geo: TailGeometry) -> None:
-    """The pool entry's launch on ``geo`` (CUDA tensors already checked);
-    raises on a launch error.  Counts nothing: :func:`apply_find_pool`
-    counts its launches."""
+                geo: TailGeometry, side: Optional[torch.Tensor] = None
+                ) -> None:
+    """The pool entry's launch on ``geo`` (CUDA tensors already checked;
+    ``side`` the global counts or None); raises on a launch error.
+    Counts nothing: :func:`apply_find_pool` counts its launches."""
     dev = st.pool.device
     _, f, b, _ = st.pool.shape
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = _lib().apply_find_pool(
             st.pool.data_ptr(), h_a.data_ptr(), h_b.data_ptr(),
-            nleft.data_ptr(), *_state_ptrs(st), fc.masks.data_ptr(),
+            nleft.data_ptr(), None if side is None else side.data_ptr(),
+            *_state_ptrs(st), fc.masks.data_ptr(),
             feature_mask.data_ptr(),
             *_scalars(at, max_depth, hp, fc, f, b, geo), stream)
     if rc != 0:
@@ -523,19 +551,23 @@ def apply_find_pool(h_a: torch.Tensor, h_b: torch.Tensor,
                     nleft: torch.Tensor, st: TreeState, fc: FinderConsts,
                     feature_mask: torch.Tensor, hp: SplitHyperParams,
                     max_depth: int, at: SplitAt,
-                    child: Optional[ChildSearch] = None) -> None:
-    """The split tail with the histogram pool (the main path's entry).
-    CPU tensors take :func:`apply_find_pool_ref`; CUDA tensors launch
-    the kernel on :func:`tail_geometry` (and raise with ``child``)."""
+                    child: Optional[ChildSearch] = None,
+                    side: Optional[torch.Tensor] = None) -> None:
+    """The split tail with the histogram pool (the main path's entry;
+    ``side``: the global counts of a parallel learner's split, see the
+    module docstring).  CPU tensors take :func:`apply_find_pool_ref`;
+    CUDA tensors launch the kernel on :func:`tail_geometry` (and raise
+    with ``child``)."""
     dev = st.pool.device
     if dev.type == "cpu":
         return apply_find_pool_ref(h_a, h_b, nleft, st, fc, feature_mask, hp,
-                                   max_depth, at, child)
+                                   max_depth, at, child, side)
     if dev.type != "cuda":
         raise LightGBMError(f"apply_find runs on cuda or cpu, not {dev}")
     _no_child(child)
-    geo = _check(h_a, h_b, nleft, st, fc, feature_mask)
-    launch_pool(h_a, h_b, nleft, st, fc, feature_mask, hp, max_depth, at, geo)
+    geo = _check(h_a, h_b, nleft, st, fc, feature_mask, side)
+    launch_pool(h_a, h_b, nleft, st, fc, feature_mask, hp, max_depth, at, geo,
+                side)
     apply_find_pool.launches += 1
     return None
 

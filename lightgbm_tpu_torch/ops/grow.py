@@ -97,6 +97,21 @@ tree's :class:`_SearchPlan`, on the device (JAX ``grow.py:1266-1281``,
   are non-empty the forced split is written into the leaf's best row
   and chosen, its flag riding the split's one descriptor read.
 
+Under a parallel learner (``parallel/``) the grower takes a merge
+object (``merge=``; None is the serial grower, its bits unchanged): the
+root's sums are added over the ranks in f64 and rounded once, the root's
+and each split's smaller-child histograms are merged (the data learner's
+reduce-scatter leaves the rank its feature chunk: the pool is ``[L, F_r,
+B, 2]``, the finder's constants and mask the chunk's), the side is the
+global ``nl_g * 2 <= cnt_g`` from one allreduce of ``(nleft, cnt)`` while
+the segments move by the local counts, and where the search covers a
+chunk its winners (the root's, then both children's after each tail)
+are shifted to global features and elected, so every rank holds the same
+best rows, reads the same descriptor but its own segment, and stops at
+the same split.  The unfused routes' smaller-child histogram is bounded
+by the local ``cnt`` then, not ``cnt // 2 + 1``: the globally smaller
+child can be the locally larger one.
+
 The draws depend only on ``(seed, tree, node)``: node ``i``'s children
 take salts ``2i + 1`` and ``2i + 2``, the root 0, so a tree's ``[2L - 1,
 F]`` uniforms are drawn in one batched threefry when it starts (JAX's
@@ -116,7 +131,8 @@ from ..utils.random import fold_in, prng_key, uniform_rows
 from .apply_find import (BB, BCAT, BF, BG, SC, SDEP, SG, SH, SMN, SMX,
                          SOUT, SPAR, ChildSearch, SplitAt, TreeState,
                          allow_split, apply_find_pool, apply_find_pool_ref,
-                         apply_find_torch_pool, build_finder_consts)
+                         apply_find_torch_pool, build_finder_consts,
+                         small_is_left)
 from .device_data import (DeviceDataset, PackedRows, Rows, bins_i32,
                           empty_packed_like, empty_rows_like,
                           init_packed_rows, init_rows)
@@ -404,7 +420,7 @@ class _Grower:
                  max_depth: int, dd: DeviceDataset, route: RouteDecision,
                  timer: Optional[StageTimer] = None,
                  monotone: Optional[np.ndarray] = None,
-                 options: Optional[GrowOptions] = None):
+                 options: Optional[GrowOptions] = None, merge=None):
         self.hp = hp
         self.L = int(num_leaves)
         self.max_depth = int(max_depth)
@@ -428,8 +444,17 @@ class _Grower:
                                    device=dd.device)
             pen = torch.as_tensor(monotone_penalty_table(
                 hp.monotone_penalty, self.L + 1), device=dd.device)
-        self.finder = build_finder_consts(dd.num_bins, dd.has_nan,
-                                          dd.is_cat, dd.padded_bins,
+        # a parallel learner's merge points (None: serial); the search
+        # covers its chunk [f0, f1) of the features, every one without
+        self.merge = merge
+        chunk = None if merge is None else merge.chunk
+        self._chunk = (0, dd.num_features) if chunk is None else chunk
+        f0, f1 = self._chunk
+        self._meta = tuple(a[f0:f1].contiguous()
+                           for a in (dd.num_bins, dd.has_nan, dd.is_cat))
+        if mono is not None and chunk is not None:
+            mono = mono[f0:f1].contiguous()
+        self.finder = build_finder_consts(*self._meta, dd.padded_bins,
                                           monotone=mono, penalty=pen)
         self._num_bins = dd.num_bins.cpu().numpy()
         self._has_nan = dd.has_nan.cpu().numpy()
@@ -462,33 +487,52 @@ class _Grower:
         root's unpaid in-bag rows under lazy CEGB)."""
         return _SearchPlan(self, feature_mask, tree_seed, lazy_u0)
 
+    def _fmask(self, fmask: torch.Tensor) -> torch.Tensor:
+        """A feature mask as the search reads it: the chunk's part."""
+        f0, f1 = self._chunk
+        return fmask if self.merge is None else fmask[..., f0:f1].contiguous()
+
+    def _elect(self, rows: torch.Tensor) -> torch.Tensor:
+        """Best-split rows of the chunk's search made global: the
+        feature shifted by the chunk's start, then elected over the
+        ranks (as they are where the search covers every feature)."""
+        if self.merge is None or self.merge.chunk is None:
+            return rows
+        rows = rows.clone()
+        rows[:, BF] += float(self._chunk[0])
+        return self.merge.elect(rows)
+
     def _init_state(self, sums: torch.Tensor, root_hist: torch.Tensor,
                     plan: _SearchPlan) -> TreeState:
         """The device state of a tree that is one leaf: the root's sums
-        ``(g, h, count)`` (f32 [3], summed in f64 and rounded once: the
-        CPU's and the card's reduction orders then give the same f32),
-        its histogram in the pool and its best split."""
+        ``(g, h, count)`` (f64 [3], rounded once here: the CPU's and the
+        card's reduction orders then give the same f32; a merge adds the
+        ranks' f64 sums first), its histogram in the pool and its best
+        split."""
         dd, hp, L = self.dd, self.hp, self.L
         dev, f32 = dd.device, torch.float32
+        sums = sums.to(f32) if self.merge is None else self.merge.sums(sums)
         sg0, sh0, c0 = sums.unbind()
         root_out = calculate_leaf_output(sg0, sh0, hp)
         depth0 = torch.zeros(1, dtype=f32, device=dev)
         fc, rs = self.finder, plan.root
+        search_hist, mask = root_hist, self._fmask(rs.mask)
+        if self.merge is not None:
+            search_hist, mask = self.merge.root_search(root_hist, mask, c0)
         si0 = find_best_split(
-            root_hist[None], sg0[None], sh0[None], c0[None], dd.num_bins,
-            dd.has_nan, dd.is_cat, rs.mask,
-            allow_split(depth0, self.max_depth), hp,
+            search_hist[None], sg0[None], sh0[None], c0[None], *self._meta,
+            mask, allow_split(depth0, self.max_depth), hp,
             parent_output=root_out[None], monotone=fc.mono,
             mn=torch.full_like(depth0, float("-inf")),
             mx=torch.full_like(depth0, float("inf")), depth=depth0,
             penalty=fc.penalty, cegb_penalty=rs.cegb, rand=rs.rand,
             rand_subset=rs.rand_subset)
-        pool = torch.zeros((L, dd.num_features, dd.padded_bins, 2),
-                           dtype=f32, device=dev)
+        pool = torch.zeros((L,) + tuple(root_hist.shape), dtype=f32,
+                           device=dev)
         pool[0] = root_hist
         best = torch.full((L, 10), float("-inf"), dtype=f32, device=dev)
         best[:, BG + 1:] = 0.0
-        best[0] = pack_split_info(si0)[0]
+        best[0] = self._elect(pack_split_info(si0))[0]
         lstate = torch.zeros((L, 8), dtype=f32, device=dev)
         lstate[0] = torch.stack([
             sg0, sh0, c0, sg0.new_tensor(0.0), sg0.new_tensor(-1.0),
@@ -507,8 +551,14 @@ class _Grower:
         default_left, is_cat, nan_bin)`` (then a spare slot and the
         membership words under the sorted-subset search), set ``nleft``,
         and return the children's histograms ``(h_a, h_b)`` as the tail
-        takes them."""
+        takes them, and the split's global side (None without a merge,
+        or where every rank holds every row)."""
         raise NotImplementedError
+
+    def _max_rows(self, cnt: int) -> int:
+        """The bound on the smaller child's rows in a segment of ``cnt``
+        (a merge's bound where the child is the globally smaller one)."""
+        return cnt // 2 + 1 if self.merge is None else self.merge.max_rows(cnt)
 
     def _winner_words(self, st: TreeState, leaf_t: torch.Tensor
                       ) -> torch.Tensor:
@@ -575,6 +625,9 @@ class _Grower:
         route = self.route
         tail = ((apply_find_pool if route.pool_tail else apply_find_torch_pool)
                 if route.tail == "kernel" else apply_find_pool_ref)
+        if self.merge is not None and self.merge.tail is not None:
+            tail = self.merge.tail
+        fmask = self._fmask(plan.fmask)
         tb = _TreeBuilder(self.L)
         nleft = torch.zeros(1, dtype=torch.int32, device=dev)
         subset = self.hp.use_cat_subset
@@ -616,13 +669,17 @@ class _Grower:
                     else -1)
             sel = (s0, cnt, feat, sbin, dl, cat, nanb) + (
                 (0,) + words if subset else ())
-            h_a, h_b = self._split_step(sel, nleft)
+            h_a, h_b, side = self._split_step(sel, nleft)
             with stage("split_tail", dev):
                 child = (plan.children(leaf, right, i, feat, self._u2)
                          if per_child else None)
-                tail(h_a, h_b, nleft, st, self.finder, plan.fmask, self.hp,
+                kw = {} if side is None else {"side": side}
+                tail(h_a, h_b, nleft, st, self.finder, fmask, self.hp,
                      self.max_depth, SplitAt(leaf, right, node, s0, cnt),
-                     child)
+                     child, **kw)
+                if self.merge is not None and self.merge.chunk is not None:
+                    two = [leaf, right]
+                    st.best[two] = self._elect(st.best[two])
                 if boxes is not None:
                     self._mono_adjacent(st, boxes, leaf, right, feat, sbin,
                                         cat, plan)
@@ -744,12 +801,16 @@ class SerialGrower(_Grower):
                  stream: Optional[StreamSpec] = None,
                  timer: Optional[StageTimer] = None,
                  monotone: Optional[np.ndarray] = None,
-                 options: Optional[GrowOptions] = None):
+                 options: Optional[GrowOptions] = None, merge=None):
         super().__init__(hp, num_leaves=num_leaves, max_depth=max_depth,
                          dd=dd, route=route, timer=timer, monotone=monotone,
-                         options=options)
+                         options=options, merge=merge)
         if not route.physical:
             raise ValueError("the row_order path grows with RowOrderGrower")
+        if merge is not None and (route.stream or merge.hist_chunk):
+            raise ValueError("a parallel learner grows the physical path "
+                             "without the stream, over every feature's "
+                             "histogram")
         if self.opts.cegb_lazy is not None:
             raise ValueError("cegb_lazy: the per-(feature, row) paid mask "
                              "is not plumbed through the partition kernels; "
@@ -811,33 +872,41 @@ class SerialGrower(_Grower):
         """The one-leaf tree state of ``rows``: the root's sums from the
         rows' (g*w, h*w, w) values; the root searches ``plan``'s inputs
         (tree 0's plan of ``feature_mask`` when None)."""
-        sums = rows.vals.double().sum(dim=0).to(torch.float32)
-        return self._init_state(sums, root_hist,
+        return self._init_state(rows.vals.double().sum(dim=0), root_hist,
                                 plan or self.plan(feature_mask))
 
     def _split_step(self, sel: tuple, nleft: torch.Tensor):
         rows, B = self.rows, self.dd.padded_bins
         dev, stage = self.dd.device, self.timer.stage
         s0, cnt = sel[0], sel[1]
+        m = self.merge
         if self.route.fused:
             with stage("fused_split", dev):
                 h_pair = self.ops.fused_split(rows, self.scratch, sel, nleft,
                                               padded_bins=B)
                 self.ops.copyback(rows, self.scratch, s0, cnt)
-            return h_pair[0], h_pair[1]
+            if m is None:
+                return h_pair[0], h_pair[1], None
+            side = m.counts(nleft, cnt)
+            h = m.hist(torch.where(small_is_left(nleft, cnt, side),
+                                   h_pair[0], h_pair[1]))
+            return h, h, side
         with stage("partition", dev):
             part = (partition_3ph if self.route.scheme == "3ph"
                     else self.ops.partition)
             part(rows, self.scratch, sel, nleft)
+        side = None if m is None else m.counts(nleft, cnt)
         with stage("histogram", dev):
-            small_left = nleft * 2 <= cnt
+            small_left = small_is_left(nleft, cnt, side)
             child_start = torch.where(small_left, s0, s0 + nleft)
             child_cnt = torch.where(small_left, nleft, cnt - nleft)
             rng = torch.cat([child_start, torch.zeros_like(nleft),
                              child_cnt])
             h = self.ops.histogram(rows, rng, padded_bins=B,
-                                   max_rows=cnt // 2 + 1)
-        return h, h
+                                   max_rows=self._max_rows(cnt))
+        if m is not None:
+            h = m.hist(h)
+        return h, h, side
 
     def __call__(self, grad: Optional[torch.Tensor],
                  hess: Optional[torch.Tensor],
@@ -874,6 +943,8 @@ class SerialGrower(_Grower):
                 fields.vals.copy_(gv[fields.rid.long()])
             with stage("histogram", dev):
                 root_hist = self._root_histogram(rows)
+        if self.merge is not None:
+            root_hist = self.merge.hist(root_hist)
         with stage("split_tail", dev):
             plan = self.plan(feature_mask, tree_seed)
             st = self.init_tree_state(fields, root_hist, feature_mask, plan)
@@ -926,13 +997,20 @@ class RowOrderGrower(_Grower):
                  max_depth: int, dd: DeviceDataset, route: RouteDecision,
                  timer: Optional[StageTimer] = None,
                  monotone: Optional[np.ndarray] = None,
-                 options: Optional[GrowOptions] = None, dp: bool = False):
+                 options: Optional[GrowOptions] = None, dp: bool = False,
+                 merge=None):
         super().__init__(hp, num_leaves=num_leaves, max_depth=max_depth,
                          dd=dd, route=route, timer=timer, monotone=monotone,
-                         options=options)
+                         options=options, merge=merge)
         if route.physical:
             raise ValueError("RowOrderGrower grows on the row_order path")
         self._hist = build_histogram_rows_dp if dp else build_histogram_rows
+        # the bins the histograms read: the chunk's columns where the
+        # learner builds only its chunk's histograms (tree_learner=feature)
+        f0, f1 = self._chunk
+        self._hist_bins = (dd.bins[:, f0:f1].contiguous()
+                           if merge is not None and merge.hist_chunk
+                           else dd.bins)
         self.row_order: Optional[torch.Tensor] = None
         self.vals: Optional[torch.Tensor] = None
         # lazy CEGB: the tree's in-bag rows and the caller's paid mask
@@ -941,7 +1019,7 @@ class RowOrderGrower(_Grower):
 
     def _histogram(self, rng: torch.Tensor, max_rows: int,
                    index: Optional[torch.Tensor]) -> torch.Tensor:
-        return self._hist(self.dd.bins, self.vals, rng, index=index,
+        return self._hist(self._hist_bins, self.vals, rng, index=index,
                           padded_bins=self.dd.padded_bins,
                           max_rows=max_rows)
 
@@ -966,12 +1044,16 @@ class RowOrderGrower(_Grower):
             dest = torch.where(go, cl - 1, nl + pos - cl)
             seg.copy_(torch.empty_like(seg).scatter_(0, dest.long(), seg))
             nleft.copy_(nl)
+        m = self.merge
+        side = None if m is None else m.counts(nleft, cnt)
         with stage("histogram", dev):
-            small_left = nleft * 2 <= cnt
+            small_left = small_is_left(nleft, cnt, side)
             rng = torch.cat([torch.where(small_left, s0, s0 + nleft),
                              torch.where(small_left, nleft, cnt - nleft)])
-            h = self._histogram(rng, cnt // 2 + 1, self.row_order)
-        return h, h
+            h = self._histogram(rng, self._max_rows(cnt), self.row_order)
+        if m is not None:
+            h = m.hist(h)
+        return h, h, side
 
     def _pay(self, idx: torch.Tensor, feat: int, go: torch.Tensor
              ) -> torch.Tensor:
@@ -1010,9 +1092,11 @@ class RowOrderGrower(_Grower):
             # the root: every row, no index
             root_hist = self._histogram(
                 torch.tensor([0, n], dtype=torch.int32, device=dev), n, None)
+        if self.merge is not None:
+            root_hist = self.merge.hist(root_hist)
         with stage("split_tail", dev):
             sums = torch.cat([self.vals.double().sum(dim=0),
-                              inbag.double().sum()[None]]).to(torch.float32)
+                              inbag.double().sum()[None]])
             # lazy CEGB at the root: the in-bag rows not yet paid for
             # each feature (CalculateOndemandCosts, hpp:139-163)
             u0 = (None if paid is None

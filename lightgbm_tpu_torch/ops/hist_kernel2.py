@@ -326,7 +326,8 @@ def build_histogram_comb(rows: Rows, rng: torch.Tensor, *, padded_bins: int,
     the current stream in the geometry :func:`comb_geometry` picks (one
     launch in range mode), with no host read, allocating only the output
     (and the partials in feature mode), so a CUDA graph can capture
-    it."""
+    it.  ``max_rows == 0`` (a segment empty on this rank) returns zeros
+    and launches nothing."""
     dev = rows.bins.device
     if dev.type == "cpu":
         return build_histogram_comb_ref(rows, rng, padded_bins=padded_bins,
@@ -341,6 +342,9 @@ def build_histogram_comb(rows: Rows, rng: torch.Tensor, *, padded_bins: int,
         raise LightGBMError("histogram wants contiguous u8 bins [n, F] and "
                             "f32 vals [n, 3]")
     _check_rng(rng, dev)
+    if max_rows <= 0:
+        return torch.zeros((f, padded_bins, 2), dtype=torch.float32,
+                           device=dev)
     geo = comb_geometry(f, padded_bins, max_rows)
     partials, out = _comb_buffers(geo, f, padded_bins, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -572,11 +576,15 @@ def build_histogram_rows(bins: torch.Tensor, vals: torch.Tensor,
     kernel on the current stream in the geometry :func:`rows_geometry`
     picks (one launch where ``max_rows`` gives one or two slices), with
     no host read, allocating only the output (and the partials at more
-    slices), so a CUDA graph can capture it."""
+    slices), so a CUDA graph can capture it.  ``max_rows == 0`` (a
+    segment empty on this rank) returns zeros and launches nothing."""
     if bins.device.type == "cpu":
         return build_histogram_rows_ref(bins, vals, rng, index=index,
                                         padded_bins=padded_bins,
                                         max_rows=max_rows)
+    if max_rows <= 0:
+        return torch.zeros((bins.shape[1], padded_bins, 2),
+                           dtype=torch.float32, device=bins.device)
     out = _rows_call(bins, vals, rng, index, padded_bins, max_rows, False)
     build_histogram_rows.launches += 1
     return out

@@ -12,11 +12,10 @@ decision of ``decide``, ``:383-413``) and of the split-tail choice in
   read through it, ``ops/grow.RowOrderGrower``) when the bins are wider
   than u8, under ``gpu_use_dp`` (the f64-accumulating mode of the
   row-order histogram, ``hist_kernel2.build_histogram_rows``), under lazy
-  CEGB or ``LGBM_TPU_PHYS=0``.  The JAX package's other row-order
-  triggers (the feature and voting learners) raise ``LightGBMError`` in
-  ``models/gbdt.check_supported``; a rule marked ``loud`` (a
-  configuration's own fallback, JAX ``routing.py:142-155``) is logged as
-  a warning when the booster takes its route;
+  CEGB or ``LGBM_TPU_PHYS=0``, and for the feature and voting learners
+  (rule ``learner_row_order``, the JAX package's); a rule marked
+  ``loud`` (a configuration's own fallback, JAX ``routing.py:142-155``)
+  is logged as a warning when the booster takes its route;
 - ``stream``: score-resident gradients (``ops/stream_grad.py``) or the
   objective's gradients gathered into the rows per tree (slice 2);
 - ``fused``: the fused partition + dual histogram (``ops/fused_split.py``)
@@ -39,7 +38,9 @@ decision of ``decide``, ``:383-413``) and of the split-tail choice in
   ``tail_interaction``, ``tail_cegb``, ``tail_forced``, ``tail_bynode``,
   ``tail_extra_trees``: ``use_kernel_tail`` requires ``not use_ic``,
   ``not hp.use_cegb``, ``n_forced == 0``, ``bynode_count == 0`` and ``not
-  hp.use_extra_trees``); with
+  hp.use_extra_trees``), and so does the voting learner (rule
+  ``tail_voting``: each child searches its own elected features,
+  ``use_kernel_tail`` requires ``not use_voting``); with
   ``pool_tail`` off (``LGBM_TPU_POOL_TAIL=0``, ``grow.py:1253-1262``)
   the kernel tail is the plain-pool entry ``apply_find`` after the pool
   ops in PyTorch;
@@ -49,7 +50,17 @@ decision of ``decide``, ``:383-413``) and of the split-tail choice in
   engages pack=2 exactly where it does.  At pack=2 the port keeps one
   64-byte record per row at 28 features (``device_data.PackedRows``)
   and runs the pack=2 kernels of the route, with the fused split or
-  without it.
+  without it;
+- ``hist_merge``: under ``tree_learner=data`` the histogram merge of
+  the ranks (``parallel/``), ``scatter`` (each rank keeps its feature
+  chunk) unless a ``hist_scatter`` rule applies (the JAX package's
+  ``hist_scatter_env_off``; ``scatter_features_below_world`` where a
+  rank would get no feature), then ``full``; ``vote`` under the voting
+  learner, ``none`` otherwise.  The JAX package's other ``hist_scatter``
+  rules do not arise: EFB is not ported, the feature chunks may be
+  uneven (``scatter_f_log_indivisible``), and forced splits, coupled
+  CEGB and the intermediate monotone method refuse a parallel learner
+  (``models/gbdt.check_supported``).
 
 A sorted-subset model (``cat_subset``) keeps the physical path with its
 membership words in every split descriptor, up to
@@ -127,6 +138,8 @@ class RouteInputs:
     pool_tail_env: str = "1"
     pack_env: str = "1"              # LGBM_TPU_COMB_PACK: 1 | 2
     wide_layout: bool = False        # JAX comb columns > PACK_W
+    hist_scatter_env: str = "1"      # LGBM_TPU_HIST_SCATTER
+    features_per_rank: bool = True   # every rank gets a feature chunk
 
     def key(self) -> str:
         """Stable lattice-cell key (matrix row id).  The fields both
@@ -150,7 +163,8 @@ class RouteInputs:
             f"pack={self.pack_env};impl={self.part_env};"
             f"fused={self.fused_env};apply={self.apply_impl_env};"
             f"pool={self.pool_tail_env};fok={b(self.fused_ok)};"
-            f"tok={b(self.tail_ok)}")
+            f"tok={b(self.tail_ok)};hs={self.hist_scatter_env};"
+            f"fw={b(self.features_per_rank)}")
 
 
 @dataclass(frozen=True)
@@ -181,6 +195,10 @@ RULES: Tuple[Rule, ...] = (
          "the per-(feature,row) paid mask is not plumbed through the "
          "partition kernel",
          lambda i: i.cegb_lazy),
+    Rule("learner_row_order", "physical", "tree_learner",
+         "the feature/voting-parallel learners run the row_order path on "
+         "each rank",
+         lambda i: i.learner in ("feature", "voting")),
     Rule("phys_env_off", "physical", "LGBM_TPU_PHYS",
          "physical partition mode disabled by LGBM_TPU_PHYS=0",
          lambda i: i.phys_env == "0"),
@@ -257,6 +275,19 @@ RULES: Tuple[Rule, ...] = (
          "each child searches one random threshold a feature (grow.py "
          "use_kernel_tail requires not hp.use_extra_trees)",
          lambda i: i.extra_trees),
+    Rule("tail_voting", "tail", "tree_learner",
+         "each child searches its own elected features; the one-kernel "
+         "tail takes one mask for both (grow.py use_kernel_tail requires "
+         "not use_voting)",
+         lambda i: i.learner == "voting"),
+    Rule("hist_scatter_env_off", "hist_scatter", "LGBM_TPU_HIST_SCATTER",
+         "reduce-scatter histogram merge disabled by "
+         "LGBM_TPU_HIST_SCATTER=0",
+         lambda i: i.hist_scatter_env == "0"),
+    Rule("scatter_features_below_world", "hist_scatter", "tree_learner",
+         "fewer features than ranks would leave a rank no chunk to "
+         "search; the merge stays full",
+         lambda i: not i.features_per_rank),
 )
 
 # the pack rules, read only for a pack=2 request on the physical path;
@@ -284,6 +315,7 @@ class RouteDecision:
     pool_tail: bool = True           # the kernel tail's pool entry
     pack: int = 1
     pack_reasons: Tuple[str, ...] = ()   # why a pack=2 request got pack=1
+    hist_merge: str = "none"         # scatter | full | vote | none
 
     @property
     def path(self) -> str:
@@ -293,15 +325,17 @@ class RouteDecision:
 
     def describe(self) -> str:
         """``path=.. fused=.. tail=.. (reasons)``; the scheme is named
-        when it is ``3ph``, the pool tail when it is off and the pack
-        when it is 2."""
+        when it is ``3ph``, the pool tail when it is off, the pack when it
+        is 2 and a parallel learner's histogram merge."""
         why = f" ({', '.join(self.reasons)})" if self.reasons else ""
         scheme = " scheme=3ph" if self.scheme == "3ph" else ""
         pool = (" pool_tail=0" if self.tail == "kernel" and not self.pool_tail
                 else "")
         pack = " pack=2" if self.pack == 2 else ""
+        merge = (f" hist_merge={self.hist_merge}"
+                 if self.hist_merge != "none" else "")
         return (f"path={self.path}{scheme} fused={int(self.fused)} "
-                f"tail={self.tail}{pool}{pack}{why}")
+                f"tail={self.tail}{pool}{pack}{merge}{why}")
 
 
 def loud_rules(d: RouteDecision) -> Tuple[Rule, ...]:
@@ -321,6 +355,7 @@ def inputs_from_env(environ=None, **kw) -> RouteInputs:
         raise LightGBMError(f"LGBM_TPU_COMB_PACK must be 1 or 2 (got "
                             f"{pack!r})")
     return RouteInputs(
+        hist_scatter_env=env_knob("LGBM_TPU_HIST_SCATTER", environ),
         phys_env=env_knob("LGBM_TPU_PHYS", environ),
         stream_env=env_knob("LGBM_TPU_STREAM", environ),
         fused_env=env_knob("LGBM_TPU_FUSED", environ),
@@ -353,7 +388,8 @@ def decide(i: RouteInputs) -> RouteDecision:
     """Evaluate the rule table; pure.  Off the physical path the stream
     and fused rules are not read, and the scheme is ``none``."""
     blocked = {k: [r.name for r in RULES if r.blocks == k and r.pred(i)]
-               for k in ("physical", "stream", "fused", "tail")}
+               for k in ("physical", "stream", "fused", "tail",
+                         "hist_scatter")}
     physical = not blocked["physical"]
     if not physical:
         blocked["stream"] = blocked["fused"] = []
@@ -363,17 +399,22 @@ def decide(i: RouteInputs) -> RouteDecision:
                         tuple(r.name for r in PACK_RULES if r.pred(i)))
         pack = 1 if pack_reasons else 2
     tail = "xla" if blocked["tail"] else "kernel"
+    if i.learner != "data":
+        blocked["hist_scatter"] = []
+    merge = {"data": "full" if blocked["hist_scatter"] else "scatter",
+             "voting": "vote"}.get(i.learner, "none")
     return RouteDecision(
         stream=physical and not blocked["stream"],
         fused=physical and not blocked["fused"],
         tail=tail,
         reasons=tuple(blocked["physical"] + blocked["stream"]
-                      + blocked["fused"] + blocked["tail"]),
+                      + blocked["fused"] + blocked["tail"]
+                      + blocked["hist_scatter"]),
         physical=physical,
         scheme=(("3ph" if i.part_env == "3ph" else "permute") if physical
                 else "none"),
         pool_tail=tail == "kernel" and i.pool_tail_env != "0",
-        pack=pack, pack_reasons=pack_reasons)
+        pack=pack, pack_reasons=pack_reasons, hist_merge=merge)
 
 
 
@@ -458,6 +499,15 @@ def enumerate_inputs() -> List[RouteInputs]:
     add(interaction=True, cegb=True, forced_splits=True, bynode=True,
         extra_trees=True)
     add(cegb=True, cegb_lazy=True, phys_env="0")
+    # the parallel learners on the routes a user selects (the multiclass
+    # objectives and l2 beside binary)
+    for learner in ("data", "voting", "feature"):
+        for kw in ({}, dict(fused_env="0"), dict(phys_env="0"),
+                   dict(bins_u8=False), dict(hist_scatter_env="0"),
+                   dict(features_per_rank=False), dict(apply_impl_env="xla"),
+                   dict(pool_tail_env="0"), dict(objective_kind="l2"),
+                   dict(objective_kind="other", multi_tree=True)):
+            add(learner=learner, **kw)
     # gpu_use_dp on the routes a user selects and beside the options
     # that already leave a part of the route
     for kw in ({}, dict(pack_env="2"), dict(fused_env="0"),
@@ -479,12 +529,13 @@ def encode_cell(d: RouteDecision) -> str:
     j = lambda rules: "+".join(  # noqa: E731
         r.name for r in rules if r.name in reasons) or "-"
     by = {k: [r for r in RULES if r.blocks == k]
-          for k in ("physical", "stream", "fused", "tail")}
+          for k in ("physical", "stream", "fused", "tail", "hist_scatter")}
     why = j(by["physical"]) if not d.physical else j(by["stream"])
     return (f"path={d.path};pack={d.pack};scheme={d.scheme};"
             f"fused={int(d.fused)};tail={d.tail};pool={int(d.pool_tail)};"
             f"why={why};pack_why={'+'.join(d.pack_reasons) or '-'};"
-            f"fused_why={j(by['fused'])};tail_why={j(by['tail'])}")
+            f"fused_why={j(by['fused'])};tail_why={j(by['tail'])};"
+            f"merge={d.hist_merge};merge_why={j(by['hist_scatter'])}")
 
 
 def decode_cell(enc: str) -> Dict[str, object]:

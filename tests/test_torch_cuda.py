@@ -958,7 +958,7 @@ def test_slice5_routes_on_card_match_cpu(cuda, env, monkeypatch):
            "apply_find_pool": apply_find.apply_find_pool,
            "apply_find": apply_find.apply_find,
            "build_histogram_rows": hist_kernel2.build_histogram_rows,
-           **_pack2_fns()}
+           **_pack2_fns(), **_mode_fns()}
     before = {k: f.launches for k, f in fns.items()}
     card = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
                      device="cuda")
@@ -975,6 +975,14 @@ def test_slice5_routes_on_card_match_cpu(cuda, env, monkeypatch):
 
 
 # -- slice 6: pack=2, one record per row ---------------------------------
+def _mode_fns() -> dict:
+    """The kernels of slice 23's modes, which ``expected_launches``
+    counts on every route (zero off the gpu_use_dp and linear routes)."""
+    from lightgbm_tpu_torch.ops import hist_kernel2, linear_kernel
+    return {"build_histogram_rows_dp": hist_kernel2.build_histogram_rows_dp,
+            "linear_moments": linear_kernel.linear_moments}
+
+
 def _pack2_fns() -> dict:
     from lightgbm_tpu_torch.ops import (fused_split, hist_kernel2,
                                         partition_kernel, stream_grad)
@@ -1034,7 +1042,7 @@ def test_pack2_route_on_card_matches_cpu_and_pack1(cuda, env, monkeypatch):
            "apply_find_pool": apply_find.apply_find_pool,
            "apply_find": apply_find.apply_find,
            "build_histogram_rows": hist_kernel2.build_histogram_rows,
-           **_pack2_fns()}
+           **_pack2_fns(), **_mode_fns()}
     before = {k: fn.launches for k, fn in fns.items()}
     card = lgt.train(p, lgt.Dataset(x, label=y), num_boost_round=3,
                      device="cuda")
@@ -2301,3 +2309,47 @@ def test_linear_and_dp_training_match_the_cpu(cuda, params):
     np.testing.assert_allclose(bc.predict(xq, raw_score=True),
                                bp.predict(xq, raw_score=True),
                                rtol=1e-12, atol=1e-9)
+
+
+# -- slice 24: the parallel learners' tail side and empty segments ---------
+@pytest.mark.parametrize("f,b", [(28, 256), (28, 1024), (136, 256)])
+def test_apply_find_side_matches_plain(cuda, f, b):
+    """The pool entry's global side bitwise its plain version on the
+    card and on CPU copies, agreeing with the local counts (then equal to
+    the call without it) and flipping them."""
+    from chip_smoke import side_tail_parity
+    from lightgbm_tpu_torch.tools.profile_apply_find import synthetic_split
+    side_tail_parity(synthetic_split(f, b, seed=f + b, device="cuda"),
+                     f"{f}x{b}")
+
+
+def test_apply_find_side_on_a_real_split(cuda):
+    from chip_smoke import side_tail_parity, split_state_case
+    side_tail_parity(split_state_case(), "root split")
+
+
+def test_empty_segment_wrappers(cuda):
+    """fused_split, the scan, copyback, hist_comb and hist_rows on a
+    segment empty on a rank: zeros, nleft = 0, no launch."""
+    from chip_smoke import empty_segment_cases
+    empty_segment_cases(cuda)
+
+
+def test_parallel_learners_card_equal_cpu(cuda):
+    """Two ranks on the card over gloo grow the same 2-rank CPU run's
+    trees for each learner, every rank the same model text."""
+    from chip_smoke import (PARALLEL_LEARNERS, PARITY_CUT_LEAVES,
+                            TRAIN_PARAMS, run_ranks)
+    jobs = []
+    for name, lp in PARALLEL_LEARNERS.items():
+        for dev in ("cuda", "cpu"):
+            jobs.append(dict(label=f"{name}_{dev}", rows=5_000, iters=2,
+                             device=dev, count=False, env={},
+                             params=dict(TRAIN_PARAMS, verbosity=-1,
+                                         num_leaves=PARITY_CUT_LEAVES, **lp)))
+    ranks = run_ranks(2, jobs, timeout=300)
+    for j in jobs:
+        assert ranks[0][j["label"]]["text"] == ranks[1][j["label"]]["text"]
+    for name in PARALLEL_LEARNERS:
+        assert (ranks[0][f"{name}_cuda"]["text"]
+                == ranks[0][f"{name}_cpu"]["text"]), name

@@ -396,7 +396,8 @@ def test_rf_refuses_a_dataset_init_score():
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"tree_learner": "data"}, "A10"), ({"tree_learner": "voting"}, "A10"),
+    ({"tree_learner": "data", "boosting": "dart"}, "A10"),
+    ({"tree_learner": "voting", "boosting": "dart"}, "A10"),
     ({"pre_partition": True}, "A11")])
 def test_unported_messages_name_their_item(params, item):
     x, y = _data(300, 4, 1)

@@ -213,8 +213,13 @@ def test_continued_training_inherits_linear_tree(tmp_path):
 
 
 def test_contrib_and_serving_refuse_linear_trees():
+    # the package's current modules, all from one import: a JAX test run
+    # earlier in this process may have dropped every lightgbm_tpu* module,
+    # and a class of the old modules would not match the new ones'
+    import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.serve import (ServingEngine, ServingModel,
                                           ServingQueue)
+    from lightgbm_tpu_torch.utils.log import LightGBMError
     x, y = _problem(600)
     bst = lgt.train(BASE, lgt.Dataset(x, label=y), 2, device="cpu")
     with pytest.raises(LightGBMError, match="linear trees"):

@@ -187,21 +187,35 @@ def test_each_rule_blocks_its_part(rule):
           "tail_cegb": {"cegb": True},
           "tail_forced": {"forced_splits": True},
           "tail_bynode": {"bynode": True},
-          "tail_extra_trees": {"extra_trees": True}}[rule]
+          "tail_extra_trees": {"extra_trees": True},
+          "learner_row_order": {"learner": "feature"},
+          "tail_voting": {"learner": "voting"},
+          "hist_scatter_env_off": {"learner": "data",
+                                   "hist_scatter_env": "0"},
+          "scatter_features_below_world": {"learner": "data",
+                                           "features_per_rank": False}}[rule]
     # cat_overwide never fires alone: its bins wider than u8 fire
-    # non_u8_bins, and a subset model takes the PyTorch tail
+    # non_u8_bins, and a subset model takes the PyTorch tail; the voting
+    # learner is a row-order learner, and a data learner never streams
     also = {"cat_overwide": ("non_u8_bins", "tail_cat_subset")}.get(rule,
                                                                      ())
+    lead = {"tail_voting": ("learner_row_order",),
+            "hist_scatter_env_off": ("mesh_stream_unwired",),
+            "scatter_features_below_world": ("mesh_stream_unwired",)}.get(
+                rule, ())
     d = decide(RouteInputs(**kw))
-    assert d.reasons == (rule,) + also
+    fired = lead + (rule,) + also
+    assert d.reasons == fired
     of = {r.name: r.blocks for r in RULES}
-    blocks = of[rule]
     # off the physical path stream and fused are off too
-    off = blocks == "physical"
+    off = any(of[r] == "physical" for r in fired)
     assert (not d.stream, not d.fused, d.tail == "xla",
             d.path == "row_order") == (
-        blocks == "stream" or off, blocks == "fused" or off,
-        any(of[r] == "tail" for r in (rule,) + also), off)
+        any(of[r] == "stream" for r in fired) or off,
+        any(of[r] == "fused" for r in fired) or off,
+        any(of[r] == "tail" for r in fired), off)
+    # a hist_scatter rule leaves the data learner's merge full
+    assert (d.hist_merge == "full") == (of[rule] == "hist_scatter")
 
 
 def test_reset_stream_rebuilds_rows_on_both_routes():

@@ -278,7 +278,8 @@ def test_gradients_match_jax(objective):
 
 
 @pytest.mark.parametrize("params", [
-    {"pre_partition": True}, {"tree_learner": "data"},
+    {"pre_partition": True},
+    {"tree_learner": "data", "bagging_fraction": 0.5, "bagging_freq": 1},
 ])
 def test_unported_parameters_raise(params):
     x, y = _data(300, 4, 1)
