@@ -309,12 +309,29 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``parallel.collectives.Comm``; printed as ``parallel {...}``
    (s / iteration, collectives and bytes a split, the ``collective``
    stage's ms a tree);
-19. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+19. the training API and the dataset inputs (slice 25, ``api_phase``):
+   a custom objective (numpy binary logloss) with a custom metric
+   (holdout error rate) on the training main path's rows (1M x 28, 255
+   leaves, 5 iterations) on ``path=physical fused=1 tail=kernel
+   (objective_not_streamable)``, counted, its ``gradients`` stage a
+   tree, holdout AUC beside the default route's at 5 iterations and the
+   metric beside its value from ``predict``; at the parity cut (5,000
+   rows, 31 leaves, 2 trees) the custom objective's card trees bitwise
+   the CPU's and a pass-through objective's bitwise the built-in twin's;
+   ``cv`` (3 folds x 3 rounds on the main rows, counted per fold, the
+   folds' AUCs from ``predict`` averaging to ``valid auc-mean`` within
+   1e-9); ``refit`` of the default-route booster on the holdout (decay
+   0.9), its leaf values bitwise a CPU refit's, its structure unchanged,
+   the leaf pass timed and the f64 rows whose kernel leaf differs from
+   the host walk counted; the 1M-row binary cache and the holdout as a
+   CSV with a named label column loaded back to the same bins; printed
+   as ``api {...}``;
+20. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times (``multiclass_launches`` on the multiclass main
    path, ``sampling_launches`` on the three sampling main paths,
    ``ranking_launches``, ``split_options_launches`` on the split
-   options' routes, ``linear_launches``, ``gpu_use_dp_launches`` and
-   ``parallel_launches``),
+   options' routes, ``linear_launches``, ``gpu_use_dp_launches``,
+   ``parallel_launches`` and ``api_launches``),
    then the device line last; ``phase NAME took S s`` after each
    phase.
 
@@ -3453,12 +3470,13 @@ def binary_holdout(bst) -> dict:
 def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
                     label: str, params: dict = TRAIN_PARAMS,
                     n_features: int = N_FEATURES, holdout=binary_holdout,
-                    callbacks=()):
+                    callbacks=(), feval=None):
     """The training main path on the route ``env`` selects, counted and
     timed by stage, its booster served through serve_traverse (the
     served raw scores of every class against the training scores), its
     holdout metrics gated by ``holdout(booster) -> dict``; ``callbacks``
-    run after each iteration too.  Returns (booster, record)."""
+    run after each iteration too, ``feval`` is ``train``'s.  Returns
+    (booster, record)."""
     import torch
 
     import lightgbm_tpu_torch as lgt
@@ -3479,7 +3497,7 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
         t_start = time.perf_counter()
         bst = lgt.train(params, ds, num_boost_round=iters,
                         valid_sets=[valid], callbacks=[_tick, *callbacks],
-                        device="cuda", timer=timer)
+                        feval=feval, device="cuda", timer=timer)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t_start
         raw = bst.predict(x, raw_score=True)
@@ -7154,6 +7172,327 @@ def parallel_phase(gpu: str, higgs: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------
+# Slice 25: the training API (custom objectives and metrics, cv, refit)
+# and the dataset inputs (the binary cache, text files)
+API_ITERS = 5
+API_CV_FOLDS = 3
+API_CV_ROUNDS = 3
+API_PARITY_TREES = 2
+API_REFIT_DECAY = 0.9
+API_CACHE = "lightgbm_tpu_torch/build/api_cache.bin"
+API_CSV = "lightgbm_tpu_torch/build/api_holdout.csv"
+
+
+def refit_leaf_flips(bst, x: np.ndarray) -> int:
+    """Rows of ``x`` (f64) whose leaf in some tree of ``bst`` differs
+    between the traversal kernel's leaf entry (the rows cast to f32, as
+    serving and ``Booster.refit`` cast them) and the f64 host walk
+    (``Tree.predict_leaf``): rows whose value and its f32 rounding lie
+    on two sides of a threshold."""
+    from lightgbm_tpu_torch.serve import ServingEngine, ServingModel
+    sm = ServingModel.from_booster(bst, device=bst.device, leaves_only=True)
+    kernel = ServingEngine(sm, device=bst.device).predict_leaves(x)
+    host = np.stack([t.predict_leaf(x) for t in bst._models], axis=1)
+    return int(np.any(kernel != host, axis=1).sum())
+
+
+def api_fobj(preds, dataset):
+    """The api phase's custom objective: binary logloss in numpy on the
+    f64 scores it is given."""
+    labels = dataset._binned.metadata.label
+    p = 1.0 / (1.0 + np.exp(-preds))
+    return p - labels, p * (1.0 - p)
+
+
+def api_feval(preds, eval_data):
+    """The api phase's custom metric: the error rate of raw scores (no
+    objective, so no transform: a positive score predicts 1)."""
+    return ("error_rate",
+            float(np.mean((preds > 0) != (eval_data.get_label() > 0))),
+            False)
+
+
+def api_parity(gpu: str) -> dict:
+    """At the later phases' cut (``OBJ_PARITY_ROWS`` x 28, 31 leaves, 2
+    trees): the custom objective's trees on the card against the CPU
+    run's, and a pass-through objective (the port's binary gradients on
+    the card, returned as CUDA tensors) against the built-in twin
+    (``boost_from_average=False``, ``LGBM_TPU_STREAM=0``), bit for
+    bit."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.objective import create_objective
+    x = make_rows(OBJ_PARITY_ROWS, N_FEATURES, 3)
+    _, y = make_higgs_like(OBJ_PARITY_ROWS, N_FEATURES, 3)
+    params = dict(TRAIN_PARAMS, num_leaves=PARITY_CUT_LEAVES, metric="None")
+    runs = {dev: lgt.train(dict(params, objective=api_fobj),
+                           lgt.Dataset(x, label=y), API_PARITY_TREES,
+                           device=dev) for dev in ("cuda", "cpu")}
+    rec = compare_trees(runs["cuda"]._models, runs["cpu"]._models)
+    rec.update(case=f"custom objective: {OBJ_PARITY_ROWS}x{N_FEATURES}, "
+               f"{PARITY_CUT_LEAVES} leaves, {API_PARITY_TREES} trees",
+               route=runs["cuda"]._inner.grow.route.describe(),
+               leaves_bitwise=leaves_bitwise(runs["cuda"]._models,
+                                             runs["cpu"]._models))
+    ds = lgt.Dataset(x, label=y).construct()
+    obj = create_objective(Config.from_params({"objective": "binary"}))
+    obj.init(ds._binned.metadata, ds.num_data(), torch.device("cuda"))
+
+    def passthrough(preds, dataset):
+        return obj.get_gradients(torch.as_tensor(
+            preds, dtype=torch.float32, device="cuda"))
+    through = lgt.train(dict(params, objective=passthrough), ds,
+                        API_PARITY_TREES, device="cuda")
+    with route_env({"LGBM_TPU_STREAM": "0"}):
+        twin = lgt.train(dict(params, boost_from_average=False),
+                         lgt.Dataset(x, label=y), API_PARITY_TREES,
+                         device="cuda")
+    rec["pass_through"] = dict(
+        compare_trees(through._models, twin._models),
+        leaves_bitwise=leaves_bitwise(through._models, twin._models),
+        scores_bitwise=torch.equal(through._inner.scores,
+                                   twin._inner.scores),
+        twin_route=twin._inner.grow.route.describe())
+    rec["ok"] = (rec["ok"] and rec["leaves_bitwise"]
+                 and rec["route"] == OBJ_ROUTE
+                 and rec["pass_through"]["ok"]
+                 and rec["pass_through"]["leaves_bitwise"]
+                 and rec["pass_through"]["scores_bitwise"])
+    print("parity custom objective " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"the custom objective's trees differ: {rec}")
+    return rec
+
+
+def api_cv(gpu: str, higgs: dict) -> dict:
+    """``cv`` on the training main path's rows: 3 folds x 3 rounds, 255
+    leaves, on the default route, counted per fold against
+    ``expected_launches``; each fold's holdout AUC recomputed from its
+    booster's ``predict`` (and from its validation scores) averages to
+    ``valid auc-mean`` within 1e-9."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.engine import _make_n_folds
+    counted = counted_training_kernels()
+    ds, x = higgs["ds"], higgs["x"]
+    # f64 labels, as the metric holds them (an f32 count of pairs rounds)
+    y = np.asarray(ds.get_label(), np.float64)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = lgt.cv(TRAIN_PARAMS, ds, num_boost_round=API_CV_ROUNDS,
+                 nfold=API_CV_FOLDS, return_cvbooster=True, device="cuda")
+    torch.cuda.synchronize()
+    cv_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    boosters = res.pop("cvbooster").boosters
+    want = {}
+    for b in boosters:
+        splits = sum(t.num_leaves - 1 for t in b._models)
+        for k, v in expected_launches(b._inner.grow.route, len(b._models),
+                                      splits).items():
+            want[k] = want.get(k, 0) + v
+    folds = list(_make_n_folds(ds, API_CV_FOLDS, 0, True, True))
+    aucs = [_weighted_auc_np(y[test], b.predict(x[test], raw_score=True))
+            for b, (_, test) in zip(boosters, folds)]
+    # the validation scores the metric read, in the fold's row order
+    own = [_weighted_auc_np(y[test], b._inner.valid_sets[0].scores[0]
+                            .double().cpu().numpy())
+           for b, (_, test) in zip(boosters, folds)]
+    mean = res["valid auc-mean"][-1]
+    rec = {"folds": API_CV_FOLDS, "rounds": API_CV_ROUNDS, "cv_s": cv_s,
+           "s_per_round": cv_s / API_CV_ROUNDS,
+           "route": boosters[0]._inner.grow.route.describe(),
+           "valid_auc_mean": res["valid auc-mean"],
+           "valid_auc_stdv": res["valid auc-stdv"],
+           "fold_aucs_from_predict": aucs,
+           "mean_err_predict": abs(float(np.mean(aucs)) - mean),
+           "fold_aucs_from_valid_scores": own,
+           "mean_err_valid_scores": abs(float(np.mean(own)) - mean),
+           "launches": {k: v for k, v in launches.items() if v}}
+    rec["ok"] = (rec["mean_err_valid_scores"] <= 1e-9
+                 and rec["mean_err_predict"] <= 1e-9
+                 and len(res["valid auc-mean"]) == API_CV_ROUNDS
+                 and all(launches[k] == v for k, v in want.items()))
+    print("api cv " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"cv fails: {rec}; expected launches {want}")
+    del boosters
+    torch.cuda.empty_cache()
+    return rec
+
+
+def api_refit(gpu: str, higgs: dict) -> dict:
+    """``Booster.refit`` of the training main path's default-route
+    booster on the holdout (``decay_rate`` 0.9): the leaf values on the
+    card bit for bit a CPU refit's, every tree's structure unchanged,
+    the leaves' pass through ``serve_traverse``'s leaf entry counted and
+    timed; the rows whose kernel leaf differs from the f64 host walk,
+    on the holdout (f32 values: none) and on seeded f64 rows."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.serve_kernel import serve_traverse
+    from lightgbm_tpu_torch.serve import ServingEngine, ServingModel
+    bst, xv, yv = higgs["bst"], higgs["xv"], higgs["yv"]
+    torch.cuda.synchronize()
+    serve_traverse.launches = 0
+    t0 = time.perf_counter()
+    card = bst.refit(xv, yv, decay_rate=API_REFIT_DECAY)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    launches = serve_traverse.launches
+    t1 = time.perf_counter()
+    cpu = lgt.Booster(model_str=bst.model_to_string(), device="cpu").refit(
+        xv, yv, decay_rate=API_REFIT_DECAY, **TRAIN_PARAMS)
+    cpu_s = time.perf_counter() - t1
+    keys = ("split_feature", "threshold", "decision_type", "left_child",
+            "right_child")
+    same_structure = all(
+        a.num_leaves == b.num_leaves and all(
+            np.array_equal(getattr(a, k), getattr(b, k)) for k in keys)
+        for a, b in zip(card._models, bst._models))
+    moved = sum(not np.array_equal(a.leaf_value, b.leaf_value)
+                for a, b in zip(card._models, bst._models))
+    sm = ServingModel.from_booster(card, device="cuda", leaves_only=True)
+    eng = ServingEngine(sm, device="cuda")
+    leaf_ms = _time_ms(lambda: eng.predict_leaves(xv), 5)
+    x64 = np.random.default_rng(25).normal(size=(HOLDOUT_ROWS, N_FEATURES))
+    rec = {"rows": HOLDOUT_ROWS, "trees": len(card._models),
+           "decay_rate": API_REFIT_DECAY, "refit_s": refit_s,
+           "cpu_refit_s": cpu_s, "leaf_pass_ms": leaf_ms,
+           "serve_traverse_launches": launches,
+           "leaves_bitwise_cpu": leaves_bitwise(card._models, cpu._models),
+           "structure_unchanged": same_structure, "trees_moved": moved,
+           "f32_holdout_leaf_flips": refit_leaf_flips(
+               card, xv.astype(np.float64)),
+           "f64_rows_leaf_flips": refit_leaf_flips(card, x64),
+           "f64_rows": HOLDOUT_ROWS,
+           "holdout_auc_before": _weighted_auc_np(
+               yv.astype(np.float64), bst.predict(xv, raw_score=True)),
+           "holdout_auc_after": _weighted_auc_np(
+               yv.astype(np.float64), card.predict(xv, raw_score=True))}
+    rec["ok"] = (rec["leaves_bitwise_cpu"] and same_structure
+                 and moved == len(card._models) and launches > 0
+                 and rec["f32_holdout_leaf_flips"] == 0)
+    print("api refit " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"refit fails: {rec}")
+    return rec
+
+
+def api_inputs(gpu: str, higgs: dict) -> dict:
+    """The binary cache of the 1M-row dataset saved and loaded back
+    (``Dataset(path)``), and the holdout written as a CSV with a header
+    and its label in a named column, loaded with the training mappers:
+    bins and metadata equal the in-memory datasets'."""
+    import lightgbm_tpu_torch as lgt
+    ds, valid = higgs["ds"]._binned, higgs["valid"]._binned
+    os.makedirs(os.path.dirname(API_CACHE), exist_ok=True)
+    t0 = time.perf_counter()
+    higgs["ds"].save_binary(API_CACHE)
+    t1 = time.perf_counter()
+    back = lgt.Dataset(API_CACHE).construct()._binned
+    t2 = time.perf_counter()
+    cache = {
+        "rows": back.num_data, "bytes": os.path.getsize(API_CACHE),
+        "save_s": t1 - t0, "load_s": t2 - t1,
+        "bins_equal": np.array_equal(back.bin_matrix, ds.bin_matrix),
+        "metadata_equal": np.array_equal(back.metadata.label,
+                                         ds.metadata.label)
+        and back.metadata.weight is None and ds.metadata.weight is None,
+        "mappers_equal": [m.to_dict() for m in back.mappers]
+        == [m.to_dict() for m in ds.mappers]
+        and np.array_equal(back.used_feature_map, ds.used_feature_map)
+        and back.feature_names == ds.feature_names}
+    os.remove(API_CACHE)
+    xv, yv = higgs["xv"], higgs["yv"]
+    t3 = time.perf_counter()
+    cols = np.column_stack([yv, xv]).astype(np.float64).astype(str)
+    with open(API_CSV, "w") as f:
+        f.write(",".join(["target"] + [f"f{j}" for j in range(N_FEATURES)])
+                + "\n")
+        f.write("\n".join(",".join(r) for r in cols.tolist()) + "\n")
+    t4 = time.perf_counter()
+    loaded = lgt.Dataset(API_CSV, params={"header": True,
+                                          "label_column": "name:target"},
+                         reference=higgs["ds"]).construct()._binned
+    t5 = time.perf_counter()
+    csv = {"rows": loaded.num_data, "bytes": os.path.getsize(API_CSV),
+           "write_s": t4 - t3, "load_s": t5 - t4,
+           "bins_equal": np.array_equal(loaded.bin_matrix,
+                                        valid.bin_matrix),
+           "label_equal": np.array_equal(loaded.metadata.label, yv)}
+    os.remove(API_CSV)
+    rec = {"cache": cache, "csv": csv}
+    rec["ok"] = all(v for d in rec.values() for v in d.values()
+                    if isinstance(v, bool))
+    print("api inputs " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"the dataset inputs differ: {rec}")
+    return rec
+
+
+def api_phase(gpu: str, higgs: dict) -> dict:
+    """Slice 25: the training API and the dataset inputs.  The custom
+    objective's main path (``api_fobj``, numpy binary logloss, on the
+    training main path's 1M x 28 rows, 255 leaves, 5 iterations, with
+    ``api_feval`` on the holdout) on ``path=physical fused=1
+    tail=kernel (objective_not_streamable)``, counted against
+    ``expected_launches``, its ``gradients`` stage (the scores to the
+    host, the numpy objective, the gradients to the card) a tree, its
+    holdout AUC beside the default route's at 5 iterations and its
+    ``feval`` beside the value recomputed from ``predict``; then
+    :func:`api_parity`, :func:`api_cv`, :func:`api_refit` and
+    :func:`api_inputs`."""
+    x, xv, yv = higgs["x"], higgs["xv"], higgs["yv"]
+    bst, run = train_main_path(
+        gpu, higgs["ds"], higgs["valid"], x, {}, API_ITERS,
+        "custom objective main path", params=dict(TRAIN_PARAMS,
+                                                  objective=api_fobj),
+        feval=api_feval)
+    if run["route"] != OBJ_ROUTE:
+        raise RuntimeError(f"the custom objective took {run['route']}")
+    feval_v = bst.best_score["valid_0"]["error_rate"]
+    label = type("Holdout", (), {"get_label": staticmethod(lambda: yv)})
+    again = api_feval(bst.predict(xv, raw_score=True), label)[1]
+    twin_auc = _weighted_auc_np(yv.astype(np.float64), higgs["bst"].predict(
+        xv, raw_score=True, num_iteration=API_ITERS))
+    fobj = {"route": run["route"], "iterations": run["iterations"],
+            "s_per_iter_first": run["s_per_iter_first"],
+            "s_per_iter_rest_mean": run["s_per_iter_rest_mean"],
+            "gradients_ms_per_tree": run["stage_ms_per_tree"].get(
+                "gradients"),
+            "stage_ms_per_tree": run["stage_ms_per_tree"],
+            "holdout_auc": run["holdout_auc"],
+            "default_route_auc_5_iters": twin_auc,
+            "feval_error_rate": feval_v,
+            "feval_from_predict": again,
+            "splits": run["splits"], "launches": run["launches"]}
+    print("api custom objective " + json.dumps(fobj), flush=True)
+    if abs(feval_v - again) > 1e-4:
+        raise RuntimeError(f"feval {feval_v} differs from its value from "
+                           f"predict {again}")
+    parity = api_parity(gpu)
+    cv = api_cv(gpu, higgs)
+    refit = api_refit(gpu, higgs)
+    inputs = api_inputs(gpu, higgs)
+    summary = {"custom_objective": fobj, "parity": parity, "cv": cv,
+               "refit": refit, "inputs": inputs, "gpu": gpu,
+               "launches": {"custom_objective": run["launches"],
+                            "cv": cv["launches"],
+                            "refit": {"serve_traverse":
+                                      refit["serve_traverse_launches"]}}}
+    print("api " + json.dumps({k: v for k, v in summary.items()
+                               if k != "parity"}), flush=True)
+    return summary
+
+
 def _weighted_auc_np(y, raw) -> float:
     from lightgbm_tpu_torch.metric.metrics import _weighted_auc
     return float(_weighted_auc(y, raw, None))
@@ -7258,6 +7597,8 @@ def main() -> int:
     lap("gpu_use_dp")
     par = parallel_phase(gpu, higgs)
     lap("parallel")
+    api = api_phase(gpu, higgs)
+    lap("api")
     # the launches of the multiclass, sampling, ranking and split-option
     # routes, and of the pack=2 parity runs
     mc, mc2 = (objectives["multiclass"]["launches"],
@@ -7293,6 +7634,10 @@ def main() -> int:
             k["gpu_use_dp_launches"] = dp["launches"][key]
         if par["launches"].get(key):
             k["parallel_launches"] = par["launches"][key]
+        got = {mode: run[key] for mode, run in api["launches"].items()
+               if run.get(key)}
+        if got:
+            k["api_launches"] = got
         if k["name"] == "apply_find":
             k["side_parity"] = par["side_tail"]
     kernels += [linear_rec, dp_rec]

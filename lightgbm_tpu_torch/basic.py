@@ -1,31 +1,45 @@
 """User-facing Dataset and Booster (reference basic.py:1194, :2705).
 
-Counterpart of ``lightgbm_tpu/basic.py``.  ``Dataset`` bins a dense
-matrix lazily (``reference=`` for validation sets, which must share the
-training bin mappers).  ``Booster(params, train_set, device=...)``
-trains on one device (``update``, ``eval_train``, ``eval_valid``);
+Counterpart of ``lightgbm_tpu/basic.py``.  ``Dataset`` bins lazily on
+:meth:`Dataset.construct` (``reference=`` for validation sets, which
+must share the training bin mappers) from a dense matrix, a scipy CSR /
+CSC matrix (binned column by column without densifying it), a
+:class:`Sequence` or a list of them (streamed in ``batch_size``
+chunks), a text file (CSV, TSV or LibSVM, ``io/loader.py``) or a binary
+cache (``.bin`` / ``.npz``, the JAX package's layout); it has the JAX
+package's setters, getters, ``subset``, ``save_binary``,
+``add_features_from`` and ``create_valid``.
+
+``Booster(params, train_set, device=...)`` trains on one device
+(``update``, with a custom objective ``fobj``; ``eval_train``,
+``eval_valid`` and ``eval`` with a custom metric ``feval``);
 ``Booster(model_file=..., model_str=...)`` loads a model.  ``predict``
 scores raw rows through the compiled serving engine for both (the CUDA
 traversal kernel, or its plain version with ``device="cpu"``),
 ``pred_leaf`` walks the trees on the host, and ``model_to_string`` /
-``save_model`` write the model text.  A model with linear trees predicts
-through the traversal kernel's leaf entry and adds each tree's leaf
-models on the device in f64, in tree order.  ``rollback_one_iter``
-drops the last iteration.  SHAP contributions come with a later slice.
+``save_model`` / ``dump_model`` write the model.  A model with linear
+trees predicts through the traversal kernel's leaf entry and adds each
+tree's leaf models on the device in f64, in tree order.
+``rollback_one_iter`` drops the last iteration; ``refit`` refits the
+leaf values on new rows, their leaves from the traversal kernel's leaf
+entry.  SHAP contributions come with a later slice.
 """
 from __future__ import annotations
 
+import abc
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from .config import Config
-from .io.dataset_core import BinnedDataset
+from .io.dataset_core import BinnedDataset, Metadata
 from .metric import create_metrics
 from .models import GBDT, create_boosting
-from .models.gbdt import check_supported
-from .models.model_text import (load_model_from_string, loaded_param_string,
+from .models.gbdt import _class_view, check_supported
+from .models.model_text import (dump_model_to_json, feature_importance,
+                                load_model_from_string, loaded_param_string,
                                 save_model_to_string)
 from .objective import create_objective
 from .parallel import MESH_LEARNERS, Network, rank_device
@@ -35,6 +49,9 @@ from .utils.log import LightGBMError
 
 
 def _to_numpy_2d(data) -> np.ndarray:
+    if isinstance(data, Dataset):
+        raise TypeError("Cannot use Dataset instance for prediction, "
+                        "please use raw data instead")
     if hasattr(data, "toarray") and not isinstance(data, np.ndarray):
         # scipy sparse: prediction walks raw feature values row-wise
         return np.asarray(data.toarray(), dtype=np.float64)
@@ -44,10 +61,28 @@ def _to_numpy_2d(data) -> np.ndarray:
     return arr
 
 
+class Sequence(abc.ABC):
+    """Row access for streaming Dataset construction (reference
+    ``lightgbm.Sequence``; JAX ``basic.py:38-62``): subclass with
+    ``__getitem__`` (an int gives a 1-D row, a slice 2-D rows) and
+    ``__len__``; ``batch_size`` sets the streaming chunk.  Pass one, or
+    a list of them, as ``Dataset(data=...)``: the whole float matrix is
+    never made."""
+
+    batch_size: int = 4096
+
+    @abc.abstractmethod
+    def __getitem__(self, idx):
+        raise NotImplementedError
+
+    @abc.abstractmethod
+    def __len__(self) -> int:
+        raise NotImplementedError
+
+
 class Dataset:
-    """Training data wrapper (reference basic.py:1194): dense numpy
-    input, binned on :meth:`construct` (or when a Booster first uses
-    it)."""
+    """Training data wrapper (reference basic.py:1194), binned on
+    :meth:`construct` (or when a Booster first uses it)."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
@@ -66,6 +101,7 @@ class Dataset:
         self.params = dict(params) if params else {}
         self.free_raw_data = free_raw_data
         self._binned: Optional[BinnedDataset] = None
+        self.used_indices = None
 
     def _update_params(self, params: Optional[Dict[str, Any]]) -> "Dataset":
         for k, v in (params or {}).items():
@@ -85,7 +121,26 @@ class Dataset:
         if self.data is None:
             raise LightGBMError("Dataset has no data to construct from")
         cfg = Config.from_params(self.params)
-        feature_names = ([str(s) for s in self.feature_name]
+        data = self.data
+        label, weight, group = self.label, self.weight, self.group
+        seqs = None
+        if isinstance(data, Sequence):
+            seqs = [data]
+        elif (isinstance(data, list) and data
+              and all(isinstance(q, Sequence) for q in data)):
+            seqs = data
+        elif isinstance(data, (str, Path)):
+            path = str(data)
+            if path.endswith(".bin") or path.endswith(".npz"):
+                self._binned = BinnedDataset.load_binary(path)
+                return self
+            from .io.loader import load_text_file
+            data, file_label, file_weight, file_group = load_text_file(
+                path, config=cfg)
+            label = file_label if label is None else label
+            weight = file_weight if weight is None else weight
+            group = file_group if group is None else group
+        feature_names = ([str(q) for q in self.feature_name]
                          if isinstance(self.feature_name, (list, tuple))
                          else None)
         cat_idx = None
@@ -103,13 +158,34 @@ class Dataset:
                        if x.strip().lstrip("-").isdigit()]
         ref = (self.reference.construct()._binned
                if self.reference is not None else None)
-        self._binned = BinnedDataset.construct(
-            self.data, cfg, label=self.label, weight=self.weight,
-            group=self.group, init_score=self.init_score,
-            feature_names=feature_names,
-            categorical_indices=cat_idx, reference=ref)
+        build = (BinnedDataset.construct if seqs is None else
+                 BinnedDataset.construct_from_sequences)
+        self._binned = build(
+            data if seqs is None else seqs, cfg, label=label, weight=weight,
+            group=group, init_score=self.init_score,
+            feature_names=feature_names, categorical_indices=cat_idx,
+            reference=ref)
         if self.free_raw_data:
             self.data = None
+        return self
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
+        """A validation Dataset binned with this one's mappers."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score,
+                       params=params or self.params)
+
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._binned is not None:
+            self._binned.metadata.set_label(label)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._binned is not None:
+            self._binned.metadata.set_weight(weight)
         return self
 
     def set_init_score(self, init_score) -> "Dataset":
@@ -128,6 +204,16 @@ class Dataset:
             self._binned.metadata.set_group(group)
         return self
 
+    def get_label(self):
+        if self._binned is not None:
+            return self._binned.metadata.label
+        return self.label
+
+    def get_weight(self):
+        if self._binned is not None:
+            return self._binned.metadata.weight
+        return self.weight
+
     def get_group(self):
         """Per-query sizes: from the binned metadata once constructed,
         else as given."""
@@ -136,11 +222,55 @@ class Dataset:
             return np.diff(self._binned.metadata.query_boundaries)
         return self.group
 
+    def get_init_score(self):
+        """The init score as it was given (the JAX package's getter)."""
+        return self.init_score
+
+    def get_feature_name(self) -> List[str]:
+        return self.construct()._binned.feature_names
+
     def num_data(self) -> int:
         return self.construct()._binned.num_data
 
     def num_feature(self) -> int:
         return self.construct()._binned.num_total_features
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """The rows ``used_indices`` of this Dataset, binned with its
+        mappers (``BinnedDataset.subset``)."""
+        self.construct()
+        d = Dataset.__new__(Dataset)
+        d.__dict__.update(self.__dict__)
+        d._binned = self._binned.subset(np.asarray(used_indices))
+        d.used_indices = used_indices
+        return d
+
+    def save_binary(self, filename) -> "Dataset":
+        """The binary cache (the JAX package's npz layout) at exactly
+        ``filename``; ``Dataset(filename)`` loads it back."""
+        self.construct()._binned.save_binary(str(filename))
+        return self
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Dataset::AddFeaturesFrom: ``other``'s features appended to
+        this Dataset's (the same rows).  The raw values kept under
+        ``linear_tree`` are appended when both kept them, else dropped."""
+        self.construct()
+        other.construct()
+        a, b = self._binned, other._binned
+        if a.num_data != b.num_data:
+            log.fatal("Cannot add features from dataset with different "
+                      "num_data")
+        a.bin_matrix = np.concatenate([a.bin_matrix, b.bin_matrix], axis=1)
+        a.raw_matrix = (np.concatenate([a.raw_matrix, b.raw_matrix], axis=1)
+                        if a.raw_matrix is not None
+                        and b.raw_matrix is not None else None)
+        a.mappers = a.mappers + b.mappers
+        a.used_feature_map = np.concatenate(
+            [a.used_feature_map, b.used_feature_map + a.num_total_features])
+        a.feature_names = a.feature_names + b.feature_names
+        a.num_total_features += b.num_total_features
+        return self
 
 
 class Booster:
@@ -164,6 +294,7 @@ class Booster:
         self._loaded = None
         self._inner: Optional[GBDT] = None
         self._name_valid_sets: List[str] = []
+        self._train_data_name = "training"
         self._serve_engines: Dict = {}
         self.train_set = train_set
         if train_set is not None:
@@ -236,6 +367,21 @@ class Booster:
             return self._inner.current_iteration()
         return len(self._loaded.models) // max(self._k, 1)
 
+    def num_model_per_iteration(self) -> int:
+        return self._k
+
+    def feature_name(self) -> List[str]:
+        if self._inner is not None:
+            return self._inner.train_set.feature_names
+        return self._loaded.feature_names
+
+    @property
+    def _model_target(self):
+        """The object the model writers read: the trained booster, or a
+        loaded model under its names."""
+        return (self._inner if self._inner is not None
+                else _LoadedAdapter(self._loaded))
+
     # -- training --------------------------------------------------------
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         if self._inner is None:
@@ -249,13 +395,40 @@ class Booster:
         self._name_valid_sets.append(name)
         return self
 
-    def update(self) -> bool:
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
         """One boosting iteration; True when training should stop
-        (reference Booster.update)."""
+        (reference Booster.update).  ``fobj(preds, train_set)`` is a
+        custom objective: it sees the f64 training scores of the
+        ``num_data`` rows (``[n]``, or ``[n, K]``) and returns the
+        gradients and hessians (numpy arrays or tensors; ``[n, K]`` is
+        transposed), which go to the booster's device once each."""
         if self._inner is None:
             raise LightGBMError("Cannot update a loaded model")
+        if train_set is not None:
+            raise LightGBMError("Resetting train set on an existing "
+                                "booster is not supported yet")
         self._serve_engines.clear()
-        return self._inner.train_one_iter()
+        if fobj is None:
+            return self._inner.train_one_iter()
+        inner = self._inner
+        # the host's part of the stage; the copies to the device are
+        # timed in train_one_iter's
+        with inner.timer.stage("gradients", inner.device):
+            grad, hess = (v if isinstance(v, torch.Tensor)
+                          else np.asarray(v, np.float32)
+                          for v in fobj(self._predict_for_fobj(),
+                                        self.train_set))
+        if grad.ndim == 2:     # [n, K] -> [K, n]
+            grad, hess = grad.T, hess.T
+        return inner.train_one_iter(grad, hess)
+
+    def _predict_for_fobj(self) -> np.ndarray:
+        """The training scores a custom objective sees: f64, the
+        ``num_data`` rows, ``[n]`` or ``[n, K]``."""
+        n = self.train_set._binned.num_data
+        score = self._inner.get_training_score()[:, :n].double().cpu().numpy()
+        return score[0] if self._k == 1 else score.T
 
     def rollback_one_iter(self) -> "Booster":
         """Drop the last iteration's trees and their outputs from the
@@ -267,17 +440,25 @@ class Booster:
         self._inner.rollback_one_iter()
         return self
 
-    def eval_train(self) -> List:
-        return self._eval("training")
+    def eval_train(self, feval=None) -> List:
+        return self._eval("training", feval)
 
-    def eval_valid(self) -> List:
+    def eval_valid(self, feval=None) -> List:
         out = []
         for name in self._name_valid_sets:
-            out.extend(self._eval(name))
+            out.extend(self._eval(name, feval))
         return out
 
-    def _eval(self, dataset_name: str) -> List:
-        return [r for r in self._inner.eval() if r[0] == dataset_name]
+    def eval(self, data, name: str, feval=None) -> List:
+        """The metrics of the set added under ``name`` (``data`` is not
+        read, as in the JAX package)."""
+        return self._eval(name, feval)
+
+    def _eval(self, dataset_name: str, feval=None) -> List:
+        res = [r for r in self._inner.eval() if r[0] == dataset_name]
+        if feval is not None:
+            res.extend(_run_feval(self, feval, dataset_name))
+        return res
 
     # ------------------------------------------------------------------
     def predict(
@@ -408,6 +589,61 @@ class Booster:
         return np.asarray(scores, np.float64).T
 
     # ------------------------------------------------------------------
+    def refit(self, data, label, weight=None, decay_rate: float = 0.9,
+              **kwargs) -> "Booster":
+        """A copy of the model with every tree's structure kept and its
+        leaf values refit on ``data`` (reference GBDT::RefitTree; JAX
+        ``basic.py:670-725``).  Each row's leaf comes from the traversal
+        kernel's leaf entry (one ``leaves_only`` serving model, rows
+        cast to f32 as serving casts them); per iteration the
+        objective's gradients are taken on the booster's device at the
+        refitted scores (f64, rounded to f32), summed per leaf in f64 in
+        row order on the host (``np.bincount``, as the JAX package sums,
+        so the card's leaf values are the CPU run's), and the new leaf
+        output, L1-thresholded, over ``h + lambda_l2``, times the tree's
+        shrinkage, is blended with the old by ``decay_rate``."""
+        from .serve import ServingEngine, ServingModel
+        X = _to_numpy_2d(data)
+        y = np.asarray(label, np.float64).reshape(-1)
+        n = X.shape[0]
+        dev = self.device
+        new_b = Booster(model_str=self.model_to_string(), device=dev)
+        models, k = new_b._models, new_b._k
+        cfg = _refit_config({**self.params, **kwargs}, self._objective_str,
+                            new_b._loaded.num_class)
+        objective = create_objective(cfg)
+        if objective is None:
+            log.fatal("refit requires a model with an objective")
+        md = Metadata()
+        md.set_label(y)
+        if weight is not None:
+            md.set_weight(np.asarray(weight, np.float64))
+        md.num_data = n
+        objective.init(md, n, dev)
+        sm = ServingModel.from_booster(new_b, device=dev, leaves_only=True)
+        leaves = ServingEngine(sm, device=dev).predict_leaves(X)   # [n, T]
+        leaves_dev = torch.as_tensor(leaves, device=dev).long()
+        l1, l2 = cfg.lambda_l1, cfg.lambda_l2
+        score = torch.zeros((k, n), dtype=torch.float64, device=dev)
+        for it in range(len(models) // k):
+            g, h = objective.get_gradients(_class_view(score.float()))
+            g = g.reshape(k, n).double().cpu().numpy()
+            h = h.reshape(k, n).double().cpu().numpy()
+            for c in range(k):
+                j = it * k + c
+                tree, leaf = models[j], leaves[:, j]
+                nl = tree.num_leaves
+                sg = np.bincount(leaf, weights=g[c], minlength=nl)
+                sh = np.bincount(leaf, weights=h[c], minlength=nl)
+                sg_t = np.sign(sg) * np.maximum(np.abs(sg) - l1, 0.0)
+                new_out = -sg_t / (sh + l2 + 1e-38) * tree.shrinkage
+                tree.leaf_value = (decay_rate * tree.leaf_value
+                                   + (1.0 - decay_rate) * new_out)
+                score[c] += torch.as_tensor(tree.leaf_value,
+                                            device=dev)[leaves_dev[:, j]]
+        return new_b
+
+    # ------------------------------------------------------------------
     def save_model(self, filename, num_iteration: Optional[int] = None,
                    start_iteration: int = 0,
                    importance_type: str = "split") -> "Booster":
@@ -423,10 +659,35 @@ class Booster:
             num_iteration = self.best_iteration if self.best_iteration > 0 \
                 else -1
         imp = 0 if importance_type == "split" else 1
-        target = (self._inner if self._inner is not None
-                  else _LoadedAdapter(self._loaded))
-        return save_model_to_string(target, start_iteration, num_iteration,
-                                    imp)
+        return save_model_to_string(self._model_target, start_iteration,
+                                    num_iteration, imp)
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> dict:
+        """The model as the JAX package's JSON dictionary
+        (``model_text.dump_model_to_json``)."""
+        return dump_model_to_json(self._model_target, start_iteration,
+                                  num_iteration or -1)
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """Split counts (int32) or summed gains (f64) per feature."""
+        imp = 0 if importance_type == "split" else 1
+        out = feature_importance(self._model_target, iteration or -1, imp)
+        return out if imp else out.astype(np.int32)
+
+    def free_dataset(self) -> "Booster":
+        return self
+
+    def free_network(self) -> "Booster":
+        """Reference LGBM_BoosterFreeNetwork: end the process group
+        (``parallel.network.Network.dispose``)."""
+        Network.dispose()
+        return self
+
+    def set_train_data_name(self, name: str) -> "Booster":
+        self._train_data_name = name
+        return self
 
 
 class _LoadedAdapter:
@@ -443,6 +704,64 @@ class _LoadedAdapter:
         self.feature_infos = loaded.feature_infos
         self.max_feature_idx = loaded.max_feature_idx
         self.param_string = loaded_param_string(loaded.num_class)
+
+
+def _refit_config(params: Dict[str, Any], objective_str: str,
+                  num_class: int) -> Config:
+    """The refit's objective: the parameters', else the model's own
+    (its objective string's name, ``sigmoid:`` and ``num_class:``)."""
+    cfg = Config.from_params(params)
+    named = {Config.canonical_name(key) for key in params}
+    if objective_str and "objective" not in named:
+        toks = objective_str.split()
+        cfg.objective = toks[0]
+        for tok in toks[1:]:
+            key, _, v = tok.partition(":")
+            if key == "sigmoid":
+                cfg.sigmoid = float(v)
+        cfg.num_class = num_class
+    return cfg
+
+
+def _run_feval(booster: Booster, feval, dataset_name: str) -> List:
+    """A custom metric's results on one set (JAX ``basic.py:816-848``):
+    each ``feval(preds, eval_data)`` sees the converted scores of the
+    set's rows (``[n]``, or ``[n, K]``) and gives ``(name, value,
+    higher_better)`` or a list of them."""
+    inner = booster._inner
+    datasets = {"training": (inner.training_scores(), inner.train_set)}
+    for vs in inner.valid_sets:
+        datasets[vs.name] = (vs.scores, vs.data)
+    if dataset_name not in datasets:
+        return []
+    score, bds = datasets[dataset_name]
+    prob, _ = inner.converted_scores(score)
+    prob = prob[..., :bds.num_data]
+    preds = prob if booster._k == 1 else prob.T
+    md = bds.metadata
+
+    class _EvalData:
+        label = md.label
+
+        @staticmethod
+        def get_label():
+            return md.label
+
+        @staticmethod
+        def get_weight():
+            return md.weight
+
+        @staticmethod
+        def get_group():
+            qb = md.query_boundaries
+            return None if qb is None else np.diff(qb)
+
+    out = []
+    for f in (feval if isinstance(feval, (list, tuple)) else [feval]):
+        res = f(preds, _EvalData())
+        for name, value, hb in ([res] if isinstance(res, tuple) else res):
+            out.append((dataset_name, name, value, hb))
+    return out
 
 
 def _convert_output_np(raw: np.ndarray, objective_str: str) -> np.ndarray:

@@ -1,10 +1,11 @@
-"""Training callbacks: ``log_evaluation``, ``record_evaluation`` and
-``early_stopping``.
+"""Training callbacks: ``log_evaluation``, ``record_evaluation``,
+``early_stopping`` and ``reset_parameter``.
 
-The port's own copy of these three from ``lightgbm_tpu/callback.py``
+The port's own copy of these four from ``lightgbm_tpu/callback.py``
 (reference python-package/lightgbm/callback.py): callables taking a
-``CallbackEnv``, stopping by ``EarlyStopException``.  The tracing
-callback and ``reset_parameter`` are not ported.
+``CallbackEnv``, run before the iteration where ``before_iteration`` is
+set, stopping by ``EarlyStopException``.  The tracing callback is not
+ported.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Callable, Dict, List, Union
 from .utils import log
 
 __all__ = ["early_stopping", "log_evaluation", "record_evaluation",
-           "CallbackEnv", "EarlyStopException"]
+           "reset_parameter", "CallbackEnv", "EarlyStopException"]
 
 CallbackEnv = collections.namedtuple(
     "CallbackEnv",
@@ -159,4 +160,33 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
                                  for x in best_score_list[i]))
                 raise EarlyStopException(best_iter[i], best_score_list[i])
     _callback.order = 30
+    return _callback
+
+
+def reset_parameter(**kwargs) -> Callable:
+    """Reset parameters before each iteration (JAX ``callback.py:88-109``):
+    each value is a list with one entry an iteration (its length must be
+    ``num_boost_round``) or a function of the iteration.  A new
+    ``learning_rate`` becomes the booster's shrinkage rate and its
+    config's ``learning_rate``, which the grower reads on every call."""
+
+    def _callback(env: CallbackEnv) -> None:
+        new_parameters = {}
+        for key, value in kwargs.items():
+            if isinstance(value, list):
+                if len(value) != env.end_iteration - env.begin_iteration:
+                    raise ValueError(f"Length of list {key!r} has to equal "
+                                     f"to 'num_boost_round'.")
+                new_param = value[env.iteration - env.begin_iteration]
+            else:
+                new_param = value(env.iteration - env.begin_iteration)
+            new_parameters[key] = new_param
+        if new_parameters:
+            inner = getattr(env.model, "_inner", None)
+            if "learning_rate" in new_parameters and inner is not None:
+                inner.shrinkage_rate = new_parameters["learning_rate"]
+                inner.config.learning_rate = new_parameters["learning_rate"]
+            env.params.update(new_parameters)
+    _callback.before_iteration = True
+    _callback.order = 10
     return _callback

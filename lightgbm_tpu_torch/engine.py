@@ -1,12 +1,18 @@
-"""Training API: ``train()`` (reference python-package engine.py:28).
+"""Training API: ``train()`` and ``cv()`` (reference python-package
+engine.py:28, :404).
 
-Counterpart of ``lightgbm_tpu/engine.py`` ``train``: the same loop of
-before / after callbacks, ``booster.update()``, evaluation and
-``EarlyStopException`` handling, on the device ``device`` names
-(``"cuda"`` unless the caller asks for ``"cpu"``), and continued
-training from ``init_model`` (JAX ``engine.py:65-85``).  Custom
-objectives, ``feval``, checkpoint/resume and fault handling are not
-ported (``ROADMAP.md`` A5, A11).
+Counterpart of ``lightgbm_tpu/engine.py``: the same loop of before /
+after callbacks, ``booster.update()``, evaluation with the custom
+metrics ``feval`` and ``EarlyStopException`` handling, on the device
+``device`` names (``"cuda"`` unless the caller asks for ``"cpu"``).  A
+callable ``objective`` is a custom objective: the booster trains with
+``objective="none"`` and takes its gradients each iteration.
+``init_model`` continues training (JAX ``engine.py:65-85``).  ``cv``
+trains one booster a fold on the JAX package's folds (numpy
+``default_rng(seed)``, stratified for the classification objectives),
+each fold a ``Dataset.subset`` of the constructed dataset sharing its
+mappers.  Checkpoint / resume and fault handling are not ported
+(``ROADMAP.md`` A11).
 """
 from __future__ import annotations
 
@@ -20,9 +26,8 @@ from . import callback as callback_mod
 from .basic import Booster, Dataset
 from .config import Config
 from .metric import create_metrics
-from .utils.log import LightGBMError
 
-__all__ = ["train"]
+__all__ = ["train", "cv", "CVBooster"]
 
 
 def train(
@@ -31,24 +36,26 @@ def train(
     num_boost_round: int = 100,
     valid_sets: Optional[Union[Dataset, Sequence[Dataset]]] = None,
     valid_names: Optional[Sequence[str]] = None,
+    feval=None,
+    init_model: Optional[Union[str, Booster]] = None,
+    keep_training_booster: bool = False,
     callbacks: Optional[Sequence[Callable]] = None,
     device="cuda",
     timer=None,
-    init_model: Optional[Union[str, Booster]] = None,
 ) -> Booster:
     """Train a booster on ``device``; ``timer`` (an enabled
-    ``ops.grow.StageTimer``) records the per-stage device time.
+    ``ops.grow.StageTimer``) records the per-stage device time.  A
+    callable ``params["objective"]`` is ``fobj(preds, train_set) ->
+    (grad, hess)``; ``feval`` (one or a list) adds custom metrics.
     ``init_model`` (a ``Booster``, a model file or a model string)
     continues training: its trees are kept, its raw predictions are the
     dataset's init score where it has none, and a model with linear
-    trees makes ``linear_tree`` the default."""
-    params = dict(params or {})
+    trees makes ``linear_tree`` the default.  ``keep_training_booster``
+    is accepted and, as in the JAX package, changes nothing."""
+    params, fobj = _split_fobj(params)
     cfg = Config.from_params(params)
     if "num_iterations" in {Config.canonical_name(k) for k in params}:
         num_boost_round = cfg.num_iterations
-    if callable(params.get("objective")):
-        raise LightGBMError("custom objective functions are not ported to "
-                            "lightgbm_tpu_torch yet (see ROADMAP.md A5)")
 
     predictor = None
     if init_model is not None:
@@ -88,7 +95,8 @@ def train(
         cbs.append(callback_mod.early_stopping(cfg.early_stopping_round,
                                                cfg.first_metric_only))
     if cfg.verbosity >= 1 and cfg.metric_freq > 0 and not any(
-            getattr(c, "order", None) == 10 for c in cbs):
+            getattr(c, "order", None) == 10
+            and not getattr(c, "before_iteration", False) for c in cbs):
         cbs.append(callback_mod.log_evaluation(cfg.metric_freq))
     cbs_before = sorted((c for c in cbs
                          if getattr(c, "before_iteration", False)),
@@ -102,12 +110,12 @@ def train(
         for cb in cbs_before:
             cb(callback_mod.CallbackEnv(booster, params, it, 0,
                                         num_boost_round, None))
-        finished = booster.update()
+        finished = booster.update(fobj=fobj)
         evaluation_result_list = []
         if ((it + 1) % max(cfg.metric_freq, 1) == 0
                 or cfg.early_stopping_round):
-            evaluation_result_list = (booster.eval_train()
-                                      + booster.eval_valid())
+            evaluation_result_list = (booster.eval_train(feval)
+                                      + booster.eval_valid(feval))
         try:
             for cb in cbs_after:
                 cb(callback_mod.CallbackEnv(booster, params, it, 0,
@@ -123,6 +131,17 @@ def train(
         booster.best_iteration = booster.current_iteration()
         _record_best(booster, evaluation_result_list)
     return booster
+
+
+def _split_fobj(params):
+    """A copy of ``params`` with a callable ``objective`` (a custom
+    objective) replaced by ``"none"``, and the callable (or None)."""
+    params = dict(params or {})
+    fobj = params.get("objective")
+    if not callable(fobj):
+        return params, None
+    params["objective"] = "none"
+    return params, fobj
 
 
 def _init_predictor(init_model, device) -> Booster:
@@ -141,3 +160,131 @@ def _record_best(booster: Booster, results) -> None:
     for item in results or []:
         ds, metric, value = item[0], item[1], item[2]
         booster.best_score.setdefault(ds, {})[metric] = value
+
+
+class CVBooster:
+    """The folds' boosters (reference engine.py CVBooster): a method
+    called on it is called on each booster, its results in a list."""
+
+    def __init__(self):
+        self.boosters: List[Booster] = []
+        self.best_iteration = -1
+
+    def append(self, b: Booster) -> None:
+        self.boosters.append(b)
+
+    def __getattr__(self, name):
+        def handler(*args, **kwargs):
+            return [getattr(b, name)(*args, **kwargs) for b in self.boosters]
+        return handler
+
+
+def _make_n_folds(full_data: Dataset, nfold: int, seed: int,
+                  stratified: bool, shuffle: bool):
+    """``(train_idx, test_idx)`` of each fold, the JAX package's folds
+    index for index: numpy ``default_rng(seed)`` shuffles each class's
+    rows (stratified) or all rows, ``np.array_split`` cuts them."""
+    num_data = full_data.construct().num_data()
+    rng = np.random.default_rng(seed)
+    if stratified:
+        label = np.asarray(full_data.get_label())
+        folds_idx = [[] for _ in range(nfold)]
+        for c in np.unique(label):
+            idx_c = np.flatnonzero(label == c)
+            if shuffle:
+                rng.shuffle(idx_c)
+            for i, part in enumerate(np.array_split(idx_c, nfold)):
+                folds_idx[i].append(part)
+        folds_idx = [np.concatenate(parts) for parts in folds_idx]
+    else:
+        idx = np.arange(num_data)
+        if shuffle:
+            rng.shuffle(idx)
+        folds_idx = np.array_split(idx, nfold)
+    for i in range(nfold):
+        test_idx = np.sort(np.asarray(folds_idx[i]))
+        train_idx = np.sort(np.concatenate(
+            [folds_idx[j] for j in range(nfold) if j != i]))
+        yield train_idx, test_idx
+
+
+def cv(
+    params: Dict[str, Any],
+    train_set: Dataset,
+    num_boost_round: int = 100,
+    folds=None,
+    nfold: int = 5,
+    stratified: bool = True,
+    shuffle: bool = True,
+    metrics=None,
+    feval=None,
+    init_model=None,
+    seed: int = 0,
+    callbacks: Optional[Sequence[Callable]] = None,
+    eval_train_metric: bool = False,
+    return_cvbooster: bool = False,
+    device="cuda",
+) -> Dict[str, List[float]]:
+    """Cross-validation (JAX ``engine.py:389-469``): one booster a fold
+    on ``device``, all updated each round; the result holds
+    ``"valid <metric>-mean"`` and ``-stdv`` a round (``"train ..."``
+    too under ``eval_train_metric``), cut at the best round when early
+    stopping on the first metric's mean ends it, and ``"cvbooster"``
+    under ``return_cvbooster``.  ``folds`` (pairs of index arrays)
+    replaces the generated folds.  As in the JAX package,
+    ``init_model`` and ``callbacks`` are accepted and not used."""
+    params, fobj = _split_fobj(params)
+    if metrics is not None:
+        params["metric"] = metrics
+    cfg = Config.from_params(params)
+    if "num_iterations" in {Config.canonical_name(k) for k in params}:
+        num_boost_round = cfg.num_iterations
+    train_set.construct()
+    if stratified and cfg.objective not in ("binary", "multiclass",
+                                            "multiclassova"):
+        stratified = False
+    if folds is None:
+        folds = _make_n_folds(train_set, nfold, seed, stratified, shuffle)
+    cvbooster = CVBooster()
+    for train_idx, test_idx in folds:
+        b = Booster(params=params, train_set=train_set.subset(train_idx),
+                    device=device)
+        b.add_valid(train_set.subset(test_idx), "valid")
+        cvbooster.append(b)
+
+    results: Dict[str, List[float]] = {}
+    es_rounds = cfg.early_stopping_round
+    best_iter, no_improve, best_agg = -1, 0, None
+    for it in range(num_boost_round):
+        agg: Dict[str, List[float]] = {}
+        hb_map: Dict[str, bool] = {}
+        for b in cvbooster.boosters:
+            b.update(fobj=fobj)
+            for ds, name, value, hb in b.eval_valid(feval):
+                key = f"{ds} {name}"
+                agg.setdefault(key, []).append(value)
+                hb_map[key] = hb
+            if eval_train_metric:
+                for _, name, value, hb in b.eval_train(feval):
+                    key = f"train {name}"
+                    agg.setdefault(key, []).append(value)
+                    hb_map[key] = hb
+        for key, vals in agg.items():
+            results.setdefault(f"{key}-mean", []).append(float(np.mean(vals)))
+            results.setdefault(f"{key}-stdv", []).append(float(np.std(vals)))
+        if es_rounds and es_rounds > 0 and agg:
+            key0 = next(iter(agg))
+            mean0 = results[f"{key0}-mean"][-1]
+            if (best_agg is None or (mean0 > best_agg if hb_map[key0]
+                                     else mean0 < best_agg)):
+                best_agg, best_iter, no_improve = mean0, it + 1, 0
+            else:
+                no_improve += 1
+                if no_improve >= es_rounds:
+                    cvbooster.best_iteration = best_iter
+                    for key in list(results):
+                        results[key] = results[key][:best_iter]
+                    break
+    if return_cvbooster:
+        results["cvbooster"] = cvbooster
+    return results

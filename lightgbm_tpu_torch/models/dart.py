@@ -141,10 +141,12 @@ class DART(GBDT):
                                    cfg.learning_rate / (cfg.learning_rate + k))
 
     # -- one iteration -----------------------------------------------------
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
+        # the drop happens before a custom objective's gradients too
+        # (Booster.update reads the dropped scores for them)
         with self.timer.stage("dart", self.device):
             self.get_training_score()
-        finished = super().train_one_iter()
+        finished = super().train_one_iter(gradients, hessians)
         with self.timer.stage("dart", self.device):
             self.replicas += [self._replica(t) for t in
                               self.models[len(self.replicas):]]

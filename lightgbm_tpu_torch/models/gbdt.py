@@ -633,17 +633,49 @@ class GBDT:
         self._undo = (self.iter_, self.scores.clone(),
                       [vs.scores.clone() for vs in self.valid_sets])
 
-    def train_one_iter(self) -> bool:
+    def explicit_gradients(self, gradients, hessians):
+        """A custom objective's ``[K, n]`` gradients and hessians (numpy
+        arrays or tensors, ``[K * n]`` or ``[K, n]``) as f32 tensors on
+        the booster's device: one copy each from the host, none for a
+        tensor already there, under the stage ``gradients``."""
+        k, n = self.num_tree_per_iteration, self.scores.shape[1]
+        with self.timer.stage("gradients", self.device):
+            g, h = (torch.as_tensor(v, dtype=torch.float32).to(
+                self.device).reshape(k, n) for v in (gradients, hessians))
+        return g, h
+
+    def _check_explicit(self, explicit: bool) -> None:
+        """The JAX package's refusals (``gbdt.py:1285-1288``, ``:1337``):
+        no objective and no gradients; gradients on the stream route;
+        and, in the port, gradients under a parallel learner (A10)."""
+        if not explicit and self.objective is None:
+            log.fatal("No objective function and no custom gradients "
+                      "provided")
+        if explicit and self.route.stream:
+            log.fatal("explicit gradients are not supported with "
+                      "score-resident gradient streaming; set "
+                      "objective=none or LGBM_TPU_STREAM=0")
+        if explicit and self.comm is not None:
+            _unported(f"explicit gradients under tree_learner="
+                      f"{self.config.tree_learner}", "A10")
+
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
         """One boosting iteration, one tree a class; True when training
         cannot continue (no class's tree could split), like
-        GBDT::TrainOneIter."""
-        if self.objective is None:
-            log.fatal("No objective function provided")
+        GBDT::TrainOneIter.  ``gradients`` and ``hessians`` (``[K, n]``,
+        a custom objective's) replace the objective's for this
+        iteration and go through the sampling hook as the objective's
+        do; an iteration with them has no boost from average."""
+        explicit = gradients is not None and hessians is not None
+        self._check_explicit(explicit)
+        if explicit:
+            gradients, hessians = self.explicit_gradients(gradients,
+                                                          hessians)
         self._keep_undo()
         dev = self.device
         k = self.num_tree_per_iteration
         init_scores = np.zeros(k)
-        if (not self.models and not self._has_init_score
+        if (not explicit and not self.models and not self._has_init_score
                 and self.config.boost_from_average):
             init_scores = np.array(
                 self.objective.boost_from_score() if self._boost_init is None
@@ -661,6 +693,10 @@ class GBDT:
             # there at the previous tree's end; the route takes no sample
             grad = hess = [None] * k
             inbag = self._valid_rows
+        elif explicit:
+            with self.timer.stage("sample", self.device):
+                grad, hess, inbag = self._sample(gradients, hessians,
+                                                 self.iter_)
         else:
             grad, hess, inbag = self._sampled_gradients()
         grew = False
@@ -701,7 +737,7 @@ class GBDT:
             self.models.append(Tree.single_leaf(init_score))
             self._linear.append(None)
             return None
-        if self.objective.NEEDS_RENEW:
+        if self.objective is not None and self.objective.NEEDS_RENEW:
             with self.timer.stage("leaf_renew", self.device):
                 leaf_value, host_values = self._renew_leaves(
                     leaf_id, leaf_value, inbag, c)
@@ -867,6 +903,25 @@ class GBDT:
             reset()
 
     # ------------------------------------------------------------------
+    def training_scores(self) -> torch.Tensor:
+        """The [K, n] training scores of every row (under the data and
+        voting learners every rank's rows, gathered in rank order)."""
+        if self._rows_sharded:
+            return self.comm.gather_rows(self.scores, self.train_set.num_data)
+        return self.scores
+
+    def converted_scores(self, score: torch.Tensor):
+        """``(converted, raw)`` f64 numpy arrays of [K, n] scores, [n]
+        for a one-model booster (JAX ``_converted_scores``): RF's sums
+        averaged, then the objective's output transform."""
+        raw = _class_view(score.detach())
+        if self.average_output:
+            # RF: the scores hold the sum of the trees' outputs
+            raw = raw / max(self.iter_, 1)
+        conv = (self.objective.convert_output(raw)
+                if self.objective is not None else raw)
+        return conv.double().cpu().numpy(), raw.double().cpu().numpy()
+
     def eval(self) -> List[Tuple[str, str, float, bool]]:
         """[(dataset_name, metric_name, value, higher_better)] like
         GBDT::OutputMetric."""
@@ -875,23 +930,13 @@ class GBDT:
         def run(metrics, score, ds_name):
             if not metrics:
                 return
-            raw = _class_view(score.detach())
-            if self.average_output:
-                # RF: the scores hold the sum of the trees' outputs
-                raw = raw / max(self.iter_, 1)
-            conv = (self.objective.convert_output(raw)
-                    if self.objective is not None else raw)
-            prob = conv.double().cpu().numpy()
-            raw_np = raw.double().cpu().numpy()
+            prob, raw_np = self.converted_scores(score)
             for m in metrics:
                 for name, v, hb in m.eval(prob, raw_np):
                     out.append((ds_name, name, v, hb))
 
-        train = self.scores
-        if self._train_metrics and self._rows_sharded:
-            # every rank's rows, in rank order
-            train = self.comm.gather_rows(self.scores, self.train_set.num_data)
-        run(self._train_metrics, train, "training")
+        if self._train_metrics:
+            run(self._train_metrics, self.training_scores(), "training")
         for vs in self.valid_sets:
             run(vs.metrics, vs.scores, vs.name)
         return out

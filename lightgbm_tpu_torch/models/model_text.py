@@ -7,6 +7,8 @@ bytes as ``lightgbm_tpu.models.model_text`` does for the same loaded
 model, so one model file moves between the two packages unchanged; for a
 trained booster it writes what the JAX package writes for the same
 trees, bin mappers and parameters (:func:`feature_infos`).
+:func:`dump_model_to_json` gives the JAX package's JSON dictionary key
+for key.
 """
 from __future__ import annotations
 
@@ -119,6 +121,69 @@ def feature_importance(booster, num_iteration: int = -1,
         else:
             out += t.feature_split_gains(nf)
     return out
+
+
+def dump_model_to_json(booster, start_iteration: int = 0,
+                       num_iteration: int = -1) -> dict:
+    """DumpModel (gbdt_model_text.cpp:25): the JAX package's dictionary
+    (``model_text.py:200-260``), for the writer's ``booster`` of
+    :func:`save_model_to_string`.  A loaded model gives its own
+    ``max_feature_idx`` and feature names (the JAX package gives 0 and
+    none)."""
+    k = booster.num_tree_per_iteration
+    out = {
+        "name": "tree",
+        "version": MODEL_VERSION,
+        "num_class": booster.num_class,
+        "num_tree_per_iteration": k,
+        "label_index": 0,
+        "max_feature_idx": booster.max_feature_idx,
+        "objective": str(booster.objective) if booster.objective else "",
+        "average_output": booster.average_output,
+        "feature_names": list(booster.feature_names),
+        "feature_importances": feature_importance(booster).tolist(),
+        "tree_info": [],
+    }
+    models = booster.models
+    if num_iteration > 0:
+        models = models[start_iteration * k:
+                        (start_iteration + num_iteration) * k]
+    for idx, t in enumerate(models):
+        out["tree_info"].append({
+            "tree_index": idx,
+            "num_leaves": t.num_leaves,
+            "num_cat": t.num_cat,
+            "shrinkage": t.shrinkage,
+            "tree_structure": (_node_to_json(t, 0) if t.num_leaves > 1
+                               else {"leaf_value": float(t.leaf_value[0])}),
+        })
+    return out
+
+
+def _node_to_json(t: Tree, node: int) -> dict:
+    if node < 0:
+        leaf = ~node
+        return {
+            "leaf_index": int(leaf),
+            "leaf_value": float(t.leaf_value[leaf]),
+            "leaf_weight": float(t.leaf_weight[leaf]),
+            "leaf_count": int(t.leaf_count[leaf]),
+        }
+    d = int(t.decision_type[node])
+    return {
+        "split_index": int(node),
+        "split_feature": int(t.split_feature[node]),
+        "split_gain": float(t.split_gain[node]),
+        "threshold": float(t.threshold[node]),
+        "decision_type": "==" if d & 1 else "<=",
+        "default_left": bool(d & 2),
+        "missing_type": ["None", "Zero", "NaN"][(d >> 2) & 3],
+        "internal_value": float(t.internal_value[node]),
+        "internal_weight": float(t.internal_weight[node]),
+        "internal_count": int(t.internal_count[node]),
+        "left_child": _node_to_json(t, int(t.left_child[node])),
+        "right_child": _node_to_json(t, int(t.right_child[node])),
+    }
 
 
 # ---------------------------------------------------------------------------

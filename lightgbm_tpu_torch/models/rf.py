@@ -58,13 +58,20 @@ class RF(GBDT):
             self._rf_grad = super()._gradients()
         return self._rf_grad
 
-    def train_one_iter(self) -> bool:
-        """One tree a class on the iteration's bag; True when no class's
-        tree could split (the JAX package's RF stops then)."""
-        if self.objective is None:
-            log.fatal("No objective function provided")
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
+        """One tree a class on the iteration's bag (a custom objective's
+        ``gradients`` and ``hessians`` in place of the objective's); True
+        when no class's tree could split (the JAX package's RF stops
+        then)."""
+        explicit = gradients is not None and hessians is not None
+        self._check_explicit(explicit)
         self._keep_undo()
-        grad, hess, inbag = self._sampled_gradients()
+        if explicit:
+            grad, hess = self.explicit_gradients(gradients, hessians)
+            with self.timer.stage("sample", self.device):
+                grad, hess, inbag = self._sample(grad, hess, self.iter_)
+        else:
+            grad, hess, inbag = self._sampled_gradients()
         grew = False
         for c in range(self.num_tree_per_iteration):
             if self._train_one_tree(grad[c], hess[c], inbag, c,

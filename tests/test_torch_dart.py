@@ -423,7 +423,19 @@ def test_dart_trains_the_split_options(params, rule):
 
 
 def test_callable_objective_names_a5():
+    """A callable objective (ROADMAP A5, ported since) trains a DART
+    booster as objective none with its gradients, the drop taken before
+    the objective reads the scores."""
     x, y = _data(300, 4, 1)
-    with pytest.raises(LightGBMError, match=r"ROADMAP\.md A5\)"):
-        lgt.train({"objective": lambda p, d: (p, p), "verbosity": -1},
-                  lgt.Dataset(x, label=y), 1, device="cpu")
+    seen = []
+
+    def fobj(p, d):
+        seen.append(p.copy())
+        return p - d.get_label(), np.ones_like(p)
+    bst = lgt.train({"objective": fobj, "boosting": "dart", "drop_rate": 0.5,
+                     "verbosity": -1}, lgt.Dataset(x, label=y), 3,
+                    device="cpu")
+    assert bst._inner.objective is None and len(bst._models) == 3
+    assert [p.shape for p in seen] == [(300,)] * 3 and not seen[0].any()
+    assert bst._inner.grow.route.describe().startswith(
+        "path=physical fused=1 tail=kernel (objective_not_streamable")

@@ -215,6 +215,16 @@ def _assert_close_trees(port_trees, jax_models):
 DATA_P = {"tree_learner": "data"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _keep_log_verbosity():
+    """The tests here quiet the port's log; the next file in this
+    process gets the verbosity it had back."""
+    from lightgbm_tpu_torch.utils import log
+    verbosity = log.get_verbosity()
+    yield
+    log.set_verbosity(verbosity)
+
+
 @pytest.fixture(scope="module")
 def w2():
     return spawn(2, [
