@@ -3537,7 +3537,11 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
             raise RuntimeError("the scores the rows carry differ from the "
                                "booster's training scores")
     per_it = np.diff([t_start] + its)
-    stages = {k: v / len(models) for k, v in timer.totals_ms().items()}
+    calls = timer.calls_ms()
+    stages = {k: sum(v) / len(models) for k, v in calls.items()}
+    # the stages run once a tree: tree 0 (the kernels' first calls, their
+    # builds included) apart from the mean of the others
+    once = {k: v for k, v in calls.items() if len(v) == len(models) > 1}
     rec = {"case": label, "route": route.describe(), "rows": x.shape[0],
            "features": n_features, "leaves": TRAIN_LEAVES,
            "max_bin": params["max_bin"],
@@ -3546,7 +3550,11 @@ def train_main_path(gpu: str, ds, valid, x, env: dict, iters: int,
            "s_per_iter_first": float(per_it[0]),
            "s_per_iter_rest_mean": float(per_it[1:].mean()),
            "s_per_iter": [float(v) for v in per_it],
-           "stage_ms_per_tree": stages, **held,
+           "stage_ms_per_tree": stages,
+           "stage_ms_tree0": {k: v[0] for k, v in once.items()},
+           "stage_ms_per_tree_after_first": {
+               k: float(np.mean(v[1:])) for k, v in once.items()},
+           **held,
            "splits": splits, "host_reads": bst._inner.grow.host_reads,
            "launches": launches,
            "predict_max_abs_err": float(err.max()), "gpu": gpu}
@@ -6292,17 +6300,65 @@ def linear_parity(gpu: str) -> dict:
     return rec
 
 
-def linear_moments_case(gpu: str, raw, leaf_id, feat_idx, label: str
-                        ) -> dict:
+def linear_moments_bound(leaf_id, feat_idx) -> dict:
+    """The least time of one ``linear_moments`` call on these inputs:
+    the larger of the bytes it must move (the path features' values each
+    row needs, the row's order, leaf and factors read once, the moments
+    written once) at PEAK_BYTES_S and the f64 operations of each leaf's
+    own entries at PEAK_F64_OPS_S."""
+    from lightgbm_tpu_torch.ops.linear_kernel import moment_layout
+    n = leaf_id.shape[0]
+    k_leaf = (feat_idx >= 0).sum(dim=1).long()[leaf_id.long()]   # [n]
+    k1_row = k_leaf + 1
+    p_row = k1_row * (k1_row + 1) // 2
+    _, e = moment_layout(feat_idx.shape[1])
+    rec = {"bound_bytes": int(4 * k_leaf.sum()) + n * 20
+           + int(feat_idx.shape[0]) * e * 8,
+           "bound_ops": int((3 * p_row + 2 * k1_row + 1).sum())}
+    by_bytes = rec["bound_bytes"] / PEAK_BYTES_S
+    by_ops = rec["bound_ops"] / PEAK_F64_OPS_S
+    rec["bound_ms"] = max(by_bytes, by_ops) * 1e3
+    rec["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    return rec
+
+
+def skewed_leaves(n: int, leaves: int, big: int, device, seed: int = 31):
+    """i32 [n] leaf ids: ``big`` seeded rows in leaf 0, the others spread
+    evenly over the other leaves (the skewed tree); ``big = n //
+    leaves`` gives an even tree."""
+    import torch
+    g = np.random.default_rng(seed)
+    leaf = np.empty(n, np.int32)
+    perm = g.permutation(n)
+    leaf[perm[:big]] = 0
+    leaf[perm[big:]] = 1 + np.arange(n - big) % (leaves - 1)
+    return torch.as_tensor(leaf, device=device)
+
+
+def path_features(leaves: int, kmax: int, f: int, device, seed: int = 32):
+    """i32 [leaves, kmax]: each leaf's kmax distinct seeded features of
+    f (every leaf's path as long as the tree's longest)."""
+    import torch
+    g = np.random.default_rng(seed)
+    fi = np.stack([g.permutation(f)[:kmax] for _ in range(leaves)])
+    return torch.as_tensor(fi.astype(np.int32), device=device)
+
+
+LINEAR_CPU_ROWS = 20_000     # the CPU plain version's rows a case
+
+
+def linear_moments_case(gpu: str, raw, leaf_id, feat_idx, label: str,
+                        plain: bool = True) -> dict:
     """``linear_moments`` against its plain version on the same card
-    inputs (and on CPU copies of them), bitwise; timed beside the plain
-    version with its bound (the path features' values each row needs,
-    the row's order, leaf and factors read once, the moments written
-    once; the f64 operations of each leaf's own entries)."""
+    inputs and, on the first LINEAR_CPU_ROWS rows, against the CPU plain
+    version of CPU copies, bitwise; timed eager and as one replay of a
+    graph of GRAPH_CALLS calls (the wrapper's sort included), beside its
+    bound (``linear_moments_bound``) and, under ``plain``, the plain
+    version's time."""
     import torch
 
-    from lightgbm_tpu_torch.ops.linear_kernel import (
-        linear_moments, linear_moments_ref, moment_layout)
+    from lightgbm_tpu_torch.ops.linear_kernel import (linear_moments,
+                                                      linear_moments_ref)
     dev = raw.device
     n = raw.shape[0]
     g = np.random.default_rng(29)
@@ -6315,38 +6371,28 @@ def linear_moments_case(gpu: str, raw, leaf_id, feat_idx, label: str
     k2 = linear_moments(raw, leaf_id, grad, hess, w, feat_idx)
     ref = linear_moments_ref(raw, leaf_id, grad, hess, w, feat_idx)
     torch.cuda.synchronize()
-    sub = leaf_id < 4         # CPU copies: the rows of the first leaves
-    ref_cpu = linear_moments_ref(raw[sub].cpu(), leaf_id[sub].cpu(),
-                                 grad[sub].cpu(), hess[sub].cpu(),
-                                 w[sub].cpu(), feat_idx.cpu())
-    k_sub = linear_moments(raw[sub].contiguous(), leaf_id[sub].contiguous(),
-                           grad[sub].contiguous(), hess[sub].contiguous(),
-                           w[sub].contiguous(), feat_idx)
+    sub = slice(0, min(n, LINEAR_CPU_ROWS))
+    cpu_args = [t[sub].contiguous() for t in (raw, leaf_id, grad, hess, w)]
+    ref_cpu = linear_moments_ref(*(t.cpu() for t in cpu_args),
+                                 feat_idx.cpu())
+    k_sub = linear_moments(*cpu_args, feat_idx)
     rec = {"case": label, "rows": n, "leaves": int(feat_idx.shape[0]),
            "kmax": int(feat_idx.shape[1]),
+           "largest_leaf_rows": int(torch.bincount(leaf_id.long()).max()),
            "bitwise_plain": torch_equal(k1, ref),
            "bitwise_cpu_plain": torch_equal(k_sub.cpu(), ref_cpu),
            "bitwise_repeat": torch_equal(k1, k2),
            "max_abs_err": float((k1 - ref).abs().max()),
            "launched": linear_moments.launches - launches}
+    del ref
     rec["ok"] = (rec["bitwise_plain"] and rec["bitwise_cpu_plain"]
                  and rec["bitwise_repeat"] and rec["launched"] == 3)
-    rec["ms"] = _time_ms(lambda: linear_moments(raw, leaf_id, grad, hess, w,
-                                                feat_idx), 10)
-    rec["plain_ms"] = _time_ms(lambda: linear_moments_ref(
-        raw, leaf_id, grad, hess, w, feat_idx), 2)
-    k_leaf = (feat_idx >= 0).sum(dim=1).long()[leaf_id.long()]   # [n]
-    k1_row = k_leaf + 1
-    p_row = k1_row * (k1_row + 1) // 2
-    _, e = moment_layout(feat_idx.shape[1])
-    rec["bound_bytes"] = int(4 * k_leaf.sum()) + n * 20 + \
-        int(feat_idx.shape[0]) * e * 8
-    rec["bound_ops"] = int((3 * p_row + 2 * k1_row + 1).sum())
-    rec["bound_ms"] = max(rec["bound_bytes"] / PEAK_BYTES_S,
-                          rec["bound_ops"] / PEAK_F64_OPS_S) * 1e3
-    rec["bound_by"] = ("bytes" if rec["bound_bytes"] / PEAK_BYTES_S
-                       >= rec["bound_ops"] / PEAK_F64_OPS_S
-                       else "operations")
+    rec["ms"], rec["graph_ms"] = eager_and_graph_ms(
+        lambda: linear_moments(raw, leaf_id, grad, hess, w, feat_idx))
+    if plain:
+        rec["plain_ms"] = _time_ms(lambda: linear_moments_ref(
+            raw, leaf_id, grad, hess, w, feat_idx), 2)
+    rec.update(linear_moments_bound(leaf_id, feat_idx))
     rec["gpu"] = gpu
     print("parity linear_moments " + json.dumps(rec), flush=True)
     if not rec["ok"]:
@@ -6472,9 +6518,11 @@ def linear_phase(gpu: str, higgs: dict) -> tuple:
     1M x 28 bins with their raw values kept, ``linear_target``'s label,
     100,000 holdout rows, ``LINEAR_PARAMS``, 5 iterations) counted and
     timed by stage (``linear_fit`` cut into the moments kernel, the host
-    solve and the prediction), its holdout l2 beside the constant-leaf
-    twin's; ``linear_moments`` bitwise its plain version on tree 0's
-    leaves; the parity run; predict, save / load and the serving
+    solve and the prediction; tree 0 apart from the mean of the others),
+    its holdout l2 beside the constant-leaf twin's; ``linear_moments``
+    bitwise its plain version on tree 0's leaves, on a skewed tree (one
+    leaf of half the rows) and at kmax 28, eager and graph times beside
+    the bound; the parity run; predict, save / load and the serving
     refusal; 2 iterations continued through ``init_model`` from the
     model text; ``rollback_one_iter`` on this route and on the default
     stream route (the main path's booster).  Returns (the kernel's
@@ -6503,8 +6551,18 @@ def linear_phase(gpu: str, higgs: dict) -> tuple:
         holdout=l2_holdout(yv))
     lap("linear/main path and twin")
     leaf, fi = tree_leaf_inputs(bst, 0)
-    kernel = linear_moments_case(gpu, bst._inner._raw, leaf, fi,
+    raw = bst._inner._raw
+    n = raw.shape[0]
+    kernel = linear_moments_case(gpu, raw, leaf, fi,
                                  "tree 0 of the linear main path")
+    cases = [kernel, linear_moments_case(
+        gpu, raw, skewed_leaves(n, TRAIN_LEAVES, n // 2, raw.device),
+        path_features(TRAIN_LEAVES, fi.shape[1], N_FEATURES, raw.device),
+        f"skewed: one leaf of {n // 2} rows, the others even", plain=False),
+        linear_moments_case(
+        gpu, raw, leaf, path_features(TRAIN_LEAVES, N_FEATURES, N_FEATURES,
+                                      raw.device),
+        "tree 0's leaves, kmax 28 (every feature)", plain=False)]
     lap("linear/kernel")
     predict = linear_predict_checks(bst, xv, gpu)
     # continued training from the model text: the dataset's init score
@@ -6539,13 +6597,21 @@ def linear_phase(gpu: str, higgs: dict) -> tuple:
                 rollback_check(higgs["bst"], "default route")]
     lap("linear/predict, continued, rollback")
     stages = run["stage_ms_per_tree"]
+    parts = ("linear_fit", "linear_moments", "linear_solve",
+             "linear_predict")
+    after = {k: run["stage_ms_per_tree_after_first"].get(k) for k in parts}
     summary = {
         "route": run["route"], "iterations": run["iterations"],
         "s_per_iter_first": run["s_per_iter_first"],
         "s_per_iter_rest_mean": run["s_per_iter_rest_mean"],
-        "linear_fit_ms_per_tree": {k: stages.get(k) for k in (
-            "linear_fit", "linear_moments", "linear_solve",
-            "linear_predict")},
+        "linear_fit_ms_per_tree": {k: stages.get(k) for k in parts},
+        "linear_fit_ms_tree0": {k: run["stage_ms_tree0"].get(k)
+                                for k in parts},
+        "linear_fit_ms_per_tree_after_first": after,
+        # the parts' sum over the stage, after the first tree (the rest is
+        # the host's gaps between them)
+        "linear_parts_over_fit": sum(after[k] for k in parts[1:])
+        / after["linear_fit"],
         "stage_ms_per_tree": stages,
         "kernels_per_split": profile.get("kernels_per_split"),
         "busy_share": profile.get("busy_share"),
@@ -6554,7 +6620,12 @@ def linear_phase(gpu: str, higgs: dict) -> tuple:
         "twin_s_per_iter_rest_mean": twin_run["s_per_iter_rest_mean"],
         "variance_l2": run["variance_l2"],
         "linear_moments_ms": kernel["ms"],
+        "linear_moments_graph_ms": kernel["graph_ms"],
         "linear_moments_bound_ms": kernel["bound_ms"],
+        "linear_moments_cases": [
+            {k: c[k] for k in ("case", "kmax", "largest_leaf_rows", "ms",
+                               "graph_ms", "bound_ms", "bound_by")}
+            for c in cases],
         "parity_bitwise": parity["ok"], "predict": predict,
         "continued": continued, "rollback": rollback,
         "launches": run["launches"], "gpu": gpu}
@@ -6570,7 +6641,9 @@ def linear_phase(gpu: str, higgs: dict) -> tuple:
                      "moments",
         bitwise_plain=kernel["bitwise_plain"],
         bitwise_cpu_plain=kernel["bitwise_cpu_plain"],
-        train_parity_bitwise=parity["ok"], kmax=kernel["kmax"])
+        train_parity_bitwise=parity["ok"], kmax=kernel["kmax"],
+        graph_ms=kernel["graph_ms"],
+        cases_bitwise=all(c["ok"] for c in cases))
     print("kernel linear_moments " + json.dumps(rec), flush=True)
     return rec, summary
 
@@ -7386,6 +7459,116 @@ def api_refit(gpu: str, higgs: dict) -> dict:
     return rec
 
 
+API_FLIP_ROWS = 20_000
+API_CV_ES_ROWS = 50_000
+API_CV_ES_ROUNDS = 10
+
+
+def threshold_rows(bst, n: int, seed: int) -> np.ndarray:
+    """[n, F] seeded f64 rows (normal values), a quarter of them with one
+    feature set to a split threshold of a seeded node of a seeded tree:
+    where that f64 threshold's f32 rounding lies above it, the f64 host
+    walk sends the row left and its f32 rounding right."""
+    g = np.random.default_rng(seed)
+    x = g.normal(size=(n, N_FEATURES))
+    trees = [t for t in bst._models if t.num_leaves > 1]
+    for r in range(0, n, 4):
+        t = trees[g.integers(len(trees))]
+        node = g.integers(t.num_leaves - 1)
+        x[r, int(t.split_feature[node])] = float(t.threshold[node])
+    return x
+
+
+def api_refit_f64(gpu: str, higgs: dict) -> dict:
+    """``Booster.refit`` of the default-route booster on seeded f64 rows
+    (``threshold_rows``) whose f32 rounding crosses a threshold: its
+    leaves (``basic.refit_leaves``) equal the f64 host walk's on every
+    row, some rows flip under the kernel's f32 entry, and the refit
+    leaves are the CPU refit's bit for bit."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.basic import refit_leaves
+    bst = higgs["bst"]
+    x = threshold_rows(bst, API_FLIP_ROWS, 26)
+    y = (np.random.default_rng(27).random(API_FLIP_ROWS) < 0.5).astype(
+        np.float64)
+    t0 = time.perf_counter()
+    leaves = refit_leaves(bst, x)
+    leaves_s = time.perf_counter() - t0
+    host = np.stack([t.predict_leaf(x) for t in bst._models], axis=1)
+    card = bst.refit(x, y, decay_rate=API_REFIT_DECAY)
+    cpu = lgt.Booster(model_str=bst.model_to_string(), device="cpu").refit(
+        x, y, decay_rate=API_REFIT_DECAY, **TRAIN_PARAMS)
+    rec = {"rows": API_FLIP_ROWS, "trees": len(bst._models),
+           "kernel_leaf_flips": refit_leaf_flips(bst, x),
+           "leaves_equal_host_walk": bool(np.array_equal(leaves, host)),
+           "leaves_bitwise_cpu": leaves_bitwise(card._models, cpu._models),
+           "refit_leaves_s": leaves_s}
+    rec["ok"] = (rec["leaves_equal_host_walk"] and rec["leaves_bitwise_cpu"]
+                 and rec["kernel_leaf_flips"] > 0)
+    print("api refit f64 rows " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"refit on f64 rows fails: {rec}")
+    return rec
+
+
+def api_cv_callbacks(gpu: str, higgs: dict) -> dict:
+    """``cv`` on the first API_CV_ES_ROWS training rows (3 folds, 31
+    leaves, learning rate 1.5, up to API_CV_ES_ROUNDS rounds) from the
+    default-route booster as ``init_model``, with ``early_stopping(1)``
+    as a callback and a before-iteration callback: each fold's first
+    scores are the model's raw predictions of its rows bit for bit, the
+    callbacks run each round, the early stop cuts the history and sets
+    every fold's best iteration."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.engine import _make_n_folds
+    x = higgs["x"][:API_CV_ES_ROWS]
+    y = np.asarray(higgs["ds"].get_label())[:API_CV_ES_ROWS]
+    bst = higgs["bst"]
+    raw = bst.predict(x, raw_score=True)
+    first, rounds = [], []
+
+    def before(env):
+        rounds.append(env.iteration)
+        if env.iteration == 0:
+            first.extend(b._inner.scores.clone() for b in env.model.boosters)
+    before.before_iteration = True
+    params = dict(TRAIN_PARAMS, num_leaves=31, learning_rate=1.5,
+                  metric="binary_logloss")
+    t0 = time.perf_counter()
+    res = lgt.cv(params, lgt.Dataset(x, label=y), num_boost_round=
+                 API_CV_ES_ROUNDS, nfold=API_CV_FOLDS, init_model=bst,
+                 callbacks=[before, lgt.early_stopping(1, verbose=False)],
+                 return_cvbooster=True, device="cuda")
+    cv_s = time.perf_counter() - t0
+    cvb = res.pop("cvbooster")
+    folds = list(_make_n_folds(lgt.Dataset(x, label=y), API_CV_FOLDS, 0,
+                               True, True))
+    starts = [torch.equal(s[0].cpu(), torch.as_tensor(
+        raw[tr].astype(np.float32))) for s, (tr, _) in zip(first, folds)]
+    best = cvb.best_iteration
+    rec = {"rows": API_CV_ES_ROWS, "folds": API_CV_FOLDS, "cv_s": cv_s,
+           "init_trees": len(bst._models),
+           "fold_starts_bitwise_init_model": starts,
+           "rounds_run": len(rounds), "best_iteration": best,
+           "history_rounds": len(res["valid binary_logloss-mean"]),
+           "fold_best_iterations": [b.best_iteration for b in cvb.boosters],
+           "fold_trees": [len(b._models) for b in cvb.boosters],
+           "valid_logloss_mean": res["valid binary_logloss-mean"]}
+    rec["ok"] = (all(starts) and 0 < best <= rec["rounds_run"]
+                 and rec["history_rounds"] == best
+                 and rec["fold_best_iterations"] == [best] * API_CV_FOLDS
+                 and rec["fold_trees"] == [len(bst._models) + len(rounds)]
+                 * API_CV_FOLDS)
+    print("api cv callbacks " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"cv's callbacks or init_model fail: {rec}")
+    del cvb
+    torch.cuda.empty_cache()
+    return rec
+
+
 def api_inputs(gpu: str, higgs: dict) -> dict:
     """The binary cache of the 1M-row dataset saved and loaded back
     (``Dataset(path)``), and the holdout written as a CSV with a header
@@ -7448,8 +7631,8 @@ def api_phase(gpu: str, higgs: dict) -> dict:
     host, the numpy objective, the gradients to the card) a tree, its
     holdout AUC beside the default route's at 5 iterations and its
     ``feval`` beside the value recomputed from ``predict``; then
-    :func:`api_parity`, :func:`api_cv`, :func:`api_refit` and
-    :func:`api_inputs`."""
+    :func:`api_parity`, :func:`api_cv`, :func:`api_cv_callbacks`,
+    :func:`api_refit`, :func:`api_refit_f64` and :func:`api_inputs`."""
     x, xv, yv = higgs["x"], higgs["xv"], higgs["yv"]
     bst, run = train_main_path(
         gpu, higgs["ds"], higgs["valid"], x, {}, API_ITERS,
@@ -7480,10 +7663,13 @@ def api_phase(gpu: str, higgs: dict) -> dict:
                            f"predict {again}")
     parity = api_parity(gpu)
     cv = api_cv(gpu, higgs)
+    cv_cb = api_cv_callbacks(gpu, higgs)
     refit = api_refit(gpu, higgs)
+    refit_f64 = api_refit_f64(gpu, higgs)
     inputs = api_inputs(gpu, higgs)
     summary = {"custom_objective": fobj, "parity": parity, "cv": cv,
-               "refit": refit, "inputs": inputs, "gpu": gpu,
+               "cv_callbacks": cv_cb, "refit": refit,
+               "refit_f64_rows": refit_f64, "inputs": inputs, "gpu": gpu,
                "launches": {"custom_objective": run["launches"],
                             "cv": cv["launches"],
                             "refit": {"serve_traverse":

@@ -260,28 +260,55 @@ def _hist():
 
 
 # -- the linear-leaf fit --------------------------------------------------------
+# the path features of a leaf's model at which the sums take each kernel:
+# chunk_sums_warp at its entries a lane (NS) 3 (kmax 9, E = 66: the linear
+# main path's tree 0), 4 (12, 105), 8 (19, 231) and 16 (28, 465: every
+# feature), chunk_sums at 136 (the wide data's, passes of 4,096)
+LINEAR_KMAX = (9, 12, 19, 28, 136)
+
+
 def _linear():
-    """``linear_moments`` at the linear main path's shapes: 1M rows x 28
-    features, 255 leaves, a leaf's path features up to 28 (every
-    feature), ``CHUNK`` rows a chunk; and at 136 features."""
-    for f, tag in ((F, ""), (F_WIDE, "_wide")):
+    """``linear_moments``' kernels at the linear main path's shapes: 1M
+    rows x 28 features (136 for the widest), 255 leaves, ``CHUNK`` rows a
+    chunk, the scratch ``[batch, pass]`` f64; the sums at each of their
+    instantiations' kmax (``chunk_sums`` in its first pass, every column
+    staged), ``chunk_chain`` once (its block does not depend on kmax)."""
+    src = "lightgbm_tpu/models/linear.py:101 (XLA einsum, no kernel)"
+    cmax = lk.scratch_chunks(N, LEAVES)
+    for kmax in LINEAR_KMAX:
+        f = F_WIDE if kmax > F else F
+        e = lk.moment_layout(kmax)[1]
+        ep = lk.pass_entries(kmax)
+        warp = e <= 32 * lk.MAX_SLOTS
         register_kernel(KernelEntry(
-            name=f"linear_moments{tag}", source="linear_fit",
-            symbol="linear_moments_kernel", block=_block(lk.THREADS),
-            dyn_smem=lk.smem_bytes(f),
+            name=f"linear_moments_sums_k{kmax}", source="linear_fit",
+            symbol=(f"chunk_sums_warp<(int){lk.lane_slots(e)}>" if warp
+                    else "chunk_sums"),
+            block=_block((lk.WARPS_W if warp else lk.WARPS) * 32),
+            dyn_smem=lk.smem_bytes(kmax),
             args=(vec_arg("raw", "float32", (N, f), 4),
                   vec_arg("order", "int32", (N, 1), 4),
                   vec_arg("seg", "int32", (LEAVES, 2), 4),
+                  vec_arg("cfirst", "int32", (LEAVES + 1, 1), 4),
                   vec_arg("g", "float32", (N, 1), 4),
                   vec_arg("h", "float32", (N, 1), 4),
                   vec_arg("w", "float32", (N, 1), 4),
-                  vec_arg("feat_idx", "int32", (LEAVES, f), 4),
-                  vec_arg("out", "float64",
-                          (LEAVES, lk.moment_layout(f)[1]), 8)),
-            wrapper="linear_kernel.linear_moments",
-            replaces="lightgbm_tpu/models/linear.py:101 (XLA einsum, no "
-                     "kernel)",
-            export=("linear_moments_smem_bytes", (f, lk.CHUNK))))
+                  vec_arg("feat_idx", "int32", (LEAVES, kmax), 4))
+            + (() if warp else (vec_arg("ghw", "float32", (3, N), 4),))
+            + (vec_arg("scratch", "float64",
+                       (lk.chunk_batch(kmax, cmax, N), ep), 8),),
+            wrapper="linear_kernel.linear_moments", replaces=src,
+            export=("linear_moments_smem_bytes", (kmax, lk.CHUNK))))
+    e = lk.moment_layout(F)[1]
+    register_kernel(KernelEntry(
+        name="linear_moments_chain", source="linear_fit",
+        symbol="chunk_chain", block=_block(lk.CHAIN_THREADS),
+        dyn_smem=lk.chain_smem_bytes(),
+        args=(vec_arg("cfirst", "int32", (LEAVES + 1, 1), 4),
+              vec_arg("scratch", "float64", (cmax, e), 8),
+              vec_arg("out", "float64", (LEAVES, e), 8)),
+        wrapper="linear_kernel.linear_moments", replaces=src,
+        export=("linear_moments_chain_smem_bytes", ())))
 
 
 def hist_comb_wide_entry(fc: int = None) -> KernelEntry:

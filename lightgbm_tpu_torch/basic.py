@@ -593,16 +593,16 @@ class Booster:
               **kwargs) -> "Booster":
         """A copy of the model with every tree's structure kept and its
         leaf values refit on ``data`` (reference GBDT::RefitTree; JAX
-        ``basic.py:670-725``).  Each row's leaf comes from the traversal
-        kernel's leaf entry (one ``leaves_only`` serving model, rows
-        cast to f32 as serving casts them); per iteration the
+        ``basic.py:670-725``).  Each row's leaf is the f64 host walk's
+        (:func:`refit_leaves`: the traversal kernel's leaf entry for the
+        rows equal to their f32 rounding, ``Tree.predict_leaf`` for the
+        others); per iteration the
         objective's gradients are taken on the booster's device at the
         refitted scores (f64, rounded to f32), summed per leaf in f64 in
         row order on the host (``np.bincount``, as the JAX package sums,
         so the card's leaf values are the CPU run's), and the new leaf
         output, L1-thresholded, over ``h + lambda_l2``, times the tree's
         shrinkage, is blended with the old by ``decay_rate``."""
-        from .serve import ServingEngine, ServingModel
         X = _to_numpy_2d(data)
         y = np.asarray(label, np.float64).reshape(-1)
         n = X.shape[0]
@@ -620,8 +620,7 @@ class Booster:
             md.set_weight(np.asarray(weight, np.float64))
         md.num_data = n
         objective.init(md, n, dev)
-        sm = ServingModel.from_booster(new_b, device=dev, leaves_only=True)
-        leaves = ServingEngine(sm, device=dev).predict_leaves(X)   # [n, T]
+        leaves = refit_leaves(new_b, X, f32_input=_is_f32(data))   # [n, T]
         leaves_dev = torch.as_tensor(leaves, device=dev).long()
         l1, l2 = cfg.lambda_l1, cfg.lambda_l2
         score = torch.zeros((k, n), dtype=torch.float64, device=dev)
@@ -704,6 +703,34 @@ class _LoadedAdapter:
         self.feature_infos = loaded.feature_infos
         self.max_feature_idx = loaded.max_feature_idx
         self.param_string = loaded_param_string(loaded.num_class)
+
+
+def _is_f32(data) -> bool:
+    return getattr(data, "dtype", None) == np.float32
+
+
+def refit_leaves(booster: Booster, X: np.ndarray,
+                 f32_input: bool = False) -> np.ndarray:
+    """``[n, T]`` each row's leaf in each tree of ``booster``, as the f64
+    host walk (``Tree.predict_leaf``) finds it.  The traversal kernel's
+    leaf entry (a ``leaves_only`` serving model) casts the rows to f32
+    as serving does, so it takes every row equal to its f32 rounding
+    (NaN included); the rows that are not, whose value and its rounding
+    may lie on two sides of a threshold, take the host walk.
+    ``f32_input`` (the caller's data was f32) skips the test."""
+    from .serve import ServingEngine, ServingModel
+    dev = booster.device
+    sm = ServingModel.from_booster(booster, device=dev, leaves_only=True)
+    leaves = ServingEngine(sm, device=dev).predict_leaves(X)
+    if f32_input:
+        return leaves
+    x32 = X.astype(np.float32).astype(np.float64)
+    off = np.flatnonzero(~np.all((x32 == X) | np.isnan(X), axis=1))
+    if off.size:
+        xo = X[off]
+        leaves[off] = np.stack([t.predict_leaf(xo)
+                                for t in booster._models], axis=1)
+    return leaves
 
 
 def _refit_config(params: Dict[str, Any], objective_str: str,

@@ -142,8 +142,10 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
             eval_name_splitted = env.evaluation_result_list[i][1].split(" ")
             if first_metric_only and first_metric[0] != eval_name_splitted[-1]:
                 continue
-            if (env.evaluation_result_list[i][0] == "training"
-                    and len({m[0] for m in env.evaluation_result_list}) > 1):
+            if ((env.evaluation_result_list[i][0] == "training"
+                 and len({m[0] for m in env.evaluation_result_list}) > 1)
+                    or (env.evaluation_result_list[i][0] == "cv_agg"
+                        and eval_name_splitted[0] == "train")):
                 continue  # train metric never triggers stopping
             if env.iteration - best_iter[i] >= stopping_rounds:
                 if verbose:
@@ -168,7 +170,8 @@ def reset_parameter(**kwargs) -> Callable:
     each value is a list with one entry an iteration (its length must be
     ``num_boost_round``) or a function of the iteration.  A new
     ``learning_rate`` becomes the booster's shrinkage rate and its
-    config's ``learning_rate``, which the grower reads on every call."""
+    config's ``learning_rate``, which the grower reads on every call (in
+    ``cv``, every fold's booster's)."""
 
     def _callback(env: CallbackEnv) -> None:
         new_parameters = {}
@@ -182,10 +185,15 @@ def reset_parameter(**kwargs) -> Callable:
                 new_param = value(env.iteration - env.begin_iteration)
             new_parameters[key] = new_param
         if new_parameters:
-            inner = getattr(env.model, "_inner", None)
-            if "learning_rate" in new_parameters and inner is not None:
-                inner.shrinkage_rate = new_parameters["learning_rate"]
-                inner.config.learning_rate = new_parameters["learning_rate"]
+            if "learning_rate" in new_parameters:
+                # cv's model is a CVBooster: every fold's booster
+                for model in getattr(env.model, "boosters", [env.model]):
+                    inner = getattr(model, "_inner", None)
+                    if inner is None:
+                        continue
+                    inner.shrinkage_rate = new_parameters["learning_rate"]
+                    inner.config.learning_rate = \
+                        new_parameters["learning_rate"]
             env.params.update(new_parameters)
     _callback.before_iteration = True
     _callback.order = 10

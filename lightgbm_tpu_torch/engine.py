@@ -11,8 +11,9 @@ callable ``objective`` is a custom objective: the booster trains with
 trains one booster a fold on the JAX package's folds (numpy
 ``default_rng(seed)``, stratified for the classification objectives),
 each fold a ``Dataset.subset`` of the constructed dataset sharing its
-mappers.  Checkpoint / resume and fault handling are not ported
-(``ROADMAP.md`` A11).
+mappers; unlike the JAX ``cv``, it runs its callbacks and starts every
+fold from ``init_model``.  Checkpoint / resume and fault handling are not
+ported (``ROADMAP.md`` A11).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from . import callback as callback_mod
 from .basic import Booster, Dataset
 from .config import Config
 from .metric import create_metrics
+from .utils.log import LightGBMError
 
 __all__ = ["train", "cv", "CVBooster"]
 
@@ -57,23 +59,14 @@ def train(
     if "num_iterations" in {Config.canonical_name(k) for k in params}:
         num_boost_round = cfg.num_iterations
 
-    predictor = None
-    if init_model is not None:
-        predictor = _init_predictor(init_model, device)
-        if any(t.is_linear for t in predictor._models):
-            # the dataset must keep raw values for the leaf models' replay
-            # (the reference reads linear_tree from the model file)
-            params.setdefault("linear_tree", True)
-            train_set._update_params({"linear_tree": True})
-        if train_set.init_score is None and train_set.data is not None:
-            raw = predictor.predict(train_set.data, raw_score=True)
-            train_set.set_init_score(np.asarray(raw, np.float64).T.reshape(-1)
-                                     if raw.ndim == 2 else raw)
+    predictor = _init_predictor(init_model, train_set, params, device)
+    if (predictor is not None and train_set.init_score is None
+            and train_set.data is not None):
+        train_set.set_init_score(_init_scores(
+            predictor.predict(train_set.data, raw_score=True)))
     booster = Booster(params=params, train_set=train_set, device=device,
                       timer=timer)
-    if predictor is not None:
-        booster._inner.set_init_model(
-            [copy.deepcopy(t) for t in predictor._models])
+    _keep_trees(booster, predictor)
     if valid_sets is not None:
         if isinstance(valid_sets, Dataset):
             valid_sets = [valid_sets]
@@ -98,12 +91,7 @@ def train(
             getattr(c, "order", None) == 10
             and not getattr(c, "before_iteration", False) for c in cbs):
         cbs.append(callback_mod.log_evaluation(cfg.metric_freq))
-    cbs_before = sorted((c for c in cbs
-                         if getattr(c, "before_iteration", False)),
-                        key=lambda c: getattr(c, "order", 0))
-    cbs_after = sorted((c for c in cbs
-                        if not getattr(c, "before_iteration", False)),
-                       key=lambda c: getattr(c, "order", 0))
+    cbs_before, cbs_after = _split_callbacks(cbs)
 
     evaluation_result_list: List = []
     for it in range(num_boost_round):
@@ -144,15 +132,53 @@ def _split_fobj(params):
     return params, fobj
 
 
-def _init_predictor(init_model, device) -> Booster:
-    """The booster ``init_model`` names: itself, a model file's or a
-    model string's."""
+def _split_callbacks(cbs):
+    """(before, after): the callbacks run before each iteration and
+    those run after it, each in ``order``."""
+    def pick(before):
+        return sorted((c for c in cbs
+                       if bool(getattr(c, "before_iteration", False))
+                       == before), key=lambda c: getattr(c, "order", 0))
+    return pick(True), pick(False)
+
+
+def _init_predictor(init_model, train_set: Dataset, params,
+                    device) -> Optional[Booster]:
+    """The booster ``init_model`` names (itself, a model file's or a
+    model string's), or None.  A model with linear trees makes
+    ``linear_tree`` the default of ``params`` and ``train_set``: the
+    dataset must keep raw values for the leaf models' replay (the
+    reference reads linear_tree from the model file)."""
+    if init_model is None:
+        return None
     if isinstance(init_model, Booster):
-        return init_model
-    text = str(init_model)
-    if not os.path.exists(text) and text.lstrip().startswith("tree"):
-        return Booster(model_str=text, device=device)
-    return Booster(model_file=text, device=device)
+        predictor = init_model
+    else:
+        text = str(init_model)
+        predictor = (Booster(model_str=text, device=device)
+                     if not os.path.exists(text)
+                     and text.lstrip().startswith("tree")
+                     else Booster(model_file=text, device=device))
+    if any(t.is_linear for t in predictor._models):
+        params.setdefault("linear_tree", True)
+        train_set._update_params({"linear_tree": True})
+    return predictor
+
+
+def _init_scores(raw) -> np.ndarray:
+    """A model's raw predictions (``[n]``, or ``[n, K]``) as a dataset's
+    init score (class-major ``K * n``)."""
+    raw = np.asarray(raw, np.float64)
+    return raw.T.reshape(-1) if raw.ndim == 2 else raw
+
+
+def _keep_trees(booster: Booster, predictor: Optional[Booster]) -> None:
+    """Continued training: ``predictor``'s trees kept at the head of
+    ``booster``'s model (the dataset's init score holds their
+    predictions)."""
+    if predictor is not None:
+        booster._inner.set_init_model(
+            [copy.deepcopy(t) for t in predictor._models])
 
 
 def _record_best(booster: Booster, results) -> None:
@@ -225,20 +251,35 @@ def cv(
     return_cvbooster: bool = False,
     device="cuda",
 ) -> Dict[str, List[float]]:
-    """Cross-validation (JAX ``engine.py:389-469``): one booster a fold
-    on ``device``, all updated each round; the result holds
-    ``"valid <metric>-mean"`` and ``-stdv`` a round (``"train ..."``
-    too under ``eval_train_metric``), cut at the best round when early
-    stopping on the first metric's mean ends it, and ``"cvbooster"``
-    under ``return_cvbooster``.  ``folds`` (pairs of index arrays)
-    replaces the generated folds.  As in the JAX package,
-    ``init_model`` and ``callbacks`` are accepted and not used."""
+    """Cross-validation (JAX ``engine.py:389-469``; LightGBM's
+    python-package ``cv``): one booster a fold on ``device``, all updated
+    each round; the result holds ``"valid <metric>-mean"`` and ``-stdv`` a
+    round (``"train ..."`` too under ``eval_train_metric``), and
+    ``"cvbooster"`` under ``return_cvbooster``.  ``folds`` (pairs of
+    index arrays) replaces the generated folds.  ``init_model`` (as
+    ``train`` takes it) starts every fold: its raw predictions are the
+    fold's init score, its trees head the fold's model.  ``callbacks``
+    run each round as the reference's ``cv`` runs them: the
+    ``CVBooster`` as the model, the aggregated ``("cv_agg", "<set>
+    <metric>", mean, higher_better, stdv)`` as the results.  Early
+    stopping (on the first metric's mean under ``early_stopping_round``,
+    or a callback's ``EarlyStopException``) sets every fold's best
+    iteration and cuts the result there."""
     params, fobj = _split_fobj(params)
     if metrics is not None:
         params["metric"] = metrics
     cfg = Config.from_params(params)
     if "num_iterations" in {Config.canonical_name(k) for k in params}:
         num_boost_round = cfg.num_iterations
+    predictor = _init_predictor(init_model, train_set, params, device)
+    init_raw = None
+    if predictor is not None and train_set.init_score is None:
+        if train_set.data is None:
+            raise LightGBMError("cv's init_model needs the raw data to "
+                                "predict: construct the Dataset with "
+                                "free_raw_data=False")
+        init_raw = np.asarray(predictor.predict(train_set.data,
+                                                raw_score=True), np.float64)
     train_set.construct()
     if stratified and cfg.objective not in ("binary", "multiclass",
                                             "multiclassova"):
@@ -247,15 +288,29 @@ def cv(
         folds = _make_n_folds(train_set, nfold, seed, stratified, shuffle)
     cvbooster = CVBooster()
     for train_idx, test_idx in folds:
-        b = Booster(params=params, train_set=train_set.subset(train_idx),
-                    device=device)
+        dtrain = train_set.subset(train_idx)
+        if init_raw is not None:
+            dtrain.set_init_score(_init_scores(init_raw[train_idx]))
+        b = Booster(params=params, train_set=dtrain, device=device)
+        _keep_trees(b, predictor)
         b.add_valid(train_set.subset(test_idx), "valid")
         cvbooster.append(b)
+    cbs_before, cbs_after = _split_callbacks(list(callbacks or []))
+
+    def stop(best: int) -> None:
+        cvbooster.best_iteration = best
+        for b in cvbooster.boosters:
+            b.best_iteration = best
+        for key in list(results):
+            results[key] = results[key][:best]
 
     results: Dict[str, List[float]] = {}
     es_rounds = cfg.early_stopping_round
     best_iter, no_improve, best_agg = -1, 0, None
     for it in range(num_boost_round):
+        for cb in cbs_before:
+            cb(callback_mod.CallbackEnv(cvbooster, params, it, 0,
+                                        num_boost_round, None))
         agg: Dict[str, List[float]] = {}
         hb_map: Dict[str, bool] = {}
         for b in cvbooster.boosters:
@@ -269,21 +324,27 @@ def cv(
                     key = f"train {name}"
                     agg.setdefault(key, []).append(value)
                     hb_map[key] = hb
-        for key, vals in agg.items():
-            results.setdefault(f"{key}-mean", []).append(float(np.mean(vals)))
-            results.setdefault(f"{key}-stdv", []).append(float(np.std(vals)))
-        if es_rounds and es_rounds > 0 and agg:
-            key0 = next(iter(agg))
-            mean0 = results[f"{key0}-mean"][-1]
-            if (best_agg is None or (mean0 > best_agg if hb_map[key0]
+        res = [("cv_agg", key, float(np.mean(vals)), hb_map[key],
+                float(np.std(vals))) for key, vals in agg.items()]
+        for _, key, mean, _, stdv in res:
+            results.setdefault(f"{key}-mean", []).append(mean)
+            results.setdefault(f"{key}-stdv", []).append(stdv)
+        try:
+            for cb in cbs_after:
+                cb(callback_mod.CallbackEnv(cvbooster, params, it, 0,
+                                            num_boost_round, res))
+        except callback_mod.EarlyStopException as e:
+            stop(e.best_iteration + 1)
+            break
+        if es_rounds and es_rounds > 0 and res:
+            mean0 = res[0][2]
+            if (best_agg is None or (mean0 > best_agg if res[0][3]
                                      else mean0 < best_agg)):
                 best_agg, best_iter, no_improve = mean0, it + 1, 0
             else:
                 no_improve += 1
                 if no_improve >= es_rounds:
-                    cvbooster.best_iteration = best_iter
-                    for key in list(results):
-                        results[key] = results[key][:best_iter]
+                    stop(best_iter)
                     break
     if return_cvbooster:
         results["cvbooster"] = cvbooster

@@ -207,16 +207,20 @@ class StageTimer:
                 yield
                 self._spans.append((name, t0, time.perf_counter()))
 
-    def totals_ms(self) -> Dict[str, float]:
-        """Milliseconds per stage summed over the run so far."""
-        out: Dict[str, float] = {}
+    def calls_ms(self) -> Dict[str, List[float]]:
+        """Milliseconds of each call of each stage, in call order."""
+        out: Dict[str, List[float]] = {}
         if self._spans and isinstance(self._spans[0][1], torch.cuda.Event):
             torch.cuda.synchronize()
         for name, a, b in self._spans:
             ms = (a.elapsed_time(b) if isinstance(a, torch.cuda.Event)
                   else (b - a) * 1e3)
-            out[name] = out.get(name, 0.0) + ms
+            out.setdefault(name, []).append(ms)
         return out
+
+    def totals_ms(self) -> Dict[str, float]:
+        """Milliseconds per stage summed over the run so far."""
+        return {name: sum(v) for name, v in self.calls_ms().items()}
 
 
 class _RowOps(NamedTuple):

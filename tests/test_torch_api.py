@@ -402,6 +402,43 @@ def test_leaf_flip_count_sees_f64_rows_across_a_threshold():
     assert chip_smoke.refit_leaf_flips(loaded, rows) == 3
 
 
+def _flip_model(x, y):
+    """A 3-tree binary model whose root threshold is 0.1 (it rounds up
+    in f32), loaded on the CPU, and the root's feature."""
+    bst = lgt.train(dict(BASE, objective="binary"), lgt.Dataset(x, label=y),
+                    num_boost_round=3, device="cpu")
+    loaded = lgt.Booster(model_str=bst.model_to_string(), device="cpu")
+    loaded._models[0].threshold[0] = 0.1
+    return loaded, int(loaded._models[0].split_feature[0])
+
+
+def test_refit_takes_the_host_walk_on_rows_that_flip():
+    """A third of the refit rows hold 0.1 in the root's feature: the f64
+    host walk sends them left, their f32 rounding right.  The refit takes
+    the host walk's leaves on those rows, as the JAX refit does, and the
+    kernel's on the rows equal to their f32 rounding."""
+    x, y = _data(2500, 6, 15)
+    loaded, f = _flip_model(x[:1500], y[:1500])
+    xr, yr = x[1500:].astype(np.float64), y[1500:]
+    xr[::3, f] = 0.1
+    assert chip_smoke.refit_leaf_flips(loaded, xr) >= 300
+    got = loaded.refit(xr, yr, decay_rate=0.9)
+    text = loaded.model_to_string()
+    want = _jax(lambda lgb: lgb.Booster(model_str=text).refit(
+        xr, yr, objective="binary", decay_rate=0.9)._models)
+    for a, b in zip(got._models, want):
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=1e-5,
+                                   atol=1e-12)
+    from lightgbm_tpu_torch.basic import refit_leaves
+    host = np.stack([t.predict_leaf(xr) for t in loaded._models], axis=1)
+    assert np.array_equal(refit_leaves(loaded, xr), host)
+    # f32 rows take the kernel's leaves alone, and equal the host walk's
+    x32 = x[1500:].astype(np.float32)
+    assert np.array_equal(refit_leaves(loaded, x32, f32_input=True),
+                          np.stack([t.predict_leaf(x32.astype(np.float64))
+                                    for t in loaded._models], axis=1))
+
+
 # -- dump_model, feature_importance, model text --------------------------------
 @pytest.fixture(scope="module")
 def binary_pair():

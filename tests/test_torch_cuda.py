@@ -59,6 +59,11 @@ The split options (slice 22: interaction constraints, CEGB, forced
 splits, by-node sampling, extra trees) grow the CPU run's trees on four
 routes (lazy CEGB's paid mask too), the node draws give the CPU's bits,
 and the kernel tail refuses what it has no mode for.
+The linear-leaf moments (slice 26) bitwise their plain version on the
+card and the CPU at geometric, skewed and even leaf sizes, an empty
+leaf and kmax 1 to 800, and replayed in a graph; refit's leaves on f64
+rows that flip under f32 rounding are the host walk's, its leaf values
+the CPU refit's bit for bit.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
 row-order and 3ph routes), and the default route's equal slice 2's
@@ -2247,19 +2252,33 @@ def test_hist_rows_f64_matches_plain(cuda, b, count):
     dp_hist_case(bins, vals, (7, count), index, b, max(count, 1), "test")
 
 
-@pytest.mark.parametrize("kmax,leaves", [(1, 3), (5, 31), (28, 255),
-                                         (136, 7), (200, 3)])
-def test_linear_moments_matches_plain(cuda, kmax, leaves):
+@pytest.mark.parametrize("kmax,leaves,spread,n", [
+    (1, 3, "geometric", 20_000), (5, 31, "geometric", 20_000),
+    (28, 255, "geometric", 20_000), (136, 7, "geometric", 20_000),
+    (200, 3, "geometric", 20_000), (9, 255, "skewed", 200_000),
+    (9, 255, "even", 200_000), (136, 31, "even", 20_000),
+    (800, 3, "skewed", 300)])
+def test_linear_moments_matches_plain(cuda, kmax, leaves, spread, n):
     """linear_moments bitwise its plain version on the card and on CPU
-    copies, NaN rows and padded features included; 200 path features
-    take the shared-memory opt-in above 48 KB."""
+    copies, NaN rows, padded features and an empty leaf included, eager
+    and replayed in a CUDA graph: leaf sizes geometric, skewed (one leaf
+    of half the rows) or even; kmax 136, 200 and 800 take several entry
+    tiles and fewer rows a stage."""
     from lightgbm_tpu_torch.ops.linear_kernel import (linear_moments,
                                                       linear_moments_ref)
-    g = np.random.default_rng(kmax)
-    n, f = 20_000, max(kmax, 8)
+    from lightgbm_tpu_torch.tools.profile_lib import capture
+    from chip_smoke import torch_equal
+    g = np.random.default_rng(kmax + n)
+    f = max(kmax, 8)
     raw = g.normal(size=(n, f)).astype(np.float32)
     raw[g.random(raw.shape) < 0.01] = np.nan
-    leaf = np.minimum(g.geometric(0.05, n) - 1, leaves - 1)
+    if spread == "geometric":
+        leaf = np.minimum(g.geometric(0.05, n) - 1, leaves - 1)
+    else:
+        leaf = g.integers(0, leaves, n)
+        if spread == "skewed":
+            leaf[g.random(n) < 0.5] = 0
+        leaf[leaf == 1] = 2          # an empty leaf
     fi = np.full((leaves, kmax), -1, np.int32)
     for lf in range(leaves):
         k = g.integers(0, kmax + 1)
@@ -2269,10 +2288,42 @@ def test_linear_moments_matches_plain(cuda, kmax, leaves):
         g.uniform(0.1, 1, n).astype(np.float32),
         (g.random(n) < 0.9).astype(np.float32), fi)]
     got = linear_moments(*args)
-    assert torch.equal(got, linear_moments(*args))
-    assert torch.equal(got, linear_moments_ref(*args))
-    assert torch.equal(got.cpu(), linear_moments_ref(*(a.cpu()
+    assert torch_equal(got, linear_moments(*args))
+    assert torch_equal(got, linear_moments_ref(*args))
+    assert torch_equal(got.cpu(), linear_moments_ref(*(a.cpu()
                                                        for a in args)))
+    static = {}
+
+    def run():
+        static["out"] = linear_moments(*args)
+    graph = capture(run)
+    static["out"].zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch_equal(static["out"], got)
+
+
+def test_refit_takes_the_host_walk_on_the_card(cuda):
+    """Refit rows whose f64 value lies at a threshold that rounds up in
+    f32: on the card their leaves are the f64 host walk's, and the refit
+    leaves are the CPU refit's bit for bit."""
+    from lightgbm_tpu_torch.basic import refit_leaves
+    x = make_rows(2500, 6, 15)
+    y = (np.nan_to_num(x[:, 0]) > 0).astype(np.float32)
+    bst = lgt.train({"objective": "binary", "num_leaves": 15,
+                     "verbosity": -1}, lgt.Dataset(x[:1500], label=y[:1500]),
+                    num_boost_round=3, device="cpu")
+    text = bst.model_to_string()
+    boosters = [lgt.Booster(model_str=text, device=d) for d in (cuda, "cpu")]
+    for b in boosters:
+        b._models[0].threshold[0] = 0.1
+    xr = x[1500:].astype(np.float64)
+    xr[::3, int(boosters[0]._models[0].split_feature[0])] = 0.1
+    host = np.stack([t.predict_leaf(xr) for t in boosters[0]._models],
+                    axis=1)
+    assert np.array_equal(refit_leaves(boosters[0], xr), host)
+    card, cpu = (b.refit(xr, y[1500:], decay_rate=0.9) for b in boosters)
+    assert leaves_bitwise(card._models, cpu._models)
 
 
 @pytest.mark.parametrize("params", [

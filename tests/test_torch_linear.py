@@ -343,6 +343,78 @@ def test_linear_moments_plain_version_against_numpy():
     np.testing.assert_allclose(again.numpy(), want, rtol=1e-12, atol=1e-12)
 
 
+def _moment_inputs(n, f, leaves, kmax, spread, seed):
+    """Seeded moments inputs: NaN in 3 % of the values, leaves even,
+    skewed (half the rows in leaf 0) or with leaf 1 empty, each leaf up
+    to kmax distinct path features (-1 padded)."""
+    rng = np.random.default_rng(seed)
+    raw = rng.normal(size=(n, f)).astype(np.float32)
+    raw[rng.random(raw.shape) < 0.03] = np.nan
+    leaf = rng.integers(0, leaves, n)
+    if spread == "skewed":
+        leaf[rng.random(n) < 0.5] = 0
+    elif spread == "empty":
+        leaf[leaf == 1] = 0
+    fi = np.full((leaves, kmax), -1, np.int32)
+    for lf in range(leaves):
+        k = kmax if lf == 0 else rng.integers(0, kmax + 1)
+        fi[lf, :k] = rng.choice(f, size=k, replace=False)
+    g = rng.normal(size=n).astype(np.float32)
+    h = rng.uniform(0.1, 1, n).astype(np.float32)
+    w = (rng.random(n) < 0.9).astype(np.float32)
+    return [torch.tensor(a) for a in (raw, leaf.astype(np.int32), g, h, w,
+                                      fi)]
+
+
+@pytest.mark.parametrize("n,f,leaves,kmax,spread,budget", [
+    (3000, 8, 20, 5, "even", None), (3000, 8, 20, 5, "skewed", None),
+    (3000, 8, 20, 5, "empty", 5_000), (500, 4, 6, 1, "even", None),
+    (2000, 30, 12, 28, "skewed", 60_000), (700, 140, 4, 136, "even", None)])
+def test_kernel_model_equals_plain_bitwise(n, f, leaves, kmax, spread, budget,
+                                           monkeypatch):
+    """The redesigned kernel's order of operations (passes of entries
+    staged from their first column, batches of chunks, the XtG and count
+    entries as products by 1, ``chunk_chain``'s chunk-order sums onto the
+    zeroed output) gives the plain version's bits; a small scratch
+    budget cuts the chunks into several batches."""
+    from lightgbm_tpu_torch.ops import linear_kernel as lk
+    if budget:
+        monkeypatch.setattr(lk, "SCRATCH_BYTES", budget)
+        assert lk.chunk_batch(kmax, lk.scratch_chunks(n, leaves), n) < (
+            lk.scratch_chunks(n, leaves))
+    args = _moment_inputs(n, f, leaves, kmax, spread, n + kmax)
+    want = linear_moments_ref(*args)
+    got = lk.linear_moments_model(*args)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+def test_kernel_layout_at_one_million_rows():
+    """At 1M rows and 255 leaves, for every kmax up to MAX_FEATURES: the
+    scratch (a batch of chunk sums, and the rows' g, h, w where the
+    entries take more than one pass) stays within 64 MB, a pass is every
+    entry or whole tiles, a block's stages fit the card's 227 KB and a
+    stage holds at least one row; kmax 9 and 28 take one pass and one
+    batch."""
+    from lightgbm_tpu_torch.ops import linear_kernel as lk
+    n = 1_000_000
+    cmax = lk.scratch_chunks(n, 255)
+    assert cmax == 15_625 + 255
+    for kmax in range(1, lk.MAX_FEATURES + 1):
+        _, e = moment_layout(kmax)
+        ep = lk.pass_entries(kmax)
+        cb = lk.chunk_batch(kmax, cmax, n)
+        kept = 12 * n if ep < e else 0        # g, h, w by position
+        assert 1 <= cb <= cmax and cb * ep * 8 + kept <= 64_000_000
+        assert ep == e or ep == lk.WARPS * 32 * lk.MAX_SLOTS
+        assert lk.stage_rows(kmax + 1, 1) >= 1
+        assert lk.smem_bytes(kmax) <= 227 * 1024
+    for kmax in (9, 28):
+        e = moment_layout(kmax)[1]
+        assert lk.pass_entries(kmax) == e
+        assert lk.chunk_batch(kmax, cmax, n) == cmax
+
+
 def test_singular_and_thin_leaves_are_not_ok():
     """A singular system (a duplicated path feature at linear_lambda 0)
     and a leaf with fewer than 2 * nfeat rows keep their leaf value and
