@@ -196,7 +196,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the median split of a default-route, a row-order and a wide tree;
    the card against device="cpu" on the first 5,000 rows, 1 tree of 63
    leaves, on the default, pack=2 and row-order routes (bitwise); the basic method on
-   the default route for 3 iterations, pack=2, P1 ``FUSED=0``, 3ph,
+   the default route for 2 iterations, pack=2, P1 ``FUSED=0``, 3ph,
    ``POOL_TAIL=0``, row-order (``max_bin`` 1023) and the wide 1M x 136
    route for 2, ``monotone_penalty`` 2.0 and the intermediate method
    (the PyTorch tail and the adjacency pass) for 2, each counted and
@@ -266,7 +266,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    bitwise; the main path on the training main path's bins with their
    raw values kept (``with_raw``) and ``linear_target``'s seeded
    piecewise-linear label, ``LINEAR_PARAMS`` (regression,
-   ``linear_lambda`` 0.1, 255 leaves), 5 iterations on ``path=physical
+   ``linear_lambda`` 0.1, 255 leaves), 3 iterations on ``path=physical
    fused=1 tail=kernel (linear_tree)``, counted (one ``linear_moments``
    a tree), the ``linear_fit`` stage cut into the moments kernel, the
    host solve and the prediction, one profiled iteration, its holdout
@@ -285,9 +285,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    copies at B = 256 (the main path's bins: root, 3,000 and 250,000
    indexed rows) and B = 1024 (seeded u16 bins: root, 3,000 indexed);
    the card against device="cpu" at the parity cut (bitwise); the
-   Higgs binary main path with ``gpu_use_dp`` for 5 iterations on
+   Higgs binary main path with ``gpu_use_dp`` for 3 iterations on
    ``path=row_order`` (reason ``gpu_use_dp``), counted, beside its f32
-   row-order twin (``LGBM_TPU_PHYS=0``, 5 iterations); the f64 mode
+   row-order twin (``LGBM_TPU_PHYS=0``, 3 iterations); the f64 mode
    at the root and the smaller children's quartiles and maximum, in
    turns with the f32 mode, beside ``index_add_`` in f64 and the bound;
    printed as ``gpu_use_dp {...}``;
@@ -299,22 +299,22 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    segment empty on a rank (zeros, ``nleft = 0``, no launch); then W = 2
    ranks spawned on the one card over gloo (CUDA tensors staged through
    pinned host buffers): ``tree_learner=data`` on the main path's rows
-   (1M x 28, 255 leaves, ``max_bin`` 255, 3 iterations) with the
+   (1M x 28, 255 leaves, ``max_bin`` 255, 2 iterations) with the
    reduce-scatter merge, counted on rank 0, and with the full merge
    (bitwise the same trees); ``data``, ``voting`` (``top_k`` 5) and
    ``feature`` at ``PARITY_ROWS`` x ``PARITY_CUT_LEAVES`` leaves, 2
    trees, card against the same 2-rank run on the CPU, bitwise; every
    rank's model text the same; the holdout AUC within 0.002 of the
-   serial route's at 3 iterations; a world-size-1 NCCL group through
+   serial route's at 2 iterations; a world-size-1 NCCL group through
    ``parallel.collectives.Comm``; printed as ``parallel {...}``
    (s / iteration, collectives and bytes a split, the ``collective``
    stage's ms a tree);
 19. the training API and the dataset inputs (slice 25, ``api_phase``):
    a custom objective (numpy binary logloss) with a custom metric
    (holdout error rate) on the training main path's rows (1M x 28, 255
-   leaves, 5 iterations) on ``path=physical fused=1 tail=kernel
+   leaves, 3 iterations) on ``path=physical fused=1 tail=kernel
    (objective_not_streamable)``, counted, its ``gradients`` stage a
-   tree, holdout AUC beside the default route's at 5 iterations and the
+   tree, holdout AUC beside the default route's at 3 iterations and the
    metric beside its value from ``predict``; at the parity cut (5,000
    rows, 31 leaves, 2 trees) the custom objective's card trees bitwise
    the CPU's and a pass-through objective's bitwise the built-in twin's;
@@ -326,7 +326,19 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    the host walk counted; the 1M-row binary cache and the holdout as a
    CSV with a named label column loaded back to the same bins; printed
    as ``api {...}``;
-20. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+20. the resilience layer (slice 27, ``resilience_phase``) on the
+   default stream route at 200,000 x 28, 63 leaves, 6 iterations, a
+   snapshot every 2: three subprocesses (``LGBM_TPU_CKPT_AT_REFRESH`` 0
+   and 1, GOSS) killed by ``LGBM_TPU_FAULT=death@3`` and resumed here,
+   each byte for byte (model text, raw f32 scores) its uninterrupted
+   run; ``nan@2`` under ``LGBM_TPU_NUMERICS=raise`` on the l1 route
+   recovered from its snapshot to its uninterrupted run's bytes; a
+   resume with another ``num_leaves`` refused; ``stream_init``'s
+   launches over the saves; ``LGBM_TPU_NUMERICS=off`` launching the
+   kernels of no knob at all (counters and a profiler trace); a save's
+   ``stream_init`` at 200,000 rows timed; printed as ``resilience
+   {...}``;
+21. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times (``multiclass_launches`` on the multiclass main
    path, ``sampling_launches`` on the three sampling main paths,
    ``ranking_launches``, ``split_options_launches`` on the split
@@ -348,6 +360,7 @@ import subprocess
 import sys
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 
@@ -1269,6 +1282,85 @@ def refresh_plain_parity(bins, kind: str, padded_bins: int, label: str,
     return rec
 
 
+# the pack=1 init's and plain refresh's odd shapes: row counts off a
+# group of 4 rows and a block of 256, feature counts off a 16-byte word
+# (5, 28, 36) and wide (136)
+STREAM_SHAPE_ROWS = (1, 3, 4097, 1_000_003)
+STREAM_SHAPE_FEATURES = (28, 36, 5, 136)
+
+
+def stream_shape_parity(n: int, f: int, kind: str, device, seed: int = 41,
+                        offset: bool = False) -> dict:
+    """``stream_init`` and ``stream_refresh_plain`` against their plain
+    versions on the same seeded inputs at ``n`` rows x ``f`` features,
+    bitwise: the rows after the init, then the rows after the refresh.
+    ``offset`` hands the init a score and the refresh an ``lv`` that
+    start 4 bytes past a 16-byte boundary (the kernels' 4-byte path)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.device_data import Rows
+    from lightgbm_tpu_torch.ops.stream_grad import (stream_init,
+                                                    stream_init_ref,
+                                                    stream_refresh_plain,
+                                                    stream_refresh_plain_ref)
+    gen = torch.Generator(device=device).manual_seed(seed + n + f)
+    bins = torch.randint(0, 256, (n, f), dtype=torch.uint8, device=device,
+                         generator=gen)
+    score, valid, consts = stream_aux(n, kind, seed, device)
+    lv = torch.tensor(np.random.default_rng(seed + 1).normal(size=n) * 0.1,
+                      dtype=torch.float32, device=device)
+    if offset:
+        shifted = torch.empty(n + 1, dtype=torch.float32, device=device)
+        shifted[1:] = score
+        score = shifted[1:]
+        shifted = torch.empty(n + 1, dtype=torch.float32, device=device)
+        shifted[1:] = lv
+        lv = shifted[1:]
+    kw = dict(kind=kind, sigmoid=1.0)
+    launches = (stream_init.launches, stream_refresh_plain.launches)
+    rk = stream_init(bins, score, valid, consts, **kw)
+    rp = stream_init_ref(bins, score, valid, consts, **kw)
+    rec = {"n": n, "f": f, "kind": kind, "offset": offset,
+           "init_identical": _rows_equal(rk, rp)}
+    rc = Rows(*(a.clone() for a in rp))
+    stream_refresh_plain(rc, lv, **kw)
+    stream_refresh_plain_ref(rp, lv, **kw)
+    rec["refresh_identical"] = _rows_equal(rc, rp)
+    rec["launched"] = [stream_init.launches - launches[0],
+                       stream_refresh_plain.launches - launches[1]]
+    rec["ok"] = (rec["init_identical"] and rec["refresh_identical"]
+                 and rec["launched"] == [1, 1])
+    return rec
+
+
+def stream_shape_cases() -> list:
+    """(n, f, kind, offset) of :func:`stream_shape_parity`'s cases: every
+    row count at every feature count for both objectives, and the
+    offset pointers at 28 features."""
+    cases = [(n, f, kind, False) for f in STREAM_SHAPE_FEATURES
+             for n in STREAM_SHAPE_ROWS for kind in ("binary", "l2")]
+    return cases + [(n, 28, kind, True) for n in (4097, 1_000_003)
+                    for kind in ("binary", "l2")]
+
+
+def stream_shape_parities() -> dict:
+    """Every :func:`stream_shape_cases` case on the card; prints
+    ``parity stream shapes {...}`` and raises on a case that is not
+    bitwise."""
+    import torch
+    dev = torch.device("cuda")
+    recs = [stream_shape_parity(n, f, kind, dev, offset=off)
+            for n, f, kind, off in stream_shape_cases()]
+    torch.cuda.synchronize()
+    out = {"cases": len(recs), "bitwise": all(r["ok"] for r in recs),
+           "failed": [r for r in recs if not r["ok"]]}
+    print("parity stream shapes " + json.dumps(out), flush=True)
+    if not out["bitwise"]:
+        raise RuntimeError(f"stream_init / stream_refresh_plain disagree "
+                           f"with their plain versions: {out['failed']}")
+    return out
+
+
 def fused_parity(rows, sel, padded_bins: int, label: str) -> dict:
     """fused_split against its plain version on copies of the same rows:
     the scratch segment byte-identical with equal nleft, each side's
@@ -1901,6 +1993,7 @@ def training_kernels(gpu: str, ds) -> list:
                                     "dead_split")]
     rp_recs = [refresh_plain_parity(bins, "binary", b_pad, "1M_binary"),
                refresh_plain_parity(bins, "l2", b_pad, "1M_l2")]
+    shapes = stream_shape_parities()
     dd = to_device(ds._binned, dev)
     grower = SerialGrower(SplitHyperParams(), num_leaves=TRAIN_LEAVES,
                           max_depth=-1, dd=dd, route=decide(RouteInputs()),
@@ -1998,7 +2091,8 @@ def training_kernels(gpu: str, ds) -> list:
             "stream_init", "lightgbm_tpu_torch/csrc/stream_grad.cu",
             "lightgbm_tpu/ops/pallas/stream_grad.py:784", 0, 0.0,
             *t["stream_init"], n * (f + 16) + n * row_bytes, 16 * n, gpu,
-            parity_cases=[r["case"] for r in stream_recs]),
+            parity_cases=[r["case"] for r in stream_recs],
+            shape_cases=shapes["cases"], shapes_bitwise=shapes["bitwise"]),
         # reads bins, score, w, two constants, lv; writes score, g*w, h*w
         # and the histogram; ~17 operations a row plus 2 * F histogram adds
         _kernel_record(
@@ -2052,7 +2146,8 @@ def training_kernels(gpu: str, ds) -> list:
             fused_refresh_rows_identical=all(
                 r["fused_refresh_rows_identical"] for r in rp_recs),
             cpu_plain_identical=all(r["cpu_plain_identical"]
-                                    for r in rp_recs)),
+                                    for r in rp_recs),
+            shape_cases=shapes["cases"], shapes_bitwise=shapes["bitwise"]),
     ]
     return recs
 
@@ -2225,17 +2320,25 @@ def eager_and_graph_ms(fn) -> tuple:
 L2_FLUSH_BYTES = 128 << 20      # over twice the H100's 50 MB L2
 
 
-def cold_ms(fn, reps: int = 20) -> float:
+def cold_ms(fn, reps: int = 20, flush_by: str = "write") -> float:
     """Median milliseconds of one call of ``fn`` with the L2 cache
-    flushed before it (a 128 MB buffer written between calls, outside
-    the timed span): the time from device memory, where a replayed graph
-    of calls can find a working set under 50 MB still in L2."""
+    flushed before it (a 128 MB buffer between calls, outside the timed
+    span): the time from device memory, where a replayed graph of calls
+    can find a working set under 50 MB still in L2.  ``flush_by``
+    ``"write"`` zeroes the buffer, so the call also pays the write-back
+    of the L2's dirty lines it evicts, as a training's call does after
+    a kernel that wrote; ``"read"`` sums it, so the call finds a clean
+    L2 and pays for its own bytes alone."""
     import torch
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush.zero_()
     fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if flush_by == "write":
+            flush.zero_()
+        else:
+            flush.sum()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3361,6 +3464,9 @@ def refresh_times(gpu: str, n: int = TRAIN_ROWS, f: int = N_FEATURES,
                 lambda: init(bins, score, valid, consts, **kw)),
             "init_l2_flushed": cold_ms(
                 lambda: init(bins, score, valid, consts, **kw)),
+            "init_l2_clean": cold_ms(
+                lambda: init(bins, score, valid, consts, **kw),
+                flush_by="read"),
             "refresh": eager_and_graph_ms(
                 lambda: refresh(rows, lv, padded_bins=256, **kw)),
             "plain_refresh": eager_and_graph_ms(
@@ -3369,6 +3475,8 @@ def refresh_times(gpu: str, n: int = TRAIN_ROWS, f: int = N_FEATURES,
             # the calls of a replayed graph
             "plain_refresh_l2_flushed": cold_ms(
                 lambda: plain(rows, lv, **kw)),
+            "plain_refresh_l2_clean": cold_ms(
+                lambda: plain(rows, lv, **kw), flush_by="read"),
             "hist_comb_root": eager_and_graph_ms(
                 lambda: hist(rows, root, padded_bins=256, max_rows=n))}
         del rows
@@ -3616,10 +3724,12 @@ def train_phases(gpu: str) -> tuple:
         if r["name"] in ("stream_refresh_plain", "stream_refresh_plain_p2"):
             d = refresh_t["pack2" if r["name"].endswith("p2") else "pack1"]
             r["l2_flushed_ms"] = d["plain_refresh_l2_flushed"]
+            r["l2_clean_ms"] = d["plain_refresh_l2_clean"]
         if r["name"] in ("stream_init", "stream_init_p2"):
             d = refresh_t["pack2" if r["name"].endswith("p2") else "pack1"]
             r["eager_ms"], r["graph_ms"] = d["init"]
             r["l2_flushed_ms"] = d["init_l2_flushed"]
+            r["l2_clean_ms"] = d["init_l2_clean"]
     parity = train_parity(gpu, {}, PARITY_TREES, "default route")
     parity2 = train_parity(gpu, SLICE2_ROUTE, SLICE2_PARITY_TREES,
                            "slice 2 route")
@@ -4420,7 +4530,7 @@ def wide_phases(gpu: str, comb_cases: list) -> dict:
 # Slice 18: monotone constraints, the constrained mode of the split tail
 MONO_CONSTRAINED = 8
 MONO_SIGNS = [1] * 4 + [-1] * 4      # features 0-3 up, 4-7 down, rest free
-MONO_ITERS = 3
+MONO_ITERS = 2
 MONO_SHORT_ITERS = 2
 MONO_PENALTY = 2.0
 MONO_PARITY_ROWS = 5_000
@@ -4622,7 +4732,7 @@ def mono_phases(gpu: str, ds, valid, ds_wide, valid_wide, x, y, xv,
     its adversarial cases and on the median split of a default-route and
     a row-order tree; the card against the CPU on the first 5,000 rows
     (1 tree) on the default, pack=2 and row-order routes (bitwise); the basic
-    method on the default route for 3 iterations, pack=2, P1
+    method on the default route for 2 iterations, pack=2, P1
     ``FUSED=0``, 3ph, ``POOL_TAIL=0`` and row-order (``max_bin`` 1023)
     for 2, ``monotone_penalty`` 2.0 and the intermediate method for 2,
     each counted (the tail's launches are its constrained launches),
@@ -5677,7 +5787,9 @@ RANK_PARAMS = {"objective": "lambdarank", "boosting": "dart",
                # first drop is at iteration 12); seed 11 drops [0],
                # [0, 1] and [6] at iterations 2, 3 and 7
                "drop_seed": 11}
-RANK_ITERS = 10
+RANK_ITERS = 5
+# the drop sets of the first 10 iterations; the main path checks its
+# RANK_ITERS first
 RANK_DROPS = [[], [], [0], [0, 1], [], [], [], [6], [], []]
 RANK_ROUTE = ("path=physical fused=0 tail=kernel (objective_not_streamable, "
               "boosting_not_gbdt, fused_smem)")
@@ -5856,7 +5968,7 @@ def rank_gradient_parity(gpu: str, bst, label: str, score,
 def ranking_phases(gpu: str, wide: dict) -> dict:
     """Slice 21: the card-against-CPU runs (:func:`rank_parity`: lambdarank
     DART and rank_xendcg at 10,000 x 28), then lambdarank DART on the
-    wide phase's binned 1M x 136 rows (``RANK_PARAMS``, 10 iterations)
+    wide phase's binned 1M x 136 rows (``RANK_PARAMS``, 5 iterations)
     with seeded grades and query groups (``rank_labels``,
     ``rank_groups``: ~7,800 training queries, the 100,000 holdout rows
     in their own), on the wide route without the stream, counted, its
@@ -5894,9 +6006,9 @@ def ranking_phases(gpu: str, wide: dict) -> dict:
     if run["route"] != RANK_ROUTE:
         raise RuntimeError(f"the ranking main path took {run['route']}, "
                            f"expected {RANK_ROUTE}")
-    if drops != RANK_DROPS:
+    if drops != RANK_DROPS[:RANK_ITERS]:
         raise RuntimeError(f"the ranking main path dropped {drops}, "
-                           f"expected {RANK_DROPS}")
+                           f"expected {RANK_DROPS[:RANK_ITERS]}")
     for stage in ("gradients", "dart"):
         if stage not in run["stage_ms_per_tree"]:
             raise RuntimeError(f"the ranking main path timed no {stage} "
@@ -6197,7 +6309,7 @@ LINEAR_PARAMS = {"objective": "regression", "linear_tree": True,
                  "linear_lambda": 0.1, "num_leaves": TRAIN_LEAVES,
                  "max_bin": 255, "learning_rate": 0.1, "metric": "l2",
                  "verbosity": -1}
-LINEAR_ITERS = 5
+LINEAR_ITERS = 3
 LINEAR_CONTINUED = 2
 LINEAR_ROUTE = "path=physical fused=1 tail=kernel (linear_tree)"
 LINEAR_PARITY_TREES = 2
@@ -6210,7 +6322,7 @@ LINEAR_PARITY_LEAVES = 63
 LINEAR_PREDICT_RTOL = 1e-12
 LINEAR_PREDICT_ATOL = 1e-9
 DP_PARAMS = dict(TRAIN_PARAMS, gpu_use_dp=True)
-DP_ITERS = 5
+DP_ITERS = 3
 DP_ROUTE = "path=row_order fused=0 tail=kernel (gpu_use_dp)"
 # H100 SXM data sheet: FP64 through the tensor cores (the vector rate is
 # 34 TFLOP/s); the f64 modes' bound is taken at the higher rate
@@ -6516,7 +6628,7 @@ def l2_holdout(yv: np.ndarray):
 def linear_phase(gpu: str, higgs: dict) -> tuple:
     """Slice 23's main path: linear trees at Higgs width (the main path's
     1M x 28 bins with their raw values kept, ``linear_target``'s label,
-    100,000 holdout rows, ``LINEAR_PARAMS``, 5 iterations) counted and
+    100,000 holdout rows, ``LINEAR_PARAMS``, 3 iterations) counted and
     timed by stage (``linear_fit`` cut into the moments kernel, the host
     solve and the prediction; tree 0 apart from the mean of the others),
     its holdout l2 beside the constant-leaf twin's; ``linear_moments``
@@ -6740,9 +6852,9 @@ def dp_hist_times(gpu: str, bins, vals, perm, models) -> list:
 
 def dp_phase(gpu: str, higgs: dict) -> tuple:
     """Slice 23: ``gpu_use_dp`` on the Higgs binary main path (1M x 28, 255
-    leaves, 5 iterations; route ``path=row_order`` for ``gpu_use_dp``)
+    leaves, 3 iterations; route ``path=row_order`` for ``gpu_use_dp``)
     counted and timed, beside its f32 row-order twin (``LGBM_TPU_PHYS=0``,
-    5 iterations); the f64 mode bitwise its plain version at B = 256 (the
+    3 iterations); the f64 mode bitwise its plain version at B = 256 (the
     main path's bins) and B = 1024 (seeded u16 bins), root and an indexed
     child; the card's trees against the CPU's at the parity cut; the f64
     mode's times in turns with the f32 mode's.  Returns (the mode's
@@ -6828,7 +6940,7 @@ def dp_phase(gpu: str, higgs: dict) -> tuple:
 # Slice 24: the parallel tree learners (tree_learner=data|voting|feature)
 # on torch.distributed, W = 2 ranks sharing the one card over gloo
 PARALLEL_RANKS = 2
-PARALLEL_ITERS = 3
+PARALLEL_ITERS = 2
 PARALLEL_PARITY_TREES = 2
 PARALLEL_TIMEOUT_S = 600
 PARALLEL_LEARNERS = {"data": {"tree_learner": "data"},
@@ -7129,7 +7241,7 @@ def parallel_phase(gpu: str, higgs: dict) -> dict:
     empty-segment wrappers in this process; then W = 2 ranks spawned on
     the one card over gloo (the kernels already built): ``tree_learner=
     data`` on the main path's 1M x 28 rows, 255 leaves, ``max_bin`` 255,
-    3 iterations with the reduce-scatter merge (counted on rank 0) and
+    2 iterations with the reduce-scatter merge (counted on rank 0) and
     with the full merge (``LGBM_TPU_HIST_SCATTER=0``); at
     ``PARITY_ROWS`` x ``PARITY_CUT_LEAVES`` the card's ``data``,
     ``voting`` (``top_k`` 5) and ``feature`` trees against the same
@@ -7248,7 +7360,7 @@ def parallel_phase(gpu: str, higgs: dict) -> dict:
 # ---------------------------------------------------------------------
 # Slice 25: the training API (custom objectives and metrics, cv, refit)
 # and the dataset inputs (the binary cache, text files)
-API_ITERS = 5
+API_ITERS = 3
 API_CV_FOLDS = 3
 API_CV_ROUNDS = 3
 API_PARITY_TREES = 2
@@ -7624,12 +7736,12 @@ def api_inputs(gpu: str, higgs: dict) -> dict:
 def api_phase(gpu: str, higgs: dict) -> dict:
     """Slice 25: the training API and the dataset inputs.  The custom
     objective's main path (``api_fobj``, numpy binary logloss, on the
-    training main path's 1M x 28 rows, 255 leaves, 5 iterations, with
+    training main path's 1M x 28 rows, 255 leaves, 3 iterations, with
     ``api_feval`` on the holdout) on ``path=physical fused=1
     tail=kernel (objective_not_streamable)``, counted against
     ``expected_launches``, its ``gradients`` stage (the scores to the
     host, the numpy objective, the gradients to the card) a tree, its
-    holdout AUC beside the default route's at 5 iterations and its
+    holdout AUC beside the default route's at 3 iterations and its
     ``feval`` beside the value recomputed from ``predict``; then
     :func:`api_parity`, :func:`api_cv`, :func:`api_cv_callbacks`,
     :func:`api_refit`, :func:`api_refit_f64` and :func:`api_inputs`."""
@@ -7677,6 +7789,238 @@ def api_phase(gpu: str, higgs: dict) -> dict:
     print("api " + json.dumps({k: v for k, v in summary.items()
                                if k != "parity"}), flush=True)
     return summary
+
+
+# ---------------------------------------------------------------------
+# Slice 27: resilience/ (checkpoint / resume, fault injection, numerics)
+ROOT = Path(__file__).resolve().parent
+RES_ROWS = 200_000
+RES_LEAVES = 63
+RES_ITERS = 6
+RES_EVERY = 2
+RES_KILL_AT = 3
+RES_PARAMS = {"objective": "binary", "num_leaves": RES_LEAVES,
+              "max_bin": 255, "learning_rate": 0.1, "verbosity": -1}
+# GOSS samples from iteration 1 / learning_rate = 2 on
+RES_GOSS = dict(RES_PARAMS, boosting="goss", learning_rate=0.5)
+RES_L1 = dict(RES_PARAMS, objective="regression_l1")
+RES_KNOBS = ("LGBM_TPU_CKPT_DIR", "LGBM_TPU_CKPT_EVERY",
+             "LGBM_TPU_CKPT_KEEP", "LGBM_TPU_CKPT_AT_REFRESH",
+             "LGBM_TPU_FAULT", "LGBM_TPU_FAULT_RETRIES", "LGBM_TPU_NUMERICS")
+
+
+@contextlib.contextmanager
+def knob_env(env: dict):
+    """The route and resilience knobs set as ``env`` says (the others
+    unset) inside the block, restored after it."""
+    keys = tuple(ROUTE_KNOBS) + RES_KNOBS
+    saved = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def resilience_data(rows: int, objective: str = "binary"):
+    """(x, y) of the resilience runs: Higgs-like rows from seed 27, the
+    l1 runs' labels from ``objective_label``."""
+    x, y = make_higgs_like(rows, N_FEATURES, 27)
+    if objective != "binary":
+        y = objective_label(objective, x, 27)
+    return x, y
+
+
+def resilience_train(params: dict, rows: int, iters: int, env: dict,
+                     device: str = "cuda", ds=None):
+    """``engine.train`` of the resilience runs under the knobs ``env``
+    (the fault drill re-armed): the booster."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.resilience import faults
+    if ds is None:
+        x, y = resilience_data(rows, params["objective"])
+        ds = lgt.Dataset(x, label=y)
+    with knob_env(env):
+        faults.rearm()
+        return lgt.train(dict(params), ds, num_boost_round=iters,
+                         device=device)
+
+
+def resilience_worker(params: dict, rows: int, iters: int, env: dict,
+                      device: str) -> None:
+    """The killed process of a kill-and-resume run (``LGBM_TPU_FAULT=
+    death@i`` in ``env`` kills it)."""
+    resilience_train(params, rows, iters, env, device)
+
+
+def ckpt_env(d, every: int = RES_EVERY, **extra) -> dict:
+    return dict({"LGBM_TPU_CKPT_DIR": str(d),
+                 "LGBM_TPU_CKPT_EVERY": str(every)}, **extra)
+
+
+def same_run(a, b) -> dict:
+    """Model text and raw f32 training scores of two boosters, byte for
+    byte."""
+    sa = a._inner.scores.detach().cpu().numpy()
+    sb = b._inner.scores.detach().cpu().numpy()
+    return {"model_text_identical": a.model_to_string()
+            == b.model_to_string(),
+            "raw_scores_identical": sa.dtype == sb.dtype == np.float32
+            and sa.tobytes() == sb.tobytes()}
+
+
+def resilience_runs(device: str = "cuda", rows: int = RES_ROWS,
+                    iters: int = RES_ITERS, root=None, ds=None) -> dict:
+    """The kill-and-resume drills of the resilience phase at ``rows`` x
+    28, RES_LEAVES leaves, ``iters`` iterations, a snapshot every
+    RES_EVERY: for the default stream route under
+    ``LGBM_TPU_CKPT_AT_REFRESH`` 0 and 1 and for GOSS, a subprocess
+    killed by ``death@RES_KILL_AT`` (the three at once), then resumed
+    here, model text and raw scores byte for byte the uninterrupted
+    run's; ``nan@2`` under ``LGBM_TPU_NUMERICS=raise`` on the l1 route
+    recovered from its snapshot, the same bytes as its uninterrupted
+    run; a resume with another ``num_leaves`` refused; ``stream_init``'s
+    launches over each uninterrupted stream run's saves.  ``ds`` is the
+    binary runs' dataset of :func:`resilience_data` (built when None).
+    Raises on any failure."""
+    import shutil
+    import tempfile
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.stream_grad import stream_init
+    from lightgbm_tpu_torch.resilience import checkpoint as ckpt
+    from lightgbm_tpu_torch.resilience import faults
+    base = Path(tempfile.mkdtemp(prefix="resilience-", dir=root))
+    kills = {"stream": (RES_PARAMS, {}),
+             "stream_at_refresh": (RES_PARAMS,
+                                   {"LGBM_TPU_CKPT_AT_REFRESH": "1"}),
+             "goss": (RES_GOSS, {})}
+    out = {"rows": rows, "features": N_FEATURES, "leaves": RES_LEAVES,
+           "iterations": iters, "every": RES_EVERY,
+           "killed_at": RES_KILL_AT, "device": device}
+    try:
+        procs = {}
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+        for name, (params, extra) in kills.items():
+            knobs = ckpt_env(base / f"{name}_killed",
+                             LGBM_TPU_FAULT=f"death@{RES_KILL_AT}", **extra)
+            code = ("import chip_smoke as cs; cs.resilience_worker("
+                    f"{params!r}, {rows}, {iters}, {knobs!r}, {device!r})")
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", code], env=env, cwd=str(ROOT),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if ds is None:
+            ds = lgt.Dataset(*resilience_data(rows))
+        refs = {}
+        for name, (params, extra) in kills.items():
+            before = stream_init.launches
+            t0 = time.perf_counter()
+            refs[name] = resilience_train(
+                params, rows, iters, ckpt_env(base / f"{name}_ref", **extra),
+                device, ds)
+            out[f"{name}_uninterrupted_s"] = time.perf_counter() - t0
+            if params is RES_PARAMS:
+                launched = stream_init.launches - before
+                saves = iters // RES_EVERY
+                # one build at the start, then one a save that a tree
+                # follows (at once under AT_REFRESH=1: every save)
+                want = 1 + (saves if extra else saves - (iters % RES_EVERY
+                                                         == 0))
+                out[f"{name}_stream_init_launches"] = launched
+                # (the plain version on the CPU counts no launch)
+                if (device != "cpu" and launched != want
+                        or not refs[name]._inner.route.stream):
+                    raise RuntimeError(f"the {name} run launched stream_init "
+                                       f"{launched} times over {saves} saves, "
+                                       f"expected {want}")
+        for name, (params, extra) in kills.items():
+            log_text, _ = procs[name].communicate(timeout=600)
+            if procs[name].returncode != -9:
+                raise RuntimeError(f"the {name} worker was not killed "
+                                   f"(exit {procs[name].returncode}):\n"
+                                   + log_text[-3000:])
+            got = resilience_train(params, rows, iters, ckpt_env(
+                base / f"{name}_killed", **extra), device, ds)
+            rec = dict(same_run(got, refs[name]),
+                       resumed_from=got.resumed_from,
+                       route=got._inner.route.describe())
+            out[name] = rec
+            if not (rec["model_text_identical"]
+                    and rec["raw_scores_identical"]
+                    and rec["resumed_from"] == RES_KILL_AT - 1):
+                raise RuntimeError(f"the {name} kill-and-resume run differs "
+                                   f"from the uninterrupted run: {rec}")
+        # numerics: nan@2 on the l1 route (gradients handed in), raised,
+        # recovered from the snapshot at 2
+        x1, y1 = resilience_data(rows, "regression_l1")
+        ds1 = lgt.Dataset(x1, label=y1)
+        ref1 = resilience_train(RES_L1, rows, iters,
+                                ckpt_env(base / "l1_ref"), device, ds1)
+        got1 = resilience_train(RES_L1, rows, iters, ckpt_env(
+            base / "l1_nan", LGBM_TPU_FAULT="nan@2",
+            LGBM_TPU_NUMERICS="raise"), device, ds1)
+        rec = dict(same_run(got1, ref1),
+                   reports=[(r["class"], r["recovered"])
+                            for r in faults.run_reports()],
+                   route=got1._inner.route.describe())
+        out["l1_nan_raise"] = rec
+        if not (rec["model_text_identical"] and rec["raw_scores_identical"]
+                and rec["reports"] == [("nan_gradients", True)]):
+            raise RuntimeError(f"nan@2 under LGBM_TPU_NUMERICS=raise was not "
+                               f"recovered to the uninterrupted run: {rec}")
+        # a resume of another config refuses
+        try:
+            resilience_train(dict(RES_PARAMS, num_leaves=31), rows, iters,
+                             ckpt_env(base / "stream_ref"), device, ds)
+        except ckpt.ResumeRefused as e:
+            out["refused"] = e.finding["code"]
+        else:
+            raise RuntimeError("a resume with another num_leaves was not "
+                               "refused")
+        if out["refused"] != "RESUME_CONFIG_MISMATCH":
+            raise RuntimeError(f"the refusal was {out['refused']}")
+    finally:
+        for p in locals().get("procs", {}).values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def resilience_phase(gpu: str) -> dict:
+    """Slice 27: :func:`resilience_runs` on the card and a save's
+    ``stream_init`` at the phase's rows (eager, a graph of 20 calls, L2
+    flushed); prints ``resilience {...}``.  Returns the record."""
+    import torch
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops.stream_grad import stream_init
+    rec = {"gpu": gpu}
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(*resilience_data(RES_ROWS)).construct()
+    rec["runs"] = resilience_runs(root=str(ROOT / "lightgbm_tpu_torch"
+                                           / "build"), ds=ds)
+    rec["runs_s"] = time.perf_counter() - t0
+    bins = torch.as_tensor(ds._binned.bin_matrix, device="cuda")
+    score, valid, consts = stream_aux(RES_ROWS, "binary", 5, bins.device)
+    init = lambda: stream_init(bins, score, valid, consts,  # noqa: E731
+                               kind="binary", sigmoid=1.0)
+    eager, graph = eager_and_graph_ms(init)
+    rec["save_stream_init_ms"] = {"eager": eager, "graph": graph,
+                                  "l2_flushed": cold_ms(init),
+                                  "l2_clean": cold_ms(init,
+                                                      flush_by="read")}
+    print("resilience " + json.dumps(rec), flush=True)
+    return rec
 
 
 def _weighted_auc_np(y, raw) -> float:
@@ -7785,6 +8129,8 @@ def main() -> int:
     lap("parallel")
     api = api_phase(gpu, higgs)
     lap("api")
+    res = resilience_phase(gpu)
+    lap("resilience")
     # the launches of the multiclass, sampling, ranking and split-option
     # routes, and of the pack=2 parity runs
     mc, mc2 = (objectives["multiclass"]["launches"],
@@ -7826,6 +8172,13 @@ def main() -> int:
             k["api_launches"] = got
         if k["name"] == "apply_find":
             k["side_parity"] = par["side_tail"]
+        if k["name"] == "stream_init":
+            runs = res["runs"]
+            k["resilience_launches"] = {
+                name: runs[f"{name}_stream_init_launches"]
+                for name in ("stream", "stream_at_refresh")}
+            k["resilience_saves"] = RES_ITERS // RES_EVERY
+            k["save_ms"] = res["save_stream_init_ms"]
     kernels += [linear_rec, dp_rec]
     kernels += probes
     if not analysis["checked_in_report_current"]:

@@ -43,6 +43,7 @@ from .models.model_text import (dump_model_to_json, feature_importance,
                                 save_model_to_string)
 from .objective import create_objective
 from .parallel import MESH_LEARNERS, Network, rank_device
+from .resilience import faults
 from .utils import log
 from .utils.device import resolve_device
 from .utils.log import LightGBMError
@@ -409,6 +410,9 @@ class Booster:
             raise LightGBMError("Resetting train set on an existing "
                                 "booster is not supported yet")
         self._serve_engines.clear()
+        # LGBM_TPU_FAULT=<class>@<iteration> fires here, the boundary
+        # every training loop goes through (off: a cached no-op)
+        faults.maybe_fire(self._inner.iter_)
         if fobj is None:
             return self._inner.train_one_iter()
         inner = self._inner

@@ -7,9 +7,10 @@ dict parses identically in both packages and a trained model's
 ``parameters:`` section is written the same way.  The TPU-only fields
 (``device_type`` defaulting to ``"tpu"``, ``tpu_*``) are kept for that
 reason; the port selects its device with the ``device=`` argument of
-its entry points instead.  :func:`env_knob`, the serve knobs and the
-training-route knobs (``ops/routing.py``) keep the names and defaults
-of ``lightgbm_tpu.config.ENV_KNOBS``.
+its entry points instead.  :func:`env_knob`, the serve knobs, the
+training-route knobs (``ops/routing.py``) and the resilience knobs
+(``resilience/``) keep the names, defaults and help text of
+``lightgbm_tpu.config.ENV_KNOBS``.
 """
 from __future__ import annotations
 
@@ -60,6 +61,43 @@ ENV_KNOBS: Dict[str, tuple] = {
                                 "bins and fields (64 bytes at 28 features) "
                                 "and runs the route's pack=2 kernels where "
                                 "the JAX package engages pack=2"),
+    "LGBM_TPU_CKPT_DIR": ("off", "checkpoint directory for "
+                                 "deterministic train checkpoint/"
+                                 "resume (lightgbm_tpu/ckpt/v1; "
+                                 "engine.train resumes from the "
+                                 "latest valid checkpoint found "
+                                 "here)"),
+    "LGBM_TPU_CKPT_EVERY": ("10", "checkpoint cadence in boosting "
+                                  "iterations (0 = resume-only, "
+                                  "never write)"),
+    "LGBM_TPU_CKPT_KEEP": ("2", "how many completed checkpoints to "
+                                "retain (older ones are pruned "
+                                "after each save)"),
+    "LGBM_TPU_CKPT_AT_REFRESH": ("0", "1 re-anchors the physical row "
+                                      "permutation IN PLACE at each "
+                                      "checkpoint save on the stream "
+                                      "path (one anchored-order "
+                                      "gather at the refresh "
+                                      "boundary, where the value "
+                                      "columns were just rebuilt "
+                                      "anyway) instead of dropping "
+                                      "the comb for a full re-ingest "
+                                      "— kill+resume stays "
+                                      "byte-identical"),
+    "LGBM_TPU_FAULT": ("off", "fault injection: <class>@<iteration> "
+                              "with class in death | nan | oom | "
+                              "hang (resilience/faults.py; each "
+                              "spec fires once per process)"),
+    "LGBM_TPU_FAULT_RETRIES": ("2", "bounded resume-from-checkpoint "
+                                    "retries for recoverable "
+                                    "injected/observed faults at the "
+                                    "engine boundary"),
+    "LGBM_TPU_NUMERICS": ("off", "NaN/Inf guardrails on grad/hess/"
+                                 "histogram/gain in the grow path: "
+                                 "raise | skip | clamp (off "
+                                 "compiles the identical grow "
+                                 "program — analyzer purity pin "
+                                 "grow-numerics-off)"),
 }
 
 

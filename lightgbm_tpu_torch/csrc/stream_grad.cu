@@ -6,6 +6,8 @@
 // in original row order from the u8 bins and the per-row aux values --
 // bins copied, rid = position, score (boost-from-average included),
 // w = validity, the objective's two constants, and the first g*w, h*w.
+// It runs once a training and once a checkpoint save (the re-anchor of
+// the carried row order).
 //
 // stream_refresh_plain replaces make_refresh's plain variant
 // (_refresh_kernel, pallas_call at :557): per position p, s = score[p] +
@@ -46,6 +48,22 @@
 // with -fmad=false (ops/_build.py), so nvcc contracts no a*b + c into an
 // fma and every product is rounded as PyTorch rounds it.
 //
+// Design of the pack=1 init: it is memory-bound, and the card reaches
+// its bound only with enough bytes in flight.  It copies the bins as
+// 16-byte words of the flat n * F array over the whole grid (a byte tail
+// past the last word), then builds the fields 4 rows a thread: score and
+// validity one 16-byte load each, the constants two, all issued before
+// the f64 exp chain, and vals (three), rid, score and the constants
+// stored as 16-byte words.  Its grid is two waves (the occupancy API
+// times the SMs).  The rows past the last whole group, and every row
+// when a pointer is not 16-byte aligned, take 4-byte loads and stores.
+// On the H100 this took less time than a warp a tile of 128 rows doing
+// both, and than the 4-byte copy it replaced.  The plain refresh keeps
+// a row a thread on plain_blocks' grid: the same design at 2 and 4 rows
+// a thread took longer, and a row a thread in whole waves gained nothing
+// (PERF.md).  The arithmetic is gradients() in the same order, so the
+// bits are the plain versions'.
+//
 // Bound on this card: bytes.  init reads n * (F + 16) bytes (bins, score,
 // validity, two constants) and writes n * (F + 28).  The plain refresh
 // reads n * 20 bytes (score, w, constants, lv) and writes n * 12; it does
@@ -58,8 +76,8 @@
 
 namespace {
 
-// threads of a stream_init_p2 block and the records it builds at a time
-// (ops/hist_kernel2.HIST_CHUNK)
+// threads of a block, and the records a stream_init_p2 block builds at
+// a time (ops/hist_kernel2.HIST_CHUNK)
 constexpr int kThreads = 256;
 constexpr int kChunk = 256;
 
@@ -86,38 +104,98 @@ __device__ __forceinline__ void gradients(int kind, float sig, float s,
   *h = *h * w;
 }
 
-__global__ void stream_init_kernel(const uint8_t* __restrict__ src_bins,
-                                   const float* __restrict__ score,
-                                   const float* __restrict__ valid,
-                                   const float* __restrict__ consts, int n,
-                                   int F, int kind, float sig,
-                                   uint8_t* __restrict__ bins,
-                                   float* __restrict__ vals,
-                                   int* __restrict__ rid,
-                                   float* __restrict__ rscore,
-                                   float* __restrict__ rconsts) {
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  const size_t t0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if ((F & 3) == 0) {
-    const uint32_t* s = reinterpret_cast<const uint32_t*>(src_bins);
-    uint32_t* d = reinterpret_cast<uint32_t*>(bins);
-    for (size_t i = t0; i < (size_t)n * (F / 4); i += stride) d[i] = s[i];
-  } else {
-    for (size_t i = t0; i < (size_t)n * F; i += stride) bins[i] = src_bins[i];
-  }
-  for (size_t p = t0; p < (size_t)n; p += stride) {
-    const float s = score[p], w = valid[p];
-    const float c0 = consts[2 * p], c1 = consts[2 * p + 1];
-    float g, h;
-    gradients(kind, sig, s, c0, c1, w, &g, &h);
-    vals[3 * p] = g;
-    vals[3 * p + 1] = h;
-    vals[3 * p + 2] = w;
-    rid[p] = (int)p;
-    rscore[p] = s;
-    rconsts[2 * p] = c0;
-    rconsts[2 * p + 1] = c1;
-  }
+// waves of the init's grid (one wave fills every SM once)
+constexpr int kInitWaves = 2;
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// one row of the init, 4-byte fields (the tail rows and the unaligned
+// path)
+__device__ __forceinline__ void init_row(size_t p, const float* score,
+                                         const float* valid,
+                                         const float* consts, int kind,
+                                         float sig, float* vals, int* rid,
+                                         float* rscore, float* rconsts) {
+  const float s = score[p], w = valid[p];
+  const float c0 = consts[2 * p], c1 = consts[2 * p + 1];
+  float g, h;
+  gradients(kind, sig, s, c0, c1, w, &g, &h);
+  vals[3 * p] = g;
+  vals[3 * p + 1] = h;
+  vals[3 * p + 2] = w;
+  rid[p] = (int)p;
+  rscore[p] = s;
+  rconsts[2 * p] = c0;
+  rconsts[2 * p + 1] = c1;
+}
+
+// the init's fields of the 4 rows from p (p a multiple of 4, every
+// pointer 16-byte aligned), as 16-byte words
+__device__ __forceinline__ void init_group(long long p,
+                                           const float* __restrict__ score,
+                                           const float* __restrict__ valid,
+                                           const float* __restrict__ consts,
+                                           int kind, float sig,
+                                           float* __restrict__ vals,
+                                           int* __restrict__ rid,
+                                           float* __restrict__ rscore,
+                                           float* __restrict__ rconsts) {
+  const float4 s4 = reinterpret_cast<const float4*>(score)[p / 4];
+  const float4 v4 = reinterpret_cast<const float4*>(valid)[p / 4];
+  const float4 ca = reinterpret_cast<const float4*>(consts)[p / 2];
+  const float4 cb = reinterpret_cast<const float4*>(consts)[p / 2 + 1];
+  const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+  const float w[4] = {v4.x, v4.y, v4.z, v4.w};
+  const float c0[4] = {ca.x, ca.z, cb.x, cb.z};
+  const float c1[4] = {ca.y, ca.w, cb.y, cb.w};
+  float g[4], h[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    gradients(kind, sig, s[k], c0[k], c1[k], w[k], &g[k], &h[k]);
+  float4* vw = reinterpret_cast<float4*>(vals) + 3 * (p / 4);
+  vw[0] = make_float4(g[0], h[0], w[0], g[1]);
+  vw[1] = make_float4(h[1], w[1], g[2], h[2]);
+  vw[2] = make_float4(w[2], g[3], h[3], w[3]);
+  reinterpret_cast<int4*>(rid)[p / 4] =
+      make_int4((int)p, (int)p + 1, (int)p + 2, (int)p + 3);
+  reinterpret_cast<float4*>(rscore)[p / 4] = s4;
+  reinterpret_cast<float4*>(rconsts)[p / 2] = ca;
+  reinterpret_cast<float4*>(rconsts)[p / 2 + 1] = cb;
+}
+
+// The init: the bins as 16-byte words of the flat array over the grid,
+// then the fields a group of 4 rows a thread (init_group); !vec (a
+// pointer not 16-byte aligned): every row and byte 4 and 1 bytes at a
+// time.  The bound of kThreads threads a block lets ptxas give a thread
+// the registers to keep a group's four exps in flight (84, 3 blocks an
+// SM); without it ptxas held it to 61, and on the H100 the init took
+// 0.0381 ms at 1M x 28 against this build's 0.0357, L2 flushed by a read
+// (PERF.md).
+__global__ void __launch_bounds__(kThreads, 1)
+stream_init_kernel(const uint8_t* __restrict__ src_bins,
+                   const float* __restrict__ score,
+                   const float* __restrict__ valid,
+                   const float* __restrict__ consts, int n, int F, int kind,
+                   float sig, int vec, uint8_t* __restrict__ bins,
+                   float* __restrict__ vals, int* __restrict__ rid,
+                   float* __restrict__ rscore, float* __restrict__ rconsts) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long nb = (long long)n * F, words = vec ? nb / 16 : 0;
+  for (long long i = tid; i < words; i += stride)
+    reinterpret_cast<uint4*>(bins)[i] =
+        reinterpret_cast<const uint4*>(src_bins)[i];
+  for (long long i = words * 16 + tid; i < nb; i += stride)
+    bins[i] = src_bins[i];
+  const long long groups = vec ? n / 4 : 0;
+  for (long long q = tid; q < groups; q += stride)
+    init_group(4 * q, score, valid, consts, kind, sig, vals, rid, rscore,
+               rconsts);
+  for (long long p = groups * 4 + tid; p < n; p += stride)
+    init_row((size_t)p, score, valid, consts, kind, sig, vals, rid, rscore,
+             rconsts);
 }
 
 // 32-bit words of a staged record: S / 4 + 1, odd, so the rows' threads
@@ -229,6 +307,32 @@ int plain_blocks(int n) {
   return (int)blocks;
 }
 
+// blocks of the init: kInitWaves times the blocks that fill every SM of
+// the current device once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// x SMs, cached by device); at most `need` and at least 1.  0 with the
+// error in *err.
+int init_blocks(long long need, cudaError_t* err) {
+  constexpr int kDevices = 64;
+  static int wave[kDevices];
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  int w = dev < kDevices ? wave[dev] : 0;
+  if (w == 0) {
+    int sms = 0, per_sm = 0;
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (*err == cudaSuccess)
+      *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, stream_init_kernel, kThreads, 0);
+    if (*err != cudaSuccess) return 0;
+    w = sms * (per_sm > 0 ? per_sm : 1);
+    if (dev < kDevices) wave[dev] = w;
+  }
+  const long long most = (long long)w * kInitWaves;
+  if (need < 1) need = 1;
+  return (int)(need < most ? need : most);
+}
+
 }  // namespace
 
 extern "C" {
@@ -240,14 +344,20 @@ int stream_init(const uint8_t* src_bins, const float* score,
                 const float* valid, const float* consts, int n, int F,
                 int kind, float sig, uint8_t* bins, float* vals, int* rid,
                 float* rscore, float* rconsts, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  long long work = (long long)n * (F > 4 ? F / 4 : 1);
-  int blocks = (int)((work + 255) / 256);
-  if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  stream_init_kernel<<<blocks, 256, 0, s>>>(src_bins, score, valid, consts,
-                                            n, F, kind, sig, bins, vals, rid,
-                                            rscore, rconsts);
+  const int vec = aligned16(src_bins) && aligned16(score) &&
+                  aligned16(valid) && aligned16(consts) && aligned16(bins) &&
+                  aligned16(vals) && aligned16(rid) && aligned16(rscore) &&
+                  aligned16(rconsts);
+  // a thread a 16-byte word of bins, then a group of 4 rows
+  const long long items = ((long long)n * F + 15) / 16;
+  const long long need = (items + kThreads - 1) / kThreads;
+  cudaError_t e;
+  const int blocks = init_blocks(need, &e);
+  if (blocks == 0) return (int)e;
+  stream_init_kernel<<<blocks, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      src_bins, score, valid, consts, n, F, kind, sig, vec, bins, vals, rid,
+      rscore, rconsts);
   return (int)cudaGetLastError();
 }
 

@@ -12,8 +12,20 @@ trains one booster a fold on the JAX package's folds (numpy
 ``default_rng(seed)``, stratified for the classification objectives),
 each fold a ``Dataset.subset`` of the constructed dataset sharing its
 mappers; unlike the JAX ``cv``, it runs its callbacks and starts every
-fold from ``init_model``.  Checkpoint / resume and fault handling are not
-ported (``ROADMAP.md`` A11).
+fold from ``init_model``.
+
+Fault tolerance (``resilience/``, JAX ``engine.py:118-175``): with
+``LGBM_TPU_CKPT_DIR`` set, ``train`` resumes from the newest valid
+ckpt/v1 snapshot there (the trees byte-identical to the uninterrupted
+run's) and writes one every ``LGBM_TPU_CKPT_EVERY`` iterations; a
+snapshot of another config, route or dataset refuses
+(``ResumeRefused``), a torn one raises ``CheckpointError``.  Every
+exception of the loop goes through ``faults.handle_training_fault``: a
+known transient class is recovered from the last snapshot within
+``LGBM_TPU_FAULT_RETRIES`` attempts, anything else raises (``FaultError``
+for a classified fault, the exception itself otherwise).  A booster the
+snapshot cannot hold (``checkpoint.supports``) trains unprotected, with
+a warning.  ``cv`` trains without checkpoints.
 """
 from __future__ import annotations
 
@@ -27,6 +39,9 @@ from . import callback as callback_mod
 from .basic import Booster, Dataset
 from .config import Config
 from .metric import create_metrics
+from .resilience import checkpoint as ckpt_mod
+from .resilience import faults as faults_mod
+from .utils import log
 from .utils.log import LightGBMError
 
 __all__ = ["train", "cv", "CVBooster"]
@@ -93,32 +108,145 @@ def train(
         cbs.append(callback_mod.log_evaluation(cfg.metric_freq))
     cbs_before, cbs_after = _split_callbacks(cbs)
 
+    faults_mod.reset_run()
+    ckpt = _Checkpointing(booster, cfg)
+    retries = faults_mod.max_retries()
+    attempt = 0
     evaluation_result_list: List = []
-    for it in range(num_boost_round):
-        for cb in cbs_before:
-            cb(callback_mod.CallbackEnv(booster, params, it, 0,
-                                        num_boost_round, None))
-        finished = booster.update(fobj=fobj)
-        evaluation_result_list = []
-        if ((it + 1) % max(cfg.metric_freq, 1) == 0
-                or cfg.early_stopping_round):
-            evaluation_result_list = (booster.eval_train(feval)
-                                      + booster.eval_valid(feval))
+    it = ckpt.resumed
+    if it >= num_boost_round and it:
+        log.warning("checkpoint already holds %d iteration(s) >= "
+                    "num_boost_round=%d: no further training, returning the "
+                    "checkpointed model unchanged", it, num_boost_round)
+    while it < num_boost_round:
+        rng_snap = booster._inner._rng_feature.bit_generator.state
         try:
-            for cb in cbs_after:
+            for cb in cbs_before:
                 cb(callback_mod.CallbackEnv(booster, params, it, 0,
-                                            num_boost_round,
-                                            evaluation_result_list))
-        except callback_mod.EarlyStopException as e:
-            booster.best_iteration = e.best_iteration + 1
-            _record_best(booster, e.best_score)
-            break
-        if finished:
-            break
+                                            num_boost_round, None))
+            finished = booster.update(fobj=fobj)
+            evaluation_result_list = []
+            if ((it + 1) % max(cfg.metric_freq, 1) == 0
+                    or cfg.early_stopping_round):
+                evaluation_result_list = (booster.eval_train(feval)
+                                          + booster.eval_valid(feval))
+            try:
+                for cb in cbs_after:
+                    cb(callback_mod.CallbackEnv(booster, params, it, 0,
+                                                num_boost_round,
+                                                evaluation_result_list))
+            except callback_mod.EarlyStopException as e:
+                booster.best_iteration = e.best_iteration + 1
+                _record_best(booster, e.best_score)
+                break
+            ckpt.after_iteration(it + 1)
+            if finished:
+                break
+        except (ckpt_mod.CheckpointError, ckpt_mod.ResumeRefused,
+                faults_mod.FaultError):
+            # their own exit contracts: classifying them again would
+            # wrap the wrapper
+            raise
+        except Exception as e:   # noqa: BLE001 - classified below
+            # a class the table does not know is a plain bug (a
+            # callback's, a custom objective's): it propagates untouched
+            if faults_mod.classify(e) is None:
+                raise
+            attempt += 1
+            it = ckpt.recover(e, it, attempt, retries, rng_snap)
+            continue
+        it += 1
+        # a completed iteration closes the incident: the budget bounds
+        # consecutive attempts, not a long run's transient faults
+        attempt = 0
     if booster.best_iteration <= 0:
         booster.best_iteration = booster.current_iteration()
         _record_best(booster, evaluation_result_list)
     return booster
+
+
+class _Checkpointing:
+    """``train``'s checkpoint policy (JAX ``engine.py:118-175`` and the
+    loop's fault handler): resume at the start, a snapshot every
+    ``every`` iterations, recovery from the last one."""
+
+    def __init__(self, booster: Booster, cfg: Config):
+        self.booster = booster
+        self.policy = ckpt_mod.policy_from_env()
+        self.dir: Optional[str] = None
+        self.fingerprint: Optional[str] = None
+        self.resumed = booster.resumed_from = 0
+        if self.policy.dir is None:
+            return
+        unsupported = ckpt_mod.supports(booster._inner)
+        if unsupported is not None:
+            log.warning("checkpointing disabled for this run: %s",
+                        unsupported)
+            return
+        self.dir = self.policy.dir
+        # the config as it is now: reset_parameter changes it in place
+        # every iteration, and a fingerprint of that would refuse every
+        # legitimate resume
+        self.fingerprint = ckpt_mod.config_fingerprint(booster.config)
+        os.makedirs(self.dir, exist_ok=True)
+        self.resumed = self._resume()
+        if self.resumed and cfg.early_stopping_round:
+            log.warning("resumed with early_stopping_round=%d: callback "
+                        "state is not part of the ckpt/v1 snapshot, so "
+                        "early stopping restarts its best-metric search at "
+                        "iteration %d", cfg.early_stopping_round,
+                        self.resumed)
+        booster.resumed_from = self.resumed
+
+    def _resume(self) -> int:
+        return ckpt_mod.maybe_resume(self.booster, self.dir,
+                                     fingerprint=self.fingerprint,
+                                     every=self.policy.every)
+
+    def _save(self) -> None:
+        ckpt_mod.save_booster(self.booster, self.dir, keep=self.policy.keep,
+                              every=self.policy.every,
+                              fingerprint=self.fingerprint)
+
+    def after_iteration(self, done: int) -> None:
+        """A snapshot when ``done`` iterations end a cadence."""
+        if (self.dir is not None and self.policy.every > 0
+                and done % self.policy.every == 0):
+            self._save()
+
+    def recover(self, exc: Exception, it: int, attempt: int, retries: int,
+                rng_snap) -> int:
+        """The loop's fault at iteration ``it``: classified, recorded and
+        recovered (or raised by ``handle_training_fault``); returns the
+        iteration to go on from.  Without a snapshot the booster is
+        retried in place only at a clean iteration boundary, and only
+        where the dead attempt changed nothing but the feature-fraction
+        RNG (no carried rows, no lazy CEGB mask): a retry on anything
+        else would fork the run."""
+        inner = self.booster._inner
+        has_ckpt = (self.dir is not None
+                    and ckpt_mod.latest(self.dir) is not None)
+        boundary = (len(inner.models)
+                    == inner.current_iteration()
+                    * inner.num_tree_per_iteration)
+        inplace_ok = (boundary and inner._cegb_paid is None
+                      and getattr(inner.grow, "reset_stream", None) is None)
+        faults_mod.handle_training_fault(
+            exc, iteration=it, ckpt_dir=self.dir, attempt=attempt,
+            retries=retries, state_ok=has_ckpt or inplace_ok)
+        if has_ckpt:
+            return self._resume()
+        # a clean boundary: put back the RNG draws of an attempt that
+        # landed no tree (a fault after update() keeps its tree's draws)
+        if inner.current_iteration() == it:
+            inner._rng_feature.bit_generator.state = rng_snap
+        it = inner.current_iteration()
+        if it > 0 and self.policy.every > 0 and it % self.policy.every == 0:
+            # the fault cut the iteration's tail after its tree landed:
+            # the save the tail skipped re-anchors the rows as the
+            # uninterrupted run does
+            self._save()
+        return it
 
 
 def _split_fobj(params):

@@ -75,6 +75,18 @@ the training metrics read the ranks' scores gathered in rank order
 train yet raise ``LightGBMError`` naming ROADMAP A10
 (:func:`mesh_refusals`).
 
+Resilience (``resilience/``, JAX ``gbdt.py:119-126``, ``:725-830``,
+``:1030-1090``): ``LGBM_TPU_NUMERICS`` wraps the serial grower in
+``ops.grow.NumericsGuard`` (``off`` builds nothing) and guards a parallel
+learner's gradients at this boundary; a poisoned tree raises
+``NumericalFault`` or, under ``skip``, becomes a zero stump (on the
+stream route the rows are rebuilt from the scores, which never took it).
+``LGBM_TPU_FAULT=nan@i`` poisons the gradients where they are computed.
+:meth:`GBDT.checkpoint_state` and :meth:`GBDT.restore_checkpoint_state`
+carry the exact boosting state of a ckpt/v1 snapshot, and
+:meth:`GBDT._reanchor_physical` puts the carried rows back in original
+order after every save.
+
 Unlike the JAX package, trees are finalized synchronously, so an
 iteration in which no class's tree can split stops training at once
 (the reference's synchronous behaviour).  Parameters the port does not
@@ -102,12 +114,15 @@ from ..objective.regression import renew_leaf_values
 from ..ops.device_data import DeviceDataset, to_device
 from ..ops.apply_find import apply_find_supported
 from ..ops.fused_split import fused_supported
-from ..ops.grow import (RowOrderGrower, SerialGrower, StageTimer,
-                        StreamSpec, TreeArrays, predict_leaf_bins)
+from ..ops.grow import (NumericsGuard, RowOrderGrower, SerialGrower,
+                        StageTimer, StreamSpec, TreeArrays,
+                        predict_leaf_bins)
 from ..ops.histogram import histogram_impl
 from ..ops.routing import (decide, inputs_from_env, loud_rules,
                            resolve_layout)
 from ..ops.split import SplitHyperParams
+from ..resilience import faults
+from ..resilience import numerics as numerics_mod
 from ..utils import log
 from ..utils.log import LightGBMError
 from ..utils.random import make_rng, prng_key, uniform
@@ -293,6 +308,8 @@ class GBDT:
                  metrics: Sequence[Metric] = (), *,
                  device: torch.device, timer: Optional[StageTimer] = None):
         check_supported(config)
+        # read once: a mistyped policy fails here, not unguarded later
+        self._numerics = numerics_mod.policy()
         self.config = config
         self.train_set = train_set
         # a parallel learner's collectives (None: serial training)
@@ -403,6 +420,12 @@ class GBDT:
                                      options=opts, merge=merge)
             if self.route.stream:
                 self.grow.set_stream_aux(self._stream_aux)
+        # the serial grower guards itself; a parallel learner's gradients
+        # are guarded at this boundary (numerics.host_guard)
+        self._numerics_in_grow = (self._numerics != "off"
+                                  and self.comm is None)
+        if self._numerics_in_grow:
+            self.grow = NumericsGuard(self.grow, self._numerics)
         for rule in loud_rules(self.route):
             log.warning("routing: %s takes the %s path (%s)", rule.name,
                         self.route.path, rule.reason)
@@ -504,15 +527,20 @@ class GBDT:
             vs.raw = torch.as_tensor(
                 np.ascontiguousarray(data.raw_matrix, np.float32),
                 device=self.device)
-        k = self.num_tree_per_iteration
-        vs.scores = _init_scores(data.metadata, k, data.num_data,
-                                 self.device)
-        for i, t in enumerate(self.models):
-            vs.scores[i % k] += self._tree_score(i, bins, vs.raw)
+        self._replay_valid(vs)
         for m in vs.metrics:
             m.init(data.metadata, data.num_data)
         self.valid_sets.append(vs)
         self._undo = None
+
+    def _replay_valid(self, vs: _ValidSet) -> None:
+        """A validation set's scores from its init scores and every tree
+        of the model."""
+        k = self.num_tree_per_iteration
+        vs.scores = _init_scores(vs.data.metadata, k, vs.data.num_data,
+                                 self.device)
+        for i in range(len(self.models)):
+            vs.scores[i % k] += self._tree_score(i, vs.bins, vs.raw)
 
     def _inner_ids(self) -> dict:
         """Original -> inner feature ids of the training set."""
@@ -619,11 +647,18 @@ class GBDT:
             _class_view(self.get_training_score()))
         return grad.reshape(k, -1), hess.reshape(k, -1)
 
-    def _sampled_gradients(self):
-        """The iteration's gradients through the sampling hook:
+    def _sampled_gradients(self, grad=None, hess=None):
+        """The iteration's gradients (the objective's, or a custom
+        objective's ``grad`` / ``hess``) through the fault drill, the
+        boundary guard of a parallel learner and the sampling hook:
         ``(grad, hess, inbag)``."""
-        with self.timer.stage("gradients", self.device):
-            grad, hess = self._gradients()
+        if grad is None:
+            with self.timer.stage("gradients", self.device):
+                grad, hess = self._gradients()
+        grad, hess = faults.maybe_poison(grad, hess, self.iter_)
+        if self._numerics != "off" and not self._numerics_in_grow:
+            grad, hess = numerics_mod.host_guard(grad, hess, self._numerics,
+                                                 self.iter_)
         with self.timer.stage("sample", self.device):
             return self._sample(grad, hess, self.iter_)
 
@@ -691,14 +726,19 @@ class GBDT:
         if self.route.stream:
             # the gradients live in the row matrix and were refreshed
             # there at the previous tree's end; the route takes no sample
+            faults.warn_unfireable_nan(self.iter_)
             grad = hess = [None] * k
             inbag = self._valid_rows
-        elif explicit:
-            with self.timer.stage("sample", self.device):
-                grad, hess, inbag = self._sample(gradients, hessians,
-                                                 self.iter_)
         else:
-            grad, hess, inbag = self._sampled_gradients()
+            try:
+                grad, hess, inbag = self._sampled_gradients(gradients,
+                                                            hessians)
+            except numerics_mod.NumericsSkip as e:
+                # a parallel learner's boundary guard: every class a stump
+                for _ in range(k):
+                    self._skip_poisoned_tree(e)
+                self.iter_ += 1
+                return False
         grew = False
         for c in range(k):
             if not self._class_need_train[c]:
@@ -706,8 +746,8 @@ class GBDT:
                 self.models.append(Tree.single_leaf(0.0))
                 self._linear.append(None)
                 continue
-            if self._train_one_tree(grad[c], hess[c], inbag, c,
-                                    float(init_scores[c])) is not None:
+            if self._tree_or_skip(grad[c], hess[c], inbag, c,
+                                  float(init_scores[c])):
                 grew = True
         self.iter_ += 1
         if not grew:
@@ -716,11 +756,54 @@ class GBDT:
             return True
         return False
 
+    def _tree_or_skip(self, grad, hess, inbag, c: int, init_score: float
+                      ) -> bool:
+        """:meth:`_train_one_tree`; under ``LGBM_TPU_NUMERICS=skip`` a
+        poisoned tree becomes a zero stump.  True when a tree grew or was
+        dropped (training goes on), False for a stump."""
+        try:
+            return self._train_one_tree(grad, hess, inbag, c,
+                                        init_score) is not None
+        except numerics_mod.NumericsSkip as e:
+            self._skip_poisoned_tree(e)
+            return True
+
+    def _skip_poisoned_tree(self, exc) -> None:
+        """Policy ``skip`` (JAX ``_skip_poisoned_tree``): the poisoned tree
+        is dropped and a zero stump keeps the model list aligned.  On the
+        stream route the rows took the tree's outputs when it was grown,
+        so they are rebuilt from the scores at the next tree."""
+        faults.record("numerics_skip")
+        log.warning("numerics sentinel (%s=skip): dropping poisoned tree — "
+                    "%s", numerics_mod.NUMERICS_ENV, exc)
+        self.models.append(Tree.single_leaf(0.0))
+        self._linear.append(None)
+        if self.route.stream:
+            self.grow.reset_stream()
+
+    def _check_numerics(self, cegb_before: Optional[torch.Tensor]) -> None:
+        """The guard's count of the tree just grown, read once: raise
+        ``NumericalFault`` (``raise``) or ``NumericsSkip`` (``skip``) on
+        a non-finite value, lazy CEGB's paid mask put back first."""
+        bad = int(self.grow.last_numerics_bad)
+        if not bad:
+            return
+        if cegb_before is not None:
+            self._cegb_paid = cegb_before
+        if self._numerics == "raise":
+            raise numerics_mod.NumericalFault("grad/hess/leaf/gain",
+                                              self.iter_, bad)
+        raise numerics_mod.NumericsSkip("grad/hess/leaf/gain", self.iter_,
+                                        bad)
+
     def _train_one_tree(self, grad, hess, inbag, c: int, init_score: float
                         ) -> Optional[Tree]:
         """Grow class ``c``'s tree, refit its leaves where the objective
         asks, add its shrunk outputs to the scores and finish it; None
         when it is a stump."""
+        sentinel = self._numerics in ("raise", "skip")
+        cegb_before = (self._cegb_paid.clone()
+                       if sentinel and self._cegb_paid is not None else None)
         # the shrinkage rate is read per call: the stream route adds the
         # tree's outputs to the rows' scores with it; the tree's draws
         # take the salt iteration * K + class
@@ -728,6 +811,8 @@ class GBDT:
             grad, hess, inbag, self._feature_mask(), rate=self.shrinkage_rate,
             tree_seed=self.iter_ * self.num_tree_per_iteration + c,
             paid=self._cegb_paid)
+        if sentinel and self._numerics_in_grow:
+            self._check_numerics(cegb_before)
         nl = int(ta.num_leaves)
         if nl <= 1:
             first_round = ((self.num_init_iteration + 1)
@@ -901,6 +986,90 @@ class GBDT:
         reset = getattr(self.grow, "reset_stream", None)
         if self.route.stream and reset is not None:
             reset()
+
+    # ------------------------------------------------------------------
+    # checkpoint / resume (resilience/checkpoint.py)
+    def checkpoint_state(self) -> dict:
+        """The boosting state a ckpt/v1 snapshot holds beside the forest
+        (JAX ``checkpoint_state``): the [K, n] f32 training scores as
+        they are (scores predicted again from the trees are not the same
+        bits), the feature-fraction RNG's state and the small counters.
+        The bagging and GOSS draws are threefry functions of seed x
+        iteration and are drawn again at restore."""
+        return {
+            "iteration": int(self.iter_),
+            "train_score": self.scores.detach().cpu().numpy().astype(
+                np.float32),
+            "rng_feature": self._rng_feature.bit_generator.state,
+            "shrinkage_rate": float(self.shrinkage_rate),
+            "class_need_train": [bool(b) for b in self._class_need_train],
+            "cegb_paid": (None if self._cegb_paid is None
+                          else self._cegb_paid.cpu().numpy()),
+        }
+
+    def restore_checkpoint_state(self, models: List[Tree], *, iteration: int,
+                                 train_score, rng_feature=None,
+                                 shrinkage_rate=None, class_need_train=None,
+                                 cegb_paid=None) -> None:
+        """Install a ckpt/v1 snapshot (JAX ``restore_checkpoint_state``):
+        the forest and every piece of run state, so that the next
+        iteration grows the tree the uninterrupted run grew.  Works on a
+        fresh booster and on a live one (the current state is dropped):
+        the carried rows are rebuilt in original order from the restored
+        scores, the mid-cycle bagging mask is drawn again and the
+        validation scores are replayed from the trees."""
+        k = self.num_tree_per_iteration
+        score = train_score.astype(np.float32)     # a copy, host numpy
+        if score.shape != tuple(self.scores.shape):
+            raise ValueError(f"checkpoint score shape {score.shape} does not "
+                             f"match this run's {tuple(self.scores.shape)}")
+        self._undo = None
+        self._cached_bag = None
+        self.models, self._linear = [], []
+        for t in models:
+            if t.num_leaves > 1:
+                self._rebin_tree(t)
+            self.models.append(t)
+            self._linear.append(self._linear_params_of(t))
+        self.iter_ = int(iteration)
+        self.num_init_iteration = max(len(models) // k - self.iter_, 0)
+        self.scores = torch.as_tensor(score, device=self.device)
+        if rng_feature is not None:
+            self._rng_feature.bit_generator.state = rng_feature
+        if shrinkage_rate is not None:
+            self.shrinkage_rate = float(shrinkage_rate)
+        if class_need_train is not None:
+            self._class_need_train = [bool(b) for b in class_need_train]
+        if cegb_paid is not None:
+            self._cegb_paid = torch.as_tensor(cegb_paid, device=self.device)
+        cfg = self.config
+        if bagging_on(cfg) and self.iter_ % cfg.bagging_freq != 0:
+            # the mask the uninterrupted run still holds mid-cycle
+            self._bagging_mask(self.iter_ - self.iter_ % cfg.bagging_freq)
+        reset = getattr(self.grow, "reset_stream", None)
+        if reset is not None:
+            reset()
+        for vs in self.valid_sets:
+            self._replay_valid(vs)
+
+    def _reanchor_physical(self) -> None:
+        """Put the carried row order back to the original (JAX
+        ``_reanchor_physical``, ``gbdt.py:804-830``).  The histograms add
+        rows in the order the rows are carried, so after every save the
+        surviving process and a process resuming from the snapshot must
+        hold them in the same order: the rows are dropped and rebuilt at
+        the next tree (``reset_stream``), or under
+        ``LGBM_TPU_CKPT_AT_REFRESH=1`` on the stream route rebuilt at once
+        from their own bins (``reanchor_inplace``).  The row-order path
+        carries no order: nothing to do."""
+        reset = getattr(self.grow, "reset_stream", None)
+        if reset is None:
+            return
+        if env_knob("LGBM_TPU_CKPT_AT_REFRESH") == "1":
+            inplace = getattr(self.grow, "reanchor_inplace", None)
+            if inplace is not None and inplace():
+                return
+        reset()
 
     # ------------------------------------------------------------------
     def training_scores(self) -> torch.Tensor:

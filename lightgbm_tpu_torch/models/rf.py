@@ -67,15 +67,13 @@ class RF(GBDT):
         self._check_explicit(explicit)
         self._keep_undo()
         if explicit:
-            grad, hess = self.explicit_gradients(gradients, hessians)
-            with self.timer.stage("sample", self.device):
-                grad, hess, inbag = self._sample(grad, hess, self.iter_)
-        else:
-            grad, hess, inbag = self._sampled_gradients()
+            gradients, hessians = self.explicit_gradients(gradients,
+                                                          hessians)
+        grad, hess, inbag = self._sampled_gradients(gradients, hessians)
         grew = False
         for c in range(self.num_tree_per_iteration):
-            if self._train_one_tree(grad[c], hess[c], inbag, c,
-                                    float(self._rf_init[c])) is not None:
+            if self._tree_or_skip(grad[c], hess[c], inbag, c,
+                                  float(self._rf_init[c])):
                 grew = True
         self.iter_ += 1
         return not grew

@@ -127,6 +127,7 @@ import numpy as np
 import torch
 
 from ..objective.regression import blocked_cumsum
+from ..resilience import numerics
 from ..utils.random import fold_in, prng_key, uniform_rows
 from .apply_find import (BB, BCAT, BF, BG, SC, SDEP, SG, SH, SMN, SMX,
                          SOUT, SPAR, ChildSearch, SplitAt, TreeState,
@@ -848,6 +849,28 @@ class SerialGrower(_Grower):
         booster's scores behind the rows' back)."""
         self.rows = self.scratch = self._root_hist = None
 
+    def reanchor_inplace(self) -> bool:
+        """Stream route, ``LGBM_TPU_CKPT_AT_REFRESH=1`` (JAX
+        ``reanchor_inplace``, ``grow.py:2536-2560``): put the carried rows
+        back in original row order without dropping them: their bins
+        scattered back by their row ids (plain PyTorch), then the stream
+        init over them and the booster's scores, the same bits a process
+        resuming from the snapshot builds.  The carried root histogram
+        goes (its sums follow the row order).  False off the stream route
+        or before the first tree, where the caller resets instead."""
+        if not self.route.stream or self.rows is None:
+            return False
+        fields = self.rows.fields()
+        bins = torch.empty_like(self.dd.bins)
+        bins[fields.rid.long()] = fields.bins
+        score, valid, consts = self._stream_aux()
+        self.rows = self.ops.stream_init(
+            bins, score.contiguous(), valid.contiguous(), consts.contiguous(),
+            kind=self.stream.kind, sigmoid=self.stream.sigmoid)
+        self.scratch = self.ops.empty_like(self.rows)
+        self._root_hist = None
+        return True
+
     def _init_rows(self) -> None:
         dd = self.dd
         if self.route.stream:
@@ -971,6 +994,48 @@ class SerialGrower(_Grower):
                 else:
                     self.ops.refresh_plain(rows, lv, **kw)
         return ta, leaf_id, leaf_value
+
+
+class NumericsGuard:
+    """The opt-in NaN / Inf sentinel around a grower (JAX
+    ``_NumericsGuard``, ``grow.py:2718-2775``; the policies in
+    ``resilience/numerics.py``).  ``clamp`` sanitizes the grad / hess a
+    route hands in before the grow (the stream route has none and is
+    refused); ``raise`` / ``skip`` grow first, then keep
+    ``last_numerics_bad``: the non-finite values of grad, hess and the
+    tree's leaf values on the device, plus its split gains', one scalar
+    that the booster reads where it decides.  ``off`` builds no guard.
+    Every other attribute is the wrapped grower's."""
+
+    def __init__(self, grow, policy: str):
+        if policy not in numerics.POLICIES or policy == "off":
+            raise ValueError(f"a numerics guard takes raise, skip or clamp, "
+                             f"not {policy!r}")
+        if policy == "clamp" and grow.route.stream:
+            raise ValueError(
+                "LGBM_TPU_NUMERICS=clamp cannot guard score-resident "
+                "streaming (gradients refresh in the row matrix and never "
+                "pass the grow entry); use raise/skip or set "
+                "LGBM_TPU_STREAM=0")
+        self._grow = grow
+        self.numerics_policy = policy
+        self.last_numerics_bad: Optional[torch.Tensor] = None
+
+    def __call__(self, grad, hess, inbag, feature_mask, **kw):
+        if self.numerics_policy == "clamp":
+            grad, hess = numerics.sanitize(grad, hess)
+            return self._grow(grad, hess, inbag, feature_mask, **kw)
+        out = self._grow(grad, hess, inbag, feature_mask, **kw)
+        ta, _, leaf_value = out
+        seen = [leaf_value] if grad is None else [grad, hess, leaf_value]
+        bad = numerics.count_bad(*seen)
+        gains = int(np.count_nonzero(~np.isfinite(ta.split_gain)))
+        self.last_numerics_bad = bad + gains if gains else bad
+        return out
+
+    def __getattr__(self, name):
+        # reached only when the guard has no such attribute
+        return getattr(self._grow, name)
 
 
 class RowOrderGrower(_Grower):

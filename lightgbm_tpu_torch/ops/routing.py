@@ -84,6 +84,7 @@ holds the rules against.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 from dataclasses import dataclass, field, replace
@@ -322,6 +323,17 @@ class RouteDecision:
         if not self.physical:
             return "row_order"
         return "stream" if self.stream else "physical"
+
+    def digest(self) -> str:
+        """12 hex digits naming the engaged route's fields that change
+        the rows' order or the arithmetic (path, stream, pack, fused,
+        tail, partition scheme; not the reasons): the identity a
+        checkpoint's resume is held to (JAX ``routing.py:351``)."""
+        ident = {"path": self.path, "stream": self.stream,
+                 "pack": self.pack, "fused": self.fused, "tail": self.tail,
+                 "scheme": self.scheme}
+        return hashlib.sha256(
+            json.dumps(ident, sort_keys=True).encode()).hexdigest()[:12]
 
     def describe(self) -> str:
         """``path=.. fused=.. tail=.. (reasons)``; the scheme is named

@@ -1,8 +1,9 @@
 """The root-histogram refresh on the card, two commits in turns in one
 process: ``chip_smoke.refresh_times`` (1,000,000 rows x 28
 features, B = 256, both packs; each commit's refresh beside its plain
-refresh and ``hist_comb``'s root over [0, n), eager and as one replay
-of a graph of 20 calls).
+refresh, its init and ``hist_comb``'s root over [0, n), eager, as one
+replay of a graph of 20 calls, and from device memory after an L2 flush
+by a write and by a read).
 
     python -m lightgbm_tpu_torch.tools.profile_refresh \\
         [--parent-root DIR] [--turns 2]

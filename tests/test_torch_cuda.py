@@ -64,6 +64,11 @@ card and the CPU at geometric, skewed and even leaf sizes, an empty
 leaf and kmax 1 to 800, and replayed in a graph; refit's leaves on f64
 rows that flip under f32 rounding are the host walk's, its leaf values
 the CPU refit's bit for bit.
+The pack=1 stream init and plain refresh (slice 27) bitwise their plain
+versions at 1, 3, 4,097 and 1,000,003 rows, 5, 28, 36 and 136 features,
+both objectives and a pointer off a 16-byte boundary; a stream-route run
+killed after its snapshot and resumed on the card byte for byte the
+uninterrupted run, with the in-place re-anchor and without.
 Trees grown on the card equal the CPU run's (structure, and leaf values
 within 1e-5 of the tree's largest leaf; bit for bit on the default,
 row-order and 3ph routes), and the default route's equal slice 2's
@@ -80,7 +85,8 @@ from chip_smoke import (apply_find_parity, compare_trees,
                         make_rows, pack2_cases, partition_3ph_parity,
                         partition_parity, random_model_text,
                         random_row_matrix, refresh_plain_parity, rows_on,
-                        score_tolerance, stream_parity, tail_parity)
+                        score_tolerance, stream_parity, stream_shape_cases,
+                        tail_parity)
 from lightgbm_tpu_torch.ops import predict as tpred
 from lightgbm_tpu_torch.ops import serve_kernel as tkern
 
@@ -2404,3 +2410,39 @@ def test_parallel_learners_card_equal_cpu(cuda):
     for name in PARALLEL_LEARNERS:
         assert (ranks[0][f"{name}_cuda"]["text"]
                 == ranks[0][f"{name}_cpu"]["text"]), name
+
+
+# -- slice 27: the init and plain refresh redesigned; resilience ----------
+@pytest.mark.parametrize("n,f,kind,offset", stream_shape_cases())
+def test_stream_init_and_plain_refresh_at_odd_shapes(cuda, n, f, kind,
+                                                     offset):
+    """Both kernels bitwise their plain versions at row counts off a
+    group of 4 rows and a block of 256, at 5, 28, 36 and 136 features,
+    and on pointers 4 bytes past a 16-byte boundary (the init's 4-byte
+    path)."""
+    from chip_smoke import stream_shape_parity
+    rec = stream_shape_parity(n, f, kind, cuda, offset=offset)
+    torch.cuda.synchronize()
+    assert rec["ok"], rec
+
+
+@pytest.mark.parametrize("at_refresh", ["0", "1"])
+def test_kill_resume_on_the_card(cuda, at_refresh, tmp_path):
+    """A stream-route run stopped after its snapshot at iteration 2 and
+    resumed to 6 on the card: model text and raw f32 scores byte for
+    byte the uninterrupted run's."""
+    from chip_smoke import (RES_PARAMS, ckpt_env, resilience_data,
+                            resilience_train, same_run)
+    rows = 20_000
+    x, y = resilience_data(rows)
+    ds = lgt.Dataset(x, label=y)
+    extra = {"LGBM_TPU_CKPT_AT_REFRESH": at_refresh}
+    ref = resilience_train(RES_PARAMS, rows, 6,
+                           ckpt_env(tmp_path / "ref", **extra), "cuda", ds)
+    resilience_train(RES_PARAMS, rows, 3, ckpt_env(tmp_path / "ck", **extra),
+                     "cuda", ds)
+    got = resilience_train(RES_PARAMS, rows, 6,
+                           ckpt_env(tmp_path / "ck", **extra), "cuda", ds)
+    assert got._inner.route.stream and got.resumed_from == 2
+    rec = same_run(got, ref)
+    assert rec["model_text_identical"] and rec["raw_scores_identical"], rec
