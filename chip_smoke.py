@@ -338,7 +338,17 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    kernels of no knob at all (counters and a profiler trace); a save's
    ``stream_init`` at 200,000 rows timed; printed as ``resilience
    {...}``;
-21. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
+21. the public edges (slice 28, ``edges_phase``): ``pred_contrib`` of
+   the main path's 10 trees on 65,536 holdout rows through the
+   ``tree_shap`` kernel (counted, bitwise its plain version on 1,024
+   rows and 2 trees, each row's sum against its f64 raw score, timed
+   eager and in a graph beside the plain version and the bound) and of
+   the categorical default route's model; ``pred_early_stop`` bitwise
+   the f64 host computation; an ``LGBMClassifier`` at 1M rows (its
+   launches, trees and probabilities against the main path's); the CLI
+   (``task=train`` from a 1M-row CSV, ``predict``, ``convert_model``
+   compiled with ``g++``);
+22. one JSON line ``{"kernels": [...]}`` with each kernel's launches,
    parity and times (``multiclass_launches`` on the multiclass main
    path, ``sampling_launches`` on the three sampling main paths,
    ``ranking_launches``, ``split_options_launches`` on the split
@@ -496,6 +506,57 @@ def random_model_text(*, n_trees: int, num_leaves: int, n_features: int,
                        for i in range(n_features)],
         max_feature_idx=n_features - 1,
         param_string=loaded_param_string(num_class))
+    return save_model_to_string(model)
+
+
+def chain_model_text(depth: int, n_features: int, seed: int) -> str:
+    """LightGBM model text of two chain trees of ``depth`` splits (each
+    split's left child a leaf, its right child the next split): tree 0
+    splits on feature ``i`` at level ``i`` (a unique depth of ``depth``,
+    ``n_features >= depth``), tree 1 on feature ``i % 7`` (every level
+    after the seventh takes a feature the path has).  Thresholds near
+    -2 send most rows of ``make_rows`` deep; missing types and default
+    directions as ``random_model_text``'s."""
+    from lightgbm_tpu_torch.models.model_text import (loaded_param_string,
+                                                      save_model_to_string)
+    from lightgbm_tpu_torch.models.tree import Tree
+    rng = np.random.default_rng(seed)
+    mt = feature_missing_types(n_features, seed)
+    trees = []
+    for period in (n_features, 7):
+        ni, nl = depth, depth + 1
+        t = Tree(num_leaves=nl)
+        t.split_feature = np.arange(ni, dtype=np.int32) % period
+        t.threshold = rng.uniform(-2.5, -1.5, ni)
+        t.threshold_bin = np.zeros(ni, np.int32)
+        t.decision_type = np.array(
+            [(int(mt[f]) << 2) | (int(mt[f] == 2 and rng.random() < 0.5
+                                      or mt[f] == 1 and t.threshold[i] >= 0)
+                                  << 1)
+             for i, f in enumerate(t.split_feature)], np.uint8)
+        t.split_gain = rng.uniform(0.1, 10.0, ni)
+        t.left_child = ~np.arange(ni, dtype=np.int32)
+        t.right_child = np.append(np.arange(1, ni, dtype=np.int32),
+                                  np.int32(~ni))
+        t.internal_value = rng.normal(0, 0.1, ni)
+        t.internal_weight = rng.uniform(1, 100, ni)
+        t.leaf_value = rng.normal(0, 0.1, nl)
+        t.leaf_weight = rng.uniform(1, 10, nl)
+        t.leaf_count = rng.integers(20, 200, nl)
+        # each node's count its subtree's leaves'
+        t.internal_count = np.cumsum(t.leaf_count[::-1])[::-1][:ni].copy()
+        t.num_cat = 0
+        t.cat_boundaries = np.array([0], np.int32)
+        t.cat_threshold = np.zeros(0, np.uint32)
+        t.shrinkage = 0.1
+        trees.append(t)
+    model = types.SimpleNamespace(
+        models=trees, num_class=1, num_tree_per_iteration=1,
+        objective="binary sigmoid:1", average_output=False,
+        feature_names=[f"Column_{i}" for i in range(n_features)],
+        feature_infos=["[-4:4]"] * n_features,
+        max_feature_idx=n_features - 1,
+        param_string=loaded_param_string(1))
     return save_model_to_string(model)
 
 
@@ -5215,7 +5276,8 @@ def cat_phases(gpu: str) -> list:
     word mode launched on its route, served through
     serve_traverse and held against the f64 host walk; the word modes
     timed beside their one-hot modes.  Returns the five word modes'
-    kernel records."""
+    kernel records and the default route's model text and first
+    EDGE_ROWS holdout rows (for :func:`edges_phase`)."""
     import lightgbm_tpu_torch as lgt
     parity = cat_word_parity(gpu)
     lap("categorical/word parity")
@@ -5347,7 +5409,9 @@ def cat_phases(gpu: str) -> list:
             train_parity_bitwise=parities[key]["ok"]))
     recs[0]["categorical_runs"] = summary
     recs[0]["train_parity"] = {k: r["ok"] for k, r in parities.items()}
-    return recs
+    cat = {"model": bsts["default"].model_to_string(),
+           "xv": np.asarray(xv[:EDGE_ROWS])}
+    return recs, cat
 
 
 # -- Slice 19: multiclass training and the regression and cross-entropy
@@ -8023,6 +8087,417 @@ def resilience_phase(gpu: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------
+# Slice 28: the public edges (pred_contrib on the card, pred_early_stop,
+# the scikit-learn estimators, the CLI and convert_model)
+EDGE_ROWS = 65_536             # the holdout rows of pred_contrib and early stop
+SHAP_SUM_RTOL = 1e-9           # of the largest |raw score|
+SHAP_SRC = "lightgbm_tpu_torch/csrc/tree_shap.cu"
+SHAP_REPLACES = ("none: lightgbm_tpu/models/shap.py:97 (TreeSHAP on the "
+                 "host, a Python recursion a row)")
+# the f64 operations of one step of an unwound sum (the kernel's inner
+# loop: (i + 1) o, nop (d + 1), the quotient, the sum, tmp z, the
+# fraction, its product and the difference)
+SHAP_OPS_PER_STEP = 8
+SHAP_REPS = 3
+ES_FREQ, ES_MARGIN = 2, 1.0
+SK_ITERS = 3
+CLI_ITERS = 3
+CLI_DIR = "lightgbm_tpu_torch/build/cli"
+CONVERT_ROWS = 16
+CSV_WORKERS = 8
+
+_CSV_ROWS = {}
+
+
+def _csv_chunk(span) -> str:
+    """The CSV lines of rows ``span`` of the matrix ``_CSV_ROWS`` holds
+    (a worker of :func:`write_csv`)."""
+    lo, hi = span
+    cols = _CSV_ROWS["m"][lo:hi].astype(str)
+    return "\n".join(",".join(r) for r in cols.tolist()) + "\n"
+
+
+def write_csv(path: str, y: np.ndarray, x: np.ndarray) -> float:
+    """``y`` then the f32 columns of ``x`` as CSV lines (each value's
+    shortest repr, which reads back to the same f32), formatted by
+    CSV_WORKERS forked processes; returns the seconds it took."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    t0 = time.perf_counter()
+    _CSV_ROWS["m"] = np.column_stack([y.astype(np.float32), x])
+    n = x.shape[0]
+    step = -(-n // CSV_WORKERS)
+    spans = [(lo, min(lo + step, n)) for lo in range(0, n, step)]
+    try:
+        with cf.ProcessPoolExecutor(CSV_WORKERS,
+                                    mp_context=mp.get_context("fork")) as ex:
+            parts = list(ex.map(_csv_chunk, spans))
+    finally:
+        _CSV_ROWS.clear()
+    with open(path, "w") as f:
+        f.writelines(parts)
+    return time.perf_counter() - t0
+
+
+def unique_depths(t) -> list:
+    """Each leaf's unique depth: the distinct split features on its
+    path (the length of its TreeSHAP path)."""
+    if t.num_leaves <= 1:
+        return [0]
+    out, stack = [], [(0, frozenset())]
+    while stack:
+        node, feats = stack.pop()
+        if node < 0:
+            out.append(len(feats))
+            continue
+        feats = feats | {int(t.split_feature[node])}
+        stack += [(int(t.left_child[node]), feats),
+                  (int(t.right_child[node]), feats)]
+    return out
+
+
+def shap_bound(trees, n: int, f: int, width: int) -> dict:
+    """The least time of one ``tree_shap`` call: the larger of its bytes
+    (the f64 rows read once, the nodes' 32 bytes and the leaves' 16,
+    the categorical words, the contributions written once) at
+    PEAK_BYTES_S and its f64 operations (SHAP_OPS_PER_STEP a step of
+    each leaf's unwound sums, the unique depth squared a leaf, a row and
+    a tree) at PEAK_F64_OPS_S."""
+    steps = sum(d * d for t in trees for d in unique_depths(t))
+    nodes = sum(max(t.num_leaves - 1, 0) for t in trees)
+    leaves = sum(t.num_leaves for t in trees)
+    words = sum(len(t.cat_threshold) for t in trees)
+    rec = {"bound_bytes": n * f * 8 + nodes * 32 + leaves * 16 + words * 4
+           + n * width * 8,
+           "bound_ops": n * steps * SHAP_OPS_PER_STEP,
+           "unwound_steps_per_row": steps}
+    by_bytes = rec["bound_bytes"] / PEAK_BYTES_S
+    by_ops = rec["bound_ops"] / PEAK_F64_OPS_S
+    rec["bound_ms"] = max(by_bytes, by_ops) * 1e3
+    rec["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    return rec
+
+
+def host_raw(bst, x: np.ndarray) -> np.ndarray:
+    """``[n]`` f64 raw scores of a one-class booster from the f64 host
+    walk (``pred_leaf``'s leaves and the leaf values, in tree order)."""
+    raw = np.zeros(x.shape[0])
+    for t in bst._models:
+        raw = raw + t.leaf_value[t.predict_leaf(x)]
+    return raw
+
+
+def shap_times(fn) -> tuple:
+    """(eager, graph) milliseconds of one call: ``_time_ms`` over
+    SHAP_REPS calls, and one replay of a graph of SHAP_REPS calls
+    (median of 3) over SHAP_REPS."""
+    from lightgbm_tpu_torch.tools.profile_lib import graph_ms
+
+    def many():
+        for _ in range(SHAP_REPS):
+            fn()
+    eager = _time_ms(fn, SHAP_REPS)
+    graph, g = graph_ms(many, reps=3, warmup=1)
+    del g
+    return eager, graph / SHAP_REPS
+
+
+def shap_case(gpu: str, bst, x: np.ndarray, label: str,
+              time_it: bool = False) -> dict:
+    """``pred_contrib`` of a one-class CUDA booster, every tree of it, on
+    the rows ``x``: ``Booster.predict(pred_contrib=True)`` counted (it
+    must launch ``tree_shap``) and held bit for bit against the plain
+    version on the card on the same rows and trees (timed once); every
+    row's contributions summed against its f64 raw score from the host
+    walk within SHAP_SUM_RTOL of the largest ``|raw|``; under ``time_it``
+    the kernel's eager and graph times beside the bound, its timed
+    output held against the plain version too.  Raises on any
+    failure."""
+    import torch
+
+    from lightgbm_tpu_torch.models.shap import tree_depth, tree_shap_ref
+    from lightgbm_tpu_torch.ops.shap_kernel import (pack_shap_forest,
+                                                    tree_shap)
+    n, f = x.shape
+    nf = bst.num_feature()
+    trees = len(bst._models)
+    x64 = np.ascontiguousarray(x, np.float64)
+    tree_shap.launches = 0
+    t0 = time.perf_counter()
+    contrib = bst.predict(x64, pred_contrib=True)
+    predict_s = time.perf_counter() - t0
+    launches = tree_shap.launches
+    raw = host_raw(bst, x64)
+    sum_err = float(np.abs(contrib.sum(axis=1) - raw).max())
+    tol = SHAP_SUM_RTOL * float(np.abs(raw).max())
+    forest = pack_shap_forest(bst._models, 1, nf, iters=trees,
+                              average=False, device="cuda")
+    xd = torch.as_tensor(x64, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = tree_shap_ref(forest.trees, 1, nf, forest.ev, xd, trees, False)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    want_np = want.cpu().numpy()
+    rec = {"case": label, "rows": n, "features": f, "trees": trees,
+           "current_iteration": bst.current_iteration(),
+           "max_leaves": max(t.num_leaves for t in bst._models),
+           "max_depth": max(tree_depth(t) for t in bst._models),
+           "launches": launches, "predict_s": predict_s,
+           "shape": list(contrib.shape), "finite": bool(
+               np.isfinite(contrib).all()),
+           "sum_max_abs_err": sum_err, "sum_tol": tol,
+           "bitwise_plain": bool(np.array_equal(contrib, want_np)),
+           "max_abs_err": float(np.abs(contrib - want_np).max()),
+           "plain_ms": plain_ms}
+    ok = [launches > 0, rec["finite"], sum_err <= tol, rec["bitwise_plain"],
+          rec["shape"] == [n, nf + 1], rec["current_iteration"] == trees]
+    if time_it:
+        got = tree_shap(forest, xd)
+        rec["timed_bitwise_plain"] = torch_equal(got, want)
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 float((got - want).abs().max()))
+        rec["ms"], rec["graph_ms"] = shap_times(
+            lambda: tree_shap(forest, xd))
+        rec.update(shap_bound(bst._models, n, f, nf + 1))
+        ok.append(rec["timed_bitwise_plain"])
+    rec["ok"] = all(ok)
+    rec["gpu"] = gpu
+    print(f"pred_contrib {label} " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"pred_contrib {label} fails: {rec}")
+    return rec
+
+
+def early_stop_case(gpu: str, bst, x: np.ndarray) -> dict:
+    """``pred_early_stop`` (freq ES_FREQ, margin ES_MARGIN) of the main
+    path's booster, every tree of it, on the rows ``x``: counted (it must
+    launch ``serve_traverse`` for the leaves), against the f64 host
+    computation from ``pred_leaf``'s leaves, bit for bit; the share of
+    rows that stopped."""
+    from lightgbm_tpu_torch.ops.serve_kernel import serve_traverse
+    x64 = np.ascontiguousarray(x, np.float64)
+    serve_traverse.launches = 0
+    t0 = time.perf_counter()
+    got = bst.predict(x64, raw_score=True, pred_early_stop=True,
+                      pred_early_stop_freq=ES_FREQ,
+                      pred_early_stop_margin=ES_MARGIN)
+    s = time.perf_counter() - t0
+    launches = serve_traverse.launches
+    leaves = bst.predict(x64, pred_leaf=True)
+    raw = np.zeros(x.shape[0])
+    active = np.ones(x.shape[0], bool)
+    for j, t in enumerate(bst._models):
+        raw[active] += t.leaf_value[leaves[active, j]]
+        if (j + 1) % ES_FREQ == 0:
+            active &= 2.0 * np.abs(raw) < ES_MARGIN
+    full = host_raw(bst, x64)
+    rec = {"rows": x.shape[0], "freq": ES_FREQ, "margin": ES_MARGIN,
+           "bitwise_host": bool(np.array_equal(got, raw)),
+           "stopped_share": float(1.0 - active.mean()),
+           "differs_from_full_share": float(np.mean(got != full)),
+           "serve_traverse_launches": launches, "predict_s": s, "gpu": gpu}
+    rec["ok"] = rec["bitwise_host"] and launches > 0
+    print("pred_early_stop " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"pred_early_stop differs from the host: {rec}")
+    return rec
+
+
+def trees_block(text: str) -> str:
+    """The trees of a model text (from ``Tree=0`` to ``end of trees``)."""
+    return text[text.index("Tree=0"):text.index("end of trees")]
+
+
+def sklearn_case(gpu: str, higgs: dict) -> dict:
+    """An ``LGBMClassifier`` with the main path's parameters fit on its
+    1M rows for SK_ITERS iterations with the holdout as ``eval_set``, on
+    the card: its route's launches against ``expected_launches``, its
+    trees the main-path booster's first SK_ITERS (model text), its
+    ``predict_proba`` the booster's ``predict`` at SK_ITERS iterations,
+    bit for bit."""
+    from lightgbm_tpu_torch.sklearn import LGBMClassifier
+    x, xv, yv = higgs["x"], higgs["xv"], higgs["yv"]
+    y = np.asarray(higgs["ds"].get_label())
+    counted = counted_training_kernels()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    clf = LGBMClassifier(n_estimators=SK_ITERS, device="cuda",
+                         **TRAIN_PARAMS)
+    clf.fit(x, y, eval_set=[(xv, yv)])
+    fit_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    bst = clf.booster_
+    models = bst._models
+    route = bst._inner.grow.route
+    expect = expected_launches(route, len(models),
+                               sum(t.num_leaves - 1 for t in models))
+    wrong = {k: (launches[k], v) for k, v in expect.items()
+             if launches[k] != v}
+    proba = clf.predict_proba(xv)
+    want = higgs["bst"].predict(xv, num_iteration=SK_ITERS)
+    rec = {"rows": x.shape[0], "iterations": SK_ITERS,
+           "route": route.describe(), "fit_s": fit_s,
+           "launches": {k: v for k, v in launches.items() if v},
+           "launches_as_expected": not wrong,
+           "trees_equal_main_path": trees_block(bst.model_to_string())
+           == trees_block(higgs["bst"].model_to_string(
+               num_iteration=SK_ITERS)),
+           "proba_equal_predict": bool(np.array_equal(proba[:, 1], want)),
+           "proba_shape": list(proba.shape),
+           "valid_auc": clf.evals_result_["valid_0"]["auc"],
+           "feature_importances_sum": int(clf.feature_importances_.sum()),
+           "gpu": gpu}
+    rec["ok"] = (rec["launches_as_expected"] and rec["trees_equal_main_path"]
+                 and rec["proba_equal_predict"]
+                 and route.describe().startswith("path=stream fused=1"))
+    print("sklearn " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"the sklearn estimator fails: {rec} {wrong}")
+    return rec
+
+
+CONVERT_MAIN = """#include <cstdio>
+#include "model.cpp"
+int main() {
+  double row[%d];
+  double out[1];
+  while (scanf("%%lf", &row[0]) == 1) {
+    for (int j = 1; j < %d; ++j) {
+      if (scanf("%%lf", &row[j]) != 1) return 1;
+    }
+    lightgbm_tpu_model::PredictRaw(row, out);
+    printf("%%.17g\\n", out[0]);
+  }
+  return 0;
+}
+"""
+
+
+def cli_case(gpu: str, higgs: dict) -> dict:
+    """The CLI on the card, in-process (``application.Application``):
+    ``task=train`` (255 leaves, CLI_ITERS iterations) on the 1M training
+    rows written as CSV (writing and parsing it took 15 s on the card's
+    host, under the 20 s past which a ``task=save_binary`` cache would
+    stand in for it), ``task=predict`` on the holdout's CSV (bitwise the
+    booster's ``predict`` of the f32 rows), ``task=convert_model``
+    compiled with ``g++`` and run on CONVERT_ROWS rows (bitwise the f64
+    host walk, within 1e-6 of ``predict``'s raw scores)."""
+    import shutil
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.application import Application
+    d = Path(CLI_DIR).resolve()
+    if d.exists():
+        shutil.rmtree(d)
+    d.mkdir(parents=True)
+    x, xv, yv = higgs["x"], higgs["xv"], higgs["yv"]
+    y = np.asarray(higgs["ds"].get_label())
+    rec = {"rows": x.shape[0], "gpu": gpu}
+    try:
+        train_csv, valid_csv = str(d / "train.csv"), str(d / "holdout.csv")
+        rec["write_train_csv_s"] = write_csv(train_csv, y, x)
+        rec["write_holdout_csv_s"] = write_csv(valid_csv, yv, xv)
+        rec["train_csv_bytes"] = os.path.getsize(train_csv)
+        t1 = time.perf_counter()
+        model = str(d / "model.txt")
+        dev = ["device_type=gpu"]
+        Application(dev + ["task=train", f"data={train_csv}",
+                     "objective=binary", f"num_leaves={TRAIN_LEAVES}",
+                     "max_bin=255", f"num_iterations={CLI_ITERS}",
+                     f"output_model={model}", "verbosity=-1"]).run()
+        t2 = time.perf_counter()
+        pred = str(d / "pred.txt")
+        Application(dev + ["task=predict", f"data={valid_csv}",
+                     f"input_model={model}", f"output_result={pred}"]).run()
+        t3 = time.perf_counter()
+        cpp = d / "model.cpp"
+        Application(["task=convert_model", f"input_model={model}",
+                     f"convert_model={cpp}"]).run()
+        (d / "main.cpp").write_text(CONVERT_MAIN % (N_FEATURES, N_FEATURES))
+        exe = d / "pred"
+        subprocess.run(["g++", "-O1", "-o", str(exe), str(d / "main.cpp")],
+                       check=True, cwd=d, timeout=300)
+        rows = np.asarray(xv[:CONVERT_ROWS], np.float64)
+        inp = "\n".join(" ".join(repr(float(v)) for v in r) for r in rows)
+        res = subprocess.run([str(exe)], input=inp, capture_output=True,
+                             text=True, check=True, timeout=60)
+        t4 = time.perf_counter()
+        got_cpp = np.array([float(s) for s in res.stdout.split()])
+        bst = lgt.Booster(model_file=model, device="cuda")
+        served = bst.predict(xv)
+        cli_pred = np.loadtxt(pred)
+        rec.update({
+            "train_s": t2 - t1,
+            "predict_s": t3 - t2, "convert_compile_run_s": t4 - t3,
+            "trees": len(bst._models),
+            "holdout_auc": _weighted_auc_np(yv.astype(np.float64),
+                                            bst.predict(xv, raw_score=True)),
+            "predict_equal_booster": bool(np.array_equal(cli_pred, served)),
+            "convert_rows": CONVERT_ROWS,
+            "convert_bitwise_host": bool(np.array_equal(
+                got_cpp, host_raw(bst, rows))),
+            "convert_max_abs_err_predict": float(np.abs(
+                got_cpp - bst.predict(rows, raw_score=True)).max())})
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rec["ok"] = (rec["trees"] == CLI_ITERS and rec["predict_equal_booster"]
+                 and rec["convert_bitwise_host"]
+                 and rec["convert_max_abs_err_predict"] <= 1e-6
+                 and rec["holdout_auc"] > 0.5)
+    print("cli " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise RuntimeError(f"the CLI fails: {rec}")
+    return rec
+
+
+def edges_phase(gpu: str, higgs: dict, cat: dict) -> tuple:
+    """Slice 28: ``pred_contrib`` of the main path's booster as the
+    earlier phases left it (its TRAIN_ITERS trees, the profiled
+    iteration's and the one regrown after ``rollback_check``: 255 leaves
+    each) on EDGE_ROWS holdout rows through the ``tree_shap`` kernel
+    (counted, timed eager and in a graph beside its plain version and its
+    bound, bitwise its plain version, summing to the f64 raw scores) and
+    of the categorical default route's model on its holdout;
+    ``pred_early_stop``; the scikit-learn classifier; the CLI and
+    ``convert_model``.  Returns (the kernel's record, the phase's
+    summary)."""
+    import lightgbm_tpu_torch as lgt
+    xv = higgs["xv"][:EDGE_ROWS]
+    bst = higgs["bst"]
+    main = shap_case(gpu, bst, xv, "main path", time_it=True)
+    cat_bst = lgt.Booster(model_str=cat["model"], device="cuda")
+    cat_rec = shap_case(gpu, cat_bst, cat["xv"][:EDGE_ROWS],
+                        "categorical default route")
+    lap("edges/pred_contrib")
+    es = early_stop_case(gpu, bst, xv)
+    sk = sklearn_case(gpu, higgs)
+    lap("edges/early stop and sklearn")
+    cli = cli_case(gpu, higgs)
+    summary = {"pred_contrib": main, "pred_contrib_categorical": cat_rec,
+               "pred_early_stop": es, "sklearn": sk, "cli": cli}
+    rec = _kernel_record(
+        "tree_shap", SHAP_SRC, SHAP_REPLACES, main["launches"],
+        main["max_abs_err"], main["ms"], main["plain_ms"],
+        main["bound_bytes"], main["bound_ops"], gpu,
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None,
+        library_call="none: no PyTorch call computes TreeSHAP",
+        graph_ms=main["graph_ms"], rows=main["rows"], trees=main["trees"],
+        max_depth=main["max_depth"],
+        bitwise_plain=main["bitwise_plain"],
+        sum_max_abs_err=main["sum_max_abs_err"],
+        categorical_launches=cat_rec["launches"],
+        timed_bitwise_plain=main["timed_bitwise_plain"],
+        categorical_bitwise_plain=cat_rec["bitwise_plain"],
+        categorical_max_abs_err=cat_rec["max_abs_err"],
+        categorical_sum_max_abs_err=cat_rec["sum_max_abs_err"])
+    print("kernel tree_shap " + json.dumps(rec), flush=True)
+    return rec, summary
+
+
 def _weighted_auc_np(y, raw) -> float:
     from lightgbm_tpu_torch.metric.metrics import _weighted_auc
     return float(_weighted_auc(y, raw, None))
@@ -8111,7 +8586,8 @@ def main() -> int:
     tail["wide_launches"] = wide["mono"]["launches"]
     tail["parity_cases"].append(wide["mono"]["tail"])
     tail["monotone_runs"]["wide"] = wide["mono"]
-    kernels += cat_phases(gpu)
+    cat_recs, cat = cat_phases(gpu)
+    kernels += cat_recs
     lap("categorical")
     objectives = multiclass_phases(gpu)
     lap("multiclass and objectives")
@@ -8131,6 +8607,8 @@ def main() -> int:
     lap("api")
     res = resilience_phase(gpu)
     lap("resilience")
+    shap_rec, edges = edges_phase(gpu, higgs, cat)
+    lap("edges")
     # the launches of the multiclass, sampling, ranking and split-option
     # routes, and of the pack=2 parity runs
     mc, mc2 = (objectives["multiclass"]["launches"],
@@ -8179,7 +8657,11 @@ def main() -> int:
                 for name in ("stream", "stream_at_refresh")}
             k["resilience_saves"] = RES_ITERS // RES_EVERY
             k["save_ms"] = res["save_stream_init_ms"]
-    kernels += [linear_rec, dp_rec]
+    for k in kernels:
+        if k["name"] == "serve_traverse":
+            k["pred_early_stop_launches"] = edges["pred_early_stop"][
+                "serve_traverse_launches"]
+    kernels += [linear_rec, dp_rec, shap_rec]
     kernels += probes
     if not analysis["checked_in_report_current"]:
         raise RuntimeError(

@@ -17,8 +17,14 @@ The training API is the JAX package's: custom objectives (a callable
 ``reset_parameter``, ``Booster.refit`` (the rows' leaves from the
 traversal kernel's leaf entry), ``dump_model`` and
 ``feature_importance``; ``Dataset`` takes dense, scipy sparse,
-``Sequence`` and text-file input and the binary cache.  The package
-imports neither JAX nor ``lightgbm_tpu``.
+``Sequence`` and text-file input and the binary cache.  So are its
+public edges: ``Booster.predict(pred_contrib=True)`` (TreeSHAP in the
+CUDA kernel ``csrc/tree_shap.cu``) and ``pred_early_stop``, the
+scikit-learn estimators (``LGBMClassifier`` and the others, which take
+``device=``), the CLI (``python -m lightgbm_tpu_torch config=train.conf``,
+``application.py``), the C API (``c_api.py``) and the plots
+(``plotting.py``, with matplotlib).  The package imports neither JAX nor
+``lightgbm_tpu``.
 """
 from .basic import Booster, Dataset, Sequence
 from .callback import (early_stopping, log_evaluation, record_evaluation,
@@ -34,3 +40,19 @@ __all__ = ["Booster", "Dataset", "Sequence", "train", "cv", "CVBooster",
            "reset_parameter", "ServingModel",
            "ServingEngine", "ServingQueue", "LightGBMError",
            "register_log_callback", "set_verbosity"]
+
+try:  # the estimators stand on plain bases without scikit-learn
+    from .sklearn import (LGBMClassifier, LGBMModel, LGBMRanker,
+                          LGBMRegressor)
+    __all__ += ["LGBMModel", "LGBMClassifier", "LGBMRegressor", "LGBMRanker"]
+except ImportError:  # pragma: no cover
+    pass
+
+try:  # plotting imports matplotlib and graphviz inside each function
+    from .plotting import (create_tree_digraph, plot_importance, plot_metric,
+                           plot_split_value_histogram, plot_tree)
+    __all__ += ["plot_importance", "plot_metric",
+                "plot_split_value_histogram", "plot_tree",
+                "create_tree_digraph"]
+except ImportError:  # pragma: no cover
+    pass

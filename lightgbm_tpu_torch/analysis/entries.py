@@ -32,6 +32,7 @@ from ..ops import legacy_probes as lp
 from ..ops import linear_kernel as lk
 from ..ops import probes as pr
 from ..ops import serve_kernel as sk
+from ..ops import shap_kernel as shk
 from ..ops import stream_grad as sg
 from ..ops.device_data import RecordLayout
 from ..ops import partition_kernel as pk
@@ -309,6 +310,22 @@ def _linear():
               vec_arg("out", "float64", (LEAVES, e), 8)),
         wrapper="linear_kernel.linear_moments", replaces=src,
         export=("linear_moments_chain_smem_bytes", ())))
+
+
+# -- TreeSHAP (pred_contrib) -----------------------------------------------------
+def _shap():
+    """``tree_shap`` at ``pred_contrib``'s main path: a 65,536-row bucket
+    of f64 rows x 28 features, one thread a row, the contributions [n,
+    F + 1] f64; the path scratch is global memory the wrapper sizes from
+    the forest's depth."""
+    register_kernel(KernelEntry(
+        name="tree_shap", source="tree_shap", symbol="tree_shap_kernel",
+        block=_block(shk.THREADS), dyn_smem=0,
+        args=(vec_arg("x", "float64", (BUCKET, F), 8),
+              vec_arg("out", "float64", (BUCKET, F + 1), 8)),
+        wrapper="shap_kernel.tree_shap",
+        replaces="lightgbm_tpu/models/shap.py:97 (host recursion, no "
+                 "kernel)"))
 
 
 def hist_comb_wide_entry(fc: int = None) -> KernelEntry:
@@ -714,7 +731,7 @@ def _fixture_kernels():
         replaces=f"{FIXTURES_DIR}/bad_host_ast.py:21"))
 
 
-for _register in (_serve, _hist, _linear, _partition, _fused, _cat_modes,
+for _register in (_serve, _hist, _linear, _shap, _partition, _fused, _cat_modes,
                   _apply_find, _stream,
                   _probes, _legacy_probes, _fixture_kernels):
     _register()

@@ -22,7 +22,10 @@ trees predicts through the traversal kernel's leaf entry and adds each
 tree's leaf models on the device in f64, in tree order.
 ``rollback_one_iter`` drops the last iteration; ``refit`` refits the
 leaf values on new rows, their leaves from the traversal kernel's leaf
-entry.  SHAP contributions come with a later slice.
+entry.  ``pred_contrib`` gives the SHAP contributions (the ``tree_shap``
+kernel, ``models/shap.py``); ``pred_early_stop`` stops adding a row's
+trees once its margin passes the threshold, on the f64 leaves of
+:func:`refit_leaves`.
 """
 from __future__ import annotations
 
@@ -47,6 +50,12 @@ from .resilience import faults
 from .utils import log
 from .utils.device import resolve_device
 from .utils.log import LightGBMError
+
+
+# the objectives whose predictions may stop early (LightGBM's
+# ObjectiveFunction::NeedAccuratePrediction is false for them)
+EARLY_STOP_OBJECTIVES = ("binary", "multiclass", "multiclassova",
+                         "lambdarank", "rank_xendcg")
 
 
 def _to_numpy_2d(data) -> np.ndarray:
@@ -475,17 +484,16 @@ class Booster:
         pred_contrib: bool = False,
         **kwargs,
     ) -> np.ndarray:
-        if pred_contrib:
-            if self._is_linear():
-                raise LightGBMError(
-                    "pred_contrib is not supported for linear trees")
-            raise LightGBMError(
-                "pred_contrib (SHAP) is not ported to lightgbm_tpu_torch "
-                "yet (see ROADMAP.md)")
-        if kwargs.get("pred_early_stop", False):
-            raise LightGBMError(
-                "pred_early_stop is not ported to lightgbm_tpu_torch yet "
-                "(see ROADMAP.md)")
+        """Predictions of the rows ``data`` (JAX ``basic.py:498-584``).
+        ``pred_contrib`` gives the SHAP contributions (``[n, k (F +
+        1)]``, each class's expected value last).  ``pred_early_stop``
+        (with ``pred_early_stop_freq`` and ``pred_early_stop_margin``,
+        the config's 10 and 10.0 unless given) stops adding trees to a
+        row whose margin (``2 |score|``, or the top two classes' gap)
+        reaches the margin, checked every ``freq`` iterations; it applies
+        to the classification and ranking objectives only (LightGBM's
+        ``NeedAccuratePrediction``) and refuses an rf model or a custom
+        objective."""
         arr = _to_numpy_2d(data)
         models = self._models
         k = self._k
@@ -504,10 +512,24 @@ class Booster:
                     out[:, (it - start_iteration) * k + kk] = \
                         t.predict_leaf(arr)
             return out
+        if pred_contrib:
+            if self._is_linear():
+                raise LightGBMError(
+                    "pred_contrib is not supported for linear trees")
+            from .models.shap import predict_contrib
+            return predict_contrib(self, arr, start_iteration, end)
 
-        raw = (self._linear_raw(arr, start_iteration, end)
-               if self._is_linear() else
-               self._serve_raw(arr, start_iteration, end))
+        if self._early_stops(kwargs):
+            raw = self._early_stop_raw(
+                arr, start_iteration, end,
+                int(kwargs.get("pred_early_stop_freq",
+                               Config.pred_early_stop_freq)),
+                float(kwargs.get("pred_early_stop_margin",
+                                 Config.pred_early_stop_margin)))
+        elif self._is_linear():
+            raw = self._linear_raw(arr, start_iteration, end)
+        else:
+            raw = self._serve_raw(arr, start_iteration, end)
         if self._average_output:
             raw /= max(end - start_iteration, 1)
         if raw_score:
@@ -583,6 +605,72 @@ class Booster:
                 out[j % k] += torch.as_tensor(t.leaf_value,
                                               device=self.device)[leaf]
         return out.cpu().numpy()
+
+    def _early_stops(self, kwargs) -> bool:
+        """Whether ``pred_early_stop`` applies: asked for, and the model's
+        objective one of classification or ranking (others predict in
+        full, as LightGBM's predictor does); an rf model or a custom
+        objective refuses, as LightGBM's documentation says."""
+        if not kwargs.get("pred_early_stop", False):
+            return False
+        obj = self._objective_str.split(" ")[0]
+        if self._average_output:
+            raise LightGBMError("pred_early_stop cannot be used with rf "
+                                "boosting")
+        if obj in ("", "none", "custom"):
+            raise LightGBMError("pred_early_stop cannot be used with a "
+                                "custom objective")
+        if obj not in EARLY_STOP_OBJECTIVES:
+            log.warning("pred_early_stop is used only in classification "
+                        "and ranking; objective %s predicts in full", obj)
+            return False
+        return True
+
+    def _early_stop_raw(self, arr, start, end, freq: int,
+                        margin: float) -> np.ndarray:
+        """Raw scores [k, n] f64 with prediction early stopping
+        (reference predictor.hpp / pred_early_stop.cpp; JAX
+        ``basic.py:556-584``): every row's leaves as the f64 host walk
+        finds them (:func:`refit_leaves`), each tree's outputs added on
+        the device in tree order while the row is active; every ``freq``
+        iterations a row whose margin (``2 |score|`` for one class, the
+        top two scores' gap for several) reaches ``margin`` stops."""
+        from .models.linear import linear_leaf_output, linear_params
+        dev = self.device
+        k = max(self._k, 1)
+        trees = self._models[start * k:end * k]
+        n = arr.shape[0]
+        raw = torch.zeros((k, n), dtype=torch.float64, device=dev)
+        if not trees:
+            return raw.cpu().numpy()
+        leaves = torch.as_tensor(
+            refit_leaves(self, arr, start=start, end=end), device=dev).long()
+        x = torch.as_tensor(arr, dtype=torch.float64, device=dev)
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+        freq = max(freq, 1)
+        for it in range(end - start):
+            for c in range(k):
+                j = it * k + c
+                t = trees[j]
+                if t.is_linear:
+                    val = linear_leaf_output(
+                        leaves[:, j], x,
+                        linear_params(t.leaf_features, t.leaf_coeff,
+                                      t.leaf_const, t.leaf_value, dev))
+                else:
+                    val = torch.as_tensor(t.leaf_value,
+                                          device=dev)[leaves[:, j]]
+                raw[c] = torch.where(active, raw[c] + val, raw[c])
+            if (it + 1) % freq == 0:
+                if k == 1:
+                    m = 2.0 * raw[0].abs()
+                else:
+                    top = torch.topk(raw, 2, dim=0).values
+                    m = top[0] - top[1]
+                active &= m < margin
+                if not bool(active.any()):
+                    break
+        return raw.cpu().numpy()
 
     def _serve_raw(self, arr, start, end) -> np.ndarray:
         """Compiled-forest raw scores in [k, n] f64.  Inputs are cast
@@ -713,18 +801,23 @@ def _is_f32(data) -> bool:
     return getattr(data, "dtype", None) == np.float32
 
 
-def refit_leaves(booster: Booster, X: np.ndarray,
-                 f32_input: bool = False) -> np.ndarray:
-    """``[n, T]`` each row's leaf in each tree of ``booster``, as the f64
-    host walk (``Tree.predict_leaf``) finds it.  The traversal kernel's
-    leaf entry (a ``leaves_only`` serving model) casts the rows to f32
-    as serving does, so it takes every row equal to its f32 rounding
-    (NaN included); the rows that are not, whose value and its rounding
-    may lie on two sides of a threshold, take the host walk.
-    ``f32_input`` (the caller's data was f32) skips the test."""
+def refit_leaves(booster: Booster, X: np.ndarray, f32_input: bool = False,
+                 start: int = 0, end: Optional[int] = None) -> np.ndarray:
+    """``[n, T]`` each row's leaf in each tree of ``booster``'s
+    iterations ``[start, end)`` (all by default), as the f64 host walk
+    (``Tree.predict_leaf``) finds it.  The traversal kernel's leaf entry
+    (a ``leaves_only`` serving model) casts the rows to f32 as serving
+    does, so it takes every row equal to its f32 rounding (NaN
+    included); the rows that are not, whose value and its rounding may
+    lie on two sides of a threshold, take the host walk.  ``f32_input``
+    (the caller's data was f32) skips the test."""
     from .serve import ServingEngine, ServingModel
     dev = booster.device
-    sm = ServingModel.from_booster(booster, device=dev, leaves_only=True)
+    k = max(booster._k, 1)
+    end = len(booster._models) // k if end is None else end
+    sm = ServingModel.from_booster(booster, start_iteration=start,
+                                   end_iteration=end, device=dev,
+                                   leaves_only=True)
     leaves = ServingEngine(sm, device=dev).predict_leaves(X)
     if f32_input:
         return leaves
@@ -732,8 +825,8 @@ def refit_leaves(booster: Booster, X: np.ndarray,
     off = np.flatnonzero(~np.all((x32 == X) | np.isnan(X), axis=1))
     if off.size:
         xo = X[off]
-        leaves[off] = np.stack([t.predict_leaf(xo)
-                                for t in booster._models], axis=1)
+        leaves[off] = np.stack([t.predict_leaf(xo) for t in
+                                booster._models[start * k:end * k]], axis=1)
     return leaves
 
 

@@ -515,13 +515,22 @@ class Config:
 
         cfg = cls()
         valid_names = set(cls.param_names())
+        explicit = []
         for k, v in merged.items():
             if k not in valid_names:
                 log.warning("Unknown parameter: %s", k)
                 continue
             setattr(cfg, k, _coerce(cls, k, v))
+            explicit.append(k)
+        cfg._explicit = explicit
         cfg.check_conflicts()
         return cfg
+
+    def explicit_params(self) -> Dict[str, Any]:
+        """The parameters the caller set (canonical names), as the JAX
+        package's ``Config.explicit_params``: what the CLI forwards to
+        ``train``."""
+        return {k: getattr(self, k) for k in getattr(self, "_explicit", [])}
 
     # ------------------------------------------------------------------
     def check_conflicts(self) -> None:

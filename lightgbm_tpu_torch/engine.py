@@ -65,8 +65,9 @@ def train(
     callable ``params["objective"]`` is ``fobj(preds, train_set) ->
     (grad, hess)``; ``feval`` (one or a list) adds custom metrics.
     ``init_model`` (a ``Booster``, a model file or a model string)
-    continues training: its trees are kept, its raw predictions are the
-    dataset's init score where it has none, and a model with linear
+    continues training: its trees are kept, its raw predictions from all
+    of them (not only to its best iteration) are the dataset's init
+    score where it has none, and a model with linear
     trees makes ``linear_tree`` the default.  ``keep_training_booster``
     is accepted and, as in the JAX package, changes nothing."""
     params, fobj = _split_fobj(params)
@@ -77,8 +78,9 @@ def train(
     predictor = _init_predictor(init_model, train_set, params, device)
     if (predictor is not None and train_set.init_score is None
             and train_set.data is not None):
-        train_set.set_init_score(_init_scores(
-            predictor.predict(train_set.data, raw_score=True)))
+        train_set.set_init_score(_init_scores(predictor.predict(
+            train_set.data, raw_score=True,
+            num_iteration=predictor.current_iteration())))
     booster = Booster(params=params, train_set=train_set, device=device,
                       timer=timer)
     _keep_trees(booster, predictor)
@@ -160,7 +162,10 @@ def train(
         # consecutive attempts, not a long run's transient faults
         attempt = 0
     if booster.best_iteration <= 0:
-        booster.best_iteration = booster.current_iteration()
+        # best_iteration stays unset unless early stopping set it, as in
+        # LightGBM: predict and model_to_string then take every
+        # iteration, those grown later by update() included (the JAX
+        # package pins it to the last iteration here; ROADMAP C)
         _record_best(booster, evaluation_result_list)
     return booster
 
@@ -406,8 +411,9 @@ def cv(
             raise LightGBMError("cv's init_model needs the raw data to "
                                 "predict: construct the Dataset with "
                                 "free_raw_data=False")
-        init_raw = np.asarray(predictor.predict(train_set.data,
-                                                raw_score=True), np.float64)
+        init_raw = np.asarray(predictor.predict(
+            train_set.data, raw_score=True,
+            num_iteration=predictor.current_iteration()), np.float64)
     train_set.construct()
     if stratified and cfg.objective not in ("binary", "multiclass",
                                             "multiclassova"):

@@ -10,9 +10,10 @@ an unchanged one loads the library already there.  The build is ``nvcc
 no PyTorch headers, so a source builds in seconds.  No source gets
 ``--use_fast_math`` or ``-ftz=true``.  The sources whose arithmetic must
 equal PyTorch's operation by operation (the gradient formulas, the split
-gains, the linear-leaf moments) also get ``-fmad=false`` (:data:`SOURCE_FLAGS`), so ``nvcc``
-contracts no ``a * b + c`` into an ``fma``.  :func:`build` starts one
-``nvcc`` per missing source, all at once.
+gains, the linear-leaf moments, TreeSHAP) also get ``-fmad=false``
+(:data:`SOURCE_FLAGS`), so ``nvcc`` contracts no ``a * b + c`` into an
+``fma``.  :func:`build` starts one ``nvcc`` per missing source, all at
+once.
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("serve_traverse", "hist_comb", "partition", "stream_grad",
            "fused_split", "apply_find", "hist_rows", "partition_3ph",
-           "linear_fit", "analysis_fixtures", "probes", "legacy_probes")
+           "linear_fit", "tree_shap", "analysis_fixtures", "probes",
+           "legacy_probes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per-source flags added to NVCC_FLAGS
@@ -38,6 +40,7 @@ SOURCE_FLAGS: Dict[str, tuple] = {
     "stream_grad": ("-fmad=false",),
     "apply_find": ("-fmad=false",),
     "linear_fit": ("-fmad=false",),
+    "tree_shap": ("-fmad=false",),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -23,3 +23,10 @@ def resolve_device(device="cuda") -> torch.device:
         raise LightGBMError(f"unsupported device {device!r}: use 'cuda' "
                             "or 'cpu'")
     return dev
+
+
+def device_from_params(device_type) -> str:
+    """The device of an entry point that takes only strings (the CLI,
+    the C API): ``device_type=cpu`` (alias ``device``) is the CPU, any
+    other value, ``Config``'s default ``"tpu"`` included, the card."""
+    return "cpu" if str(device_type).strip().lower() == "cpu" else "cuda"

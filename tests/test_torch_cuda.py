@@ -2446,3 +2446,123 @@ def test_kill_resume_on_the_card(cuda, at_refresh, tmp_path):
     assert got._inner.route.stream and got.resumed_from == 2
     rec = same_run(got, ref)
     assert rec["model_text_identical"] and rec["raw_scores_identical"], rec
+
+
+# -- slice 28: TreeSHAP on the card, pred_early_stop ----------------------
+def _shap_model(case: str):
+    """(model text, rows) of a ``test_tree_shap_matches_plain`` case."""
+    from chip_smoke import chain_model_text
+    if case == "chain":
+        return chain_model_text(45, 50, seed=3), make_rows(3000, 50, 3)
+    cats = (1, 4) if case in ("categorical", "multiclass") else ()
+    k = 3 if case == "multiclass" else 1
+    text = random_model_text(n_trees=4 * k, num_leaves=255, n_features=8,
+                             seed=60 + k, cat_features=cats, num_class=k)
+    x = make_rows(3000, 8, 60 + k, cats)
+    x[:5] = np.nan
+    return text, x
+
+
+@pytest.mark.parametrize("case,scratch", [
+    ("binary", None), ("categorical", None), ("multiclass", None),
+    ("chain", None), ("categorical", 1 << 20)])
+def test_tree_shap_matches_plain(cuda, case, scratch, monkeypatch):
+    """tree_shap bitwise its plain version on the card and on the CPU,
+    through ``Booster.predict(pred_contrib=True)`` (which launches it),
+    on random 255-leaf forests with NaN, zero-as-missing and categorical
+    splits, three classes, a 45-deep chain, and a scratch budget that
+    cuts the rows into several launches."""
+    from chip_smoke import torch_equal
+    from lightgbm_tpu_torch.models.shap import tree_shap_ref
+    from lightgbm_tpu_torch.ops import shap_kernel as sk
+    if scratch:
+        monkeypatch.setattr(sk, "SCRATCH_BYTES", scratch)
+    text, x = _shap_model(case)
+    bst = lgt.Booster(model_str=text, device=cuda)
+    before = sk.tree_shap.launches
+    got = bst.predict(x, pred_contrib=True)
+    launched = sk.tree_shap.launches - before
+    forest = sk.pack_shap_forest(bst._models, bst._k, bst.num_feature(),
+                                 bst.current_iteration(), False, cuda)
+    want = tree_shap_ref(forest.trees, forest.k, forest.nf, forest.ev,
+                         torch.as_tensor(x, dtype=torch.float64,
+                                         device=cuda),
+                         forest.iters, False)
+    cpu = lgt.Booster(model_str=text, device="cpu").predict(
+        x, pred_contrib=True)
+    assert torch_equal(torch.as_tensor(got), want.cpu())
+    assert np.array_equal(got, cpu)
+    rows = -(-len(x) // sk.chunk_rows(forest.max_depth, forest.nf, len(x)))
+    assert launched == rows and (scratch is None or rows > 1)
+
+
+def test_pred_contrib_sums_to_the_raw_scores_on_the_card(cuda):
+    """A model trained on the card (a categorical feature, 63 leaves):
+    each row's contributions sum to its f64 raw score within 1e-9 of the
+    largest, and equal the CPU booster's bit for bit.  (The random
+    forests' data counts are not their children's sums, so their rows do
+    not sum to their scores.)"""
+    from chip_smoke import host_raw
+    x, y = make_higgs_like(20_000, 8, seed=9)
+    x[:, 3] = np.floor(np.abs(x[:, 3]) * 5)
+    bst = lgt.train({"objective": "binary", "num_leaves": 63,
+                     "verbosity": -1},
+                    lgt.Dataset(x, label=y, categorical_feature=[3]), 5,
+                    device="cuda")
+    xr = np.asarray(x[:3000], np.float64)
+    got = bst.predict(xr, pred_contrib=True)
+    raw = host_raw(bst, xr)
+    assert np.abs(got.sum(axis=1) - raw).max() <= 1e-9 * np.abs(raw).max()
+    cpu = lgt.Booster(model_str=bst.model_to_string(), device="cpu")
+    assert np.array_equal(got, cpu.predict(xr, pred_contrib=True))
+
+
+def test_tree_shap_in_a_graph_and_its_layout(cuda):
+    """A replayed graph of tree_shap equals the eager call; the
+    library's scratch size a row is the wrapper's; a forest packed on
+    the card refuses CPU rows and f32 rows, a CPU forest CUDA rows."""
+    from chip_smoke import torch_equal
+    from lightgbm_tpu_torch.ops import shap_kernel as sk
+    from lightgbm_tpu_torch.tools.profile_lib import capture
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    text, x = _shap_model("categorical")
+    bst = lgt.Booster(model_str=text, device=cuda)
+    forest = sk.pack_shap_forest(bst._models, 1, bst.num_feature(),
+                                 bst.current_iteration(), False, cuda)
+    xd = torch.as_tensor(x, dtype=torch.float64, device=cuda)
+    eager = sk.tree_shap(forest, xd)
+    out = {}
+    graph = capture(lambda: out.update(v=sk.tree_shap(forest, xd)),
+                    warmup=1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch_equal(out["v"], eager)
+    for d in (0, 7, 45, 254):
+        for nf in (8, 28, 136):
+            assert sk._lib().tree_shap_row_bytes(d, nf) == sk.row_bytes(d, nf)
+    assert sk._lib().tree_shap_threads() == sk.THREADS
+    with pytest.raises(LightGBMError):
+        sk.tree_shap(forest, xd.cpu())
+    with pytest.raises(LightGBMError):
+        sk.tree_shap(forest, xd.float())
+    host = sk.pack_shap_forest(bst._models, 1, bst.num_feature(),
+                               bst.current_iteration(), False, "cpu")
+    with pytest.raises(LightGBMError):
+        sk.tree_shap(host, xd)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_pred_early_stop_equals_the_cpu(cuda, k):
+    """pred_early_stop on the card bit for bit the CPU booster's (the
+    f64 leaves, the tree-order sums, the margins), and it stops rows."""
+    text = random_model_text(n_trees=12 * k, num_leaves=31, n_features=8,
+                             seed=70 + k, num_class=k)
+    x = make_rows(2000, 8, 70 + k)
+    kw = dict(raw_score=True, pred_early_stop=True, pred_early_stop_freq=2,
+              pred_early_stop_margin=0.3)
+    got = lgt.Booster(model_str=text, device=cuda).predict(x, **kw)
+    cpu = lgt.Booster(model_str=text, device="cpu").predict(x, **kw)
+    full = lgt.Booster(model_str=text, device="cpu").predict(
+        x, raw_score=True)
+    assert np.array_equal(got, cpu)
+    assert not np.allclose(got, full)

@@ -293,10 +293,12 @@ def test_booster_multiclass_and_unported_options():
     np.testing.assert_allclose(pb.predict(x), jb.predict(x), rtol=0,
                                atol=1e-6)
     assert pb.predict(x, raw_score=True).shape == (200, 3)
-    with pytest.raises(lgt.LightGBMError, match="ROADMAP"):
-        pb.predict(x, pred_contrib=True)
-    with pytest.raises(lgt.LightGBMError, match="ROADMAP"):
-        pb.predict(x, pred_early_stop=True)
+    # pred_contrib and pred_early_stop, refused before slice 28, now run
+    # (their parity with the JAX package: tests/test_torch_shap.py)
+    assert pb.predict(x, pred_contrib=True).shape == (200, 3 * 9)
+    es = dict(raw_score=True, pred_early_stop=True, pred_early_stop_freq=1,
+              pred_early_stop_margin=0.5)
+    np.testing.assert_array_equal(pb.predict(x, **es), jb.predict(x, **es))
     with pytest.raises(lgt.LightGBMError, match="query information"):
         lgt.Booster(params={"objective": "lambdarank", "verbosity": -1},
                     train_set=lgt.Dataset(x, label=np.arange(200) % 3),
